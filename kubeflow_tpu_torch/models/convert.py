@@ -33,12 +33,17 @@ def llama_params_from_jax(params_np, cfg: LlamaConfig) -> dict:
     The flax trunk is an `nn.scan`, so every `layers/...` leaf carries a
     leading L axis. DenseGeneral kernels are [in..., out...]; nn.Linear
     weights are [out, in], hence the transposes. Projections and the
-    embedding come out in cfg.dtype, norm scales in fp32. Raises on any
-    leaf that is missing or left over."""
+    embedding come out in cfg.storage_dtype (cfg.param_dtype, or cfg.dtype
+    when that is None), norm scales in fp32. Raises on any leaf that is
+    missing or left over.
+
+    The layout transforms are linear, so the same call maps a JAX
+    GRADIENT tree (same structure as the params) onto the port's
+    parameter names: that is how the tests compare gradients."""
     flat = _flatten(params_np)
     d, v = cfg.hidden_size, cfg.vocab_size
     h, kh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    dt, f32 = cfg.dtype, torch.float32
+    dt, f32 = cfg.storage_dtype, torch.float32
     used = set()
 
     def take(path, dtype, shape):

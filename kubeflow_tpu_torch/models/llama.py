@@ -1,14 +1,18 @@
-"""Llama-class decoder-only transformer in PyTorch (serving forward).
+"""Llama-class decoder-only transformer in PyTorch (serving and training).
 
 The port of `kubeflow_tpu/models/llama.py`: GQA, RoPE (with llama3 scaling),
-SwiGLU MLP, RMSNorm, tied or untied head, and the KV-cache calling
-convention the serving engine drives — prefill (S > 1 at cache_index 0),
-single-token decode, and continuation chunks (`attend_full_cache`).
+SwiGLU MLP, RMSNorm, tied or untied head, the KV-cache calling convention
+the serving engine drives — prefill (S > 1 at cache_index 0), single-token
+decode, and continuation chunks (`attend_full_cache`) — and the training
+forward with per-block rematerialisation.
 
-Weights live in `cfg.dtype` (bf16 when serving): the JAX model keeps fp32
+Where weights live is `cfg.param_dtype`: None (the default) stores them in
+`cfg.dtype`, the serving layout (bf16 weights: the JAX model keeps fp32
 params but casts them to bf16 right before every matmul, so storing them in
-bf16 computes the same function. RMSNorm scales stay fp32. The scanned
-trunk is an `nn.ModuleList`.
+bf16 computes the same forward); torch.float32 stores fp32 master weights
+and casts them to `cfg.dtype` at each use, as the JAX config's
+param_dtype=float32 does (the trainer sets it). RMSNorm scales are fp32
+either way. The scanned trunk is an `nn.ModuleList`.
 
 Differences from the JAX twin, by design:
   * the KV cache is updated IN PLACE (a functional copy of a multi-GB
@@ -27,6 +31,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from kubeflow_tpu_torch.ops.flash_attention import MaskSpec, flash_attention
 from kubeflow_tpu_torch.ops.reference import naive_attention
@@ -57,6 +62,15 @@ class LlamaConfig:
     rms_eps: float = 1e-5
     tie_embeddings: bool = False
     dtype: Any = torch.bfloat16
+    # Storage dtype of the projections and the embedding: None = `dtype`
+    # (serving); torch.float32 = fp32 master weights cast to `dtype` at
+    # each use (training, the JAX default). Norm scales are always fp32.
+    param_dtype: Any = None
+    # Per-block rematerialisation while grad is enabled (the JAX nn.remat
+    # of each DecoderLayer): policy "nothing" recomputes the whole block in
+    # the backward. The other JAX policies are refused by name.
+    remat: bool = True
+    remat_policy: str = "nothing"
     # Flags of other model families and of later slices. They exist so a
     # config that sets one is refused by name (`_check_supported`).
     attention_bias: bool = False
@@ -85,12 +99,19 @@ class LlamaConfig:
     mask_prefix: int = 0
 
     def __post_init__(self):
-        if isinstance(self.dtype, str):
-            try:
-                object.__setattr__(self, "dtype", _DTYPES[self.dtype])
-            except KeyError:
-                raise ValueError(f"dtype {self.dtype!r}: one of "
-                                 f"{sorted(_DTYPES)}") from None
+        for field in ("dtype", "param_dtype"):
+            val = getattr(self, field)
+            if isinstance(val, str):
+                try:
+                    object.__setattr__(self, field, _DTYPES[val])
+                except KeyError:
+                    raise ValueError(f"{field} {val!r}: one of "
+                                     f"{sorted(_DTYPES)}") from None
+
+    @property
+    def storage_dtype(self):
+        """The dtype projections and the embedding are stored in."""
+        return self.dtype if self.param_dtype is None else self.param_dtype
 
     @property
     def mask_spec(self):
@@ -119,7 +140,7 @@ def llama_tiny(vocab: int = 512) -> LlamaConfig:
     return LlamaConfig(
         vocab_size=vocab, hidden_size=64, intermediate_size=128, num_layers=2,
         num_heads=4, num_kv_heads=2, head_dim=16, max_seq_len=128,
-        flash_block_q=64, flash_block_kv=64)
+        remat=False, flash_block_q=64, flash_block_kv=64)
 
 
 def llama_1b() -> LlamaConfig:
@@ -127,6 +148,9 @@ def llama_1b() -> LlamaConfig:
         vocab_size=32768, hidden_size=2048, intermediate_size=5632,
         num_layers=16, num_heads=16, num_kv_heads=8, head_dim=128,
         max_seq_len=2048)
+
+
+_UNPORTED_REMAT_POLICIES = ("dots", "dots_no_batch", "save_attn")
 
 
 def _check_supported(cfg: LlamaConfig) -> None:
@@ -149,7 +173,14 @@ def _check_supported(cfg: LlamaConfig) -> None:
         (cfg.attention_impl not in ("auto", "naive", "flash"),
          f"attention_impl={cfg.attention_impl!r} (ring/zigzag attention "
          "over a device mesh)"),
+        (cfg.remat and cfg.remat_policy in _UNPORTED_REMAT_POLICIES,
+         f"remat_policy={cfg.remat_policy!r} (only 'nothing': whole-block "
+         "recompute)"),
     ]
+    if cfg.remat and cfg.remat_policy not in (
+            "nothing", *_UNPORTED_REMAT_POLICIES):
+        raise ValueError(f"remat_policy {cfg.remat_policy!r}: one of "
+                         f"{['nothing', *_UNPORTED_REMAT_POLICIES]}")
     for bad, what in refused:
         if bad:
             raise NotImplementedError(f"{what} is not supported by this "
@@ -232,16 +263,30 @@ def _update_cache(cache_k, cache_v, k, v, index):
     cache_v[batch, rows] = v.to(cache_v.dtype)
 
 
+class Dense(nn.Linear):
+    """A bias-free nn.Linear stored in `cfg.storage_dtype` and applied in
+    `cfg.dtype` (flax DenseGeneral with dtype and param_dtype). With equal
+    dtypes the cast is a no-op and this is nn.Linear."""
+
+    def __init__(self, cfg: LlamaConfig, in_features: int,
+                 out_features: int, device):
+        super().__init__(in_features, out_features, bias=False,
+                         dtype=cfg.storage_dtype, device=device)
+        self.compute_dtype = cfg.dtype
+
+    def forward(self, x):
+        return F.linear(x, self.weight.to(self.compute_dtype))
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: LlamaConfig, device):
         super().__init__()
         self.cfg = cfg
         d, dh = cfg.hidden_size, cfg.head_dim
-        kw = dict(bias=False, dtype=cfg.dtype, device=device)
-        self.q_proj = nn.Linear(d, cfg.num_heads * dh, **kw)
-        self.k_proj = nn.Linear(d, cfg.num_kv_heads * dh, **kw)
-        self.v_proj = nn.Linear(d, cfg.num_kv_heads * dh, **kw)
-        self.o_proj = nn.Linear(cfg.num_heads * dh, d, **kw)
+        self.q_proj = Dense(cfg, d, cfg.num_heads * dh, device)
+        self.k_proj = Dense(cfg, d, cfg.num_kv_heads * dh, device)
+        self.v_proj = Dense(cfg, d, cfg.num_kv_heads * dh, device)
+        self.o_proj = Dense(cfg, cfg.num_heads * dh, d, device)
 
     def forward(self, x, cos, sin, positions, standard_positions=True,
                 cache=None, cache_index=None, segment_ids=None,
@@ -295,11 +340,10 @@ class Attention(nn.Module):
 class MLPBlock(nn.Module):
     def __init__(self, cfg: LlamaConfig, device):
         super().__init__()
-        kw = dict(bias=False, dtype=cfg.dtype, device=device)
         d, i = cfg.hidden_size, cfg.intermediate_size
-        self.gate_proj = nn.Linear(d, i, **kw)
-        self.up_proj = nn.Linear(d, i, **kw)
-        self.down_proj = nn.Linear(i, d, **kw)
+        self.gate_proj = Dense(cfg, d, i, device)
+        self.up_proj = Dense(cfg, d, i, device)
+        self.down_proj = Dense(cfg, i, d, device)
 
     def forward(self, x):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
@@ -329,7 +373,10 @@ class Llama(nn.Module):
 
     `device` defaults to CUDA and raises when CUDA is absent; pass
     device="cpu" to run on the CPU. Parameters are allocated, not
-    initialised: load a state dict or call `init_weights(seed)`."""
+    initialised: load a state dict or call `init_weights(seed)`. With
+    `cfg.remat` and grad enabled, each DecoderLayer runs under
+    `torch.utils.checkpoint` (its forward, flash kernel included, runs
+    again in the backward)."""
 
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
@@ -337,14 +384,14 @@ class Llama(nn.Module):
         device = resolve_device(device)
         self.cfg = cfg
         self.embed = nn.Parameter(torch.empty(
-            cfg.vocab_size, cfg.hidden_size, dtype=cfg.dtype, device=device))
+            cfg.vocab_size, cfg.hidden_size, dtype=cfg.storage_dtype,
+            device=device))
         self.layers = nn.ModuleList(DecoderLayer(cfg, device)
                                     for _ in range(cfg.num_layers))
         self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, cfg.dtype,
                                   device)
-        self.lm_head = (None if cfg.tie_embeddings else nn.Linear(
-            cfg.hidden_size, cfg.vocab_size, bias=False, dtype=cfg.dtype,
-            device=device))
+        self.lm_head = (None if cfg.tie_embeddings else Dense(
+            cfg, cfg.hidden_size, cfg.vocab_size, device))
         cos, sin = rope_table(cfg.head_dim, cfg.max_seq_len, cfg.rope_theta,
                               cfg, device=device)
         self.register_buffer("rope_cos", cos, persistent=False)
@@ -389,8 +436,18 @@ class Llama(nn.Module):
         standard_positions = positions is None
         if positions is None:
             positions = torch.arange(s, device=tokens.device).expand(b, s)
-        x = self.embed[tokens]
+        # Rows first, then the cast: the same values as JAX's
+        # embed.astype(dtype)[tokens], and the gradient scatter-adds in the
+        # storage dtype.
+        x = self.embed[tokens].to(self.cfg.dtype)
+        remat = (self.cfg.remat and cache is None
+                 and torch.is_grad_enabled())
         for i, layer in enumerate(self.layers):
+            if remat:
+                x = checkpoint(layer, x, self.rope_cos, self.rope_sin,
+                               positions, standard_positions, None, None,
+                               segment_ids, False, use_reentrant=False)
+                continue
             layer_cache = (None if cache is None
                            else {"k": cache["k"][i], "v": cache["v"][i]})
             x = layer(x, self.rope_cos, self.rope_sin, positions,
@@ -400,7 +457,7 @@ class Llama(nn.Module):
         if return_hidden:
             return (x, cache) if cache is not None else x
         if self.lm_head is None:
-            logits = F.linear(x, self.embed)
+            logits = F.linear(x, self.embed.to(self.cfg.dtype))
         else:
             logits = self.lm_head(x)
         return (logits, cache) if cache is not None else logits

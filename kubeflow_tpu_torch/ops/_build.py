@@ -28,13 +28,21 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-#: C signature of every entry point, by source file: (symbol, argtypes).
+_F = ctypes.c_float
+#: C signature of every entry point, by source file: {symbol: argtypes}.
 #: Every pointer and the stream are c_void_p — an undeclared pointer would
 #: be passed as a 32-bit int and cut.
+_MASK_ARGS = [_I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]  # B..scale, stream
 SIGNATURES = {
-    "flash_fwd.cu": ("tpk_flash_fwd",
-                     [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                      _I, _I, ctypes.c_float, _P]),
+    "flash_fwd.cu": {
+        "tpk_flash_fwd": [_P, _P, _P, _P, _P, _P, *_MASK_ARGS],
+    },
+    "flash_bwd.cu": {
+        # q, k, v, do, lse, delta, seg, dq
+        "tpk_flash_bwd_dq": [_P] * 8 + _MASK_ARGS,
+        # q, k, v, do, lse, delta, seg, dk, dv
+        "tpk_flash_bwd_dkv": [_P] * 9 + _MASK_ARGS,
+    },
 }
 
 _lock = threading.Lock()
@@ -94,7 +102,7 @@ def build_all(sources=None) -> float:
 
 
 def library(source: str) -> ctypes.CDLL:
-    """The loaded library of one source, built first if needed, with its
+    """The loaded library of one source, built first if needed, with every
     entry point's argtypes and restype declared."""
     lib = _libs.get(source)
     if lib is not None:
@@ -103,9 +111,16 @@ def library(source: str) -> ctypes.CDLL:
     with _lock:
         if source not in _libs:
             lib = ctypes.CDLL(str(_target(source)))
-            symbol, argtypes = SIGNATURES[source]
-            fn = getattr(lib, symbol)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for symbol, argtypes in SIGNATURES[source].items():
+                fn = getattr(lib, symbol)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _libs[source] = lib
         return _libs[source]
+
+
+def function(source: str, symbol: str):
+    """One declared entry point of a source's library."""
+    if symbol not in SIGNATURES[source]:
+        raise KeyError(f"{source} declares no entry point {symbol!r}")
+    return getattr(library(source), symbol)

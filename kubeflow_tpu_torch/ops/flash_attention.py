@@ -1,17 +1,21 @@
-"""Flash attention forward: a hand-written Hopper kernel and its plain twin.
+"""Flash attention: hand-written Hopper kernels and their plain twins.
 
-The port of the forward half of `kubeflow_tpu/ops/flash_attention.py`. On a
-CUDA tensor the wrapper launches `csrc/flash_fwd.cu` (CUDA C++ for sm_90a,
-built on first use by `_build.py`); on a CPU tensor it runs
-`_flash_fwd_plain`, the same function with the full score matrix in fp32.
-Nothing falls back: a CUDA tensor the kernel does not take raises.
+The port of `kubeflow_tpu/ops/flash_attention.py`. On a CUDA tensor the
+wrappers launch `csrc/flash_fwd.cu` (forward) and `csrc/flash_bwd.cu` (the
+two-pass backward: dq, then dk/dv), CUDA C++ for sm_90a built on first use
+by `_build.py`; on a CPU tensor they run `_flash_fwd_plain` and
+`_flash_bwd_plain`, the same functions with the full score matrix in fp32.
+Nothing falls back: a CUDA tensor the kernels do not take raises.
 
 Layout is the JAX package's: q [B,S,H,D], k/v [B,T,KH,D] with H % KH == 0;
 out [B,S,H,D] in q's dtype and lse [B,S,H,1] fp32. Masks are applied by
-array index (positions 0..S-1 and 0..T-1), as in the TPU kernel.
+array index (positions 0..S-1 and 0..T-1), as in the TPU kernels.
 
-The backward kernels come with the training slice; until then the wrapper
-refuses inputs that require grad.
+Gradients: when an input requires grad, `flash_attention` and
+`flash_attention_lse` run through `_FlashAttention`, an autograd Function
+that saves q, k, v, out and lse (as the JAX custom_vjp does) and whose
+backward is the two kernels. lse is differentiable: its cotangent folds
+into delta (ds = p * (dp - (delta - g_lse))).
 """
 
 from __future__ import annotations
@@ -24,9 +28,11 @@ import torch
 
 NEG_INF = -1e30
 
-#: Launches of the CUDA kernel (never of the plain version), for callers
-#: that must show a run went through it. Reset by assigning 0.
+#: Launches of each CUDA kernel (never of the plain versions), for callers
+#: that must show a run went through them. Reset by assigning 0.
 flash_fwd_launches = 0
+flash_bwd_dq_launches = 0
+flash_bwd_dkv_launches = 0
 _count_lock = threading.Lock()
 
 _MASK_CODES = {"causal": 0, "full": 1, "prefix_lm": 2, "sliding_window": 3}
@@ -82,31 +88,99 @@ def _visible(rows, cols, mask: MaskSpec):
     return torch.ones_like(rows >= cols)  # full
 
 
+def _valid(b, s, t, mask: MaskSpec, segment_ids, device):
+    """[1 or B, S, T] bool: which (row, col) pairs attend."""
+    rows = torch.arange(s, device=device)[:, None]
+    cols = torch.arange(t, device=device)[None, :]
+    valid = _visible(rows, cols, mask)[None]
+    if segment_ids is not None:
+        sid = segment_ids.to(device=device, dtype=torch.int32)
+        valid = valid & (sid[:, :, None] == sid[:, None, :])
+    return valid
+
+
+def _acc_dtype(x):
+    """fp32, or float64 for float64 inputs (gradcheck)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def _flash_fwd_plain(q, k, v, mask: MaskSpec, segment_ids=None):
     """The kernel's function with the full [S, T] score matrix in fp32: the
     same -1e30 mask and lse = m + log(max(l, 1e-30)). The CPU path of the
     wrapper, and the reference the kernel is held against on the card.
-    Returns (out [B,S,H,D] in q's dtype, lse [B,S,H,1] fp32)."""
+    Returns (out [B,S,H,D] in q's dtype, lse [B,S,H,1] fp32; float64 for
+    float64 inputs)."""
     b, s, h, d = q.shape
     t, kh = k.shape[1], k.shape[2]
     group = h // kh
-    qf = q.float().reshape(b, s, kh, group, d)
-    scores = torch.einsum("bskgd,btkd->bkgst", qf, k.float())
+    acc = _acc_dtype(q)
+    qf = q.to(acc).reshape(b, s, kh, group, d)
+    scores = torch.einsum("bskgd,btkd->bkgst", qf, k.to(acc))
     scores = scores * (1.0 / math.sqrt(d))
-    dev = q.device
-    rows = torch.arange(s, device=dev)[:, None]
-    cols = torch.arange(t, device=dev)[None, :]
-    valid = _visible(rows, cols, mask)[None]                  # [1, S, T]
-    if segment_ids is not None:
-        sid = segment_ids.to(device=dev, dtype=torch.int32)
-        valid = valid & (sid[:, :, None] == sid[:, None, :])  # [B, S, T]
+    valid = _valid(b, s, t, mask, segment_ids, q.device)
     scores = torch.where(valid[:, None, None], scores, NEG_INF)
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.exp(scores - m)
     lc = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    out = torch.einsum("bkgst,btkd->bskgd", p / lc, v.float())
+    out = torch.einsum("bkgst,btkd->bskgd", p / lc, v.to(acc))
     lse = (m + torch.log(lc)).permute(0, 3, 1, 2, 4).reshape(b, s, h, 1)
     return out.reshape(b, s, h, d).to(q.dtype), lse
+
+
+def _flash_bwd_plain(q, k, v, out, lse, do, g_lse, mask: MaskSpec,
+                     segment_ids=None):
+    """The backward kernels' function over the full score matrix in fp32:
+    the two-pass recipe of the JAX `_flash_bwd_impl`. delta = rowsum(dO·O)
+    - g_lse with O the saved output (in its own dtype, as the kernels read
+    it); p = exp(s·scale - lse) masked to exactly 0; ds = p·(dp - delta);
+    dq = ds·k·scale, dk = dsᵀ·(q·scale), dv = pᵀ·dO, dk/dv summed over the
+    GQA group. `g_lse` [B,S,H,1] may be None. Returns (dq, dk, dv) in the
+    dtypes of q, k, v."""
+    b, s, h, d = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    group = h // kh
+    acc = _acc_dtype(q)
+    scale = 1.0 / math.sqrt(d)
+    qf = q.to(acc).reshape(b, s, kh, group, d)
+    dof = do.to(acc).reshape(b, s, kh, group, d)
+    kf, vf = k.to(acc), v.to(acc)
+    delta = (do.to(acc) * out.to(acc)).sum(-1)                # [B, S, H]
+    if g_lse is not None:
+        delta = delta - g_lse.to(acc).reshape(b, s, h)
+
+    def per_row(x):  # [B, S, H] -> [B, KH, G, S, 1]
+        return x.reshape(b, s, kh, group).permute(0, 2, 3, 1)[..., None]
+
+    scores = torch.einsum("bskgd,btkd->bkgst", qf, kf) * scale
+    valid = _valid(b, s, t, mask, segment_ids, q.device)[:, None, None]
+    p = torch.where(valid, torch.exp(scores - per_row(lse.to(acc))), 0.0)
+    dp = torch.einsum("bskgd,btkd->bkgst", dof, vf)
+    ds = p * (dp - per_row(delta))
+    dq = torch.einsum("bkgst,btkd->bskgd", ds, kf) * scale
+    dk = torch.einsum("bkgst,bskgd->btkd", ds, qf * scale)
+    dv = torch.einsum("bkgst,bskgd->btkd", p, dof)
+    return (dq.reshape(b, s, h, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def _check_kernel_inputs(named, device) -> None:
+    """What the CUDA kernels take: bf16, contiguous, 16-byte aligned, on
+    one device. Raises on anything else (nothing falls back)."""
+    for name, x in named:
+        if x.device != device:
+            raise ValueError(f"{name} is on {x.device}, q on {device}")
+        if x.dtype != torch.bfloat16:
+            raise TypeError(f"the CUDA kernel takes bf16; {name} is {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _seg_arg(segment_ids, device):
+    if segment_ids is None:
+        return None
+    return segment_ids.to(device=device, dtype=torch.int32).contiguous()
 
 
 def _flash_fwd_cuda(q, k, v, mask: MaskSpec, segment_ids=None):
@@ -114,25 +188,15 @@ def _flash_fwd_cuda(q, k, v, mask: MaskSpec, segment_ids=None):
     global flash_fwd_launches
     b, s, h, d = q.shape
     t, kh = k.shape[1], k.shape[2]
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.device != q.device:
-            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
-        if x.dtype != torch.bfloat16:
-            raise TypeError(f"the CUDA kernel takes bf16; {name} is {x.dtype}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if x.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
+    _check_kernel_inputs((("q", q), ("k", k), ("v", v)), q.device)
     if d not in (64, 128):
         raise ValueError(f"the CUDA kernel takes head_dim 64 or 128, not {d}")
-    seg = None
-    if segment_ids is not None:
-        seg = segment_ids.to(device=q.device, dtype=torch.int32).contiguous()
+    seg = _seg_arg(segment_ids, q.device)
     out = torch.empty_like(q)
     lse = torch.empty((b, s, h, 1), dtype=torch.float32, device=q.device)
     from kubeflow_tpu_torch.ops import _build
 
-    fn = _build.library("flash_fwd.cu").tpk_flash_fwd
+    fn = _build.function("flash_fwd.cu", "tpk_flash_fwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -147,6 +211,136 @@ def _flash_fwd_cuda(q, k, v, mask: MaskSpec, segment_ids=None):
     return out, lse
 
 
+def _bwd_delta(do, out, g_lse):
+    """delta = rowsum(dO·O) - g_lse, [B,S,H] fp32 — plain tensor arithmetic
+    outside the kernels, as the JAX package computes it."""
+    b, s, h, _ = do.shape
+    delta = (do.float() * out.float()).sum(-1)
+    if g_lse is not None:
+        delta = delta - g_lse.float().reshape(b, s, h)
+    return delta.contiguous()
+
+
+def _bwd_args(q, k, v, do, lse, delta, mask: MaskSpec, segment_ids):
+    """Checks what the backward kernels take, and their shared arguments:
+    (input pointers, (B, S, T, H, KH, D, kind, window, prefix, scale))."""
+    b, s, h, d = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    _check_kernel_inputs((("q", q), ("k", k), ("v", v), ("do", do)),
+                         q.device)
+    if d not in (64, 128):
+        raise ValueError(f"the CUDA kernel takes head_dim 64 or 128, not {d}")
+    for name, x in (("lse", lse), ("delta", delta)):
+        if (x.dtype != torch.float32 or not x.is_contiguous()
+                or x.numel() != b * s * h or x.device != q.device):
+            raise ValueError(f"{name} must be contiguous fp32 [B,S,H(,1)] "
+                             f"on {q.device}")
+    seg = _seg_arg(segment_ids, q.device)
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+           lse.data_ptr(), delta.data_ptr(),
+           None if seg is None else seg.data_ptr())
+    return ins, seg, (b, s, t, h, kh, d, _MASK_CODES[mask.kind],
+                      int(mask.window), int(mask.prefix), 1.0 / math.sqrt(d))
+
+
+def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, mask: MaskSpec,
+                       segment_ids=None):
+    """Launch csrc/flash_bwd.cu's dq kernel on the current stream."""
+    global flash_bwd_dq_launches
+    # `seg` backs a pointer in `ins`: it stays bound through the launch.
+    ins, seg, common = _bwd_args(q, k, v, do, lse, delta, mask, segment_ids)
+    dq = torch.empty_like(q)
+    from kubeflow_tpu_torch.ops import _build
+
+    fn = _build.function("flash_bwd.cu", "tpk_flash_bwd_dq")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(*ins, dq.data_ptr(), *common, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_dq kernel launch failed: CUDA error "
+                           f"{err}")
+    with _count_lock:
+        flash_bwd_dq_launches += 1
+    return dq
+
+
+def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, mask: MaskSpec,
+                        segment_ids=None):
+    """Launch csrc/flash_bwd.cu's dk/dv kernel on the current stream."""
+    global flash_bwd_dkv_launches
+    # `seg` backs a pointer in `ins`: it stays bound through the launch.
+    ins, seg, common = _bwd_args(q, k, v, do, lse, delta, mask, segment_ids)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    from kubeflow_tpu_torch.ops import _build
+
+    fn = _build.function("flash_bwd.cu", "tpk_flash_bwd_dkv")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(*ins, dk.data_ptr(), dv.data_ptr(), *common, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_dkv kernel launch failed: CUDA error "
+                           f"{err}")
+    with _count_lock:
+        flash_bwd_dkv_launches += 1
+    return dk, dv
+
+
+def _flash_bwd_cuda(q, k, v, out, lse, do, g_lse, mask: MaskSpec,
+                    segment_ids=None):
+    """delta in PyTorch, then the dq and dk/dv kernels (no synchronise)."""
+    # The cotangent's layout is autograd's, not the caller's: make it the
+    # kernels' (a no-op for the contiguous grads a model produces).
+    do = do.contiguous()
+    _check_kernel_inputs((("out", out),), q.device)
+    delta = _bwd_delta(do, out, g_lse)
+    dq = _flash_bwd_dq_cuda(q, k, v, do, lse, delta, mask, segment_ids)
+    dk, dv = _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, mask, segment_ids)
+    return dq, dk, dv
+
+
+def _device_kind(q) -> str:
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash attention runs on cuda or cpu, not "
+                         f"{q.device.type}")
+    return q.device.type
+
+
+def _fwd(q, k, v, spec, segment_ids):
+    if _device_kind(q) == "cpu":
+        return _flash_fwd_plain(q, k, v, spec, segment_ids)
+    return _flash_fwd_cuda(q, k, v, spec, segment_ids)
+
+
+def _bwd(q, k, v, out, lse, do, g_lse, spec, segment_ids):
+    if _device_kind(q) == "cpu":
+        return _flash_bwd_plain(q, k, v, out, lse, do, g_lse, spec,
+                                segment_ids)
+    return _flash_bwd_cuda(q, k, v, out, lse, do, g_lse, spec, segment_ids)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """(out, lse) with the flash backward; the counterpart of the JAX
+    custom_vjp rules (residuals q, k, v, out, lse and the segment ids)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, segment_ids, spec):
+        out, lse = _fwd(q, k, v, spec, segment_ids)
+        ctx.save_for_backward(q, k, v, out, lse, segment_ids)
+        ctx.spec = spec
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g_out, g_lse):
+        q, k, v, out, lse, segment_ids = ctx.saved_tensors
+        if g_out is None:  # only lse was used
+            g_out = torch.zeros_like(out)
+        dq, dk, dv = _bwd(q, k, v, out, lse, g_out, g_lse, ctx.spec,
+                          segment_ids)
+        return dq, dk, dv, None, None
+
+
 def _attn_impl(q, k, v, causal, segment_ids=None, mask=None):
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"q [B,S,H,D] and k/v [B,T,KH,D] expected; got "
@@ -159,10 +353,6 @@ def _attn_impl(q, k, v, causal, segment_ids=None, mask=None):
                          f"{tuple(q.shape)}")
     if h % kh:
         raise ValueError(f"q heads {h} not a multiple of kv heads {kh}")
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        raise NotImplementedError(
-            "flash attention backward (training) is not supported by this "
-            "package yet; call under torch.no_grad()")
     spec = _norm_mask(causal, mask)
     if spec.kind == "prefix_lm" and segment_ids is not None:
         raise ValueError(
@@ -175,28 +365,25 @@ def _attn_impl(q, k, v, causal, segment_ids=None, mask=None):
         raise ValueError(
             f"segment_ids must be [B,S]={b, s} for self-attention "
             f"(got {tuple(segment_ids.shape)}, T={t})")
-    if q.device.type == "cpu":
-        return _flash_fwd_plain(q, k, v, spec, segment_ids)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash attention runs on cuda or cpu, not "
-                         f"{q.device.type}")
-    return _flash_fwd_cuda(q, k, v, spec, segment_ids)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, segment_ids, spec)
+    return _fwd(q, k, v, spec, segment_ids)
 
 
 def flash_attention(q, k, v, causal: bool = True, block_q: int = 512,
                     block_kv: int = 512, segment_ids=None, mask=None):
-    """Flash attention forward. q [B,S,H,D]; k,v [B,T,KH,D]; returns
-    [B,S,H,D] in q's dtype.
+    """Flash attention. q [B,S,H,D]; k,v [B,T,KH,D]; returns [B,S,H,D] in
+    q's dtype. Differentiable in q, k, v (the flash backward kernels).
 
     `segment_ids` [B,S] int (self-attention only) confines attention within
     equal-id spans. `mask` (a MaskSpec or kind string) selects causal /
     full / prefix_lm / sliding_window, overriding `causal`; kv tiles a q
-    tile cannot see are skipped, not masked. prefix_lm is refused with
-    segment_ids.
+    tile cannot see are skipped, not masked, in all three kernels.
+    prefix_lm is refused with segment_ids.
 
     `block_q`/`block_kv` keep the JAX signature and are ignored: the CUDA
-    kernel's tiles (64 q rows x 64 kv rows) are fixed by its design, and
-    the CPU path computes the whole score matrix at once."""
+    kernels' tiles are fixed by their design, and the CPU path computes
+    the whole score matrix at once."""
     del block_q, block_kv
     out, _ = _attn_impl(q, k, v, causal, segment_ids, mask)
     return out
@@ -205,7 +392,7 @@ def flash_attention(q, k, v, causal: bool = True, block_q: int = 512,
 def flash_attention_lse(q, k, v, causal: bool = True, block_q: int = 512,
                         block_kv: int = 512, segment_ids=None, mask=None):
     """Flash attention returning (out [B,S,H,D], lse [B,S,H,1] fp32), lse
-    being the per-row logsumexp of the scaled scores. Arguments as for
-    `flash_attention`."""
+    being the per-row logsumexp of the scaled scores. Both outputs are
+    differentiable. Arguments as for `flash_attention`."""
     del block_q, block_kv
     return _attn_impl(q, k, v, causal, segment_ids, mask)

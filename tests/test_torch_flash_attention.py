@@ -87,12 +87,19 @@ def test_flash_refuses_head_mismatch():
         tfa.flash_attention(q, kv, kv)
 
 
-def test_flash_refuses_grad():
-    q = torch.zeros(1, 8, 2, 16, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="backward"):
-        tfa.flash_attention(q, q.detach(), q.detach())
+def test_flash_grad_flows_on_cpu():
+    """Inputs that require grad go through the autograd Function (the plain
+    backward on the CPU); under no_grad nothing is recorded."""
+    q, k, v, _ = _inputs((1, 8, 2, 2, 1, 16), False)
+    tq = torch.from_numpy(q).requires_grad_()
+    tk = torch.from_numpy(k).requires_grad_()
+    out = tfa.flash_attention(tq, tk, torch.from_numpy(v))
+    assert out.grad_fn is not None
+    out.sum().backward()
+    assert tq.grad.shape == tq.shape and tk.grad.shape == tk.shape
+    assert bool(torch.isfinite(tq.grad).all()) and tq.grad.abs().sum() > 0
     with torch.no_grad():
-        tfa.flash_attention(q, q.detach(), q.detach())
+        assert tfa.flash_attention(tq, tk, torch.from_numpy(v)).grad_fn is None
 
 
 def test_flash_refuses_bad_segment_shape():

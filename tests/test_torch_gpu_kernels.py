@@ -1,4 +1,4 @@
-"""The CUDA flash-attention kernel against its plain version, on the card.
+"""The CUDA flash-attention kernels against their plain versions, on the card.
 
 These tests need an NVIDIA GPU and skip without one. They import nothing
 of JAX, so they also run where JAX is not installed:
@@ -57,6 +57,51 @@ def test_flash_kernel_matches_plain(cuda, shape, kind, mkw, segments, d):
     assert (lse - ref_lse).abs().max().item() <= 1e-3
 
 
+def _rel_l2(got, want):
+    return ((got.float() - want).norm() / want.norm().clamp_min(1e-30)).item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("shape,kind,mkw,segments",
+                         [c[1:] for c in CASES], ids=[c[0] for c in CASES])
+def test_flash_backward_kernels_match_plain(cuda, shape, kind, mkw, segments,
+                                            d):
+    """dq and dk/dv kernels (through autograd, with an lse cotangent too)
+    vs `_flash_bwd_plain` in fp32 on the same bf16 inputs, saved output
+    and lse. Bound: rel-L2 1e-2 per gradient — the kernels round P and dS
+    to bf16 for their products and the gradients to bf16 (each ~2^-9
+    relative), the plain version rounds only the result."""
+    b, s, t, h, kh = shape
+    rng = np.random.default_rng(1)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shp).astype(
+        np.float32)).to(cuda, torch.bfloat16) for shp in (
+        (b, s, h, d), (b, t, kh, d), (b, t, kh, d), (b, s, h, d)))
+    g_lse = torch.from_numpy(rng.standard_normal((b, s, h, 1)).astype(
+        np.float32)).to(cuda)
+    seg = None
+    if segments:
+        seg = torch.from_numpy(np.cumsum(rng.random((b, s)) < 0.05, axis=1)
+                               .astype(np.int32)).to(cuda)
+    mask = tfa.MaskSpec(kind, **mkw)
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    before = (tfa.flash_bwd_dq_launches, tfa.flash_bwd_dkv_launches)
+    out, lse = tfa.flash_attention_lse(qg, kg, vg, segment_ids=seg,
+                                       mask=mask)
+    torch.autograd.backward((out, lse), (do, g_lse))
+    torch.cuda.synchronize()
+    assert (tfa.flash_bwd_dq_launches, tfa.flash_bwd_dkv_launches) == (
+        before[0] + 1, before[1] + 1)
+    want = tfa._flash_bwd_plain(q.float(), k.float(), v.float(),
+                                out.detach(), lse.detach(), do.float(),
+                                g_lse, mask, seg)
+    for name, got, ref in zip(("dq", "dk", "dv"),
+                              (qg.grad, kg.grad, vg.grad), want):
+        assert got.dtype == torch.bfloat16
+        assert bool(torch.isfinite(got.float()).all()), name
+        assert _rel_l2(got, ref) <= 1e-2, (name, _rel_l2(got, ref))
+
+
 @pytest.mark.gpu
 def test_flash_kernel_refuses_what_it_does_not_take(cuda):
     x = torch.zeros(1, 8, 2, 64, device=cuda)
@@ -69,3 +114,11 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         tfa.flash_attention(z.transpose(1, 2), z.transpose(1, 2),
                             z.transpose(1, 2))
+    w = torch.zeros(1, 8, 2, 64, device=cuda, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 8, 2, 1, device=cuda)
+    with pytest.raises(TypeError, match="bf16"):
+        tfa._flash_bwd_cuda(w, w, w, w, lse, w.float(), None,
+                            tfa.MaskSpec("causal"))
+    with pytest.raises(ValueError, match="lse"):
+        tfa._flash_bwd_cuda(w, w, w, w, lse.double(), w, None,
+                            tfa.MaskSpec("causal"))

@@ -42,6 +42,7 @@ def test_port_module_imports_no_jax(path):
 def test_server_import_loads_no_jax():
     code = ("import sys; import kubeflow_tpu_torch.serve.server; "
             "import kubeflow_tpu_torch.models.convert; "
+            "import kubeflow_tpu_torch.train.trainer; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
