@@ -10,11 +10,22 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
      library call's (a yardstick the port never calls) and its bound;
   2b. backward kernels: dq and dk/dv against the plain backward at the
      phase-2 shapes and the llama_1b training shape, with the same timings;
+  2c. the W8A8 int8 matmul through its op entry point `int8_matmul` at the
+     llama3_8b projection shapes (prefill and decode widths), launches
+     counted, then against its plain version (bit for bit at fp32 output,
+     equal at bf16) there and at the JAX test's ragged shapes, with its
+     time, the plain version's, torch._int_mm's and its bound;
   3. model: full-width, full-depth llama3_8b logits with attention through
      the kernel against the same weights through the plain version;
   4. serving: a llama3_8b bundle behind the port's HTTP server answering
      concurrent :generate requests; the kernel launch counts show that every
      first-chunk prefill ran through the kernel;
+  4b. paged serving: the same bundle with a paged KV pool (block size 16);
+     the longest greedy prompt alone gives phase 4's ids;
+  4c. quantized serving: int8 weights and an int8 paged KV pool, phase 4's
+     six requests (prefill still through the flash kernel, int8_matmul never
+     called), peak memory at least 5 GiB under phase 4's; then the int8
+     model's logits against a bf16 model holding the same codes dequantized;
   5. training: llama_1b at full width and depth through the trainer's entry
      point (batch 12, seq 1024, 3 warm-up + 10 timed steps): finite losses,
      the first near ln(V), every step's launches (2 forward per layer under
@@ -54,7 +65,9 @@ sys.path.insert(0, ROOT)
 from kubeflow_tpu_torch.models import llama as llama_mod  # noqa: E402
 from kubeflow_tpu_torch.ops import _build  # noqa: E402
 from kubeflow_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from kubeflow_tpu_torch.ops import quant_matmul as qmm  # noqa: E402
 from kubeflow_tpu_torch.ops.reference import naive_attention  # noqa: E402
+from kubeflow_tpu_torch.serve import quant as squant  # noqa: E402
 from kubeflow_tpu_torch.serve.runtimes import export_for_serving  # noqa: E402
 from kubeflow_tpu_torch.serve.server import ModelServer  # noqa: E402
 from kubeflow_tpu_torch.train import optim  # noqa: E402
@@ -64,6 +77,7 @@ from kubeflow_tpu_torch.utils import registry  # noqa: E402
 
 # H100 SXM published dense peaks (NVIDIA data sheet, at 700 W).
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 # Kernel vs plain bounds. out: the kernel rounds P to bf16 for P.V and its
 # output to bf16 (half an ulp is 2^-8 at |o| in [1, 2)); lse: fp32 sums of
@@ -118,6 +132,34 @@ PROMPT_LENS = (5, 100, 400, 1000, 1900, 3000)
 MAX_TOKENS, CHUNK = 32, 16
 SEED = 0
 MODEL, MODEL_KWARGS, DEVICE = "llama3_8b", {}, "cuda"
+GENERATIVE = {"slots": 4, "max_len": 4096, "chunk": CHUNK,
+              "prefill_buckets": [128, 512, 2048]}
+# Paged serving (4b, 4c): 16 divides max_len and every default decode
+# bucket (64 .. 4096).
+KV_BLOCK_SIZE = 16
+# 4c: int8 weights and KV must bring the serving peak this far under
+# phase 4's (bf16 weights 14.96 GiB; an int8 copy is ~7.5 GiB).
+QUANT_PEAK_SAVING_MIN_GIB = 5.0
+# 4c model level: the int8 model (raw codes into each matmul, fp32 output,
+# the scale applied to the output) against a bf16 model holding the same
+# codes dequantized (q * scale rounded to bf16). Both compute the same
+# function and differ only in where they round: the dequantized weights
+# carry a bf16 rounding (~2^-9 relative) the int8 path does not. Every op
+# of the bf16 model re-rounds and carries such differences through 32
+# layers, the floor phase 3 measured at ~2e-2 rel-L2 for a change of
+# rounding inside attention; so the bound is phase 3's absolute one (5e-2)
+# and its argmax agreement (0.8). A wrong scale axis gives rel-L2 ~1.
+QUANT_LOGITS_REL_L2_MAX, QUANT_ARGMAX_AGREE_MIN = 5e-2, 0.8
+QUANT_PROMPT = 2048
+# Phase 2c: (M, K, N) of llama3_8b's projections: gate/up and down at a
+# 2048-token prefill bucket, then at 32 decode rows (the weight's read
+# bounds those).
+QMM_SHAPES = [(2048, 4096, 14336), (2048, 14336, 4096), (32, 4096, 14336),
+              (32, 4096, 4096)]
+# The JAX test's shapes (ragged M, N and K: byte-wise staging where K % 16
+# or N % 16 is not 0), one odd M, and ragged M and N on the cp.async path.
+QMM_RAGGED = [(100, 384, 200), (64, 128, 128), (32, 100, 64),
+              (33, 4096, 4096), (130, 64, 144)]
 
 
 def log(*a):
@@ -348,6 +390,80 @@ def phase_backward() -> dict:
     return {"rows": rows, "main": rows[-1], "worst": worst}
 
 
+def _qmm_inputs(m, k, n, gen, dev):
+    """Activations N(0, 1); int8 weights uniform over [-127, 127] with
+    per-column scales in [1e-3, 1e-2]."""
+    x = torch.randn(m, k, generator=gen, device=dev).bfloat16()
+    qw = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
+                       dtype=torch.int8)
+    sw = torch.rand(n, generator=gen, device=dev) * 9e-3 + 1e-3
+    return x, qw, sw
+
+
+def phase_qmm() -> dict:
+    """int8_matmul's path (the op at the 8B projection shapes, launches
+    counted), then the kernel against _int8_matmul_plain: equal bit for bit
+    at fp32 output, equal at bf16, on every shape."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    inputs = {shape: _qmm_inputs(*shape, gen, dev)
+              for shape in QMM_SHAPES + QMM_RAGGED}
+    qmm.qmm_launches = 0
+    for shape in QMM_SHAPES:
+        x, qw, sw = inputs[shape]
+        out = qmm.int8_matmul(x, qw, sw)
+        if out.shape != (shape[0], shape[2]):
+            raise RuntimeError(f"int8_matmul gave shape {tuple(out.shape)}")
+    torch.cuda.synchronize()
+    launches = qmm.qmm_launches
+    log(f"  int8_matmul at the {len(QMM_SHAPES)} projection shapes: "
+        f"{launches} kernel launches")
+    if launches != len(QMM_SHAPES):
+        raise RuntimeError("int8_matmul did not launch its kernel")
+    rows, worst = [], 0.0
+    for shape, (x, qw, sw) in inputs.items():
+        m, k, n = shape
+        qx, sx = qmm.quantize_activations(x)
+        for out_dtype in (torch.float32, torch.bfloat16):
+            got = qmm.int8_matmul(x, qw, sw, out_dtype=out_dtype)
+            want = qmm._int8_matmul_plain(qx, sx, qw, sw, out_dtype)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            if not torch.equal(got, want):
+                raise RuntimeError(f"int8_matmul differs from its plain "
+                                   f"version at {shape} {out_dtype}: max abs "
+                                   f"{err:.3e}")
+            worst = max(worst, err)
+        if shape not in QMM_SHAPES:
+            log(f"  M{m} K{k} N{n}: equal to the plain version (fp32, bf16)")
+            continue
+        # Bytes: qx, sx, qw, sw read once, fp32 out written once.
+        nbytes = m * k + 4 * m + k * n + 4 * n + 4 * m * n
+        ops_s, mem_s = 2 * m * k * n / PEAK_INT8_OPS, nbytes / PEAK_BYTES
+        bound = max(ops_s, mem_s) * 1e3
+        bound_by = "operations" if ops_s >= mem_s else "bytes"
+        ms = time_ms(lambda: qmm._int8_matmul_cuda(qx, sx, qw, sw))
+        plain_ms = time_ms(lambda: qmm._int8_matmul_plain(qx, sx, qw, sw),
+                           reps=3)
+        # torch._int_mm: cuBLASLt's int8 GEMM (int32 out, no epilogue); it
+        # takes M > 16 and K, N multiples of 8. Timed here, never called
+        # by the port.
+        library_ms = time_ms(lambda: torch._int_mm(qx, qw))
+        quant_ms = time_ms(lambda: qmm.quantize_activations(x))
+        log(f"  M{m} K{k} N{n}: ms {ms:.4f} ({2 * m * k * n / ms / 1e9:.1f} "
+            f"TOP/s) plain_ms {plain_ms:.4f} library_ms (_int_mm) "
+            f"{library_ms:.4f} bound_ms {bound:.4f} ({bound_by}); "
+            f"activation quantization {quant_ms:.4f} ms; equal (fp32, bf16)")
+        rows.append({"shape": f"M{m} K{k} N{n}", "ms": ms,
+                     "plain_ms": plain_ms, "library_ms": library_ms,
+                     "bound_ms": bound, "bound_by": bound_by,
+                     "quantize_ms": quant_ms})
+    del inputs
+    torch.cuda.empty_cache()
+    return {"rows": rows, "main": rows[0], "launches": launches,
+            "max_abs_err": worst}
+
+
 def phase_model() -> None:
     """llama3_8b logits, attention through the kernel vs the plain version."""
     cfg = registry.model_config(MODEL, **MODEL_KWARGS)
@@ -427,97 +543,317 @@ def _post(url: str, body: dict) -> dict:
         return json.loads(r.read())
 
 
-def phase_serving() -> int:
-    """The port's main path: bundle -> server -> concurrent :generate.
-    Returns the kernel launches of the run."""
-    cfg = registry.model_config(MODEL, **MODEL_KWARGS)
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    bundle = tempfile.mkdtemp(prefix="chip_smoke_bundle_",
-                              dir=os.path.join(ROOT, "build"))
+@contextlib.contextmanager
+def _serving(bundle: str, generative: dict | None = None, **spec):
+    """(Re)write the llama3_8b bundle at `bundle` with phase 4's generative
+    block updated by `generative` and the extra bundle keys `spec`, load it
+    behind the port's HTTP server, and yield the server's base URL. The
+    server and its model are freed on exit."""
+    gc.collect()
+    torch.cuda.empty_cache()
     export_for_serving(bundle, model=MODEL, model_kwargs=MODEL_KWARGS,
                        seed=SEED, extra={
-        "generative": {"slots": 4, "max_len": 4096, "chunk": CHUNK,
-                       "prefill_buckets": [128, 512, 2048]}})
+                           "generative": {**GENERATIVE, **(generative or {})},
+                           **spec})
     server = ModelServer()
     t0 = time.monotonic()
     server.load(bundle, name=MODEL, device=DEVICE)
     port = server.start_background(0)
     base = f"http://127.0.0.1:{port}"
-    log(f"  server up in {time.monotonic() - t0:.1f}s on port {port}")
+    log(f"  server up in {time.monotonic() - t0:.1f}s on port {port}; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     try:
         with urllib.request.urlopen(base + "/v2/health/ready",
                                     timeout=30) as r:
             if json.loads(r.read()) != {"ready": True}:
                 raise RuntimeError("server not ready")
-        rng = np.random.default_rng(SEED + 1)
-        prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
-                   for n in PROMPT_LENS]
-        bodies = [{"input_ids": p, "max_tokens": MAX_TOKENS}
-                  for p in prompts]
-        bodies[2].update(temperature=0.8, top_k=50)  # one sampled request
-        url = f"{base}/v1/models/{MODEL}:generate"
-        results: list = [None] * len(bodies)
-
-        def run(i):
-            try:
-                results[i] = _post(url, bodies[i])
-            except Exception as e:  # reported below as a failed request
-                results[i] = e
-
-        torch.cuda.reset_peak_memory_stats()
-        fa.flash_fwd_launches = 0
-        t0 = time.monotonic()
-        threads = [threading.Thread(target=run, args=(i,))
-                   for i in range(len(bodies))]
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(timeout=900)
-        wall = time.monotonic() - t0
-        peak = torch.cuda.max_memory_allocated()
-        # Engine counters of the concurrent batch alone, before the repeat.
-        stats = json.loads(urllib.request.urlopen(
-            f"{base}/v2/models/{MODEL}", timeout=30).read())["stats"]
-        # The longest prompt again, alone: it decodes at the same cache
-        # bucket (4096) either way, so greedy ids must repeat exactly.
-        again = _post(url, bodies[-1])
-        launches = fa.flash_fwd_launches
-        for i, res in enumerate(results):
-            if not isinstance(res, dict):
-                raise RuntimeError(f"request {i} failed: {res!r}")
-            ids = res["output_ids"]
-            if len(ids) != MAX_TOKENS or not all(
-                    0 <= t < cfg.vocab_size for t in ids):
-                raise RuntimeError(f"request {i}: bad output ids {ids}")
-            log(f"  request {i}: prompt {PROMPT_LENS[i]:5d} tokens, "
-                f"{res['num_output_tokens']} out, latency "
-                f"{res['latency_s']:.3f}s"
-                + (" (temperature 0.8, top_k 50)" if i == 2 else ""))
-        if again["output_ids"] != results[-1]["output_ids"]:
-            raise RuntimeError("repeated greedy prompt gave other ids")
-        prefills = len(bodies) + 1  # each request's first chunk, + repeat
-        expect = cfg.num_layers * prefills
-        log(f"  6 concurrent requests in {wall:.3f}s; repeat greedy ids "
-            f"identical; engine decode {stats['decode_tokens']} tokens in "
-            f"{stats['decode_seconds']:.3f}s = "
-            f"{stats['decode_tokens'] / stats['decode_seconds']:.1f} tok/s "
-            f"(chunk tokens of active rows, slots 4); peak memory "
-            f"{peak / 2**30:.2f} GiB")
-        steps = stats["decode_dispatches"] * CHUNK
-        weights = cfg.num_params * 2  # bf16
-        log(f"  decode: {stats['decode_dispatches']} chunks x {CHUNK} steps, "
-            f"{stats['decode_seconds'] / steps * 1e3:.2f} ms per 4-row step "
-            f"(bound {weights / PEAK_BYTES * 1e3:.2f} ms: bf16 weights read "
-            f"once per step); admission and prefill "
-            f"{wall - stats['decode_seconds']:.3f}s of the {wall:.3f}s")
-        log(f"  flash_fwd launches {launches} (expected {cfg.num_layers} x "
-            f"{prefills} first-chunk prefills = {expect})")
-        if launches != expect:
-            raise RuntimeError("prefill did not go through the kernel")
-        return launches
+        yield base, server
     finally:
         server.stop()
-        shutil.rmtree(bundle, ignore_errors=True)
+        del server
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _metadata(base: str) -> dict:
+    with urllib.request.urlopen(f"{base}/v2/models/{MODEL}", timeout=30) as r:
+        return json.loads(r.read())
+
+
+def _bodies(vocab: int) -> list:
+    """Phase 4's six requests: prompts of PROMPT_LENS tokens, 32 out, the
+    third sampled (temperature 0.8, top_k 50), the rest greedy."""
+    rng = np.random.default_rng(SEED + 1)
+    bodies = [{"input_ids": rng.integers(0, vocab, n).tolist(),
+               "max_tokens": MAX_TOKENS} for n in PROMPT_LENS]
+    bodies[2].update(temperature=0.8, top_k=50)
+    return bodies
+
+
+def _concurrent(base: str, bodies: list) -> dict:
+    """The requests at once, peak memory over their window (reset at its
+    start), the engine's counters after it, and the most pool blocks in
+    use that the metadata showed while they ran (None on a flat cache)."""
+    url = f"{base}/v1/models/{MODEL}:generate"
+    results: list = [None] * len(bodies)
+    blocks_used = []
+    done = threading.Event()
+
+    def run(i):
+        try:
+            results[i] = _post(url, bodies[i])
+        except Exception as e:  # reported below as a failed request
+            results[i] = e
+
+    def poll():
+        while not done.wait(0.05):
+            info = _metadata(base).get("paged_kv")
+            if info:
+                blocks_used.append(info["blocks_used"])
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(bodies))]
+    poller = threading.Thread(target=poll)
+    poller.start()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=900)
+    wall = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated()
+    done.set()
+    poller.join(timeout=30)
+    # Engine counters of the concurrent batch alone.
+    md = _metadata(base)
+    for i, res in enumerate(results):
+        if not isinstance(res, dict):
+            raise RuntimeError(f"request {i} failed: {res!r}")
+    return {"results": results, "wall": wall, "peak": peak,
+            "stats": md["stats"], "metadata": md,
+            "max_blocks_used": max(blocks_used) if blocks_used else None}
+
+
+def _check_outputs(results: list, vocab: int) -> None:
+    for i, res in enumerate(results):
+        ids = res["output_ids"]
+        if len(ids) != MAX_TOKENS or not all(0 <= t < vocab for t in ids):
+            raise RuntimeError(f"request {i}: bad output ids {ids}")
+        log(f"  request {i}: prompt {PROMPT_LENS[i]:5d} tokens, "
+            f"{res['num_output_tokens']} out, latency "
+            f"{res['latency_s']:.3f}s"
+            + (" (temperature 0.8, top_k 50)" if i == 2 else ""))
+
+
+def _decode_line(stats: dict, weight_bytes: float) -> float:
+    """Log the engine's decode rate and ms per 4-row step; returns the
+    latter."""
+    steps = stats["decode_dispatches"] * CHUNK
+    step_ms = stats["decode_seconds"] / steps * 1e3
+    log(f"  decode: engine {stats['decode_tokens']} tokens in "
+        f"{stats['decode_seconds']:.3f}s = "
+        f"{stats['decode_tokens'] / stats['decode_seconds']:.1f} tok/s "
+        f"(chunk tokens of active rows, slots 4); "
+        f"{stats['decode_dispatches']} chunks x {CHUNK} steps, "
+        f"{step_ms:.2f} ms per 4-row step (bound "
+        f"{weight_bytes / PEAK_BYTES * 1e3:.2f} ms: the weights read once "
+        "per step)")
+    return step_ms
+
+
+def phase_serving(bundle: str) -> dict:
+    """The port's main path: bundle -> server -> concurrent :generate.
+    Returns the kernel launches and the numbers later phases compare
+    with."""
+    cfg = registry.model_config(MODEL, **MODEL_KWARGS)
+    bodies = _bodies(cfg.vocab_size)
+    with _serving(bundle) as (base, server):
+        fa.flash_fwd_launches = 0
+        run = _concurrent(base, bodies)
+        # The longest prompt again, alone: it decodes at the same cache
+        # bucket (4096) either way, so greedy ids must repeat exactly.
+        again = _post(f"{base}/v1/models/{MODEL}:generate", bodies[-1])
+        launches = fa.flash_fwd_launches
+        prof = _profile_decode(server)
+    results, stats, wall = run["results"], run["stats"], run["wall"]
+    _check_outputs(results, cfg.vocab_size)
+    if again["output_ids"] != results[-1]["output_ids"]:
+        raise RuntimeError("repeated greedy prompt gave other ids")
+    prefills = len(bodies) + 1  # each request's first chunk, + repeat
+    expect = cfg.num_layers * prefills
+    log(f"  6 concurrent requests in {wall:.3f}s; repeat greedy ids "
+        f"identical; peak memory {run['peak'] / 2**30:.2f} GiB; admission "
+        f"and prefill {wall - stats['decode_seconds']:.3f}s of the "
+        f"{wall:.3f}s")
+    step_ms = _decode_line(stats, cfg.num_params * 2)  # bf16 weights
+    log(f"  flash_fwd launches {launches} (expected {cfg.num_layers} x "
+        f"{prefills} first-chunk prefills = {expect})")
+    if launches != expect:
+        raise RuntimeError("prefill did not go through the kernel")
+    return {"launches": launches, "peak": run["peak"], "step_ms": step_ms,
+            "tok_s": stats["decode_tokens"] / stats["decode_seconds"],
+            "repeat": again, "profile": prof}
+
+
+def phase_paged(bundle: str, flat: dict) -> dict:
+    """Phase 4's bundle on a paged KV pool: the longest greedy prompt alone
+    gives the ids of phase 4's flat repeat (the gathered view holds the
+    flat cache's bytes, so the arithmetic is the same)."""
+    cfg = registry.model_config(MODEL, **MODEL_KWARGS)
+    body = _bodies(cfg.vocab_size)[-1]
+    with _serving(bundle, {"kv_block_size": KV_BLOCK_SIZE}) as (base, _):
+        torch.cuda.reset_peak_memory_stats()
+        fa.flash_fwd_launches = 0
+        out = _post(f"{base}/v1/models/{MODEL}:generate", body)
+        launches = fa.flash_fwd_launches
+        peak = torch.cuda.max_memory_allocated()
+        info = _metadata(base)["paged_kv"]
+    same = out["output_ids"] == flat["repeat"]["output_ids"]
+    log(f"  longest prompt ({len(body['input_ids'])} tokens) alone: greedy "
+        f"ids {'identical to' if same else 'DIFFER from'} phase 4's flat "
+        f"repeat; latency {out['latency_s']:.3f}s; {launches} flash_fwd "
+        f"launches; peak {peak / 2**30:.2f} GiB; pool {info['blocks']} "
+        f"blocks of {info['block_size']} rows, after it "
+        f"{info['blocks_used']} used, {info['blocks_free']} free")
+    if not same:
+        raise RuntimeError("paged greedy ids differ from flat")
+    if info["blocks_used"] != 0 or launches != cfg.num_layers:
+        raise RuntimeError("paged request leaked blocks or skipped the "
+                           "flash kernel")
+    return {"out": out, "peak": peak}
+
+
+def phase_quant(bundle: str, flat: dict, paged: dict) -> dict:
+    """int8 weights and an int8 paged KV pool behind the server: phase 4's
+    six requests, prefill through the flash kernel, no int8_matmul call,
+    and a peak at least QUANT_PEAK_SAVING_MIN_GIB under phase 4's."""
+    cfg = registry.model_config(MODEL, **MODEL_KWARGS)
+    bodies = _bodies(cfg.vocab_size)
+    gen = {"kv_block_size": KV_BLOCK_SIZE, "kv_quant": "int8"}
+    with _serving(bundle, gen, quantize="int8") as (base, server):
+        fa.flash_fwd_launches = 0
+        qmm.qmm_launches = 0
+        run = _concurrent(base, bodies)
+        again = _post(f"{base}/v1/models/{MODEL}:generate", bodies[-1])
+        launches, qmm_calls = fa.flash_fwd_launches, qmm.qmm_launches
+        qbytes = run["metadata"]["quantize"]
+        prof = _profile_decode(server)
+    results, stats = run["results"], run["stats"]
+    _check_outputs(results, cfg.vocab_size)
+    expect = cfg.num_layers * (len(bodies) + 1)
+    saving = (flat["peak"] - run["peak"]) / 2**30
+    log(f"  6 concurrent requests in {run['wall']:.3f}s; pool blocks in use "
+        f"at most {run['max_blocks_used']} of "
+        f"{run['metadata']['paged_kv']['blocks']}; weights "
+        f"{qbytes['quantized'] / 2**30:.2f} GiB int8 + scales (bf16 "
+        f"{qbytes['full'] / 2**30:.2f} GiB)")
+    log(f"  peak memory {run['peak'] / 2**30:.2f} GiB vs phase 4's "
+        f"{flat['peak'] / 2**30:.2f} GiB: {saving:.2f} GiB less (at least "
+        f"{QUANT_PEAK_SAVING_MIN_GIB})")
+    step_ms = _decode_line(stats, qbytes["quantized"])
+    log(f"  vs phase 4 (bf16, flat): {flat['tok_s']:.1f} tok/s, "
+        f"{flat['step_ms']:.2f} ms per 4-row step")
+    log(f"  flash_fwd launches {launches} (expected {expect}); int8_matmul "
+        f"launches {qmm_calls} (weight-only serving: expected 0)")
+    if launches != expect:
+        raise RuntimeError("quantized prefill did not go through the kernel")
+    if qmm_calls:
+        raise RuntimeError("weight-only serving called int8_matmul")
+    if saving < QUANT_PEAK_SAVING_MIN_GIB:
+        raise RuntimeError(f"quantized serving saves only {saving:.2f} GiB")
+    # Greedy drift of the int8 KV pool, reported, not gated. Against 4b
+    # (bf16 weights and KV) the weights differ too; against the same int8
+    # weights on a bf16 paged pool only the KV encoding does.
+    agree_4b, _ = _greedy_drift(again, paged["out"])
+    with _serving(bundle, {"kv_block_size": KV_BLOCK_SIZE},
+                  quantize="int8") as (base, _):
+        bf16_kv = _post(f"{base}/v1/models/{MODEL}:generate", bodies[-1])
+    agree, drift = _greedy_drift(again, bf16_kv)
+    log(f"  longest prompt alone, int8 KV: first {agree_4b} of {MAX_TOKENS} "
+        f"greedy ids agree with 4b (bf16 weights and KV); against the same "
+        f"int8 weights on a bf16 paged pool, the first {agree} agree, max "
+        f"|logprob drift| over them {drift:.4f} (reported, not gated)")
+    model_gate = phase_quant_model()
+    return {"peak": run["peak"], "step_ms": step_ms,
+            "tok_s": stats["decode_tokens"] / stats["decode_seconds"],
+            "saving_gib": saving, "quantized_bytes": qbytes,
+            "launches": launches, "logprob_drift": drift, "profile": prof,
+            **model_gate}
+
+
+def _greedy_drift(a: dict, b: dict) -> tuple:
+    """(how many leading greedy ids two responses share, the largest
+    |logprob difference| over those)."""
+    n = 0
+    while (n < len(a["output_ids"])
+           and a["output_ids"][n] == b["output_ids"][n]):
+        n += 1
+    drift = max((abs(x - y) for x, y in zip(a["output_logprobs"][:n],
+                                             b["output_logprobs"][:n])),
+                default=0.0)
+    return n, drift
+
+
+@torch.no_grad()
+def _dequantized_copy(qmodel, cfg):
+    """A bf16 Llama holding qmodel's int8 codes dequantized (q * scale,
+    rounded to bf16): the port's counterpart of the JAX legacy dequant."""
+    deq = llama_mod.Llama(cfg, device=DEVICE)
+    qmods = dict(qmodel.named_modules())
+    for name, mod in deq.named_modules():
+        src = qmods.get(name)
+        if isinstance(mod, llama_mod.Dense):
+            for i in range(0, mod.weight.shape[0], 4096):
+                mod.weight[i:i + 4096] = (src.q[i:i + 4096].float()
+                                          * src.scale[i:i + 4096, None])
+    for i in range(0, cfg.vocab_size, 4096):
+        deq.embed[i:i + 4096] = (qmodel.embed.q[i:i + 4096].float()
+                                 * qmodel.embed.scale[i:i + 4096, None])
+    for name, p in qmodel.named_parameters():  # the fp32 norm scales
+        deq.get_parameter(name).copy_(p)
+    return deq
+
+
+def phase_quant_model() -> dict:
+    """The int8 model's logits on a QUANT_PROMPT-token prompt against a bf16
+    model loaded with the same codes dequantized (gated), and against the
+    original bf16 weights (reported)."""
+    cfg = registry.model_config(MODEL, **MODEL_KWARGS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 5).integers(
+        0, cfg.vocab_size, (1, QUANT_PROMPT))).to(DEVICE)
+    with torch.inference_mode():
+        model = llama_mod.Llama(cfg, device=DEVICE).init_weights(SEED)
+        orig = model(tokens).float()
+        squant.quantize_model(model)
+        gc.collect()
+        torch.cuda.empty_cache()
+        int8 = model(tokens).float()
+        deq = _dequantized_copy(model, cfg)
+        ref = deq(tokens).float()
+    del model, deq
+
+    def rel_l2(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    rel, rel_orig = rel_l2(int8, ref), rel_l2(int8, orig)
+    agree = (int8.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    finite = bool(torch.isfinite(int8).all())
+    ok = (finite and rel <= QUANT_LOGITS_REL_L2_MAX
+          and agree >= QUANT_ARGMAX_AGREE_MIN)
+    log(f"  int8 logits [1, {QUANT_PROMPT}, {cfg.vocab_size}] vs the same "
+        f"codes dequantized to bf16: rel_l2 {rel:.3e} (bound "
+        f"{QUANT_LOGITS_REL_L2_MAX}), argmax agreement {agree:.4f} (bound "
+        f"{QUANT_ARGMAX_AGREE_MIN}) {'OK' if ok else 'FAIL'}; vs the original "
+        f"bf16 weights (reported): rel_l2 {rel_orig:.3e}, dequantized copy "
+        f"{rel_l2(ref, orig):.3e}")
+    del int8, ref, orig
+    torch.cuda.empty_cache()
+    if not ok:
+        raise RuntimeError("int8 logits disagree with the dequantized model")
+    return {"logits_rel_l2": rel, "logits_rel_l2_orig": rel_orig}
 
 
 def _counts() -> tuple:
@@ -558,8 +894,21 @@ class _StepTap(io.TextIOBase):
         self.out.flush()
 
 
-def _profile_step(step_fn, state, batch) -> None:
-    """Device time of one train step by kernel family (torch.profiler)."""
+#: Kernel families of a profile, matched in order on the kernel's name.
+_FAMILIES = (
+    ("flash_fwd", ("flash_fwd",)),
+    ("flash_bwd_dq", ("flash_bwd_dq",)),
+    ("flash_bwd_dkv", ("flash_bwd_dkv",)),
+    ("matmul (cuBLAS)", ("gemm", "cutlass", "xmma", "nvjet", "cublas",
+                         "sm90")),
+    ("copies and casts", ("direct_copy", "copy_kernel")),
+)
+
+
+def _profile(label: str, fn) -> dict | None:
+    """Device time of one call of `fn` by kernel family (torch.profiler):
+    wall, device-busy time and idle share, the families and the top
+    kernels. Returns None when the profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -567,40 +916,75 @@ def _profile_step(step_fn, state, batch) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step_fn(state, batch)
+        fn()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    families = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0,
-                "matmul (cuBLAS)": 0.0, "other": 0.0}
+        wall = (time.perf_counter() - t0) * 1e3
+    families = {name: 0.0 for name, _ in _FAMILIES}
+    families["other"] = 0.0
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     for evt in kernels:
         name = evt.key.lower()
-        if "flash_fwd" in name:
-            fam = "flash_fwd"
-        elif "flash_bwd_dq" in name:
-            fam = "flash_bwd_dq"
-        elif "flash_bwd_dkv" in name:
-            fam = "flash_bwd_dkv"
-        elif any(x in name for x in ("gemm", "cutlass", "xmma", "nvjet",
-                                     "cublas", "sm90")):
-            fam = "matmul (cuBLAS)"
-        else:
-            fam = "other"
+        fam = next((f for f, keys in _FAMILIES
+                    if any(k in name for k in keys)), "other")
         families[fam] += evt.self_device_time_total / 1e3
     busy = sum(families.values())
     if busy <= 0:
-        log("  profiler saw no device time: breakdown not measured")
-        return
-    log(f"  profiled step: wall {wall * 1e3:.1f} ms, device busy "
-        f"{busy:.1f} ms ({busy / (wall * 1e3):.1%}; idle share "
-        f"{1 - busy / (wall * 1e3):.1%})")
+        log(f"  profiler saw no device time in {label}: breakdown not "
+            "measured")
+        return None
+    log(f"  profiled {label}: wall {wall:.1f} ms, device busy {busy:.1f} ms "
+        f"({busy / wall:.1%}; idle share {1 - busy / wall:.1%})")
     for fam, ms in sorted(families.items(), key=lambda kv: -kv[1]):
-        log(f"    {fam:18s} {ms:9.2f} ms  {ms / busy:6.1%}")
+        if ms:
+            log(f"    {fam:18s} {ms:9.2f} ms  {ms / busy:6.1%}")
     kernels.sort(key=lambda e: -e.self_device_time_total)
     for evt in kernels[:8]:
         log(f"    top: {evt.self_device_time_total / 1e3:8.2f} ms "
             f"x{evt.count:<5d} {evt.key[:90]}")
+    return {"wall_ms": wall, "busy_ms": busy, "families": families}
+
+
+def _profile_step(step_fn, state, batch) -> None:
+    """Device time of one train step by kernel family."""
+    _profile("step", lambda: step_fn(state, batch))
+
+
+def _profile_decode(server: ModelServer) -> dict | None:
+    """One decode chunk (CHUNK steps, every slot at position 3000, greedy)
+    through the idle engine's own decode function, profiled. Paged engines
+    get tables over blocks 1.. (the pool is idle: nothing lives there)."""
+    engine = server.models[MODEL].engine
+    dev, n = engine.device, engine.n_slots
+    pos = PROMPT_LENS[-1]
+    bucket = next(b for b in engine.decode_buckets if b >= pos + CHUNK)
+    args = [torch.ones(n, dtype=torch.long, device=dev),
+            torch.full((n,), pos, dtype=torch.long, device=dev),
+            torch.zeros(n, device=dev),
+            torch.zeros(n, dtype=torch.long, device=dev),
+            torch.ones(n, device=dev)]
+    if engine.kv_info() is not None:
+        nb = bucket // engine.kv_info()["block_size"]
+        args.insert(0, torch.arange(1, 1 + n * nb, device=dev).view(n, nb))
+    chunk_fn = engine._decode[(bucket, False)]
+    with torch.inference_mode():
+        chunk_fn(engine._cache, *args, engine._gen)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chunk_fn(engine._cache, *args, engine._gen)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        rec = _profile(f"decode chunk ({CHUNK} steps, {n} rows, bucket "
+                       f"{bucket})",
+                       lambda: chunk_fn(engine._cache, *args, engine._gen))
+    if rec:
+        # The profiler's own host overhead stretches its wall: the idle
+        # share is read against the same chunk run unprofiled just before.
+        rec["unprofiled_wall_ms"] = wall
+        log(f"    per step: unprofiled wall {wall / CHUNK:.2f} ms, device "
+            f"busy {rec['busy_ms'] / CHUNK:.2f} ms (idle share of the "
+            f"unprofiled wall {1 - rec['busy_ms'] / wall:.1%})")
+    return rec
 
 
 class _PlainFlash(torch.autograd.Function):
@@ -851,15 +1235,31 @@ def main() -> int:
     kern = phase_kernels()
     log("phase 2b: backward kernels vs the plain backward")
     bwd = phase_backward()
+    log("phase 2c: the W8A8 int8 matmul vs its plain version")
+    q8 = phase_qmm()
     log(f"phase 3: {MODEL} forward, kernel vs plain attention")
     phase_model()
-    log(f"phase 4: serving {MODEL} over HTTP")
-    launches = phase_serving()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    bundle = tempfile.mkdtemp(prefix="chip_smoke_bundle_",
+                              dir=os.path.join(ROOT, "build"))
+    try:
+        log(f"phase 4: serving {MODEL} over HTTP")
+        flat = phase_serving(bundle)
+        log(f"phase 4b: paged serving of {MODEL} (KV blocks of "
+            f"{KV_BLOCK_SIZE})")
+        paged = phase_paged(bundle, flat)
+        log(f"phase 4c: quantized serving of {MODEL} (int8 weights, int8 "
+            "paged KV)")
+        quant = phase_quant(bundle, flat, paged)
+    finally:
+        shutil.rmtree(bundle, ignore_errors=True)
     log(f"phase 5: training {TRAIN_MODEL} through the trainer")
     train = phase_training()
     log(f"  phases 2-5 took {time.monotonic() - t0:.1f}s")
-    main_row, bmain = kern["main"], bwd["main"]
-    fwd_launches = {"serving": launches, "training": train["launches"][0]}
+    main_row, bmain, qmain = kern["main"], bwd["main"], q8["main"]
+    fwd_launches = {"serving": flat["launches"],
+                    "paged_quant_serving": quant["launches"],
+                    "training": train["launches"][0]}
     bwd_common = {"route": "cuda",
                   "source": "kubeflow_tpu_torch/ops/csrc/flash_bwd.cu",
                   "plain_ms": bmain["plain_ms"],
@@ -893,6 +1293,15 @@ def main() -> int:
         "rel_l2_err": max(bwd["worst"][n]["rel_l2"] for n in ("dk", "dv")),
         "ms": bmain["dkv_ms"], "bound_ms": bmain["dkv_bound_ms"],
         "bound_by": bmain["dkv_bound_by"], **bwd_common,
+    }, {
+        "name": "int8_matmul", "route": "cuda",
+        "source": "kubeflow_tpu_torch/ops/csrc/qmm.cu",
+        "replaces": "kubeflow_tpu/ops/quant_matmul.py:29",
+        "launches": q8["launches"], "max_abs_err": q8["max_abs_err"],
+        "ms": qmain["ms"], "plain_ms": qmain["plain_ms"],
+        "bound_ms": qmain["bound_ms"], "bound_by": qmain["bound_by"],
+        "library_ms": qmain["library_ms"], "shape": qmain["shape"],
+        "by_shape": q8["rows"],
     }]}))
     log(smi())
     log(json.dumps({"ok": True, "device": {

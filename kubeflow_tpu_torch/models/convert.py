@@ -37,6 +37,13 @@ def llama_params_from_jax(params_np, cfg: LlamaConfig) -> dict:
     when that is None), norm scales in fp32. Raises on any leaf that is
     missing or left over.
 
+    A tree from the JAX `quantize_tree` is taken too, with each `Int8Leaf`
+    flattened to a {"q": codes, "scale": scales} pair: such a kernel maps
+    onto an `Int8Dense`'s `q` (int8, the same transposes as the float
+    kernel) and `scale` (fp32 per output channel: [L,1,H,Dh] -> [H*Dh] for
+    q/k/v, [L,1,1,D] -> [D] for o_proj, [1,V] -> [V] for the head, [V,1] ->
+    [V] for the embedding).
+
     The layout transforms are linear, so the same call maps a JAX
     GRADIENT tree (same structure as the params) onto the port's
     parameter names: that is how the tests compare gradients."""
@@ -44,6 +51,7 @@ def llama_params_from_jax(params_np, cfg: LlamaConfig) -> dict:
     d, v = cfg.hidden_size, cfg.vocab_size
     h, kh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dt, f32 = cfg.storage_dtype, torch.float32
+    n, inter = cfg.num_layers, cfg.intermediate_size
     used = set()
 
     def take(path, dtype, shape):
@@ -56,29 +64,62 @@ def llama_params_from_jax(params_np, cfg: LlamaConfig) -> dict:
                              f"{tuple(x.shape)}, expected {tuple(shape)}")
         return x
 
-    n = cfg.num_layers
-    qk = take("layers/attn/q_proj/kernel", dt, (n, d, h, dh))
-    kk = take("layers/attn/k_proj/kernel", dt, (n, d, kh, dh))
-    vk = take("layers/attn/v_proj/kernel", dt, (n, d, kh, dh))
-    ok = take("layers/attn/o_proj/kernel", dt, (n, h, dh, d))
-    gk = take("layers/mlp/gate_proj/kernel", dt, (n, d, cfg.intermediate_size))
-    uk = take("layers/mlp/up_proj/kernel", dt, (n, d, cfg.intermediate_size))
-    dk = take("layers/mlp/down_proj/kernel", dt, (n, cfg.intermediate_size, d))
+    def kernel(path, shape, out_features):
+        """(values, scale or None): a float kernel in the storage dtype, or
+        an Int8Leaf's codes and its scales flattened to [(L,) out]."""
+        if path + "/q" not in flat:
+            return take(path, dt, shape), None
+        q = take(path + "/q", torch.int8, shape)
+        lead = (shape[0],) if path.startswith("layers/") else ()
+        scale = take(path + "/scale", f32, np.shape(flat[path + "/scale"]))
+        if scale.numel() != int(np.prod(lead)) * out_features:
+            raise ValueError(f"flax param {path + '/scale'!r} has shape "
+                             f"{tuple(scale.shape)}, expected "
+                             f"{out_features} scales per kernel")
+        return q, scale.reshape(*lead, out_features)
+
+    sd = {}
+
+    def put(key, values, scale, to_linear):
+        """`key`.weight, or `key`.q and `key`.scale, of one module."""
+        if scale is None:
+            sd[key + ".weight"] = to_linear(values).contiguous()
+        else:
+            sd[key + ".q"] = to_linear(values).contiguous()
+            sd[key + ".scale"] = scale.clone()
+
+    layer_kernels = {  # name: (flax path, stacked shape, out, to [out, in])
+        "attn.q_proj": ("attn/q_proj", (n, d, h, dh), h * dh,
+                        lambda x: x.reshape(d, h * dh).T),
+        "attn.k_proj": ("attn/k_proj", (n, d, kh, dh), kh * dh,
+                        lambda x: x.reshape(d, kh * dh).T),
+        "attn.v_proj": ("attn/v_proj", (n, d, kh, dh), kh * dh,
+                        lambda x: x.reshape(d, kh * dh).T),
+        "attn.o_proj": ("attn/o_proj", (n, h, dh, d), d,
+                        lambda x: x.reshape(h * dh, d).T),
+        "mlp.gate_proj": ("mlp/gate_proj", (n, d, inter), inter,
+                          lambda x: x.T),
+        "mlp.up_proj": ("mlp/up_proj", (n, d, inter), inter, lambda x: x.T),
+        "mlp.down_proj": ("mlp/down_proj", (n, inter, d), d, lambda x: x.T),
+    }
+    stacked = {name: (*kernel(f"layers/{path}/kernel", shape, out), fn)
+               for name, (path, shape, out, fn) in layer_kernels.items()}
     inn = take("layers/input_norm/scale", f32, (n, d))
     pan = take("layers/post_attn_norm/scale", f32, (n, d))
-    sd = {"embed": take("embed", dt, (v, d)),
-          "final_norm.scale": take("final_norm/scale", f32, (d,))}
+    embed, embed_scale = kernel("embed", (v, d), v)
+    if embed_scale is None:
+        sd["embed"] = embed
+    else:
+        put("embed", embed, embed_scale, lambda x: x)
+    sd["final_norm.scale"] = take("final_norm/scale", f32, (d,))
     if not cfg.tie_embeddings:
-        sd["lm_head.weight"] = take("lm_head/kernel", dt, (d, v)).T.contiguous()
+        head, head_scale = kernel("lm_head/kernel", (d, v), v)
+        put("lm_head", head, head_scale, lambda x: x.T)
     for i in range(n):
         p = f"layers.{i}."
-        sd[p + "attn.q_proj.weight"] = qk[i].reshape(d, h * dh).T.contiguous()
-        sd[p + "attn.k_proj.weight"] = kk[i].reshape(d, kh * dh).T.contiguous()
-        sd[p + "attn.v_proj.weight"] = vk[i].reshape(d, kh * dh).T.contiguous()
-        sd[p + "attn.o_proj.weight"] = ok[i].reshape(h * dh, d).T.contiguous()
-        sd[p + "mlp.gate_proj.weight"] = gk[i].T.contiguous()
-        sd[p + "mlp.up_proj.weight"] = uk[i].T.contiguous()
-        sd[p + "mlp.down_proj.weight"] = dk[i].T.contiguous()
+        for name, (values, scale, to_linear) in stacked.items():
+            put(p + name, values[i], None if scale is None else scale[i],
+                to_linear)
         sd[p + "input_norm.scale"] = inn[i].clone()
         sd[p + "post_attn_norm.scale"] = pan[i].clone()
     extra = sorted(set(flat) - used)

@@ -18,6 +18,9 @@ Differences from the JAX twin, by design:
   * the KV cache is updated IN PLACE (a functional copy of a multi-GB
     cache per layer is not affordable eagerly); `forward` still returns the
     cache it was given so call sites read like the JAX ones;
+  * under `quantized_dense` the projections are `Int8Dense` modules and the
+    embedding an `Int8Dense` table (serve/quant.py), built by
+    `quantize_model` from a float model or loaded from a state dict;
   * features of other model families and of later slices are refused with
     NotImplementedError, never ignored (`_check_supported`).
 """
@@ -35,6 +38,9 @@ from torch.utils.checkpoint import checkpoint
 
 from kubeflow_tpu_torch.ops.flash_attention import MaskSpec, flash_attention
 from kubeflow_tpu_torch.ops.reference import naive_attention
+from kubeflow_tpu_torch.serve.quant import (KV_QUANT_MODES, Int8Dense,
+                                            kv_qdtype, kv_quantize_rows,
+                                            quant_embed_lookup, quant_unembed)
 from kubeflow_tpu_torch.utils.devices import resolve_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -169,7 +175,6 @@ def _check_supported(cfg: LlamaConfig) -> None:
         (cfg.qk_norm, "qk_norm"),
         (cfg.rope_theta_local, "rope_theta_local (dual rope bases)"),
         (cfg.lora_rank > 0, "LoRA (lora_rank > 0)"),
-        (cfg.quantized_dense, "int8 weights (quantized_dense)"),
         (cfg.attention_impl not in ("auto", "naive", "flash"),
          f"attention_impl={cfg.attention_impl!r} (ring/zigzag attention "
          "over a device mesh)"),
@@ -238,29 +243,52 @@ def apply_rope(x, cos, sin, positions):
 
 def init_cache(cfg: LlamaConfig, batch: int, max_len: int | None = None,
                kv_quant: str = "none", device=None) -> dict:
-    """Decode KV cache {"k","v"} of [L, B, T, KH, D] (the flat layout)."""
-    if kv_quant != "none":
-        raise NotImplementedError(f"kv_quant={kv_quant!r} is not supported "
-                                  "by this package yet")
+    """Decode KV cache {"k","v"} of [L, B, T, KH, D] (the flat layout; the
+    paged engine's pool is the same layout with B = blocks, T = block
+    size). `kv_quant` "int8"/"fp8" stores K/V as codes of that type with
+    per-row fp32 scale planes "ks"/"vs" of [L, B, T, KH]."""
+    if kv_quant not in KV_QUANT_MODES:
+        raise ValueError(f"kv_quant {kv_quant!r}: must be one of "
+                         f"{KV_QUANT_MODES}")
     t = max_len or cfg.max_seq_len
     if cfg.mask_kind == "sliding_window" and 0 < cfg.mask_window < t:
+        if kv_quant != "none":
+            raise ValueError("kv_quant does not compose with a rolling "
+                             "sliding-window cache")
         raise NotImplementedError(
             "rolling-window cache (sliding_window mask shorter than the "
             "cache) is not supported by this package yet")
     shape = (cfg.num_layers, batch, t, cfg.num_kv_heads, cfg.head_dim)
+    if kv_quant != "none":
+        qdt = kv_qdtype(kv_quant)
+        return {"k": torch.zeros(shape, dtype=qdt, device=device),
+                "v": torch.zeros(shape, dtype=qdt, device=device),
+                "ks": torch.zeros(shape[:-1], dtype=torch.float32,
+                                  device=device),
+                "vs": torch.zeros(shape[:-1], dtype=torch.float32,
+                                  device=device)}
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
 
 
-def _update_cache(cache_k, cache_v, k, v, index):
-    """Write new k/v [B,S,KH,D] into per-layer caches [B,T,KH,D] at per-row
+def _update_rows(cache_leaf, new_rows, index):
+    """Write new rows [B,S,...] into a per-layer plane [B,T,...] at per-row
     offsets index [B], in place (no host sync: the rows are an index
-    tensor). Rows advance independently under continuous batching."""
-    b, s = k.shape[:2]
-    rows = index.to(torch.long)[:, None] + torch.arange(s, device=k.device)
-    batch = torch.arange(b, device=k.device)[:, None]
-    cache_k[batch, rows] = k.to(cache_k.dtype)
-    cache_v[batch, rows] = v.to(cache_v.dtype)
+    tensor). Rows advance independently under continuous batching; the
+    quantized cache's scale planes [B,T,KH] ride the same write."""
+    b, s = new_rows.shape[:2]
+    dev = new_rows.device
+    rows = index.to(torch.long)[:, None] + torch.arange(s, device=dev)
+    batch = torch.arange(b, device=dev)[:, None]
+    cache_leaf[batch, rows] = new_rows.to(cache_leaf.dtype)
+
+
+def _dense(cfg: LlamaConfig, in_features: int, out_features: int, device):
+    """The projection class at every site: `Dense`, or `Int8Dense` under
+    `cfg.quantized_dense` (the JAX `_dense_cls`)."""
+    if cfg.quantized_dense:
+        return Int8Dense(in_features, out_features, cfg.dtype, device)
+    return Dense(cfg, in_features, out_features, device)
 
 
 class Dense(nn.Linear):
@@ -283,10 +311,10 @@ class Attention(nn.Module):
         super().__init__()
         self.cfg = cfg
         d, dh = cfg.hidden_size, cfg.head_dim
-        self.q_proj = Dense(cfg, d, cfg.num_heads * dh, device)
-        self.k_proj = Dense(cfg, d, cfg.num_kv_heads * dh, device)
-        self.v_proj = Dense(cfg, d, cfg.num_kv_heads * dh, device)
-        self.o_proj = Dense(cfg, cfg.num_heads * dh, d, device)
+        self.q_proj = _dense(cfg, d, cfg.num_heads * dh, device)
+        self.k_proj = _dense(cfg, d, cfg.num_kv_heads * dh, device)
+        self.v_proj = _dense(cfg, d, cfg.num_kv_heads * dh, device)
+        self.o_proj = _dense(cfg, cfg.num_heads * dh, d, device)
 
     def forward(self, x, cos, sin, positions, standard_positions=True,
                 cache=None, cache_index=None, segment_ids=None,
@@ -303,8 +331,25 @@ class Attention(nn.Module):
                 "attention mask specs don't compose with KV-cache decode: "
                 "serve masked models with a full forward")
         if cache is not None:
-            ck, cv = cache["k"], cache["v"]
-            _update_cache(ck, cv, k, v, cache_index)
+            k_scale = v_scale = None
+            if "ks" in cache:
+                # Quantized cache: quantize only the new rows, write codes
+                # and scales at the per-row offsets, and attend over the
+                # raw codes cast to the compute dtype with the scale planes
+                # applied to scores and probabilities (no dequantized
+                # cache is made).
+                mode = "int8" if cache["k"].dtype == torch.int8 else "fp8"
+                kq, ks = kv_quantize_rows(k, mode)
+                vq, vs = kv_quantize_rows(v, mode)
+                for name, rows in (("k", kq), ("v", vq), ("ks", ks),
+                                   ("vs", vs)):
+                    _update_rows(cache[name], rows, cache_index)
+                ck, cv = cache["k"].to(k.dtype), cache["v"].to(v.dtype)
+                k_scale, v_scale = cache["ks"], cache["vs"]
+            else:
+                ck, cv = cache["k"], cache["v"]
+                _update_rows(ck, k, cache_index)
+                _update_rows(cv, v, cache_index)
             if s == 1 or attend_full_cache:
                 # Decode or a continuation chunk: attend over the whole
                 # cache; causality and the unwritten tail (incl. stale rows
@@ -313,7 +358,8 @@ class Attention(nn.Module):
                 pos_kv = torch.arange(t, device=x.device).expand(b, t)
                 out = naive_attention(q, ck, cv, causal=True,
                                       positions_q=positions,
-                                      positions_kv=pos_kv)
+                                      positions_kv=pos_kv, k_scale=k_scale,
+                                      v_scale=v_scale)
                 return self.o_proj(out.reshape(b, s, h * dh))
             # Prefill (cache_index 0): nothing precedes the new tokens, so
             # attention over just k/v is exact — the fused path serves it.
@@ -341,9 +387,9 @@ class MLPBlock(nn.Module):
     def __init__(self, cfg: LlamaConfig, device):
         super().__init__()
         d, i = cfg.hidden_size, cfg.intermediate_size
-        self.gate_proj = Dense(cfg, d, i, device)
-        self.up_proj = Dense(cfg, d, i, device)
-        self.down_proj = Dense(cfg, i, d, device)
+        self.gate_proj = _dense(cfg, d, i, device)
+        self.up_proj = _dense(cfg, d, i, device)
+        self.down_proj = _dense(cfg, i, d, device)
 
     def forward(self, x):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
@@ -376,21 +422,30 @@ class Llama(nn.Module):
     initialised: load a state dict or call `init_weights(seed)`. With
     `cfg.remat` and grad enabled, each DecoderLayer runs under
     `torch.utils.checkpoint` (its forward, flash kernel included, runs
-    again in the backward)."""
+    again in the backward).
+
+    With `cfg.quantized_dense` every projection is an `Int8Dense` and the
+    embedding an `Int8Dense` table (codes [V, D], scales [V]); such a model
+    takes its weights from a state dict (`quantize_model` makes one from a
+    float model)."""
 
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
         _check_supported(cfg)
         device = resolve_device(device)
         self.cfg = cfg
-        self.embed = nn.Parameter(torch.empty(
-            cfg.vocab_size, cfg.hidden_size, dtype=cfg.storage_dtype,
-            device=device))
+        if cfg.quantized_dense:
+            self.embed = Int8Dense(cfg.hidden_size, cfg.vocab_size,
+                                   cfg.dtype, device)
+        else:
+            self.embed = nn.Parameter(torch.empty(
+                cfg.vocab_size, cfg.hidden_size, dtype=cfg.storage_dtype,
+                device=device))
         self.layers = nn.ModuleList(DecoderLayer(cfg, device)
                                     for _ in range(cfg.num_layers))
         self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, cfg.dtype,
                                   device)
-        self.lm_head = (None if cfg.tie_embeddings else Dense(
+        self.lm_head = (None if cfg.tie_embeddings else _dense(
             cfg, cfg.hidden_size, cfg.vocab_size, device))
         cos, sin = rope_table(cfg.head_dim, cfg.max_seq_len, cfg.rope_theta,
                               cfg, device=device)
@@ -399,13 +454,17 @@ class Llama(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.embed.device
+        return self.rope_cos.device
 
     @torch.no_grad()
     def init_weights(self, seed: int = 0) -> "Llama":
         """Random weights from `seed` on the model's own device: embedding
         N(0, 0.02), projections N(0, 1/fan_in) (LeCun normal, untruncated),
-        norm scales 1."""
+        norm scales 1. A quantized model is refused: initialise the float
+        model, then quantize it."""
+        if self.cfg.quantized_dense:
+            raise ValueError("init_weights needs a float model; quantize "
+                             "after initialising (serve.quant.quantize_model)")
         gen = torch.Generator(device=self.device).manual_seed(seed)
         self.embed.normal_(0.0, 0.02, generator=gen)
         for mod in self.modules():
@@ -439,7 +498,7 @@ class Llama(nn.Module):
         # Rows first, then the cast: the same values as JAX's
         # embed.astype(dtype)[tokens], and the gradient scatter-adds in the
         # storage dtype.
-        x = self.embed[tokens].to(self.cfg.dtype)
+        x = quant_embed_lookup(self.embed, tokens, self.cfg.dtype)
         remat = (self.cfg.remat and cache is None
                  and torch.is_grad_enabled())
         for i, layer in enumerate(self.layers):
@@ -449,15 +508,19 @@ class Llama(nn.Module):
                                segment_ids, False, use_reentrant=False)
                 continue
             layer_cache = (None if cache is None
-                           else {"k": cache["k"][i], "v": cache["v"][i]})
+                           else {n: c[i] for n, c in cache.items()})
             x = layer(x, self.rope_cos, self.rope_sin, positions,
                       standard_positions, layer_cache, cache_index,
                       segment_ids, attend_full_cache)
         x = self.final_norm(x)
         if return_hidden:
             return (x, cache) if cache is not None else x
-        if self.lm_head is None:
-            logits = F.linear(x, self.embed.to(self.cfg.dtype))
-        else:
-            logits = self.lm_head(x)
+        logits = self.unembed(x)
         return (logits, cache) if cache is not None else logits
+
+    def unembed(self, x):
+        """Logits [..., V] of final-norm hidden states [..., D]: the head,
+        or the tied embedding."""
+        if self.lm_head is None:
+            return quant_unembed(x, self.embed, self.cfg.dtype)
+        return self.lm_head(x)

@@ -43,6 +43,10 @@ SIGNATURES = {
         # q, k, v, do, lse, delta, seg, dk, dv
         "tpk_flash_bwd_dkv": [_P] * 9 + _MASK_ARGS,
     },
+    "qmm.cu": {
+        # qx, sx, qw, sw, out, M, K, N, out_bf16, stream
+        "tpk_qmm": [_P] * 5 + [_I] * 4 + [_P],
+    },
 }
 
 _lock = threading.Lock()

@@ -36,11 +36,11 @@ def naive_attention(q, k, v, *, causal: bool = True,
     same rounding points as the JAX twin. Masked scores are the finite
     -1e30, not -inf, so a fully masked row is a uniform average, not NaN.
 
-    Quantized-cache scales (`k_scale`/`v_scale`) are not supported."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "kv_quant: quantized-cache scales (k_scale/v_scale) are not "
-            "supported by this package")
+    `k_scale`/`v_scale` [B,T,KH] fp32 are the per-row scales of a
+    quantized cache: k/v arrive as the raw codes cast to the input dtype,
+    and the scales land on the score and probability tensors (`scores *
+    k_scale` after Q·Kᵀ, `probs * v_scale` before the cast and P·V), so no
+    cache-width `[..., T, KH, D]` multiply exists."""
     if (mask is not None and mask.kind == "prefix_lm"
             and segment_ids is not None):
         raise ValueError(
@@ -52,6 +52,8 @@ def naive_attention(q, k, v, *, causal: bool = True,
     group = h // kh
     qg = q.reshape(b, s, kh, group, d)
     scores = torch.einsum("bskgd,btkd->bkgst", qg, k).float()
+    if k_scale is not None:
+        scores = scores * k_scale.permute(0, 2, 1)[:, :, None, None, :]
     scores = scores / math.sqrt(d)
     if softcap:
         scores = torch.tanh(scores / softcap) * softcap
@@ -83,6 +85,9 @@ def naive_attention(q, k, v, *, causal: bool = True,
         seg = (segment_ids[:, None, None, :, None]
                == sk[:, None, None, None, :])
         scores = torch.where(seg, scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    probs = torch.softmax(scores, dim=-1)
+    if v_scale is not None:
+        probs = probs * v_scale.permute(0, 2, 1)[:, :, None, None, :]
+    probs = probs.to(q.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", probs, v)
     return out.reshape(b, s, h, d)

@@ -1,15 +1,29 @@
 """Generative LLM serving: KV-cache decode, sampling, continuous batching.
 
-The port of the flat path of `kubeflow_tpu/serve/generation.py` at
-pipeline depth 1:
+The port of the flat and paged paths of `kubeflow_tpu/serve/generation.py`
+at pipeline depth 1:
 
-  * one slot-batched KV cache [L, slots, max_len, KH, D] on the device;
-    stale slot content needs no eviction — absolute-position masking hides
-    anything past a slot's write index;
+  * flat (the default): one slot-batched KV cache [L, slots, max_len, KH,
+    D] on the device; stale slot content needs no eviction — absolute-
+    position masking hides anything past a slot's write index;
+  * paged (`kv_block_size` > 0): a pool of fixed-size blocks [L, kv_blocks
+    + 1, block_size, KH, D] with the NULL block 0 (serve/paging.py); each
+    request reserves its worst-case blocks whole at admission (or waits,
+    head of line, until retirements free them) and frees them at
+    retirement; each decode dispatch gathers the block tables into a
+    contiguous [L, slots, bucket, ...] view, runs the flat chunk on it
+    verbatim (view row t is logical position t) and scatters it back, so
+    paged decode is token- and logprob-identical to flat;
+  * `kv_quant` "int8"/"fp8" (paged only) stores the pool as codes with
+    per-row fp32 scale planes; admission quantizes the full-precision
+    prefill fragment as it scatters it (the same row encode as the model's
+    decode writes), and decode attends over the raw codes with the scales
+    applied to scores and probabilities (models/llama.py);
   * admission prefills a prompt into a one-row fragment cache, in chunks of
     the largest prompt bucket when it is longer (the first chunk a plain
     prefill — flash attention — the rest continuation chunks over the
-    fragment), then copies the fragment into the slot;
+    fragment), then copies the fragment into the slot (flat) or its
+    blocks (paged);
   * decode runs `chunk` steps per dispatch over the smallest cache-length
     bucket covering every active row, sampling on the device;
   * finished slots are re-admitted between chunks.
@@ -25,6 +39,7 @@ import queue
 import threading
 import time
 import traceback
+from collections import deque
 from typing import Sequence
 
 import numpy as np
@@ -32,8 +47,22 @@ import torch
 
 from kubeflow_tpu_torch.models.llama import init_cache
 from kubeflow_tpu_torch.serve.model import Model
+from kubeflow_tpu_torch.serve.paging import BlockAllocator, blocks_for
+from kubeflow_tpu_torch.serve.quant import KV_QUANT_MODES, kv_quantize_rows
 
 NEG_INF = -1e30
+
+
+class KVCapacityExceeded(RuntimeError):
+    """The request's worst-case KV footprint exceeds the whole paged pool:
+    it can never be admitted. The HTTP server answers 503 + Retry-After
+    (a shed, not a bad request: this replica's pool is just too small)."""
+
+
+class _NeedKVBlocks(Exception):
+    """Internal admission signal: the pool cannot cover the request's
+    worst-case need right now (it fits in principle). The request waits at
+    the head of the line until retirements free blocks."""
 
 
 def _chosen_logprob(logits, tok):
@@ -78,14 +107,20 @@ def sample_tokens(logits, temperature, generator, top_k=None, top_p=None):
 
 
 def build_engine_fns(model, *, max_len: int, chunk: int,
-                     prefill_buckets: Sequence[int]) -> dict:
+                     prefill_buckets: Sequence[int], kv_block_size: int = 0,
+                     kv_quant: str = "none") -> dict:
     """The engine's device functions as closures over `model`.
 
     Caches are written in place: `prefill` returns a fresh fragment,
     `extend`/`extend_mid` write into the fragment they are given, `insert`
     copies a fragment into one slot of the engine cache, and a decode
     chunk writes into the engine cache through a view of its first
-    `bucket` rows."""
+    `bucket` rows.
+
+    `kv_block_size` > 0 adds the paged functions: `make_decode_paged`
+    (gather the block tables into a view, the flat chunk on it, scatter it
+    back) and `insert_paged` (scatter a fragment into a request's blocks,
+    quantizing its rows when `kv_quant` is set)."""
     cfg = model.cfg
     dev = model.device
     big = max(prefill_buckets)
@@ -95,8 +130,10 @@ def build_engine_fns(model, *, max_len: int, chunk: int,
     # dropped at insert.
     frag_len = max_len + (big if big < max_len - 1 else 0)
 
-    def _last(logits, length, temperature, top_k, top_p, gen):
-        last = logits[:, length - 1]
+    def _last(hidden, length, temperature, top_k, top_p, gen):
+        """Sample from the logits of the last real token only: the other
+        rows of the bucket are never unembedded."""
+        last = model.unembed(hidden[:, length - 1])
         tok = sample_tokens(last, temperature, gen, top_k, top_p)
         return tok, _chosen_logprob(last, tok)
 
@@ -104,10 +141,11 @@ def build_engine_fns(model, *, max_len: int, chunk: int,
         """tokens [1, bucket] right-padded, `length` real tokens; returns
         (fragment cache, first sampled token [1], its logprob [1])."""
         frag = init_cache(cfg, 1, frag_len, device=dev)
-        logits, frag = model(tokens, cache=frag,
+        hidden, frag = model(tokens, cache=frag,
                              cache_index=torch.zeros(1, dtype=torch.int32,
-                                                     device=dev))
-        return (frag,) + _last(logits, length, temperature, top_k, top_p, gen)
+                                                     device=dev),
+                             return_hidden=True)
+        return (frag,) + _last(hidden, length, temperature, top_k, top_p, gen)
 
     def _continue(frag, tokens, index, return_hidden):
         positions = (index + torch.arange(tokens.shape[1], device=dev))[None]
@@ -120,8 +158,8 @@ def build_engine_fns(model, *, max_len: int, chunk: int,
         """Final continuation chunk of a long prompt, written at offset
         `index` and attending over the whole fragment; samples like
         prefill."""
-        logits, frag = _continue(frag, tokens, index, False)
-        return (frag,) + _last(logits, length, temperature, top_k, top_p, gen)
+        hidden, frag = _continue(frag, tokens, index, True)
+        return (frag,) + _last(hidden, length, temperature, top_k, top_p, gen)
 
     def extend_mid(frag, tokens, index):
         """Intermediate continuation chunk: cache write and attention only
@@ -160,8 +198,64 @@ def build_engine_fns(model, *, max_len: int, chunk: int,
             return cache, torch.stack(toks, dim=1), torch.stack(lps, dim=1)
         return decode_chunk
 
-    return {"prefill": prefill, "extend": extend, "extend_mid": extend_mid,
-            "insert": insert, "make_decode": make_decode}
+    fns = {"prefill": prefill, "extend": extend, "extend_mid": extend_mid,
+           "insert": insert, "make_decode": make_decode}
+    if kv_block_size <= 0:
+        return fns
+    bs = int(kv_block_size)
+
+    def _gather_view(pool_leaf, tables):
+        """[L, NB, bs, ...] x [B, nb] -> a contiguous [L, B, nb*bs, ...]
+        copy: view row j*bs + r is block tables[b, j] row r, logical
+        position j*bs + r, because tables are position-ordered."""
+        g = pool_leaf[:, tables]
+        return g.reshape(g.shape[0], g.shape[1], g.shape[2] * g.shape[3],
+                         *g.shape[4:])
+
+    def _scatter_view(pool_leaf, view_leaf, tables):
+        """Write the view back to its blocks. Duplicate ids are only the
+        NULL block (table pads, idle rows), which receives garbage nobody
+        reads."""
+        b, nb = tables.shape
+        v = view_leaf.reshape(view_leaf.shape[0], b * nb, bs,
+                              *view_leaf.shape[3:])
+        pool_leaf[:, tables.reshape(-1)] = v
+
+    def make_decode_paged(truncate: bool, bucket: int):
+        flat_chunk = make_decode(truncate, bucket)
+
+        def decode_chunk(pool, tables, last_tok, index, temperature, top_k,
+                         top_p, gen):
+            """The flat chunk over a gathered block view: tables [B,
+            bucket/bs] (pad entries 0 = the NULL block). Returns (pool,
+            tokens [B, chunk], logprobs [B, chunk])."""
+            view = {n: _gather_view(p, tables) for n, p in pool.items()}
+            _, toks, lps = flat_chunk(view, last_tok, index, temperature,
+                                      top_k, top_p, gen)
+            for n, p in pool.items():
+                _scatter_view(p, view[n], tables)
+            return pool, toks, lps
+        return decode_chunk
+
+    def insert_paged(pool, frag, table):
+        """Scatter a fragment's first len(table)*bs rows into the blocks
+        `table` [nb] (a request's reservation, position-ordered), layer by
+        layer. A quantized pool gets the rows' codes and scales, by the
+        same encode as the model's decode writes."""
+        nb = table.numel()
+        # One layer at a time keeps the quantizer's fp32 temporaries small.
+        for layer in range(cfg.num_layers):
+            rows = {n: f[layer, 0, :nb * bs] for n, f in frag.items()}
+            if kv_quant != "none":
+                rows["k"], rows["ks"] = kv_quantize_rows(rows["k"], kv_quant)
+                rows["v"], rows["vs"] = kv_quantize_rows(rows["v"], kv_quant)
+            for n, r in rows.items():
+                pool[n][layer, table] = r.reshape(nb, bs, *r.shape[1:]).to(
+                    pool[n].dtype)
+        return pool
+
+    fns.update(make_decode_paged=make_decode_paged, insert_paged=insert_paged)
+    return fns
 
 
 class GenerationEngine:
@@ -170,11 +264,17 @@ class GenerationEngine:
     `submit()` is thread-safe and blocks until the request completes; one
     worker thread runs every device call, multiplexing the in-flight
     requests onto the slot batch: admit waiting requests into free slots,
-    dispatch one decode chunk, fetch its tokens, emit, repeat."""
+    dispatch one decode chunk, fetch its tokens, emit, repeat.
+
+    `kv_block_size` > 0 pages the cache: `slots` is then the decode width
+    and memory is the pool of `kv_blocks` blocks (0 sizes it to the flat
+    cache, slots * max_len rows). `kv_quant` "int8"/"fp8" needs the pool."""
 
     def __init__(self, model, *, slots: int = 4, max_len: int = 256,
                  chunk: int = 16, prefill_buckets: Sequence[int] = (32, 128),
-                 decode_buckets: Sequence[int] | None = None, seed: int = 0):
+                 decode_buckets: Sequence[int] | None = None, seed: int = 0,
+                 kv_block_size: int = 0, kv_blocks: int = 0,
+                 kv_quant: str = "none"):
         cfg = model.cfg
         self.model, self.cfg = model, cfg
         self.device = model.device
@@ -205,14 +305,48 @@ class GenerationEngine:
             {int(b) for b in decode_buckets
              if self.chunk < int(b) < self.max_len} | {self.max_len})
         self.pipeline_depth = 1
+        self._paged = int(kv_block_size) > 0
+        self._kv_bs = int(kv_block_size)
+        if self._paged:
+            if self.max_len % self._kv_bs:
+                raise ValueError(
+                    f"kv_block_size {self._kv_bs} must divide max_len "
+                    f"{self.max_len} (block tables address whole blocks)")
+            bad = [b for b in self.decode_buckets if b % self._kv_bs]
+            if bad:
+                raise ValueError(
+                    f"kv_block_size {self._kv_bs} must divide every "
+                    f"decode bucket; offending: {bad} (pass explicit "
+                    "decode_buckets or a power-of-two block size)")
+            n_blocks = int(kv_blocks) or -(-self.n_slots * self.max_len
+                                           // self._kv_bs)
+            self._kv_alloc = BlockAllocator(n_blocks, self._kv_bs)
+        self.kv_quant = str(kv_quant or "none")
+        if self.kv_quant not in KV_QUANT_MODES:
+            raise ValueError(f"kv_quant {self.kv_quant!r}: must be one of "
+                             f"{KV_QUANT_MODES}")
+        if self.kv_quant != "none" and not self._paged:
+            raise ValueError(
+                "kv_quant requires the paged KV cache (quantization is a "
+                "property of pool blocks); set kv_block_size > 0")
+        # Admissions waiting for pool blocks, head of line first.
+        self._kv_stash: deque = deque()
         fns = build_engine_fns(model, max_len=self.max_len, chunk=self.chunk,
-                               prefill_buckets=self.prefill_buckets)
+                               prefill_buckets=self.prefill_buckets,
+                               kv_block_size=self._kv_bs,
+                               kv_quant=self.kv_quant)
         self._fns = fns
-        self._decode = {(b, trunc): fns["make_decode"](trunc, b)
+        make = fns["make_decode_paged" if self._paged else "make_decode"]
+        self._decode = {(b, trunc): make(trunc, b)
                         for b in self.decode_buckets for trunc in (False, True)}
         self._gen = torch.Generator(device=self.device).manual_seed(int(seed))
-        self._cache = init_cache(cfg, self.n_slots, self.max_len,
-                                 device=self.device)
+        if self._paged:  # the pool: kv_blocks usable blocks + NULL block 0
+            self._cache = init_cache(cfg, self._kv_alloc.n_blocks + 1,
+                                     self._kv_bs, kv_quant=self.kv_quant,
+                                     device=self.device)
+        else:
+            self._cache = init_cache(cfg, self.n_slots, self.max_len,
+                                     device=self.device)
         self._queue: queue.Queue = queue.Queue()
         self._wake = threading.Event()
         self._stop = False
@@ -247,6 +381,14 @@ class GenerationEngine:
             raise ValueError(f"top_p must be in (0, 1], got {top_p}")
         if top_k < 0:
             raise ValueError(f"top_k must be >= 0, got {top_k}")
+        if self._paged:
+            need = self._need_blocks(len(ids), int(max_tokens))
+            if need > self._kv_alloc.n_blocks:
+                # Permanent: even an empty pool cannot cover it.
+                raise KVCapacityExceeded(
+                    f"request needs {need} KV blocks worst-case (prompt "
+                    f"{len(ids)} + max_tokens {int(max_tokens)}) but the "
+                    f"pool has {self._kv_alloc.n_blocks}")
         req = {"input_ids": ids, "max_tokens": int(max_tokens),
                "temperature": float(temperature), "top_k": int(top_k),
                "top_p": float(top_p), "eos_id": eos_id, "out": [],
@@ -279,6 +421,14 @@ class GenerationEngine:
         return (s["decode_tokens"] / s["decode_seconds"]
                 if s["decode_seconds"] else 0.0)
 
+    def kv_info(self) -> dict | None:
+        """Paged-pool snapshot for metadata (None = flat)."""
+        if not self._paged:
+            return None
+        return {"block_size": self._kv_bs, "blocks": self._kv_alloc.n_blocks,
+                "blocks_free": self._kv_alloc.free_blocks,
+                "blocks_used": self._kv_alloc.used_blocks}
+
     # -- worker --------------------------------------------------------------
 
     def _bucket_for(self, n: int) -> int:
@@ -287,9 +437,60 @@ class GenerationEngine:
                 return b
         return self.prefill_buckets[-1]
 
+    def _need_blocks(self, prompt: int, max_tokens: int) -> int:
+        """Blocks covering the worst-case cache rows a request can ever
+        write: the prompt plus its decode budget rounded up to whole
+        dispatch chunks (the retirement chunk still writes its full
+        width), capped at max_len (decode indices clamp at bucket - 1).
+        They are reserved whole at admission, never on the decode path."""
+        chunks = -(-max(int(max_tokens), 1) // self.chunk)
+        return blocks_for(min(self.max_len, prompt + chunks * self.chunk),
+                          self._kv_bs)
+
+    def _free_slot_blocks(self, st: dict) -> None:
+        """Return a retired request's blocks to the pool (idempotent)."""
+        blocks = st.pop("blocks", None)
+        if blocks:
+            self._kv_alloc.decref(blocks)
+
     def _admit(self, slot: int, req: dict) -> None:
-        """Chunked prefill into a fragment, insert it into `slot`, emit the
-        first sampled token."""
+        """Chunked prefill into a fragment, insert it into `slot` (flat) or
+        into the request's reserved blocks (paged), emit the first sampled
+        token. Paged: raises _NeedKVBlocks when the pool is short now."""
+        table = None
+        if self._paged:
+            table = self._kv_alloc.alloc(self._need_blocks(
+                len(req["input_ids"]), req["max_tokens"]))
+            if table is None:
+                raise _NeedKVBlocks()
+        try:
+            frag, tok0, lp0 = self._prefill_fragment(req)
+            if table is None:
+                self._fns["insert"](self._cache, frag, slot)
+            else:
+                self._fns["insert_paged"](
+                    self._cache, frag,
+                    torch.tensor(table, dtype=torch.long, device=self.device))
+        except BaseException:
+            if table is not None:
+                self._kv_alloc.decref(table)
+            raise
+        ids = req["input_ids"]
+        st = {"req": req, "idx": len(ids), "disp": len(ids),
+              "last": int(tok0[0])}
+        if table is not None:
+            st["blocks"] = table
+        self._slots[slot] = st
+        with self._stats_lock:
+            self.stats["prefill_chunks"] += -(-len(ids)
+                                              // self.prefill_buckets[-1])
+            self.stats["requests"] += 1
+            self.stats["prompt_tokens"] += len(ids)
+        self._emit(slot, st, [st["last"]], [float(lp0[0])])
+
+    def _prefill_fragment(self, req: dict):
+        """The prompt's chunked prefill into a one-row fragment cache:
+        (fragment, first sampled token [1], its logprob [1])."""
         dev = self.device
         ids = req["input_ids"]
         samp = (torch.tensor([req["temperature"]], dtype=torch.float32,
@@ -314,15 +515,7 @@ class GenerationEngine:
             else:  # intermediate chunk: no sampling, no unembedding
                 frag = fns["extend_mid"](frag, toks, done)
             done += len(piece)
-        fns["insert"](self._cache, frag, slot)
-        st = {"req": req, "idx": len(ids), "disp": len(ids),
-              "last": int(tok0[0])}
-        self._slots[slot] = st
-        with self._stats_lock:
-            self.stats["prefill_chunks"] += -(-len(ids) // big)
-            self.stats["requests"] += 1
-            self.stats["prompt_tokens"] += len(ids)
-        self._emit(slot, st, [st["last"]], [float(lp0[0])])
+        return frag, tok0, lp0
 
     def _emit(self, slot: int, st: dict, tokens: list[int],
               logprobs: list[float]) -> None:
@@ -341,18 +534,29 @@ class GenerationEngine:
         if finished:
             req["done"].set()
             self._slots[slot] = None
+            if self._paged:
+                self._free_slot_blocks(st)
 
     def _admit_waiting(self) -> None:
+        """Fill free slots from the queue. Paged: a request the pool cannot
+        cover yet waits at the head of the line (FIFO: nothing jumps it),
+        and admission resumes as retirements free blocks."""
         for slot in range(self.n_slots):
             while self._slots[slot] is None:
-                try:
-                    req = self._queue.get_nowait()
-                except queue.Empty:
-                    return
+                if self._kv_stash:
+                    req = self._kv_stash.popleft()
+                else:
+                    try:
+                        req = self._queue.get_nowait()
+                    except queue.Empty:
+                        return
                 if req["done"].is_set():  # its caller already timed out
                     continue
                 try:
                     self._admit(slot, req)
+                except _NeedKVBlocks:
+                    self._kv_stash.appendleft(req)
+                    return
                 except Exception as e:  # surface to the caller
                     req["error"] = f"{type(e).__name__}: {e}"
                     req["done"].set()
@@ -380,9 +584,19 @@ class GenerationEngine:
                       self.decode_buckets[-1])
         t0 = time.monotonic()
         dev = self.device
+        args = [torch.from_numpy(a).to(dev)
+                for a in (last, idx, temps, ks, ps)]
+        if self._paged:
+            # Per-row block tables, padded with the NULL block, from host
+            # lists fixed at admission.
+            nb = bucket // self._kv_bs
+            tables = np.zeros((n, nb), np.int64)
+            for i in active:
+                blk = self._slots[i]["blocks"][:nb]
+                tables[i, :len(blk)] = blk
+            args.insert(0, torch.from_numpy(tables).to(dev))
         self._cache, toks, lps = self._decode[(bucket, trunc)](
-            self._cache, *(torch.from_numpy(a).to(dev)
-                           for a in (last, idx, temps, ks, ps)), self._gen)
+            self._cache, *args, self._gen)
         with self._stats_lock:
             self.stats["decode_dispatches"] += 1
         for i in active:
@@ -422,6 +636,8 @@ class GenerationEngine:
                             st["req"]["error"] = f"decode failed:\n{err}"
                             st["req"]["done"].set()
                             self._slots[i] = None
+                            if self._paged:
+                                self._free_slot_blocks(st)
 
 
 #: Bundle `generative` keys of features this package does not port, with
@@ -430,10 +646,7 @@ class GenerationEngine:
 _UNPORTED = {
     "prefix_cache": ("prefix cache", 0),
     "draft": ("speculative decoding", None),
-    "kv_block_size": ("paged KV cache", 0),
-    "kv_blocks": ("paged KV cache", 0),
     "kv_host_tier_blocks": ("paged KV host tier", 0),
-    "kv_quant": ("kv_quant", "none"),
     "adapters": ("multi-LoRA adapters", None),
     "mesh": ("tensor-parallel mesh", None),
     "pipeline_depth": ("pipeline_depth > 1", 1),
@@ -461,6 +674,9 @@ class GenerativeTorchModel(Model):
         self.eos_id = gen.pop("eos_id", None)
         self._gen_cfg = gen
         self.engine: GenerationEngine | None = None
+        #: {"mode", "quantized", "full"} when the weights are int8
+        #: (serve/runtimes.py sets it), else None.
+        self.quantization: dict | None = None
 
     def load(self) -> bool:
         t0 = time.monotonic()
@@ -505,4 +721,8 @@ class GenerativeTorchModel(Model):
         if self.engine:
             md["decode_buckets"] = list(self.engine.decode_buckets)
             md["pipeline_depth"] = self.engine.pipeline_depth
+            md["paged_kv"] = self.engine.kv_info()
+            md["kv_quant"] = self.engine.kv_quant
+        if self.quantization is not None:
+            md["quantize"] = dict(self.quantization)
         return md

@@ -1,0 +1,215 @@
+"""Weight-only int8 quantization for serving, and the KV-row codec.
+
+The port of `kubeflow_tpu/serve/quant.py`. Two halves:
+
+Weights. `quantize_model` replaces every projection and the embedding of a
+Llama with int8 codes and fp32 per-output-channel scales (symmetric
+max-abs over the contraction dim), in place, module by module, freeing each
+float weight as it goes: an 8B model never holds an fp32 copy of itself.
+`Int8Dense` applies a quantized projection as the JAX `Int8DenseGeneral`
+does: the raw codes, cast to the compute dtype, go into the matmul, which
+accumulates in fp32; the scale multiplies the `[..., out]` output in fp32;
+the result is cast back. No weight-shaped dequantized tensor is made by a
+multiply. Serving is weight-only, as in the JAX package: this path never
+calls the W8A8 op `ops.quant_matmul.int8_matmul`.
+
+Known cost, measured in PERF.md: eager PyTorch materialises `q.to(bf16)`,
+a bf16 copy of each weight, per call (XLA fuses that convert into the
+matmul's operand read), so an int8 decode step moves more bytes than a bf16
+one.
+
+Like `quantize_tree`, a projection is quantized when its weight, stacked
+over the layers as the JAX param tree holds it, has at least `min_size`
+elements. Unlike `quantize_tree`, norm scales always stay float: the JAX
+tree's stacked `[L, D]` norm scales reach `min_size` at 8B widths and are
+quantized there, then dequantized at apply.
+
+KV rows. `kv_quantize_rows`/`kv_dequantize_rows` encode the paged pool's
+int8/fp8 blocks: per-row-per-head symmetric max-abs over head_dim, f32
+scales. The decode path never dequantizes a cache: the scales land on the
+score and probability tensors inside `ops.reference.naive_attention`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+#: Legal `kv_quant` values. "none" keeps the pool in the model dtype.
+KV_QUANT_MODES = ("none", "int8", "fp8")
+
+
+def kv_qdtype(mode: str) -> torch.dtype:
+    """Storage dtype of a quantized KV pool."""
+    return {"int8": torch.int8, "fp8": torch.float8_e4m3fn}[mode]
+
+
+def kv_qmax(mode: str) -> float:
+    """Largest magnitude the scale maps a row's amax onto."""
+    return {"int8": 127.0, "fp8": 448.0}[mode]
+
+
+def kv_quantize_rows(rows: torch.Tensor, mode: str):
+    """Quantize `[..., D]` rows -> (q `[..., D]` in kv_qdtype(mode), scale
+    `[...]` fp32). int8 rounds half to even and clips to +-127; fp8 relies
+    on the cast's round to nearest even. All-zero rows get the 1e-12 scale
+    and encode to exact zeros."""
+    r32 = rows.float()
+    scale = r32.abs().amax(dim=-1).clamp_min(1e-12) / kv_qmax(mode)
+    q = r32 / scale[..., None]
+    if mode == "int8":
+        q = q.round().clamp(-127, 127)
+    return q.to(kv_qdtype(mode)), scale
+
+
+def kv_dequantize_rows(q: torch.Tensor, scale: torch.Tensor,
+                       dtype=torch.bfloat16) -> torch.Tensor:
+    """Inverse of kv_quantize_rows, for admission-side use and tests; the
+    decode path never calls it."""
+    return (q.float() * scale[..., None]).to(dtype)
+
+
+def _quantize_rows(w: torch.Tensor):
+    """(int8 codes, fp32 scale [rows]) of a [rows, cols] weight, max-abs
+    over cols, in row blocks so the fp32 temporaries stay small."""
+    q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+    scale = torch.empty(w.shape[0], dtype=torch.float32, device=w.device)
+    step = max(1, (1 << 26) // max(1, w.shape[1]))
+    for i in range(0, w.shape[0], step):
+        w32 = w[i:i + step].float()
+        s = w32.abs().amax(dim=1).clamp_min(1e-12) / 127.0
+        q[i:i + step] = (w32 / s[:, None]).round().clamp(-127, 127).to(
+            torch.int8)
+        scale[i:i + step] = s
+    return q, scale
+
+
+def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [..., in] @ w [out, in]^T with fp32 output, both operands already
+    in the compute dtype. Half-precision operands on CUDA go through one
+    matmul with fp32 accumulation and fp32 output; elsewhere the operands
+    are widened to fp32 first (the same products: a half-precision product
+    is exact in fp32)."""
+    if x.dtype == torch.float32:
+        return F.linear(x, w)
+    if x.is_cuda:
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w.t(),
+                       out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], w.shape[0])
+    return F.linear(x.float(), w.float())
+
+
+class Int8Dense(nn.Module):
+    """A bias-free projection stored as int8 codes `q` [out, in] and fp32
+    per-output-channel scales `scale` [out] (buffers), applied in
+    `compute_dtype` as the JAX Int8DenseGeneral's int8 branch: the input
+    and the raw codes cast to the compute dtype, an fp32-accumulating
+    matmul, the scale on the fp32 output, then the cast back."""
+
+    def __init__(self, in_features: int, out_features: int, compute_dtype,
+                 device=None):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        self.compute_dtype = compute_dtype
+        self.register_buffer("q", torch.zeros(
+            out_features, in_features, dtype=torch.int8, device=device))
+        self.register_buffer("scale", torch.ones(
+            out_features, dtype=torch.float32, device=device))
+
+    @classmethod
+    def from_weight(cls, weight: torch.Tensor, compute_dtype) -> "Int8Dense":
+        out_f, in_f = weight.shape
+        mod = cls(in_f, out_f, compute_dtype, device="meta")
+        mod.q, mod.scale = _quantize_rows(weight.detach())
+        return mod
+
+    def forward(self, x):
+        cd = self.compute_dtype
+        y = _matmul_f32(x.to(cd), self.q.to(cd))
+        return y.mul_(self.scale).to(cd)  # in place: y is this call's own
+
+
+def quant_embed_lookup(embed, tokens, dtype):
+    """Token-embedding gather: int8 rows and their per-row scales gathered,
+    the multiply after the gather ([B, S, D] work, never the [V, D] table).
+    A float embedding is gathered, then cast."""
+    if not isinstance(embed, Int8Dense):
+        return embed[tokens].to(dtype)
+    rows = embed.q[tokens].float()
+    return (rows * embed.scale[tokens][..., None]).to(dtype)
+
+
+def quant_unembed(x, embed, dtype):
+    """Tied-embedding unembed `x @ embed.T`, with an int8 table's per-vocab
+    scale applied to the logits in fp32 (the JAX einsum rounds the raw
+    logits to `dtype` first, and so does this)."""
+    if not isinstance(embed, Int8Dense):
+        return F.linear(x, embed.to(dtype))
+    logits = F.linear(x, embed.q.to(dtype))
+    return (logits.float() * embed.scale).to(dtype)
+
+
+def _projections(model):
+    """(parent module, attribute name, weight elements as the JAX tree
+    stacks them) of every projection, the embedding and the head."""
+    n_layers = len(model.layers)
+    out = []
+    for layer in model.layers:
+        for parent, names in ((layer.attn, ("q_proj", "k_proj", "v_proj",
+                                            "o_proj")),
+                              (layer.mlp, ("gate_proj", "up_proj",
+                                           "down_proj"))):
+            for name in names:
+                mod = getattr(parent, name)
+                numel = mod.out_features * mod.in_features
+                out.append((parent, name, numel * n_layers))
+    if model.lm_head is not None:
+        head = model.lm_head
+        out.append((model, "lm_head", head.out_features * head.in_features))
+    out.append((model, "embed", model.cfg.vocab_size * model.cfg.hidden_size))
+    return out
+
+
+@torch.no_grad()
+def quantize_model(model, *, min_size: int = 4096):
+    """Quantize a float Llama in place and return it: every projection
+    (and the embedding, and an untied head) whose weight stacked over the
+    layers has at least `min_size` elements becomes an `Int8Dense`, one
+    module at a time, its float weight freed before the next; the config
+    gains `quantized_dense=True`. Norm scales stay fp32."""
+    cfg = model.cfg
+    if cfg.quantized_dense:
+        raise ValueError("model is already quantized")
+    for parent, name, stacked in _projections(model):
+        if stacked < min_size:
+            continue
+        mod = getattr(parent, name)
+        weight = mod if name == "embed" else mod.weight
+        q = Int8Dense.from_weight(weight, cfg.dtype)
+        if name == "embed":
+            del model.embed  # the Parameter; re-registered as a module
+        setattr(parent, name, q)
+        del mod, weight
+    qcfg = dataclasses.replace(cfg, quantized_dense=True)
+    for mod in model.modules():
+        if getattr(mod, "cfg", None) is cfg:
+            mod.cfg = qcfg
+    return model
+
+
+def quantized_bytes(model) -> dict:
+    """{"quantized": n, "full": n} parameter bytes, for metadata: int8
+    codes plus fp32 scales against the same codes at bf16 (what the server
+    would otherwise hold); float tensors count their own bytes in both."""
+    qb = fb = 0
+    for mod in model.modules():
+        if isinstance(mod, Int8Dense):
+            qb += mod.q.numel() + mod.scale.numel() * 4
+            fb += mod.q.numel() * 2
+    for p in model.parameters():
+        qb += p.numel() * p.element_size()
+        fb += p.numel() * p.element_size()
+    return {"quantized": int(qb), "full": int(fb)}

@@ -9,6 +9,10 @@ is a directory with
     params.pt    optional `torch.save`d state dict; without it the weights
                  are a seeded random init made on the target device
 
+`"quantize": "int8"` serves the weights as int8 codes with per-channel
+scales (serve/quant.py), quantized after they load, as the JAX runtime's
+`_maybe_quantize` does.
+
 The `model.json` keys are the JAX package's; only the format name and the
 params file differ. A JAX bundle (orbax `params/`) is refused.
 """
@@ -67,8 +71,10 @@ def load_model(model_dir: str, name: str | None = None,
         raise ValueError(
             "bundle holds orbax params/ (a JAX checkpoint), which this "
             f"package cannot read; save a state dict as {PARAMS_FILE}")
-    for key, what in (("quantize", "int8 weights"),
-                      ("explainer", "explainers"),
+    mode = spec.get("quantize")
+    if mode and mode != "int8":
+        raise ValueError(f"unsupported quantize mode {mode!r} (have: int8)")
+    for key, what in (("explainer", "explainers"),
                       ("peft_adapter", "LoRA adapters")):
         if spec.get(key):
             raise NotImplementedError(
@@ -97,5 +103,14 @@ def _registry_runtime(model_dir: str, spec: dict, device) -> Model:
     else:  # no trained weights: init from the recorded seed
         module.init_weights(int(spec.get("seed", 0)))
     module.eval()
-    return GenerativeTorchModel(spec.get("name") or spec["model"], module,
-                                generation=dict(spec["generative"]))
+    quantization = None
+    if spec.get("quantize"):
+        from kubeflow_tpu_torch.serve.quant import (quantize_model,
+                                                    quantized_bytes)
+
+        quantize_model(module)
+        quantization = {"mode": spec["quantize"], **quantized_bytes(module)}
+    model = GenerativeTorchModel(spec.get("name") or spec["model"], module,
+                                 generation=dict(spec["generative"]))
+    model.quantization = quantization
+    return model

@@ -12,7 +12,9 @@ does its own batching across them):
                                           "eos_id"}
 
 Responses and request keys match the JAX server's :generate. Bad requests
-get 400, unknown models 404, features this package does not port 501.
+get 400, unknown models 404, features this package does not port 501, and
+a request the paged KV pool can never hold 503 with `Retry-After: 1` (a
+shed, as in the JAX server: the request is valid, the pool too small).
 
 Run: python -m kubeflow_tpu_torch.serve.server --model-dir DIR --name NAME
      --port 8080 --device cuda
@@ -28,6 +30,7 @@ import threading
 import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from kubeflow_tpu_torch.serve.generation import KVCapacityExceeded
 from kubeflow_tpu_torch.serve.model import Model
 from kubeflow_tpu_torch.serve.runtimes import load_model
 
@@ -51,11 +54,13 @@ class _Handler(BaseHTTPRequestHandler):
     def log_message(self, fmt, *args):  # keep request logs off stderr
         pass
 
-    def _send(self, status: int, obj) -> None:
+    def _send(self, status: int, obj, headers=()) -> None:
         body = json.dumps(obj).encode()
         self.send_response(status)
         self.send_header("Content-Type", "application/json")
         self.send_header("Content-Length", str(len(body)))
+        for name, value in headers:
+            self.send_header(name, value)
         self.end_headers()
         self.wfile.write(body)
 
@@ -66,17 +71,21 @@ class _Handler(BaseHTTPRequestHandler):
         return model
 
     def _dispatch(self, route) -> None:
+        headers = ()
         try:
             status, obj = route()
         except _HTTPError as e:
             status, obj = e.status, {"error": str(e)}
         except NotImplementedError as e:
             status, obj = 501, {"error": str(e)}
+        except KVCapacityExceeded as e:  # before RuntimeError: a shed
+            status, obj = 503, {"error": str(e)}
+            headers = (("Retry-After", "1"),)
         except (ValueError, RuntimeError) as e:
             status, obj = 400, {"error": str(e)}
         except Exception:  # the server keeps serving; the caller sees why
             status, obj = 500, {"error": traceback.format_exc()}
-        self._send(status, obj)
+        self._send(status, obj, headers)
 
     def do_GET(self):
         self._dispatch(self._get)

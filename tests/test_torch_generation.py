@@ -144,7 +144,7 @@ def test_engine_rejects_bad_requests(tiny):
 
 @pytest.mark.parametrize("key,value", [
     ("prefix_cache", 4), ("draft", {"checkpoint": "x"}),
-    ("kv_block_size", 8), ("kv_quant", "int8"),
+    ("kv_host_tier_blocks", 8),
     ("adapters", {"a": "dir"}), ("mesh", {"tensor": 2}),
     ("pipeline_depth", 2), ("role", "decode"), ("tokenizer", "bytes"),
 ])

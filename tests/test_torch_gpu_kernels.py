@@ -1,4 +1,5 @@
-"""The CUDA flash-attention kernels against their plain versions, on the card.
+"""The CUDA kernels (flash attention, the W8A8 int8 matmul) against their
+plain versions, on the card.
 
 These tests need an NVIDIA GPU and skip without one. They import nothing
 of JAX, so they also run where JAX is not installed:
@@ -11,6 +12,7 @@ import pytest
 import torch
 
 from kubeflow_tpu_torch.ops import flash_attention as tfa
+from kubeflow_tpu_torch.ops import quant_matmul as tqm
 
 CASES = [
     # id, (B, S, T, H, KH), mask kind, mask kwargs, segments
@@ -122,3 +124,44 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="lse"):
         tfa._flash_bwd_cuda(w, w, w, w, lse.double(), w, None,
                             tfa.MaskSpec("causal"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(100, 384, 200), (64, 128, 128),
+                                   (32, 100, 64), (33, 4096, 4096),
+                                   (130, 64, 136), (130, 64, 144),
+                                   (1, 16, 8)])
+def test_int8_matmul_kernel_equals_plain(cuda, m, k, n, out_dtype):
+    """The int32 sum is exact in both and the epilogue multiplies in the
+    same order, so the kernel equals its plain version bit for bit: on
+    shapes staged byte-wise (K % 16 or N % 16 not 0) and through cp.async,
+    ragged M and N included."""
+    rng = np.random.default_rng(m + k + n)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)
+                         ).to(cuda)
+    qw = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(np.int8)
+                          ).to(cuda)
+    sw = torch.from_numpy(rng.uniform(1e-3, 1e-2, n).astype(np.float32)
+                          ).to(cuda)
+    before = tqm.qmm_launches
+    got = tqm.int8_matmul(x, qw, sw, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert tqm.qmm_launches == before + 1
+    qx, sx = tqm.quantize_activations(x)
+    want = tqm._int8_matmul_plain(qx, sx, qw, sw, out_dtype)
+    assert got.dtype == out_dtype
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_int8_matmul_kernel_refuses_what_it_does_not_take(cuda):
+    qx = torch.zeros(4, 16, dtype=torch.int8, device=cuda)
+    qw = torch.zeros(16, 8, dtype=torch.int8, device=cuda)
+    s4, s8 = torch.ones(4, device=cuda), torch.ones(8, device=cuda)
+    with pytest.raises(TypeError, match="fp32 or bf16"):
+        tqm._int8_matmul_cuda(qx, s4, qw, s8, torch.float16)
+    with pytest.raises(TypeError, match="qw"):
+        tqm._int8_matmul_cuda(qx, s4, qw.float(), s8)
+    with pytest.raises(ValueError, match="contiguous"):
+        tqm._int8_matmul_cuda(qx, s4, qw.t().contiguous().t(), s8)

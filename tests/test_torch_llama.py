@@ -157,7 +157,7 @@ def test_converter_consumes_every_leaf_and_refuses_strays():
     {"final_softcap": 30.0}, {"query_pre_attn_scalar": 256.0},
     {"sliding_pattern": "even"}, {"qk_norm": True},
     {"rope_theta_local": 10000.0}, {"lora_rank": 4},
-    {"quantized_dense": True}, {"attention_impl": "ring"},
+    {"attention_impl": "ring"},
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_config_flags_are_refused(kw):
     cfg = dataclasses.replace(tl.llama_tiny(), **kw)
@@ -167,12 +167,14 @@ def test_unported_config_flags_are_refused(kw):
 
 def test_unported_cache_layouts_are_refused():
     cfg = tl.llama_tiny()
-    with pytest.raises(NotImplementedError, match="kv_quant"):
-        tl.init_cache(cfg, 1, 16, kv_quant="int8", device="cpu")
+    with pytest.raises(ValueError, match="must be one of"):
+        tl.init_cache(cfg, 1, 16, kv_quant="int4", device="cpu")
     windowed = dataclasses.replace(cfg, mask_kind="sliding_window",
                                    mask_window=8)
     with pytest.raises(NotImplementedError, match="rolling-window"):
         tl.init_cache(windowed, 1, 16, device="cpu")
+    with pytest.raises(ValueError, match="rolling"):
+        tl.init_cache(windowed, 1, 16, kv_quant="int8", device="cpu")
 
 
 def test_string_dtype_and_device_selection():

@@ -84,12 +84,6 @@ def test_naive_attention_matches_jax(h, kh, kw):
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
 
 
-def test_naive_attention_refuses_quantized_scales():
-    x = torch.zeros(1, 4, 2, 8)
-    with pytest.raises(NotImplementedError, match="kv_quant"):
-        torch_naive(x, x, x, k_scale=torch.ones(1, 4, 2))
-
-
 def test_naive_attention_refuses_prefix_lm_with_segments():
     x = torch.zeros(1, 4, 2, 8)
     with pytest.raises(ValueError, match="prefix_lm"):

@@ -103,8 +103,8 @@ def test_bundles_this_package_cannot_serve_are_refused(tmp_path):
     os.makedirs(os.path.join(orbax, "params"))
     with pytest.raises(ValueError, match="orbax"):
         load_model(orbax, device="cpu")
-    with pytest.raises(NotImplementedError, match="int8"):
-        load_model(_bundle(tmp_path / "q", quantize="int8"), device="cpu")
+    with pytest.raises(ValueError, match="quantize"):
+        load_model(_bundle(tmp_path / "q", quantize="fp4"), device="cpu")
     plain = export_for_serving(str(tmp_path / "p"), model="llama_tiny",
                                model_kwargs=KW)
     with pytest.raises(NotImplementedError, match="non-generative"):
