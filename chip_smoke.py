@@ -15,6 +15,14 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
      counted, then against its plain version (bit for bit at fp32 output,
      equal at bf16) there and at the JAX test's ragged shapes, with its
      time, the plain version's, torch._int_mm's and its bound;
+  2d. context-parallel ring attention (`rdma_ring_attention`, all ranks on
+     this card): the forward, dq and dk/dv kernels (one launch per rank)
+     against their plain versions at small shapes (rings of 2, 4 and 8,
+     ragged shards, GQA, head dims 64 and 128), a one-rank ring through the
+     flash kernels, then llama3_8b's attention widths at 32768 tokens over 4
+     ranks through the op and autograd, launches counted, with each
+     kernel's time (summed over the ranks, and per rank), its bound, the
+     plain version's, SDPA's and the flash kernels' over the whole sequence;
   3. model: full-width, full-depth llama3_8b logits with attention through
      the kernel against the same weights through the plain version;
   4. serving: a llama3_8b bundle behind the port's HTTP server answering
@@ -66,7 +74,9 @@ from kubeflow_tpu_torch.models import llama as llama_mod  # noqa: E402
 from kubeflow_tpu_torch.ops import _build  # noqa: E402
 from kubeflow_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from kubeflow_tpu_torch.ops import quant_matmul as qmm  # noqa: E402
+from kubeflow_tpu_torch.ops import rdma_ring_attention as rra  # noqa: E402
 from kubeflow_tpu_torch.ops.reference import naive_attention  # noqa: E402
+from kubeflow_tpu_torch.parallel import Mesh  # noqa: E402
 from kubeflow_tpu_torch.serve import quant as squant  # noqa: E402
 from kubeflow_tpu_torch.serve.runtimes import export_for_serving  # noqa: E402
 from kubeflow_tpu_torch.serve.server import ModelServer  # noqa: E402
@@ -83,6 +93,12 @@ PEAK_BYTES = 3.35e12
 # output to bf16 (half an ulp is 2^-8 at |o| in [1, 2)); lse: fp32 sums of
 # exact bf16 products in another order.
 OUT_TOL, LSE_TOL = 2e-2, 1e-3
+# The ring forward's out is also held relative to its size. Past a few
+# thousand keys a row's |o| is ~1e-2, under OUT_TOL, so an accumulation
+# error as large as the output itself (a missed rescale between shards, V
+# read from the wrong shard: lse stays exact) would pass the absolute bound.
+# rel-L2 1e-2, the backward's bound: bf16 rounding of P and out gives ~3e-3.
+OUT_REL_L2_TOL = 1e-2
 # 8B logits, kernel vs plain attention. Every op of the bf16 model rounds
 # its output, so any change of rounding inside attention (here: bf16 P in
 # the kernel vs fp32 P in the plain version) is carried and re-rounded
@@ -160,6 +176,16 @@ QMM_SHAPES = [(2048, 4096, 14336), (2048, 14336, 4096), (32, 4096, 14336),
 # or N % 16 is not 0), one odd M, and ragged M and N on the cp.async path.
 QMM_RAGGED = [(100, 384, 200), (64, 128, 128), (32, 100, 64),
               (33, 4096, 4096), (130, 64, 144)]
+# Phase 2d: ring attention at every (n, B, S, (H, KH), D) of these (S 800 at
+# n 4 and 8 gives ragged shards of 200 and 100 rows), then the full-width
+# shape: llama3_8b's attention widths (H 32, KH 8, D 128) at 32768 tokens
+# over 4 ranks of 8192, with few repetitions at that size. The plain
+# versions run there on RING_PLAIN_KV_HEADS kv heads per call (fp32 scores
+# of one shard pair for 8 heads would take 8.6 GB).
+RING_NS, RING_BS, RING_SS = (2, 4, 8), (1, 2), (512, 800, 2048)
+RING_HEADS, RING_DS = ((8, 2), (4, 4), (32, 8)), (64, 128)
+RING_FULL = (4, 1, 32768, 32, 8, 128)  # n, B, S, H, KH, D
+RING_REPS, RING_PLAIN_KV_HEADS = 3, 2
 
 
 def log(*a):
@@ -462,6 +488,242 @@ def phase_qmm() -> dict:
     torch.cuda.empty_cache()
     return {"rows": rows, "main": rows[0], "launches": launches,
             "max_abs_err": worst}
+
+
+def _ring_counts() -> tuple:
+    return (rra.rdma_fwd_launches, rra.rdma_bwd_dq_launches,
+            rra.rdma_bwd_dkv_launches)
+
+
+def _ring_name(n, b, s, h, kh, d) -> str:
+    return f"n{n} B{b} S{s} H{h} KH{kh} D{d}"
+
+
+def _by_kv_heads(fn, n, kh, group, *xs):
+    """`fn(*xs sliced to RING_PLAIN_KV_HEADS kv heads, n)` over all kv heads,
+    the results concatenated on the head axis. xs are q-like (H heads) or
+    k-like (KH heads) [B,S,heads,...] tensors, sliced in fp32."""
+    parts = []
+    for j in range(0, kh, RING_PLAIN_KV_HEADS):
+        m = min(RING_PLAIN_KV_HEADS, kh - j)
+        parts.append(fn(*(
+            (x[:, :, j:j + m] if x.shape[2] == kh
+             else x[:, :, j * group:(j + m) * group]).float() for x in xs),
+            n))
+    return [torch.cat(p, dim=2) for p in zip(*parts)]
+
+
+def _ring_case(shape, gen, dev, full=False) -> dict:
+    """The op forward and backward (autograd) on one shape, held against
+    the plain versions on the same bf16 inputs; the counters must move by
+    exactly n per kernel."""
+    n, b, s, h, kh, d = shape
+    q, k, v, do = (torch.randn(shp, generator=gen, device=dev).bfloat16()
+                   for shp in ((b, s, h, d), (b, s, kh, d), (b, s, kh, d),
+                               (b, s, h, d)))
+    mesh = Mesh([dev] * n, ("seq",))
+    out, lse = rra._rdma_fwd_cuda(q, k, v, n)
+    torch.cuda.synchronize()
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    if full:
+        # The main path: the counts from 0, read right after.
+        rra.rdma_fwd_launches = rra.rdma_bwd_dq_launches = 0
+        rra.rdma_bwd_dkv_launches = 0
+    before = _ring_counts()
+    got = rra.rdma_ring_attention(qg, kg, vg, "seq", mesh)
+    got.backward(do)
+    torch.cuda.synchronize()
+    moved = tuple(a - c for a, c in zip(_ring_counts(), before))
+    if moved != (n, n, n):
+        raise RuntimeError(f"ring attention at {_ring_name(*shape)} "
+                           f"launched {moved} kernels, not {n} each")
+    if not torch.equal(got, out):
+        raise RuntimeError("the op's output differs from the forward kernels'")
+    group = h // kh
+    if full:
+        ref_out, ref_lse = _by_kv_heads(rra._rdma_fwd_plain, n, kh, group,
+                                        q, k, v)
+        refs = _by_kv_heads(rra._rdma_bwd_plain, n, kh, group,
+                            q, k, v, out, lse, do)
+    else:
+        ref_out, ref_lse = rra._rdma_fwd_plain(q.float(), k.float(),
+                                               v.float(), n)
+        refs = rra._rdma_bwd_plain(q.float(), k.float(), v.float(), out,
+                                   lse, do.float(), n)
+    res = {"out": (out.float() - ref_out).abs().max().item(),
+           "out_rel_l2": ((out.float() - ref_out).norm()
+                          / ref_out.norm()).item(),
+           "lse": (lse - ref_lse).abs().max().item(),
+           "finite": bool(torch.isfinite(out.float()).all())}
+    res.update({name: _grad_errors(g, r) for name, g, r in zip(
+        ("dq", "dk", "dv"), (qg.grad, kg.grad, vg.grad), refs)})
+    ok = (res["finite"] and res["out"] <= OUT_TOL
+          and res["out_rel_l2"] <= OUT_REL_L2_TOL and res["lse"] <= LSE_TOL
+          and all(res[g]["finite"] and res[g]["rel_l2"] <= BWD_REL_L2_TOL
+                  and res[g]["max_abs"] <= BWD_MAX_ABS_REL_TOL
+                  * res[g]["scale"] for g in ("dq", "dk", "dv")))
+    line = (f"  {_ring_name(*shape)}: err_out {res['out']:.3e} out rel_l2 "
+            f"{res['out_rel_l2']:.3e} err_lse {res['lse']:.3e} " + " ".join(
+                f"{g} rel_l2 {res[g]['rel_l2']:.3e}" for g in ("dq", "dk",
+                                                               "dv")))
+    if full or not ok:
+        log(line + (" OK" if ok else " FAIL"))
+    if not ok:
+        raise RuntimeError(f"ring attention kernels disagree with the plain "
+                           f"versions at {_ring_name(*shape)}")
+    if full:
+        res["launches"] = moved
+        res["tensors"] = (q, k, v, do, out, lse)
+    return res
+
+
+def _sdpa_global_ms(q, k, v, do) -> tuple[float, float]:
+    """SDPA causal over the whole sequence, K/V expanded to q's heads
+    outside the timing, on the fused backends only (the math backend's
+    [S, S] scores would not fit): (forward ms, backward ms)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    group = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    kt, vt = (x.repeat_interleave(group, dim=2).transpose(1, 2).detach()
+              .requires_grad_() for x in (k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                      SDPBackend.EFFICIENT_ATTENTION]):
+        with torch.no_grad():
+            fwd_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True),
+                             reps=RING_REPS)
+        out = sdpa(qt, kt, vt, is_causal=True)
+        go = do.transpose(1, 2)
+        bwd_ms = time_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), go, retain_graph=True), reps=RING_REPS)
+    return fwd_ms, bwd_ms
+
+
+def phase_ring() -> dict:
+    """rdma_ring_attention's three kernels against their plain versions,
+    then the full-width shape with times and bounds."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    worst = {"out": 0.0, "out_rel_l2": 0.0, "lse": 0.0, "dq": 0.0,
+             "dk": 0.0, "dv": 0.0, "dq_abs": 0.0, "dk_abs": 0.0,
+             "dv_abs": 0.0}
+
+    def note(res):
+        for key in ("out", "out_rel_l2", "lse"):
+            worst[key] = max(worst[key], res[key])
+        for g in ("dq", "dk", "dv"):
+            worst[g] = max(worst[g], res[g]["rel_l2"])
+            worst[g + "_abs"] = max(worst[g + "_abs"], res[g]["max_abs"])
+
+    t0 = time.monotonic()
+    cases = 0
+    for n in RING_NS:
+        for b in RING_BS:
+            for s in RING_SS:
+                for h, kh in RING_HEADS:
+                    for d in RING_DS:
+                        note(_ring_case((n, b, s, h, kh, d), gen, dev))
+                        cases += 1
+    log(f"  {cases} small shapes (n {RING_NS}, B {RING_BS}, S {RING_SS}, "
+        f"(H, KH) {RING_HEADS}, D {RING_DS}) within bounds in "
+        f"{time.monotonic() - t0:.1f}s: worst err_out {worst['out']:.3e} "
+        f"(rel_l2 {worst['out_rel_l2']:.3e}) err_lse {worst['lse']:.3e}, "
+        f"rel_l2 dq {worst['dq']:.3e} dk "
+        f"{worst['dk']:.3e} dv {worst['dv']:.3e}")
+
+    # A one-rank ring is flash attention (the JAX package's own route).
+    x = torch.randn(1, 512, 8, 128, generator=gen, device=dev).bfloat16()
+    xg = x.clone().requires_grad_()
+    before, flash_before = _ring_counts(), _counts()
+    got = rra.rdma_ring_attention(xg, xg, xg, "seq", Mesh([dev], ("seq",)))
+    got.backward(torch.ones_like(got))
+    torch.cuda.synchronize()
+    flash_moved = tuple(a - c for a, c in zip(_counts(), flash_before))
+    if _ring_counts() != before or flash_moved != (1, 1, 1):
+        raise RuntimeError(f"a one-rank ring launched ring kernels or not "
+                           f"the flash kernels once each ({flash_moved})")
+    if not torch.equal(got, fa.flash_attention(x, x, x, True)):
+        raise RuntimeError("a one-rank ring differs from flash_attention")
+    log(f"  one-rank ring: flash kernels launched {flash_moved}, ring "
+        "kernels 0; equal to flash_attention")
+
+    t0 = time.monotonic()
+    full = _ring_case(RING_FULL, gen, dev, full=True)
+    note(full)
+    n, b, s_glob, h, kh, d = RING_FULL
+    q, k, v, do, out, lse = full.pop("tensors")
+    log(f"  main path at {_ring_name(*RING_FULL)}: op forward and backward "
+        f"launched {full['launches']} (fwd, dq, dk/dv); checked in "
+        f"{time.monotonic() - t0:.1f}s")
+    qs, ks, vs, dos, lses = (rra._shards(x_, n) for x_ in (q, k, v, do, lse))
+    deltas = rra._shards(fa._bwd_delta(do, out, None), n)
+    pairs = b * s_glob * (s_glob + 1) // 2 * h
+    io = 2 * (q.numel() + k.numel() + v.numel())  # bf16 q, k, v
+    stats = 4 * lse.numel()
+    rows = {}
+    launch = {
+        "rdma_fwd": lambda me: rra._fwd_rank_cuda(me, qs, ks, vs),
+        "rdma_bwd_dq": lambda me: rra._dq_rank_cuda(
+            me, qs, ks, vs, dos, lses, deltas),
+        "rdma_bwd_dkv": lambda me: rra._dkv_rank_cuda(
+            me, qs, ks, vs, dos, lses, deltas),
+    }
+    bounds = {
+        # out and lse written; do, lse, delta read and one gradient set
+        # written by each backward kernel.
+        "rdma_fwd": _bound(4 * d * pairs, io + 2 * out.numel() + stats),
+        "rdma_bwd_dq": _bound(6 * d * pairs,
+                              io + 2 * do.numel() + 2 * stats
+                              + 2 * q.numel()),
+        "rdma_bwd_dkv": _bound(8 * d * pairs,
+                               io + 2 * do.numel() + 2 * stats
+                               + 2 * (k.numel() + v.numel())),
+    }
+    for name, fn in launch.items():
+        ms = time_ms(lambda: [fn(me) for me in range(n)], reps=RING_REPS)
+        by_rank = [time_ms(lambda: fn(me), reps=RING_REPS)
+                   for me in range(n)]
+        rows[name] = {"ms": ms, "ms_by_rank": by_rank,
+                      "bound_ms": bounds[name][0],
+                      "bound_by": bounds[name][1]}
+    rows["rdma_fwd"]["plain_ms"] = time_ms(
+        lambda: _by_kv_heads(rra._rdma_fwd_plain, n, kh, h // kh, q, k, v),
+        reps=1)
+    plain_bwd_ms = time_ms(lambda: _by_kv_heads(
+        rra._rdma_bwd_plain, n, kh, h // kh, q, k, v, out, lse, do), reps=1)
+    sdpa_fwd_ms, sdpa_bwd_ms = _sdpa_global_ms(q, k, v, do)
+    rows["rdma_fwd"]["library_ms"] = sdpa_fwd_ms
+    for name in ("rdma_bwd_dq", "rdma_bwd_dkv"):
+        rows[name]["plain_ms"] = plain_bwd_ms
+        rows[name]["library_ms"] = sdpa_bwd_ms
+    causal = fa.MaskSpec("causal")
+    fout, flse = fa.flash_attention_lse(q, k, v)
+    fdelta = fa._bwd_delta(do, fout, None)
+    flash = {
+        "rdma_fwd": time_ms(lambda: fa.flash_attention_lse(q, k, v),
+                            reps=RING_REPS),
+        "rdma_bwd_dq": time_ms(lambda: fa._flash_bwd_dq_cuda(
+            q, k, v, do, flse, fdelta, causal), reps=RING_REPS),
+        "rdma_bwd_dkv": time_ms(lambda: fa._flash_bwd_dkv_cuda(
+            q, k, v, do, flse, fdelta, causal), reps=RING_REPS),
+    }
+    shape = _ring_name(*RING_FULL)
+    for i, (name, row) in enumerate(rows.items()):
+        row.update(flash_global_ms=flash[name], launches=full["launches"][i],
+                   shape=shape)
+        log(f"  {name}: ms {row['ms']:.3f} (by rank "
+            + ", ".join(f"{x:.3f}" for x in row["ms_by_rank"])
+            + f") bound_ms {row['bound_ms']:.3f} ({row['bound_by']}, "
+            f"{row['bound_ms'] / row['ms']:.1%}) plain_ms "
+            f"{row['plain_ms']:.1f} library_ms (SDPA "
+            f"{'fwd' if name == 'rdma_fwd' else 'bwd'}) "
+            f"{row['library_ms']:.3f} flash kernel over the whole sequence "
+            f"{row['flash_global_ms']:.3f}")
+    del qs, ks, vs, dos, lses, deltas, q, k, v, do, out, lse, fout, flse
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"rows": rows, "worst": worst}
 
 
 def phase_model() -> None:
@@ -1237,6 +1499,9 @@ def main() -> int:
     bwd = phase_backward()
     log("phase 2c: the W8A8 int8 matmul vs its plain version")
     q8 = phase_qmm()
+    log("phase 2d: ring attention kernels vs plain (all ranks on this "
+        "card)")
+    ring = phase_ring()
     log(f"phase 3: {MODEL} forward, kernel vs plain attention")
     phase_model()
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
@@ -1302,7 +1567,22 @@ def main() -> int:
         "bound_ms": qmain["bound_ms"], "bound_by": qmain["bound_by"],
         "library_ms": qmain["library_ms"], "shape": qmain["shape"],
         "by_shape": q8["rows"],
-    }]}))
+    }, *({
+        "name": name, "route": "cuda",
+        "source": "kubeflow_tpu_torch/ops/csrc/rdma_ring.cu",
+        "replaces": f"kubeflow_tpu/ops/rdma_ring_attention.py:{line}",
+        **errs, **ring["rows"][name],
+    } for name, line, errs in (
+        ("rdma_fwd", 50, {"max_abs_err": ring["worst"]["out"],
+                          "rel_l2_err": ring["worst"]["out_rel_l2"],
+                          "max_abs_err_lse": ring["worst"]["lse"]}),
+        ("rdma_bwd_dq", 197, {"max_abs_err": ring["worst"]["dq_abs"],
+                              "rel_l2_err": ring["worst"]["dq"]}),
+        ("rdma_bwd_dkv", 268, {
+            "max_abs_err": max(ring["worst"]["dk_abs"],
+                               ring["worst"]["dv_abs"]),
+            "rel_l2_err": max(ring["worst"]["dk"], ring["worst"]["dv"])}),
+    ))]}))
     log(smi())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

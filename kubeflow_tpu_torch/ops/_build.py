@@ -2,9 +2,10 @@
 
 Each source under `csrc/` compiles on first use into its own shared library
 under `build/torch_kernels/` at the repository root, named by a hash of the
-source and the flags, so a changed source rebuilds and an unchanged one is
-reused. The libraries expose plain C entry points and are loaded with
-`ctypes`; no PyTorch headers are compiled, which keeps a build to seconds.
+source, the headers beside it and the flags, so a changed source or header
+rebuilds and an unchanged one is reused. The libraries expose plain C entry
+points and are loaded with `ctypes`; no PyTorch headers are compiled, which
+keeps a build to seconds.
 
 Nothing here runs at import time: the CPU tests import every module of the
 package on a machine without `nvcc`.
@@ -33,6 +34,7 @@ _F = ctypes.c_float
 #: Every pointer and the stream are c_void_p — an undeclared pointer would
 #: be passed as a 32-bit int and cut.
 _MASK_ARGS = [_I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]  # B..scale, stream
+_RING_ARGS = [_I] * 7 + [_F, _P]  # n, me, B, s, H, KH, D, scale, stream
 SIGNATURES = {
     "flash_fwd.cu": {
         "tpk_flash_fwd": [_P, _P, _P, _P, _P, _P, *_MASK_ARGS],
@@ -46,6 +48,15 @@ SIGNATURES = {
     "qmm.cu": {
         # qx, sx, qw, sw, out, M, K, N, out_bf16, stream
         "tpk_qmm": [_P] * 5 + [_I] * 4 + [_P],
+    },
+    "rdma_ring.cu": {
+        # A *_ring argument is the address of a host array of n pointers.
+        # q, k_ring, v_ring, o, lse, then _RING_ARGS
+        "tpk_rdma_fwd": [_P] * 5 + _RING_ARGS,
+        # q, k_ring, v_ring, dout, lse, delta, dq
+        "tpk_rdma_bwd_dq": [_P] * 7 + _RING_ARGS,
+        # q_ring, do_ring, lse_ring, delta_ring, k, v, dk, dv
+        "tpk_rdma_bwd_dkv": [_P] * 8 + _RING_ARGS,
     },
 }
 
@@ -70,6 +81,8 @@ def _nvcc() -> str:
 
 def _target(source: str) -> Path:
     digest = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # what a source may include
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{Path(source).stem}_{digest.hexdigest()[:16]}.so"
 

@@ -22,7 +22,8 @@
 // synchronised in between.
 //
 // Grid: (ceil(S / 64), B * H). One CTA of 4 warps owns a 64-row q tile; each
-// warp owns 16 rows and walks the kv tiles [first, bound) of its CTA. K and V
+// warp owns 16 rows and walks the kv tiles [first, bound) of its CTA (the
+// tile math, fwd_tile, is shared with rdma_ring.cu in attn_tiles.cuh). K and V
 // tiles (64 rows) are staged in shared memory, zero-filled past T, so the
 // kernel never reads K/V beyond T and needs no padded copies on the host.
 // Query rows past S are computed from zeros and never written.
@@ -31,61 +32,24 @@
 // bf16 for the P.V product (the tensor-core input type); the row sum l is
 // taken from the fp32 P before that rounding.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "attn_tiles.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;      // q rows per CTA
-constexpr int kBKV = 64;     // kv rows per tile
-constexpr int kWarps = 4;    // 16 q rows per warp
-constexpr float kNegInf = -1e30f;
+using namespace tiles;
 
 enum MaskKind { kCausal = 0, kFull = 1, kPrefixLM = 2, kSlidingWindow = 3 };
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// c += a * b for one m16n8k16 tile: a row-major 16x16 bf16 (4 regs),
-// b column-major 16x8 bf16 (2 regs), c 16x8 fp32 (4 regs).
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four transposed 8x8 bf16 matrices from shared memory; lane i gives the
-// address of row (i % 8) of matrix (i / 8).
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
-                                                  const void* smem) {
-  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
 template <int D>
-__global__ void __launch_bounds__(kWarps * 32)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 const int* __restrict__ seg,
-                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                 int S, int T, int H, int KH, int kind, int window,
-                 int prefix, float sm_scale) {
-  constexpr int kLds = D + 8;      // padded smem row: conflict-free reads
-  constexpr int kKD = D / 16;      // k-slices of Q.K^T over the head dim
-  constexpr int kND = D / 8;       // n-tiles of the output over the head dim
-  constexpr int kNKV = kBKV / 8;   // n-tiles of the scores over kv columns
-  __shared__ __align__(16) __nv_bfloat16 ks[kBKV * kLds];
-  __shared__ __align__(16) __nv_bfloat16 vs[kBKV * kLds];
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const int* __restrict__ seg,
+                 bf16* __restrict__ o, float* __restrict__ lse, int S, int T,
+                 int H, int KH, int kind, int window, int prefix,
+                 float sm_scale) {
+  constexpr int kLds = D + 8;  // padded smem row: conflict-free reads
+  __shared__ __align__(16) bf16 ks[kBKV * kLds];
+  __shared__ __align__(16) bf16 vs[kBKV * kLds];
   __shared__ int kseg[kBKV];
 
   const int qi = blockIdx.x;
@@ -93,32 +57,16 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   const int h = blockIdx.y % H;
   const int kh = h / (H / KH);
   const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;  // fragment row within the 16-row warp tile
-  const int t = lane & 3;   // fragment column pair
+  const int g = (threadIdx.x & 31) >> 2;
   int rows[2];
   rows[0] = qi * kBQ + warp * 16 + g;
   rows[1] = rows[0] + 8;
 
   // Q fragments, read once from global and held for the whole kv walk.
   const long q_stride = static_cast<long>(H) * D;
-  uint32_t qf[kKD][4];
-#pragma unroll
-  for (int kk = 0; kk < kKD; ++kk) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        uint32_t val = 0u;
-        if (rows[r] < S) {
-          const __nv_bfloat16* p = q + (static_cast<long>(b) * S + rows[r]) * q_stride +
-                                   static_cast<long>(h) * D + kk * 16 + half * 8 + 2 * t;
-          val = *reinterpret_cast<const uint32_t*>(p);
-        }
-        qf[kk][half * 2 + r] = val;
-      }
-    }
-  }
+  const long q_off = static_cast<long>(b) * S * q_stride + static_cast<long>(h) * D;
+  uint32_t qf[D / 16][4];
+  load_row_frags<D>(qf, q + q_off, q_stride, rows, S);
   int qseg[2] = {-1, -1};
   if (seg != nullptr) {
 #pragma unroll
@@ -143,147 +91,41 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
 
-  float acc[kND][4];
-#pragma unroll
-  for (int n = 0; n < kND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float acc[D / 8][4];
+  zero<D>(acc);
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f};
 
   const long kv_stride = static_cast<long>(KH) * D;
-  const __nv_bfloat16* kbase = k + static_cast<long>(b) * T * kv_stride + static_cast<long>(kh) * D;
-  const __nv_bfloat16* vbase = v + static_cast<long>(b) * T * kv_stride + static_cast<long>(kh) * D;
-  constexpr int kChunks = kBKV * D / 8;  // 16-byte pieces per tile
-
+  const long kv_off = static_cast<long>(b) * T * kv_stride + static_cast<long>(kh) * D;
   for (int j = first; j < bound; ++j) {
     const int kv0 = j * kBKV;
     __syncthreads();  // the previous tile's readers are done
-    for (int c = threadIdx.x; c < kChunks; c += kWarps * 32) {
-      const int r = c / (D / 8);
-      const int col = (c % (D / 8)) * 8;
-      uint4 kval = make_uint4(0u, 0u, 0u, 0u);
-      uint4 vval = kval;
-      if (kv0 + r < T) {
-        kval = *reinterpret_cast<const uint4*>(kbase + (kv0 + r) * kv_stride + col);
-        vval = *reinterpret_cast<const uint4*>(vbase + (kv0 + r) * kv_stride + col);
-      }
-      *reinterpret_cast<uint4*>(&ks[r * kLds + col]) = kval;
-      *reinterpret_cast<uint4*>(&vs[r * kLds + col]) = vval;
-    }
+    load_tile<D, kBKV>(ks, k + kv_off, kv_stride, kv0, T);
+    load_tile<D, kBKV>(vs, v + kv_off, kv_stride, kv0, T);
     if (seg != nullptr && threadIdx.x < kBKV) {
       const int c = kv0 + threadIdx.x;
       kseg[threadIdx.x] = c < T ? seg[static_cast<long>(b) * T + c] : -1;
     }
     __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows x 64 kv columns.
-    float s[kNKV][4];
-#pragma unroll
-    for (int n = 0; n < kNKV; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kKD; ++kk) {
-#pragma unroll
-      for (int n = 0; n < kNKV; ++n) {
-        const __nv_bfloat16* kp = &ks[(n * 8 + g) * kLds + kk * 16 + 2 * t];
-        mma_bf16(s[n], qf[kk], *reinterpret_cast<const uint32_t*>(kp),
-                 *reinterpret_cast<const uint32_t*>(kp + 8));
+    fwd_tile<D>(qf, ks, vs, acc, m, l, sm_scale, [&](int r, int cl) {
+      const int row = rows[r];
+      const int col = kv0 + cl;
+      bool ok = col < T;
+      if (kind == kCausal) {
+        ok = ok && row >= col;
+      } else if (kind == kPrefixLM) {
+        ok = ok && (row >= col || col < prefix);
+      } else if (kind == kSlidingWindow) {
+        ok = ok && row >= col && row - col < window;
       }
-    }
-
-    // Scale, mask, and the new row max (m_new = max(m, rowmax(s))).
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int n = 0; n < kNKV; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int row = rows[r];
-        const int cl = n * 8 + 2 * t + (e & 1);
-        const int col = kv0 + cl;
-        bool ok = col < T;
-        if (kind == kCausal) {
-          ok = ok && row >= col;
-        } else if (kind == kPrefixLM) {
-          ok = ok && (row >= col || col < prefix);
-        } else if (kind == kSlidingWindow) {
-          ok = ok && row >= col && row - col < window;
-        }
-        if (seg != nullptr) ok = ok && qseg[r] == kseg[cl];
-        const float val = ok ? s[n][e] * sm_scale : kNegInf;
-        s[n][e] = val;
-        mx[r] = fmaxf(mx[r], val);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    }
-    float alpha[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) alpha[r] = __expf(m[r] - mx[r]);
-#pragma unroll
-    for (int n = 0; n < kNKV; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = __expf(s[n][e] - mx[e >> 1]);
-        s[n][e] = p;
-        rs[e >> 1] += p;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
-      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
-      l[r] = l[r] * alpha[r] + rs[r];
-      m[r] = mx[r];
-    }
-#pragma unroll
-    for (int n = 0; n < kND; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
-    }
-
-    // O += P V: the score fragments are reused as the A operand.
-    const int mi = lane >> 3;
-    const int mr = lane & 7;
-#pragma unroll
-    for (int kk = 0; kk < kBKV / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int n = 0; n < kND; n += 2) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(
-            vb, &vs[(kk * 16 + (mi & 1) * 8 + mr) * kLds + n * 8 + (mi >> 1) * 8]);
-        mma_bf16(acc[n], pa, vb[0], vb[1]);
-        mma_bf16(acc[n + 1], pa, vb[2], vb[3]);
-      }
-    }
+      if (seg != nullptr) ok = ok && qseg[r] == kseg[cl];
+      return ok;
+    });
   }
 
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = rows[r];
-    if (row >= S) continue;
-    const float lc = fmaxf(l[r], 1e-30f);
-    const float inv = 1.f / lc;
-    __nv_bfloat16* op = o + (static_cast<long>(b) * S + row) * q_stride + static_cast<long>(h) * D;
-#pragma unroll
-    for (int n = 0; n < kND; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(op + n * 8 + 2 * t) =
-          __floats2bfloat162_rn(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
-    }
-    if (t == 0) lse[(static_cast<long>(b) * S + row) * H + h] = m[r] + logf(lc);
-  }
+  store_fwd<D>(acc, m, l, rows, S, o + q_off, q_stride,
+               lse + static_cast<long>(b) * S * H + h, H);
 }
 
 }  // namespace
@@ -297,13 +139,13 @@ extern "C" int tpk_flash_fwd(const void* q, const void* k, const void* v,
   if (B <= 0 || S <= 0 || T <= 0 || KH <= 0 || H % KH != 0 || kind < 0 || kind > 3)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((S + kBQ - 1) / kBQ, B * H);
-  const dim3 block(kWarps * 32);
+  const dim3 block(kThreads);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* kp = static_cast<const __nv_bfloat16*>(k);
-  const auto* vp = static_cast<const __nv_bfloat16*>(v);
+  const auto* qp = static_cast<const bf16*>(q);
+  const auto* kp = static_cast<const bf16*>(k);
+  const auto* vp = static_cast<const bf16*>(v);
   const auto* sp = static_cast<const int*>(seg);
-  auto* op = static_cast<__nv_bfloat16*>(o);
+  auto* op = static_cast<bf16*>(o);
   auto* lp = static_cast<float*>(lse);
   if (D == 128) {
     flash_fwd_kernel<128><<<grid, block, 0, st>>>(qp, kp, vp, sp, op, lp, S, T, H, KH,

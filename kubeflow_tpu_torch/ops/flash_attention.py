@@ -144,9 +144,7 @@ def _flash_bwd_plain(q, k, v, out, lse, do, g_lse, mask: MaskSpec,
     qf = q.to(acc).reshape(b, s, kh, group, d)
     dof = do.to(acc).reshape(b, s, kh, group, d)
     kf, vf = k.to(acc), v.to(acc)
-    delta = (do.to(acc) * out.to(acc)).sum(-1)                # [B, S, H]
-    if g_lse is not None:
-        delta = delta - g_lse.to(acc).reshape(b, s, h)
+    delta = _bwd_delta(do, out, g_lse)                        # [B, S, H]
 
     def per_row(x):  # [B, S, H] -> [B, KH, G, S, 1]
         return x.reshape(b, s, kh, group).permute(0, 2, 3, 1)[..., None]
@@ -212,12 +210,14 @@ def _flash_fwd_cuda(q, k, v, mask: MaskSpec, segment_ids=None):
 
 
 def _bwd_delta(do, out, g_lse):
-    """delta = rowsum(dO·O) - g_lse, [B,S,H] fp32 — plain tensor arithmetic
-    outside the kernels, as the JAX package computes it."""
+    """delta = rowsum(dO·O) - g_lse, [B,S,H] fp32 (float64 for float64
+    inputs) — plain tensor arithmetic outside the kernels, as the JAX
+    package computes it."""
     b, s, h, _ = do.shape
-    delta = (do.float() * out.float()).sum(-1)
+    acc_t = _acc_dtype(do)
+    delta = (do.to(acc_t) * out.to(acc_t)).sum(-1)
     if g_lse is not None:
-        delta = delta - g_lse.float().reshape(b, s, h)
+        delta = delta - g_lse.to(acc_t).reshape(b, s, h)
     return delta.contiguous()
 
 

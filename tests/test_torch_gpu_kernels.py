@@ -1,5 +1,5 @@
-"""The CUDA kernels (flash attention, the W8A8 int8 matmul) against their
-plain versions, on the card.
+"""The CUDA kernels (flash attention, the W8A8 int8 matmul, ring attention)
+against their plain versions, on the card.
 
 These tests need an NVIDIA GPU and skip without one. They import nothing
 of JAX, so they also run where JAX is not installed:
@@ -13,6 +13,8 @@ import torch
 
 from kubeflow_tpu_torch.ops import flash_attention as tfa
 from kubeflow_tpu_torch.ops import quant_matmul as tqm
+from kubeflow_tpu_torch.ops import rdma_ring_attention as trr
+from kubeflow_tpu_torch.parallel import Mesh
 
 CASES = [
     # id, (B, S, T, H, KH), mask kind, mask kwargs, segments
@@ -165,3 +167,77 @@ def test_int8_matmul_kernel_refuses_what_it_does_not_take(cuda):
         tqm._int8_matmul_cuda(qx, s4, qw.float(), s8)
     with pytest.raises(ValueError, match="contiguous"):
         tqm._int8_matmul_cuda(qx, s4, qw.t().contiguous().t(), s8)
+
+
+RING_CASES = [
+    # id, (n, B, S, H, KH, D)
+    ("n4_ragged_gqa_d64", (4, 2, 800, 8, 2, 64)),
+    ("n8_mha_d128", (8, 1, 512, 4, 4, 128)),
+    ("n2_llama_heads", (2, 1, 2048, 32, 8, 128)),
+    ("n8_ragged_d64", (8, 2, 800, 8, 2, 64)),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [c[1] for c in RING_CASES],
+                         ids=[c[0] for c in RING_CASES])
+def test_rdma_ring_kernels_match_plain(cuda, shape):
+    """The three ring kernels, n launches each, through the op and autograd
+    vs `_rdma_fwd_plain` and `_rdma_bwd_plain` in fp32 on the same bf16
+    inputs (the backward on the kernel forward's out and lse). Bounds as in
+    chip_smoke.py: out 2e-2 and lse 1e-3 max abs, gradients 1e-2 rel-L2 (bf16
+    P and dS in the kernels' products, bf16 outputs)."""
+    n, b, s, h, kh, d = shape
+    rng = np.random.default_rng(n * 1000 + s)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shp).astype(
+        np.float32)).to(cuda, torch.bfloat16) for shp in (
+        (b, s, h, d), (b, s, kh, d), (b, s, kh, d), (b, s, h, d)))
+    mesh = Mesh([cuda] * n, ("seq",))
+    out, lse = trr._rdma_fwd_cuda(q, k, v, n)
+    ref, ref_lse = trr._rdma_fwd_plain(q.float(), k.float(), v.float(), n)
+    assert (out.float() - ref).abs().max().item() <= 2e-2
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    before = (trr.rdma_fwd_launches, trr.rdma_bwd_dq_launches,
+              trr.rdma_bwd_dkv_launches)
+    got = trr.rdma_ring_attention(qg, kg, vg, "seq", mesh)
+    got.backward(do)
+    torch.cuda.synchronize()
+    assert (trr.rdma_fwd_launches, trr.rdma_bwd_dq_launches,
+            trr.rdma_bwd_dkv_launches) == tuple(x + n for x in before)
+    assert torch.equal(got, out)
+    want = trr._rdma_bwd_plain(q.float(), k.float(), v.float(), out, lse,
+                               do.float(), n)
+    for name, g, r in zip(("dq", "dk", "dv"), (qg.grad, kg.grad, vg.grad),
+                          want):
+        assert g.dtype == torch.bfloat16
+        assert bool(torch.isfinite(g.float()).all()), name
+        assert _rel_l2(g, r) <= 1e-2, (name, _rel_l2(g, r))
+
+
+@pytest.mark.gpu
+def test_rdma_ring_single_rank_runs_flash_kernels(cuda):
+    q = torch.randn(1, 256, 4, 64, device=cuda, dtype=torch.bfloat16)
+    before = (tfa.flash_fwd_launches, trr.rdma_fwd_launches)
+    out = trr.rdma_ring_attention(q, q, q, "seq", Mesh([cuda], ("seq",)))
+    torch.cuda.synchronize()
+    assert (tfa.flash_fwd_launches, trr.rdma_fwd_launches) == (
+        before[0] + 1, before[1])
+    assert torch.equal(out, tfa.flash_attention(q, q, q, True))
+
+
+@pytest.mark.gpu
+def test_rdma_ring_kernels_refuse_what_they_do_not_take(cuda):
+    mesh = Mesh([cuda] * 4, ("seq",))
+    x = torch.zeros(1, 256, 2, 64, device=cuda)
+    with pytest.raises(TypeError, match="bf16"):
+        trr.rdma_ring_attention(x, x, x, "seq", mesh)
+    y = torch.zeros(1, 256, 2, 32, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        trr.rdma_ring_attention(y, y, y, "seq", mesh)
+    z = torch.zeros(1, 256, 2, 64, device=cuda, dtype=torch.bfloat16)
+    big = Mesh([cuda] * (2 * trr.MAX_RANKS), ("seq",))
+    with pytest.raises(ValueError, match="at most"):
+        trr.rdma_ring_attention(z, z, z, "seq", big)
+    with pytest.raises(ValueError, match="mesh on"):
+        trr.rdma_ring_attention(z.cpu(), z.cpu(), z.cpu(), "seq", mesh)
