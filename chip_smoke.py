@@ -4,12 +4,14 @@
 
 Phases (any failure exits non-zero; nothing is printed as a result then):
   1. device: require CUDA, print the card, build every kernel from source
-     (one nvcc per source, all started together);
+     (one nvcc per source, all started together); the forward kernels'
+     ptxas reports must show no spill stores;
   2. kernels: the forward kernel against its plain PyTorch version on the
      card, at the serving shapes, with its time, the plain version's, one
      library call's (a yardstick the port never calls) and its bound;
   2b. backward kernels: dq and dk/dv against the plain backward at the
-     phase-2 shapes and the llama_1b training shape, with the same timings;
+     phase-2 shapes and the llama_1b training shape, with the same timings
+     (and the forward kernel's and SDPA's forward times there);
   2c. the W8A8 int8 matmul through its op entry point `int8_matmul` at the
      llama3_8b projection shapes (prefill and decode widths), launches
      counted, then against its plain version (bit for bit at fp32 output,
@@ -186,6 +188,10 @@ RING_NS, RING_BS, RING_SS = (2, 4, 8), (1, 2), (512, 800, 2048)
 RING_HEADS, RING_DS = ((8, 2), (4, 4), (32, 8)), (64, 128)
 RING_FULL = (4, 1, 32768, 32, 8, 128)  # n, B, S, H, KH, D
 RING_REPS, RING_PLAIN_KV_HEADS = 3, 2
+FWD_DESIGN = "wgmma+tma"
+# The kernels whose ptxas report must show no spill stores (the forward's
+# consumers hold S, O and P in registers; a spill there is lost overlap).
+NO_SPILL_KERNELS = ("flash_fwd_kernel", "rdma_fwd_kernel")
 
 
 def log(*a):
@@ -389,10 +395,14 @@ def phase_backward() -> dict:
         delta_ms = time_ms(lambda: fa._bwd_delta(do, out, None))
         fwd_ms = time_ms(lambda: fa.flash_attention_lse(
             q, k, v, mask=mask, segment_ids=seg))
+        sdpa_kw = _sdpa_kwargs(mask, seg, s, t, vis)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        fwd_library_ms = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, enable_gqa=True, **sdpa_kw))
         plain_ms = time_ms(lambda: fa._flash_bwd_plain(
             q, k, v, out, lse, do, None, mask, seg), reps=3)
-        library_ms = _sdpa_backward_ms(q, k, v, do,
-                                       _sdpa_kwargs(mask, seg, s, t, vis))
+        library_ms = _sdpa_backward_ms(q, k, v, do, sdpa_kw)
         name = _case_name(*case)
         log(f"  {name:48s} " + " ".join(
             f"{n} max_abs {e['max_abs']:.3e} (of {e['scale']:.2e}) rel_l2 "
@@ -400,7 +410,8 @@ def phase_backward() -> dict:
             + f" {'OK' if ok else 'FAIL'}")
         log(f"    dq_ms {dq_ms:.4f} (bound {dq_bound:.4f}, {dq_by}) dkv_ms "
             f"{dkv_ms:.4f} (bound {dkv_bound:.4f}, {dkv_by}) delta_ms "
-            f"{delta_ms:.4f} fwd_ms {fwd_ms:.4f} plain_bwd_ms "
+            f"{delta_ms:.4f} fwd_ms {fwd_ms:.4f} (SDPA fwd "
+            f"{fwd_library_ms:.4f}) plain_bwd_ms "
             f"{plain_ms:.4f} library_bwd_ms {library_ms:.4f}")
         if not ok:
             raise RuntimeError(f"flash backward kernels disagree with the "
@@ -410,6 +421,7 @@ def phase_backward() -> dict:
                 worst[n][key] = max(worst[n][key], e[key])
         rows.append({"shape": name, "dq_ms": dq_ms, "dkv_ms": dkv_ms,
                      "delta_ms": delta_ms, "fwd_ms": fwd_ms,
+                     "fwd_library_ms": fwd_library_ms,
                      "plain_ms": plain_ms, "library_ms": library_ms,
                      "dq_bound_ms": dq_bound, "dq_bound_by": dq_by,
                      "dkv_bound_ms": dkv_bound, "dkv_bound_by": dkv_by})
@@ -1480,6 +1492,27 @@ def phase_training() -> dict:
     return result
 
 
+def _forward_spills(logs: dict) -> dict:
+    """{kernel function: spill-store bytes} of NO_SPILL_KERNELS, from the
+    ptxas reports ("Function properties for F" then "... N bytes spill
+    stores ...")."""
+    found, current = {}, None
+    for text in logs.values():
+        for line in text.splitlines():
+            if "Function properties for" in line:
+                name = line.rsplit(" ", 1)[-1]
+                current = (name if any(k in name for k in NO_SPILL_KERNELS)
+                           else None)
+            elif current and "spill stores" in line:
+                found[current] = int(line.split("bytes spill stores")[0]
+                                     .rsplit(",", 1)[-1].strip())
+                current = None
+    if len(found) < 2 * len(NO_SPILL_KERNELS):  # D 64 and 128 each
+        raise RuntimeError(f"no ptxas report for every forward kernel: "
+                           f"{sorted(found)}")
+    return found
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1490,8 +1523,13 @@ def main() -> int:
     log(f"  kernels built from source in {secs:.2f}s")
     for src, text in _build.build_logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "Performance Loss" in line):
                 log(f"  {src}: {line.strip()}")
+    spills = _forward_spills(_build.build_logs)
+    log(f"  spill stores of the forward kernels: {spills}")
+    if any(spills.values()):
+        raise RuntimeError(f"a forward kernel spills: {spills}")
     t0 = time.monotonic()
     log("phase 2: kernels vs plain versions")
     kern = phase_kernels()
@@ -1542,6 +1580,8 @@ def main() -> int:
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"], "shape": main_row["shape"],
         "ms_training_shape": bmain["fwd_ms"],
+        "library_ms_training_shape": bmain["fwd_library_ms"],
+        "design": FWD_DESIGN,
     }, {
         "name": "flash_bwd_dq",
         "replaces": "kubeflow_tpu/ops/flash_attention.py:234",
@@ -1575,7 +1615,8 @@ def main() -> int:
     } for name, line, errs in (
         ("rdma_fwd", 50, {"max_abs_err": ring["worst"]["out"],
                           "rel_l2_err": ring["worst"]["out_rel_l2"],
-                          "max_abs_err_lse": ring["worst"]["lse"]}),
+                          "max_abs_err_lse": ring["worst"]["lse"],
+                          "design": FWD_DESIGN}),
         ("rdma_bwd_dq", 197, {"max_abs_err": ring["worst"]["dq_abs"],
                               "rel_l2_err": ring["worst"]["dq"]}),
         ("rdma_bwd_dkv", 268, {

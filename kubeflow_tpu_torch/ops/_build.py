@@ -62,7 +62,8 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-#: ptxas report (registers, shared memory, spills) of each build, by source.
+#: ptxas report (registers, shared memory, spills) of each library, by
+#: source: of this process's build, or read from beside a cached library.
 build_logs: dict[str, str] = {}
 
 
@@ -99,6 +100,9 @@ def build_all(sources=None) -> float:
         for src in sources:
             out = _target(src)
             if out.exists():
+                report = out.with_suffix(".log")
+                if report.exists():
+                    build_logs[src] = report.read_text()
                 continue
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
             cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
@@ -112,6 +116,7 @@ def build_all(sources=None) -> float:
             if proc.returncode != 0:
                 failed.append(f"{src} (exit {proc.returncode}):\n{log}")
                 continue
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)  # atomic: a reader never sees half a file
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))

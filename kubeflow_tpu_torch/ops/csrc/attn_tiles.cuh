@@ -1,13 +1,14 @@
-// Tile math shared by the attention kernels (flash_fwd.cu, flash_bwd.cu,
-// rdma_ring.cu): bf16 tensor-core products with mma.sync m16n8k16, fp32
-// accumulation, P and dS rounded to bf16 for their products.
+// Tile math shared by the attention backward kernels (flash_bwd.cu and the
+// backward of rdma_ring.cu): bf16 tensor-core products with mma.sync
+// m16n8k16, fp32 accumulation, P and dS rounded to bf16 for their products.
+// (The forward kernels run attn_fwd_sm90.cuh.)
 //
 // Each kernel runs 4 warps; a warp owns 16 rows of its CTA's 64-row tile.
 // The per-tile functions below take a `visible(r, c)` predicate: r indexes
 // the thread's two accumulator rows (g and g + 8 of the warp's 16), c a
 // column of the tile; it folds in the kernel's mask and its ragged edges.
-// Masked entries get the finite -1e30 score (forward) or p = 0 exactly
-// (backward: a select, never a product with exp of garbage).
+// Masked entries get p = 0 exactly (a select, never a product with exp of
+// garbage).
 
 #pragma once
 
@@ -21,10 +22,9 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int kWarps = 4;  // 16 rows per warp
 constexpr int kThreads = kWarps * 32;
-constexpr int kBQ = 64;    // forward, dq: q rows per CTA
-constexpr int kBKV = 64;   // forward, dq: kv rows per tile; dk/dv: per CTA
+constexpr int kBQ = 64;    // dq: q rows per CTA
+constexpr int kBKV = 64;   // dq: kv rows per tile; dk/dv: per CTA
 constexpr int kBQT = 32;   // dk/dv: q rows per tile of its walk
-constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
@@ -173,126 +173,6 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4], bf16* b
       *reinterpret_cast<__nv_bfloat162*>(p + n * 8 + 2 * t) = __floats2bfloat162_rn(
           acc[n][2 * r] * scale, acc[n][2 * r + 1] * scale);
     }
-  }
-}
-
-// One 64-row kv tile of the forward for the warp's 16 q rows (fragments
-// qf): S = Q K^T in fp32, scaled and masked, the online-softmax update of
-// the row max m and sum l (l from the fp32 P), then O += P V with P rounded
-// to bf16. ks, vs: the tile's K and V in shared memory, row stride D + 8.
-template <int D, typename Visible>
-__device__ __forceinline__ void fwd_tile(const uint32_t (&qf)[D / 16][4],
-                                         const bf16* ks, const bf16* vs,
-                                         float (&acc)[D / 8][4], float (&m)[2],
-                                         float (&l)[2], float sm_scale,
-                                         Visible visible) {
-  constexpr int kLds = D + 8;
-  constexpr int kKD = D / 16;     // k-slices of Q.K^T over the head dim
-  constexpr int kND = D / 8;      // n-tiles of the output over the head dim
-  constexpr int kNKV = kBKV / 8;  // n-tiles of the scores over kv columns
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;  // fragment row within the 16-row warp tile
-  const int t = lane & 3;   // fragment column pair
-  const int mi = lane >> 3;
-  const int mr = lane & 7;
-
-  float s[kNKV][4];
-#pragma unroll
-  for (int n = 0; n < kNKV; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < kKD; ++kk) {
-#pragma unroll
-    for (int n = 0; n < kNKV; ++n) {
-      const bf16* kp = &ks[(n * 8 + g) * kLds + kk * 16 + 2 * t];
-      mma_bf16(s[n], qf[kk], ld32(kp), ld32(kp + 8));
-    }
-  }
-
-  // Scale, mask, and the new row max (m_new = max(m, rowmax(s))).
-  float mx[2] = {m[0], m[1]};
-#pragma unroll
-  for (int n = 0; n < kNKV; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = e >> 1;
-      const float val = visible(r, n * 8 + 2 * t + (e & 1)) ? s[n][e] * sm_scale : kNegInf;
-      s[n][e] = val;
-      mx[r] = fmaxf(mx[r], val);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-  }
-  float alpha[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-  for (int r = 0; r < 2; ++r) alpha[r] = __expf(m[r] - mx[r]);
-#pragma unroll
-  for (int n = 0; n < kNKV; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float p = __expf(s[n][e] - mx[e >> 1]);
-      s[n][e] = p;
-      rs[e >> 1] += p;
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
-    rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
-    l[r] = l[r] * alpha[r] + rs[r];
-    m[r] = mx[r];
-  }
-#pragma unroll
-  for (int n = 0; n < kND; ++n) {
-    acc[n][0] *= alpha[0];
-    acc[n][1] *= alpha[0];
-    acc[n][2] *= alpha[1];
-    acc[n][3] *= alpha[1];
-  }
-
-  // O += P V: the score fragments are reused as the A operand.
-#pragma unroll
-  for (int kk = 0; kk < kBKV / 16; ++kk) {
-    uint32_t pa[4];
-    pack_a_frag(pa, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-    for (int n = 0; n < kND; n += 2) {
-      uint32_t vb[4];
-      ldmatrix_x4_trans(
-          vb, &vs[(kk * 16 + (mi & 1) * 8 + mr) * kLds + n * 8 + (mi >> 1) * 8]);
-      mma_bf16(acc[n], pa, vb[0], vb[1]);
-      mma_bf16(acc[n + 1], pa, vb[2], vb[3]);
-    }
-  }
-}
-
-// The forward's end: out = acc / max(l, 1e-30) as bf16 and lse = m +
-// log(max(l, 1e-30)), for rows below `limit`. o: row 0 of the (b, h) slab,
-// row stride o_stride; lse likewise with row stride lse_stride.
-template <int D>
-__device__ __forceinline__ void store_fwd(const float (&acc)[D / 8][4],
-                                          const float (&m)[2], const float (&l)[2],
-                                          const int (&rows)[2], int limit, bf16* o,
-                                          long o_stride, float* lse,
-                                          long lse_stride) {
-  const int t = threadIdx.x & 3;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = rows[r];
-    if (row >= limit) continue;
-    const float lc = fmaxf(l[r], 1e-30f);
-    const float inv = 1.f / lc;
-    bf16* op = o + row * o_stride;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(op + n * 8 + 2 * t) =
-          __floats2bfloat162_rn(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
-    }
-    if (t == 0) lse[row * lse_stride] = m[r] + logf(lc);
   }
 }
 

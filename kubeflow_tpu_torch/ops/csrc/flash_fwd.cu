@@ -6,155 +6,150 @@
 // the four mask kinds with fully masked kv tiles skipped, optional segment
 // ids, and a per-row lse = m + log(max(l, 1e-30)).
 //
+// What bounds it on this card: the two products do 4*D flops per visible
+// (q, k) pair against 2*D bytes of K/V per kv row read by each 128-row q
+// tile, about 256 flop/byte at D 128 and more as the q tile's own bytes
+// amortise over longer walks: at or above the H100's ~295 flop/byte ridge,
+// so tensor-core throughput bounds it. What the design does about that is
+// attn_fwd_sm90.cuh's mainloop (a persistent, warp-specialised CTA per SM:
+// wgmma fed by TMA through an mbarrier ring, S of one tile issued with P V
+// of the last, exp2 softmax in registers); this file gives it the walk: the
+// visible kv tiles [first, bound) of one K/V tensor under the mask kind,
+// which of them cross a mask edge or T, each row's interval of visible
+// columns there, and the segment ids.
+//
 // Layout (the JAX package's, so no transposes on the host):
 //   q [B, S, H, D], k/v [B, T, KH, D], o [B, S, H, D] (bf16, contiguous)
 //   lse [B, S, H] fp32, seg [B, S] int32 or null (self-attention only)
-//
-// What bounds it on this card: at serving prefill shapes (S = 128..2048,
-// D = 128) the two products per tile are 4*D flops per visible (q, k) pair
-// against 2*D bytes of K/V per kv row, so the work sits above the H100's
-// ~295 flop/byte ridge: it is bound by tensor-core throughput. This first
-// design does the simple thing about that: both products run on tensor cores
-// (mma.sync m16n8k16, bf16 in, fp32 accumulate) instead of FMA, Q stays in
-// registers for the whole kv walk, and the kv walk covers only the visible
-// tiles. It does not yet use wgmma, TMA, a multi-stage copy pipeline or warp
-// specialisation; each kv tile is loaded, then consumed, with the CTA
-// synchronised in between.
-//
-// Grid: (ceil(S / 64), B * H). One CTA of 4 warps owns a 64-row q tile; each
-// warp owns 16 rows and walks the kv tiles [first, bound) of its CTA (the
-// tile math, fwd_tile, is shared with rdma_ring.cu in attn_tiles.cuh). K and V
-// tiles (64 rows) are staged in shared memory, zero-filled past T, so the
-// kernel never reads K/V beyond T and needs no padded copies on the host.
-// Query rows past S are computed from zeros and never written.
-//
-// Numerics: scores are fp32 and scaled there (not in bf16 q). P is rounded to
-// bf16 for the P.V product (the tensor-core input type); the row sum l is
-// taken from the fp32 P before that rounding.
+// Grid: one persistent CTA per SM taking the B * H * ceil(S / 128) q tiles
+// in turn, those with the longest causal walks first.
 
-#include "attn_tiles.cuh"
+#include "attn_fwd_sm90.cuh"
 
 namespace {
 
-using namespace tiles;
+using fwd90::Tile;
+using fwd90::bf16;
+using fwd90::kBM;
+using fwd90::kBN;
 
 enum MaskKind { kCausal = 0, kFull = 1, kPrefixLM = 2, kSlidingWindow = 3 };
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const int* __restrict__ seg,
-                 bf16* __restrict__ o, float* __restrict__ lse, int S, int T,
-                 int H, int KH, int kind, int window, int prefix,
-                 float sm_scale) {
-  constexpr int kLds = D + 8;  // padded smem row: conflict-free reads
-  __shared__ __align__(16) bf16 ks[kBKV * kLds];
-  __shared__ __align__(16) bf16 vs[kBKV * kLds];
-  __shared__ int kseg[kBKV];
+struct Params {
+  CUtensorMap q, k, v;
+  const int* seg;
+  bf16* o;
+  float* lse;
+  int B, S, T, H, KH, kind, window, prefix;
+  float scale_log2;
+};
 
-  const int qi = blockIdx.x;
-  const int b = blockIdx.y / H;
-  const int h = blockIdx.y % H;
-  const int kh = h / (H / KH);
-  const int warp = threadIdx.x >> 5;
-  const int g = (threadIdx.x & 31) >> 2;
-  int rows[2];
-  rows[0] = qi * kBQ + warp * 16 + g;
-  rows[1] = rows[0] + 8;
+// The kv tiles [first, first + size()) of one q tile, as _q_visible
+// computes them at this kernel's tiles, and the mask.
+struct FlashWalk {
+  const Params& p;
+  const int* seg;  // batch row b of the segment ids, or null
+  int first, bound;
 
-  // Q fragments, read once from global and held for the whole kv walk.
-  const long q_stride = static_cast<long>(H) * D;
-  const long q_off = static_cast<long>(b) * S * q_stride + static_cast<long>(h) * D;
-  uint32_t qf[D / 16][4];
-  load_row_frags<D>(qf, q + q_off, q_stride, rows, S);
-  int qseg[2] = {-1, -1};
-  if (seg != nullptr) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      if (rows[r] < S) qseg[r] = seg[static_cast<long>(b) * S + rows[r]];
+  __device__ int size() const { return bound > first ? bound - first : 0; }
+  __device__ Tile tile(int it) const { return {&p.k, &p.v, (first + it) * kBN, false}; }
+  __device__ bool keyed() const { return seg != nullptr; }
+  __device__ int row_key(int row) const {
+    return seg != nullptr && row < p.S ? seg[row] : -1;
   }
-
-  // Visible kv tiles, as _q_visible computes them, at this kernel's tiles.
-  const int num_kv = (T + kBKV - 1) / kBKV;
-  int first = 0, bound = num_kv;
-  if (kind != kFull) {
-    const int last = (qi + 1) * kBQ - 1;
-    const int causal_bound = min(last / kBKV + 1, num_kv);
-    bound = causal_bound;
-    if (kind == kPrefixLM) {
-      const int prefix_bound =
-          (qi * kBQ < prefix) ? min((prefix + kBKV - 1) / kBKV, num_kv) : 0;
-      bound = max(causal_bound, prefix_bound);
-    } else if (kind == kSlidingWindow) {
-      // A negative numerator truncates to 0 or below; either way clamps to 0.
-      first = max((qi * kBQ - window + 1) / kBKV, 0);
+  __device__ int col_key(const Tile&, int col) const { return col < p.T ? seg[col] : -2; }
+  __device__ bool masked(const Tile& t, int row_lo, int row_hi) const {
+    const int c_lo = t.kv0, c_hi = t.kv0 + kBN - 1;
+    if (seg != nullptr || c_hi >= p.T) return true;
+    switch (p.kind) {
+      case kCausal: return c_hi > row_lo;
+      case kPrefixLM: return c_hi > row_lo && c_hi >= p.prefix;
+      case kSlidingWindow: return c_hi > row_lo || row_hi - c_lo >= p.window;
+      default: return false;
     }
   }
-
-  float acc[D / 8][4];
-  zero<D>(acc);
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};
-
-  const long kv_stride = static_cast<long>(KH) * D;
-  const long kv_off = static_cast<long>(b) * T * kv_stride + static_cast<long>(kh) * D;
-  for (int j = first; j < bound; ++j) {
-    const int kv0 = j * kBKV;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<D, kBKV>(ks, k + kv_off, kv_stride, kv0, T);
-    load_tile<D, kBKV>(vs, v + kv_off, kv_stride, kv0, T);
-    if (seg != nullptr && threadIdx.x < kBKV) {
-      const int c = kv0 + threadIdx.x;
-      kseg[threadIdx.x] = c < T ? seg[static_cast<long>(b) * T + c] : -1;
+  // The columns a row sees: below T, and causal (up to the row), prefix-LM
+  // (up to the row or the prefix's end) or a sliding window (the `window`
+  // keys up to the row).
+  __device__ void range(const Tile&, int row, int& lo, int& hi) const {
+    lo = 0;
+    hi = p.T - 1;
+    if (p.kind == kCausal) {
+      hi = min(hi, row);
+    } else if (p.kind == kPrefixLM) {
+      hi = min(hi, max(row, p.prefix - 1));
+    } else if (p.kind == kSlidingWindow) {
+      hi = min(hi, row);
+      lo = row - p.window + 1;
     }
-    __syncthreads();
-    fwd_tile<D>(qf, ks, vs, acc, m, l, sm_scale, [&](int r, int cl) {
-      const int row = rows[r];
-      const int col = kv0 + cl;
-      bool ok = col < T;
-      if (kind == kCausal) {
-        ok = ok && row >= col;
-      } else if (kind == kPrefixLM) {
-        ok = ok && (row >= col || col < prefix);
-      } else if (kind == kSlidingWindow) {
-        ok = ok && row >= col && row - col < window;
+  }
+};
+
+// The walk of q tile qi of batch row b.
+struct MakeFlashWalk {
+  const Params& p;
+
+  __device__ FlashWalk operator()(int qi, int b) const {
+    // Visible kv tiles, as _q_visible computes them, at this kernel's tiles.
+    const int num_kv = (p.T + kBN - 1) / kBN;
+    int first = 0, bound = num_kv;
+    if (p.kind != kFull) {
+      const int last = (qi + 1) * kBM - 1;
+      const int causal_bound = min(last / kBN + 1, num_kv);
+      bound = causal_bound;
+      if (p.kind == kPrefixLM) {
+        const int prefix_bound =
+            (qi * kBM < p.prefix) ? min((p.prefix + kBN - 1) / kBN, num_kv) : 0;
+        bound = max(causal_bound, prefix_bound);
+      } else if (p.kind == kSlidingWindow) {
+        // A negative numerator truncates to 0 or below; either way clamps to 0.
+        first = max((qi * kBM - p.window + 1) / kBN, 0);
       }
-      if (seg != nullptr) ok = ok && qseg[r] == kseg[cl];
-      return ok;
-    });
+    }
+    return {p, p.seg == nullptr ? nullptr : p.seg + static_cast<long>(b) * p.S, first, bound};
   }
+};
 
-  store_fwd<D>(acc, m, l, rows, S, o + q_off, q_stride,
-               lse + static_cast<long>(b) * S * H + h, H);
+template <int D>
+__global__ void __launch_bounds__(fwd90::kThreads, 1)
+flash_fwd_kernel(const __grid_constant__ Params p) {
+  extern __shared__ unsigned char smem[];
+  fwd90::attn_fwd<D>(smem, &p.q, fwd90::Jobs{p.B, p.S, p.H, p.KH}, MakeFlashWalk{p}, p.o,
+                     p.lse, p.scale_log2);
 }
 
 }  // namespace
 
-// Launches on `stream`; returns cudaGetLastError() after the launch (0 = ok).
-// kind: 0 causal, 1 full, 2 prefix_lm, 3 sliding_window. seg may be null.
+// Launches on `stream`; returns cudaGetLastError() after the launch (0 = ok),
+// or cudaErrorInvalidValue for arguments the kernel does not take (and for a
+// tensor map that cannot be encoded). kind: 0 causal, 1 full, 2 prefix_lm, 3
+// sliding_window. seg may be null.
 extern "C" int tpk_flash_fwd(const void* q, const void* k, const void* v,
                              const void* seg, void* o, void* lse, int B, int S,
                              int T, int H, int KH, int D, int kind, int window,
                              int prefix, float sm_scale, void* stream) {
-  if (B <= 0 || S <= 0 || T <= 0 || KH <= 0 || H % KH != 0 || kind < 0 || kind > 3)
+  if (B <= 0 || S <= 0 || T <= 0 || KH <= 0 || H % KH != 0 || kind < 0 || kind > 3 ||
+      (D != 64 && D != 128))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((S + kBQ - 1) / kBQ, B * H);
-  const dim3 block(kThreads);
+  Params p;
+  if (!fwd90::encode_bshd(&p.q, q, B, S, H, D, kBM) ||
+      !fwd90::encode_bshd(&p.k, k, B, T, KH, D, kBN) ||
+      !fwd90::encode_bshd(&p.v, v, B, T, KH, D, kBN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.seg = static_cast<const int*>(seg);
+  p.o = static_cast<bf16*>(o);
+  p.lse = static_cast<float*>(lse);
+  p.B = B;
+  p.S = S;
+  p.T = T;
+  p.H = H;
+  p.KH = KH;
+  p.kind = kind;
+  p.window = window;
+  p.prefix = prefix;
+  p.scale_log2 = sm_scale * fwd90::kLog2e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* qp = static_cast<const bf16*>(q);
-  const auto* kp = static_cast<const bf16*>(k);
-  const auto* vp = static_cast<const bf16*>(v);
-  const auto* sp = static_cast<const int*>(seg);
-  auto* op = static_cast<bf16*>(o);
-  auto* lp = static_cast<float*>(lse);
-  if (D == 128) {
-    flash_fwd_kernel<128><<<grid, block, 0, st>>>(qp, kp, vp, sp, op, lp, S, T, H, KH,
-                                                 kind, window, prefix, sm_scale);
-  } else if (D == 64) {
-    flash_fwd_kernel<64><<<grid, block, 0, st>>>(qp, kp, vp, sp, op, lp, S, T, H, KH,
-                                                kind, window, prefix, sm_scale);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const int q_tiles = (S + kBM - 1) / kBM * B * H;
+  if (D == 128) return fwd90::launch<128>(flash_fwd_kernel<128>, p, q_tiles, st);
+  return fwd90::launch<64>(flash_fwd_kernel<64>, p, q_tiles, st);
 }

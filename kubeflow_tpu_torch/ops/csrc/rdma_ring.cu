@@ -17,9 +17,10 @@
 // rank; rank `me` holds rows [me*s, (me+1)*s) of q, k, v (and dO, lse,
 // delta) in tensors of its own. Each entry point is launched once per rank
 // and gets that rank's resident shard plus a by-value table of n per-rank
-// pointers to what travels. A rank's kernel reads another rank's tensors
-// only through that table: on one card every pointer is local; across
-// cards the same kernel takes peer pointers.
+// handles to what travels: TMA tensor maps for the forward, pointers for the
+// backward. A rank's kernel reads another rank's tensors only through that
+// table: on one card every handle is local; across cards the same kernel
+// takes peer addresses.
 //
 // Pull, not push. The TPU kernel pushes each K/V shard into its right-hand
 // neighbour's VMEM, which holds two slots, and so needs slot-free acks for
@@ -28,9 +29,9 @@
 // waiting on another rank (stream order makes every shard ready before any
 // rank's launch starts; no launch waits on a flag another CTA writes, which
 // would deadlock where those CTAs are not co-resident). The overlap that the
-// TPU kernel gets from start()/wait_recv() comes from double-buffered
-// cp.async: the next tile is copied into shared memory while the current
-// one's mma.sync runs.
+// TPU kernel gets from start()/wait_recv() comes from the copies running
+// ahead of the products: the forward's TMA producer warp keeps two K/V tiles
+// in flight, the backward double-buffers with cp.async.
 //
 // Order and causality. Rows are masked by global position (row me*s + r
 // against col src*s + c), so a shard src < me is visible in full, src == me
@@ -45,24 +46,23 @@
 // Layout (the JAX package's, per shard, so no transposes on the host):
 //   q, dO, out, dq [B, s, H, D]; k, v, dk, dv [B, s, KH, D] (bf16,
 //   contiguous); lse, delta [B, s, H] fp32. GQA by index: kv head h/(H/KH).
-// Tiles are zero-filled past s within each shard (s need not be a multiple
-// of the tile) and rows past s are never written.
+// Rows past s are never written; the forward's TMA zero-fills tiles past s,
+// the backward's copies zero-fill them.
 //
 // What bounds them on this card: per visible (q, k) pair the forward does 4*D
 // flops, dq 6*D and dk/dv 8*D, against 2*D bytes of K/V per kv row read by a
 // q tile (forward, dq) or 4*D bytes of Q/dO per q row (dk/dv): far above the
 // H100's ~295 flop/byte ridge at long context, so tensor-core throughput
-// bounds all three. The design does the simple thing about that: every
-// product runs on tensor cores (mma.sync m16n8k16, bf16 in, fp32
-// accumulate), only visible tiles are walked, and copies overlap the
-// products. The tile math is flash_fwd.cu's and flash_bwd.cu's, shared in
-// attn_tiles.cuh: 64x64 tiles with Q (and dO) in registers for the forward
-// and dq, dk/dv in the transposed formulation (no atomics) over 32-row q
-// tiles, P and dS rounded to bf16 for their products. It does not yet use
-// wgmma, TMA or warp specialisation, and does not balance the ranks: under
+// bounds all three. The forward runs attn_fwd_sm90.cuh's mainloop (a
+// persistent, warp-specialised CTA per SM: wgmma fed by TMA through an
+// mbarrier ring, 128-row q and kv tiles, heaviest q tiles first) over the
+// ring walk below. The backward kernels share flash_bwd.cu's tile math in
+// attn_tiles.cuh (mma.sync m16n8k16, 64x64 tiles, dk/dv in the transposed
+// formulation over 32-row q tiles, no atomics). None balances the ranks: under
 // the causal contiguous layout rank n-1 does about 2n-1 times rank 0's
 // forward and dq work, and rank 0 that multiple of rank n-1's dk/dv work.
 
+#include "attn_fwd_sm90.cuh"
 #include "attn_tiles.cuh"
 
 namespace {
@@ -85,9 +85,10 @@ struct QRing {
   const float* delta[kMaxRanks];
 };
 
-// The kv tiles one 64-row q tile of rank `me` sees, in the TPU kernel's ring
-// order: the diagonal shard up to the q tile's own kv tile (kBQ == kBKV),
-// then every tile of src = me - 1, ..., 0.
+// The kv tiles one q tile of rank `me` sees, in the TPU kernel's ring
+// order: the diagonal shard up to the q tile's own kv tile (q and kv tiles
+// of one size: 64 rows for dq, 128 for the forward), then every tile of
+// src = me - 1, ..., 0.
 struct KVWalk {
   int me, num_kv, diag_tiles;
   __device__ int size() const { return diag_tiles + me * num_kv; }
@@ -103,7 +104,7 @@ struct KVWalk {
   }
 };
 
-// Shared memory of the forward and dq: two stages of a K and a V tile.
+// Shared memory of dq: two stages of a K and a V tile.
 template <int D>
 constexpr int kv_smem_bytes() {
   return 2 * 2 * kBKV * (D + 8) * 2;
@@ -123,7 +124,7 @@ __device__ __forceinline__ void issue_kv(bf16* smem, const KVRing& ring,
   cp_async_commit();
 }
 
-// The walk of the forward and dq over K/V tiles of the ring: step it + 1's
+// The walk of dq over K/V tiles of the ring: step it + 1's
 // copies fly while `tile(src, kv0, ks, vs)` computes step it. Two barriers
 // a step: one after the step's copies landed, one before its stage refills.
 template <int D, typename Tile>
@@ -150,41 +151,6 @@ __device__ __forceinline__ void walk_kv(bf16* smem, const KVRing& ring, int me,
     tile(src, j * kBKV, ks, ks + kTile);
     __syncthreads();  // readers of stage it & 1 are done before its refill
   }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-rdma_fwd_kernel(const bf16* __restrict__ q, const __grid_constant__ KVRing ring,
-                bf16* __restrict__ o, float* __restrict__ lse, int me, int s,
-                int H, int KH, float sm_scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int qi = blockIdx.x;
-  const int b = blockIdx.y / H;
-  const int h = blockIdx.y % H;
-  int rows[2];  // shard-local rows; global ones are me * s + row
-  rows[0] = qi * kBQ + (threadIdx.x >> 5) * 16 + ((threadIdx.x & 31) >> 2);
-  rows[1] = rows[0] + 8;
-
-  const long q_stride = static_cast<long>(H) * D;
-  const long q_off = static_cast<long>(b) * s * q_stride + static_cast<long>(h) * D;
-  uint32_t qf[D / 16][4];
-  load_row_frags<D>(qf, q + q_off, q_stride, rows, s);
-  float acc[D / 8][4];
-  zero<D>(acc);
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};
-
-  walk_kv<D>(reinterpret_cast<bf16*>(smem_raw), ring, me, qi, b, h / (H / KH), s, KH,
-             [&](int src, int kv0, const bf16* ks, const bf16* vs) {
-               const bool diag = src == me;
-               fwd_tile<D>(qf, ks, vs, acc, m, l, sm_scale, [&](int r, int cl) {
-                 const int col = kv0 + cl;
-                 return col < s && (!diag || rows[r] >= col);
-               });
-             });
-
-  store_fwd<D>(acc, m, l, rows, s, o + q_off, q_stride,
-               lse + static_cast<long>(b) * s * H + h, H);
 }
 
 template <int D>
@@ -370,15 +336,64 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
+// The forward: rank me's q tile of 128 rows against the ring's K/V shards
+// through a table of TMA maps, one K and one V map per rank.
+struct FwdParams {
+  CUtensorMap q;
+  CUtensorMap k[kMaxRanks];
+  CUtensorMap v[kMaxRanks];
+  bf16* o;
+  float* lse;
+  int me, B, s, H, KH;
+  float scale_log2;
+};
+// The table is passed by value (__grid_constant__, read in place): past the
+// classic 4 KB of kernel parameters, within the 32,764 bytes that CUDA 12.1
+// and later allow on sm_90.
+static_assert(sizeof(FwdParams) <= 32764, "kernel parameters past the sm_90 limit");
+
+// KVWalk at the forward's 128-row tiles, with the global-position mask: the
+// diagonal shard is causal, earlier shards visible in full, columns past s
+// never.
+struct RingWalk {
+  const FwdParams& p;
+  KVWalk walk;
+
+  __device__ int size() const { return walk.size(); }
+  __device__ fwd90::Tile tile(int it) const {
+    int src, j;
+    walk.at(it, src, j);
+    return {&p.k[src], &p.v[src], j * fwd90::kBN, src == p.me};
+  }
+  __device__ bool keyed() const { return false; }
+  __device__ int row_key(int) const { return 0; }
+  __device__ int col_key(const fwd90::Tile&, int) const { return 0; }
+  __device__ bool masked(const fwd90::Tile& t, int row_lo, int) const {
+    const int c_hi = t.kv0 + fwd90::kBN - 1;
+    return c_hi >= p.s || (t.diag && c_hi > row_lo);
+  }
+  __device__ void range(const fwd90::Tile& t, int row, int& lo, int& hi) const {
+    lo = 0;
+    hi = t.diag ? min(row, p.s - 1) : p.s - 1;
+  }
+};
+
+// The ring walk of q tile qi: the diagonal shard up to the tile itself.
+struct MakeRingWalk {
+  const FwdParams& p;
+
+  __device__ RingWalk operator()(int qi, int) const {
+    static_assert(fwd90::kBM == fwd90::kBN, "the diagonal walk needs square tiles");
+    return {p, KVWalk{p.me, (p.s + fwd90::kBN - 1) / fwd90::kBN, qi + 1}};
+  }
+};
+
 template <int D>
-int launch_fwd(const bf16* q, const KVRing& ring, bf16* o, float* lse, int me, int B,
-               int s, int H, int KH, float sm_scale, cudaStream_t st) {
-  constexpr int smem = kv_smem_bytes<D>();
-  cudaError_t err = allow_smem(rdma_fwd_kernel<D>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((s + kBQ - 1) / kBQ, B * H);
-  rdma_fwd_kernel<D><<<grid, kThreads, smem, st>>>(q, ring, o, lse, me, s, H, KH, sm_scale);
-  return static_cast<int>(cudaGetLastError());
+__global__ void __launch_bounds__(fwd90::kThreads, 1)
+rdma_fwd_kernel(const __grid_constant__ FwdParams p) {
+  extern __shared__ unsigned char smem[];
+  fwd90::attn_fwd<D>(smem, &p.q, fwd90::Jobs{p.B, p.s, p.H, p.KH}, MakeRingWalk{p}, p.o,
+                     p.lse, p.scale_log2);
 }
 
 template <int D>
@@ -417,16 +432,33 @@ extern "C" int tpk_rdma_fwd(const void* q, const void* const* k_ring,
                             const void* const* v_ring, void* o, void* lse, int n,
                             int me, int B, int s, int H, int KH, int D,
                             float sm_scale, void* stream) {
-  KVRing ring;
-  if (bad_ring(n, me, B, s, H, KH) || !fill(ring.k, k_ring, n) || !fill(ring.v, v_ring, n))
+  if (bad_ring(n, me, B, s, H, KH) || (D != 64 && D != 128))
     return static_cast<int>(cudaErrorInvalidValue);
+  FwdParams p;
+  if (!fwd90::encode_bshd(&p.q, q, B, s, H, D, fwd90::kBM))
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (int r = 0; r < kMaxRanks; ++r) {  // unused ranks stay zero
+    p.k[r] = CUtensorMap{};
+    p.v[r] = CUtensorMap{};
+  }
+  for (int r = 0; r < n; ++r) {
+    if (k_ring[r] == nullptr || v_ring[r] == nullptr ||
+        !fwd90::encode_bshd(&p.k[r], k_ring[r], B, s, KH, D, fwd90::kBN) ||
+        !fwd90::encode_bshd(&p.v[r], v_ring[r], B, s, KH, D, fwd90::kBN))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  p.o = static_cast<bf16*>(o);
+  p.lse = static_cast<float*>(lse);
+  p.me = me;
+  p.B = B;
+  p.s = s;
+  p.H = H;
+  p.KH = KH;
+  p.scale_log2 = sm_scale * fwd90::kLog2e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* qp = static_cast<const bf16*>(q);
-  auto* op = static_cast<bf16*>(o);
-  auto* lp = static_cast<float*>(lse);
-  if (D == 128) return launch_fwd<128>(qp, ring, op, lp, me, B, s, H, KH, sm_scale, st);
-  if (D == 64) return launch_fwd<64>(qp, ring, op, lp, me, B, s, H, KH, sm_scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const int q_tiles = (s + fwd90::kBM - 1) / fwd90::kBM * B * H;
+  if (D == 128) return fwd90::launch<128>(rdma_fwd_kernel<128>, p, q_tiles, st);
+  return fwd90::launch<64>(rdma_fwd_kernel<64>, p, q_tiles, st);
 }
 
 extern "C" int tpk_rdma_bwd_dq(const void* q, const void* const* k_ring,

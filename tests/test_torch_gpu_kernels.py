@@ -61,6 +61,72 @@ def test_flash_kernel_matches_plain(cuda, shape, kind, mkw, segments, d):
     assert (lse - ref_lse).abs().max().item() <= 1e-3
 
 
+def _fwd_inputs(shape, d, seed, cuda):
+    b, s, t, h, kh = shape
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shp).astype(np.float32))
+            .to(cuda, torch.bfloat16)
+            for shp in ((b, s, h, d), (b, t, kh, d), (b, t, kh, d))]
+
+
+def _assert_fwd_matches_plain(q, k, v, mask):
+    before = tfa.flash_fwd_launches
+    out, lse = tfa.flash_attention_lse(q, k, v, mask=mask)
+    torch.cuda.synchronize()
+    assert tfa.flash_fwd_launches == before + 1
+    ref, ref_lse = tfa._flash_fwd_plain(q.float(), k.float(), v.float(), mask)
+    assert bool(torch.isfinite(out.float()).all())
+    assert (out.float() - ref).abs().max().item() <= 2e-2
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    return out, lse
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_kernel_single_tile(cuda, d):
+    """One 128-row q tile against one 128-row kv tile (S = T = 128, full):
+    every swizzled box, k-step and accumulator fragment of the wgmma
+    mainloop, and no mask, as the plain version."""
+    q, k, v = _fwd_inputs((1, 128, 128, 2, 1), d, 10, cuda)
+    _assert_fwd_matches_plain(q, k, v, tfa.MaskSpec("full"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_kernel_ragged_t(cuda, d):
+    """T = 700 is not a multiple of the 128-row kv tile and S = 200 not of
+    the q tile: TMA's zero fill past T and S, the mask at T, rows past S
+    never written."""
+    q, k, v = _fwd_inputs((2, 200, 700, 4, 2), d, 11, cuda)
+    _assert_fwd_matches_plain(q, k, v, tfa.MaskSpec("full"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [1, 200, 300])
+def test_flash_kernel_window_inside_a_tile(cuda, window):
+    """Sliding windows whose edge row - col = window cuts through 128-row kv
+    tiles, so the first visible tile of a q tile is partly masked and the
+    walk starts past 0."""
+    q, k, v = _fwd_inputs((1, 640, 640, 4, 2), 128, 12, cuda)
+    _assert_fwd_matches_plain(q, k, v,
+                              tfa.MaskSpec("sliding_window", window=window))
+
+
+@pytest.mark.gpu
+def test_flash_kernel_heaviest_first_changes_nothing(cuda):
+    """The grid runs the last q tile first. Rows 0..127 see only keys
+    0..127 under causal masking, so the first q tile of a 17-tile launch
+    must equal, bit for bit, a 1-tile launch on the same rows; the whole
+    17-tile output stays within the bounds of the plain version."""
+    q, k, v = _fwd_inputs((1, 17 * 128, 17 * 128, 4, 2), 128, 13, cuda)
+    causal = tfa.MaskSpec("causal")
+    out, lse = _assert_fwd_matches_plain(q, k, v, causal)
+    head = [x[:, :128].contiguous() for x in (q, k, v)]
+    out1, lse1 = _assert_fwd_matches_plain(*head, causal)
+    assert torch.equal(out[:, :128], out1)
+    assert torch.equal(lse[:, :128], lse1)
+
+
 def _rel_l2(got, want):
     return ((got.float() - want).norm() / want.norm().clamp_min(1e-30)).item()
 
