@@ -4,8 +4,9 @@
 
 Phases (any failure exits non-zero; nothing is printed as a result then):
   1. device: require CUDA, print the card, build every kernel from source
-     (one nvcc per source, all started together); the forward kernels'
-     ptxas reports must show no spill stores;
+     (one nvcc per source, all started together); the ptxas reports of the
+     wgmma kernels (both attention forwards, the dq and dk/dv backward) must
+     show no spill stores;
   2. kernels: the forward kernel against its plain PyTorch version on the
      card, at the serving shapes, with its time, the plain version's, one
      library call's (a yardstick the port never calls) and its bound;
@@ -17,6 +18,10 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
      counted, then against its plain version (bit for bit at fp32 output,
      equal at bf16) there and at the JAX test's ragged shapes, with its
      time, the plain version's, torch._int_mm's and its bound;
+  2e. the CUDA-core flash kernels (forward, dq, dk/dv for the inputs the
+     wgmma kernels do not take) against the plain versions at the attention
+     shapes of phase 6's configs and at llama_1b's widths in fp32 at seq
+     1024, with their times, the plain versions', SDPA's and their bounds;
   2d. context-parallel ring attention (`rdma_ring_attention`, all ranks on
      this card): the forward, dq and dk/dv kernels (one launch per rank)
      against their plain versions at small shapes (rings of 2, 4 and 8,
@@ -43,7 +48,12 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
      data-wait share and a profiler breakdown of one step; then one step
      through the kernels against one through the plain attention (and the
      bf16 naive_attention path) on the same weights and batch, and the loss
-     falling over a few steps on one repeated batch.
+     falling over a few steps on one repeated batch;
+  6. attention_impl="auto" on configs the wgmma kernels do not take
+     (llama_tiny: bf16, head_dim 16; llama_1b's widths in fp32, 2 layers):
+     a prefill and a training step run through the CUDA-core kernels, with
+     no wgmma launch, and agree with attention_impl="naive" (the GPU tests'
+     own check, `c1_compare` of tests/test_torch_gpu_kernels.py).
 Then one JSON line of kernel numbers, the card's name and power limit, and
 the final {"ok": true, "device": ...} line.
 
@@ -53,6 +63,7 @@ Weights are random, made from a seed. Imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import io
 import json
@@ -87,8 +98,10 @@ from kubeflow_tpu_torch.train import step as train_step  # noqa: E402
 from kubeflow_tpu_torch.train import trainer as trainer_mod  # noqa: E402
 from kubeflow_tpu_torch.utils import registry  # noqa: E402
 
-# H100 SXM published dense peaks (NVIDIA data sheet, at 700 W).
+# H100 SXM published dense peaks (NVIDIA data sheet, at 700 W); fp32 is the
+# CUDA cores' rate, where the CUDA-core kernels compute.
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 # Kernel vs plain bounds. out: the kernel rounds P to bf16 for P.V and its
@@ -188,10 +201,17 @@ RING_NS, RING_BS, RING_SS = (2, 4, 8), (1, 2), (512, 800, 2048)
 RING_HEADS, RING_DS = ((8, 2), (4, 4), (32, 8)), (64, 128)
 RING_FULL = (4, 1, 32768, 32, 8, 128)  # n, B, S, H, KH, D
 RING_REPS, RING_PLAIN_KV_HEADS = 3, 2
-FWD_DESIGN = "wgmma+tma"
-# The kernels whose ptxas report must show no spill stores (the forward's
-# consumers hold S, O and P in registers; a spill there is lost overlap).
-NO_SPILL_KERNELS = ("flash_fwd_kernel", "rdma_fwd_kernel")
+KERNEL_DESIGN = "wgmma+tma"
+# The kernels whose ptxas report must show no spill stores (their consumer
+# warpgroups hold the wgmma accumulators in registers: the forward's S, O
+# and P, dq's S, dP and dQ, dk/dv's dK and dV; a spill there is lost
+# overlap).
+NO_SPILL_KERNELS = ("flash_fwd_kernel", "rdma_fwd_kernel",
+                    "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+# Phase 2e: besides phase 6's attention shapes, llama_1b's widths in fp32
+# at batch 2, seq 1024, where launch overhead does not hide the kernels.
+SIMT_EXTRA_CASE = (2, 1024, 1024, 16, 8, 128, fa.MaskSpec("causal"), False,
+                   torch.float32)
 
 
 def log(*a):
@@ -278,8 +298,9 @@ def _sdpa_kwargs(mask, seg, s, t, vis) -> dict:
     return {"attn_mask": vis[:, None]}
 
 
-def _bound(flops: float, nbytes: float) -> tuple[float, str]:
-    ops_s, mem_s = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def _bound(flops: float, nbytes: float,
+           peak: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
+    ops_s, mem_s = flops / peak, nbytes / PEAK_BYTES
     return max(ops_s, mem_s) * 1e3, ("operations" if ops_s >= mem_s
                                      else "bytes")
 
@@ -426,6 +447,118 @@ def phase_backward() -> dict:
                      "dq_bound_ms": dq_bound, "dq_bound_by": dq_by,
                      "dkv_bound_ms": dkv_bound, "dkv_bound_by": dkv_by})
     return {"rows": rows, "main": rows[-1], "worst": worst}
+
+
+def _gpu_tests():
+    """tests/test_torch_gpu_kernels.py as a module: phases 2e and 6 use its
+    C1 configs, bounds and check, so the chip run and the GPU tests hold
+    one copy of them."""
+    import importlib.util
+
+    path = os.path.join(ROOT, "tests", "test_torch_gpu_kernels.py")
+    spec = importlib.util.spec_from_file_location("gpu_kernel_tests", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _simt_cases(gk) -> list:
+    """(B, S, T, H, KH, D, mask, segments, dtype): the attention of each of
+    phase 6's configs at its batch, then SIMT_EXTRA_CASE."""
+    cases = []
+    for name in gk.C1_CONFIGS:
+        cfg = gk.c1_config(name)
+        cases.append((gk.C1_BATCH, gk.C1_SEQ, gk.C1_SEQ, cfg.num_heads,
+                      cfg.num_kv_heads, cfg.head_dim, fa.MaskSpec("causal"),
+                      False, cfg.dtype))
+    return cases + [SIMT_EXTRA_CASE]
+
+
+def phase_simt(gk) -> dict:
+    """The CUDA-core forward, dq and dk/dv (csrc/flash_simt.cu) against the
+    plain versions on the same inputs widened to fp32, held by the GPU
+    tests' bounds (SIMT_TOL: out and lse max abs, gradients' rel-L2), with
+    their times, the plain versions', SDPA's forward and backward, and
+    their bounds (fp32 at the CUDA cores' peak, bf16 at the tensor
+    cores')."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    rows = []
+    for case in _simt_cases(gk):
+        b, s, t, h, kh, d, mask, segs, dtype = case
+        q, k, v, do = (torch.randn(shp, generator=gen, device=dev).to(dtype)
+                       for shp in ((b, s, h, d), (b, t, kh, d),
+                                   (b, t, kh, d), (b, s, h, d)))
+        out, lse = fa._flash_simt_fwd_cuda(q, k, v, mask)
+        delta = fa._bwd_delta(do, out, None)
+        dq = fa._flash_simt_bwd_dq_cuda(q, k, v, do, lse, delta, mask)
+        dk, dv = fa._flash_simt_bwd_dkv_cuda(q, k, v, do, lse, delta, mask)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = fa._flash_fwd_plain(q.float(), k.float(),
+                                               v.float(), mask)
+        refs = fa._flash_bwd_plain(q.float(), k.float(), v.float(), out,
+                                   lse, do.float(), None, mask)
+        out_tol, lse_tol, grad_tol = gk.SIMT_TOL[dtype]
+        err_out = (out.float() - ref_out).abs().max().item()
+        err_lse = (lse - ref_lse).abs().max().item()
+        errs = {n: _grad_errors(g, r)
+                for n, g, r in zip(("dq", "dk", "dv"), (dq, dk, dv), refs)}
+        del refs, ref_out
+        ok = (err_out <= out_tol and err_lse <= lse_tol
+              and bool(torch.isfinite(out.float()).all())
+              and all(e["finite"] and e["rel_l2"] <= grad_tol
+                      for e in errs.values()))
+        vis = _visible(b, s, t, mask, None, dev)
+        pairs = int(vis.sum().item()) * h
+        es = q.element_size()
+        peak = PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+        reads = es * (q.numel() + k.numel() + v.numel())
+        fwd_bound = _bound(4 * d * pairs, reads + es * out.numel()
+                           + 4 * lse.numel(), peak)
+        bwd_reads = reads + es * do.numel() + 8 * lse.numel()
+        dq_bound = _bound(6 * d * pairs, bwd_reads + es * q.numel(), peak)
+        dkv_bound = _bound(8 * d * pairs,
+                           bwd_reads + es * (k.numel() + v.numel()), peak)
+        fwd_ms = time_ms(lambda: fa._flash_simt_fwd_cuda(q, k, v, mask))
+        dq_ms = time_ms(lambda: fa._flash_simt_bwd_dq_cuda(
+            q, k, v, do, lse, delta, mask))
+        dkv_ms = time_ms(lambda: fa._flash_simt_bwd_dkv_cuda(
+            q, k, v, do, lse, delta, mask))
+        plain_fwd_ms = time_ms(lambda: fa._flash_fwd_plain(q, k, v, mask),
+                               reps=5)
+        plain_bwd_ms = time_ms(lambda: fa._flash_bwd_plain(
+            q, k, v, out, lse, do, None, mask), reps=3)
+        sdpa_kw = _sdpa_kwargs(mask, None, s, t, vis)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        library_fwd_ms = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, enable_gqa=True, **sdpa_kw))
+        library_bwd_ms = _sdpa_backward_ms(q, k, v, do, sdpa_kw)
+        name = _case_name(*case[:8]) + f" {str(dtype)[6:]}"
+        log(f"  {name:52s} err_out {err_out:.3e} err_lse {err_lse:.3e} "
+            + " ".join(f"{n} rel_l2 {e['rel_l2']:.3e};"
+                       for n, e in errs.items())
+            + f" {'OK' if ok else 'FAIL'}")
+        log(f"    fwd_ms {fwd_ms:.4f} (bound {fwd_bound[0]:.4f}, "
+            f"{fwd_bound[1]}; plain {plain_fwd_ms:.4f}; SDPA "
+            f"{library_fwd_ms:.4f}) dq_ms {dq_ms:.4f} (bound "
+            f"{dq_bound[0]:.4f}, {dq_bound[1]}) dkv_ms {dkv_ms:.4f} (bound "
+            f"{dkv_bound[0]:.4f}, {dkv_bound[1]}) plain_bwd_ms "
+            f"{plain_bwd_ms:.4f} library_bwd_ms {library_bwd_ms:.4f}")
+        if not ok:
+            raise RuntimeError(f"the CUDA-core kernels disagree with the "
+                               f"plain versions at {name}")
+        rows.append({"shape": name, "err_out": err_out, "err_lse": err_lse,
+                     "errs": errs, "fwd_ms": fwd_ms, "dq_ms": dq_ms,
+                     "dkv_ms": dkv_ms, "plain_fwd_ms": plain_fwd_ms,
+                     "plain_bwd_ms": plain_bwd_ms,
+                     "library_fwd_ms": library_fwd_ms,
+                     "library_bwd_ms": library_bwd_ms,
+                     "fwd_bound": fwd_bound, "dq_bound": dq_bound,
+                     "dkv_bound": dkv_bound})
+        del q, k, v, do, out, lse, delta, dq, dk, dv
+    torch.cuda.empty_cache()
+    return {"rows": rows, "main": rows[len(gk.C1_CONFIGS) - 1]}
 
 
 def _qmm_inputs(m, k, n, gen, dev):
@@ -1139,6 +1272,9 @@ def _reset_counts() -> None:
     fa.flash_fwd_launches = 0
     fa.flash_bwd_dq_launches = 0
     fa.flash_bwd_dkv_launches = 0
+    fa.flash_simt_fwd_launches = 0
+    fa.flash_simt_bwd_dq_launches = 0
+    fa.flash_simt_bwd_dkv_launches = 0
 
 
 class _StepTap(io.TextIOBase):
@@ -1492,7 +1628,35 @@ def phase_training() -> dict:
     return result
 
 
-def _forward_spills(logs: dict) -> dict:
+def phase_auto(gk) -> tuple:
+    """attention_impl="auto" on the configs the wgmma kernels do not take,
+    through the GPU tests' check (c1_compare: a prefill and a training step
+    under "auto" and under "naive" on the same weights and batch). Fails if
+    a config raises, drifts from "naive" beyond C1_TOL, launches a wgmma
+    kernel or leaves a CUDA-core kernel unlaunched. Returns the CUDA-core
+    launches (fwd, dq, dk/dv) of the whole phase."""
+    _reset_counts()
+    for name in gk.C1_CONFIGS:
+        res = gk.c1_compare(name, DEVICE)
+        log(f"  {name} ({res['dtype']}, head_dim {res['head_dim']}): auto "
+            f"launched (wgmma fwd, dq, dkv, simt fwd, dq, dkv) = "
+            f"{res['launches']}; logits rel_l2 vs naive "
+            f"{res['logits_rel_l2']:.3e}; loss auto {res['loss']:.6f} naive "
+            f"{res['loss_naive']:.6f}; grad norm auto {res['grad_norm']:.6f} "
+            f"naive {res['grad_norm_naive']:.6f} "
+            f"{'OK' if res['ok'] else 'FAIL'}")
+        if (not res["ok"] or res["launches"][:3] != (0, 0, 0)
+                or min(res["launches"][3:]) == 0):
+            raise RuntimeError(f"attention_impl='auto' on {name} did not run "
+                               f"through the CUDA-core kernels as 'naive'")
+    launches = (fa.flash_simt_fwd_launches, fa.flash_simt_bwd_dq_launches,
+                fa.flash_simt_bwd_dkv_launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _kernel_spills(logs: dict) -> dict:
     """{kernel function: spill-store bytes} of NO_SPILL_KERNELS, from the
     ptxas reports ("Function properties for F" then "... N bytes spill
     stores ...")."""
@@ -1508,7 +1672,7 @@ def _forward_spills(logs: dict) -> dict:
                                      .rsplit(",", 1)[-1].strip())
                 current = None
     if len(found) < 2 * len(NO_SPILL_KERNELS):  # D 64 and 128 each
-        raise RuntimeError(f"no ptxas report for every forward kernel: "
+        raise RuntimeError(f"no ptxas report for every wgmma kernel: "
                            f"{sorted(found)}")
     return found
 
@@ -1526,15 +1690,18 @@ def main() -> int:
             if ("registers" in line or "spill" in line
                     or "Performance Loss" in line):
                 log(f"  {src}: {line.strip()}")
-    spills = _forward_spills(_build.build_logs)
-    log(f"  spill stores of the forward kernels: {spills}")
+    spills = _kernel_spills(_build.build_logs)
+    log(f"  spill stores of the wgmma kernels: {spills}")
     if any(spills.values()):
-        raise RuntimeError(f"a forward kernel spills: {spills}")
+        raise RuntimeError(f"a wgmma kernel spills: {spills}")
     t0 = time.monotonic()
     log("phase 2: kernels vs plain versions")
     kern = phase_kernels()
     log("phase 2b: backward kernels vs the plain backward")
     bwd = phase_backward()
+    gk = _gpu_tests()
+    log("phase 2e: the CUDA-core flash kernels vs the plain versions")
+    simt = phase_simt(gk)
     log("phase 2c: the W8A8 int8 matmul vs its plain version")
     q8 = phase_qmm()
     log("phase 2d: ring attention kernels vs plain (all ranks on this "
@@ -1558,8 +1725,12 @@ def main() -> int:
         shutil.rmtree(bundle, ignore_errors=True)
     log(f"phase 5: training {TRAIN_MODEL} through the trainer")
     train = phase_training()
-    log(f"  phases 2-5 took {time.monotonic() - t0:.1f}s")
+    log("phase 6: attention_impl='auto' where the wgmma kernels do not "
+        "take the config")
+    simt_launches = phase_auto(gk)
+    log(f"  phases 2-6 took {time.monotonic() - t0:.1f}s")
     main_row, bmain, qmain = kern["main"], bwd["main"], q8["main"]
+    smain = simt["main"]
     fwd_launches = {"serving": flat["launches"],
                     "paged_quant_serving": quant["launches"],
                     "training": train["launches"][0]}
@@ -1567,7 +1738,8 @@ def main() -> int:
                   "source": "kubeflow_tpu_torch/ops/csrc/flash_bwd.cu",
                   "plain_ms": bmain["plain_ms"],
                   "library_ms": bmain["library_ms"],
-                  "shape": bmain["shape"]}
+                  "delta_ms": bmain["delta_ms"],
+                  "shape": bmain["shape"], "design": KERNEL_DESIGN}
     log(json.dumps({"kernels": [{
         "name": "flash_fwd", "route": "cuda",
         "source": "kubeflow_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -1581,7 +1753,7 @@ def main() -> int:
         "library_ms": main_row["library_ms"], "shape": main_row["shape"],
         "ms_training_shape": bmain["fwd_ms"],
         "library_ms_training_shape": bmain["fwd_library_ms"],
-        "design": FWD_DESIGN,
+        "design": KERNEL_DESIGN,
     }, {
         "name": "flash_bwd_dq",
         "replaces": "kubeflow_tpu/ops/flash_attention.py:234",
@@ -1598,7 +1770,33 @@ def main() -> int:
         "rel_l2_err": max(bwd["worst"][n]["rel_l2"] for n in ("dk", "dv")),
         "ms": bmain["dkv_ms"], "bound_ms": bmain["dkv_bound_ms"],
         "bound_by": bmain["dkv_bound_by"], **bwd_common,
-    }, {
+    }, *({
+        "name": name, "route": "cuda",
+        "source": "kubeflow_tpu_torch/ops/csrc/flash_simt.cu",
+        "replaces": f"kubeflow_tpu/ops/flash_attention.py:{line}",
+        "launches": n, "max_abs_err": err, "rel_l2_err": rel,
+        "ms": smain[f"{key}_ms"], "plain_ms": smain[plain],
+        "bound_ms": smain[f"{key}_bound"][0],
+        "bound_by": smain[f"{key}_bound"][1],
+        "library_ms": smain[library], "shape": smain["shape"],
+        "design": "cuda cores, fp32",
+        "by_shape": [{"shape": r["shape"], "ms": r[f"{key}_ms"],
+                      "bound_ms": r[f"{key}_bound"][0]}
+                     for r in simt["rows"]],
+    } for name, line, n, key, plain, library, err, rel in (
+        ("flash_simt_fwd", 135, simt_launches[0], "fwd", "plain_fwd_ms",
+         "library_fwd_ms", max(r["err_out"] for r in simt["rows"]), None),
+        ("flash_simt_bwd_dq", 234, simt_launches[1], "dq", "plain_bwd_ms",
+         "library_bwd_ms",
+         max(r["errs"]["dq"]["max_abs"] for r in simt["rows"]),
+         max(r["errs"]["dq"]["rel_l2"] for r in simt["rows"])),
+        ("flash_simt_bwd_dkv", 285, simt_launches[2], "dkv", "plain_bwd_ms",
+         "library_bwd_ms",
+         max(r["errs"][n]["max_abs"] for r in simt["rows"]
+             for n in ("dk", "dv")),
+         max(r["errs"][n]["rel_l2"] for r in simt["rows"]
+             for n in ("dk", "dv"))),
+    )), {
         "name": "int8_matmul", "route": "cuda",
         "source": "kubeflow_tpu_torch/ops/csrc/qmm.cu",
         "replaces": "kubeflow_tpu/ops/quant_matmul.py:29",
@@ -1616,7 +1814,7 @@ def main() -> int:
         ("rdma_fwd", 50, {"max_abs_err": ring["worst"]["out"],
                           "rel_l2_err": ring["worst"]["out_rel_l2"],
                           "max_abs_err_lse": ring["worst"]["lse"],
-                          "design": FWD_DESIGN}),
+                          "design": KERNEL_DESIGN}),
         ("rdma_bwd_dq", 197, {"max_abs_err": ring["worst"]["dq_abs"],
                               "rel_l2_err": ring["worst"]["dq"]}),
         ("rdma_bwd_dkv", 268, {

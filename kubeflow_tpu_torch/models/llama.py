@@ -36,7 +36,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from kubeflow_tpu_torch.ops.flash_attention import MaskSpec, flash_attention
+from kubeflow_tpu_torch.ops.flash_attention import (MaskSpec,
+                                                    cuda_flash_takes,
+                                                    flash_attention)
 from kubeflow_tpu_torch.ops.reference import naive_attention
 from kubeflow_tpu_torch.serve.quant import (KV_QUANT_MODES, Int8Dense,
                                             kv_qdtype, kv_quantize_rows,
@@ -94,7 +96,10 @@ class LlamaConfig:
     lora_alpha: float = 16.0
     lora_targets: str = "attn"
     quantized_dense: bool = False
-    # auto | naive | flash (auto = flash on CUDA for standard positions)
+    # auto | naive | flash (auto = flash on CUDA for standard positions or
+    # segment ids, as the JAX auto on the TPU: the wgmma kernels for bf16 at
+    # head_dim 64 or 128, the CUDA-core kernels for fp32/bf16/fp16 up to
+    # 256; naive on the CPU)
     attention_impl: str = "auto"
     # Kept for signature parity with the JAX config; the CUDA kernel's
     # tiles are fixed by its design (ops/flash_attention.py).
@@ -365,8 +370,14 @@ class Attention(nn.Module):
             # attention over just k/v is exact — the fused path serves it.
         impl = cfg.attention_impl
         if impl == "auto":
-            impl = ("flash" if ((standard_positions or segment_ids is not None)
-                                and x.is_cuda) else "naive")
+            flashable = standard_positions or segment_ids is not None
+            takes = cuda_flash_takes(q.dtype, dh, q.device)
+            if flashable and q.is_cuda and not takes:
+                raise ValueError(
+                    f"attention_impl='auto' on CUDA: no flash kernel takes "
+                    f"{q.dtype} at head_dim {dh} (the CUDA-core kernels stop "
+                    f"at 256); set attention_impl='naive'")
+            impl = "flash" if flashable and takes else "naive"
         if impl == "flash" and not standard_positions and segment_ids is None:
             raise ValueError(
                 "attention_impl='flash' masks causality by index; custom "

@@ -45,6 +45,12 @@ SIGNATURES = {
         # q, k, v, do, lse, delta, seg, dk, dv
         "tpk_flash_bwd_dkv": [_P] * 9 + _MASK_ARGS,
     },
+    "flash_simt.cu": {
+        # dtype (0 fp32, 1 bf16, 2 fp16), then as the wgmma entry points
+        "tpk_flash_simt_fwd": [_I] + [_P] * 6 + _MASK_ARGS,
+        "tpk_flash_simt_bwd_dq": [_I] + [_P] * 8 + _MASK_ARGS,
+        "tpk_flash_simt_bwd_dkv": [_I] + [_P] * 9 + _MASK_ARGS,
+    },
     "qmm.cu": {
         # qx, sx, qw, sw, out, M, K, N, out_bf16, stream
         "tpk_qmm": [_P] * 5 + [_I] * 4 + [_P],

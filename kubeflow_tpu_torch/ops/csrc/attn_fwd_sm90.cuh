@@ -1,6 +1,8 @@
 // The attention forward for Hopper (sm_90a): one warp-specialised mainloop
 // on wgmma, TMA and mbarriers, shared by flash_fwd.cu and the forward of
-// rdma_ring.cu, which differ only in the kv tiles they walk.
+// rdma_ring.cu, which differ only in the kv tiles they walk. Its primitives
+// (the PTX wrappers, the TMA maps, the launch) also build the backward's
+// mainloops in attn_bwd_sm90.cuh.
 //
 // Replaces the tile math of two TPU kernels: kubeflow_tpu/ops/
 // flash_attention.py::_flash_fwd_kernel and kubeflow_tpu/ops/
@@ -733,15 +735,14 @@ inline bool encode_bshd(CUtensorMap* map, const void* ptr, int B, int rows, int 
 
 constexpr int kMaxDevices = 64;  // devices whose set-up a launch caches
 
-// Launches the kernel with one CTA of 384 threads per SM (fewer if there are
-// fewer q tiles than SMs); returns the launch's error. The first launch on a
-// device reads its SM count and raises the kernel's dynamic shared-memory
-// limit there; later ones reuse both, so a launch costs the host one
-// cudaGetDevice besides the launch itself. Each instantiation serves one
-// kernel: the two walks' Params types differ, and D is a parameter.
-template <int D, typename Kernel, typename Params>
-int launch(Kernel kernel, const Params& p, int q_tiles, cudaStream_t stream) {
-  constexpr int smem = Smem<D>::kBytes;
+// Launches kKernel with kSmem bytes of dynamic shared memory and one CTA of
+// 384 threads per SM (fewer if there are fewer jobs); returns the launch's
+// error. The first launch on a device reads its SM count and raises the
+// kernel's dynamic shared-memory limit there; later ones reuse both, so a
+// launch costs the host one cudaGetDevice besides the launch itself. Each
+// kernel is its own instantiation, so each keeps its own record.
+template <auto kKernel, int kSmem, typename Params>
+int launch(const Params& p, int jobs, cudaStream_t stream) {
   static std::atomic<int> sms_ready[kMaxDevices];  // 0 until set up
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -750,11 +751,11 @@ int launch(Kernel kernel, const Params& p, int q_tiles, cudaStream_t stream) {
   if (sms == 0) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      err = cudaFuncSetAttribute(kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (dev < kMaxDevices) sms_ready[dev].store(sms, std::memory_order_release);
   }
-  kernel<<<q_tiles < sms ? q_tiles : sms, kThreads, smem, stream>>>(p);
+  kKernel<<<jobs < sms ? jobs : sms, kThreads, kSmem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,7 +1,7 @@
-// Tile math shared by the attention backward kernels (flash_bwd.cu and the
-// backward of rdma_ring.cu): bf16 tensor-core products with mma.sync
-// m16n8k16, fp32 accumulation, P and dS rounded to bf16 for their products.
-// (The forward kernels run attn_fwd_sm90.cuh.)
+// Tile math of the ring attention backward kernels (rdma_ring.cu): bf16
+// tensor-core products with mma.sync m16n8k16, fp32 accumulation, P and dS
+// rounded to bf16 for their products. (The forward kernels run
+// attn_fwd_sm90.cuh, the flash backward attn_bwd_sm90.cuh.)
 //
 // Each kernel runs 4 warps; a warp owns 16 rows of its CTA's 64-row tile.
 // The per-tile functions below take a `visible(r, c)` predicate: r indexes

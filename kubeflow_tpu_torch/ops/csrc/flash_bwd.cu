@@ -3,308 +3,252 @@
 //
 // Replaces the TPU kernels of kubeflow_tpu/ops/flash_attention.py, launched
 // by _flash_bwd_impl:
-//   * tpk_flash_bwd_dq  <- _flash_bwd_dq_kernel: one CTA per (b, h, 64-row
-//     q tile) walks the kv tiles _q_visible says it can see, recomputes
-//     S = Q K^T and dP = dO V^T, forms dS = P * (dP - delta) with
-//     P = exp(S * scale - lse), and accumulates dq = dS K in fp32
-//     registers; sm_scale is applied once at the end.
-//   * tpk_flash_bwd_dkv <- _flash_bwd_dkv_kernel: one CTA per (b, kv head,
-//     64-row kv tile) loops over the GQA group's q heads and the q tiles
-//     _kv_visible says see it, and accumulates dk = dS^T (Q * scale) and
-//     dv = P^T dO in fp32 registers. Each CTA owns its dk/dv rows outright:
-//     no atomics, no second reduction pass, as in the JAX kernel.
+//   * tpk_flash_bwd_dq  <- _flash_bwd_dq_kernel: each 128-row q tile walks
+//     the kv tiles _q_visible says it can see, recomputes S = Q K^T and
+//     dP = dO V^T, forms dS = P * (dP - delta) with P = exp(S * scale -
+//     lse), and accumulates dq = dS K in fp32; sm_scale is applied once at
+//     the end.
+//   * tpk_flash_bwd_dkv <- _flash_bwd_dkv_kernel: each 128-row kv tile
+//     loops over the GQA group's q heads and the q tiles _kv_visible says
+//     see it, and accumulates dk = dS^T (Q * scale) and dv = P^T dO in fp32.
+//     Each CTA owns its dk/dv rows outright: no atomics, no second reduction
+//     pass, as in the JAX kernel.
 // delta = rowsum(dO * O) - g_lse is plain tensor arithmetic outside the
 // kernels, as it is in JAX (flash_attention.py computes it in PyTorch).
+//
+// What bounds them on this card: per visible (q, k) pair dq does three
+// products (6*D flops) and dk/dv four (8*D) against a few bytes per row:
+// far above the H100's ~295 flop/byte ridge, so tensor-core throughput
+// bounds both. What the design does about that is attn_bwd_sm90.cuh's
+// mainloops (a persistent, warp-specialised CTA per SM: wgmma fed by TMA
+// through an mbarrier ring, the products' operands in 128-byte swizzled
+// shared memory); this file gives them their walks: the visible tiles under
+// the mask kind, which of them cross a mask edge, S or T, each row's
+// interval of visible columns there, and the segment ids.
 //
 // Layout (the JAX package's, so no transposes or pads on the host):
 //   q, do, dq [B, S, H, D]; k, v, dk, dv [B, T, KH, D] (bf16, contiguous)
 //   lse, delta [B, S, H] fp32; seg [B, S] int32 or null (self-attention)
-// Both kernels mask cols < T and rows < S themselves and zero-fill tiles
-// past the edge, so no padded copies exist; rows past the edge are never
-// written.
-//
-// What bounds them on this card: per visible (q, k) pair dq does three
-// products (S, dP, dS K: 6*D flops) and dk/dv four (S, dP, P^T dO, dS^T Q:
-// 8*D flops) against 2*D bytes of K/V per kv row (dq) or 4*D bytes of Q/dO
-// per q row (dk/dv): far above the H100's ~295 flop/byte ridge at training
-// shapes, so tensor-core throughput bounds both. The design does the simple
-// thing about that: every product runs on tensor cores (mma.sync
-// m16n8k16, bf16 in, fp32 accumulate) and only visible tiles are walked. It
-// does not yet use wgmma, TMA, a copy pipeline or warp specialisation.
-//
-// The per-tile math (dq_tile, dkv_tile) is shared with rdma_ring.cu in
-// attn_tiles.cuh. Registers are the constraint that shaped it. dk/dv keeps a warp's 16 kv
-// rows of dk AND dv in fp32 registers (2 * 16 * D / 32 = 128 per thread at
-// D = 128), so everything else is kept small: the products are formulated
-// transposed (S^T = K Q^T, dP^T = V dO^T, dv += P^T dO, dk += dS^T Q, rows
-// = kv rows, FlashAttention-2's layout), K and V stay in shared memory and
-// are read as A fragments per k-slice instead of being held in registers,
-// and the q walk takes 32-row tiles. dq holds its Q and dO fragments in
-// registers for the whole walk and takes each 64-row kv tile in two 32-
-// column halves to bound the live score fragments. B operands that need a
-// transpose (K in dS K, dO and Q in the dk/dv products) come from
-// ldmatrix.trans; P and dS are re-packed from the accumulator layout as
-// bf16 A fragments. Masked and padded entries get p = 0 exactly (a select,
-// never a product with exp of garbage), so no inf or stale lse reaches a
-// product.
+// Rows past S (dq) and T (dk, dv) are never written.
 
-#include "attn_tiles.cuh"
+#include "attn_bwd_sm90.cuh"
 
 namespace {
 
-using namespace tiles;
+using bwd90::kBM;
+using bwd90::kBN;
+using fwd90::bf16;
 
 enum MaskKind { kCausal = 0, kFull = 1, kPrefixLM = 2, kSlidingWindow = 3 };
 
-__device__ __forceinline__ bool visible(int row, int col, int kind, int window,
-                                        int prefix) {
-  if (kind == kCausal) return row >= col;
-  if (kind == kPrefixLM) return row >= col || col < prefix;
-  if (kind == kSlidingWindow) return row >= col && row - col < window;
-  return true;
-}
+struct Params {
+  CUtensorMap q, dout, k, v;  // dq: q, dout 128-row boxes, k, v 64; dk/dv the reverse
+  const float* lse;
+  const float* delta;
+  const int* seg;
+  bf16* dq;
+  bf16* dk;
+  bf16* dv;
+  int B, S, T, H, KH, kind, window, prefix;
+  float scale, scale_log2;
+};
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta,
-                    const int* __restrict__ seg, bf16* __restrict__ dq, int S,
-                    int T, int H, int KH, int kind, int window, int prefix,
-                    float sm_scale) {
-  constexpr int kLds = D + 8;  // padded smem row: conflict-free reads
-  __shared__ __align__(16) bf16 ks[kBKV * kLds];
-  __shared__ __align__(16) bf16 vs[kBKV * kLds];
-  __shared__ int kseg[kBKV];
+// The 64-row kv tiles [first, bound) of one 128-row q tile, as _q_visible
+// computes them at these tiles, and the mask (the forward's FlashWalk at
+// the backward's tiles).
+struct QWalk {
+  const Params& p;
+  const int* seg;  // batch row b of the segment ids, or null
+  int first, bound;
 
-  const int qi = blockIdx.x;
-  const int b = blockIdx.y / H;
-  const int h = blockIdx.y % H;
-  const int kh = h / (H / KH);
-  const int warp = threadIdx.x >> 5;
-  const int g = (threadIdx.x & 31) >> 2;
-  int rows[2];
-  rows[0] = qi * kBQ + warp * 16 + g;
-  rows[1] = rows[0] + 8;
-
-  // Q and dO fragments, read once from global and held for the whole walk.
-  const long q_stride = static_cast<long>(H) * D;
-  const long q_off = static_cast<long>(b) * S * q_stride + static_cast<long>(h) * D;
-  uint32_t qf[D / 16][4], df[D / 16][4];
-  load_row_frags<D>(qf, q + q_off, q_stride, rows, S);
-  load_row_frags<D>(df, dout + q_off, q_stride, rows, S);
-  float row_lse[2] = {0.f, 0.f}, row_delta[2] = {0.f, 0.f};
-  int qseg[2] = {-1, -1};
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (rows[r] < S) {
-      const long idx = (static_cast<long>(b) * S + rows[r]) * H + h;
-      row_lse[r] = lse[idx];
-      row_delta[r] = delta[idx];
-      if (seg != nullptr) qseg[r] = seg[static_cast<long>(b) * S + rows[r]];
+  __device__ int size() const { return bound > first ? bound - first : 0; }
+  __device__ fwd90::Tile tile(int it) const { return {&p.k, &p.v, (first + it) * kBN, false}; }
+  __device__ bool keyed() const { return seg != nullptr; }
+  __device__ int row_key(int row) const {
+    return seg != nullptr && row < p.S ? seg[row] : -1;
+  }
+  __device__ int col_key(const fwd90::Tile&, int col) const { return col < p.T ? seg[col] : -2; }
+  __device__ bool masked(const fwd90::Tile& t, int row_lo, int row_hi) const {
+    const int c_lo = t.kv0, c_hi = t.kv0 + kBN - 1;
+    if (seg != nullptr || c_hi >= p.T) return true;
+    switch (p.kind) {
+      case kCausal: return c_hi > row_lo;
+      case kPrefixLM: return c_hi > row_lo && c_hi >= p.prefix;
+      case kSlidingWindow: return c_hi > row_lo || row_hi - c_lo >= p.window;
+      default: return false;
     }
   }
-
-  // Visible kv tiles, as _q_visible computes them, at this kernel's tiles.
-  const int num_kv = (T + kBKV - 1) / kBKV;
-  int first = 0, bound = num_kv;
-  if (kind != kFull) {
-    const int last = (qi + 1) * kBQ - 1;
-    const int causal_bound = min(last / kBKV + 1, num_kv);
-    bound = causal_bound;
-    if (kind == kPrefixLM) {
-      const int prefix_bound =
-          (qi * kBQ < prefix) ? min((prefix + kBKV - 1) / kBKV, num_kv) : 0;
-      bound = max(causal_bound, prefix_bound);
-    } else if (kind == kSlidingWindow) {
-      first = max((qi * kBQ - window + 1) / kBKV, 0);
+  // The columns a row sees: below T, and causal, prefix-LM or a window.
+  __device__ void range(const fwd90::Tile&, int row, int& lo, int& hi) const {
+    lo = 0;
+    hi = p.T - 1;
+    if (p.kind == kCausal) {
+      hi = min(hi, row);
+    } else if (p.kind == kPrefixLM) {
+      hi = min(hi, max(row, p.prefix - 1));
+    } else if (p.kind == kSlidingWindow) {
+      hi = min(hi, row);
+      lo = row - p.window + 1;
     }
   }
+};
 
-  float acc[D / 8][4];
-  zero<D>(acc);
+struct MakeQWalk {
+  const Params& p;
 
-  const long kv_stride = static_cast<long>(KH) * D;
-  const long kv_off = static_cast<long>(b) * T * kv_stride + static_cast<long>(kh) * D;
-  for (int j = first; j < bound; ++j) {
-    const int kv0 = j * kBKV;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<D, kBKV>(ks, k + kv_off, kv_stride, kv0, T);
-    load_tile<D, kBKV>(vs, v + kv_off, kv_stride, kv0, T);
-    if (seg != nullptr && threadIdx.x < kBKV) {
-      const int c = kv0 + threadIdx.x;
-      kseg[threadIdx.x] = c < T ? seg[static_cast<long>(b) * T + c] : -1;
-    }
-    __syncthreads();
-    dq_tile<D>(qf, df, ks, vs, acc, row_lse, row_delta, sm_scale, [&](int r, int cl) {
-      const int row = rows[r];
-      const int col = kv0 + cl;
-      bool ok = row < S && col < T && visible(row, col, kind, window, prefix);
-      if (seg != nullptr) ok = ok && qseg[r] == kseg[cl];
-      return ok;
-    });
-  }
-
-  store_rows<D>(acc, dq + q_off, q_stride, rows, S, sm_scale);
-}
-
-template <int D>
-constexpr int dkv_smem_bytes() {
-  return (2 * kBKV + 2 * kBQT) * (D + 8) * 2 + 3 * kBQT * 4;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta,
-                     const int* __restrict__ seg, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, int S, int T, int H, int KH,
-                     int kind, int window, int prefix, float sm_scale) {
-  constexpr int kLds = D + 8;
-  // K, V tiles (resident), Q, dO tiles (per step), lse, delta, q segments.
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* ks = reinterpret_cast<bf16*>(smem);
-  bf16* vs = ks + kBKV * kLds;
-  bf16* qs = vs + kBKV * kLds;
-  bf16* dos = qs + kBQT * kLds;
-  float* lse_s = reinterpret_cast<float*>(dos + kBQT * kLds);
-  float* delta_s = lse_s + kBQT;
-  int* qseg_s = reinterpret_cast<int*>(delta_s + kBQT);
-
-  const int j = blockIdx.x;
-  const int b = blockIdx.y / KH;
-  const int kh = blockIdx.y % KH;
-  const int group = H / KH;
-  const int warp = threadIdx.x >> 5;
-  const int g = (threadIdx.x & 31) >> 2;
-  const int kv0 = j * kBKV;
-  int cols[2];  // the kv rows of this thread's accumulator rows
-  cols[0] = kv0 + warp * 16 + g;
-  cols[1] = cols[0] + 8;
-
-  const long kv_stride = static_cast<long>(KH) * D;
-  const long kv_off = static_cast<long>(b) * T * kv_stride + static_cast<long>(kh) * D;
-  load_tile<D, kBKV>(ks, k + kv_off, kv_stride, kv0, T);
-  load_tile<D, kBKV>(vs, v + kv_off, kv_stride, kv0, T);
-  int kseg[2] = {-1, -1};
-  if (seg != nullptr) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      if (cols[r] < T) kseg[r] = seg[static_cast<long>(b) * T + cols[r]];
-  }
-
-  // Visible q tiles, as _kv_visible computes them, at this kernel's tiles.
-  const int num_q = (S + kBQT - 1) / kBQT;
-  int first = 0, bound = num_q;
-  if (kind != kFull) {
-    const int causal_first = min(kv0 / kBQT, num_q);
-    first = causal_first;
-    if (kind == kPrefixLM) {
-      first = kv0 < prefix ? 0 : causal_first;
-    } else if (kind == kSlidingWindow) {
-      bound = min((kv0 + kBKV - 1 + window - 1) / kBQT + 1, num_q);
-    }
-  }
-
-  float dka[D / 8][4], dva[D / 8][4];
-  zero<D>(dka);
-  zero<D>(dva);
-
-  const long q_stride = static_cast<long>(H) * D;
-  for (int gq = 0; gq < group; ++gq) {
-    const int h = kh * group + gq;
-    const long q_off = static_cast<long>(b) * S * q_stride + static_cast<long>(h) * D;
-    for (int qt = first; qt < bound; ++qt) {
-      const int q0 = qt * kBQT;
-      __syncthreads();  // the previous tile's readers are done
-      load_tile<D, kBQT>(qs, q + q_off, q_stride, q0, S);
-      load_tile<D, kBQT>(dos, dout + q_off, q_stride, q0, S);
-      if (threadIdx.x < kBQT) {
-        const int row = q0 + threadIdx.x;
-        const bool in = row < S;
-        const long idx = (static_cast<long>(b) * S + row) * H + h;
-        lse_s[threadIdx.x] = in ? lse[idx] : 0.f;
-        delta_s[threadIdx.x] = in ? delta[idx] : 0.f;
-        qseg_s[threadIdx.x] =
-            (in && seg != nullptr) ? seg[static_cast<long>(b) * S + row] : -1;
+  __device__ QWalk operator()(int qi, int b) const {
+    const int num_kv = (p.T + kBN - 1) / kBN;
+    int first = 0, bound = num_kv;
+    if (p.kind != kFull) {
+      const int last = (qi + 1) * kBM - 1;
+      const int causal_bound = min(last / kBN + 1, num_kv);
+      bound = causal_bound;
+      if (p.kind == kPrefixLM) {
+        const int prefix_bound =
+            (qi * kBM < p.prefix) ? min((p.prefix + kBN - 1) / kBN, num_kv) : 0;
+        bound = max(causal_bound, prefix_bound);
+      } else if (p.kind == kSlidingWindow) {
+        // A negative numerator truncates to 0 or below; either way clamps to 0.
+        first = max((qi * kBM - p.window + 1) / kBN, 0);
       }
-      __syncthreads();
-      dkv_tile<D>(ks, vs, qs, dos, lse_s, delta_s, dka, dva, sm_scale, [&](int r, int rl) {
-        const int col = cols[r];
-        const int row = q0 + rl;
-        bool ok = row < S && col < T && visible(row, col, kind, window, prefix);
-        if (seg != nullptr) ok = ok && qseg_s[rl] == kseg[r];
-        return ok;
-      });
+    }
+    return {p, p.seg == nullptr ? nullptr : p.seg + static_cast<long>(b) * p.S, first, bound};
+  }
+};
+
+// The 64-row q tiles that see one 128-row kv tile, as _kv_visible computes
+// them at these tiles, for each q head of the GQA group in turn: step it is
+// q tile first + it % nq of group head it / nq. Each kv row sees one
+// interval of q rows under every mask kind.
+struct KvWalk {
+  const Params& p;
+  const int* seg;  // batch row b of the segment ids, or null
+  int kh, first, nq;
+
+  __device__ int size() const { return nq * (p.H / p.KH); }
+  __device__ bwd90::QStep step(int it) const {
+    return {&p.q, &p.dout, p.lse, p.delta, (first + it % nq) * kBN,
+            kh * (p.H / p.KH) + it / nq};
+  }
+  __device__ bool keyed() const { return seg != nullptr; }
+  __device__ int row_key(int kv) const {
+    return seg != nullptr && kv < p.T ? seg[kv] : -1;
+  }
+  __device__ int col_key(const bwd90::QStep&, int q) const { return q < p.S ? seg[q] : -2; }
+  // Whether some pair of kv rows [kv_lo, kv_hi] x the step's q rows is not
+  // visible.
+  __device__ bool masked(const bwd90::QStep& s, int kv_lo, int kv_hi) const {
+    const int c_lo = s.q0, c_hi = s.q0 + kBN - 1;
+    if (seg != nullptr || c_hi >= p.S) return true;
+    switch (p.kind) {
+      case kCausal: return c_lo < kv_hi;
+      case kPrefixLM: return c_lo < kv_hi && kv_hi >= p.prefix;
+      case kSlidingWindow: return c_lo < kv_hi || c_hi - kv_lo >= p.window;
+      default: return false;
     }
   }
+  // The q rows [lo, hi] that see kv row kv: below S, and from kv on
+  // (causal; prefix-LM past the prefix), up to kv + window - 1 (window).
+  __device__ void range(const bwd90::QStep&, int kv, int& lo, int& hi) const {
+    lo = 0;
+    hi = p.S - 1;
+    if (p.kind == kCausal || p.kind == kSlidingWindow || (p.kind == kPrefixLM && kv >= p.prefix))
+      lo = kv;
+    if (p.kind == kSlidingWindow) hi = min(hi, kv + p.window - 1);
+  }
+};
 
-  // q carried no scale in S^T's product: dk = scale * dS^T Q.
-  store_rows<D>(dka, dk + kv_off, kv_stride, cols, T, sm_scale);
-  store_rows<D>(dva, dv + kv_off, kv_stride, cols, T, 1.f);
+struct MakeKvWalk {
+  const Params& p;
+
+  __device__ KvWalk operator()(int kt, int b, int kh) const {
+    const int num_q = (p.S + kBN - 1) / kBN;
+    const int kv0 = kt * kBM;
+    int first = 0, bound = num_q;
+    if (p.kind != kFull) {
+      const int causal_first = min(kv0 / kBN, num_q);
+      first = causal_first;
+      if (p.kind == kPrefixLM) {
+        first = kv0 < p.prefix ? 0 : causal_first;
+      } else if (p.kind == kSlidingWindow) {
+        bound = min((kv0 + kBM - 1 + p.window - 1) / kBN + 1, num_q);
+      }
+    }
+    return {p, p.seg == nullptr ? nullptr : p.seg + static_cast<long>(b) * p.S, kh, first,
+            bound > first ? bound - first : 0};
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(fwd90::kThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ Params p) {
+  extern __shared__ unsigned char smem[];
+  bwd90::attn_bwd_dq<D>(smem, &p.q, &p.dout, fwd90::Jobs{p.B, p.S, p.H, p.KH}, MakeQWalk{p},
+                        p.lse, p.delta, p.dq, p.scale_log2, p.scale);
 }
 
 template <int D>
-int launch_dkv(const bf16* q, const bf16* k, const bf16* v,
-               const bf16* dout, const float* lse, const float* delta,
-               const int* seg, bf16* dk, bf16* dv, int B, int S,
-               int T, int H, int KH, int kind, int window, int prefix, float sm_scale,
-               cudaStream_t st) {
-  // Above 48 KB of shared memory only as dynamic shared memory, after
-  // raising the kernel's limit (per device; cheap to repeat).
-  constexpr int smem = dkv_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((T + kBKV - 1) / kBKV, B * KH);
-  flash_bwd_dkv_kernel<D><<<grid, kThreads, smem, st>>>(
-      q, k, v, dout, lse, delta, seg, dk, dv, S, T, H, KH, kind, window, prefix,
-      sm_scale);
-  return static_cast<int>(cudaGetLastError());
+__global__ void __launch_bounds__(fwd90::kThreads, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ Params p) {
+  extern __shared__ unsigned char smem[];
+  bwd90::attn_bwd_dkv<D>(smem, &p.k, &p.v, bwd90::KvJobs{p.B, p.T, p.KH}, MakeKvWalk{p}, p.S,
+                         p.H, p.dk, p.dv, p.scale_log2, p.scale);
 }
 
-bool bad_args(int B, int S, int T, int H, int KH, int kind) {
-  return B <= 0 || S <= 0 || T <= 0 || KH <= 0 || H % KH != 0 || kind < 0 || kind > 3;
+// The shared arguments, and the four maps with `q_rows`-row boxes for q and
+// dO and `kv_rows`-row boxes for k and v. False for arguments the kernels
+// do not take (and for a map that cannot be encoded).
+bool make_params(Params& p, const void* q, const void* k, const void* v, const void* dout,
+                 const void* lse, const void* delta, const void* seg, int B, int S, int T,
+                 int H, int KH, int D, int kind, int window, int prefix, float sm_scale,
+                 int q_rows, int kv_rows) {
+  if (B <= 0 || S <= 0 || T <= 0 || KH <= 0 || H % KH != 0 || kind < 0 || kind > 3 ||
+      (D != 64 && D != 128))
+    return false;
+  if (!fwd90::encode_bshd(&p.q, q, B, S, H, D, q_rows) ||
+      !fwd90::encode_bshd(&p.dout, dout, B, S, H, D, q_rows) ||
+      !fwd90::encode_bshd(&p.k, k, B, T, KH, D, kv_rows) ||
+      !fwd90::encode_bshd(&p.v, v, B, T, KH, D, kv_rows))
+    return false;
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.seg = static_cast<const int*>(seg);
+  p.dq = p.dk = p.dv = nullptr;
+  p.B = B;
+  p.S = S;
+  p.T = T;
+  p.H = H;
+  p.KH = KH;
+  p.kind = kind;
+  p.window = window;
+  p.prefix = prefix;
+  p.scale = sm_scale;
+  p.scale_log2 = sm_scale * fwd90::kLog2e;
+  return true;
 }
 
 }  // namespace
 
 // Both launch on `stream` and return cudaGetLastError() after the launch
-// (0 = ok). kind: 0 causal, 1 full, 2 prefix_lm, 3 sliding_window. seg may
-// be null. lse and delta are [B, S, H] fp32.
+// (0 = ok), or cudaErrorInvalidValue for arguments the kernels do not take.
+// kind: 0 causal, 1 full, 2 prefix_lm, 3 sliding_window. seg may be null.
+// lse and delta are [B, S, H] fp32.
 extern "C" int tpk_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* delta, const void* seg, void* dq,
                                 int B, int S, int T, int H, int KH, int D,
                                 int kind, int window, int prefix,
                                 float sm_scale, void* stream) {
-  if (bad_args(B, S, T, H, KH, kind)) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((S + kBQ - 1) / kBQ, B * H);
-  const dim3 block(kThreads);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* qp = static_cast<const bf16*>(q);
-  const auto* kp = static_cast<const bf16*>(k);
-  const auto* vp = static_cast<const bf16*>(v);
-  const auto* dop = static_cast<const bf16*>(dout);
-  const auto* lp = static_cast<const float*>(lse);
-  const auto* dp = static_cast<const float*>(delta);
-  const auto* sp = static_cast<const int*>(seg);
-  auto* out = static_cast<bf16*>(dq);
-  if (D == 128) {
-    flash_bwd_dq_kernel<128><<<grid, block, 0, st>>>(qp, kp, vp, dop, lp, dp, sp, out, S,
-                                                    T, H, KH, kind, window, prefix,
-                                                    sm_scale);
-  } else if (D == 64) {
-    flash_bwd_dq_kernel<64><<<grid, block, 0, st>>>(qp, kp, vp, dop, lp, dp, sp, out, S,
-                                                   T, H, KH, kind, window, prefix,
-                                                   sm_scale);
-  } else {
+  Params p;
+  if (!make_params(p, q, k, v, dout, lse, delta, seg, B, S, T, H, KH, D, kind, window, prefix,
+                   sm_scale, kBM, kBN))
     return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  p.dq = static_cast<bf16*>(dq);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int jobs = (S + kBM - 1) / kBM * B * H;
+  if (D == 128)
+    return fwd90::launch<flash_bwd_dq_kernel<128>, bwd90::DqSmem<128>::kBytes>(p, jobs, st);
+  return fwd90::launch<flash_bwd_dq_kernel<64>, bwd90::DqSmem<64>::kBytes>(p, jobs, st);
 }
 
 extern "C" int tpk_flash_bwd_dkv(const void* q, const void* k, const void* v,
@@ -313,22 +257,15 @@ extern "C" int tpk_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  void* dv, int B, int S, int T, int H, int KH,
                                  int D, int kind, int window, int prefix,
                                  float sm_scale, void* stream) {
-  if (bad_args(B, S, T, H, KH, kind)) return static_cast<int>(cudaErrorInvalidValue);
+  Params p;
+  if (!make_params(p, q, k, v, dout, lse, delta, seg, B, S, T, H, KH, D, kind, window, prefix,
+                   sm_scale, kBN, kBM))
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.dk = static_cast<bf16*>(dk);
+  p.dv = static_cast<bf16*>(dv);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* qp = static_cast<const bf16*>(q);
-  const auto* kp = static_cast<const bf16*>(k);
-  const auto* vp = static_cast<const bf16*>(v);
-  const auto* dop = static_cast<const bf16*>(dout);
-  const auto* lp = static_cast<const float*>(lse);
-  const auto* dp = static_cast<const float*>(delta);
-  const auto* sp = static_cast<const int*>(seg);
-  auto* dkp = static_cast<bf16*>(dk);
-  auto* dvp = static_cast<bf16*>(dv);
+  const int jobs = (T + kBM - 1) / kBM * B * KH;
   if (D == 128)
-    return launch_dkv<128>(qp, kp, vp, dop, lp, dp, sp, dkp, dvp, B, S, T, H, KH, kind,
-                           window, prefix, sm_scale, st);
-  if (D == 64)
-    return launch_dkv<64>(qp, kp, vp, dop, lp, dp, sp, dkp, dvp, B, S, T, H, KH, kind,
-                          window, prefix, sm_scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+    return fwd90::launch<flash_bwd_dkv_kernel<128>, bwd90::DkvSmem<128>::kBytes>(p, jobs, st);
+  return fwd90::launch<flash_bwd_dkv_kernel<64>, bwd90::DkvSmem<64>::kBytes>(p, jobs, st);
 }

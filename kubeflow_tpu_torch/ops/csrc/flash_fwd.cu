@@ -150,6 +150,6 @@ extern "C" int tpk_flash_fwd(const void* q, const void* k, const void* v,
   p.scale_log2 = sm_scale * fwd90::kLog2e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int q_tiles = (S + kBM - 1) / kBM * B * H;
-  if (D == 128) return fwd90::launch<128>(flash_fwd_kernel<128>, p, q_tiles, st);
-  return fwd90::launch<64>(flash_fwd_kernel<64>, p, q_tiles, st);
+  if (D == 128) return fwd90::launch<flash_fwd_kernel<128>, fwd90::Smem<128>::kBytes>(p, q_tiles, st);
+  return fwd90::launch<flash_fwd_kernel<64>, fwd90::Smem<64>::kBytes>(p, q_tiles, st);
 }

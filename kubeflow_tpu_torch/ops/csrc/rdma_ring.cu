@@ -457,8 +457,8 @@ extern "C" int tpk_rdma_fwd(const void* q, const void* const* k_ring,
   p.scale_log2 = sm_scale * fwd90::kLog2e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int q_tiles = (s + fwd90::kBM - 1) / fwd90::kBM * B * H;
-  if (D == 128) return fwd90::launch<128>(rdma_fwd_kernel<128>, p, q_tiles, st);
-  return fwd90::launch<64>(rdma_fwd_kernel<64>, p, q_tiles, st);
+  if (D == 128) return fwd90::launch<rdma_fwd_kernel<128>, fwd90::Smem<128>::kBytes>(p, q_tiles, st);
+  return fwd90::launch<rdma_fwd_kernel<64>, fwd90::Smem<64>::kBytes>(p, q_tiles, st);
 }
 
 extern "C" int tpk_rdma_bwd_dq(const void* q, const void* const* k_ring,

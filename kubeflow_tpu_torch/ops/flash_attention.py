@@ -1,11 +1,15 @@
 """Flash attention: hand-written Hopper kernels and their plain twins.
 
 The port of `kubeflow_tpu/ops/flash_attention.py`. On a CUDA tensor the
-wrappers launch `csrc/flash_fwd.cu` (forward) and `csrc/flash_bwd.cu` (the
-two-pass backward: dq, then dk/dv), CUDA C++ for sm_90a built on first use
-by `_build.py`; on a CPU tensor they run `_flash_fwd_plain` and
-`_flash_bwd_plain`, the same functions with the full score matrix in fp32.
-Nothing falls back: a CUDA tensor the kernels do not take raises.
+wrappers launch hand-written CUDA C++ for sm_90a, built on first use by
+`_build.py`: for bf16 at head_dim 64 or 128, the wgmma kernels of
+`csrc/flash_fwd.cu` (forward) and `csrc/flash_bwd.cu` (the two-pass
+backward: dq, then dk/dv); for every other fp32, bf16 or fp16 input up to
+head_dim 256, the CUDA-core kernels of `csrc/flash_simt.cu`, which compute
+in fp32 as the TPU kernels do for any dtype and head dim. On a CPU tensor
+they run `_flash_fwd_plain` and `_flash_bwd_plain`, the same functions with
+the full score matrix in fp32. Nothing falls back: a CUDA tensor no kernel
+takes (head_dim above 256, float64) raises.
 
 Layout is the JAX package's: q [B,S,H,D], k/v [B,T,KH,D] with H % KH == 0;
 out [B,S,H,D] in q's dtype and lse [B,S,H,1] fp32. Masks are applied by
@@ -33,9 +37,43 @@ NEG_INF = -1e30
 flash_fwd_launches = 0
 flash_bwd_dq_launches = 0
 flash_bwd_dkv_launches = 0
+flash_simt_fwd_launches = 0
+flash_simt_bwd_dq_launches = 0
+flash_simt_bwd_dkv_launches = 0
 _count_lock = threading.Lock()
 
 _MASK_CODES = {"causal": 0, "full": 1, "prefix_lm": 2, "sliding_window": 3}
+
+#: What the wgmma kernels take: this dtype and these head dims.
+KERNEL_DTYPE = torch.bfloat16
+KERNEL_HEAD_DIMS = (64, 128)
+#: What the CUDA-core kernels take: these dtypes (by their C code) and head
+#: dims up to this one.
+SIMT_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+SIMT_MAX_HEAD_DIM = 256
+
+
+def cuda_kernel_takes(dtype, head_dim: int, device) -> bool:
+    """Whether the wgmma kernels take q/k/v of this dtype and head dim on
+    this device: bf16 on a CUDA device, head_dim 64 or 128. Their wrappers
+    raise on anything else."""
+    return (torch.device(device).type == "cuda" and dtype == KERNEL_DTYPE
+            and head_dim in KERNEL_HEAD_DIMS)
+
+
+def simt_kernel_takes(dtype, head_dim: int, device) -> bool:
+    """Whether the CUDA-core kernels take q/k/v of this dtype and head dim
+    on this device: fp32, bf16 or fp16 on a CUDA device, head_dim 1..256."""
+    return (torch.device(device).type == "cuda" and dtype in SIMT_DTYPES
+            and 1 <= head_dim <= SIMT_MAX_HEAD_DIM)
+
+
+def cuda_flash_takes(dtype, head_dim: int, device) -> bool:
+    """Whether a CUDA flash kernel takes these inputs: the wgmma kernels
+    where they do, else the CUDA-core kernels. Callers choosing an attention
+    path ask here."""
+    return (cuda_kernel_takes(dtype, head_dim, device)
+            or simt_kernel_takes(dtype, head_dim, device))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,7 +205,7 @@ def _check_kernel_inputs(named, device) -> None:
     for name, x in named:
         if x.device != device:
             raise ValueError(f"{name} is on {x.device}, q on {device}")
-        if x.dtype != torch.bfloat16:
+        if x.dtype != KERNEL_DTYPE:
             raise TypeError(f"the CUDA kernel takes bf16; {name} is {x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -187,7 +225,7 @@ def _flash_fwd_cuda(q, k, v, mask: MaskSpec, segment_ids=None):
     b, s, h, d = q.shape
     t, kh = k.shape[1], k.shape[2]
     _check_kernel_inputs((("q", q), ("k", k), ("v", v)), q.device)
-    if d not in (64, 128):
+    if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"the CUDA kernel takes head_dim 64 or 128, not {d}")
     seg = _seg_arg(segment_ids, q.device)
     out = torch.empty_like(q)
@@ -228,7 +266,7 @@ def _bwd_args(q, k, v, do, lse, delta, mask: MaskSpec, segment_ids):
     t, kh = k.shape[1], k.shape[2]
     _check_kernel_inputs((("q", q), ("k", k), ("v", v), ("do", do)),
                          q.device)
-    if d not in (64, 128):
+    if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"the CUDA kernel takes head_dim 64 or 128, not {d}")
     for name, x in (("lse", lse), ("delta", delta)):
         if (x.dtype != torch.float32 or not x.is_contiguous()
@@ -299,6 +337,145 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, g_lse, mask: MaskSpec,
     return dq, dk, dv
 
 
+def _check_simt_inputs(named, device, dtype) -> None:
+    """What the CUDA-core kernels take: one dtype of SIMT_DTYPES,
+    contiguous, on one device."""
+    if dtype not in SIMT_DTYPES:
+        raise TypeError(f"the CUDA-core kernels take fp32, bf16 or fp16, "
+                        f"not {dtype}")
+    for name, x in named:
+        if x.device != device:
+            raise ValueError(f"{name} is on {x.device}, q on {device}")
+        if x.dtype != dtype:
+            raise TypeError(f"{name} is {x.dtype}, q {dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _simt_common(q, k, mask: MaskSpec):
+    b, s, h, d = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    if not 1 <= d <= SIMT_MAX_HEAD_DIM:
+        raise ValueError(f"the CUDA-core kernels take head_dim up to "
+                         f"{SIMT_MAX_HEAD_DIM}, not {d}")
+    return (b, s, t, h, kh, d, _MASK_CODES[mask.kind], int(mask.window),
+            int(mask.prefix), 1.0 / math.sqrt(d))
+
+
+def _flash_simt_fwd_cuda(q, k, v, mask: MaskSpec, segment_ids=None):
+    """Launch csrc/flash_simt.cu's forward on the current stream."""
+    global flash_simt_fwd_launches
+    _check_simt_inputs((("q", q), ("k", k), ("v", v)), q.device, q.dtype)
+    common = _simt_common(q, k, mask)
+    b, s, h = q.shape[:3]
+    seg = _seg_arg(segment_ids, q.device)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, s, h, 1), dtype=torch.float32, device=q.device)
+    from kubeflow_tpu_torch.ops import _build
+
+    fn = _build.function("flash_simt.cu", "tpk_flash_simt_fwd")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(SIMT_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), None if seg is None else seg.data_ptr(),
+                 out.data_ptr(), lse.data_ptr(), *common, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_simt_fwd kernel launch failed: CUDA error "
+                           f"{err}")
+    with _count_lock:
+        flash_simt_fwd_launches += 1
+    return out, lse
+
+
+def _simt_bwd_args(q, k, v, do, lse, delta, mask: MaskSpec, segment_ids):
+    """Checks what the CUDA-core backward kernels take; returns (dtype
+    code, input pointers, seg, common arguments)."""
+    b, s, h, _ = q.shape
+    _check_simt_inputs((("q", q), ("k", k), ("v", v), ("do", do)), q.device,
+                       q.dtype)
+    for name, x in (("lse", lse), ("delta", delta)):
+        if (x.dtype != torch.float32 or not x.is_contiguous()
+                or x.numel() != b * s * h or x.device != q.device):
+            raise ValueError(f"{name} must be contiguous fp32 [B,S,H(,1)] "
+                             f"on {q.device}")
+    common = _simt_common(q, k, mask)
+    seg = _seg_arg(segment_ids, q.device)
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+           lse.data_ptr(), delta.data_ptr(),
+           None if seg is None else seg.data_ptr())
+    return SIMT_DTYPES[q.dtype], ins, seg, common
+
+
+def _flash_simt_bwd_dq_cuda(q, k, v, do, lse, delta, mask: MaskSpec,
+                            segment_ids=None):
+    """Launch csrc/flash_simt.cu's dq kernel on the current stream."""
+    global flash_simt_bwd_dq_launches
+    # `seg` backs a pointer in `ins`: it stays bound through the launch.
+    code, ins, seg, common = _simt_bwd_args(q, k, v, do, lse, delta, mask,
+                                            segment_ids)
+    dq = torch.empty_like(q)
+    from kubeflow_tpu_torch.ops import _build
+
+    fn = _build.function("flash_simt.cu", "tpk_flash_simt_bwd_dq")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(code, *ins, dq.data_ptr(), *common, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_simt_bwd_dq kernel launch failed: CUDA "
+                           f"error {err}")
+    with _count_lock:
+        flash_simt_bwd_dq_launches += 1
+    return dq
+
+
+def _flash_simt_bwd_dkv_cuda(q, k, v, do, lse, delta, mask: MaskSpec,
+                             segment_ids=None):
+    """Launch csrc/flash_simt.cu's dk/dv kernel on the current stream."""
+    global flash_simt_bwd_dkv_launches
+    # `seg` backs a pointer in `ins`: it stays bound through the launch.
+    code, ins, seg, common = _simt_bwd_args(q, k, v, do, lse, delta, mask,
+                                            segment_ids)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    from kubeflow_tpu_torch.ops import _build
+
+    fn = _build.function("flash_simt.cu", "tpk_flash_simt_bwd_dkv")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(code, *ins, dk.data_ptr(), dv.data_ptr(), *common, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_simt_bwd_dkv kernel launch failed: CUDA "
+                           f"error {err}")
+    with _count_lock:
+        flash_simt_bwd_dkv_launches += 1
+    return dk, dv
+
+
+def _flash_simt_bwd_cuda(q, k, v, out, lse, do, g_lse, mask: MaskSpec,
+                         segment_ids=None):
+    """delta in PyTorch, then the CUDA-core dq and dk/dv kernels."""
+    do = do.contiguous()
+    _check_simt_inputs((("out", out),), q.device, q.dtype)
+    delta = _bwd_delta(do, out, g_lse)
+    dq = _flash_simt_bwd_dq_cuda(q, k, v, do, lse, delta, mask, segment_ids)
+    dk, dv = _flash_simt_bwd_dkv_cuda(q, k, v, do, lse, delta, mask,
+                                      segment_ids)
+    return dq, dk, dv
+
+
+def _cuda_route(dtype, d: int, device) -> str:
+    """Which kernels take CUDA q/k/v of this dtype and head dim: "sm90"
+    (wgmma) or "simt" (CUDA cores). Raises when neither does."""
+    if cuda_kernel_takes(dtype, d, device):
+        return "sm90"
+    if simt_kernel_takes(dtype, d, device):
+        return "simt"
+    raise ValueError(
+        f"no CUDA flash kernel takes {dtype} at head_dim {d}: the wgmma "
+        f"kernels take bf16 at 64 or 128, the CUDA-core kernels fp32, bf16 "
+        f"or fp16 up to {SIMT_MAX_HEAD_DIM}; use attention_impl='naive'")
+
+
 def _device_kind(q) -> str:
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash attention runs on cuda or cpu, not "
@@ -309,6 +486,8 @@ def _device_kind(q) -> str:
 def _fwd(q, k, v, spec, segment_ids):
     if _device_kind(q) == "cpu":
         return _flash_fwd_plain(q, k, v, spec, segment_ids)
+    if _cuda_route(q.dtype, q.shape[-1], q.device) == "simt":
+        return _flash_simt_fwd_cuda(q, k, v, spec, segment_ids)
     return _flash_fwd_cuda(q, k, v, spec, segment_ids)
 
 
@@ -316,6 +495,9 @@ def _bwd(q, k, v, out, lse, do, g_lse, spec, segment_ids):
     if _device_kind(q) == "cpu":
         return _flash_bwd_plain(q, k, v, out, lse, do, g_lse, spec,
                                 segment_ids)
+    if _cuda_route(q.dtype, q.shape[-1], q.device) == "simt":
+        return _flash_simt_bwd_cuda(q, k, v, out, lse, do, g_lse, spec,
+                                    segment_ids)
     return _flash_bwd_cuda(q, k, v, out, lse, do, g_lse, spec, segment_ids)
 
 

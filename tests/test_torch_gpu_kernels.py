@@ -7,6 +7,9 @@ of JAX, so they also run where JAX is not installed:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu_kernels.py
 """
 
+import dataclasses
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -172,14 +175,464 @@ def test_flash_backward_kernels_match_plain(cuda, shape, kind, mkw, segments,
         assert _rel_l2(got, ref) <= 1e-2, (name, _rel_l2(got, ref))
 
 
+def _bwd_inputs(shape, d, seed, cuda):
+    """bf16 q, k, v, dO of (B, S, T, H, KH) at head dim d, from numpy."""
+    b, s, t, h, kh = shape
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shp).astype(np.float32))
+            .to(cuda, torch.bfloat16)
+            for shp in ((b, s, h, d), (b, t, kh, d), (b, t, kh, d),
+                        (b, s, h, d))]
+
+
+def _assert_bwd_matches_plain(q, k, v, do, mask):
+    """Forward kernel, then dq and dk/dv through autograd (one launch each)
+    against `_flash_bwd_plain` in fp32 on the same inputs, saved output and
+    lse: rel-L2 <= 1e-2 per gradient, as test_flash_backward_kernels_match_
+    plain. Returns the gradients and the saved (out, lse)."""
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    before = (tfa.flash_bwd_dq_launches, tfa.flash_bwd_dkv_launches)
+    out = tfa.flash_attention(qg, kg, vg, mask=mask)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (tfa.flash_bwd_dq_launches, tfa.flash_bwd_dkv_launches) == (
+        before[0] + 1, before[1] + 1)
+    _, lse = tfa._flash_fwd_cuda(q, k, v, mask)
+    want = tfa._flash_bwd_plain(q.float(), k.float(), v.float(), out.detach(),
+                                lse, do.float(), None, mask)
+    got = (qg.grad, kg.grad, vg.grad)
+    for name, g, r in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16
+        assert bool(torch.isfinite(g.float()).all()), name
+        assert _rel_l2(g, r) <= 1e-2, (name, _rel_l2(g, r))
+    return got, (out.detach(), lse)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("kind", ["full", "causal"])
+def test_flash_backward_single_tile(cuda, d, kind):
+    """S = T = 64: one streamed 64-row tile in either pass (dq: one kv
+    tile; dk/dv: one q tile), inside one 128-row job whose second consumer
+    warpgroup holds only zero-filled rows past S and T."""
+    q, k, v, do = _bwd_inputs((1, 64, 64, 2, 1), d, 20, cuda)
+    _assert_bwd_matches_plain(q, k, v, do, tfa.MaskSpec(kind))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("shape,kind", [
+    ((2, 200, 700, 4, 2), "full"),    # S, T multiples of neither 64 nor 128
+    ((1, 333, 333, 4, 2), "causal"),
+    ((1, 130, 390, 2, 1), "full"),    # one row past a q job, 6 rows past kv
+])
+def test_flash_backward_ragged(cuda, d, shape, kind):
+    """Ragged S and T: TMA's zero fill past S and T, P selected to 0 for
+    the padded q columns of dk/dv (their lse is never read), rows past S or
+    T never written."""
+    q, k, v, do = _bwd_inputs(shape, d, 21, cuda)
+    _assert_bwd_matches_plain(q, k, v, do, tfa.MaskSpec(kind))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [3, 20, 50])
+def test_flash_backward_window_narrower_than_a_tile(cuda, window):
+    """A window narrower than one 64-row tile: every visible tile of either
+    walk crosses the band's edges, and each kv row's q interval [kv, kv +
+    window - 1] ends inside a q tile. (Not window 1: a row that sees only
+    itself has P = 1 and O = V, so dS = dP - delta is rounding noise of
+    either version and its rel-L2 says nothing.)"""
+    q, k, v, do = _bwd_inputs((1, 640, 640, 4, 2), 128, 22, cuda)
+    _assert_bwd_matches_plain(q, k, v, do,
+                              tfa.MaskSpec("sliding_window", window=window))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_backward_window_of_one(cuda, d):
+    """Window 1: each row sees only itself, so P = 1, O = V, and dV = Pᵀ dO
+    is dO summed over the GQA group: held by rel-L2 <= 1e-2. dS = dP - delta
+    is then the difference of two fp32 sums of the same D exact bf16
+    products (dO·V in the kernel, dO·O in delta), at most 2·D·2^-24·Σ|dO_i
+    V_i| per row; a wrong mask (a second visible column, or none) makes it
+    of the order of |dO||V|. So dq and dk are held absolutely, each version
+    within that bound: |dq - dq_plain| <= 2·N·max|K|·scale and |dk - dk_
+    plain| <= 2·G·N·max|Q|·scale, N the largest row's bound, G the group."""
+    b, s, h, kh = 1, 640, 4, 2
+    q, k, v, do = _bwd_inputs((b, s, s, h, kh), d, 26, cuda)
+    mask = tfa.MaskSpec("sliding_window", window=1)
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    out = tfa.flash_attention(qg, kg, vg, mask=mask)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert torch.equal(out.detach(), v.repeat_interleave(h // kh, dim=2))
+    _, lse = tfa._flash_fwd_cuda(q, k, v, mask)
+    dq_ref, dk_ref, dv_ref = tfa._flash_bwd_plain(
+        q.float(), k.float(), v.float(), out.detach(), lse, do.float(), None,
+        mask)
+    assert _rel_l2(vg.grad, dv_ref) <= 1e-2
+    v_rows = v.float().repeat_interleave(h // kh, dim=2)
+    row_sums = (do.float().abs() * v_rows.abs()).sum(-1)      # [B, S, H]
+    noise = 2 * d * 2.0 ** -24 * row_sums.max().item()
+    scale = 1.0 / math.sqrt(d)
+    dq_bound = 2 * noise * k.float().abs().max().item() * scale
+    dk_bound = 2 * (h // kh) * noise * q.float().abs().max().item() * scale
+    assert (qg.grad.float() - dq_ref).abs().max().item() <= dq_bound
+    assert (kg.grad.float() - dk_ref).abs().max().item() <= dk_bound
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_backward_gqa_group_of_four(cuda, d):
+    """H 8 over KH 2: each dk/dv job walks the q tiles of four q heads in
+    turn and sums them without atomics; dq reads the kv head h // 4."""
+    q, k, v, do = _bwd_inputs((2, 500, 500, 8, 2), d, 23, cuda)
+    _assert_bwd_matches_plain(q, k, v, do, tfa.MaskSpec("causal"))
+
+
+@pytest.mark.gpu
+def test_flash_backward_job_order_changes_nothing(cuda):
+    """The persistent grids take dq's last q tile and dk/dv's first kv tile
+    first. Under causal masking dq of rows 0..127 needs only rows 0..127 and
+    dk/dv of the last 128 kv rows only the last 128 q rows, so a 17-tile
+    launch must give, bit for bit, what 1-tile launches on those rows give
+    (the same lse and delta, sliced); the whole gradients stay within the
+    bounds of the plain version."""
+    n = 17 * 128
+    q, k, v, do = _bwd_inputs((1, n, n, 4, 2), 128, 24, cuda)
+    causal = tfa.MaskSpec("causal")
+    (dq, dk, dv), (out, lse) = _assert_bwd_matches_plain(q, k, v, do, causal)
+    delta = tfa._bwd_delta(do, out, None)
+
+    def rows(x, sl):
+        return x[:, sl].contiguous()
+
+    head, tail = slice(0, 128), slice(n - 128, n)
+    dq1 = tfa._flash_bwd_dq_cuda(*(rows(x, head) for x in (q, k, v, do, lse,
+                                                           delta)), causal)
+    dk1, dv1 = tfa._flash_bwd_dkv_cuda(
+        *(rows(x, tail) for x in (q, k, v, do, lse, delta)), causal)
+    torch.cuda.synchronize()
+    assert torch.equal(dq[:, head], dq1)
+    assert torch.equal(dk[:, tail], dk1)
+    assert torch.equal(dv[:, tail], dv1)
+
+
+def _entry(symbol):
+    from kubeflow_tpu_torch.ops import _build
+
+    return _build.function("flash_bwd.cu", symbol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_backward_padded_rows_never_written(cuda, d):
+    """Called through the C entry points with output buffers longer than S
+    (dq) and T (dk, dv), filled with NaN: the rows past S and T stay NaN
+    (the kernels never write a padded row), the rest equals the wrappers'
+    result bit for bit."""
+    b, s, t, h, kh = 1, 200, 150, 4, 2
+    q, k, v, do = _bwd_inputs((b, s, t, h, kh), d, 25, cuda)
+    mask = tfa.MaskSpec("full")
+    out, lse = tfa._flash_fwd_cuda(q, k, v, mask)
+    delta = tfa._bwd_delta(do, out, None)
+    want_dq = tfa._flash_bwd_dq_cuda(q, k, v, do, lse, delta, mask)
+    want_dk, want_dv = tfa._flash_bwd_dkv_cuda(q, k, v, do, lse, delta, mask)
+    pad = 128
+    dq = torch.full((b, s + pad, h, d), float("nan"), device=cuda,
+                    dtype=torch.bfloat16)
+    dk, dv = (torch.full((b, t + pad, kh, d), float("nan"), device=cuda,
+                         dtype=torch.bfloat16) for _ in range(2))
+    stream = torch.cuda.current_stream().cuda_stream
+    common = (b, s, t, h, kh, d, 1, 0, 0, 1.0 / math.sqrt(d), stream)
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+           lse.data_ptr(), delta.data_ptr(), None)
+    assert _entry("tpk_flash_bwd_dq")(*ins, dq.data_ptr(), *common) == 0
+    assert _entry("tpk_flash_bwd_dkv")(*ins, dk.data_ptr(), dv.data_ptr(),
+                                       *common) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(dq[:, :s], want_dq)
+    assert torch.equal(dk[:, :t], want_dk)
+    assert torch.equal(dv[:, :t], want_dv)
+    assert bool(torch.isnan(dq[:, s:].float()).all())
+    assert bool(torch.isnan(dk[:, t:].float()).all())
+    assert bool(torch.isnan(dv[:, t:].float()).all())
+
+
+# The CUDA-core kernels (csrc/flash_simt.cu) against the plain versions, on
+# the same inputs widened to fp32. Both compute in fp32; the kernels round
+# only their outputs to the input dtype. Bounds per dtype: out (max abs) and
+# lse (max abs), then the gradients' rel-L2. fp32: summation order only
+# (~1e-6). bf16 and fp16: half an ulp of |out| <= 4 (2^-7 and 2^-10) and
+# the gradients' rounding (~2^-9 relative), as for the wgmma kernels.
+SIMT_TOL = {torch.float32: (1e-4, 1e-4, 1e-5),
+            torch.bfloat16: (2e-2, 1e-3, 1e-2),
+            torch.float16: (4e-3, 1e-3, 1e-2)}
+
+
+def _simt_counts():
+    return (tfa.flash_simt_fwd_launches, tfa.flash_simt_bwd_dq_launches,
+            tfa.flash_simt_bwd_dkv_launches)
+
+
+# (dtype, head dim) pairs the wgmma kernels do not take.
+SIMT_PAIRS = [(dt, d) for dt in (torch.float32, torch.bfloat16, torch.float16)
+              for d in (16, 40, 128, 256)
+              if not (dt == torch.bfloat16 and d == 128)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,d", SIMT_PAIRS,
+                         ids=[f"{str(dt)[6:]}-D{d}" for dt, d in SIMT_PAIRS])
+@pytest.mark.parametrize("shape,kind,mkw,segments",
+                         [c[1:] for c in CASES], ids=[c[0] for c in CASES])
+def test_simt_kernels_match_plain(cuda, shape, kind, mkw, segments, d,
+                                  dtype):
+    """flash_attention on inputs the wgmma kernels do not take (any dtype
+    at head_dim 16, 40 or 256; fp32 or fp16 at 128) runs the CUDA-core
+    forward, and its backward the CUDA-core dq and dk/dv kernels, once
+    each; all agree with the plain versions. Head dim 40 is no multiple of
+    the 32 columns a lane group owns; T = 300 against S = 72 and S = 200
+    leave ragged 16-row and 32-row tiles."""
+    b, s, t, h, kh = shape
+    rng = np.random.default_rng(d)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shp)
+                                    .astype(np.float32)).to(cuda, dtype)
+                   for shp in ((b, s, h, d), (b, t, kh, d), (b, t, kh, d),
+                               (b, s, h, d)))
+    seg = None
+    if segments:
+        seg = torch.from_numpy(np.cumsum(rng.random((b, s)) < 0.05, axis=1)
+                               .astype(np.int32)).to(cuda)
+    mask = tfa.MaskSpec(kind, **mkw)
+    out_tol, lse_tol, grad_tol = SIMT_TOL[dtype]
+    before = _simt_counts()
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    out, lse = tfa.flash_attention_lse(qg, kg, vg, segment_ids=seg,
+                                       mask=mask)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert tuple(a - c for a, c in zip(_simt_counts(), before)) == (1, 1, 1)
+    ref, ref_lse = tfa._flash_fwd_plain(q.float(), k.float(), v.float(),
+                                        mask, seg)
+    assert out.dtype == dtype
+    assert bool(torch.isfinite(out.float()).all())
+    assert (out.float() - ref).abs().max().item() <= out_tol
+    assert (lse - ref_lse).abs().max().item() <= lse_tol
+    want = tfa._flash_bwd_plain(q.float(), k.float(), v.float(),
+                                out.detach(), lse.detach(), do.float(), None,
+                                mask, seg)
+    for name, g, r in zip(("dq", "dk", "dv"), (qg.grad, kg.grad, vg.grad),
+                          want):
+        assert g.dtype == dtype
+        assert _rel_l2(g, r) <= grad_tol, (name, _rel_l2(g, r))
+
+
+@pytest.mark.gpu
+def test_simt_backward_padded_rows_never_written(cuda):
+    """Through the C entry points with output buffers longer than S (dq)
+    and T (dk, dv), filled with NaN: rows past S and T stay NaN and the rest
+    equals the wrappers' result bit for bit."""
+    from kubeflow_tpu_torch.ops import _build
+
+    b, s, t, h, kh, d = 1, 200, 150, 4, 2, 16
+    q, k, v, do = (x.float() for x in _bwd_inputs((b, s, t, h, kh), d, 27,
+                                                  cuda))
+    mask = tfa.MaskSpec("full")
+    out, lse = tfa._flash_simt_fwd_cuda(q, k, v, mask)
+    delta = tfa._bwd_delta(do, out, None)
+    want_dq = tfa._flash_simt_bwd_dq_cuda(q, k, v, do, lse, delta, mask)
+    want_dk, want_dv = tfa._flash_simt_bwd_dkv_cuda(q, k, v, do, lse, delta,
+                                                    mask)
+    pad = 40
+    dq = torch.full((b, s + pad, h, d), float("nan"), device=cuda)
+    dk, dv = (torch.full((b, t + pad, kh, d), float("nan"), device=cuda)
+              for _ in range(2))
+    stream = torch.cuda.current_stream().cuda_stream
+    common = (b, s, t, h, kh, d, 1, 0, 0, 1.0 / math.sqrt(d), stream)
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+           lse.data_ptr(), delta.data_ptr(), None)
+    fn = _build.function
+    assert fn("flash_simt.cu", "tpk_flash_simt_bwd_dq")(
+        0, *ins, dq.data_ptr(), *common) == 0
+    assert fn("flash_simt.cu", "tpk_flash_simt_bwd_dkv")(
+        0, *ins, dk.data_ptr(), dv.data_ptr(), *common) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(dq[:, :s], want_dq)
+    assert torch.equal(dk[:, :t], want_dk)
+    assert torch.equal(dv[:, :t], want_dv)
+    assert bool(torch.isnan(dq[:, s:]).all())
+    assert bool(torch.isnan(dk[:, t:]).all())
+    assert bool(torch.isnan(dv[:, t:]).all())
+
+
+# C1: attention_impl="auto" on the card for configs the wgmma kernels do not
+# take. The JAX model's auto runs its Pallas kernel there (on the TPU, for
+# any dtype and head dim); the port's runs the CUDA-core kernels. Each
+# config is held against attention_impl="naive" on the same weights and
+# batch: logits by rel-L2, the loss and the grad norm relative to naive's.
+# fp32: both paths compute in fp32 (torch's fp32 matmuls stay fp32, no
+# TF32), so only summation order differs: 1e-4. bf16: naive rounds scores
+# and probabilities to bf16 (as the JAX twin does) and the kernels do not;
+# that rounding carried through two layers is ~1e-2 of the logits at most
+# (8B's 32 layers give ~2e-2, PERF.md): 2e-2 on the logits, 1e-2 on the
+# loss, 5e-2 on the grad norm.
+C1_CONFIGS = ("llama_tiny_bf16", "llama_1b_fp32_2l")
+C1_TOL = {torch.float32: (1e-4, 1e-4, 1e-4),
+          torch.bfloat16: (2e-2, 1e-2, 5e-2)}
+C1_BATCH, C1_SEQ = 2, 96
+
+
+def c1_config(name, **kwargs):
+    """llama_tiny (head_dim 16) in bf16, or llama_1b's widths (head_dim
+    128) in fp32 cut to two layers, with `kwargs` replacing fields."""
+    from kubeflow_tpu_torch.models import llama as tl
+
+    cfg = {"llama_tiny_bf16": tl.llama_tiny(),
+           "llama_1b_fp32_2l": dataclasses.replace(
+               tl.llama_1b(), num_layers=2, dtype=torch.float32,
+               param_dtype=torch.float32)}[name]
+    return dataclasses.replace(cfg, **kwargs)
+
+
+def _c1_step(cfg, batch, device):
+    """(logits of a prefill into a fresh cache, loss and grad norm of one
+    AdamW training step) of a model made from seed 0."""
+    from kubeflow_tpu_torch.models import llama as tl
+    from kubeflow_tpu_torch.train import optim
+    from kubeflow_tpu_torch.train import step as tstep
+
+    model = tl.Llama(cfg, device=device).init_weights(0)
+    b, s = batch["inputs"].shape
+    cache = tl.init_cache(cfg, b, max_len=2 * s, device=device)
+    with torch.no_grad():
+        logits, _ = model(batch["inputs"], cache=cache)
+    tx = optim.AdamW(1e-3)
+    state = tstep.TrainState(step=0, model=model,
+                             opt_state=tx.init(list(model.parameters())),
+                             tx=tx)
+    _, metrics = tstep.make_train_step(model)(state, batch)
+    torch.cuda.synchronize(device)
+    return logits.float(), float(metrics["loss"]), float(metrics["grad_norm"])
+
+
+def _launches():
+    return (tfa.flash_fwd_launches, tfa.flash_bwd_dq_launches,
+            tfa.flash_bwd_dkv_launches) + _simt_counts()
+
+
+def c1_compare(name, device, seed=30) -> dict:
+    """One C1 config under "auto" and under "naive" on `device`: the
+    launches "auto" made (wgmma fwd, dq, dk/dv, then CUDA-core fwd, dq,
+    dk/dv), the distances and whether each is within C1_TOL."""
+    cfg = c1_config(name)
+    rng = np.random.default_rng(seed)
+    batch = {key: torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (C1_BATCH, C1_SEQ))).to(device)
+        for key in ("inputs", "targets")}
+    before = _launches()
+    logits, loss, norm = _c1_step(cfg, batch, device)
+    launches = tuple(a - c for a, c in zip(_launches(), before))
+    n_logits, n_loss, n_norm = _c1_step(
+        dataclasses.replace(cfg, attention_impl="naive"), batch, device)
+    tol = C1_TOL[cfg.dtype]
+    res = {"dtype": str(cfg.dtype), "head_dim": cfg.head_dim,
+           "launches": launches,
+           "logits_rel_l2": _rel_l2(logits, n_logits),
+           "loss": loss, "loss_naive": n_loss,
+           "grad_norm": norm, "grad_norm_naive": n_norm,
+           "finite": bool(torch.isfinite(logits).all())}
+    res["ok"] = (res["finite"] and res["logits_rel_l2"] <= tol[0]
+                 and abs(loss - n_loss) <= tol[1] * abs(n_loss)
+                 and abs(norm - n_norm) <= tol[2] * abs(n_norm))
+    return res
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", C1_CONFIGS)
+def test_auto_runs_the_simt_kernels_where_wgmma_does_not_take(cuda, name):
+    """attention_impl="auto" on the card with head_dim 16 in bf16, or fp32
+    at head_dim 128: a prefill and a training step launch the CUDA-core
+    forward (once per layer in the prefill and in the step, once more under
+    remat) and dq and dk/dv (once per layer), no wgmma kernel, and agree
+    with attention_impl="naive"."""
+    res = c1_compare(name, cuda)
+    cfg = c1_config(name)
+    layers = cfg.num_layers
+    assert res["launches"] == (0, 0, 0, layers * (2 + int(cfg.remat)),
+                               layers, layers), res
+    assert res["ok"], res
+
+
+@pytest.mark.gpu
+def test_explicit_flash_on_fp32_runs_the_simt_kernels(cuda):
+    """No fallback hides a kernel: an explicit "flash" on an fp32 model
+    runs the CUDA-core kernels, the same launches and logits as "auto"."""
+    from kubeflow_tpu_torch.models import llama as tl
+
+    tokens = torch.from_numpy(np.random.default_rng(32).integers(
+        0, 512, (1, 64))).to(cuda)
+    logits = {}
+    for impl in ("auto", "flash"):
+        cfg = c1_config("llama_1b_fp32_2l", attention_impl=impl)
+        model = tl.Llama(cfg, device=cuda).init_weights(0)
+        before = _launches()
+        with torch.no_grad():
+            logits[impl] = model(tokens)
+        torch.cuda.synchronize()
+        assert tuple(a - c for a, c in zip(_launches(), before)) == (
+            0, 0, 0, 2, 0, 0)
+    assert torch.equal(logits["auto"], logits["flash"])
+
+
+@pytest.mark.gpu
+def test_auto_refuses_what_no_kernel_takes(cuda):
+    """head_dim 512 has no CUDA kernel: "auto" raises on the card, naming
+    the limit, rather than running naive in the kernel's place."""
+    from kubeflow_tpu_torch.models import llama as tl
+
+    cfg = c1_config("llama_tiny_bf16", head_dim=512)
+    model = tl.Llama(cfg, device=cuda).init_weights(0)
+    with pytest.raises(ValueError, match="no flash kernel takes"):
+        with torch.no_grad():
+            model(torch.zeros(1, 16, dtype=torch.long, device=cuda))
+
+
+@pytest.mark.gpu
+def test_auto_still_takes_the_kernels_in_bf16(cuda):
+    """A bf16 model at head_dim 128 under auto: one forward kernel launch
+    per layer in a prefill, and one of each backward kernel per layer in a
+    training step (remat off)."""
+    from kubeflow_tpu_torch.models import llama as tl
+
+    cfg = dataclasses.replace(tl.llama_1b(), num_layers=2, remat=False)
+    rng = np.random.default_rng(31)
+    batch = {key: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 96)))
+             .to(cuda) for key in ("inputs", "targets")}
+    before = _launches()
+    logits, loss, _ = _c1_step(cfg, batch, cuda)
+    # Prefill 2, the step's forward 2, its backward 2 + 2; no CUDA-core
+    # launch.
+    assert tuple(a - c for a, c in zip(_launches(), before)) == (
+        4, 2, 2, 0, 0, 0)
+    assert bool(torch.isfinite(logits).all()) and np.isfinite(loss)
+
+
 @pytest.mark.gpu
 def test_flash_kernel_refuses_what_it_does_not_take(cuda):
+    """The wgmma wrappers refuse what they do not take (fp32 and head_dim
+    32 go to the CUDA-core kernels instead); flash_attention refuses what
+    no kernel takes."""
     x = torch.zeros(1, 8, 2, 64, device=cuda)
     with pytest.raises(TypeError, match="bf16"):
-        tfa.flash_attention(x, x, x)
+        tfa._flash_fwd_cuda(x, x, x, tfa.MaskSpec("causal"))
     y = torch.zeros(1, 8, 2, 32, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
-        tfa.flash_attention(y, y, y)
+        tfa._flash_fwd_cuda(y, y, y, tfa.MaskSpec("causal"))
+    for bad in (x.double(), torch.zeros(1, 8, 2, 512, device=cuda,
+                                        dtype=torch.bfloat16)):
+        with pytest.raises(ValueError, match="no CUDA flash kernel takes"):
+            tfa.flash_attention(bad, bad, bad)
     z = torch.zeros(1, 2, 8, 64, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="contiguous"):
         tfa.flash_attention(z.transpose(1, 2), z.transpose(1, 2),

@@ -1,0 +1,155 @@
+"""Time the flash backward kernels of two trees on one card, in turns.
+
+    python3 tools/attn_bwd_ab.py --parent build/parent [--out FILE]
+
+`--parent` is an unpacked copy of another commit of this repository (for
+example `git archive <commit> kubeflow_tpu_torch | tar -x -C build/parent`).
+Its `ops/csrc/flash_bwd.cu` is built with this tree's nvcc flags into
+`build/torch_kernels/ab/` and loaded beside this tree's, through the same C
+entry points (`tpk_flash_bwd_dq`, `tpk_flash_bwd_dkv`). Both are launched
+on the same bf16 inputs (q, k, v, dO, the forward kernel's lse and the
+PyTorch delta) with preallocated outputs, timed with CUDA events in the
+order old, new, new, old at each shape, and their gradients checked against
+each other (rel-L2 at most 1e-2, the bound both are held to against the
+plain version). Shapes: the causal serving prefill shapes of chip_smoke.py's
+phase 2 (B1 H32 KH8 D128 at S 128, 512, 1000, 2048) and the llama_1b
+training shape (B12 S1024 H16 KH8 D128). Beside each: each kernel's bound
+(the larger of the visible pairs' flops over the bf16 peak and the bytes
+over the memory rate, as chip_smoke.py's phase 2b counts them), one SDPA
+backward (dq, dk and dv in one autograd call) and delta's time.
+Needs CUDA; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+from kubeflow_tpu_torch.ops import _build  # noqa: E402
+from kubeflow_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from tools.attn_fwd_ab import (bound_ms, in_turns, parent_function,  # noqa: E402
+                               time_ms)
+
+SHAPES = [(1, s, 32, 8, 128) for s in (128, 512, 1000, 2048)] + [
+    (12, 1024, 16, 8, 128)]  # (B, S, H, KH, D), causal, T = S
+REPS = 20
+AGREE_REL_L2 = 1e-2
+
+
+def _rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def bwd_calls(fns, q, k, v, do, lse, delta, outs, what):
+    """(dq call, dk/dv call) of one tree's entry points into `outs`."""
+    b, s, h, d = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+           lse.data_ptr(), delta.data_ptr(), None)
+    stream = torch.cuda.current_stream().cuda_stream
+    common = (b, s, t, h, kh, d, 0, 0, 0, 1.0 / math.sqrt(d), stream)
+    dq, dk, dv = outs
+
+    def check(err, kernel):
+        if err != 0:
+            raise RuntimeError(f"{what} {kernel} launch failed: CUDA error "
+                               f"{err}")
+
+    def call_dq():
+        check(fns[0](*ins, dq.data_ptr(), *common), "dq")
+
+    def call_dkv():
+        check(fns[1](*ins, dk.data_ptr(), dv.data_ptr(), *common), "dk/dv")
+    return call_dq, call_dkv
+
+
+def _sdpa_bwd_ms(q, k, v, do) -> float:
+    """One torch.autograd.grad through causal SDPA with GQA, its forward
+    outside the timing."""
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    go = do.transpose(1, 2)
+    return time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), go,
+                                               retain_graph=True), REPS)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--parent", required=True, type=Path)
+    ap.add_argument("--out", type=Path)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("attn_bwd_ab: CUDA is not available", file=sys.stderr)
+        return 2
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    print(f"card: {card}", flush=True)
+    symbols = ("tpk_flash_bwd_dq", "tpk_flash_bwd_dkv")
+    old_fns = [parent_function(args.parent, "flash_bwd.cu", s) for s in symbols]
+    new_fns = [_build.function("flash_bwd.cu", s) for s in symbols]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows, bad = [], []
+    mask = fa.MaskSpec("causal")
+    for b, s, h, kh, d in SHAPES:
+        q, do = (torch.randn(b, s, h, d, generator=gen, device="cuda")
+                 .bfloat16() for _ in range(2))
+        k, v = (torch.randn(b, s, kh, d, generator=gen, device="cuda")
+                .bfloat16() for _ in range(2))
+        out, lse = fa._flash_fwd_cuda(q, k, v, mask)
+        delta = fa._bwd_delta(do, out, None)
+        outs = {w: (torch.empty_like(q), torch.empty_like(k),
+                    torch.empty_like(v)) for w in ("old", "new")}
+        old_dq, old_dkv = bwd_calls(old_fns, q, k, v, do, lse, delta,
+                                    outs["old"], "old")
+        new_dq, new_dkv = bwd_calls(new_fns, q, k, v, do, lse, delta,
+                                    outs["new"], "new")
+        for call in (old_dq, old_dkv, new_dq, new_dkv):
+            call()
+        torch.cuda.synchronize()
+        agree = {n: _rel_l2(a, c) for n, a, c in
+                 zip(("dq", "dk", "dv"), outs["new"], outs["old"])}
+        dq_old, dq_new = in_turns(old_dq, new_dq, REPS)
+        dkv_old, dkv_new = in_turns(old_dkv, new_dkv, REPS)
+        pairs = b * h * s * (s + 1) // 2
+        reads = 2 * (2 * q.numel() + 2 * k.numel()) + 8 * b * s * h
+        dq_bound, dq_by = bound_ms(6 * d * pairs, reads + 2 * q.numel())
+        dkv_bound, dkv_by = bound_ms(8 * d * pairs, reads + 4 * k.numel())
+        row = {"shape": f"B{b} S{s} H{h} KH{kh} D{d} causal",
+               "dq_old_ms": dq_old, "dq_new_ms": dq_new,
+               "dkv_old_ms": dkv_old, "dkv_new_ms": dkv_new,
+               "dq_bound_ms": dq_bound, "dq_bound_by": dq_by,
+               "dkv_bound_ms": dkv_bound, "dkv_bound_by": dkv_by,
+               "sdpa_bwd_ms": _sdpa_bwd_ms(q, k, v, do),
+               "delta_ms": time_ms(lambda: fa._bwd_delta(do, out, None),
+                                   REPS),
+               "rel_l2_new_vs_old": agree}
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+        if max(agree.values()) > AGREE_REL_L2:
+            bad.append(row["shape"])
+    if args.out:
+        os.makedirs(args.out.parent, exist_ok=True)
+        args.out.write_text(json.dumps({"card": card, "rows": rows},
+                                       indent=1))
+    if bad:
+        print(f"old and new disagree at {bad}", file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import math
 import os
@@ -100,8 +101,10 @@ def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
     return max(ops, mem) * 1e3, "operations" if ops >= mem else "bytes"
 
 
-def parent_function(parent: Path, source: str, symbol: str):
-    """The parent tree's entry point, built with this tree's flags."""
+@functools.lru_cache(maxsize=None)
+def parent_library(parent: Path, source: str) -> ctypes.CDLL:
+    """The parent tree's library of one source, built once with this
+    tree's flags."""
     out_dir = _build.BUILD_DIR / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
     out = out_dir / f"parent_{Path(source).stem}.so"
@@ -111,7 +114,12 @@ def parent_function(parent: Path, source: str, symbol: str):
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for the parent's {source}:\n"
                            f"{proc.stdout}{proc.stderr}")
-    fn = getattr(ctypes.CDLL(str(out)), symbol)
+    return ctypes.CDLL(str(out))
+
+
+def parent_function(parent: Path, source: str, symbol: str):
+    """The parent tree's entry point, built with this tree's flags."""
+    fn = getattr(parent_library(parent, source), symbol)
     fn.argtypes = _build.SIGNATURES[source][symbol]
     fn.restype = ctypes.c_int
     return fn
