@@ -5,8 +5,8 @@
 Phases (any failure exits non-zero; nothing is printed as a result then):
   1. device: require CUDA, print the card, build every kernel from source
      (one nvcc per source, all started together); the ptxas reports of the
-     wgmma kernels (both attention forwards, the dq and dk/dv backward) must
-     show no spill stores;
+     wgmma kernels (both attention forwards, the flash and ring dq and dk/dv
+     backward) must show no spill stores;
   2. kernels: the forward kernel against its plain PyTorch version on the
      card, at the serving shapes, with its time, the plain version's, one
      library call's (a yardstick the port never calls) and its bound;
@@ -207,7 +207,8 @@ KERNEL_DESIGN = "wgmma+tma"
 # and P, dq's S, dP and dQ, dk/dv's dK and dV; a spill there is lost
 # overlap).
 NO_SPILL_KERNELS = ("flash_fwd_kernel", "rdma_fwd_kernel",
-                    "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+                    "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+                    "rdma_bwd_dq_kernel", "rdma_bwd_dkv_kernel")
 # Phase 2e: besides phase 6's attention shapes, llama_1b's widths in fp32
 # at batch 2, seq 1024, where launch overhead does not hide the kernels.
 SIMT_EXTRA_CASE = (2, 1024, 1024, 16, 8, 128, fa.MaskSpec("causal"), False,
@@ -1816,11 +1817,13 @@ def main() -> int:
                           "max_abs_err_lse": ring["worst"]["lse"],
                           "design": KERNEL_DESIGN}),
         ("rdma_bwd_dq", 197, {"max_abs_err": ring["worst"]["dq_abs"],
-                              "rel_l2_err": ring["worst"]["dq"]}),
+                              "rel_l2_err": ring["worst"]["dq"],
+                              "design": KERNEL_DESIGN}),
         ("rdma_bwd_dkv", 268, {
             "max_abs_err": max(ring["worst"]["dk_abs"],
                                ring["worst"]["dv_abs"]),
-            "rel_l2_err": max(ring["worst"]["dk"], ring["worst"]["dv"])}),
+            "rel_l2_err": max(ring["worst"]["dk"], ring["worst"]["dv"]),
+            "design": KERNEL_DESIGN}),
     ))]}))
     log(smi())
     log(json.dumps({"ok": True, "device": {

@@ -1,0 +1,70 @@
+"""The CUDA sources of the port, read as text: what nvcc and chip_smoke.py
+would find wrong on the card, caught where neither can run.
+
+Every quoted `#include` under `kubeflow_tpu_torch/ops/csrc/` must name a
+file there, and every kernel whose ptxas report chip_smoke.py checks for
+spills (`NO_SPILL_KERNELS`) must be a `__global__` function of some `.cu`
+file there. chip_smoke.py is parsed, not imported.
+"""
+
+import ast
+import re
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+CSRC = ROOT / "kubeflow_tpu_torch" / "ops" / "csrc"
+SOURCES = sorted(p.name for p in CSRC.iterdir()
+                 if p.suffix in (".cu", ".cuh"))
+INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+GLOBAL = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
+                    r"(\w+)\s*\(")
+
+
+def _no_spill_kernels() -> tuple:
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    for node in tree.body:
+        if (isinstance(node, ast.Assign) and len(node.targets) == 1
+                and getattr(node.targets[0], "id", None)
+                == "NO_SPILL_KERNELS"):
+            return tuple(ast.literal_eval(node.value))
+    raise AssertionError("chip_smoke.py assigns no NO_SPILL_KERNELS")
+
+
+def _global_functions() -> set:
+    return {name for p in CSRC.glob("*.cu")
+            for name in GLOBAL.findall(p.read_text())}
+
+
+def test_the_sources_are_there():
+    """The parametrised checks below are not run over an empty list."""
+    assert {"attn_fwd_sm90.cuh", "attn_bwd_sm90.cuh", "flash_fwd.cu",
+            "flash_bwd.cu", "rdma_ring.cu"} <= set(SOURCES)
+
+
+@pytest.mark.parametrize("source", SOURCES)
+def test_every_quoted_include_names_a_file_beside_it(source):
+    for name in INCLUDE.findall((CSRC / source).read_text()):
+        assert (CSRC / name).is_file(), f"{source} includes missing {name}"
+
+
+@pytest.mark.parametrize("kernel", _no_spill_kernels())
+def test_every_no_spill_kernel_is_a_global_function(kernel):
+    assert kernel in _global_functions(), (
+        f"chip_smoke.NO_SPILL_KERNELS names {kernel}, which no .cu file "
+        f"under {CSRC.relative_to(ROOT)} defines as __global__")
+
+
+def test_the_include_pattern_sees_a_missing_header():
+    """The check above is not vacuous: a dangling include is found."""
+    text = '#include "attn_bwd_sm90.cuh"\n#include "gone.cuh"\n'
+    missing = [n for n in INCLUDE.findall(text) if not (CSRC / n).is_file()]
+    assert missing == ["gone.cuh"]
+
+
+def test_the_global_pattern_reads_the_kernel_declarations():
+    text = ("template <int D>\n__global__ void __launch_bounds__(fwd90::"
+            "kThreads, 1)\nrdma_bwd_dq_kernel(const __grid_constant__ "
+            "DqParams p) {\n}\n__global__ void plain_kernel(int x) {}\n")
+    assert GLOBAL.findall(text) == ["rdma_bwd_dq_kernel", "plain_kernel"]

@@ -694,6 +694,10 @@ RING_CASES = [
     ("n8_mha_d128", (8, 1, 512, 4, 4, 128)),
     ("n2_llama_heads", (2, 1, 2048, 32, 8, 128)),
     ("n8_ragged_d64", (8, 2, 800, 8, 2, 64)),
+    # every entry of the per-rank tables (s 128: one job tile a shard)
+    ("n16_full_table", (16, 1, 2048, 8, 2, 128)),
+    # s 48, less than one streamed tile, with a GQA group of 4
+    ("n4_short_shard_gqa4_d128", (4, 1, 192, 16, 4, 128)),
 ]
 
 
@@ -732,6 +736,31 @@ def test_rdma_ring_kernels_match_plain(cuda, shape):
         assert g.dtype == torch.bfloat16
         assert bool(torch.isfinite(g.float()).all()), name
         assert _rel_l2(g, r) <= 1e-2, (name, _rel_l2(g, r))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("me", [0, 2, 3])
+def test_rdma_ring_backward_is_deterministic(cuda, me):
+    """One rank's dq and dk/dv launched twice on the same inputs give the
+    same bits: each CTA owns its gradient rows, no atomics. Rank 0's dq and
+    rank 3's dk/dv walk only the diagonal shard; rank 2 walks both kinds."""
+    n, b, s, h, kh, d = 4, 2, 1024, 8, 2, 128
+    rng = np.random.default_rng(7)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shp).astype(
+        np.float32)).to(cuda, torch.bfloat16) for shp in (
+        (b, s, h, d), (b, s, kh, d), (b, s, kh, d), (b, s, h, d)))
+    out, lse = trr._rdma_fwd_cuda(q, k, v, n)
+    delta = tfa._bwd_delta(do, out, None)
+    shards = [trr._shards(x, n) for x in (q, k, v, do, lse, delta)]
+    dq1, dq2 = (trr._dq_rank_cuda(me, *shards) for _ in range(2))
+    (dk1, dv1), (dk2, dv2) = (trr._dkv_rank_cuda(me, *shards)
+                              for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(dq1, dq2)
+    assert torch.equal(dk1, dk2)
+    assert torch.equal(dv1, dv2)
+    assert bool(torch.isfinite(dq1.float()).all())
+    assert bool(torch.isfinite(dk1.float()).all())
 
 
 @pytest.mark.gpu

@@ -1,28 +1,36 @@
-"""Time the flash backward kernels of two trees on one card, in turns.
+"""Time the attention backward kernels of two trees on one card, in turns.
 
     python3 tools/attn_bwd_ab.py --parent build/parent [--out FILE]
 
 `--parent` is an unpacked copy of another commit of this repository (for
 example `git archive <commit> kubeflow_tpu_torch | tar -x -C build/parent`).
-Its `ops/csrc/flash_bwd.cu` is built with this tree's nvcc flags into
+Its `ops/csrc/flash_bwd.cu` and `ops/csrc/rdma_ring.cu` (each with the
+headers of its own tree) are built with this tree's nvcc flags into
 `build/torch_kernels/ab/` and loaded beside this tree's, through the same C
-entry points (`tpk_flash_bwd_dq`, `tpk_flash_bwd_dkv`). Both are launched
-on the same bf16 inputs (q, k, v, dO, the forward kernel's lse and the
-PyTorch delta) with preallocated outputs, timed with CUDA events in the
-order old, new, new, old at each shape, and their gradients checked against
-each other (rel-L2 at most 1e-2, the bound both are held to against the
-plain version). Shapes: the causal serving prefill shapes of chip_smoke.py's
-phase 2 (B1 H32 KH8 D128 at S 128, 512, 1000, 2048) and the llama_1b
-training shape (B12 S1024 H16 KH8 D128). Beside each: each kernel's bound
-(the larger of the visible pairs' flops over the bf16 peak and the bytes
-over the memory rate, as chip_smoke.py's phase 2b counts them), one SDPA
-backward (dq, dk and dv in one autograd call) and delta's time.
+entry points (`tpk_flash_bwd_dq`, `tpk_flash_bwd_dkv`, `tpk_rdma_bwd_dq`,
+`tpk_rdma_bwd_dkv`). Both are launched on the same bf16 inputs (q, k, v,
+dO, the forward kernel's lse and the PyTorch delta) with preallocated
+outputs, timed with CUDA events in the order old, new, new, old at each
+shape, and their gradients checked against each other (rel-L2 at most
+1e-2, the bound both are held to against the plain version). Flash shapes:
+the causal serving prefill shapes of chip_smoke.py's phase 2 (B1 H32 KH8
+D128 at S 128, 512, 1000, 2048) and the llama_1b training shape (B12 S1024
+H16 KH8 D128). Beside each: each kernel's bound (the larger of the visible
+pairs' flops over the bf16 peak and the bytes over the memory rate, as
+chip_smoke.py's phase 2b counts them), one SDPA backward (dq, dk and dv in
+one autograd call) and delta's time. Then the ring backward at phase 2d's
+full-width shape (n 4, B1 S32768 H32 KH8 D128, all ranks on this card):
+dq and dk/dv summed over the n rank launches and per rank, the host's time
+inside the n entry-point calls (`enqueue_us`: each call encodes the rank's
+TMA maps), the bounds as phase 2d counts them, SDPA's backward and the
+flash kernels over the whole sequence.
 Needs CUDA; imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import math
 import os
@@ -37,12 +45,14 @@ sys.path.insert(0, str(ROOT))
 
 from kubeflow_tpu_torch.ops import _build  # noqa: E402
 from kubeflow_tpu_torch.ops import flash_attention as fa  # noqa: E402
-from tools.attn_fwd_ab import (bound_ms, in_turns, parent_function,  # noqa: E402
-                               time_ms)
+from kubeflow_tpu_torch.ops import rdma_ring_attention as rra  # noqa: E402
+from tools.attn_fwd_ab import (bound_ms, enqueue_us, in_turns,  # noqa: E402
+                               parent_function, time_ms)
 
 SHAPES = [(1, s, 32, 8, 128) for s in (128, 512, 1000, 2048)] + [
     (12, 1024, 16, 8, 128)]  # (B, S, H, KH, D), causal, T = S
-REPS = 20
+RING_SHAPE = (4, 1, 32768, 32, 8, 128)  # n, B, S, H, KH, D
+REPS, RING_REPS, HOST_REPS = 20, 3, 5
 AGREE_REL_L2 = 1e-2
 
 
@@ -84,6 +94,118 @@ def _sdpa_bwd_ms(q, k, v, do) -> float:
     go = do.transpose(1, 2)
     return time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), go,
                                                retain_graph=True), REPS)
+
+
+def ring_bwd_calls(fns, shards, outs, what, rank=None):
+    """(dq call, dk/dv call) of one tree's ring entry points into `outs`,
+    each launching every rank (or only `rank`)."""
+    qs, ks, vs, dos, lses, deltas = shards
+    n = len(qs)
+    b, s, h, d = qs[0].shape
+    kh = ks[0].shape[2]
+    kp, vp, qp, dop, lp, dp = (rra._ring_ptrs(x) for x in (ks, vs, qs, dos,
+                                                            lses, deltas))
+    stream = torch.cuda.current_stream().cuda_stream
+    ranks = range(n) if rank is None else [rank]
+    dq, dk, dv = outs
+
+    def check(err, kernel, me):
+        if err != 0:
+            raise RuntimeError(f"{what} ring {kernel} launch for rank {me} "
+                               f"failed: CUDA error {err}")
+
+    def call_dq():
+        for me in ranks:
+            check(fns[0](qs[me].data_ptr(), ctypes.addressof(kp),
+                         ctypes.addressof(vp), dos[me].data_ptr(),
+                         lses[me].data_ptr(), deltas[me].data_ptr(),
+                         dq[me].data_ptr(), n, me, b, s, h, kh, d,
+                         1.0 / math.sqrt(d), stream), "dq", me)
+
+    def call_dkv():
+        for me in ranks:
+            check(fns[1](ctypes.addressof(qp), ctypes.addressof(dop),
+                         ctypes.addressof(lp), ctypes.addressof(dp),
+                         ks[me].data_ptr(), vs[me].data_ptr(),
+                         dk[me].data_ptr(), dv[me].data_ptr(), n, me, b, s,
+                         h, kh, d, 1.0 / math.sqrt(d), stream), "dk/dv", me)
+    return call_dq, call_dkv
+
+
+def _sdpa_global_bwd_ms(q, k, v, do, reps) -> float:
+    """SDPA's causal backward over the whole sequence, K/V expanded to q's
+    heads outside the timing, on the fused backends only (the math
+    backend's [S, S] scores would not fit), as chip_smoke.py's phase 2d."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    group = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    kt, vt = (x.repeat_interleave(group, dim=2).transpose(1, 2).detach()
+              .requires_grad_() for x in (k, v))
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                      SDPBackend.EFFICIENT_ATTENTION]):
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)
+        go = do.transpose(1, 2)
+        return time_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), go, retain_graph=True), reps)
+
+
+def ring_row(parent, gen) -> dict:
+    """The ring backward of both trees at RING_SHAPE, in turns."""
+    symbols = ("tpk_rdma_bwd_dq", "tpk_rdma_bwd_dkv")
+    old_fns = [parent_function(parent, "rdma_ring.cu", s) for s in symbols]
+    new_fns = [_build.function("rdma_ring.cu", s) for s in symbols]
+    n, b, s_glob, h, kh, d = RING_SHAPE
+    q, do = (torch.randn(b, s_glob, h, d, generator=gen, device="cuda")
+             .bfloat16() for _ in range(2))
+    k, v = (torch.randn(b, s_glob, kh, d, generator=gen, device="cuda")
+            .bfloat16() for _ in range(2))
+    out, lse = rra._rdma_fwd_cuda(q, k, v, n)
+    delta = fa._bwd_delta(do, out, None)
+    shards = [rra._shards(x, n) for x in (q, k, v, do, lse, delta)]
+    outs = {w: tuple([torch.empty_like(x) for x in shards[i]]
+                     for i in (0, 1, 2)) for w in ("old", "new")}
+    calls = {w: ring_bwd_calls(fns, shards, outs[w], w)
+             for w, fns in (("old", old_fns), ("new", new_fns))}
+    for w in ("old", "new"):
+        for call in calls[w]:
+            call()
+    torch.cuda.synchronize()
+    agree = {name: _rel_l2(torch.cat(outs["new"][i], dim=1),
+                           torch.cat(outs["old"][i], dim=1))
+             for i, name in enumerate(("dq", "dk", "dv"))}
+    row = {"kernel": "rdma_bwd", "shape": f"n{n} B{b} S{s_glob} H{h} "
+           f"KH{kh} D{d} causal", "rel_l2_new_vs_old": agree}
+    for i, key in enumerate(("dq", "dkv")):
+        old, new = calls["old"][i], calls["new"][i]
+        row[f"{key}_old_ms"], row[f"{key}_new_ms"] = in_turns(old, new,
+                                                              RING_REPS)
+        (row[f"{key}_old_enqueue_us"],
+         row[f"{key}_new_enqueue_us"]) = in_turns(old, new, HOST_REPS,
+                                                  enqueue_us)
+        by_rank = [in_turns(
+            ring_bwd_calls(old_fns, shards, outs["old"], "old", me)[i],
+            ring_bwd_calls(new_fns, shards, outs["new"], "new", me)[i],
+            RING_REPS) for me in range(n)]
+        row[f"{key}_old_ms_by_rank"] = [o for o, _ in by_rank]
+        row[f"{key}_new_ms_by_rank"] = [c for _, c in by_rank]
+    pairs = b * s_glob * (s_glob + 1) // 2 * h
+    io = 2 * (q.numel() + k.numel() + v.numel()) + 2 * do.numel()
+    stats = 2 * 4 * lse.numel()
+    row["dq_bound_ms"], row["dq_bound_by"] = bound_ms(
+        6 * d * pairs, io + stats + 2 * q.numel())
+    row["dkv_bound_ms"], row["dkv_bound_by"] = bound_ms(
+        8 * d * pairs, io + stats + 2 * (k.numel() + v.numel()))
+    row["sdpa_bwd_ms"] = _sdpa_global_bwd_ms(q, k, v, do, RING_REPS)
+    causal = fa.MaskSpec("causal")
+    fout, flse = fa._flash_fwd_cuda(q, k, v, causal)
+    fdelta = fa._bwd_delta(do, fout, None)
+    row["flash_global_dq_ms"] = time_ms(lambda: fa._flash_bwd_dq_cuda(
+        q, k, v, do, flse, fdelta, causal), RING_REPS)
+    row["flash_global_dkv_ms"] = time_ms(lambda: fa._flash_bwd_dkv_cuda(
+        q, k, v, do, flse, fdelta, causal), RING_REPS)
+    return row
 
 
 def main() -> int:
@@ -141,6 +263,11 @@ def main() -> int:
         print(json.dumps(row), flush=True)
         if max(agree.values()) > AGREE_REL_L2:
             bad.append(row["shape"])
+    row = ring_row(args.parent, gen)
+    rows.append(row)
+    print(json.dumps(row), flush=True)
+    if max(row["rel_l2_new_vs_old"].values()) > AGREE_REL_L2:
+        bad.append(row["shape"])
     if args.out:
         os.makedirs(args.out.parent, exist_ok=True)
         args.out.write_text(json.dumps({"card": card, "rows": rows},
