@@ -6,7 +6,7 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
   1. device: require CUDA, print the card, build every kernel from source
      (one nvcc per source, all started together); the ptxas reports of the
      wgmma kernels (both attention forwards, the flash and ring dq and dk/dv
-     backward) must show no spill stores;
+     backward, the int8 matmul) must show no spill stores;
   2. kernels: the forward kernel against its plain PyTorch version on the
      card, at the serving shapes, with its time, the plain version's, one
      library call's (a yardstick the port never calls) and its bound;
@@ -15,9 +15,13 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
      (and the forward kernel's and SDPA's forward times there);
   2c. the W8A8 int8 matmul through its op entry point `int8_matmul` at the
      llama3_8b projection shapes (prefill and decode widths), launches
-     counted, then against its plain version (bit for bit at fp32 output,
-     equal at bf16) there and at the JAX test's ragged shapes, with its
-     time, the plain version's, torch._int_mm's and its bound;
+     counted (all of the wgmma + TMA kernel), then against its plain version
+     (bit for bit at fp32 output, equal at bf16) there and at the JAX
+     test's ragged shapes, each shape launching the kernel its plan names
+     (the byte-wise one where TMA cannot describe the shape), with the
+     kernel's time, the op's with quantization, the plain version's,
+     torch._int_mm's on the N-major weight and on a K-major copy, and its
+     bound;
   2e. the CUDA-core flash kernels (forward, dq, dk/dv for the inputs the
      wgmma kernels do not take) against the plain versions at the attention
      shapes of phase 6's configs and at llama_1b's widths in fp32 at seq
@@ -187,10 +191,11 @@ QUANT_PROMPT = 2048
 # bounds those).
 QMM_SHAPES = [(2048, 4096, 14336), (2048, 14336, 4096), (32, 4096, 14336),
               (32, 4096, 4096)]
-# The JAX test's shapes (ragged M, N and K: byte-wise staging where K % 16
-# or N % 16 is not 0), one odd M, and ragged M and N on the cp.async path.
+# The JAX test's shapes (ragged M, N and K: the byte-wise kernel where K %
+# 16 or N % 16 is not 0), one odd M, ragged M and N on the wgmma + TMA
+# kernel, and llama3_8b's k/v projection at 32 rows (8 tiles: split K).
 QMM_RAGGED = [(100, 384, 200), (64, 128, 128), (32, 100, 64),
-              (33, 4096, 4096), (130, 64, 144)]
+              (33, 4096, 4096), (130, 64, 144), (32, 4096, 1024)]
 # Phase 2d: ring attention at every (n, B, S, (H, KH), D) of these (S 800 at
 # n 4 and 8 gives ragged shards of 200 and 100 rows), then the full-width
 # shape: llama3_8b's attention widths (H 32, KH 8, D 128) at 32768 tokens
@@ -204,11 +209,12 @@ RING_REPS, RING_PLAIN_KV_HEADS = 3, 2
 KERNEL_DESIGN = "wgmma+tma"
 # The kernels whose ptxas report must show no spill stores (their consumer
 # warpgroups hold the wgmma accumulators in registers: the forward's S, O
-# and P, dq's S, dP and dQ, dk/dv's dK and dV; a spill there is lost
-# overlap).
+# and P, dq's S, dP and dQ, dk/dv's dK and dV, the int8 matmul's int32
+# tile and its register A fragments; a spill there is lost overlap).
 NO_SPILL_KERNELS = ("flash_fwd_kernel", "rdma_fwd_kernel",
                     "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
-                    "rdma_bwd_dq_kernel", "rdma_bwd_dkv_kernel")
+                    "rdma_bwd_dq_kernel", "rdma_bwd_dkv_kernel",
+                    "qmm_wgmma_kernel")
 # Phase 2e: besides phase 6's attention shapes, llama_1b's widths in fp32
 # at batch 2, seq 1024, where launch overhead does not hide the kernels.
 SIMT_EXTRA_CASE = (2, 1024, 1024, 16, 8, 128, fa.MaskSpec("causal"), False,
@@ -574,40 +580,56 @@ def _qmm_inputs(m, k, n, gen, dev):
 
 def phase_qmm() -> dict:
     """int8_matmul's path (the op at the 8B projection shapes, launches
-    counted), then the kernel against _int8_matmul_plain: equal bit for bit
-    at fp32 output, equal at bf16, on every shape."""
+    counted: every one of the wgmma + TMA kernel), then the op against
+    _int8_matmul_plain: equal bit for bit at fp32 output, equal at bf16, on
+    every shape, each launching the kernel _qmm_plan names for it."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     inputs = {shape: _qmm_inputs(*shape, gen, dev)
               for shape in QMM_SHAPES + QMM_RAGGED}
-    qmm.qmm_launches = 0
+    qmm.qmm_launches = qmm.qmm_wgmma_launches = 0
     for shape in QMM_SHAPES:
         x, qw, sw = inputs[shape]
         out = qmm.int8_matmul(x, qw, sw)
         if out.shape != (shape[0], shape[2]):
             raise RuntimeError(f"int8_matmul gave shape {tuple(out.shape)}")
     torch.cuda.synchronize()
-    launches = qmm.qmm_launches
+    launches, wgmma = qmm.qmm_launches, qmm.qmm_wgmma_launches
     log(f"  int8_matmul at the {len(QMM_SHAPES)} projection shapes: "
-        f"{launches} kernel launches")
-    if launches != len(QMM_SHAPES):
-        raise RuntimeError("int8_matmul did not launch its kernel")
+        f"{launches} kernel launches, {wgmma} of the wgmma + TMA kernel")
+    if launches != len(QMM_SHAPES) or wgmma != len(QMM_SHAPES):
+        raise RuntimeError("int8_matmul did not launch the wgmma kernel at "
+                           "every projection shape")
     rows, worst = [], 0.0
     for shape, (x, qw, sw) in inputs.items():
         m, k, n = shape
         qx, sx = qmm.quantize_activations(x)
+        plan = qmm._qmm_plan(m, k, n, sms)
+        if (k % 16 or n % 16) and plan.kernel != qmm.BYTEWISE:
+            raise RuntimeError(f"M{m} K{k} N{n}: TMA cannot describe it, "
+                               f"yet the plan is {plan}")
         for out_dtype in (torch.float32, torch.bfloat16):
+            before = qmm.qmm_launches, qmm.qmm_wgmma_launches
             got = qmm.int8_matmul(x, qw, sw, out_dtype=out_dtype)
             want = qmm._int8_matmul_plain(qx, sx, qw, sw, out_dtype)
             torch.cuda.synchronize()
+            ran = (qmm.WGMMA if qmm.qmm_wgmma_launches > before[1]
+                   else qmm.BYTEWISE)
+            if qmm.qmm_launches != before[0] + 1 or ran != plan.kernel:
+                raise RuntimeError(f"M{m} K{k} N{n}: the {ran} kernel ran, "
+                                   f"the plan names {plan.kernel}")
             err = (got.float() - want.float()).abs().max().item()
             if not torch.equal(got, want):
                 raise RuntimeError(f"int8_matmul differs from its plain "
                                    f"version at {shape} {out_dtype}: max abs "
                                    f"{err:.3e}")
             worst = max(worst, err)
+        what = (f"{plan.kernel} kernel (bm {plan.bm}, splits {plan.splits})"
+                if plan.kernel == qmm.WGMMA else f"{plan.kernel} kernel")
         if shape not in QMM_SHAPES:
-            log(f"  M{m} K{k} N{n}: equal to the plain version (fp32, bf16)")
+            log(f"  M{m} K{k} N{n}: {what}, equal to the plain version "
+                "(fp32, bf16)")
             continue
         # Bytes: qx, sx, qw, sw read once, fp32 out written once.
         nbytes = m * k + 4 * m + k * n + 4 * n + 4 * m * n
@@ -615,19 +637,30 @@ def phase_qmm() -> dict:
         bound = max(ops_s, mem_s) * 1e3
         bound_by = "operations" if ops_s >= mem_s else "bytes"
         ms = time_ms(lambda: qmm._int8_matmul_cuda(qx, sx, qw, sw))
+        op_ms = time_ms(lambda: qmm.int8_matmul(x, qw, sw))
         plain_ms = time_ms(lambda: qmm._int8_matmul_plain(qx, sx, qw, sw),
                            reps=3)
         # torch._int_mm: cuBLASLt's int8 GEMM (int32 out, no epilogue); it
         # takes M > 16 and K, N multiples of 8. Timed here, never called
-        # by the port.
+        # by the port: on the N-major weight as the op holds it, and on a
+        # K-major copy (made outside the timing), the TN layout it wants.
         library_ms = time_ms(lambda: torch._int_mm(qx, qw))
+        qwt = qw.t().contiguous()
+        library_kmajor_ms = time_ms(lambda: torch._int_mm(qx, qwt.t()))
+        del qwt
         quant_ms = time_ms(lambda: qmm.quantize_activations(x))
-        log(f"  M{m} K{k} N{n}: ms {ms:.4f} ({2 * m * k * n / ms / 1e9:.1f} "
-            f"TOP/s) plain_ms {plain_ms:.4f} library_ms (_int_mm) "
-            f"{library_ms:.4f} bound_ms {bound:.4f} ({bound_by}); "
-            f"activation quantization {quant_ms:.4f} ms; equal (fp32, bf16)")
-        rows.append({"shape": f"M{m} K{k} N{n}", "ms": ms,
-                     "plain_ms": plain_ms, "library_ms": library_ms,
+        log(f"  M{m} K{k} N{n}: {what}: ms {ms:.4f} "
+            f"({2 * m * k * n / ms / 1e9:.1f} TOP/s, {bound / ms:.1%} of "
+            f"bound) op_ms (with quantization) {op_ms:.4f} plain_ms "
+            f"{plain_ms:.4f} library_ms (_int_mm, N-major) {library_ms:.4f} "
+            f"(K-major) {library_kmajor_ms:.4f} bound_ms {bound:.4f} "
+            f"({bound_by}); activation quantization {quant_ms:.4f} ms; "
+            "equal (fp32, bf16)")
+        rows.append({"shape": f"M{m} K{k} N{n}", "design": plan.kernel,
+                     "bm": plan.bm, "splits": plan.splits, "ms": ms,
+                     "op_ms": op_ms, "plain_ms": plain_ms,
+                     "library_ms": library_ms,
+                     "library_ms_kmajor": library_kmajor_ms,
                      "bound_ms": bound, "bound_by": bound_by,
                      "quantize_ms": quant_ms})
     del inputs
@@ -1804,8 +1837,10 @@ def main() -> int:
         "launches": q8["launches"], "max_abs_err": q8["max_abs_err"],
         "ms": qmain["ms"], "plain_ms": qmain["plain_ms"],
         "bound_ms": qmain["bound_ms"], "bound_by": qmain["bound_by"],
-        "library_ms": qmain["library_ms"], "shape": qmain["shape"],
-        "by_shape": q8["rows"],
+        "library_ms": qmain["library_ms"],
+        "library_ms_kmajor": qmain["library_ms_kmajor"],
+        "op_ms": qmain["op_ms"], "shape": qmain["shape"],
+        "design": qmain["design"], "by_shape": q8["rows"],
     }, *({
         "name": name, "route": "cuda",
         "source": "kubeflow_tpu_torch/ops/csrc/rdma_ring.cu",

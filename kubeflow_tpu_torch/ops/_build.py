@@ -52,8 +52,9 @@ SIGNATURES = {
         "tpk_flash_simt_bwd_dkv": [_I] + [_P] * 9 + _MASK_ARGS,
     },
     "qmm.cu": {
-        # qx, sx, qw, sw, out, M, K, N, out_bf16, stream
-        "tpk_qmm": [_P] * 5 + [_I] * 4 + [_P],
+        # qx, sx, qw, sw, out, ws, tickets, M, K, N, out_bf16, bm, splits,
+        # stream
+        "tpk_qmm": [_P] * 7 + [_I] * 6 + [_P],
     },
     "rdma_ring.cu": {
         # A *_ring argument is the address of a host array of n pointers.

@@ -2,9 +2,11 @@
 would find wrong on the card, caught where neither can run.
 
 Every quoted `#include` under `kubeflow_tpu_torch/ops/csrc/` must name a
-file there, and every kernel whose ptxas report chip_smoke.py checks for
+file there, every kernel whose ptxas report chip_smoke.py checks for
 spills (`NO_SPILL_KERNELS`) must be a `__global__` function of some `.cu`
-file there. chip_smoke.py is parsed, not imported.
+file there, and every `extern "C"` entry point must take as many arguments
+as `_build.SIGNATURES` declares for it (ctypes would pass a short list
+without complaint). chip_smoke.py is parsed, not imported.
 """
 
 import ast
@@ -13,11 +15,14 @@ from pathlib import Path
 
 import pytest
 
+from kubeflow_tpu_torch.ops import _build
+
 ROOT = Path(__file__).resolve().parents[1]
 CSRC = ROOT / "kubeflow_tpu_torch" / "ops" / "csrc"
 SOURCES = sorted(p.name for p in CSRC.iterdir()
                  if p.suffix in (".cu", ".cuh"))
 INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+EXTERN_C = re.compile(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)')
 GLOBAL = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
                     r"(\w+)\s*\(")
 
@@ -68,3 +73,32 @@ def test_the_global_pattern_reads_the_kernel_declarations():
             "kThreads, 1)\nrdma_bwd_dq_kernel(const __grid_constant__ "
             "DqParams p) {\n}\n__global__ void plain_kernel(int x) {}\n")
     assert GLOBAL.findall(text) == ["rdma_bwd_dq_kernel", "plain_kernel"]
+
+
+def _entry_points(source: str) -> dict:
+    """{symbol: argument count} of the extern "C" functions of a source."""
+    text = (CSRC / source).read_text()
+    return {name: len([a for a in args.split(",") if a.strip()])
+            for name, args in EXTERN_C.findall(text)}
+
+
+def test_the_new_matmul_kernel_is_checked_for_spills():
+    """The wgmma int8 matmul is in NO_SPILL_KERNELS, and it is a
+    __global__ function of qmm.cu."""
+    assert "qmm_wgmma_kernel" in _no_spill_kernels()
+    assert "qmm_wgmma_kernel" in GLOBAL.findall((CSRC / "qmm.cu").read_text())
+
+
+@pytest.mark.parametrize("source,symbol", [
+    (src, sym) for src, syms in _build.SIGNATURES.items() for sym in syms])
+def test_every_entry_point_takes_the_declared_argument_count(source, symbol):
+    assert _entry_points(source).get(symbol) == len(
+        _build.SIGNATURES[source][symbol]), (
+        f"{source}: extern \"C\" {symbol} and _build.SIGNATURES differ")
+
+
+def test_the_entry_point_pattern_counts_arguments():
+    text = ('extern "C" int tpk_x(const void* a, void* b,\n'
+            '                     int M, void* stream) {\n}\n')
+    assert EXTERN_C.findall(text)[0][0] == "tpk_x"
+    assert len(EXTERN_C.findall(text)[0][1].split(",")) == 4

@@ -647,32 +647,81 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
                             tfa.MaskSpec("causal"))
 
 
+INT8_CASES = [
+    # (m, k, n, codes): the JAX test's shapes and earlier cases
+    (100, 384, 200, "random"), (64, 128, 128, "random"),
+    (32, 100, 64, "random"), (33, 4096, 4096, "random"),
+    (130, 64, 136, "random"), (130, 64, 144, "random"), (1, 16, 8, "random"),
+    # every wgmma tile height, and M one past or short of a tile
+    *((m, 1024, 512, "random") for m in (1, 8, 31, 33, 255, 257)),
+    (32, 4112, 512, "random"),  # K not a multiple of the 128-deep stage
+    (48, 512, 4112, "random"),  # N a multiple of 16, not of the 128-wide tile
+    (48, 512, 16, "random"),
+    (32, 4096, 4096, "random"),  # 32 tiles at decode widths: no split
+    (32, 4096, 1024, "random"),  # 8 tiles: split-K, 4 runs
+    # every product +-127 * 127: int32 partial sums near 2^28 across splits
+    (32, 16384, 512, "extreme"),
+]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,k,n", [(100, 384, 200), (64, 128, 128),
-                                   (32, 100, 64), (33, 4096, 4096),
-                                   (130, 64, 136), (130, 64, 144),
-                                   (1, 16, 8)])
-def test_int8_matmul_kernel_equals_plain(cuda, m, k, n, out_dtype):
+@pytest.mark.parametrize("m,k,n,codes", INT8_CASES)
+def test_int8_matmul_kernel_equals_plain(cuda, m, k, n, codes, out_dtype):
     """The int32 sum is exact in both and the epilogue multiplies in the
-    same order, so the kernel equals its plain version bit for bit: on
-    shapes staged byte-wise (K % 16 or N % 16 not 0) and through cp.async,
-    ragged M and N included."""
+    same order, so the kernels equal the plain version bit for bit: the
+    byte-wise kernel (K % 16 or N % 16 not 0) and the wgmma kernel at every
+    tile height, ragged M, N and K, and split along K. Each shape launches
+    the kernel `_qmm_plan` names for it."""
     rng = np.random.default_rng(m + k + n)
-    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)
-                         ).to(cuda)
-    qw = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(np.int8)
-                          ).to(cuda)
+    if codes == "extreme":  # x = +-1 quantizes to +-127 exactly
+        x = np.where(rng.random((m, k)) < 0.5, -1.0, 1.0)
+        qw = np.where(rng.random((1, n)) < 0.5, -127, 127).repeat(k, axis=0)
+    else:
+        x = rng.standard_normal((m, k))
+        qw = rng.integers(-127, 128, (k, n))
+    x = torch.from_numpy(x.astype(np.float32)).to(cuda)
+    qw = torch.from_numpy(qw.astype(np.int8)).to(cuda)
     sw = torch.from_numpy(rng.uniform(1e-3, 1e-2, n).astype(np.float32)
                           ).to(cuda)
-    before = tqm.qmm_launches
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = tqm._qmm_plan(m, k, n, sms)
+    before = tqm.qmm_launches, tqm.qmm_wgmma_launches
     got = tqm.int8_matmul(x, qw, sw, out_dtype=out_dtype)
     torch.cuda.synchronize()
-    assert tqm.qmm_launches == before + 1
+    assert tqm.qmm_launches == before[0] + 1
+    assert tqm.qmm_wgmma_launches == before[1] + (plan.kernel == tqm.WGMMA)
+    if (m, k, n) == (32, 4096, 1024) or codes == "extreme":
+        assert plan.splits > 1
     qx, sx = tqm.quantize_activations(x)
     want = tqm._int8_matmul_plain(qx, sx, qw, sw, out_dtype)
     assert got.dtype == out_dtype
     assert torch.equal(got, want)
+    # A second launch on the same stream reuses the split tickets: they
+    # were left at zero.
+    again = tqm.int8_matmul(x, qw, sw, out_dtype=out_dtype)
+    assert torch.equal(again, want)
+
+
+@pytest.mark.gpu
+def test_int8_matmul_misaligned_operand_takes_the_bytewise_kernel(cuda):
+    """A view whose base is not 16-byte aligned cannot be a TMA map: the
+    byte-wise kernel takes it, and the result is still exact."""
+    rng = np.random.default_rng(5)
+    qx = torch.empty(32 * 256 + 1, dtype=torch.int8, device=cuda)[1:].view(
+        32, 256)  # contiguous, its base one byte past an allocation's
+    qx.copy_(torch.from_numpy(rng.integers(-127, 128, (32, 256)).astype(
+        np.int8)))
+    assert qx.data_ptr() % 16 != 0
+    qw = torch.from_numpy(rng.integers(-127, 128, (256, 128)).astype(np.int8)
+                          ).to(cuda)
+    sx, sw = torch.rand(32, device=cuda), torch.rand(128, device=cuda)
+    before = tqm.qmm_launches, tqm.qmm_wgmma_launches
+    got = tqm._int8_matmul_cuda(qx, sx, qw, sw)
+    torch.cuda.synchronize()
+    assert (tqm.qmm_launches, tqm.qmm_wgmma_launches) == (before[0] + 1,
+                                                          before[1])
+    assert torch.equal(got, tqm._int8_matmul_plain(qx, sx, qw, sw))
 
 
 @pytest.mark.gpu

@@ -104,3 +104,82 @@ def test_cpu_tensors_never_launch_the_kernel():
     tqm.int8_matmul(torch.from_numpy(x), torch.from_numpy(qw),
                     torch.from_numpy(sw))
     assert tqm.qmm_launches == before
+
+
+# (M, K, N) for the plan's checks: the 2c and A/B shapes, ragged edges,
+# shapes TMA cannot describe, and tiny and huge outputs.
+PLAN_SHAPES = [(2048, 4096, 14336), (2048, 14336, 4096), (32, 4096, 14336),
+               (32, 4096, 4096), (1, 4096, 14336), (8, 4096, 4096),
+               (512, 4096, 14336), (33, 4096, 4096), (257, 1024, 512),
+               (32, 4112, 512), (48, 512, 4112), (48, 512, 16),
+               (32, 16384, 512), (130, 64, 144), (64, 128, 128),
+               (100, 384, 200), (32, 100, 64), (1, 16, 8), (7, 0, 32),
+               (32, 4096, 1024), (8, 4096, 2048)]
+SM_COUNTS = (132, 114, 8)
+
+
+@pytest.mark.parametrize("sms", SM_COUNTS)
+@pytest.mark.parametrize("m,k,n", PLAN_SHAPES)
+def test_plan_covers_k_m_and_n_exactly(m, k, n, sms):
+    """The splits' [k0, k1) runs tile [0, K) with no gap, overlap or empty
+    run, each starting on a 128-deep stage; the tiles cover M and N with
+    no tile wholly past either."""
+    plan = tqm._qmm_plan(m, k, n, sms)
+    if plan.kernel == tqm.WGMMA:
+        ranges = plan.k_ranges(k)
+        assert len(ranges) == plan.splits
+        assert ranges[0][0] == 0 and ranges[-1][1] == k
+        for (a0, a1), (b0, _) in zip(ranges, ranges[1:]):
+            assert a1 == b0
+        assert all(k0 < k1 and k0 % 128 == 0 for k0, k1 in ranges)
+        assert plan.bm in (32, 64, 128, 256)
+        assert plan.bm >= m or plan.bm == 256
+    else:
+        assert (plan.bm, plan.splits) == (0, 1)
+    bm = plan.bm or 128
+    assert (plan.m_tiles - 1) * bm < m <= plan.m_tiles * bm
+    assert (plan.n_tiles - 1) * 128 < n <= plan.n_tiles * 128
+
+
+@pytest.mark.parametrize("sms", SM_COUNTS)
+@pytest.mark.parametrize("m,k,n", PLAN_SHAPES)
+def test_plan_splits_only_where_the_tiles_leave_sms_idle(m, k, n, sms):
+    """No split where the tiles alone fill the card; never more splits
+    than 128-deep stages or than the cap; a split plan puts no more stages
+    on the busiest SM than one split would."""
+    plan = tqm._qmm_plan(m, k, n, sms)
+    if plan.tiles >= sms or plan.kernel == tqm.BYTEWISE:
+        assert plan.splits == 1
+    n_k = -(-k // 128)
+    assert 1 <= plan.splits <= max(1, min(n_k, 16))
+    assert plan.splits == 1 or plan.bm <= 64
+    if plan.splits > 1:
+        # every unit runs at once, and the busiest SM streams fewer stages
+        assert plan.tiles * plan.splits <= min(32, sms)
+        assert -(-n_k // plan.splits) < n_k
+
+
+def test_plan_splits_at_decode_widths():
+    """llama3_8b's k/v projections at 32 decode rows (N 1024: 8 tiles) split
+    K into 4 runs; its 4096- and 14336-wide projections (32 and 112 tiles)
+    already give 32 weight streams or more, and prefill widths fill the
+    card: no split there."""
+    assert tqm._qmm_plan(32, 4096, 1024, 132).splits == 4
+    assert tqm._qmm_plan(32, 16384, 512, 132).splits == 8
+    assert tqm._qmm_plan(32, 4096, 4096, 132).splits == 1
+    assert tqm._qmm_plan(32, 14336, 4096, 132).splits == 1
+    assert tqm._qmm_plan(32, 4096, 14336, 132).splits == 1
+    assert tqm._qmm_plan(2048, 4096, 14336, 132).splits == 1
+    assert tqm._qmm_plan(2048, 14336, 4096, 132).splits == 1
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("m,k,n", PLAN_SHAPES)
+def test_plan_takes_the_bytewise_kernel_exactly_where_tma_cannot(m, k, n,
+                                                                 aligned):
+    """TMA needs 16-byte row strides and bases: K % 16, N % 16, an
+    unaligned operand (or K = 0) send the shape to the byte-wise kernel,
+    and nothing else does."""
+    plan = tqm._qmm_plan(m, k, n, 132, aligned=aligned)
+    tma_out = k % 16 != 0 or n % 16 != 0 or not aligned or k == 0
+    assert (plan.kernel == tqm.BYTEWISE) == tma_out
