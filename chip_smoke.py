@@ -26,6 +26,15 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
      wgmma kernels do not take) against the plain versions at the attention
      shapes of phase 6's configs and at llama_1b's widths in fp32 at seq
      1024, with their times, the plain versions', SDPA's and their bounds;
+  2f. the W8A16 matmul (`int8_weight_matmul`, csrc/w8a16.cu: int8 weight
+     codes, activations in the compute dtype, the scale in the epilogue)
+     against its plain version at llama3_8b's projection and unembedding
+     shapes at decode widths (M 1, 4, 16), the projections at prefill
+     buckets (M 128, 2048) and small bf16/fp16/fp32 shapes with ragged M
+     (the GPU tests' W8A16_CASES): rel-L2 within 4e-3 (bf16/fp16) or 1e-5
+     (fp32), two launches bit-identical; at the 8B shapes its time (the
+     weight read cold), bound, plain version's and torch.mm's on a
+     pre-cast bf16 weight;
   2d. context-parallel ring attention (`rdma_ring_attention`, all ranks on
      this card): the forward, dq and dk/dv kernels (one launch per rank)
      against their plain versions at small shapes (rings of 2, 4 and 8,
@@ -37,14 +46,22 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
   3. model: full-width, full-depth llama3_8b logits with attention through
      the kernel against the same weights through the plain version;
   4. serving: a llama3_8b bundle behind the port's HTTP server answering
-     concurrent :generate requests; the kernel launch counts show that every
-     first-chunk prefill ran through the kernel;
+     concurrent :generate requests at the default pipeline_depth 2; the
+     kernel launch counts show that every first-chunk prefill ran through
+     the kernel, the overlap counters that the loop kept a chunk in flight
+     while it fetched another; the longest greedy prompt alone on a second
+     server at pipeline_depth 1 gives the depth-2 repeat's ids (both step
+     times logged);
   4b. paged serving: the same bundle with a paged KV pool (block size 16);
-     the longest greedy prompt alone gives phase 4's ids;
+     the longest greedy prompt alone gives phase 4's ids, at depth 2 and
+     on a depth-1 server;
   4c. quantized serving: int8 weights and an int8 paged KV pool, phase 4's
-     six requests (prefill still through the flash kernel, int8_matmul never
-     called), peak memory at least 5 GiB under phase 4's; then the int8
-     model's logits against a bf16 model holding the same codes dequantized;
+     six requests (prefill still through the flash kernel, every int8
+     projection and unembedding through the W8A16 kernel, int8_matmul never
+     called, no int8-weight-shaped copy in a decode chunk), peak memory at
+     least 5 GiB under phase 4's, the longest prompt's ids and step time
+     at depth 1 against depth 2; then the int8 model's logits against a
+     bf16 model holding the same codes dequantized;
   5. training: llama_1b at full width and depth through the trainer's entry
      point (batch 12, seq 1024, 3 warm-up + 10 timed steps): finite losses,
      the first near ln(V), every step's launches (2 forward per layer under
@@ -70,6 +87,7 @@ import contextlib
 import dataclasses
 import gc
 import io
+import itertools
 import json
 import math
 import os
@@ -83,6 +101,7 @@ import urllib.request
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
@@ -92,6 +111,7 @@ from kubeflow_tpu_torch.ops import _build  # noqa: E402
 from kubeflow_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from kubeflow_tpu_torch.ops import quant_matmul as qmm  # noqa: E402
 from kubeflow_tpu_torch.ops import rdma_ring_attention as rra  # noqa: E402
+from kubeflow_tpu_torch.ops import w8a16 as w8  # noqa: E402
 from kubeflow_tpu_torch.ops.reference import naive_attention  # noqa: E402
 from kubeflow_tpu_torch.parallel import Mesh  # noqa: E402
 from kubeflow_tpu_torch.serve import quant as squant  # noqa: E402
@@ -669,6 +689,106 @@ def phase_qmm() -> dict:
             "max_abs_err": worst}
 
 
+# Phase 2f: the unembedding epilogue's source line (the XLA-fused int8
+# branch the kernel stands for; not a TPU kernel).
+W8A16_REPLACES = "kubeflow_tpu/serve/quant.py:260"
+# Weight bytes a cold timing rotates through: past the 50 MB L2, as a
+# model's layers find each weight.
+W8A16_COLD_BYTES = 120e6
+# The kernels line reports this shape (the decode gate/up projection at
+# phase 4c's four rows).
+W8A16_MAIN = (4, 4096, 14336)
+
+
+def _rotating(fn, copies) -> callable:
+    """A zero-argument call of fn on each of `copies` in turn."""
+    turn = itertools.cycle(copies)
+    return lambda: fn(next(turn))
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host microseconds to enqueue one call of `fn` (no synchronise inside
+    the timing; the device work is far shorter than the queue)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
+def phase_w8a16(gk) -> dict:
+    """int8_weight_matmul against _int8_weight_matmul_plain at the GPU
+    tests' W8A16_CASES (their check: two launches bit-identical, rel-L2
+    within W8A16_TOL), then, at the 8B shapes, the kernel's time with the
+    weight rotating past the L2, its bound, the plain version's time and
+    torch.mm's on a pre-cast copy of the weight in the compute dtype (fp32
+    output, the scale, the cast: the library yardstick, never called by
+    the port)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    rows, worst_abs, worst_rel = [], 0.0, 0.0
+    for case in gk.W8A16_CASES:
+        m, k, n, dtype, rf = case
+        x, q, scale = gk.w8a16_inputs(m, k, n, dtype, gen, dev)
+        plan = w8._w8a16_plan(m, k, n, dtype)
+        err = gk.w8a16_check(x, q, scale, rf)
+        worst_abs = max(worst_abs, err["max_abs"])
+        worst_rel = max(worst_rel, err["rel_l2"])
+        what = (f"{gk.w8a16_case_id(case)}: {plan.kernel} kernel"
+                + (f", {plan.splits} splits" if plan.splits > 1 else "")
+                + f", rel_l2 {err['rel_l2']:.2e} (bound "
+                f"{gk.W8A16_TOL[dtype]}), two launches bit-identical")
+        if n * k < 4096 * 1024:  # the small shapes: correctness only
+            log(f"  {what}")
+            continue
+        es = x.element_size()
+        nbytes = m * k * es + n * k + 4 * n + m * n * es
+        bound, bound_by = _bound(2 * m * n * k, nbytes)
+        copies = [q] + [q.clone() for _ in range(
+            max(0, math.ceil(W8A16_COLD_BYTES / (n * k)) - 1))]
+        ms = time_ms(_rotating(lambda w: w8.int8_weight_matmul(
+            x, w, scale, round_before_scale=rf), copies))
+        del copies
+        plain_ms = time_ms(lambda: w8._int8_weight_matmul_plain(
+            x, q, scale, rf), reps=3)
+        wides = [q.to(dtype)]
+        wides += [wides[0].clone() for _ in range(max(0, math.ceil(
+            W8A16_COLD_BYTES / (n * k * es)) - 1))]
+        library_ms = time_ms(_rotating(lambda w: (torch.mm(
+            x, w.t(), out_dtype=torch.float32) * scale).to(dtype), wides))
+        # The host's share of a decode step: enqueue time of one call of
+        # the op, of its plain version and of the library call, at decode
+        # widths (at prefill widths the device's queue would fill).
+        enqueue = {} if m > 16 else {name: host_us(fn) for name, fn in (
+            ("op", lambda: w8.int8_weight_matmul(
+                x, q, scale, round_before_scale=rf)),
+            ("plain", lambda: w8._int8_weight_matmul_plain(x, q, scale, rf)),
+            ("library", lambda: (torch.mm(x, wides[0].t(),
+                                          out_dtype=torch.float32)
+                                 * scale).to(dtype)))}
+        del wides
+        log(f"  {what}; ms {ms:.4f} ({bound / ms:.1%} of bound) plain_ms "
+            f"{plain_ms:.4f} library_ms (torch.mm, pre-cast weight) "
+            f"{library_ms:.4f} bound_ms {bound:.4f} ({bound_by})"
+            + ("; host enqueue us a call: " + ", ".join(
+                f"{k} {v:.1f}" for k, v in enqueue.items()) if enqueue
+               else ""))
+        rows.append({"shape": f"M{m} K{k} N{n}", "kernel": plan.kernel,
+                     "splits": plan.splits, "unembed": rf, "ms": ms,
+                     "plain_ms": plain_ms, "library_ms": library_ms,
+                     "bound_ms": bound, "bound_by": bound_by,
+                     "rel_l2": err["rel_l2"], "host_us": enqueue})
+        del x, q, scale
+    torch.cuda.empty_cache()
+    main = next(r for r in rows
+                if r["shape"] == "M{} K{} N{}".format(*W8A16_MAIN))
+    return {"rows": rows, "main": main, "max_abs_err": worst_abs,
+            "rel_l2_err": worst_rel}
+
+
 def _ring_counts() -> tuple:
     return (rra.rdma_fwd_launches, rra.rdma_bwd_dq_launches,
             rra.rdma_bwd_dkv_launches)
@@ -1103,6 +1223,56 @@ def _decode_line(stats: dict, weight_bytes: float) -> float:
     return step_ms
 
 
+#: The engine counters of the overlapped loop, logged by every serving
+#: phase.
+PIPELINE_COUNTERS = ("decode_fetch_overlapped", "decode_fetch_blocking",
+                     "admit_overlap", "decode_dead_slot_chunks",
+                     "decode_wasted_tokens", "host_stall_seconds")
+
+
+def _pipeline_line(stats: dict, what: str) -> None:
+    """Log the overlap counters; fail unless some fetch overlapped a chunk
+    in flight (the loop did not re-serialise)."""
+    log(f"  pipeline ({what}): " + ", ".join(
+        f"{k} {stats[k]:.3f}" if isinstance(stats[k], float)
+        else f"{k} {stats[k]}" for k in PIPELINE_COUNTERS))
+    if stats["decode_fetch_overlapped"] <= 0:
+        raise RuntimeError("no decode fetch overlapped a chunk in flight: "
+                           "the depth-2 loop re-serialised")
+
+
+def _step_ms(before: dict, after: dict) -> float:
+    """Host-inclusive engine ms per decode step between two stats
+    snapshots."""
+    steps = (after["decode_dispatches"] - before["decode_dispatches"]) * CHUNK
+    return (after["decode_seconds"] - before["decode_seconds"]) / steps * 1e3
+
+
+def _alone_at_depth1(bundle: str, generative: dict, body: dict,
+                     **spec) -> tuple:
+    """(response, host-inclusive ms per step) of `body` alone on a server
+    of the same bundle at pipeline_depth 1."""
+    with _serving(bundle, {**generative, "pipeline_depth": 1},
+                  **spec) as (base, _):
+        out = _post(f"{base}/v1/models/{MODEL}:generate", body)
+        ms = _step_ms({"decode_dispatches": 0, "decode_seconds": 0.0},
+                      _metadata(base)["stats"])
+    return out, ms
+
+
+def _depth_line(depth2: dict, depth2_ms: float, depth1: dict,
+                depth1_ms: float) -> None:
+    """Log the longest prompt's step time at both depths; fail unless the
+    greedy ids are equal."""
+    same = depth1["output_ids"] == depth2["output_ids"]
+    log(f"  longest prompt alone: pipeline_depth 1 on a second server "
+        f"{'gives the same' if same else 'DIFFERS from the'} greedy ids "
+        f"as depth 2; ms per step (host-inclusive, 1 row): depth 2 "
+        f"{depth2_ms:.2f}, depth 1 {depth1_ms:.2f}")
+    if not same:
+        raise RuntimeError("depth-1 greedy ids differ from depth 2")
+
+
 def phase_serving(bundle: str) -> dict:
     """The port's main path: bundle -> server -> concurrent :generate.
     Returns the kernel launches and the numbers later phases compare
@@ -1116,11 +1286,19 @@ def phase_serving(bundle: str) -> dict:
         # bucket (4096) either way, so greedy ids must repeat exactly.
         again = _post(f"{base}/v1/models/{MODEL}:generate", bodies[-1])
         launches = fa.flash_fwd_launches
+        alone_ms = _step_ms(run["stats"], _metadata(base)["stats"])
+        depth = run["metadata"]["pipeline_depth"]
         prof = _profile_decode(server)
     results, stats, wall = run["results"], run["stats"], run["wall"]
     _check_outputs(results, cfg.vocab_size)
     if again["output_ids"] != results[-1]["output_ids"]:
         raise RuntimeError("repeated greedy prompt gave other ids")
+    if depth != 2:
+        raise RuntimeError(f"the bundle served at pipeline_depth {depth}, "
+                           "not the default 2")
+    _pipeline_line(stats, "6 concurrent requests")
+    sync, sync_ms = _alone_at_depth1(bundle, {}, bodies[-1])
+    _depth_line(again, alone_ms, sync, sync_ms)
     prefills = len(bodies) + 1  # each request's first chunk, + repeat
     expect = cfg.num_layers * prefills
     log(f"  6 concurrent requests in {wall:.3f}s; repeat greedy ids "
@@ -1134,7 +1312,8 @@ def phase_serving(bundle: str) -> dict:
         raise RuntimeError("prefill did not go through the kernel")
     return {"launches": launches, "peak": run["peak"], "step_ms": step_ms,
             "tok_s": stats["decode_tokens"] / stats["decode_seconds"],
-            "repeat": again, "profile": prof}
+            "repeat": again, "profile": prof, "alone_ms": alone_ms,
+            "sync_alone_ms": sync_ms}
 
 
 def phase_paged(bundle: str, flat: dict) -> dict:
@@ -1149,11 +1328,19 @@ def phase_paged(bundle: str, flat: dict) -> dict:
         out = _post(f"{base}/v1/models/{MODEL}:generate", body)
         launches = fa.flash_fwd_launches
         peak = torch.cuda.max_memory_allocated()
-        info = _metadata(base)["paged_kv"]
+        md = _metadata(base)
+        info = md["paged_kv"]
+    _pipeline_line(md["stats"], "the longest prompt alone")
+    step_ms = _step_ms({"decode_dispatches": 0, "decode_seconds": 0.0},
+                       md["stats"])
+    sync, sync_ms = _alone_at_depth1(
+        bundle, {"kv_block_size": KV_BLOCK_SIZE}, body)
+    _depth_line(out, step_ms, sync, sync_ms)
     same = out["output_ids"] == flat["repeat"]["output_ids"]
     log(f"  longest prompt ({len(body['input_ids'])} tokens) alone: greedy "
         f"ids {'identical to' if same else 'DIFFER from'} phase 4's flat "
-        f"repeat; latency {out['latency_s']:.3f}s; {launches} flash_fwd "
+        f"repeat; latency {out['latency_s']:.3f}s, {step_ms:.2f} ms per "
+        f"step (host-inclusive, 1 row); {launches} flash_fwd "
         f"launches; peak {peak / 2**30:.2f} GiB; pool {info['blocks']} "
         f"blocks of {info['block_size']} rows, after it "
         f"{info['blocks_used']} used, {info['blocks_free']} free")
@@ -1162,7 +1349,8 @@ def phase_paged(bundle: str, flat: dict) -> dict:
     if info["blocks_used"] != 0 or launches != cfg.num_layers:
         raise RuntimeError("paged request leaked blocks or skipped the "
                            "flash kernel")
-    return {"out": out, "peak": peak}
+    return {"out": out, "peak": peak, "step_ms": step_ms,
+            "sync_ms": sync_ms}
 
 
 def phase_quant(bundle: str, flat: dict, paged: dict) -> dict:
@@ -1175,13 +1363,48 @@ def phase_quant(bundle: str, flat: dict, paged: dict) -> dict:
     with _serving(bundle, gen, quantize="int8") as (base, server):
         fa.flash_fwd_launches = 0
         qmm.qmm_launches = 0
+        w8.w8a16_launches = 0
         run = _concurrent(base, bodies)
         again = _post(f"{base}/v1/models/{MODEL}:generate", bodies[-1])
         launches, qmm_calls = fa.flash_fwd_launches, qmm.qmm_launches
+        w8_calls = w8.w8a16_launches
+        after = _metadata(base)
         qbytes = run["metadata"]["quantize"]
+        copies = _int8_weight_copies(server)
         prof = _profile_decode(server)
-    results, stats = run["results"], run["stats"]
+    results, stats, total = run["results"], run["stats"], after["stats"]
     _check_outputs(results, cfg.vocab_size)
+    _pipeline_line(stats, "6 concurrent requests")
+    alone_ms = _step_ms(stats, total)
+    sync, sync_ms = _alone_at_depth1(bundle, gen, bodies[-1],
+                                     quantize="int8")
+    _depth_line(again, alone_ms, sync, sync_ms)
+    if after["paged_kv"]["blocks_used"] != 0:
+        raise RuntimeError(f"{after['paged_kv']['blocks_used']} pool blocks "
+                           "still in use after every request finished")
+    # Every model forward runs 7 projections a layer through the kernel,
+    # and every unembedding one more: each decode step's, and those of each
+    # admission that samples: its first chunk (prefill) and, for a prompt
+    # longer than the largest bucket, its last (extend).
+    big = max(GENERATIVE["prefill_buckets"])
+    admitted = list(PROMPT_LENS) + [PROMPT_LENS[-1]]  # + the repeat
+    if total["requests"] != len(admitted):
+        raise RuntimeError(f"{total['requests']} admissions, expected "
+                           f"{len(admitted)}")
+    samples = sum(1 + (n > big) for n in admitted)
+    steps = total["decode_dispatches"] * CHUNK
+    w8_expect = (7 * cfg.num_layers * (total["prefill_chunks"] + steps)
+                 + samples + steps)
+    log(f"  w8a16 launches {w8_calls} (expected 7 x {cfg.num_layers} x "
+        f"({total['prefill_chunks']} prefill chunks + {steps} decode steps)"
+        f" + {samples} admission + {steps} decode unembeddings = "
+        f"{w8_expect}); int8-weight-shaped copies in a decode chunk: "
+        f"{copies}")
+    if w8_calls != w8_expect:
+        raise RuntimeError("int8 serving did not run every projection and "
+                           "unembedding through the W8A16 kernel")
+    if copies:
+        raise RuntimeError(f"a decode chunk copied int8 weights: {copies}")
     expect = cfg.num_layers * (len(bodies) + 1)
     saving = (flat["peak"] - run["peak"]) / 2**30
     log(f"  6 concurrent requests in {run['wall']:.3f}s; pool blocks in use "
@@ -1219,8 +1442,9 @@ def phase_quant(bundle: str, flat: dict, paged: dict) -> dict:
     return {"peak": run["peak"], "step_ms": step_ms,
             "tok_s": stats["decode_tokens"] / stats["decode_seconds"],
             "saving_gib": saving, "quantized_bytes": qbytes,
-            "launches": launches, "logprob_drift": drift, "profile": prof,
-            **model_gate}
+            "launches": launches, "w8a16_launches": w8_calls,
+            "alone_ms": alone_ms, "sync_alone_ms": sync_ms,
+            "logprob_drift": drift, "profile": prof, **model_gate}
 
 
 def _greedy_drift(a: dict, b: dict) -> tuple:
@@ -1343,6 +1567,7 @@ _FAMILIES = (
     ("flash_fwd", ("flash_fwd",)),
     ("flash_bwd_dq", ("flash_bwd_dq",)),
     ("flash_bwd_dkv", ("flash_bwd_dkv",)),
+    ("w8a16", ("w8a16",)),
     ("matmul (cuBLAS)", ("gemm", "cutlass", "xmma", "nvjet", "cublas",
                          "sm90")),
     ("copies and casts", ("direct_copy", "copy_kernel")),
@@ -1394,10 +1619,11 @@ def _profile_step(step_fn, state, batch) -> None:
     _profile("step", lambda: step_fn(state, batch))
 
 
-def _profile_decode(server: ModelServer) -> dict | None:
-    """One decode chunk (CHUNK steps, every slot at position 3000, greedy)
-    through the idle engine's own decode function, profiled. Paged engines
-    get tables over blocks 1.. (the pool is idle: nothing lives there)."""
+def _decode_chunk(server: ModelServer):
+    """(one decode chunk of the idle engine as a zero-argument call: CHUNK
+    steps, every slot at position 3000, greedy, through the engine's own
+    decode function; its rows, its bucket). Paged engines get tables over
+    blocks 1.. (the pool is idle: nothing lives there)."""
     engine = server.models[MODEL].engine
     dev, n = engine.device, engine.n_slots
     pos = PROMPT_LENS[-1]
@@ -1411,16 +1637,53 @@ def _profile_decode(server: ModelServer) -> dict | None:
         nb = bucket // engine.kv_info()["block_size"]
         args.insert(0, torch.arange(1, 1 + n * nb, device=dev).view(n, nb))
     chunk_fn = engine._decode[(bucket, False)]
+    return (lambda: chunk_fn(engine._cache, *args, engine._gen)), n, bucket
+
+
+class _Int8Copies(TorchDispatchMode):
+    """Records the shape of every aten._to_copy of an int8 tensor whose
+    shape is one of `shapes`."""
+
+    def __init__(self, shapes):
+        super().__init__()
+        self.shapes, self.seen = shapes, []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if (func.overloadpacket is torch.ops.aten._to_copy
+                and args[0].dtype == torch.int8
+                and tuple(args[0].shape) in self.shapes):
+            self.seen.append(tuple(args[0].shape))
+        return func(*args, **(kwargs or {}))
+
+
+def _int8_weight_copies(server: ModelServer) -> list:
+    """Shapes of int8-weight-shaped aten._to_copy calls that one decode
+    chunk makes (a weight-sized cast the W8A16 kernel exists to avoid)."""
+    model = server.models[MODEL].engine.model
+    shapes = {tuple(m.q.shape) for m in model.modules()
+              if isinstance(m, squant.Int8Dense)}
+    shapes |= {s[::-1] for s in shapes}
+    call, _, _ = _decode_chunk(server)
+    rec = _Int8Copies(shapes)
+    with torch.inference_mode(), rec:
+        call()
+    torch.cuda.synchronize()
+    return rec.seen
+
+
+def _profile_decode(server: ModelServer) -> dict | None:
+    """One decode chunk (`_decode_chunk`), profiled, and its unprofiled
+    wall time."""
+    call, n, bucket = _decode_chunk(server)
     with torch.inference_mode():
-        chunk_fn(engine._cache, *args, engine._gen)  # warm
+        call()  # warm
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        chunk_fn(engine._cache, *args, engine._gen)
+        call()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
         rec = _profile(f"decode chunk ({CHUNK} steps, {n} rows, bucket "
-                       f"{bucket})",
-                       lambda: chunk_fn(engine._cache, *args, engine._gen))
+                       f"{bucket})", call)
     if rec:
         # The profiler's own host overhead stretches its wall: the idle
         # share is read against the same chunk run unprofiled just before.
@@ -1738,6 +2001,8 @@ def main() -> int:
     simt = phase_simt(gk)
     log("phase 2c: the W8A8 int8 matmul vs its plain version")
     q8 = phase_qmm()
+    log("phase 2f: the W8A16 matmul vs its plain version")
+    w8r = phase_w8a16(gk)
     log("phase 2d: ring attention kernels vs plain (all ranks on this "
         "card)")
     ring = phase_ring()
@@ -1763,7 +2028,8 @@ def main() -> int:
         "take the config")
     simt_launches = phase_auto(gk)
     log(f"  phases 2-6 took {time.monotonic() - t0:.1f}s")
-    main_row, bmain, qmain = kern["main"], bwd["main"], q8["main"]
+    main_row, bmain, qmain, wmain = (kern["main"], bwd["main"], q8["main"],
+                                     w8r["main"])
     smain = simt["main"]
     fwd_launches = {"serving": flat["launches"],
                     "paged_quant_serving": quant["launches"],
@@ -1841,6 +2107,17 @@ def main() -> int:
         "library_ms_kmajor": qmain["library_ms_kmajor"],
         "op_ms": qmain["op_ms"], "shape": qmain["shape"],
         "design": qmain["design"], "by_shape": q8["rows"],
+    }, {
+        "name": "w8a16", "route": "cuda",
+        "source": "kubeflow_tpu_torch/ops/csrc/w8a16.cu",
+        "replaces": W8A16_REPLACES,
+        "tpu_kernel": False,
+        "launches": quant["w8a16_launches"],
+        "max_abs_err": w8r["max_abs_err"], "rel_l2_err": w8r["rel_l2_err"],
+        "ms": wmain["ms"], "plain_ms": wmain["plain_ms"],
+        "bound_ms": wmain["bound_ms"], "bound_by": wmain["bound_by"],
+        "library_ms": wmain["library_ms"], "shape": wmain["shape"],
+        "design": wmain["kernel"], "by_shape": w8r["rows"],
     }, *({
         "name": name, "route": "cuda",
         "source": "kubeflow_tpu_torch/ops/csrc/rdma_ring.cu",

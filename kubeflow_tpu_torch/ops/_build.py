@@ -56,6 +56,12 @@ SIGNATURES = {
         # stream
         "tpk_qmm": [_P] * 7 + [_I] * 6 + [_P],
     },
+    "w8a16.cu": {
+        # x, q, scale, out, ws, tickets, M, K, N, dtype (0 fp32, 1 bf16,
+        # 2 fp16), round_first, kernel (0 simt, 1 gemv, 2 mma), splits,
+        # stream
+        "tpk_w8a16": [_P] * 6 + [_I] * 7 + [_P],
+    },
     "rdma_ring.cu": {
         # A *_ring argument is the address of a host array of n pointers.
         # q, k_ring, v_ring, o, lse, then _RING_ARGS

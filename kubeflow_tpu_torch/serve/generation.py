@@ -1,7 +1,7 @@
 """Generative LLM serving: KV-cache decode, sampling, continuous batching.
 
-The port of the flat and paged paths of `kubeflow_tpu/serve/generation.py`
-at pipeline depth 1:
+The port of the flat and paged paths of `kubeflow_tpu/serve/generation.py`,
+with its overlapped scheduler:
 
   * flat (the default): one slot-batched KV cache [L, slots, max_len, KH,
     D] on the device; stale slot content needs no eviction — absolute-
@@ -26,11 +26,28 @@ at pipeline depth 1:
     blocks (paged);
   * decode runs `chunk` steps per dispatch over the smallest cache-length
     bucket covering every active row, sampling on the device;
+  * up to `pipeline_depth` (default 2, as in JAX) decode chunks are in
+    flight: chunk k+1 is enqueued, chained through the cache and chunk k's
+    last tokens on the device, before chunk k's tokens are fetched, and an
+    admission is enqueued behind the chunks in flight with its first token
+    left on the device until a later poll or fetch. Host-to-device
+    arguments go through pinned buffers without a stream sync, and each
+    chunk's tokens come back by a non-blocking copy and an event: the
+    fetch's wait on that event is the one designed host sync. Rows of a
+    chunk dispatched for a request that has since finished are dropped at
+    the fetch (`decode_dead_slot_chunks`, `decode_wasted_tokens`); the
+    dead rows' writes land in the retired slot's tail (flat) or its freed
+    blocks and the NULL block (paged), all enqueued, on the one stream,
+    before the next admission's insert overwrites them. Depth 1 is the
+    synchronous loop: dispatch, fetch, repeat;
   * finished slots are re-admitted between chunks.
 
 Sampling is greedy (temperature 0), temperature, top-k and top-p, per row,
-with draws from the engine's own seeded `torch.Generator`. The draws are
-not the JAX package's: only greedy output is comparable across packages.
+with draws from the engine's own seeded `torch.Generator`, taken as work is
+enqueued. The draws are not the JAX package's: only greedy output is
+comparable across packages. Depth 2 may order an admission's draws
+differently from depth 1 when requests overlap (as in JAX); a single
+request draws the same stream at any depth.
 """
 
 from __future__ import annotations
@@ -101,8 +118,12 @@ def sample_tokens(logits, temperature, generator, top_k=None, top_p=None):
             cutoff = sorted_desc.gather(-1, cutoff_idx)
             keep &= torch.where(top_p[:, None] < 1.0, scaled >= cutoff, True)
         scaled = torch.where(keep, scaled, NEG_INF)
-    sampled = torch.multinomial(torch.softmax(scaled, dim=-1), 1,
-                                generator=generator)[:, 0]
+    probs = torch.softmax(scaled, dim=-1)
+    # torch.multinomial's own draw for one sample, an exponential race
+    # (argmax p / E with E ~ Exp(1)): the same draws and the same ids,
+    # without its input checks, which are two host syncs a call on CUDA.
+    race = torch.empty_like(probs).exponential_(1.0, generator=generator)
+    sampled = (probs / race).argmax(dim=-1)
     return torch.where(temperature > 0, sampled, greedy)
 
 
@@ -258,13 +279,22 @@ def build_engine_fns(model, *, max_len: int, chunk: int,
     return fns
 
 
+def _wait(event) -> None:
+    """Block the host until `event` has passed: the engine's one designed
+    host sync (a chunk's fetch, or a first token read before its copy was
+    seen to land)."""
+    event.synchronize()
+
+
 class GenerationEngine:
     """Slot-based continuous-batching decode loop over one global cache.
 
     `submit()` is thread-safe and blocks until the request completes; one
     worker thread runs every device call, multiplexing the in-flight
     requests onto the slot batch: admit waiting requests into free slots,
-    dispatch one decode chunk, fetch its tokens, emit, repeat.
+    keep up to `pipeline_depth` decode chunks in flight, fetch the oldest,
+    emit, repeat. `pipeline_depth` 1 fetches each chunk before the next is
+    dispatched.
 
     `kv_block_size` > 0 pages the cache: `slots` is then the decode width
     and memory is the pool of `kv_blocks` blocks (0 sizes it to the flat
@@ -273,8 +303,8 @@ class GenerationEngine:
     def __init__(self, model, *, slots: int = 4, max_len: int = 256,
                  chunk: int = 16, prefill_buckets: Sequence[int] = (32, 128),
                  decode_buckets: Sequence[int] | None = None, seed: int = 0,
-                 kv_block_size: int = 0, kv_blocks: int = 0,
-                 kv_quant: str = "none"):
+                 pipeline_depth: int = 2, kv_block_size: int = 0,
+                 kv_blocks: int = 0, kv_quant: str = "none"):
         cfg = model.cfg
         self.model, self.cfg = model, cfg
         self.device = model.device
@@ -291,6 +321,12 @@ class GenerationEngine:
         if cfg.mask_kind != "causal":
             raise ValueError(f"generative serving needs a causal model; got "
                              f"mask_kind={cfg.mask_kind!r}")
+        if int(pipeline_depth) < 1:
+            raise ValueError(
+                f"pipeline_depth must be >= 1, got {pipeline_depth}")
+        self.pipeline_depth = int(pipeline_depth)
+        #: Decode chunks in flight right now (read by metadata).
+        self.inflight_depth = 0
         self.prefill_buckets = sorted(
             {min(int(b), self.max_len) for b in prefill_buckets})
         # Length-aware decode: attention cost tracks the longest active
@@ -304,7 +340,6 @@ class GenerationEngine:
         self.decode_buckets = sorted(
             {int(b) for b in decode_buckets
              if self.chunk < int(b) < self.max_len} | {self.max_len})
-        self.pipeline_depth = 1
         self._paged = int(kv_block_size) > 0
         self._kv_bs = int(kv_block_size)
         if self._paged:
@@ -351,9 +386,16 @@ class GenerationEngine:
         self._wake = threading.Event()
         self._stop = False
         self._stats_lock = threading.Lock()
+        # decode_seconds is the union of the intervals in which some chunk
+        # was in flight, so throughput() does not count overlap twice.
+        # host_stall_seconds: time blocked in the fetch's wait.
         self.stats = {"requests": 0, "prompt_tokens": 0, "decode_tokens": 0,
                       "decode_seconds": 0.0, "decode_dispatches": 0,
-                      "prefill_chunks": 0}
+                      "prefill_chunks": 0, "decode_fetch_overlapped": 0,
+                      "decode_fetch_blocking": 0, "admit_overlap": 0,
+                      "decode_dead_slot_chunks": 0, "decode_wasted_tokens": 0,
+                      "host_stall_seconds": 0.0}
+        self._busy_mark: float | None = None
         self._slots: list[dict | None] = [None] * self.n_slots
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="generate-engine")
@@ -453,10 +495,39 @@ class GenerationEngine:
         if blocks:
             self._kv_alloc.decref(blocks)
 
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        """A host array on the engine's device without a stream sync. On
+        CUDA it goes through a pinned staging copy and a non-blocking
+        transfer (a pageable copy would wait for every chunk in flight);
+        PyTorch's pinned-memory allocator hands the staging block out again
+        only after the transfer that reads it has run."""
+        t = torch.from_numpy(a)
+        if self.device.type != "cuda":
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _to_host(self, *tensors) -> tuple:
+        """Start copying device tensors to the host: (host tensors, event).
+        On CUDA the copies land in pinned buffers behind everything
+        enqueued so far and the event marks their arrival; on the CPU the
+        tensors are their own host copies and the event is None."""
+        if self.device.type != "cuda":
+            return tensors, None
+        host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                     for t in tensors)
+        for h, t in zip(host, tensors):
+            h.copy_(t, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        return host, event
+
     def _admit(self, slot: int, req: dict) -> None:
         """Chunked prefill into a fragment, insert it into `slot` (flat) or
-        into the request's reserved blocks (paged), emit the first sampled
-        token. Paged: raises _NeedKVBlocks when the pool is short now."""
+        into the request's reserved blocks (paged). At depth 1 the first
+        sampled token is fetched and emitted here; deeper, it stays on the
+        device as the slot's `pending` decode carry (its host copy under
+        way) and is emitted at a later poll or fetch. Paged: raises
+        _NeedKVBlocks when the pool is short now."""
         table = None
         if self._paged:
             table = self._kv_alloc.alloc(self._need_blocks(
@@ -470,33 +541,36 @@ class GenerationEngine:
             else:
                 self._fns["insert_paged"](
                     self._cache, frag,
-                    torch.tensor(table, dtype=torch.long, device=self.device))
+                    self._to_device(np.asarray(table, np.int64)))
         except BaseException:
             if table is not None:
                 self._kv_alloc.decref(table)
             raise
         ids = req["input_ids"]
-        st = {"req": req, "idx": len(ids), "disp": len(ids),
-              "last": int(tok0[0])}
+        st = {"req": req, "idx": len(ids), "disp": len(ids), "last": None,
+              "pending": None}
         if table is not None:
             st["blocks"] = table
+        if self.pipeline_depth > 1:
+            st["pending"] = (tok0, *self._to_host(tok0, lp0))
+        else:
+            st["last"] = int(tok0[0])
         self._slots[slot] = st
         with self._stats_lock:
             self.stats["prefill_chunks"] += -(-len(ids)
                                               // self.prefill_buckets[-1])
             self.stats["requests"] += 1
             self.stats["prompt_tokens"] += len(ids)
-        self._emit(slot, st, [st["last"]], [float(lp0[0])])
+        if st["pending"] is None:
+            self._emit(slot, st, [st["last"]], [float(lp0[0])])
 
     def _prefill_fragment(self, req: dict):
         """The prompt's chunked prefill into a one-row fragment cache:
         (fragment, first sampled token [1], its logprob [1])."""
-        dev = self.device
         ids = req["input_ids"]
-        samp = (torch.tensor([req["temperature"]], dtype=torch.float32,
-                             device=dev),
-                torch.tensor([req["top_k"]], dtype=torch.int64, device=dev),
-                torch.tensor([req["top_p"]], dtype=torch.float32, device=dev))
+        samp = (self._to_device(np.array([req["temperature"]], np.float32)),
+                self._to_device(np.array([req["top_k"]], np.int64)),
+                self._to_device(np.array([req["top_p"]], np.float32)))
         big = self.prefill_buckets[-1]
         fns = self._fns
         frag, done = None, 0
@@ -505,7 +579,7 @@ class GenerationEngine:
             final = done + len(piece) >= len(ids)
             toks = np.zeros((1, self._bucket_for(len(piece))), np.int64)
             toks[0, :len(piece)] = piece
-            toks = torch.from_numpy(toks).to(dev)
+            toks = self._to_device(toks)
             if done == 0:
                 frag, tok0, lp0 = fns["prefill"](toks, len(piece), *samp,
                                                  self._gen)
@@ -519,28 +593,76 @@ class GenerationEngine:
 
     def _emit(self, slot: int, st: dict, tokens: list[int],
               logprobs: list[float]) -> None:
-        """Append generated tokens; retire on EOS / budget / context end."""
+        """Append generated tokens to `st`'s request; retire on EOS /
+        budget / context end. `st` is passed, not read from the slot: a
+        fetched chunk may belong to a request that already retired and
+        whose slot holds another; a finished request takes no more tokens,
+        and only the slot that still holds it is freed."""
         req = st["req"]
-        finished = False
+        finished = req["done"].is_set()
         for tok, lp in zip(tokens, logprobs):
+            if finished:
+                break
             req["out"].append(tok)
             req["out_logprobs"].append(lp)
             if ((req["eos_id"] is not None and tok == req["eos_id"])
                     or len(req["out"]) >= req["max_tokens"]):
                 finished = True
-                break
         if st["idx"] >= self.max_len - 1:
             finished = True
         if finished:
             req["done"].set()
-            self._slots[slot] = None
+            if self._slots[slot] is st:
+                self._slots[slot] = None
             if self._paged:
                 self._free_slot_blocks(st)
 
-    def _admit_waiting(self) -> None:
+    def _emit_pending(self, slot: int, st: dict) -> None:
+        """Deliver a deferred first token. Its copy was enqueued right after
+        the prefill, ahead of any chunk that carries the slot, so by a
+        fetch of such a chunk the wait is already over."""
+        _, (tok_h, lp_h), event = st["pending"]
+        st["pending"] = None
+        if event is not None:
+            _wait(event)
+        st["last"] = int(tok_h[0])
+        self._emit(slot, st, [st["last"]], [float(lp_h[0])])
+
+    def _poll_pending_first(self) -> None:
+        """Emit deferred first tokens whose host copy has landed (the
+        event's query does not block): time to first token is not held to
+        the next fetch, and a request done at its first token (EOS,
+        max_tokens 1) frees its slot before a chunk is spent on it."""
+        for slot, st in enumerate(self._slots):
+            if st is None or st["pending"] is None:
+                continue
+            event = st["pending"][2]
+            if event is not None and not event.query():
+                continue
+            self._emit_pending(slot, st)
+
+    def _worth_speculating(self, active: list[int]) -> bool:
+        """Gate for dispatching a chunk while others are in flight: never
+        past the context end, and never when the tokens in flight (and
+        pending first tokens) already cover every active row's budget.
+        EOS is unknowable on the host: a retirement wastes at most
+        pipeline_depth - 1 chunks, counted in decode_wasted_tokens."""
+        if (max(self._slots[i]["disp"] for i in active) + self.chunk
+                > self.max_len):
+            return False
+        for i in active:
+            st = self._slots[i]
+            inflight = st["disp"] - st["idx"] + (st["pending"] is not None)
+            if len(st["req"]["out"]) + inflight < st["req"]["max_tokens"]:
+                return True
+        return False
+
+    def _admit_waiting(self, overlap: bool) -> None:
         """Fill free slots from the queue. Paged: a request the pool cannot
         cover yet waits at the head of the line (FIFO: nothing jumps it),
-        and admission resumes as retirements free blocks."""
+        and admission resumes as retirements free blocks. With `overlap`
+        (chunks in flight) the admission's work is enqueued behind them
+        with no host sync, counted by `admit_overlap`."""
         for slot in range(self.n_slots):
             while self._slots[slot] is None:
                 if self._kv_stash:
@@ -561,10 +683,20 @@ class GenerationEngine:
                     req["error"] = f"{type(e).__name__}: {e}"
                     req["done"].set()
                     self._slots[slot] = None
+                    continue
+                if overlap:
+                    with self._stats_lock:
+                        self.stats["admit_overlap"] += 1
 
-    def _dispatch_chunk(self, active: list[int]) -> dict:
-        """One decode chunk over the slot batch. The cache-length bucket is
-        the smallest covering every active row after this chunk."""
+    def _dispatch_chunk(self, active: list[int],
+                        carry: dict | None = None) -> dict:
+        """Enqueue one decode chunk over the slot batch without fetching
+        it. `carry` is the newest record still in flight: its last tokens,
+        on the device, are this chunk's inputs. Rows that did not ride it (a
+        mid-pipe admission's pending first token, a row whose host value is
+        current after a drain) are written into that vector on the device.
+        The cache-length bucket is the smallest covering every active row
+        after this chunk."""
         n = self.n_slots
         last = np.zeros((n,), np.int64)
         idx = np.zeros((n,), np.int64)
@@ -577,15 +709,28 @@ class GenerationEngine:
             temps[i] = st["req"]["temperature"]
             ks[i] = st["req"]["top_k"]
             ps[i] = st["req"]["top_p"]
-            last[i] = st["last"]
+            if st["pending"] is None:
+                last[i] = st["last"]
         trunc = any(ks[i] > 0 or ps[i] < 1.0 for i in active)
         need = int(idx.max()) + self.chunk
         bucket = next((b for b in self.decode_buckets if b >= need),
                       self.decode_buckets[-1])
         t0 = time.monotonic()
-        dev = self.device
-        args = [torch.from_numpy(a).to(dev)
-                for a in (last, idx, temps, ks, ps)]
+        if carry is None:
+            last_dev = self._to_device(last)
+        else:  # a copy: the record's own tokens are still to be fetched
+            last_dev = carry["toks"][:, -1].clone()
+        for i in active:
+            st = self._slots[i]
+            if carry is not None and carry["parts"].get(i) is st:
+                continue  # rides the carry
+            # In place on the device: an element assignment from a host
+            # value would be a pageable copy, which waits for the stream.
+            if st["pending"] is not None:
+                last_dev[i].copy_(st["pending"][0][0])
+            elif carry is not None:
+                last_dev[i].fill_(st["last"])
+        args = [last_dev] + [self._to_device(a) for a in (idx, temps, ks, ps)]
         if self._paged:
             # Per-row block tables, padded with the NULL block, from host
             # lists fixed at admission.
@@ -594,50 +739,98 @@ class GenerationEngine:
             for i in active:
                 blk = self._slots[i]["blocks"][:nb]
                 tables[i, :len(blk)] = blk
-            args.insert(0, torch.from_numpy(tables).to(dev))
+            args.insert(0, self._to_device(tables))
         self._cache, toks, lps = self._decode[(bucket, trunc)](
             self._cache, *args, self._gen)
+        host, event = self._to_host(toks, lps)
         with self._stats_lock:
             self.stats["decode_dispatches"] += 1
         for i in active:
             self._slots[i]["disp"] += self.chunk
-        return {"toks": toks, "lps": lps, "t0": t0,
+        return {"toks": toks, "host": host, "event": event, "t0": t0,
+                "chunk": self.chunk,
                 "parts": {i: self._slots[i] for i in active}}
 
-    def _fetch_chunk(self, rec: dict) -> None:
-        toks = rec["toks"].cpu().numpy()  # the host sync of each chunk
-        lps = rec["lps"].cpu().numpy()
+    def _fetch_chunk(self, rec: dict, overlapped: bool) -> None:
+        """Wait for one record's tokens (the designed host sync) and
+        reconcile: a part whose slot no longer holds its request, or whose
+        request finishes on its pending first token, is dead and its rows
+        are dropped. `overlapped`: another chunk was in flight meanwhile."""
+        t0 = time.monotonic()
+        if rec["event"] is not None:
+            _wait(rec["event"])
+        toks, lps = (h.numpy() for h in rec["host"])
+        now = time.monotonic()
+        start = (rec["t0"] if self._busy_mark is None
+                 else max(self._busy_mark, rec["t0"]))
         with self._stats_lock:
-            self.stats["decode_seconds"] += time.monotonic() - rec["t0"]
-            self.stats["decode_tokens"] += self.chunk * len(rec["parts"])
+            self.stats["host_stall_seconds"] += now - t0
+            self.stats["decode_fetch_overlapped" if overlapped
+                       else "decode_fetch_blocking"] += 1
+            self.stats["decode_seconds"] += now - start
+        self._busy_mark = now
         for i, st in rec["parts"].items():
-            st["idx"] += self.chunk
+            if self._slots[i] is st and st["pending"] is not None:
+                self._emit_pending(i, st)  # the chunk decoded from it
+            if self._slots[i] is not st:
+                with self._stats_lock:
+                    self.stats["decode_dead_slot_chunks"] += 1
+                    self.stats["decode_wasted_tokens"] += rec["chunk"]
+                continue
+            st["idx"] += rec["chunk"]
             st["last"] = int(toks[i, -1])
+            with self._stats_lock:
+                self.stats["decode_tokens"] += rec["chunk"]
             self._emit(i, st, [int(t) for t in toks[i]],
                        [float(v) for v in lps[i]])
 
+    def _fail_all(self, err: str, inflight: deque) -> None:
+        """A device call failed: fail every request in a slot or in a chunk
+        in flight, free its blocks once, drop the records."""
+        owners = {id(st): st for st in self._slots if st is not None}
+        for rec in inflight:
+            owners.update((id(st), st) for st in rec["parts"].values())
+        for st in owners.values():
+            if not st["req"]["done"].is_set():
+                st["req"]["error"] = f"decode failed:\n{err}"
+                st["req"]["done"].set()
+            if self._paged:
+                self._free_slot_blocks(st)
+        self._slots[:] = [None] * self.n_slots
+        inflight.clear()
+        self.inflight_depth = 0
+        self._busy_mark = None
+
     def _loop(self) -> None:
+        """Admit, poll pending first tokens, dispatch while fewer than
+        `pipeline_depth` chunks are in flight (and another one is worth
+        it), fetch the oldest. At depth 1 each round dispatches one chunk
+        and fetches it: the synchronous loop."""
+        inflight: deque = deque()
         with torch.inference_mode():
             while not self._stop:
-                self._admit_waiting()
-                active = [i for i, s in enumerate(self._slots)
-                          if s is not None]
-                if not active:
-                    self._wake.wait(0.05)
-                    self._wake.clear()
-                    continue
                 try:
-                    self._fetch_chunk(self._dispatch_chunk(active))
+                    self._admit_waiting(overlap=bool(inflight))
+                    self._poll_pending_first()
+                    active = [i for i, s in enumerate(self._slots)
+                              if s is not None]
+                    if not active and not inflight:
+                        self._busy_mark = None
+                        self._wake.wait(0.05)
+                        self._wake.clear()
+                        continue
+                    while (active and len(inflight) < self.pipeline_depth
+                           and (not inflight
+                                or self._worth_speculating(active))):
+                        inflight.append(self._dispatch_chunk(
+                            active, inflight[-1] if inflight else None))
+                        self.inflight_depth = len(inflight)
+                    if inflight:
+                        rec = inflight.popleft()
+                        self.inflight_depth = len(inflight)
+                        self._fetch_chunk(rec, overlapped=bool(inflight))
                 except Exception:  # fail the batch, keep serving
-                    err = traceback.format_exc()
-                    for i in active:
-                        st = self._slots[i]
-                        if st is not None:
-                            st["req"]["error"] = f"decode failed:\n{err}"
-                            st["req"]["done"].set()
-                            self._slots[i] = None
-                            if self._paged:
-                                self._free_slot_blocks(st)
+                    self._fail_all(traceback.format_exc(), inflight)
 
 
 #: Bundle `generative` keys of features this package does not port, with
@@ -649,7 +842,6 @@ _UNPORTED = {
     "kv_host_tier_blocks": ("paged KV host tier", 0),
     "adapters": ("multi-LoRA adapters", None),
     "mesh": ("tensor-parallel mesh", None),
-    "pipeline_depth": ("pipeline_depth > 1", 1),
     "role": ("disaggregated prefill/decode roles", "unified"),
     "tokenizer": ("tokenizers", None),
 }
@@ -721,6 +913,7 @@ class GenerativeTorchModel(Model):
         if self.engine:
             md["decode_buckets"] = list(self.engine.decode_buckets)
             md["pipeline_depth"] = self.engine.pipeline_depth
+            md["inflight_depth"] = self.engine.inflight_depth
             md["paged_kv"] = self.engine.kv_info()
             md["kv_quant"] = self.engine.kv_quant
         if self.quantization is not None:

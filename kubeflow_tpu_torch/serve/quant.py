@@ -7,16 +7,18 @@ Llama with int8 codes and fp32 per-output-channel scales (symmetric
 max-abs over the contraction dim), in place, module by module, freeing each
 float weight as it goes: an 8B model never holds an fp32 copy of itself.
 `Int8Dense` applies a quantized projection as the JAX `Int8DenseGeneral`
-does: the raw codes, cast to the compute dtype, go into the matmul, which
+does: the raw codes in the compute dtype go into the matmul, which
 accumulates in fp32; the scale multiplies the `[..., out]` output in fp32;
 the result is cast back. No weight-shaped dequantized tensor is made by a
 multiply. Serving is weight-only, as in the JAX package: this path never
 calls the W8A8 op `ops.quant_matmul.int8_matmul`.
 
-Known cost, measured in PERF.md: eager PyTorch materialises `q.to(bf16)`,
-a bf16 copy of each weight, per call (XLA fuses that convert into the
-matmul's operand read), so an int8 decode step moves more bytes than a bf16
-one.
+Both `Int8Dense` and `quant_unembed` go through `ops.w8a16.
+int8_weight_matmul`. On the card its kernels read the int8 codes and
+widen them in registers, as XLA fuses the JAX branch's convert into the
+dot's operand read, so an int8 step reads one byte per weight and makes no
+bf16 copy of any weight. On the CPU its plain version casts the codes to
+the compute dtype per call, the same arithmetic.
 
 Like `quantize_tree`, a projection is quantized when its weight, stacked
 over the layers as the JAX param tree holds it, has at least `min_size`
@@ -37,6 +39,8 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from kubeflow_tpu_torch.ops.w8a16 import int8_weight_matmul
 
 #: Legal `kv_quant` values. "none" keeps the pool in the model dtype.
 KV_QUANT_MODES = ("none", "int8", "fp8")
@@ -87,27 +91,13 @@ def _quantize_rows(w: torch.Tensor):
     return q, scale
 
 
-def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x [..., in] @ w [out, in]^T with fp32 output, both operands already
-    in the compute dtype. Half-precision operands on CUDA go through one
-    matmul with fp32 accumulation and fp32 output; elsewhere the operands
-    are widened to fp32 first (the same products: a half-precision product
-    is exact in fp32)."""
-    if x.dtype == torch.float32:
-        return F.linear(x, w)
-    if x.is_cuda:
-        out = torch.mm(x.reshape(-1, x.shape[-1]), w.t(),
-                       out_dtype=torch.float32)
-        return out.reshape(*x.shape[:-1], w.shape[0])
-    return F.linear(x.float(), w.float())
-
-
 class Int8Dense(nn.Module):
     """A bias-free projection stored as int8 codes `q` [out, in] and fp32
     per-output-channel scales `scale` [out] (buffers), applied in
     `compute_dtype` as the JAX Int8DenseGeneral's int8 branch: the input
-    and the raw codes cast to the compute dtype, an fp32-accumulating
-    matmul, the scale on the fp32 output, then the cast back."""
+    cast to the compute dtype times the raw codes, an fp32-accumulating
+    matmul, the scale on the fp32 output, then the cast back
+    (`int8_weight_matmul`)."""
 
     def __init__(self, in_features: int, out_features: int, compute_dtype,
                  device=None):
@@ -127,9 +117,8 @@ class Int8Dense(nn.Module):
         return mod
 
     def forward(self, x):
-        cd = self.compute_dtype
-        y = _matmul_f32(x.to(cd), self.q.to(cd))
-        return y.mul_(self.scale).to(cd)  # in place: y is this call's own
+        return int8_weight_matmul(x.to(self.compute_dtype), self.q,
+                                  self.scale)
 
 
 def quant_embed_lookup(embed, tokens, dtype):
@@ -148,8 +137,8 @@ def quant_unembed(x, embed, dtype):
     logits to `dtype` first, and so does this)."""
     if not isinstance(embed, Int8Dense):
         return F.linear(x, embed.to(dtype))
-    logits = F.linear(x, embed.q.to(dtype))
-    return (logits.float() * embed.scale).to(dtype)
+    return int8_weight_matmul(x.to(dtype), embed.q, embed.scale,
+                              round_before_scale=True)
 
 
 def _projections(model):

@@ -45,7 +45,7 @@ def _global_functions() -> set:
 def test_the_sources_are_there():
     """The parametrised checks below are not run over an empty list."""
     assert {"attn_fwd_sm90.cuh", "attn_bwd_sm90.cuh", "flash_fwd.cu",
-            "flash_bwd.cu", "rdma_ring.cu"} <= set(SOURCES)
+            "flash_bwd.cu", "rdma_ring.cu", "w8a16.cu"} <= set(SOURCES)
 
 
 @pytest.mark.parametrize("source", SOURCES)

@@ -146,7 +146,7 @@ def test_engine_rejects_bad_requests(tiny):
     ("prefix_cache", 4), ("draft", {"checkpoint": "x"}),
     ("kv_host_tier_blocks", 8),
     ("adapters", {"a": "dir"}), ("mesh", {"tensor": 2}),
-    ("pipeline_depth", 2), ("role", "decode"), ("tokenizer", "bytes"),
+    ("role", "decode"), ("tokenizer", "bytes"),
 ])
 def test_unported_engine_features_are_refused(tiny, key, value):
     _, _, tm = tiny

@@ -1,5 +1,6 @@
-"""The CUDA kernels (flash attention, the W8A8 int8 matmul, ring attention)
-against their plain versions, on the card.
+"""The CUDA kernels (flash attention, the W8A8 int8 matmul, ring attention,
+the W8A16 matmul) against their plain versions, on the card, and the
+serving engine's depth-2 loop under torch.cuda.set_sync_debug_mode.
 
 These tests need an NVIDIA GPU and skip without one. They import nothing
 of JAX, so they also run where JAX is not installed:
@@ -9,6 +10,7 @@ of JAX, so they also run where JAX is not installed:
 
 import dataclasses
 import math
+import threading
 
 import numpy as np
 import pytest
@@ -17,6 +19,7 @@ import torch
 from kubeflow_tpu_torch.ops import flash_attention as tfa
 from kubeflow_tpu_torch.ops import quant_matmul as tqm
 from kubeflow_tpu_torch.ops import rdma_ring_attention as trr
+from kubeflow_tpu_torch.ops import w8a16 as tw8
 from kubeflow_tpu_torch.parallel import Mesh
 
 CASES = [
@@ -838,3 +841,178 @@ def test_rdma_ring_kernels_refuse_what_they_do_not_take(cuda):
         trr.rdma_ring_attention(z, z, z, "seq", big)
     with pytest.raises(ValueError, match="mesh on"):
         trr.rdma_ring_attention(z.cpu(), z.cpu(), z.cpu(), "seq", mesh)
+
+
+# -- the W8A16 matmul (ops/w8a16.py over csrc/w8a16.cu) ----------------------
+
+#: llama3_8b's projections as (N, K): q and o, k and v, gate and up, down,
+#: then the 128256 x 4096 unembedding.
+W8A16_8B = [(4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336),
+            (128256, 4096)]
+#: (M, K, N, dtype, unembedding epilogue): the five 8B shapes at decode
+#: widths (M 1, 4, 16: the decode kernel), the four projections at prefill
+#: buckets (M 128, 2048: the tensor-core kernel), and small shapes with
+#: ragged M and N in every dtype, both epilogues (K 100: the CUDA-core
+#: kernel in every dtype). chip_smoke.py phase 2f runs the same list.
+W8A16_CASES = (
+    [(m, k, n, torch.bfloat16, n == 128256) for m in (1, 4, 16)
+     for n, k in W8A16_8B]
+    + [(m, k, n, torch.bfloat16, False) for m in (128, 2048)
+       for n, k in W8A16_8B[:4]]
+    + [(m, k, n, dt, rf)
+       for dt in (torch.bfloat16, torch.float16, torch.float32)
+       for m, k, n in ((3, 64, 72), (13, 128, 200), (37, 256, 130),
+                       (200, 96, 64), (5, 100, 48))
+       for rf in (False, True)])
+#: Kernel vs plain, rel-L2: fp32 sums in another order (fp32 activations);
+#: bf16/fp16 add one rounding of the output either side (~2^-9 relative).
+W8A16_TOL = {torch.float32: 1e-5, torch.bfloat16: 4e-3, torch.float16: 4e-3}
+
+
+def w8a16_case_id(case) -> str:
+    m, k, n, dtype, rf = case
+    return (f"M{m}_K{k}_N{n}_{str(dtype).split('.')[-1]}"
+            + ("_unembed" if rf else ""))
+
+
+def w8a16_inputs(m, k, n, dtype, gen, dev):
+    """Activations N(0, 1) in `dtype`; codes uniform over [-127, 127];
+    per-channel scales in [1e-3, 1e-2]."""
+    x = torch.randn(m, k, generator=gen, device=dev).to(dtype)
+    q = torch.randint(-127, 128, (n, k), generator=gen, device=dev,
+                      dtype=torch.int8)
+    scale = torch.rand(n, generator=gen, device=dev) * 9e-3 + 1e-3
+    return x, q, scale
+
+
+def w8a16_check(x, q, scale, round_first) -> dict:
+    """Two launches of the op against the plain version: each launches a
+    kernel once, the two give the same bits, and they sit within
+    W8A16_TOL of the plain version by rel-L2. Returns the errors."""
+    before = tw8.w8a16_launches
+    got = tw8.int8_weight_matmul(x, q, scale, round_before_scale=round_first)
+    again = tw8.int8_weight_matmul(x, q, scale,
+                                   round_before_scale=round_first)
+    want = tw8._int8_weight_matmul_plain(x, q, scale, round_first)
+    torch.cuda.synchronize()
+    assert tw8.w8a16_launches == before + 2
+    assert got.dtype == x.dtype and got.shape == want.shape
+    assert torch.equal(got, again), "two launches differ"
+    rel = _rel_l2(got.float(), want.float())
+    assert rel <= W8A16_TOL[x.dtype], rel
+    return {"rel_l2": rel,
+            "max_abs": (got.float() - want.float()).abs().max().item()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", W8A16_CASES, ids=w8a16_case_id)
+def test_w8a16_kernel_matches_plain(cuda, case):
+    m, k, n, dtype, rf = case
+    gen = torch.Generator(device=cuda).manual_seed(m * 131 + k + n)
+    w8a16_check(*w8a16_inputs(m, k, n, dtype, gen, cuda), rf)
+
+
+@pytest.mark.gpu
+def test_w8a16_misaligned_activations_take_the_simt_kernel(cuda):
+    """A view starting 2 elements in is not 16-byte aligned: the plan names
+    the CUDA-core kernel, and it agrees with the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x, q, scale = w8a16_inputs(4, 64 + 2, 96, torch.bfloat16, gen, cuda)
+    xv = x.view(-1)[2:2 + 4 * 64].view(4, 64)
+    assert tw8._w8a16_plan(4, 64, 96, torch.bfloat16,
+                           xv.data_ptr() % 16 == 0).kernel == tw8.SIMT
+    w8a16_check(xv, q[:, :64].contiguous(), scale, False)
+
+
+@pytest.mark.gpu
+def test_w8a16_refuses_what_no_kernel_takes(cuda):
+    x = torch.zeros(2, 64, device=cuda, dtype=torch.float64)
+    q = torch.zeros(8, 64, device=cuda, dtype=torch.int8)
+    scale = torch.ones(8, device=cuda)
+    with pytest.raises(TypeError, match="fp32, bf16 or fp16"):
+        tw8.int8_weight_matmul(x, q, scale)
+    with pytest.raises(TypeError, match="int8"):
+        tw8.int8_weight_matmul(x.bfloat16(), q.float(), scale)
+    with pytest.raises(ValueError, match="is on"):
+        tw8.int8_weight_matmul(x.bfloat16(), q.cpu(), scale)
+
+
+# -- the depth-2 engine makes no hidden host sync -----------------------------
+
+def _tiny_engine_model(cuda, int8):
+    from kubeflow_tpu_torch.models import llama as tl
+    from kubeflow_tpu_torch.serve import quant as tq
+
+    model = tl.Llama(dataclasses.replace(tl.llama_tiny(), num_layers=2),
+                     device=cuda).init_weights(0)
+    return tq.quantize_model(model) if int8 else model
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", ["flat", "paged_int8"])
+def test_depth2_engine_runs_under_sync_debug_error(cuda, pool, monkeypatch):
+    """Dispatch and admission at depth 2 run with
+    torch.cuda.set_sync_debug_mode("error"): a pageable copy, an .item()
+    or a synchronising op among them fails the request. Only the fetch's
+    event wait (serve/generation.py `_wait`) runs outside it. Then greedy
+    ids of one request equal those of a depth-1 engine."""
+    from kubeflow_tpu_torch.serve import generation as tg
+
+    int8 = pool == "paged_int8"
+    model = _tiny_engine_model(cuda, int8)
+    kw = dict(slots=2, max_len=64, chunk=4, prefill_buckets=(8, 16))
+    if int8:
+        kw.update(kv_block_size=8, kv_quant="int8")
+    real_wait = tg._wait
+
+    def wait_outside(event):
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            real_wait(event)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
+    monkeypatch.setattr(tg, "_wait", wait_outside)
+    engine = tg.GenerationEngine(model, pipeline_depth=2, **kw)
+    prompts = [[5, 9, 2], [17, 3, 3, 8, 1], list(range(3, 40)), [8, 1, 4]]
+    bodies = [dict(max_tokens=6), dict(max_tokens=9),
+              dict(max_tokens=5), dict(max_tokens=7, temperature=0.8,
+                                       top_k=5, top_p=0.9)]
+    results = [None] * len(prompts)
+    try:
+        engine.submit([1, 2, 3], max_tokens=5)  # builds and warms outside
+        torch.cuda.synchronize()
+
+        def run(i):
+            try:
+                results[i] = engine.submit(prompts[i], **bodies[i])
+            except Exception as e:  # asserted below
+                results[i] = e
+
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            threads = [threading.Thread(target=run, args=(i,))
+                       for i in range(len(prompts))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+                assert not t.is_alive()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        for i, res in enumerate(results):
+            assert isinstance(res, dict), f"request {i}: {res}"
+            assert len(res["output_ids"]) == bodies[i]["max_tokens"]
+        stats = engine.stats_snapshot()
+        assert stats["decode_fetch_overlapped"] > 0, stats
+        if int8:
+            assert engine.kv_info()["blocks_used"] == 0
+        deep = engine.submit(prompts[2], max_tokens=12)["output_ids"]
+    finally:
+        engine.close()
+    sync = tg.GenerationEngine(model, pipeline_depth=1, **kw)
+    try:
+        assert sync.submit(prompts[2], max_tokens=12)["output_ids"] == deep
+    finally:
+        sync.close()

@@ -47,7 +47,7 @@ def test_health_and_model_listing(served):
     assert _http("GET", base + "/v1/models") == (200, {"models": ["g"]})
     status, md = _http("GET", base + "/v2/models/g")
     assert status == 200 and md["generative"] and md["max_len"] == 64
-    assert md["decode_buckets"] == [64] and md["pipeline_depth"] == 1
+    assert md["decode_buckets"] == [64] and md["pipeline_depth"] == 2
     assert _http("GET", base + "/v2/models/nope")[0] == 404
 
 
