@@ -29,12 +29,14 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
   2f. the W8A16 matmul (`int8_weight_matmul`, csrc/w8a16.cu: int8 weight
      codes, activations in the compute dtype, the scale in the epilogue)
      against its plain version at llama3_8b's projection and unembedding
-     shapes at decode widths (M 1, 4, 16), the projections at prefill
-     buckets (M 128, 2048) and small bf16/fp16/fp32 shapes with ragged M
-     (the GPU tests' W8A16_CASES): rel-L2 within 4e-3 (bf16/fp16) or 1e-5
-     (fp32), two launches bit-identical; at the 8B shapes its time (the
-     weight read cold), bound, plain version's and torch.mm's on a
-     pre-cast bf16 weight;
+     shapes at decode widths (M 1, 4, 16: the decode kernel), the
+     projections at prefill buckets (M 128, 512, 2048: the wgmma kernel,
+     its tile and splits printed) in bf16 and fp16, the unembedding at M
+     2048, ragged M and N and small bf16/fp16/fp32 shapes (the GPU tests'
+     W8A16_CASES): rel-L2 within 4e-3 (bf16/fp16) or 1e-5 (fp32), two
+     launches bit-identical; at the bf16 8B shapes its time (the weight
+     read cold), bound, plain version's and torch.mm's on a pre-cast bf16
+     weight;
   2d. context-parallel ring attention (`rdma_ring_attention`, all ranks on
      this card): the forward, dq and dk/dv kernels (one launch per rank)
      against their plain versions at small shapes (rings of 2, 4 and 8,
@@ -57,8 +59,10 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
      on a depth-1 server;
   4c. quantized serving: int8 weights and an int8 paged KV pool, phase 4's
      six requests (prefill still through the flash kernel, every int8
-     projection and unembedding through the W8A16 kernel, int8_matmul never
-     called, no int8-weight-shaped copy in a decode chunk), peak memory at
+     projection and unembedding through the W8A16 kernel, every prefill
+     chunk's projections through its wgmma kernel, int8_matmul never
+     called, no int8-weight-shaped copy in a decode chunk), admission and
+     prefill seconds beside phase 4's, peak memory at
      least 5 GiB under phase 4's, the longest prompt's ids and step time
      at depth 1 against depth 2; then the int8 model's logits against a
      bf16 model holding the same codes dequantized;
@@ -230,11 +234,12 @@ KERNEL_DESIGN = "wgmma+tma"
 # The kernels whose ptxas report must show no spill stores (their consumer
 # warpgroups hold the wgmma accumulators in registers: the forward's S, O
 # and P, dq's S, dP and dQ, dk/dv's dK and dV, the int8 matmul's int32
-# tile and its register A fragments; a spill there is lost overlap).
+# tile and its register A fragments, the W8A16 tile kernel's fp32 tile and
+# its widened A fragments; a spill there is lost overlap).
 NO_SPILL_KERNELS = ("flash_fwd_kernel", "rdma_fwd_kernel",
                     "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
                     "rdma_bwd_dq_kernel", "rdma_bwd_dkv_kernel",
-                    "qmm_wgmma_kernel")
+                    "qmm_wgmma_kernel", "w8a16_wgmma_kernel")
 # Phase 2e: besides phase 6's attention shapes, llama_1b's widths in fp32
 # at batch 2, seq 1024, where launch overhead does not hide the kernels.
 SIMT_EXTRA_CASE = (2, 1024, 1024, 16, 8, 128, fa.MaskSpec("causal"), False,
@@ -698,6 +703,9 @@ W8A16_COLD_BYTES = 120e6
 # The kernels line reports this shape (the decode gate/up projection at
 # phase 4c's four rows).
 W8A16_MAIN = (4, 4096, 14336)
+# Row counts timed at the 8B shapes (bf16): decode and prefill buckets; the
+# ragged and fp16 cases are held for correctness only.
+W8A16_TIMED_M = (1, 4, 16, 128, 512, 2048)
 
 
 def _rotating(fn, copies) -> callable:
@@ -729,19 +737,23 @@ def phase_w8a16(gk) -> dict:
     the port)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    sms = w8._sm_count(dev.index or 0)
     rows, worst_abs, worst_rel = [], 0.0, 0.0
     for case in gk.W8A16_CASES:
         m, k, n, dtype, rf = case
         x, q, scale = gk.w8a16_inputs(m, k, n, dtype, gen, dev)
-        plan = w8._w8a16_plan(m, k, n, dtype)
+        plan = w8._w8a16_plan(m, k, n, dtype, True, sms)
         err = gk.w8a16_check(x, q, scale, rf)
         worst_abs = max(worst_abs, err["max_abs"])
         worst_rel = max(worst_rel, err["rel_l2"])
         what = (f"{gk.w8a16_case_id(case)}: {plan.kernel} kernel"
+                + (f" (tile {plan.bm} x {w8._BN}, {plan.tiles} tiles)"
+                   if plan.kernel == w8.WGMMA else "")
                 + (f", {plan.splits} splits" if plan.splits > 1 else "")
                 + f", rel_l2 {err['rel_l2']:.2e} (bound "
                 f"{gk.W8A16_TOL[dtype]}), two launches bit-identical")
-        if n * k < 4096 * 1024:  # the small shapes: correctness only
+        if (n * k < 4096 * 1024 or dtype != torch.bfloat16
+                or m not in W8A16_TIMED_M):  # correctness only
             log(f"  {what}")
             continue
         es = x.element_size()
@@ -777,6 +789,7 @@ def phase_w8a16(gk) -> dict:
                 f"{k} {v:.1f}" for k, v in enqueue.items()) if enqueue
                else ""))
         rows.append({"shape": f"M{m} K{k} N{n}", "kernel": plan.kernel,
+                     "bm": plan.bm,
                      "splits": plan.splits, "unembed": rf, "ms": ms,
                      "plain_ms": plain_ms, "library_ms": library_ms,
                      "bound_ms": bound, "bound_by": bound_by,
@@ -1301,10 +1314,10 @@ def phase_serving(bundle: str) -> dict:
     _depth_line(again, alone_ms, sync, sync_ms)
     prefills = len(bodies) + 1  # each request's first chunk, + repeat
     expect = cfg.num_layers * prefills
+    prefill_s = wall - stats["decode_seconds"]
     log(f"  6 concurrent requests in {wall:.3f}s; repeat greedy ids "
         f"identical; peak memory {run['peak'] / 2**30:.2f} GiB; admission "
-        f"and prefill {wall - stats['decode_seconds']:.3f}s of the "
-        f"{wall:.3f}s")
+        f"and prefill {prefill_s:.3f}s of the {wall:.3f}s")
     step_ms = _decode_line(stats, cfg.num_params * 2)  # bf16 weights
     log(f"  flash_fwd launches {launches} (expected {cfg.num_layers} x "
         f"{prefills} first-chunk prefills = {expect})")
@@ -1313,7 +1326,7 @@ def phase_serving(bundle: str) -> dict:
     return {"launches": launches, "peak": run["peak"], "step_ms": step_ms,
             "tok_s": stats["decode_tokens"] / stats["decode_seconds"],
             "repeat": again, "profile": prof, "alone_ms": alone_ms,
-            "sync_alone_ms": sync_ms}
+            "sync_alone_ms": sync_ms, "prefill_s": prefill_s}
 
 
 def phase_paged(bundle: str, flat: dict) -> dict:
@@ -1363,11 +1376,11 @@ def phase_quant(bundle: str, flat: dict, paged: dict) -> dict:
     with _serving(bundle, gen, quantize="int8") as (base, server):
         fa.flash_fwd_launches = 0
         qmm.qmm_launches = 0
-        w8.w8a16_launches = 0
+        w8.w8a16_launches = w8.w8a16_wgmma_launches = 0
         run = _concurrent(base, bodies)
         again = _post(f"{base}/v1/models/{MODEL}:generate", bodies[-1])
         launches, qmm_calls = fa.flash_fwd_launches, qmm.qmm_launches
-        w8_calls = w8.w8a16_launches
+        w8_calls, w8_wgmma = w8.w8a16_launches, w8.w8a16_wgmma_launches
         after = _metadata(base)
         qbytes = run["metadata"]["quantize"]
         copies = _int8_weight_copies(server)
@@ -1403,10 +1416,24 @@ def phase_quant(bundle: str, flat: dict, paged: dict) -> dict:
     if w8_calls != w8_expect:
         raise RuntimeError("int8 serving did not run every projection and "
                            "unembedding through the W8A16 kernel")
+    # Every prefill chunk (a first chunk or a continuation, at least 128
+    # tokens) runs its 7 projections a layer through the wgmma kernel; its
+    # unembedding (one row) and every decode step (4 rows) take the decode
+    # kernel.
+    wgmma_expect = 7 * cfg.num_layers * total["prefill_chunks"]
+    log(f"  w8a16 wgmma launches {w8_wgmma} (expected 7 x "
+        f"{cfg.num_layers} x {total['prefill_chunks']} prefill chunks = "
+        f"{wgmma_expect})")
+    if w8_wgmma != wgmma_expect:
+        raise RuntimeError("int8 prefill did not run every projection "
+                           "through the W8A16 wgmma kernel")
     if copies:
         raise RuntimeError(f"a decode chunk copied int8 weights: {copies}")
     expect = cfg.num_layers * (len(bodies) + 1)
     saving = (flat["peak"] - run["peak"]) / 2**30
+    prefill_s = run["wall"] - stats["decode_seconds"]
+    log(f"  admission and prefill {prefill_s:.3f}s of the {run['wall']:.3f}s "
+        f"(phase 4, bf16 weights: {flat['prefill_s']:.3f}s)")
     log(f"  6 concurrent requests in {run['wall']:.3f}s; pool blocks in use "
         f"at most {run['max_blocks_used']} of "
         f"{run['metadata']['paged_kv']['blocks']}; weights "
@@ -1443,6 +1470,7 @@ def phase_quant(bundle: str, flat: dict, paged: dict) -> dict:
             "tok_s": stats["decode_tokens"] / stats["decode_seconds"],
             "saving_gib": saving, "quantized_bytes": qbytes,
             "launches": launches, "w8a16_launches": w8_calls,
+            "w8a16_wgmma_launches": w8_wgmma, "prefill_s": prefill_s,
             "alone_ms": alone_ms, "sync_alone_ms": sync_ms,
             "logprob_drift": drift, "profile": prof, **model_gate}
 
@@ -2113,6 +2141,7 @@ def main() -> int:
         "replaces": W8A16_REPLACES,
         "tpu_kernel": False,
         "launches": quant["w8a16_launches"],
+        "launches_wgmma": quant["w8a16_wgmma_launches"],
         "max_abs_err": w8r["max_abs_err"], "rel_l2_err": w8r["rel_l2_err"],
         "ms": wmain["ms"], "plain_ms": wmain["plain_ms"],
         "bound_ms": wmain["bound_ms"], "bound_by": wmain["bound_by"],

@@ -58,9 +58,9 @@ SIGNATURES = {
     },
     "w8a16.cu": {
         # x, q, scale, out, ws, tickets, M, K, N, dtype (0 fp32, 1 bf16,
-        # 2 fp16), round_first, kernel (0 simt, 1 gemv, 2 mma), splits,
-        # stream
-        "tpk_w8a16": [_P] * 6 + [_I] * 7 + [_P],
+        # 2 fp16), round_first, kernel (0 simt, 1 gemv, 2 wgmma), bm,
+        # splits, stream
+        "tpk_w8a16": [_P] * 6 + [_I] * 8 + [_P],
     },
     "rdma_ring.cu": {
         # A *_ring argument is the address of a host array of n pointers.

@@ -78,11 +78,12 @@
 // shape before the launch; this entry point refuses a wgmma plan for a
 // shape TMA cannot take, and never switches kernels itself.
 
-#include "attn_fwd_sm90.cuh"  // fwd90: mbarrier, TMA-map, wgmma and launch primitives
+#include "gemm_sm90.cuh"  // gemm90 (and fwd90): TMA, units, the split-K ticket
 
 namespace {
 
 using fwd90::smem_u32;
+using gemm90::Unit;
 
 // ---------------------------------------------------------------- wgmma kernel
 
@@ -125,41 +126,9 @@ struct Params {
   int units;     // tiles x splits
 };
 
-// One unit of work: a BM x 128 output tile and the stages [c0, c1) of K.
-struct Unit {
-  int tile, split, m0, n0, c0, c1;
-};
-
-template <int BM>
-__device__ __forceinline__ Unit unit_of(const Params& p, int u) {
-  Unit w;
-  w.split = u % p.splits;
-  w.tile = u / p.splits;
-  w.m0 = (w.tile % p.m_tiles) * BM;
-  w.n0 = (w.tile / p.m_tiles) * kBN;
-  w.c0 = w.split * p.n_k / p.splits;
-  w.c1 = (w.split + 1) * p.n_k / p.splits;
-  return w;
-}
-
-// One box of a 2-D tensor map into shared memory; completes on `bar`.
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-// The 256 consumer threads (named barrier 1; 0 is __syncthreads).
-__device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, %0;\n" :: "n"(fwd90::kConsumerThreads) : "memory");
 }
 
 // Keeps the compiler from moving reads or writes of wgmma accumulators
@@ -333,13 +302,13 @@ qmm_wgmma_kernel(const __grid_constant__ Params p) {
     if (threadIdx.x == 0) {
       int g = 0;  // stages loaded by this CTA: the ring runs on across units
       for (int u = blockIdx.x; u < p.units; u += gridDim.x) {
-        const Unit w = unit_of<BM>(p, u);
+        const Unit w = gemm90::unit_of(u, p.splits, p.m_tiles, p.n_k, BM, kBN);
         for (int c = w.c0; c < w.c1; ++c, ++g) {
           const int st = g % S;
           fwd90::mbar_wait(empty(st), ((g / S) & 1) ^ 1);  // round 0 passes at once
           fwd90::mbar_expect_tx(full(st), L::kStageBytes);
-          tma_load_2d(base + L::w(st), &p.wmap, full(st), w.n0, c * kBK);
-          tma_load_2d(base + L::a(st), &p.amap, full(st), c * kBK, w.m0);
+          gemm90::tma_load_2d(base + L::w(st), &p.wmap, full(st), w.n0, c * kBK);
+          gemm90::tma_load_2d(base + L::a(st), &p.amap, full(st), c * kBK, w.m0);
         }
       }
     }
@@ -361,7 +330,7 @@ qmm_wgmma_kernel(const __grid_constant__ Params p) {
   uint32_t af[2][4][4];  // two stages' A fragments: one built while the other is read
   int g = 0;
   for (int u = blockIdx.x; u < p.units; u += gridDim.x) {
-    const Unit w = unit_of<BM>(p, u);
+    const Unit w = gemm90::unit_of(u, p.splits, p.m_tiles, p.n_k, BM, kBN);
     int accs[L::kAccs][BM / 2];
 #pragma unroll
     for (int x = 0; x < L::kAccs; ++x)
@@ -401,20 +370,7 @@ qmm_wgmma_kernel(const __grid_constant__ Params p) {
                 make_int2(acc[4 * j + e], acc[4 * j + 2 + e]);
         }
       }
-      // The ticket: every consumer's stores, then one release fence and the
-      // add (a barrier orders the others' stores before thread 0's fence).
-      consumers_sync();
-      if (ct == 0) {
-        asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
-        const int last = atomicAdd(p.tickets + w.tile, 1) == p.splits - 1;
-        if (last) {
-          p.tickets[w.tile] = 0;  // every split has arrived: ready for the next launch
-          asm volatile("fence.acq_rel.gpu;\n" ::: "memory");  // acquire the others' partials
-        }
-        *last_flag = last;
-      }
-      consumers_sync();
-      if (!*last_flag) continue;
+      if (!gemm90::last_split(p.tickets, w.tile, p.splits, ct, last_flag)) continue;
       // The last split sums every partial (its own included) from L2: four
       // rows of 8 m at a time, from four splits at once.
 #pragma unroll
@@ -464,19 +420,10 @@ qmm_wgmma_kernel(const __grid_constant__ Params p) {
 }
 
 // The map of a contiguous int8 [outer, inner] matrix: boxes of (128,
-// box_outer), 128-byte swizzle, zero fill out of bounds. False if it cannot
-// be encoded (an address not 16-byte aligned, inner % 16 != 0).
+// box_outer), 128-byte swizzle, zero fill out of bounds.
 bool encode_2d(CUtensorMap* map, const void* ptr, int inner, int outer, int box_outer) {
-  const fwd90::EncodeTiled encode = fwd90::tensor_map_encoder();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(inner)};
-  const cuuint32_t box[2] = {128u, static_cast<cuuint32_t>(box_outer)};
-  const cuuint32_t elem_strides[2] = {1u, 1u};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims, strides,
-                box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
+  return gemm90::encode_2d(map, ptr, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, inner, outer, 128,
+                           box_outer, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 template <int BM>

@@ -18,9 +18,9 @@
 // What bounds it on this card. At decode widths (M <= 16) every weight byte
 // serves at most 2*16 flops: reading q once (K*N bytes at 3.35 TB/s) bounds
 // it, e.g. 17.5 us for llama3_8b's gate projection, 157 us for its 128256 x
-// 4096 unembedding. At prefill widths (M 128..2048) the bf16 tensor cores
-// (989 TFLOP/s) do. Three kernels, chosen by the wrapper from the shape
-// (_w8a16_plan in ops/w8a16.py), never by this file:
+// 4096 unembedding. At 128 rows the weight bytes still bound it; from 512
+// rows the bf16 tensor cores (989 TFLOP/s) do. Three kernels, chosen by the
+// wrapper from the shape (_w8a16_plan in ops/w8a16.py), never by this file:
 //
 //   * w8a16_gemv_kernel (M <= 16, bf16/fp16): each warp streams 16 weight
 //     rows along K, every lane 16 bytes of two rows per 64-deep k block
@@ -38,44 +38,85 @@
 //     stores its fp32 partial tile, and the last to arrive (a ticket per
 //     CTA column, reset to 0 by it) sums the partials in split order, so
 //     two launches give the same bits. No float atomics.
-//   * w8a16_mma_kernel (M > 16, bf16/fp16): 128 x 128 output tiles, eight
-//     warps of 64 x 32 on mma.sync m16n8k16 with the activations as A and
-//     the codes as B, 32-deep k tiles streamed by cp.async through a
-//     3-stage shared-memory ring; the codes are widened when a warp loads
-//     its B fragments (each widened pair feeds four products). Tiles are
-//     dealt m fastest, so the CTAs running together share one strip of the
-//     weight and it is read from memory about once; the 128-row tiles halve
-//     the L2 traffic of 64-row ones. Not wgmma: a simple kernel first.
+//   * w8a16_wgmma_kernel (M > 16, bf16/fp16): bf16/fp16 wgmma fed by TMA in
+//     persistent, warp-specialised CTAs (attn_fwd_sm90.cuh's shape, the
+//     units and split-K ticket of gemm_sm90.cuh, as qmm.cu's W8A8 kernel).
+//     wgmma reads a shared-memory operand only in its own type and the
+//     weight is int8, so A and B are swapped: each consumer warpgroup
+//     computes a tile of out^T whose 64 wgmma rows are 64 weight rows n and
+//     whose wgmma columns are BM activation rows m (64, 128 or 256); the
+//     scale is a per-row factor of the accumulator.
+//       - B, the activations, arrive by TMA as K-major [BM][64 k] 16-bit
+//         tiles with the 128-byte swizzle; wgmma reads them by descriptor.
+//       - A, the weight, arrives by TMA as it lies, a K-major [128 n][64 k]
+//         int8 tile with the 64-byte swizzle (16-byte chunk j of row r
+//         sits at chunk j ^ ((r / 2) % 4)), and each consumer builds its
+//         register fragments from it, widening the codes in registers.
+//         B read by descriptor fixes the k order of a fragment to
+//         mma.sync m16n8k16's A layout: in each 16-deep k step s, thread
+//         (g, c) of a warp holds k {2c, 2c+1} of its rows g and g + 8
+//         (registers 0 and 1) and k {2c+8, 2c+9} of both (2 and 3). Only
+//         the rows are free: row g is weight row 2g + h of the warp's 16
+//         and row g + 8 is 2g + 1 - h, h = (g / 4) % 2, which the epilogue
+//         maps back (the two are columns n, n + 1 of one 32-bit store). In step
+//         s the thread reads, from each row, the 32-bit words at bytes
+//         16s + 4(c / 2) (part 0) and + 8 (part 1) (chunk s, swizzled by
+//         g % 4: rows 2g + h and 2g + 1 - h both give (r / 2) % 4 = g % 4),
+//         and keeps bytes 2(c % 2), 2(c % 2) + 1 of each: 16 loads a stage.
+//         Across a warp one load touches rows with all eight values of
+//         (r % 2, (r / 2) % 4), so the 16 distinct words sit in 16 banks:
+//         free of conflicts (h exists for that; with h = 0 rows g and g + 4
+//         would collide).
+//       - Widening is exact. bf16: each byte, biased to unsigned, becomes
+//         the low byte of the fp32 2^23 magic, 2^23 + 128 comes off, and
+//         the high halves of two such floats are the bf16 pair (|q| <= 128
+//         needs 8 significant bits, so the low halves are zero). fp16: the
+//         bias trick, halves 1024 + (q + 128) less 1152, two codes a
+//         packed subtract.
+//       - One producer warp (its registers given away with setmaxnreg.dec)
+//         issues both copies of each stage into a ring of full/empty
+//         mbarriers, running ahead across tiles; the two consumer
+//         warpgroups (64 weight rows each, setmaxnreg.inc) issue a
+//         stage's four k steps as one wgmma group while the next stage's
+//         fragments are built into a second register set.
+//       - Tiles are dealt m fastest, so the CTAs running together share one
+//         strip of the weight (58.7 MB at the 8B gate/up projection, more
+//         than the 50 MB L2) while the activations stay in L2. A tile of
+//         256 weight rows (two row blocks a warpgroup, half the activation
+//         reads of L2 per product) ran slower than 128 at every 8B
+//         prefill shape on an H100 (tools/w8a16_ab.py), and is not built.
+//       - Split-K where the tiles alone would leave most SMs without work
+//         (128 activation rows: 32 tiles at N 4096, 16 of 64 rows at N
+//         1024): the wrapper (_w8a16_plan) splits K into contiguous runs of
+//         whole 64-deep stages, at tiles of 64 and 128 rows. Each split stores its
+//         fp32 partial, in the accumulators' own order, to ws; the last
+//         split of a tile to arrive sums the partials in split order behind
+//         a ticket it resets to 0, so two launches give the same bits. No
+//         float atomics.
 //   * w8a16_simt_kernel (fp32 activations, or K % 16 != 0, or an operand
 //     not 16-byte aligned): 32 x 64 tiles on the CUDA cores in fp32, both
 //     operands widened to fp32 in shared memory, each output summed in k
 //     order. fp32 models get fp32 products, as the JAX branch gives them.
 //
-// Accumulation is fp32 everywhere (mma.sync's f32 accumulators); the
+// Accumulation is fp32 everywhere (f32 accumulators of mma.sync and wgmma); the
 // epilogue multiplies with __fmul_rn, so no FMA contraction changes the
 // rounding of the scale product.
 
-#include <cuda_bf16.h>
 #include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include <type_traits>
+
+#include "gemm_sm90.cuh"  // gemm90 (and fwd90): TMA, mbarriers, units, the split-K ticket
 
 namespace {
 
 constexpr int kGemvWarps = 4;   // 16 weight rows each: 64 rows a CTA
 constexpr int kGemvRows = 16 * kGemvWarps;
 constexpr int kGemvUnroll = 4;  // 64-deep k blocks in flight per lane
-constexpr int kTile = 128;      // mma kernel: 128 x 128 output tiles
-constexpr int kTileK = 32;      // ... over 32-deep k tiles
-constexpr int kMmaThreads = 256;
-constexpr int kStages = 3;      // k tiles in flight
-constexpr int kXStride = 96;    // bytes per staged activation row (64 + 32 pad)
-constexpr int kWStride = 48;    // bytes per staged weight row (32 + 16 pad)
-constexpr int kStageBytes = kTile * (kXStride + kWStride);
 constexpr int kSimtM = 32, kSimtN = 64, kSimtK = 32;
 
 enum Dtype { kF32 = 0, kBf16 = 1, kF16 = 2 };
-enum Kernel { kSimt = 0, kGemv = 1, kMma = 2 };
+enum Kernel { kSimt = 0, kGemv = 1, kWgmma = 2 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -285,120 +326,325 @@ __global__ void __launch_bounds__(32 * kGemvWarps)
     }
 }
 
-// ------------------------------------------------------------------- mma
+// ----------------------------------------------------------------- wgmma
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0));
+constexpr int kWK = 64;              // k per stage: one 128-byte row of 16-bit activations
+constexpr int kWN = 128;             // weight rows per tile: two warpgroups of 64
+constexpr int kWRingBytes = 204800;  // the stage ring's budget of shared memory
+
+// Dynamic shared memory from a 1024-byte aligned base: kStages of (the
+// weight tile [128 n][64 k] int8, 64-byte swizzle; the activation tile [BM
+// m][64 k] 16-bit, 128-byte swizzle), then the full and empty mbarriers and
+// the ticket flag.
+template <int BM>
+struct Ring {
+  static constexpr int kWBytes = kWN * kWK;
+  static constexpr int kStageBytes = kWBytes + BM * kWK * 2;
+  static constexpr int kStages = kWRingBytes / kStageBytes < 8 ? kWRingBytes / kStageBytes : 8;
+  static constexpr int kBars = kStages * kStageBytes;
+  static constexpr int kBytes = kBars + 16 * kStages + 16 + 1024;
+  // Whether K may be split: at the tiles of 64 and 128 rows, where few
+  // tiles leave SMs idle; compiled out of the 256-row one.
+  static constexpr bool kSplits = BM <= 128;
+  __device__ static uint32_t w(int st) { return st * kStageBytes; }
+  __device__ static uint32_t x(int st) { return st * kStageBytes + kWBytes; }
+};
+
+struct WParams {
+  CUtensorMap wmap;  // q: dims (K, N) int8, boxes of 64 k x 128 n, 64-byte swizzle
+  CUtensorMap xmap;  // x: dims (K, M) 16-bit, boxes of 64 k x BM m, 128-byte swizzle
+  const float* scale;
+  void* out;
+  float* ws;     // [tiles * splits][BM / 2][256] fp32 partials (splits > 1)
+  int* tickets;  // one per tile (splits > 1): 0 before and after a launch
+  int M, N, splits, m_tiles, n_k, units, round_first;
+};
+
+// Where consumer thread (g, c) finds its A fragments in a weight tile (the
+// note at the top): at[s] is the byte offset, in k step s, of the part-0
+// word of its row g (weight row 2g + h of the warp's 16); part 1 lies 8
+// bytes on, row g + 8 (weight row 2g + 1 - h) db bytes on. sel0 and sel1
+// pick its two codes of a word: into the fp32 magic (bf16), or both into
+// 1024 + u halves (fp16, sel0).
+struct Frag {
+  int at[4];
+  int db;
+  uint32_t sel0, sel1;
+};
+
+// d += A B for one m64nNk16 step: A (64 x 16) from registers (four 16-bit
+// pairs a thread), B (N x 16) from shared memory, K-major; fp32
+// accumulators. N = 64, 128, 256: the activation rows of a tile.
+#define TPK_RS_N64(TY) \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n" \
+  "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31" \
+  "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+#define TPK_RS_N128(TY) \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n" \
+  "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63" \
+  "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+#define TPK_RS_N256(TY) \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n" \
+  "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " {" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, " \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127" \
+  "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+#define TPK_D8(d, i)                                                                      \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+#define TPK_D32(d, i) TPK_D8(d, i), TPK_D8(d, i + 8), TPK_D8(d, i + 16), TPK_D8(d, i + 24)
+#define TPK_AB(a, b) "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1)
+
+template <bool kHalf>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (kHalf)
+    asm volatile(TPK_RS_N64("f16") : TPK_D32(d, 0) : TPK_AB(a, b));
+  else
+    asm volatile(TPK_RS_N64("bf16") : TPK_D32(d, 0) : TPK_AB(a, b));
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+template <bool kHalf>
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (kHalf)
+    asm volatile(TPK_RS_N128("f16") : TPK_D32(d, 0), TPK_D32(d, 32) : TPK_AB(a, b));
+  else
+    asm volatile(TPK_RS_N128("bf16") : TPK_D32(d, 0), TPK_D32(d, 32) : TPK_AB(a, b));
 }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+template <bool kHalf>
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (kHalf)
+    asm volatile(TPK_RS_N256("f16")
+                 : TPK_D32(d, 0), TPK_D32(d, 32), TPK_D32(d, 64), TPK_D32(d, 96)
+                 : TPK_AB(a, b));
+  else
+    asm volatile(TPK_RS_N256("bf16")
+                 : TPK_D32(d, 0), TPK_D32(d, 32), TPK_D32(d, 64), TPK_D32(d, 96)
+                 : TPK_AB(a, b));
 }
 
-// CTA: 8 warps as 2 (m) x 4 (n), each a 64 x 32 tile of a 128 x 128 output
-// tile: four m16 A fragments (activations) by four n8 B fragments (codes)
-// per 16-deep k step. 32-deep k tiles stream through a ring of kStages
-// shared-memory stages by cp.async (zero-filled past the edges). In a step,
-// lane (g, c) reads elements 4c..4c+3 of activation rows g and g + 8 (A
-// columns {2c, 2c+1} and {2c+8, 2c+9}) and bytes 4c..4c+3 of weight row g
-// (the same B rows): one k order for both operands. The row pads make both
-// reads free of bank conflicts.
+// The thread's two codes of a weight word, widened exactly to a 16-bit
+// pair (the lower k in the low half).
+template <bool kHalf>
+__device__ __forceinline__ uint32_t widen_pair(uint32_t word, const Frag& f) {
+  const uint32_t u = word ^ 0x80808080u;  // each code biased to unsigned: q + 128
+  if constexpr (kHalf) {
+    // Halves 1024 + u (fp16 spaces 1024..2047 by 1), less 1152 (0x6480).
+    uint32_t r;
+    asm("sub.rn.f16x2 %0, %1, %2;\n" : "=r"(r) : "r"(__byte_perm(u, 0x64646464u, f.sel0)),
+        "r"(0x64806480u));
+    return r;
+  } else {
+    const float lo = __uint_as_float(__byte_perm(u, 0x4B000000u, f.sel0)) - 8388736.0f;
+    const float hi = __uint_as_float(__byte_perm(u, 0x4B000000u, f.sel1)) - 8388736.0f;
+    return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);  // the bf16 halves
+  }
+}
+
+// The A fragments of one stage's four k steps, from its weight tile.
+template <bool kHalf>
+__device__ __forceinline__ void build_a(uint32_t (&a)[4][4], const unsigned char* wtile,
+                                        const Frag& f) {
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+#pragma unroll
+    for (int part = 0; part < 2; ++part) {
+      const unsigned char* row_g = wtile + f.at[s] + 8 * part;
+      a[s][2 * part] = widen_pair<kHalf>(*reinterpret_cast<const uint32_t*>(row_g), f);
+      a[s][2 * part + 1] = widen_pair<kHalf>(*reinterpret_cast<const uint32_t*>(row_g + f.db), f);
+    }
+}
+
+// One stage of the ring for the consumers: wait for its copies, build its
+// fragments into `a`, issue its four k steps as one group, then, once the
+// previous stage's group has landed, free the previous stage's slot.
+template <int BM, bool kHalf>
+__device__ __forceinline__ void wgmma_stage(float (&acc)[BM / 2], uint32_t (&a)[4][4],
+                                            const unsigned char* tiles, uint32_t base,
+                                            uint32_t bars, const Frag& f, int& g,
+                                            bool free_prev) {
+  using R = Ring<BM>;
+  constexpr int S = R::kStages;
+  const int st = g % S;
+  fwd90::mbar_wait(bars + 8u * st, (g / S) & 1);
+  build_a<kHalf>(a, tiles + R::w(st), f);
+  fwd90::wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+    wgmma_rs<kHalf>(acc, a[s], fwd90::sw128_desc(base + R::x(st) + s * 32, 16, 1024));
+  fwd90::wgmma_commit();
+  fwd90::wgmma_wait<1>();
+  if (free_prev) fwd90::mbar_arrive(bars + 8u * (S + (g + S - 1) % S));
+  ++g;
+}
+
 template <typename T>
-__global__ void __launch_bounds__(kMmaThreads, 2)
-    w8a16_mma_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
-                     const float* __restrict__ scale, T* __restrict__ out, int M, int K, int N,
-                     int round_first) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, c = lane & 3;
-  const int m0 = blockIdx.x * kTile, n0 = blockIdx.y * kTile;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-  const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+__device__ __forceinline__ void store_pair(T* o, T lo, T hi) {
+  *reinterpret_cast<uint32_t*>(o) = static_cast<uint32_t>(reinterpret_cast<uint16_t&>(lo)) |
+                                    static_cast<uint32_t>(reinterpret_cast<uint16_t&>(hi)) << 16;
+}
 
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+template <int BM, bool kHalf>
+__global__ void __launch_bounds__(fwd90::kThreads, 1)
+    w8a16_wgmma_kernel(const __grid_constant__ WParams p) {
+  using T = typename std::conditional<kHalf, __half, __nv_bfloat16>::type;
+  using R = Ring<BM>;
+  constexpr int S = R::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = fwd90::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t bars = base + R::kBars;
+  auto full = [&](int st) { return bars + 8u * st; };
+  auto empty = [&](int st) { return bars + 8u * (S + st); };
+  volatile int* last_flag = reinterpret_cast<volatile int*>(smem_raw + (bars + 16u * S - raw));
 
-  // One k tile into stage st: 128 activation rows x 32 elements (two
-  // 16-byte chunks a thread), 128 weight rows x 32 bytes (one a thread).
-  auto load = [&](int st, int k0) {
-    const uint32_t xs = base + st * kStageBytes, ws = xs + kTile * kXStride;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int idx = tid + kMmaThreads * i, row = idx >> 2, k = k0 + (idx & 3) * 8;
-      const bool ok = m0 + row < M && k < K;
-      cp_async16(xs + row * kXStride + (idx & 3) * 16,
-                 ok ? x + static_cast<size_t>(m0 + row) * K + k : x, ok);
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < S; ++st) {
+      fwd90::mbar_init(full(st), 1);
+      fwd90::mbar_init(empty(st), fwd90::kConsumerThreads);
     }
-    const int row = tid >> 1, k = k0 + (tid & 1) * 16;
-    const bool ok = n0 + row < N && k < K;
-    cp_async16(ws + row * kWStride + (tid & 1) * 16,
-               ok ? q + static_cast<size_t>(n0 + row) * K + k : q, ok);
-  };
-
-  const int n_kt = (K + kTileK - 1) / kTileK;
-#pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) {
-    if (st < n_kt) load(st, st * kTileK);
-    cp_async_commit();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int kt = 0; kt < n_kt; ++kt) {
-    cp_async_wait<kStages - 2>();  // tile kt has landed
-    __syncthreads();               // ... for every thread, and tile kt-1 is consumed
-    const int next = kt + kStages - 1;
-    if (next < n_kt) load(next % kStages, next * kTileK);
-    cp_async_commit();
-    const unsigned char* xs = smem + (kt % kStages) * kStageBytes;
-    const unsigned char* wsm = xs + kTile * kXStride;
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      uint32_t a[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = wm + i * 16 + g;
-        const int col = (s * 16 + 4 * c) * static_cast<int>(sizeof(T));
-        const uint2 lo = *reinterpret_cast<const uint2*>(&xs[r * kXStride + col]);
-        const uint2 hi = *reinterpret_cast<const uint2*>(&xs[(r + 8) * kXStride + col]);
-        a[i][0] = lo.x;
-        a[i][1] = hi.x;
-        a[i][2] = lo.y;
-        a[i][3] = hi.y;
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = wn + j * 8 + g;
-        uint32_t b0, b1;
-        codes_to_pairs<T>(*reinterpret_cast<const uint32_t*>(&wsm[n * kWStride + s * 16 + 4 * c]),
-                          b0, b1);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) mma16816<T>(acc[i][j], a[i], b0, b1);
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ------------------------------------------------------- producer
+    fwd90::regs_dec<40>();
+    if (threadIdx.x == 0) {
+      int g = 0;  // stages loaded by this CTA: the ring runs on across units
+      for (int u = blockIdx.x; u < p.units; u += gridDim.x) {
+        const gemm90::Unit w = gemm90::unit_of(u, p.splits, p.m_tiles, p.n_k, BM, kWN);
+        for (int kc = w.c0; kc < w.c1; ++kc, ++g) {
+          const int st = g % S;
+          fwd90::mbar_wait(empty(st), ((g / S) & 1) ^ 1);  // round 0 passes at once
+          fwd90::mbar_expect_tx(full(st), R::kStageBytes);
+          gemm90::tma_load_2d(base + R::w(st), &p.wmap, full(st), kc * kWK, w.n0);
+          gemm90::tma_load_2d(base + R::x(st), &p.xmap, full(st), kc * kWK, w.m0);
+        }
       }
     }
+    return;
   }
-  cp_async_wait<0>();
 
-  // acc[i][j][e]: activation row m0 + wm + 16i + g (+8 for e >= 2), weight
-  // row n0 + wn + 8j + 2c + (e & 1).
+  // --------------------------------------------------------- consumers
+  fwd90::regs_inc<232>();
+  const int ct = threadIdx.x - 128;
+  const int cw = __shfl_sync(0xffffffffu, ct >> 7, 0);  // warp-uniform
+  const int warp = (ct >> 5) & 3;
+  const int lane = ct & 31;
+  const int g8 = lane >> 2, c = lane & 3, h = (g8 >> 2) & 1;
+  const int row0 = cw * 64 + 16 * warp;  // the warp's first weight row in the tile
+  Frag f;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int s = 0; s < 4; ++s)
+    f.at[s] = (row0 + 2 * g8 + h) * kWK + ((s ^ (g8 & 3)) << 4) + 4 * (c >> 1);
+  f.db = (1 - 2 * h) * kWK;
+  const uint32_t b0 = 2 * (c & 1);  // the thread's first code in a word
+  f.sel0 = kHalf ? 0x4040u | b0 | ((b0 + 1) << 8) : 0x7650u + b0;
+  f.sel1 = 0x7651u + b0;
+  const unsigned char* tiles = smem_raw + (base - raw);
+
+  uint32_t af[2][4][4];  // two stages' A fragments: one built while the other is read
+  int g = 0;
+  for (int u = blockIdx.x; u < p.units; u += gridDim.x) {
+    const gemm90::Unit w = gemm90::unit_of(u, p.splits, p.m_tiles, p.n_k, BM, kWN);
+    float acc[BM / 2];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int i = 0; i < BM / 2; ++i) acc[i] = 0.0f;
+
+    // Stages alternate between the two fragment sets, so that one stage's
+    // fragments are built while the other's products still read theirs.
+    int kc = w.c0;
+    for (; kc + 1 < w.c1; kc += 2) {
+      wgmma_stage<BM, kHalf>(acc, af[0], tiles, base, bars, f, g, kc > w.c0);
+      wgmma_stage<BM, kHalf>(acc, af[1], tiles, base, bars, f, g, true);
+    }
+    if (kc < w.c1) wgmma_stage<BM, kHalf>(acc, af[0], tiles, base, bars, f, g, kc > w.c0);
+    fwd90::wgmma_wait<0>();
+    fwd90::fence_regs(acc);
+    fwd90::mbar_arrive(empty((g + S - 1) % S));
+
+    if constexpr (R::kSplits) {
+      if (p.splits > 1) {
+        // This split's partial, coalesced in the accumulators' order; the
+        // last split sums all of them (its own included) from L2 in split
+        // order.
+        float* part = p.ws + static_cast<size_t>(w.tile) * p.splits * (BM / 2) * 256 + ct;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = m0 + wm + 16 * i + g + 8 * h, n = n0 + wn + 8 * j + 2 * c;
-        if (m >= M) continue;
-        T* o = out + static_cast<size_t>(m) * N + n;
-        if (n < N) o[0] = finish<T>(acc[i][j][2 * h], scale[n], round_first);
-        if (n + 1 < N) o[1] = finish<T>(acc[i][j][2 * h + 1], scale[n + 1], round_first);
+        for (int i = 0; i < BM / 2; ++i)
+          __stcg(part + (w.split * (BM / 2) + i) * 256, acc[i]);
+        if (!gemm90::last_split(p.tickets, w.tile, p.splits, ct, last_flag)) continue;
+#pragma unroll
+        for (int i = 0; i < BM / 2; ++i) acc[i] = 0.0f;
+        for (int sp = 0; sp < p.splits; ++sp)
+#pragma unroll
+          for (int i = 0; i < BM / 2; ++i) acc[i] += __ldcg(part + (sp * (BM / 2) + i) * 256);
       }
+    }
+
+    // acc[4j + 2i + e]: activation row m0 + 8j + 2c + e; weight row n + h
+    // (i = 0) or n + 1 - h (i = 1), n = the thread's even column.
+    const int n = w.n0 + row0 + 2 * g8;
+    if (n >= p.N) continue;
+    const bool two = n + 1 < p.N, even = (p.N & 1) == 0;
+    const float s0 = __ldg(p.scale + n), s1 = two ? __ldg(p.scale + n + 1) : 0.0f;
+    T* out = static_cast<T*>(p.out);
+#pragma unroll
+    for (int j = 0; j < BM / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int m = w.m0 + 8 * j + 2 * c + e;
+        if (m >= p.M) continue;
+        const float va = acc[4 * j + e], vb = acc[4 * j + 2 + e];
+        const T lo = finish<T>(h ? vb : va, s0, p.round_first);
+        T* o = out + static_cast<size_t>(m) * p.N + n;
+        if (!two) {
+          o[0] = lo;
+          continue;
+        }
+        const T hi = finish<T>(h ? va : vb, s1, p.round_first);
+        if (even) {
+          store_pair(o, lo, hi);
+        } else {
+          o[0] = lo;
+          o[1] = hi;
+        }
+      }
+    }
+  }
+}
+
+template <int BM, bool kHalf>
+int launch_wgmma(WParams& p, const void* x, const void* q, int K, cudaStream_t st) {
+  if (!gemm90::encode_2d(&p.wmap, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, K, p.N, kWK, kWN,
+                         CU_TENSOR_MAP_SWIZZLE_64B) ||
+      !gemm90::encode_2d(&p.xmap, x, CU_TENSOR_MAP_DATA_TYPE_UINT16, 2, K, p.M, kWK, BM,
+                         CU_TENSOR_MAP_SWIZZLE_128B))
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.m_tiles = (p.M + BM - 1) / BM;
+  p.units = p.m_tiles * ((p.N + kWN - 1) / kWN) * p.splits;
+  return fwd90::launch<w8a16_wgmma_kernel<BM, kHalf>, Ring<BM>::kBytes>(p, p.units, st);
+}
+
+// The tile the plan names: bm activation rows by 128 weight rows.
+template <bool kHalf>
+int launch_tile(WParams& p, const void* x, const void* q, int K, int bm, cudaStream_t st) {
+  switch (bm) {
+    case 64: return launch_wgmma<64, kHalf>(p, x, q, K, st);
+    case 128: return launch_wgmma<128, kHalf>(p, x, q, K, st);
+    case 256: return launch_wgmma<256, kHalf>(p, x, q, K, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // ------------------------------------------------------------------ simt
@@ -454,6 +700,7 @@ __global__ void __launch_bounds__(256)
 
 // ---------------------------------------------------------------- launch
 
+// The CUDA-core and decode kernels (the wgmma kernel: launch_tile).
 template <typename T>
 cudaError_t launch(int kernel, const void* x, const int8_t* q, const float* scale, void* out,
                    float* ws, int* tickets, int M, int K, int N, int splits, int round_first,
@@ -466,22 +713,13 @@ cudaError_t launch(int kernel, const void* x, const int8_t* q, const float* scal
     return cudaGetLastError();
   }
   if constexpr (sizeof(T) == 2) {
-    if (kernel == kGemv) {
-      const dim3 grid((N + kGemvRows - 1) / kGemvRows, splits);
-      if (M <= 8)
-        w8a16_gemv_kernel<T, 1><<<grid, 32 * kGemvWarps, 0, st>>>(xp, q, scale, op, ws, tickets,
-                                                                   M, K, N, splits, round_first);
-      else
-        w8a16_gemv_kernel<T, 2><<<grid, 32 * kGemvWarps, 0, st>>>(xp, q, scale, op, ws, tickets,
-                                                                   M, K, N, splits, round_first);
-      return cudaGetLastError();
-    }
-    const dim3 grid((M + kTile - 1) / kTile, (N + kTile - 1) / kTile);
-    const cudaError_t err = cudaFuncSetAttribute(
-        w8a16_mma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kStages * kStageBytes);
-    if (err != cudaSuccess) return err;
-    w8a16_mma_kernel<T><<<grid, kMmaThreads, kStages * kStageBytes, st>>>(xp, q, scale, op, M, K,
-                                                                          N, round_first);
+    const dim3 grid((N + kGemvRows - 1) / kGemvRows, splits);
+    if (M <= 8)
+      w8a16_gemv_kernel<T, 1><<<grid, 32 * kGemvWarps, 0, st>>>(xp, q, scale, op, ws, tickets, M,
+                                                                 K, N, splits, round_first);
+    else
+      w8a16_gemv_kernel<T, 2><<<grid, 32 * kGemvWarps, 0, st>>>(xp, q, scale, op, ws, tickets, M,
+                                                                 K, N, splits, round_first);
     return cudaGetLastError();
   }
   return cudaErrorInvalidValue;
@@ -491,27 +729,50 @@ cudaError_t launch(int kernel, const void* x, const int8_t* q, const float* scal
 
 // dtype: 0 fp32, 1 bf16, 2 fp16 (x and out). kernel: 0 simt, 1 gemv (M <=
 // 16; K split `splits` ways, ws [splits, M, N] fp32 and tickets (one int per
-// 64 weight rows, all 0) read only when splits > 1), 2 mma. round_first: the
-// unembedding's epilogue. Returns a cudaError_t (0 = launched);
-// cudaErrorInvalidValue for a plan the kernels do not take.
+// 64 weight rows, all 0) read only when splits > 1), 2 wgmma (tiles of bm
+// activation rows, 64, 128 or 256, by 128 weight rows; K split `splits`
+// ways in 64-deep stages, at bm <= 128 only, ws [tiles * splits, bm * 128]
+// fp32 and tickets (one int per tile, all 0) read only when splits > 1).
+// bm is read by the wgmma kernel only. round_first: the unembedding's
+// epilogue. Returns a
+// cudaError_t (0 = launched); cudaErrorInvalidValue for a plan the kernels
+// do not take (a wgmma plan TMA cannot describe among them). The kernel is
+// the caller's choice: this never switches kernels.
 extern "C" int tpk_w8a16(const void* x, const void* q, const void* scale, void* out, void* ws,
                          void* tickets, int M, int K, int N, int dtype, int round_first,
-                         int kernel, int splits, void* stream) {
+                         int kernel, int bm, int splits, void* stream) {
   if (M < 0 || K < 1 || N < 0 || dtype < kF32 || dtype > kF16)
     return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0 || N == 0) return 0;
-  if (kernel != kSimt) {
-    const int n_kb = (K + 63) / 64;
+  const auto bad = [] { return static_cast<int>(cudaErrorInvalidValue); };
+  const int n_k = (K + 63) / 64;  // 64-deep k blocks (gemv) or stages (wgmma)
+  const bool split_bufs = splits == 1 || (ws != nullptr && tickets != nullptr);
+  if (kernel == kSimt) {
+    if ((M + kSimtM - 1) / kSimtM > 65535) return bad();
+  } else if (kernel == kGemv || kernel == kWgmma) {
     if (dtype == kF32 || K % 16 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
-        reinterpret_cast<uintptr_t>(q) % 16 != 0 || (kernel != kGemv && kernel != kMma) ||
-        (kernel == kGemv && (M > 16 || splits < 1 || splits > n_kb || splits > 65535 ||
-                             (splits > 1 && (ws == nullptr || tickets == nullptr)))) ||
-        (kernel == kMma && (N + kTile - 1) / kTile > 65535))
-      return static_cast<int>(cudaErrorInvalidValue);
-  } else if ((M + kSimtM - 1) / kSimtM > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
+        reinterpret_cast<uintptr_t>(q) % 16 != 0 || splits < 1 || splits > n_k || !split_bufs)
+      return bad();
+    if (kernel == kGemv && (M > 16 || splits > 65535)) return bad();
+    if (kernel == kWgmma && splits > 1 && bm > 128) return bad();
+  } else {
+    return bad();
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (kernel == kWgmma) {
+    WParams p;
+    p.scale = static_cast<const float*>(scale);
+    p.out = out;
+    p.ws = static_cast<float*>(ws);
+    p.tickets = static_cast<int*>(tickets);
+    p.M = M;
+    p.N = N;
+    p.splits = splits;
+    p.n_k = n_k;
+    p.round_first = round_first;
+    return dtype == kF16 ? launch_tile<true>(p, x, q, K, bm, st)
+                         : launch_tile<false>(p, x, q, K, bm, st);
+  }
   const auto* qp = static_cast<const int8_t*>(q);
   const auto* sp = static_cast<const float*>(scale);
   auto* wsp = static_cast<float*>(ws);

@@ -44,8 +44,9 @@ def _global_functions() -> set:
 
 def test_the_sources_are_there():
     """The parametrised checks below are not run over an empty list."""
-    assert {"attn_fwd_sm90.cuh", "attn_bwd_sm90.cuh", "flash_fwd.cu",
-            "flash_bwd.cu", "rdma_ring.cu", "w8a16.cu"} <= set(SOURCES)
+    assert {"attn_fwd_sm90.cuh", "attn_bwd_sm90.cuh", "gemm_sm90.cuh",
+            "flash_fwd.cu", "flash_bwd.cu", "rdma_ring.cu",
+            "w8a16.cu"} <= set(SOURCES)
 
 
 @pytest.mark.parametrize("source", SOURCES)
@@ -87,6 +88,16 @@ def test_the_new_matmul_kernel_is_checked_for_spills():
     __global__ function of qmm.cu."""
     assert "qmm_wgmma_kernel" in _no_spill_kernels()
     assert "qmm_wgmma_kernel" in GLOBAL.findall((CSRC / "qmm.cu").read_text())
+
+
+def test_the_w8a16_tile_kernel_is_checked_for_spills():
+    """The wgmma W8A16 kernel is in NO_SPILL_KERNELS and a __global__
+    function of w8a16.cu, and the mma.sync tile kernel it replaced is gone
+    from every source."""
+    assert "w8a16_wgmma_kernel" in _no_spill_kernels()
+    assert "w8a16_wgmma_kernel" in GLOBAL.findall(
+        (CSRC / "w8a16.cu").read_text())
+    assert "w8a16_mma_kernel" not in _global_functions()
 
 
 @pytest.mark.parametrize("source,symbol", [

@@ -851,14 +851,24 @@ W8A16_8B = [(4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336),
             (128256, 4096)]
 #: (M, K, N, dtype, unembedding epilogue): the five 8B shapes at decode
 #: widths (M 1, 4, 16: the decode kernel), the four projections at prefill
-#: buckets (M 128, 2048: the tensor-core kernel), and small shapes with
+#: buckets (M 128, 512, 2048: the wgmma kernel, split along K at M 128 and
+#: at M 512 N 1024) in bf16 and fp16, the unembedding's epilogue at M 2048,
+#: ragged M (17, 37, 200, 2047) at 8B widths and with N 130 (split), odd N
+#: (16383 unsplit at 256-row tiles, 131 split), and small shapes with
 #: ragged M and N in every dtype, both epilogues (K 100: the CUDA-core
-#: kernel in every dtype). chip_smoke.py phase 2f runs the same list.
+#: kernel in every dtype; M 37 K 256 N 130 and M 200 K 96: wgmma tiles past
+#: M, N and K). chip_smoke.py phase 2f runs the same list.
 W8A16_CASES = (
     [(m, k, n, torch.bfloat16, n == 128256) for m in (1, 4, 16)
      for n, k in W8A16_8B]
-    + [(m, k, n, torch.bfloat16, False) for m in (128, 2048)
-       for n, k in W8A16_8B[:4]]
+    + [(m, k, n, dt, False) for dt in (torch.bfloat16, torch.float16)
+       for m in (128, 512, 2048) for n, k in W8A16_8B[:4]]
+    + [(2048, 4096, 128256, torch.bfloat16, True)]
+    + [(m, k, n, dt, False) for m in (17, 37, 200, 2047)
+       for k, n, dt in ((4096, 4096, torch.bfloat16),
+                        (4096, 130, torch.float16))]
+    + [(2047, 64, 16383, torch.bfloat16, False),
+       (37, 2048, 131, torch.float16, True)]
     + [(m, k, n, dt, rf)
        for dt in (torch.bfloat16, torch.float16, torch.float32)
        for m, k, n in ((3, 64, 72), (13, 128, 200), (37, 256, 130),
@@ -887,15 +897,22 @@ def w8a16_inputs(m, k, n, dtype, gen, dev):
 
 def w8a16_check(x, q, scale, round_first) -> dict:
     """Two launches of the op against the plain version: each launches a
-    kernel once, the two give the same bits, and they sit within
+    kernel once (the wgmma one where the plan names it), the two give the
+    same bits, and they sit within
     W8A16_TOL of the plain version by rel-L2. Returns the errors."""
-    before = tw8.w8a16_launches
+    before = tw8.w8a16_launches, tw8.w8a16_wgmma_launches
     got = tw8.int8_weight_matmul(x, q, scale, round_before_scale=round_first)
     again = tw8.int8_weight_matmul(x, q, scale,
                                    round_before_scale=round_first)
     want = tw8._int8_weight_matmul_plain(x, q, scale, round_first)
     torch.cuda.synchronize()
-    assert tw8.w8a16_launches == before + 2
+    m, k = x.shape
+    plan = tw8._w8a16_plan(m, k, q.shape[0], x.dtype,
+                           x.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0,
+                           tw8._sm_count(x.device.index))
+    assert tw8.w8a16_launches == before[0] + 2
+    assert tw8.w8a16_wgmma_launches == before[1] + 2 * (
+        plan.kernel == tw8.WGMMA)
     assert got.dtype == x.dtype and got.shape == want.shape
     assert torch.equal(got, again), "two launches differ"
     rel = _rel_l2(got.float(), want.float())

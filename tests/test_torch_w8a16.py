@@ -1,8 +1,10 @@
 """The W8A16 op (`ops/w8a16.py`) on the CPU: its plain version is the int8
 serving arithmetic the port had before the kernel (bit for bit, fp32 and
 bf16), it agrees with the JAX `Int8DenseGeneral` int8 branch and
-`quant_unembed`, `_w8a16_plan` names a kernel for every llama3_8b shape and
-refuses what no kernel takes, and the decode-step guard of
+`quant_unembed`, `_w8a16_plan` names a kernel for every llama3_8b shape
+(the wgmma kernel for every shape the earlier tile kernel took, its split-K
+in whole stages, emulated in split order) and refuses what no kernel
+takes, and the decode-step guard of
 tests/test_torch_quant.py still sees a weight-side dequant made inside the
 op. The kernels themselves run on the card (tests/test_torch_gpu_kernels.py,
 chip_smoke.py phase 2f)."""
@@ -141,11 +143,121 @@ def test_plan_splits_where_few_weight_rows_stream():
     assert tw8._w8a16_plan(4, 128, 1024, torch.bfloat16).splits == 1
 
 
-@pytest.mark.parametrize("n,k", LLAMA3_8B[:4])
-@pytest.mark.parametrize("m", [17, 128, 2048])
+def _tiles(m, n, bm):
+    return -(-m // bm) * -(-n // 128)
+
+
+@pytest.mark.parametrize("n,k", LLAMA3_8B[:4] + [(130, 1024)])
+@pytest.mark.parametrize("m", [17, 128, 2048, 37, 200, 2047, 1024])
 def test_plan_takes_the_tensor_core_kernel_past_16_rows(m, k, n):
+    """The wgmma kernel: the smallest tile of 64, 128 or 256 rows holding
+    m (128 where 256-row tiles would fill at most half the SMs, 64 where
+    128-row units would too), 128 weight rows, K
+    split only at 64 and 128 rows where at most half the SMs would have a
+    tile (runs of at least 16 stages), and one persistent CTA per unit up
+    to the SM count."""
+    sms = tw8.H100_SMS
+
+    def splits(bm):
+        tiles = _tiles(m, n, bm)
+        if bm == 256 or 2 * tiles > sms:
+            return 1
+        return max(1, min(sms // tiles, -(-k // 64) // 16, 16))
+
     plan = tw8._w8a16_plan(m, k, n, torch.float16)
-    assert plan == tw8.W8a16Plan(tw8.MMA, 1, (-(-m // 128), -(-n // 128)))
+    assert plan.kernel == tw8.WGMMA
+    bm = next((b for b in (64, 128, 256) if m <= b), 256)
+    if bm == 256 and 2 * _tiles(m, n, 256) <= sms:
+        bm = 128
+    if bm == 128 and 2 * _tiles(m, n, 128) * splits(128) <= sms:
+        bm = 64
+    assert plan.bm == bm and plan.tiles == _tiles(m, n, bm)
+    assert plan.splits == splits(bm)
+    assert plan.grid == (min(plan.units, sms),)
+
+
+@pytest.mark.parametrize("sms", [132, 114, 16])
+@pytest.mark.parametrize("m,k,n", [(m, k, n) for m in (17, 128, 512, 2048)
+                                   for n, k in LLAMA3_8B[:4]]
+                         + [(37, 4096, 130), (200, 2048, 64), (300, 16, 8)])
+def test_every_split_covers_k_once_in_whole_stages(m, k, n, sms):
+    plan = tw8._w8a16_plan(m, k, n, torch.bfloat16, True, sms)
+    ranges = plan.k_ranges(k)
+    assert len(ranges) == plan.splits
+    assert ranges[0][0] == 0 and ranges[-1][1] == k
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert all(k0 < k1 and k0 % 64 == 0 for k0, k1 in ranges)
+    assert all(k1 % 64 == 0 for _, k1 in ranges[:-1])
+
+
+#: The eight prefill shapes of chip_smoke.py's phase 2f as (M, K, N), and
+#: the splits the plan gives each on an H100 (132 SMs): at 128 rows q/o
+#: and down have 32 tiles, gate/up 112, k/v 16 of 64 rows (its 64 stages
+#: allow 4 runs of 16).
+PREFILL_SPLITS = [((128, 4096, 4096), 4), ((128, 4096, 1024), 4),
+                  ((128, 4096, 14336), 1), ((128, 14336, 4096), 4),
+                  ((2048, 4096, 4096), 1), ((2048, 4096, 1024), 1),
+                  ((2048, 4096, 14336), 1), ((2048, 14336, 4096), 1)]
+
+
+@pytest.mark.parametrize("shape,splits", PREFILL_SPLITS)
+def test_plan_splits_exactly_below_its_tile_threshold(shape, splits):
+    m, k, n = shape
+    plan = tw8._w8a16_plan(m, k, n, torch.bfloat16)
+    assert plan.splits == splits
+    below = (2 * plan.tiles <= tw8.H100_SMS and plan.bm <= tw8._MAX_SPLIT_BM
+             and k >= 2 * 64 * tw8._MIN_SPLIT_STAGES)
+    assert (plan.splits > 1) == below
+    assert plan.units <= tw8.H100_SMS or plan.splits == 1
+
+
+def _old_plan_took_the_tile_kernel(m, k, n, dtype, aligned):
+    """The rule by which the plan before the wgmma kernel sent a shape to
+    its mma.sync tile kernel (and raised past 65535 column tiles)."""
+    return (dtype in (torch.bfloat16, torch.float16) and k >= 1
+            and k % 16 == 0 and aligned and m > 16
+            and max(m * k, n * k, m * n) <= 2**31 - 1)
+
+
+@pytest.mark.parametrize("sms", [132, 114, 1])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_what_the_tile_kernel_took_now_takes_wgmma(dtype, sms):
+    """Every shape the old plan sent to the tile kernel goes to WGMMA,
+    never to the CUDA-core kernel or a raise; the old kernel's limit of
+    65535 column tiles (N 2**24 at M 32) is gone."""
+    taken = 0
+    for m in (17, 33, 64, 65, 128, 129, 256, 257, 2047, 2048, 4096):
+        for k in (16, 48, 64, 96, 4096, 14336):
+            for n in (1, 7, 130, 4096, 128256, 1 << 24):
+                if not _old_plan_took_the_tile_kernel(m, k, n, dtype, True):
+                    continue
+                plan = tw8._w8a16_plan(m, k, n, dtype, True, sms)
+                assert plan.kernel == tw8.WGMMA, (m, k, n)
+                assert 1 <= plan.splits <= max(1, -(-k // 64))
+                taken += 1
+    assert taken > 300
+    assert tw8._w8a16_plan(32, 16, 1 << 24, dtype).kernel == tw8.WGMMA
+
+
+@pytest.mark.parametrize("m,k,n", [(128, 4096, 1024), (128, 14336, 4096),
+                                   (37, 4096, 130), (200, 2048, 64)])
+def test_split_order_reduction_matches_plain(m, k, n):
+    """The wgmma kernel's split-K, emulated: the fp32 partial product over
+    each split's k run, summed in split order, then scaled and cast, is the
+    plain version within fp32 rounding."""
+    x, q, scale = _inputs(m, k, n, torch.bfloat16, seed=k + n)
+    plan = tw8._w8a16_plan(m, k, n, torch.bfloat16)
+    assert plan.splits > 1
+    xf, qf = x.float(), q.float()
+    acc = torch.zeros(m, n)
+    for k0, k1 in plan.k_ranges(k):
+        acc = acc + xf[:, k0:k1] @ qf[:, k0:k1].t()
+    full = xf @ qf.t()
+    bound = 4 * k * 2.0**-24 * (xf.abs() @ qf.abs().t())
+    assert bool(((acc - full).abs() <= bound).all())
+    got = (acc * scale).to(torch.bfloat16).float()
+    want = tw8._int8_weight_matmul_plain(x, q, scale).float()
+    assert (got - want).abs().max() <= 2.0**-7 * want.abs().max()
 
 
 @pytest.mark.parametrize("m,k,n,dtype,aligned", [
@@ -165,7 +277,7 @@ def test_plan_takes_the_cuda_core_kernel(m, k, n, dtype, aligned):
     ((4, 64, 64, torch.int8), TypeError, "fp32, bf16 or fp16"),
     ((4, 0, 64, torch.bfloat16), ValueError, "K >= 1"),
     ((1 << 20, 4096, 64, torch.bfloat16), ValueError, "2\\*\\*31"),
-    ((32, 16, 1 << 24, torch.bfloat16), ValueError, "column tiles"),
+    ((1, 1 << 31, 8, torch.float16), ValueError, "2\\*\\*31"),
     ((1 << 22, 16, 64, torch.float32), ValueError, "row tiles"),
 ])
 def test_plan_refuses_what_no_kernel_takes(args, error, match):
