@@ -6,7 +6,8 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
   1. device: require CUDA, print the card, build every kernel from source
      (one nvcc per source, all started together); the ptxas reports of the
      wgmma kernels (both attention forwards, the flash and ring dq and dk/dv
-     backward, the int8 matmul) must show no spill stores;
+     backward, the int8 and W8A16 matmuls) and of the CUDA-core dq and
+     dk/dv (every instantiation) must show no spill stores;
   2. kernels: the forward kernel against its plain PyTorch version on the
      card, at the serving shapes, with its time, the plain version's, one
      library call's (a yardstick the port never calls) and its bound;
@@ -24,8 +25,11 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
      bound;
   2e. the CUDA-core flash kernels (forward, dq, dk/dv for the inputs the
      wgmma kernels do not take) against the plain versions at the attention
-     shapes of phase 6's configs and at llama_1b's widths in fp32 at seq
-     1024, with their times, the plain versions', SDPA's and their bounds;
+     shapes of phase 6's configs, at llama_1b's widths in fp32 at seq 1024
+     and at Gemma 7B's widths (head_dim 256) in bf16 at seq 2048, each
+     case's backward plan (rows, streamed tile, dk/dv splits) printed, two
+     launches of dq and dk/dv bit-identical at a split shape, with their
+     times, the plain versions', SDPA's and their bounds;
   2f. the W8A16 matmul (`int8_weight_matmul`, csrc/w8a16.cu: int8 weight
      codes, activations in the compute dtype, the scale in the epilogue)
      against its plain version at llama3_8b's projection and unembedding
@@ -235,15 +239,26 @@ KERNEL_DESIGN = "wgmma+tma"
 # warpgroups hold the wgmma accumulators in registers: the forward's S, O
 # and P, dq's S, dP and dQ, dk/dv's dK and dV, the int8 matmul's int32
 # tile and its register A fragments, the W8A16 tile kernel's fp32 tile and
-# its widened A fragments; a spill there is lost overlap).
+# its widened A fragments; a spill there is lost overlap), and the
+# CUDA-core backward pair (its micro-tiles of S and dP and its [rows, D]
+# accumulators live in registers across the walk: every dtype and
+# head-dim bucket).
 NO_SPILL_KERNELS = ("flash_fwd_kernel", "rdma_fwd_kernel",
                     "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
                     "rdma_bwd_dq_kernel", "rdma_bwd_dkv_kernel",
-                    "qmm_wgmma_kernel", "w8a16_wgmma_kernel")
+                    "qmm_wgmma_kernel", "w8a16_wgmma_kernel",
+                    "flash_simt_dq_kernel", "flash_simt_dkv_kernel")
 # Phase 2e: besides phase 6's attention shapes, llama_1b's widths in fp32
-# at batch 2, seq 1024, where launch overhead does not hide the kernels.
+# at batch 2, seq 1024, where launch overhead does not hide the kernels,
+# and Gemma 7B's published attention widths (google/gemma-7b config.json:
+# 16 heads, 16 kv heads, head_dim 256) in bf16 at batch 1, seq 2048: the
+# CUDA-core route's head-dim-256 bucket (only the widths are used).
 SIMT_EXTRA_CASE = (2, 1024, 1024, 16, 8, 128, fa.MaskSpec("causal"), False,
                    torch.float32)
+SIMT_GEMMA_CASE = (1, 2048, 2048, 16, 16, 256, fa.MaskSpec("causal"), False,
+                   torch.bfloat16)
+SIMT_BWD_DESIGN = ("cuda cores, fp32, register-tiled micro-tiles, cp.async "
+                   "ring, per-tile masks, planned grid with split dk/dv")
 
 
 def log(*a):
@@ -496,14 +511,15 @@ def _gpu_tests():
 
 def _simt_cases(gk) -> list:
     """(B, S, T, H, KH, D, mask, segments, dtype): the attention of each of
-    phase 6's configs at its batch, then SIMT_EXTRA_CASE."""
+    phase 6's configs at its batch, then SIMT_EXTRA_CASE and
+    SIMT_GEMMA_CASE."""
     cases = []
     for name in gk.C1_CONFIGS:
         cfg = gk.c1_config(name)
         cases.append((gk.C1_BATCH, gk.C1_SEQ, gk.C1_SEQ, cfg.num_heads,
                       cfg.num_kv_heads, cfg.head_dim, fa.MaskSpec("causal"),
                       False, cfg.dtype))
-    return cases + [SIMT_EXTRA_CASE]
+    return cases + [SIMT_EXTRA_CASE, SIMT_GEMMA_CASE]
 
 
 def phase_simt(gk) -> dict:
@@ -512,20 +528,42 @@ def phase_simt(gk) -> dict:
     tests' bounds (SIMT_TOL: out and lse max abs, gradients' rel-L2), with
     their times, the plain versions', SDPA's forward and backward, and
     their bounds (fp32 at the CUDA cores' peak, bf16 at the tensor
-    cores')."""
+    cores'). Prints each case's backward plan; where it splits dk/dv, a
+    second launch of dq and of dk/dv must give bit-identical gradients
+    (fails unless some case splits)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
-    rows = []
+    rows, repeated = [], 0
     for case in _simt_cases(gk):
         b, s, t, h, kh, d, mask, segs, dtype = case
         q, k, v, do = (torch.randn(shp, generator=gen, device=dev).to(dtype)
                        for shp in ((b, s, h, d), (b, t, kh, d),
                                    (b, t, kh, d), (b, s, h, d)))
+        plan = fa._simt_plan_for(q, k)
+        log(f"  plan {_case_name(*case[:8])} {str(dtype)[6:]}: dq rows "
+            f"{plan.dq_rows} (tile {plan.dq_tile}, {plan.dq_ctas} CTAs); "
+            f"dk/dv rows {plan.dkv_rows} (tile {plan.dkv_tile}, "
+            f"{plan.dkv_blocks} key blocks x {plan.splits} splits of a "
+            f"{plan.walk}-step walk)")
         out, lse = fa._flash_simt_fwd_cuda(q, k, v, mask)
         delta = fa._bwd_delta(do, out, None)
         dq = fa._flash_simt_bwd_dq_cuda(q, k, v, do, lse, delta, mask)
         dk, dv = fa._flash_simt_bwd_dkv_cuda(q, k, v, do, lse, delta, mask)
         torch.cuda.synchronize()
+        if plan.splits > 1:
+            again = (fa._flash_simt_bwd_dq_cuda(q, k, v, do, lse, delta,
+                                                mask),
+                     *fa._flash_simt_bwd_dkv_cuda(q, k, v, do, lse, delta,
+                                                  mask))
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, c) for a, c in zip((dq, dk, dv), again))
+            log(f"    split dk/dv: a second launch of dq and dk/dv "
+                f"{'is bit-identical' if same else 'DIFFERS'}")
+            if not same:
+                raise RuntimeError(f"two launches of the CUDA-core backward "
+                                   f"differ at {_case_name(*case[:8])}")
+            repeated += 1
+            del again
         ref_out, ref_lse = fa._flash_fwd_plain(q.float(), k.float(),
                                                v.float(), mask)
         refs = fa._flash_bwd_plain(q.float(), k.float(), v.float(), out,
@@ -587,9 +625,13 @@ def phase_simt(gk) -> dict:
                      "library_fwd_ms": library_fwd_ms,
                      "library_bwd_ms": library_bwd_ms,
                      "fwd_bound": fwd_bound, "dq_bound": dq_bound,
-                     "dkv_bound": dkv_bound})
+                     "dkv_bound": dkv_bound,
+                     "plan": dataclasses.asdict(plan)})
         del q, k, v, do, out, lse, delta, dq, dk, dv
     torch.cuda.empty_cache()
+    if not repeated:
+        raise RuntimeError("no phase 2e case split dk/dv: the repeat check "
+                           "did not run")
     return {"rows": rows, "main": rows[len(gk.C1_CONFIGS) - 1]}
 
 
@@ -1997,8 +2039,13 @@ def _kernel_spills(logs: dict) -> dict:
                                      .rsplit(",", 1)[-1].strip())
                 current = None
     if len(found) < 2 * len(NO_SPILL_KERNELS):  # D 64 and 128 each
-        raise RuntimeError(f"no ptxas report for every wgmma kernel: "
+        raise RuntimeError(f"no ptxas report for every no-spill kernel: "
                            f"{sorted(found)}")
+    for kernel in ("flash_simt_dq_kernel", "flash_simt_dkv_kernel"):
+        # 3 dtypes x 4 head-dim buckets, at every rows choice
+        if sum(kernel in name for name in found) < 12:
+            raise RuntimeError(f"ptxas reported fewer than 12 "
+                               f"instantiations of {kernel}")
     return found
 
 
@@ -2016,9 +2063,11 @@ def main() -> int:
                     or "Performance Loss" in line):
                 log(f"  {src}: {line.strip()}")
     spills = _kernel_spills(_build.build_logs)
-    log(f"  spill stores of the wgmma kernels: {spills}")
+    log(f"  spill stores of the {len(spills)} instantiations of "
+        f"NO_SPILL_KERNELS: {sum(spills.values())} bytes")
     if any(spills.values()):
-        raise RuntimeError(f"a wgmma kernel spills: {spills}")
+        raise RuntimeError(f"a no-spill kernel spills: "
+                           f"{ {k: n for k, n in spills.items() if n} }")
     t0 = time.monotonic()
     log("phase 2: kernels vs plain versions")
     kern = phase_kernels()
@@ -2107,9 +2156,10 @@ def main() -> int:
         "bound_ms": smain[f"{key}_bound"][0],
         "bound_by": smain[f"{key}_bound"][1],
         "library_ms": smain[library], "shape": smain["shape"],
-        "design": "cuda cores, fp32",
+        "design": "cuda cores, fp32" if key == "fwd" else SIMT_BWD_DESIGN,
         "by_shape": [{"shape": r["shape"], "ms": r[f"{key}_ms"],
-                      "bound_ms": r[f"{key}_bound"][0]}
+                      "bound_ms": r[f"{key}_bound"][0],
+                      "plain_ms": r[plain], "library_ms": r[library]}
                      for r in simt["rows"]],
     } for name, line, n, key, plain, library, err, rel in (
         ("flash_simt_fwd", 135, simt_launches[0], "fwd", "plain_fwd_ms",

@@ -46,10 +46,13 @@ SIGNATURES = {
         "tpk_flash_bwd_dkv": [_P] * 9 + _MASK_ARGS,
     },
     "flash_simt.cu": {
-        # dtype (0 fp32, 1 bf16, 2 fp16), then as the wgmma entry points
+        # dtype (0 fp32, 1 bf16, 2 fp16), then as the wgmma entry points;
+        # the backward's rows a CTA owns before the stream
         "tpk_flash_simt_fwd": [_I] + [_P] * 6 + _MASK_ARGS,
-        "tpk_flash_simt_bwd_dq": [_I] + [_P] * 8 + _MASK_ARGS,
-        "tpk_flash_simt_bwd_dkv": [_I] + [_P] * 9 + _MASK_ARGS,
+        "tpk_flash_simt_bwd_dq": [_I] + [_P] * 8 + _MASK_ARGS[:-1] + [_I, _P],
+        # ... dk, dv, ws, tickets, B..scale, rows, splits, stream
+        "tpk_flash_simt_bwd_dkv": [_I] + [_P] * 11 + _MASK_ARGS[:-1]
+        + [_I, _I, _P],
     },
     "qmm.cu": {
         # qx, sx, qw, sw, out, ws, tickets, M, K, N, out_bf16, bm, splits,

@@ -25,10 +25,14 @@ into delta (ds = p * (dp - (delta - g_lse))).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import threading
 
 import torch
+
+from kubeflow_tpu_torch.ops.quant_matmul import _tickets_for
+from kubeflow_tpu_torch.ops.w8a16 import H100_SMS, _sm_count
 
 NEG_INF = -1e30
 
@@ -51,6 +55,14 @@ KERNEL_HEAD_DIMS = (64, 128)
 #: dims up to this one.
 SIMT_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 SIMT_MAX_HEAD_DIM = 256
+#: The CUDA-core backward's rows a CTA owns, largest first (at most 32
+#: above head dim 128, where the [rows, D] accumulators would spill).
+SIMT_BWD_ROWS = (64, 32, 16)
+_SIMT_WIDE_ROWS = 32
+#: dk/dv splits of a key block's walk, at most (the kernel takes 16).
+SIMT_MAX_SPLITS = 8
+_SIMT_SMEM_MAX = 232448  # an H100 CTA's dynamic shared memory, bytes
+_SIMT_STAGES = 2
 
 
 def cuda_kernel_takes(dtype, head_dim: int, device) -> bool:
@@ -387,6 +399,114 @@ def _flash_simt_fwd_cuda(q, k, v, mask: MaskSpec, segment_ids=None):
     return out, lse
 
 
+def _simt_bucket(d: int) -> int:
+    """The head-dim bucket a CUDA-core kernel is instantiated at."""
+    return next(dm for dm in (32, 64, 128, 256) if d <= dm)
+
+
+def _simt_smem(dkv: bool, size: int, dm: int, rows: int, n: int,
+               pbufs: int) -> int:
+    """Shared bytes of a backward CTA (csrc/flash_simt.cu BwdTile): the
+    owned rows' two operands, _SIMT_STAGES stages of the streamed tile's
+    two operands and its per-row words, and `pbufs` fp32 [rows, n] buffers
+    for dS (and P); rows of `size`-byte elements padded by 16 bytes."""
+    ld = dm + 16 // size
+    stage = 2 * n * ld * size + (3 if dkv else 1) * n * 4
+    return (2 * rows * ld * size + _SIMT_STAGES * stage
+            + pbufs * rows * (n + 8) * 4)
+
+
+def _simt_tile(dkv: bool, size: int, dm: int, rows: int) -> int:
+    """Rows of the streamed tile (the kernel's BwdTile::kN): 64 where the
+    ring of 64-row tiles fits in shared memory, for dk/dv with P and dS
+    sharing a buffer where a buffer each would not fit; else 32. At 16
+    owned rows also 32 where 64 would take more than half the SM's shared
+    memory (a second CTA then fits beside it)."""
+    own = _simt_smem(dkv, size, dm, rows, 64, 2 if dkv else 1)
+    if rows == SIMT_BWD_ROWS[-1] and own > _SIMT_SMEM_MAX // 2:
+        return 32
+    if own <= _SIMT_SMEM_MAX:
+        return 64
+    if dkv and _simt_smem(dkv, size, dm, rows, 64, 1) <= _SIMT_SMEM_MAX:
+        return 64
+    return 32
+
+
+@dataclasses.dataclass(frozen=True)
+class SimtBwdPlan:
+    """The CUDA-core backward's grid: rows a CTA owns and the streamed
+    tile of each pass, and the splits of a dk/dv key block's walk over
+    (GQA head, q tile) pairs."""
+
+    dq_rows: int
+    dq_tile: int
+    dkv_rows: int
+    dkv_tile: int
+    splits: int
+    dq_ctas: int
+    dkv_blocks: int  # key blocks, B * KH * ceil(T / dkv_rows): one ticket each
+    walk: int  # (GQA head, q tile) pairs of a key block, unmasked
+
+    @property
+    def dkv_ctas(self) -> int:
+        return self.dkv_blocks * self.splits
+
+
+def _fill_rows(units: int, n: int, top: int, sm_count: int) -> int:
+    """The largest of SIMT_BWD_ROWS up to `top` whose `units` * ceil(n /
+    rows) CTAs fill `sm_count` SMs, else the smallest."""
+    rows = top
+    while rows > SIMT_BWD_ROWS[-1] and units * -(-n // rows) < sm_count:
+        rows //= 2
+    return rows
+
+
+@functools.lru_cache(maxsize=1024)  # pure, and on every backward's path
+def _simt_bwd_plan(b: int, s: int, t: int, h: int, kh: int, d: int,
+                   dtype: torch.dtype, sm_count: int = H100_SMS) -> SimtBwdPlan:
+    """The CUDA-core dq and dk/dv grids for q [b, s, h, d] and k/v [b, t,
+    kh, d] of `dtype` on a card of `sm_count` SMs.
+
+    Each pass owns 64 rows a CTA (32 above head dim 128), halved down to 16
+    while its CTAs (b * h * ceil(s / rows) for dq, b * kh * ceil(t / rows)
+    key blocks for dk/dv) would not fill the SMs. Where dk/dv's key blocks
+    still leave SMs idle, each block's walk over (GQA head, q tile) pairs
+    is split over as many CTAs as give every SM one (ceil(SMs / blocks)):
+    at most the walk's steps (q tiles of the pass's streamed tile,
+    unmasked) and SIMT_MAX_SPLITS. Raises, naming the limit, for what no
+    kernel takes."""
+    if dtype not in SIMT_DTYPES:
+        raise TypeError(f"the CUDA-core kernels take fp32, bf16 or fp16, "
+                        f"not {dtype}")
+    if not 1 <= d <= SIMT_MAX_HEAD_DIM:
+        raise ValueError(f"the CUDA-core kernels take head_dim up to "
+                         f"{SIMT_MAX_HEAD_DIM}, not {d}")
+    if min(b, s, t, h, kh) < 1 or h % kh:
+        raise ValueError(f"B{b} S{s} T{t} H{h} KH{kh}: sizes must be "
+                         f"positive and H a multiple of KH")
+    dm = _simt_bucket(d)
+    size = torch.empty((), dtype=dtype).element_size()
+    top = SIMT_BWD_ROWS[0] if dm <= 128 else _SIMT_WIDE_ROWS
+    dq_rows = _fill_rows(b * h, s, top, sm_count)
+    dkv_rows = _fill_rows(b * kh, t, top, sm_count)
+    dkv_tile = _simt_tile(True, size, dm, dkv_rows)
+    blocks = b * kh * -(-t // dkv_rows)
+    walk = h // kh * -(-s // dkv_tile)
+    splits = 1
+    if blocks < sm_count:
+        splits = min(walk, -(-sm_count // blocks), SIMT_MAX_SPLITS)
+    return SimtBwdPlan(dq_rows, _simt_tile(False, size, dm, dq_rows),
+                       dkv_rows, dkv_tile, splits, b * h * -(-s // dq_rows),
+                       blocks, walk)
+
+
+def _simt_plan_for(q, k) -> SimtBwdPlan:
+    b, s, h, d = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    return _simt_bwd_plan(b, s, t, h, kh, d, q.dtype,
+                          _sm_count(q.device.index))
+
+
 def _simt_bwd_args(q, k, v, do, lse, delta, mask: MaskSpec, segment_ids):
     """Checks what the CUDA-core backward kernels take; returns (dtype
     code, input pointers, seg, common arguments)."""
@@ -407,19 +527,21 @@ def _simt_bwd_args(q, k, v, do, lse, delta, mask: MaskSpec, segment_ids):
 
 
 def _flash_simt_bwd_dq_cuda(q, k, v, do, lse, delta, mask: MaskSpec,
-                            segment_ids=None):
-    """Launch csrc/flash_simt.cu's dq kernel on the current stream."""
+                            segment_ids=None, plan: SimtBwdPlan | None = None):
+    """Launch csrc/flash_simt.cu's dq kernel on the current stream, at
+    `plan`'s rows (default `_simt_bwd_plan`'s)."""
     global flash_simt_bwd_dq_launches
     # `seg` backs a pointer in `ins`: it stays bound through the launch.
     code, ins, seg, common = _simt_bwd_args(q, k, v, do, lse, delta, mask,
                                             segment_ids)
+    plan = plan or _simt_plan_for(q, k)
     dq = torch.empty_like(q)
     from kubeflow_tpu_torch.ops import _build
 
     fn = _build.function("flash_simt.cu", "tpk_flash_simt_bwd_dq")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(code, *ins, dq.data_ptr(), *common, stream)
+        err = fn(code, *ins, dq.data_ptr(), *common, plan.dq_rows, stream)
     if err != 0:
         raise RuntimeError(f"flash_simt_bwd_dq kernel launch failed: CUDA "
                            f"error {err}")
@@ -429,20 +551,34 @@ def _flash_simt_bwd_dq_cuda(q, k, v, do, lse, delta, mask: MaskSpec,
 
 
 def _flash_simt_bwd_dkv_cuda(q, k, v, do, lse, delta, mask: MaskSpec,
-                             segment_ids=None):
-    """Launch csrc/flash_simt.cu's dk/dv kernel on the current stream."""
+                             segment_ids=None,
+                             plan: SimtBwdPlan | None = None):
+    """Launch csrc/flash_simt.cu's dk/dv kernel on the current stream, at
+    `plan`'s rows and splits (default `_simt_bwd_plan`'s). Split launches
+    get an fp32 workspace for the partials and the W8A8 op's ticket
+    counters (every launch leaves them at zero)."""
     global flash_simt_bwd_dkv_launches
     # `seg` backs a pointer in `ins`: it stays bound through the launch.
     code, ins, seg, common = _simt_bwd_args(q, k, v, do, lse, delta, mask,
                                             segment_ids)
+    plan = plan or _simt_plan_for(q, k)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     from kubeflow_tpu_torch.ops import _build
 
     fn = _build.function("flash_simt.cu", "tpk_flash_simt_bwd_dkv")
+    ws = tickets = None  # held until the launch is enqueued
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(code, *ins, dk.data_ptr(), dv.data_ptr(), *common, stream)
+        if plan.splits > 1:
+            ws = torch.empty(plan.dkv_ctas * 2 * plan.dkv_rows
+                             * _simt_bucket(q.shape[-1]),
+                             dtype=torch.float32, device=q.device)
+            tickets = _tickets_for(q.device, stream, plan.dkv_blocks)
+        err = fn(code, *ins, dk.data_ptr(), dv.data_ptr(),
+                 None if ws is None else ws.data_ptr(),
+                 None if tickets is None else tickets.data_ptr(), *common,
+                 plan.dkv_rows, plan.splits, stream)
     if err != 0:
         raise RuntimeError(f"flash_simt_bwd_dkv kernel launch failed: CUDA "
                            f"error {err}")

@@ -23,7 +23,9 @@ SOURCES = sorted(p.name for p in CSRC.iterdir()
                  if p.suffix in (".cu", ".cuh"))
 INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 EXTERN_C = re.compile(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)')
-GLOBAL = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
+# __launch_bounds__'s arguments may hold one level of parentheses.
+GLOBAL = re.compile(r"__global__\s+void\s+"
+                    r"(?:__launch_bounds__\((?:[^()]|\([^()]*\))*\)\s*)?"
                     r"(\w+)\s*\(")
 
 
@@ -72,8 +74,11 @@ def test_the_include_pattern_sees_a_missing_header():
 def test_the_global_pattern_reads_the_kernel_declarations():
     text = ("template <int D>\n__global__ void __launch_bounds__(fwd90::"
             "kThreads, 1)\nrdma_bwd_dq_kernel(const __grid_constant__ "
-            "DqParams p) {\n}\n__global__ void plain_kernel(int x) {}\n")
-    assert GLOBAL.findall(text) == ["rdma_bwd_dq_kernel", "plain_kernel"]
+            "DqParams p) {\n}\n__global__ void plain_kernel(int x) {}\n"
+            "__global__ void __launch_bounds__(kBwdThreads, (Tile<T, R>::"
+            "kMinBlocks))\nflash_simt_dq_kernel(const Params p) {}\n")
+    assert GLOBAL.findall(text) == ["rdma_bwd_dq_kernel", "plain_kernel",
+                                    "flash_simt_dq_kernel"]
 
 
 def _entry_points(source: str) -> dict:
@@ -98,6 +103,27 @@ def test_the_w8a16_tile_kernel_is_checked_for_spills():
     assert "w8a16_wgmma_kernel" in GLOBAL.findall(
         (CSRC / "w8a16.cu").read_text())
     assert "w8a16_mma_kernel" not in _global_functions()
+
+
+def test_the_cuda_core_backward_kernels_are_checked_for_spills():
+    """The register-tiled dq and dk/dv kernels are in NO_SPILL_KERNELS and
+    __global__ functions of flash_simt.cu."""
+    text = (CSRC / "flash_simt.cu").read_text()
+    for kernel in ("flash_simt_dq_kernel", "flash_simt_dkv_kernel"):
+        assert kernel in _no_spill_kernels()
+        assert kernel in GLOBAL.findall(text)
+
+
+def test_the_cuda_core_backward_entry_points_take_their_grid():
+    """dq takes its rows, dk/dv its rows, splits, workspace and tickets:
+    the extern "C" argument counts are _build.SIGNATURES' (without the
+    grid they were 20 and 21)."""
+    counts = _entry_points("flash_simt.cu")
+    sigs = _build.SIGNATURES["flash_simt.cu"]
+    assert counts["tpk_flash_simt_bwd_dq"] == len(
+        sigs["tpk_flash_simt_bwd_dq"]) == 21
+    assert counts["tpk_flash_simt_bwd_dkv"] == len(
+        sigs["tpk_flash_simt_bwd_dkv"]) == 25
 
 
 @pytest.mark.parametrize("source,symbol", [

@@ -451,22 +451,116 @@ def test_simt_backward_padded_rows_never_written(cuda):
     dq = torch.full((b, s + pad, h, d), float("nan"), device=cuda)
     dk, dv = (torch.full((b, t + pad, kh, d), float("nan"), device=cuda)
               for _ in range(2))
+    plan = tfa._simt_plan_for(q, k)
+    assert plan.splits > 1  # the split path's epilogue writes too
+    ws = torch.empty(plan.dkv_ctas * 2 * plan.dkv_rows * 32, device=cuda)
+    tickets = torch.zeros(plan.dkv_blocks, dtype=torch.int32, device=cuda)
     stream = torch.cuda.current_stream().cuda_stream
-    common = (b, s, t, h, kh, d, 1, 0, 0, 1.0 / math.sqrt(d), stream)
+    common = (b, s, t, h, kh, d, 1, 0, 0, 1.0 / math.sqrt(d))
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
            lse.data_ptr(), delta.data_ptr(), None)
     fn = _build.function
     assert fn("flash_simt.cu", "tpk_flash_simt_bwd_dq")(
-        0, *ins, dq.data_ptr(), *common) == 0
+        0, *ins, dq.data_ptr(), *common, plan.dq_rows, stream) == 0
     assert fn("flash_simt.cu", "tpk_flash_simt_bwd_dkv")(
-        0, *ins, dk.data_ptr(), dv.data_ptr(), *common) == 0
+        0, *ins, dk.data_ptr(), dv.data_ptr(), ws.data_ptr(),
+        tickets.data_ptr(), *common, plan.dkv_rows, plan.splits,
+        stream) == 0
     torch.cuda.synchronize()
+    assert not bool(tickets.any())  # left at zero for the next launch
     assert torch.equal(dq[:, :s], want_dq)
     assert torch.equal(dk[:, :t], want_dk)
     assert torch.equal(dv[:, :t], want_dv)
     assert bool(torch.isnan(dq[:, s:]).all())
     assert bool(torch.isnan(dk[:, t:]).all())
     assert bool(torch.isnan(dv[:, t:]).all())
+
+
+# Forced grids of the CUDA-core backward, at B2 S200 T200 H4 KH2 causal:
+# (dq rows, dk/dv rows, splits). Every rows choice of SIMT_BWD_ROWS, and
+# splits of the (GQA head, q tile) walk from 2 to past the walk's length
+# (some CTAs then walk nothing and add zero partials).
+SIMT_FORCED = [(64, 64, 1), (32, 32, 1), (16, 16, 1), (64, 64, 2),
+               (32, 32, 3), (16, 16, 8), (64, 64, 16)]
+
+
+def _simt_inputs(shape, d, dtype, seed, cuda):
+    b, s, t, h, kh = shape
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shp).astype(np.float32))
+            .to(cuda, dtype)
+            for shp in ((b, s, h, d), (b, t, kh, d), (b, t, kh, d),
+                        (b, s, h, d))]
+
+
+def _simt_backward(q, k, v, do, mask, seg=None, plan=None):
+    out, lse = tfa._flash_simt_fwd_cuda(q, k, v, mask, seg)
+    delta = tfa._bwd_delta(do, out, None)
+    dq = tfa._flash_simt_bwd_dq_cuda(q, k, v, do, lse, delta, mask, seg,
+                                     plan=plan)
+    dk, dv = tfa._flash_simt_bwd_dkv_cuda(q, k, v, do, lse, delta, mask, seg,
+                                          plan=plan)
+    return out, lse, (dq, dk, dv)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 128),
+                                     (torch.bfloat16, 40),
+                                     (torch.float16, 256)],
+                         ids=["float32-D128", "bfloat16-D40", "float16-D256"])
+@pytest.mark.parametrize("rows_dq,rows_dkv,splits", SIMT_FORCED,
+                         ids=[f"dq{a}-dkv{b}-x{c}" for a, b, c in SIMT_FORCED])
+def test_simt_backward_forced_plans_match_plain(cuda, rows_dq, rows_dkv,
+                                                splits, dtype, d):
+    """dq and dk/dv at every rows choice and split count a plan can name
+    (rows capped at 32 above head dim 128, as the plan caps them) agree
+    with the plain backward at SIMT_TOL, and leave the tickets at zero."""
+    shape = (2, 200, 200, 4, 2)
+    cap = 64 if d <= 128 else 32
+    base = tfa._simt_bwd_plan(*shape, d, dtype)
+    plan = dataclasses.replace(base, dq_rows=min(rows_dq, cap),
+                               dkv_rows=min(rows_dkv, cap), splits=splits)
+    plan = dataclasses.replace(
+        plan, dkv_blocks=shape[0] * shape[4] * -(-shape[2] // plan.dkv_rows))
+    q, k, v, do = _simt_inputs(shape, d, dtype, 31, cuda)
+    mask = tfa.MaskSpec("causal")
+    out, lse, grads = _simt_backward(q, k, v, do, mask, plan=plan)
+    torch.cuda.synchronize()
+    want = tfa._flash_bwd_plain(q.float(), k.float(), v.float(), out, lse,
+                                do.float(), None, mask)
+    tol = SIMT_TOL[dtype][2]
+    for name, g, r in zip(("dq", "dk", "dv"), grads, want):
+        assert _rel_l2(g, r) <= tol, (name, _rel_l2(g, r))
+    from kubeflow_tpu_torch.ops.quant_matmul import _tickets_for
+
+    tickets = _tickets_for(q.device, torch.cuda.current_stream().cuda_stream,
+                           1)
+    assert not bool(tickets.any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,d,kind,segments", [
+    (torch.bfloat16, 16, "causal", False),
+    (torch.float32, 128, "sliding_window", False),
+    (torch.float32, 64, "causal", True)])
+def test_simt_backward_is_deterministic(cuda, dtype, d, kind, segments):
+    """Two launches of dq and of dk/dv at a split shape (the plan splits
+    dk/dv there) give bit-identical gradients: the last split sums the
+    partials in split order, and nothing is added atomically."""
+    shape = (2, 96, 96, 4, 2)
+    q, k, v, do = _simt_inputs(shape, d, dtype, 33, cuda)
+    assert tfa._simt_plan_for(q, k).splits > 1
+    seg = None
+    if segments:
+        rng = np.random.default_rng(34)
+        seg = torch.from_numpy(np.cumsum(rng.random((2, 96)) < 0.05, axis=1)
+                               .astype(np.int32)).to(cuda)
+    mask = tfa.MaskSpec(kind, window=20 if kind == "sliding_window" else 0)
+    _, _, first = _simt_backward(q, k, v, do, mask, seg)
+    _, _, second = _simt_backward(q, k, v, do, mask, seg)
+    torch.cuda.synchronize()
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
 
 
 # C1: attention_impl="auto" on the card for configs the wgmma kernels do not

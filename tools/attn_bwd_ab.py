@@ -24,6 +24,19 @@ dq and dk/dv summed over the n rank launches and per rank, the host's time
 inside the n entry-point calls (`enqueue_us`: each call encodes the rank's
 TMA maps), the bounds as phase 2d counts them, SDPA's backward and the
 flash kernels over the whole sequence.
+
+    python3 tools/attn_bwd_ab.py --parent build/parent --simt [--out FILE]
+
+times the CUDA-core pair instead: the other tree's `ops/csrc/flash_simt.cu`
+beside this tree's (`tpk_flash_simt_bwd_dq`, `tpk_flash_simt_bwd_dkv`, each
+tree called with its own `_build.SIGNATURES`; this tree's at its
+`_simt_bwd_plan`), at chip_smoke.py's phase 2e shapes (phase 6's two
+configs at B2 S96, llama_1b's widths in fp32 at B2 S1024, Gemma 7B's
+attention widths in bf16 at B1 S2048; all causal), dq and dk/dv each in
+the order old, new, new, old. The two trees' gradients must agree within
+SIMT_TOL of tests/test_torch_gpu_kernels.py (rel-L2). Beside each: the
+bounds as phase 2e counts them, the plain backward's time, one SDPA
+backward, and the plan.
 Needs CUDA; imports nothing of JAX.
 """
 
@@ -31,6 +44,8 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
+import importlib.util
 import json
 import math
 import os
@@ -45,9 +60,11 @@ sys.path.insert(0, str(ROOT))
 
 from kubeflow_tpu_torch.ops import _build  # noqa: E402
 from kubeflow_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from kubeflow_tpu_torch.ops import quant_matmul as qmm  # noqa: E402
 from kubeflow_tpu_torch.ops import rdma_ring_attention as rra  # noqa: E402
-from tools.attn_fwd_ab import (bound_ms, enqueue_us, in_turns,  # noqa: E402
-                               parent_function, time_ms)
+from tools.attn_fwd_ab import (PEAK_BF16_FLOPS, bound_ms,  # noqa: E402
+                               enqueue_us, in_turns, parent_function,
+                               parent_library, time_ms)
 
 SHAPES = [(1, s, 32, 8, 128) for s in (128, 512, 1000, 2048)] + [
     (12, 1024, 16, 8, 128)]  # (B, S, H, KH, D), causal, T = S
@@ -208,10 +225,149 @@ def ring_row(parent, gen) -> dict:
     return row
 
 
+# (B, S, H, KH, D, dtype), causal, T = S: phase 2e's shapes.
+SIMT_SHAPES = [(2, 96, 4, 2, 16, torch.bfloat16),
+               (2, 96, 16, 8, 128, torch.float32),
+               (2, 1024, 16, 8, 128, torch.float32),
+               (1, 2048, 16, 16, 256, torch.bfloat16)]
+PEAK_FP32_FLOPS = 67e12
+
+
+def _gpu_tests():
+    """tests/test_torch_gpu_kernels.py as a module (its SIMT_TOL)."""
+    path = ROOT / "tests" / "test_torch_gpu_kernels.py"
+    spec = importlib.util.spec_from_file_location("gpu_kernel_tests", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def simt_functions(tree: Path | None):
+    """(dq, dk/dv) entry points of flash_simt.cu: this tree's, or the
+    other tree's built beside it and declared with its own argtypes."""
+    symbols = ("tpk_flash_simt_bwd_dq", "tpk_flash_simt_bwd_dkv")
+    if tree is None:
+        return [_build.function("flash_simt.cu", s) for s in symbols]
+    spec = importlib.util.spec_from_file_location(
+        "parent_build", tree / "kubeflow_tpu_torch" / "ops" / "_build.py")
+    pbuild = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(pbuild)
+    lib = parent_library(tree, "flash_simt.cu")
+    fns = []
+    for sym in symbols:
+        fn = getattr(lib, sym)
+        fn.argtypes = pbuild.SIGNATURES["flash_simt.cu"][sym]
+        fn.restype = ctypes.c_int
+        fns.append(fn)
+    return fns
+
+
+def simt_calls(fns, q, k, v, do, lse, delta, outs, plan, what):
+    """(dq call, dk/dv call) of one tree's CUDA-core entry points into
+    `outs`. An entry point that takes no grid arguments (the earlier
+    design's) gets none; one that does gets `plan`'s, with its workspace
+    and tickets."""
+
+    b, s, h, d = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    code = fa.SIMT_DTYPES[q.dtype]
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+           lse.data_ptr(), delta.data_ptr(), None)
+    stream = torch.cuda.current_stream().cuda_stream
+    common = (b, s, t, h, kh, d, 0, 0, 0, 1.0 / math.sqrt(d))
+    dq, dk, dv = outs
+    gridded = len(fns[0].argtypes) > 1 + 8 + len(common) + 1
+    ws = tickets = None
+    if gridded and plan.splits > 1:
+        ws = torch.empty(plan.dkv_ctas * 2 * plan.dkv_rows
+                         * fa._simt_bucket(d), device=q.device)
+        tickets = qmm._tickets_for(q.device, stream, plan.dkv_blocks)
+
+    def check(err, kernel):
+        if err != 0:
+            raise RuntimeError(f"{what} {kernel} launch failed: CUDA error "
+                               f"{err}")
+
+    def call_dq():
+        extra = (plan.dq_rows,) if gridded else ()
+        check(fns[0](code, *ins, dq.data_ptr(), *common, *extra, stream),
+              "dq")
+
+    def call_dkv():
+        if gridded:
+            check(fns[1](code, *ins, dk.data_ptr(), dv.data_ptr(),
+                         None if ws is None else ws.data_ptr(),
+                         None if tickets is None else tickets.data_ptr(),
+                         *common, plan.dkv_rows, plan.splits, stream),
+                  "dk/dv")
+        else:
+            check(fns[1](code, *ins, dk.data_ptr(), dv.data_ptr(), *common,
+                         stream), "dk/dv")
+    return call_dq, call_dkv
+
+
+def simt_rows(parent: Path) -> tuple[list, list]:
+    """The CUDA-core pair of both trees at SIMT_SHAPES, in turns: (rows,
+    shapes where the trees disagree)."""
+    tol = _gpu_tests().SIMT_TOL
+    old_fns, new_fns = simt_functions(parent), simt_functions(None)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    mask = fa.MaskSpec("causal")
+    rows, bad = [], []
+    for b, s, h, kh, d, dtype in SIMT_SHAPES:
+        q, do = (torch.randn(b, s, h, d, generator=gen, device="cuda")
+                 .to(dtype) for _ in range(2))
+        k, v = (torch.randn(b, s, kh, d, generator=gen, device="cuda")
+                .to(dtype) for _ in range(2))
+        out, lse = fa._flash_simt_fwd_cuda(q, k, v, mask)
+        delta = fa._bwd_delta(do, out, None)
+        plan = fa._simt_plan_for(q, k)
+        outs = {w: (torch.empty_like(q), torch.empty_like(k),
+                    torch.empty_like(v)) for w in ("old", "new")}
+        old_dq, old_dkv = simt_calls(old_fns, q, k, v, do, lse, delta,
+                                     outs["old"], plan, "old")
+        new_dq, new_dkv = simt_calls(new_fns, q, k, v, do, lse, delta,
+                                     outs["new"], plan, "new")
+        for call in (old_dq, old_dkv, new_dq, new_dkv):
+            call()
+        torch.cuda.synchronize()
+        agree = {n: _rel_l2(a, c) for n, a, c in
+                 zip(("dq", "dk", "dv"), outs["new"], outs["old"])}
+        dq_old, dq_new = in_turns(old_dq, new_dq, REPS)
+        dkv_old, dkv_new = in_turns(old_dkv, new_dkv, REPS)
+        pairs = b * h * s * (s + 1) // 2
+        size = q.element_size()
+        # phase 2e's peaks: the CUDA cores' for fp32, the tensor cores' else
+        peak = PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+        reads = (size * (2 * q.numel() + 2 * k.numel())
+                 + 8 * lse.numel())
+        dq_bound = bound_ms(6 * d * pairs, reads + size * q.numel(), peak)
+        dkv_bound = bound_ms(8 * d * pairs, reads + 2 * size * k.numel(),
+                             peak)
+        row = {"shape": f"B{b} S{s} H{h} KH{kh} D{d} causal "
+                        f"{str(dtype)[6:]}",
+               "plan": dataclasses.asdict(plan),
+               "dq_old_ms": dq_old, "dq_new_ms": dq_new,
+               "dkv_old_ms": dkv_old, "dkv_new_ms": dkv_new,
+               "dq_bound_ms": dq_bound[0], "dq_bound_by": dq_bound[1],
+               "dkv_bound_ms": dkv_bound[0], "dkv_bound_by": dkv_bound[1],
+               "plain_bwd_ms": time_ms(lambda: fa._flash_bwd_plain(
+                   q, k, v, out, lse, do, None, mask), 3),
+               "sdpa_bwd_ms": _sdpa_bwd_ms(q, k, v, do),
+               "rel_l2_new_vs_old": agree}
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+        if max(agree.values()) > tol[dtype][2]:
+            bad.append(row["shape"])
+    return rows, bad
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", required=True, type=Path)
     ap.add_argument("--out", type=Path)
+    ap.add_argument("--simt", action="store_true",
+                    help="time the CUDA-core pair (flash_simt.cu) instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("attn_bwd_ab: CUDA is not available", file=sys.stderr)
@@ -220,6 +376,9 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(f"card: {card}", flush=True)
+    if args.simt:
+        rows, bad = simt_rows(args.parent)
+        return _finish(args.out, card, rows, bad)
     symbols = ("tpk_flash_bwd_dq", "tpk_flash_bwd_dkv")
     old_fns = [parent_function(args.parent, "flash_bwd.cu", s) for s in symbols]
     new_fns = [_build.function("flash_bwd.cu", s) for s in symbols]
@@ -268,10 +427,13 @@ def main() -> int:
     print(json.dumps(row), flush=True)
     if max(row["rel_l2_new_vs_old"].values()) > AGREE_REL_L2:
         bad.append(row["shape"])
-    if args.out:
-        os.makedirs(args.out.parent, exist_ok=True)
-        args.out.write_text(json.dumps({"card": card, "rows": rows},
-                                       indent=1))
+    return _finish(args.out, card, rows, bad)
+
+
+def _finish(out: Path | None, card: str, rows: list, bad: list) -> int:
+    if out:
+        os.makedirs(out.parent, exist_ok=True)
+        out.write_text(json.dumps({"card": card, "rows": rows}, indent=1))
     if bad:
         print(f"old and new disagree at {bad}", file=sys.stderr)
         return 1

@@ -27,6 +27,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import functools
+import hashlib
 import json
 import math
 import os
@@ -96,8 +97,9 @@ def enqueue_us(fn, reps: int) -> float:
     return statistics.median(times) * 1e6
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
-    ops, mem = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def bound_ms(flops: float, nbytes: float,
+             peak: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
+    ops, mem = flops / peak, nbytes / PEAK_BYTES
     return max(ops, mem) * 1e3, "operations" if ops >= mem else "bytes"
 
 
@@ -107,7 +109,8 @@ def parent_library(parent: Path, source: str) -> ctypes.CDLL:
     tree's flags."""
     out_dir = _build.BUILD_DIR / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
-    out = out_dir / f"parent_{Path(source).stem}.so"
+    tag = hashlib.sha256(str(parent.resolve()).encode()).hexdigest()[:8]
+    out = out_dir / f"parent_{Path(source).stem}_{tag}.so"
     src = parent / "kubeflow_tpu_torch" / "ops" / "csrc" / source
     proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
                            str(src)], capture_output=True, text=True)
