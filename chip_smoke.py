@@ -240,14 +240,24 @@ KERNEL_DESIGN = "wgmma+tma"
 # and P, dq's S, dP and dQ, dk/dv's dK and dV, the int8 matmul's int32
 # tile and its register A fragments, the W8A16 tile kernel's fp32 tile and
 # its widened A fragments; a spill there is lost overlap), and the
-# CUDA-core backward pair (its micro-tiles of S and dP and its [rows, D]
-# accumulators live in registers across the walk: every dtype and
-# head-dim bucket).
+# kernels of flash_simt.cu: the CUDA-core forward and backward pair (their
+# micro-tiles of S and dP and their [rows, D] accumulators live in
+# registers across the walk: every dtype and head-dim bucket) and the
+# tensor-core forward (S, P and O fragments; at head dim 256 O alone is 128
+# registers a thread).
 NO_SPILL_KERNELS = ("flash_fwd_kernel", "rdma_fwd_kernel",
                     "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
                     "rdma_bwd_dq_kernel", "rdma_bwd_dkv_kernel",
                     "qmm_wgmma_kernel", "w8a16_wgmma_kernel",
+                    "flash_simt_fwd_kernel", "flash_simt_fwd_mma_kernel",
                     "flash_simt_dq_kernel", "flash_simt_dkv_kernel")
+# Instantiations ptxas must report of each flash_simt.cu kernel: 3 dtypes x
+# 4 head-dim buckets at every rows choice (16, 32, 64; 64 not above 128) for
+# the CUDA-core ones; bf16 and fp16 x 11 buckets for the tensor-core one.
+SIMT_INSTANTIATIONS = {"flash_simt_fwd_kernel": 33,
+                       "flash_simt_dq_kernel": 33,
+                       "flash_simt_dkv_kernel": 33,
+                       "flash_simt_fwd_mma_kernel": 22}
 # Phase 2e: besides phase 6's attention shapes, llama_1b's widths in fp32
 # at batch 2, seq 1024, where launch overhead does not hide the kernels,
 # and Gemma 7B's published attention widths (google/gemma-7b config.json:
@@ -259,6 +269,10 @@ SIMT_GEMMA_CASE = (1, 2048, 2048, 16, 16, 256, fa.MaskSpec("causal"), False,
                    torch.bfloat16)
 SIMT_BWD_DESIGN = ("cuda cores, fp32, register-tiled micro-tiles, cp.async "
                    "ring, per-tile masks, planned grid with split dk/dv")
+SIMT_FWD_DESIGN = ("bf16/fp16: tensor cores, mma.sync m16n8k16, ldmatrix "
+                   "fragments, online softmax in registers; fp32: cuda "
+                   "cores, register-tiled micro-tiles; both: cp.async ring, "
+                   "per-tile masks, planned grid")
 
 
 def log(*a):
@@ -528,9 +542,13 @@ def phase_simt(gk) -> dict:
     tests' bounds (SIMT_TOL: out and lse max abs, gradients' rel-L2), with
     their times, the plain versions', SDPA's forward and backward, and
     their bounds (fp32 at the CUDA cores' peak, bf16 at the tensor
-    cores'). Prints each case's backward plan; where it splits dk/dv, a
-    second launch of dq and of dk/dv must give bit-identical gradients
-    (fails unless some case splits)."""
+    cores'). Prints each case's forward and backward plans; the forward
+    must run on the tensor cores for bf16/fp16 and on the CUDA cores for
+    fp32 (by the launch counters), and two launches of it must give
+    bit-identical out and lse; where the backward splits dk/dv, a second
+    launch of dq and of dk/dv must give bit-identical gradients (fails
+    unless some case splits). Returns the rows and, as "main", the row of
+    phase 6's fp32 config."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
     rows, repeated = [], 0
@@ -540,12 +558,31 @@ def phase_simt(gk) -> dict:
                        for shp in ((b, s, h, d), (b, t, kh, d),
                                    (b, t, kh, d), (b, s, h, d)))
         plan = fa._simt_plan_for(q, k)
-        log(f"  plan {_case_name(*case[:8])} {str(dtype)[6:]}: dq rows "
-            f"{plan.dq_rows} (tile {plan.dq_tile}, {plan.dq_ctas} CTAs); "
+        fplan = fa._simt_fwd_plan_for(q, k)
+        log(f"  plan {_case_name(*case[:8])} {str(dtype)[6:]}: forward "
+            f"{fplan.kernel} (bucket {fplan.bucket}, rows {fplan.rows}, "
+            f"tile {fplan.tile}, {fplan.ctas} CTAs, {fplan.smem} bytes); "
+            f"dq rows {plan.dq_rows} (tile {plan.dq_tile}, {plan.dq_ctas} "
+            f"CTAs); "
             f"dk/dv rows {plan.dkv_rows} (tile {plan.dkv_tile}, "
             f"{plan.dkv_blocks} key blocks x {plan.splits} splits of a "
             f"{plan.walk}-step walk)")
+        mma_before = fa.flash_simt_fwd_mma_launches
         out, lse = fa._flash_simt_fwd_cuda(q, k, v, mask)
+        out2, lse2 = fa._flash_simt_fwd_cuda(q, k, v, mask)
+        torch.cuda.synchronize()
+        ran = ("mma" if fa.flash_simt_fwd_mma_launches - mma_before == 2
+               else "simt" if fa.flash_simt_fwd_mma_launches == mma_before
+               else "both")
+        want = "simt" if dtype == torch.float32 else "mma"
+        same_fwd = torch.equal(out, out2) and torch.equal(lse, lse2)
+        log(f"    forward ran the {ran} kernel; a second launch "
+            f"{'is bit-identical' if same_fwd else 'DIFFERS'}")
+        if ran != want or not same_fwd:
+            raise RuntimeError(f"the forward at {_case_name(*case[:8])} ran "
+                               f"{ran} (want {want}), repeat bit-identical "
+                               f"{same_fwd}")
+        del out2, lse2
         delta = fa._bwd_delta(do, out, None)
         dq = fa._flash_simt_bwd_dq_cuda(q, k, v, do, lse, delta, mask)
         dk, dv = fa._flash_simt_bwd_dkv_cuda(q, k, v, do, lse, delta, mask)
@@ -626,7 +663,8 @@ def phase_simt(gk) -> dict:
                      "library_bwd_ms": library_bwd_ms,
                      "fwd_bound": fwd_bound, "dq_bound": dq_bound,
                      "dkv_bound": dkv_bound,
-                     "plan": dataclasses.asdict(plan)})
+                     "plan": dataclasses.asdict(plan),
+                     "fwd_plan": dataclasses.asdict(fplan)})
         del q, k, v, do, out, lse, delta, dq, dk, dv
     torch.cuda.empty_cache()
     if not repeated:
@@ -1601,6 +1639,7 @@ def _reset_counts() -> None:
     fa.flash_bwd_dq_launches = 0
     fa.flash_bwd_dkv_launches = 0
     fa.flash_simt_fwd_launches = 0
+    fa.flash_simt_fwd_mma_launches = 0
     fa.flash_simt_bwd_dq_launches = 0
     fa.flash_simt_bwd_dkv_launches = 0
 
@@ -2000,8 +2039,9 @@ def phase_auto(gk) -> tuple:
     through the GPU tests' check (c1_compare: a prefill and a training step
     under "auto" and under "naive" on the same weights and batch). Fails if
     a config raises, drifts from "naive" beyond C1_TOL, launches a wgmma
-    kernel or leaves a CUDA-core kernel unlaunched. Returns the CUDA-core
-    launches (fwd, dq, dk/dv) of the whole phase."""
+    kernel or leaves a CUDA-core kernel unlaunched. Returns the launches
+    of flash_simt.cu's kernels (fwd, dq, dk/dv, and of fwd the tensor-core
+    kernel's) of the whole phase."""
     _reset_counts()
     for name in gk.C1_CONFIGS:
         res = gk.c1_compare(name, DEVICE)
@@ -2017,7 +2057,8 @@ def phase_auto(gk) -> tuple:
             raise RuntimeError(f"attention_impl='auto' on {name} did not run "
                                f"through the CUDA-core kernels as 'naive'")
     launches = (fa.flash_simt_fwd_launches, fa.flash_simt_bwd_dq_launches,
-                fa.flash_simt_bwd_dkv_launches)
+                fa.flash_simt_bwd_dkv_launches,
+                fa.flash_simt_fwd_mma_launches)
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -2041,11 +2082,12 @@ def _kernel_spills(logs: dict) -> dict:
     if len(found) < 2 * len(NO_SPILL_KERNELS):  # D 64 and 128 each
         raise RuntimeError(f"no ptxas report for every no-spill kernel: "
                            f"{sorted(found)}")
-    for kernel in ("flash_simt_dq_kernel", "flash_simt_dkv_kernel"):
-        # 3 dtypes x 4 head-dim buckets, at every rows choice
-        if sum(kernel in name for name in found) < 12:
-            raise RuntimeError(f"ptxas reported fewer than 12 "
-                               f"instantiations of {kernel}")
+    for kernel, want in SIMT_INSTANTIATIONS.items():
+        # (no name here is a substring of another's mangled name)
+        got = sum(kernel in name for name in found)
+        if got < want:
+            raise RuntimeError(f"ptxas reported {got} instantiations of "
+                               f"{kernel}, fewer than {want}")
     return found
 
 
@@ -2156,10 +2198,16 @@ def main() -> int:
         "bound_ms": smain[f"{key}_bound"][0],
         "bound_by": smain[f"{key}_bound"][1],
         "library_ms": smain[library], "shape": smain["shape"],
-        "design": "cuda cores, fp32" if key == "fwd" else SIMT_BWD_DESIGN,
+        "design": SIMT_FWD_DESIGN if key == "fwd" else SIMT_BWD_DESIGN,
+        **({"launches_by_kernel": {
+            "mma": simt_launches[3],
+            "simt": simt_launches[0] - simt_launches[3]}}
+           if key == "fwd" else {}),
         "by_shape": [{"shape": r["shape"], "ms": r[f"{key}_ms"],
                       "bound_ms": r[f"{key}_bound"][0],
-                      "plain_ms": r[plain], "library_ms": r[library]}
+                      "plain_ms": r[plain], "library_ms": r[library],
+                      **({"kernel": r["fwd_plan"]["kernel"]}
+                         if key == "fwd" else {})}
                      for r in simt["rows"]],
     } for name, line, n, key, plain, library, err, rel in (
         ("flash_simt_fwd", 135, simt_launches[0], "fwd", "plain_fwd_ms",

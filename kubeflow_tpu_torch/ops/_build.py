@@ -47,8 +47,9 @@ SIGNATURES = {
     },
     "flash_simt.cu": {
         # dtype (0 fp32, 1 bf16, 2 fp16), then as the wgmma entry points;
-        # the backward's rows a CTA owns before the stream
-        "tpk_flash_simt_fwd": [_I] + [_P] * 6 + _MASK_ARGS,
+        # the forward's kernel (0 CUDA cores, 1 tensor cores) and rows, the
+        # backward's rows a CTA owns, before the stream
+        "tpk_flash_simt_fwd": [_I] + [_P] * 6 + _MASK_ARGS[:-1] + [_I, _I, _P],
         "tpk_flash_simt_bwd_dq": [_I] + [_P] * 8 + _MASK_ARGS[:-1] + [_I, _P],
         # ... dk, dv, ws, tickets, B..scale, rows, splits, stream
         "tpk_flash_simt_bwd_dkv": [_I] + [_P] * 11 + _MASK_ARGS[:-1]

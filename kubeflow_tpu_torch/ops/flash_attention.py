@@ -5,11 +5,15 @@ wrappers launch hand-written CUDA C++ for sm_90a, built on first use by
 `_build.py`: for bf16 at head_dim 64 or 128, the wgmma kernels of
 `csrc/flash_fwd.cu` (forward) and `csrc/flash_bwd.cu` (the two-pass
 backward: dq, then dk/dv); for every other fp32, bf16 or fp16 input up to
-head_dim 256, the CUDA-core kernels of `csrc/flash_simt.cu`, which compute
-in fp32 as the TPU kernels do for any dtype and head dim. On a CPU tensor
-they run `_flash_fwd_plain` and `_flash_bwd_plain`, the same functions with
-the full score matrix in fp32. Nothing falls back: a CUDA tensor no kernel
-takes (head_dim above 256, float64) raises.
+head_dim 256, the kernels of `csrc/flash_simt.cu`: a forward on the tensor
+cores for bf16/fp16 (`mma.sync`, fp32 accumulation, P rounded to the input
+dtype for P.V as the wgmma forward does) and on the CUDA cores for fp32,
+and the CUDA-core dq and dk/dv, which compute in fp32 as the TPU kernels do
+for any dtype and head dim (`_simt_fwd_plan` and `_simt_bwd_plan` pick
+their grids). On a CPU tensor they run `_flash_fwd_plain` and
+`_flash_bwd_plain`, the same functions with the full score matrix in fp32.
+Nothing falls back: a CUDA tensor no kernel takes (head_dim above 256,
+float64) raises.
 
 Layout is the JAX package's: q [B,S,H,D], k/v [B,T,KH,D] with H % KH == 0;
 out [B,S,H,D] in q's dtype and lse [B,S,H,1] fp32. Masks are applied by
@@ -41,7 +45,8 @@ NEG_INF = -1e30
 flash_fwd_launches = 0
 flash_bwd_dq_launches = 0
 flash_bwd_dkv_launches = 0
-flash_simt_fwd_launches = 0
+flash_simt_fwd_launches = 0  # both forward kernels of csrc/flash_simt.cu
+flash_simt_fwd_mma_launches = 0  # ... of them, the tensor-core one
 flash_simt_bwd_dq_launches = 0
 flash_simt_bwd_dkv_launches = 0
 _count_lock = threading.Lock()
@@ -61,6 +66,15 @@ SIMT_BWD_ROWS = (64, 32, 16)
 _SIMT_WIDE_ROWS = 32
 #: dk/dv splits of a key block's walk, at most (the kernel takes 16).
 SIMT_MAX_SPLITS = 8
+#: The forward's kernels (their C codes): "mma" on the tensor cores for
+#: bf16/fp16, "simt" on the CUDA cores for fp32.
+SIMT_FWD_KERNELS = {"simt": 0, "mma": 1}
+#: The tensor-core forward's query rows a CTA owns (16 a warp), largest
+#: first; its head-dim buckets (the head dim is padded with zero columns to
+#: the next); and its kv tile rows.
+SIMT_MMA_ROWS = (128, 64, 32, 16)
+SIMT_MMA_BUCKETS = (16, 32, 48, 64, 80, 96, 112, 128, 160, 192, 256)
+_SIMT_MMA_TILE = 64
 _SIMT_SMEM_MAX = 232448  # an H100 CTA's dynamic shared memory, bytes
 _SIMT_STAGES = 2
 
@@ -374,11 +388,14 @@ def _simt_common(q, k, mask: MaskSpec):
             int(mask.prefix), 1.0 / math.sqrt(d))
 
 
-def _flash_simt_fwd_cuda(q, k, v, mask: MaskSpec, segment_ids=None):
-    """Launch csrc/flash_simt.cu's forward on the current stream."""
-    global flash_simt_fwd_launches
+def _flash_simt_fwd_cuda(q, k, v, mask: MaskSpec, segment_ids=None,
+                         plan: SimtFwdPlan | None = None):
+    """Launch csrc/flash_simt.cu's forward on the current stream: the
+    kernel and rows of `plan` (default `_simt_fwd_plan`'s)."""
+    global flash_simt_fwd_launches, flash_simt_fwd_mma_launches
     _check_simt_inputs((("q", q), ("k", k), ("v", v)), q.device, q.dtype)
     common = _simt_common(q, k, mask)
+    plan = plan or _simt_fwd_plan_for(q, k)
     b, s, h = q.shape[:3]
     seg = _seg_arg(segment_ids, q.device)
     out = torch.empty_like(q)
@@ -390,12 +407,14 @@ def _flash_simt_fwd_cuda(q, k, v, mask: MaskSpec, segment_ids=None):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(SIMT_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
                  v.data_ptr(), None if seg is None else seg.data_ptr(),
-                 out.data_ptr(), lse.data_ptr(), *common, stream)
+                 out.data_ptr(), lse.data_ptr(), *common,
+                 SIMT_FWD_KERNELS[plan.kernel], plan.rows, stream)
     if err != 0:
-        raise RuntimeError(f"flash_simt_fwd kernel launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"flash_simt_fwd ({plan.kernel}) kernel launch "
+                           f"failed: CUDA error {err}")
     with _count_lock:
         flash_simt_fwd_launches += 1
+        flash_simt_fwd_mma_launches += plan.kernel == "mma"
     return out, lse
 
 
@@ -453,8 +472,8 @@ class SimtBwdPlan:
 
 
 def _fill_rows(units: int, n: int, top: int, sm_count: int) -> int:
-    """The largest of SIMT_BWD_ROWS up to `top` whose `units` * ceil(n /
-    rows) CTAs fill `sm_count` SMs, else the smallest."""
+    """The largest of `top`, top / 2, ... down to 16 rows whose `units` *
+    ceil(n / rows) CTAs fill `sm_count` SMs, else 16."""
     rows = top
     while rows > SIMT_BWD_ROWS[-1] and units * -(-n // rows) < sm_count:
         rows //= 2
@@ -475,15 +494,7 @@ def _simt_bwd_plan(b: int, s: int, t: int, h: int, kh: int, d: int,
     at most the walk's steps (q tiles of the pass's streamed tile,
     unmasked) and SIMT_MAX_SPLITS. Raises, naming the limit, for what no
     kernel takes."""
-    if dtype not in SIMT_DTYPES:
-        raise TypeError(f"the CUDA-core kernels take fp32, bf16 or fp16, "
-                        f"not {dtype}")
-    if not 1 <= d <= SIMT_MAX_HEAD_DIM:
-        raise ValueError(f"the CUDA-core kernels take head_dim up to "
-                         f"{SIMT_MAX_HEAD_DIM}, not {d}")
-    if min(b, s, t, h, kh) < 1 or h % kh:
-        raise ValueError(f"B{b} S{s} T{t} H{h} KH{kh}: sizes must be "
-                         f"positive and H a multiple of KH")
+    _check_simt_sizes(b, s, t, h, kh, d, dtype)
     dm = _simt_bucket(d)
     size = torch.empty((), dtype=dtype).element_size()
     top = SIMT_BWD_ROWS[0] if dm <= 128 else _SIMT_WIDE_ROWS
@@ -498,6 +509,114 @@ def _simt_bwd_plan(b: int, s: int, t: int, h: int, kh: int, d: int,
     return SimtBwdPlan(dq_rows, _simt_tile(False, size, dm, dq_rows),
                        dkv_rows, dkv_tile, splits, b * h * -(-s // dq_rows),
                        blocks, walk)
+
+
+def _check_simt_sizes(b, s, t, h, kh, d, dtype) -> None:
+    """Raises, naming the limit, for what no kernel of csrc/flash_simt.cu
+    takes."""
+    if dtype not in SIMT_DTYPES:
+        raise TypeError(f"the CUDA-core kernels take fp32, bf16 or fp16, "
+                        f"not {dtype}")
+    if not 1 <= d <= SIMT_MAX_HEAD_DIM:
+        raise ValueError(f"the CUDA-core kernels take head_dim up to "
+                         f"{SIMT_MAX_HEAD_DIM}, not {d}")
+    if min(b, s, t, h, kh) < 1 or h % kh:
+        raise ValueError(f"B{b} S{s} T{t} H{h} KH{kh}: sizes must be "
+                         f"positive and H a multiple of KH")
+
+
+def _simt_fwd_smem(size: int, dm: int, rows: int, n: int) -> int:
+    """Shared bytes of a CUDA-core forward CTA (csrc/flash_simt.cu
+    FwdTile): Q [rows], _SIMT_STAGES stages of K and V [n] with the keys'
+    segment ids, fp32 P [rows, n + 8]; rows of `size`-byte elements padded
+    by 16 bytes."""
+    ld = dm + 16 // size
+    return (rows * ld * size + _SIMT_STAGES * (2 * n * ld * size + n * 4)
+            + rows * (n + 8) * 4)
+
+
+def _simt_fwd_tile(size: int, dm: int, rows: int) -> int:
+    """kv tile rows of the CUDA-core forward (FwdTile::kN), by the
+    backward's rules: 64 where two stages fit, and at 16 owned rows where
+    they leave room for a second CTA on the SM; else 32."""
+    own = _simt_fwd_smem(size, dm, rows, 64)
+    if own > _SIMT_SMEM_MAX or (rows == SIMT_BWD_ROWS[-1]
+                                and own > _SIMT_SMEM_MAX // 2):
+        return 32
+    return 64
+
+
+def _mma_bucket(d: int) -> int:
+    """The head-dim bucket the tensor-core forward is instantiated at."""
+    return next(dm for dm in SIMT_MMA_BUCKETS if d <= dm)
+
+
+def _mma_smem(dm: int, rows: int) -> int:
+    """Shared bytes of a tensor-core forward CTA (csrc/flash_simt.cu
+    mma_smem_bytes): Q [rows] and _SIMT_STAGES stages of K and V
+    [_SIMT_MMA_TILE], rows of 2-byte elements padded by 16 bytes, with the
+    keys' segment ids."""
+    ld = dm + 8
+    return (2 * rows * ld
+            + _SIMT_STAGES * (4 * _SIMT_MMA_TILE * ld + 4 * _SIMT_MMA_TILE))
+
+
+@dataclasses.dataclass(frozen=True)
+class SimtFwdPlan:
+    """The forward of csrc/flash_simt.cu: which kernel, the head-dim bucket
+    it runs at, the query rows a CTA owns, the kv tile rows, the CTAs and
+    a CTA's shared bytes."""
+
+    kernel: str  # "mma" (tensor cores) or "simt" (CUDA cores)
+    bucket: int
+    rows: int
+    tile: int
+    ctas: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=1024)  # pure, and on every forward's path
+def _simt_fwd_plan(b: int, s: int, t: int, h: int, kh: int, d: int,
+                   dtype: torch.dtype, sm_count: int = H100_SMS,
+                   kernel: str | None = None) -> SimtFwdPlan:
+    """The forward's kernel and grid for q [b, s, h, d] and k/v [b, t, kh,
+    d] of `dtype` on a card of `sm_count` SMs.
+
+    bf16 and fp16 go to the tensor-core kernel ("mma"), fp32 to the
+    CUDA-core one ("simt"), which keeps fp32 math; `kernel` forces one (the
+    CUDA-core kernel takes every dtype, the tensor-core one bf16 and fp16
+    only). Query rows a CTA owns: the most (128 for "mma"; 64 for "simt",
+    32 above head dim 128) whose b * h * ceil(s / rows) CTAs fill the SMs,
+    halved down to 16 while they do not. Raises, naming the limit, for
+    what no kernel takes."""
+    _check_simt_sizes(b, s, t, h, kh, d, dtype)
+    if kernel is None:
+        kernel = "simt" if dtype == torch.float32 else "mma"
+    if kernel not in SIMT_FWD_KERNELS:
+        raise ValueError(f"forward kernel {kernel!r}: one of "
+                         f"{tuple(SIMT_FWD_KERNELS)}")
+    if kernel == "mma" and dtype == torch.float32:
+        raise TypeError("the tensor-core forward takes bf16 or fp16, not "
+                        "fp32 (an fp32 model keeps fp32 attention)")
+    size = torch.empty((), dtype=dtype).element_size()
+    if kernel == "mma":
+        dm = _mma_bucket(d)
+        rows = _fill_rows(b * h, s, SIMT_MMA_ROWS[0], sm_count)
+        tile, smem = _SIMT_MMA_TILE, _mma_smem(dm, rows)
+    else:
+        dm = _simt_bucket(d)
+        top = SIMT_BWD_ROWS[0] if dm <= 128 else _SIMT_WIDE_ROWS
+        rows = _fill_rows(b * h, s, top, sm_count)
+        tile = _simt_fwd_tile(size, dm, rows)
+        smem = _simt_fwd_smem(size, dm, rows, tile)
+    return SimtFwdPlan(kernel, dm, rows, tile, b * h * -(-s // rows), smem)
+
+
+def _simt_fwd_plan_for(q, k) -> SimtFwdPlan:
+    b, s, h, d = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    return _simt_fwd_plan(b, s, t, h, kh, d, q.dtype,
+                          _sm_count(q.device.index))
 
 
 def _simt_plan_for(q, k) -> SimtBwdPlan:

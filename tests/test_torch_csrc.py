@@ -114,6 +114,30 @@ def test_the_cuda_core_backward_kernels_are_checked_for_spills():
         assert kernel in GLOBAL.findall(text)
 
 
+def test_both_forward_kernels_of_flash_simt_are_checked_for_spills():
+    """The tensor-core forward (bf16/fp16) and the register-tiled fp32
+    forward are in NO_SPILL_KERNELS and __global__ functions of
+    flash_simt.cu, and the simple design they replaced (its load_rows and
+    scalar dot()) is gone."""
+    text = (CSRC / "flash_simt.cu").read_text()
+    for kernel in ("flash_simt_fwd_kernel", "flash_simt_fwd_mma_kernel"):
+        assert kernel in _no_spill_kernels()
+        assert kernel in GLOBAL.findall(text)
+    assert "load_rows" not in text
+    assert not re.search(r"\bfloat dot\(", text)
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in text
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32" in text
+
+
+def test_the_forward_entry_point_takes_its_kernel_and_rows():
+    """tpk_flash_simt_fwd takes the plan's kernel and rows before the
+    stream: 20 arguments (18 without them), as _build.SIGNATURES says."""
+    counts = _entry_points("flash_simt.cu")
+    sigs = _build.SIGNATURES["flash_simt.cu"]
+    assert counts["tpk_flash_simt_fwd"] == len(
+        sigs["tpk_flash_simt_fwd"]) == 20
+
+
 def test_the_cuda_core_backward_entry_points_take_their_grid():
     """dq takes its rows, dk/dv its rows, splits, workspace and tickets:
     the extern "C" argument counts are _build.SIGNATURES' (without the

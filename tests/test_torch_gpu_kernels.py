@@ -362,12 +362,14 @@ def test_flash_backward_padded_rows_never_written(cuda, d):
     assert bool(torch.isnan(dv[:, t:].float()).all())
 
 
-# The CUDA-core kernels (csrc/flash_simt.cu) against the plain versions, on
-# the same inputs widened to fp32. Both compute in fp32; the kernels round
-# only their outputs to the input dtype. Bounds per dtype: out (max abs) and
-# lse (max abs), then the gradients' rel-L2. fp32: summation order only
-# (~1e-6). bf16 and fp16: half an ulp of |out| <= 4 (2^-7 and 2^-10) and
-# the gradients' rounding (~2^-9 relative), as for the wgmma kernels.
+# The kernels of csrc/flash_simt.cu against the plain versions, on the same
+# inputs widened to fp32. The CUDA-core kernels compute in fp32 and round
+# only their outputs to the input dtype; the tensor-core forward (bf16/fp16)
+# also rounds P to the input dtype for P.V, as the wgmma forward does.
+# Bounds per dtype: out (max abs) and lse (max abs), then the gradients'
+# rel-L2. fp32: summation order only (~1e-6). bf16 and fp16: half an ulp of
+# |out| <= 4 (2^-7 and 2^-10) plus P's rounding (2^-9 and 2^-11 of |v|),
+# and the gradients' rounding (~2^-9 relative), as for the wgmma kernels.
 SIMT_TOL = {torch.float32: (1e-4, 1e-4, 1e-5),
             torch.bfloat16: (2e-2, 1e-3, 1e-2),
             torch.float16: (4e-3, 1e-3, 1e-2)}
@@ -392,11 +394,13 @@ SIMT_PAIRS = [(dt, d) for dt in (torch.float32, torch.bfloat16, torch.float16)
 def test_simt_kernels_match_plain(cuda, shape, kind, mkw, segments, d,
                                   dtype):
     """flash_attention on inputs the wgmma kernels do not take (any dtype
-    at head_dim 16, 40 or 256; fp32 or fp16 at 128) runs the CUDA-core
-    forward, and its backward the CUDA-core dq and dk/dv kernels, once
-    each; all agree with the plain versions. Head dim 40 is no multiple of
-    the 32 columns a lane group owns; T = 300 against S = 72 and S = 200
-    leave ragged 16-row and 32-row tiles."""
+    at head_dim 16, 40 or 256; fp32 or fp16 at 128) runs the forward of
+    flash_simt.cu (the tensor-core kernel for bf16/fp16, the CUDA-core one
+    for fp32: the mma counter says which), and its backward the CUDA-core
+    dq and dk/dv kernels, once each; all agree with the plain versions.
+    Head dim 40 pads to the 48 bucket of the tensor-core kernel and is no
+    multiple of the CUDA-core kernel's 16-thread column groups; T = 300
+    against S = 72 and S = 200 leave ragged 16-row and 32-row tiles."""
     b, s, t, h, kh = shape
     rng = np.random.default_rng(d)
     q, k, v, do = (torch.from_numpy(rng.standard_normal(shp)
@@ -410,12 +414,15 @@ def test_simt_kernels_match_plain(cuda, shape, kind, mkw, segments, d,
     mask = tfa.MaskSpec(kind, **mkw)
     out_tol, lse_tol, grad_tol = SIMT_TOL[dtype]
     before = _simt_counts()
+    mma_before = tfa.flash_simt_fwd_mma_launches
     qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
     out, lse = tfa.flash_attention_lse(qg, kg, vg, segment_ids=seg,
                                        mask=mask)
     out.backward(do)
     torch.cuda.synchronize()
     assert tuple(a - c for a, c in zip(_simt_counts(), before)) == (1, 1, 1)
+    assert tfa.flash_simt_fwd_mma_launches - mma_before == int(
+        dtype != torch.float32)
     ref, ref_lse = tfa._flash_fwd_plain(q.float(), k.float(), v.float(),
                                         mask, seg)
     assert out.dtype == dtype
@@ -429,6 +436,145 @@ def test_simt_kernels_match_plain(cuda, shape, kind, mkw, segments, d,
                           want):
         assert g.dtype == dtype
         assert _rel_l2(g, r) <= grad_tol, (name, _rel_l2(g, r))
+
+
+def _seg_ids(b, s, seed, cuda):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(np.cumsum(rng.random((b, s)) < 0.05, axis=1)
+                            .astype(np.int32)).to(cuda)
+
+
+def _assert_simt_fwd_matches_plain(q, k, v, mask, seg=None, plan=None):
+    """One forward of flash_simt.cu (at `plan`, default the plan's) against
+    the plain version at SIMT_TOL; returns the kernel that ran."""
+    before = tfa.flash_simt_fwd_mma_launches
+    out, lse = tfa._flash_simt_fwd_cuda(q, k, v, mask, seg, plan=plan)
+    torch.cuda.synchronize()
+    ran = "mma" if tfa.flash_simt_fwd_mma_launches > before else "simt"
+    ref, ref_lse = tfa._flash_fwd_plain(q.float(), k.float(), v.float(),
+                                        mask, seg)
+    out_tol, lse_tol, _ = SIMT_TOL[q.dtype]
+    assert out.dtype == q.dtype
+    assert bool(torch.isfinite(out.float()).all())
+    assert (out.float() - ref).abs().max().item() <= out_tol, ran
+    assert (lse - ref_lse).abs().max().item() <= lse_tol, ran
+    return ran
+
+
+# The tensor-core forward at head dims the wgmma kernels refuse (80, 96 and
+# Gemma's 256: the 80, 96 and 256 buckets), ragged S and T (37 against 200,
+# both ways: partial q blocks, kv tiles past T), GQA groups of 4, a window
+# narrower than a tile and segments.
+MMA_CASES = [
+    ("s37_t200_full", (1, 37, 200, 8, 2), "full", {}, False),
+    ("s200_t37_causal", (2, 200, 37, 8, 2), "causal", {}, False),
+    ("gqa4_window", (1, 200, 200, 8, 2), "sliding_window", {"window": 50},
+     False),
+    ("gqa4_segments", (2, 200, 200, 8, 2), "causal", {}, True),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bfloat16", "float16"])
+@pytest.mark.parametrize("d", [80, 96, 256])
+@pytest.mark.parametrize("shape,kind,mkw,segments",
+                         [c[1:] for c in MMA_CASES],
+                         ids=[c[0] for c in MMA_CASES])
+def test_simt_tensor_core_forward_matches_plain(cuda, shape, kind, mkw,
+                                                segments, d, dtype):
+    b, s, t, h, kh = shape
+    q, k, v, _ = _simt_inputs(shape, d, dtype, d + 1, cuda)
+    seg = _seg_ids(b, s, d + 2, cuda) if segments else None
+    assert _assert_simt_fwd_matches_plain(
+        q, k, v, tfa.MaskSpec(kind, **mkw), seg) == "mma"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 40),
+                                     (torch.float16, 256)],
+                         ids=["bfloat16-D40", "float16-D256"])
+@pytest.mark.parametrize("rows", tfa.SIMT_MMA_ROWS)
+def test_simt_tensor_core_forward_at_every_rows_choice(cuda, rows, dtype, d):
+    """1, 2, 4 and 8 warps a CTA (a warp's rows past S compute nothing)."""
+    shape = (2, 200, 200, 4, 2)
+    q, k, v, _ = _simt_inputs(shape, d, dtype, 35, cuda)
+    plan = dataclasses.replace(tfa._simt_fwd_plan(*shape, d, dtype),
+                               rows=rows)
+    assert _assert_simt_fwd_matches_plain(
+        q, k, v, tfa.MaskSpec("causal"), plan=plan) == "mma"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(tfa.SIMT_DTYPES),
+                         ids=[str(dt)[6:] for dt in tfa.SIMT_DTYPES])
+@pytest.mark.parametrize("d", [16, 40, 128, 256])
+@pytest.mark.parametrize("rows", tfa.SIMT_BWD_ROWS)
+def test_simt_cuda_core_forward_at_every_dtype(cuda, rows, d, dtype):
+    """The CUDA-core forward, which the plan sends only fp32, held at every
+    dtype and rows choice (rows capped at 32 above head dim 128, as the
+    plan caps them) through a forced plan, with segments."""
+    shape = (2, 200, 200, 4, 2)
+    rows = min(rows, 64 if d <= 128 else 32)
+    q, k, v, _ = _simt_inputs(shape, d, dtype, 36, cuda)
+    plan = dataclasses.replace(
+        tfa._simt_fwd_plan(*shape, d, dtype, kernel="simt"), rows=rows)
+    assert _assert_simt_fwd_matches_plain(
+        q, k, v, tfa.MaskSpec("causal"), _seg_ids(2, 200, 37, cuda),
+        plan=plan) == "simt"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,d,kind,kernel", [
+    (torch.bfloat16, 256, "causal", "mma"),
+    (torch.float16, 80, "sliding_window", "mma"),
+    (torch.float32, 128, "causal", "simt"),
+    (torch.bfloat16, 40, "prefix_lm", "simt")])
+def test_simt_forward_is_deterministic(cuda, dtype, d, kind, kernel):
+    """Two launches of either forward give bit-identical out and lse."""
+    shape = (2, 200, 200, 8, 2)
+    q, k, v, _ = _simt_inputs(shape, d, dtype, 38, cuda)
+    mask = tfa.MaskSpec(kind, window=20 if kind == "sliding_window" else 0,
+                        prefix=70 if kind == "prefix_lm" else 0)
+    plan = tfa._simt_fwd_plan(*shape, d, dtype, kernel=kernel)
+    first = tfa._flash_simt_fwd_cuda(q, k, v, mask, plan=plan)
+    second = tfa._flash_simt_fwd_cuda(q, k, v, mask, plan=plan)
+    torch.cuda.synchronize()
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,kernel", [(torch.float32, "simt"),
+                                          (torch.bfloat16, "mma")])
+def test_simt_forward_padded_rows_never_written(cuda, dtype, kernel):
+    """Through the C entry point with out and lse longer than S, filled
+    with NaN: rows past S stay NaN and the rest equals the wrapper's result
+    bit for bit (S 200 leaves a partial row block and, at 16 rows a warp,
+    warps with no row)."""
+    from kubeflow_tpu_torch.ops import _build
+
+    b, s, t, h, kh, d = 1, 200, 150, 4, 2, 40
+    q, k, v, _ = _simt_inputs((b, s, t, h, kh), d, dtype, 39, cuda)
+    mask = tfa.MaskSpec("full")
+    plan = tfa._simt_fwd_plan(b, s, t, h, kh, d, dtype)
+    assert plan.kernel == kernel
+    want_out, want_lse = tfa._flash_simt_fwd_cuda(q, k, v, mask)
+    pad = 40
+    out = torch.full((b, s + pad, h, d), float("nan"), dtype=dtype,
+                     device=cuda)
+    lse = torch.full((b, s + pad, h, 1), float("nan"), device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    assert _build.function("flash_simt.cu", "tpk_flash_simt_fwd")(
+        tfa.SIMT_DTYPES[dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None, out.data_ptr(), lse.data_ptr(), b, s, t, h, kh, d, 1, 0, 0,
+        1.0 / math.sqrt(d), tfa.SIMT_FWD_KERNELS[kernel], plan.rows,
+        stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out[:, :s], want_out)
+    assert torch.equal(lse[:, :s], want_lse)
+    assert bool(torch.isnan(out[:, s:].float()).all())
+    assert bool(torch.isnan(lse[:, s:]).all())
 
 
 @pytest.mark.gpu

@@ -1,4 +1,5 @@
-"""The CUDA-core flash backward's grid plan (`_simt_bwd_plan`), on the CPU.
+"""The grid plans of csrc/flash_simt.cu (`_simt_bwd_plan`, `_simt_fwd_plan`),
+on the CPU.
 
 The plan is a pure function of the shape, the dtype and the SM count: the
 rows a dq and a dk/dv CTA own, the streamed tile of each pass, and the
@@ -7,7 +8,9 @@ tests hold it to its rules at chip_smoke.py's phase 2e shapes and at ragged
 and edge shapes, check that every plan fits in an H100 CTA's shared memory,
 and walk the kernels' tiling (key and query ranges, the per-tile mask
 classification, the split ranges) in Python to show that every visible
-(query, key) pair is visited exactly once by dq and once by dk/dv.
+(query, key) pair is visited exactly once by dq and once by dk/dv. The
+forward's plan picks the kernel by dtype (the tensor cores for bf16/fp16,
+the CUDA cores for fp32) and its rows by the same fill rule.
 """
 
 import numpy as np
@@ -277,3 +280,126 @@ def test_the_dkv_walk_and_its_splits_visit_every_visible_pair_once(
     want = _visible_grid(kind, window, prefix, s, t).astype(np.int64)
     for g in range(group):
         assert np.array_equal(got[g], want)
+
+
+# ---- the forward's plan ----------------------------------------------------
+
+def _fwd(shape, sms=SMS, **kw):
+    return tfa._simt_fwd_plan(*shape, sms, **kw)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_the_forward_kernel_follows_the_dtype(shape):
+    """bf16 and fp16 go to the tensor cores, fp32 keeps the CUDA cores."""
+    plan = _fwd(shape)
+    assert plan.kernel == ("simt" if shape[-1] == torch.float32 else "mma")
+    for dtype in (torch.bfloat16, torch.float16):
+        assert _fwd(shape[:-1] + (dtype,)).kernel == "mma"
+    assert _fwd(shape[:-1] + (torch.float32,)).kernel == "simt"
+
+
+@pytest.mark.parametrize("kernel", ["simt", "mma"])
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_forward_rows_fill_the_sms_and_halve_only_while_they_do_not(shape,
+                                                                    kernel):
+    b, s, t, h, kh, d, dtype = shape
+    if kernel == "mma" and dtype == torch.float32:
+        dtype = torch.bfloat16
+    plan = tfa._simt_fwd_plan(b, s, t, h, kh, d, dtype, SMS, kernel=kernel)
+    top = 128 if kernel == "mma" else (64 if d <= 128 else 32)
+    choices = tfa.SIMT_MMA_ROWS if kernel == "mma" else tfa.SIMT_BWD_ROWS
+    assert plan.rows in choices and plan.rows <= top
+    assert plan.ctas == b * h * -(-s // plan.rows)
+    assert plan.ctas >= SMS or plan.rows == 16
+    if plan.rows < top:  # twice the rows would have left SMs idle
+        assert b * h * -(-s // (2 * plan.rows)) < SMS
+
+
+def test_phase_2e_forward_plans():
+    """The grids phase 2e's shapes run at (their times: PERF.md)."""
+    tiny, fp32, extra, gemma = (_fwd(shape) for shape in SHAPES[:4])
+    assert (tiny.kernel, tiny.bucket, tiny.rows, tiny.ctas) == (
+        "mma", 16, 16, 48)
+    assert (fp32.kernel, fp32.rows, fp32.tile, fp32.ctas) == (
+        "simt", 16, 32, 192)
+    assert (extra.kernel, extra.rows, extra.tile, extra.ctas) == (
+        "simt", 64, 64, 512)
+    assert (gemma.kernel, gemma.bucket, gemma.rows, gemma.tile,
+            gemma.ctas) == ("mma", 256, 128, 64, 256)
+
+
+@pytest.mark.parametrize("d,bucket", [(1, 16), (16, 16), (17, 32), (40, 48),
+                                      (80, 80), (96, 96), (100, 112),
+                                      (128, 128), (129, 160), (161, 192),
+                                      (193, 256), (256, 256)])
+def test_the_tensor_core_buckets_are_multiples_of_16(d, bucket):
+    plan = tfa._simt_fwd_plan(1, 64, 64, 2, 1, d, torch.float16)
+    assert plan.bucket == bucket and bucket % 16 == 0 and bucket >= d
+
+
+@pytest.mark.parametrize("dtype", list(tfa.SIMT_DTYPES))
+@pytest.mark.parametrize("d", [1, 16, 32, 33, 64, 65, 80, 96, 128, 129, 160,
+                               192, 256])
+def test_every_forward_plan_fits_in_shared_memory(dtype, d):
+    """Every (kernel, bucket, rows) a forward plan can name fits in an H100
+    CTA's 227 KB; the CUDA-core kernel's 64-row kv tiles wherever they fit
+    (at 16 rows: with room for a second CTA)."""
+    size = torch.empty((), dtype=dtype).element_size()
+    for rows in tfa.SIMT_MMA_ROWS:
+        if dtype != torch.float32:
+            assert tfa._mma_smem(tfa._mma_bucket(d), rows) <= 232448
+    dm = tfa._simt_bucket(d)
+    for rows in tfa.SIMT_BWD_ROWS:
+        if dm > 128 and rows > 32:
+            continue
+        n = tfa._simt_fwd_tile(size, dm, rows)
+        assert n in (32, 64)
+        assert tfa._simt_fwd_smem(size, dm, rows, n) <= 232448
+        own64 = tfa._simt_fwd_smem(size, dm, rows, 64)
+        if n == 32:
+            assert own64 > 232448 or (rows == 16 and own64 > 232448 // 2)
+    for kernel in ("simt", "mma"):
+        if kernel == "mma" and dtype == torch.float32:
+            continue
+        for s in (1, 96, 1024, 4096):
+            plan = tfa._simt_fwd_plan(1, s, s, 8, 2, d, dtype, SMS,
+                                      kernel=kernel)
+            assert plan.smem <= 232448
+
+
+def test_the_forward_smem_at_the_phase_2e_shapes():
+    """fp32 D128: 64 rows with 64-row kv tiles take 187,904 bytes (one CTA
+    an SM); 16 rows take 32-row tiles (78,848: two CTAs). Gemma widths on
+    the tensor cores: 128 rows of D256 take 203,264."""
+    assert tfa._simt_fwd_smem(4, 128, 64, 64) == 187904
+    assert tfa._simt_fwd_tile(4, 128, 16) == 32
+    assert tfa._simt_fwd_smem(4, 128, 16, 32) == 78848
+    assert tfa._mma_smem(256, 128) == 203264
+
+
+@pytest.mark.parametrize("bad,exc", [
+    (dict(d=257), ValueError), (dict(d=0), ValueError),
+    (dict(dtype=torch.float64), TypeError), (dict(h=3, kh=2), ValueError),
+    (dict(s=0), ValueError), (dict(kernel="mma"), TypeError),
+    (dict(kernel="wgmma"), ValueError)])
+def test_the_forward_plan_raises_on_what_no_kernel_takes(bad, exc):
+    args = dict(b=1, s=64, t=64, h=4, kh=2, d=64, dtype=torch.float32)
+    args.update(bad)
+    with pytest.raises(exc):
+        tfa._simt_fwd_plan(**args)
+
+
+def test_the_forward_plan_is_pure():
+    """Same arguments, same plan (cached, but equal also when computed
+    anew); the SM count and a forced kernel are part of the key."""
+    shape = SHAPES[3]
+    first = _fwd(shape)
+    tfa._simt_fwd_plan.cache_clear()
+    again = _fwd(shape)
+    assert first == again and first is not again
+    assert _fwd(shape) is again
+    assert _fwd(shape, 8).rows == 128
+    assert _fwd(shape, 1024).rows < 128
+    forced = _fwd(shape, kernel="simt")
+    assert forced.kernel == "simt" and forced.rows == 32
+    assert _fwd(shape).kernel == "mma"

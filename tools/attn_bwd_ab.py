@@ -45,7 +45,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import dataclasses
-import importlib.util
 import json
 import math
 import os
@@ -62,9 +61,10 @@ from kubeflow_tpu_torch.ops import _build  # noqa: E402
 from kubeflow_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from kubeflow_tpu_torch.ops import quant_matmul as qmm  # noqa: E402
 from kubeflow_tpu_torch.ops import rdma_ring_attention as rra  # noqa: E402
-from tools.attn_fwd_ab import (PEAK_BF16_FLOPS, bound_ms,  # noqa: E402
-                               enqueue_us, in_turns, parent_function,
-                               parent_library, time_ms)
+from tools.attn_fwd_ab import (PEAK_BF16_FLOPS, PEAK_FP32_FLOPS,  # noqa: E402
+                               SIMT_SHAPES, bound_ms, enqueue_us, gpu_tests,
+                               in_turns, parent_declared, parent_function,
+                               time_ms)
 
 SHAPES = [(1, s, 32, 8, 128) for s in (128, 512, 1000, 2048)] + [
     (12, 1024, 16, 8, 128)]  # (B, S, H, KH, D), causal, T = S
@@ -225,41 +225,13 @@ def ring_row(parent, gen) -> dict:
     return row
 
 
-# (B, S, H, KH, D, dtype), causal, T = S: phase 2e's shapes.
-SIMT_SHAPES = [(2, 96, 4, 2, 16, torch.bfloat16),
-               (2, 96, 16, 8, 128, torch.float32),
-               (2, 1024, 16, 8, 128, torch.float32),
-               (1, 2048, 16, 16, 256, torch.bfloat16)]
-PEAK_FP32_FLOPS = 67e12
-
-
-def _gpu_tests():
-    """tests/test_torch_gpu_kernels.py as a module (its SIMT_TOL)."""
-    path = ROOT / "tests" / "test_torch_gpu_kernels.py"
-    spec = importlib.util.spec_from_file_location("gpu_kernel_tests", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def simt_functions(tree: Path | None):
     """(dq, dk/dv) entry points of flash_simt.cu: this tree's, or the
     other tree's built beside it and declared with its own argtypes."""
     symbols = ("tpk_flash_simt_bwd_dq", "tpk_flash_simt_bwd_dkv")
     if tree is None:
         return [_build.function("flash_simt.cu", s) for s in symbols]
-    spec = importlib.util.spec_from_file_location(
-        "parent_build", tree / "kubeflow_tpu_torch" / "ops" / "_build.py")
-    pbuild = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(pbuild)
-    lib = parent_library(tree, "flash_simt.cu")
-    fns = []
-    for sym in symbols:
-        fn = getattr(lib, sym)
-        fn.argtypes = pbuild.SIGNATURES["flash_simt.cu"][sym]
-        fn.restype = ctypes.c_int
-        fns.append(fn)
-    return fns
+    return [parent_declared(tree, "flash_simt.cu", s) for s in symbols]
 
 
 def simt_calls(fns, q, k, v, do, lse, delta, outs, plan, what):
@@ -309,7 +281,7 @@ def simt_calls(fns, q, k, v, do, lse, delta, outs, plan, what):
 def simt_rows(parent: Path) -> tuple[list, list]:
     """The CUDA-core pair of both trees at SIMT_SHAPES, in turns: (rows,
     shapes where the trees disagree)."""
-    tol = _gpu_tests().SIMT_TOL
+    tol = gpu_tests().SIMT_TOL
     old_fns, new_fns = simt_functions(parent), simt_functions(None)
     gen = torch.Generator(device="cuda").manual_seed(0)
     mask = fa.MaskSpec("causal")
