@@ -29,18 +29,23 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
      and at Gemma 7B's widths (head_dim 256) in bf16 at seq 2048, each
      case's backward plan (rows, streamed tile, dk/dv splits) printed, two
      launches of dq and dk/dv bit-identical at a split shape, with their
-     times, the plain versions', SDPA's and their bounds;
+     times, the plain versions', SDPA's and their bounds (and, for the fp32
+     shapes, the tensor-core forward's, the plain forward's and SDPA's on
+     bf16 copies of the same inputs);
   2f. the W8A16 matmul (`int8_weight_matmul`, csrc/w8a16.cu: int8 weight
      codes, activations in the compute dtype, the scale in the epilogue)
      against its plain version at llama3_8b's projection and unembedding
-     shapes at decode widths (M 1, 4, 16: the decode kernel), the
-     projections at prefill buckets (M 128, 512, 2048: the wgmma kernel,
-     its tile and splits printed) in bf16 and fp16, the unembedding at M
-     2048, ragged M and N and small bf16/fp16/fp32 shapes (the GPU tests'
-     W8A16_CASES): rel-L2 within 4e-3 (bf16/fp16) or 1e-5 (fp32), two
-     launches bit-identical; at the bf16 8B shapes its time (the weight
-     read cold), bound, plain version's and torch.mm's on a pre-cast bf16
-     weight;
+     shapes at decode widths (M 1, 4, 16: the decode kernel, its plan
+     printed: row block, cluster, grid, ring; and how many of its clusters
+     the card holds at once), the projections at prefill buckets (M 128,
+     512, 2048: the wgmma kernel, its tile and splits printed) in bf16 and
+     fp16, the unembedding at M 2048, ragged M and N and small
+     bf16/fp16/fp32 shapes (the GPU tests' W8A16_CASES): rel-L2 within 4e-3
+     (bf16/fp16) or 1e-5 (fp32), two launches bit-identical; at the bf16 8B
+     shapes its time (the weight read cold), bound, plain version's and
+     torch.mm's on a pre-cast bf16 weight, and at decode widths the host's
+     enqueue time; then the 225 launches of one int8 decode step summed
+     (at M 1, 4 and 16) against their bound;
   2d. context-parallel ring attention (`rdma_ring_attention`, all ranks on
      this card): the forward, dq and dk/dv kernels (one launch per rank)
      against their plain versions at small shapes (rings of 2, 4 and 8,
@@ -65,8 +70,9 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
      six requests (prefill still through the flash kernel, every int8
      projection and unembedding through the W8A16 kernel, every prefill
      chunk's projections through its wgmma kernel, int8_matmul never
-     called, no int8-weight-shaped copy in a decode chunk), admission and
-     prefill seconds beside phase 4's, peak memory at
+     called, no int8-weight-shaped copy in a decode chunk), the decode
+     step's device busy time beside the earlier decode kernel's, admission
+     and prefill seconds beside phase 4's, peak memory at
      least 5 GiB under phase 4's, the longest prompt's ids and step time
      at depth 1 against depth 2; then the int8 model's logits against a
      bf16 model holding the same codes dequantized;
@@ -249,6 +255,7 @@ NO_SPILL_KERNELS = ("flash_fwd_kernel", "rdma_fwd_kernel",
                     "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
                     "rdma_bwd_dq_kernel", "rdma_bwd_dkv_kernel",
                     "qmm_wgmma_kernel", "w8a16_wgmma_kernel",
+                    "w8a16_decode_kernel",
                     "flash_simt_fwd_kernel", "flash_simt_fwd_mma_kernel",
                     "flash_simt_dq_kernel", "flash_simt_dkv_kernel")
 # Instantiations ptxas must report of each flash_simt.cu kernel: 3 dtypes x
@@ -641,6 +648,21 @@ def phase_simt(gk) -> dict:
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, enable_gqa=True, **sdpa_kw))
         library_bwd_ms = _sdpa_backward_ms(q, k, v, do, sdpa_kw)
+        # fp32 inputs: the same shapes in bf16 (the tensor-core forward),
+        # its plain version and SDPA, for the kernel table's bf16 row.
+        bf16_copy = None
+        if dtype == torch.float32:
+            qb, kb, vb = (x.bfloat16() for x in (q, k, v))
+            qbt, kbt, vbt = (x.transpose(1, 2) for x in (qb, kb, vb))
+            bf16_copy = {
+                "fwd_ms": time_ms(lambda: fa._flash_simt_fwd_cuda(
+                    qb, kb, vb, mask)),
+                "plain_fwd_ms": time_ms(lambda: fa._flash_fwd_plain(
+                    qb, kb, vb, mask), reps=5),
+                "library_fwd_ms": time_ms(
+                    lambda: torch.nn.functional.scaled_dot_product_attention(
+                        qbt, kbt, vbt, enable_gqa=True, **sdpa_kw))}
+            del qb, kb, vb, qbt, kbt, vbt
         name = _case_name(*case[:8]) + f" {str(dtype)[6:]}"
         log(f"  {name:52s} err_out {err_out:.3e} err_lse {err_lse:.3e} "
             + " ".join(f"{n} rel_l2 {e['rel_l2']:.3e};"
@@ -651,7 +673,10 @@ def phase_simt(gk) -> dict:
             f"{library_fwd_ms:.4f}) dq_ms {dq_ms:.4f} (bound "
             f"{dq_bound[0]:.4f}, {dq_bound[1]}) dkv_ms {dkv_ms:.4f} (bound "
             f"{dkv_bound[0]:.4f}, {dkv_bound[1]}) plain_bwd_ms "
-            f"{plain_bwd_ms:.4f} library_bwd_ms {library_bwd_ms:.4f}")
+            f"{plain_bwd_ms:.4f} library_bwd_ms {library_bwd_ms:.4f}"
+            + ("; on bf16 copies: fwd_ms {fwd_ms:.4f} plain_fwd_ms "
+               "{plain_fwd_ms:.4f} library_fwd_ms {library_fwd_ms:.4f}"
+               .format(**bf16_copy) if bf16_copy else ""))
         if not ok:
             raise RuntimeError(f"the CUDA-core kernels disagree with the "
                                f"plain versions at {name}")
@@ -661,6 +686,7 @@ def phase_simt(gk) -> dict:
                      "plain_bwd_ms": plain_bwd_ms,
                      "library_fwd_ms": library_fwd_ms,
                      "library_bwd_ms": library_bwd_ms,
+                     "bf16_copy": bf16_copy,
                      "fwd_bound": fwd_bound, "dq_bound": dq_bound,
                      "dkv_bound": dkv_bound,
                      "plan": dataclasses.asdict(plan),
@@ -786,6 +812,21 @@ W8A16_MAIN = (4, 4096, 14336)
 # Row counts timed at the 8B shapes (bf16): decode and prefill buckets; the
 # ragged and fp16 cases are held for correctness only.
 W8A16_TIMED_M = (1, 4, 16, 128, 512, 2048)
+# Launches of each 8B weight shape (K, N) in one int8 decode step: q and o,
+# k and v, gate and up per layer, down per layer, the unembedding once
+# (7 x 32 + 1 = 225).
+W8A16_STEP = {(4096, 4096): 64, (4096, 1024): 64, (4096, 14336): 64,
+              (14336, 4096): 32, (4096, 128256): 1}
+W8A16_DECODE_DESIGN = ("persistent CTAs, one an SM, each a contiguous run of "
+                       "16-row blocks; a 4-slot ring on mbarriers fed by TMA "
+                       "boxes (cached tensor maps) and cp.async.bulk; "
+                       "mma.sync m16n8k16; split-K summed in a thread-block "
+                       "cluster through distributed shared memory; "
+                       "programmatic dependent launch")
+# The device busy time of an int8 decode step before the streamed decode
+# kernel (phase 4c's profile, NVIDIA H100 80GB HBM3 at 700 W), printed
+# beside this run's.
+W8A16_EARLIER_BUSY_MS = 20.30
 
 
 def _rotating(fn, copies) -> callable:
@@ -829,7 +870,12 @@ def phase_w8a16(gk) -> dict:
         what = (f"{gk.w8a16_case_id(case)}: {plan.kernel} kernel"
                 + (f" (tile {plan.bm} x {w8._BN}, {plan.tiles} tiles)"
                    if plan.kernel == w8.WGMMA else "")
-                + (f", {plan.splits} splits" if plan.splits > 1 else "")
+                + (f" (row block {plan.rows}, cluster {plan.splits}, "
+                   f"{plan.clusters} clusters, grid {plan.grid[0]}, ring "
+                   f"{plan.stages} stages of {w8._GEMV_STAGE_K} k by {plan.slot_rows} "
+                   f"rows)" if plan.kernel == w8.GEMV else "")
+                + (f", {plan.splits} splits" if plan.splits > 1
+                   and plan.kernel != w8.GEMV else "")
                 + f", rel_l2 {err['rel_l2']:.2e} (bound "
                 f"{gk.W8A16_TOL[dtype]}), two launches bit-identical")
         if (n * k < 4096 * 1024 or dtype != torch.bfloat16
@@ -868,9 +914,16 @@ def phase_w8a16(gk) -> dict:
             + ("; host enqueue us a call: " + ", ".join(
                 f"{k} {v:.1f}" for k, v in enqueue.items()) if enqueue
                else ""))
-        rows.append({"shape": f"M{m} K{k} N{n}", "kernel": plan.kernel,
-                     "bm": plan.bm,
-                     "splits": plan.splits, "unembed": rf, "ms": ms,
+        held = (w8._decode_clusters_held(plan, m, dtype)
+                if plan.kernel == w8.GEMV else None)
+        if held is not None:
+            log(f"    the card holds {held} such clusters at once (the plan "
+                f"launches {plan.clusters})")
+        rows.append({"shape": f"M{m} K{k} N{n}", "m": m, "k": k, "n": n,
+                     "kernel": plan.kernel, "bm": plan.bm, "rows": plan.rows,
+                     "splits": plan.splits, "grid": plan.grid[0],
+                     "stages": plan.stages, "clusters_held": held,
+                     "unembed": rf, "ms": ms,
                      "plain_ms": plain_ms, "library_ms": library_ms,
                      "bound_ms": bound, "bound_by": bound_by,
                      "rel_l2": err["rel_l2"], "host_us": enqueue})
@@ -878,8 +931,25 @@ def phase_w8a16(gk) -> dict:
     torch.cuda.empty_cache()
     main = next(r for r in rows
                 if r["shape"] == "M{} K{} N{}".format(*W8A16_MAIN))
+    steps = {}
+    for m in (1, 4, 16):
+        # The step's five weights, each with its own epilogue (the dense
+        # one, the unembedding's for the 128256-row table).
+        mine = {(r["k"], r["n"]): r for r in rows
+                if r["m"] == m and (r["k"], r["n"]) in W8A16_STEP
+                and r["unembed"] == (r["n"] == 128256)}
+        if set(mine) != set(W8A16_STEP):
+            raise RuntimeError(f"phase 2f timed no full decode step at M{m}")
+        step = {key: sum(W8A16_STEP[kn] * mine[kn][key] for kn in W8A16_STEP)
+                for key in ("ms", "bound_ms", "library_ms")}
+        steps[m] = step
+        log(f"  per int8 decode step at M{m} ({sum(W8A16_STEP.values())} "
+            f"launches): {step['ms']:.4f} ms, bound "
+            f"{step['bound_ms']:.4f} ms ({step['bound_ms'] / step['ms']:.1%} "
+            f"of bound); torch.mm on pre-cast weights {step['library_ms']:.4f}"
+            f" ms")
     return {"rows": rows, "main": main, "max_abs_err": worst_abs,
-            "rel_l2_err": worst_rel}
+            "rel_l2_err": worst_rel, "steps": steps}
 
 
 def _ring_counts() -> tuple:
@@ -1465,6 +1535,11 @@ def phase_quant(bundle: str, flat: dict, paged: dict) -> dict:
         qbytes = run["metadata"]["quantize"]
         copies = _int8_weight_copies(server)
         prof = _profile_decode(server)
+    if prof:
+        log(f"  int8 decode step: device busy {prof['busy_ms'] / CHUNK:.2f} ms"
+            f" (before the streamed decode kernel: {W8A16_EARLIER_BUSY_MS:.2f}"
+            f" ms), unprofiled wall {prof['unprofiled_wall_ms'] / CHUNK:.2f} "
+            f"ms: host-bound")
     results, stats, total = run["results"], run["stats"], after["stats"]
     _check_outputs(results, cfg.vocab_size)
     _pipeline_line(stats, "6 concurrent requests")
@@ -2206,7 +2281,8 @@ def main() -> int:
         "by_shape": [{"shape": r["shape"], "ms": r[f"{key}_ms"],
                       "bound_ms": r[f"{key}_bound"][0],
                       "plain_ms": r[plain], "library_ms": r[library],
-                      **({"kernel": r["fwd_plan"]["kernel"]}
+                      **({"kernel": r["fwd_plan"]["kernel"],
+                          "bf16_copy": r["bf16_copy"]}
                          if key == "fwd" else {})}
                      for r in simt["rows"]],
     } for name, line, n, key, plain, library, err, rel in (
@@ -2244,7 +2320,11 @@ def main() -> int:
         "ms": wmain["ms"], "plain_ms": wmain["plain_ms"],
         "bound_ms": wmain["bound_ms"], "bound_by": wmain["bound_by"],
         "library_ms": wmain["library_ms"], "shape": wmain["shape"],
-        "design": wmain["kernel"], "by_shape": w8r["rows"],
+        "design": W8A16_DECODE_DESIGN, "kernel": wmain["kernel"],
+        "step_ms": w8r["steps"][4]["ms"],
+        "step_bound_ms": w8r["steps"][4]["bound_ms"],
+        "step_library_ms": w8r["steps"][4]["library_ms"],
+        "by_shape": w8r["rows"],
     }, *({
         "name": name, "route": "cuda",
         "source": "kubeflow_tpu_torch/ops/csrc/rdma_ring.cu",

@@ -22,22 +22,52 @@
 // rows the bf16 tensor cores (989 TFLOP/s) do. Three kernels, chosen by the
 // wrapper from the shape (_w8a16_plan in ops/w8a16.py), never by this file:
 //
-//   * w8a16_gemv_kernel (M <= 16, bf16/fp16): each warp streams 16 weight
-//     rows along K, every lane 16 bytes of two rows per 64-deep k block
-//     (loads that skip L1, four blocks in flight), and feeds them to
-//     mma.sync m16n8k16 with the weight as the 16-row A operand and up to 8
-//     activation rows as the 8-column B operand (two products for 9..16
-//     rows). The k order inside a product is free as long as both operands
-//     use the same one, so a lane's 16 contiguous bytes are its own
-//     fragments: in k step s it holds bytes 4s..4s+3 of each row, and reads
-//     the matching 4 activations of its B column straight from global
-//     memory (the activations are small and stay in L1/L2). Each byte is
-//     widened exactly: a byte permute into the fp32 2^23 magic and one
-//     subtract, then a round to the 16-bit type (exact: |q| <= 127). Where
-//     N leaves fewer than ~2 CTAs per SM, K is split across CTAs; each split
-//     stores its fp32 partial tile, and the last to arrive (a ticket per
-//     CTA column, reset to 0 by it) sums the partials in split order, so
-//     two launches give the same bits. No float atomics.
+//   * w8a16_decode_kernel (M <= 16, bf16/fp16): at decode widths the
+//     weight is read once and nothing else counts, so the kernel is a
+//     weight stream that never stalls. Four causes held the earlier
+//     one-pass kernel to 12-55% of that bound; each design point answers
+//     one:
+//       - A ring of shared-memory stages (four unless the plan says otherwise), each
+//         up to 64 weight rows by 512 k and the same k slice of the
+//         activations, fed by one producer warp onto full/empty mbarriers.
+//         The weight arrives by TMA in boxes of 128 k by a whole 64-row
+//         chunk, or by 16 rows (tensor maps encoded once per weight and
+//         kept on the host); each activation row's k slice by one
+//         cp.async.bulk. A bulk request costs ~40 ns of an SM's copy
+//         engine on an H100 whatever its size, so requests are few and
+//         large: per-row copies of the weight could not feed an SM's
+//         25 GB/s share. Copies stay in flight while eight consumer warps
+//         widen and multiply the stages that have landed (the earlier
+//         kernel had none in flight while a warp computed).
+//       - A persistent grid of one CTA an SM, each given a contiguous run
+//         of whole row blocks (16 rows unless the plan says otherwise), so
+//         no SM streams more than ~3% above the mean at llama3_8b's
+//         shapes; where the row blocks alone would leave SMs idle (k/v's
+//         64 blocks) K is split, so each SM still streams ~32 KB.
+//       - The K splits of a run are one thread-block cluster: ranks 1..S-1
+//         store their fp32 partials into rank 0's shared memory
+//         (st.shared::cluster) behind an mbarrier, and rank 0 sums them in
+//         rank order and writes the output. No partial goes through device
+//         memory: no workspace, no ticket, no allocation but the output.
+//       - Widening overlaps the copies: bf16 by the fp32 2^23 magic (exact,
+//         as before), fp16 by halves 1024 + u (two codes a packed
+//         subtract). Consumers read the stage with 16-byte shared loads
+//         free of bank conflicts: the weight boxes carry TMA's 128-byte
+//         swizzle, and the mma rows of a load phase are box rows 4 apart,
+//         so their chunks fall in opposite halves of the 128 bank bytes;
+//         the activation rows are padded to 2 * 512 + 16 bytes.
+//     A warp's product is mma.sync m16n8k16 with 16 weight rows as A and up
+//     to 8 activation rows as B (two products for 9..16 rows). The k order
+//     inside a product is free as long as both operands share it, so lane
+//     (g, c) takes bytes 16c..16c+15 of a 64-deep block of rows g and g + 8
+//     and, in mma step s, their bytes 4s..4s+3 with the matching 4
+//     activations of B column g. A run is cut into the fewest chunks of at
+//     most 64 rows (whole 16-row groups), each shared by the 8 warps: warp
+//     w takes the 64-deep block w of every 512-deep stage for all the
+//     chunk's row groups (one read of the activations' block feeds up to
+//     four independent accumulator chains); at the chunk's end the blocks'
+//     partials go through shared memory and are summed in block order, then
+//     across the cluster in rank order, so two launches give the same bits.
 //   * w8a16_wgmma_kernel (M > 16, bf16/fp16): bf16/fp16 wgmma fed by TMA in
 //     persistent, warp-specialised CTAs (attn_fwd_sm90.cuh's shape, the
 //     units and split-K ticket of gemm_sm90.cuh, as qmm.cu's W8A8 kernel).
@@ -104,15 +134,16 @@
 
 #include <cuda_fp16.h>
 
+#include <atomic>
+#include <map>
+#include <mutex>
+#include <tuple>
 #include <type_traits>
 
 #include "gemm_sm90.cuh"  // gemm90 (and fwd90): TMA, mbarriers, units, the split-K ticket
 
 namespace {
 
-constexpr int kGemvWarps = 4;   // 16 weight rows each: 64 rows a CTA
-constexpr int kGemvRows = 16 * kGemvWarps;
-constexpr int kGemvUnroll = 4;  // 64-deep k blocks in flight per lane
 constexpr int kSimtM = 32, kSimtN = 64, kSimtK = 32;
 
 enum Dtype { kF32 = 0, kBf16 = 1, kF16 = 2 };
@@ -160,19 +191,24 @@ __device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
-template <>
-__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
-  const __half2 v = __floats2half2_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
-// Four codes to two 16-bit pairs: (k0, k1) and (k2, k3).
+// Four codes to two 16-bit pairs, exactly: (k0, k1) and (k2, k3). bf16
+// through the fp32 magic; fp16 as halves 1024 + (q + 128) less 1152, two
+// codes a packed subtract.
 template <typename T>
 __device__ __forceinline__ void codes_to_pairs(uint32_t w, uint32_t& lo, uint32_t& hi) {
-  float f[4];
-  widen4(w, f);
-  lo = pack2<T>(f[0], f[1]);
-  hi = pack2<T>(f[2], f[3]);
+  if constexpr (std::is_same<T, __half>::value) {
+    const uint32_t u = w ^ 0x80808080u;
+    asm("sub.rn.f16x2 %0, %1, %2;\n" : "=r"(lo) : "r"(__byte_perm(u, 0x64646464u, 0x4140)),
+        "r"(0x64806480u));
+    asm("sub.rn.f16x2 %0, %1, %2;\n" : "=r"(hi) : "r"(__byte_perm(u, 0x64646464u, 0x4342)),
+        "r"(0x64806480u));
+  } else {
+    float f[4];
+    widen4(w, f);
+    lo = pack2<T>(f[0], f[1]);
+    hi = pack2<T>(f[2], f[3]);
+  }
 }
 
 template <typename T>
@@ -197,133 +233,528 @@ __device__ __forceinline__ void mma16816<__half>(float (&d)[4], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// 16 weight bytes that are read once: past L1, which keeps the activations.
-__device__ __forceinline__ uint4 load_stream(const void* p) {
-  uint4 v;
-  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-               : "l"(p));
-  return v;
-}
-
 __device__ __forceinline__ uint32_t word(const uint4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
-// ------------------------------------------------------------------ gemv
+// ---------------------------------------------------------------- decode
 
-// CTA: 4 warps, 64 weight rows (warp w: rows n0 + 16w .. +15), K split
-// `splits` ways over gridDim.y in whole 64-deep blocks. MT: 8-row groups of
-// activations (1 for M <= 8, 2 for M <= 16).
-//
-// Lane (g = lane / 4, c = lane % 4) of a warp owns weight rows g and g + 8
-// and, in every 64-deep block at k, their bytes k + 16c .. k + 16c + 15;
-// mma step s (0..3) takes bytes 4s..4s+3 of those as the A fragment's
-// columns {2c, 2c+1} (bytes 0, 1) and {2c+8, 2c+9} (bytes 2, 3), and the B
-// fragment of activation row g (column g of B) takes the same four k.
-template <typename T, int MT>
-__global__ void __launch_bounds__(32 * kGemvWarps)
-    w8a16_gemv_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
-                      const float* __restrict__ scale, T* __restrict__ out,
-                      float* __restrict__ ws, int* __restrict__ tickets, int M, int K, int N,
-                      int splits, int round_first) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, c = lane & 3;
-  const int row_a = blockIdx.x * kGemvRows + warp * 16 + g, row_b = row_a + 8;
-  const bool a_ok = row_a < N, b_ok = row_b < N;
-  const int8_t* qa = q + static_cast<size_t>(a_ok ? row_a : 0) * K;
-  const int8_t* qb = q + static_cast<size_t>(b_ok ? row_b : 0) * K;
-  const int n_kb = (K + 63) / 64;
-  const int kb0 = static_cast<int>(static_cast<long long>(blockIdx.y) * n_kb / splits);
-  const int kb1 = static_cast<int>(static_cast<long long>(blockIdx.y + 1) * n_kb / splits);
+constexpr int kDecBlocks = 8;    // 64-deep blocks of a stage, one for each consumer warp
+constexpr int kDecWarps = kDecBlocks;  // consumer warps; then one producer warp
+constexpr int kDecThreads = 32 * (kDecWarps + 1);
+constexpr int kDecConsumers = 32 * kDecWarps;
+constexpr int kDecChunk = 64;                      // weight rows a CTA streams at once, at most
+constexpr int kPartStride = kDecChunk + 4;  // floats from one activation row of a partial to the next
+constexpr int kDecSmemMax = 232448;  // an H100 CTA's dynamic shared memory
+constexpr int kDecMaxCluster = 8;                  // portable cluster sizes only
+constexpr int kDecStageK = 512;  // k (bytes of a weight row) a stage holds
+constexpr int kDecBoxK = 128;    // one TMA box: 16 weight rows by 128 k, one swizzle span
+constexpr int kDecXStride = 2 * kDecStageK + 16;  // bytes from one activation row to the next
+
+// One launch of the decode kernel. The host fills the layout
+// (decode_layout): offsets in bytes from the 1024-byte aligned base of
+// dynamic shared memory (the 128-byte swizzle repeats every 1024 bytes).
+struct DParams {
+  CUtensorMap wmap;    // q as (K, N), boxes of 128 k x 16 rows, 128-byte swizzle
+  CUtensorMap wmap64;  // the same, boxes of 128 k x 64 rows (N >= 64): a whole chunk
+  const void* x;     // [M, K] 16-bit
+  const float* scale;
+  void* out;  // [M, N]
+  int M, K, N, round_first;
+  int rows;       // weight rows of a unit of the deal: 16, 32 or 64
+  int splits;     // CTAs of a cluster, each one contiguous share of K's 64-deep blocks
+  int stages;     // ring slots
+  int slot_rows;  // weight rows a slot holds: the longest chunk of any run
+  uint32_t slot_bytes;  // [4 k-boxes][slot_rows][128 k] int8, then [M][kDecXStride] 16-bit
+  uint32_t part;  // 4 blocks' partials, [8 MT m][kPartStride] fp32 each
+  uint32_t red;   // 2 x (splits - 1) x [slot_rows x M] fp32: the other ranks' sums (rank 0)
+  uint32_t bars;  // full[stages], empty[stages], red_full[2], red_empty[2]
+  uint32_t smem;  // bytes to request
+};
+
+inline uint32_t round_up(uint32_t v, uint32_t to) { return (v + to - 1) / to * to; }
+
+// The shared-memory layout of a launch of `grid` CTAs (ops/w8a16.py's
+// _gemv_plan and _gemv_smem mirror it; tpk_w8a16_decode_smem reports it).
+inline void decode_layout(DParams& p, int grid) {
+  const int units = (p.N + p.rows - 1) / p.rows, clusters = grid / p.splits;
+  const int run = (units + clusters - 1) / clusters * p.rows;  // the longest run
+  p.slot_rows = run < kDecChunk ? run : kDecChunk;  // no chunk is longer
+  p.slot_bytes = round_up(p.slot_rows * kDecStageK + p.M * kDecXStride, 1024);
+  p.part = p.stages * p.slot_bytes;
+  p.red = p.part + kDecBlocks / 2 * (p.M <= 8 ? 8 : 16) * kPartStride * 4;
+  p.bars = round_up(p.red + 2 * (p.splits - 1) * p.slot_rows * p.M * 4, 8);
+  p.smem = p.bars + 8 * (2 * p.stages + 4) + 1024;
+}
+
+// The weight's tensor map with boxes of `rows` rows, encoded once per
+// (pointer, N, K, rows) and kept: a decode step calls the kernel 225 times
+// on the same weights, and an encode costs more host time than the launch.
+// The map depends on nothing else, so an address reused by another weight
+// of the same shape finds a map that is right for it too.
+inline bool weight_map(CUtensorMap* map, const void* q, int N, int K, int rows) {
+  static std::mutex mu;
+  static std::map<std::tuple<const void*, int, int, int>, CUtensorMap> maps;
+  const auto key = std::make_tuple(q, N, K, rows);
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = maps.find(key);
+  if (it != maps.end()) {
+    *map = it->second;
+    return true;
+  }
+  const fwd90::EncodeTiled encode = fwd90::tensor_map_encoder();
+  if (encode == nullptr) return false;
+  if (!gemm90::encode_2d(map, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, K, N, kDecBoxK, rows,
+                         CU_TENSOR_MAP_SWIZZLE_128B))
+    return false;
+  if (maps.size() >= 4096) maps.clear();  // a bound, far above a model's weights
+  maps.emplace(key, *map);
+  return true;
+}
+
+// The weight rows [r0, r1) of cluster c of C: its units [c U / C, (c + 1)
+// U / C) of `rows` rows each, the last cut at N rounded up to 16.
+struct Run {
+  int r0, r1;
+};
+__device__ __forceinline__ Run run_of(int c, int C, int N, int rows) {
+  const int U = (N + rows - 1) / rows;
+  const int u0 = static_cast<int>(static_cast<long long>(c) * U / C);
+  const int u1 = static_cast<int>(static_cast<long long>(c + 1) * U / C);
+  return {u0 * rows, min(u1 * rows, (N + 15) & ~15)};
+}
+// A run of L rows (a multiple of 16) is streamed in the fewest chunks of
+// at most 64 rows, ceil(L / 64), as equal as whole 16-row groups allow, the
+// larger first: chunk i of the run starts at row_of(i) and has
+// row_of(i + 1) - row_of(i) rows.
+struct Chunks {
+  int n, units;  // chunks, 16-row groups of the run
+  __device__ int row_of(int i) const {
+    const int q = units / n, r = units % n;
+    return 16 * (i * q + min(i, r));
+  }
+};
+__device__ __forceinline__ Chunks chunks_of(int rows) {
+  return {(rows + kDecChunk - 1) / kDecChunk, rows / 16};
+}
+
+// The consumer threads (named barrier 1; 0 is __syncthreads).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" :: "n"(kDecConsumers) : "memory");
+}
+
+// A contiguous run of bytes into shared memory; completes on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar) : "memory");
+}
+
+// The cluster barrier of every thread of every CTA, in its two halves (each
+// thread alternates them; the warp reconverged first: they are .aligned).
+__device__ __forceinline__ void cluster_arrive() {
+  __syncwarp();
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  __syncwarp();
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+// A shared::cta address of this CTA as the same offset in CTA `rank` of the
+// cluster.
+__device__ __forceinline__ uint32_t at_rank(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void st_cluster(uint32_t addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" :: "r"(addr), "f"(v) : "memory");
+}
+
+// Arrive on an mbarrier of any CTA of the cluster, releasing this thread's
+// earlier writes (remote ones included) at cluster scope.
+__device__ __forceinline__ void arrive_cluster(uint32_t bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" :: "r"(bar)
+               : "memory");
+}
+
+// Wait for a phase of this CTA's mbarrier, acquiring at cluster scope what
+// the arriving threads of other CTAs released.
+__device__ __forceinline__ void wait_cluster(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+}
+
+// CTA: 8 consumer warps, then one producer warp; launched in clusters of
+// p.splits CTAs (rank s streams its share of K), gridDim.x / p.splits
+// clusters, each streaming its run of weight rows chunk by chunk. MT:
+// 8-row groups of activations (1 for M <= 8, 2 for M <= 16).
+// One stage's products for a consumer warp: its 64-deep block (the lane's
+// 16 bytes at `col` of each row) of the chunk's NB row groups, every load
+// first, then NB independent accumulator chains.
+template <typename T, int MT, int NB>
+__device__ __forceinline__ void stage_products(float (&acc)[4][MT][4], const unsigned char* slot,
+                                               const unsigned char* xrow, int pi, int col,
+                                               int g8, bool in, int M) {
   const uint4 zero = make_uint4(0, 0, 0, 0);
-
-  float acc[MT][4];
+  uint4 xv[MT][2];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+  for (int mt = 0; mt < MT; ++mt) {
+    const int m = min(mt * 8 + g8, M - 1);  // columns past M are never stored
+    const uint4* xp = reinterpret_cast<const uint4*>(xrow + m * kDecXStride);
+    xv[mt][0] = in ? xp[0] : zero;
+    xv[mt][1] = in ? xp[1] : zero;
+  }
+  uint4 wa[NB], wb[NB];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[mt][e] = 0.0f;
-
-  for (int kb = kb0; kb < kb1; kb += kGemvUnroll) {
-    uint4 wa[kGemvUnroll], wb[kGemvUnroll], xv[kGemvUnroll][MT][2];
+  for (int r = 0; r < NB; ++r) {
+    const unsigned char* wrow = slot + (16 * r + pi) * kDecBoxK + col;
+    wa[r] = *reinterpret_cast<const uint4*>(wrow);
+    wb[r] = *reinterpret_cast<const uint4*>(wrow + 8 * kDecBoxK);
+  }
 #pragma unroll
-    for (int u = 0; u < kGemvUnroll; ++u) {
-      const int k = (kb + u) * 64 + 16 * c;
-      const bool in = kb + u < kb1 && k < K;
-      wa[u] = in && a_ok ? load_stream(qa + k) : zero;
-      wb[u] = in && b_ok ? load_stream(qb + k) : zero;
+  for (int s = 0; s < 4; ++s)
+#pragma unroll
+    for (int r = 0; r < NB; ++r) {
+      uint32_t a[4];
+      codes_to_pairs<T>(word(wa[r], s), a[0], a[2]);
+      codes_to_pairs<T>(word(wb[r], s), a[1], a[3]);
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
-        const int m = mt * 8 + g;
-        const bool m_in = in && m < M;
-        const uint4* xp = reinterpret_cast<const uint4*>(x + static_cast<size_t>(m_in ? m : 0) * K +
-                                                         (in ? k : 0));
-        xv[u][mt][0] = m_in ? __ldg(xp) : zero;
-        xv[u][mt][1] = m_in ? __ldg(xp + 1) : zero;
+        const uint4& xb = xv[mt][s >> 1];
+        mma16816<T>(acc[r][mt], a, word(xb, 2 * (s & 1)), word(xb, 2 * (s & 1) + 1));
       }
     }
-#pragma unroll
-    for (int u = 0; u < kGemvUnroll; ++u) {
-#pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        uint32_t a[4];
-        codes_to_pairs<T>(word(wa[u], s), a[0], a[2]);
-        codes_to_pairs<T>(word(wb[u], s), a[1], a[3]);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          const uint4& v = xv[u][mt][s >> 1];
-          mma16816<T>(acc[mt], a, word(v, 2 * (s & 1)), word(v, 2 * (s & 1) + 1));
-        }
-      }
-    }
-  }
+}
 
-  // acc[mt][e]: weight row (e < 2 ? row_a : row_b), activation row
-  // mt * 8 + 2c + (e & 1).
-  if (splits == 1) {
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int n = e < 2 ? row_a : row_b, m = mt * 8 + 2 * c + (e & 1);
-        if (m < M && n < N)
-          out[static_cast<size_t>(m) * N + n] = finish<T>(acc[mt][e], scale[n], round_first);
+template <typename T, int MT>
+__global__ void __launch_bounds__(kDecThreads, 1)
+    w8a16_decode_kernel(const __grid_constant__ DParams p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = fwd90::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* sm = smem_raw + (base - raw);
+  const int S = p.splits;
+  const int rank = blockIdx.x % S, cl = blockIdx.x / S;  // clusters are (S, 1, 1)
+  const Run run = run_of(cl, gridDim.x / S, p.N, p.rows);
+  const int n_kb = (p.K + 63) / 64;
+  const int k0 = rank * n_kb / S * 64, k1 = min((rank + 1) * n_kb / S * 64, p.K);
+  const uint32_t bars = base + p.bars;
+  const uint32_t red_full = bars + 16u * p.stages, red_empty = red_full + 16u;
+  auto full = [&](int st) { return bars + 8u * st; };
+  auto empty = [&](int st) { return bars + 8u * (p.stages + st); };
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < p.stages; ++st) {
+      fwd90::mbar_init(full(st), 1);
+      fwd90::mbar_init(empty(st), kDecConsumers);
+    }
+    if (S > 1)
+      for (int b = 0; b < 2; ++b) {
+        fwd90::mbar_init(red_full + 8u * b, (S - 1) * kDecWarps);  // a warp's lane 0 each
+        fwd90::mbar_init(red_empty + 8u * b, kDecWarps);
       }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    // The next kernel in the stream may be scheduled now (as this grid's
+    // CTAs leave the SMs); its own griddepcontrol.wait orders its reads of
+    // this one's output.
+    asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  }
+  __syncthreads();
+  // The cluster's first barrier: every CTA has started and set up its
+  // mbarriers before any thread reaches another CTA's shared memory. Each
+  // thread arrives here and waits only before its first remote access, so
+  // the producer's first copies do not wait for the other CTAs.
+  if (S > 1) cluster_arrive();
+
+  if (warp == kDecWarps) {
+    // ------------------------------------------------------- producer
+    // Lane 0 claims a slot and sets its byte count; it issues the TMA boxes
+    // (128 k by the chunk's 64 rows, or by 16 rows; none past the stage's
+    // k) and lanes 1..M one
+    // bulk copy each of an activation row's k slice. The weights do not
+    // depend on the kernel before this one (a programmatic dependent
+    // launch may start this grid while that one finishes), so the ring's
+    // first fill of weights goes out before griddepcontrol.wait; the
+    // activations, its output, only after.
+    const auto* x = static_cast<const unsigned char*>(p.x);
+    if (lane == 0)
+      asm volatile("prefetch.tensormap [%0];\n" :: "l"(reinterpret_cast<uint64_t>(&p.wmap))
+                   : "memory");
+    if (lane == 0 && p.N >= kDecChunk)
+      asm volatile("prefetch.tensormap [%0];\n" :: "l"(reinterpret_cast<uint64_t>(&p.wmap64))
+                   : "memory");
+    const Chunks ch = chunks_of(run.r1 - run.r0);
+    const int n_st = (k1 - k0 + kDecStageK - 1) / kDecStageK;  // stages a chunk
+    const int fill = min(p.stages, ch.n * n_st);
+    // Stage g of the CTA's walk: chunk g / n_st, k0 + (g % n_st) 512.
+    auto chunk_of = [&](int g, int& n0, int& R) {
+      const int i = g / n_st;
+      n0 = run.r0 + ch.row_of(i);
+      R = ch.row_of(i + 1) - ch.row_of(i);
+    };
+    auto claim = [&](int g, int R, int len) {  // lane 0: the slot and its bytes
+      const int st = g % p.stages;
+      const int boxes = (len + kDecBoxK - 1) / kDecBoxK;
+      fwd90::mbar_wait(empty(st), ((g / p.stages) & 1) ^ 1);  // round 0 passes at once
+      fwd90::mbar_expect_tx(full(st), (R / 16) * boxes * 16 * kDecBoxK + p.M * 2 * len);
+    };
+    auto weight = [&](int g, int n0, int R, int k, int len) {  // lane 0
+      const int st = g % p.stages;
+      const uint32_t slot = base + st * p.slot_bytes;
+      const int boxes = (len + kDecBoxK - 1) / kDecBoxK;
+      for (int b = 0; b < boxes; ++b) {  // k-box b: [slot_rows][128 k] from slot + b ...
+        const uint32_t dst = slot + b * p.slot_rows * kDecBoxK;
+        if (R == kDecChunk && p.N >= kDecChunk)  // one box for the chunk's 64 rows
+          gemm90::tma_load_2d(dst, &p.wmap64, full(st), k + b * kDecBoxK, n0);
+        else
+          for (int r = 0; r < R / 16; ++r)
+            gemm90::tma_load_2d(dst + 16 * r * kDecBoxK, &p.wmap, full(st), k + b * kDecBoxK,
+                                n0 + 16 * r);
+      }
+    };
+    auto acts = [&](int g, int k, int len) {  // lanes 1..M
+      const int m = lane - 1;
+      bulk_load(base + g % p.stages * p.slot_bytes + p.slot_rows * kDecStageK + m * kDecXStride,
+                x + (static_cast<size_t>(m) * p.K + k) * 2, 2 * len, full(g % p.stages));
+    };
+    if (lane == 0)
+      for (int g = 0; g < fill; ++g) {
+        int n0, R;
+        chunk_of(g, n0, R);
+        const int k = k0 + g % n_st * kDecStageK, len = min(kDecStageK, k1 - k);
+        claim(g, R, len);
+        weight(g, n0, R, k, len);
+      }
+    asm volatile("griddepcontrol.wait;\n" ::: "memory");
+    __syncwarp();
+    for (int g = 0; g < ch.n * n_st; ++g) {
+      int n0, R;
+      chunk_of(g, n0, R);
+      const int k = k0 + g % n_st * kDecStageK, len = min(kDecStageK, k1 - k);
+      if (g >= fill && lane == 0) claim(g, R, len);
+      __syncwarp();  // the slot claimed and its bytes set before any copy lands
+      if (lane == 0) {
+        if (g >= fill) weight(g, n0, R, k, len);
+      } else if (lane <= p.M) {
+        acts(g, k, len);
+      }
+    }
+    if (S > 1) {
+      cluster_wait();
+      cluster_sync();  // no CTA leaves while another may reach its shared memory
+    }
     return;
   }
-  float* part = ws + static_cast<size_t>(blockIdx.y) * M * N;
+
+  // ----------------------------------------------------------- consumers
+  const int g8 = lane >> 2, c = lane & 3;
+  const int t = threadIdx.x;
+  const Chunks ch = chunks_of(run.r1 - run.r0);
+  T* out = static_cast<T*>(p.out);
+  // Warp w takes the 64-deep block w of every stage, for every row group
+  // of the chunk: one read of the activations' block serves up to four
+  // independent accumulator chains.
+  //
+  // A stage holds the weight as 4 k-boxes of [slot_rows][128 k] (row group
+  // r: rows 16r..16r+15), each with the 128-byte swizzle: 16-byte chunk u
+  // of row p sits at u ^ (p % 8). mma rows g and g + 8 are rows pi and pi +
+  // 8 of the group, pi = g / 2 + 4 (g % 2): the two rows of a load phase (g
+  // = 2i, 2i + 1) differ by 4, so their chunks fall in opposite halves of
+  // the 128 bank bytes.
+  const int pi = (g8 >> 1) + 4 * (g8 & 1);
+  const int kk = 64 * warp;
+  const int col = p.slot_rows * kDecBoxK * (warp >> 1) + 16 * ((4 * (warp & 1) + c) ^ pi);
+  float* part = reinterpret_cast<float*>(sm + p.part);
+  int g = 0;
+  for (int chunk = 0; chunk < ch.n; ++chunk) {
+    const int n0 = run.r0 + ch.row_of(chunk), R = ch.row_of(chunk + 1) - ch.row_of(chunk);
+    const int nb = R >> 4;
+    float acc[4][MT][4];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+    for (int r = 0; r < 4; ++r)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int n = e < 2 ? row_a : row_b, m = mt * 8 + 2 * c + (e & 1);
-      if (m < M && n < N) part[static_cast<size_t>(m) * N + n] = acc[mt][e];
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[r][mt][e] = 0.0f;
+
+    for (int k = k0; k < k1; k += kDecStageK, ++g) {
+      const int st = g % p.stages;
+      const int len = min(kDecStageK, k1 - k);
+      fwd90::mbar_wait(full(st), (g / p.stages) & 1);
+      if (kk < len) {
+        const unsigned char* slot = sm + st * p.slot_bytes;
+        const unsigned char* xrow = slot + p.slot_rows * kDecStageK + 32 * c + 2 * kk;
+        const bool in = kk + 16 * c < len;  // K % 64 != 0 leaves lanes past the end
+        switch (nb) {
+          case 4: stage_products<T, MT, 4>(acc, slot, xrow, pi, col, g8, in, p.M); break;
+          case 3: stage_products<T, MT, 3>(acc, slot, xrow, pi, col, g8, in, p.M); break;
+          case 2: stage_products<T, MT, 2>(acc, slot, xrow, pi, col, g8, in, p.M); break;
+          default: stage_products<T, MT, 1>(acc, slot, xrow, pi, col, g8, in, p.M);
+        }
+      }
+      fwd90::mbar_arrive(empty(st));
     }
-  // The ticket: every thread's partial is visible device-wide before the
-  // count; the last split of this CTA column resets it and reduces.
-  __shared__ int last;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    last = atomicAdd(tickets + blockIdx.x, 1) == splits - 1;
-    if (last) {
-      tickets[blockIdx.x] = 0;
-      __threadfence();
+
+    // acc[r][mt][e]: chunk row 16 r + pi + 8 (e / 2), activation row mt * 8
+    // + 2c + (e & 1). Each output is summed over the warps' partials in
+    // warp order, through a buffer of four: warps 0-3 write theirs, every
+    // thread adds them up, then warps 4-7 (each write behind a barrier
+    // that the last reads of the buffer have passed).
+    const int outs = R * p.M;  // (row, m) = (idx % R, idx / R): stores along n
+    float v[kDecChunk * 16 / kDecConsumers];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      consumers_sync();
+      if ((warp >> 2) == h) {
+        float* mine = part + (warp & 3) * 8 * MT * kPartStride;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          if (r >= nb) break;
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              mine[(mt * 8 + 2 * c + (e & 1)) * kPartStride + 16 * r + pi + 8 * (e >> 1)] =
+                  acc[r][mt][e];
+        }
+      }
+      consumers_sync();
+#pragma unroll
+      for (int u = 0; u < kDecChunk * 16 / kDecConsumers; ++u) {
+        const int idx = t + u * kDecConsumers;
+        if (idx >= outs) continue;
+        const float* src = part + (idx / R) * kPartStride + idx % R;
+        float sum = h == 0 ? src[0] : v[u] + src[0];
+#pragma unroll
+        for (int w = 1; w < kDecWarps / 2; ++w) sum += src[w * 8 * MT * kPartStride];
+        v[u] = sum;
+      }
+    }
+    const int buf = chunk & 1;
+    const uint32_t red = base + p.red + buf * (S - 1) * p.slot_rows * p.M * 4;
+    if (S > 1 && chunk == 0) cluster_wait();  // the first barrier, before remote access
+    if (S > 1 && rank > 0) {
+      // Into rank 0's shared memory, once it has read this buffer's last use.
+      if (chunk >= 2) wait_cluster(red_empty + 8u * buf, ((chunk >> 1) - 1) & 1);
+      const uint32_t dst = at_rank(red + (rank - 1) * p.slot_rows * p.M * 4, 0);
+#pragma unroll
+      for (int u = 0; u < kDecChunk * 16 / kDecConsumers; ++u) {
+        const int idx = t + u * kDecConsumers;
+        if (idx < outs) st_cluster(dst + 4u * idx, v[u]);
+      }
+      __syncwarp();  // the warp's stores, released by its lane 0
+      if (lane == 0) arrive_cluster(at_rank(red_full + 8u * buf, 0));
+      continue;
+    }
+    if (S > 1) {
+      wait_cluster(red_full + 8u * buf, (chunk >> 1) & 1);
+      const float* others = reinterpret_cast<const float*>(sm + (red - base));
+#pragma unroll
+      for (int u = 0; u < kDecChunk * 16 / kDecConsumers; ++u) {
+        const int idx = t + u * kDecConsumers;
+        if (idx >= outs) continue;
+        for (int s = 1; s < S; ++s)  // rank order: the same bits every launch
+          v[u] += others[(s - 1) * p.slot_rows * p.M + idx];
+      }
+      __syncwarp();  // the warp's reads of the buffer, before its lane 0 frees it
+      if (chunk + 2 < ch.n && lane == 0)
+        for (int s = 1; s < S; ++s) arrive_cluster(at_rank(red_empty + 8u * buf, s));
+    }
+#pragma unroll
+    for (int u = 0; u < kDecChunk * 16 / kDecConsumers; ++u) {
+      const int idx = t + u * kDecConsumers;
+      if (idx >= outs) continue;
+      const int n = n0 + idx % R, m = idx / R;
+      if (n < p.N)
+        out[static_cast<size_t>(m) * p.N + n] = finish<T>(v[u], __ldg(p.scale + n), p.round_first);
     }
   }
-  __syncthreads();
-  if (!last) return;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int n = e < 2 ? row_a : row_b, m = mt * 8 + 2 * c + (e & 1);
-      if (m >= M || n >= N) continue;
-      float sum = 0.0f;
-      for (int sp = 0; sp < splits; ++sp)  // split order: the same bits every launch
-        sum += __ldcg(ws + (static_cast<size_t>(sp) * M + m) * N + n);
-      out[static_cast<size_t>(m) * N + n] = finish<T>(sum, scale[n], round_first);
-    }
+  if (S > 1) cluster_sync();
+}
+
+// Raises the kernel's shared-memory limit once per device, then launches it
+// in clusters of p.splits. Returns the launch's error.
+template <typename T, int MT>
+int launch_decode_t(const DParams& p, int grid, cudaStream_t st) {
+  static std::atomic<bool> ready[fwd90::kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= fwd90::kMaxDevices || !ready[dev].load(std::memory_order_acquire)) {
+    err = cudaFuncSetAttribute(w8a16_decode_kernel<T, MT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kDecSmemMax);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < fwd90::kMaxDevices) ready[dev].store(true, std::memory_order_release);
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kDecThreads);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 2;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, w8a16_decode_kernel<T, MT>, p));
+}
+
+template <typename T>
+int launch_decode(const DParams& p, int grid, cudaStream_t st) {
+  return p.M <= 8 ? launch_decode_t<T, 1>(p, grid, st) : launch_decode_t<T, 2>(p, grid, st);
+}
+
+// How many clusters of `splits` decode CTAs of `smem` bytes the device can
+// hold at once (cudaOccupancyMaxActiveClusters), queried once per
+// arguments and device.
+template <typename T, int MT>
+int decode_clusters_t(int splits, int smem) {
+  static std::mutex mu;
+  static std::map<std::tuple<int, int, int>, int> seen;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  const auto key = std::make_tuple(dev, splits, smem);
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = seen.find(key);
+  if (it != seen.end()) return it->second;
+  err = cudaFuncSetAttribute(w8a16_decode_kernel<T, MT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kDecSmemMax);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits);
+  cfg.blockDim = dim3(kDecThreads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveClusters(&clusters, w8a16_decode_kernel<T, MT>, &cfg);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  seen[key] = clusters;
+  return clusters;
 }
 
 // ----------------------------------------------------------------- wgmma
@@ -700,94 +1131,123 @@ __global__ void __launch_bounds__(256)
 
 // ---------------------------------------------------------------- launch
 
-// The CUDA-core and decode kernels (the wgmma kernel: launch_tile).
+// The CUDA-core kernel (the wgmma kernel: launch_tile; the decode kernel:
+// launch_decode).
 template <typename T>
-cudaError_t launch(int kernel, const void* x, const int8_t* q, const float* scale, void* out,
-                   float* ws, int* tickets, int M, int K, int N, int splits, int round_first,
-                   cudaStream_t st) {
-  const T* xp = static_cast<const T*>(x);
-  T* op = static_cast<T*>(out);
-  if (kernel == kSimt) {
-    const dim3 grid((N + kSimtN - 1) / kSimtN, (M + kSimtM - 1) / kSimtM);
-    w8a16_simt_kernel<T><<<grid, 256, 0, st>>>(xp, q, scale, op, M, K, N, round_first);
-    return cudaGetLastError();
-  }
-  if constexpr (sizeof(T) == 2) {
-    const dim3 grid((N + kGemvRows - 1) / kGemvRows, splits);
-    if (M <= 8)
-      w8a16_gemv_kernel<T, 1><<<grid, 32 * kGemvWarps, 0, st>>>(xp, q, scale, op, ws, tickets, M,
-                                                                 K, N, splits, round_first);
-    else
-      w8a16_gemv_kernel<T, 2><<<grid, 32 * kGemvWarps, 0, st>>>(xp, q, scale, op, ws, tickets, M,
-                                                                 K, N, splits, round_first);
-    return cudaGetLastError();
-  }
-  return cudaErrorInvalidValue;
+cudaError_t launch_simt(const void* x, const int8_t* q, const float* scale, void* out, int M,
+                        int K, int N, int round_first, cudaStream_t st) {
+  const dim3 grid((N + kSimtN - 1) / kSimtN, (M + kSimtM - 1) / kSimtM);
+  w8a16_simt_kernel<T><<<grid, 256, 0, st>>>(static_cast<const T*>(x), q, scale,
+                                             static_cast<T*>(out), M, K, N, round_first);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 fp32, 1 bf16, 2 fp16 (x and out). kernel: 0 simt, 1 gemv (M <=
-// 16; K split `splits` ways, ws [splits, M, N] fp32 and tickets (one int per
-// 64 weight rows, all 0) read only when splits > 1), 2 wgmma (tiles of bm
+// dtype: 0 fp32, 1 bf16, 2 fp16 (x and out). kernel: 0 simt; 1 gemv, the
+// decode kernel (M <= 16; bm: weight rows of a unit of the deal, 16, 32 or
+// 64; splits: CTAs of a cluster, 1, 2, 4 or 8, each one share of K's
+// 64-deep blocks; grid: CTAs, a multiple of splits, at most one cluster per
+// unit; stages: the ring's slots of 512 k each; ws and tickets unused);
+// 2 wgmma (tiles of bm
 // activation rows, 64, 128 or 256, by 128 weight rows; K split `splits`
 // ways in 64-deep stages, at bm <= 128 only, ws [tiles * splits, bm * 128]
-// fp32 and tickets (one int per tile, all 0) read only when splits > 1).
-// bm is read by the wgmma kernel only. round_first: the unembedding's
-// epilogue. Returns a
-// cudaError_t (0 = launched); cudaErrorInvalidValue for a plan the kernels
-// do not take (a wgmma plan TMA cannot describe among them). The kernel is
-// the caller's choice: this never switches kernels.
+// fp32 and tickets (one int per tile, all 0) read only when splits > 1;
+// grid and stages unused). round_first: the unembedding's
+// epilogue. Returns a cudaError_t (0 = launched); cudaErrorInvalidValue
+// for a plan the kernels do not take (a wgmma plan TMA cannot describe, a
+// decode plan whose ring does not fit, among them). The kernel is the
+// caller's choice: this never switches kernels.
 extern "C" int tpk_w8a16(const void* x, const void* q, const void* scale, void* out, void* ws,
                          void* tickets, int M, int K, int N, int dtype, int round_first,
-                         int kernel, int bm, int splits, void* stream) {
+                         int kernel, int bm, int splits, int grid, int stages, void* stream) {
   if (M < 0 || K < 1 || N < 0 || dtype < kF32 || dtype > kF16)
     return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0 || N == 0) return 0;
   const auto bad = [] { return static_cast<int>(cudaErrorInvalidValue); };
   const int n_k = (K + 63) / 64;  // 64-deep k blocks (gemv) or stages (wgmma)
-  const bool split_bufs = splits == 1 || (ws != nullptr && tickets != nullptr);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (kernel == kSimt) {
     if ((M + kSimtM - 1) / kSimtM > 65535) return bad();
-  } else if (kernel == kGemv || kernel == kWgmma) {
-    if (dtype == kF32 || K % 16 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
-        reinterpret_cast<uintptr_t>(q) % 16 != 0 || splits < 1 || splits > n_k || !split_bufs)
-      return bad();
-    if (kernel == kGemv && (M > 16 || splits > 65535)) return bad();
-    if (kernel == kWgmma && splits > 1 && bm > 128) return bad();
-  } else {
-    return bad();
+    const auto* qp = static_cast<const int8_t*>(q);
+    const auto* sp = static_cast<const float*>(scale);
+    cudaError_t err;
+    switch (dtype) {
+      case kF32: err = launch_simt<float>(x, qp, sp, out, M, K, N, round_first, st); break;
+      case kBf16: err = launch_simt<__nv_bfloat16>(x, qp, sp, out, M, K, N, round_first, st); break;
+      default: err = launch_simt<__half>(x, qp, sp, out, M, K, N, round_first, st);
+    }
+    return static_cast<int>(err);
   }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (kernel == kWgmma) {
-    WParams p;
+  if (kernel != kGemv && kernel != kWgmma) return bad();
+  if (dtype == kF32 || K % 16 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(q) % 16 != 0 || splits < 1 || splits > n_k)
+    return bad();
+  if (kernel == kGemv) {
+    const int units = bm > 0 ? (N + bm - 1) / bm : 0;
+    if (M > 16 || (bm != 16 && bm != 32 && bm != 64) || (splits & (splits - 1)) != 0 ||
+        splits > kDecMaxCluster || grid < splits || grid % splits != 0 ||
+        grid / splits > units || stages < 2 || stages > 64)
+      return bad();
+    DParams p;
+    if (!weight_map(&p.wmap, q, N, K, 16) ||
+        (N >= kDecChunk && !weight_map(&p.wmap64, q, N, K, kDecChunk)))
+      return bad();
+    p.x = x;
     p.scale = static_cast<const float*>(scale);
     p.out = out;
-    p.ws = static_cast<float*>(ws);
-    p.tickets = static_cast<int*>(tickets);
     p.M = M;
+    p.K = K;
     p.N = N;
-    p.splits = splits;
-    p.n_k = n_k;
     p.round_first = round_first;
-    return dtype == kF16 ? launch_tile<true>(p, x, q, K, bm, st)
-                         : launch_tile<false>(p, x, q, K, bm, st);
+    p.rows = bm;
+    p.splits = splits;
+    p.stages = stages;
+    decode_layout(p, grid);
+    if (p.smem > static_cast<uint32_t>(kDecSmemMax)) return bad();
+    return dtype == kF16 ? launch_decode<__half>(p, grid, st)
+                         : launch_decode<__nv_bfloat16>(p, grid, st);
   }
-  const auto* qp = static_cast<const int8_t*>(q);
-  const auto* sp = static_cast<const float*>(scale);
-  auto* wsp = static_cast<float*>(ws);
-  auto* tp = static_cast<int*>(tickets);
-  cudaError_t err;
-  switch (dtype) {
-    case kF32:
-      err = launch<float>(kernel, x, qp, sp, out, wsp, tp, M, K, N, splits, round_first, st);
-      break;
-    case kBf16:
-      err = launch<__nv_bfloat16>(kernel, x, qp, sp, out, wsp, tp, M, K, N, splits, round_first,
-                                  st);
-      break;
-    default:
-      err = launch<__half>(kernel, x, qp, sp, out, wsp, tp, M, K, N, splits, round_first, st);
-  }
-  return static_cast<int>(err);
+  if ((splits > 1 && (ws == nullptr || tickets == nullptr)) || (splits > 1 && bm > 128))
+    return bad();
+  WParams p;
+  p.scale = static_cast<const float*>(scale);
+  p.out = out;
+  p.ws = static_cast<float*>(ws);
+  p.tickets = static_cast<int*>(tickets);
+  p.M = M;
+  p.N = N;
+  p.splits = splits;
+  p.n_k = n_k;
+  p.round_first = round_first;
+  return dtype == kF16 ? launch_tile<true>(p, x, q, K, bm, st)
+                       : launch_tile<false>(p, x, q, K, bm, st);
+}
+
+// The bytes of shared memory a decode launch of these arguments (as
+// tpk_w8a16 takes them) asks for.
+extern "C" int tpk_w8a16_decode_smem(int M, int N, int bm, int splits, int grid, int stages) {
+  if (M < 1 || N < 1 || bm < 1 || splits < 1 || grid < splits || stages < 1)
+    return -static_cast<int>(cudaErrorInvalidValue);
+  DParams p;
+  p.M = M;
+  p.N = N;
+  p.rows = bm;
+  p.splits = splits;
+  p.stages = stages;
+  decode_layout(p, grid);
+  return static_cast<int>(p.smem);
+}
+
+// How many clusters of `splits` decode CTAs, each of `smem` bytes of
+// shared memory, the current device holds at once for activations of
+// `dtype` (1 bf16, 2 fp16) and M rows: cudaOccupancyMaxActiveClusters,
+// queried once per arguments and device. Negative: minus the CUDA error.
+extern "C" int tpk_w8a16_decode_clusters(int dtype, int M, int splits, int smem) {
+  if (dtype != kBf16 && dtype != kF16) return -static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == kF16)
+    return M <= 8 ? decode_clusters_t<__half, 1>(splits, smem)
+                  : decode_clusters_t<__half, 2>(splits, smem);
+  return M <= 8 ? decode_clusters_t<__nv_bfloat16, 1>(splits, smem)
+                : decode_clusters_t<__nv_bfloat16, 2>(splits, smem);
 }

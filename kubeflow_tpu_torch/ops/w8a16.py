@@ -10,11 +10,12 @@ exists. Not a TPU kernel: the JAX package has no `pallas_call` here.
 
 On a CUDA tensor `int8_weight_matmul` launches one of the three kernels of
 `csrc/w8a16.cu`, chosen by shape before the launch (`_w8a16_plan`): the
-decode kernel (at most 16 activation rows; the weight streamed once, split
-along K where few CTAs would stream it), the wgmma + TMA tile kernel (more
-rows; split along K where its tiles alone would leave SMs idle), or the
-CUDA-core kernel (fp32 activations, K not a multiple of 16, an operand not
-16-byte aligned). Accumulation is fp32 throughout and the
+decode kernel (at most 16 activation rows: one persistent CTA an SM
+streams a contiguous run of weight rows through a ring of bulk copies, K
+split across the CTAs of a thread-block cluster where the rows alone would
+leave SMs idle), the wgmma + TMA tile kernel (more rows; split along K
+where its tiles alone would leave SMs idle), or the CUDA-core kernel (fp32
+activations, K not a multiple of 16, an operand not 16-byte aligned). Accumulation is fp32 throughout and the
 scale lands on the fp32 sum. On a CPU tensor it runs
 `_int8_weight_matmul_plain`: the codes cast to the compute dtype, an
 fp32-output matmul, the scale, the cast back. Nothing falls back: a CUDA
@@ -43,7 +44,6 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 SIMT, GEMV, WGMMA = "simt", "gemv", "wgmma"
 _KERNEL_IDS = {SIMT: 0, GEMV: 1, WGMMA: 2}
 _GEMV_MAX_M = 16  # the decode kernel's activation rows: two 8-row products
-_GEMV_ROWS = 64  # weight rows a decode CTA streams
 _BMS = (64, 128, 256)  # the wgmma kernel's activation rows per tile
 _BN = 128  # ... and weight rows per tile
 _MAX_SPLIT_BM = 128  # the wgmma kernel splits K only at tiles of 64 and 128 rows
@@ -58,9 +58,24 @@ _KBLOCK = 64
 _MAX_SPLITS = 16
 #: SMs of an H100 SXM: the plan's default card.
 H100_SMS = 132
-#: Decode CTAs that keep every SM of an H100 (132) streaming: about two a
-#: SM. Fewer weight-row groups than this split K until they reach it.
-_GEMV_CTAS = 264
+#: The decode kernel (csrc/w8a16.cu, w8a16_decode_kernel): weight rows of a
+#: unit of the deal (whole 16-row blocks: the finest that mma.sync's 16-row
+#: A operand allows, and within ~3% of the mean bytes an SM at llama3_8b's
+#: shapes on 132 SMs), the rows a CTA streams at once at most, the k (bytes
+#: of a weight row) of a ring stage (8 consumer warps' 64-deep blocks), the
+#: largest (portable) cluster, and a CTA's dynamic shared memory on an H100.
+_GEMV_ROWS = 16
+_GEMV_CHUNK = 64
+_GEMV_STAGE_K = 512
+#: The ring's slots by default: at least four (32 KB of weight in flight at
+#: 16-row chunks); within 6% of the best of 2-4 at every llama3_8b decode
+#: shape on an H100, and eight were slower at k/v (tools/w8a16_ab.py's
+#: stage sweep).
+_GEMV_STAGES = 4
+_GEMV_MAX_CLUSTER = 8
+_GEMV_LONG_SPLIT = 4  # stages a split of a long K keeps, at least
+_GEMV_BLOCKS = 8  # 64-deep blocks of a stage, the partials summed in block order
+_GEMV_SMEM_MAX = 232448
 _GRID_Y_MAX = 65535
 _INT32_MAX = 2**31 - 1
 
@@ -70,18 +85,29 @@ class W8a16Plan:
     """How csrc/w8a16.cu runs one [m, k] x [n, k]^T product: which kernel,
     how many ways K is split (the decode and wgmma kernels) and its grid;
     for the wgmma kernel also its tile's activation rows (`bm`, by 128
-    weight rows) and the number of tiles. Its persistent CTAs (`grid`) take
-    the tiles x splits units in turn."""
+    weight rows) and the number of tiles, whose units (tiles x splits) its
+    persistent CTAs (`grid`) take in turn. For the decode kernel: the
+    weight rows of a unit of the deal (`rows`), the ring's slots
+    (`stages`, of _GEMV_STAGE_K k each), and the weight rows a slot holds
+    (`slot_rows`); its grid is clusters x `splits` CTAs, one cluster a
+    contiguous run of units, each CTA of a cluster one share of K."""
 
     kernel: str
     splits: int
     grid: tuple
     bm: int = 0
     tiles: int = 0
+    rows: int = 0
+    stages: int = 0
+    slot_rows: int = 0
 
     @property
     def units(self) -> int:
         return self.tiles * self.splits
+
+    @property
+    def clusters(self) -> int:
+        return self.grid[0] // self.splits
 
     def k_ranges(self, k: int) -> list:
         """[k0, k1) of each split, as the kernels compute them: split j
@@ -92,6 +118,80 @@ class W8a16Plan:
                  min((j + 1) * n_kb // self.splits * _KBLOCK, k))
                 for j in range(self.splits)]
 
+    def runs(self, n: int) -> list:
+        """The decode kernel's deal, as it computes it: [r0, r1) of the
+        weight rows of each cluster, its units [c U / C, (c + 1) U / C) of
+        U = ceil(n / rows), the last cut at n rounded up to 16."""
+        units, c = -(-n // self.rows), self.clusters
+        end = -(-n // 16) * 16
+        return [(i * units // c * self.rows,
+                 min((i + 1) * units // c * self.rows, end)) for i in range(c)]
+
+    def chunks(self, n: int) -> list:
+        """Per cluster, the (n0, rows) chunks the decode kernel streams its
+        run in: the fewest of at most 64 rows, ceil(L / 64) for a run of L,
+        as equal as whole 16-row groups allow, the larger first."""
+        out = []
+        for r0, r1 in self.runs(n):
+            count, groups = -(-(r1 - r0) // _GEMV_CHUNK), (r1 - r0) // 16
+            q, r = divmod(groups, count)
+            starts = [r0 + 16 * (i * q + min(i, r)) for i in range(count + 1)]
+            out.append([(a, b - a) for a, b in zip(starts, starts[1:])])
+        return out
+
+
+def _gemv_smem(m: int, splits: int, slot_rows: int, stages: int) -> tuple:
+    """(bytes of one ring slot, bytes of dynamic shared memory) of a decode
+    launch, as csrc/w8a16.cu's decode_layout computes them: the slots (the
+    weight's TMA boxes of 16 rows by 512 k, the activation rows padded to
+    2 * 512 + 16 bytes; 1024-byte aligned for the swizzle), four blocks'
+    partials of a chunk ([8 or 16 activation rows][64 + 4] fp32 each; the
+    8 blocks' go through it in two halves), rank 0's buffers for the other
+    ranks' sums, the mbarriers and 1024 bytes of alignment."""
+    k = _GEMV_STAGE_K
+    slot = -(-(slot_rows * k + m * (2 * k + 16)) // 1024) * 1024
+    part = _GEMV_BLOCKS // 2 * (8 if m <= 8 else 16) * (_GEMV_CHUNK + 4) * 4
+    red = -(-(2 * (splits - 1) * slot_rows * m * 4) // 8) * 8
+    return slot, stages * slot + part + red + 8 * (2 * stages + 4) + 1024
+
+
+def _gemv_plan(m: int, k: int, n: int, sm_count: int = H100_SMS, *,
+               rows: int = _GEMV_ROWS, splits: int | None = None,
+               stages: int | None = None) -> W8a16Plan:
+    """The decode kernel's plan; the keywords force a variant (the sweeps of
+    tools/w8a16_ab.py). Whole units of `rows` weight rows are dealt to
+    clusters in contiguous runs, one cluster an SM. Where the units alone
+    would leave at least half the SMs idle, K is split over the CTAs of a
+    cluster (2, 4 or 8, each split at least one 512-deep stage of K), so that
+    units x splits still fit the SMs; and where the runs are shorter than a
+    64-row chunk, a K long enough to keep 4 stages a split splits until
+    they are not. The ring has _GEMV_STAGES slots."""
+    n_kb = -(-k // _KBLOCK)
+    units = -(-n // rows)
+    if splits is None:
+        splits = 1
+        while (2 * splits <= _GEMV_MAX_CLUSTER
+               and 2 * splits * units <= sm_count
+               and n_kb >= 2 * splits * (_GEMV_STAGE_K // _KBLOCK)):
+            splits *= 2
+        # Runs shorter than a chunk re-read the activations for few rows
+        # and take more copy requests a byte; a long K splits until they
+        # reach a chunk, each split keeping _GEMV_LONG_SPLIT stages (q/o and
+        # down at 132 SMs: two splits, runs of 48-64 rows;
+        # tools/w8a16_ab.py's sweeps).
+        while (2 * splits <= _GEMV_MAX_CLUSTER
+               and -(-units // min(units, sm_count // splits)) * rows
+               < _GEMV_CHUNK
+               and n_kb >= 2 * splits * _GEMV_LONG_SPLIT
+               * (_GEMV_STAGE_K // _KBLOCK)):
+            splits *= 2
+    clusters = min(units, max(1, sm_count // splits))
+    slot_rows = min(_GEMV_CHUNK, -(-units // clusters) * rows)
+    if stages is None:
+        stages = _GEMV_STAGES
+    return W8a16Plan(GEMV, splits, (clusters * splits,), rows=rows,
+                     stages=stages, slot_rows=slot_rows)
+
 
 @functools.lru_cache(maxsize=1024)  # pure, and on every decode step's path
 def _w8a16_plan(m: int, k: int, n: int, dtype: torch.dtype,
@@ -101,9 +201,9 @@ def _w8a16_plan(m: int, k: int, n: int, dtype: torch.dtype,
 
     fp32 activations, K not a multiple of 16 or an operand not 16-byte
     aligned (`aligned`: TMA's rule too) take the CUDA-core kernel. Otherwise
-    up to 16 rows take the decode kernel, which splits K (in 64-deep blocks,
-    at least two a split) while fewer than _GEMV_CTAS CTAs of 64 weight rows
-    would stream the weight. More rows take the wgmma kernel: the smallest
+    up to 16 rows take the decode kernel (`_gemv_plan`: runs of 16-row
+    blocks, K split in a cluster where the blocks alone would leave at
+    least half the SMs idle). More rows take the wgmma kernel: the smallest
     tile of 64, 128 or 256 rows that holds m (256 beyond), 128 rows where
     256-row tiles would fill at most half the SMs, and 64 where 128-row
     units (tiles x splits) would too. Where at most half the
@@ -127,12 +227,7 @@ def _w8a16_plan(m: int, k: int, n: int, dtype: torch.dtype,
         return W8a16Plan(SIMT, 1, grid)
     n_kb = -(-k // _KBLOCK)
     if m <= _GEMV_MAX_M:
-        groups = -(-n // _GEMV_ROWS)
-        splits = 1
-        while (splits < _MAX_SPLITS and groups * splits < _GEMV_CTAS
-               and 4 * splits <= n_kb):
-            splits *= 2
-        return W8a16Plan(GEMV, splits, (groups, splits))
+        return _gemv_plan(m, k, n, sm_count)
     bm = next((b for b in _BMS if m <= b), _BMS[-1])
     tiles, splits = _tiling(m, n, n_kb, bm, sm_count)
     if bm == 256 and 2 * tiles <= sm_count:
@@ -161,6 +256,21 @@ def _tiling(m: int, n: int, n_kb: int, bm: int, sm_count: int) -> tuple:
 @functools.lru_cache(maxsize=64)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _decode_clusters_held(plan: W8a16Plan, m: int, dtype: torch.dtype) -> int:
+    """How many of the decode plan's clusters the current card holds at
+    once (cudaOccupancyMaxActiveClusters, queried once per arguments): at
+    least `plan.clusters` where the persistent grid runs in one wave."""
+    from kubeflow_tpu_torch.ops import _build
+
+    _, smem = _gemv_smem(m, plan.splits, plan.slot_rows, plan.stages)
+    held = _build.function("w8a16.cu", "tpk_w8a16_decode_clusters")(
+        _DTYPES[dtype], m, plan.splits, smem)
+    if held < 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: CUDA "
+                           f"error {-held}")
+    return held
 
 
 def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -192,9 +302,11 @@ def _int8_weight_matmul_plain(x, q, scale, round_before_scale=False):
     return y.mul_(scale).to(cd)  # in place: y is this call's own
 
 
-def _int8_weight_matmul_cuda(x2, q, scale, round_before_scale=False):
+def _int8_weight_matmul_cuda(x2, q, scale, round_before_scale=False,
+                             plan=None):
     """Launch the kernel of csrc/w8a16.cu that `_w8a16_plan` picks for x2
-    [M, K], on the current stream (no synchronise)."""
+    [M, K] (or `plan`, a forced variant), on the current stream (no
+    synchronise)."""
     global w8a16_launches, w8a16_wgmma_launches
     dev = x2.device
     for name, t, dtype in (("q", q, torch.int8), ("scale", scale,
@@ -211,29 +323,29 @@ def _int8_weight_matmul_cuda(x2, q, scale, round_before_scale=False):
     out = torch.empty((m, n), dtype=x2.dtype, device=dev)
     if m == 0 or n == 0:
         return out
-    plan = _w8a16_plan(m, k, n, x2.dtype, x2.data_ptr() % 16 == 0
-                       and q.data_ptr() % 16 == 0, _sm_count(dev.index))
+    if plan is None:
+        plan = _w8a16_plan(m, k, n, x2.dtype, x2.data_ptr() % 16 == 0
+                           and q.data_ptr() % 16 == 0, _sm_count(dev.index))
     from kubeflow_tpu_torch.ops import _build
 
     fn = _build.function("w8a16.cu", "tpk_w8a16")
     stream = torch.cuda.current_stream(dev).cuda_stream
     ws = tickets = None  # held until the launch is enqueued
-    if plan.splits > 1:
-        # The decode kernel's partials are [splits, m, n], the wgmma
-        # kernel's a whole tile per unit; the tickets are the W8A8 op's
-        # counters (one per CTA column or tile): every launch leaves them at
-        # zero, and launches on one stream run in order.
-        wgmma = plan.kernel == WGMMA
-        ws = torch.empty(plan.units * plan.bm * _BN if wgmma
-                         else (plan.splits, m, n), dtype=torch.float32,
+    if plan.kernel == WGMMA and plan.splits > 1:
+        # A whole tile of fp32 partials per unit; the tickets are the W8A8
+        # op's counters (one per tile): every launch leaves them at zero, and
+        # launches on one stream run in order. The decode kernel sums its
+        # splits inside a cluster and takes neither.
+        ws = torch.empty(plan.units * plan.bm * _BN, dtype=torch.float32,
                          device=dev)
-        tickets = _tickets_for(dev, stream,
-                               plan.tiles if wgmma else plan.grid[0])
+        tickets = _tickets_for(dev, stream, plan.tiles)
+    gemv = plan.kernel == GEMV
     args = (x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
             None if ws is None else ws.data_ptr(),
             None if tickets is None else tickets.data_ptr(), m, k, n,
             _DTYPES[x2.dtype], int(round_before_scale),
-            _KERNEL_IDS[plan.kernel], plan.bm, plan.splits, stream)
+            _KERNEL_IDS[plan.kernel], plan.rows if gemv else plan.bm,
+            plan.splits, plan.grid[0] if gemv else 0, plan.stages, stream)
     # A launch goes to the thread's current device: enter x's only when it
     # is another (the context costs host time on every decode projection).
     if torch.cuda.current_device() == dev.index:

@@ -115,32 +115,209 @@ LLAMA3_8B = [(4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336),
              (128256, 4096)]
 
 
-@pytest.mark.parametrize("n,k", LLAMA3_8B)
-@pytest.mark.parametrize("m", [1, 4, 16])
+#: The decode kernel's shapes: llama3_8b's five at M 1, 4 and 16, then
+#: ragged ones (N 72, 130, 200, 16383; K 64, 128, 4096 + 16).
+DECODE_8B = [(m, k, n) for m in (1, 4, 16) for n, k in LLAMA3_8B]
+DECODE_RAGGED = [(4, 4096, 72), (1, 4096, 130), (9, 4096, 200),
+                 (16, 4096, 16383), (3, 64, 4096), (4, 128, 1024),
+                 (16, 4096 + 16, 4096), (5, 4096 + 16, 130), (2, 64, 72)]
+
+
+def _decode_work(plan, k, n):
+    """What each CTA of a decode launch streams, as the kernel deals it:
+    {cta: [(n0, rows, k0, k1), ...]}, CTA c * splits + s taking split s of
+    cluster c's chunks."""
+    ranges = plan.k_ranges(k)
+    work = {}
+    for c, chunks in enumerate(plan.chunks(n)):
+        for s, (k0, k1) in enumerate(ranges):
+            work[c * plan.splits + s] = [(n0, rows, k0, k1)
+                                         for n0, rows in chunks]
+    return work
+
+
+@pytest.mark.parametrize("m,k,n", DECODE_8B)
 def test_plan_takes_the_decode_kernel_at_decode_widths(m, k, n):
+    """Up to 16 rows: the decode kernel, dealing whole 16-row blocks in
+    contiguous runs, one cluster of `splits` CTAs a run, no more CTAs than
+    SMs, each split whole 64-deep blocks of K, at least one stage each."""
     plan = tw8._w8a16_plan(m, k, n, torch.bfloat16)
-    assert plan.kernel == tw8.GEMV
-    groups = -(-n // 64)
-    assert plan.grid == (groups, plan.splits)
+    assert plan.kernel == tw8.GEMV and plan.rows == 16
+    assert plan.grid == (plan.clusters * plan.splits,)
+    assert plan.grid[0] <= tw8.H100_SMS
+    assert plan.clusters == min(-(-n // 16), tw8.H100_SMS // plan.splits)
     ranges = plan.k_ranges(k)
     assert ranges[0][0] == 0 and ranges[-1][1] == k
     assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
-    assert all(k1 - k0 >= 2 * 64 for k0, k1 in ranges)  # two blocks a split
-    if groups >= tw8._GEMV_CTAS:
-        assert plan.splits == 1
-    else:  # split until the CTAs reach the target, the limit or K's blocks
-        assert (groups * plan.splits >= tw8._GEMV_CTAS
-                or plan.splits == tw8._MAX_SPLITS
-                or 4 * plan.splits > -(-k // 64))
+    assert all(k1 - k0 >= tw8._GEMV_STAGE_K for k0, k1 in ranges)
+    runs = plan.runs(n)
+    assert runs[0][0] == 0 and runs[-1][1] == n  # the 8B widths are whole blocks
+    assert all(a[1] == b[0] and a[0] < a[1] for a, b in zip(runs, runs[1:]))
 
 
 def test_plan_splits_where_few_weight_rows_stream():
-    """k/v at N 1024: 16 CTAs of 64 rows would leave most SMs idle."""
-    assert tw8._w8a16_plan(4, 4096, 1024, torch.bfloat16).splits == 16
-    assert tw8._w8a16_plan(4, 4096, 4096, torch.bfloat16).splits == 8
-    assert tw8._w8a16_plan(4, 4096, 14336, torch.bfloat16).splits == 2
-    assert tw8._w8a16_plan(4, 4096, 128256, torch.bfloat16).splits == 1
-    assert tw8._w8a16_plan(4, 128, 1024, torch.bfloat16).splits == 1
+    """k/v at N 1024: 64 blocks of 16 rows would leave half the SMs idle,
+    so K splits in two (128 CTAs of 32 KB). q/o and down have the blocks to
+    fill 132 SMs but in runs of 32 rows, and K to keep 4 stages a split:
+    they split in two, for runs of 48-64 rows; at K 2048 q/o's width would
+    not keep 4 stages a split and stays whole, and gate/up's runs are long
+    enough already. Small N splits up to the portable cluster of 8, and
+    never below one 512-deep stage a split."""
+    def splits(m, k, n, sms=tw8.H100_SMS):
+        return tw8._w8a16_plan(m, k, n, torch.bfloat16, True, sms).splits
+    assert splits(4, 4096, 1024) == 2
+    assert splits(4, 4096, 4096) == 2
+    assert splits(4, 2048, 4096) == 1
+    assert splits(4, 4096, 14336) == 1
+    assert splits(4, 14336, 4096) == 2
+    assert splits(16, 14336, 4096) == 2
+    assert splits(4, 4096, 128256) == 1
+    assert splits(4, 4096, 130) == 8  # 9 blocks
+    assert splits(4, 128, 1024) == 1  # two 64-deep blocks: not a stage each
+    assert splits(4, 1024, 72) == 2  # 5 blocks; 16 blocks of K: a stage each
+    assert splits(4, 4096, 1024, 114) == 2  # runs of 16 rows, K for two
+    assert splits(4, 4096, 1024, 264) == 4
+
+
+@pytest.mark.parametrize("sms", [132, 114, 78])
+@pytest.mark.parametrize("m,k,n", DECODE_8B + DECODE_RAGGED)
+def test_decode_plan_covers_every_block_once(m, k, n, sms):
+    """Every (16-row block, 64-deep k block) of the weight is streamed by
+    exactly one CTA, and inside it by exactly one consumer warp (warp w
+    takes the blocks w modulo 8, counted from the CTA's k0: block w of
+    every 512-deep stage, for all the chunk's row groups)."""
+    plan = tw8._w8a16_plan(m, k, n, torch.bfloat16, True, sms)
+    assert plan.kernel == tw8.GEMV
+    assert plan.grid[0] <= sms or plan.clusters == 1
+    n_kb = -(-k // 64)
+    seen = {}
+    for cta, items in _decode_work(plan, k, n).items():
+        for n0, rows, k0, k1 in items:
+            assert rows in (16, 32, 48, 64) and n0 % 16 == 0 and k0 % 64 == 0
+            nb = rows // 16
+            for b in range(nb):
+                if n0 + 16 * b >= n:
+                    continue
+                for j in range(-(-(k1 - k0) // 64)):
+                    warps = [w for w in range(8) if j % 8 == w]
+                    assert len(warps) == 1
+                    key = ((n0 + 16 * b) // 16, k0 // 64 + j)
+                    assert key not in seen, (key, cta, seen.get(key))
+                    seen[key] = cta
+    assert len(seen) == -(-n // 16) * n_kb
+
+
+@pytest.mark.parametrize("m,k,n", DECODE_8B)
+def test_decode_plan_balances_bytes_across_sms(m, k, n):
+    """One CTA an SM: no SM streams more than 5% above the mean weight
+    bytes at llama3_8b's decode shapes on an H100 (132 SMs)."""
+    plan = tw8._w8a16_plan(m, k, n, torch.bfloat16)
+    shares = [sum(min(rows, n - n0) * (k1 - k0)
+                  for n0, rows, k0, k1 in items)
+              for items in _decode_work(plan, k, n).values()]
+    assert sum(shares) == n * k
+    assert max(shares) <= 1.05 * n * k / tw8.H100_SMS, (
+        max(shares), n * k / tw8.H100_SMS)
+
+
+@pytest.mark.parametrize("sms", [132, 16])
+@pytest.mark.parametrize("m,k,n", DECODE_8B + DECODE_RAGGED)
+def test_decode_plan_cluster_is_portable(m, k, n, sms):
+    """Clusters of 1, 2, 4 or 8 CTAs (portable sizes: no non-portable
+    attribute), one cluster per unit at most, no split without a 64-deep
+    block of K."""
+    plan = tw8._w8a16_plan(m, k, n, torch.float16, True, sms)
+    assert plan.splits in (1, 2, 4, 8)
+    assert plan.grid[0] % plan.splits == 0
+    assert 1 <= plan.clusters <= -(-n // plan.rows)
+    assert plan.splits <= -(-k // 64)
+
+
+@pytest.mark.parametrize("m,k,n", DECODE_8B + DECODE_RAGGED)
+def test_decode_plan_ring_fits_and_keeps_32kb_in_flight(m, k, n):
+    """The ring has at least four stages, fits a CTA's shared memory with
+    the partials and rank 0's buffers, and holds at least 32 KB of weight
+    (or all a CTA streams, where that is less): about Little's law for
+    3.35 TB/s over 132 SMs at ~1 us of loaded latency."""
+    plan = tw8._w8a16_plan(m, k, n, torch.bfloat16)
+    slot, smem = tw8._gemv_smem(m, plan.splits, plan.slot_rows, plan.stages)
+    assert plan.stages >= 4
+    assert smem <= tw8._GEMV_SMEM_MAX
+    assert slot % 1024 == 0  # the 128-byte swizzle's period
+    k_st = tw8._GEMV_STAGE_K
+    assert slot >= plan.slot_rows * k_st + m * (2 * k_st + 16)
+    most = max(sum(min(rows, n - n0) * (k1 - k0)
+                   for n0, rows, k0, k1 in items)
+               for items in _decode_work(plan, k, n).values())
+    assert plan.slot_rows >= max(rows for chunks in plan.chunks(n)
+                                 for _, rows in chunks)
+    for (r0, r1), chunks in zip(plan.runs(n), plan.chunks(n)):
+        assert len(chunks) == -(-(r1 - r0) // 64)  # the fewest chunks
+    assert plan.stages * plan.slot_rows * k_st >= min(32768, most)
+
+
+@pytest.mark.parametrize("stages,splits,rows", [(4, 2, 16), (2, 1, 64),
+                                                (4, 8, 32)])
+def test_decode_plan_takes_forced_variants(stages, splits, rows):
+    """tools/w8a16_ab.py's sweeps: forced ring stages, cluster size and row
+    block give a plan the kernel's layout still fits."""
+    plan = tw8._gemv_plan(4, 4096, 4096, rows=rows, splits=splits,
+                          stages=stages)
+    assert (plan.stages, plan.splits, plan.rows) == (stages, splits, rows)
+    assert plan.clusters == min(-(-4096 // rows), 132 // splits)
+    _, smem = tw8._gemv_smem(4, splits, plan.slot_rows, stages)
+    assert smem <= tw8._GEMV_SMEM_MAX
+
+
+def _decode_emulated(x, q, scale, plan, round_first=False):
+    """The decode kernel's sums in fp32, in its order: per CTA and chunk,
+    each warp's 64-deep blocks (warp w: blocks w modulo 8 of the CTA's K
+    range, all the chunk's rows), the warps summed in warp order, then the
+    cluster's ranks in rank order; then the epilogue."""
+    m, k = x.shape
+    n = q.shape[0]
+    xf, qf = x.float(), q.float()
+    out = torch.empty(m, n)
+    ranges = plan.k_ranges(k)
+    for chunks in plan.chunks(n):
+        for n0, rows in chunks:
+            rs = slice(n0, min(n0 + rows, n))
+            total = None
+            for k0, k1 in ranges:  # rank order
+                rank_sum = None
+                for w in range(8):  # warp order
+                    part = torch.zeros(m, rs.stop - rs.start)
+                    for j in range(w, -(-(k1 - k0) // 64), 8):
+                        lo, hi = k0 + 64 * j, min(k0 + 64 * (j + 1), k1)
+                        part += xf[:, lo:hi] @ qf[rs, lo:hi].t()
+                    rank_sum = part if rank_sum is None else rank_sum + part
+                total = rank_sum if total is None else total + rank_sum
+            out[:, rs] = total
+    if round_first:
+        out = out.to(x.dtype).float()
+    return (out * scale).to(x.dtype)
+
+
+@pytest.mark.parametrize("m,k,n,rf", [(4, 4096, 1024, False),
+                                      (9, 4096 + 16, 130, True),
+                                      (16, 2048, 200, False),
+                                      (1, 1024, 72, True)])
+def test_decode_cluster_split_order_sum_matches_plain(m, k, n, rf):
+    """The decode kernel's split-K, emulated: the fp32 partial of every
+    warp of every rank, summed in warp order and then rank order, scaled
+    and cast, is the plain version within one rounding of the output; the
+    fp32 sum itself is the plain product within fp32 rounding."""
+    x, q, scale = _inputs(m, k, n, torch.bfloat16, seed=k + n)
+    plan = tw8._w8a16_plan(m, k, n, torch.bfloat16)
+    assert plan.kernel == tw8.GEMV and plan.splits > 1
+    got = _decode_emulated(x, q, scale, plan, rf).float()
+    want = tw8._int8_weight_matmul_plain(x, q, scale, rf).float()
+    assert (got - want).abs().max() <= 2.0**-7 * want.abs().max()
+    ones = torch.ones(n)
+    acc = _decode_emulated(x.float(), q, ones, plan)
+    full = x.float() @ q.float().t()
+    bound = 4 * k * 2.0**-24 * (x.float().abs() @ q.float().abs().t())
+    assert bool(((acc - full).abs() <= bound).all())
 
 
 def _tiles(m, n, bm):
