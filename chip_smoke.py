@@ -106,6 +106,7 @@ import json
 import math
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -823,10 +824,37 @@ W8A16_DECODE_DESIGN = ("persistent CTAs, one an SM, each a contiguous run of "
                        "mma.sync m16n8k16; split-K summed in a thread-block "
                        "cluster through distributed shared memory; "
                        "programmatic dependent launch")
+# Position p of a decode step's 225 decode-kernel launches (7 a layer in
+# the model's order, then the unembedding): the shape it runs.
+W8A16_STEP_ORDER = ("q/o", "k/v", "k/v", "q/o", "gate/up", "gate/up", "down")
 # The device busy time of an int8 decode step before the streamed decode
 # kernel (phase 4c's profile, NVIDIA H100 80GB HBM3 at 700 W), printed
 # beside this run's.
 W8A16_EARLIER_BUSY_MS = 20.30
+
+
+def launch_ms(fn, reps: int = 20) -> float:
+    """Device time of one call as a model's step finds it: each call
+    follows a PyTorch kernel (a one-element add; a decode projection
+    follows a norm, a rotary embedding, an activation or attention, none of
+    which lets the next kernel start early), and a pair of CUDA events
+    spans the call alone, from the add's end to the call's. Mean over
+    `reps`; a sleep kernel keeps the device busy while the host enqueues
+    them. Back-to-back calls (`time_ms`) would let a programmatic dependent
+    launch overlap each call with the one before it."""
+    fn()
+    torch.cuda.synchronize()
+    tiny = torch.zeros(1, device="cuda")
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    torch.cuda._sleep(100_000_000)
+    for e0, e1 in zip(starts, ends):
+        tiny.add_(1)
+        e0.record()
+        fn()
+        e1.record()
+    torch.cuda.synchronize()
+    return sum(e0.elapsed_time(e1) for e0, e1 in zip(starts, ends)) / reps
 
 
 def _rotating(fn, copies) -> callable:
@@ -855,7 +883,8 @@ def phase_w8a16(gk) -> dict:
     weight rotating past the L2, its bound, the plain version's time and
     torch.mm's on a pre-cast copy of the weight in the compute dtype (fp32
     output, the scale, the cast: the library yardstick, never called by
-    the port)."""
+    the port). Decode rows (M <= 16) time each call after a PyTorch kernel
+    (`launch_ms`), as a model's step runs it; prefill rows back to back."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     sms = w8._sm_count(dev.index or 0)
@@ -870,10 +899,11 @@ def phase_w8a16(gk) -> dict:
         what = (f"{gk.w8a16_case_id(case)}: {plan.kernel} kernel"
                 + (f" (tile {plan.bm} x {w8._BN}, {plan.tiles} tiles)"
                    if plan.kernel == w8.WGMMA else "")
-                + (f" (row block {plan.rows}, cluster {plan.splits}, "
+                + (f" (row block {w8._GEMV_ROWS}, cluster {plan.splits}, "
                    f"{plan.clusters} clusters, grid {plan.grid[0]}, ring "
-                   f"{plan.stages} stages of {w8._GEMV_STAGE_K} k by {plan.slot_rows} "
-                   f"rows)" if plan.kernel == w8.GEMV else "")
+                   f"{w8._GEMV_STAGES} stages of {w8._GEMV_STAGE_K} k by "
+                   f"{plan.slot_rows} rows, {plan.layout[-1]} bytes of shared "
+                   f"memory)" if plan.kernel == w8.GEMV else "")
                 + (f", {plan.splits} splits" if plan.splits > 1
                    and plan.kernel != w8.GEMV else "")
                 + f", rel_l2 {err['rel_l2']:.2e} (bound "
@@ -887,7 +917,8 @@ def phase_w8a16(gk) -> dict:
         bound, bound_by = _bound(2 * m * n * k, nbytes)
         copies = [q] + [q.clone() for _ in range(
             max(0, math.ceil(W8A16_COLD_BYTES / (n * k)) - 1))]
-        ms = time_ms(_rotating(lambda w: w8.int8_weight_matmul(
+        timer = launch_ms if m <= 16 else time_ms
+        ms = timer(_rotating(lambda w: w8.int8_weight_matmul(
             x, w, scale, round_before_scale=rf), copies))
         del copies
         plain_ms = time_ms(lambda: w8._int8_weight_matmul_plain(
@@ -895,7 +926,7 @@ def phase_w8a16(gk) -> dict:
         wides = [q.to(dtype)]
         wides += [wides[0].clone() for _ in range(max(0, math.ceil(
             W8A16_COLD_BYTES / (n * k * es)) - 1))]
-        library_ms = time_ms(_rotating(lambda w: (torch.mm(
+        library_ms = timer(_rotating(lambda w: (torch.mm(
             x, w.t(), out_dtype=torch.float32) * scale).to(dtype), wides))
         # The host's share of a decode step: enqueue time of one call of
         # the op, of its plain version and of the library call, at decode
@@ -914,15 +945,10 @@ def phase_w8a16(gk) -> dict:
             + ("; host enqueue us a call: " + ", ".join(
                 f"{k} {v:.1f}" for k, v in enqueue.items()) if enqueue
                else ""))
-        held = (w8._decode_clusters_held(plan, m, dtype)
-                if plan.kernel == w8.GEMV else None)
-        if held is not None:
-            log(f"    the card holds {held} such clusters at once (the plan "
-                f"launches {plan.clusters})")
         rows.append({"shape": f"M{m} K{k} N{n}", "m": m, "k": k, "n": n,
-                     "kernel": plan.kernel, "bm": plan.bm, "rows": plan.rows,
+                     "kernel": plan.kernel, "bm": plan.bm,
                      "splits": plan.splits, "grid": plan.grid[0],
-                     "stages": plan.stages, "clusters_held": held,
+                     "layout": plan.layout, "timer": timer.__name__,
                      "unembed": rf, "ms": ms,
                      "plain_ms": plain_ms, "library_ms": library_ms,
                      "bound_ms": bound, "bound_by": bound_by,
@@ -1534,12 +1560,14 @@ def phase_quant(bundle: str, flat: dict, paged: dict) -> dict:
         after = _metadata(base)
         qbytes = run["metadata"]["quantize"]
         copies = _int8_weight_copies(server)
-        prof = _profile_decode(server)
+        prof = _profile_decode(server, "w8a16_decode_kernel")
+    in_situ = None
     if prof:
         log(f"  int8 decode step: device busy {prof['busy_ms'] / CHUNK:.2f} ms"
             f" (before the streamed decode kernel: {W8A16_EARLIER_BUSY_MS:.2f}"
             f" ms), unprofiled wall {prof['unprofiled_wall_ms'] / CHUNK:.2f} "
             f"ms: host-bound")
+        in_situ = _decode_in_situ(prof.pop("ordered_ms"))
     results, stats, total = run["results"], run["stats"], after["stats"]
     _check_outputs(results, cfg.vocab_size)
     _pipeline_line(stats, "6 concurrent requests")
@@ -1627,7 +1655,33 @@ def phase_quant(bundle: str, flat: dict, paged: dict) -> dict:
             "launches": launches, "w8a16_launches": w8_calls,
             "w8a16_wgmma_launches": w8_wgmma, "prefill_s": prefill_s,
             "alone_ms": alone_ms, "sync_alone_ms": sync_ms,
-            "logprob_drift": drift, "profile": prof, **model_gate}
+            "logprob_drift": drift, "profile": prof,
+            "w8a16_in_situ": in_situ, **model_gate}
+
+
+def _decode_in_situ(ordered_ms: list) -> dict | None:
+    """The decode kernel's device ms by shape inside a decode chunk, read
+    from its launches in order (W8A16_STEP_ORDER a layer, then the
+    unembedding): the mean of each shape and the sum a step. None (and
+    said so) when the launches are not whole steps."""
+    per = sum(W8A16_STEP.values())
+    if not ordered_ms or len(ordered_ms) % per:
+        log(f"  decode kernel in situ: {len(ordered_ms)} launches profiled, "
+            f"not whole steps of {per}: per-shape times not measured")
+        return None
+    steps = len(ordered_ms) // per
+    by = {}
+    for i, ms in enumerate(ordered_ms):
+        pos = i % per
+        kind = ("unembedding" if pos == per - 1
+                else W8A16_STEP_ORDER[pos % len(W8A16_STEP_ORDER)])
+        by.setdefault(kind, []).append(ms)
+    res = {"step_ms": sum(ordered_ms) / steps,
+           "by_shape_ms": {k: statistics.fmean(v) for k, v in by.items()}}
+    log(f"  decode kernel in situ ({steps} steps, profiled): "
+        f"{res['step_ms']:.4f} ms a step; mean ms a launch: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in res["by_shape_ms"].items()))
+    return res
 
 
 def _greedy_drift(a: dict, b: dict) -> tuple:
@@ -1758,10 +1812,12 @@ _FAMILIES = (
 )
 
 
-def _profile(label: str, fn) -> dict | None:
+def _profile(label: str, fn, ordered: str | None = None) -> dict | None:
     """Device time of one call of `fn` by kernel family (torch.profiler):
     wall, device-busy time and idle share, the families and the top
-    kernels. Returns None when the profiler saw no device time."""
+    kernels; with `ordered`, also the device ms of each launch of the
+    kernels whose name holds it, in launch order. Returns None when the
+    profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1795,7 +1851,14 @@ def _profile(label: str, fn) -> dict | None:
     for evt in kernels[:8]:
         log(f"    top: {evt.self_device_time_total / 1e3:8.2f} ms "
             f"x{evt.count:<5d} {evt.key[:90]}")
-    return {"wall_ms": wall, "busy_ms": busy, "families": families}
+    rec = {"wall_ms": wall, "busy_ms": busy, "families": families}
+    if ordered:
+        mine = sorted((e for e in prof.events()
+                       if e.device_type == DeviceType.CUDA
+                       and ordered in e.name),
+                      key=lambda e: e.time_range.start)
+        rec["ordered_ms"] = [e.time_range.elapsed_us() / 1e3 for e in mine]
+    return rec
 
 
 def _profile_step(step_fn, state, batch) -> None:
@@ -1855,9 +1918,10 @@ def _int8_weight_copies(server: ModelServer) -> list:
     return rec.seen
 
 
-def _profile_decode(server: ModelServer) -> dict | None:
-    """One decode chunk (`_decode_chunk`), profiled, and its unprofiled
-    wall time."""
+def _profile_decode(server: ModelServer,
+                    ordered: str | None = None) -> dict | None:
+    """One decode chunk (`_decode_chunk`), profiled (`ordered`: see
+    `_profile`), and its unprofiled wall time."""
     call, n, bucket = _decode_chunk(server)
     with torch.inference_mode():
         call()  # warm
@@ -1867,7 +1931,7 @@ def _profile_decode(server: ModelServer) -> dict | None:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
         rec = _profile(f"decode chunk ({CHUNK} steps, {n} rows, bucket "
-                       f"{bucket})", call)
+                       f"{bucket})", call, ordered)
     if rec:
         # The profiler's own host overhead stretches its wall: the idle
         # share is read against the same chunk run unprofiled just before.
@@ -2324,6 +2388,7 @@ def main() -> int:
         "step_ms": w8r["steps"][4]["ms"],
         "step_bound_ms": w8r["steps"][4]["bound_ms"],
         "step_library_ms": w8r["steps"][4]["library_ms"],
+        "in_situ": quant["w8a16_in_situ"],
         "by_shape": w8r["rows"],
     }, *({
         "name": name, "route": "cuda",

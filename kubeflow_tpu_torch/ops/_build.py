@@ -62,14 +62,10 @@ SIGNATURES = {
     },
     "w8a16.cu": {
         # x, q, scale, out, ws, tickets, M, K, N, dtype (0 fp32, 1 bf16,
-        # 2 fp16), round_first, kernel (0 simt, 1 gemv, 2 wgmma), bm (the
-        # decode kernel: rows of a unit), splits, grid, stages (the last
-        # two: the decode kernel's), stream
-        "tpk_w8a16": [_P] * 6 + [_I] * 10 + [_P],
-        # dtype, M, splits, shared-memory bytes: clusters the card holds
-        "tpk_w8a16_decode_clusters": [_I] * 4,
-        # M, N, bm, splits, grid, stages: the decode launch's shared memory
-        "tpk_w8a16_decode_smem": [_I] * 6,
+        # 2 fp16), round_first, kernel (0 simt, 1 gemv, 2 wgmma), bm,
+        # splits, then the decode kernel's grid and shared-memory layout
+        # (slot_rows, slot_bytes, part, red, bars, smem), stream
+        "tpk_w8a16": [_P] * 6 + [_I] * 15 + [_P],
     },
     "rdma_ring.cu": {
         # A *_ring argument is the address of a host array of n pointers.

@@ -27,20 +27,20 @@
 //     weight stream that never stalls. Four causes held the earlier
 //     one-pass kernel to 12-55% of that bound; each design point answers
 //     one:
-//       - A ring of shared-memory stages (four unless the plan says otherwise), each
+//       - A ring of four shared-memory stages, each
 //         up to 64 weight rows by 512 k and the same k slice of the
 //         activations, fed by one producer warp onto full/empty mbarriers.
-//         The weight arrives by TMA in boxes of 128 k by a whole 64-row
-//         chunk, or by 16 rows (tensor maps encoded once per weight and
-//         kept on the host); each activation row's k slice by one
-//         cp.async.bulk. A bulk request costs ~40 ns of an SM's copy
+//         The weight arrives by TMA in boxes of 128 k by the whole chunk
+//         (16, 32, 48 or 64 rows: tensor maps encoded once per weight and
+//         box height, kept on the host); each activation row's k slice by
+//         one cp.async.bulk. A bulk request costs ~40 ns of an SM's copy
 //         engine on an H100 whatever its size, so requests are few and
 //         large: per-row copies of the weight could not feed an SM's
 //         25 GB/s share. Copies stay in flight while eight consumer warps
 //         widen and multiply the stages that have landed (the earlier
 //         kernel had none in flight while a warp computed).
 //       - A persistent grid of one CTA an SM, each given a contiguous run
-//         of whole row blocks (16 rows unless the plan says otherwise), so
+//         of whole 16-row blocks, so
 //         no SM streams more than ~3% above the mean at llama3_8b's
 //         shapes; where the row blocks alone would leave SMs idle (k/v's
 //         64 blocks) K is split, so each SM still streams ~32 KB.
@@ -243,49 +243,36 @@ constexpr int kDecBlocks = 8;    // 64-deep blocks of a stage, one for each cons
 constexpr int kDecWarps = kDecBlocks;  // consumer warps; then one producer warp
 constexpr int kDecThreads = 32 * (kDecWarps + 1);
 constexpr int kDecConsumers = 32 * kDecWarps;
-constexpr int kDecChunk = 64;                      // weight rows a CTA streams at once, at most
+constexpr int kDecRows = 16;    // weight rows of a unit of the deal
+constexpr int kDecChunk = 64;   // weight rows a CTA streams at once, at most
+constexpr int kDecStages = 4;   // ring slots
 constexpr int kPartStride = kDecChunk + 4;  // floats from one activation row of a partial to the next
 constexpr int kDecSmemMax = 232448;  // an H100 CTA's dynamic shared memory
-constexpr int kDecMaxCluster = 8;                  // portable cluster sizes only
+constexpr int kDecMaxCluster = 8;    // portable cluster sizes only
 constexpr int kDecStageK = 512;  // k (bytes of a weight row) a stage holds
 constexpr int kDecBoxK = 128;    // one TMA box: 16 weight rows by 128 k, one swizzle span
 constexpr int kDecXStride = 2 * kDecStageK + 16;  // bytes from one activation row to the next
 
-// One launch of the decode kernel. The host fills the layout
-// (decode_layout): offsets in bytes from the 1024-byte aligned base of
-// dynamic shared memory (the 128-byte swizzle repeats every 1024 bytes).
+// One launch of the decode kernel. The layout is the plan's
+// (ops/w8a16.py, _gemv_layout): offsets in bytes from the 1024-byte
+// aligned base of dynamic shared memory (the 128-byte swizzle repeats
+// every 1024 bytes).
 struct DParams {
-  CUtensorMap wmap;    // q as (K, N), boxes of 128 k x 16 rows, 128-byte swizzle
-  CUtensorMap wmap64;  // the same, boxes of 128 k x 64 rows (N >= 64): a whole chunk
+  // q as (K, N), 128-byte swizzle, boxes of 128 k by 16 (i + 1) rows: a
+  // whole chunk a box. Box heights past N are not encoded (16 always is).
+  CUtensorMap wmaps[kDecChunk / 16];
   const void* x;     // [M, K] 16-bit
   const float* scale;
   void* out;  // [M, N]
   int M, K, N, round_first;
-  int rows;       // weight rows of a unit of the deal: 16, 32 or 64
   int splits;     // CTAs of a cluster, each one contiguous share of K's 64-deep blocks
-  int stages;     // ring slots
   int slot_rows;  // weight rows a slot holds: the longest chunk of any run
   uint32_t slot_bytes;  // [4 k-boxes][slot_rows][128 k] int8, then [M][kDecXStride] 16-bit
   uint32_t part;  // 4 blocks' partials, [8 MT m][kPartStride] fp32 each
   uint32_t red;   // 2 x (splits - 1) x [slot_rows x M] fp32: the other ranks' sums (rank 0)
-  uint32_t bars;  // full[stages], empty[stages], red_full[2], red_empty[2]
+  uint32_t bars;  // full[kDecStages], empty[kDecStages], red_full[2], red_empty[2]
   uint32_t smem;  // bytes to request
 };
-
-inline uint32_t round_up(uint32_t v, uint32_t to) { return (v + to - 1) / to * to; }
-
-// The shared-memory layout of a launch of `grid` CTAs (ops/w8a16.py's
-// _gemv_plan and _gemv_smem mirror it; tpk_w8a16_decode_smem reports it).
-inline void decode_layout(DParams& p, int grid) {
-  const int units = (p.N + p.rows - 1) / p.rows, clusters = grid / p.splits;
-  const int run = (units + clusters - 1) / clusters * p.rows;  // the longest run
-  p.slot_rows = run < kDecChunk ? run : kDecChunk;  // no chunk is longer
-  p.slot_bytes = round_up(p.slot_rows * kDecStageK + p.M * kDecXStride, 1024);
-  p.part = p.stages * p.slot_bytes;
-  p.red = p.part + kDecBlocks / 2 * (p.M <= 8 ? 8 : 16) * kPartStride * 4;
-  p.bars = round_up(p.red + 2 * (p.splits - 1) * p.slot_rows * p.M * 4, 8);
-  p.smem = p.bars + 8 * (2 * p.stages + 4) + 1024;
-}
 
 // The weight's tensor map with boxes of `rows` rows, encoded once per
 // (pointer, N, K, rows) and kept: a decode step calls the kernel 225 times
@@ -313,15 +300,16 @@ inline bool weight_map(CUtensorMap* map, const void* q, int N, int K, int rows) 
 }
 
 // The weight rows [r0, r1) of cluster c of C: its units [c U / C, (c + 1)
-// U / C) of `rows` rows each, the last cut at N rounded up to 16.
+// U / C) of kDecRows rows each, the last cut at N rounded up to 16
+// (ops/w8a16.py's W8a16Plan.runs states the same deal for the plan's tests).
 struct Run {
   int r0, r1;
 };
-__device__ __forceinline__ Run run_of(int c, int C, int N, int rows) {
-  const int U = (N + rows - 1) / rows;
+__device__ __forceinline__ Run run_of(int c, int C, int N) {
+  const int U = (N + kDecRows - 1) / kDecRows;
   const int u0 = static_cast<int>(static_cast<long long>(c) * U / C);
   const int u1 = static_cast<int>(static_cast<long long>(c + 1) * U / C);
-  return {u0 * rows, min(u1 * rows, (N + 15) & ~15)};
+  return {u0 * kDecRows, min(u1 * kDecRows, (N + 15) & ~15)};
 }
 // A run of L rows (a multiple of 16) is streamed in the fewest chunks of
 // at most 64 rows, ceil(L / 64), as equal as whole 16-row groups allow, the
@@ -448,17 +436,17 @@ __global__ void __launch_bounds__(kDecThreads, 1)
   unsigned char* sm = smem_raw + (base - raw);
   const int S = p.splits;
   const int rank = blockIdx.x % S, cl = blockIdx.x / S;  // clusters are (S, 1, 1)
-  const Run run = run_of(cl, gridDim.x / S, p.N, p.rows);
+  const Run run = run_of(cl, gridDim.x / S, p.N);
   const int n_kb = (p.K + 63) / 64;
   const int k0 = rank * n_kb / S * 64, k1 = min((rank + 1) * n_kb / S * 64, p.K);
   const uint32_t bars = base + p.bars;
-  const uint32_t red_full = bars + 16u * p.stages, red_empty = red_full + 16u;
+  const uint32_t red_full = bars + 16u * kDecStages, red_empty = red_full + 16u;
   auto full = [&](int st) { return bars + 8u * st; };
-  auto empty = [&](int st) { return bars + 8u * (p.stages + st); };
+  auto empty = [&](int st) { return bars + 8u * (kDecStages + st); };
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   if (threadIdx.x == 0) {
-    for (int st = 0; st < p.stages; ++st) {
+    for (int st = 0; st < kDecStages; ++st) {
       fwd90::mbar_init(full(st), 1);
       fwd90::mbar_init(empty(st), kDecConsumers);
     }
@@ -470,7 +458,8 @@ __global__ void __launch_bounds__(kDecThreads, 1)
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     // The next kernel in the stream may be scheduled now (as this grid's
     // CTAs leave the SMs); its own griddepcontrol.wait orders its reads of
-    // this one's output.
+    // this one's output. This kernel's own reads wait for the one before
+    // it in the producer's griddepcontrol.wait.
     asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   }
   __syncthreads();
@@ -483,74 +472,48 @@ __global__ void __launch_bounds__(kDecThreads, 1)
   if (warp == kDecWarps) {
     // ------------------------------------------------------- producer
     // Lane 0 claims a slot and sets its byte count; it issues the TMA boxes
-    // (128 k by the chunk's 64 rows, or by 16 rows; none past the stage's
-    // k) and lanes 1..M one
-    // bulk copy each of an activation row's k slice. The weights do not
-    // depend on the kernel before this one (a programmatic dependent
-    // launch may start this grid while that one finishes), so the ring's
-    // first fill of weights goes out before griddepcontrol.wait; the
-    // activations, its output, only after.
+    // (128 k by the chunk's R rows, or R / 16 boxes of 16 rows where N < R;
+    // none past the stage's k) and lanes 1..M one bulk copy each of an
+    // activation row's k slice. A copy request costs an SM's copy engine
+    // about the same whatever its size, so the boxes are as tall as the
+    // chunk.
+    // A programmatic dependent launch may start this grid while the kernel
+    // before it still runs: nothing is read before griddepcontrol.wait,
+    // neither the activations nor the weight (either may be that kernel's
+    // output).
     const auto* x = static_cast<const unsigned char*>(p.x);
-    if (lane == 0)
-      asm volatile("prefetch.tensormap [%0];\n" :: "l"(reinterpret_cast<uint64_t>(&p.wmap))
-                   : "memory");
-    if (lane == 0 && p.N >= kDecChunk)
-      asm volatile("prefetch.tensormap [%0];\n" :: "l"(reinterpret_cast<uint64_t>(&p.wmap64))
-                   : "memory");
+    if (lane < kDecChunk / 16 && (lane == 0 || 16 * (lane + 1) <= p.N))
+      asm volatile("prefetch.tensormap [%0];\n"
+                   :: "l"(reinterpret_cast<uint64_t>(&p.wmaps[lane])) : "memory");
     const Chunks ch = chunks_of(run.r1 - run.r0);
     const int n_st = (k1 - k0 + kDecStageK - 1) / kDecStageK;  // stages a chunk
-    const int fill = min(p.stages, ch.n * n_st);
-    // Stage g of the CTA's walk: chunk g / n_st, k0 + (g % n_st) 512.
-    auto chunk_of = [&](int g, int& n0, int& R) {
-      const int i = g / n_st;
-      n0 = run.r0 + ch.row_of(i);
-      R = ch.row_of(i + 1) - ch.row_of(i);
-    };
-    auto claim = [&](int g, int R, int len) {  // lane 0: the slot and its bytes
-      const int st = g % p.stages;
-      const int boxes = (len + kDecBoxK - 1) / kDecBoxK;
-      fwd90::mbar_wait(empty(st), ((g / p.stages) & 1) ^ 1);  // round 0 passes at once
-      fwd90::mbar_expect_tx(full(st), (R / 16) * boxes * 16 * kDecBoxK + p.M * 2 * len);
-    };
-    auto weight = [&](int g, int n0, int R, int k, int len) {  // lane 0
-      const int st = g % p.stages;
-      const uint32_t slot = base + st * p.slot_bytes;
-      const int boxes = (len + kDecBoxK - 1) / kDecBoxK;
-      for (int b = 0; b < boxes; ++b) {  // k-box b: [slot_rows][128 k] from slot + b ...
-        const uint32_t dst = slot + b * p.slot_rows * kDecBoxK;
-        if (R == kDecChunk && p.N >= kDecChunk)  // one box for the chunk's 64 rows
-          gemm90::tma_load_2d(dst, &p.wmap64, full(st), k + b * kDecBoxK, n0);
-        else
-          for (int r = 0; r < R / 16; ++r)
-            gemm90::tma_load_2d(dst + 16 * r * kDecBoxK, &p.wmap, full(st), k + b * kDecBoxK,
-                                n0 + 16 * r);
-      }
-    };
-    auto acts = [&](int g, int k, int len) {  // lanes 1..M
-      const int m = lane - 1;
-      bulk_load(base + g % p.stages * p.slot_bytes + p.slot_rows * kDecStageK + m * kDecXStride,
-                x + (static_cast<size_t>(m) * p.K + k) * 2, 2 * len, full(g % p.stages));
-    };
-    if (lane == 0)
-      for (int g = 0; g < fill; ++g) {
-        int n0, R;
-        chunk_of(g, n0, R);
-        const int k = k0 + g % n_st * kDecStageK, len = min(kDecStageK, k1 - k);
-        claim(g, R, len);
-        weight(g, n0, R, k, len);
-      }
     asm volatile("griddepcontrol.wait;\n" ::: "memory");
-    __syncwarp();
+    // Stage g of the CTA's walk: chunk g / n_st, k0 + (g % n_st) 512.
     for (int g = 0; g < ch.n * n_st; ++g) {
-      int n0, R;
-      chunk_of(g, n0, R);
+      const int i = g / n_st, st = g % kDecStages;
+      const int n0 = run.r0 + ch.row_of(i), R = ch.row_of(i + 1) - ch.row_of(i);
       const int k = k0 + g % n_st * kDecStageK, len = min(kDecStageK, k1 - k);
-      if (g >= fill && lane == 0) claim(g, R, len);
+      const int boxes = (len + kDecBoxK - 1) / kDecBoxK;
+      const uint32_t slot = base + st * p.slot_bytes;
+      if (lane == 0) {
+        fwd90::mbar_wait(empty(st), ((g / kDecStages) & 1) ^ 1);  // round 0 passes at once
+        fwd90::mbar_expect_tx(full(st), (R / 16) * boxes * 16 * kDecBoxK + p.M * 2 * len);
+      }
       __syncwarp();  // the slot claimed and its bytes set before any copy lands
       if (lane == 0) {
-        if (g >= fill) weight(g, n0, R, k, len);
+        for (int b = 0; b < boxes; ++b) {  // k-box b: [slot_rows][128 k] from slot + b ...
+          const uint32_t dst = slot + b * p.slot_rows * kDecBoxK;
+          if (R <= p.N)  // one box for the chunk's rows
+            gemm90::tma_load_2d(dst, &p.wmaps[R / 16 - 1], full(st), k + b * kDecBoxK, n0);
+          else
+            for (int r = 0; r < R / 16; ++r)
+              gemm90::tma_load_2d(dst + 16 * r * kDecBoxK, &p.wmaps[0], full(st),
+                                  k + b * kDecBoxK, n0 + 16 * r);
+        }
       } else if (lane <= p.M) {
-        acts(g, k, len);
+        const int m = lane - 1;
+        bulk_load(slot + p.slot_rows * kDecStageK + m * kDecXStride,
+                  x + (static_cast<size_t>(m) * p.K + k) * 2, 2 * len, full(st));
       }
     }
     if (S > 1) {
@@ -592,9 +555,9 @@ __global__ void __launch_bounds__(kDecThreads, 1)
         for (int e = 0; e < 4; ++e) acc[r][mt][e] = 0.0f;
 
     for (int k = k0; k < k1; k += kDecStageK, ++g) {
-      const int st = g % p.stages;
+      const int st = g % kDecStages;
       const int len = min(kDecStageK, k1 - k);
-      fwd90::mbar_wait(full(st), (g / p.stages) & 1);
+      fwd90::mbar_wait(full(st), (g / kDecStages) & 1);
       if (kk < len) {
         const unsigned char* slot = sm + st * p.slot_bytes;
         const unsigned char* xrow = slot + p.slot_rows * kDecStageK + 32 * c + 2 * kk;
@@ -720,41 +683,6 @@ int launch_decode_t(const DParams& p, int grid, cudaStream_t st) {
 template <typename T>
 int launch_decode(const DParams& p, int grid, cudaStream_t st) {
   return p.M <= 8 ? launch_decode_t<T, 1>(p, grid, st) : launch_decode_t<T, 2>(p, grid, st);
-}
-
-// How many clusters of `splits` decode CTAs of `smem` bytes the device can
-// hold at once (cudaOccupancyMaxActiveClusters), queried once per
-// arguments and device.
-template <typename T, int MT>
-int decode_clusters_t(int splits, int smem) {
-  static std::mutex mu;
-  static std::map<std::tuple<int, int, int>, int> seen;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  const auto key = std::make_tuple(dev, splits, smem);
-  std::lock_guard<std::mutex> lock(mu);
-  const auto it = seen.find(key);
-  if (it != seen.end()) return it->second;
-  err = cudaFuncSetAttribute(w8a16_decode_kernel<T, MT>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, kDecSmemMax);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(splits);
-  cfg.blockDim = dim3(kDecThreads);
-  cfg.dynamicSmemBytes = smem;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = splits;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int clusters = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveClusters(&clusters, w8a16_decode_kernel<T, MT>, &cfg);
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  seen[key] = clusters;
-  return clusters;
 }
 
 // ----------------------------------------------------------------- wgmma
@@ -1145,22 +1073,22 @@ cudaError_t launch_simt(const void* x, const int8_t* q, const float* scale, void
 }  // namespace
 
 // dtype: 0 fp32, 1 bf16, 2 fp16 (x and out). kernel: 0 simt; 1 gemv, the
-// decode kernel (M <= 16; bm: weight rows of a unit of the deal, 16, 32 or
-// 64; splits: CTAs of a cluster, 1, 2, 4 or 8, each one share of K's
-// 64-deep blocks; grid: CTAs, a multiple of splits, at most one cluster per
-// unit; stages: the ring's slots of 512 k each; ws and tickets unused);
-// 2 wgmma (tiles of bm
-// activation rows, 64, 128 or 256, by 128 weight rows; K split `splits`
-// ways in 64-deep stages, at bm <= 128 only, ws [tiles * splits, bm * 128]
-// fp32 and tickets (one int per tile, all 0) read only when splits > 1;
-// grid and stages unused). round_first: the unembedding's
-// epilogue. Returns a cudaError_t (0 = launched); cudaErrorInvalidValue
-// for a plan the kernels do not take (a wgmma plan TMA cannot describe, a
-// decode plan whose ring does not fit, among them). The kernel is the
-// caller's choice: this never switches kernels.
+// decode kernel (M <= 16; splits: CTAs of a cluster, 1, 2, 4 or 8, each
+// one share of K's 64-deep blocks; grid: CTAs, a multiple of splits, at
+// most one cluster per 16-row unit; slot_rows .. smem: the shared-memory
+// layout, DParams', laid out by the plan; bm, ws and tickets unused); 2
+// wgmma (tiles of bm activation rows, 64, 128 or 256, by 128 weight rows;
+// K split `splits` ways in 64-deep stages, at bm <= 128 only, ws [tiles *
+// splits, bm * 128] fp32 and tickets (one int per tile, all 0) read only
+// when splits > 1; grid and the layout unused). round_first: the
+// unembedding's epilogue. Returns a cudaError_t (0 = launched);
+// cudaErrorInvalidValue for a plan the kernels do not take (a wgmma plan
+// TMA cannot describe, a decode layout past a CTA's shared memory, among
+// them). The kernel is the caller's choice: this never switches kernels.
 extern "C" int tpk_w8a16(const void* x, const void* q, const void* scale, void* out, void* ws,
                          void* tickets, int M, int K, int N, int dtype, int round_first,
-                         int kernel, int bm, int splits, int grid, int stages, void* stream) {
+                         int kernel, int bm, int splits, int grid, int slot_rows,
+                         int slot_bytes, int part, int red, int bars, int smem, void* stream) {
   if (M < 0 || K < 1 || N < 0 || dtype < kF32 || dtype > kF16)
     return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0 || N == 0) return 0;
@@ -1184,15 +1112,17 @@ extern "C" int tpk_w8a16(const void* x, const void* q, const void* scale, void* 
       reinterpret_cast<uintptr_t>(q) % 16 != 0 || splits < 1 || splits > n_k)
     return bad();
   if (kernel == kGemv) {
-    const int units = bm > 0 ? (N + bm - 1) / bm : 0;
-    if (M > 16 || (bm != 16 && bm != 32 && bm != 64) || (splits & (splits - 1)) != 0 ||
-        splits > kDecMaxCluster || grid < splits || grid % splits != 0 ||
-        grid / splits > units || stages < 2 || stages > 64)
+    const int units = (N + kDecRows - 1) / kDecRows;
+    if (M > 16 || (splits & (splits - 1)) != 0 || splits > kDecMaxCluster || grid < splits ||
+        grid % splits != 0 || grid / splits > units || slot_rows < 16 ||
+        slot_rows > kDecChunk || slot_rows % 16 != 0 || slot_bytes % 1024 != 0 ||
+        part < kDecStages * slot_bytes || red <= part || bars < red || bars % 8 != 0 ||
+        smem <= bars || smem > kDecSmemMax)
       return bad();
     DParams p;
-    if (!weight_map(&p.wmap, q, N, K, 16) ||
-        (N >= kDecChunk && !weight_map(&p.wmap64, q, N, K, kDecChunk)))
-      return bad();
+    for (int rows = 16; rows <= kDecChunk; rows += 16)
+      if ((rows == 16 || rows <= N) && !weight_map(&p.wmaps[rows / 16 - 1], q, N, K, rows))
+        return bad();
     p.x = x;
     p.scale = static_cast<const float*>(scale);
     p.out = out;
@@ -1200,11 +1130,13 @@ extern "C" int tpk_w8a16(const void* x, const void* q, const void* scale, void* 
     p.K = K;
     p.N = N;
     p.round_first = round_first;
-    p.rows = bm;
     p.splits = splits;
-    p.stages = stages;
-    decode_layout(p, grid);
-    if (p.smem > static_cast<uint32_t>(kDecSmemMax)) return bad();
+    p.slot_rows = slot_rows;
+    p.slot_bytes = slot_bytes;
+    p.part = part;
+    p.red = red;
+    p.bars = bars;
+    p.smem = smem;
     return dtype == kF16 ? launch_decode<__half>(p, grid, st)
                          : launch_decode<__nv_bfloat16>(p, grid, st);
   }
@@ -1222,32 +1154,4 @@ extern "C" int tpk_w8a16(const void* x, const void* q, const void* scale, void* 
   p.round_first = round_first;
   return dtype == kF16 ? launch_tile<true>(p, x, q, K, bm, st)
                        : launch_tile<false>(p, x, q, K, bm, st);
-}
-
-// The bytes of shared memory a decode launch of these arguments (as
-// tpk_w8a16 takes them) asks for.
-extern "C" int tpk_w8a16_decode_smem(int M, int N, int bm, int splits, int grid, int stages) {
-  if (M < 1 || N < 1 || bm < 1 || splits < 1 || grid < splits || stages < 1)
-    return -static_cast<int>(cudaErrorInvalidValue);
-  DParams p;
-  p.M = M;
-  p.N = N;
-  p.rows = bm;
-  p.splits = splits;
-  p.stages = stages;
-  decode_layout(p, grid);
-  return static_cast<int>(p.smem);
-}
-
-// How many clusters of `splits` decode CTAs, each of `smem` bytes of
-// shared memory, the current device holds at once for activations of
-// `dtype` (1 bf16, 2 fp16) and M rows: cudaOccupancyMaxActiveClusters,
-// queried once per arguments and device. Negative: minus the CUDA error.
-extern "C" int tpk_w8a16_decode_clusters(int dtype, int M, int splits, int smem) {
-  if (dtype != kBf16 && dtype != kF16) return -static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == kF16)
-    return M <= 8 ? decode_clusters_t<__half, 1>(splits, smem)
-                  : decode_clusters_t<__half, 2>(splits, smem);
-  return M <= 8 ? decode_clusters_t<__nv_bfloat16, 1>(splits, smem)
-                : decode_clusters_t<__nv_bfloat16, 2>(splits, smem);
 }

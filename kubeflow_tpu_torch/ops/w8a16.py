@@ -58,22 +58,27 @@ _KBLOCK = 64
 _MAX_SPLITS = 16
 #: SMs of an H100 SXM: the plan's default card.
 H100_SMS = 132
-#: The decode kernel (csrc/w8a16.cu, w8a16_decode_kernel): weight rows of a
-#: unit of the deal (whole 16-row blocks: the finest that mma.sync's 16-row
-#: A operand allows, and within ~3% of the mean bytes an SM at llama3_8b's
-#: shapes on 132 SMs), the rows a CTA streams at once at most, the k (bytes
-#: of a weight row) of a ring stage (8 consumer warps' 64-deep blocks), the
+#: The decode kernel (csrc/w8a16.cu, w8a16_decode_kernel; its kDecRows,
+#: kDecChunk, kDecStageK and kDecStages): weight rows of a unit of the deal
+#: (whole 16-row blocks: the finest that mma.sync's 16-row A operand
+#: allows, and within ~3% of the mean bytes an SM at llama3_8b's shapes on
+#: 132 SMs), the rows a CTA streams at once at most, the k (bytes of a
+#: weight row) of a ring stage (8 consumer warps' 64-deep blocks), the
 #: largest (portable) cluster, and a CTA's dynamic shared memory on an H100.
 _GEMV_ROWS = 16
 _GEMV_CHUNK = 64
 _GEMV_STAGE_K = 512
-#: The ring's slots by default: at least four (32 KB of weight in flight at
-#: 16-row chunks); within 6% of the best of 2-4 at every llama3_8b decode
-#: shape on an H100, and eight were slower at k/v (tools/w8a16_ab.py's
-#: stage sweep).
+#: The ring's slots: at least four (32 KB of weight in flight at 16-row
+#: chunks); within 5% of the best of 2, 3, 4 and 8 at every llama3_8b decode
+#: shape at M 1, 4 and 16 on an H100, where 2 were up to 11% slower
+#: (tools/w8a16_decode_variants.py's stage sweep).
 _GEMV_STAGES = 4
 _GEMV_MAX_CLUSTER = 8
-_GEMV_LONG_SPLIT = 4  # stages a split of a long K keeps, at least
+_GEMV_BOX_K = 128  # k of a TMA box of the weight: four a stage
+#: Copy requests (a TMA box of the weight and a bulk copy of each
+#: activation row, per stage) above which a CTA streaming one short chunk
+#: pays for a cluster's sum by splitting K (see `_gemv_splits`).
+_GEMV_SPLIT_REQUESTS = 150
 _GEMV_BLOCKS = 8  # 64-deep blocks of a stage, the partials summed in block order
 _GEMV_SMEM_MAX = 232448
 _GRID_Y_MAX = 65535
@@ -86,20 +91,21 @@ class W8a16Plan:
     how many ways K is split (the decode and wgmma kernels) and its grid;
     for the wgmma kernel also its tile's activation rows (`bm`, by 128
     weight rows) and the number of tiles, whose units (tiles x splits) its
-    persistent CTAs (`grid`) take in turn. For the decode kernel: the
-    weight rows of a unit of the deal (`rows`), the ring's slots
-    (`stages`, of _GEMV_STAGE_K k each), and the weight rows a slot holds
-    (`slot_rows`); its grid is clusters x `splits` CTAs, one cluster a
-    contiguous run of units, each CTA of a cluster one share of K."""
+    persistent CTAs (`grid`) take in turn. For the decode kernel: its grid
+    is clusters x `splits` CTAs, one cluster a contiguous run of 16-row
+    units, each CTA of a cluster one share of K; `layout` is its shared
+    memory (`_gemv_layout`), which the kernel takes as it is."""
 
     kernel: str
     splits: int
     grid: tuple
     bm: int = 0
     tiles: int = 0
-    rows: int = 0
-    stages: int = 0
-    slot_rows: int = 0
+    layout: tuple = ()
+
+    @property
+    def slot_rows(self) -> int:
+        return self.layout[0]
 
     @property
     def units(self) -> int:
@@ -121,11 +127,11 @@ class W8a16Plan:
     def runs(self, n: int) -> list:
         """The decode kernel's deal, as it computes it: [r0, r1) of the
         weight rows of each cluster, its units [c U / C, (c + 1) U / C) of
-        U = ceil(n / rows), the last cut at n rounded up to 16."""
-        units, c = -(-n // self.rows), self.clusters
+        U = ceil(n / 16), the last cut at n rounded up to 16."""
+        units, c, rows = -(-n // _GEMV_ROWS), self.clusters, _GEMV_ROWS
         end = -(-n // 16) * 16
-        return [(i * units // c * self.rows,
-                 min((i + 1) * units // c * self.rows, end)) for i in range(c)]
+        return [(i * units // c * rows, min((i + 1) * units // c * rows, end))
+                for i in range(c)]
 
     def chunks(self, n: int) -> list:
         """Per cluster, the (n0, rows) chunks the decode kernel streams its
@@ -140,57 +146,78 @@ class W8a16Plan:
         return out
 
 
-def _gemv_smem(m: int, splits: int, slot_rows: int, stages: int) -> tuple:
-    """(bytes of one ring slot, bytes of dynamic shared memory) of a decode
-    launch, as csrc/w8a16.cu's decode_layout computes them: the slots (the
-    weight's TMA boxes of 16 rows by 512 k, the activation rows padded to
-    2 * 512 + 16 bytes; 1024-byte aligned for the swizzle), four blocks'
+#: Fields of a decode plan's `layout`, in tpk_w8a16's order.
+_GEMV_LAYOUT = ("slot_rows", "slot_bytes", "part", "red", "bars", "smem")
+
+
+def _gemv_layout(m: int, splits: int, slot_rows: int) -> tuple:
+    """A decode launch's shared memory, in bytes from its 1024-byte aligned
+    base (the 128-byte swizzle's period), in _GEMV_LAYOUT's order: the
+    weight rows a ring slot holds; a slot's bytes (the weight's TMA boxes,
+    [4 k-boxes][slot_rows][128 k], then the activation rows padded to
+    2 * 512 + 16 bytes); then, after the _GEMV_STAGES slots, four blocks'
     partials of a chunk ([8 or 16 activation rows][64 + 4] fp32 each; the
-    8 blocks' go through it in two halves), rank 0's buffers for the other
-    ranks' sums, the mbarriers and 1024 bytes of alignment."""
+    8 blocks' go through it in two halves); rank 0's buffers for the other
+    ranks' sums (two of [splits - 1][slot_rows x m] fp32); the mbarriers
+    (full and empty a slot, two each for the sums); and the bytes to ask
+    for, 1024 more for the alignment. The kernel lays out nothing itself."""
     k = _GEMV_STAGE_K
     slot = -(-(slot_rows * k + m * (2 * k + 16)) // 1024) * 1024
-    part = _GEMV_BLOCKS // 2 * (8 if m <= 8 else 16) * (_GEMV_CHUNK + 4) * 4
-    red = -(-(2 * (splits - 1) * slot_rows * m * 4) // 8) * 8
-    return slot, stages * slot + part + red + 8 * (2 * stages + 4) + 1024
+    part = _GEMV_STAGES * slot
+    red = part + (_GEMV_BLOCKS // 2 * (8 if m <= 8 else 16)
+                  * (_GEMV_CHUNK + 4) * 4)
+    bars = -(-(red + 2 * (splits - 1) * slot_rows * m * 4) // 8) * 8
+    return (slot_rows, slot, part, red, bars,
+            bars + 8 * (2 * _GEMV_STAGES + 4) + 1024)
 
 
-def _gemv_plan(m: int, k: int, n: int, sm_count: int = H100_SMS, *,
-               rows: int = _GEMV_ROWS, splits: int | None = None,
-               stages: int | None = None) -> W8a16Plan:
-    """The decode kernel's plan; the keywords force a variant (the sweeps of
-    tools/w8a16_ab.py). Whole units of `rows` weight rows are dealt to
-    clusters in contiguous runs, one cluster an SM. Where the units alone
-    would leave at least half the SMs idle, K is split over the CTAs of a
-    cluster (2, 4 or 8, each split at least one 512-deep stage of K), so that
-    units x splits still fit the SMs; and where the runs are shorter than a
-    64-row chunk, a K long enough to keep 4 stages a split splits until
-    they are not. The ring has _GEMV_STAGES slots."""
+def _gemv_splits(m: int, k: int, units: int, sm_count: int) -> int:
+    """The decode kernel's K splits (its cluster size) for `units` 16-row
+    blocks and m activation rows: where the units alone would leave at
+    least half the SMs idle, K is split over the CTAs of a cluster (2, 4 or
+    8, each split at least one 512-deep stage of K), so that units x splits
+    still fit the SMs; and where the runs are shorter than a 64-row chunk
+    and a CTA would issue more than _GEMV_SPLIT_REQUESTS copy requests, K
+    splits until either no longer holds."""
     n_kb = -(-k // _KBLOCK)
-    units = -(-n // rows)
-    if splits is None:
-        splits = 1
-        while (2 * splits <= _GEMV_MAX_CLUSTER
-               and 2 * splits * units <= sm_count
-               and n_kb >= 2 * splits * (_GEMV_STAGE_K // _KBLOCK)):
-            splits *= 2
-        # Runs shorter than a chunk re-read the activations for few rows
-        # and take more copy requests a byte; a long K splits until they
-        # reach a chunk, each split keeping _GEMV_LONG_SPLIT stages (q/o and
-        # down at 132 SMs: two splits, runs of 48-64 rows;
-        # tools/w8a16_ab.py's sweeps).
-        while (2 * splits <= _GEMV_MAX_CLUSTER
-               and -(-units // min(units, sm_count // splits)) * rows
-               < _GEMV_CHUNK
-               and n_kb >= 2 * splits * _GEMV_LONG_SPLIT
-               * (_GEMV_STAGE_K // _KBLOCK)):
-            splits *= 2
+    per_stage = _GEMV_STAGE_K // _KBLOCK
+    splits = 1
+    while (2 * splits <= _GEMV_MAX_CLUSTER
+           and 2 * splits * units <= sm_count
+           and n_kb >= 2 * splits * per_stage):
+        splits *= 2
+    # A run shorter than a chunk is one chunk, so a split halves the copy
+    # requests each CTA issues, at the cost of a cluster's sum: that pays
+    # for down at M 4 and 16 (K 14336: 28 stages a CTA) and is even for q/o
+    # at M 16, while q/o at M 1 and 4 ran 12% faster unsplit
+    # (tools/w8a16_decode_variants.py's cluster sweep on an H100).
+    while (2 * splits <= _GEMV_MAX_CLUSTER
+           and -(-units // min(units, sm_count // splits)) * _GEMV_ROWS
+           < _GEMV_CHUNK
+           and n_kb >= 2 * splits * per_stage
+           and -(-(-(-n_kb // splits)) // per_stage)
+           * (_GEMV_STAGE_K // _GEMV_BOX_K + m) > _GEMV_SPLIT_REQUESTS):
+        splits *= 2
+    return splits
+
+
+def _gemv_launch(m: int, n: int, splits: int, sm_count: int) -> W8a16Plan:
+    """The decode kernel's launch at `splits` K splits: whole 16-row units
+    dealt to clusters in contiguous runs, one cluster an SM (at most one
+    per unit), and the layout of a slot as long as the longest run's
+    chunks."""
+    units = -(-n // _GEMV_ROWS)
     clusters = min(units, max(1, sm_count // splits))
-    slot_rows = min(_GEMV_CHUNK, -(-units // clusters) * rows)
-    if stages is None:
-        stages = _GEMV_STAGES
-    return W8a16Plan(GEMV, splits, (clusters * splits,), rows=rows,
-                     stages=stages, slot_rows=slot_rows)
+    slot_rows = min(_GEMV_CHUNK, -(-units // clusters) * _GEMV_ROWS)
+    return W8a16Plan(GEMV, splits, (clusters * splits,),
+                     layout=_gemv_layout(m, splits, slot_rows))
+
+
+def _gemv_plan(m: int, k: int, n: int, sm_count: int = H100_SMS
+               ) -> W8a16Plan:
+    """The decode kernel's plan: `_gemv_splits`, then `_gemv_launch`."""
+    return _gemv_launch(m, n, _gemv_splits(m, k, -(-n // _GEMV_ROWS),
+                                           sm_count), sm_count)
 
 
 @functools.lru_cache(maxsize=1024)  # pure, and on every decode step's path
@@ -258,21 +285,6 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _decode_clusters_held(plan: W8a16Plan, m: int, dtype: torch.dtype) -> int:
-    """How many of the decode plan's clusters the current card holds at
-    once (cudaOccupancyMaxActiveClusters, queried once per arguments): at
-    least `plan.clusters` where the persistent grid runs in one wave."""
-    from kubeflow_tpu_torch.ops import _build
-
-    _, smem = _gemv_smem(m, plan.splits, plan.slot_rows, plan.stages)
-    held = _build.function("w8a16.cu", "tpk_w8a16_decode_clusters")(
-        _DTYPES[dtype], m, plan.splits, smem)
-    if held < 0:
-        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: CUDA "
-                           f"error {-held}")
-    return held
-
-
 def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x [..., in] @ w [out, in]^T with fp32 output, both operands already
     in the compute dtype. Half-precision operands on CUDA go through one
@@ -302,11 +314,9 @@ def _int8_weight_matmul_plain(x, q, scale, round_before_scale=False):
     return y.mul_(scale).to(cd)  # in place: y is this call's own
 
 
-def _int8_weight_matmul_cuda(x2, q, scale, round_before_scale=False,
-                             plan=None):
+def _int8_weight_matmul_cuda(x2, q, scale, round_before_scale=False):
     """Launch the kernel of csrc/w8a16.cu that `_w8a16_plan` picks for x2
-    [M, K] (or `plan`, a forced variant), on the current stream (no
-    synchronise)."""
+    [M, K], on the current stream (no synchronise)."""
     global w8a16_launches, w8a16_wgmma_launches
     dev = x2.device
     for name, t, dtype in (("q", q, torch.int8), ("scale", scale,
@@ -323,9 +333,8 @@ def _int8_weight_matmul_cuda(x2, q, scale, round_before_scale=False,
     out = torch.empty((m, n), dtype=x2.dtype, device=dev)
     if m == 0 or n == 0:
         return out
-    if plan is None:
-        plan = _w8a16_plan(m, k, n, x2.dtype, x2.data_ptr() % 16 == 0
-                           and q.data_ptr() % 16 == 0, _sm_count(dev.index))
+    plan = _w8a16_plan(m, k, n, x2.dtype, x2.data_ptr() % 16 == 0
+                       and q.data_ptr() % 16 == 0, _sm_count(dev.index))
     from kubeflow_tpu_torch.ops import _build
 
     fn = _build.function("w8a16.cu", "tpk_w8a16")
@@ -339,13 +348,11 @@ def _int8_weight_matmul_cuda(x2, q, scale, round_before_scale=False,
         ws = torch.empty(plan.units * plan.bm * _BN, dtype=torch.float32,
                          device=dev)
         tickets = _tickets_for(dev, stream, plan.tiles)
-    gemv = plan.kernel == GEMV
     args = (x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
             None if ws is None else ws.data_ptr(),
             None if tickets is None else tickets.data_ptr(), m, k, n,
             _DTYPES[x2.dtype], int(round_before_scale),
-            _KERNEL_IDS[plan.kernel], plan.rows if gemv else plan.bm,
-            plan.splits, plan.grid[0] if gemv else 0, plan.stages, stream)
+            *_launch_tail(plan), stream)
     # A launch goes to the thread's current device: enter x's only when it
     # is another (the context costs host time on every decode projection).
     if torch.cuda.current_device() == dev.index:
@@ -361,13 +368,28 @@ def _int8_weight_matmul_cuda(x2, q, scale, round_before_scale=False,
     return out
 
 
+def _launch_tail(plan: W8a16Plan) -> tuple:
+    """tpk_w8a16's arguments from `kernel` to the layout's last: the decode
+    kernel's grid and layout; zeros for the kernels that take neither."""
+    if plan.kernel == GEMV:
+        return (_KERNEL_IDS[GEMV], 0, plan.splits, plan.grid[0],
+                *plan.layout)
+    return (_KERNEL_IDS[plan.kernel], plan.bm, plan.splits, 0,
+            *(0,) * len(_GEMV_LAYOUT))
+
+
 def int8_weight_matmul(x: torch.Tensor, q: torch.Tensor,
                        scale: torch.Tensor, *,
                        round_before_scale: bool = False) -> torch.Tensor:
     """x [..., K] in the compute dtype; q [N, K] int8 codes; scale [N] fp32
     per output channel. Returns [..., N] in x's dtype: the fp32 sum of x
     times the codes, times the scale (`round_before_scale`: the sum first
-    rounded to x's dtype, the unembedding's epilogue), cast to x's dtype."""
+    rounded to x's dtype, the unembedding's epilogue), cast to x's dtype.
+
+    On the card the call is enqueued on the current stream after whatever
+    is there, x and q included: the decode kernel may be launched while the
+    kernel before it finishes (programmatic dependent launch), but reads
+    neither operand before that kernel's writes are visible."""
     if q.dim() != 2 or scale.shape != (q.shape[0],) or x.shape[-1:] != (
             q.shape[1],):
         raise ValueError(f"shape mismatch: x{tuple(x.shape)} "

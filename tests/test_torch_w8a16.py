@@ -142,7 +142,7 @@ def test_plan_takes_the_decode_kernel_at_decode_widths(m, k, n):
     contiguous runs, one cluster of `splits` CTAs a run, no more CTAs than
     SMs, each split whole 64-deep blocks of K, at least one stage each."""
     plan = tw8._w8a16_plan(m, k, n, torch.bfloat16)
-    assert plan.kernel == tw8.GEMV and plan.rows == 16
+    assert plan.kernel == tw8.GEMV and plan.bm == 0
     assert plan.grid == (plan.clusters * plan.splits,)
     assert plan.grid[0] <= tw8.H100_SMS
     assert plan.clusters == min(-(-n // 16), tw8.H100_SMS // plan.splits)
@@ -158,24 +158,30 @@ def test_plan_takes_the_decode_kernel_at_decode_widths(m, k, n):
 def test_plan_splits_where_few_weight_rows_stream():
     """k/v at N 1024: 64 blocks of 16 rows would leave half the SMs idle,
     so K splits in two (128 CTAs of 32 KB). q/o and down have the blocks to
-    fill 132 SMs but in runs of 32 rows, and K to keep 4 stages a split:
-    they split in two, for runs of 48-64 rows; at K 2048 q/o's width would
-    not keep 4 stages a split and stays whole, and gate/up's runs are long
-    enough already. Small N splits up to the portable cluster of 8, and
-    never below one 512-deep stage a split."""
+    fill 132 SMs, in runs of 16-32 rows: each CTA streams one chunk, and
+    splitting K halves the copy requests it issues (four TMA boxes and M
+    activation rows a stage) for a cluster's sum. down's 28 stages split
+    from M 4 on, q/o's 8 only at M 16; gate/up's runs are past a chunk.
+    Small N splits up to the portable cluster of 8, and never below one
+    512-deep stage a split."""
     def splits(m, k, n, sms=tw8.H100_SMS):
         return tw8._w8a16_plan(m, k, n, torch.bfloat16, True, sms).splits
     assert splits(4, 4096, 1024) == 2
-    assert splits(4, 4096, 4096) == 2
-    assert splits(4, 2048, 4096) == 1
-    assert splits(4, 4096, 14336) == 1
-    assert splits(4, 14336, 4096) == 2
+    assert splits(16, 4096, 1024) == 2  # 4 stages x 20 copies: no further
+    assert splits(1, 4096, 4096) == 1  # 8 stages x 5 copies a CTA
+    assert splits(4, 4096, 4096) == 1  # 8 x 8
+    assert splits(16, 4096, 4096) == 2  # 8 x 20
+    assert splits(1, 14336, 4096) == 1  # 28 x 5
+    assert splits(4, 14336, 4096) == 2  # 28 x 8, then runs of 64 rows
     assert splits(16, 14336, 4096) == 2
+    assert splits(16, 2048, 4096) == 1  # 4 x 20
+    assert splits(4, 4096, 14336) == 1
     assert splits(4, 4096, 128256) == 1
     assert splits(4, 4096, 130) == 8  # 9 blocks
     assert splits(4, 128, 1024) == 1  # two 64-deep blocks: not a stage each
     assert splits(4, 1024, 72) == 2  # 5 blocks; 16 blocks of K: a stage each
-    assert splits(4, 4096, 1024, 114) == 2  # runs of 16 rows, K for two
+    assert splits(4, 4096, 1024, 114) == 1  # 64 blocks fill over half
+    assert splits(16, 4096, 1024, 114) == 2  # 8 stages x 20 copies
     assert splits(4, 4096, 1024, 264) == 4
 
 
@@ -229,7 +235,7 @@ def test_decode_plan_cluster_is_portable(m, k, n, sms):
     plan = tw8._w8a16_plan(m, k, n, torch.float16, True, sms)
     assert plan.splits in (1, 2, 4, 8)
     assert plan.grid[0] % plan.splits == 0
-    assert 1 <= plan.clusters <= -(-n // plan.rows)
+    assert 1 <= plan.clusters <= -(-n // 16)
     assert plan.splits <= -(-k // 64)
 
 
@@ -240,8 +246,8 @@ def test_decode_plan_ring_fits_and_keeps_32kb_in_flight(m, k, n):
     (or all a CTA streams, where that is less): about Little's law for
     3.35 TB/s over 132 SMs at ~1 us of loaded latency."""
     plan = tw8._w8a16_plan(m, k, n, torch.bfloat16)
-    slot, smem = tw8._gemv_smem(m, plan.splits, plan.slot_rows, plan.stages)
-    assert plan.stages >= 4
+    _, slot, _, _, _, smem = plan.layout
+    assert tw8._GEMV_STAGES >= 4
     assert smem <= tw8._GEMV_SMEM_MAX
     assert slot % 1024 == 0  # the 128-byte swizzle's period
     k_st = tw8._GEMV_STAGE_K
@@ -253,20 +259,36 @@ def test_decode_plan_ring_fits_and_keeps_32kb_in_flight(m, k, n):
                                  for _, rows in chunks)
     for (r0, r1), chunks in zip(plan.runs(n), plan.chunks(n)):
         assert len(chunks) == -(-(r1 - r0) // 64)  # the fewest chunks
-    assert plan.stages * plan.slot_rows * k_st >= min(32768, most)
+    assert tw8._GEMV_STAGES * plan.slot_rows * k_st >= min(32768, most)
 
 
-@pytest.mark.parametrize("stages,splits,rows", [(4, 2, 16), (2, 1, 64),
-                                                (4, 8, 32)])
-def test_decode_plan_takes_forced_variants(stages, splits, rows):
-    """tools/w8a16_ab.py's sweeps: forced ring stages, cluster size and row
-    block give a plan the kernel's layout still fits."""
-    plan = tw8._gemv_plan(4, 4096, 4096, rows=rows, splits=splits,
-                          stages=stages)
-    assert (plan.stages, plan.splits, plan.rows) == (stages, splits, rows)
-    assert plan.clusters == min(-(-4096 // rows), 132 // splits)
-    _, smem = tw8._gemv_smem(4, splits, plan.slot_rows, stages)
-    assert smem <= tw8._GEMV_SMEM_MAX
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("m,k,n", DECODE_8B + DECODE_RAGGED)
+def test_decode_layout_passes_the_kernels_checks(m, k, n, sms):
+    """The plan owns the decode kernel's shared-memory layout and the
+    kernel takes it as it is, refusing only what tpk_w8a16 checks (a
+    misplaced region, more than a CTA's shared memory): every plan passes
+    those checks, its regions lie in order without overlap, each as large
+    as the kernel's use of it, and the launch fills the grid it names."""
+    plan = tw8._w8a16_plan(m, k, n, torch.float16, True, sms)
+    layout = dict(zip(tw8._GEMV_LAYOUT, plan.layout))
+    rows, slot = layout["slot_rows"], layout["slot_bytes"]
+    part, red, bars, smem = (layout[f] for f in ("part", "red", "bars",
+                                                  "smem"))
+    s = plan.splits
+    # tpk_w8a16's checks of a decode launch, in its order.
+    assert m <= 16 and s in (1, 2, 4, 8)
+    assert s <= plan.grid[0] and plan.grid[0] % s == 0
+    assert plan.grid[0] // s <= -(-n // 16)
+    assert 16 <= rows <= 64 and rows % 16 == 0 and slot % 1024 == 0
+    assert part >= tw8._GEMV_STAGES * slot and red > part and bars >= red
+    assert bars % 8 == 0 and bars < smem <= tw8._GEMV_SMEM_MAX
+    # The kernel's use of each region.
+    assert slot >= rows * 512 + m * (2 * 512 + 16)
+    assert red - part >= 4 * (8 if m <= 8 else 16) * (64 + 4) * 4
+    assert bars - red >= 2 * (s - 1) * rows * m * 4
+    assert smem - bars >= 8 * (2 * tw8._GEMV_STAGES + 4) + 1024
+    assert tw8._launch_tail(plan) == (1, 0, s, plan.grid[0], *plan.layout)
 
 
 def _decode_emulated(x, q, scale, plan, round_first=False):

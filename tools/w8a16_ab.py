@@ -35,10 +35,14 @@ on llama3_8b's five weight shapes (q/o, k/v, gate/up, down, the 128256 x
 and cold, with each tree's host time to enqueue one call of its entry
 point, the bound and torch.mm's time (cold); then the 225 launches of one
 int8 decode step (64 q/o, 64 k/v, 64 gate/up, 32 down, 1 unembedding)
-summed per tree, cold; then this tree's kernel at forced variants at M 4
-and 16 on the five shapes, cold: ring stages, cluster size (K splits),
-row block and both together, each where its shared memory fits: the
-measurements behind `_gemv_plan`'s constants.
+summed per tree, cold. Each decode call is timed after a PyTorch kernel,
+as a model's step runs it (back to back, a programmatic dependent launch
+would overlap each call with the one before): alone between two CUDA
+events (`launch_ms`), and as its share of a run of (add, call) pairs
+(`after_add_ms`, cold), where a programmatic dependent launch may start it
+as the add ends.
+tools/w8a16_decode_variants.py times this tree's kernel at forced ring
+stages, cluster sizes and row blocks.
 Needs CUDA; imports nothing of JAX.
 """
 
@@ -77,11 +81,6 @@ DECODE_KN = PROJ + [(4096, 128256), (4096, 130), (4096, 16383)]
 DECODE_M = (1, 4, 16)
 STEP = {(4096, 4096): 64, (4096, 1024): 64, (4096, 14336): 64,
         (14336, 4096): 32, (4096, 128256): 1}
-#: The decode kernel's forced variants (`_gemv_plan` keywords).
-VARIANTS = ([{"stages": v} for v in (2, 3, 4, 8)]
-            + [{"splits": v} for v in (1, 2, 4, 8)]
-            + [{"rows": v} for v in (16, 32, 64)]
-            + [{"rows": r, "splits": v} for r in (32, 64) for v in (2, 4)])
 SPLITS = (1, 2, 4, 8, 16)
 TILE_ROWS = (64, 128, 256)
 REPS = 20
@@ -93,6 +92,51 @@ def bound_ms(m: int, k: int, n: int) -> tuple[float, str]:
     nbytes = 2 * m * k + k * n + 4 * n + 2 * m * n
     ops, mem = 2 * m * k * n / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
     return max(ops, mem) * 1e3, "operations" if ops >= mem else "bytes"
+
+
+def launch_ms(fn, reps: int) -> float:
+    """Device time of one call as a model's step finds it: each call
+    follows a PyTorch kernel (a one-element add, which like a norm or an
+    activation does not let the next kernel start early), and a pair of
+    CUDA events spans the call alone. Mean over `reps`, after one warm-up
+    call, behind a sleep kernel (host enqueue time not counted)."""
+    fn()
+    torch.cuda.synchronize()
+    tiny = torch.zeros(1, device="cuda")
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    torch.cuda._sleep(100_000_000)
+    for e0, e1 in zip(starts, ends):
+        tiny.add_(1)
+        e0.record()
+        fn()
+        e1.record()
+    torch.cuda.synchronize()
+    return sum(e0.elapsed_time(e1) for e0, e1 in zip(starts, ends)) / reps
+
+
+def after_add_ms(fn, reps: int) -> float:
+    """reps x (a one-element add, the call) back to back, less reps x (the
+    add alone): a call's share of the device time when it follows a
+    PyTorch kernel with nothing between them, as in a model's step (a
+    programmatic dependent launch may start the call as the add ends)."""
+    tiny = torch.zeros(1, device="cuda")
+
+    def timed(with_call: bool) -> float:
+        fn()
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(100_000_000)
+        e0.record()
+        for _ in range(reps):
+            tiny.add_(1)
+            if with_call:
+                fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / reps
+    return timed(True) - timed(False)
 
 
 def _parent_module(parent: Path, name: str):
@@ -115,15 +159,12 @@ def parent_w8a16(parent: Path):
 
 def _launch_args(fn, plan) -> tuple:
     """The plan's arguments from `kernel` to before the stream, for either
-    tree's entry point: the earlier one takes (kernel, bm, splits), the
-    later one (kernel, bm, splits, grid, stages), its decode kernel reading
-    bm as its row block."""
-    kernel = {"simt": 0, "gemv": 1, "wgmma": 2}[plan.kernel]
+    tree's entry point: the earlier one takes (kernel, bm, splits), this
+    tree's `_launch_tail` (the decode kernel's grid and layout besides)."""
     if len(fn.argtypes) == 15:
-        return (kernel, plan.bm, plan.splits)
-    gemv = plan.kernel == "gemv"
-    return (kernel, plan.rows if gemv else plan.bm, plan.splits,
-            plan.grid[0] if gemv else 0, plan.stages)
+        return ({"simt": 0, "gemv": 1, "wgmma": 2}[plan.kernel], plan.bm,
+                plan.splits)
+    return w8._launch_tail(plan)
 
 
 class Call:
@@ -195,7 +236,7 @@ def _check(call, want, bad, what) -> float:
     return rel
 
 
-def _library_ms(x, qs, scale, rf, cold) -> float:
+def _library_ms(x, qs, scale, rf, cold, timer=time_ms) -> float:
     """torch.mm on bf16 copies of the weight (made outside the timing),
     rotating past the L2 when cold, with the op's epilogue."""
     wides = [qs[0].bfloat16()]
@@ -210,7 +251,7 @@ def _library_ms(x, qs, scale, rf, cold) -> float:
             return (torch.mm(x, w.t()).float() * scale).bfloat16()
         return (torch.mm(x, w.t(), out_dtype=torch.float32)
                 * scale).bfloat16()
-    ms = time_ms(call, REPS)
+    ms = timer(call, REPS)
     del wides
     return ms
 
@@ -282,9 +323,8 @@ def prefill(old_fn, new_fn, pw8, sms, gen, rows, bad) -> None:
 
 
 def decode(old_fn, new_fn, pw8, sms, gen, rows, bad) -> None:
-    """The decode kernels in turns at the decode shapes, the 225-launch
-    step, then this tree's forced variants."""
-    inputs = {}
+    """The decode kernels in turns at the decode shapes, each call timed
+    after a PyTorch kernel, then the 225-launch step."""
     for k, n in DECODE_KN:
         x0, qs, scale = _inputs(16, k, n, gen)
         rf = n == 128256
@@ -300,69 +340,43 @@ def decode(old_fn, new_fn, pw8, sms, gen, rows, bad) -> None:
                        plan, rf)
             rel_old = _check(old, want, bad, f"{shape} old")
             rel_new = _check(new, want, bad, f"{shape} new")
-            warm_old, warm_new = in_turns(old, new, REPS)
+            warm_old, warm_new = in_turns(old, new, REPS, timer=launch_ms)
             cold_old, cold_new = in_turns(lambda: old(True),
-                                          lambda: new(True), REPS)
+                                          lambda: new(True), REPS,
+                                          timer=launch_ms)
+            add_old, add_new = in_turns(lambda: old(True),
+                                        lambda: new(True), REPS,
+                                        timer=after_add_ms)
             enq_old, enq_new = in_turns(old, new, 50, timer=enqueue_us)
             bound, by = bound_ms(m, k, n)
             row = {"shape": shape, "m": m, "k": k, "n": n, "unembed": rf,
                    "old_plan": _plan_dict(pplan), "plan": _plan_dict(plan),
                    "old_ms": warm_old, "new_ms": warm_new,
                    "old_cold_ms": cold_old, "new_cold_ms": cold_new,
+                   "old_after_add_ms": add_old, "new_after_add_ms": add_new,
                    "old_enqueue_us": enq_old, "new_enqueue_us": enq_new,
                    "bound_ms": bound, "bound_by": by,
-                   "library_cold_ms": _library_ms(x, qs, scale, rf, True),
+                   "library_cold_ms": _library_ms(x, qs, scale, rf, True,
+                                                  launch_ms),
                    "rel_l2_old": rel_old, "rel_l2_new": rel_new,
                    "weight_copies_cold": len(qs)}
             rows.append(row)
             print(json.dumps(row), flush=True)
             del old, new
-        if (k, n) in STEP:
-            inputs[k, n] = (x0, qs, scale, rf)
-        else:
-            del qs
+        del qs
         torch.cuda.empty_cache()
     mean = statistics.fmean
     for m in DECODE_M:
         mine = {(r["k"], r["n"]): r for r in rows
                 if r.get("m") == m and (r["k"], r["n"]) in STEP}
         step = {"step_m": m, "launches": sum(STEP.values())}
-        for key in ("old_cold_ms", "new_cold_ms", "bound_ms",
-                    "library_cold_ms"):
+        for key in ("old_cold_ms", "new_cold_ms", "old_after_add_ms",
+                    "new_after_add_ms", "bound_ms", "library_cold_ms"):
             step[key] = sum(STEP[kn] * (mean(mine[kn][key])
                                         if isinstance(mine[kn][key], list)
                                         else mine[kn][key]) for kn in STEP)
         rows.append(step)
         print(json.dumps(step), flush=True)
-    for (k, n), (x0, qs, scale, rf) in inputs.items():
-        for m in (4, 16):
-            x = x0[:m].contiguous()
-            base = w8._w8a16_plan(m, k, n, torch.bfloat16, True, sms)
-            want = w8._int8_weight_matmul_plain(x, qs[0], scale, rf)
-            shape = f"M{m} K{k} N{n}"
-            for forced in VARIANTS:
-                plan = w8._gemv_plan(m, k, n, sms, **forced)
-                _, smem = w8._gemv_smem(m, plan.splits, plan.slot_rows,
-                                        plan.stages)
-                kind = "+".join(forced)
-                val = "+".join(str(v) for v in forced.values())
-                row = {"shape": shape, "sweep": kind, "value": val,
-                       "plan": _plan_dict(plan),
-                       "default": all(getattr(base, f) == v
-                                      for f, v in forced.items())}
-                if (smem > w8._GEMV_SMEM_MAX or plan.stages < 2
-                        or plan.splits > -(-k // 64)):
-                    row["skipped"] = "does not fit"
-                else:
-                    call = Call(new_fn, x, qs, scale, torch.empty_like(want),
-                                f"{shape} {kind} {val}", plan, rf)
-                    row["rel_l2"] = _check(call, want, bad,
-                                           f"{shape} {kind} {val}")
-                    row["cold_ms"] = time_ms(lambda: call(True), REPS)
-                rows.append(row)
-                print(json.dumps(row), flush=True)
-        del qs
-        torch.cuda.empty_cache()
 
 
 def main() -> int:
