@@ -84,6 +84,17 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
      through the kernels against one through the plain attention (and the
      bf16 naive_attention path) on the same weights and batch, and the loss
      falling over a few steps on one repeated batch;
+  5b. a training job: llama_1b at full width and depth on a packed
+     document corpus written from the seed (`packed_lm`: segment ids,
+     restarting positions, a loss mask) through the trainer's entry point,
+     with the eval stream, a two-step profile window and checkpoint saves:
+     every step's launches (the flash kernels run document-masked batches),
+     finite losses, ms/step, tok/s and MFU beside phase 5's, the data-wait
+     share, eval loss and accuracy, a Chrome trace naming the flash
+     kernels, each save's seconds and bytes; then, at 4 layers, a worker
+     launched as the control plane launches it and killed by TPK_FAULT
+     (SIGKILL), whose relaunch resumes from its last checkpoint with the
+     losses of a fault-free run bit for bit;
   6. attention_impl="auto" on configs the wgmma kernels do not take
      (llama_tiny: bf16, head_dim 16; llama_1b's widths in fp32, 2 layers):
      a prefill and a training step run through the CUDA-core kernels, with
@@ -132,6 +143,7 @@ from kubeflow_tpu_torch.parallel import Mesh  # noqa: E402
 from kubeflow_tpu_torch.serve import quant as squant  # noqa: E402
 from kubeflow_tpu_torch.serve.runtimes import export_for_serving  # noqa: E402
 from kubeflow_tpu_torch.serve.server import ModelServer  # noqa: E402
+from kubeflow_tpu_torch.train import checkpoint as ckpt_mod  # noqa: E402
 from kubeflow_tpu_torch.train import optim  # noqa: E402
 from kubeflow_tpu_torch.train import step as train_step  # noqa: E402
 from kubeflow_tpu_torch.train import trainer as trainer_mod  # noqa: E402
@@ -198,6 +210,19 @@ LOSS_VS_NAIVE, LOSS_REL_FLOOR = 1.25, 1e-3
 BWD_ALONE_VS_NAIVE = 1.0
 # Updates on one repeated batch, and the least drop of its loss (nats).
 REPEAT_STEPS, LOSS_DROP_MIN = 5, 0.5
+# Phase 5b: the packed corpora (document lengths drawn from [20, 3000], a
+# train corpus for phase 5's 13 steps with room to spare and an eval one),
+# the eval stream (JOB_EVAL_BATCHES batches at every JOB_EVAL_EVERY-th
+# step), a profile window of two warm-up steps, and 5b-ii's fault run: 4
+# layers, 6 steps, a checkpoint every 3, SIGKILL at the top of step 5.
+JOB_DOC_LENS = (20, 3001)
+JOB_TRAIN_TOKENS, JOB_EVAL_TOKENS = 400_000, 100_000
+JOB_EVAL_EVERY, JOB_EVAL_BATCHES = 5, 2
+JOB_PROFILE_START = 1
+JOB_TRACE_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+JOB_RESUME_LAYERS, JOB_RESUME_STEPS, JOB_RESUME_INTERVAL = 4, 6, 3
+JOB_FAULT = "step=5;signal=9"
+JOB_WORKER_TIMEOUT_S = 300
 PROMPT_LENS = (5, 100, 400, 1000, 1900, 3000)
 MAX_TOKENS, CHUNK = 32, 16
 SEED = 0
@@ -1775,10 +1800,12 @@ def _reset_counts() -> None:
 
 class _StepTap(io.TextIOBase):
     """The trainer's stdout: forwards every line and, at each per-step
-    metrics line, records it with the kernel launches since the last."""
+    metrics line, records it with the kernel launches since the last (an
+    eval at that step's boundary included); eval lines are kept apart."""
 
     def __init__(self, out):
-        self.out, self.buf, self.steps, self.last = out, "", [], _counts()
+        self.out, self.buf, self.last = out, "", _counts()
+        self.steps, self.evals = [], []
 
     def write(self, text):
         self.out.write(text)
@@ -1789,7 +1816,11 @@ class _StepTap(io.TextIOBase):
                 rec = json.loads(line)
             except ValueError:
                 continue
-            if isinstance(rec, dict) and "step" in rec and "event" not in rec:
+            if not isinstance(rec, dict) or "event" in rec:
+                continue
+            if "eval_loss" in rec:
+                self.evals.append(rec)
+            elif "loss" in rec:
                 now = _counts()
                 self.steps.append((rec, tuple(
                     a - b for a, b in zip(now, self.last))))
@@ -2173,6 +2204,298 @@ def phase_training() -> dict:
     return result
 
 
+def _write_corpus(path: str, n_tokens: int, rng, vocab: int) -> int:
+    """Documents of JOB_DOC_LENS tokens over the vocabulary, each ending in
+    eos 0 (no 0 inside), until n_tokens; returns the document count."""
+    docs, total = [], 0
+    while total < n_tokens:
+        doc = rng.integers(1, vocab, int(rng.integers(*JOB_DOC_LENS)),
+                           dtype=np.int32)
+        doc[-1] = 0
+        docs.append(doc)
+        total += len(doc)
+    np.save(path, np.concatenate(docs))
+    return len(docs)
+
+
+def _job_spec(corpus: str, **kw) -> trainer_mod.TrainJobSpec:
+    base = dict(model=TRAIN_MODEL, dataset="packed_lm",
+                dataset_kwargs={"path": corpus}, batch_size=TRAIN_BATCH,
+                seq_len=TRAIN_SEQ, learning_rate=TRAIN_LR, weight_decay=1e-4,
+                log_every=1, seed=SEED)
+    base.update(kw)
+    return trainer_mod.TrainJobSpec(**base)
+
+
+def _trace_kernels(prof_dir: str) -> dict:
+    """{trace file: {kernel family: device events}} of the Chrome traces
+    the trainer wrote under prof_dir; logs each trace's device ms by
+    kernel family (_FAMILIES)."""
+    out = {}
+    for name in sorted(os.listdir(prof_dir)):
+        with open(os.path.join(prof_dir, name)) as fh:
+            events = json.load(fh).get("traceEvents", [])
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        names = [e.get("name", "") for e in kernels]
+        out[name] = {fam: sum(fam in n for n in names)
+                     for fam in JOB_TRACE_KERNELS}
+        ms = {}
+        for e in kernels:
+            low = e.get("name", "").lower()
+            fam = next((f for f, keys in _FAMILIES
+                        if any(k in low for k in keys)), "other")
+            ms[fam] = ms.get(fam, 0.0) + e.get("dur", 0.0) / 1e3
+        log(f"  {name}: {len(kernels)} kernels, device ms by family "
+            + ", ".join(f"{f} {v:.2f}" for f, v in
+                        sorted(ms.items(), key=lambda kv: -kv[1])))
+    return out
+
+
+def _worker(workdir: str, spec: trainer_mod.TrainJobSpec,
+            fault: str | None) -> tuple[int, list]:
+    """`python -m kubeflow_tpu_torch.train.trainer` with no --spec, as the
+    controller launches a JAXJob worker (cpp/jaxjob.cc): runtime.json in
+    TPK_WORKDIR and the TPK_* env. Returns (exit code, its JSONL records)."""
+    with open(os.path.join(workdir, "runtime.json"), "w") as fh:
+        fh.write(spec.to_json())
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("TPK_")}
+    env.update(TPK_NUM_PROCS="1", TPK_PROC_ID="0", TPK_NUM_SLICES="1",
+               TPK_SLICE_ID="0", TPK_JOB_NAME="chip-smoke-job",
+               TPK_WORKDIR=workdir)
+    if fault:
+        env["TPK_FAULT"] = fault
+    proc = subprocess.run(
+        [sys.executable, "-m", "kubeflow_tpu_torch.train.trainer"],
+        cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=JOB_WORKER_TIMEOUT_S)
+    recs = []
+    for line in proc.stdout.splitlines():
+        try:
+            rec = json.loads(line)
+        except ValueError:
+            continue
+        if isinstance(rec, dict):
+            recs.append(rec)
+    if proc.returncode not in (0, -9):
+        log(proc.stdout[-3000:])
+        log(proc.stderr[-3000:])
+    return proc.returncode, recs
+
+
+def _step_losses(recs: list) -> dict:
+    return {r["step"]: r["loss"] for r in recs
+            if "loss" in r and "event" not in r}
+
+
+def phase_job(train: dict) -> dict:
+    """The trainer as a job worker on packed documents: 5b-i at llama_1b's
+    full width and depth (eval stream, a profile window, checkpoint saves
+    timed), 5b-ii a SIGKILLed worker relaunched as the controller would,
+    whose losses must equal a fault-free run's."""
+    cfg = registry.model_config(TRAIN_MODEL)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_job_",
+                            dir=os.path.join(ROOT, "build"))
+    try:
+        rng = np.random.default_rng(SEED)
+        corpus = os.path.join(work, "train.npy")
+        eval_corpus = os.path.join(work, "eval.npy")
+        n_docs = _write_corpus(corpus, JOB_TRAIN_TOKENS, rng,
+                               cfg.vocab_size)
+        n_eval = _write_corpus(eval_corpus, JOB_EVAL_TOKENS, rng,
+                               cfg.vocab_size)
+        log(f"  corpora from seed {SEED}: {n_docs} documents "
+            f"({JOB_TRAIN_TOKENS}+ tokens) to train on, {n_eval} to "
+            f"evaluate, lengths {JOB_DOC_LENS[0]}-{JOB_DOC_LENS[1] - 1} "
+            f"over vocabulary {cfg.vocab_size}, eos 0")
+        result = _job_full(cfg, work, corpus, eval_corpus, train)
+        result.update(_job_resume(cfg, work, corpus))
+        return result
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _job_full(cfg, work: str, corpus: str, eval_corpus: str,
+              train: dict) -> dict:
+    """5b-i: llama_1b at full width and depth on packed rows through
+    trainer.main, with the eval stream, a two-step profile window and
+    synchronous checkpoint saves (the first save of a directory, at step
+    1, and the forced final one), each timed."""
+    steps = TRAIN_WARMUP + TRAIN_TIMED
+    prof_dir = os.path.join(work, "profile")
+    ckpt_dir = os.path.join(work, "ckpt_full")
+    spec = _job_spec(
+        corpus, steps=steps, eval_dataset="packed_lm",
+        eval_dataset_kwargs={"path": eval_corpus},
+        eval_every=JOB_EVAL_EVERY, eval_batches=JOB_EVAL_BATCHES,
+        profile={"dir": prof_dir, "start_step": JOB_PROFILE_START,
+                 "num_steps": 2},
+        checkpoint={"dir": ckpt_dir, "interval": 10 * steps, "keep": 1,
+                    "async_save": False})
+    path = os.path.join(work, "job_full.json")
+    with open(path, "w") as fh:
+        fh.write(spec.to_json())
+    saves = []
+    manager = ckpt_mod.CheckpointManager
+    real_save = manager.maybe_save
+
+    def timed_save(self, step, state, **kw):
+        t0 = time.perf_counter()
+        did = real_save(self, step, state, **kw)
+        if did:
+            saves.append((step, time.perf_counter() - t0, os.path.getsize(
+                os.path.join(self.directory, str(step),
+                             ckpt_mod.STATE_FILE))))
+        return did
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    _reset_counts()
+    tap = _StepTap(sys.stdout)
+    t0 = time.monotonic()
+    manager.maybe_save = timed_save
+    try:
+        with contextlib.redirect_stdout(tap):
+            rc = trainer_mod.main(["--spec", path])
+    finally:
+        manager.maybe_save = real_save
+    wall = time.monotonic() - t0
+    launches = _counts()
+    if rc != 0 or len(tap.steps) != steps:
+        raise RuntimeError(f"trainer exited {rc} after {len(tap.steps)} of "
+                           f"{steps} steps")
+    layers = cfg.num_layers
+    for rec, per_step in tap.steps:
+        evals = JOB_EVAL_BATCHES if rec["step"] % JOB_EVAL_EVERY == 0 else 0
+        expect = ((2 + evals) * layers, layers, layers)
+        if per_step != expect:
+            raise RuntimeError(f"packed step {rec['step']} launched (fwd, "
+                               f"dq, dkv) = {per_step}, expected {expect}")
+    losses = [rec["loss"] for rec, _ in tap.steps]
+    ln_v = math.log(cfg.vocab_size)
+    if not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"non-finite packed training loss: {losses}")
+    if not ln_v - LOSS0_BELOW <= losses[0] <= ln_v + LOSS0_ABOVE:
+        raise RuntimeError(f"first packed loss {losses[0]:.4f} outside "
+                           f"[{ln_v - LOSS0_BELOW:.2f}, "
+                           f"{ln_v + LOSS0_ABOVE:.2f}]")
+    # An eval step's line carries the trainer's running average (its window
+    # closed before the eval), not a window of its own: left out.
+    timed = [rec for rec, _ in tap.steps[TRAIN_WARMUP:]
+             if rec["step"] % JOB_EVAL_EVERY]
+    step_s = sum(r["step_time_s"] for r in timed) / len(timed)
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / step_s
+    mfu = 6 * cfg.num_params * tok_s / PEAK_BF16_FLOPS
+    wait = (sum(r["data_wait_s"] for r in timed)
+            / sum(r["step_time_s"] for r in timed))
+    log(f"  5b-i: {steps} packed steps in {wall:.1f}s; losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)} (first within "
+        f"[{ln_v - LOSS0_BELOW:.2f}, {ln_v + LOSS0_ABOVE:.2f}])")
+    log(f"  launches per step (fwd, dq, dkv) = ({2 * layers}, {layers}, "
+        f"{layers}) plus {JOB_EVAL_BATCHES} x {layers} forward at each "
+        f"eval step, in all {steps} steps; run totals {launches}")
+    log(f"  timed {len(timed)} steps (no eval step): {step_s * 1e3:.2f} "
+        f"ms/step, {tok_s:.0f} tok/s, MFU {mfu:.4f} (padding counted as "
+        "tokens); "
+        f"phase 5 (synthetic, no segments): {train['ms_per_step']:.2f} "
+        f"ms/step, {train['tok_s']:.0f} tok/s, MFU {train['mfu']:.4f}; "
+        f"data-wait share {wait:.4%}")
+    if not tap.evals or not all(
+            math.isfinite(e["eval_loss"]) and 0 <= e["eval_accuracy"] <= 1
+            for e in tap.evals):
+        raise RuntimeError(f"eval lines missing or wrong: {tap.evals}")
+    log("  eval: " + "; ".join(
+        f"step {e['step']}: loss {e['eval_loss']:.4f} accuracy "
+        f"{e['eval_accuracy']:.5f} over {e['eval_batches']:.0f} batches"
+        for e in tap.evals))
+    traces = _trace_kernels(prof_dir)
+    log(f"  profile window steps [{JOB_PROFILE_START}, "
+        f"{JOB_PROFILE_START + 2}): {traces}")
+    if not traces or not all(all(n > 0 for n in t.values())
+                             for t in traces.values()):
+        raise RuntimeError("the profile trace does not name the flash "
+                           f"forward and backward kernels: {traces}")
+    if [s for s, _, _ in saves] != [1, steps]:
+        raise RuntimeError(f"saves at steps {[s for s, _, _ in saves]}, "
+                           f"expected the first at 1 and the final {steps}")
+    log("  checkpoint saves (synchronous, fp32 parameters and both "
+        "moments): " + "; ".join(
+            f"step {s}: {sec:.2f}s, {n / 1e9:.3f} GB ({n / sec / 1e9:.2f} "
+            "GB/s)" for s, sec, n in saves))
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "ms_per_step": step_s * 1e3,
+            "tok_s": tok_s, "mfu": mfu, "data_wait_share": wait,
+            "evals": tap.evals, "traces": traces,
+            "saves": [{"step": s, "seconds": sec, "bytes": n}
+                      for s, sec, n in saves]}
+
+
+def _job_resume(cfg, work: str, corpus: str) -> dict:
+    """5b-ii: three workers launched as the controller launches them. A
+    fault-free reference (the same spec without checkpoints, which do not
+    enter the losses), the spec with checkpoints and TPK_FAULT (it must
+    die by SIGKILL after logging fault_injected), and its relaunch, which
+    must log `restored` at the last checkpoint and reach the final step
+    with the reference's losses bit for bit."""
+    kw = dict(model_kwargs={"num_layers": JOB_RESUME_LAYERS},
+              steps=JOB_RESUME_STEPS)
+    ckpt = {"dir": os.path.join(work, "ckpt_resume"),
+            "interval": JOB_RESUME_INTERVAL, "keep": 2}
+    cut = registry.model_config(TRAIN_MODEL, num_layers=JOB_RESUME_LAYERS)
+    log(f"  5b-ii: {TRAIN_MODEL} widths at {JOB_RESUME_LAYERS} layers "
+        f"(depth cut: a {cfg.num_layers}-layer checkpoint of fp32 masters "
+        f"and both moments is {12 * cfg.num_params / 1e9:.1f} GB, a "
+        f"{JOB_RESUME_LAYERS}-layer one {12 * cut.num_params / 1e9:.1f} GB, "
+        "written by two of the three runs), "
+        f"{JOB_RESUME_STEPS} steps, checkpoint every {JOB_RESUME_INTERVAL}, "
+        f"TPK_FAULT={JOB_FAULT}")
+    runs = {}
+    for name, spec, fault in (
+            ("reference", _job_spec(corpus, **kw), None),
+            ("faulted", _job_spec(corpus, checkpoint=ckpt, **kw), JOB_FAULT),
+            ("relaunch", _job_spec(corpus, checkpoint=ckpt, **kw), None)):
+        t0 = time.monotonic()
+        rc, recs = _worker(work, spec, fault)
+        runs[name] = (rc, recs, time.monotonic() - t0)
+        log(f"    {name}: exit {rc} in {runs[name][2]:.1f}s; events "
+            f"{[(r['step'], r['event']) for r in recs if 'event' in r]}; "
+            f"losses {_step_losses(recs)}")
+    ref, bad, again = (runs[n][1] for n in ("reference", "faulted",
+                                            "relaunch"))
+    fault_step = int(JOB_FAULT.split(";")[0].split("=")[1])
+    restored = [r["step"] for r in again if r.get("event") == "restored"]
+    want_restore = fault_step // JOB_RESUME_INTERVAL * JOB_RESUME_INTERVAL
+    checks = {
+        "reference finished": runs["reference"][0] == 0
+        and len(_step_losses(ref)) == JOB_RESUME_STEPS,
+        "faulted worker killed by signal 9": runs["faulted"][0] == -9,
+        "fault_injected logged": any(
+            r.get("event") == "fault_injected" and r["step"] == fault_step
+            for r in bad),
+        f"restored at step {want_restore}": restored == [want_restore],
+        "relaunch finished": runs["relaunch"][0] == 0
+        and max(_step_losses(again), default=0) == JOB_RESUME_STEPS,
+    }
+    ref_l = _step_losses(ref)
+    got = {**_step_losses(bad), **_step_losses(again)}
+    diffs = {s: abs(got[s] - ref_l[s]) / abs(ref_l[s])
+             for s in ref_l if s in got}
+    checks["every step's loss bit-equal to the reference"] = (
+        set(got) == set(ref_l) and all(got[s] == ref_l[s] for s in ref_l))
+    log(f"    loss rel. differences from the reference by step: {diffs}; "
+        + ", ".join(f"{k} {'OK' if ok else 'FAIL'}"
+                    for k, ok in checks.items()))
+    if not all(checks.values()):
+        raise RuntimeError(f"fault and resume failed: {checks}")
+    return {"resume": {"restored_at": want_restore, "bit_equal": True,
+                       "seconds": {n: r[2] for n, r in runs.items()}}}
+
+
 def phase_auto(gk) -> tuple:
     """attention_impl="auto" on the configs the wgmma kernels do not take,
     through the GPU tests' check (c1_compare: a prefill and a training step
@@ -2282,6 +2605,9 @@ def main() -> int:
         shutil.rmtree(bundle, ignore_errors=True)
     log(f"phase 5: training {TRAIN_MODEL} through the trainer")
     train = phase_training()
+    log(f"phase 5b: a training job: {TRAIN_MODEL} on packed documents, "
+        "eval, profile, checkpoints, SIGKILL and resume")
+    job = phase_job(train)
     log("phase 6: attention_impl='auto' where the wgmma kernels do not "
         "take the config")
     simt_launches = phase_auto(gk)
@@ -2291,7 +2617,8 @@ def main() -> int:
     smain = simt["main"]
     fwd_launches = {"serving": flat["launches"],
                     "paged_quant_serving": quant["launches"],
-                    "training": train["launches"][0]}
+                    "training": train["launches"][0],
+                    "packed_training": job["launches"][0]}
     bwd_common = {"route": "cuda",
                   "source": "kubeflow_tpu_torch/ops/csrc/flash_bwd.cu",
                   "plain_ms": bmain["plain_ms"],
@@ -2315,7 +2642,9 @@ def main() -> int:
     }, {
         "name": "flash_bwd_dq",
         "replaces": "kubeflow_tpu/ops/flash_attention.py:234",
-        "launches": train["launches"][1],
+        "launches": train["launches"][1] + job["launches"][1],
+        "launches_by_path": {"training": train["launches"][1],
+                             "packed_training": job["launches"][1]},
         "max_abs_err": bwd["worst"]["dq"]["max_abs"],
         "rel_l2_err": bwd["worst"]["dq"]["rel_l2"],
         "ms": bmain["dq_ms"], "bound_ms": bmain["dq_bound_ms"],
@@ -2323,7 +2652,9 @@ def main() -> int:
     }, {
         "name": "flash_bwd_dkv",
         "replaces": "kubeflow_tpu/ops/flash_attention.py:285",
-        "launches": train["launches"][2],
+        "launches": train["launches"][2] + job["launches"][2],
+        "launches_by_path": {"training": train["launches"][2],
+                             "packed_training": job["launches"][2]},
         "max_abs_err": max(bwd["worst"][n]["max_abs"] for n in ("dk", "dv")),
         "rel_l2_err": max(bwd["worst"][n]["rel_l2"] for n in ("dk", "dv")),
         "ms": bmain["dkv_ms"], "bound_ms": bmain["dkv_bound_ms"],

@@ -1,25 +1,31 @@
 """Background input prefetcher: host data prep and H2D off the step loop.
 
 The port of `kubeflow_tpu/data/prefetch.py`'s `Prefetcher`. One worker
-thread pulls raw numpy batches and stages up to `depth` device-resident
-batches ahead of compute. On CUDA each array is copied into pinned host
-memory and then to the device on a side stream; the batch carries an event
-recorded after its copies, and `next()` makes the consumer's current stream
-wait on that event (a device-side wait, not a host sync) and marks the
-tensors as used by that stream, so the caching allocator never hands their
-memory to the side stream while a step still reads them. On the CPU the
-arrays become tensors as they are.
+thread pulls raw numpy batches, applies the optional host-side `transform`
+and stages up to `depth` device-resident batches ahead of compute. On CUDA
+each array is copied into pinned host memory and then to the device on a
+side stream; the batch carries an event recorded after its copies, and
+`next()` makes the consumer's current stream wait on that event (a
+device-side wait, not a host sync) and marks the tensors as used by that
+stream, so the caching allocator never hands their memory to the side
+stream while a step still reads them. On the CPU the arrays become tensors
+as they are.
 
-`depth=0` runs the same pull -> place inline on the calling thread (no
-worker).
+Resume state: the worker snapshots the iterator's checkpoint state
+alongside each batch as it pulls it, and `consumed_state()` returns the
+snapshot paired with the batch most recently handed to the caller, not
+the iterator's read-ahead position. A checkpoint taken after training
+batch N therefore resumes at batch N+1 although the worker had already
+pulled batches N+1..N+depth.
+
+`depth=0` runs the same pull -> transform -> place inline on the calling
+thread (no worker); the `data.next` fault point then fires there.
 
 Failure semantics as in the JAX package: an exception raised while pulling
-or preparing a batch on the worker is queued in order and re-raised from
-`next()` on the training thread; the worker exits after queuing it.
-`close()` is idempotent, drains the queue and joins the thread, and every
-trainer exit path calls it. Checkpoint-resume state (`consumed_state`) and
-the fault-injection points and the host-side transform (the zigzag
-permute) belong to features the port does not have yet.
+or preparing a batch on the worker (faults injected at `data.next`
+included) is queued in order and re-raised from `next()` on the training
+thread; the worker exits after queuing it. `close()` is idempotent, drains
+the queue and joins the thread, and every trainer exit path calls it.
 """
 
 from __future__ import annotations
@@ -28,12 +34,22 @@ import logging
 import queue
 import threading
 import time
-from typing import Any, Iterator
+from typing import Any, Callable, Iterator, Mapping
 
 import numpy as np
 import torch
 
+from kubeflow_tpu_torch.data.loader import iterator_state
+from kubeflow_tpu_torch.utils import faults, resilience
+
 _LOG = logging.getLogger(__name__)
+
+#: Fires before every raw-batch pull (ctx: n = 0-based pull index). With
+#: depth >= 1 it fires on the worker thread; the injected error is still
+#: delivered to the training thread at the matching `next()`.
+_FP_NEXT = faults.register_point(
+    "data.next", "before each raw-batch pull from the input iterator; "
+    "ctx: n (0-based pull index)")
 
 #: Thread-name prefix for every prefetch worker — the test suite's
 #: thread-leak guard (tests/conftest.py) keys on it.
@@ -55,18 +71,23 @@ class Prefetcher:
     """Depth-K queue of device-placed batches.
 
     Args:
-      it: the raw batch iterator (dicts of numpy arrays). The prefetcher
-        takes ownership: nothing else may pull from it while it lives.
+      it: the raw batch iterator (dicts of numpy arrays; checkpointable or
+        a plain generator). The prefetcher takes ownership: nothing else
+        may pull from it while it lives.
       depth: queue capacity. 0 = synchronous passthrough (no thread);
         K >= 1 lets the worker run up to K+1 batches ahead.
       device: where batches land (torch.device or string).
+      transform: optional host-side per-batch transform applied before
+        placement.
     """
 
-    def __init__(self, it: Iterator[Any], *, depth: int, device):
+    def __init__(self, it: Iterator[Any], *, depth: int, device,
+                 transform: Callable[[dict], dict] | None = None):
         if depth < 0:
             raise ValueError(f"prefetch depth must be >= 0, got {depth}")
         self._it = iter(it)
         self._depth = int(depth)
+        self._transform = transform
         self._device = torch.device(device)
         self._stream = (torch.cuda.Stream(device=self._device)
                         if self._device.type == "cuda" else None)
@@ -79,8 +100,12 @@ class Prefetcher:
         self.data_wait_s = 0.0  # training-thread time spent inside next()
         # guarded-by: _lock
         self.h2d_s = 0.0        # wall time spent placing batches on device
+        self._pulled = 0  # guarded-by: _lock; raw batches pulled
         self._thread: threading.Thread | None = None
         if self._depth:
+            # Captured BEFORE the worker starts reading ahead: the floor
+            # consumed_state() returns until a batch is consumed.
+            self._consumed_state = iterator_state(self._it)
             self._q: queue.Queue = queue.Queue(maxsize=self._depth)
             self._stop = threading.Event()
             self._thread = threading.Thread(
@@ -90,7 +115,10 @@ class Prefetcher:
     # -- placement -----------------------------------------------------------
 
     def _place(self, raw: dict) -> tuple[dict, Any]:
-        """(batch of device tensors, event its copies complete on)."""
+        """(batch of device tensors, event its copies complete on), after
+        the transform."""
+        if self._transform is not None:
+            raw = self._transform(raw)
         t0 = time.perf_counter()
         if self._stream is None:
             out = {k: torch.from_numpy(np.ascontiguousarray(v))
@@ -130,10 +158,19 @@ class Prefetcher:
                 continue
         return False
 
+    def _pull(self) -> dict:
+        with self._lock:
+            n = self._pulled
+        faults.fire(_FP_NEXT, n=n)
+        raw = next(self._it)  # StopIteration propagates as-is
+        with self._lock:
+            self._pulled += 1
+        return raw
+
     def _worker(self) -> None:
         while not self._stop.is_set():
             try:
-                raw = next(self._it)
+                raw = self._pull()
             except StopIteration:
                 self._offer(_STOP)
                 return
@@ -141,7 +178,10 @@ class Prefetcher:
                 self._offer(_Failure(e))
                 return
             try:
-                item = self._place(raw)
+                # Snapshot BEFORE reading ahead any further: this state
+                # resumes at the batch after `raw`.
+                state = iterator_state(self._it)
+                item = (self._place(raw), state)
             except BaseException as e:
                 self._offer(_Failure(e))
                 return
@@ -159,8 +199,7 @@ class Prefetcher:
             if self._depth == 0:
                 if self._closed:
                     raise RuntimeError("Prefetcher is closed")
-                raw = next(self._it)  # StopIteration propagates as-is
-                return self._hand_over(self._place(raw))
+                return self._hand_over(self._place(self._pull()))
             if self._exc is not None:
                 raise self._exc
             if self._exhausted:
@@ -176,13 +215,23 @@ class Prefetcher:
             if isinstance(item, _Failure):
                 self._exc = item.exc
                 raise item.exc
-            return self._hand_over(item)
+            placed, self._consumed_state = item
+            return self._hand_over(placed)
         finally:
             dt = time.perf_counter() - t0
             with self._lock:
                 self.data_wait_s += dt
+            resilience.metrics.inc("tpk_data_wait_seconds_total", dt,
+                                   component="train")
 
     next = __next__
+
+    def consumed_state(self) -> Mapping[str, Any] | None:
+        """Iterator resume state matching the batches handed out so far
+        (None for plain generators). Safe to call after close()."""
+        if self._depth == 0:
+            return iterator_state(self._it)
+        return self._consumed_state
 
     def close(self, timeout: float = 5.0) -> None:
         """Stop and join the worker (idempotent)."""

@@ -6,8 +6,8 @@ step is eager PyTorch: autograd for the gradients (the flash backward
 kernels among them), then `optim.AdamW.update` in place. Nothing in the
 step waits for the device: the metrics it returns are device tensors.
 
-Mesh, FSDP, pipeline parallelism and LoRA (`trainable="lora"`) are not
-ported and are refused by name.
+`make_eval_step` is the JAX eval step. Mesh, FSDP, pipeline parallelism
+and LoRA (`trainable="lora"`) are not ported and are refused by name.
 """
 
 from __future__ import annotations
@@ -211,5 +211,30 @@ def make_train_step(model: nn.Module, loss_fn: Callable | None = None,
         state.step += 1
         return state, {"loss": loss, "aux_loss": aux, "grad_norm": gnorm,
                        "step": state.step}
+
+    return step
+
+
+def make_eval_step(model: nn.Module) -> Callable[[list, dict], dict]:
+    """The eval step of `kubeflow_tpu/train/step.py`: `(params, batch) ->
+    {"loss", "accuracy"}`, device scalars, without gradients. Like the JAX
+    step it runs the model on `batch["inputs"]` alone (segment ids and
+    positions are not passed) and takes the cross entropy and the argmax
+    accuracy under `batch["mask"]` when there is one. `params` is
+    accepted for the JAX signature; the model's own parameters are
+    used."""
+
+    @torch.no_grad()
+    def step(params, batch: dict) -> dict:
+        logits = model(batch["inputs"]).float()
+        mask = batch.get("mask")
+        loss = cross_entropy_loss(logits, batch["targets"], mask)
+        hits = (logits.argmax(-1) == batch["targets"]).float()
+        if mask is not None:
+            m = mask.float()
+            acc = (hits * m).sum() / m.sum().clamp_min(1.0)
+        else:
+            acc = hits.mean()
+        return {"loss": loss, "accuracy": acc}
 
     return step

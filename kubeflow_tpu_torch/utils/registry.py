@@ -1,7 +1,7 @@
 """Model and dataset registries: a bundle or a job spec names them by
 string.
 
-The port of the Llama and synthetic-LM entries of
+The port of the Llama, synthetic-LM and token-corpus entries of
 `kubeflow_tpu/utils/registry.py`.
 """
 
@@ -10,7 +10,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
-from kubeflow_tpu_torch.data import synthetic
+from kubeflow_tpu_torch.data import loader, synthetic
 from kubeflow_tpu_torch.models import llama
 
 _MODELS: dict[str, Callable[[], llama.LlamaConfig]] = {
@@ -52,11 +52,36 @@ def _learnable_lm(batch_size=8, seq_len=32, vocab_size=64, seed=0, **kw):
                                              vocab_size, seed)
 
 
+def _token_file(path, batch_size=8, seq_len=128, seed=0, shuffle=True,
+                vocab_size=None, process_index=None, process_count=None,
+                **kw):
+    """Tokenized corpus (.npy/.bin/.txt) with a checkpointable iterator.
+    The trainer passes the model's vocab_size, so a wrong-tokenizer corpus
+    fails at startup, and its process shard."""
+    return loader.lm_dataset(
+        path, batch_size=batch_size, seq_len=seq_len, seed=seed,
+        shuffle=shuffle, vocab_size=vocab_size,
+        process_index=process_index, process_count=process_count)
+
+
+def _packed_lm(path, batch_size=8, seq_len=128, eos_id=0, seed=0,
+               shuffle=True, vocab_size=None, **kw):
+    """Document-packed corpus: batches carry segment_ids, positions and
+    mask, so attention and loss respect document boundaries."""
+    return loader.packed_lm_dataset(
+        path, batch_size=batch_size, seq_len=seq_len, eos_id=eos_id,
+        seed=seed, shuffle=shuffle, vocab_size=vocab_size,
+        process_index=kw.get("process_index"),
+        process_count=kw.get("process_count"))
+
+
 #: Dataset factories with the JAX registry's names and kwargs (extra kwargs
-#: such as process_index are accepted and ignored, as there).
+#: such as process_index are accepted and ignored where unused, as there).
 _DATASETS: dict[str, Callable] = {
     "synthetic_lm": _synthetic_lm,
     "learnable_lm": _learnable_lm,
+    "token_file": _token_file,
+    "packed_lm": _packed_lm,
 }
 
 
@@ -65,7 +90,8 @@ def list_datasets() -> list[str]:
 
 
 def build_dataset(name: str, **kwargs):
-    """An iterator of {"inputs", "targets"} numpy batches."""
+    """An iterable of {"inputs", "targets", ...} numpy batches (a
+    generator, or a checkpointable `loader.MapDataset`)."""
     try:
         factory = _DATASETS[name]
     except KeyError:

@@ -1,4 +1,5 @@
-"""The port imports nothing of JAX and nothing of the JAX package."""
+"""The port imports nothing of JAX, nothing of the JAX package and none of
+the JAX side's data and checkpoint libraries (grain, orbax, safetensors)."""
 
 import ast
 import os
@@ -8,7 +9,9 @@ import sys
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "kubeflow_tpu")
+# grain, orbax and safetensors are not on the card either.
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "grain",
+             "safetensors", "kubeflow_tpu")
 
 
 def _port_files():
@@ -43,6 +46,8 @@ def test_server_import_loads_no_jax():
     code = ("import sys; import kubeflow_tpu_torch.serve.server; "
             "import kubeflow_tpu_torch.models.convert; "
             "import kubeflow_tpu_torch.train.trainer; "
+            "import kubeflow_tpu_torch.train.checkpoint; "
+            "import kubeflow_tpu_torch.data.loader; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}

@@ -22,7 +22,8 @@ from kubeflow_tpu_torch.train import trainer as ttrainer
 from kubeflow_tpu_torch.utils import registry
 
 STEP_KEYS = {"step", "loss", "grad_norm", "tokens_per_sec", "mfu",
-             "step_time_s", "data_wait_s", "data_wait_frac", "data_h2d_s"}
+             "step_time_s", "data_wait_s", "data_wait_frac", "data_h2d_s",
+             "tpk_data_wait_seconds_total"}
 
 
 def _spec(**kw):
@@ -75,22 +76,11 @@ def test_trainer_prefetch_depths_train_identically():
     ({"pipeline": {"microbatches": 2}}, "pipeline"),
     ({"lora": {"rank": 4}}, "lora"),
     ({"ring_attention": "ring"}, "ring_attention"),
-    ({"checkpoint": {"dir": "/nonexistent"}}, "checkpoint.dir"),
-    ({"restart_policy": "OnFailure"}, "restart_policy"),
-    ({"profile": {"dir": "p", "start_step": 1}}, "profile"),
-    ({"profile_start_step": 1, "profile_stop_step": 3}, "profile"),
-    ({"eval_every": 5}, "eval_every"),
     ({"param_dtype": "bfloat16"}, "param_dtype"),
 ], ids=lambda x: x if isinstance(x, str) else None)
 def test_unported_spec_features_are_refused_by_name(kw, what):
     with pytest.raises(NotImplementedError, match=what):
         ttrainer.Trainer(_spec(**kw), device="cpu")
-
-
-def test_fault_injection_env_is_refused(monkeypatch):
-    monkeypatch.setenv("TPK_FAULT", "step=1;signal=9")
-    with pytest.raises(NotImplementedError, match="TPK_FAULT"):
-        ttrainer.Trainer(_spec(), device="cpu")
 
 
 def test_spec_json_and_validation():
@@ -105,7 +95,7 @@ def test_spec_json_and_validation():
     with pytest.raises(ValueError, match="lr_schedule"):
         ttrainer.Trainer(_spec(lr_schedule="step"), device="cpu")
     with pytest.raises(ValueError, match="unknown dataset"):
-        ttrainer.Trainer(_spec(dataset="token_file"), device="cpu").run()
+        ttrainer.Trainer(_spec(dataset="mnist_like"), device="cpu").run()
 
 
 @pytest.mark.parametrize("name,kw", [
