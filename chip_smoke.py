@@ -12,8 +12,9 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
      card, at the serving shapes, with its time, the plain version's, one
      library call's (a yardstick the port never calls) and its bound;
   2b. backward kernels: dq and dk/dv against the plain backward at the
-     phase-2 shapes and the llama_1b training shape, with the same timings
-     (and the forward kernel's and SDPA's forward times there);
+     phase-2 shapes and the llama_1b and llama3_8b (phase 5c's) training
+     shapes, with the same timings (and the forward kernel's time and
+     bound and SDPA's forward time there);
   2c. the W8A8 int8 matmul through its op entry point `int8_matmul` at the
      llama3_8b projection shapes (prefill and decode widths), launches
      counted (all of the wgmma + TMA kernel), then against its plain version
@@ -94,7 +95,19 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
      kernels, each save's seconds and bytes; then, at 4 layers, a worker
      launched as the control plane launches it and killed by TPK_FAULT
      (SIGKILL), whose relaunch resumes from its last checkpoint with the
-     losses of a fault-free run bit for bit;
+     losses of a fault-free run bit for bit; then the same with spec.lora;
+  5c. LoRA fine-tuning: llama3_8b at full width and depth (fp32 masters
+     frozen, rank 16 adapters on attn_mlp) through the trainer (batch 4,
+     seq 2048, 3 warm-up + 5 timed steps): every step's flash launches,
+     sane losses, ms/step, tok/s, the LoRA MFU ((4·N_base + 6·N_lora) ·
+     tok/s over the bf16 peak), peak memory, the adapters' optimizer
+     bytes, the frozen base bit-unchanged; then `train.lora.merge` into a
+     bf16 lora_rank=0 model held against the trained model (in fp32, and
+     as trained), and that model behind the engine answering greedy
+     requests at pipeline_depth 2;
+  5d. the four remat policies at phase 5's point through the trainer, three
+     steps each: ms/step, peak memory, flash launches a step, and losses
+     equal to "nothing"'s;
   6. attention_impl="auto" on configs the wgmma kernels do not take
      (llama_tiny: bf16, head_dim 16; llama_1b's widths in fp32, 2 layers):
      a prefill and a training step run through the CUDA-core kernels, with
@@ -141,9 +154,12 @@ from kubeflow_tpu_torch.ops import w8a16 as w8  # noqa: E402
 from kubeflow_tpu_torch.ops.reference import naive_attention  # noqa: E402
 from kubeflow_tpu_torch.parallel import Mesh  # noqa: E402
 from kubeflow_tpu_torch.serve import quant as squant  # noqa: E402
+from kubeflow_tpu_torch.serve.generation import \
+    GenerativeTorchModel  # noqa: E402
 from kubeflow_tpu_torch.serve.runtimes import export_for_serving  # noqa: E402
 from kubeflow_tpu_torch.serve.server import ModelServer  # noqa: E402
 from kubeflow_tpu_torch.train import checkpoint as ckpt_mod  # noqa: E402
+from kubeflow_tpu_torch.train import lora as lora_mod  # noqa: E402
 from kubeflow_tpu_torch.train import optim  # noqa: E402
 from kubeflow_tpu_torch.train import step as train_step  # noqa: E402
 from kubeflow_tpu_torch.train import trainer as trainer_mod  # noqa: E402
@@ -223,6 +239,41 @@ JOB_TRACE_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 JOB_RESUME_LAYERS, JOB_RESUME_STEPS, JOB_RESUME_INTERVAL = 4, 6, 3
 JOB_FAULT = "step=5;signal=9"
 JOB_WORKER_TIMEOUT_S = 300
+# Phase 5c: LoRA fine-tuning of llama3_8b at full width and depth (32
+# layers, frozen fp32 masters, bf16 compute) through the trainer: rank 16,
+# alpha 32 on attn_mlp, batch 4 x seq 2048 of synthetic_lm, 3 warm-up and 5
+# timed steps. The lr is high for LoRA so that 8 steps move the adapters
+# well clear of the merge check's rounding floor.
+LORA_MODEL, LORA_BATCH, LORA_SEQ, LORA_LR = "llama3_8b", 4, 2048, 1e-3
+LORA = {"rank": 16, "alpha": 32.0, "targets": "attn_mlp"}
+LORA_WARMUP, LORA_TIMED = 3, 5
+# Base tensors held bit-equal before and after training.
+LORA_FROZEN_CHECK = ("embed", "layers.0.attn.q_proj.weight",
+                     "layers.0.attn.k_proj.weight",
+                     "layers.31.mlp.down_proj.weight",
+                     "layers.31.post_attn_norm.scale", "final_norm.scale")
+# The merged bf16 serving model against the trained function on one
+# prompt, as phase 3 holds the kernel: the trained model computed in fp32
+# is the exact reference, and the merged model must lie within
+# LOGITS_VS_NAIVE (1.25) x the adapted bf16 model's own distance from it
+# (and within LOGITS_REL_L2_MAX of the adapted model). The two bf16 models
+# round differently (the merged weights round W + s·B·A once, the adapted
+# model rounds W and adds a bf16 delta), and every op re-rounds through 32
+# layers: on a CPU proxy of llama3_8b's layout at 32 layers the two sit
+# 2.5e-2 to 2.7e-2 apart, each ~2.3e-2 from the fp32 function.
+LORA_PROMPT = 512
+# The merged model behind the engine in-process: greedy requests of these
+# prompt lengths, LORA_MAX_TOKENS out each (three decode chunks, so depth
+# 2 has a chunk to overlap), at pipeline_depth 2.
+LORA_SERVE = {"slots": 4, "max_len": 1024, "chunk": 16,
+              "prefill_buckets": [128, 512], "pipeline_depth": 2}
+LORA_REQUESTS, LORA_MAX_TOKENS = (5, 100, 500), 48
+# Phase 5d: each remat policy at phase 5's point, REMAT_STEPS steps a
+# run, the policies run in turns (in order, then in reverse); the first
+# step's time (allocations) is left out of ms/step. The losses must equal
+# "nothing"'s within REMAT_LOSS_REL (bit-equal is expected: a policy
+# changes what is recomputed, never a value).
+REMAT_STEPS, REMAT_LOSS_REL = 3, 1e-6
 PROMPT_LENS = (5, 100, 400, 1000, 1900, 3000)
 MAX_TOKENS, CHUNK = 32, 16
 SEED = 0
@@ -358,9 +409,12 @@ KERNEL_CASES = [(1, s, s, 32, 8, 128, fa.MaskSpec("causal"), False)
      fa.MaskSpec("sliding_window", window=256), False),
     (1, 1000, 1000, 32, 8, 128, fa.MaskSpec("causal"), True),
 ]
-# The llama_1b training shape (batch 12, seq 1024, 16/8 heads, Dh 128).
+# The llama_1b training shape (batch 12, seq 1024, 16/8 heads, Dh 128),
+# and phase 5c's llama3_8b one (batch 4, seq 2048, 32/8 heads).
 TRAIN_CASE = (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 16, 8, 128,
               fa.MaskSpec("causal"), False)
+LORA_CASE = (LORA_BATCH, LORA_SEQ, LORA_SEQ, 32, 8, 128,
+             fa.MaskSpec("causal"), False)
 
 
 def _case_name(b, s, t, h, kh, d, mask, segs) -> str:
@@ -473,12 +527,13 @@ def _sdpa_backward_ms(q, k, v, do, sdpa_kw) -> float:
 def phase_backward() -> dict:
     """flash_bwd_dq and flash_bwd_dkv against _flash_bwd_plain (fp32 on the
     same bf16 inputs, the kernel forward's out and lse) at the phase-2
-    shapes and the training shape."""
+    shapes and the two training shapes (llama_1b's, phase 5c's
+    llama3_8b)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     rows, worst = [], {n: {"max_abs": 0.0, "rel_l2": 0.0}
                        for n in ("dq", "dk", "dv")}
-    for case in KERNEL_CASES + [TRAIN_CASE]:
+    for case in KERNEL_CASES + [TRAIN_CASE, LORA_CASE]:
         b, s, t, h, kh, d, mask, segs = case
         (q, k, v, do), seg = _case_inputs(case, gen, dev, grad_out=True)
         out, lse = fa.flash_attention_lse(q, k, v, mask=mask, segment_ids=seg)
@@ -502,6 +557,9 @@ def phase_backward() -> dict:
         dq_bound, dq_by = _bound(6 * d * pairs, reads + 2 * q.numel())
         dkv_bound, dkv_by = _bound(8 * d * pairs,
                                    reads + 2 * (k.numel() + v.numel()))
+        fwd_bound, fwd_by = _bound(
+            4 * d * pairs, 2 * (q.numel() + k.numel() + v.numel()
+                                + out.numel()) + 4 * lse.numel() + seg_bytes)
         delta = fa._bwd_delta(do, out, None)
         dq_ms = time_ms(lambda: fa._flash_bwd_dq_cuda(
             q, k, v, do, lse, delta, mask, seg))
@@ -525,8 +583,8 @@ def phase_backward() -> dict:
             + f" {'OK' if ok else 'FAIL'}")
         log(f"    dq_ms {dq_ms:.4f} (bound {dq_bound:.4f}, {dq_by}) dkv_ms "
             f"{dkv_ms:.4f} (bound {dkv_bound:.4f}, {dkv_by}) delta_ms "
-            f"{delta_ms:.4f} fwd_ms {fwd_ms:.4f} (SDPA fwd "
-            f"{fwd_library_ms:.4f}) plain_bwd_ms "
+            f"{delta_ms:.4f} fwd_ms {fwd_ms:.4f} (bound {fwd_bound:.4f}, "
+            f"{fwd_by}; SDPA fwd {fwd_library_ms:.4f}) plain_bwd_ms "
             f"{plain_ms:.4f} library_bwd_ms {library_ms:.4f}")
         if not ok:
             raise RuntimeError(f"flash backward kernels disagree with the "
@@ -537,10 +595,12 @@ def phase_backward() -> dict:
         rows.append({"shape": name, "dq_ms": dq_ms, "dkv_ms": dkv_ms,
                      "delta_ms": delta_ms, "fwd_ms": fwd_ms,
                      "fwd_library_ms": fwd_library_ms,
+                     "fwd_bound_ms": fwd_bound, "fwd_bound_by": fwd_by,
                      "plain_ms": plain_ms, "library_ms": library_ms,
                      "dq_bound_ms": dq_bound, "dq_bound_by": dq_by,
                      "dkv_bound_ms": dkv_bound, "dkv_bound_by": dkv_by})
-    return {"rows": rows, "main": rows[-1], "worst": worst}
+    return {"rows": rows, "main": rows[-2], "lora": rows[-1],
+            "worst": worst}
 
 
 def _gpu_tests():
@@ -1761,11 +1821,7 @@ def phase_quant_model() -> dict:
         deq = _dequantized_copy(model, cfg)
         ref = deq(tokens).float()
     del model, deq
-
-    def rel_l2(a, b):
-        return ((a - b).norm() / b.norm()).item()
-
-    rel, rel_orig = rel_l2(int8, ref), rel_l2(int8, orig)
+    rel, rel_orig = _rel_l2(int8, ref), _rel_l2(int8, orig)
     agree = (int8.argmax(-1) == ref.argmax(-1)).float().mean().item()
     finite = bool(torch.isfinite(int8).all())
     ok = (finite and rel <= QUANT_LOGITS_REL_L2_MAX
@@ -1775,7 +1831,7 @@ def phase_quant_model() -> dict:
         f"{QUANT_LOGITS_REL_L2_MAX}), argmax agreement {agree:.4f} (bound "
         f"{QUANT_ARGMAX_AGREE_MIN}) {'OK' if ok else 'FAIL'}; vs the original "
         f"bf16 weights (reported): rel_l2 {rel_orig:.3e}, dequantized copy "
-        f"{rel_l2(ref, orig):.3e}")
+        f"{_rel_l2(ref, orig):.3e}")
     del int8, ref, orig
     torch.cuda.empty_cache()
     if not ok:
@@ -1805,7 +1861,7 @@ class _StepTap(io.TextIOBase):
 
     def __init__(self, out):
         self.out, self.buf, self.last = out, "", _counts()
-        self.steps, self.evals = [], []
+        self.steps, self.evals, self.events = [], [], []
 
     def write(self, text):
         self.out.write(text)
@@ -1816,7 +1872,10 @@ class _StepTap(io.TextIOBase):
                 rec = json.loads(line)
             except ValueError:
                 continue
-            if not isinstance(rec, dict) or "event" in rec:
+            if not isinstance(rec, dict):
+                continue
+            if "event" in rec:
+                self.events.append(rec)
                 continue
             if "eval_loss" in rec:
                 self.evals.append(rec)
@@ -2002,6 +2061,10 @@ class _KernelFwdPlainBwd(_PlainFlash):
         ctx.save_for_backward(q, k, v, out, lse, seg)
         ctx.spec = spec
         return out
+
+
+def _rel_l2(a, b) -> float:
+    return ((a - b).norm() / b.norm()).item()
 
 
 def _rel_l2s(grads, refs) -> tuple[list, float]:
@@ -2310,7 +2373,8 @@ def phase_job(train: dict) -> dict:
             f"evaluate, lengths {JOB_DOC_LENS[0]}-{JOB_DOC_LENS[1] - 1} "
             f"over vocabulary {cfg.vocab_size}, eos 0")
         result = _job_full(cfg, work, corpus, eval_corpus, train)
-        result.update(_job_resume(cfg, work, corpus))
+        result["resume"] = _job_resume(cfg, work, corpus)
+        result["resume_lora"] = _job_resume(cfg, work, corpus, lora=LORA)
         return result
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -2435,23 +2499,31 @@ def _job_full(cfg, work: str, corpus: str, eval_corpus: str,
                       for s, sec, n in saves]}
 
 
-def _job_resume(cfg, work: str, corpus: str) -> dict:
+def _job_resume(cfg, work: str, corpus: str,
+                lora: dict | None = None) -> dict:
     """5b-ii: three workers launched as the controller launches them. A
     fault-free reference (the same spec without checkpoints, which do not
     enter the losses), the spec with checkpoints and TPK_FAULT (it must
     die by SIGKILL after logging fault_injected), and its relaunch, which
     must log `restored` at the last checkpoint and reach the final step
-    with the reference's losses bit for bit."""
+    with the reference's losses bit for bit. With `lora` (a spec.lora),
+    the same for a LoRA job: its checkpoint holds the adapters' moments
+    alone, matched to them by name on the restore."""
     kw = dict(model_kwargs={"num_layers": JOB_RESUME_LAYERS},
-              steps=JOB_RESUME_STEPS)
-    ckpt = {"dir": os.path.join(work, "ckpt_resume"),
+              steps=JOB_RESUME_STEPS, lora=dict(lora or {}))
+    ckpt = {"dir": os.path.join(work, "ckpt_resume_lora" if lora
+                                else "ckpt_resume"),
             "interval": JOB_RESUME_INTERVAL, "keep": 2}
     cut = registry.model_config(TRAIN_MODEL, num_layers=JOB_RESUME_LAYERS)
-    log(f"  5b-ii: {TRAIN_MODEL} widths at {JOB_RESUME_LAYERS} layers "
+    per_param = 4 if lora else 12  # fp32 masters (and both moments)
+    log(f"  5b-ii{' with spec.lora ' + json.dumps(lora) if lora else ''}: "
+        f"{TRAIN_MODEL} widths at {JOB_RESUME_LAYERS} layers "
         f"(depth cut: a {cfg.num_layers}-layer checkpoint of fp32 masters "
-        f"and both moments is {12 * cfg.num_params / 1e9:.1f} GB, a "
-        f"{JOB_RESUME_LAYERS}-layer one {12 * cut.num_params / 1e9:.1f} GB, "
-        "written by two of the three runs), "
+        f"and {'the adapters' if lora else 'both'} moments is "
+        f"{per_param * cfg.num_params / 1e9:.1f} GB, a "
+        f"{JOB_RESUME_LAYERS}-layer one "
+        f"{per_param * cut.num_params / 1e9:.1f} GB, written by two of the "
+        "three runs), "
         f"{JOB_RESUME_STEPS} steps, checkpoint every {JOB_RESUME_INTERVAL}, "
         f"TPK_FAULT={JOB_FAULT}")
     runs = {}
@@ -2492,8 +2564,314 @@ def _job_resume(cfg, work: str, corpus: str) -> dict:
                     for k, ok in checks.items()))
     if not all(checks.values()):
         raise RuntimeError(f"fault and resume failed: {checks}")
-    return {"resume": {"restored_at": want_restore, "bit_equal": True,
-                       "seconds": {n: r[2] for n, r in runs.items()}}}
+    return {"restored_at": want_restore, "bit_equal": True,
+            "seconds": {n: r[2] for n, r in runs.items()}}
+
+
+def _lora_train(cfg, prof_dir: str) -> tuple:
+    """5c's training run through Trainer(spec).run(), the last warm-up
+    step profiled into prof_dir; returns (trainer, tap, wall seconds, peak
+    bytes, the frozen tensors as initialised)."""
+    steps = LORA_WARMUP + LORA_TIMED
+    spec = trainer_mod.TrainJobSpec(
+        model=LORA_MODEL, dataset="synthetic_lm", batch_size=LORA_BATCH,
+        seq_len=LORA_SEQ, learning_rate=LORA_LR, steps=steps, log_every=1,
+        seed=SEED, lora=dict(LORA),
+        profile={"dir": prof_dir, "start_step": LORA_WARMUP - 1,
+                 "num_steps": 1})
+    before = {}
+    real_init = trainer_mod.init_train_state
+
+    def init_and_snapshot(model, *args, **kw):
+        state = real_init(model, *args, **kw)
+        named = dict(model.named_parameters())
+        before.update({n: named[n].detach().clone()
+                       for n in LORA_FROZEN_CHECK})
+        return state
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    tap = _StepTap(sys.stdout)
+    t0 = time.monotonic()
+    trainer_mod.init_train_state = init_and_snapshot
+    try:
+        with contextlib.redirect_stdout(tap):
+            trainer = trainer_mod.Trainer(spec)
+            trainer.run()
+    finally:
+        trainer_mod.init_train_state = real_init
+    wall = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if len(tap.steps) != steps:
+        raise RuntimeError(f"LoRA trainer logged {len(tap.steps)} of {steps} "
+                           "steps")
+    return trainer, tap, wall, peak, before
+
+
+def phase_lora() -> dict:
+    """5c: LoRA on llama3_8b at full width and depth through the trainer,
+    then the merge and the merged model served through the engine."""
+    cfg = registry.model_config(LORA_MODEL)
+    layers = cfg.num_layers
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    prof_dir = tempfile.mkdtemp(prefix="chip_smoke_lora_prof_",
+                                dir=os.path.join(ROOT, "build"))
+    try:
+        trainer, tap, wall, peak, before = _lora_train(cfg, prof_dir)
+        log(f"  profile of step {LORA_WARMUP} (the last warm-up step):")
+        traces = _trace_kernels(prof_dir)
+    finally:
+        shutil.rmtree(prof_dir, ignore_errors=True)
+    model, lcfg = trainer.model, trainer.info["config"]
+    adapters, base = lora_mod.partition(model)
+    n_lora = sum(p.numel() for p in adapters.values())
+    expect = (2 * layers, layers, layers)
+    bad = [(rec["step"], n) for rec, n in tap.steps if n != expect]
+    if bad:
+        raise RuntimeError(f"LoRA steps launched (fwd, dq, dkv) {bad}, "
+                           f"expected {expect} a step")
+    losses = [rec["loss"] for rec, _ in tap.steps]
+    ln_v = math.log(cfg.vocab_size)
+    if not (all(math.isfinite(x) for x in losses)
+            and ln_v - LOSS0_BELOW <= losses[0] <= ln_v + LOSS0_ABOVE):
+        raise RuntimeError(f"LoRA losses {losses}: not finite, or the first "
+                           f"outside [{ln_v - LOSS0_BELOW:.2f}, "
+                           f"{ln_v + LOSS0_ABOVE:.2f}]")
+    named = dict(model.named_parameters())
+    frozen_ok = (all(torch.equal(named[n], before[n]) for n in before)
+                 and all(not p.requires_grad and p.grad is None
+                         for p in base.values()))
+    b_moved = max(p.abs().max().item() for n, p in adapters.items()
+                  if n.endswith("_lora_b"))
+    sharding = next(e for e in tap.events
+                    if e.get("event") == "state_sharding")
+    opt_bytes = sharding["opt_state_bytes_per_chip"]
+    timed = [rec for rec, _ in tap.steps[LORA_WARMUP:]]
+    step_s = sum(r["step_time_s"] for r in timed) / len(timed)
+    tok_s = LORA_BATCH * LORA_SEQ / step_s
+    flops_per_token = 4 * cfg.num_params + 6 * n_lora
+    mfu = flops_per_token * tok_s / PEAK_BF16_FLOPS
+    log(f"  trainer: {len(losses)} steps in {wall:.1f}s (model init "
+        f"included); losses {', '.join(f'{x:.4f}' for x in losses)}")
+    log(f"  launches per step (fwd, dq, dkv) = {expect} in every step "
+        f"(remat 'nothing': the forward twice a layer); run totals "
+        f"{_counts()}")
+    log(f"  timed {len(timed)} steps: {step_s * 1e3:.2f} ms/step, "
+        f"{tok_s:.0f} tok/s, LoRA MFU {mfu:.4f} ((4*N_base + 6*N_lora) * "
+        f"tok/s / {PEAK_BF16_FLOPS:.3g}; N_base {cfg.num_params}, N_lora "
+        f"{n_lora}); trainer's own mfu (6*N_base) {timed[-1]['mfu']:.4f}; "
+        f"peak memory {peak / 2**30:.2f} GiB; opt_state_bytes_per_chip "
+        f"{opt_bytes:.0f} ({opt_bytes / 1e9:.3f} GB, the adapters' mu and "
+        f"nu: 8 x {n_lora} = {8 * n_lora})")
+    log(f"  frozen base: {len(base)} tensors, requires_grad off, no .grad; "
+        f"{', '.join(LORA_FROZEN_CHECK)} bit-equal before and after "
+        f"training: {'OK' if frozen_ok else 'FAIL'}; largest |B| "
+        f"{b_moved:.3e}")
+    if not frozen_ok or opt_bytes != 8 * n_lora or not b_moved > 0:
+        raise RuntimeError("the LoRA run changed the base, kept other "
+                           "optimizer state or left B at zero")
+    result = {"launches": _counts(), "ms_per_step": step_s * 1e3,
+              "tok_s": tok_s, "mfu": mfu, "peak_gib": peak / 2**30,
+              "opt_state_bytes": opt_bytes, "n_lora": n_lora,
+              "losses": losses, "traces": traces}
+    del model, named, adapters, base, before  # the trainer's is the last
+    result.update(_lora_merge_and_serve(cfg, trainer))
+    return result
+
+
+def _set_compute_dtype(model, dtype) -> None:
+    """Run `model` in `dtype` (its weights stay as stored): every module's
+    config, each projection's compute dtype and each norm's output dtype,
+    as serve.quant.quantize_model swaps the config."""
+    cfg = dataclasses.replace(model.cfg, dtype=dtype)
+    for mod in model.modules():
+        if getattr(mod, "cfg", None) is not None:
+            mod.cfg = cfg
+        if isinstance(mod, llama_mod.Dense):
+            mod.compute_dtype = dtype
+        elif isinstance(mod, llama_mod.RMSNorm):
+            mod.dtype = dtype
+
+
+def _lora_merge_and_serve(cfg, trainer) -> dict:
+    """Fold the trained adapters into a bf16 serving copy (`merge`), hold a
+    lora_rank=0 model on it against the adapted model's logits, and serve
+    it through the engine. Takes the trainer's model from it, and frees
+    the fp32 model once the copy is made."""
+    model, lcfg = trainer.model, trainer.info["config"]
+    trainer.model = None
+    gen = np.random.default_rng(SEED + 5)
+    prompt = torch.from_numpy(gen.integers(
+        0, cfg.vocab_size, (1, LORA_PROMPT))).to(DEVICE)
+    with torch.no_grad():
+        adapted = model(prompt).float()
+        _set_compute_dtype(model, torch.float32)
+        exact = model(prompt).float()  # the trained function, fp32
+    # The serving layout: projections and the embedding in bf16, norm
+    # scales fp32; the adapters stay fp32 for the fold.
+    sd = {k: (v.to(torch.bfloat16) if k.endswith(".weight") or k == "embed"
+              else v.detach())
+          for k, v in model.state_dict().items()}
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    plain = llama_mod.Llama(cfg, device=DEVICE)  # lora_rank 0, bf16
+    plain.load_state_dict({k: v for k, v in sd.items()
+                           if not lora_mod.is_lora_path(k)})
+    plain.eval()
+    with torch.no_grad():
+        base_logits = plain(prompt).float()
+    t0 = time.monotonic()
+    merged = lora_mod.merge(sd, lcfg)
+    merge_s = time.monotonic() - t0
+    del sd
+    plain.load_state_dict(merged)
+    del merged
+    with torch.no_grad():
+        merged_logits = plain(prompt).float()
+    rel = _rel_l2(merged_logits, adapted)
+    rel_exact = _rel_l2(merged_logits, exact)
+    floor = _rel_l2(adapted, exact)
+    rel_base = _rel_l2(base_logits, adapted)
+    agree = (merged_logits.argmax(-1) == adapted.argmax(-1)).float().mean()
+    ok = rel_exact <= LOGITS_VS_NAIVE * floor and rel <= LOGITS_REL_L2_MAX
+    log(f"  merge: {merge_s:.2f}s for {len(llama_mod.lora_projections(lcfg))}"
+        f" x {cfg.num_layers} projections (fp32 fold, bf16 result); logits "
+        f"rel_l2 on a {LORA_PROMPT}-token prompt: merged lora_rank=0 bf16 "
+        f"model vs the trained model in fp32 {rel_exact:.3e}, the adapted "
+        f"bf16 model vs it {floor:.3e} (bound {LOGITS_VS_NAIVE} x that); "
+        f"merged vs adapted {rel:.3e} (bound {LOGITS_REL_L2_MAX}), argmax "
+        f"agreement {agree.item():.4f}; the base without adapters vs the "
+        f"adapted model {rel_base:.3e} {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("merged logits disagree with the adapted model")
+    del adapted, exact, base_logits
+    rng = np.random.default_rng(SEED + 6)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in LORA_REQUESTS]
+    with torch.no_grad():
+        firsts = [plain(torch.tensor([p], device=DEVICE))[0, -1].argmax()
+                  .item() for p in prompts]
+    served = GenerativeTorchModel(f"{LORA_MODEL}-lora-merged", plain,
+                                  generation=dict(LORA_SERVE))
+    served.load()
+    results: list = [None] * len(prompts)
+
+    def run(i):
+        try:
+            results[i] = served.generate({"input_ids": prompts[i],
+                                          "max_tokens": LORA_MAX_TOKENS})
+        except Exception as e:  # reported below as a failed request
+            results[i] = e
+
+    try:
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(len(prompts))]
+        _reset_counts()  # the engine's launches alone (load does no warm-up)
+        t0 = time.monotonic()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.monotonic() - t0
+        serving_launches = _counts()
+        stats = served.engine.stats_snapshot()
+    finally:
+        served.unload()
+    for i, res in enumerate(results):
+        ids = res.get("output_ids") if isinstance(res, dict) else None
+        if (ids is None or len(ids) != LORA_MAX_TOKENS
+                or not all(0 <= t < cfg.vocab_size for t in ids)):
+            raise RuntimeError(f"merged-model request {i} failed: {res!r}")
+        log(f"  merged model served (pipeline_depth "
+            f"{LORA_SERVE['pipeline_depth']}): prompt {LORA_REQUESTS[i]} "
+            f"tokens -> {ids[:8]}... ({len(ids)} greedy ids; the full "
+            f"forward's argmax {firsts[i]}, the engine's first id "
+            f"{ids[0]}), latency {res['latency_s']:.3f}s")
+    log(f"  {len(prompts)} concurrent requests in {wall:.2f}s; engine "
+        + ", ".join(f"{k} {stats.get(k)}" for k in PIPELINE_COUNTERS))
+    if not stats.get("decode_fetch_overlapped", 0) > 0:
+        raise RuntimeError("the merged model's engine never kept a chunk in "
+                           "flight while it fetched another")
+    first_ids_match = sum(r["output_ids"][0] == f
+                          for r, f in zip(results, firsts))
+    log(f"  engine's first id = the full forward's argmax in "
+        f"{first_ids_match} of {len(prompts)} requests; flash launches "
+        f"(fwd, dq, dkv) while the engine served: {serving_launches}")
+    if first_ids_match != len(prompts):
+        raise RuntimeError("the engine's first greedy ids on the merged "
+                           "model differ from the full forward's argmax")
+    del plain, served
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"merge_rel_l2": rel, "merge_vs_fp32_rel_l2": rel_exact,
+            "adapted_vs_fp32_rel_l2": floor, "base_rel_l2": rel_base,
+            "merge_s": merge_s, "serving_launches": serving_launches,
+            "first_ids_match": first_ids_match}
+
+
+def phase_remat() -> dict:
+    """5d: llama_1b at phase 5's point under each remat policy through
+    the trainer, REMAT_STEPS steps each: ms/step, peak memory, launches a
+    step, and the losses against "nothing"'s."""
+    layers = registry.model_config(TRAIN_MODEL).num_layers
+    rows = {p: [] for p in llama_mod.REMAT_POLICIES}
+    for policy in [*rows, *reversed(rows)]:
+        spec = trainer_mod.TrainJobSpec(
+            model=TRAIN_MODEL, model_kwargs={"remat_policy": policy},
+            dataset="synthetic_lm", batch_size=TRAIN_BATCH,
+            seq_len=TRAIN_SEQ, learning_rate=TRAIN_LR, weight_decay=1e-4,
+            steps=REMAT_STEPS, log_every=1, seed=SEED)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        tap = _StepTap(sys.stdout)
+        with contextlib.redirect_stdout(tap):
+            trainer_mod.Trainer(spec).run()
+        peak = torch.cuda.max_memory_allocated()
+        if len(tap.steps) != REMAT_STEPS:
+            raise RuntimeError(f"remat_policy {policy}: {len(tap.steps)} of "
+                               f"{REMAT_STEPS} steps")
+        rows[policy].append({
+            "ms": [rec["step_time_s"] * 1e3 for rec, _ in tap.steps[1:]],
+            "peak_gib": peak / 2**30,
+            "launches_per_step": [list(n) for _, n in tap.steps],
+            "losses": [rec["loss"] for rec, _ in tap.steps]})
+    ref = rows["nothing"][0]["losses"]
+    expect = [2 * layers, layers, layers]
+    out = {}
+    for policy, runs in rows.items():
+        ms = [x for run in runs for x in run["ms"]]
+        diff = max(abs(a - b) for run in runs
+                   for a, b in zip(run["losses"], ref))
+        ok = all(n == expect for run in runs
+                 for n in run["launches_per_step"]) and all(
+            abs(a - b) <= REMAT_LOSS_REL * abs(b) for run in runs
+            for a, b in zip(run["losses"], ref))
+        out[policy] = {"ms_per_step": sum(ms) / len(ms),
+                       "ms_by_run": [run["ms"] for run in runs],
+                       "peak_gib": max(run["peak_gib"] for run in runs),
+                       "launches_per_step": runs[0]["launches_per_step"],
+                       "launches": [sum(n[i] for run in runs
+                                        for n in run["launches_per_step"])
+                                    for i in range(3)],
+                       "losses": runs[0]["losses"], "max_loss_diff": diff}
+        log(f"  remat_policy {policy:13s}: {out[policy]['ms_per_step']:.2f} "
+            f"ms/step (steps 2-{REMAT_STEPS} of both runs: "
+            f"{', '.join(f'{x:.2f}' for x in ms)}), peak "
+            f"{out[policy]['peak_gib']:.2f} GiB, launches a step (fwd, dq, "
+            f"dkv) {runs[0]['launches_per_step'][-1]}; losses "
+            f"{', '.join(f'{x:.6f}' for x in runs[0]['losses'])}; largest "
+            f"difference from 'nothing' {diff:.3e} "
+            f"({'bit-equal' if diff == 0 else 'not bit-equal'}) "
+            f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"remat_policy {policy}: launches or losses "
+                               "differ from 'nothing'")
+    return out
 
 
 def phase_auto(gk) -> tuple:
@@ -2608,17 +2986,41 @@ def main() -> int:
     log(f"phase 5b: a training job: {TRAIN_MODEL} on packed documents, "
         "eval, profile, checkpoints, SIGKILL and resume")
     job = phase_job(train)
+    log(f"phase 5c: LoRA fine-tuning of {LORA_MODEL} through the trainer "
+        f"(spec.lora {json.dumps(LORA)}), merge, serve the merged model")
+    lora_run = phase_lora()
+    log(f"phase 5d: the remat policies on {TRAIN_MODEL} at phase 5's point")
+    remat = phase_remat()
     log("phase 6: attention_impl='auto' where the wgmma kernels do not "
         "take the config")
     simt_launches = phase_auto(gk)
     log(f"  phases 2-6 took {time.monotonic() - t0:.1f}s")
     main_row, bmain, qmain, wmain = (kern["main"], bwd["main"], q8["main"],
                                      w8r["main"])
-    smain = simt["main"]
+    smain, blora = simt["main"], bwd["lora"]
+    remat_launches = [sum(row["launches"][i] for row in remat.values())
+                      for i in range(3)]
     fwd_launches = {"serving": flat["launches"],
                     "paged_quant_serving": quant["launches"],
                     "training": train["launches"][0],
-                    "packed_training": job["launches"][0]}
+                    "packed_training": job["launches"][0],
+                    "lora_training": lora_run["launches"][0],
+                    "lora_merged_serving": lora_run["serving_launches"][0],
+                    "remat_policies": remat_launches[0]}
+
+    def by_path(i):
+        return {"training": train["launches"][i],
+                "packed_training": job["launches"][i],
+                "lora_training": lora_run["launches"][i],
+                "remat_policies": remat_launches[i]}
+
+    def lora_shape(key):
+        return {"ms_lora_shape": blora[f"{key}_ms"],
+                "bound_ms_lora_shape": blora[f"{key}_bound_ms"],
+                "library_ms_lora_shape": (blora["fwd_library_ms"]
+                                          if key == "fwd"
+                                          else blora["library_ms"]),
+                "lora_shape": blora["shape"]}
     bwd_common = {"route": "cuda",
                   "source": "kubeflow_tpu_torch/ops/csrc/flash_bwd.cu",
                   "plain_ms": bmain["plain_ms"],
@@ -2638,13 +3040,13 @@ def main() -> int:
         "library_ms": main_row["library_ms"], "shape": main_row["shape"],
         "ms_training_shape": bmain["fwd_ms"],
         "library_ms_training_shape": bmain["fwd_library_ms"],
+        **lora_shape("fwd"),
         "design": KERNEL_DESIGN,
     }, {
         "name": "flash_bwd_dq",
         "replaces": "kubeflow_tpu/ops/flash_attention.py:234",
-        "launches": train["launches"][1] + job["launches"][1],
-        "launches_by_path": {"training": train["launches"][1],
-                             "packed_training": job["launches"][1]},
+        "launches": sum(by_path(1).values()),
+        "launches_by_path": by_path(1), **lora_shape("dq"),
         "max_abs_err": bwd["worst"]["dq"]["max_abs"],
         "rel_l2_err": bwd["worst"]["dq"]["rel_l2"],
         "ms": bmain["dq_ms"], "bound_ms": bmain["dq_bound_ms"],
@@ -2652,9 +3054,8 @@ def main() -> int:
     }, {
         "name": "flash_bwd_dkv",
         "replaces": "kubeflow_tpu/ops/flash_attention.py:285",
-        "launches": train["launches"][2] + job["launches"][2],
-        "launches_by_path": {"training": train["launches"][2],
-                             "packed_training": job["launches"][2]},
+        "launches": sum(by_path(2).values()),
+        "launches_by_path": by_path(2), **lora_shape("dkv"),
         "max_abs_err": max(bwd["worst"][n]["max_abs"] for n in ("dk", "dv")),
         "rel_l2_err": max(bwd["worst"][n]["rel_l2"] for n in ("dk", "dv")),
         "ms": bmain["dkv_ms"], "bound_ms": bmain["dkv_bound_ms"],

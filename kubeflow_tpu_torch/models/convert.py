@@ -5,7 +5,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from kubeflow_tpu_torch.models.llama import LlamaConfig
+from kubeflow_tpu_torch.models.llama import LlamaConfig, lora_projections
 
 
 def _flatten(tree, prefix=()) -> dict:
@@ -43,6 +43,11 @@ def llama_params_from_jax(params_np, cfg: LlamaConfig) -> dict:
     kernel) and `scale` (fp32 per output channel: [L,1,H,Dh] -> [H*Dh] for
     q/k/v, [L,1,1,D] -> [D] for o_proj, [1,V] -> [V] for the head, [V,1] ->
     [V] for the embedding).
+
+    With `cfg.lora_rank` > 0 the adapters cross too: flax `*_lora_a`
+    [L, in, r] becomes the port's A [r, in], `*_lora_b` [L, r, *out] (q's
+    [L, r, H, Dh], v's [L, r, KH, Dh]) its B [out, r], in the storage
+    dtype.
 
     The layout transforms are linear, so the same call maps a JAX
     GRADIENT tree (same structure as the params) onto the port's
@@ -104,6 +109,19 @@ def llama_params_from_jax(params_np, cfg: LlamaConfig) -> dict:
     }
     stacked = {name: (*kernel(f"layers/{path}/kernel", shape, out), fn)
                for name, (path, shape, out, fn) in layer_kernels.items()}
+    outs = {"q_proj": (h, dh), "v_proj": (kh, dh), "gate_proj": (inter,),
+            "up_proj": (inter,), "down_proj": (d,)}
+    ins = {"q_proj": d, "v_proj": d, "gate_proj": d, "up_proj": d,
+           "down_proj": inter}
+    r = cfg.lora_rank
+    adapters = {}  # port name: (A [L, r, in], B [L, out, r])
+    for proj in lora_projections(cfg):
+        block, name = proj.split(".")
+        out = outs[name]
+        a = take(f"layers/{block}/{name}_lora_a", dt, (n, ins[name], r))
+        b = take(f"layers/{block}/{name}_lora_b", dt, (n, r, *out))
+        adapters[f"{block}.{name}"] = (a.transpose(1, 2),
+                                       b.reshape(n, r, -1).transpose(1, 2))
     inn = take("layers/input_norm/scale", f32, (n, d))
     pan = take("layers/post_attn_norm/scale", f32, (n, d))
     embed, embed_scale = kernel("embed", (v, d), v)
@@ -120,6 +138,9 @@ def llama_params_from_jax(params_np, cfg: LlamaConfig) -> dict:
         for name, (values, scale, to_linear) in stacked.items():
             put(p + name, values[i], None if scale is None else scale[i],
                 to_linear)
+        for name, (a, b) in adapters.items():
+            sd[p + name + "_lora_a"] = a[i].contiguous()
+            sd[p + name + "_lora_b"] = b[i].contiguous()
         sd[p + "input_norm.scale"] = inn[i].clone()
         sd[p + "post_attn_norm.scale"] = pan[i].clone()
     extra = sorted(set(flat) - used)

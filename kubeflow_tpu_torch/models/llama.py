@@ -3,8 +3,9 @@
 The port of `kubeflow_tpu/models/llama.py`: GQA, RoPE (with llama3 scaling),
 SwiGLU MLP, RMSNorm, tied or untied head, the KV-cache calling convention
 the serving engine drives — prefill (S > 1 at cache_index 0), single-token
-decode, and continuation chunks (`attend_full_cache`) — and the training
-forward with per-block rematerialisation.
+decode, and continuation chunks (`attend_full_cache`) — the training
+forward with per-block rematerialisation under the four JAX remat policies,
+and LoRA adapters on the attention (and MLP) projections.
 
 Where weights live is `cfg.param_dtype`: None (the default) stores them in
 `cfg.dtype`, the serving layout (bf16 weights: the JAX model keeps fp32
@@ -28,13 +29,15 @@ Differences from the JAX twin, by design:
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from kubeflow_tpu_torch.ops.flash_attention import (MaskSpec,
                                                     cuda_flash_takes,
@@ -75,8 +78,12 @@ class LlamaConfig:
     # each use (training, the JAX default). Norm scales are always fp32.
     param_dtype: Any = None
     # Per-block rematerialisation while grad is enabled (the JAX nn.remat
-    # of each DecoderLayer): policy "nothing" recomputes the whole block in
-    # the backward. The other JAX policies are refused by name.
+    # of each DecoderLayer). What the forward keeps for the backward, by
+    # policy: "nothing" the block's input; "dots" also every matrix
+    # product's output; "dots_no_batch" only those without batch dims (the
+    # projections and LoRA products, not naive attention's bmm);
+    # "save_attn" the input and the attention block's output. The rest is
+    # recomputed in the backward, the flash kernels included.
     remat: bool = True
     remat_policy: str = "nothing"
     # Flags of other model families and of later slices. They exist so a
@@ -92,6 +99,11 @@ class LlamaConfig:
     sliding_pattern: str = "all"
     qk_norm: bool = False
     rope_theta_local: float = 0.0
+    # LoRA: lora_rank > 0 adds (x @ A) @ B * alpha/rank to q_proj and
+    # v_proj ("attn", PEFT's Llama default), and to gate/up/down_proj too
+    # ("attn_mlp"). A [r, in], B [out, r] (PEFT's layouts), stored in
+    # `storage_dtype`, applied in `dtype`; named `<proj>_lora_a/_b` beside
+    # the projection, as the JAX leaves.
     lora_rank: int = 0
     lora_alpha: float = 16.0
     lora_targets: str = "attn"
@@ -161,7 +173,18 @@ def llama_1b() -> LlamaConfig:
         max_seq_len=2048)
 
 
-_UNPORTED_REMAT_POLICIES = ("dots", "dots_no_batch", "save_attn")
+REMAT_POLICIES = ("nothing", "dots", "dots_no_batch", "save_attn")
+LORA_TARGETS = ("attn", "attn_mlp")
+
+
+def lora_projections(cfg: LlamaConfig) -> tuple[str, ...]:
+    """The adapted projections of a layer, as `<block>.<proj>` names."""
+    if cfg.lora_rank <= 0:
+        return ()
+    attn = ("attn.q_proj", "attn.v_proj")
+    if cfg.lora_targets == "attn":
+        return attn
+    return attn + ("mlp.gate_proj", "mlp.up_proj", "mlp.down_proj")
 
 
 def _check_supported(cfg: LlamaConfig) -> None:
@@ -179,18 +202,19 @@ def _check_supported(cfg: LlamaConfig) -> None:
          f"sliding_pattern={cfg.sliding_pattern!r}"),
         (cfg.qk_norm, "qk_norm"),
         (cfg.rope_theta_local, "rope_theta_local (dual rope bases)"),
-        (cfg.lora_rank > 0, "LoRA (lora_rank > 0)"),
+        (cfg.lora_rank > 0 and cfg.quantized_dense,
+         "LoRA adapters on int8 projections (lora_rank with "
+         "quantized_dense; merge the adapters, then quantize)"),
         (cfg.attention_impl not in ("auto", "naive", "flash"),
          f"attention_impl={cfg.attention_impl!r} (ring/zigzag attention "
          "over a device mesh)"),
-        (cfg.remat and cfg.remat_policy in _UNPORTED_REMAT_POLICIES,
-         f"remat_policy={cfg.remat_policy!r} (only 'nothing': whole-block "
-         "recompute)"),
     ]
-    if cfg.remat and cfg.remat_policy not in (
-            "nothing", *_UNPORTED_REMAT_POLICIES):
+    if cfg.remat and cfg.remat_policy not in REMAT_POLICIES:
         raise ValueError(f"remat_policy {cfg.remat_policy!r}: one of "
-                         f"{['nothing', *_UNPORTED_REMAT_POLICIES]}")
+                         f"{list(REMAT_POLICIES)}")
+    if cfg.lora_rank > 0 and cfg.lora_targets not in LORA_TARGETS:
+        raise ValueError(f"lora_targets {cfg.lora_targets!r}: "
+                         f"{' | '.join(LORA_TARGETS)}")
     for bad, what in refused:
         if bad:
             raise NotImplementedError(f"{what} is not supported by this "
@@ -311,6 +335,37 @@ class Dense(nn.Linear):
         return F.linear(x, self.weight.to(self.compute_dtype))
 
 
+def _add_lora(block: nn.Module, block_name: str, cfg: LlamaConfig,
+              dims: dict, device) -> None:
+    """Register `<proj>_lora_a` [r, in] and `<proj>_lora_b` [out, r] on
+    `block` for each of its projections the config adapts (allocated, not
+    initialised: `Llama.init_weights` draws A and zeroes B)."""
+    block.lora = tuple(p.split(".")[1] for p in lora_projections(cfg)
+                       if p.startswith(block_name + "."))
+    r, dt = cfg.lora_rank, cfg.storage_dtype
+    for name in block.lora:
+        n_in, n_out = dims[name]
+        block.register_parameter(f"{name}_lora_a", nn.Parameter(
+            torch.empty(r, n_in, dtype=dt, device=device)))
+        block.register_parameter(f"{name}_lora_b", nn.Parameter(
+            torch.empty(n_out, r, dtype=dt, device=device)))
+
+
+def _project(block: nn.Module, name: str, x):
+    """The projection `name` of x, plus its LoRA delta (x @ A) @ B *
+    alpha/rank when the config adapts it: x, A and B cast to cfg.dtype, as
+    the JAX `_lora_delta`'s dot_generals."""
+    out = getattr(block, name)(x)
+    if name not in block.lora:
+        return out
+    cfg = block.cfg
+    dt = cfg.dtype
+    a = getattr(block, f"{name}_lora_a").to(dt)
+    b = getattr(block, f"{name}_lora_b").to(dt)
+    return out + F.linear(F.linear(x.to(dt), a), b) * (
+        cfg.lora_alpha / cfg.lora_rank)
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: LlamaConfig, device):
         super().__init__()
@@ -320,6 +375,9 @@ class Attention(nn.Module):
         self.k_proj = _dense(cfg, d, cfg.num_kv_heads * dh, device)
         self.v_proj = _dense(cfg, d, cfg.num_kv_heads * dh, device)
         self.o_proj = _dense(cfg, cfg.num_heads * dh, d, device)
+        _add_lora(self, "attn", cfg, {"q_proj": (d, cfg.num_heads * dh),
+                                      "v_proj": (d, cfg.num_kv_heads * dh)},
+                  device)
 
     def forward(self, x, cos, sin, positions, standard_positions=True,
                 cache=None, cache_index=None, segment_ids=None,
@@ -327,9 +385,11 @@ class Attention(nn.Module):
         cfg = self.cfg
         b, s, _ = x.shape
         h, kh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-        q = apply_rope(self.q_proj(x).view(b, s, h, dh), cos, sin, positions)
+        # Each LoRA delta lands on its projection's output, before RoPE.
+        q = apply_rope(_project(self, "q_proj", x).view(b, s, h, dh), cos,
+                       sin, positions)
         k = apply_rope(self.k_proj(x).view(b, s, kh, dh), cos, sin, positions)
-        v = self.v_proj(x).view(b, s, kh, dh)
+        v = _project(self, "v_proj", x).view(b, s, kh, dh)
         mask_spec = cfg.mask_spec
         if mask_spec is not None and cache is not None:
             raise ValueError(
@@ -397,13 +457,18 @@ class Attention(nn.Module):
 class MLPBlock(nn.Module):
     def __init__(self, cfg: LlamaConfig, device):
         super().__init__()
+        self.cfg = cfg
         d, i = cfg.hidden_size, cfg.intermediate_size
         self.gate_proj = _dense(cfg, d, i, device)
         self.up_proj = _dense(cfg, d, i, device)
         self.down_proj = _dense(cfg, i, d, device)
+        _add_lora(self, "mlp", cfg, {"gate_proj": (d, i), "up_proj": (d, i),
+                                     "down_proj": (i, d)}, device)
 
     def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        h = F.silu(_project(self, "gate_proj", x)) * _project(self, "up_proj",
+                                                              x)
+        return _project(self, "down_proj", h)
 
 
 class DecoderLayer(nn.Module):
@@ -422,7 +487,48 @@ class DecoderLayer(nn.Module):
         x = x + self.attn(self.input_norm(x), cos, sin, positions,
                           standard_positions, cache, cache_index, segment_ids,
                           attend_full_cache)
-        return x + self.mlp(self.post_attn_norm(x))
+        return x + self.mlp_branch(x)
+
+    def attn_branch(self, x, cos, sin, positions, standard_positions=True,
+                    segment_ids=None):
+        """The attention block's output (after o_proj) of a training
+        forward: what JAX names "attn_out" for the save_attn policy."""
+        return self.attn(self.input_norm(x), cos, sin, positions,
+                         standard_positions, segment_ids=segment_ids)
+
+    def mlp_branch(self, x):
+        return self.mlp(self.post_attn_norm(x))
+
+
+_SAVED_PRODUCTS = {  # remat policy: the ops whose outputs it keeps
+    "dots": [torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+             torch.ops.aten.bmm.default],
+    "dots_no_batch": [torch.ops.aten.mm.default,
+                      torch.ops.aten.addmm.default],
+}
+
+
+def _remat_layer(policy: str, layer: DecoderLayer, x, cos, sin, positions,
+                 standard_positions, segment_ids):
+    """One training DecoderLayer under `torch.utils.checkpoint`, keeping
+    what `policy` keeps (see LlamaConfig.remat_policy). The flash kernels
+    are launched through ctypes, out of the dispatcher's sight: no policy
+    keeps their output, so the recompute launches them again, as JAX's
+    recompute runs the Pallas kernel again."""
+    if policy == "save_attn":
+        # Two regions, so the saved inputs are the layer's input and x +
+        # attn_out: as much as JAX keeps for checkpoint_name("attn_out").
+        x = x + checkpoint(layer.attn_branch, x, cos, sin, positions,
+                           standard_positions, segment_ids,
+                           use_reentrant=False)
+        return x + checkpoint(layer.mlp_branch, x, use_reentrant=False)
+    kwargs = {}
+    if policy in _SAVED_PRODUCTS:
+        kwargs["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _SAVED_PRODUCTS[policy])
+    return checkpoint(layer, x, cos, sin, positions, standard_positions,
+                      None, None, segment_ids, False, use_reentrant=False,
+                      **kwargs)
 
 
 class Llama(nn.Module):
@@ -432,8 +538,8 @@ class Llama(nn.Module):
     device="cpu" to run on the CPU. Parameters are allocated, not
     initialised: load a state dict or call `init_weights(seed)`. With
     `cfg.remat` and grad enabled, each DecoderLayer runs under
-    `torch.utils.checkpoint` (its forward, flash kernel included, runs
-    again in the backward).
+    `torch.utils.checkpoint` with `cfg.remat_policy` (its forward, flash
+    kernel included, runs again in the backward).
 
     With `cfg.quantized_dense` every projection is an `Int8Dense` and the
     embedding an `Int8Dense` table (codes [V, D], scales [V]); such a model
@@ -471,8 +577,9 @@ class Llama(nn.Module):
     def init_weights(self, seed: int = 0) -> "Llama":
         """Random weights from `seed` on the model's own device: embedding
         N(0, 0.02), projections N(0, 1/fan_in) (LeCun normal, untruncated),
-        norm scales 1. A quantized model is refused: initialise the float
-        model, then quantize it."""
+        norm scales 1, LoRA A N(0, 0.02) and B zero (so the adapted model
+        starts as the base). A quantized model is refused: initialise the
+        float model, then quantize it."""
         if self.cfg.quantized_dense:
             raise ValueError("init_weights needs a float model; quantize "
                              "after initialising (serve.quant.quantize_model)")
@@ -484,6 +591,11 @@ class Llama(nn.Module):
                                    generator=gen)
             elif isinstance(mod, RMSNorm):
                 mod.scale.fill_(1.0)
+        for name, p in self.named_parameters():
+            if name.endswith("_lora_a"):
+                p.normal_(0.0, 0.02, generator=gen)
+            elif name.endswith("_lora_b"):
+                p.zero_()
         return self
 
     def forward(self, tokens, positions=None, cache: dict | None = None,
@@ -514,9 +626,9 @@ class Llama(nn.Module):
                  and torch.is_grad_enabled())
         for i, layer in enumerate(self.layers):
             if remat:
-                x = checkpoint(layer, x, self.rope_cos, self.rope_sin,
-                               positions, standard_positions, None, None,
-                               segment_ids, False, use_reentrant=False)
+                x = _remat_layer(self.cfg.remat_policy, layer, x,
+                                 self.rope_cos, self.rope_sin, positions,
+                                 standard_positions, segment_ids)
                 continue
             layer_cache = (None if cache is None
                            else {n: c[i] for n, c in cache.items()})

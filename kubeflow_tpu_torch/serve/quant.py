@@ -172,6 +172,9 @@ def quantize_model(model, *, min_size: int = 4096):
     cfg = model.cfg
     if cfg.quantized_dense:
         raise ValueError("model is already quantized")
+    if cfg.lora_rank > 0:
+        raise ValueError("model has LoRA adapters: fold them in first "
+                         "(train.lora.merge into a lora_rank=0 model)")
     for parent, name, stacked in _projections(model):
         if stacked < min_size:
             continue

@@ -5,13 +5,21 @@ interface (the JAX package writes through orbax; the card has no orbax).
 The format is this package's own: one directory per step,
 
     <dir>/<step>/state.pt    torch.save of {"step", "count", "params"
-                             {name: tensor}, "mu" [...], "nu" [...]}
+                             {name: tensor}, "mu" {name: tensor}, "nu"
+                             {name: tensor}}
     <dir>/<step>/data.json   the input iterator's resume state, if given
 
 written into `<step>.tmp-<pid>` and published with `os.replace`, so a step
 directory is whole or absent. A `*.tmp-*` directory found when a manager
 starts is a torn write of a killed process and is swept. Restores load
 with `torch.load(weights_only=True)` onto the state's device.
+
+"params" holds every parameter, a frozen LoRA base included (the JAX
+state's params do too); the moments are keyed by the names of the
+parameters the optimizer updates (all, or the adapters alone), and a
+restore matches them by name. A checkpoint written before LoRA training
+was ported holds "mu" and "nu" as lists in parameter order; a state that
+trains every parameter restores them in that order.
 
 The save schedule is orbax's as the JAX trainer configures it: a step is
 saved when it is past the latest saved step and either a multiple of
@@ -80,7 +88,8 @@ def _sweep_stale_tmp(directory: str) -> list[str]:
 
 class CheckpointManager:
     """Saves and restores a `train.step.TrainState` (model parameters,
-    AdamW moments and count, the step) plus the data iterator's state."""
+    the AdamW moments of its trainable parameters and the count, the step)
+    plus the data iterator's state."""
 
     def __init__(self, directory: str, *, interval: int = 100,
                  keep: int | None = 3, async_save: bool = True):
@@ -151,16 +160,16 @@ class CheckpointManager:
 
     def _snapshot(self, state) -> tuple[dict, Any]:
         """(the state as host tensors, the event their copies end at)."""
-        names = [n for n, _ in state.model.named_parameters()]
+        train = list(state.train_named)
         payload = {
             "step": int(state.step),
             "count": int(state.opt_state.count),
             "params": {n: self._host_copy(("p", n), p) for n, p in
-                       zip(names, state.params)},
-            "mu": [self._host_copy(("mu", n), x)
-                   for n, x in zip(names, state.opt_state.mu)],
-            "nu": [self._host_copy(("nu", n), x)
-                   for n, x in zip(names, state.opt_state.nu)],
+                       state.model.named_parameters()},
+            "mu": {n: self._host_copy(("mu", n), x)
+                   for n, x in zip(train, state.opt_state.mu)},
+            "nu": {n: self._host_copy(("nu", n), x)
+                   for n, x in zip(train, state.opt_state.nu)},
         }
         event = None
         device = state.params[0].device
@@ -257,22 +266,33 @@ class CheckpointManager:
                                         STATE_FILE),
                            map_location=device, weights_only=True)
         names = [n for n, _ in state.model.named_parameters()]
-        if list(saved["params"]) != names:
-            raise ValueError(f"checkpoint step {step} holds parameters "
-                             f"{list(saved['params'])[:4]}..., not the "
-                             f"model's {names[:4]}...")
+        train = list(state.train_named)
+        if train == names:  # full training: the list layout is positional
+            for key in ("mu", "nu"):
+                if (isinstance(saved[key], list)
+                        and len(saved[key]) == len(names)):
+                    saved[key] = dict(zip(names, saved[key]))
+        for key, want_names in (("params", names), ("mu", train),
+                                ("nu", train)):
+            got = saved[key]
+            if not isinstance(got, dict) or set(got) != set(want_names):
+                raise ValueError(
+                    f"checkpoint step {step} holds {key} for other "
+                    f"parameters than the state's {len(want_names)} "
+                    f"({want_names[:2]}...)")
         srcs = [saved["params"][n] for n in names]
-        for got, want in ((srcs, params), (saved["mu"], state.opt_state.mu),
-                          (saved["nu"], state.opt_state.nu)):
+        mu = [saved["mu"][n] for n in train]
+        nu = [saved["nu"][n] for n in train]
+        for got, want in ((srcs, params), (mu, state.opt_state.mu),
+                          (nu, state.opt_state.nu)):
             if len(got) != len(want) or any(
                     g.shape != w.shape or g.dtype != w.dtype
                     for g, w in zip(got, want)):
                 raise ValueError(f"checkpoint step {step} does not fit the "
                                  "training state (shapes or dtypes differ)")
         with torch.no_grad():
-            for got, want in ((srcs, params),
-                              (saved["mu"], state.opt_state.mu),
-                              (saved["nu"], state.opt_state.nu)):
+            for got, want in ((srcs, params), (mu, state.opt_state.mu),
+                              (nu, state.opt_state.nu)):
                 for g, w in zip(got, want):
                     w.copy_(g)
         state.step = int(saved["step"])

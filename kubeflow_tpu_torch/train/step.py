@@ -6,8 +6,10 @@ step is eager PyTorch: autograd for the gradients (the flash backward
 kernels among them), then `optim.AdamW.update` in place. Nothing in the
 step waits for the device: the metrics it returns are device tensors.
 
-`make_eval_step` is the JAX eval step. Mesh, FSDP, pipeline parallelism
-and LoRA (`trainable="lora"`) are not ported and are refused by name.
+`trainable="lora"` differentiates and updates the LoRA adapters alone
+(the JAX `lora_step`): the base is frozen, gets no gradient and no
+optimizer state. `make_eval_step` is the JAX eval step. Mesh, FSDP and
+pipeline parallelism are not ported and are refused by name.
 """
 
 from __future__ import annotations
@@ -20,22 +22,45 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from kubeflow_tpu_torch.train import lora
 from kubeflow_tpu_torch.train.optim import AdamW, AdamWState, global_norm
+
+TRAINABLE = (None, "lora")
+# The JAX step's and trainer's refusal of fsdp with LoRA, as one message.
+FSDP_WITH_LORA = ("fsdp master sharding doesn't compose with trainable="
+                  "'lora' (the adapter-only optimizer state is the memory "
+                  "win there)")
 
 
 @dataclasses.dataclass
 class TrainState:
-    """Step count, the model (its parameters are the params) and the
-    optimizer with its state. Updated in place by the step."""
+    """Step count, the model (its parameters are the params, all of them,
+    frozen base included) and the optimizer with its state over the
+    trainable ones (`trainable` None: every parameter; "lora": the
+    adapters). `train_named` ({name: parameter} of what the optimizer
+    updates, in parameter order; the moments follow it) is decided once,
+    when the state is made. Updated in place by the step."""
 
     step: int
     model: nn.Module
     opt_state: AdamWState
     tx: AdamW
+    trainable: str | None = None
+    train_named: dict | None = None
+
+    def __post_init__(self):
+        if self.train_named is None:
+            self.train_named = (lora.partition(self.model)[0]
+                                if self.trainable == "lora"
+                                else dict(self.model.named_parameters()))
 
     @property
     def params(self) -> list:
         return list(self.model.parameters())
+
+    @property
+    def train_params(self) -> list:
+        return list(self.train_named.values())
 
 
 def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
@@ -107,23 +132,35 @@ def _unembed_head(model: nn.Module) -> torch.Tensor:
                      "parameter")
 
 
+def _check_trainable(trainable) -> None:
+    if trainable not in TRAINABLE:
+        raise ValueError(f"trainable {trainable!r}: None or 'lora'")
+
+
 def init_train_state(model: nn.Module, tx: AdamW, seed: int | None = 0,
-                     params: dict | None = None) -> TrainState:
+                     params: dict | None = None,
+                     trainable: str | None = None) -> TrainState:
     """Weights from `seed` (`model.init_weights`) or from a state dict
     (`params`, e.g. converted from a JAX tree), and a fresh optimizer
-    state at step 0."""
+    state at step 0. `trainable="lora"` freezes the base
+    (`lora.freeze_base`) and gives the optimizer state to the adapters
+    alone."""
+    _check_trainable(trainable)
     if params is not None:
         model.load_state_dict(params)
     else:
         model.init_weights(seed)
-    return TrainState(step=0, model=model,
-                      opt_state=tx.init(list(model.parameters())), tx=tx)
+    if trainable == "lora":
+        lora.freeze_base(model)
+    state = TrainState(step=0, model=model, opt_state=None, tx=tx,
+                       trainable=trainable)
+    state.opt_state = tx.init(state.train_params)
+    return state
 
 
-def _refuse(pipeline, trainable, fsdp, mesh) -> None:
+def _refuse(pipeline, fsdp, mesh) -> None:
     refused = [
         (pipeline, "pipeline parallelism (pipeline=...)"),
-        (trainable is not None, f"trainable={trainable!r} (LoRA)"),
         (fsdp, "FSDP master-state sharding (fsdp=...)"),
         (mesh is not None, "a device mesh (mesh=...)"),
     ]
@@ -149,8 +186,22 @@ def make_train_step(model: nn.Module, loss_fn: Callable | None = None,
     unembedding (`chunked_cross_entropy`). accum_steps > 1 differentiates
     accum_steps row slices in order, sums their fp32 grads and divides by
     accum_steps before the single optimizer update (the JAX scan's
-    arithmetic). grad_norm is the pre-clip global norm."""
-    _refuse(pipeline, trainable, fsdp, mesh)
+    arithmetic). grad_norm is the pre-clip global norm.
+
+    trainable="lora" differentiates only the adapters (`torch.autograd.grad`
+    over them: the frozen base gets no `.grad` and no weight-gradient
+    product) and updates them alone; grad_norm is theirs. The step trains
+    what the state's optimizer covers (`state.train_named`); `trainable`
+    is the JAX signature's, checked here against the model and at each
+    call against the state it must come from
+    (`init_train_state(..., trainable="lora")`). JAX raises for fsdp with
+    LoRA; so does this (before refusing fsdp as unported)."""
+    _check_trainable(trainable)
+    if trainable == "lora":
+        lora.partition(model)  # raises without adapters
+        if fsdp:
+            raise ValueError(FSDP_WITH_LORA)
+    _refuse(pipeline, fsdp, mesh)
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     if loss_impl not in ("full", "chunked"):
@@ -203,7 +254,11 @@ def make_train_step(model: nn.Module, loss_fn: Callable | None = None,
         return lsum / accum_steps, asum / accum_steps, grads
 
     def step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
-        params = state.params
+        if state.trainable != trainable:
+            raise ValueError(f"the state's optimizer covers trainable="
+                             f"{state.trainable!r}, the step trains "
+                             f"trainable={trainable!r}")
+        params = state.train_params
         loss, aux, grads = loss_and_grads(params, batch)
         gnorm = global_norm(grads)
         state.opt_state = state.tx.update(params, grads, state.opt_state,

@@ -7,7 +7,9 @@ dataset registries, the prefetching input pipeline, the eager train step
 and the JSONL metrics stream with tokens/s and MFU; checkpoints with
 auto-resume of the state and the data stream, the restart policies, the
 eval stream, profiler windows and `TPK_FAULT` make it a restartable job
-worker.
+worker. `"lora": {"rank", "alpha", "targets"}` fine-tunes LoRA adapters on
+a frozen base (adapter-only gradients and optimizer state); the trainer
+never merges them (`train.lora.merge` does, for serving).
 
     python -m kubeflow_tpu_torch.train.trainer [--spec job.json] [--device cpu]
 
@@ -19,8 +21,8 @@ The loop blocks on the device only at log, eval, profile-close and save
 boundaries. Features of the JAX runtime that the port does not have yet
 are refused by name with NotImplementedError, never ignored: a device
 mesh or a non-default sharding strategy, FSDP, pipeline parallelism,
-LoRA, ring attention, the fsdp compute dtype (`param_dtype`) and more
-than one process (`TPK_NUM_PROCS` > 1).
+ring attention, the fsdp compute dtype (`param_dtype`) and more than one
+process (`TPK_NUM_PROCS` > 1).
 """
 
 from __future__ import annotations
@@ -38,14 +40,15 @@ from kubeflow_tpu_torch.comms.bootstrap import initialize, read_env
 from kubeflow_tpu_torch.controlplane.client import Client
 from kubeflow_tpu_torch.data.loader import restore_iterator
 from kubeflow_tpu_torch.data.prefetch import Prefetcher
+from kubeflow_tpu_torch.models.llama import LORA_TARGETS, LlamaConfig
 from kubeflow_tpu_torch.train.checkpoint import CheckpointManager
 from kubeflow_tpu_torch.train.metrics import (MetricsLogger, StepTimer,
                                               peak_flops_per_chip)
 from kubeflow_tpu_torch.train.optim import (AdamW, Schedule,
                                             join_schedules, linear_schedule,
                                             warmup_cosine_decay_schedule)
-from kubeflow_tpu_torch.train.step import (init_train_state, make_eval_step,
-                                           make_train_step)
+from kubeflow_tpu_torch.train.step import (FSDP_WITH_LORA, init_train_state,
+                                           make_eval_step, make_train_step)
 from kubeflow_tpu_torch.utils import faults, registry, resilience
 from kubeflow_tpu_torch.utils.devices import resolve_device
 
@@ -64,7 +67,8 @@ class TrainJobSpec:
     features the port does not have are kept so a JAX job spec parses;
     the Trainer refuses them when set. `checkpoint` is {"dir", "interval"
     (50), "keep" (3), "async_save" (true)}; `profile` is {"dir",
-    "start_step", "num_steps" (3)}."""
+    "start_step", "num_steps" (3)}; `lora` is {"rank", "alpha" (16),
+    "targets" ("attn" | "attn_mlp")}."""
 
     model: str = "llama_tiny"
     model_kwargs: dict = dataclasses.field(default_factory=dict)
@@ -126,7 +130,6 @@ def _refuse_unported(spec: TrainJobSpec) -> None:
          f"strategy={spec.strategy!r} (sharding rules over a mesh)"),
         (spec.fsdp, "fsdp (FSDP master-state sharding)"),
         (spec.pipeline, "pipeline (pipeline parallelism)"),
-        (spec.lora, "lora (LoRA fine-tuning)"),
         (spec.ring_attention,
          f"ring_attention={spec.ring_attention!r} (context parallelism)"),
         (spec.param_dtype is not None,
@@ -136,6 +139,31 @@ def _refuse_unported(spec: TrainJobSpec) -> None:
         if bad:
             raise NotImplementedError(f"{what} is not supported by this "
                                       "package yet")
+
+
+def _lora_model_kwargs(spec: TrainJobSpec) -> dict:
+    """The model kwargs `spec.lora` injects, after the JAX trainer's
+    checks (with its messages); {} without LoRA."""
+    if not spec.lora:
+        return {}
+    unknown = set(spec.lora) - {"rank", "alpha", "targets"}
+    if unknown:
+        raise ValueError(f"unknown spec.lora keys {sorted(unknown)}; valid: "
+                         "rank, alpha, targets")
+    rank = int(spec.lora.get("rank", 0))
+    if rank < 1:
+        raise ValueError(f"lora.rank must be >= 1, got {rank}")
+    targets = spec.lora.get("targets", "attn")
+    if targets not in LORA_TARGETS:
+        raise ValueError(f"lora.targets {targets!r}: attn | attn_mlp")
+    if spec.pipeline:
+        raise ValueError("LoRA doesn't compose with pipeline parallelism "
+                         "(the stage forward has no adapter path)")
+    if spec.fsdp:
+        raise ValueError(FSDP_WITH_LORA)
+    return {"lora_rank": rank,
+            "lora_alpha": float(spec.lora.get("alpha", 16.0)),
+            "lora_targets": targets}
 
 
 def _parse_fault(text: str) -> tuple[int | None, int]:
@@ -153,6 +181,8 @@ class Trainer:
     def __init__(self, spec: TrainJobSpec, device=None):
         self.spec = spec
         self.penv = initialize(read_env())
+        lora_kwargs = _lora_model_kwargs(spec)
+        self.trainable = "lora" if lora_kwargs else None
         _refuse_unported(spec)
         self.device = resolve_device(device)
         if spec.accum_steps < 1:
@@ -190,7 +220,11 @@ class Trainer:
             raise ValueError(
                 "profile_start_step/profile_stop_step must be >= 0, got "
                 f"{spec.profile_start_step}/{spec.profile_stop_step}")
-        model_kwargs = dict(spec.model_kwargs)
+        if lora_kwargs and not isinstance(registry.model_config(spec.model),
+                                          LlamaConfig):
+            raise ValueError(f"spec.lora needs a Llama-family model; "
+                             f"{spec.model!r} has no adapter path")
+        model_kwargs = {**spec.model_kwargs, **lora_kwargs}
         # fp32 master weights, as the JAX config's default param_dtype.
         model_kwargs.setdefault("param_dtype", "float32")
         self.model, self.info = registry.build_model(
@@ -360,7 +394,8 @@ class Trainer:
 
     def _run_once(self) -> dict:
         spec = self.spec
-        state = init_train_state(self.model, self.tx, seed=spec.seed)
+        state = init_train_state(self.model, self.tx, seed=spec.seed,
+                                 trainable=self.trainable)
         start_step = 0
         if self._ckpt is not None:
             # A torn latest step (SIGKILL mid-save) is quarantined and the
@@ -383,7 +418,8 @@ class Trainer:
             "grad_accum_steps": self.grad_accum})
         step_fn = make_train_step(self.model, loss_impl=spec.loss_impl,
                                   loss_chunk=spec.loss_chunk,
-                                  accum_steps=self.grad_accum)
+                                  accum_steps=self.grad_accum,
+                                  trainable=self.trainable)
         eval_step = make_eval_step(self.model) if spec.eval_every else None
         # One persistent eval stream for the whole run (file-backed
         # corpora pay their packing in the constructor), rebuilt only when

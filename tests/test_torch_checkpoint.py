@@ -7,7 +7,8 @@ below the latest step), checked against it step by step; `keep` prunes;
 an async save snapshots before the next in-place update; torn `*.tmp-*`
 directories are swept; a truncated latest step is quarantined and the
 one before restored; the `checkpoint.save` and `checkpoint.restore` fault
-points fire.
+points fire; moments saved as lists in parameter order (the layout before
+they were keyed by name) restore into a full-training state.
 """
 
 import os
@@ -181,6 +182,48 @@ def test_a_state_that_does_not_fit_raises_before_copying(tmp_path):
     other = init_train_state(llama.Llama(cfg, device="cpu"), AdamW(1e-3))
     want = [t.clone() for t in _tensors(other)]
     with pytest.raises(ValueError, match="parameters|does not fit"):
+        mgr.restore(other)
+    for t, w in zip(_tensors(other), want):
+        assert torch.equal(t, w)
+
+
+def _as_list_layout(path, names):
+    """Rewrite a saved state.pt with "mu"/"nu" as lists in parameter
+    order, the layout written before the moments were keyed by name."""
+    saved = torch.load(path, weights_only=True)
+    for key in ("mu", "nu"):
+        saved[key] = [saved[key][n] for n in names]
+    torch.save(saved, path)
+
+
+def test_list_layout_moments_restore_in_parameter_order(tmp_path):
+    src = _state(seed=0, steps=2)
+    mgr = ckpt.CheckpointManager(tmp_path, interval=1, async_save=False)
+    mgr.maybe_save(2, src)
+    names = [n for n, _ in src.model.named_parameters()]
+    _as_list_layout(tmp_path / "2" / ckpt.STATE_FILE, names)
+    dst = _state(seed=5)
+    mgr.restore(dst)
+    _assert_same(src, dst)
+
+
+def test_list_layout_moments_are_refused_by_a_lora_state(tmp_path):
+    cfg = llama.llama_tiny()
+    cfg = type(cfg)(**{**cfg.__dict__, "dtype": torch.float32,
+                       "param_dtype": torch.float32, "num_layers": 2,
+                       "lora_rank": 2})
+
+    def lora_state(seed):
+        return init_train_state(llama.Llama(cfg, device="cpu"), AdamW(1e-3),
+                                seed=seed, trainable="lora")
+
+    mgr = ckpt.CheckpointManager(tmp_path, interval=1, async_save=False)
+    src = lora_state(0)
+    mgr.maybe_save(1, src)
+    _as_list_layout(tmp_path / "1" / ckpt.STATE_FILE, list(src.train_named))
+    other = lora_state(5)
+    want = [t.clone() for t in _tensors(other)]
+    with pytest.raises(ValueError, match="holds mu for other parameters"):
         mgr.restore(other)
     for t, w in zip(_tensors(other), want):
         assert torch.equal(t, w)

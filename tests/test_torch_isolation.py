@@ -47,6 +47,7 @@ def test_server_import_loads_no_jax():
             "import kubeflow_tpu_torch.models.convert; "
             "import kubeflow_tpu_torch.train.trainer; "
             "import kubeflow_tpu_torch.train.checkpoint; "
+            "import kubeflow_tpu_torch.train.lora; "
             "import kubeflow_tpu_torch.data.loader; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")

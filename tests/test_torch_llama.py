@@ -156,7 +156,8 @@ def test_converter_consumes_every_leaf_and_refuses_strays():
     {"sandwich_norms": True}, {"attn_softcap": 50.0},
     {"final_softcap": 30.0}, {"query_pre_attn_scalar": 256.0},
     {"sliding_pattern": "even"}, {"qk_norm": True},
-    {"rope_theta_local": 10000.0}, {"lora_rank": 4},
+    {"rope_theta_local": 10000.0},
+    {"lora_rank": 4, "quantized_dense": True},
     {"attention_impl": "ring"},
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_config_flags_are_refused(kw):

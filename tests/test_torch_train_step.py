@@ -189,21 +189,9 @@ def test_fp32_params_cast_to_bf16_at_use():
         assert torch.equal(m32(toks), m16(toks))
 
 
-@pytest.mark.parametrize("policy", ["dots", "dots_no_batch", "save_attn"])
-def test_unported_remat_policies_are_refused(policy):
-    cfg = dataclasses.replace(tl.llama_tiny(), remat=True,
-                              remat_policy=policy)
-    with pytest.raises(NotImplementedError, match="remat_policy"):
-        tl.Llama(cfg, device="cpu")
-    with pytest.raises(ValueError, match="remat_policy"):
-        tl.Llama(dataclasses.replace(cfg, remat_policy="bogus"),
-                 device="cpu")
-
-
 def test_make_train_step_refuses_unported():
     model = tl.Llama(_cfgs()[1], device="cpu")
     for kw, what in [({"pipeline": {"microbatches": 2}}, "pipeline"),
-                     ({"trainable": "lora"}, "LoRA"),
                      ({"fsdp": object()}, "FSDP"),
                      ({"mesh": object()}, "mesh")]:
         with pytest.raises(NotImplementedError, match=what):

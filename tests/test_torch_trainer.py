@@ -74,7 +74,6 @@ def test_trainer_prefetch_depths_train_identically():
     ({"strategy": "fsdp"}, "strategy"),
     ({"fsdp": 2}, "fsdp"),
     ({"pipeline": {"microbatches": 2}}, "pipeline"),
-    ({"lora": {"rank": 4}}, "lora"),
     ({"ring_attention": "ring"}, "ring_attention"),
     ({"param_dtype": "bfloat16"}, "param_dtype"),
 ], ids=lambda x: x if isinstance(x, str) else None)
