@@ -77,6 +77,23 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
      least 5 GiB under phase 4's, the longest prompt's ids and step time
      at depth 1 against depth 2; then the int8 model's logits against a
      bf16 model holding the same codes dequantized;
+  4d. the request surface: phase 4's bundle with the "bytes" tokenizer
+     behind a server admitting 6 requests at once: phase 4's six requests
+     at once over :generate, the v2 generate stream and
+     /openai/v1/completions (one streamed; every first-chunk prefill
+     through the flash kernel), then the longest greedy prompt streamed as
+     ndjson (frames joined = phase 4's repeat ids; time to the first frame
+     and to done beside the same prompt unstreamed on this server and on
+     phase 4's), a 2000-token
+     request under a 500 ms deadline (504; streamed under 3 s, past its
+     first frame: a terminal error frame; each frees its slot at the next
+     chunk boundary, tokens wasted printed), a burst of 10 (at least 4
+     shed with 503 + Retry-After, ready 503 while shedding, 200 after),
+     one timed /metrics scrape consistent
+     with the engine and the requests served, an OpenAI completion streamed
+     and not (same text, [DONE]) and a chat, then a version swap through
+     the repository API (202, the new model_dir ready, the same greedy ids,
+     the old version's memory released after its grace window);
   5. training: llama_1b at full width and depth through the trainer's entry
      point (batch 12, seq 1024, 3 warm-up + 10 timed steps): finite losses,
      the first near ln(V), every step's launches (2 forward per layer under
@@ -124,6 +141,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import http.client
 import io
 import itertools
 import json
@@ -136,6 +154,8 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
+import urllib.parse
 import urllib.request
 
 import numpy as np
@@ -157,7 +177,10 @@ from kubeflow_tpu_torch.serve import quant as squant  # noqa: E402
 from kubeflow_tpu_torch.serve.generation import \
     GenerativeTorchModel  # noqa: E402
 from kubeflow_tpu_torch.serve.runtimes import export_for_serving  # noqa: E402
-from kubeflow_tpu_torch.serve.server import ModelServer  # noqa: E402
+from kubeflow_tpu_torch.serve.server import (ModelRepository,  # noqa: E402
+                                             ModelServer)
+from kubeflow_tpu_torch.utils.resilience import \
+    metrics as res_metrics  # noqa: E402
 from kubeflow_tpu_torch.train import checkpoint as ckpt_mod  # noqa: E402
 from kubeflow_tpu_torch.train import lora as lora_mod  # noqa: E402
 from kubeflow_tpu_torch.train import optim  # noqa: E402
@@ -283,6 +306,19 @@ GENERATIVE = {"slots": 4, "max_len": 4096, "chunk": CHUNK,
 # Paged serving (4b, 4c): 16 divides max_len and every default decode
 # bucket (64 .. 4096).
 KV_BLOCK_SIZE = 16
+# 4d, the request surface: a server admitting 6 requests at once (phase
+# 4's six fit, a burst of 10 sheds at least 4); a 500 ms deadline on a
+# request of 2000 tokens (far past the budget); the same request streamed
+# under 3000 ms, since at depth 2 an admission's first token goes out at
+# its first chunk's fetch, after two chunks of host issue (1.989 s on an
+# NVIDIA H100 80GB HBM3 at 700 W: a 500 ms stream is a clean 504 before
+# its first frame); a 5 s grace window for the version swap (the JAX
+# tests shrink it too); the OpenAI text prompt.
+SURFACE_MAX_INFLIGHT, SURFACE_BURST = 6, 10
+SURFACE_DEADLINE_MS, SURFACE_LATE_TOKENS = 500, 2000
+SURFACE_STREAM_DEADLINE_MS = 3000
+SURFACE_GRACE_S = 5.0
+SURFACE_PROMPT = "The quick brown fox jumps over the lazy dog."
 # 4c: int8 weights and KV must bring the serving peak this far under
 # phase 4's (bf16 weights 14.96 GiB; an int8 copy is ~7.5 GiB).
 QUANT_PEAK_SAVING_MIN_GIB = 5.0
@@ -1379,18 +1415,20 @@ def _post(url: str, body: dict) -> dict:
 
 
 @contextlib.contextmanager
-def _serving(bundle: str, generative: dict | None = None, **spec):
+def _serving(bundle: str, generative: dict | None = None,
+             max_inflight: int = 256, **spec):
     """(Re)write the llama3_8b bundle at `bundle` with phase 4's generative
     block updated by `generative` and the extra bundle keys `spec`, load it
-    behind the port's HTTP server, and yield the server's base URL. The
-    server and its model are freed on exit."""
+    behind the port's HTTP server (admitting `max_inflight` requests at
+    once), and yield the server's base URL. The server and its model are
+    freed on exit."""
     gc.collect()
     torch.cuda.empty_cache()
     export_for_serving(bundle, model=MODEL, model_kwargs=MODEL_KWARGS,
                        seed=SEED, extra={
                            "generative": {**GENERATIVE, **(generative or {})},
                            **spec})
-    server = ModelServer()
+    server = ModelServer(max_inflight=max_inflight)
     t0 = time.monotonic()
     server.load(bundle, name=MODEL, device=DEVICE)
     port = server.start_background(0)
@@ -1742,6 +1780,386 @@ def phase_quant(bundle: str, flat: dict, paged: dict) -> dict:
             "alone_ms": alone_ms, "sync_alone_ms": sync_ms,
             "logprob_drift": drift, "profile": prof,
             "w8a16_in_situ": in_situ, **model_gate}
+
+
+def _request(method: str, url: str, body=None, headers=None) -> tuple:
+    """(status, headers, body bytes) of one request; HTTP errors are
+    returned, not raised."""
+    data = json.dumps(body).encode() if body is not None else None
+    req = urllib.request.Request(url, data=data, method=method,
+                                 headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, r.headers, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers, e.read()
+
+
+def _stream(url: str, body: dict, headers=None) -> dict:
+    """POST a streaming request and read it frame by frame (ndjson lines or
+    SSE `data:` frames): {"status", "content_type", "frames", "first_s",
+    "end_s"} (seconds from the send to the first frame and to the end)."""
+    parts = urllib.parse.urlsplit(url)
+    conn = http.client.HTTPConnection(parts.hostname, parts.port,
+                                      timeout=600)
+    t0 = time.monotonic()
+    conn.request("POST", parts.path, json.dumps(body),
+                 {"Content-Type": "application/json", **(headers or {})})
+    resp = conn.getresponse()
+    frames, first = [], None
+    for line in resp:
+        line = line.strip()
+        if not line:
+            continue
+        if first is None:
+            first = time.monotonic() - t0
+        if line.startswith(b"data: "):
+            line = line[len(b"data: "):]
+            frames.append("[DONE]" if line == b"[DONE]"
+                          else json.loads(line))
+        else:
+            frames.append(json.loads(line))
+    end = time.monotonic() - t0
+    out = {"status": resp.status,
+           "content_type": resp.getheader("Content-Type"),
+           "frames": frames, "first_s": first, "end_s": end}
+    conn.close()
+    return out
+
+
+def _openai_ids(tokens: list) -> list:
+    """Token ids back from the "bytes" tokenizer's logprob strings: the
+    character of a printable byte, bytes:0xNN for the other bytes, the id
+    itself past 255."""
+    return [int(t[len("bytes:"):], 16) if t.startswith("bytes:")
+            else ord(t) if len(t) == 1 else int(t) for t in tokens]
+
+
+def _metric(text: str, sample: str) -> float:
+    """The value of one exposition sample line (`name{labels}`)."""
+    for line in text.splitlines():
+        if line.startswith(sample + " "):
+            return float(line.split(" ")[1])
+    raise RuntimeError(f"/metrics has no sample {sample}")
+
+
+def phase_surface(bundle: str, flat: dict) -> dict:
+    """The request surface (4d) on phase 4's bundle with the "bytes"
+    tokenizer, behind a server admitting SURFACE_MAX_INFLIGHT requests: the
+    surfaces at once, a stream, deadlines, admission, /metrics, the OpenAI
+    routes, and a version swap through the repository API. Every prefill
+    of the phase goes through the flash kernel."""
+    cfg = registry.model_config(MODEL, **MODEL_KWARGS)
+    bodies = _bodies(cfg.vocab_size)
+    longest = bodies[-1]
+    gen_url = f"/v1/models/{MODEL}:generate"
+    served = 0  # requests the latency histogram must count
+    res_metrics.reset()
+    with _serving(bundle, {"tokenizer": "bytes"},
+                  max_inflight=SURFACE_MAX_INFLIGHT) as (base, server):
+        _reset_counts()
+        one_model = torch.cuda.memory_allocated()
+        # 1. Phase 4's six bodies at once across the surfaces: (status,
+        # tokens out, their ids where the surface returns them).
+        launches0 = fa.flash_fwd_launches
+        results = [None] * len(bodies)
+
+        def run(i):
+            b = bodies[i]
+            try:
+                if i < 2:
+                    code, _, raw = _request("POST", base + gen_url, b)
+                    ids = json.loads(raw).get("output_ids", [])
+                    results[i] = (code, len(ids), ids)
+                elif i < 4:
+                    s = _stream(f"{base}/v2/models/{MODEL}/generate",
+                                {**b, "stream": True})
+                    ids = [t for f in s["frames"][:-1] for t in f["tokens"]]
+                    results[i] = (s["status"], len(ids), ids)
+                else:  # greedy: OpenAI's default temperature is 1
+                    body = {"model": MODEL, "prompt": b["input_ids"],
+                            "max_tokens": MAX_TOKENS, "temperature": 0}
+                    if i == 4:
+                        code, _, raw = _request(
+                            "POST", base + "/openai/v1/completions",
+                            {**body, "logprobs": 0})
+                        out = json.loads(raw)
+                        ids = _openai_ids(
+                            out["choices"][0]["logprobs"]["tokens"])
+                        results[i] = (code, out["usage"][
+                            "completion_tokens"], ids)
+                    else:
+                        s = _stream(base + "/openai/v1/completions",
+                                    {**body, "stream": True})
+                        ok = s["frames"][-1] == "[DONE]"
+                        results[i] = (s["status"] if ok else None,
+                                      s["frames"][-2]["usage"][
+                                          "completion_tokens"], [])
+            except Exception as e:  # reported below as a failed request
+                results[i] = (None, 0, repr(e))
+
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(len(bodies))]
+        t0 = time.monotonic()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=900)
+        wall = time.monotonic() - t0
+        served += len(bodies)
+        launches = fa.flash_fwd_launches - launches0
+        expect = cfg.num_layers * len(bodies)
+        for i, (code, n, ids) in enumerate(results):
+            surface = (":generate", ":generate", "v2 generate stream",
+                       "v2 generate stream", "openai completions",
+                       "openai completions stream")[i]
+            good = (code == 200 and n == MAX_TOKENS and isinstance(ids, list)
+                    and len(ids) in (0, n)
+                    and all(0 <= t < cfg.vocab_size for t in ids))
+            log(f"  request {i} ({PROMPT_LENS[i]} tokens) on {surface}: "
+                f"status {code}, {n} tokens out"
+                + ("" if isinstance(ids, list) else f" {ids}")
+                + f" {'OK' if good else 'FAIL'}")
+            if not good:
+                raise RuntimeError(f"request {i} on {surface} failed")
+        log(f"  six requests across the surfaces in {wall:.3f}s; flash_fwd "
+            f"launches {launches} (expected {cfg.num_layers} x "
+            f"{len(bodies)} first-chunk prefills = {expect})")
+        if launches != expect:
+            raise RuntimeError("a surface's prefill skipped the kernel")
+        # 2. The longest greedy prompt, streamed alone (warm, as phase 4's
+        # repeat was), then unstreamed on this server: the host's issue per
+        # step differs between servers, so the stream is compared here.
+        first = _stream(base + gen_url, {**longest, "stream": True})
+        t0 = time.monotonic()
+        unstreamed = _post(base + gen_url, longest)
+        unstreamed_s = time.monotonic() - t0
+        served += 2
+        frames = first["frames"]
+        streamed = [t for f in frames[:-1] for t in f["tokens"]]
+        ok = (first["status"] == 200
+              and first["content_type"] == "application/x-ndjson"
+              and frames[-1].get("done") is True and len(frames) >= 3
+              and streamed == frames[-1]["output_ids"]
+              == flat["repeat"]["output_ids"] == unstreamed["output_ids"])
+        log(f"  stream of the longest prompt ({len(longest['input_ids'])} "
+            f"tokens, {MAX_TOKENS} out): {len(frames) - 1} token frames, "
+            f"first frame {first['first_s']:.3f}s, done "
+            f"{first['end_s']:.3f}s; unstreamed on this server "
+            f"{unstreamed_s:.3f}s (engine {unstreamed['latency_s']:.3f}s), "
+            f"on phase 4's {flat['repeat']['latency_s']:.3f}s; ids "
+            f"{'identical to' if ok else 'DIFFER from'} phase 4's repeat")
+        if not ok:
+            raise RuntimeError(f"stream {first['status']} {frames[-1]} "
+                               "differs from phase 4's repeat")
+        # 3. Deadlines: 2000 tokens asked under a 500 ms budget.
+        engine = server.models[MODEL].engine
+        before = engine.stats_snapshot()
+        budget = {"X-Request-Timeout-Ms": str(SURFACE_DEADLINE_MS)}
+        late = {"input_ids": bodies[0]["input_ids"],
+                "max_tokens": SURFACE_LATE_TOKENS}
+        t0 = time.monotonic()
+        code, _, raw = _request("POST", base + gen_url, late, budget)
+        late_s = time.monotonic() - t0
+        st = _stream(base + gen_url, {**late, "stream": True}, {
+            "X-Request-Timeout-Ms": str(SURFACE_STREAM_DEADLINE_MS)})
+        served += 1  # the stream's status line went out: it is observed
+        last = st["frames"][-1]
+        t0 = time.monotonic()
+        while (time.monotonic() - t0 < 30
+               and (engine.inflight_depth
+                    or any(s is not None for s in engine._slots))):
+            time.sleep(0.005)
+        freed_s = time.monotonic() - t0
+        after = engine.stats_snapshot()
+        chunk_s = after["decode_seconds"] / max(after["decode_dispatches"], 1)
+        decoded = after["decode_tokens"] - before["decode_tokens"]
+        wasted, dead = (after[k] - before[k] for k in (
+            "decode_wasted_tokens", "decode_dead_slot_chunks"))
+        ok = (code == 504 and late_s <= SURFACE_DEADLINE_MS / 1e3
+              + 2 * chunk_s and st["status"] == 200
+              and len(st["frames"]) >= 2
+              and set(last) == {"model_name", "error"}
+              and "DeadlineExceeded" in last["error"]
+              and engine.inflight_depth == 0
+              and all(s is None for s in engine._slots)
+              and decoded < 2 * SURFACE_LATE_TOKENS)
+        log(f"  deadline {SURFACE_DEADLINE_MS} ms on {SURFACE_LATE_TOKENS} "
+            f"tokens: {code} after {late_s:.3f}s (bound: budget + 2 chunks "
+            f"of {chunk_s:.3f}s); streamed under "
+            f"{SURFACE_STREAM_DEADLINE_MS} ms: status {st['status']}, "
+            f"first frame {st['first_s']:.3f}s, end {st['end_s']:.3f}s, "
+            f"{len(st['frames']) - 1} token frames then "
+            f"{json.dumps(last)[:120]}; slots free and nothing in flight "
+            f"{freed_s:.3f}s later; decoded {decoded} tokens of the "
+            f"{2 * SURFACE_LATE_TOKENS} asked; decode_wasted_tokens "
+            f"{wasted}, decode_dead_slot_chunks {dead} "
+            f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError("an expired request was not answered or did "
+                               "not free its slot")
+        # 4. Admission: a burst past SURFACE_MAX_INFLIGHT.
+        burst = [None] * SURFACE_BURST
+        ready_during = []
+
+        def hit(i):
+            burst[i] = _request("POST", base + gen_url, {
+                "input_ids": bodies[1]["input_ids"], "max_tokens": 64})
+
+        threads = [threading.Thread(target=hit, args=(i,))
+                   for i in range(SURFACE_BURST)]
+        for th in threads:
+            th.start()
+        t0 = time.monotonic()
+        while (time.monotonic() - t0 < 30
+               and sum(b is not None and b[0] == 503 for b in burst)
+               < SURFACE_BURST - SURFACE_MAX_INFLIGHT):
+            time.sleep(0.002)
+        ready_during.append(_request("GET", base + "/v2/health/ready")[0])
+        for th in threads:
+            th.join(timeout=900)
+        t0 = time.monotonic()
+        ready_after = _request("GET", base + "/v2/health/ready")[0]
+        while ready_after != 200 and time.monotonic() - t0 < 10:
+            time.sleep(0.05)
+            ready_after = _request("GET", base + "/v2/health/ready")[0]
+        sheds = [b for b in burst if b[0] == 503]
+        admitted = [b for b in burst if b[0] != 503]
+        served += len(admitted)
+        ok = (len(sheds) >= SURFACE_BURST - SURFACE_MAX_INFLIGHT
+              and all(b[1]["Retry-After"] == "1" for b in sheds)
+              and all(b[0] == 200 and len(json.loads(b[2])["output_ids"])
+                      == 64 for b in admitted)
+              and ready_during == [503] and ready_after == 200)
+        log(f"  burst of {SURFACE_BURST} at max_inflight "
+            f"{SURFACE_MAX_INFLIGHT}: {len(sheds)} shed (503, Retry-After "
+            f"{sorted({b[1]['Retry-After'] for b in sheds})}), "
+            f"{len(admitted)} admitted and answered; /v2/health/ready "
+            f"{ready_during[0]} while shedding, {ready_after} after "
+            f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError("admission did not shed, or readiness did "
+                               "not degrade and recover")
+        # 5. One scrape.
+        t0 = time.monotonic()
+        code, _, raw = _request("GET", base + "/metrics")
+        scrape_ms = (time.monotonic() - t0) * 1e3
+        text = raw.decode()
+        md = _metadata(base)
+        tag = f'{{model="{MODEL}"}}'
+        sums = (_metric(text, f"tpk_engine_decode_tokens_total{tag}"),
+                _metric(text, f"tpk_serve_request_latency_seconds_count{tag}"),
+                _metric(text, f"tpk_serve_requests_total{tag}"),
+                _metric(text, 'tpk_deadline_expired_total{component="serve"}'),
+                _metric(text, 'tpk_shed_total{component="serve"}'))
+        ok = (code == 200 and sums[0] == md["stats"]["decode_tokens"]
+              and sums[1] == sums[2] == served and sums[3] == 2
+              and sums[4] == len(sheds))
+        log(f"  /metrics scrape {scrape_ms:.2f} ms, {len(text)} bytes: "
+            f"decode tokens {sums[0]:.0f} (metadata "
+            f"{md['stats']['decode_tokens']}), latency histogram count "
+            f"{sums[1]:.0f} and requests {sums[2]:.0f} (served {served}), "
+            f"deadline expiries {sums[3]:.0f}, sheds {sums[4]:.0f} "
+            f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError("/metrics disagrees with the engine or the "
+                               "requests served")
+        # 6. OpenAI.
+        prompt = {"model": MODEL, "prompt": SURFACE_PROMPT,
+                  "max_tokens": MAX_TOKENS, "temperature": 0}
+        code, _, raw = _request("POST", base + "/openai/v1/completions",
+                                prompt)
+        plain = json.loads(raw)
+        sse = _stream(base + "/openai/v1/completions",
+                      {**prompt, "stream": True})
+        joined = "".join(f["choices"][0]["text"] for f in sse["frames"][:-1])
+        same_text = joined == plain["choices"][0]["text"]
+        chat_code, _, raw = _request(
+            "POST", base + "/openai/v1/chat/completions",
+            {"model": MODEL, "max_tokens": 8, "temperature": 0,
+             "messages": [{"role": "user", "content": SURFACE_PROMPT}]})
+        chat = json.loads(raw)
+        listed = json.loads(_request("GET", base + "/openai/v1/models")[2])
+        served += 3
+        ok = (code == 200 and sse["status"] == 200
+              and sse["content_type"] == "text/event-stream"
+              and sse["frames"][-1] == "[DONE]"
+              and same_text
+              and plain["usage"]["completion_tokens"] == MAX_TOKENS
+              and sse["frames"][-2]["usage"]["completion_tokens"]
+              == MAX_TOKENS
+              and chat_code == 200
+              and chat["choices"][0]["message"]["role"] == "assistant"
+              and chat["usage"]["completion_tokens"] == 8
+              and [m["id"] for m in listed["data"]] == [MODEL])
+        log(f"  OpenAI: completion {code} {plain['usage']}, text "
+            f"{plain['choices'][0]['text']!r}; streamed {sse['status']} in "
+            f"{len(sse['frames']) - 1} chunks (first {sse['first_s']:.3f}s,"
+            f" end {sse['end_s']:.3f}s), joined text "
+            f"{'equal' if same_text else 'DIFFERENT'}"
+            f", ends in [DONE]; chat {chat_code} "
+            f"{chat['choices'][0]['finish_reason']}; models "
+            f"{[m['id'] for m in listed['data']]} {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError("the OpenAI routes disagree")
+        # 7. A version swap through the repository API.
+        req1 = engine.stats_snapshot()["requests"]
+        del engine
+        second = bundle + "_v2"
+        export_for_serving(second, model=MODEL, model_kwargs=MODEL_KWARGS,
+                           seed=SEED, extra={"generative": {
+                               **GENERATIVE, "tokenizer": "bytes"}})
+        grace = ModelRepository.UNLOAD_GRACE_S
+        ModelRepository.UNLOAD_GRACE_S = SURFACE_GRACE_S
+        try:
+            t0 = time.monotonic()
+            code, _, raw = _request(
+                "POST", f"{base}/v2/repository/models/{MODEL}/load",
+                {"model_dir": second})
+            landed, peak_during = None, one_model
+            while time.monotonic() - t0 < 300:
+                peak_during = max(peak_during, torch.cuda.memory_allocated())
+                c, _, r = _request("GET", f"{base}/v2/models/{MODEL}/ready")
+                if c == 200 and json.loads(r)["model_dir"] == second:
+                    landed = time.monotonic() - t0
+                    break
+                time.sleep(0.05)
+            during = torch.cuda.memory_allocated()
+            again = _post(base + gen_url, longest)
+            served += 1
+            time.sleep(SURFACE_GRACE_S + 1.0)
+            gc.collect()
+            torch.cuda.empty_cache()
+            after_mem = torch.cuda.memory_allocated()
+            req2 = server.models[MODEL].engine.stats_snapshot()["requests"]
+        finally:
+            ModelRepository.UNLOAD_GRACE_S = grace
+            shutil.rmtree(second, ignore_errors=True)
+        phase_launches = fa.flash_fwd_launches
+        same = again["output_ids"] == flat["repeat"]["output_ids"]
+        ok = (code == 202 and landed is not None and same
+              and during > one_model + 0.9 * cfg.num_params * 2
+              and after_mem < one_model + 2**30)
+        gib = 2**30
+        log(f"  repository: load {code}, new model_dir ready after "
+            f"{landed if landed is None else round(landed, 3)}s; longest "
+            f"prompt on it {'gives' if same else 'DIFFERS from'}"
+            f" phase 4's ids; allocated {one_model / gib:.2f} GiB before, "
+            f"{during / gib:.2f} during (peak seen {peak_during / gib:.2f}), "
+            f"{after_mem / gib:.2f} after the {SURFACE_GRACE_S:.0f} s grace "
+            f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError("the version swap failed or kept the old "
+                               "version's memory")
+    expect = cfg.num_layers * (req1 + req2)
+    log(f"  phase 4d flash_fwd launches {phase_launches} (expected "
+        f"{cfg.num_layers} x {req1 + req2} admitted requests = {expect}); "
+        f"{smi()}")
+    if phase_launches != expect:
+        raise RuntimeError("a phase-4d prefill skipped the kernel")
+    return {"launches": phase_launches, "first_frame_s": first["first_s"],
+            "unstreamed_s": unstreamed_s,
+            "late_s": late_s, "scrape_ms": scrape_ms, "swap_s": landed}
 
 
 def _decode_in_situ(ordered_ms: list) -> dict | None:
@@ -2979,6 +3397,9 @@ def main() -> int:
         log(f"phase 4c: quantized serving of {MODEL} (int8 weights, int8 "
             "paged KV)")
         quant = phase_quant(bundle, flat, paged)
+        log(f"phase 4d: the request surface of {MODEL} (streams, the "
+            "OpenAI routes, deadlines, admission, /metrics, a version swap)")
+        surface = phase_surface(bundle, flat)
     finally:
         shutil.rmtree(bundle, ignore_errors=True)
     log(f"phase 5: training {TRAIN_MODEL} through the trainer")
@@ -3002,6 +3423,7 @@ def main() -> int:
                       for i in range(3)]
     fwd_launches = {"serving": flat["launches"],
                     "paged_quant_serving": quant["launches"],
+                    "request_surface": surface["launches"],
                     "training": train["launches"][0],
                     "packed_training": job["launches"][0],
                     "lora_training": lora_run["launches"][0],

@@ -40,7 +40,17 @@ with its overlapped scheduler:
     blocks and the NULL block (paged), all enqueued, on the one stream,
     before the next admission's insert overwrites them. Depth 1 is the
     synchronous loop: dispatch, fetch, repeat;
-  * finished slots are re-admitted between chunks.
+  * finished slots are re-admitted between chunks;
+  * a request's `deadline` (utils/resilience.Deadline, from the server's
+    timeout header) is checked at admission and at every chunk boundary:
+    an expired waiter is never admitted, and an expired running request
+    frees its slot (and, paged, its blocks) at the next boundary, its
+    rows of chunks already in flight dropped at their fetch like a
+    retirement's. `submit` wakes at the deadline and raises
+    DeadlineExceeded; the engine counts no expiry (the server does, once);
+  * `on_tokens(tokens, done)` streams each request's tokens from the
+    worker thread as they are emitted, the last call with done=True
+    before `submit` returns.
 
 Sampling is greedy (temperature 0), temperature, top-k and top-p, per row,
 with draws from the engine's own seeded `torch.Generator`, taken as work is
@@ -66,6 +76,8 @@ from kubeflow_tpu_torch.models.llama import init_cache
 from kubeflow_tpu_torch.serve.model import Model
 from kubeflow_tpu_torch.serve.paging import BlockAllocator, blocks_for
 from kubeflow_tpu_torch.serve.quant import KV_QUANT_MODES, kv_quantize_rows
+from kubeflow_tpu_torch.serve.tokenizer_util import decode_ids, resolve_ids
+from kubeflow_tpu_torch.utils.resilience import Deadline, DeadlineExceeded
 
 NEG_INF = -1e30
 
@@ -300,6 +312,10 @@ class GenerationEngine:
     and memory is the pool of `kv_blocks` blocks (0 sizes it to the flat
     cache, slots * max_len rows). `kv_quant` "int8"/"fp8" needs the pool."""
 
+    #: Disaggregated roles are not ported: every engine prefills and
+    #: decodes (rendered as the `tpk_engine_role` gauge).
+    role = "unified"
+
     def __init__(self, model, *, slots: int = 4, max_len: int = 256,
                  chunk: int = 16, prefill_buckets: Sequence[int] = (32, 128),
                  decode_buckets: Sequence[int] | None = None, seed: int = 0,
@@ -405,8 +421,17 @@ class GenerationEngine:
 
     def submit(self, input_ids: Sequence[int], *, max_tokens: int = 32,
                temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
-               eos_id: int | None = None, timeout: float = 300.0) -> dict:
-        """Generate up to `max_tokens` tokens after `input_ids`; blocks."""
+               eos_id: int | None = None, timeout: float = 300.0,
+               deadline: Deadline | None = None, on_tokens=None) -> dict:
+        """Generate up to `max_tokens` tokens after `input_ids`; blocks.
+
+        `on_tokens(tokens, done)` (optional) is called from the worker
+        thread as tokens are emitted, the final call with done=True;
+        its exceptions are swallowed (a broken stream consumer must not
+        stall the decode loop). `deadline` is the request's end-to-end
+        budget: checked at admission and at every chunk boundary, where
+        an expired request frees its slot; this call returns when it
+        expires, raising DeadlineExceeded."""
         if not input_ids:
             raise ValueError("input_ids must be non-empty")
         ids = [int(t) for t in input_ids]
@@ -435,11 +460,20 @@ class GenerationEngine:
                "temperature": float(temperature), "top_k": int(top_k),
                "top_p": float(top_p), "eos_id": eos_id, "out": [],
                "out_logprobs": [], "done": threading.Event(), "error": None,
-               "t0": time.monotonic()}
+               "deadline": deadline, "cb": on_tokens, "t0": time.monotonic()}
         self._queue.put(req)
         self._wake.set()
-        if not req["done"].wait(timeout):
-            req["error"] = f"generation timed out after {timeout}s"
+        # Wake at the deadline: the worker frees the slot at its next
+        # chunk boundary, but the caller's 504 does not wait for it.
+        wait_s = timeout if deadline is None else deadline.bound(timeout)
+        if not req["done"].wait(wait_s):
+            if deadline is not None and deadline.expired():
+                req["error"] = DeadlineExceeded(
+                    "request deadline expired during generation")
+            else:
+                req["error"] = f"generation timed out after {timeout}s"
+        if isinstance(req["error"], BaseException):
+            raise req["error"]
         if req["error"]:
             raise RuntimeError(req["error"])
         return {"output_ids": req["out"],
@@ -462,6 +496,15 @@ class GenerationEngine:
         s = self.stats_snapshot()
         return (s["decode_tokens"] / s["decode_seconds"]
                 if s["decode_seconds"] else 0.0)
+
+    @property
+    def kv_blocks_free(self) -> int | None:
+        """Free pool blocks (None = flat): the `tpk_kv_blocks_free` gauge."""
+        return self._kv_alloc.free_blocks if self._paged else None
+
+    @property
+    def kv_blocks_used(self) -> int | None:
+        return self._kv_alloc.used_blocks if self._paged else None
 
     def kv_info(self) -> dict | None:
         """Paged-pool snapshot for metadata (None = flat)."""
@@ -593,29 +636,66 @@ class GenerationEngine:
 
     def _emit(self, slot: int, st: dict, tokens: list[int],
               logprobs: list[float]) -> None:
-        """Append generated tokens to `st`'s request; retire on EOS /
-        budget / context end. `st` is passed, not read from the slot: a
-        fetched chunk may belong to a request that already retired and
-        whose slot holds another; a finished request takes no more tokens,
-        and only the slot that still holds it is freed."""
+        """Append generated tokens to `st`'s request and stream them to its
+        `on_tokens`; retire on EOS / budget / context end. `st` is passed,
+        not read from the slot: a fetched chunk may belong to a request
+        that already retired and whose slot holds another; a finished
+        request takes no more tokens, and only the slot that still holds
+        it is freed."""
         req = st["req"]
+        new: list[int] = []
         finished = req["done"].is_set()
         for tok, lp in zip(tokens, logprobs):
             if finished:
                 break
             req["out"].append(tok)
             req["out_logprobs"].append(lp)
+            new.append(tok)
             if ((req["eos_id"] is not None and tok == req["eos_id"])
                     or len(req["out"]) >= req["max_tokens"]):
                 finished = True
         if st["idx"] >= self.max_len - 1:
             finished = True
+        # Stream before done.set(): that wakes submit() in the caller's
+        # thread, and a final summary overtaking the last token frame
+        # would truncate the stream.
+        if req["cb"] is not None and (new or finished):
+            try:
+                req["cb"](new, finished)
+            except Exception:
+                pass
         if finished:
             req["done"].set()
             if self._slots[slot] is st:
                 self._slots[slot] = None
             if self._paged:
                 self._free_slot_blocks(st)
+
+    def _expire(self, req: dict) -> bool:
+        """Finish `req` with DeadlineExceeded when its budget is gone.
+        True means the request is done and must not (or no longer) hold a
+        slot. No metrics here: the serving surface that returns the error
+        counts each expired request exactly once."""
+        if req["done"].is_set():
+            return True  # already finished (e.g. EOS raced the sweep)
+        dl = req["deadline"]
+        if dl is None or not dl.expired():
+            return False
+        req["error"] = DeadlineExceeded(
+            "request deadline expired during generation")
+        req["done"].set()
+        return True
+
+    def _sweep_expired(self) -> None:
+        """Chunk-boundary deadline sweep: an expired request frees its slot
+        (and, paged, its blocks) now instead of decoding tokens its caller,
+        already answered 504, will never read. Rows of its chunks still in
+        flight are dropped at their fetch (`decode_dead_slot_chunks`)."""
+        for i, st in enumerate(self._slots):
+            if st is not None and self._expire(st["req"]):
+                self._slots[i] = None
+                if self._paged:
+                    self._free_slot_blocks(st)
 
     def _emit_pending(self, slot: int, st: dict) -> None:
         """Deliver a deferred first token. Its copy was enqueued right after
@@ -662,7 +742,8 @@ class GenerationEngine:
         cover yet waits at the head of the line (FIFO: nothing jumps it),
         and admission resumes as retirements free blocks. With `overlap`
         (chunks in flight) the admission's work is enqueued behind them
-        with no host sync, counted by `admit_overlap`."""
+        with no host sync, counted by `admit_overlap`. A waiter whose
+        deadline has passed is dropped, never admitted."""
         for slot in range(self.n_slots):
             while self._slots[slot] is None:
                 if self._kv_stash:
@@ -672,7 +753,7 @@ class GenerationEngine:
                         req = self._queue.get_nowait()
                     except queue.Empty:
                         return
-                if req["done"].is_set():  # its caller already timed out
+                if self._expire(req):  # never admitted
                     continue
                 try:
                     self._admit(slot, req)
@@ -811,6 +892,7 @@ class GenerationEngine:
             while not self._stop:
                 try:
                     self._admit_waiting(overlap=bool(inflight))
+                    self._sweep_expired()
                     self._poll_pending_first()
                     active = [i for i, s in enumerate(self._slots)
                               if s is not None]
@@ -833,9 +915,9 @@ class GenerationEngine:
                     self._fail_all(traceback.format_exc(), inflight)
 
 
-#: Bundle `generative` keys of features this package does not port, with
-#: the value that asks for nothing. A bundle that sets one to anything
-#: else is refused by name.
+#: Bundle `generative` keys of the JAX engine's features that this package
+#: does not port yet, with the value that asks for nothing. A bundle that
+#: sets one to anything else is refused by name (501 at the server).
 _UNPORTED = {
     "prefix_cache": ("prefix cache", 0),
     "draft": ("speculative decoding", None),
@@ -843,17 +925,17 @@ _UNPORTED = {
     "adapters": ("multi-LoRA adapters", None),
     "mesh": ("tensor-parallel mesh", None),
     "role": ("disaggregated prefill/decode roles", "unified"),
-    "tokenizer": ("tokenizers", None),
 }
 
-#: Request keys of features this package does not port.
-_UNPORTED_REQUEST = {"stream": "streaming", "text": "tokenizers (text input)",
-                     "adapter": "multi-LoRA adapters"}
+#: Request keys of features this package does not port yet.
+_UNPORTED_REQUEST = {"adapter": "multi-LoRA adapters"}
 
 
 class GenerativeTorchModel(Model):
-    """KServe-Model-shaped wrapper: load() builds the engine; generate() is
-    the request surface."""
+    """KServe-Model-shaped wrapper: load() builds the engine; generate()
+    and generate_stream() are the request surface. `generation`'s
+    `tokenizer` ("bytes", or an HF-style object with encode/decode) lets
+    requests pass `text` and adds `text` to the output."""
 
     def __init__(self, name: str, model, *, generation: dict | None = None):
         super().__init__(name)
@@ -864,6 +946,7 @@ class GenerativeTorchModel(Model):
                 raise NotImplementedError(
                     f"{what} ({key!r}) is not supported by this package yet")
         self.eos_id = gen.pop("eos_id", None)
+        self.tokenizer = gen.pop("tokenizer", None)
         self._gen_cfg = gen
         self.engine: GenerationEngine | None = None
         #: {"mode", "quantized", "full"} when the weights are int8
@@ -883,7 +966,9 @@ class GenerativeTorchModel(Model):
             self.engine.close()
             self.engine = None
 
-    def generate(self, payload: dict) -> dict:
+    def _resolve_ids(self, payload: dict) -> list[int]:
+        """The request's prompt ids: `input_ids`, or `text` through the
+        tokenizer. Refuses unported request keys by name."""
         if not self.ready or self.engine is None:
             raise RuntimeError(f"model {self.name} is not loaded")
         for key, what in _UNPORTED_REQUEST.items():
@@ -891,18 +976,112 @@ class GenerativeTorchModel(Model):
                 raise NotImplementedError(
                     f"{what} ({key!r}) is not supported by this package yet")
         ids = payload.get("input_ids")
-        if not isinstance(ids, list) or not all(
-                isinstance(t, int) and not isinstance(t, bool) for t in ids):
+        if ids is not None and (not isinstance(ids, list) or not all(
+                isinstance(t, int) and not isinstance(t, bool)
+                for t in ids)):
             raise ValueError('"input_ids" must be a list of integers')
-        out = self.engine.submit(
-            ids, max_tokens=int(payload.get("max_tokens", 32)),
+        return resolve_ids(self.tokenizer, payload)
+
+    def _decode_text(self, ids: list[int]) -> str:
+        return decode_ids(self.tokenizer, ids)
+
+    def _submit_kwargs(self, payload: dict) -> dict:
+        return dict(
+            max_tokens=int(payload.get("max_tokens", 32)),
             temperature=float(payload.get("temperature", 0.0)),
             top_k=int(payload.get("top_k", 0)),
             top_p=float(payload.get("top_p", 1.0)),
             eos_id=payload.get("eos_id", self.eos_id),
-            timeout=float(payload.get("timeout", 300.0)))
+            timeout=float(payload.get("timeout", 300.0)),
+            # In-process only: the server puts the request's Deadline
+            # under "_deadline" (and strips a wire-supplied one).
+            deadline=payload.get("_deadline"))
+
+    def generate(self, payload: dict) -> dict:
+        ids = self._resolve_ids(payload)
+        out = self.engine.submit(ids, **self._submit_kwargs(payload))
+        if self.tokenizer is not None:
+            out["text"] = self._decode_text(out["output_ids"])
         out["decode_tokens_per_sec"] = round(self.engine.throughput(), 2)
         return out
+
+    def generate_stream(self, payload: dict):
+        """Generator of streaming events: {"tokens": [...]} (plus
+        "text_delta" when a tokenizer is set) per emitted chunk, then a
+        final {"done": true, ...summary}: chunk-granular, the engine's
+        scheduling quantum. Closing the generator leaves the request
+        decoding to its end."""
+        ids = self._resolve_ids(payload)
+        kwargs = self._submit_kwargs(payload)
+        events: queue.Queue = queue.Queue()
+
+        def on_tokens(tokens, done):
+            events.put(("tok", tokens, done))
+
+        def run():
+            try:
+                events.put(("final", self.engine.submit(
+                    ids, on_tokens=on_tokens, **kwargs), None))
+            except Exception as e:  # surfaced to the consumer
+                events.put(("error", e, None))
+
+        threading.Thread(target=run, daemon=True,
+                         name="tpk-generate-stream").start()
+        emitted: list[int] = []
+        # Windowed incremental detokenization (the vLLM recipe): decode
+        # only from a trailing offset, emit the suffix beyond the
+        # previously rendered window, and hold back while the tail is an
+        # incomplete codepoint — O(window) per chunk instead of
+        # re-decoding the whole prefix (quadratic in output length), and
+        # deltas telescope to the exact full decode.
+        prefix_off = read_off = 0
+        sent_text = ""
+        deadline = time.monotonic() + kwargs["timeout"] + 10.0
+        while True:
+            try:
+                kind, val, done = events.get(
+                    timeout=max(deadline - time.monotonic(), 1.0))
+            except queue.Empty:
+                raise RuntimeError(
+                    f"generation stream timed out after "
+                    f"{kwargs['timeout']}s") from None
+            if kind == "error":
+                raise val
+            if kind == "final":
+                out = dict(val)
+                if self.tokenizer is not None:
+                    out["text"] = self._decode_text(out["output_ids"])
+                    # Flush anything still held back by the window.
+                    out["text_delta"] = (
+                        out["text"][len(sent_text):]
+                        if out["text"].startswith(sent_text) else "")
+                out["decode_tokens_per_sec"] = round(
+                    self.engine.throughput(), 2)
+                yield {"done": True, **out}
+                return
+            if not val:
+                continue
+            emitted.extend(val)
+            ev: dict = {"tokens": [int(t) for t in val]}
+            if self.tokenizer is not None:
+                prev = self._decode_text(emitted[prefix_off:read_off])
+                text = self._decode_text(emitted[prefix_off:])
+                # Emit ONLY when the new rendering strictly extends the
+                # previous one and its tail is not a possibly-incomplete
+                # codepoint (U+FFFD). Anything else — a held partial, or
+                # a rewrite where a completing codepoint replaces an
+                # earlier U+FFFD — stays buffered: an emitted delta can
+                # never be retracted, and the final event's residue flush
+                # delivers whatever was held, so deltas always join to
+                # the exact full decode.
+                if (len(text) > len(prev) and text.startswith(prev)
+                        and not text.endswith("\ufffd")):
+                    ev["text_delta"] = text[len(prev):]
+                    prefix_off, read_off = read_off, len(emitted)
+                else:
+                    ev["text_delta"] = ""
+                sent_text += ev["text_delta"]
+            yield ev
 
     def metadata(self) -> dict:
         md = super().metadata()
@@ -914,6 +1093,7 @@ class GenerativeTorchModel(Model):
             md["decode_buckets"] = list(self.engine.decode_buckets)
             md["pipeline_depth"] = self.engine.pipeline_depth
             md["inflight_depth"] = self.engine.inflight_depth
+            md["role"] = self.engine.role
             md["paged_kv"] = self.engine.kv_info()
             md["kv_quant"] = self.engine.kv_quant
         if self.quantization is not None:

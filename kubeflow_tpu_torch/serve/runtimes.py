@@ -14,7 +14,9 @@ scales (serve/quant.py), quantized after they load, as the JAX runtime's
 `_maybe_quantize` does.
 
 The `model.json` keys are the JAX package's; only the format name and the
-params file differ. A JAX bundle (orbax `params/`) is refused.
+params file differ. A JAX bundle (orbax `params/`) is refused. The
+"generative" block reaches `GenerativeTorchModel` unchanged, as on the JAX
+registry path: its `"tokenizer": "bytes"` gives text in and out.
 """
 
 from __future__ import annotations

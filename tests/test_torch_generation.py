@@ -146,7 +146,7 @@ def test_engine_rejects_bad_requests(tiny):
     ("prefix_cache", 4), ("draft", {"checkpoint": "x"}),
     ("kv_host_tier_blocks", 8),
     ("adapters", {"a": "dir"}), ("mesh", {"tensor": 2}),
-    ("role", "decode"), ("tokenizer", "bytes"),
+    ("role", "decode"),
 ])
 def test_unported_engine_features_are_refused(tiny, key, value):
     _, _, tm = tiny
@@ -154,8 +154,7 @@ def test_unported_engine_features_are_refused(tiny, key, value):
         GenerativeTorchModel("m", tm, generation={**ENGINE, key: value})
 
 
-@pytest.mark.parametrize("key,value", [("stream", True), ("text", "hi"),
-                                       ("adapter", "a")])
+@pytest.mark.parametrize("key,value", [("adapter", "a")])
 def test_unported_request_features_are_refused(tiny, key, value):
     _, _, tm = tiny
     model = GenerativeTorchModel("m", tm, generation=dict(ENGINE))

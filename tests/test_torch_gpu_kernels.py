@@ -1348,3 +1348,54 @@ def test_depth2_engine_runs_under_sync_debug_error(cuda, pool, monkeypatch):
         assert sync.submit(prompts[2], max_tokens=12)["output_ids"] == deep
     finally:
         sync.close()
+
+
+@pytest.mark.gpu
+def test_depth2_stream_runs_under_sync_debug_error(cuda, monkeypatch):
+    """A stream through `generate_stream` from the depth-2 engine with
+    torch.cuda.set_sync_debug_mode("error"): the token callback, the
+    event queue and the incremental detokenization add no host sync (only
+    the fetch's event wait runs outside the mode). Its frames join to the
+    output, and the ids equal a depth-1 engine's."""
+    from kubeflow_tpu_torch.serve import generation as tg
+
+    model = _tiny_engine_model(cuda, False)
+    kw = dict(slots=2, max_len=64, chunk=4, prefill_buckets=(8, 16),
+              tokenizer="bytes")
+    real_wait = tg._wait
+
+    def wait_outside(event):
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            real_wait(event)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
+    monkeypatch.setattr(tg, "_wait", wait_outside)
+    served = tg.GenerativeTorchModel("m", model, generation=kw)
+    served.load()
+    body = {"text": "hello, world", "max_tokens": 14}
+    try:
+        served.generate({"input_ids": [1, 2, 3], "max_tokens": 5})  # warm
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            events = list(served.generate_stream(dict(body)))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert served.engine.stats_snapshot()["decode_fetch_overlapped"] > 0
+    finally:
+        served.unload()
+    done = events[-1]
+    assert done["done"] is True and len(events) >= 3
+    assert [t for ev in events[:-1] for t in ev["tokens"]] == \
+        done["output_ids"]
+    assert "".join(ev["text_delta"] for ev in events) == done["text"]
+    sync = tg.GenerativeTorchModel("m", model, generation={
+        **kw, "pipeline_depth": 1})
+    sync.load()
+    try:
+        assert sync.generate(dict(body))["output_ids"] == done["output_ids"]
+    finally:
+        sync.unload()

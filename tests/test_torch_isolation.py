@@ -9,9 +9,14 @@ import sys
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# grain, orbax and safetensors are not on the card either.
+# grain, orbax, safetensors and tornado (the JAX server's framework) are
+# not on the card either.
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "grain",
-             "safetensors", "kubeflow_tpu")
+             "safetensors", "tornado", "kubeflow_tpu")
+#: Importable only lazily, inside this function (not on the card: a
+#: bundled HF tokenizer is optional there).
+LAZY = {"transformers": ("serve/tokenizer_util.py", "load_bundled_tokenizer"),
+        "tokenizers": ("serve/tokenizer_util.py", "load_bundled_tokenizer")}
 
 
 def _port_files():
@@ -44,14 +49,46 @@ def test_port_module_imports_no_jax(path):
 
 def test_server_import_loads_no_jax():
     code = ("import sys; import kubeflow_tpu_torch.serve.server; "
+            "import kubeflow_tpu_torch.serve.openai_api; "
             "import kubeflow_tpu_torch.models.convert; "
             "import kubeflow_tpu_torch.train.trainer; "
             "import kubeflow_tpu_torch.train.checkpoint; "
             "import kubeflow_tpu_torch.train.lora; "
             "import kubeflow_tpu_torch.data.loader; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
+            f"{FORBIDDEN + tuple(LAZY)!r}]; print(bad); "
+            "sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _imports_with_scope(path):
+    """(root module, enclosing function name or None) of each import."""
+    tree = ast.parse(open(path).read(), filename=path)
+
+    def walk(node, fn):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                yield from walk(child, child.name)
+                continue
+            if isinstance(child, ast.Import):
+                for alias in child.names:
+                    yield alias.name.split(".")[0], fn
+            elif isinstance(child, ast.ImportFrom) and child.level == 0:
+                yield child.module.split(".")[0], fn
+            yield from walk(child, fn)
+
+    return list(walk(tree, None))
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_hf_libraries_only_inside_the_tokenizer_loader(path):
+    rel = os.path.relpath(path, os.path.join(REPO, "kubeflow_tpu_torch"))
+    for root, fn in _imports_with_scope(path):
+        if root in LAZY:
+            assert (rel, fn) == LAZY[root], (
+                f"{rel} imports {root} in {fn or 'module scope'}")
+

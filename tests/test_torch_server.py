@@ -70,9 +70,18 @@ def test_bad_requests(served):
     assert _http("POST", url, {"input_ids": [1], "top_p": 0})[0] == 400
     assert _http("POST", base + "/v1/models/nope:generate",
                  {"input_ids": [1]})[0] == 404
-    assert _http("POST", url, {"input_ids": [1], "stream": True})[0] == 501
     assert _http("POST", url, {"input_ids": [1]},
-                 {"X-Request-Timeout-Ms": "1000"})[0] == 501
+                 {"X-Request-Timeout-Ms": "soon"})[0] == 400
+    assert _http("POST", url, {"input_ids": [1], "adapter": "a"})[0] == 501
+    req = urllib.request.Request(url, method="POST", data=json.dumps(
+        {"input_ids": [1], "max_tokens": 3, "stream": True}).encode())
+    with urllib.request.urlopen(req, timeout=120) as r:
+        assert r.status == 200
+        assert r.headers["Content-Type"] == "application/x-ndjson"
+        events = [json.loads(ln) for ln in r.read().splitlines()]
+    assert events[-1]["done"] is True
+    assert [t for ev in events[:-1] for t in ev["tokens"]] == \
+        events[-1]["output_ids"]
 
 
 def test_bundle_round_trip_with_params(tmp_path):
