@@ -94,6 +94,23 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
      and not (same text, [DONE]) and a chat, then a version swap through
      the repository API (202, the new model_dir ready, the same greedy ids,
      the old version's memory released after its grace window);
+  4e. Hugging Face checkpoints and PEFT adapters: (i) llama3_8b's widths
+     (meta-llama/Meta-Llama-3-8B config.json) at 4 layers written from the
+     seed with the port's safetensors writer as two shards and an index,
+     read back bit-equal, served through the server's --storage-uri (the
+     "huggingface" format): logits bit-equal to the module that wrote it,
+     greedy ids equal to its engine's, every first-chunk prefill through
+     the flash kernel, load seconds and bytes; a rank-16 attn_mlp adapter
+     folded flat through `peft_adapter` within phase 5c's relative gate of
+     the adapted function in fp32; (ii) two synthetic PEFT adapters on the
+     full llama3_8b bundle (`generative.adapters`): four concurrent
+     requests (two base, one per adapter, one of them as the OpenAI model
+     "llama3_8b:ml_b"), the same four paged and on base-only engines flat
+     and paged: base rows equal the base-only engine's, adapter rows their
+     lone runs and within the fp32 gate of base + (x·A)·B·alpha/r, each
+     adapter changes its row, paged equals flat, the adapters listed;
+     ms per 4-row step mixed and base-only, launches per step with and
+     without adapters, the adapters' load seconds and bytes;
   5. training: llama_1b at full width and depth through the trainer's entry
      point (batch 12, seq 1024, 3 warm-up + 10 timed steps): finite losses,
      the first near ln(V), every step's launches (2 forward per layer under
@@ -165,7 +182,9 @@ from torch.utils._python_dispatch import TorchDispatchMode
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
+from kubeflow_tpu_torch.models import hf_import as hf_mod  # noqa: E402
 from kubeflow_tpu_torch.models import llama as llama_mod  # noqa: E402
+from kubeflow_tpu_torch.models import peft_import  # noqa: E402
 from kubeflow_tpu_torch.ops import _build  # noqa: E402
 from kubeflow_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from kubeflow_tpu_torch.ops import quant_matmul as qmm  # noqa: E402
@@ -174,8 +193,11 @@ from kubeflow_tpu_torch.ops import w8a16 as w8  # noqa: E402
 from kubeflow_tpu_torch.ops.reference import naive_attention  # noqa: E402
 from kubeflow_tpu_torch.parallel import Mesh  # noqa: E402
 from kubeflow_tpu_torch.serve import quant as squant  # noqa: E402
-from kubeflow_tpu_torch.serve.generation import \
-    GenerativeTorchModel  # noqa: E402
+from kubeflow_tpu_torch.serve import multilora  # noqa: E402
+from kubeflow_tpu_torch.serve import runtimes  # noqa: E402
+from kubeflow_tpu_torch.serve import server as server_mod  # noqa: E402
+from kubeflow_tpu_torch.serve.generation import (  # noqa: E402
+    GenerationEngine, GenerativeTorchModel)
 from kubeflow_tpu_torch.serve.runtimes import export_for_serving  # noqa: E402
 from kubeflow_tpu_torch.serve.server import (ModelRepository,  # noqa: E402
                                              ModelServer)
@@ -309,16 +331,46 @@ KV_BLOCK_SIZE = 16
 # 4d, the request surface: a server admitting 6 requests at once (phase
 # 4's six fit, a burst of 10 sheds at least 4); a 500 ms deadline on a
 # request of 2000 tokens (far past the budget); the same request streamed
-# under 3000 ms, since at depth 2 an admission's first token goes out at
-# its first chunk's fetch, after two chunks of host issue (1.989 s on an
-# NVIDIA H100 80GB HBM3 at 700 W: a 500 ms stream is a clean 504 before
-# its first frame); a 5 s grace window for the version swap (the JAX
-# tests shrink it too); the OpenAI text prompt.
+# under 3000 ms, or four of this server's decode chunks where that is
+# longer, since at depth 2 an admission's first token goes out at its
+# first chunk's fetch, after two chunks of host issue (1.989 s on an
+# NVIDIA H100 80GB HBM3 at 700 W, 3.006 s on one whose host issued a chunk
+# in 1.354 s: a 500 ms stream is a clean 504 before its first frame, and
+# so was a 3000 ms one there); a 5 s grace window for the version swap
+# (the JAX tests shrink it too); the OpenAI text prompt.
 SURFACE_MAX_INFLIGHT, SURFACE_BURST = 6, 10
 SURFACE_DEADLINE_MS, SURFACE_LATE_TOKENS = 500, 2000
 SURFACE_STREAM_DEADLINE_MS = 3000
 SURFACE_GRACE_S = 5.0
 SURFACE_PROMPT = "The quick brown fox jumps over the lazy dog."
+# 4e (i): a Hugging Face checkpoint at llama3_8b's published widths
+# (meta-llama/Meta-Llama-3-8B config.json) cut to HF_LAYERS layers to bound
+# the disk and the time (~3.9 GB in bf16), written from the seed as two
+# shards and an index, served through --storage-uri on phase 4's engine;
+# HF_PROMPT_LENS greedy requests, one at a time, on the server and on the
+# engine of the module that wrote it; then a rank-16, alpha-32 attn_mlp
+# adapter folded flat through the bundle's peft_adapter.
+HF_LAYERS = 4
+HF_CONFIG = {"architectures": ["LlamaForCausalLM"], "attention_bias": False,
+             "bos_token_id": 128000, "eos_token_id": 128001,
+             "hidden_act": "silu", "hidden_size": 4096,
+             "intermediate_size": 14336, "max_position_embeddings": 8192,
+             "model_type": "llama", "num_attention_heads": 32,
+             "num_hidden_layers": HF_LAYERS, "num_key_value_heads": 8,
+             "rms_norm_eps": 1e-05, "rope_scaling": None,
+             "rope_theta": 500000.0, "tie_word_embeddings": False,
+             "torch_dtype": "bfloat16", "vocab_size": 128256}
+HF_NAME, HF_PROMPT_LENS, HF_PROMPT = "llama3_8b_hf", (5, 400, 3000), 512
+HF_ADAPTER = {"r": 16, "alpha": 32.0, "targets": "attn_mlp"}
+# 4e (ii): multi-LoRA on phase 4's full llama3_8b bundle: two synthetic
+# PEFT adapters (the JAX bench's `_synth_adapter_dir`: A and B N(0, 0.02),
+# alpha 2r), four concurrent requests of MAX_TOKENS, two of them base. The
+# prompt lengths keep every decode chunk in the 1024-row cache bucket
+# whatever the admission order (a chunk's first need is > 512, its last <=
+# 1024), so runs of the same requests compare bit for bit.
+ML_ADAPTERS = {"ml_a": {"r": 8, "targets": "attn", "seed": 11},
+               "ml_b": {"r": 16, "targets": "attn_mlp", "seed": 12}}
+ML_REQUESTS = ((520, None), (700, None), (600, "ml_a"), (900, "ml_b"))
 # 4c: int8 weights and KV must bring the serving peak this far under
 # phase 4's (bf16 weights 14.96 GiB; an int8 copy is ~7.5 GiB).
 QUANT_PEAK_SAVING_MIN_GIB = 5.0
@@ -1961,8 +2013,12 @@ def phase_surface(bundle: str, flat: dict) -> dict:
         t0 = time.monotonic()
         code, _, raw = _request("POST", base + gen_url, late, budget)
         late_s = time.monotonic() - t0
+        # Past the first frame on this host: four chunks of its issue.
+        stream_ms = max(SURFACE_STREAM_DEADLINE_MS, math.ceil(
+            4e3 * before["decode_seconds"]
+            / max(before["decode_dispatches"], 1)))
         st = _stream(base + gen_url, {**late, "stream": True}, {
-            "X-Request-Timeout-Ms": str(SURFACE_STREAM_DEADLINE_MS)})
+            "X-Request-Timeout-Ms": str(stream_ms)})
         served += 1  # the stream's status line went out: it is observed
         last = st["frames"][-1]
         t0 = time.monotonic()
@@ -1987,7 +2043,7 @@ def phase_surface(bundle: str, flat: dict) -> dict:
         log(f"  deadline {SURFACE_DEADLINE_MS} ms on {SURFACE_LATE_TOKENS} "
             f"tokens: {code} after {late_s:.3f}s (bound: budget + 2 chunks "
             f"of {chunk_s:.3f}s); streamed under "
-            f"{SURFACE_STREAM_DEADLINE_MS} ms: status {st['status']}, "
+            f"{stream_ms} ms: status {st['status']}, "
             f"first frame {st['first_s']:.3f}s, end {st['end_s']:.3f}s, "
             f"{len(st['frames']) - 1} token frames then "
             f"{json.dumps(last)[:120]}; slots free and nothing in flight "
@@ -2160,6 +2216,387 @@ def phase_surface(bundle: str, flat: dict) -> dict:
     return {"launches": phase_launches, "first_frame_s": first["first_s"],
             "unstreamed_s": unstreamed_s,
             "late_s": late_s, "scrape_ms": scrape_ms, "swap_s": landed}
+
+
+def _write_hf_checkpoint(ckpt: str, sd: dict, cfg) -> tuple[int, float]:
+    """`sd` as an HF checkpoint: config.json, two shards (the embedding
+    and the first half of the layers, then the rest) and their index, in
+    the checkpoint's dtypes (norm scales bf16, as HF stores them; they
+    widen to fp32 exactly). Returns (bytes written, seconds)."""
+    os.makedirs(ckpt, exist_ok=True)
+    names = hf_mod.llama_hf_names(cfg)
+    half = cfg.num_layers // 2
+    first = [h for h in names if h == "model.embed_tokens.weight"
+             or any(h.startswith(f"model.layers.{i}.") for i in range(half))]
+    shards = {"model-00001-of-00002.safetensors": first,
+              "model-00002-of-00002.safetensors":
+                  [h for h in names if h not in first]}
+    t0 = time.monotonic()
+    nbytes = 0
+    for shard, hf_names in shards.items():
+        nbytes += hf_mod.save_safetensors(
+            {h: sd[names[h]].to(torch.bfloat16) for h in hf_names},
+            os.path.join(ckpt, shard), metadata={"format": "pt"})
+    with open(os.path.join(ckpt, hf_mod.INDEX_FILE), "w") as f:
+        json.dump({"metadata": {"total_size": nbytes}, "weight_map": {
+            h: shard for shard, hs in shards.items() for h in hs}}, f)
+    with open(os.path.join(ckpt, "config.json"), "w") as f:
+        json.dump(HF_CONFIG, f)
+    return nbytes, time.monotonic() - t0
+
+
+def phase_hf_import(work: str) -> dict:
+    """4e (i): an HF checkpoint of llama3_8b's widths (HF_LAYERS layers)
+    written from the seed with the port's writer, read back bit-equal,
+    served through the server's --storage-uri with the bundle's
+    "huggingface" format; its logits bit-equal to the module that wrote
+    it, its greedy ids equal to that module's engine; then a PEFT adapter
+    folded flat through `peft_adapter`, held against the adapted function
+    in fp32."""
+    t_phase = time.monotonic()
+    cfg = hf_mod.llama_config_from_hf(HF_CONFIG)
+    ref = llama_mod.Llama(cfg, device=DEVICE).init_weights(SEED).eval()
+    sd = ref.state_dict()
+    ckpt = os.path.join(work, "hf_llama3_8b")
+    nbytes, write_s = _write_hf_checkpoint(ckpt, sd, cfg)
+    with open(os.path.join(ckpt, "model.json"), "w") as f:
+        json.dump({"format": "huggingface", "generative": GENERATIVE}, f)
+    t0 = time.monotonic()
+    back = hf_mod.load_safetensors_dir(ckpt)
+    names = hf_mod.llama_hf_names(cfg)
+    bad = sorted(set(back) ^ set(names)) + [
+        h for h in names if h in back
+        and not torch.equal(back[h].to(DEVICE), sd[names[h]].to(
+            torch.bfloat16))]
+    read_s = time.monotonic() - t0
+    log(f"  checkpoint: {cfg.num_layers} layers of {MODEL}'s widths, "
+        f"{len(names)} tensors, {nbytes} bytes in two shards + index, "
+        f"written in {write_s:.2f}s; read back in {read_s:.2f}s: "
+        f"{'every tensor bit-equal' if not bad else f'MISMATCH {bad[:4]}'}")
+    if bad:
+        raise RuntimeError("safetensors round trip changed tensors")
+    del back
+    rng = np.random.default_rng(SEED + 7)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (1, HF_PROMPT))).to(DEVICE)
+    bodies = [{"input_ids": rng.integers(0, cfg.vocab_size, n).tolist(),
+               "max_tokens": MAX_TOKENS} for n in HF_PROMPT_LENS]
+    gc.collect()
+    t0 = time.monotonic()
+    server, port = server_mod.start([
+        "--storage-uri", f"file://{ckpt}", "--name", HF_NAME, "--host",
+        "127.0.0.1", "--port", "0", "--device", DEVICE])
+    load_s = time.monotonic() - t0
+    base = f"http://127.0.0.1:{port}"
+    try:
+        with torch.inference_mode():
+            same_logits = torch.equal(
+                server.models[HF_NAME]._model(prompt), ref(prompt))
+        _reset_counts()
+        got = [_post(f"{base}/v1/models/{HF_NAME}:generate",
+                     b)["output_ids"] for b in bodies]
+        launches = fa.flash_fwd_launches
+        model_dir = server.repo.model_dir(HF_NAME)
+    finally:
+        server.stop()
+        del server
+        gc.collect()
+    engine = GenerationEngine(ref, **GENERATIVE)
+    try:
+        want = [engine.submit(b["input_ids"], max_tokens=b["max_tokens"])
+                ["output_ids"] for b in bodies]
+    finally:
+        engine.close()
+    expect = cfg.num_layers * len(bodies)
+    log(f"  --storage-uri file://{ckpt}: served from {model_dir}, loaded "
+        f"in {load_s:.2f}s ({nbytes / load_s / 1e9:.2f} GB/s of checkpoint "
+        f"read onto the card with the engine built); logits [1, "
+        f"{HF_PROMPT}, {cfg.vocab_size}] "
+        f"{'bit-equal to' if same_logits else 'DIFFER from'} the writing "
+        f"module's; greedy ids of prompts {HF_PROMPT_LENS} "
+        f"{'equal' if got == want else 'DIFFER from'} its engine's; "
+        f"flash_fwd launches {launches} (expected {expect})")
+    if not same_logits or got != want or launches != expect:
+        raise RuntimeError("the HF checkpoint does not serve the module "
+                           "that wrote it")
+    # The adapter, folded flat by the runtime.
+    pbundle = os.path.join(work, "hf_peft")
+    adir = multilora.write_synthetic_adapter(
+        cfg, os.path.join(pbundle, "adapter"), SEED + 9, r=HF_ADAPTER["r"],
+        alpha=HF_ADAPTER["alpha"], targets=HF_ADAPTER["targets"])
+    with open(os.path.join(pbundle, "model.json"), "w") as f:
+        json.dump({"format": "huggingface", "checkpoint": ckpt,
+                   "peft_adapter": "adapter", "generative": GENERATIVE}, f)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    folded = runtimes.load_model(pbundle, device=DEVICE)
+    fold_s = time.monotonic() - t0
+    with torch.inference_mode():
+        folded_logits = folded._model(prompt).float()
+        base_logits = ref(prompt).float()
+    del folded, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    # The adapted function: base weights and fp32 adapters, in bf16 as
+    # served adapted, and in fp32 (the exact reference).
+    fcfg = dataclasses.replace(cfg, param_dtype=torch.float32)
+    acfg, asd = peft_import.attach_peft_adapter(
+        adir, fcfg, hf_mod.build_from_hf(ckpt)[1])
+    adapted = llama_mod.Llama(acfg, device=DEVICE)
+    adapted.load_state_dict(asd)
+    del asd
+    with torch.inference_mode():
+        adapted_logits = adapted(prompt).float()
+        _set_compute_dtype(adapted, torch.float32)
+        exact = adapted(prompt).float()
+    del adapted
+    gc.collect()
+    torch.cuda.empty_cache()
+    rel_exact = _rel_l2(folded_logits, exact)
+    floor = _rel_l2(adapted_logits, exact)
+    rel = _rel_l2(folded_logits, adapted_logits)
+    rel_base = _rel_l2(base_logits, exact)
+    ok = rel_exact <= LOGITS_VS_NAIVE * floor and rel <= LOGITS_REL_L2_MAX
+    log(f"  peft_adapter (rank {HF_ADAPTER['r']}, alpha "
+        f"{HF_ADAPTER['alpha']}, {HF_ADAPTER['targets']}) folded flat and "
+        f"loaded in {fold_s:.2f}s; logits rel_l2 on the {HF_PROMPT}-token "
+        f"prompt: folded bf16 model vs the adapted function in fp32 "
+        f"{rel_exact:.3e}, the adapted bf16 model vs it {floor:.3e} (bound "
+        f"{LOGITS_VS_NAIVE} x that); folded vs adapted {rel:.3e} (bound "
+        f"{LOGITS_REL_L2_MAX}); the base without the adapter vs the fp32 "
+        f"function {rel_base:.3e} {'OK' if ok else 'FAIL'}; 4e (i) took "
+        f"{time.monotonic() - t_phase:.1f}s")
+    if not ok:
+        raise RuntimeError("the folded adapter disagrees with the adapted "
+                           "function")
+    return {"launches": launches, "load_s": load_s, "bytes": nbytes,
+            "write_s": write_s, "read_s": read_s, "fold_s": fold_s,
+            "fold_rel_l2": rel_exact, "adapted_rel_l2": floor}
+
+
+def _ml_bodies(vocab: int) -> list:
+    """4e (ii)'s four requests: prompts of ML_REQUESTS' lengths, greedy,
+    MAX_TOKENS out, each with its adapter (None: the base)."""
+    rng = np.random.default_rng(SEED + 8)
+    return [{"input_ids": rng.integers(0, vocab, n).tolist(),
+             "max_tokens": MAX_TOKENS, **({"adapter": ad} if ad else {})}
+            for n, ad in ML_REQUESTS]
+
+
+def _ml_concurrent(base: str, bodies: list, openai_index=None) -> list:
+    """The bodies at once, their greedy ids in order; body `openai_index`
+    goes through /openai/v1/completions as "<model>:<adapter>"."""
+    out: list = [None] * len(bodies)
+
+    def run(i):
+        b = bodies[i]
+        try:
+            if i == openai_index:
+                res = _post(f"{base}/openai/v1/completions", {
+                    "model": f"{MODEL}:{b['adapter']}",
+                    "prompt": b["input_ids"], "max_tokens": b["max_tokens"],
+                    "temperature": 0, "logprobs": 0})
+                out[i] = [int(t) for t in
+                          res["choices"][0]["logprobs"]["tokens"]]
+            else:
+                out[i] = _post(f"{base}/v1/models/{MODEL}:generate",
+                               b)["output_ids"]
+        except Exception as e:  # reported below as a failed request
+            out[i] = e
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(bodies))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    for i, ids in enumerate(out):
+        if not isinstance(ids, list) or len(ids) != MAX_TOKENS:
+            raise RuntimeError(f"multi-LoRA request {i} failed: {ids!r}")
+    return out
+
+
+def _chunk_launches(server: ModelServer, aids=None) -> tuple:
+    """(kernel launches per decode step by the profiler, or None when it
+    saw no device time; unprofiled ms per step) of one decode chunk of the
+    idle engine, with adapter ids `aids`."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call, _, _ = _decode_chunk(server, aids)
+    with torch.inference_mode():
+        call()  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+    return (kernels / CHUNK if kernels else None), wall / CHUNK
+
+
+def _adapted_logits_check(server: ModelServer, bodies: list, dirs: dict,
+                          cfg) -> list:
+    """Each adapter request's prompt through the served model: bf16 as
+    served (the engine's stacks, the row selecting its adapter), and in
+    fp32 with fp32 stacks (base + (x·A)·B·alpha/r, the exact function);
+    the floor is phase 5c's adapted bf16 model (the adapter as LoRA
+    parameters beside the same weights, `models/llama._project`) against
+    that fp32 function. Returns per request (rel-L2 of the served logits
+    from the fp32 ones, the floor, the last row's, the bf16 argmax at the
+    last row). The model is restored to bf16 after."""
+    model = server.models[MODEL]._model
+    engine = server.models[MODEL].engine
+    stacks32, ids = multilora.build_adapter_stacks(
+        dirs, dataclasses.replace(cfg, dtype=torch.float32), device=DEVICE)
+    weights = model.state_dict()
+    rows = []
+    with torch.inference_mode():
+        for b in bodies:
+            if "adapter" not in b:
+                continue
+            toks = torch.tensor([b["input_ids"]], device=DEVICE)
+            aid = torch.tensor([ids[b["adapter"]]], device=DEVICE)
+            served = model(toks, adapter=engine._ml_stacks,
+                           adapter_ids=aid).float()
+            acfg, leaves = peft_import.load_peft_adapter(dirs[b["adapter"]],
+                                                         cfg)
+            lora = llama_mod.Llama(acfg, device=DEVICE)  # shares weights:
+            lora.load_state_dict({**weights, **{
+                k: v.to(DEVICE) for k, v in leaves.items()}}, assign=True)
+            floor16 = lora(toks).float()
+            del lora
+            _set_compute_dtype(model, torch.float32)
+            try:
+                exact = model(toks, adapter=stacks32, adapter_ids=aid)
+            finally:
+                _set_compute_dtype(model, cfg.dtype)
+            rows.append((_rel_l2(served, exact), _rel_l2(floor16, exact),
+                         _rel_l2(served[0, -1], exact[0, -1]),
+                         int(served[0, -1].argmax())))
+            del served, floor16, exact
+            torch.cuda.empty_cache()
+    del stacks32, weights
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _ml_serve(bundle: str, generative: dict, bodies: list,
+              openai_index=None, probe=None) -> dict:
+    """`bodies` at once on phase 4's bundle with `generative` on top:
+    {"ids", "launches" (flash_fwd, this run alone), "stats", "step_ms"
+    (host-inclusive ms per 4-row step), and what `probe(base, server)`
+    adds after the run}. Nothing here outlives the server."""
+    with _serving(bundle, generative) as (base, server):
+        _reset_counts()
+        out = {"ids": _ml_concurrent(base, bodies, openai_index),
+               "launches": fa.flash_fwd_launches,
+               "stats": _metadata(base)["stats"]}
+        out["step_ms"] = _step_ms(
+            {"decode_dispatches": 0, "decode_seconds": 0.0}, out["stats"])
+        if probe is not None:
+            out.update(probe(base, server))
+    return out
+
+
+def phase_multilora(bundle: str, work: str) -> dict:
+    """4e (ii): two PEFT adapters on phase 4's full llama3_8b bundle
+    (`generative.adapters`), four concurrent requests (two base, one per
+    adapter, the ml_b one as the OpenAI model "llama3_8b:ml_b"), then the
+    same four paged, and on base-only engines flat and paged. Gates: base
+    rows = the base-only engine's; adapter rows = their lone runs on the
+    same engine and within the fp32 gate; each adapter changes its row;
+    paged = flat; the adapters listed by /openai/v1/models and the
+    metadata."""
+    t_phase = time.monotonic()
+    cfg = registry.model_config(MODEL, **MODEL_KWARGS)
+    dirs = {name: multilora.write_synthetic_adapter(
+        cfg, os.path.join(work, name), a["seed"], r=a["r"],
+        targets=a["targets"]) for name, a in ML_ADAPTERS.items()}
+    bodies = _ml_bodies(cfg.vocab_size)
+    ad_rows = [i for i, b in enumerate(bodies) if "adapter" in b]
+    base_rows = [i for i in range(len(bodies)) if i not in ad_rows]
+
+    def mixed_probe(base, server):
+        engine = server.models[MODEL].engine
+        return {
+            "alone": {i: _post(f"{base}/v1/models/{MODEL}:generate",
+                               bodies[i])["output_ids"] for i in ad_rows},
+            "listed": [m["id"] for m in json.loads(_request(
+                "GET", base + "/openai/v1/models")[2])["data"]],
+            "named": _metadata(base).get("adapters"),
+            "stack_bytes": multilora.stack_bytes(engine._ml_stacks),
+            "load_s": engine.adapter_load_s,
+            "chunk": _chunk_launches(server, [
+                engine._ml_ids.get(b.get("adapter"), 0) for b in bodies]),
+            "checks": _adapted_logits_check(server, bodies, dirs, cfg)}
+
+    mixed = _ml_serve(bundle, {"adapters": dirs}, bodies, next(
+        i for i in ad_rows if bodies[i]["adapter"] == "ml_b"), mixed_probe)
+    _pipeline_line(mixed["stats"], "4 concurrent requests, 2 adapters")
+    mixed_paged = _ml_serve(bundle, {"adapters": dirs,
+                                     "kv_block_size": KV_BLOCK_SIZE}, bodies)
+    plain = [{k: v for k, v in b.items() if k != "adapter"} for b in bodies]
+    base_only = _ml_serve(bundle, {}, plain, probe=lambda base, server: {
+        "chunk": _chunk_launches(server)})
+    base_paged = _ml_serve(bundle, {"kv_block_size": KV_BLOCK_SIZE}, plain)
+    ids, base_ids, checks = mixed["ids"], base_only["ids"], mixed["checks"]
+    expect = cfg.num_layers * len(bodies)
+    gates = {
+        "1 base rows = base-only engine": all(
+            ids[i] == base_ids[i] for i in base_rows),
+        "2 adapter rows = lone runs": all(ids[i] == mixed["alone"][i]
+                                          for i in ad_rows),
+        "2 fp32 gate": all(r <= LOGITS_VS_NAIVE * floor
+                           and last <= LOGITS_REL_L2_MAX
+                           for r, floor, last, _ in checks),
+        "3 each adapter changes its row": all(
+            ids[i] != base_ids[i] for i in ad_rows),
+        "4 paged = flat": (mixed_paged["ids"] == ids
+                           and base_paged["ids"] == base_ids),
+        "5 adapters listed": (mixed["named"] == sorted(dirs) and all(
+            f"{MODEL}:{n}" in mixed["listed"] for n in dirs)),
+        "flash launches": mixed["launches"] == expect,
+    }
+    for i, (r, floor, last, top) in zip(ad_rows, checks):
+        b = bodies[i]
+        log(f"  {b['adapter']} (rank {ML_ADAPTERS[b['adapter']]['r']}, "
+            f"{ML_ADAPTERS[b['adapter']]['targets']}), prompt "
+            f"{len(b['input_ids'])}: logits rel_l2, served (bf16 stacks) vs "
+            f"fp32 base + (x·A)·B·alpha/r {r:.3e}, the adapted bf16 model "
+            f"of phase 5c vs it {floor:.3e} (bound {LOGITS_VS_NAIVE} x "
+            f"that), last row {last:.3e} (bound {LOGITS_REL_L2_MAX}); "
+            f"first id {ids[i][0]}, bf16 argmax {top}; ids differing from "
+            f"the base run {sum(x != y for x, y in zip(ids[i], base_ids[i]))}"
+            f" of {MAX_TOKENS}")
+    per_step = {"mixed": mixed["chunk"], "base_only": base_only["chunk"]}
+    fmt = (lambda v: "not measured" if v is None else f"{v:.1f}")
+    log(f"  adapters loaded and stacked in {mixed['load_s']:.3f}s, "
+        f"{mixed['stack_bytes']} bytes on the card; ms per 4-row decode "
+        f"step (host-inclusive): mixed {mixed['step_ms']:.2f}, base-only "
+        f"{base_only['step_ms']:.2f}; one idle chunk (bucket 4096) per "
+        f"step: mixed {per_step['mixed'][1]:.2f} ms, "
+        f"{fmt(per_step['mixed'][0])} kernels; base-only "
+        f"{per_step['base_only'][1]:.2f} ms, "
+        f"{fmt(per_step['base_only'][0])} kernels; flash_fwd launches "
+        f"{mixed['launches']} (expected {expect}); /openai/v1/models "
+        f"{mixed['listed']}; {time.monotonic() - t_phase:.1f}s; {smi()}")
+    for gate, ok in gates.items():
+        log(f"  gate {gate}: {'OK' if ok else 'FAIL'}")
+    if not all(gates.values()):
+        raise RuntimeError(f"multi-LoRA gates failed: "
+                           f"{[g for g, ok in gates.items() if not ok]}")
+    return {"launches": mixed["launches"], "load_s": mixed["load_s"],
+            "stack_bytes": mixed["stack_bytes"],
+            "mixed_ms": mixed["step_ms"], "base_ms": base_only["step_ms"],
+            "launches_per_step": per_step}
 
 
 def _decode_in_situ(ordered_ms: list) -> dict | None:
@@ -2374,11 +2811,13 @@ def _profile_step(step_fn, state, batch) -> None:
     _profile("step", lambda: step_fn(state, batch))
 
 
-def _decode_chunk(server: ModelServer):
+def _decode_chunk(server: ModelServer, aids=None):
     """(one decode chunk of the idle engine as a zero-argument call: CHUNK
     steps, every slot at position 3000, greedy, through the engine's own
     decode function; its rows, its bucket). Paged engines get tables over
-    blocks 1.. (the pool is idle: nothing lives there)."""
+    blocks 1.. (the pool is idle: nothing lives there). `aids` (an
+    engine with adapters): each row's adapter id, gathered once outside
+    the call, as the engine's dispatch does."""
     engine = server.models[MODEL].engine
     dev, n = engine.device, engine.n_slots
     pos = PROMPT_LENS[-1]
@@ -2392,7 +2831,10 @@ def _decode_chunk(server: ModelServer):
         nb = bucket // engine.kv_info()["block_size"]
         args.insert(0, torch.arange(1, 1 + n * nb, device=dev).view(n, nb))
     chunk_fn = engine._decode[(bucket, False)]
-    return (lambda: chunk_fn(engine._cache, *args, engine._gen)), n, bucket
+    rows = (None if aids is None
+            else engine._adapter_rows(np.asarray(aids, np.int64)))
+    return (lambda: chunk_fn(engine._cache, *args, engine._gen, rows)), n, \
+        bucket
 
 
 class _Int8Copies(TorchDispatchMode):
@@ -3400,6 +3842,13 @@ def main() -> int:
         log(f"phase 4d: the request surface of {MODEL} (streams, the "
             "OpenAI routes, deadlines, admission, /metrics, a version swap)")
         surface = phase_surface(bundle, flat)
+        log(f"phase 4e: Hugging Face checkpoints and PEFT adapters: "
+            f"{MODEL}'s widths at {HF_LAYERS} layers through --storage-uri "
+            "and peft_adapter, then multi-LoRA on the full model")
+        t4e = time.monotonic()
+        hf = phase_hf_import(bundle)
+        ml = phase_multilora(bundle, bundle)
+        log(f"  phase 4e took {time.monotonic() - t4e:.1f}s")
     finally:
         shutil.rmtree(bundle, ignore_errors=True)
     log(f"phase 5: training {TRAIN_MODEL} through the trainer")
@@ -3424,6 +3873,8 @@ def main() -> int:
     fwd_launches = {"serving": flat["launches"],
                     "paged_quant_serving": quant["launches"],
                     "request_surface": surface["launches"],
+                    "hf_import_serving": hf["launches"],
+                    "multilora_serving": ml["launches"],
                     "training": train["launches"][0],
                     "packed_training": job["launches"][0],
                     "lora_training": lora_run["launches"][0],

@@ -1,0 +1,380 @@
+"""Hugging Face checkpoints: a safetensors reader and writer, and the
+Llama-family import onto the port's `Llama`.
+
+The port of `kubeflow_tpu/models/hf_import.py` for the Llama family (Llama,
+Llama 3.1's rope scaling, Mistral's config), with its own safetensors
+codec: the `safetensors` package is not a dependency of this package.
+
+A safetensors file is an 8-byte little-endian header length N, N bytes of
+JSON header ({name: {"dtype", "shape", "data_offsets": [begin, end]}} plus
+an optional "__metadata__" of strings), then the tensors' raw bytes,
+little-endian, each at [8 + N + begin, 8 + N + end). The reader maps the
+file (copy-on-write, so nothing is read until used and nothing is written
+back) and returns CPU tensors that view the mapping: an 8B checkpoint's
+gigabytes are not copied once more on the host before they reach the card.
+A tensor whose bytes are not aligned to its element size is copied. A file
+must not be truncated in place while such tensors live (their pages would
+fault); `save_safetensors` replaces a file by a rename, never in place.
+
+The Llama import translates names only: HF stores a Linear as [out, in],
+the port's layout, so no transposes and no head reshapes; RoPE needs no
+permutation (HF Llama rotates halves, as `models/llama.apply_rope`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import mmap
+import os
+import struct
+import sys
+from typing import Any
+
+import torch
+
+from kubeflow_tpu_torch.models.llama import LlamaConfig, _check_supported
+
+#: safetensors dtype names -> torch dtypes (the F8 names are the torch
+#: float8 types of the same encoding).
+DTYPES = {
+    "F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
+    "BF16": torch.bfloat16, "I64": torch.int64, "I32": torch.int32,
+    "I16": torch.int16, "I8": torch.int8, "U8": torch.uint8,
+    "BOOL": torch.bool, "F8_E4M3": torch.float8_e4m3fn,
+    "F8_E5M2": torch.float8_e5m2,
+}
+_NAMES = {dt: name for name, dt in DTYPES.items()}
+#: The header's size cap (the safetensors format's own, 100 MB).
+MAX_HEADER_BYTES = 100_000_000
+INDEX_FILE = "model.safetensors.index.json"
+
+
+class SafetensorsError(ValueError):
+    """A file that is not a well-formed safetensors file."""
+
+
+def _parse_header(path: str, size: int, raw: bytes) -> tuple[dict, dict]:
+    """({name: (dtype, shape, begin, end)}, metadata) of a header, checked
+    against the data section's size."""
+    try:
+        header = json.loads(raw)
+    except (UnicodeDecodeError, json.JSONDecodeError) as e:
+        raise SafetensorsError(f"{path}: unreadable header JSON ({e})") \
+            from None
+    if not isinstance(header, dict):
+        raise SafetensorsError(f"{path}: header is not a JSON object")
+    meta = header.pop("__metadata__", None) or {}
+    if not isinstance(meta, dict) or not all(
+            isinstance(v, str) for v in meta.values()):
+        raise SafetensorsError(f"{path}: __metadata__ must map names to "
+                               "strings")
+    entries = {}
+    for name, info in header.items():
+        try:
+            dtype = DTYPES[info["dtype"]]
+        except KeyError:
+            raise SafetensorsError(
+                f"{path}: tensor {name!r} has unknown dtype "
+                f"{info.get('dtype')!r} (have {sorted(DTYPES)})") from None
+        except TypeError:
+            raise SafetensorsError(f"{path}: tensor {name!r}: entry is not "
+                                   "an object") from None
+        shape, offs = info.get("shape"), info.get("data_offsets")
+        if (not isinstance(shape, list) or not all(
+                isinstance(d, int) and d >= 0 for d in shape)):
+            raise SafetensorsError(f"{path}: tensor {name!r} has bad shape "
+                                   f"{shape!r}")
+        if (not isinstance(offs, list) or len(offs) != 2 or not all(
+                isinstance(o, int) for o in offs)):
+            raise SafetensorsError(f"{path}: tensor {name!r} has bad "
+                                   f"data_offsets {offs!r}")
+        begin, end = offs
+        if not 0 <= begin <= end <= size:
+            raise SafetensorsError(
+                f"{path}: tensor {name!r} data_offsets {offs} out of range "
+                f"of the {size}-byte data section (truncated file?)")
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        if end - begin != math.prod(shape) * itemsize:
+            raise SafetensorsError(
+                f"{path}: tensor {name!r} spans {end - begin} bytes, its "
+                f"{info['dtype']} shape {shape} needs "
+                f"{math.prod(shape) * itemsize}")
+        entries[name] = (dtype, tuple(shape), begin, end)
+    last_end, last = 0, None
+    for name, (_, _, begin, end) in sorted(entries.items(),
+                                           key=lambda e: e[1][2:]):
+        if begin < last_end:
+            raise SafetensorsError(f"{path}: tensors {last!r} and {name!r} "
+                                   "overlap")
+        last_end, last = max(last_end, end), name
+    return entries, meta
+
+
+def load_safetensors(path: str, with_metadata: bool = False):
+    """{name: CPU tensor} of one safetensors file (and its __metadata__
+    when `with_metadata`). Refuses, by name, a truncated file, a header
+    that does not parse, overlapping or out-of-range offsets and an
+    unknown dtype."""
+    if sys.byteorder != "little":
+        raise RuntimeError("safetensors files are little-endian; this host "
+                           "is not")
+    size = os.path.getsize(path)
+    with open(path, "rb") as f:
+        head = f.read(8)
+        if len(head) < 8:
+            raise SafetensorsError(f"{path}: {size} bytes, shorter than the "
+                                   "8-byte header length (truncated file)")
+        n = struct.unpack("<Q", head)[0]
+        if n > MAX_HEADER_BYTES or 8 + n > size:
+            raise SafetensorsError(
+                f"{path}: header length {n} does not fit the {size}-byte "
+                "file (truncated or not a safetensors file)")
+        entries, meta = _parse_header(path, size - 8 - n, f.read(n))
+        mm = None
+        if any(end > begin for _, _, begin, end in entries.values()):
+            mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_COPY)
+    out = {}
+    for name, (dtype, shape, begin, end) in entries.items():
+        if end == begin:
+            out[name] = torch.empty(shape, dtype=dtype)
+            continue
+        raw = torch.frombuffer(mm, dtype=torch.uint8, count=end - begin,
+                               offset=8 + n + begin)
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        if raw.data_ptr() % itemsize:
+            raw = raw.clone()  # a fresh, aligned buffer
+        out[name] = raw.view(dtype).reshape(shape)
+    return (out, meta) if with_metadata else out
+
+
+def save_safetensors(tensors: dict, path: str,
+                     metadata: dict | None = None) -> int:
+    """Write `tensors` ({name: tensor}, any device) as one safetensors file
+    readable by the `safetensors` package; returns the bytes written.
+    Tensors are laid out by element size, largest first, then by name, so
+    every offset is a multiple of its element size, and the header is
+    padded with spaces to a multiple of 8, as the format's own writer
+    does."""
+    for name, t in tensors.items():
+        if t.dtype not in _NAMES:
+            raise SafetensorsError(f"tensor {name!r}: dtype {t.dtype} has "
+                                   "no safetensors name")
+    order = sorted(tensors, key=lambda k: (-tensors[k].element_size(), k))
+    header: dict[str, Any] = {}
+    if metadata:
+        header["__metadata__"] = {str(k): str(v) for k, v in metadata.items()}
+    offset = 0
+    for name in order:
+        t = tensors[name]
+        nbytes = t.numel() * t.element_size()
+        header[name] = {"dtype": _NAMES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + nbytes]}
+        offset += nbytes
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    # Written aside, then renamed over `path`: tensors that still map the
+    # old file (this module's reader) keep its bytes; truncating it in
+    # place would fault them.
+    tmp = f"{path}.tmp{os.getpid()}"
+    with open(tmp, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for name in order:
+            t = tensors[name].detach()
+            if t.numel():
+                f.write(t.contiguous().cpu().reshape(-1).view(torch.uint8)
+                        .numpy())
+    os.replace(tmp, path)
+    return 8 + len(raw) + offset
+
+
+def safetensors_files(path: str) -> list[str]:
+    """The checkpoint files of a directory: the shards its
+    model.safetensors.index.json names, else model.safetensors, else every
+    *.safetensors file, sorted."""
+    index = os.path.join(path, INDEX_FILE)
+    if os.path.exists(index):
+        with open(index) as f:
+            weight_map = json.load(f)["weight_map"]
+        return [os.path.join(path, s)
+                for s in sorted(set(weight_map.values()))]
+    single = os.path.join(path, "model.safetensors")
+    if os.path.exists(single):
+        return [single]
+    cands = sorted(f for f in os.listdir(path) if f.endswith(".safetensors"))
+    if not cands:
+        raise FileNotFoundError(f"no .safetensors files under {path}")
+    return [os.path.join(path, f) for f in cands]
+
+
+def load_safetensors_dir(path: str) -> dict[str, torch.Tensor]:
+    """All tensors of a HF checkpoint dir (single-file, sharded with a
+    model.safetensors.index.json, or any-named *.safetensors files), as
+    CPU tensors. A sharded checkpoint must hold every tensor its index
+    names, in the shard the index names."""
+    tensors: dict[str, torch.Tensor] = {}
+    for file in safetensors_files(path):
+        tensors.update(load_safetensors(file))
+    index = os.path.join(path, INDEX_FILE)
+    if os.path.exists(index):
+        with open(index) as f:
+            weight_map = json.load(f)["weight_map"]
+        missing = sorted(k for k in weight_map if k not in tensors)
+        if missing:
+            raise KeyError(f"{INDEX_FILE} names tensors no shard holds: "
+                           f"{missing[:8]}")
+    return tensors
+
+
+def read_hf_config(path: str) -> dict:
+    with open(os.path.join(path, "config.json")) as f:
+        return json.load(f)
+
+
+# ---------------------------------------------------------------------------
+# Llama family
+# ---------------------------------------------------------------------------
+
+_CONFIG_FIELDS = frozenset(f.name for f in dataclasses.fields(LlamaConfig))
+
+
+def llama_config_from_hf(hf: dict, **overrides: Any) -> LlamaConfig:
+    """Map HF LlamaConfig fields onto the port's. `overrides` win (dtype,
+    attention_impl, a shorter max_seq_len for serving memory).
+
+    Unsupported config features fail loudly here: importing a checkpoint
+    whose math this model does not implement must never give silently
+    wrong logits. Qwen2's QKV biases map onto `attention_bias`, which the
+    model refuses by name (`models/llama._check_supported`)."""
+    unknown = sorted(set(overrides) - _CONFIG_FIELDS)
+    if unknown:
+        raise ValueError(f"model_overrides {unknown} are not LlamaConfig "
+                         "fields")
+    heads = hf["num_attention_heads"]
+    fields = dict(
+        vocab_size=hf["vocab_size"],
+        hidden_size=hf["hidden_size"],
+        intermediate_size=hf["intermediate_size"],
+        num_layers=hf["num_hidden_layers"],
+        num_heads=heads,
+        num_kv_heads=hf.get("num_key_value_heads", heads),
+        head_dim=hf.get("head_dim") or hf["hidden_size"] // heads,
+        max_seq_len=hf.get("max_position_embeddings", 8192),
+        rope_theta=float(hf.get("rope_theta", 10000.0)),
+        rms_eps=float(hf.get("rms_norm_eps", 1e-5)),
+        tie_embeddings=bool(hf.get("tie_word_embeddings", False)),
+    )
+    # Qwen2 ships QKV biases (HF LlamaConfig names attention_bias;
+    # Qwen2Config implies it).
+    fields["attention_bias"] = bool(
+        hf.get("attention_bias", hf.get("model_type") == "qwen2"))
+    scaling = hf.get("rope_scaling")
+    if scaling:
+        rtype = scaling.get("rope_type") or scaling.get("type")
+        if rtype not in ("llama3", "default"):
+            raise ValueError(
+                f"unsupported rope_scaling type {rtype!r} (only the "
+                "Llama-3.1 'llama3' frequency remap is implemented)")
+        if rtype == "llama3":
+            fields.update(
+                rope_scaling_factor=float(scaling["factor"]),
+                rope_scaling_low_freq_factor=float(
+                    scaling.get("low_freq_factor", 1.0)),
+                rope_scaling_high_freq_factor=float(
+                    scaling.get("high_freq_factor", 4.0)),
+                rope_scaling_original_max_len=int(
+                    scaling.get("original_max_position_embeddings", 8192)))
+    if hf.get("sliding_window") and hf.get("use_sliding_window", True):
+        # Mistral's windowed attention: the flash kernel's banded mask.
+        # (Qwen2 configs carry a sliding_window with use_sliding_window
+        # false, so both fields are read.) The serving engine refuses a
+        # sliding-window model by name until its rolling cache is ported.
+        fields.update(mask_kind="sliding_window",
+                      mask_window=int(hf["sliding_window"]),
+                      attention_impl="flash")
+    fields.update(overrides)
+    return LlamaConfig(**fields)
+
+
+def llama_hf_names(cfg: LlamaConfig) -> dict:
+    """{HF tensor name: the port's state-dict key} of a Llama-family
+    checkpoint of `cfg` (no lm_head when the embeddings are tied)."""
+    names = {"model.embed_tokens.weight": "embed",
+             "model.norm.weight": "final_norm.scale"}
+    if not cfg.tie_embeddings:  # tied: the unembedding reuses `embed`
+        names["lm_head.weight"] = "lm_head.weight"
+    for i in range(cfg.num_layers):
+        hf, port = f"model.layers.{i}.", f"layers.{i}."
+        for p in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            names[f"{hf}self_attn.{p}.weight"] = f"{port}attn.{p}.weight"
+        for p in ("gate_proj", "up_proj", "down_proj"):
+            names[f"{hf}mlp.{p}.weight"] = f"{port}mlp.{p}.weight"
+        names[f"{hf}input_layernorm.weight"] = f"{port}input_norm.scale"
+        names[f"{hf}post_attention_layernorm.weight"] = \
+            f"{port}post_attn_norm.scale"
+    return names
+
+
+def _llama_state_dict(t: dict, cfg: LlamaConfig) -> dict:
+    """The port's state dict from HF Llama-family tensors: projections and
+    the embedding in cfg.storage_dtype, norm scales in fp32. A tensor
+    already in its target dtype is the given tensor (no copy)."""
+    if not cfg.tie_embeddings and "lm_head.weight" not in t:
+        raise KeyError(
+            "checkpoint says tie_word_embeddings=false but has no "
+            "lm_head.weight — refusing to guess (corrupt export?)")
+    sd = {}
+    for name, key in llama_hf_names(cfg).items():
+        if name not in t:
+            raise KeyError(f"checkpoint has no tensor {name!r}")
+        sd[key] = t[name].to(torch.float32 if key.endswith(".scale")
+                             else cfg.storage_dtype)
+    return sd
+
+
+_LLAMA_FAMILIES = ("Llama", "Mistral", "Qwen2")
+
+
+def import_llama(path: str, **overrides: Any) -> tuple[LlamaConfig, dict]:
+    """HF Llama-family checkpoint dir -> (LlamaConfig, state dict for
+    `Llama(cfg).load_state_dict`). The config is checked against what the
+    port implements before any tensor is read."""
+    hf = read_hf_config(path)
+    arch = (hf.get("architectures") or ["LlamaForCausalLM"])[0]
+    if "Qwen2Moe" in arch or not any(f in arch for f in _LLAMA_FAMILIES):
+        raise ValueError(f"import_llama: {arch!r} is not a Llama-family "
+                         "checkpoint (use build_from_hf)")
+    cfg = llama_config_from_hf(hf, **overrides)
+    _check_supported(cfg)
+    return cfg, _llama_state_dict(load_safetensors_dir(path), cfg)
+
+
+#: Families the JAX package imports whose models the port has not ported
+#: yet: (test on the architecture or model_type, name, ROADMAP item).
+_REFUSED = (
+    (lambda a, m: "Bert" in a or m == "bert", "BERT", "A8"),
+    (lambda a, m: "GPT2" in a or m == "gpt2", "GPT-2", "A8"),
+    (lambda a, m: "T5" in a or m.endswith("t5"), "T5/MT5/UMT5", "A8"),
+    (lambda a, m: "Mixtral" in a or m == "mixtral",
+     "Mixtral (models/moe.py)", "A8"),
+    (lambda a, m: "Qwen2Moe" in a or m == "qwen2_moe",
+     "Qwen2-MoE (models/moe.py)", "A8"),
+    (lambda a, m: "Gemma" in a or m.startswith("gemma"), "Gemma 1/2/3",
+     "A3.8"),
+)
+
+
+def build_from_hf(path: str, **overrides: Any) -> tuple[LlamaConfig, dict]:
+    """Architecture-dispatched import: (LlamaConfig, state dict). Families
+    whose models are not ported are refused by name."""
+    hf = read_hf_config(path)
+    arch = (hf.get("architectures") or [hf.get("model_type", "")])[0]
+    mtype = hf.get("model_type", "")
+    for test, what, item in _REFUSED:
+        if test(arch, mtype):
+            raise NotImplementedError(
+                f"{what} checkpoints ({arch!r}) are not supported by this "
+                f"package yet (ROADMAP {item})")
+    return import_llama(path, **overrides)

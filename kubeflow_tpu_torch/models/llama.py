@@ -23,7 +23,10 @@ Differences from the JAX twin, by design:
     embedding an `Int8Dense` table (serve/quant.py), built by
     `quantize_model` from a float model or loaded from a state dict;
   * features of other model families and of later slices are refused with
-    NotImplementedError, never ignored (`_check_supported`).
+    NotImplementedError, never ignored (`_check_supported`);
+  * multi-LoRA serving takes each row's adapter factors gathered once
+    (`adapter_rows`, an `AdapterRows`) as well as the stacks and ids, so
+    the engine gathers once per decode chunk, not once per step.
 """
 
 from __future__ import annotations
@@ -351,19 +354,41 @@ def _add_lora(block: nn.Module, block_name: str, cfg: LlamaConfig,
             torch.empty(n_out, r, dtype=dt, device=device)))
 
 
-def _project(block: nn.Module, name: str, x):
+class AdapterRows(dict):
+    """Multi-LoRA factors selected per batch row: {projection: (a [L, B,
+    in, r], b [L, B, r, out])}, b already scaled by alpha/r. Made by
+    `adapter_rows`; layer i reads views a[i], b[i]."""
+
+
+def adapter_rows(stacks: dict, ids, dtype) -> AdapterRows:
+    """Each row's entry of the multi-LoRA stacks (serve/multilora.py):
+    `ids` [B] indexes axis 1 of every "a"/"b" stack, entry 0 being the
+    zero (base) adapter. One gather per factor, no host sync."""
+    ids = ids.to(torch.long)
+    return AdapterRows({m: tuple(torch.index_select(ab[k], 1, ids).to(dtype)
+                                 for k in ("a", "b"))
+                        for m, ab in stacks.items()})
+
+
+def _project(block: nn.Module, name: str, x, rows=None):
     """The projection `name` of x, plus its LoRA delta (x @ A) @ B *
     alpha/rank when the config adapts it: x, A and B cast to cfg.dtype, as
-    the JAX `_lora_delta`'s dot_generals."""
+    the JAX `_lora_delta`'s dot_generals. `rows` ({name: (a [B, in, r],
+    b [B, r, out])}, one layer of `AdapterRows`) adds each row's
+    multi-LoRA delta (x @ a) @ b after it, in x's dtype (the JAX
+    `_multi_lora_delta`): a base row's zero factors add exact zeros."""
     out = getattr(block, name)(x)
-    if name not in block.lora:
-        return out
-    cfg = block.cfg
-    dt = cfg.dtype
-    a = getattr(block, f"{name}_lora_a").to(dt)
-    b = getattr(block, f"{name}_lora_b").to(dt)
-    return out + F.linear(F.linear(x.to(dt), a), b) * (
-        cfg.lora_alpha / cfg.lora_rank)
+    if name in block.lora:
+        cfg = block.cfg
+        dt = cfg.dtype
+        a = getattr(block, f"{name}_lora_a").to(dt)
+        b = getattr(block, f"{name}_lora_b").to(dt)
+        out = out + F.linear(F.linear(x.to(dt), a), b) * (
+            cfg.lora_alpha / cfg.lora_rank)
+    if rows is not None and name in rows:
+        a, b = rows[name]
+        out = out + torch.bmm(torch.bmm(x, a), b)
+    return out
 
 
 class Attention(nn.Module):
@@ -381,15 +406,15 @@ class Attention(nn.Module):
 
     def forward(self, x, cos, sin, positions, standard_positions=True,
                 cache=None, cache_index=None, segment_ids=None,
-                attend_full_cache=False):
+                attend_full_cache=False, adapter=None):
         cfg = self.cfg
         b, s, _ = x.shape
         h, kh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         # Each LoRA delta lands on its projection's output, before RoPE.
-        q = apply_rope(_project(self, "q_proj", x).view(b, s, h, dh), cos,
-                       sin, positions)
+        q = apply_rope(_project(self, "q_proj", x, adapter).view(b, s, h, dh),
+                       cos, sin, positions)
         k = apply_rope(self.k_proj(x).view(b, s, kh, dh), cos, sin, positions)
-        v = _project(self, "v_proj", x).view(b, s, kh, dh)
+        v = _project(self, "v_proj", x, adapter).view(b, s, kh, dh)
         mask_spec = cfg.mask_spec
         if mask_spec is not None and cache is not None:
             raise ValueError(
@@ -465,10 +490,10 @@ class MLPBlock(nn.Module):
         _add_lora(self, "mlp", cfg, {"gate_proj": (d, i), "up_proj": (d, i),
                                      "down_proj": (i, d)}, device)
 
-    def forward(self, x):
-        h = F.silu(_project(self, "gate_proj", x)) * _project(self, "up_proj",
-                                                              x)
-        return _project(self, "down_proj", h)
+    def forward(self, x, adapter=None):
+        h = F.silu(_project(self, "gate_proj", x, adapter)) * _project(
+            self, "up_proj", x, adapter)
+        return _project(self, "down_proj", h, adapter)
 
 
 class DecoderLayer(nn.Module):
@@ -483,11 +508,11 @@ class DecoderLayer(nn.Module):
 
     def forward(self, x, cos, sin, positions, standard_positions=True,
                 cache=None, cache_index=None, segment_ids=None,
-                attend_full_cache=False):
+                attend_full_cache=False, adapter=None):
         x = x + self.attn(self.input_norm(x), cos, sin, positions,
                           standard_positions, cache, cache_index, segment_ids,
-                          attend_full_cache)
-        return x + self.mlp_branch(x)
+                          attend_full_cache, adapter)
+        return x + self.mlp_branch(x, adapter)
 
     def attn_branch(self, x, cos, sin, positions, standard_positions=True,
                     segment_ids=None):
@@ -496,8 +521,8 @@ class DecoderLayer(nn.Module):
         return self.attn(self.input_norm(x), cos, sin, positions,
                          standard_positions, segment_ids=segment_ids)
 
-    def mlp_branch(self, x):
-        return self.mlp(self.post_attn_norm(x))
+    def mlp_branch(self, x, adapter=None):
+        return self.mlp(self.post_attn_norm(x), adapter)
 
 
 _SAVED_PRODUCTS = {  # remat policy: the ops whose outputs it keeps
@@ -600,15 +625,31 @@ class Llama(nn.Module):
 
     def forward(self, tokens, positions=None, cache: dict | None = None,
                 cache_index=None, return_hidden: bool = False,
-                segment_ids=None, attend_full_cache: bool = False):
+                segment_ids=None, attend_full_cache: bool = False,
+                adapter=None, adapter_ids=None):
         """With `cache` (see init_cache) returns (logits, cache): prefill
         when S>1 at cache_index 0, single-token decode when S==1 (positions
         default to cache_index), and a continuation when S>1 with
         `attend_full_cache=True` (pass absolute `positions`). The cache is
         written in place. `return_hidden` skips the unembedding and returns
         the final-norm hidden states [B,S,D]. `segment_ids` [B,S] confines
-        attention within equal-id spans."""
+        attention within equal-id spans.
+
+        Multi-LoRA serving: `adapter` is the stacks of
+        serve/multilora.build_adapter_stacks ({projection: {"a": [L, N+1,
+        in, r], "b": [L, N+1, r, out]}}) and `adapter_ids` [B] picks each
+        row's entry (default 0, the base), or `adapter` is an
+        `AdapterRows` already gathered (`adapter_rows`) and `adapter_ids`
+        is None. Each adapted projection of each row gets (x @ a) @ b."""
         b, s = tokens.shape
+        if adapter is not None and not isinstance(adapter, AdapterRows):
+            if adapter_ids is None:
+                adapter_ids = torch.zeros(b, dtype=torch.long,
+                                          device=tokens.device)
+            adapter = adapter_rows(adapter, adapter_ids, self.cfg.dtype)
+        elif adapter_ids is not None:
+            raise ValueError("adapter_ids select from adapter stacks; "
+                             "pass the stacks as `adapter`")
         if cache is not None:
             if cache_index is None:
                 cache_index = torch.zeros(b, dtype=torch.int32,
@@ -632,9 +673,11 @@ class Llama(nn.Module):
                 continue
             layer_cache = (None if cache is None
                            else {n: c[i] for n, c in cache.items()})
+            layer_ad = (None if adapter is None else
+                        {m: (a[i], bb[i]) for m, (a, bb) in adapter.items()})
             x = layer(x, self.rope_cos, self.rope_sin, positions,
                       standard_positions, layer_cache, cache_index,
-                      segment_ids, attend_full_cache)
+                      segment_ids, attend_full_cache, layer_ad)
         x = self.final_norm(x)
         if return_hidden:
             return (x, cache) if cache is not None else x

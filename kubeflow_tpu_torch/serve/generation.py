@@ -50,7 +50,14 @@ with its overlapped scheduler:
     DeadlineExceeded; the engine counts no expiry (the server does, once);
   * `on_tokens(tokens, done)` streams each request's tokens from the
     worker thread as they are emitted, the last call with done=True
-    before `submit` returns.
+    before `submit` returns;
+  * `adapters` ({name: PEFT adapter dir}) stacks LoRA adapters on the
+    device (serve/multilora.py) and `submit(..., adapter=name)` picks one
+    per request: each slot carries its adapter id, which reaches the
+    device by the pinned copy at admission and at each dispatch, and each
+    decode chunk gathers its rows' factors once, for all of its steps.
+    Base rows get exact zeros: their ids equal a base-only engine's. An
+    engine without adapters runs exactly the base path.
 
 Sampling is greedy (temperature 0), temperature, top-k and top-p, per row,
 with draws from the engine's own seeded `torch.Generator`, taken as work is
@@ -72,7 +79,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from kubeflow_tpu_torch.models.llama import init_cache
+from kubeflow_tpu_torch.models.llama import adapter_rows, init_cache
 from kubeflow_tpu_torch.serve.model import Model
 from kubeflow_tpu_torch.serve.paging import BlockAllocator, blocks_for
 from kubeflow_tpu_torch.serve.quant import KV_QUANT_MODES, kv_quantize_rows
@@ -153,7 +160,11 @@ def build_engine_fns(model, *, max_len: int, chunk: int,
     `kv_block_size` > 0 adds the paged functions: `make_decode_paged`
     (gather the block tables into a view, the flat chunk on it, scatter it
     back) and `insert_paged` (scatter a fragment into a request's blocks,
-    quantizing its rows when `kv_quant` is set)."""
+    quantizing its rows when `kv_quant` is set).
+
+    Every function that runs the model takes an optional trailing
+    `adapter`, each row's multi-LoRA factors (`models.llama.AdapterRows`);
+    None runs the base model exactly as without adapters."""
     cfg = model.cfg
     dev = model.device
     big = max(prefill_buckets)
@@ -170,34 +181,36 @@ def build_engine_fns(model, *, max_len: int, chunk: int,
         tok = sample_tokens(last, temperature, gen, top_k, top_p)
         return tok, _chosen_logprob(last, tok)
 
-    def prefill(tokens, length, temperature, top_k, top_p, gen):
+    def prefill(tokens, length, temperature, top_k, top_p, gen,
+                adapter=None):
         """tokens [1, bucket] right-padded, `length` real tokens; returns
         (fragment cache, first sampled token [1], its logprob [1])."""
         frag = init_cache(cfg, 1, frag_len, device=dev)
         hidden, frag = model(tokens, cache=frag,
                              cache_index=torch.zeros(1, dtype=torch.int32,
                                                      device=dev),
-                             return_hidden=True)
+                             return_hidden=True, adapter=adapter)
         return (frag,) + _last(hidden, length, temperature, top_k, top_p, gen)
 
-    def _continue(frag, tokens, index, return_hidden):
+    def _continue(frag, tokens, index, return_hidden, adapter):
         positions = (index + torch.arange(tokens.shape[1], device=dev))[None]
         cache_index = torch.full((1,), index, dtype=torch.int32, device=dev)
         return model(tokens, positions=positions, cache=frag,
                      cache_index=cache_index, attend_full_cache=True,
-                     return_hidden=return_hidden)
+                     return_hidden=return_hidden, adapter=adapter)
 
-    def extend(frag, tokens, length, index, temperature, top_k, top_p, gen):
+    def extend(frag, tokens, length, index, temperature, top_k, top_p, gen,
+               adapter=None):
         """Final continuation chunk of a long prompt, written at offset
         `index` and attending over the whole fragment; samples like
         prefill."""
-        hidden, frag = _continue(frag, tokens, index, True)
+        hidden, frag = _continue(frag, tokens, index, True, adapter)
         return (frag,) + _last(hidden, length, temperature, top_k, top_p, gen)
 
-    def extend_mid(frag, tokens, index):
+    def extend_mid(frag, tokens, index, adapter=None):
         """Intermediate continuation chunk: cache write and attention only
         (no unembedding — its sampled token would be discarded)."""
-        _continue(frag, tokens, index, True)
+        _continue(frag, tokens, index, True, adapter)
         return frag
 
     def insert(cache, frag, slot):
@@ -209,7 +222,7 @@ def build_engine_fns(model, *, max_len: int, chunk: int,
 
     def make_decode(truncate: bool, bucket: int):
         def decode_chunk(cache, last_tok, index, temperature, top_k, top_p,
-                         gen):
+                         gen, adapter=None):
             """`chunk` decode steps; last_tok/index/temperature [B].
             Attention runs over the first `bucket` cache rows only. Returns
             (cache, tokens [B, chunk], logprobs [B, chunk]). Only the
@@ -219,7 +232,8 @@ def build_engine_fns(model, *, max_len: int, chunk: int,
             toks, lps = [], []
             for _ in range(chunk):
                 logits, _ = model(tok[:, None], cache=view,
-                                  cache_index=idx.clamp_max(bucket - 1))
+                                  cache_index=idx.clamp_max(bucket - 1),
+                                  adapter=adapter)
                 last = logits[:, 0]
                 if truncate:
                     tok = sample_tokens(last, temperature, gen, top_k, top_p)
@@ -258,13 +272,13 @@ def build_engine_fns(model, *, max_len: int, chunk: int,
         flat_chunk = make_decode(truncate, bucket)
 
         def decode_chunk(pool, tables, last_tok, index, temperature, top_k,
-                         top_p, gen):
+                         top_p, gen, adapter=None):
             """The flat chunk over a gathered block view: tables [B,
             bucket/bs] (pad entries 0 = the NULL block). Returns (pool,
             tokens [B, chunk], logprobs [B, chunk])."""
             view = {n: _gather_view(p, tables) for n, p in pool.items()}
             _, toks, lps = flat_chunk(view, last_tok, index, temperature,
-                                      top_k, top_p, gen)
+                                      top_k, top_p, gen, adapter)
             for n, p in pool.items():
                 _scatter_view(p, view[n], tables)
             return pool, toks, lps
@@ -310,7 +324,11 @@ class GenerationEngine:
 
     `kv_block_size` > 0 pages the cache: `slots` is then the decode width
     and memory is the pool of `kv_blocks` blocks (0 sizes it to the flat
-    cache, slots * max_len rows). `kv_quant` "int8"/"fp8" needs the pool."""
+    cache, slots * max_len rows). `kv_quant` "int8"/"fp8" needs the pool.
+
+    `adapters` ({name: PEFT adapter dir}) loads multi-LoRA stacks on the
+    engine's device; `submit(..., adapter=name)` serves a request through
+    one of them."""
 
     #: Disaggregated roles are not ported: every engine prefills and
     #: decodes (rendered as the `tpk_engine_role` gauge).
@@ -320,7 +338,8 @@ class GenerationEngine:
                  chunk: int = 16, prefill_buckets: Sequence[int] = (32, 128),
                  decode_buckets: Sequence[int] | None = None, seed: int = 0,
                  pipeline_depth: int = 2, kv_block_size: int = 0,
-                 kv_blocks: int = 0, kv_quant: str = "none"):
+                 kv_blocks: int = 0, kv_quant: str = "none",
+                 adapters: dict | None = None):
         cfg = model.cfg
         self.model, self.cfg = model, cfg
         self.device = model.device
@@ -382,6 +401,20 @@ class GenerationEngine:
                 "property of pool blocks); set kv_block_size > 0")
         # Admissions waiting for pool blocks, head of line first.
         self._kv_stash: deque = deque()
+        # Multi-LoRA (serve/multilora.py): every adapter stacked on the
+        # device, entry 0 the base; None when the engine has none.
+        self._ml_stacks = None
+        self._ml_ids: dict[str, int] = {}
+        if adapters:
+            from kubeflow_tpu_torch.serve.multilora import \
+                build_adapter_stacks
+
+            t0 = time.monotonic()
+            self._ml_stacks, self._ml_ids = build_adapter_stacks(
+                dict(adapters), cfg, device=self.device)
+            #: Seconds spent reading and stacking the adapters.
+            self.adapter_load_s = time.monotonic() - t0
+        self._ml_names = {i: n for n, i in self._ml_ids.items()}
         fns = build_engine_fns(model, max_len=self.max_len, chunk=self.chunk,
                                prefill_buckets=self.prefill_buckets,
                                kv_block_size=self._kv_bs,
@@ -419,11 +452,42 @@ class GenerationEngine:
 
     # -- public API ----------------------------------------------------------
 
+    def adapter_names(self) -> list:
+        """Loaded multi-LoRA adapter names (the OpenAI model-id routing and
+        metadata() read this)."""
+        return sorted(self._ml_ids)
+
+    def _resolve_adapter(self, name) -> int:
+        if name is None:
+            return 0
+        if self._ml_stacks is None:
+            raise ValueError(
+                f"adapter {name!r} requested but the engine has no "
+                "adapters configured")
+        try:
+            return self._ml_ids[name]
+        except KeyError:
+            raise ValueError(
+                f"unknown adapter {name!r}; loaded: "
+                f"{sorted(self._ml_ids)}") from None
+
+    def _adapter_rows(self, aids: np.ndarray):
+        """Rows' multi-LoRA factors for adapter ids `aids` (None without
+        adapters): the ids go over by the pinned copy, the gather runs on
+        the device."""
+        if self._ml_stacks is None:
+            return None
+        return adapter_rows(self._ml_stacks, self._to_device(aids),
+                            self.cfg.dtype)
+
     def submit(self, input_ids: Sequence[int], *, max_tokens: int = 32,
                temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
                eos_id: int | None = None, timeout: float = 300.0,
+               adapter: str | None = None,
                deadline: Deadline | None = None, on_tokens=None) -> dict:
         """Generate up to `max_tokens` tokens after `input_ids`; blocks.
+        `adapter` names one of the engine's LoRA adapters (None: the
+        base).
 
         `on_tokens(tokens, done)` (optional) is called from the worker
         thread as tokens are emitted, the final call with done=True;
@@ -448,6 +512,7 @@ class GenerationEngine:
             raise ValueError(f"top_p must be in (0, 1], got {top_p}")
         if top_k < 0:
             raise ValueError(f"top_k must be >= 0, got {top_k}")
+        aid = self._resolve_adapter(adapter)
         if self._paged:
             need = self._need_blocks(len(ids), int(max_tokens))
             if need > self._kv_alloc.n_blocks:
@@ -458,9 +523,10 @@ class GenerationEngine:
                     f"pool has {self._kv_alloc.n_blocks}")
         req = {"input_ids": ids, "max_tokens": int(max_tokens),
                "temperature": float(temperature), "top_k": int(top_k),
-               "top_p": float(top_p), "eos_id": eos_id, "out": [],
-               "out_logprobs": [], "done": threading.Event(), "error": None,
-               "deadline": deadline, "cb": on_tokens, "t0": time.monotonic()}
+               "top_p": float(top_p), "aid": aid, "eos_id": eos_id,
+               "out": [], "out_logprobs": [], "done": threading.Event(),
+               "error": None, "deadline": deadline, "cb": on_tokens,
+               "t0": time.monotonic()}
         self._queue.put(req)
         self._wake.set()
         # Wake at the deadline: the worker frees the slot at its next
@@ -604,6 +670,11 @@ class GenerationEngine:
                                               // self.prefill_buckets[-1])
             self.stats["requests"] += 1
             self.stats["prompt_tokens"] += len(ids)
+            if req["aid"]:
+                per = dict(self.stats.get("adapter_requests", {}))
+                name = self._ml_names[req["aid"]]
+                per[name] = per.get(name, 0) + 1
+                self.stats["adapter_requests"] = per
         if st["pending"] is None:
             self._emit(slot, st, [st["last"]], [float(lp0[0])])
 
@@ -616,6 +687,7 @@ class GenerationEngine:
                 self._to_device(np.array([req["top_p"]], np.float32)))
         big = self.prefill_buckets[-1]
         fns = self._fns
+        ad = self._adapter_rows(np.array([req["aid"]], np.int64))
         frag, done = None, 0
         while done < len(ids):
             piece = ids[done:done + big]
@@ -625,12 +697,12 @@ class GenerationEngine:
             toks = self._to_device(toks)
             if done == 0:
                 frag, tok0, lp0 = fns["prefill"](toks, len(piece), *samp,
-                                                 self._gen)
+                                                 self._gen, ad)
             elif final:
                 frag, tok0, lp0 = fns["extend"](frag, toks, len(piece), done,
-                                                *samp, self._gen)
+                                                *samp, self._gen, ad)
             else:  # intermediate chunk: no sampling, no unembedding
-                frag = fns["extend_mid"](frag, toks, done)
+                frag = fns["extend_mid"](frag, toks, done, ad)
             done += len(piece)
         return frag, tok0, lp0
 
@@ -821,8 +893,16 @@ class GenerationEngine:
                 blk = self._slots[i]["blocks"][:nb]
                 tables[i, :len(blk)] = blk
             args.insert(0, self._to_device(tables))
+        rows = None
+        if self._ml_stacks is not None:
+            # Each row's adapter factors, gathered once for the chunk's
+            # steps (idle rows take the base entry).
+            aids = np.zeros((n,), np.int64)
+            for i in active:
+                aids[i] = self._slots[i]["req"]["aid"]
+            rows = self._adapter_rows(aids)
         self._cache, toks, lps = self._decode[(bucket, trunc)](
-            self._cache, *args, self._gen)
+            self._cache, *args, self._gen, rows)
         host, event = self._to_host(toks, lps)
         with self._stats_lock:
             self.stats["decode_dispatches"] += 1
@@ -922,13 +1002,9 @@ _UNPORTED = {
     "prefix_cache": ("prefix cache", 0),
     "draft": ("speculative decoding", None),
     "kv_host_tier_blocks": ("paged KV host tier", 0),
-    "adapters": ("multi-LoRA adapters", None),
     "mesh": ("tensor-parallel mesh", None),
     "role": ("disaggregated prefill/decode roles", "unified"),
 }
-
-#: Request keys of features this package does not port yet.
-_UNPORTED_REQUEST = {"adapter": "multi-LoRA adapters"}
 
 
 class GenerativeTorchModel(Model):
@@ -968,13 +1044,9 @@ class GenerativeTorchModel(Model):
 
     def _resolve_ids(self, payload: dict) -> list[int]:
         """The request's prompt ids: `input_ids`, or `text` through the
-        tokenizer. Refuses unported request keys by name."""
+        tokenizer."""
         if not self.ready or self.engine is None:
             raise RuntimeError(f"model {self.name} is not loaded")
-        for key, what in _UNPORTED_REQUEST.items():
-            if payload.get(key):
-                raise NotImplementedError(
-                    f"{what} ({key!r}) is not supported by this package yet")
         ids = payload.get("input_ids")
         if ids is not None and (not isinstance(ids, list) or not all(
                 isinstance(t, int) and not isinstance(t, bool)
@@ -993,6 +1065,7 @@ class GenerativeTorchModel(Model):
             top_p=float(payload.get("top_p", 1.0)),
             eos_id=payload.get("eos_id", self.eos_id),
             timeout=float(payload.get("timeout", 300.0)),
+            adapter=payload.get("adapter"),
             # In-process only: the server puts the request's Deadline
             # under "_deadline" (and strips a wire-supplied one).
             deadline=payload.get("_deadline"))
@@ -1096,6 +1169,8 @@ class GenerativeTorchModel(Model):
             md["role"] = self.engine.role
             md["paged_kv"] = self.engine.kv_info()
             md["kv_quant"] = self.engine.kv_quant
+            if self.engine.adapter_names():
+                md["adapters"] = self.engine.adapter_names()
         if self.quantization is not None:
             md["quantize"] = dict(self.quantization)
         return md

@@ -80,10 +80,9 @@ def _generative(h, name: str):
     """Resolve an OpenAI model id to (model, adapter | None). The vLLM
     multi-LoRA convention: a loaded LoRA adapter's name is a servable model
     id — "<base>:<adapter>", or the bare adapter name when unambiguous —
-    routed to the base engine with that adapter selected per request. A
-    bare name resolves to a registered model first. Engines without
-    adapters (every engine of this package until multi-LoRA serving is
-    ported) resolve no adapter."""
+    routed to the base engine with that adapter selected per request (its
+    engine's `adapters`, serve/multilora.py). A bare name resolves to a
+    registered model first; an engine without adapters resolves none."""
     model = _lookup(h, name or "")
     adapter = None
     if model is None and name:

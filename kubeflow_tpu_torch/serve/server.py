@@ -37,8 +37,10 @@ while the engine drops the request at its next chunk boundary, so
 `max_inflight` bounds the work to within one decode chunk.
 
 Run: python -m kubeflow_tpu_torch.serve.server --model-dir DIR --name NAME
-     [--model-dir DIR2 --name NAME2] --port 8080 --max-inflight 256
-     --device cuda
+     [--model-dir DIR2 --name NAME2] [--storage-uri file://DIR3] --port 8080
+     --max-inflight 256 --device cuda
+
+(--storage-uri sources are named after the --model-dir ones, in order.)
 """
 
 from __future__ import annotations
@@ -46,13 +48,16 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import re
 import signal
+import tempfile
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import urlsplit
 
+from kubeflow_tpu_torch.serve import storage
 from kubeflow_tpu_torch.serve.generation import KVCapacityExceeded
 from kubeflow_tpu_torch.serve.headers import (DEADLINE_HEADER,
                                               DRAINING_HEADER,
@@ -951,11 +956,17 @@ class ModelServer:
         self.repo.close()
 
 
-def main(argv: list[str] | None = None) -> int:
+def start(argv: list[str] | None = None) -> tuple[ModelServer, int]:
+    """The command line's server, started in the background: parse
+    `argv`, fetch each --storage-uri under $TMPDIR/tpk-models/<i>
+    (serve/storage.py; a local directory is served in place), load every
+    model and start the HTTP server. Returns (server, bound port)."""
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--model-dir", action="append", default=[],
-                   required=True,
                    help="model bundle dir (repeatable; see runtimes.py)")
+    p.add_argument("--storage-uri", action="append", default=[],
+                   help="uri to materialize, then serve (file://, pvc://, "
+                        "an archive, #sha256= pins; repeatable)")
     p.add_argument("--name", action="append", default=[],
                    help="override name for the i-th model")
     p.add_argument("--host", default="0.0.0.0")
@@ -965,15 +976,26 @@ def main(argv: list[str] | None = None) -> int:
                         "(0 disables admission control)")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
+    if not args.model_dir and not args.storage_uri:
+        p.error("give at least one --model-dir or --storage-uri")
+    dirs = list(args.model_dir)
+    for i, uri in enumerate(args.storage_uri):
+        dirs.append(storage.download(uri, os.path.join(
+            tempfile.gettempdir(), "tpk-models", str(i))))
     server = ModelServer(host=args.host, max_inflight=args.max_inflight,
                          device=args.device)
-    for i, d in enumerate(args.model_dir):
+    for i, d in enumerate(dirs):
         name = args.name[i] if i < len(args.name) else None
         model = server.load(d, name=name)
         print(json.dumps({"event": "model_loaded", "name": model.name,
                           "load_time_s": model.load_time_s}), flush=True)
     port = server.start_background(args.port)
     print(json.dumps({"event": "serving", "port": port}), flush=True)
+    return server, port
+
+
+def main(argv: list[str] | None = None) -> int:
+    server, _ = start(argv)
     stop = threading.Event()
     signal.signal(signal.SIGTERM, lambda *_: stop.set())
     try:

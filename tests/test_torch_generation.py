@@ -150,17 +150,27 @@ def test_engine_rejects_bad_requests(tiny):
 ])
 def test_unported_engine_features_are_refused(tiny, key, value):
     _, _, tm = tiny
+    if key == "adapters":
+        # Multi-LoRA is served now: an adapter dir that does not exist
+        # fails the load by name, never serves the base quietly.
+        model = GenerativeTorchModel("m", tm,
+                                     generation={**ENGINE, key: value})
+        with pytest.raises(FileNotFoundError, match="dir"):
+            model.load()
+        return
     with pytest.raises(NotImplementedError, match="not supported"):
         GenerativeTorchModel("m", tm, generation={**ENGINE, key: value})
 
 
 @pytest.mark.parametrize("key,value", [("adapter", "a")])
 def test_unported_request_features_are_refused(tiny, key, value):
+    """A request's adapter is served now; on an engine without adapters
+    it is refused by name (400 at the server), as in JAX."""
     _, _, tm = tiny
     model = GenerativeTorchModel("m", tm, generation=dict(ENGINE))
     model.load()
     try:
-        with pytest.raises(NotImplementedError, match="not supported"):
+        with pytest.raises(ValueError, match="no adapters configured"):
             model.generate({"input_ids": [1, 2], key: value})
     finally:
         model.unload()

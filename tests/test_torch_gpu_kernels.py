@@ -1,6 +1,7 @@
 """The CUDA kernels (flash attention, the W8A8 int8 matmul, ring attention,
 the W8A16 matmul) against their plain versions, on the card, and the
-serving engine's depth-2 loop under torch.cuda.set_sync_debug_mode.
+serving engine's depth-2 loop under torch.cuda.set_sync_debug_mode (with
+multi-LoRA adapters too).
 
 These tests need an NVIDIA GPU and skip without one. They import nothing
 of JAX, so they also run where JAX is not installed:
@@ -15,6 +16,7 @@ import threading
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from kubeflow_tpu_torch.ops import flash_attention as tfa
 from kubeflow_tpu_torch.ops import quant_matmul as tqm
@@ -1399,3 +1401,155 @@ def test_depth2_stream_runs_under_sync_debug_error(cuda, monkeypatch):
         assert sync.generate(dict(body))["output_ids"] == done["output_ids"]
     finally:
         sync.unload()
+
+
+# -- multi-LoRA on the engine -------------------------------------------------
+
+#: aten ops that one decode chunk (chunk 4, 2 rows, a 64-row bucket, 2
+#: layers of llama_tiny) dispatches on an engine without adapters: the
+#: count the engine had before it served adapters (tests/
+#: test_torch_multilora.py holds the same count on the CPU), so an engine
+#: without adapters runs, and launches, exactly what it did.
+DECODE_CHUNK_OPS = 964
+
+
+class OpLog(TorchDispatchMode):
+    """Every aten op dispatched inside the mode, by name, in order."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+def decode_chunk_ops(engine, adapters=None) -> list:
+    """The ops of one call of `engine`'s flat 64-row decode chunk over 2
+    rows (ids 5 and 7 at positions 3 and 9, greedy), with adapter ids
+    `adapters` gathered outside it, as the engine's dispatch does."""
+    dev = engine.device
+    rows = None
+    if adapters is not None:
+        rows = engine._adapter_rows(np.asarray(adapters, np.int64))
+    args = [torch.tensor(v, device=dev) for v in ([5, 7], [3, 9])]
+    args += [torch.zeros(2, device=dev),
+             torch.zeros(2, dtype=torch.long, device=dev),
+             torch.ones(2, device=dev)]
+    with torch.inference_mode(), OpLog() as log:
+        engine._decode[(64, False)](engine._cache, *args, engine._gen, rows)
+    return log.ops
+
+
+def synth_adapters(cfg, root) -> dict:
+    """Two synthetic PEFT adapters for `cfg`'s widths: "a" (rank 4, q/v)
+    and "b" (rank 8, q/v and the MLP)."""
+    from kubeflow_tpu_torch.serve.multilora import write_synthetic_adapter
+
+    return {"a": write_synthetic_adapter(cfg, f"{root}/a", 11, r=4),
+            "b": write_synthetic_adapter(cfg, f"{root}/b", 12, r=8,
+                                         targets="attn_mlp")}
+
+
+@pytest.mark.gpu
+def test_decode_chunk_without_adapters_dispatches_what_it_did(cuda,
+                                                              tmp_path):
+    """An engine without adapters dispatches DECODE_CHUNK_OPS ops a
+    chunk; with adapters, the chunk adds two bmm (and an add) per adapted
+    projection, layer and step, and gathers nothing."""
+    from kubeflow_tpu_torch.serve import generation as tg
+
+    model = _tiny_engine_model(cuda, False)
+    kw = dict(slots=2, max_len=64, chunk=4, prefill_buckets=(8, 16))
+    engine = tg.GenerationEngine(model, **kw)
+    try:
+        assert len(decode_chunk_ops(engine)) == DECODE_CHUNK_OPS
+    finally:
+        engine.close()
+    engine = tg.GenerationEngine(model, adapters=synth_adapters(
+        model.cfg, tmp_path), **kw)
+    try:
+        ops = decode_chunk_ops(engine, [1, 2])
+        steps, layers, projections = 4, model.cfg.num_layers, 5
+        assert ops.count("aten.bmm.default") == (2 * projections * layers
+                                                 * steps)
+        assert "aten.index_select.default" not in ops
+    finally:
+        engine.close()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", ["flat", "paged"])
+def test_depth2_engine_with_adapters_runs_under_sync_debug_error(
+        cuda, pool, monkeypatch, tmp_path):
+    """A mixed batch of base and adapter requests at depth 2 under
+    torch.cuda.set_sync_debug_mode("error"): the adapter ids reach the
+    device by the pinned copy, and the per-chunk gather makes no host
+    sync. Each request's greedy ids equal its lone run on a depth-1
+    engine, and base rows equal an engine without adapters."""
+    from kubeflow_tpu_torch.serve import generation as tg
+
+    model = _tiny_engine_model(cuda, False)
+    kw = dict(slots=2, max_len=64, chunk=4, prefill_buckets=(8, 16))
+    if pool == "paged":
+        kw.update(kv_block_size=8)
+    adapters = synth_adapters(model.cfg, tmp_path)
+    real_wait = tg._wait
+
+    def wait_outside(event):
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            real_wait(event)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
+    monkeypatch.setattr(tg, "_wait", wait_outside)
+    reqs = [([5, 9, 2], None), ([17, 3, 3, 8, 1], "a"),
+            (list(range(3, 40)), "b"), ([8, 1, 4], None), ([8, 1, 4], "b")]
+    results = [None] * len(reqs)
+    engine = tg.GenerationEngine(model, pipeline_depth=2, adapters=adapters,
+                                 **kw)
+    try:
+        engine.submit([1, 2, 3], max_tokens=5, adapter="b")  # warm
+        torch.cuda.synchronize()
+
+        def run(i):
+            try:
+                results[i] = engine.submit(reqs[i][0], max_tokens=9,
+                                           adapter=reqs[i][1])
+            except Exception as e:  # asserted below
+                results[i] = e
+
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            threads = [threading.Thread(target=run, args=(i,))
+                       for i in range(len(reqs))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+                assert not t.is_alive()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        for i, res in enumerate(results):
+            assert isinstance(res, dict), f"request {i}: {res}"
+        assert engine.stats_snapshot()["decode_fetch_overlapped"] > 0
+        assert engine.stats_snapshot()["adapter_requests"] == {"a": 1,
+                                                               "b": 3}
+    finally:
+        engine.close()
+    sync = tg.GenerationEngine(model, pipeline_depth=1, adapters=adapters,
+                               **kw)
+    base = tg.GenerationEngine(model, **kw)
+    try:
+        for (prompt, ad), res in zip(reqs, results):
+            lone = sync.submit(prompt, max_tokens=9, adapter=ad)
+            assert lone["output_ids"] == res["output_ids"], (prompt, ad)
+            if ad is None:
+                assert base.submit(prompt, max_tokens=9)["output_ids"] == \
+                    res["output_ids"]
+    finally:
+        sync.close()
+        base.close()

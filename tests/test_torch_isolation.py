@@ -1,5 +1,6 @@
 """The port imports nothing of JAX, nothing of the JAX package and none of
-the JAX side's data and checkpoint libraries (grain, orbax, safetensors)."""
+the JAX side's data and checkpoint libraries (grain, orbax, safetensors,
+peft): it reads safetensors and PEFT adapters with its own code."""
 
 import ast
 import os
@@ -9,10 +10,10 @@ import sys
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# grain, orbax, safetensors and tornado (the JAX server's framework) are
-# not on the card either.
+# grain, orbax, safetensors, peft and tornado (the JAX server's framework)
+# are not on the card either.
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "grain",
-             "safetensors", "tornado", "kubeflow_tpu")
+             "safetensors", "peft", "tornado", "kubeflow_tpu")
 #: Importable only lazily, inside this function (not on the card: a
 #: bundled HF tokenizer is optional there).
 LAZY = {"transformers": ("serve/tokenizer_util.py", "load_bundled_tokenizer"),
@@ -55,6 +56,10 @@ def test_server_import_loads_no_jax():
             "import kubeflow_tpu_torch.train.checkpoint; "
             "import kubeflow_tpu_torch.train.lora; "
             "import kubeflow_tpu_torch.data.loader; "
+            "import kubeflow_tpu_torch.models.hf_import; "
+            "import kubeflow_tpu_torch.models.peft_import; "
+            "import kubeflow_tpu_torch.serve.multilora; "
+            "import kubeflow_tpu_torch.serve.storage; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN + tuple(LAZY)!r}]; print(bad); "
             "sys.exit(1 if bad else 0)")

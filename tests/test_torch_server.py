@@ -72,7 +72,8 @@ def test_bad_requests(served):
                  {"input_ids": [1]})[0] == 404
     assert _http("POST", url, {"input_ids": [1]},
                  {"X-Request-Timeout-Ms": "soon"})[0] == 400
-    assert _http("POST", url, {"input_ids": [1], "adapter": "a"})[0] == 501
+    # No adapters on this engine: a request's adapter is a bad request.
+    assert _http("POST", url, {"input_ids": [1], "adapter": "a"})[0] == 400
     req = urllib.request.Request(url, method="POST", data=json.dumps(
         {"input_ids": [1], "max_tokens": 3, "stream": True}).encode())
     with urllib.request.urlopen(req, timeout=120) as r:

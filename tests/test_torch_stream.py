@@ -312,7 +312,7 @@ def test_pre_stream_failures_are_clean_statuses(served):
     assert "KV blocks" in json.loads(body)["error"]
     code, _, body = _http(port, "/v1/models/llm:generate", {
         "input_ids": [1, 2], "stream": True, "adapter": "a"})
-    assert code == 501 and "adapter" in json.loads(body)["error"]
+    assert code == 400 and "adapter" in json.loads(body)["error"]
 
 
 def test_mid_stream_failure_is_a_terminal_error_frame(served):
