@@ -111,6 +111,24 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
      adapter changes its row, paged equals flat, the adapters listed;
      ms per 4-row step mixed and base-only, launches per step with and
      without adapters, the adapters' load seconds and bytes;
+  4f. KV reuse on phase 4's llama3_8b, one model under every engine: a
+     2048-token shared head, then A, B, C (the head + 100, 700, 1500
+     tokens) and E (A + A's ids + 300: a second turn), each alone. (i) The
+     flat prefix cache: 1 miss, 3 hits of 2048, 2048 and 2148 tokens, no
+     flash launch for a hit (32 for A), one prefill chunk fewer per hit at
+     2048, B and C bit-equal (ids and first logprob) to a cacheless
+     engine, E's first-token logits within 1.25x phase 3's floor of E run
+     cold; admission seconds cold and hit, a fragment's bytes. (ii) Paged
+     (block 16): ids equal to (i)'s, 3 zero-copy hits, a CoW fork (E),
+     the pool whole once the cache is emptied. (iii) An int8 pool: one
+     dequant fallback per hit, the pool whole, a second hit on B's prompt
+     bit-equal to the first; logit distance from the int8 pool's cold run
+     printed. (iv) The host tier: a pool of two 3000-token reservations,
+     A, two 3000-token prompts that push A's entries into the tier, then
+     B restored from it: ids equal to (ii)'s, spill and restore ms and
+     bytes. (v) One /metrics scrape on a server whose bundle sets the
+     three keys, after a miss and a hit: the new families equal the
+     engine's stats;
   5. training: llama_1b at full width and depth through the trainer's entry
      point (batch 12, seq 1024, 3 warm-up + 10 timed steps): finite losses,
      the first near ln(V), every step's launches (2 forward per layer under
@@ -371,6 +389,16 @@ HF_ADAPTER = {"r": 16, "alpha": 32.0, "targets": "attn_mlp"}
 ML_ADAPTERS = {"ml_a": {"r": 8, "targets": "attn", "seed": 11},
                "ml_b": {"r": 16, "targets": "attn_mlp", "seed": 12}}
 ML_REQUESTS = ((520, None), (700, None), (600, "ml_a"), (900, "ml_b"))
+# 4f: KV reuse on phase 4's llama3_8b at phase 4's generative settings. A
+# shared head of PREFIX_HEAD tokens, one full largest-bucket chunk (a
+# system prompt plus retrieved context), then four requests of MAX_TOKENS
+# greedy tokens, each alone: A, B, C = the head + PREFIX_TAILS tokens, and
+# E = A + A's ids + PREFIX_TURN tokens, a second turn whose hit lands at A's
+# prompt (2148 % 16 = 4: the paged engine forks a tail block). PREFIX_CAP
+# entries. The host tier's pool holds about two worst-case reservations of
+# the PREFIX_CROWD prompts, which push A's entries into the tier.
+PREFIX_HEAD, PREFIX_TAILS, PREFIX_TURN = 2048, (100, 700, 1500), 300
+PREFIX_CAP, PREFIX_TIER_BLOCKS, PREFIX_CROWD = 4, 1024, (3000, 3000)
 # 4c: int8 weights and KV must bring the serving peak this far under
 # phase 4's (bf16 weights 14.96 GiB; an int8 copy is ~7.5 GiB).
 QUANT_PEAK_SAVING_MIN_GIB = 5.0
@@ -1387,8 +1415,10 @@ def phase_ring() -> dict:
     return {"rows": rows, "worst": worst}
 
 
-def phase_model() -> None:
-    """llama3_8b logits, attention through the kernel vs the plain version."""
+def phase_model() -> float:
+    """llama3_8b logits, attention through the kernel vs the plain version.
+    Returns naive_attention's rel-L2 from the plain version (the bf16
+    floor later phases scale their bounds by)."""
     cfg = registry.model_config(MODEL, **MODEL_KWARGS)
     t0 = time.monotonic()
     model = llama_mod.Llama(cfg, device=DEVICE).init_weights(SEED)
@@ -1456,6 +1486,7 @@ def phase_model() -> None:
                            "plain version")
     del model, kernel_logits, plain_logits, naive_logits, first_layer
     torch.cuda.empty_cache()
+    return floor
 
 
 def _post(url: str, body: dict) -> dict:
@@ -2597,6 +2628,301 @@ def phase_multilora(bundle: str, work: str) -> dict:
             "stack_bytes": mixed["stack_bytes"],
             "mixed_ms": mixed["step_ms"], "base_ms": base_only["step_ms"],
             "launches_per_step": per_step}
+
+
+def _timed(engine, name: str, log_to: list) -> None:
+    """Wrap `engine.<name>` so each call appends (seconds, result) to
+    `log_to`, the device drained before the clock stops (a lone request's
+    admission has nothing to overlap)."""
+    real = getattr(engine, name)
+
+    def call(*a, **kw):
+        t0 = time.perf_counter()
+        out = real(*a, **kw)
+        torch.cuda.synchronize()
+        log_to.append((time.perf_counter() - t0, out))
+        return out
+    setattr(engine, name, call)
+
+
+@contextlib.contextmanager
+def _first_logits(model, into: list):
+    """Record, as fp32 into `into`, the logits of the request's first token:
+    the last unembedding of a single [1, D] row in the block (an admission
+    unembeds the last row of its first chunk and of its final one, and the
+    final chunk's gives the first token; decode unembeds [B, 1, D])."""
+    real = model.unembed
+
+    def unembed(x):
+        out = real(x)
+        if x.dim() == 2:
+            into[:] = [out.float().reshape(-1).clone()]
+        return out
+    model.unembed = unembed
+    try:
+        yield
+    finally:
+        del model.unembed
+
+
+def _lone(engine, ids: list, admits: list) -> dict:
+    """One greedy request alone on `engine`: {"ids", "lp0", "logits"
+    (first token, fp32), "launches" (flash_fwd), "chunks" (prefill chunks
+    run), "admit_s" (its admission, device drained)}."""
+    logits: list = []
+    before = (fa.flash_fwd_launches,
+              engine.stats_snapshot()["prefill_chunks"], len(admits))
+    with _first_logits(engine.model, logits):
+        out = engine.submit(ids, max_tokens=MAX_TOKENS, timeout=600)
+    return {"ids": out["output_ids"], "lp0": out["output_logprobs"][0],
+            "logits": logits[0],
+            "launches": fa.flash_fwd_launches - before[0],
+            "chunks": engine.stats_snapshot()["prefill_chunks"] - before[1],
+            "admit_s": sum(t for t, _ in admits[before[2]:])}
+
+
+def _engine_runs(model, prompts: dict, **kw) -> tuple:
+    """The prompts alone, in order, on one engine over `model` at phase 4's
+    settings plus `kw`: ({name: _lone's dict}, the engine, still open).
+    A prompt given as a callable is built from the runs so far."""
+    engine = GenerationEngine(model, **GENERATIVE, **kw)
+    admits: list = []
+    _timed(engine, "_admit", admits)
+    runs: dict = {}
+    for name, ids in prompts.items():
+        runs[name] = _lone(engine, ids(runs) if callable(ids) else ids,
+                           admits)
+    return runs, engine
+
+
+def _close(engine) -> None:
+    engine.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _evict_all(engine) -> None:
+    while engine._prefix_lru:
+        engine._prefix_evict(next(iter(engine._prefix_lru)))
+
+
+def _prefix_prompts(vocab: int) -> dict:
+    """4f's traffic: {name: ids, or a callable of the runs so far}."""
+    rng = np.random.default_rng(SEED + 12)
+    head = rng.integers(0, vocab, PREFIX_HEAD).tolist()
+    a, b, c = (head + rng.integers(0, vocab, n).tolist()
+               for n in PREFIX_TAILS)
+    turn = rng.integers(0, vocab, PREFIX_TURN).tolist()
+    return {"A": a, "B": b, "C": c,
+            "E": lambda runs: a + runs["A"]["ids"] + turn}
+
+
+def _prefix_scrape(bundle: str, model, cfg, prompts: dict) -> dict:
+    """4f (v): one server over `model` whose bundle sets kv_block_size,
+    prefix_cache and kv_host_tier_blocks (the bundle is written, and its
+    generative block builds the engine as a load would), A then B over
+    HTTP, one /metrics scrape. Returns {family: (scraped, engine's)}."""
+    gen = {"kv_block_size": KV_BLOCK_SIZE, "prefix_cache": PREFIX_CAP,
+           "kv_host_tier_blocks": PREFIX_TIER_BLOCKS}
+    export_for_serving(bundle, model=MODEL, model_kwargs=MODEL_KWARGS,
+                       seed=SEED, extra={"generative": {**GENERATIVE, **gen}})
+    with open(os.path.join(bundle, "model.json")) as f:
+        spec = json.load(f)
+    served = runtimes._generative(MODEL, model, spec,
+                                  dict(spec["generative"]))
+    served.load()
+    server = ModelServer()
+    server.register(served)
+    port = server.start_background(0)
+    base = f"http://127.0.0.1:{port}"
+    try:
+        for name in ("A", "B"):
+            _post(f"{base}/v1/models/{MODEL}:generate",
+                  {"input_ids": prompts[name], "max_tokens": MAX_TOKENS})
+        text = _request("GET", base + "/metrics")[2].decode()
+        engine = served.engine
+        stats = engine.stats_snapshot()
+        tier = _metadata(base)["paged_kv"].get("host_tier")
+        rows = {metric: (_metric(text, f'{metric}{{model="{MODEL}"}}'),
+                         float(stats[key]))
+                for key, metric, _ in server_mod._ENGINE_METRICS
+                if key in stats and (key.startswith("prefix_")
+                                     or key.startswith("kv_"))}
+        rows["tpk_kv_spill_blocks"] = (
+            _metric(text, f'tpk_kv_spill_blocks{{model="{MODEL}"}}'),
+            float(engine.kv_spill_blocks))
+        rows["metadata host_tier"] = (tier is not None, True)
+    finally:
+        server.stop()
+        served.unload()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_prefix(bundle: str, floor: float) -> dict:
+    """4f: KV reuse in the serving engine on phase 4's llama3_8b (one model
+    for every engine): (i) the flat prefix cache against a cacheless
+    engine, (ii) the paged one (zero-copy hits, a CoW fork), (iii) an int8
+    pool, (iv) the host tier under pool pressure, (v) one /metrics
+    scrape."""
+    t_phase = time.monotonic()
+    cfg = registry.model_config(MODEL, **MODEL_KWARGS)
+    fa.flash_fwd_launches = 0
+    model = llama_mod.Llama(cfg, device=DEVICE).init_weights(SEED).eval()
+    prompts = _prefix_prompts(cfg.vocab_size)
+    hits = ("B", "C", "E")
+    limit = LOGITS_VS_NAIVE * floor
+    gates: dict = {}
+    # (i) flat
+    cached, eng = _engine_runs(model, prompts, prefix_cache=PREFIX_CAP)
+    s = eng.stats_snapshot()
+    frag = next(iter(eng._prefix_lru.values()))[1]
+    frag_bytes = sum(t.numel() * t.element_size() for t in frag.values())
+    frag_rows = frag["k"].shape[2]
+    _close(eng)
+    cold_prompts = {"B": prompts["B"], "C": prompts["C"],
+                    "E": prompts["E"](cached)}
+    cold, eng = _engine_runs(model, cold_prompts)
+    _close(eng)
+    e_dist = _rel_l2(cached["E"]["logits"], cold["E"]["logits"])
+    e_agree = sum(x == y for x, y in zip(cached["E"]["ids"],
+                                         cold["E"]["ids"]))
+    gates["i counters"] = (
+        (s["prefix_misses"], s["prefix_hits"], s["prefix_hit_tokens"])
+        == (1, 3, 2 * PREFIX_HEAD + len(prompts["A"])))
+    gates["i no B1 for a hit"] = (
+        cached["A"]["launches"] == cfg.num_layers
+        and all(cached[n]["launches"] == 0 for n in hits))
+    gates["i one chunk fewer per boundary hit"] = all(
+        cold[n]["chunks"] - cached[n]["chunks"] == 1 for n in ("B", "C"))
+    gates["i boundary hits bit-equal to cold"] = all(
+        cached[n]["ids"] == cold[n]["ids"]
+        and cached[n]["lp0"] == cold[n]["lp0"] for n in ("B", "C"))
+    gates["i E logits"] = e_dist <= limit
+    for n in ("A",) + hits:
+        c = cold.get(n)
+        log(f"  (i) {n}: prompt {len(cold_prompts.get(n, prompts[n]))}, "
+            f"admission {cached[n]['admit_s']:.4f}s"
+            + (f" (hit) vs {c['admit_s']:.4f}s cold" if c else " (miss)")
+            + f"; {cached[n]['launches']} flash_fwd launches, "
+            f"{cached[n]['chunks']} prefill chunks"
+            + (f" (cold {c['chunks']})" if c else "") + f"; {smi()}")
+    log(f"  (i) flat: {s['prefix_misses']} miss, {s['prefix_hits']} hits, "
+        f"{s['prefix_hit_tokens']} hit tokens, {s['prefix_stores']} stores; "
+        f"one stored fragment {frag_rows} rows, {frag_bytes} bytes; E's "
+        f"first-token logits rel_l2 vs cold {e_dist:.3e} (bound {limit:.3e}"
+        f"), ids agreeing {e_agree} of {MAX_TOKENS}; {smi()}")
+    # (ii) paged
+    paged, eng = _engine_runs(model, prompts, prefix_cache=PREFIX_CAP,
+                              kv_block_size=KV_BLOCK_SIZE)
+    sp = eng.stats_snapshot()
+    _evict_all(eng)
+    pool_whole = eng.kv_blocks_free == eng._kv_alloc.n_blocks
+    _close(eng)
+    gates["ii ids = flat"] = all(paged[n]["ids"] == cached[n]["ids"]
+                                 for n in prompts)
+    gates["ii zero-copy hits, CoW"] = (sp["prefix_zero_copy_hits"] == 3
+                                       and sp["kv_cow_copies"] >= 1)
+    gates["ii refcounts conserved"] = pool_whole
+    log(f"  (ii) paged (block {KV_BLOCK_SIZE}): zero-copy hits "
+        f"{sp['prefix_zero_copy_hits']}, CoW forks {sp['kv_cow_copies']}; "
+        + ", ".join(f"{n} admission {paged[n]['admit_s']:.4f}s"
+                    for n in paged) + f"; pool whole after eviction "
+        f"{pool_whole}; {smi()}")
+    # (iii) int8 pool
+    q_prompts = dict(prompts, **{"B2": prompts["B"]})
+    quant, eng = _engine_runs(model, q_prompts, prefix_cache=PREFIX_CAP,
+                              kv_block_size=KV_BLOCK_SIZE, kv_quant="int8")
+    sq = eng.stats_snapshot()
+    _evict_all(eng)
+    q_whole = eng.kv_blocks_free == eng._kv_alloc.n_blocks
+    _close(eng)
+    q_cold, eng = _engine_runs(model, dict(cold_prompts,
+                                           E=prompts["E"](quant)),
+                               kv_block_size=KV_BLOCK_SIZE, kv_quant="int8")
+    _close(eng)
+    gates["iii dequant fallbacks = hits"] = (
+        sq["kv_dequant_fallbacks"] == sq["prefix_hits"] == 4)
+    gates["iii refcounts conserved"] = q_whole
+    gates["iii second hit bit-equal"] = quant["B2"]["ids"] == quant["B"]["ids"]
+    log("  (iii) int8 pool, hit vs the int8 pool's cold run: " + "; ".join(
+        f"{n} first-token logits rel_l2 "
+        f"{_rel_l2(quant[n]['logits'], q_cold[n]['logits']):.3e}, ids "
+        f"agreeing {sum(x == y for x, y in zip(quant[n]['ids'], q_cold[n]['ids']))}"
+        f" of {MAX_TOKENS}" for n in hits)
+        + f"; dequant fallbacks {sq['kv_dequant_fallbacks']} for "
+        f"{sq['prefix_hits']} hits; {smi()}")
+    # (iv) host tier
+    rng = np.random.default_rng(SEED + 13)
+    crowd = [rng.integers(0, cfg.vocab_size, n).tolist()
+             for n in PREFIX_CROWD]
+    need = -(-(max(PREFIX_CROWD) + MAX_TOKENS) // KV_BLOCK_SIZE)
+    eng = GenerationEngine(model, **GENERATIVE, prefix_cache=PREFIX_CAP,
+                           kv_block_size=KV_BLOCK_SIZE, kv_blocks=2 * need,
+                           kv_host_tier_blocks=PREFIX_TIER_BLOCKS)
+    spills: list = []
+    restores: list = []
+    _timed(eng, "_spill_prefix", spills)
+    _timed(eng, "_restore_spilled", restores)
+    spill_bytes, restore_bytes = [], []
+    real_put, real_take = eng._host_tier.put, eng._host_tier.take
+
+    def put(aid, kt, n, data):
+        spill_bytes.append(len(data))
+        return real_put(aid, kt, n, data)
+
+    def take(aid, kt):
+        out = real_take(aid, kt)
+        restore_bytes.append(len(out[1]) if out else 0)
+        return out
+    eng._host_tier.put, eng._host_tier.take = put, take
+    for ids in [prompts["A"]] + crowd:
+        eng.submit(ids, max_tokens=MAX_TOKENS, timeout=600)
+    b_tier = eng.submit(prompts["B"], max_tokens=MAX_TOKENS, timeout=600)
+    st = eng.stats_snapshot()
+    tier_info = eng.kv_info()["host_tier"]
+    _evict_all(eng)
+    t_whole = eng.kv_blocks_free == eng._kv_alloc.n_blocks
+    _close(eng)
+    gates["iv spilled and restored"] = (st["kv_spilled_blocks"] > 0
+                                        and st["kv_restored_blocks"] > 0)
+    b_same = b_tier["output_ids"] == paged["B"]["ids"]
+    gates["iv restored B = (ii)'s B"] = b_same
+    gates["iv refcounts conserved"] = t_whole
+    restores = [t for t, out in restores if out is not None]
+    log(f"  (iv) host tier: pool {2 * need} blocks; "
+        f"{st['kv_spilled_blocks']} blocks spilled in {len(spills)} spills "
+        f"of {spill_bytes} bytes, ms "
+        f"{[round(t * 1e3, 3) for t, _ in spills]}; "
+        f"{st['kv_restored_blocks']} blocks restored in {len(restores)} "
+        f"restores of {[b for b in restore_bytes if b]} bytes, ms "
+        f"{[round(t * 1e3, 3) for t in restores]}; B's ids after the "
+        f"restore {'equal' if b_same else 'DIFFER from'} (ii)'s; tier "
+        f"{tier_info}; {smi()}")
+    # (v) the scrape
+    rows = _prefix_scrape(bundle, model, cfg, prompts)
+    gates["v /metrics = engine stats"] = all(
+        got == want for got, want in rows.values())
+    log(f"  (v) /metrics vs the engine: "
+        + ", ".join(f"{k} {g}/{w}" for k, (g, w) in rows.items()))
+    launches = fa.flash_fwd_launches
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  flash_fwd launches in 4f {launches}; "
+        f"{time.monotonic() - t_phase:.1f}s; {smi()}")
+    for gate, ok in gates.items():
+        log(f"  gate {gate}: {'OK' if ok else 'FAIL'}")
+    if not all(gates.values()):
+        raise RuntimeError(f"prefix-cache gates failed: "
+                           f"{[g for g, ok in gates.items() if not ok]}")
+    return {"launches": launches,
+            "admit_s": {n: (cached[n]["admit_s"], cold[n]["admit_s"])
+                        for n in hits},
+            "frag_bytes": frag_bytes, "e_dist": e_dist,
+            "spill_ms": [t * 1e3 for t, _ in spills],
+            "restore_ms": [t * 1e3 for t in restores]}
 
 
 def _decode_in_situ(ordered_ms: list) -> dict | None:
@@ -3826,7 +4152,7 @@ def main() -> int:
         "card)")
     ring = phase_ring()
     log(f"phase 3: {MODEL} forward, kernel vs plain attention")
-    phase_model()
+    floor = phase_model()
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     bundle = tempfile.mkdtemp(prefix="chip_smoke_bundle_",
                               dir=os.path.join(ROOT, "build"))
@@ -3849,6 +4175,9 @@ def main() -> int:
         hf = phase_hf_import(bundle)
         ml = phase_multilora(bundle, bundle)
         log(f"  phase 4e took {time.monotonic() - t4e:.1f}s")
+        log(f"phase 4f: KV reuse on {MODEL}: the prefix cache flat, paged "
+            "and on an int8 pool, the host tier, /metrics")
+        prefix = phase_prefix(bundle, floor)
     finally:
         shutil.rmtree(bundle, ignore_errors=True)
     log(f"phase 5: training {TRAIN_MODEL} through the trainer")
@@ -3875,6 +4204,7 @@ def main() -> int:
                     "request_surface": surface["launches"],
                     "hf_import_serving": hf["launches"],
                     "multilora_serving": ml["launches"],
+                    "prefix_cache": prefix["launches"],
                     "training": train["launches"][0],
                     "packed_training": job["launches"][0],
                     "lora_training": lora_run["launches"][0],

@@ -24,6 +24,22 @@ with its overlapped scheduler:
     prefill — flash attention — the rest continuation chunks over the
     fragment), then copies the fragment into the slot (flat) or its
     blocks (paged);
+  * `prefix_cache` (entries; 0 is off) keeps prompt prefixes at chunk
+    boundaries, keyed by adapter and tokens, and an admission resumes its
+    chunked prefill after the longest one strictly shorter than its
+    prompt, with a continuation chunk (no flash prefill for the cached
+    part). Flat, an entry is a fragment copy and a hit clones it. Paged,
+    an entry holds block references: a hit maps the full blocks into the
+    new table zero-copy, rebuilds the fragment from the blocks (a
+    quantized pool's one full-width dequant, `kv_dequant_fallbacks`), and
+    the insert forks the partial tail block into a fresh one
+    (`kv_cow_copies`) while shared blocks are never rewritten. Entries
+    yield their blocks to live admissions under pool pressure
+    (`_kv_fits`);
+  * `kv_host_tier_blocks` (paged) spills an evicted entry's blocks to host
+    RAM in the KV wire format (serve/kv_transfer.py) and restores them into
+    the pool on a later hit, when the restore and the admission fit
+    together;
   * decode runs `chunk` steps per dispatch over the smallest cache-length
     bucket covering every active row, sampling on the device;
   * up to `pipeline_depth` (default 2, as in JAX) decode chunks are in
@@ -73,16 +89,21 @@ import queue
 import threading
 import time
 import traceback
-from collections import deque
+from collections import OrderedDict, deque
 from typing import Sequence
 
 import numpy as np
 import torch
 
 from kubeflow_tpu_torch.models.llama import adapter_rows, init_cache
+from kubeflow_tpu_torch.serve.kv_transfer import (HostKVTier, ShipmentError,
+                                                  pack_shipment,
+                                                  unpack_shipment)
 from kubeflow_tpu_torch.serve.model import Model
 from kubeflow_tpu_torch.serve.paging import BlockAllocator, blocks_for
-from kubeflow_tpu_torch.serve.quant import KV_QUANT_MODES, kv_quantize_rows
+from kubeflow_tpu_torch.serve.quant import (KV_QUANT_MODES,
+                                            kv_dequantize_rows,
+                                            kv_quantize_rows)
 from kubeflow_tpu_torch.serve.tokenizer_util import decode_ids, resolve_ids
 from kubeflow_tpu_torch.utils.resilience import Deadline, DeadlineExceeded
 
@@ -148,7 +169,8 @@ def sample_tokens(logits, temperature, generator, top_k=None, top_p=None):
 
 def build_engine_fns(model, *, max_len: int, chunk: int,
                      prefill_buckets: Sequence[int], kv_block_size: int = 0,
-                     kv_quant: str = "none") -> dict:
+                     kv_quant: str = "none",
+                     offset_writes: bool = False) -> dict:
     """The engine's device functions as closures over `model`.
 
     Caches are written in place: `prefill` returns a fresh fragment,
@@ -159,8 +181,15 @@ def build_engine_fns(model, *, max_len: int, chunk: int,
 
     `kv_block_size` > 0 adds the paged functions: `make_decode_paged`
     (gather the block tables into a view, the flat chunk on it, scatter it
-    back) and `insert_paged` (scatter a fragment into a request's blocks,
-    quantizing its rows when `kv_quant` is set).
+    back), `insert_paged` (scatter a fragment into a request's blocks,
+    quantizing its rows when `kv_quant` is set), `frag_from_pool` (gather
+    a prefix-cache hit's blocks back into a fragment, dequantizing a
+    quantized pool's rows) and `export_blocks`/`import_blocks` (the device
+    halves of the KV wire format, serve/kv_transfer.py).
+
+    `offset_writes` (the prefix cache is on) gives the fragment its
+    one-bucket headroom even where no prompt chunks: a hit resumes
+    `extend` at a nonzero offset with a bucket-wide write.
 
     Every function that runs the model takes an optional trailing
     `adapter`, each row's multi-LoRA factors (`models.llama.AdapterRows`);
@@ -168,11 +197,11 @@ def build_engine_fns(model, *, max_len: int, chunk: int,
     cfg = model.cfg
     dev = model.device
     big = max(prefill_buckets)
-    # Fragment headroom of one largest bucket when a prompt may chunk: a
-    # continuation chunk writes a whole bucket at a nonzero offset, and its
-    # padding may reach past max_len. Pad rows land in the headroom and are
-    # dropped at insert.
-    frag_len = max_len + (big if big < max_len - 1 else 0)
+    # Fragment headroom of one largest bucket when a prompt may chunk or a
+    # prefix-cache hit may resume mid-prompt: a continuation chunk writes a
+    # whole bucket at a nonzero offset, and its padding may reach past
+    # max_len. Pad rows land in the headroom and are dropped at insert.
+    frag_len = max_len + (big if big < max_len - 1 or offset_writes else 0)
 
     def _last(hidden, length, temperature, top_k, top_p, gen):
         """Sample from the logits of the last real token only: the other
@@ -287,8 +316,13 @@ def build_engine_fns(model, *, max_len: int, chunk: int,
     def insert_paged(pool, frag, table):
         """Scatter a fragment's first len(table)*bs rows into the blocks
         `table` [nb] (a request's reservation, position-ordered), layer by
-        layer. A quantized pool gets the rows' codes and scales, by the
-        same encode as the model's decode writes."""
+        layer. Entries of shared prefix blocks are masked to the NULL block
+        0: their committed rows stay untouched (a quantized pool's would be
+        re-encoded from dequantized rows), and the fragment's rows for them
+        land in the garbage block. A freshly forked tail block receives its
+        committed rows from the fragment: that write is the copy-on-write
+        copy. A quantized pool gets the rows' codes and scales, by the same
+        encode as the model's decode writes."""
         nb = table.numel()
         # One layer at a time keeps the quantizer's fp32 temporaries small.
         for layer in range(cfg.num_layers):
@@ -301,7 +335,45 @@ def build_engine_fns(model, *, max_len: int, chunk: int,
                     pool[n].dtype)
         return pool
 
-    fns.update(make_decode_paged=make_decode_paged, insert_paged=insert_paged)
+    def frag_from_pool(pool, table):
+        """A fragment cache [L, 1, frag_len, ...] rebuilt from the blocks
+        `table` [n] (a prefix-cache hit's, its partial tail included): the
+        admission-side gather that lets chunked prefill resume after a hit.
+        Rows past the gathered blocks are zeros, and rows past the stored
+        prefix hold whatever the blocks hold; each is overwritten before
+        any query position can attend it. A quantized pool's codes and
+        scales are dequantized here, layer by layer: the one full-width
+        dequant of the quantized design (the engine counts each in
+        `kv_dequant_fallbacks`)."""
+        frag = init_cache(cfg, 1, frag_len, device=dev)
+        n = table.numel()
+        for layer in range(cfg.num_layers):
+            for name in ("k", "v"):
+                g = pool[name][layer, table]
+                if kv_quant != "none":
+                    g = kv_dequantize_rows(g, pool[name + "s"][layer, table],
+                                           cfg.dtype)
+                frag[name][layer, 0, :n * bs] = g.reshape(n * bs,
+                                                          *g.shape[2:])
+        return frag
+
+    def export_blocks(pool, table):
+        """The blocks `table` [n] of every pool leaf, gathered off the pool
+        ({name: [L, n, bs, ...]}): the device half of the KV wire format.
+        Committed rows come back exactly as the pool holds them, so pool ->
+        wire -> pool round-trips byte-identically."""
+        return {name: p[:, table] for name, p in pool.items()}
+
+    def import_blocks(pool, blocks, table):
+        """Scatter shipped blocks ({name: [L, n, bs, ...]}) into the pool
+        at `table` [n]: the host-to-device half."""
+        for name, p in pool.items():
+            p[:, table] = blocks[name].to(p.dtype)
+        return pool
+
+    fns.update(make_decode_paged=make_decode_paged, insert_paged=insert_paged,
+               frag_from_pool=frag_from_pool, export_blocks=export_blocks,
+               import_blocks=import_blocks)
     return fns
 
 
@@ -328,7 +400,14 @@ class GenerationEngine:
 
     `adapters` ({name: PEFT adapter dir}) loads multi-LoRA stacks on the
     engine's device; `submit(..., adapter=name)` serves a request through
-    one of them."""
+    one of them.
+
+    `prefix_cache` > 0 keeps that many prompt prefixes, keyed by adapter
+    and tokens, at prompt-chunk boundaries: flat, as fragment copies;
+    paged, as block references (a hit maps the full blocks zero-copy and
+    forks the partial tail). `kv_host_tier_blocks` > 0 (paged only) spills
+    evicted prefixes to host RAM through the KV wire format and restores
+    them on a hit."""
 
     #: Disaggregated roles are not ported: every engine prefills and
     #: decodes (rendered as the `tpk_engine_role` gauge).
@@ -339,7 +418,8 @@ class GenerationEngine:
                  decode_buckets: Sequence[int] | None = None, seed: int = 0,
                  pipeline_depth: int = 2, kv_block_size: int = 0,
                  kv_blocks: int = 0, kv_quant: str = "none",
-                 adapters: dict | None = None):
+                 adapters: dict | None = None, prefix_cache: int = 0,
+                 kv_host_tier_blocks: int = 0):
         cfg = model.cfg
         self.model, self.cfg = model, cfg
         self.device = model.device
@@ -399,6 +479,22 @@ class GenerationEngine:
             raise ValueError(
                 "kv_quant requires the paged KV cache (quantization is a "
                 "property of pool blocks); set kv_block_size > 0")
+        if int(kv_host_tier_blocks) and not self._paged:
+            raise ValueError(
+                "kv_host_tier_blocks > 0 needs the paged KV cache (the "
+                "host tier spills whole blocks); set kv_block_size > 0")
+        self._host_tier = (HostKVTier(int(kv_host_tier_blocks))
+                           if self._paged and int(kv_host_tier_blocks)
+                           else None)
+        # Prefix cache: an LRU of prompt-chunk-boundary prefixes keyed
+        # (aid, prefix_len, hash(tokens)); each value is (token tuple,
+        # fragment) flat or (token tuple, block ids) paged. The tuple
+        # verifies the hash; the per-adapter length index {aid: {len:
+        # count}} lets a lookup probe by length. Capacity in entries; 0 is
+        # off.
+        self._prefix_cap = int(prefix_cache)
+        self._prefix_lru: OrderedDict = OrderedDict()
+        self._prefix_lens: dict[int, dict[int, int]] = {}
         # Admissions waiting for pool blocks, head of line first.
         self._kv_stash: deque = deque()
         # Multi-LoRA (serve/multilora.py): every adapter stacked on the
@@ -418,7 +514,8 @@ class GenerationEngine:
         fns = build_engine_fns(model, max_len=self.max_len, chunk=self.chunk,
                                prefill_buckets=self.prefill_buckets,
                                kv_block_size=self._kv_bs,
-                               kv_quant=self.kv_quant)
+                               kv_quant=self.kv_quant,
+                               offset_writes=self._prefix_cap > 0)
         self._fns = fns
         make = fns["make_decode_paged" if self._paged else "make_decode"]
         self._decode = {(b, trunc): make(trunc, b)
@@ -437,13 +534,19 @@ class GenerationEngine:
         self._stats_lock = threading.Lock()
         # decode_seconds is the union of the intervals in which some chunk
         # was in flight, so throughput() does not count overlap twice.
-        # host_stall_seconds: time blocked in the fetch's wait.
+        # host_stall_seconds: time blocked in the fetch's wait. The
+        # prefix-cache and host-tier keys are the JAX engine's, 0 while
+        # their features are off.
         self.stats = {"requests": 0, "prompt_tokens": 0, "decode_tokens": 0,
                       "decode_seconds": 0.0, "decode_dispatches": 0,
                       "prefill_chunks": 0, "decode_fetch_overlapped": 0,
                       "decode_fetch_blocking": 0, "admit_overlap": 0,
                       "decode_dead_slot_chunks": 0, "decode_wasted_tokens": 0,
-                      "host_stall_seconds": 0.0}
+                      "host_stall_seconds": 0.0, "prefix_hits": 0,
+                      "prefix_hit_tokens": 0, "prefix_misses": 0,
+                      "prefix_stores": 0, "kv_cow_copies": 0,
+                      "prefix_zero_copy_hits": 0, "kv_spilled_blocks": 0,
+                      "kv_restored_blocks": 0, "kv_dequant_fallbacks": 0}
         self._busy_mark: float | None = None
         self._slots: list[dict | None] = [None] * self.n_slots
         self._thread = threading.Thread(target=self._loop, daemon=True,
@@ -573,12 +676,23 @@ class GenerationEngine:
         return self._kv_alloc.used_blocks if self._paged else None
 
     def kv_info(self) -> dict | None:
-        """Paged-pool snapshot for metadata (None = flat)."""
+        """Paged-pool snapshot for metadata (None = flat), with the host
+        tier's counters under "host_tier" when it has one."""
         if not self._paged:
             return None
-        return {"block_size": self._kv_bs, "blocks": self._kv_alloc.n_blocks,
+        info = {"block_size": self._kv_bs, "blocks": self._kv_alloc.n_blocks,
                 "blocks_free": self._kv_alloc.free_blocks,
                 "blocks_used": self._kv_alloc.used_blocks}
+        if self._host_tier is not None:
+            info["host_tier"] = self._host_tier.stats_snapshot()
+        return info
+
+    @property
+    def kv_spill_blocks(self) -> int | None:
+        """Host-tier resident blocks (None = no tier): the
+        `tpk_kv_spill_blocks` gauge."""
+        return (self._host_tier.resident_blocks
+                if self._host_tier is not None else None)
 
     # -- worker --------------------------------------------------------------
 
@@ -604,13 +718,14 @@ class GenerationEngine:
         if blocks:
             self._kv_alloc.decref(blocks)
 
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        """A host array on the engine's device without a stream sync. On
-        CUDA it goes through a pinned staging copy and a non-blocking
-        transfer (a pageable copy would wait for every chunk in flight);
-        PyTorch's pinned-memory allocator hands the staging block out again
-        only after the transfer that reads it has run."""
-        t = torch.from_numpy(a)
+    def _to_device(self, a) -> torch.Tensor:
+        """A host array (numpy, or a CPU tensor) on the engine's device
+        without a stream sync. On CUDA it goes through a pinned staging
+        copy and a non-blocking transfer (a pageable copy would wait for
+        every chunk in flight); PyTorch's pinned-memory allocator hands the
+        staging block out again only after the transfer that reads it has
+        run."""
+        t = a if isinstance(a, torch.Tensor) else torch.from_numpy(a)
         if self.device.type != "cuda":
             return t.to(self.device)
         return t.pin_memory().to(self.device, non_blocking=True)
@@ -632,30 +747,28 @@ class GenerationEngine:
 
     def _admit(self, slot: int, req: dict) -> None:
         """Chunked prefill into a fragment, insert it into `slot` (flat) or
-        into the request's reserved blocks (paged). At depth 1 the first
+        into the request's reserved blocks (paged), resuming after the
+        longest prefix-cache hit when the cache is on. At depth 1 the first
         sampled token is fetched and emitted here; deeper, it stays on the
         device as the slot's `pending` decode carry (its host copy under
         way) and is emitted at a later poll or fetch. Paged: raises
         _NeedKVBlocks when the pool is short now."""
-        table = None
+        ids, aid = req["input_ids"], req["aid"]
         if self._paged:
-            table = self._kv_alloc.alloc(self._need_blocks(
-                len(req["input_ids"]), req["max_tokens"]))
-            if table is None:
-                raise _NeedKVBlocks()
-        try:
-            frag, tok0, lp0 = self._prefill_fragment(req)
-            if table is None:
-                self._fns["insert"](self._cache, frag, slot)
-            else:
-                self._fns["insert_paged"](
-                    self._cache, frag,
-                    self._to_device(np.asarray(table, np.int64)))
-        except BaseException:
-            if table is not None:
-                self._kv_alloc.decref(table)
-            raise
-        ids = req["input_ids"]
+            table, tok0, lp0, start = self._admit_paged(req)
+        else:
+            table, frag, done = None, None, 0
+            if self._prefix_cap:
+                hit = self._prefix_lookup(ids, aid)
+                if hit is not None:
+                    done, frag = hit
+                self._count_lookup(done, hit is not None)
+            start = done
+            frag, tok0, lp0 = self._prefill_fragment(
+                req, frag, done,
+                lambda m, f: self._prefix_store(aid, tuple(ids[:m]), f,
+                                                copy=m < len(ids)))
+            self._fns["insert"](self._cache, frag, slot)
         st = {"req": req, "idx": len(ids), "disp": len(ids), "last": None,
               "pending": None}
         if table is not None:
@@ -666,21 +779,93 @@ class GenerationEngine:
             st["last"] = int(tok0[0])
         self._slots[slot] = st
         with self._stats_lock:
-            self.stats["prefill_chunks"] += -(-len(ids)
+            self.stats["prefill_chunks"] += -(-(len(ids) - start)
                                               // self.prefill_buckets[-1])
             self.stats["requests"] += 1
             self.stats["prompt_tokens"] += len(ids)
-            if req["aid"]:
+            if aid:
                 per = dict(self.stats.get("adapter_requests", {}))
-                name = self._ml_names[req["aid"]]
+                name = self._ml_names[aid]
                 per[name] = per.get(name, 0) + 1
                 self.stats["adapter_requests"] = per
         if st["pending"] is None:
             self._emit(slot, st, [st["last"]], [float(lp0[0])])
 
-    def _prefill_fragment(self, req: dict):
-        """The prompt's chunked prefill into a one-row fragment cache:
-        (fragment, first sampled token [1], its logprob [1])."""
+    def _count_lookup(self, done: int, hit: bool, zero_copy: bool = False,
+                      cow: bool = False) -> None:
+        with self._stats_lock:
+            if hit:
+                self.stats["prefix_hits"] += 1
+                self.stats["prefix_hit_tokens"] += done
+                self.stats["prefix_zero_copy_hits"] += int(zero_copy)
+                self.stats["kv_cow_copies"] += int(cow)
+            else:
+                self.stats["prefix_misses"] += 1
+
+    def _admit_paged(self, req: dict):
+        """Paged admission: the fragment pipeline is the flat one; the
+        fragment lands in this request's blocks. A prefix hit (in the pool,
+        or restored from the host tier) maps the stored prefix's full blocks
+        into the table by reference, and its partial tail block is forked:
+        the tail's committed rows ride the fragment into a fresh block
+        (`kv_cow_copies`). The whole worst-case need is reserved here; the
+        boundary stores wait until the insert has written their blocks.
+        Returns (table, first token, its logprob, the prompt position
+        prefill resumed at)."""
+        ids, aid = req["input_ids"], req["aid"]
+        bs = self._kv_bs
+        done, shared, gather, hit = 0, [], None, None
+        if self._prefix_cap:
+            hit = self._prefix_probe(ids, aid, touch=True)
+            if hit is None and self._host_tier is not None:
+                hit = self._restore_spilled(ids, aid, req)
+            if hit is not None:
+                done, gather = hit
+                shared = list(gather[:done // bs])
+        # _admit_waiting's _kv_fits precheck makes this failure unreachable
+        # in the normal flow.
+        fresh = self._kv_alloc.alloc(max(0, self._need_blocks(
+            len(ids), req["max_tokens"]) - len(shared)))
+        if fresh is None:
+            raise _NeedKVBlocks()
+        if self._prefix_cap:
+            self._count_lookup(done, hit is not None, bool(shared),
+                               done % bs > 0)
+        self._kv_alloc.incref(shared)
+        table = shared + fresh
+        boundaries: list[int] = []
+        try:
+            frag = None
+            if gather is not None:
+                frag = self._fns["frag_from_pool"](
+                    self._cache, self._to_device(np.asarray(gather,
+                                                            np.int64)))
+                if self.kv_quant != "none":
+                    with self._stats_lock:
+                        self.stats["kv_dequant_fallbacks"] += 1
+            frag, tok0, lp0 = self._prefill_fragment(
+                req, frag, done, lambda m, f: boundaries.append(m))
+            scatter = np.zeros((len(table),), np.int64)
+            scatter[len(shared):] = fresh  # shared blocks: the NULL block
+            self._fns["insert_paged"](self._cache, frag,
+                                      self._to_device(scatter))
+        except BaseException:
+            self._kv_alloc.decref(table)
+            raise
+        for m in boundaries:
+            self._prefix_store_paged(aid, tuple(ids[:m]),
+                                     table[:blocks_for(m, bs)])
+        return table, tok0, lp0, done
+
+    def _prefill_fragment(self, req: dict, frag=None, done: int = 0,
+                          on_boundary=None):
+        """The prompt's chunked prefill into a one-row fragment cache from
+        prompt position `done` (0, or a prefix-cache hit's length with its
+        fragment `frag`): (fragment, first sampled token [1], its logprob
+        [1]). With the prefix cache on, `on_boundary(position, fragment)`
+        is called after each chunk, except where a later boundary of this
+        admission would evict that entry at once (fewer entries than
+        chunks left)."""
         ids = req["input_ids"]
         samp = (self._to_device(np.array([req["temperature"]], np.float32)),
                 self._to_device(np.array([req["top_k"]], np.int64)),
@@ -688,7 +873,6 @@ class GenerationEngine:
         big = self.prefill_buckets[-1]
         fns = self._fns
         ad = self._adapter_rows(np.array([req["aid"]], np.int64))
-        frag, done = None, 0
         while done < len(ids):
             piece = ids[done:done + big]
             final = done + len(piece) >= len(ids)
@@ -704,7 +888,249 @@ class GenerationEngine:
             else:  # intermediate chunk: no sampling, no unembedding
                 frag = fns["extend_mid"](frag, toks, done, ad)
             done += len(piece)
+            if self._prefix_cap and -(-(len(ids) - done)
+                                      // big) < self._prefix_cap:
+                on_boundary(done, frag)
         return frag, tok0, lp0
+
+    # -- prefix cache ----------------------------------------------------------
+
+    def _prefix_probe(self, ids: list[int], aid: int, touch: bool):
+        """Longest cached prefix strictly shorter than the prompt (the final
+        token's logits must still be computed) under adapter `aid` (a
+        prefix computed under one adapter holds its K/V deltas and never
+        serves another): (length, stored payload: a fragment flat, block
+        ids paged) or None. One hash per distinct cached length, longest
+        first; the stored token tuple verifies each hash hit, so a
+        collision costs a miss, never a wrong prefix. `touch` moves the hit
+        to the LRU's end (`_kv_fits` only peeks)."""
+        lens = self._prefix_lens.get(aid)
+        if not lens:
+            return None
+        for n in sorted(lens, reverse=True):
+            if n >= len(ids):
+                continue
+            kt = tuple(ids[:n])
+            key = (aid, n, hash(kt))
+            entry = self._prefix_lru.get(key)
+            if entry is None or entry[0] != kt:
+                continue  # absent, or a same-hash different prefix
+            if touch:
+                self._prefix_lru.move_to_end(key)
+            return n, entry[1]
+        return None
+
+    def _prefix_lookup(self, ids: list[int], aid: int = 0):
+        """Flat: (matched length, a clone of the stored fragment) or None.
+        The clone is what the admission extends: `extend` writes into the
+        fragment it is given."""
+        hit = self._prefix_probe(ids, aid, touch=True)
+        if hit is None:
+            return None
+        return hit[0], {n: t.clone() for n, t in hit[1].items()}
+
+    def _prefix_insert(self, aid: int, kt: tuple, make_payload) -> None:
+        """Store `make_payload(displaced)` under kt's key (`displaced` is
+        the payload of a same-hash different prefix it replaces, or None),
+        then evict the oldest entries past the cap. A key already holding
+        kt is a pure LRU touch."""
+        key = (aid, len(kt), hash(kt))
+        existing = self._prefix_lru.get(key)
+        if existing is not None and existing[0] == kt:
+            self._prefix_lru.move_to_end(key)
+            return
+        if existing is None:
+            per = self._prefix_lens.setdefault(aid, {})
+            per[len(kt)] = per.get(len(kt), 0) + 1
+        self._prefix_lru[key] = (kt, make_payload(
+            None if existing is None else existing[1]))
+        self._prefix_lru.move_to_end(key)
+        with self._stats_lock:
+            self.stats["prefix_stores"] += 1
+        while len(self._prefix_lru) > self._prefix_cap:
+            self._prefix_evict(next(iter(self._prefix_lru)))
+
+    def _prefix_store(self, aid: int, kt: tuple, frag, *,
+                      copy: bool = True) -> None:
+        """Flat: store the fragment at a prompt-chunk boundary. An
+        intermediate boundary's fragment is cloned (`copy`): the admission
+        goes on writing into it. The final one is taken by reference:
+        nothing writes into it after the insert, and every hit clones it.
+        Rows past the keyed prefix may hold pad or stale K/V, overwritten
+        before any query position can attend them."""
+        self._prefix_insert(aid, kt, lambda _: (
+            {n: t.clone() for n, t in frag.items()} if copy else frag))
+
+    def _prefix_store_paged(self, aid: int, kt: tuple,
+                            blocks: list[int]) -> None:
+        """Paged: publish a prompt-boundary prefix as block references (a
+        refcount bump, no device work). The stored tail block may be
+        partially filled; its owner keeps writing at rows >= len(kt),
+        which never disturbs the committed rows a later hit reads, and the
+        hit forks that block before writing. A hash-collision overwrite
+        drops the displaced entry's references."""
+        def payload(displaced):
+            if displaced is not None:
+                self._kv_alloc.decref(displaced)
+            self._kv_alloc.incref(blocks)
+            return tuple(blocks)
+        self._prefix_insert(aid, kt, payload)
+
+    def _prefix_evict(self, key: tuple) -> None:
+        """Drop one prefix entry and its length-index bookkeeping. Paged,
+        the entry's block references return to the allocator, after the
+        blocks are spilled to the host tier when there is one."""
+        if self._paged and self._host_tier is not None:
+            kt, blocks = self._prefix_lru[key]
+            self._spill_prefix(key, kt, blocks)
+        _, payload = self._prefix_lru.pop(key)
+        eaid, en, _ = key
+        per = self._prefix_lens.get(eaid, {})
+        if per.get(en, 0) <= 1:
+            per.pop(en, None)
+            if not per:
+                self._prefix_lens.pop(eaid, None)
+        else:
+            per[en] -= 1
+        if self._paged:
+            self._kv_alloc.decref(payload)
+
+    def _kv_fits(self, req: dict) -> bool:
+        """Can the pool cover this request's worst-case need right now,
+        counting a zero-copy prefix hit's shared blocks? Under pressure,
+        prefix-cache entries are evicted first: cached prefixes yield to
+        live traffic, or a pool pinned by cache references would deadlock
+        an idle engine against a stashed admission.
+
+        The feasibility bound is computed once (a block is reclaimable
+        only when every reference to it is the cache's) for both outcomes:
+        keeping the peeked hit (discounted need, its blocks kept) and
+        giving it up (full need, everything reclaimable). If neither can
+        fit, nothing is evicted. Otherwise non-hit entries go first,
+        oldest first, and the hit itself only when giving up its discount
+        is the only way to fit."""
+        ids, aid = req["input_ids"], req["aid"]
+        total = self._need_blocks(len(ids), req["max_tokens"])
+        hit = (self._prefix_probe(ids, aid, touch=False)
+               if self._prefix_cap else None)
+        shared = hit[0] // self._kv_bs if hit is not None else 0
+        hit_key = ((aid, hit[0], hash(tuple(ids[:hit[0]])))
+                   if hit is not None else None)
+        if self._kv_alloc.can_alloc(total - shared):
+            return True
+        if not self._prefix_lru:
+            return False
+        cache_refs: dict[int, int] = {}
+        for _, eblocks in self._prefix_lru.values():
+            for b in eblocks:
+                cache_refs[b] = cache_refs.get(b, 0) + 1
+        hit_blocks = set(hit[1]) if hit is not None else set()
+        free = self._kv_alloc.free_blocks
+        reclaim = [b for b, c in cache_refs.items()
+                   if self._kv_alloc.refcount(b) == c]
+        reclaim_keep_hit = sum(1 for b in reclaim if b not in hit_blocks)
+        keep_hit = (hit_key is not None
+                    and free + reclaim_keep_hit >= total - shared)
+        if not keep_hit and free + len(reclaim) < total:
+            return False
+        protect = hit_key if keep_hit else None
+        while True:
+            resident = hit_key is not None and hit_key in self._prefix_lru
+            if self._kv_alloc.can_alloc(total - (shared if resident else 0)):
+                return True
+            victim = next((k for k in self._prefix_lru if k != protect),
+                          None)
+            if victim is None:
+                return False  # unreachable under the exact bounds above
+            self._prefix_evict(victim)
+
+    # -- host tier ---------------------------------------------------------------
+
+    def _spill_prefix(self, key: tuple, kt: tuple, blocks: tuple) -> None:
+        """Serialize one evicted prefix entry's blocks into the host tier,
+        in the KV wire format. Called before the eviction's decref: the
+        gather must read the blocks while they still hold the committed
+        rows. The copy to the host waits for the device (a host sync, at
+        an admission under pool pressure). A quantized pool charges the
+        tier by payload weight in full-precision block units (D bytes of
+        codes and 4 of scale per row-head against D * itemsize), so a
+        budget holds about twice the entries."""
+        aid = key[0]
+        gathered = self._fns["export_blocks"](
+            self._cache, self._to_device(np.asarray(blocks, np.int64)))
+        arrays = {name: leaf.cpu() for name, leaf in gathered.items()}
+        meta = {"fmt": 3 if self.kv_quant != "none" else 1,
+                "block_size": self._kv_bs,
+                "vocab_size": int(self.cfg.vocab_size),
+                "tokens": list(kt), "committed": len(kt)}
+        charge = len(blocks)
+        if self.kv_quant != "none":
+            meta["kv_quant"] = self.kv_quant
+            d = int(self._cache["k"].shape[-1])
+            fitem = torch.empty((), dtype=self.cfg.dtype).element_size()
+            charge = max(1, -(-len(blocks) * (d + 4) // (d * fitem)))
+        if self._host_tier.put(aid, kt, charge, pack_shipment(meta, arrays)):
+            with self._stats_lock:
+                self.stats["kv_spilled_blocks"] += len(blocks)
+
+    def _restore_spilled(self, ids: list[int], aid: int, req: dict):
+        """Restore the longest host-tier prefix of `ids` into pool blocks
+        and publish it as a prefix-cache entry: (matched length, block ids)
+        as `_prefix_probe` returns paged, or None (nothing spilled, no room,
+        or a payload this engine cannot verify, which is dropped: the pool
+        recomputes rather than serve bytes it cannot validate).
+
+        Livelock guard: the restore must leave room for this admission's
+        own reserve (its full need less the restored full blocks it maps
+        zero-copy). Checking the restore alone would let a tight pool
+        ping-pong: _kv_fits gives up the hit (spill), the admission
+        restores it (taking the last headroom), its reserve fails and
+        stashes, and the next pass spills and restores again. So the
+        restore happens only when both fit together; otherwise the
+        admission proceeds cold, which always ends."""
+        tier = self._host_tier
+        n = tier.probe_longest(aid, ids)
+        if n is None:
+            return None
+        bs = self._kv_bs
+        n_blocks = blocks_for(n, bs)
+        total = self._need_blocks(len(ids), req["max_tokens"])
+        if not self._kv_alloc.can_alloc(n_blocks + total - n // bs):
+            return None  # leave it spilled; admission proceeds cold
+        kt = tuple(ids[:n])
+        taken = tier.take(aid, kt)
+        if taken is None:
+            return None
+        names = tuple(self._cache)
+        try:
+            meta, arrays = unpack_shipment(taken[1])
+            # A quantized pool restores only payloads of its own mode with
+            # scale planes; anything else drops to recompute.
+            if (int(meta.get("block_size", 0)) != bs
+                    or list(meta.get("tokens", ())) != list(kt)
+                    or str(meta.get("kv_quant", "none")) != self.kv_quant
+                    or any(x not in arrays
+                           or tuple(arrays[x].shape)
+                           != (self._cache[x].shape[0], n_blocks,
+                               *self._cache[x].shape[2:])
+                           for x in names)):
+                raise ShipmentError("spilled payload mismatch")
+        except ShipmentError:
+            return None
+        blocks = self._kv_alloc.alloc(n_blocks)
+        if blocks is None:
+            return None
+        self._fns["import_blocks"](
+            self._cache, {x: self._to_device(arrays[x]) for x in names},
+            self._to_device(np.asarray(blocks, np.int64)))
+        # Publish as a cache entry (its incref owns the blocks), then drop
+        # the allocation's reference: the refcounts an entry resident all
+        # along would have.
+        self._prefix_store_paged(aid, kt, blocks)
+        self._kv_alloc.decref(blocks)
+        with self._stats_lock:
+            self.stats["kv_restored_blocks"] += n_blocks
+        return n, tuple(blocks)
 
     def _emit(self, slot: int, st: dict, tokens: list[int],
               logprobs: list[float]) -> None:
@@ -811,8 +1237,9 @@ class GenerationEngine:
 
     def _admit_waiting(self, overlap: bool) -> None:
         """Fill free slots from the queue. Paged: a request the pool cannot
-        cover yet waits at the head of the line (FIFO: nothing jumps it),
-        and admission resumes as retirements free blocks. With `overlap`
+        cover yet (`_kv_fits`, which first reclaims prefix-cache blocks)
+        waits at the head of the line (FIFO: nothing jumps it), and
+        admission resumes as retirements free blocks. With `overlap`
         (chunks in flight) the admission's work is enqueued behind them
         with no host sync, counted by `admit_overlap`. A waiter whose
         deadline has passed is dropped, never admitted."""
@@ -827,6 +1254,9 @@ class GenerationEngine:
                         return
                 if self._expire(req):  # never admitted
                     continue
+                if self._paged and not self._kv_fits(req):
+                    self._kv_stash.appendleft(req)
+                    return
                 try:
                     self._admit(slot, req)
                 except _NeedKVBlocks:
@@ -999,9 +1429,7 @@ class GenerationEngine:
 #: does not port yet, with the value that asks for nothing. A bundle that
 #: sets one to anything else is refused by name (501 at the server).
 _UNPORTED = {
-    "prefix_cache": ("prefix cache", 0),
     "draft": ("speculative decoding", None),
-    "kv_host_tier_blocks": ("paged KV host tier", 0),
     "mesh": ("tensor-parallel mesh", None),
     "role": ("disaggregated prefill/decode roles", "unified"),
 }

@@ -13,8 +13,9 @@ off the decode critical path.
     entries past a request's allocation: it receives garbage from padded
     scatters and is never read as meaningful data (absolute-position
     masking hides every row past a request's write index);
-  * a block referenced by more than one table is immutable in value
-    (refcounts exist for sharing; this package shares no blocks yet);
+  * a block referenced by more than one table is immutable in value: the
+    prefix cache shares a stored prefix's full blocks by reference, and a
+    hit forks a partially filled tail block before writing;
   * quantized pools (`kv_quant`) change nothing here: their scale planes
     are addressed by the same block ids.
 """

@@ -70,15 +70,20 @@ from kubeflow_tpu_torch.utils.resilience import (Deadline, DeadlineExceeded,
 
 #: GenerationEngine stats -> /metrics series, rendered per model on every
 #: scrape: the JAX server's rows for every stat this engine keeps, with
-#: their names and types. The "__name__" rows read an engine attribute.
-#: The JAX rows of features not ported (prefix cache, speculative
-#: decoding, the host tier, disaggregation, KV dequant fallbacks) come
-#: with those features.
+#: their names and types, the prefix cache's and the host tier's included
+#: (counters at 0 while those features are off). The "__name__" rows read
+#: an engine attribute; one that is None (the pool gauges of a flat
+#: engine, the spill gauge without a tier) is not rendered. The JAX rows of
+#: features not ported (speculative decoding, disaggregation) come with
+#: those features.
 _ENGINE_METRICS = (
     ("requests", "tpk_engine_requests_total", "counter"),
     ("prompt_tokens", "tpk_engine_prompt_tokens_total", "counter"),
     ("decode_tokens", "tpk_engine_decode_tokens_total", "counter"),
     ("decode_dispatches", "tpk_decode_dispatch_total", "counter"),
+    ("prefix_hits", "tpk_engine_prefix_hits_total", "counter"),
+    ("prefix_hit_tokens", "tpk_engine_prefix_hit_tokens_total", "counter"),
+    ("prefix_misses", "tpk_engine_prefix_misses_total", "counter"),
     ("host_stall_seconds", "tpk_engine_host_stall_seconds_total",
      "counter"),
     ("admit_overlap", "tpk_admit_overlap_total", "counter"),
@@ -88,10 +93,23 @@ _ENGINE_METRICS = (
      "tpk_engine_decode_fetch_overlapped_total", "counter"),
     ("decode_wasted_tokens", "tpk_engine_decode_wasted_tokens_total",
      "counter"),
+    # Paged prefix hits served as zero-copy block references, and the
+    # copy-on-write forks of their partial tail blocks.
+    ("kv_cow_copies", "tpk_kv_cow_copies_total", "counter"),
+    ("prefix_zero_copy_hits", "tpk_prefix_zero_copy_hits_total",
+     "counter"),
     # The pool gauges exist only where a pool does (paged engines).
     ("__kv_free__", "tpk_kv_blocks_free", "gauge"),
     ("__kv_used__", "tpk_kv_blocks_used", "gauge"),
     ("prefill_chunks", "tpk_engine_prefill_chunks_total", "counter"),
+    # The host tier: blocks spilled and restored, and those resident.
+    ("kv_spilled_blocks", "tpk_kv_spilled_blocks_total", "counter"),
+    ("kv_restored_blocks", "tpk_kv_restored_blocks_total", "counter"),
+    ("__kv_spill__", "tpk_kv_spill_blocks", "gauge"),
+    # Prefix-hit fragment rebuilds on a quantized pool: the one full-width
+    # dequant the design allows (decode never pays it).
+    ("kv_dequant_fallbacks", "tpk_kv_dequant_fallbacks_total",
+     "counter"),
     # Live in-flight dispatch count (0 when drained; stuck at <= 1 means
     # the pipeline re-serialised) vs the configured ceiling.
     ("__inflight__", "tpk_decode_inflight_depth", "gauge"),
@@ -100,6 +118,7 @@ _ENGINE_METRICS = (
 
 _ENGINE_ATTRS = {"__kv_free__": "kv_blocks_free",
                  "__kv_used__": "kv_blocks_used",
+                 "__kv_spill__": "kv_spill_blocks",
                  "__inflight__": "inflight_depth",
                  "__depth__": "pipeline_depth"}
 

@@ -150,6 +150,30 @@ def test_engine_rejects_bad_requests(tiny):
 ])
 def test_unported_engine_features_are_refused(tiny, key, value):
     _, _, tm = tiny
+    if key == "prefix_cache":
+        # The prefix cache is served now: the engine loads and serves, and
+        # a repeated prompt hits.
+        model = GenerativeTorchModel("m", tm,
+                                     generation={**ENGINE, key: value})
+        model.load()
+        try:
+            for _ in range(2):
+                out = model.generate({"input_ids": list(range(3, 25)),
+                                      "max_tokens": 4})
+                assert len(out["output_ids"]) == 4
+            stats = model.engine.stats_snapshot()
+            assert (stats["prefix_misses"], stats["prefix_hits"]) == (1, 1)
+        finally:
+            model.unload()
+        return
+    if key == "kv_host_tier_blocks":
+        # Served on a paged engine; without kv_block_size the load fails
+        # with the JAX engine's ValueError.
+        model = GenerativeTorchModel("m", tm,
+                                     generation={**ENGINE, key: value})
+        with pytest.raises(ValueError, match="needs the paged KV cache"):
+            model.load()
+        return
     if key == "adapters":
         # Multi-LoRA is served now: an adapter dir that does not exist
         # fails the load by name, never serves the base quietly.

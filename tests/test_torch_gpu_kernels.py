@@ -1,7 +1,7 @@
 """The CUDA kernels (flash attention, the W8A8 int8 matmul, ring attention,
 the W8A16 matmul) against their plain versions, on the card, and the
 serving engine's depth-2 loop under torch.cuda.set_sync_debug_mode (with
-multi-LoRA adapters too).
+multi-LoRA adapters and the prefix cache too).
 
 These tests need an NVIDIA GPU and skip without one. They import nothing
 of JAX, so they also run where JAX is not installed:
@@ -1553,3 +1553,91 @@ def test_depth2_engine_with_adapters_runs_under_sync_debug_error(
     finally:
         sync.close()
         base.close()
+
+
+# -- the prefix cache on the engine -------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", ["flat", "paged", "paged_int8"])
+def test_depth2_prefix_cache_runs_under_sync_debug_error(cuda, pool,
+                                                         monkeypatch):
+    """Hits on a shared head at depth 2 under
+    torch.cuda.set_sync_debug_mode("error"): the lookup's clone (flat),
+    the block references, the fragment rebuilt from the blocks and the
+    copy-on-write fork of a partial tail block (paged) make no host sync.
+    Each request's greedy ids equal a depth-1 engine's without the cache
+    (an int8 pool's hit attends dequantized rows: its ids are held to the
+    same engine's cold run of the request instead)."""
+    from kubeflow_tpu_torch.serve import generation as tg
+
+    model = _tiny_engine_model(cuda, False)
+    kw = dict(slots=2, max_len=64, chunk=4, prefill_buckets=(8, 16))
+    if pool != "flat":
+        kw.update(kv_block_size=8)
+    if pool == "paged_int8":
+        kw.update(kv_quant="int8")
+    real_wait = tg._wait
+
+    def wait_outside(event):
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            real_wait(event)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
+    monkeypatch.setattr(tg, "_wait", wait_outside)
+    head = list(range(3, 19))
+    a = head + [40, 41, 42, 43, 44]  # 21 = 2 blocks + a 5-row tail
+    # A miss, a hit at a's whole prompt (a CoW fork when paged), then hits
+    # at the 16-token boundary.
+    prompts = [a, a + [7, 8, 9], head + [50, 51], head + [60] * 12]
+    engine = tg.GenerationEngine(model, pipeline_depth=2, prefix_cache=4,
+                                 **kw)
+    got = []
+    try:
+        engine.submit([1, 2, 3], max_tokens=5)  # builds and warms outside
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for p in prompts:
+                got.append(engine.submit(p, max_tokens=9)["output_ids"])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        stats = engine.stats_snapshot()
+        assert (stats["prefix_misses"], stats["prefix_hits"]) == (2, 3)
+        assert stats["prefix_hit_tokens"] == len(a) + 16 + 16
+        if pool != "flat":
+            assert stats["kv_cow_copies"] == 1
+            assert stats["prefix_zero_copy_hits"] == 3
+            while engine._prefix_lru:
+                engine._prefix_evict(next(iter(engine._prefix_lru)))
+            assert engine.kv_info()["blocks_used"] == 0
+        assert stats["kv_dequant_fallbacks"] == (3 if pool == "paged_int8"
+                                                 else 0)
+    finally:
+        engine.close()
+    sync = tg.GenerationEngine(model, pipeline_depth=1, **kw)
+    try:
+        want = [sync.submit(p, max_tokens=9)["output_ids"] for p in prompts]
+    finally:
+        sync.close()
+    if pool == "paged_int8":
+        assert all(len(ids) == 9 for ids in got)
+    else:
+        assert got == want
+
+
+@pytest.mark.gpu
+def test_decode_chunk_with_prefix_cache_dispatches_what_it_did(cuda):
+    """The prefix cache changes admission only: an engine with it (flat)
+    dispatches DECODE_CHUNK_OPS ops a decode chunk."""
+    from kubeflow_tpu_torch.serve import generation as tg
+
+    model = _tiny_engine_model(cuda, False)
+    engine = tg.GenerationEngine(model, slots=2, max_len=64, chunk=4,
+                                 prefill_buckets=(8, 16), prefix_cache=4)
+    try:
+        assert len(decode_chunk_ops(engine)) == DECODE_CHUNK_OPS
+    finally:
+        engine.close()

@@ -1,6 +1,7 @@
 """The port imports nothing of JAX, nothing of the JAX package and none of
 the JAX side's data and checkpoint libraries (grain, orbax, safetensors,
-peft): it reads safetensors and PEFT adapters with its own code."""
+peft) or ml_dtypes: it reads safetensors and PEFT adapters with its own
+code, and carries bfloat16 and float8 KV blocks on the wire by name."""
 
 import ast
 import os
@@ -10,10 +11,11 @@ import sys
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# grain, orbax, safetensors, peft and tornado (the JAX server's framework)
-# are not on the card either.
+# grain, orbax, safetensors, peft, tornado (the JAX server's framework) and
+# ml_dtypes (numpy's bfloat16 and float8, a JAX dependency) are not on the
+# card either.
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "grain",
-             "safetensors", "peft", "tornado", "kubeflow_tpu")
+             "safetensors", "peft", "tornado", "ml_dtypes", "kubeflow_tpu")
 #: Importable only lazily, inside this function (not on the card: a
 #: bundled HF tokenizer is optional there).
 LAZY = {"transformers": ("serve/tokenizer_util.py", "load_bundled_tokenizer"),
@@ -60,6 +62,7 @@ def test_server_import_loads_no_jax():
             "import kubeflow_tpu_torch.models.peft_import; "
             "import kubeflow_tpu_torch.serve.multilora; "
             "import kubeflow_tpu_torch.serve.storage; "
+            "import kubeflow_tpu_torch.serve.kv_transfer; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN + tuple(LAZY)!r}]; print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -9,7 +9,7 @@ ids equal the JAX engine's, in a mixed concurrent batch, at depth 1 and 2,
 flat and paged; then the rejections, adapters as OpenAI model ids, runtime
 bundles (relative adapter dirs, int8 weights against the JAX engine, the
 registry format), `adapter_requests` and a stream with an adapter. (The
-JAX file's prefix-cache case waits for the port's prefix cache.)"""
+JAX file's prefix-cache case is in tests/test_torch_prefix_cache.py.)"""
 
 import copy
 import dataclasses

@@ -138,11 +138,13 @@ def test_paged_concurrent_requests_match_solo(tm):
 def test_transient_shortage_queues_then_completes(tm):
     """Each request reserves 5 of the pool's 8 blocks (20 prompt + 20
     budget rows of 8): the second waits at the head of the line while a
-    slot is free, and completes once the first retires."""
+    slot is free, and completes once the first retires. Admission asks
+    the pool first (`_kv_fits`, as the JAX engine does), so the wait shows
+    as a refusal there."""
     eng = _engine(tm, kv_block_size=8, kv_blocks=8)
     grants = []
-    real = eng._kv_alloc.alloc
-    eng._kv_alloc.alloc = lambda n: grants.append(real(n)) or grants[-1]
+    real = eng._kv_fits
+    eng._kv_fits = lambda req: grants.append(real(req)) or grants[-1]
     prompts = [list(range(1, 21)), list(range(30, 50))]
     try:
         solo = [eng.submit(p, max_tokens=20)["output_ids"] for p in prompts]
@@ -158,7 +160,7 @@ def test_transient_shortage_queues_then_completes(tm):
         for t in threads:
             t.join(timeout=120)
         assert out == solo
-        assert None in grants  # the second request did wait for blocks
+        assert False in grants  # the second request did wait for blocks
         assert eng.kv_info()["blocks_free"] == 8
     finally:
         eng.close()

@@ -39,21 +39,12 @@ KW = {"dtype": "float32", "num_layers": 2}
 #: The JAX engine's /metrics families of features the port refuses at
 #: the bundle (serve/generation.py `_UNPORTED`).
 REFUSED_FAMILIES = {
-    # prefix cache (prefix_cache), its paged zero-copy hits and forks
-    "tpk_engine_prefix_hits_total", "tpk_engine_prefix_hit_tokens_total",
-    "tpk_engine_prefix_misses_total", "tpk_kv_cow_copies_total",
-    "tpk_prefix_zero_copy_hits_total",
     # speculative decoding (draft)
     "tpk_engine_spec_dispatch_total", "tpk_spec_proposed_total",
     "tpk_spec_accepted_total", "tpk_spec_stale_rides_total",
     # disaggregated prefill/decode (role)
     "tpk_engine_remote_admits_total", "tpk_kv_blocks_shipped_total",
     "tpk_kv_blocks_received_total",
-    # the paged KV host tier (kv_host_tier_blocks)
-    "tpk_kv_spilled_blocks_total", "tpk_kv_restored_blocks_total",
-    # KV dequant fallbacks (prefix-hit fragment rebuilds on a quantized
-    # pool: the prefix cache again)
-    "tpk_kv_dequant_fallbacks_total",
 }
 
 
