@@ -129,6 +129,25 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
      bytes. (v) One /metrics scrape on a server whose bundle sets the
      three keys, after a miss and a hit: the new families equal the
      engine's stats;
+  4g. speculative decoding: (i) at llama_1b's widths in fp32 (2 layers)
+     the target as its own draft and a 1-layer draft, flat and paged, at
+     depth 1 and 2: four greedy prompts at once give the vanilla engine's
+     ids, the self-draft accepting at least 0.99; (ii) llama3_8b with a
+     draft at meta-llama/Llama-3.2-1B's published widths written from the
+     seed as an HF checkpoint and served over HTTP through
+     generative.draft.checkpoint (gamma 4): greedy ids equal vanilla
+     decoding's or part only at a recomputed near-tie, ms a dispatch, tok/s
+     a row and acceptance beside vanilla at depth 2 and 1, one profiled
+     dispatch split into draft forwards and verify, kernels a spec step,
+     no B1 launch in a dispatch, the draft's load seconds and bytes; (iii)
+     the target as its own draft: acceptance at least 0.75 greedy (bf16
+     ties of random-init logits) and 0.9 at temperature 0.8, the same ids
+     from the same seed; (iv) int8 weights:
+     ids against the int8 vanilla engine, W8A16 launches by kernel with 4
+     slots and with 1, kv_quant with a draft refused; (v) 2 greedy, 1
+     top-k and 1 top-p request at once on a paged engine: the truncated
+     rows decode vanilla, the pool whole after; (vi) /metrics' spec
+     series equal the engine's stats; B1 launches 32 a target admission;
   5. training: llama_1b at full width and depth through the trainer's entry
      point (batch 12, seq 1024, 3 warm-up + 10 timed steps): finite losses,
      the first near ln(V), every step's launches (2 forward per layer under
@@ -399,6 +418,68 @@ ML_REQUESTS = ((520, None), (700, None), (600, "ml_a"), (900, "ml_b"))
 # the PREFIX_CROWD prompts, which push A's entries into the tier.
 PREFIX_HEAD, PREFIX_TAILS, PREFIX_TURN = 2048, (100, 700, 1500), 300
 PREFIX_CAP, PREFIX_TIER_BLOCKS, PREFIX_CROWD = 4, 1024, (3000, 3000)
+# 4g: speculative decoding. (i) Exactness at phase 6's llama_1b_fp32_2l
+# widths (fp32: the verify's and a decode step's roundings stay far under
+# any gap between two top logits): the target as its own draft and a
+# 1-layer draft from another seed, SPEC_SMALL_LENS greedy prompts at
+# once, flat and paged engines at depth 1 and 2, SPEC_SMALL settings. (ii)
+# Phase 4's llama3_8b (bf16) with a draft at the published widths of
+# meta-llama/Llama-3.2-1B's config.json (DRAFT_CONFIG: 16 layers, tied
+# embeddings, llama3 rope scaling), written from the seed as an HF
+# checkpoint and served over HTTP through generative.draft.checkpoint,
+# gamma SPEC_GAMMA, SPEC_PROMPT_LENS greedy prompts at once; (iii) the
+# target as its own draft; (iv) the int8-weight target; (v) 2 greedy, 1
+# top-k and 1 top-p request at once on a paged engine. Where bf16 greedy
+# ids part from vanilla decoding's, the position's logits, recomputed by
+# one forward over the common prefix, must show a near-tie: the two
+# tokens' logits within SPEC_TIE_SIGMAS x sqrt(2) x phase 3's floor x the
+# row's rms (phase 3's rel-L2 is the per-logit spread one change of bf16
+# rounding gives; two paths' spreads differ by sqrt(2) of it).
+SPEC_GAMMA, SPEC_TIE_SIGMAS = 4, 5.0
+SPEC_PROMPT_LENS = (100, 400, 700, 1000)
+SPEC_SMALL_LENS = (50, 120, 300, 600)
+SPEC_SMALL = {"slots": 4, "max_len": 2048, "chunk": CHUNK,
+              "prefill_buckets": [128, 512]}
+# The target as its own draft accepts every proposal in fp32 (i). In bf16
+# a proposal's argmax (a 1-row step) and the verify's (a 5-row forward,
+# other GEMM shapes) are two roundings of one model, and random-init
+# logits over 128256 entries often tie within a bf16 ulp (~0.03 at |l| ~
+# 4): most ids that part in (ii)-(iii) do so at an exact tie of the
+# recomputed logits. At a per-proposal agreement p, gamma 4's cumulative
+# acceptance is (p + p^2 + p^3 + p^4) / 4: 0.80 at p 0.91, what an NVIDIA
+# H100 80GB HBM3 at 700 W measured (0.806 and 0.833). Greedy is held to SPEC_SELF_ACCEPT_BF16_MIN,
+# under that; a fault (a stale draft row, a wrong position) takes it
+# toward the 1-layer draft's 0. Temperature rows (rejection by p_t / p_d,
+# which a tie does not move) are held to SPEC_SELF_ACCEPT_MIN.
+SPEC_SELF_ACCEPT_FP32_MIN, SPEC_SELF_ACCEPT_MIN = 0.99, 0.9
+SPEC_SELF_ACCEPT_BF16_MIN = 0.75
+SPEC_TEMPERATURE = 0.8
+# Tokens out of the spec runs of (ii), (iv) and (v), whose draft accepts
+# nothing (3 tokens a dispatch): half of MAX_TOKENS keeps the phase near
+# its budget. The target-as-draft runs of (iii) take MAX_TOKENS.
+SPEC_SHORT_TOKENS = MAX_TOKENS // 2
+
+
+def _spec_steps(generative: dict) -> int:
+    """Spec steps a dispatch of an engine of these settings."""
+    return max(1, generative["chunk"] // (SPEC_GAMMA + 1))
+
+
+DRAFT_CONFIG = {"architectures": ["LlamaForCausalLM"],
+                "attention_bias": False, "bos_token_id": 128000,
+                "eos_token_id": 128001, "head_dim": 64,
+                "hidden_act": "silu", "hidden_size": 2048,
+                "intermediate_size": 8192,
+                "max_position_embeddings": 131072, "mlp_bias": False,
+                "model_type": "llama", "num_attention_heads": 32,
+                "num_hidden_layers": 16, "num_key_value_heads": 8,
+                "rms_norm_eps": 1e-05,
+                "rope_scaling": {"factor": 32.0, "high_freq_factor": 4.0,
+                                 "low_freq_factor": 1.0,
+                                 "original_max_position_embeddings": 8192,
+                                 "rope_type": "llama3"},
+                "rope_theta": 500000.0, "tie_word_embeddings": True,
+                "torch_dtype": "bfloat16", "vocab_size": 128256}
 # 4c: int8 weights and KV must bring the serving peak this far under
 # phase 4's (bf16 weights 14.96 GiB; an int8 copy is ~7.5 GiB).
 QUANT_PEAK_SAVING_MIN_GIB = 5.0
@@ -2249,11 +2330,12 @@ def phase_surface(bundle: str, flat: dict) -> dict:
             "late_s": late_s, "scrape_ms": scrape_ms, "swap_s": landed}
 
 
-def _write_hf_checkpoint(ckpt: str, sd: dict, cfg) -> tuple[int, float]:
-    """`sd` as an HF checkpoint: config.json, two shards (the embedding
-    and the first half of the layers, then the rest) and their index, in
-    the checkpoint's dtypes (norm scales bf16, as HF stores them; they
-    widen to fp32 exactly). Returns (bytes written, seconds)."""
+def _write_hf_checkpoint(ckpt: str, sd: dict, cfg,
+                         config: dict = HF_CONFIG) -> tuple[int, float]:
+    """`sd` as an HF checkpoint: `config` as config.json, two shards (the
+    embedding and the first half of the layers, then the rest) and their
+    index, in the checkpoint's dtypes (norm scales bf16, as HF stores them;
+    they widen to fp32 exactly). Returns (bytes written, seconds)."""
     os.makedirs(ckpt, exist_ok=True)
     names = hf_mod.llama_hf_names(cfg)
     half = cfg.num_layers // 2
@@ -2272,7 +2354,7 @@ def _write_hf_checkpoint(ckpt: str, sd: dict, cfg) -> tuple[int, float]:
         json.dump({"metadata": {"total_size": nbytes}, "weight_map": {
             h: shard for shard, hs in shards.items() for h in hs}}, f)
     with open(os.path.join(ckpt, "config.json"), "w") as f:
-        json.dump(HF_CONFIG, f)
+        json.dump(config, f)
     return nbytes, time.monotonic() - t0
 
 
@@ -2923,6 +3005,470 @@ def phase_prefix(bundle: str, floor: float) -> dict:
             "frag_bytes": frag_bytes, "e_dist": e_dist,
             "spill_ms": [t * 1e3 for t, _ in spills],
             "restore_ms": [t * 1e3 for t in restores]}
+
+
+def _spec_bodies(vocab: int, lens, seed: int, **kw) -> list:
+    """Greedy requests of MAX_TOKENS after prompts of `lens` tokens."""
+    rng = np.random.default_rng(seed)
+    return [{"input_ids": rng.integers(0, vocab, n).tolist(),
+             "max_tokens": MAX_TOKENS, **kw} for n in lens]
+
+
+def _engine_burst(engine, bodies: list) -> tuple:
+    """The bodies at once on an in-process engine: (their ids in order,
+    the engine's stats after them)."""
+    results: list = [None] * len(bodies)
+
+    def run(i):
+        b = dict(bodies[i])
+        try:
+            results[i] = engine.submit(b.pop("input_ids"), timeout=600, **b)
+        except Exception as e:  # reported below
+            results[i] = e
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(bodies))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=900)
+    for i, res in enumerate(results):
+        if not isinstance(res, dict):
+            raise RuntimeError(f"request {i} failed: {res!r}")
+    return [r["output_ids"] for r in results], engine.stats_snapshot()
+
+
+def _accept(stats: dict) -> float:
+    return (stats["spec_accepted"] / stats["spec_proposed"]
+            if stats["spec_proposed"] else 0.0)
+
+
+def _near_tie(model, prompt: list, want: list, got: list, floor: float,
+              checks: dict) -> dict:
+    """Greedy `got` against vanilla `want` after `prompt`: equal, or, at
+    the first position they part, the logits of one forward over the
+    common prefix, with the two tokens' gap and its bound (SPEC_TIE_SIGMAS
+    x sqrt(2) x floor x the row's rms). That forward's flash launches are
+    a check's, added to checks["flash"]."""
+    j = next((i for i, (a, b) in enumerate(zip(want, got)) if a != b), None)
+    if j is None:
+        return {"equal": len(want) == len(got), "ok": len(want) == len(got)}
+    tokens = torch.tensor([prompt + want[:j]], device=DEVICE)
+    before = fa.flash_fwd_launches
+    with torch.inference_mode():
+        row = model(tokens)[0, -1].float()
+    checks["flash"] += fa.flash_fwd_launches - before
+    gap = abs(float(row[want[j]]) - float(row[got[j]]))
+    bound = (SPEC_TIE_SIGMAS * math.sqrt(2) * floor
+             * float(row.pow(2).mean().sqrt()))
+    return {"equal": False, "at": j, "gap": gap, "bound": bound,
+            "top": int(row.argmax()), "ok": gap <= bound}
+
+
+def _ids_gate(model, bodies: list, want: list, got: list, floor: float,
+              what: str, checks: dict) -> bool:
+    """Log and judge spec ids against vanilla ids, request by request, by
+    `_near_tie`'s rule."""
+    ok = True
+    for b, w, g in zip(bodies, want, got):
+        res = _near_tie(model, b["input_ids"], w, g, floor, checks)
+        ok &= res["ok"]
+        if not res["equal"] and "at" in res:
+            log(f"    {what}: prompt {len(b['input_ids'])} parts from "
+                f"vanilla at token {res['at']}: recomputed logits of the "
+                f"two tokens {res['gap']:.4f} apart (bound "
+                f"{res['bound']:.4f}; argmax {res['top']} vanilla "
+                f"{w[res['at']]} spec {g[res['at']]}) "
+                f"{'near-tie OK' if res['ok'] else 'FAIL'}")
+    log(f"    {what}: ids {'equal' if want == got else 'as above'} for "
+        f"{len(bodies)} requests")
+    return ok
+
+
+def _spec_exactness(gk) -> dict:
+    """4g (i): fp32 at llama_1b_fp32_2l's widths: greedy ids of every
+    spec engine (target as draft, a 1-layer draft; flat and paged; depth 1
+    and 2) equal the vanilla engine's; the self-draft's acceptance."""
+    cfg = gk.c1_config("llama_1b_fp32_2l")
+    model = llama_mod.Llama(cfg, device=DEVICE).init_weights(SEED).eval()
+    weak = llama_mod.Llama(dataclasses.replace(cfg, num_layers=1),
+                           device=DEVICE).init_weights(SEED + 21).eval()
+    bodies = _spec_bodies(cfg.vocab_size, SPEC_SMALL_LENS, SEED + 30)
+    eng = GenerationEngine(model, **SPEC_SMALL, pipeline_depth=1)
+    want, _ = _engine_burst(eng, bodies)
+    _close(eng)
+    rows, ok = {}, True
+    for name, draft in (("self", model), ("1-layer", weak)):
+        for pool in ("flat", "paged"):
+            for depth in (1, 2):
+                eng = GenerationEngine(
+                    model, **SPEC_SMALL, pipeline_depth=depth,
+                    draft={"model": draft, "gamma": SPEC_GAMMA},
+                    **({"kv_block_size": KV_BLOCK_SIZE}
+                       if pool == "paged" else {}))
+                got, st = _engine_burst(eng, bodies)
+                _close(eng)
+                key = f"{name} {pool} depth {depth}"
+                same = got == want
+                parts = [(k, next(i for i, (a, b) in enumerate(zip(w, g))
+                                  if a != b))
+                         for k, (w, g) in enumerate(zip(want, got))
+                         if w != g]
+                rows[key] = {"accept": _accept(st), "same": same,
+                             "dispatches": st["spec_dispatches"],
+                             "wasted": st["decode_wasted_tokens"]}
+                ok &= same and st["spec_dispatches"] > 0
+                if name == "self":
+                    ok &= _accept(st) >= SPEC_SELF_ACCEPT_FP32_MIN
+                log(f"  (i) {key}: ids {'equal' if same else 'DIFFER'}"
+                    + (f" (request, first token apart: {parts})"
+                       if parts else "") + "; "
+                    f"accepted/proposed {st['spec_accepted']}/"
+                    f"{st['spec_proposed']} = {_accept(st):.6f}; "
+                    f"{st['spec_dispatches']} spec dispatches, "
+                    f"{st['decode_wasted_tokens']} tokens wasted")
+    del model, weak
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"ok": ok, "rows": rows}
+
+
+def _labelled(module):
+    """Run `module`'s forward under a profiler label: "spec.draft" for a
+    single-token step, "spec.verify" for a wider one. Returns the undo."""
+    real = module.forward
+
+    def forward(tokens, *a, **kw):
+        label = "spec.draft" if tokens.shape[1] == 1 else "spec.verify"
+        with torch.profiler.record_function(label):
+            return real(tokens, *a, **kw)
+    module.forward = forward
+    return lambda: module.__dict__.pop("forward", None)
+
+
+def _profile_spec(engine, pos: int) -> dict:
+    """One spec dispatch of the idle engine over every slot at position
+    `pos` (greedy), through its own spec function: its unprofiled wall (the
+    device drained), then a profiled run: device busy ms, split into the
+    draft's forwards and the verify by profiler labels, and kernels a spec
+    step. The flash kernel must not launch in it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    spec, n = engine._spec, engine.n_slots
+    worst = spec["n_spec"] * (spec["gamma"] + 1)
+    bucket = next(b for b in engine.decode_buckets if b >= pos + worst)
+    args = [torch.ones(n, dtype=torch.long, device=DEVICE),
+            torch.full((n,), pos, dtype=torch.long, device=DEVICE),
+            torch.zeros(n, device=DEVICE)]
+    if engine.kv_info() is not None:
+        nb = bucket // engine.kv_info()["block_size"]
+        tables = torch.arange(1, 1 + n * nb, device=DEVICE).view(n, nb)
+        args[:0] = [tables, tables]
+    fn = engine._spec_decode[bucket]
+
+    def call():
+        fn(engine._cache, engine._dcache, *args, engine._gen, None)
+
+    with torch.inference_mode():
+        call()
+        torch.cuda.synchronize()
+        flash0 = fa.flash_fwd_launches
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        undo = [_labelled(m) for m in {id(engine.model): engine.model,
+                                       id(spec["model"]): spec["model"]
+                                       }.values()]
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                call()
+                torch.cuda.synchronize()
+        finally:
+            for u in undo:
+                u()
+    labels = ("spec.draft", "spec.verify")
+    avgs = prof.key_averages()
+    kern = [e for e in avgs if e.device_type == DeviceType.CUDA
+            and e.key not in labels]  # not the labels' GPU-side ranges
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+
+    def label_ms(label):
+        # A CPU range's device time: its launches' kernels, children too.
+        return sum(getattr(e, "device_time_total",
+                           getattr(e, "cuda_time_total", 0.0))
+                   for e in avgs
+                   if e.key == label and e.device_type == DeviceType.CPU
+                   ) / 1e3
+    return {"wall_ms": wall, "bucket": bucket, "rows": n,
+            "busy_ms": busy if kern else None,
+            "draft_ms": label_ms("spec.draft") if kern else None,
+            "verify_ms": label_ms("spec.verify") if kern else None,
+            "kernels_per_step": (sum(e.count for e in kern) / spec["n_spec"]
+                                 if kern else None),
+            "flash": fa.flash_fwd_launches - flash0}
+
+
+def _spec_line(what: str, stats: dict, rows: int) -> dict:
+    """Log and return a run's host-inclusive ms a dispatch and tok/s a
+    row (decode seconds are the union of the dispatches in flight)."""
+    disp, secs = stats["decode_dispatches"], stats["decode_seconds"]
+    out = {"ms_per_dispatch": secs / disp * 1e3,
+           "tok_s_per_row": stats["decode_tokens"] / secs / rows,
+           "accept": _accept(stats), "dispatches": disp,
+           "spec_dispatches": stats["spec_dispatches"]}
+    log(f"    {what}: {stats['decode_tokens']} tokens in {secs:.3f}s of "
+        f"decode over {disp} dispatches ({stats['spec_dispatches']} spec): "
+        f"{out['ms_per_dispatch']:.2f} ms a dispatch, "
+        f"{out['tok_s_per_row']:.2f} tok/s a row; accepted/proposed "
+        f"{stats['spec_accepted']}/{stats['spec_proposed']} = "
+        f"{out['accept']:.4f}; wasted {stats['decode_wasted_tokens']}, "
+        f"demotions {stats['spec_demotions']}, readmissions "
+        f"{stats['spec_readmissions']}, stale rides "
+        f"{stats['spec_stale_rides']}")
+    return out
+
+
+def _spec_http(bundle: str, model, ckpt: str, bodies: list) -> tuple:
+    """4g (ii) over HTTP and (vi): a bundle whose generative block names
+    the draft checkpoint, loaded over `model` as a load would build it,
+    the bodies at once over :generate, one /metrics scrape. Returns (ids,
+    stats, the draft module, {family: (scraped, engine's)}, draft_info,
+    metadata's "speculative")."""
+    gen = {**GENERATIVE, "draft": {"checkpoint": ckpt, "gamma": SPEC_GAMMA}}
+    export_for_serving(bundle, model=MODEL, model_kwargs=MODEL_KWARGS,
+                       seed=SEED, extra={"generative": gen})
+    with open(os.path.join(bundle, "model.json")) as f:
+        spec = json.load(f)
+    served = runtimes._generative(MODEL, model, spec,
+                                  dict(spec["generative"]))
+    served.load()
+    server = ModelServer()
+    server.register(served)
+    base = f"http://127.0.0.1:{server.start_background(0)}"
+    try:
+        run = _concurrent(base, bodies)
+        text = _request("GET", base + "/metrics")[2].decode()
+        stats = served.engine.stats_snapshot()
+        rows = {metric: (_metric(text, f'{metric}{{model="{MODEL}"}}'),
+                         float(stats[key]))
+                for key, metric, _ in server_mod._ENGINE_METRICS
+                if key.startswith("spec_")}
+        rows["tpk_spec_accept_rate"] = (
+            _metric(text, f'tpk_spec_accept_rate{{model="{MODEL}"}}'),
+            round(_accept(stats), 6))
+        draft = served.engine._spec["model"]
+        speculative = run["metadata"].get("speculative")
+    finally:
+        server.stop()
+        served.unload()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return ([r["output_ids"] for r in run["results"]], stats, draft, rows,
+            dict(served.draft_info), speculative)
+
+
+def phase_spec(bundle: str, floor: float, gk) -> dict:
+    """4g: speculative decoding. (i) fp32 exactness at llama_1b_fp32_2l's
+    widths; (ii) llama3_8b with a Llama-3.2-1B-width draft over HTTP
+    through generative.draft.checkpoint, against vanilla at depth 2 and 1,
+    one profiled dispatch; (iii) the target as its own draft, greedy and at
+    temperature; (v) mixed traffic on a paged engine; (vi) the scrape;
+    (iv) the int8-weight target (last: it quantizes the model in place)."""
+    t_phase = time.monotonic()
+    gates: dict = {}
+    checks = {"flash": 0}
+    small = _spec_exactness(gk)
+    gates["i fp32 ids equal, self-draft acceptance"] = small["ok"]
+    log(f"  (i) took {time.monotonic() - t_phase:.1f}s")
+    cfg = registry.model_config(MODEL, **MODEL_KWARGS)
+    _reset_counts()
+    model = llama_mod.Llama(cfg, device=DEVICE).init_weights(SEED).eval()
+    dcfg = hf_mod.llama_config_from_hf(DRAFT_CONFIG)
+    ckpt = os.path.join(bundle, "hf_llama32_1b")
+    dref = llama_mod.Llama(dcfg, device=DEVICE).init_weights(SEED + 20)
+    nbytes, write_s = _write_hf_checkpoint(ckpt, dref.state_dict(), dcfg,
+                                           DRAFT_CONFIG)
+    del dref
+    bodies = _spec_bodies(cfg.vocab_size, SPEC_PROMPT_LENS, SEED + 31)
+    short = [dict(b, max_tokens=SPEC_SHORT_TOKENS) for b in bodies]
+    admissions = 0
+    # (ii) vanilla at depth 2 and 1, then spec over HTTP (depth 2) and
+    # in-process at depth 1.
+    van, van_line = {}, {}
+    for depth in (2, 1):
+        eng = GenerationEngine(model, **GENERATIVE, pipeline_depth=depth)
+        van[depth], st = _engine_burst(eng, bodies)
+        _close(eng)
+        admissions += st["requests"]
+        van_line[depth] = _spec_line(f"(ii) vanilla depth {depth}", st,
+                                     len(bodies))
+    # Not a gate: each row's cache bucket follows the batch it rode, and a
+    # bf16 sum over another bucket may part a near-tie.
+    log(f"    (ii) vanilla ids at depth 1 "
+        f"{'equal' if van[1] == van[2] else 'differ from'} depth 2's")
+    want = van[2]
+    want_short = [w[:SPEC_SHORT_TOKENS] for w in want]
+    got, st2, draft, scrape, dinfo, speculative = _spec_http(
+        bundle, model, ckpt, short)
+    admissions += st2["requests"]
+    spec_line = {2: _spec_line("(ii) spec over HTTP, depth 2", st2,
+                               len(bodies))}
+    gates["ii ids vs vanilla"] = _ids_gate(model, short, want_short, got,
+                                           floor, "(ii) depth 2", checks)
+    eng = GenerationEngine(model, **GENERATIVE, pipeline_depth=1,
+                           draft={"model": draft, "gamma": SPEC_GAMMA})
+    got1, st1 = _engine_burst(eng, short)
+    admissions += st1["requests"]
+    spec_line[1] = _spec_line("(ii) spec depth 1", st1, len(bodies))
+    gates["ii depth-1 ids vs vanilla"] = _ids_gate(
+        model, short, want_short, got1, floor, "(ii) depth 1", checks)
+    prof = _profile_spec(eng, max(SPEC_PROMPT_LENS))
+    _close(eng)
+    gates["ii a spec dispatch launches no B1"] = prof["flash"] == 0
+    gates["ii speculative in metadata"] = speculative is True
+    log(f"  (ii) draft {DRAFT_CONFIG['num_hidden_layers']} layers of "
+        f"Llama-3.2-1B's widths ({sum(p.numel() for p in draft.parameters())}"
+        f" parameters): checkpoint {nbytes} bytes written in {write_s:.2f}s;"
+        f" generative.draft loaded in {dinfo['load_s']:.2f}s, "
+        f"{dinfo['bytes']} bytes on the card; {smi()}")
+    n_spec = _spec_steps(GENERATIVE)
+    log(f"  (ii) one spec dispatch ({prof['rows']} rows at position "
+        f"{max(SPEC_PROMPT_LENS)}, bucket {prof['bucket']}, "
+        f"{n_spec * (SPEC_GAMMA + 1)} draft steps and {n_spec} verifies):"
+        f" unprofiled wall {prof['wall_ms']:.2f} ms; device busy "
+        + (f"{prof['busy_ms']:.2f} ms: draft forwards "
+           f"{prof['draft_ms']:.2f}, verify {prof['verify_ms']:.2f}; "
+           f"{prof['kernels_per_step']:.1f} kernels a spec step"
+           if prof["busy_ms"] is not None else "not measured")
+        + f"; flash_fwd launches in it {prof['flash']}")
+    # (vi) the scrape
+    gates["vi /metrics = engine stats"] = all(
+        g == w for g, w in scrape.values())
+    log("  (vi) /metrics vs the engine: "
+        + ", ".join(f"{k} {g}/{w}" for k, (g, w) in scrape.items()))
+    # (iii) the target as its own draft
+    self_draft = {"model": model, "gamma": SPEC_GAMMA}
+    eng = GenerationEngine(model, **GENERATIVE, draft=self_draft)
+    got_s, st_s = _engine_burst(eng, bodies)
+    _close(eng)
+    admissions += st_s["requests"]
+    self_line = _spec_line("(iii) self-draft greedy, depth 2", st_s,
+                           len(bodies))
+    gates["iii self-draft ids vs vanilla"] = _ids_gate(
+        model, bodies, want, got_s, floor, "(iii) self-draft", checks)
+    gates["iii self-draft greedy acceptance"] = (
+        self_line["accept"] >= SPEC_SELF_ACCEPT_BF16_MIN)
+    temp_ids, temp_stats = [], []
+    for _ in range(2):
+        eng = GenerationEngine(model, **GENERATIVE, draft=self_draft,
+                               seed=SEED + 5)
+        temp_ids.append([eng.submit(b["input_ids"], max_tokens=MAX_TOKENS,
+                                    temperature=SPEC_TEMPERATURE,
+                                    timeout=600)["output_ids"]
+                         for b in bodies[:1]])
+        temp_stats.append(eng.stats_snapshot())
+        _close(eng)
+        admissions += temp_stats[-1]["requests"]
+    temp_line = _spec_line(f"(iii) self-draft at temperature "
+                           f"{SPEC_TEMPERATURE}, one at a time",
+                           temp_stats[0], 1)
+    gates["iii temperature acceptance"] = (
+        temp_line["accept"] >= SPEC_SELF_ACCEPT_MIN)
+    gates["iii same seed, same ids"] = temp_ids[0] == temp_ids[1]
+    log(f"  (iii) temperature runs with one seed: ids "
+        f"{'equal' if temp_ids[0] == temp_ids[1] else 'DIFFER'}")
+    # (v) mixed traffic, paged, depth 2
+    mixed = short[:2] + [
+        dict(short[2], temperature=SPEC_TEMPERATURE, top_k=50),
+        dict(short[3], temperature=SPEC_TEMPERATURE, top_p=0.9)]
+    eng = GenerationEngine(model, **GENERATIVE, kv_block_size=KV_BLOCK_SIZE,
+                           draft={"model": draft, "gamma": SPEC_GAMMA})
+    got_m, st_m = _engine_burst(eng, mixed)
+    whole = eng.kv_blocks_used == 0
+    _close(eng)
+    admissions += st_m["requests"]
+    mixed_line = _spec_line("(v) mixed traffic, paged, depth 2", st_m, 4)
+    gates["v greedy rows vs vanilla"] = _ids_gate(
+        model, mixed[:2], want_short[:2], got_m[:2], floor,
+        "(v) greedy rows", checks)
+    gates["v top-k/top-p rows decode vanilla, greedy rows speculate"] = (
+        st_m["spec_dispatches"] > 0
+        and st_m["decode_dispatches"] > st_m["spec_dispatches"]
+        and all(len(ids) == SPEC_SHORT_TOKENS for ids in got_m))
+    gates["v pool whole"] = whole
+    flash_bf16 = fa.flash_fwd_launches - checks["flash"]
+    gates["B1 launches = 32 a target admission"] = (
+        flash_bf16 == cfg.num_layers * admissions)
+    log(f"  flash_fwd launches (bf16 target) {flash_bf16} for {admissions} "
+        f"target admissions (expected {cfg.num_layers} each), besides "
+        f"{checks['flash']} in the near-tie checks' forwards")
+    # (iv) the int8-weight target: (ii)'s draft, a bf16 pool.
+    squant.quantize_model(model)
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = GenerationEngine(model, **GENERATIVE)
+    want_q, st = _engine_burst(eng, short)
+    _close(eng)
+    admissions_q = st["requests"]
+    w8.w8a16_launches = w8.w8a16_wgmma_launches = 0
+    eng = GenerationEngine(model, **GENERATIVE,
+                           draft={"model": draft, "gamma": SPEC_GAMMA})
+    got_q, st_q = _engine_burst(eng, short)
+    _close(eng)
+    admissions_q += st_q["requests"]
+    w8_4 = (w8.w8a16_launches, w8.w8a16_wgmma_launches)
+    int8_line = _spec_line("(iv) int8 target, spec, depth 2", st_q,
+                           len(bodies))
+    gates["iv int8 ids vs int8 vanilla"] = _ids_gate(
+        model, short, want_q, got_q, floor, "(iv) int8", checks)
+    w8.w8a16_launches = w8.w8a16_wgmma_launches = 0
+    eng = GenerationEngine(model, **{**GENERATIVE, "slots": 1},
+                           draft={"model": draft, "gamma": SPEC_GAMMA})
+    eng.submit(bodies[0]["input_ids"], max_tokens=SPEC_SHORT_TOKENS,
+               timeout=600)
+    _close(eng)
+    admissions_q += 1
+    w8_1 = (w8.w8a16_launches, w8.w8a16_wgmma_launches)
+    try:
+        GenerationEngine(model, **GENERATIVE, kv_block_size=KV_BLOCK_SIZE,
+                         kv_quant="int8",
+                         draft={"model": draft, "gamma": SPEC_GAMMA})
+        refused = "not refused"
+    except ValueError as e:
+        refused = str(e)
+    gates["iv kv_quant with a draft refused"] = refused.startswith(
+        "kv_quant does not compose with speculative decoding")
+    log(f"  (iv) W8A16 launches, 4 slots (verify 4 x {SPEC_GAMMA + 1} = "
+        f"{4 * (SPEC_GAMMA + 1)} rows a projection): {w8_4[0]}, of them "
+        f"wgmma {w8_4[1]}, decode kernel {w8_4[0] - w8_4[1]}; one slot "
+        f"({SPEC_GAMMA + 1} rows): {w8_1[0]}, wgmma {w8_1[1]}, decode "
+        f"kernel {w8_1[0] - w8_1[1]}; kv_quant='int8' with a draft: "
+        f"{refused!r}")
+    gates["iv the verify's W8A16 kernels by rows"] = (
+        w8_4[1] > 0 and w8_1[0] - w8_1[1] > 0)
+    flash = fa.flash_fwd_launches - checks["flash"]
+    gates["B1 launches = 32 a target admission (int8 too)"] = (
+        flash - flash_bf16 == cfg.num_layers * admissions_q)
+    del model, draft
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  flash_fwd launches in 4g {flash} (and {checks['flash']} in the "
+        f"checks' forwards); 4g took "
+        f"{time.monotonic() - t_phase:.1f}s; {smi()}")
+    for gate, ok in gates.items():
+        log(f"  gate {gate}: {'OK' if ok else 'FAIL'}")
+    if not all(gates.values()):
+        raise RuntimeError(f"speculative-decoding gates failed: "
+                           f"{[g for g, ok in gates.items() if not ok]}")
+    return {"launches": flash, "w8a16_launches": w8_4[0] + w8_1[0],
+            "w8a16_wgmma_launches": w8_4[1] + w8_1[1], "small": small,
+            "vanilla": van_line, "spec": spec_line, "self": self_line,
+            "temperature": temp_line, "mixed": mixed_line,
+            "int8": int8_line, "profile": prof, "draft_bytes": nbytes,
+            "draft_load_s": dinfo["load_s"]}
 
 
 def _decode_in_situ(ordered_ms: list) -> dict | None:
@@ -4178,6 +4724,10 @@ def main() -> int:
         log(f"phase 4f: KV reuse on {MODEL}: the prefix cache flat, paged "
             "and on an int8 pool, the host tier, /metrics")
         prefix = phase_prefix(bundle, floor)
+        log(f"phase 4g: speculative decoding: fp32 exactness, {MODEL} with "
+            "a Llama-3.2-1B-width draft over HTTP, the target as its own "
+            "draft, mixed traffic, int8 weights, /metrics")
+        spec = phase_spec(bundle, floor, gk)
     finally:
         shutil.rmtree(bundle, ignore_errors=True)
     log(f"phase 5: training {TRAIN_MODEL} through the trainer")
@@ -4205,6 +4755,7 @@ def main() -> int:
                     "hf_import_serving": hf["launches"],
                     "multilora_serving": ml["launches"],
                     "prefix_cache": prefix["launches"],
+                    "speculative_serving": spec["launches"],
                     "training": train["launches"][0],
                     "packed_training": job["launches"][0],
                     "lora_training": lora_run["launches"][0],
@@ -4313,8 +4864,12 @@ def main() -> int:
         "source": "kubeflow_tpu_torch/ops/csrc/w8a16.cu",
         "replaces": W8A16_REPLACES,
         "tpu_kernel": False,
-        "launches": quant["w8a16_launches"],
-        "launches_wgmma": quant["w8a16_wgmma_launches"],
+        "launches": quant["w8a16_launches"] + spec["w8a16_launches"],
+        "launches_wgmma": (quant["w8a16_wgmma_launches"]
+                           + spec["w8a16_wgmma_launches"]),
+        "launches_by_path": {
+            "paged_quant_serving": quant["w8a16_launches"],
+            "speculative_serving": spec["w8a16_launches"]},
         "max_abs_err": w8r["max_abs_err"], "rel_l2_err": w8r["rel_l2_err"],
         "ms": wmain["ms"], "plain_ms": wmain["plain_ms"],
         "bound_ms": wmain["bound_ms"], "bound_by": wmain["bound_by"],

@@ -307,10 +307,19 @@ def _update_rows(cache_leaf, new_rows, index):
     """Write new rows [B,S,...] into a per-layer plane [B,T,...] at per-row
     offsets index [B], in place (no host sync: the rows are an index
     tensor). Rows advance independently under continuous batching; the
-    quantized cache's scale planes [B,T,KH] ride the same write."""
+    quantized cache's scale planes [B,T,KH] ride the same write.
+
+    A multi-row write's start is clamped per row so that the whole write
+    fits, as jax.lax.dynamic_update_slice clamps it: S rows asked at an
+    index past T - S land at T - S (a speculative verify near the end of
+    its cache bucket). A single row is the decode step's, whose index every
+    caller already bounds by the cache length, and is written where asked."""
     b, s = new_rows.shape[:2]
     dev = new_rows.device
-    rows = index.to(torch.long)[:, None] + torch.arange(s, device=dev)
+    start = index.to(torch.long)
+    if s > 1:
+        start = start.clamp(0, cache_leaf.shape[1] - s)
+    rows = start[:, None] + torch.arange(s, device=dev)
     batch = torch.arange(b, device=dev)[:, None]
     cache_leaf[batch, rows] = new_rows.to(cache_leaf.dtype)
 

@@ -73,7 +73,22 @@ with its overlapped scheduler:
     device by the pinned copy at admission and at each dispatch, and each
     decode chunk gathers its rows' factors once, for all of its steps.
     Base rows get exact zeros: their ids equal a base-only engine's. An
-    engine without adapters runs exactly the base path.
+    engine without adapters runs exactly the base path;
+  * `draft` ({"model", "gamma"}; a bundle's `generative.draft` names an HF
+    checkpoint) decodes speculatively: each spec step, the draft proposes
+    gamma tokens by single-token steps over its own cache (flat slots, or
+    its own blocks in the target's pool) and the target verifies them in
+    one continuation forward; greedy rows accept by exact match (ids equal
+    vanilla decode's), plain-temperature rows by rejection sampling (the
+    target's tempered marginal). Top-k/top-p rows decode in a vanilla
+    sub-batch beside the spec one; each kind keeps its own chain of up to
+    `pipeline_depth` records in flight, a chained spec record decoding
+    from the previous one's all-accepted carry and dropped at its fetch
+    when an acceptance fell short. A row that rode a vanilla chunk is
+    demoted (its draft rows are stale) and re-admitted by replaying its
+    history when that is worth it. The draft replays every prompt whole,
+    never from the prefix cache, and proposes from base weights under
+    adapters. `kv_quant` does not compose with a draft.
 
 Sampling is greedy (temperature 0), temperature, top-k and top-p, per row,
 with draws from the engine's own seeded `torch.Generator`, taken as work is
@@ -167,6 +182,25 @@ def sample_tokens(logits, temperature, generator, top_k=None, top_p=None):
     return torch.where(temperature > 0, sampled, greedy)
 
 
+def _gather_view(pool_leaf, tables):
+    """[L, NB, bs, ...] x [B, nb] -> a contiguous [L, B, nb*bs, ...] copy:
+    view row j*bs + r is block tables[b, j] row r, logical position j*bs +
+    r, because tables are position-ordered."""
+    g = pool_leaf[:, tables]
+    return g.reshape(g.shape[0], g.shape[1], g.shape[2] * g.shape[3],
+                     *g.shape[4:])
+
+
+def _scatter_view(pool_leaf, view_leaf, tables):
+    """Write a gathered view back to its blocks. Duplicate ids are only the
+    NULL block (table pads, idle rows), which receives garbage nobody
+    reads."""
+    b, nb = tables.shape
+    v = view_leaf.reshape(view_leaf.shape[0], b * nb, pool_leaf.shape[2],
+                          *view_leaf.shape[3:])
+    pool_leaf[:, tables.reshape(-1)] = v
+
+
 def build_engine_fns(model, *, max_len: int, chunk: int,
                      prefill_buckets: Sequence[int], kv_block_size: int = 0,
                      kv_quant: str = "none",
@@ -193,7 +227,8 @@ def build_engine_fns(model, *, max_len: int, chunk: int,
 
     Every function that runs the model takes an optional trailing
     `adapter`, each row's multi-LoRA factors (`models.llama.AdapterRows`);
-    None runs the base model exactly as without adapters."""
+    None runs the base model exactly as without adapters. `frag_len` is
+    the rows of a fragment."""
     cfg = model.cfg
     dev = model.device
     big = max(prefill_buckets)
@@ -275,27 +310,11 @@ def build_engine_fns(model, *, max_len: int, chunk: int,
         return decode_chunk
 
     fns = {"prefill": prefill, "extend": extend, "extend_mid": extend_mid,
-           "insert": insert, "make_decode": make_decode}
+           "insert": insert, "make_decode": make_decode,
+           "frag_len": frag_len}
     if kv_block_size <= 0:
         return fns
     bs = int(kv_block_size)
-
-    def _gather_view(pool_leaf, tables):
-        """[L, NB, bs, ...] x [B, nb] -> a contiguous [L, B, nb*bs, ...]
-        copy: view row j*bs + r is block tables[b, j] row r, logical
-        position j*bs + r, because tables are position-ordered."""
-        g = pool_leaf[:, tables]
-        return g.reshape(g.shape[0], g.shape[1], g.shape[2] * g.shape[3],
-                         *g.shape[4:])
-
-    def _scatter_view(pool_leaf, view_leaf, tables):
-        """Write the view back to its blocks. Duplicate ids are only the
-        NULL block (table pads, idle rows), which receives garbage nobody
-        reads."""
-        b, nb = tables.shape
-        v = view_leaf.reshape(view_leaf.shape[0], b * nb, bs,
-                              *view_leaf.shape[3:])
-        pool_leaf[:, tables.reshape(-1)] = v
 
     def make_decode_paged(truncate: bool, bucket: int):
         flat_chunk = make_decode(truncate, bucket)
@@ -377,6 +396,140 @@ def build_engine_fns(model, *, max_len: int, chunk: int,
     return fns
 
 
+def spec_acceptance(drafts, dlogits, tlogits, temperature, generator):
+    """Per-row speculative acceptance: greedy rows (temperature <= 0) by
+    exact match with the target's argmax, sampled rows by the rejection
+    scheme (Leviathan et al., Chen et al.): a proposal d_j ~ p_d (the
+    draft's tempered softmax) is accepted with probability min(1,
+    p_t(d_j) / p_d(d_j)); the first rejection emits a draw from
+    normalize(max(p_t - p_d, 0)), and full acceptance a bonus draw from
+    p_t at position gamma. The emitted marginal at every position is the
+    target's tempered distribution, whatever the draft.
+
+    drafts [B, gamma] int64, dlogits [B, gamma, V], tlogits [B, gamma+1,
+    V], temperature [B]. The uniforms and the residual draw (the
+    exponential race `sample_tokens` uses) come from `generator`; nothing
+    here syncs the host. Returns (out [B, gamma+1]: the accepted proposals,
+    then the correction or bonus, then zeros; k [B] accepted counts; the
+    next input token [B])."""
+    b, gamma = drafts.shape
+    dev = tlogits.device
+    sampled = temperature > 0
+    safe_t = temperature.clamp_min(1e-4)[:, None, None]
+    tprobs = torch.softmax(tlogits.float() / safe_t, dim=-1)
+    dprobs = torch.softmax(dlogits.float() / safe_t, dim=-1)
+    tgreedy = tlogits.argmax(dim=-1)                       # [B, gamma+1]
+    pt_d = tprobs[:, :gamma].gather(-1, drafts[..., None])[..., 0]
+    pd_d = dprobs.gather(-1, drafts[..., None])[..., 0]
+    u = torch.rand((b, gamma), generator=generator, device=dev)
+    accept = torch.where(sampled[:, None], u < pt_d / pd_d.clamp_min(1e-30),
+                         drafts == tgreedy[:, :gamma])
+    k = accept.long().cumprod(dim=1).sum(dim=1)
+    # The residual at the first rejection; on full acceptance p_d is 0 at
+    # position gamma, so the "residual" there is p_t itself.
+    v = tprobs.shape[-1]
+    at_k = k[:, None, None].expand(b, 1, v)
+    pt_k = tprobs.gather(1, at_k)[:, 0]
+    pd_k = torch.cat([dprobs, torch.zeros_like(dprobs[:, :1])],
+                     dim=1).gather(1, at_k)[:, 0]
+    resid = (pt_k - pd_k).clamp_min(0.0)
+    # Identical distributions leave no residual mass: draw from p_t.
+    resid = torch.where(resid.sum(-1, keepdim=True) > 1e-30, resid, pt_k)
+    race = torch.empty_like(resid).exponential_(1.0, generator=generator)
+    corr = torch.where(sampled, (resid / race).argmax(dim=-1),
+                       tgreedy.gather(1, k[:, None])[:, 0])
+    j = torch.arange(gamma + 1, device=dev)[None]
+    padded = torch.cat([drafts, torch.zeros_like(drafts[:, :1])], dim=1)
+    out = torch.where(j < k[:, None], padded,
+                      torch.where(j == k[:, None], corr[:, None], 0))
+    return out, k, corr
+
+
+def build_spec_decode(model, draft, *, gamma: int, n_spec: int,
+                      kv_block_size: int = 0):
+    """Speculative decode chunks: per spec step the `draft` model proposes
+    `gamma` tokens autoregressively (single-token decode steps over its own
+    cache), then the target scores all gamma+1 positions in one
+    continuation forward (explicit positions, `attend_full_cache`), which
+    writes the candidate rows before attending: rejected rows are
+    overwritten by the next step's write at the rewound index. Acceptance
+    is `spec_acceptance`; each step emits k accepted tokens and one
+    correction or bonus. `n_spec` steps ride one dispatch (worst case
+    n_spec * (gamma+1) tokens a row; the caller sizes the bucket for it).
+
+    make(bucket) -> spec_chunk(cache, dcache, last_tok, index, temperature,
+    gen, adapter=None) -> (cache, dcache, tokens [B, n_spec, gamma+1],
+    logprobs [B, n_spec, gamma+1], accepted [B, n_spec]); both caches are
+    written in place through views of their first `bucket` rows. `adapter`
+    (each row's multi-LoRA factors) applies to the target's verify only:
+    the draft proposes from its base weights, which can cost acceptance,
+    never correctness, since every emitted token comes from the target's
+    logits.
+
+    `kv_block_size` > 0: make(bucket) returns spec_chunk(pool, dpool,
+    tables, dtables, last_tok, index, temperature, gen, adapter=None),
+    which gathers each row's blocks of the target and draft pools into
+    views, runs the flat chunk on them and scatters both back; the draft
+    pool shares the target's block-id space, its tables per slot."""
+
+    def make(bucket: int):
+        def spec_chunk(cache, dcache, last_tok, index, temperature, gen,
+                       adapter=None):
+            view = {n: c[:, :, :bucket] for n, c in cache.items()}
+            dview = {n: c[:, :, :bucket] for n, c in dcache.items()}
+            steps = torch.arange(gamma + 1, device=index.device)
+            tok, idx = last_tok, index
+            outs, lps, ks = [], [], []
+            for _ in range(n_spec):
+                t, i = tok, idx
+                drafts, dlogits = [], []
+                for _ in range(gamma):
+                    logits, _ = draft(t[:, None], cache=dview,
+                                      cache_index=i.clamp_max(bucket - 1))
+                    row = logits[:, 0]
+                    t = sample_tokens(row, temperature, gen)
+                    drafts.append(t)
+                    dlogits.append(row)
+                    i = i + 1
+                # One more draft step for gamma proposals: each step caches
+                # its input, so without it the last proposal's K/V row
+                # would stay stale after a fully accepted step and every
+                # later proposal would attend it. Its output is not read.
+                draft(t[:, None], cache=dview,
+                      cache_index=i.clamp_max(bucket - 1), return_hidden=True)
+                drafts = torch.stack(drafts, dim=1)
+                tlogits, _ = model(
+                    torch.cat([tok[:, None], drafts], dim=1),
+                    positions=idx[:, None] + steps, cache=view,
+                    cache_index=idx.clamp_max(bucket - 1),
+                    attend_full_cache=True, adapter=adapter)
+                out, k, tok = spec_acceptance(
+                    drafts, torch.stack(dlogits, dim=1), tlogits,
+                    temperature, gen)
+                outs.append(out)
+                lps.append(_chosen_logprob(tlogits, out))
+                ks.append(k)
+                idx = idx + k + 1
+            return (cache, dcache, torch.stack(outs, dim=1),
+                    torch.stack(lps, dim=1), torch.stack(ks, dim=1))
+        if kv_block_size <= 0:
+            return spec_chunk
+
+        def spec_chunk_paged(pool, dpool, tables, dtables, last_tok, index,
+                             temperature, gen, adapter=None):
+            view = {n: _gather_view(p, tables) for n, p in pool.items()}
+            dview = {n: _gather_view(p, dtables) for n, p in dpool.items()}
+            _, _, toks, lps, acc = spec_chunk(view, dview, last_tok, index,
+                                              temperature, gen, adapter)
+            for n, p in pool.items():
+                _scatter_view(p, view[n], tables)
+            for n, p in dpool.items():
+                _scatter_view(p, dview[n], dtables)
+            return pool, dpool, toks, lps, acc
+        return spec_chunk_paged
+    return make
+
+
 def _wait(event) -> None:
     """Block the host until `event` has passed: the engine's one designed
     host sync (a chunk's fetch, or a first token read before its copy was
@@ -407,7 +560,12 @@ class GenerationEngine:
     paged, as block references (a hit maps the full blocks zero-copy and
     forks the partial tail). `kv_host_tier_blocks` > 0 (paged only) spills
     evicted prefixes to host RAM through the KV wire format and restores
-    them on a hit."""
+    them on a hit.
+
+    `draft` ({"model": a causal Llama of the target's vocabulary, "gamma":
+    proposals a spec step, default 4}) decodes greedy and plain-temperature
+    requests speculatively, `max(1, chunk // (gamma + 1))` spec steps a
+    dispatch."""
 
     #: Disaggregated roles are not ported: every engine prefills and
     #: decodes (rendered as the `tpk_engine_role` gauge).
@@ -419,7 +577,7 @@ class GenerationEngine:
                  pipeline_depth: int = 2, kv_block_size: int = 0,
                  kv_blocks: int = 0, kv_quant: str = "none",
                  adapters: dict | None = None, prefix_cache: int = 0,
-                 kv_host_tier_blocks: int = 0):
+                 kv_host_tier_blocks: int = 0, draft: dict | None = None):
         cfg = model.cfg
         self.model, self.cfg = model, cfg
         self.device = model.device
@@ -486,6 +644,7 @@ class GenerationEngine:
         self._host_tier = (HostKVTier(int(kv_host_tier_blocks))
                            if self._paged and int(kv_host_tier_blocks)
                            else None)
+        self._spec = self._check_draft(draft) if draft is not None else None
         # Prefix cache: an LRU of prompt-chunk-boundary prefixes keyed
         # (aid, prefix_len, hash(tokens)); each value is (token tuple,
         # fragment) flat or (token tuple, block ids) paged. The tuple
@@ -521,13 +680,25 @@ class GenerationEngine:
         self._decode = {(b, trunc): make(trunc, b)
                         for b in self.decode_buckets for trunc in (False, True)}
         self._gen = torch.Generator(device=self.device).manual_seed(int(seed))
-        if self._paged:  # the pool: kv_blocks usable blocks + NULL block 0
-            self._cache = init_cache(cfg, self._kv_alloc.n_blocks + 1,
-                                     self._kv_bs, kv_quant=self.kv_quant,
-                                     device=self.device)
-        else:
-            self._cache = init_cache(cfg, self.n_slots, self.max_len,
-                                     device=self.device)
+        # The pool: kv_blocks usable blocks + NULL block 0; or the slots.
+        dims = ((self._kv_alloc.n_blocks + 1, self._kv_bs) if self._paged
+                else (self.n_slots, self.max_len))
+        self._cache = init_cache(cfg, *dims, kv_quant=self.kv_quant,
+                                 device=self.device)
+        if self._spec is not None:
+            # The draft replays prompts by continuation chunks into its own
+            # fragment (no sampling) and lands them in its cache: a slot of
+            # its own flat, its own blocks of the target's id space paged.
+            spec = self._spec
+            self._dfns = build_engine_fns(
+                spec["model"], max_len=self.max_len, chunk=self.chunk,
+                prefill_buckets=self.prefill_buckets,
+                kv_block_size=self._kv_bs, offset_writes=True)
+            self._dcache = init_cache(spec["cfg"], *dims, device=self.device)
+            spec_make = build_spec_decode(
+                model, spec["model"], gamma=spec["gamma"],
+                n_spec=spec["n_spec"], kv_block_size=self._kv_bs)
+            self._spec_decode = {b: spec_make(b) for b in self.decode_buckets}
         self._queue: queue.Queue = queue.Queue()
         self._wake = threading.Event()
         self._stop = False
@@ -546,12 +717,57 @@ class GenerationEngine:
                       "prefix_hit_tokens": 0, "prefix_misses": 0,
                       "prefix_stores": 0, "kv_cow_copies": 0,
                       "prefix_zero_copy_hits": 0, "kv_spilled_blocks": 0,
-                      "kv_restored_blocks": 0, "kv_dequant_fallbacks": 0}
+                      "kv_restored_blocks": 0, "kv_dequant_fallbacks": 0,
+                      "spec_dispatches": 0, "spec_proposed": 0,
+                      "spec_accepted": 0, "spec_demotions": 0,
+                      "spec_readmissions": 0, "spec_stale_rides": 0}
         self._busy_mark: float | None = None
         self._slots: list[dict | None] = [None] * self.n_slots
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="generate-engine")
         self._thread.start()
+
+    def _check_draft(self, draft: dict) -> dict:
+        """The speculative-decoding state of `draft` ({"model", "gamma"?}),
+        refused with the JAX engine's messages where it cannot serve: a
+        quantized pool, a draft that is not causal (a sliding window within
+        max_len is served causal, as the band never clips), another
+        vocabulary, a position range short of max_len, gamma < 1."""
+        if self.kv_quant != "none":
+            raise ValueError(
+                "kv_quant does not compose with speculative decoding "
+                "(draft): a rejection rewind would re-quantize committed "
+                "rows; drop the draft or set kv_quant='none'")
+        dmodel = draft["model"]
+        dcfg = dmodel.cfg
+        if dcfg.mask_kind == "sliding_window":
+            if self.max_len > dcfg.mask_window:
+                raise ValueError(
+                    f"sliding-window draft (window={dcfg.mask_window}): "
+                    f"serving max_len={self.max_len} exceeds the window; "
+                    "set max_len <= window or use a causal draft")
+            raise NotImplementedError(
+                "a sliding-window draft served within its window (causal) "
+                "is not supported by this package yet")
+        if dcfg.mask_kind != "causal":
+            raise ValueError(
+                f"speculative decoding needs a causal-class draft; got "
+                f"mask_kind={dcfg.mask_kind!r}")
+        if dcfg.vocab_size != self.cfg.vocab_size:
+            raise ValueError(
+                f"draft vocab {dcfg.vocab_size} != target vocab "
+                f"{self.cfg.vocab_size} — speculative acceptance compares "
+                "token ids, so the vocabularies must be identical")
+        if self.max_len > dcfg.max_seq_len:
+            raise ValueError(
+                f"max_len {self.max_len} exceeds the draft model's position "
+                f"range (max_seq_len={dcfg.max_seq_len})")
+        gamma = int(draft.get("gamma", 4))
+        if gamma < 1:
+            raise ValueError(f"gamma must be >= 1, got {gamma}")
+        # Spec steps a dispatch: the vanilla chunk's best-case tokens.
+        return {"model": dmodel, "cfg": dcfg, "gamma": gamma,
+                "n_spec": max(1, self.chunk // (gamma + 1))}
 
     # -- public API ----------------------------------------------------------
 
@@ -618,6 +834,8 @@ class GenerationEngine:
         aid = self._resolve_adapter(adapter)
         if self._paged:
             need = self._need_blocks(len(ids), int(max_tokens))
+            if self._spec is not None and top_k == 0 and top_p >= 1.0:
+                need *= 2  # the draft's blocks mirror the target's
             if need > self._kv_alloc.n_blocks:
                 # Permanent: even an empty pool cannot cover it.
                 raise KVCapacityExceeded(
@@ -712,11 +930,29 @@ class GenerationEngine:
         return blocks_for(min(self.max_len, prompt + chunks * self.chunk),
                           self._kv_bs)
 
+    def _spec_able(self, req: dict) -> bool:
+        """Does the request ride the spec sub-batch? Greedy and
+        plain-temperature rows do (exact match, rejection sampling);
+        top-k/top-p rows decode in the vanilla sub-batch."""
+        return (self._spec is not None and req["top_k"] == 0
+                and req["top_p"] >= 1.0)
+
+    def _draft_need_blocks(self, req: dict) -> int:
+        """Draft-pool blocks a spec-able request reserves beside the
+        target's: the same worst case, since the draft cache mirrors the
+        committed index. Draft blocks are the slot's own: never shared by a
+        prefix hit, never discounted by one."""
+        if not (self._paged and self._spec_able(req)):
+            return 0
+        return self._need_blocks(len(req["input_ids"]), req["max_tokens"])
+
     def _free_slot_blocks(self, st: dict) -> None:
-        """Return a retired request's blocks to the pool (idempotent)."""
-        blocks = st.pop("blocks", None)
-        if blocks:
-            self._kv_alloc.decref(blocks)
+        """Return a retired request's target and draft blocks to the pool
+        (idempotent)."""
+        for key in ("blocks", "dblocks"):
+            blocks = st.pop(key, None)
+            if blocks:
+                self._kv_alloc.decref(blocks)
 
     def _to_device(self, a) -> torch.Tensor:
         """A host array (numpy, or a CPU tensor) on the engine's device
@@ -754,8 +990,9 @@ class GenerationEngine:
         way) and is emitted at a later poll or fetch. Paged: raises
         _NeedKVBlocks when the pool is short now."""
         ids, aid = req["input_ids"], req["aid"]
+        dtable = None
         if self._paged:
-            table, tok0, lp0, start = self._admit_paged(req)
+            table, dtable, tok0, lp0, start = self._admit_paged(req)
         else:
             table, frag, done = None, None, 0
             if self._prefix_cap:
@@ -769,10 +1006,18 @@ class GenerationEngine:
                 lambda m, f: self._prefix_store(aid, tuple(ids[:m]), f,
                                                 copy=m < len(ids)))
             self._fns["insert"](self._cache, frag, slot)
+            if self._spec_able(req):
+                # The draft holds the same prompt history: its replay lands
+                # in its own slot (top-k/top-p rows never speculate).
+                self._dfns["insert"](self._dcache, self._draft_replay(ids),
+                                     slot)
         st = {"req": req, "idx": len(ids), "disp": len(ids), "last": None,
-              "pending": None}
+              "pending": None,
+              "draft_ok": self._spec_able(req)}
         if table is not None:
             st["blocks"] = table
+        if dtable is not None:
+            st["dblocks"] = dtable
         if self.pipeline_depth > 1:
             st["pending"] = (tok0, *self._to_host(tok0, lp0))
         else:
@@ -808,9 +1053,11 @@ class GenerationEngine:
         or restored from the host tier) maps the stored prefix's full blocks
         into the table by reference, and its partial tail block is forked:
         the tail's committed rows ride the fragment into a fresh block
-        (`kv_cow_copies`). The whole worst-case need is reserved here; the
-        boundary stores wait until the insert has written their blocks.
-        Returns (table, first token, its logprob, the prompt position
+        (`kv_cow_copies`). The whole worst-case need is reserved here, a
+        spec-able request's draft blocks with it (the draft replays the
+        whole prompt into them, never from the cache); the boundary stores
+        wait until the insert has written their blocks. Returns (table,
+        draft table or None, first token, its logprob, the prompt position
         prefill resumed at)."""
         ids, aid = req["input_ids"], req["aid"]
         bs = self._kv_bs
@@ -828,6 +1075,15 @@ class GenerationEngine:
             len(ids), req["max_tokens"]) - len(shared)))
         if fresh is None:
             raise _NeedKVBlocks()
+        # The draft's blocks, with the target's: both or neither, so the
+        # _kv_fits precheck (which counts both) stays the one gate.
+        dtable = None
+        dneed = self._draft_need_blocks(req)
+        if dneed:
+            dtable = self._kv_alloc.alloc(dneed)
+            if dtable is None:
+                self._kv_alloc.decref(fresh)
+                raise _NeedKVBlocks()
         if self._prefix_cap:
             self._count_lookup(done, hit is not None, bool(shared),
                                done % bs > 0)
@@ -849,13 +1105,19 @@ class GenerationEngine:
             scatter[len(shared):] = fresh  # shared blocks: the NULL block
             self._fns["insert_paged"](self._cache, frag,
                                       self._to_device(scatter))
+            if dtable is not None:
+                self._dfns["insert_paged"](
+                    self._dcache, self._draft_replay(ids),
+                    self._to_device(np.asarray(dtable, np.int64)))
         except BaseException:
             self._kv_alloc.decref(table)
+            if dtable is not None:
+                self._kv_alloc.decref(dtable)
             raise
         for m in boundaries:
             self._prefix_store_paged(aid, tuple(ids[:m]),
                                      table[:blocks_for(m, bs)])
-        return table, tok0, lp0, done
+        return table, dtable, tok0, lp0, done
 
     def _prefill_fragment(self, req: dict, frag=None, done: int = 0,
                           on_boundary=None):
@@ -892,6 +1154,47 @@ class GenerationEngine:
                                       // big) < self._prefix_cap:
                 on_boundary(done, frag)
         return frag, tok0, lp0
+
+    def _draft_replay(self, ids: list[int]) -> dict:
+        """The draft's fragment over `ids`, built by continuation chunks
+        of the largest bucket from position 0 (no sampling): the one recipe
+        of admission and re-admission."""
+        big = self.prefill_buckets[-1]
+        dfrag = init_cache(self._spec["cfg"], 1, self._dfns["frag_len"],
+                           device=self.device)
+        for done in range(0, len(ids), big):
+            piece = ids[done:done + big]
+            toks = np.zeros((1, self._bucket_for(len(piece))), np.int64)
+            toks[0, :len(piece)] = piece
+            dfrag = self._dfns["extend_mid"](dfrag, self._to_device(toks),
+                                             done)
+        return dfrag
+
+    def _readmit_worthwhile(self, st: dict) -> bool:
+        """Is replaying a demoted slot's history worth it? Not to
+        speculate a handful of remaining tokens, nor for a history far
+        longer than the remainder; such a slot rides spec chunks with
+        stale draft rows instead (`spec_stale_rides`)."""
+        req = st["req"]
+        remaining = req["max_tokens"] - len(req["out"])
+        history = len(req["input_ids"]) + len(req["out"]) - 1
+        return remaining >= self.chunk and history <= 32 * remaining
+
+    def _readmit_draft(self, slot: int, st: dict) -> None:
+        """Rebuild a demoted slot's draft cache from its history (the
+        prompt and every emitted token but the last, positions 0..idx-1)
+        after vanilla chunks left its draft rows unwritten."""
+        req = st["req"]
+        dfrag = self._draft_replay(req["input_ids"] + req["out"][:-1])
+        if self._paged:
+            self._dfns["insert_paged"](
+                self._dcache, dfrag,
+                self._to_device(np.asarray(st["dblocks"], np.int64)))
+        else:
+            self._dfns["insert"](self._dcache, dfrag, slot)
+        st["draft_ok"] = True
+        with self._stats_lock:
+            self.stats["spec_readmissions"] += 1
 
     # -- prefix cache ----------------------------------------------------------
 
@@ -1010,7 +1313,9 @@ class GenerationEngine:
         oldest first, and the hit itself only when giving up its discount
         is the only way to fit."""
         ids, aid = req["input_ids"], req["aid"]
-        total = self._need_blocks(len(ids), req["max_tokens"])
+        # A spec-able request also covers its draft blocks, in full.
+        total = (self._need_blocks(len(ids), req["max_tokens"])
+                 + self._draft_need_blocks(req))
         hit = (self._prefix_probe(ids, aid, touch=False)
                if self._prefix_cap else None)
         shared = hit[0] // self._kv_bs if hit is not None else 0
@@ -1228,7 +1533,12 @@ class GenerationEngine:
         if (max(self._slots[i]["disp"] for i in active) + self.chunk
                 > self.max_len):
             return False
-        for i in active:
+        return self._budget_open(active)
+
+    def _budget_open(self, rows: list[int]) -> bool:
+        """Is some row's budget not yet covered by the tokens in flight
+        (and a pending first token)? Else a chained dispatch is waste."""
+        for i in rows:
             st = self._slots[i]
             inflight = st["disp"] - st["idx"] + (st["pending"] is not None)
             if len(st["req"]["out"]) + inflight < st["req"]["max_tokens"]:
@@ -1271,22 +1581,73 @@ class GenerationEngine:
                     with self._stats_lock:
                         self.stats["admit_overlap"] += 1
 
-    def _dispatch_chunk(self, active: list[int],
-                        carry: dict | None = None) -> dict:
-        """Enqueue one decode chunk over the slot batch without fetching
-        it. `carry` is the newest record still in flight: its last tokens,
-        on the device, are this chunk's inputs. Rows that did not ride it (a
-        mid-pipe admission's pending first token, a row whose host value is
-        current after a drain) are written into that vector on the device.
-        The cache-length bucket is the smallest covering every active row
-        after this chunk."""
+    def _van_riders_fit(self, van_batch: list[int]) -> bool:
+        """Flat: live rows outside the vanilla sub-batch (spec rows) park
+        their batch-wide write at their own `disp`; near the context end
+        that write would be clamped back over committed rows, so the
+        dispatch waits until they retire. Paged riders write the NULL
+        block."""
+        if self._paged:
+            return True
+        vb = set(van_batch)
+        return not any(st is not None and j not in vb
+                       and st["disp"] + self.chunk > self.max_len
+                       for j, st in enumerate(self._slots))
+
+    def _spec_batch(self, active: list[int], van_covered: set,
+                    spec_chain: list) -> tuple[list[int], list[int]]:
+        """This round's spec sub-batch: (parts, fallback). `parts` ride a
+        spec dispatch now; `fallback` rows join the vanilla sub-batch this
+        round, which only happens with no spec chunk in flight (a row that
+        rides one has its true last token on the device only)."""
+        if self._spec is None:
+            return [], []
+        rows = [i for i in active if self._spec_able(self._slots[i]["req"])
+                and i not in van_covered]
+        if not rows:
+            return [], []
+        chained = bool(spec_chain)
+        if chained and spec_chain[-1]["doomed"]:
+            return [], []  # drain the doomed chain before dispatching again
+        worst = self._spec["n_spec"] * (self._spec["gamma"] + 1)
+        if self._paged:
+            # Per-row tables: a row short of a worst-case advance falls
+            # back to the vanilla sub-batch alone.
+            fit = [i for i in rows
+                   if self._slots[i]["disp"] + worst <= self.max_len]
+        else:
+            # One batch-wide bucket, and riders park at their own disp: the
+            # headroom must cover every live row.
+            high = max(st["disp"] for st in self._slots if st is not None)
+            fit = rows if high + worst <= self.max_len else []
+        tail = [i for i in rows if i not in fit]
+
+        def usable(i: int) -> bool:
+            st = self._slots[i]
+            return st["draft_ok"] or (
+                st["disp"] == st["idx"] and st["pending"] is None
+                and self._readmit_worthwhile(st))
+        if fit and not any(usable(i) for i in fit):
+            # No row would propose from a live (or replayable) draft cache.
+            tail, fit = rows, []
+        if not fit or (chained and not self._budget_open(fit)):
+            return [], (tail if not chained else [])
+        return fit, (tail if not chained else [])
+
+    def _gather_rows(self, rows: list[int]):
+        """Host arrays of the dispatched rows' state: (last, idx,
+        temperature, top_k, top_p), idle rows at 0 (top_p 1). Flat, a live
+        row outside `rows` (of the other sub-batch) parks its batch-wide
+        write at its own `disp`, its uncommitted tail: index 0 would
+        overwrite its committed prompt rows (paged riders write the NULL
+        block)."""
         n = self.n_slots
         last = np.zeros((n,), np.int64)
         idx = np.zeros((n,), np.int64)
         temps = np.zeros((n,), np.float32)
         ks = np.zeros((n,), np.int64)
         ps = np.ones((n,), np.float32)
-        for i in active:
+        for i in rows:
             st = self._slots[i]
             idx[i] = st["disp"]
             temps[i] = st["req"]["temperature"]
@@ -1294,16 +1655,23 @@ class GenerationEngine:
             ps[i] = st["req"]["top_p"]
             if st["pending"] is None:
                 last[i] = st["last"]
-        trunc = any(ks[i] > 0 or ps[i] < 1.0 for i in active)
-        need = int(idx.max()) + self.chunk
-        bucket = next((b for b in self.decode_buckets if b >= need),
-                      self.decode_buckets[-1])
-        t0 = time.monotonic()
-        if carry is None:
-            last_dev = self._to_device(last)
-        else:  # a copy: the record's own tokens are still to be fetched
-            last_dev = carry["toks"][:, -1].clone()
-        for i in active:
+        if not self._paged:
+            part = set(rows)
+            for j, st in enumerate(self._slots):
+                if st is not None and j not in part:
+                    idx[j] = st["disp"]
+        return last, idx, temps, ks, ps
+
+    def _carry_in(self, rows: list[int], last, carry: dict | None,
+                  carry_last) -> torch.Tensor:
+        """The dispatch's input tokens on the device: `last` from the host
+        without a carry, else `carry_last`, a copy of the newest in-flight
+        record's last tokens (its own are still to be fetched). A pending
+        first token (its host copy not yet seen) is written in on the
+        device either way; with a carry, so is the host value of a row
+        that did not ride it."""
+        last_dev = self._to_device(last) if carry is None else carry_last
+        for i in rows:
             st = self._slots[i]
             if carry is not None and carry["parts"].get(i) is st:
                 continue  # rides the carry
@@ -1313,44 +1681,118 @@ class GenerationEngine:
                 last_dev[i].copy_(st["pending"][0][0])
             elif carry is not None:
                 last_dev[i].fill_(st["last"])
+        return last_dev
+
+    def _tables(self, rows: list[int], key: str, nb: int):
+        """Per-row block tables [n_slots, nb] of `key` ("blocks" or
+        "dblocks") on the device, padded with the NULL block, from host
+        lists fixed at admission."""
+        tables = np.zeros((self.n_slots, nb), np.int64)
+        for i in rows:
+            blk = self._slots[i][key][:nb]
+            tables[i, :len(blk)] = blk
+        return self._to_device(tables)
+
+    def _adapter_batch(self, rows: list[int]):
+        """Each row's adapter factors, gathered once for the dispatch's
+        steps (other rows take the base entry); None without adapters."""
+        if self._ml_stacks is None:
+            return None
+        aids = np.zeros((self.n_slots,), np.int64)
+        for i in rows:
+            aids[i] = self._slots[i]["req"]["aid"]
+        return self._adapter_rows(aids)
+
+    def _dispatch_chunk(self, active: list[int],
+                        carry: dict | None = None) -> dict:
+        """Enqueue one vanilla decode chunk over the rows `active` without
+        fetching it. `carry` is the newest vanilla record still in flight:
+        its last tokens, on the device, are this chunk's inputs. The
+        cache-length bucket is the smallest covering every row written
+        after this chunk."""
+        last, idx, temps, ks, ps = self._gather_rows(active)
+        trunc = any(ks[i] > 0 or ps[i] < 1.0 for i in active)
+        need = int(idx.max()) + self.chunk
+        bucket = next((b for b in self.decode_buckets if b >= need),
+                      self.decode_buckets[-1])
+        t0 = time.monotonic()
+        last_dev = self._carry_in(active, last, carry, None if carry is None
+                                  else carry["toks"][:, -1].clone())
         args = [last_dev] + [self._to_device(a) for a in (idx, temps, ks, ps)]
         if self._paged:
-            # Per-row block tables, padded with the NULL block, from host
-            # lists fixed at admission.
-            nb = bucket // self._kv_bs
-            tables = np.zeros((n, nb), np.int64)
-            for i in active:
-                blk = self._slots[i]["blocks"][:nb]
-                tables[i, :len(blk)] = blk
-            args.insert(0, self._to_device(tables))
-        rows = None
-        if self._ml_stacks is not None:
-            # Each row's adapter factors, gathered once for the chunk's
-            # steps (idle rows take the base entry).
-            aids = np.zeros((n,), np.int64)
-            for i in active:
-                aids[i] = self._slots[i]["req"]["aid"]
-            rows = self._adapter_rows(aids)
+            args.insert(0, self._tables(active, "blocks",
+                                        bucket // self._kv_bs))
         self._cache, toks, lps = self._decode[(bucket, trunc)](
-            self._cache, *args, self._gen, rows)
+            self._cache, *args, self._gen, self._adapter_batch(active))
         host, event = self._to_host(toks, lps)
         with self._stats_lock:
             self.stats["decode_dispatches"] += 1
         for i in active:
             self._slots[i]["disp"] += self.chunk
-        return {"toks": toks, "host": host, "event": event, "t0": t0,
-                "chunk": self.chunk,
+        return {"kind": "van", "toks": toks, "host": host, "event": event,
+                "t0": t0, "chunk": self.chunk,
                 "parts": {i: self._slots[i] for i in active}}
 
-    def _fetch_chunk(self, rec: dict, overlapped: bool) -> None:
-        """Wait for one record's tokens (the designed host sync) and
-        reconcile: a part whose slot no longer holds its request, or whose
-        request finishes on its pending first token, is dead and its rows
-        are dropped. `overlapped`: another chunk was in flight meanwhile."""
+    def _dispatch_spec_chunk(self, parts: list[int],
+                             carry: dict | None = None) -> dict:
+        """Enqueue one speculative dispatch over the spec sub-batch without
+        fetching it. `carry` chains it on the newest spec record's
+        worst-case carry: its last bonus token, which is the true one only
+        if every proposal was accepted; `_fetch_spec_chunk` drops a record
+        whose start that assumption made false. A demoted row whose draft
+        is worth replaying (no chunk in flight for it) is re-admitted here;
+        another rides with stale draft rows (`spec_stale_rides`), which can
+        cost acceptance, never correctness."""
+        spec = self._spec
+        worst = spec["n_spec"] * (spec["gamma"] + 1)
+        stale = 0
+        for i in parts:
+            st = self._slots[i]
+            if st["draft_ok"]:
+                continue
+            if (st["disp"] == st["idx"] and st["pending"] is None
+                    and self._readmit_worthwhile(st)):
+                self._readmit_draft(i, st)
+            else:
+                stale += 1
+        if stale:
+            with self._stats_lock:
+                self.stats["spec_stale_rides"] += stale
+        last, idx, temps, _, _ = self._gather_rows(parts)
+        assumed = {i: self._slots[i]["disp"] for i in parts}
+        need = int(idx.max()) + worst
+        bucket = next((b for b in self.decode_buckets if b >= need),
+                      self.decode_buckets[-1])
+        t0 = time.monotonic()
+        last_dev = self._carry_in(parts, last, carry, None if carry is None
+                                  else carry["toks"][:, -1, -1].clone())
+        args = [last_dev, self._to_device(idx), self._to_device(temps)]
+        if self._paged:
+            nb = bucket // self._kv_bs
+            args[:0] = [self._tables(parts, "blocks", nb),
+                        self._tables(parts, "dblocks", nb)]
+        self._cache, self._dcache, toks, lps, acc = self._spec_decode[bucket](
+            self._cache, self._dcache, *args, self._gen,
+            self._adapter_batch(parts))
+        host, event = self._to_host(toks, lps, acc)
+        with self._stats_lock:
+            self.stats["decode_dispatches"] += 1
+            self.stats["spec_dispatches"] += 1
+        for i in parts:
+            self._slots[i]["disp"] += worst
+        return {"kind": "spec", "toks": toks, "host": host, "event": event,
+                "t0": t0, "worst": worst, "assumed": assumed,
+                "doomed": False,
+                "parts": {i: self._slots[i] for i in parts}}
+
+    def _fetch_wait(self, rec: dict, overlapped: bool) -> list:
+        """Wait for one record's host copies (the designed host sync) and
+        account the wait; returns them as numpy arrays. `overlapped`:
+        another chunk was in flight meanwhile."""
         t0 = time.monotonic()
         if rec["event"] is not None:
             _wait(rec["event"])
-        toks, lps = (h.numpy() for h in rec["host"])
+        host = [h.numpy() for h in rec["host"]]
         now = time.monotonic()
         start = (rec["t0"] if self._busy_mark is None
                  else max(self._busy_mark, rec["t0"]))
@@ -1360,20 +1802,78 @@ class GenerationEngine:
                        else "decode_fetch_blocking"] += 1
             self.stats["decode_seconds"] += now - start
         self._busy_mark = now
+        return host
+
+    def _live_part(self, i: int, st: dict, waste: int) -> bool:
+        """Is record part (i, st) still live? Its pending first token is
+        emitted first (the record decoded from it); a part whose slot no
+        longer holds its request, or whose request finished at that token,
+        is dead and its `waste` tokens dropped."""
+        if self._slots[i] is st and st["pending"] is not None:
+            self._emit_pending(i, st)
+        if self._slots[i] is st:
+            return True
+        with self._stats_lock:
+            self.stats["decode_dead_slot_chunks"] += 1
+            self.stats["decode_wasted_tokens"] += waste
+        return False
+
+    def _fetch_chunk(self, rec: dict, overlapped: bool) -> None:
+        """Fetch one vanilla record and reconcile: dead parts are dropped.
+        A live row's draft rows were not written by this chunk, so its
+        draft is not trusted until re-admission replays its history
+        (`spec_demotions`)."""
+        toks, lps = self._fetch_wait(rec, overlapped)
         for i, st in rec["parts"].items():
-            if self._slots[i] is st and st["pending"] is not None:
-                self._emit_pending(i, st)  # the chunk decoded from it
-            if self._slots[i] is not st:
-                with self._stats_lock:
-                    self.stats["decode_dead_slot_chunks"] += 1
-                    self.stats["decode_wasted_tokens"] += rec["chunk"]
+            if not self._live_part(i, st, rec["chunk"]):
                 continue
             st["idx"] += rec["chunk"]
             st["last"] = int(toks[i, -1])
             with self._stats_lock:
+                self.stats["spec_demotions"] += int(st["draft_ok"])
                 self.stats["decode_tokens"] += rec["chunk"]
+            st["draft_ok"] = False
             self._emit(i, st, [int(t) for t in toks[i]],
                        [float(v) for v in lps[i]])
+
+    def _fetch_spec_chunk(self, rec: dict, inflight: deque,
+                          overlapped: bool) -> None:
+        """Fetch one spec record and reconcile each part: dead (its request
+        retired: rows dropped); over-advanced (the record was doomed, or an
+        earlier record's partial acceptance made its start index false:
+        rows dropped, `disp` rolled back by its worst case; the rows it
+        wrote lie past the committed index and are overwritten before they
+        are attended); or valid (emit per the accepted counts). A valid
+        part short of the worst case dooms every later spec record in
+        flight, whose carry and start were fabrications."""
+        toks, lps, acc = self._fetch_wait(rec, overlapped)
+        spec, worst = self._spec, rec["worst"]
+        for i, st in rec["parts"].items():
+            if not self._live_part(i, st, worst):
+                continue
+            if rec["doomed"] or st["idx"] != rec["assumed"][i]:
+                st["disp"] -= worst
+                with self._stats_lock:
+                    self.stats["decode_wasted_tokens"] += worst
+                continue
+            emit_t: list[int] = []
+            emit_l: list[float] = []
+            for s in range(spec["n_spec"]):
+                kk = int(acc[i, s])
+                emit_t += [int(t) for t in toks[i, s, :kk + 1]]
+                emit_l += [float(v) for v in lps[i, s, :kk + 1]]
+            st["idx"] += len(emit_t)
+            st["disp"] -= worst - len(emit_t)
+            st["last"] = emit_t[-1]
+            if len(emit_t) < worst:
+                for r in inflight:
+                    if r["kind"] == "spec":
+                        r["doomed"] = True
+            with self._stats_lock:
+                self.stats["spec_proposed"] += spec["gamma"] * spec["n_spec"]
+                self.stats["spec_accepted"] += len(emit_t) - spec["n_spec"]
+                self.stats["decode_tokens"] += len(emit_t)
+            self._emit(i, st, emit_t, emit_l)
 
     def _fail_all(self, err: str, inflight: deque) -> None:
         """A device call failed: fail every request in a slot or in a chunk
@@ -1392,11 +1892,45 @@ class GenerationEngine:
         self.inflight_depth = 0
         self._busy_mark = None
 
+    def _dispatch_round(self, active: list[int], inflight: deque) -> None:
+        """Dispatch while a sub-batch's chain has room: the spec sub-batch
+        (greedy and plain-temperature rows, with a draft) and the vanilla
+        one (top-k/top-p rows, and spec rows falling back) each keep up to
+        `pipeline_depth` records in flight, the vanilla chain only while
+        another chunk is worth it. Without a draft this is the one chain
+        of vanilla chunks."""
+        while True:
+            dispatched = False
+            spec_chain = [r for r in inflight if r["kind"] == "spec"]
+            van_chain = [r for r in inflight if r["kind"] == "van"]
+            van_covered = {i for r in van_chain
+                           for i, st in r["parts"].items()
+                           if self._slots[i] is st}
+            parts, fallback = self._spec_batch(active, van_covered,
+                                               spec_chain)
+            if parts and len(spec_chain) < self.pipeline_depth:
+                inflight.append(self._dispatch_spec_chunk(
+                    parts, spec_chain[-1] if spec_chain else None))
+                self.inflight_depth = len(inflight)
+                dispatched = True
+            fb = set(fallback)
+            van_batch = [i for i in active
+                         if not self._spec_able(self._slots[i]["req"])
+                         or i in fb]
+            if (van_batch and len(van_chain) < self.pipeline_depth
+                    and (not van_chain or self._worth_speculating(van_batch))
+                    and self._van_riders_fit(van_batch)):
+                inflight.append(self._dispatch_chunk(
+                    van_batch, van_chain[-1] if van_chain else None))
+                self.inflight_depth = len(inflight)
+                dispatched = True
+            if not dispatched:
+                return
+
     def _loop(self) -> None:
-        """Admit, poll pending first tokens, dispatch while fewer than
-        `pipeline_depth` chunks are in flight (and another one is worth
-        it), fetch the oldest. At depth 1 each round dispatches one chunk
-        and fetches it: the synchronous loop."""
+        """Admit, sweep deadlines, poll pending first tokens, dispatch
+        (`_dispatch_round`), fetch the oldest record of either kind. At
+        depth 1 each round dispatches and fetches: the synchronous loop."""
         inflight: deque = deque()
         with torch.inference_mode():
             while not self._stop:
@@ -1411,16 +1945,16 @@ class GenerationEngine:
                         self._wake.wait(0.05)
                         self._wake.clear()
                         continue
-                    while (active and len(inflight) < self.pipeline_depth
-                           and (not inflight
-                                or self._worth_speculating(active))):
-                        inflight.append(self._dispatch_chunk(
-                            active, inflight[-1] if inflight else None))
-                        self.inflight_depth = len(inflight)
+                    if active:
+                        self._dispatch_round(active, inflight)
                     if inflight:
                         rec = inflight.popleft()
                         self.inflight_depth = len(inflight)
-                        self._fetch_chunk(rec, overlapped=bool(inflight))
+                        if rec["kind"] == "spec":
+                            self._fetch_spec_chunk(rec, inflight,
+                                                   overlapped=bool(inflight))
+                        else:
+                            self._fetch_chunk(rec, overlapped=bool(inflight))
                 except Exception:  # fail the batch, keep serving
                     self._fail_all(traceback.format_exc(), inflight)
 
@@ -1429,7 +1963,6 @@ class GenerationEngine:
 #: does not port yet, with the value that asks for nothing. A bundle that
 #: sets one to anything else is refused by name (501 at the server).
 _UNPORTED = {
-    "draft": ("speculative decoding", None),
     "mesh": ("tensor-parallel mesh", None),
     "role": ("disaggregated prefill/decode roles", "unified"),
 }
@@ -1451,18 +1984,56 @@ class GenerativeTorchModel(Model):
                     f"{what} ({key!r}) is not supported by this package yet")
         self.eos_id = gen.pop("eos_id", None)
         self.tokenizer = gen.pop("tokenizer", None)
+        # Speculative decoding: {"checkpoint": HF dir of the draft, "gamma":
+        # N, "model_overrides": {...}}, loaded at load() like the target.
+        self._draft_spec = dict(gen.pop("draft", None) or {})
         self._gen_cfg = gen
         self.engine: GenerationEngine | None = None
+        #: {"checkpoint", "load_s", "bytes"} of the loaded draft, else None.
+        self.draft_info: dict | None = None
         #: {"mode", "quantized", "full"} when the weights are int8
         #: (serve/runtimes.py sets it), else None.
         self.quantization: dict | None = None
 
     def load(self) -> bool:
         t0 = time.monotonic()
-        self.engine = GenerationEngine(self._model, **self._gen_cfg)
+        kwargs = dict(self._gen_cfg)
+        if self._draft_spec:
+            kwargs["draft"] = self._load_draft()
+        self.engine = GenerationEngine(self._model, **kwargs)
         self.load_time_s = time.monotonic() - t0
         self.ready = True
         return True
+
+    def _load_draft(self) -> dict:
+        """The engine's `draft` from `generative.draft`: its keys checked
+        before the checkpoint is read (a typo fails at once), then the HF
+        checkpoint through build_from_hf onto the target's device."""
+        spec = dict(self._draft_spec)
+        ckpt = spec.pop("checkpoint", None)
+        overrides = spec.pop("model_overrides", None) or {}
+        gamma = spec.pop("gamma", None)
+        if spec:
+            raise ValueError(f"unknown generative.draft keys {sorted(spec)}")
+        if not ckpt:
+            raise ValueError("generative.draft needs a 'checkpoint' (HF dir "
+                             "of the draft model)")
+        from kubeflow_tpu_torch.models.hf_import import build_from_hf
+        from kubeflow_tpu_torch.models.llama import Llama
+
+        t0 = time.monotonic()
+        dcfg, sd = build_from_hf(ckpt, **overrides)
+        dmodel = Llama(dcfg, device=self._model.device)
+        dmodel.load_state_dict(sd)
+        nbytes = sum(t.numel() * t.element_size() for t in sd.values())
+        del sd
+        dmodel.eval()
+        self.draft_info = {"checkpoint": ckpt, "bytes": nbytes,
+                           "load_s": time.monotonic() - t0}
+        draft = {"model": dmodel}
+        if gamma is not None:
+            draft["gamma"] = int(gamma)
+        return draft
 
     def unload(self) -> None:
         self.ready = False
@@ -1593,6 +2164,7 @@ class GenerativeTorchModel(Model):
         if self.engine:
             md["decode_buckets"] = list(self.engine.decode_buckets)
             md["pipeline_depth"] = self.engine.pipeline_depth
+            md["speculative"] = self.engine._spec is not None
             md["inflight_depth"] = self.engine.inflight_depth
             md["role"] = self.engine.role
             md["paged_kv"] = self.engine.kv_info()

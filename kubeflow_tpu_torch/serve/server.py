@@ -93,6 +93,15 @@ _ENGINE_METRICS = (
      "tpk_engine_decode_fetch_overlapped_total", "counter"),
     ("decode_wasted_tokens", "tpk_engine_decode_wasted_tokens_total",
      "counter"),
+    # Speculative decoding: dispatches, proposals and acceptances, and
+    # demoted rows riding with stale draft rows. The accept rate is
+    # computed at the scrape and only once proposals have flowed: no rate
+    # for a draft-less or idle engine, never a fake 0.
+    ("spec_dispatches", "tpk_engine_spec_dispatch_total", "counter"),
+    ("spec_proposed", "tpk_spec_proposed_total", "counter"),
+    ("spec_accepted", "tpk_spec_accepted_total", "counter"),
+    ("spec_stale_rides", "tpk_spec_stale_rides_total", "counter"),
+    ("__spec_accept_rate__", "tpk_spec_accept_rate", "gauge"),
     # Paged prefix hits served as zero-copy block references, and the
     # copy-on-write forks of their partial tail blocks.
     ("kv_cow_copies", "tpk_kv_cow_copies_total", "counter"),
@@ -929,6 +938,10 @@ class ModelServer:
             for name, engine, stats in rows:
                 if stat_key in _ENGINE_ATTRS:
                     val = getattr(engine, _ENGINE_ATTRS[stat_key], None)
+                elif stat_key == "__spec_accept_rate__":
+                    proposed = stats.get("spec_proposed") or 0
+                    val = (stats.get("spec_accepted", 0) / proposed
+                           if proposed else None)
                 else:
                     val = stats.get(stat_key)
                 if val is None:

@@ -4,6 +4,8 @@ the two packages draw different random bits, so sampled ids are never
 compared across them)."""
 
 import dataclasses
+import json
+import os
 import threading
 
 import flax.linen as fnn
@@ -14,6 +16,7 @@ import pytest
 import torch
 
 from kubeflow_tpu.models import llama as jl
+from kubeflow_tpu_torch.models import hf_import as th
 from kubeflow_tpu_torch.models import llama as tl
 from kubeflow_tpu_torch.models.convert import llama_params_from_jax
 from kubeflow_tpu_torch.serve.generation import (GenerationEngine,
@@ -51,6 +54,30 @@ def ref_greedy(model, params, ids, n, width=64):
         logits = fwd(params, jnp.asarray(buf))
         toks.append(int(jnp.argmax(logits[0, len(toks) - 1])))
     return toks[len(ids):]
+
+
+def hf_checkpoint(model, path) -> str:
+    """`model`'s weights as a Hugging Face Llama checkpoint (config.json
+    and one safetensors file, the port's writer) at `path`."""
+    cfg = model.cfg
+    os.makedirs(path, exist_ok=True)
+    sd = model.state_dict()
+    th.save_safetensors({h: sd[n] for h, n in th.llama_hf_names(cfg).items()},
+                        os.path.join(path, "model.safetensors"))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"architectures": ["LlamaForCausalLM"],
+                   "model_type": "llama", "vocab_size": cfg.vocab_size,
+                   "hidden_size": cfg.hidden_size,
+                   "intermediate_size": cfg.intermediate_size,
+                   "num_hidden_layers": cfg.num_layers,
+                   "num_attention_heads": cfg.num_heads,
+                   "num_key_value_heads": cfg.num_kv_heads,
+                   "head_dim": cfg.head_dim,
+                   "max_position_embeddings": cfg.max_seq_len,
+                   "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.rms_eps,
+                   "tie_word_embeddings": cfg.tie_embeddings,
+                   "attention_bias": False, "torch_dtype": "float32"}, f)
+    return str(path)
 
 
 def test_engine_continuous_batching_matches_jax_rollout(tiny):
@@ -148,8 +175,8 @@ def test_engine_rejects_bad_requests(tiny):
     ("adapters", {"a": "dir"}), ("mesh", {"tensor": 2}),
     ("role", "decode"),
 ])
-def test_unported_engine_features_are_refused(tiny, key, value):
-    _, _, tm = tiny
+def test_unported_engine_features_are_refused(tiny, key, value, tmp_path):
+    jm, params, tm = tiny
     if key == "prefix_cache":
         # The prefix cache is served now: the engine loads and serves, and
         # a repeated prompt hits.
@@ -165,6 +192,42 @@ def test_unported_engine_features_are_refused(tiny, key, value):
             assert (stats["prefix_misses"], stats["prefix_hits"]) == (1, 1)
         finally:
             model.unload()
+        return
+    if key == "draft":
+        # Speculative decoding is served now: the bundle's draft loads from
+        # its HF checkpoint and the engine speculates (draft = target: every
+        # proposal accepted, the greedy ids the rollout's). A missing
+        # checkpoint fails as the JAX model's load does; unknown keys are
+        # refused before any checkpoint is read.
+        from kubeflow_tpu.serve.generation import GenerativeJAXModel
+
+        errors = []
+        for make in (lambda g: GenerativeTorchModel("m", tm, generation=g),
+                     lambda g: GenerativeJAXModel("m", jm, params, jm.cfg,
+                                                  generation=g)):
+            with pytest.raises(Exception) as err:
+                make({**ENGINE, key: {"checkpoint": str(tmp_path / "x")}}
+                     ).load()
+            errors.append(type(err.value))
+            with pytest.raises(ValueError, match="unknown generative.draft"):
+                make({**ENGINE, key: {"checkpoint": str(tmp_path / "x"),
+                                      "gama": 4}}).load()
+        assert errors[0] is errors[1], errors
+        ckpt = hf_checkpoint(tm, tmp_path / "draft")
+        model = GenerativeTorchModel("m", tm, generation={
+            **ENGINE, key: {"checkpoint": ckpt, "gamma": 3,
+                            "model_overrides": {"dtype": "float32"}}})
+        model.load()
+        try:
+            out = model.generate({"input_ids": [5, 9, 2], "max_tokens": 10})
+            stats = model.engine.stats_snapshot()
+            assert model.metadata()["speculative"] is True
+            assert model.draft_info["bytes"] > 0
+        finally:
+            model.unload()
+        assert out["output_ids"] == ref_greedy(jm, params, [5, 9, 2], 10)
+        assert stats["spec_dispatches"] > 0
+        assert stats["spec_accepted"] == stats["spec_proposed"] > 0
         return
     if key == "kv_host_tier_blocks":
         # Served on a paged engine; without kv_block_size the load fails

@@ -1403,6 +1403,132 @@ def test_depth2_stream_runs_under_sync_debug_error(cuda, monkeypatch):
         sync.unload()
 
 
+# -- speculative decoding on the engine ---------------------------------------
+
+def _spec_tiny_model(cuda):
+    """llama_tiny in fp32 (head dim 16: the CUDA-core flash kernel admits):
+    fp32 keeps the verify's and the decode step's roundings apart by far
+    less than any gap between the top two logits, so greedy ids compare
+    exactly."""
+    from kubeflow_tpu_torch.models import llama as tl
+
+    return tl.Llama(dataclasses.replace(tl.llama_tiny(), num_layers=2,
+                                        dtype=torch.float32,
+                                        param_dtype=torch.float32),
+                    device=cuda).init_weights(0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", ["flat", "paged"])
+def test_depth2_spec_engine_runs_under_sync_debug_error(cuda, pool,
+                                                        monkeypatch):
+    """A spec engine (the target as its own draft) at depth 2 with
+    torch.cuda.set_sync_debug_mode("error"): admissions with their draft
+    replays, chained spec chunks with their acceptance, and the vanilla
+    sub-batch of a top-p row make no hidden host sync; only the fetch's
+    event wait runs outside the mode. Then one greedy request's ids equal
+    a depth-1 vanilla engine's."""
+    from kubeflow_tpu_torch.serve import generation as tg
+
+    model = _spec_tiny_model(cuda)
+    kw = dict(slots=4, max_len=64, chunk=8, prefill_buckets=(8, 16))
+    if pool == "paged":
+        kw.update(kv_block_size=8)
+    real_wait = tg._wait
+
+    def wait_outside(event):
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            real_wait(event)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
+    monkeypatch.setattr(tg, "_wait", wait_outside)
+    engine = tg.GenerationEngine(model, pipeline_depth=2,
+                                 draft={"model": model, "gamma": 3}, **kw)
+    prompts = [[5, 9, 2], [17, 3, 3, 8, 1], list(range(3, 40)), [8, 1, 4]]
+    bodies = [dict(max_tokens=20), dict(max_tokens=13),
+              dict(max_tokens=9, temperature=0.8),
+              dict(max_tokens=7, temperature=0.8, top_p=0.9)]
+    results = [None] * len(prompts)
+    try:
+        engine.submit([1, 2, 3], max_tokens=5)  # builds and warms outside
+        torch.cuda.synchronize()
+
+        def run(i):
+            try:
+                results[i] = engine.submit(prompts[i], **bodies[i])
+            except Exception as e:  # asserted below
+                results[i] = e
+
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            threads = [threading.Thread(target=run, args=(i,))
+                       for i in range(len(prompts))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+                assert not t.is_alive()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        for i, res in enumerate(results):
+            assert isinstance(res, dict), f"request {i}: {res}"
+            assert len(res["output_ids"]) == bodies[i]["max_tokens"]
+        stats = engine.stats_snapshot()
+        assert stats["spec_dispatches"] > 0, stats
+        assert stats["decode_dispatches"] > stats["spec_dispatches"], stats
+        assert stats["decode_fetch_overlapped"] > 0, stats
+        assert stats["spec_accepted"] > 0, stats
+        if pool == "paged":
+            assert engine.kv_info()["blocks_used"] == 0
+        deep = engine.submit(prompts[2], max_tokens=30)["output_ids"]
+    finally:
+        engine.close()
+    sync = tg.GenerationEngine(model, pipeline_depth=1, **kw)
+    try:
+        assert sync.submit(prompts[2], max_tokens=30)["output_ids"] == deep
+    finally:
+        sync.close()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", ["flat", "paged"])
+def test_spec_dispatch_launches_the_same_each_time(cuda, pool):
+    """Two spec dispatches over the same bucket, with other tokens,
+    positions and temperatures (so other acceptances), dispatch the same
+    ops in the same order: nothing in a spec chunk branches on the host on
+    its data."""
+    from kubeflow_tpu_torch.serve import generation as tg
+
+    model = _spec_tiny_model(cuda)
+    kw = dict(slots=2, max_len=64, chunk=8, prefill_buckets=(8,))
+    if pool == "paged":
+        kw.update(kv_block_size=8)
+    engine = tg.GenerationEngine(model, draft={"model": model, "gamma": 3},
+                                 **kw)
+    try:
+        fn = engine._spec_decode[64]
+        logs = []
+        for last, idx, temp in (([5, 7], [3, 9], [0.0, 0.0]),
+                                ([11, 2], [20, 1], [0.9, 0.0])):
+            args = [torch.tensor(last, device=cuda),
+                    torch.tensor(idx, device=cuda),
+                    torch.tensor(temp, device=cuda)]
+            if pool == "paged":
+                # The pools are idle: any blocks serve, the draft's too.
+                tables = torch.arange(1, 17, device=cuda).view(2, 8)
+                args[:0] = [tables, tables]
+            with torch.inference_mode(), OpLog() as log:
+                fn(engine._cache, engine._dcache, *args, engine._gen, None)
+            torch.cuda.synchronize()
+            logs.append(log.ops)
+    finally:
+        engine.close()
+    assert len(logs[0]) > 0 and logs[0] == logs[1]
+
+
 # -- multi-LoRA on the engine -------------------------------------------------
 
 #: aten ops that one decode chunk (chunk 4, 2 rows, a 64-row bucket, 2

@@ -32,6 +32,7 @@ from kubeflow_tpu_torch.serve.runtimes import export_for_serving
 from kubeflow_tpu_torch.serve.server import (AdmissionController,
                                              ModelRepository, ModelServer)
 from kubeflow_tpu_torch.utils import resilience as tres
+from tests.test_torch_generation import hf_checkpoint, ref_greedy
 
 ENGINE = dict(slots=2, max_len=64, chunk=4, prefill_buckets=(8, 16))
 KW = {"dtype": "float32", "num_layers": 2}
@@ -39,9 +40,6 @@ KW = {"dtype": "float32", "num_layers": 2}
 #: The JAX engine's /metrics families of features the port refuses at
 #: the bundle (serve/generation.py `_UNPORTED`).
 REFUSED_FAMILIES = {
-    # speculative decoding (draft)
-    "tpk_engine_spec_dispatch_total", "tpk_spec_proposed_total",
-    "tpk_spec_accepted_total", "tpk_spec_stale_rides_total",
     # disaggregated prefill/decode (role)
     "tpk_engine_remote_admits_total", "tpk_kv_blocks_shipped_total",
     "tpk_kv_blocks_received_total",
@@ -343,6 +341,65 @@ def test_metrics_families_match_jax(servers):
                  'tpk_serve_request_latency_seconds_count{model="llm"} 1',
                  'tpk_engine_decode_tokens_total{model="llm"} '):
         assert must in scrapes["port"], must
+
+
+#: The speculative-decoding series of one model.
+SPEC_SERIES = ("tpk_engine_spec_dispatch_total", "tpk_spec_proposed_total",
+               "tpk_spec_accepted_total", "tpk_spec_stale_rides_total",
+               "tpk_spec_accept_rate")
+
+
+def test_spec_metrics_and_metadata_match_jax(tiny, tmp_path):
+    """A model with `generative.draft` (the target's own weights as an HF
+    checkpoint) beside a draft-less one, on a JAX server and on the port's:
+    after the same greedy requests, the spec series of /metrics are equal,
+    value for value, and so is metadata's "speculative"; the draft-less
+    model renders its counters at 0 and no accept-rate gauge."""
+    from kubeflow_tpu.serve import ModelServer as JServer
+    from kubeflow_tpu.serve.generation import GenerativeJAXModel
+
+    jm, params, tm = tiny
+    ckpt = hf_checkpoint(tm, tmp_path / "draft")
+    draft = {"checkpoint": ckpt, "gamma": 3}
+    jsrv, tsrv = JServer(), ModelServer(max_inflight=0)
+    jsrv.repo.register(GenerativeJAXModel("spec", jm, params, jm.cfg,
+                                          generation={**ENGINE, "draft": {
+                                              **draft, "model_overrides": {
+                                                  "dtype": jnp.float32}}}))
+    jsrv.repo.register(GenerativeJAXModel("plain", jm, params, jm.cfg,
+                                          generation=dict(ENGINE)))
+    tsrv.repo.register(GenerativeTorchModel("spec", tm, generation={
+        **ENGINE, "draft": {**draft, "model_overrides": {
+            "dtype": "float32"}}}))
+    tsrv.repo.register(GenerativeTorchModel("plain", tm,
+                                            generation=dict(ENGINE)))
+    out = {}
+    try:
+        for side, srv in (("jax", jsrv), ("port", tsrv)):
+            base = f"http://127.0.0.1:{srv.start_background(0)}"
+            ids = [_http("POST", f"{base}/v1/models/spec:generate",
+                         {"input_ids": p, "max_tokens": n})[1]["output_ids"]
+                   for p, n in (([5, 9, 2], 10), ([11, 4], 8))]
+            _http("POST", f"{base}/v1/models/plain:generate",
+                  {"input_ids": [1, 2], "max_tokens": 4})
+            text = _http("GET", f"{base}/metrics")[1]
+            series = sorted(
+                line for line in text.splitlines()
+                if any(line.startswith(f"{m}{{") or line.startswith(
+                    f"# TYPE {m} ") for m in SPEC_SERIES))
+            md = [_http("GET", f"{base}/v2/models/{m}")[1]["speculative"]
+                  for m in ("spec", "plain")]
+            out[side] = (ids, series, md)
+    finally:
+        jsrv.stop()
+        tsrv.stop()
+    assert out["port"] == out["jax"]
+    ids, series, md = out["port"]
+    assert md == [True, False]
+    assert 'tpk_spec_accept_rate{model="spec"} 1' in series
+    assert not any('rate{model="plain"}' in line for line in series)
+    assert 'tpk_spec_proposed_total{model="plain"} 0' in series
+    assert ids[0] == ref_greedy(jm, params, [5, 9, 2], 10)
 
 
 def test_paged_engine_renders_the_pool_gauges(tiny):
