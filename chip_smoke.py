@@ -105,10 +105,10 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
      the adapted function in fp32; (ii) two synthetic PEFT adapters on the
      full llama3_8b bundle (`generative.adapters`): four concurrent
      requests (two base, one per adapter, one of them as the OpenAI model
-     "llama3_8b:ml_b"), the same four paged and on base-only engines flat
-     and paged: base rows equal the base-only engine's, adapter rows their
-     lone runs and within the fp32 gate of base + (x·A)·B·alpha/r, each
-     adapter changes its row, paged equals flat, the adapters listed;
+     "llama3_8b:ml_b"), the same four paged and on a base-only engine:
+     base rows equal the base-only engine's, adapter rows their lone runs
+     and within the fp32 gate of base + (x·A)·B·alpha/r, each adapter
+     changes its row, paged equals flat, the adapters listed;
      ms per 4-row step mixed and base-only, launches per step with and
      without adapters, the adapters' load seconds and bytes;
   4f. KV reuse on phase 4's llama3_8b, one model under every engine: a
@@ -148,6 +148,22 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
      top-k and 1 top-p request at once on a paged engine: the truncated
      rows decode vanilla, the pool whole after; (vi) /metrics' spec
      series equal the engine's stats; B1 launches 32 a target admission;
+  4h. the rolling-window KV cache on Mistral-7B-v0.1's published config
+     (sliding window 4096, random bf16 weights): (i) at its widths cut to 2
+     layers in fp32, a 4200-token prompt's 48 greedy ids on a rolling
+     engine (max_len 8192) at depth 1 and 2, with a random 1-layer draft
+     (rejections across the wrap) and after a prefix-cache hit, each the
+     teacher-forced fp32 full forward's argmax; (ii) the full model past
+     the window, four prompts at once (6000, 4090, 2000, 100 tokens), 128
+     ids each: ids against one teacher-forced bf16 full forward each (B1 with mask code
+     3) under 4g's near-tie rule, no B1 launch in the engine, the cache's
+     bytes, ms per 4-row step over 8 dispatches, one decode chunk's wall
+     (median of 5) and profile (the read's concat and masks); (iii) within the window (max_len 4096, a causal
+     view): ids, B1 32 a first admission chunk; (iv) a 5000-token shared
+     head: hit ids equal cold ones, admission seconds; (v) one row as a
+     spec target: ids against vanilla rolling, acceptance, ms a dispatch;
+     (vi) a 4-layer huggingface bundle over --storage-uri: a 5000-token
+     request's ids equal the engine's;
   5. training: llama_1b at full width and depth through the trainer's entry
      point (batch 12, seq 1024, 3 warm-up + 10 timed steps): finite losses,
      the first near ln(V), every step's launches (2 forward per layer under
@@ -166,7 +182,8 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
      kernels, each save's seconds and bytes; then, at 4 layers, a worker
      launched as the control plane launches it and killed by TPK_FAULT
      (SIGKILL), whose relaunch resumes from its last checkpoint with the
-     losses of a fault-free run bit for bit; then the same with spec.lora;
+     losses of a fault-free run (on the card beside the faulted worker)
+     bit for bit; then the same with spec.lora;
   5c. LoRA fine-tuning: llama3_8b at full width and depth (fp32 masters
      frozen, rank 16 adapters on attn_mlp) through the trainer (batch 4,
      seq 2048, 3 warm-up + 5 timed steps): every step's flash launches,
@@ -176,9 +193,9 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
      bf16 lora_rank=0 model held against the trained model (in fp32, and
      as trained), and that model behind the engine answering greedy
      requests at pipeline_depth 2;
-  5d. the four remat policies at phase 5's point through the trainer, three
-     steps each: ms/step, peak memory, flash launches a step, and losses
-     equal to "nothing"'s;
+  5d. the four remat policies at phase 5's point through the trainer, one
+     run of three steps each: ms/step, peak memory, flash launches a step,
+     and losses equal to "nothing"'s;
   6. attention_impl="auto" on configs the wgmma kernels do not take
      (llama_tiny: bf16, head_dim 16; llama_1b's widths in fp32, 2 layers):
      a prefill and a training step run through the CUDA-core kernels, with
@@ -351,8 +368,8 @@ LORA_SERVE = {"slots": 4, "max_len": 1024, "chunk": 16,
               "prefill_buckets": [128, 512], "pipeline_depth": 2}
 LORA_REQUESTS, LORA_MAX_TOKENS = (5, 100, 500), 48
 # Phase 5d: each remat policy at phase 5's point, REMAT_STEPS steps a
-# run, the policies run in turns (in order, then in reverse); the first
-# step's time (allocations) is left out of ms/step. The losses must equal
+# run, one run each; the first step's time (allocations) is left out of
+# ms/step. The losses must equal
 # "nothing"'s within REMAT_LOSS_REL (bit-equal is expected: a policy
 # changes what is recomputed, never a value).
 REMAT_STEPS, REMAT_LOSS_REL = 3, 1e-6
@@ -480,6 +497,49 @@ DRAFT_CONFIG = {"architectures": ["LlamaForCausalLM"],
                                  "rope_type": "llama3"},
                 "rope_theta": 500000.0, "tie_word_embeddings": True,
                 "torch_dtype": "bfloat16", "vocab_size": 128256}
+# 4h: the rolling-window KV cache on the published config.json of
+# mistralai/Mistral-7B-v0.1 (a sliding window of 4096 tokens on every layer:
+# the Mistral 7B paper's rolling buffer cache), mapped by
+# llama_config_from_hf, random weights from the seed in bf16. (i) fp32
+# exactness at its widths cut to ROLLING_FP32_LAYERS layers: a prompt of
+# ROLLING_FP32_PROMPT tokens, ROLLING_FP32_TOKENS greedy ids on a rolling
+# engine at depth 1 and 2, the same with a random 1-layer causal draft at
+# gamma SPEC_GAMMA (rejections across the wrap), and a prefix-cache hit:
+# every id the teacher-forced fp32 full forward's argmax, no near-tie
+# allowed. (ii) The full model past the window (ROLLING_GEN: max_len 8192,
+# prompt buckets clamped to the window), four greedy prompts of
+# ROLLING_PROMPT_LENS at once (6000 wraps at admission, 4090 in decode),
+# ROLLING_MAX_TOKENS ids each: the ms per step is read over that many
+# decode dispatches, and one decode chunk's wall over ROLLING_WALL_REPS
+# calls.
+# (iii) Within the window (WITHIN_GEN, max_len 4096: a causal view with B1
+# prefill), WITHIN_PROMPT_LENS. (iv) A shared head of ROLLING_PREFIX_HEAD
+# tokens and ROLLING_PREFIX_TAILS. (v) One row of ROLLING_SPEC_PROMPT
+# tokens as a spec target, the target's weights as its causal draft. (vi) A
+# huggingface bundle of MISTRAL_HF_LAYERS layers over --storage-uri, one
+# MISTRAL_HTTP_PROMPT-token request. bf16 ids are held to one
+# teacher-forced full forward per prompt (B1 with mask code 3) under 4g's
+# near-tie rule.
+MISTRAL_CONFIG = {"architectures": ["MistralForCausalLM"], "bos_token_id": 1,
+                  "eos_token_id": 2, "hidden_act": "silu",
+                  "hidden_size": 4096, "initializer_range": 0.02,
+                  "intermediate_size": 14336,
+                  "max_position_embeddings": 32768, "model_type": "mistral",
+                  "num_attention_heads": 32, "num_hidden_layers": 32,
+                  "num_key_value_heads": 8, "rms_norm_eps": 1e-05,
+                  "rope_theta": 10000.0, "sliding_window": 4096,
+                  "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+                  "use_cache": True, "vocab_size": 32000}
+MISTRAL_PARAMS, MISTRAL_NAME = 7_241_732_096, "mistral_7b"
+ROLLING_GEN = {"slots": 4, "max_len": 8192, "chunk": CHUNK,
+               "prefill_buckets": [128, 512, 2048]}
+WITHIN_GEN = dict(ROLLING_GEN, max_len=4096)
+ROLLING_PROMPT_LENS, WITHIN_PROMPT_LENS = (6000, 4090, 2000, 100), (4000, 1000)
+ROLLING_MAX_TOKENS, ROLLING_WALL_REPS = 128, 5
+ROLLING_FP32_LAYERS, ROLLING_FP32_PROMPT, ROLLING_FP32_TOKENS = 2, 4200, 48
+ROLLING_PREFIX_HEAD, ROLLING_PREFIX_TAILS = 5000, (300, 700)
+ROLLING_SPEC_PROMPT = 4200
+MISTRAL_HF_LAYERS, MISTRAL_HTTP_PROMPT = 4, 5000
 # 4c: int8 weights and KV must bring the serving peak this far under
 # phase 4's (bf16 weights 14.96 GiB; an int8 copy is ~7.5 GiB).
 QUANT_PEAK_SAVING_MIN_GIB = 5.0
@@ -510,7 +570,7 @@ QMM_RAGGED = [(100, 384, 200), (64, 128, 128), (32, 100, 64),
 # over 4 ranks of 8192, with few repetitions at that size. The plain
 # versions run there on RING_PLAIN_KV_HEADS kv heads per call (fp32 scores
 # of one shard pair for 8 heads would take 8.6 GB).
-RING_NS, RING_BS, RING_SS = (2, 4, 8), (1, 2), (512, 800, 2048)
+RING_NS, RING_BS, RING_SS = (2, 4, 8), (1,), (512, 800, 2048)
 RING_HEADS, RING_DS = ((8, 2), (4, 4), (32, 8)), (64, 128)
 RING_FULL = (4, 1, 32768, 32, 8, 128)  # n, B, S, H, KH, D
 RING_REPS, RING_PLAIN_KV_HEADS = 3, 2
@@ -2623,11 +2683,10 @@ def phase_multilora(bundle: str, work: str) -> dict:
     """4e (ii): two PEFT adapters on phase 4's full llama3_8b bundle
     (`generative.adapters`), four concurrent requests (two base, one per
     adapter, the ml_b one as the OpenAI model "llama3_8b:ml_b"), then the
-    same four paged, and on base-only engines flat and paged. Gates: base
-    rows = the base-only engine's; adapter rows = their lone runs on the
-    same engine and within the fp32 gate; each adapter changes its row;
-    paged = flat; the adapters listed by /openai/v1/models and the
-    metadata."""
+    same four paged, and on a base-only engine. Gates: base rows = the
+    base-only engine's; adapter rows = their lone runs on the same engine
+    and within the fp32 gate; each adapter changes its row; paged = flat;
+    the adapters listed by /openai/v1/models and the metadata."""
     t_phase = time.monotonic()
     cfg = registry.model_config(MODEL, **MODEL_KWARGS)
     dirs = {name: multilora.write_synthetic_adapter(
@@ -2659,7 +2718,6 @@ def phase_multilora(bundle: str, work: str) -> dict:
     plain = [{k: v for k, v in b.items() if k != "adapter"} for b in bodies]
     base_only = _ml_serve(bundle, {}, plain, probe=lambda base, server: {
         "chunk": _chunk_launches(server)})
-    base_paged = _ml_serve(bundle, {"kv_block_size": KV_BLOCK_SIZE}, plain)
     ids, base_ids, checks = mixed["ids"], base_only["ids"], mixed["checks"]
     expect = cfg.num_layers * len(bodies)
     gates = {
@@ -2672,8 +2730,7 @@ def phase_multilora(bundle: str, work: str) -> dict:
                            for r, floor, last, _ in checks),
         "3 each adapter changes its row": all(
             ids[i] != base_ids[i] for i in ad_rows),
-        "4 paged = flat": (mixed_paged["ids"] == ids
-                           and base_paged["ids"] == base_ids),
+        "4 paged = flat": mixed_paged["ids"] == ids,
         "5 adapters listed": (mixed["named"] == sorted(dirs) and all(
             f"{MODEL}:{n}" in mixed["listed"] for n in dirs)),
         "flash launches": mixed["launches"] == expect,
@@ -3471,6 +3528,372 @@ def phase_spec(bundle: str, floor: float, gk) -> dict:
             "draft_load_s": dinfo["load_s"]}
 
 
+def _b1_launches() -> int:
+    """B1's forward launches on either route (flash_fwd.cu, and
+    flash_simt.cu's forwards)."""
+    return fa.flash_fwd_launches + fa.flash_simt_fwd_launches
+
+
+def _teacher_forced(model, prompt: list, ids: list) -> torch.Tensor:
+    """fp32 logit rows [len(ids), V] of one full forward over prompt +
+    ids[:-1] through the model's own attention (B1, sliding-window mask),
+    row j at the position that chose ids[j]."""
+    tokens = torch.tensor([prompt + ids[:-1]], device=DEVICE)
+    with torch.inference_mode():
+        hidden = model(tokens, return_hidden=True)
+        return model.unembed(hidden[0, len(prompt) - 1:]).float()
+
+
+def _tf_gate(model, prompt: list, ids: list, floor: float) -> dict:
+    """`ids` against the teacher-forced argmax at every position: each id
+    the argmax or, in bf16 (`floor` > 0), a near-tie by 4g's rule (its
+    logit within SPEC_TIE_SIGMAS x sqrt(2) x floor x the row's rms of the
+    top one); `floor` 0 asks for every id equal."""
+    rows = _teacher_forced(model, prompt, ids)
+    top = rows.argmax(-1)
+    got = torch.tensor(ids, device=rows.device)
+    gap = (rows.gather(1, top[:, None]) - rows.gather(1, got[:, None]))[:, 0]
+    bound = (SPEC_TIE_SIGMAS * math.sqrt(2) * floor
+             * rows.pow(2).mean(-1).sqrt())
+    parts = top != got
+    ok = bool((~parts | (gap <= bound)).all()) and len(ids) == rows.shape[0]
+    ratio = [round(float(g / b), 4) for g, b, p in zip(gap, bound, parts)
+             if p] if floor else []
+    return {"ok": ok, "parts": int(parts.sum()), "n": len(ids),
+            "gap_over_bound": ratio}
+
+
+def _tf_line(what: str, prompt: list, res: dict) -> None:
+    log(f"    {what}: prompt {len(prompt)}, {res['n']} ids, "
+        f"{res['n'] - res['parts']} the teacher-forced argmax"
+        + (f", {res['parts']} near-ties (gap / bound "
+           f"{res['gap_over_bound']})" if res["parts"] else "")
+        + f" {'OK' if res['ok'] else 'FAIL'}")
+
+
+def _last_boundary(n: int, cfg) -> int:
+    """The last prompt-chunk boundary at or before `n` tokens on a rolling
+    engine of ROLLING_GEN (chunks of the largest bucket, clamped to the
+    window): where a prefix-cache hit of a prompt sharing n tokens lands."""
+    big = min(max(ROLLING_GEN["prefill_buckets"]), cfg.mask_window)
+    return n // big * big
+
+
+def _rolling_exactness(cfg) -> dict:
+    """4h (i): Mistral's widths at ROLLING_FP32_LAYERS layers in fp32, one
+    prompt past the window on one-slot rolling engines: vanilla and spec
+    (a random 1-layer causal draft) at depth 1 and 2, and a prefix-cache
+    hit; every run's ids equal the teacher-forced fp32 full forward's
+    argmax (B1 with the sliding-window mask on flash_simt.cu)."""
+    cfg32 = dataclasses.replace(cfg, num_layers=ROLLING_FP32_LAYERS,
+                                dtype=torch.float32)
+    model = llama_mod.Llama(cfg32, device=DEVICE).init_weights(SEED).eval()
+    draft = llama_mod.Llama(dataclasses.replace(
+        cfg32, num_layers=1, mask_kind="causal", mask_window=0),
+        device=DEVICE).init_weights(SEED + 21).eval()
+    prompt = np.random.default_rng(SEED + 40).integers(
+        0, cfg.vocab_size, ROLLING_FP32_PROMPT).tolist()
+    gen = dict(ROLLING_GEN, slots=1)
+    n = ROLLING_FP32_TOKENS
+    runs: dict = {}
+    b0 = _b1_launches()
+    for depth in (1, 2):
+        for name, d in (("vanilla", None), ("spec", draft)):
+            eng = GenerationEngine(model, **gen, pipeline_depth=depth, **(
+                {"draft": {"model": d, "gamma": SPEC_GAMMA}} if d else {}))
+            runs[f"{name} depth {depth}"] = (
+                eng.submit(prompt, max_tokens=n, timeout=600)["output_ids"],
+                eng.stats_snapshot())
+            _close(eng)
+    eng = GenerationEngine(model, **gen, prefix_cache=4)
+    eng.submit(prompt, max_tokens=n, timeout=600)
+    runs["prefix hit"] = (eng.submit(prompt, max_tokens=n,
+                                     timeout=600)["output_ids"],
+                          eng.stats_snapshot())
+    _close(eng)
+    engine_b1 = _b1_launches() - b0
+    want: dict = {}
+    ok = engine_b1 == 0
+    for key, (ids, st) in runs.items():
+        if tuple(ids) not in want:
+            want[tuple(ids)] = _tf_gate(model, prompt, ids, 0.0)
+        res = want[tuple(ids)]
+        ok &= res["ok"]
+        extra = ""
+        if st["spec_dispatches"]:
+            ok &= 0 < st["spec_proposed"] - st["spec_accepted"]
+            extra = (f"; accepted/proposed {st['spec_accepted']}/"
+                     f"{st['spec_proposed']} over {st['spec_dispatches']} "
+                     "spec dispatches")
+        if key == "prefix hit":
+            ok &= (st["prefix_hits"], st["prefix_hit_tokens"]) == (
+                1, _last_boundary(len(prompt) - 1, cfg))
+            extra = (f"; prefix hits {st['prefix_hits']} of "
+                     f"{st['prefix_hit_tokens']} tokens")
+        log(f"  (i) fp32 {ROLLING_FP32_LAYERS} layers, {key}: {len(ids)} ids "
+            f"{'all' if res['ok'] else 'NOT all'} the teacher-forced argmax"
+            + extra)
+    log(f"  (i) B1 launches in the rolling engines {engine_b1}")
+    del model, draft
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"ok": ok, "runs": len(runs)}
+
+
+def _rolling_decode_profile(engine, positions: list) -> dict | None:
+    """One decode chunk of the idle rolling engine (CHUNK steps, row i at
+    positions[i], greedy) through its own decode function, profiled; its
+    unprofiled wall first, over ROLLING_WALL_REPS calls (the median
+    kept)."""
+    n = engine.n_slots
+    args = [torch.ones(n, dtype=torch.long, device=DEVICE),
+            torch.tensor(positions, dtype=torch.long, device=DEVICE),
+            torch.zeros(n, device=DEVICE),
+            torch.zeros(n, dtype=torch.long, device=DEVICE),
+            torch.ones(n, device=DEVICE)]
+    fn = engine._decode[(engine.decode_buckets[0], False)]
+
+    def call():
+        fn(engine._cache, *args, engine._gen, None)
+    walls = []
+    with torch.inference_mode():
+        call()
+        torch.cuda.synchronize()
+        for _ in range(ROLLING_WALL_REPS):
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        wall = float(np.median(walls))
+        rec = _profile(f"rolling decode chunk ({CHUNK} steps, {n} rows at "
+                       f"{positions}, window {engine.decode_buckets[0]})",
+                       call)
+    if rec:
+        rec["unprofiled_wall_ms"] = wall
+        rec["unprofiled_walls_ms"] = walls
+        for what, keys in (("the read's concat", ("CatArray", "cat_")),
+                           ("the read's masks (where)", ("where",))):
+            hit = [(k, ms, c) for k, (ms, c) in rec["by_name"].items()
+                   if any(x in k for x in keys)]
+            rec[what] = sum(ms for _, ms, _ in hit)
+            log(f"    {what}: {rec[what]:.2f} ms in {sum(c for *_, c in hit)}"
+                f" launches ({[k[:60] for k, _, _ in hit][:3]})")
+        log(f"    per step: unprofiled wall {wall / CHUNK:.2f} ms (median "
+            f"of {[round(w / CHUNK, 2) for w in walls]}), device busy "
+            f"{rec['busy_ms'] / CHUNK:.2f} ms")
+    return rec
+
+
+def phase_rolling(work: str, floor: float) -> dict:
+    """4h: the rolling-window cache on Mistral-7B-v0.1's config (see
+    MISTRAL_CONFIG): (i) fp32 exactness, (ii) the full model past the
+    window, (iii) within it, (iv) prefix reuse, (v) a spec target, (vi)
+    over HTTP."""
+    t_phase = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    gates: dict = {}
+    checks = {"flash": 0}
+    cfg = hf_mod.llama_config_from_hf(MISTRAL_CONFIG)
+    window = cfg.mask_window
+    gates["config"] = (cfg.num_params == MISTRAL_PARAMS and (
+        cfg.mask_kind, window, cfg.vocab_size) == ("sliding_window", 4096,
+                                                   32000))
+    log(f"  {MISTRAL_CONFIG['architectures'][0]} config.json: "
+        f"{cfg.num_params} parameters, mask {cfg.mask_kind} window {window}, "
+        f"max_seq_len {cfg.max_seq_len}, rope_theta {cfg.rope_theta}, "
+        f"attention_impl {cfg.attention_impl}")
+    t0 = time.monotonic()
+    small = _rolling_exactness(cfg)
+    gates["i fp32 ids = teacher-forced argmax, rejections, a hit"] = (
+        small["ok"])
+    log(f"  (i) took {time.monotonic() - t0:.1f}s")
+    model = llama_mod.Llama(cfg, device=DEVICE).init_weights(SEED).eval()
+    rng = np.random.default_rng(SEED + 41)
+    bodies = _spec_bodies(cfg.vocab_size, ROLLING_PROMPT_LENS, SEED + 41,
+                          max_tokens=ROLLING_MAX_TOKENS)
+    rolling_b1 = 0
+    # (ii) past the window, four rows
+    t0 = time.monotonic()
+    eng = GenerationEngine(model, **ROLLING_GEN)
+    cache_bytes = {n: t.numel() * t.element_size()
+                   for n, t in eng._cache.items()}
+    b0 = _b1_launches()
+    torch.cuda.reset_peak_memory_stats()
+    ids, st = _engine_burst(eng, bodies)
+    peak = torch.cuda.max_memory_allocated()
+    rolling_b1 += _b1_launches() - b0
+    step_ms = _step_ms({"decode_dispatches": 0, "decode_seconds": 0.0}, st)
+    prof = _rolling_decode_profile(
+        eng, [n + ROLLING_MAX_TOKENS for n in ROLLING_PROMPT_LENS])
+    _close(eng)
+    engine_b1 = _b1_launches() - b0
+    gates["ii cache bytes"] = (
+        cache_bytes["k"] + cache_bytes["v"] == 2_147_483_648
+        and cache_bytes["pos"] == 2_097_152)
+    gates["ii engine (buckets) and overlap"] = st[
+        "decode_fetch_overlapped"] > 0
+    log(f"  (ii) {len(bodies)} prompts {ROLLING_PROMPT_LENS} at once, "
+        f"{ROLLING_MAX_TOKENS} greedy ids each (max_len "
+        f"{ROLLING_GEN['max_len']}, "
+        f"window {window}): {st['prefill_chunks']} prefill chunks, "
+        f"{st['decode_dispatches']} decode dispatches, "
+        f"{step_ms:.2f} ms per 4-row step (host-inclusive); cache "
+        f"{cache_bytes}; peak {peak / 2**30:.2f} GiB; B1 launches in the "
+        f"engine's run {engine_b1}; {time.monotonic() - t0:.1f}s; {smi()}")
+    gates["ii B1 launches 0"] = engine_b1 == 0
+    res = [_tf_gate(model, b["input_ids"], g, floor)
+           for b, g in zip(bodies, ids)]
+    for b, r in zip(bodies, res):
+        _tf_line("(ii)", b["input_ids"], r)
+    gates["ii ids vs teacher-forced bf16 (near-tie rule)"] = all(
+        r["ok"] for r in res)
+    # (iii) within the window: a causal view
+    t0 = time.monotonic()
+    wbodies = _spec_bodies(cfg.vocab_size, WITHIN_PROMPT_LENS, SEED + 42)
+    eng = GenerationEngine(model, **WITHIN_GEN)
+    view_ok = (eng._rolling == 0 and eng.cfg.mask_kind == "causal"
+               and "pos" not in eng._cache
+               and model.cfg.mask_kind == "sliding_window")
+    b0 = _b1_launches()
+    wids, wst = _engine_burst(eng, wbodies)
+    within_b1 = _b1_launches() - b0
+    _close(eng)
+    gates["iii a causal view, the model unchanged"] = view_ok
+    gates["iii B1 = 32 a first admission chunk"] = (
+        within_b1 == cfg.num_layers * wst["requests"])
+    log(f"  (iii) within the window (max_len {WITHIN_GEN['max_len']}): "
+        f"prompts {WITHIN_PROMPT_LENS}, {wst['prefill_chunks']} prefill "
+        f"chunks of which {wst['requests']} first chunks; B1 launches "
+        f"{within_b1} (expected {cfg.num_layers} x {wst['requests']}); "
+        f"{_step_ms({'decode_dispatches': 0, 'decode_seconds': 0.0}, wst):.2f}"
+        f" ms per step; {time.monotonic() - t0:.1f}s")
+    wres = [_tf_gate(model, b["input_ids"], g, floor)
+            for b, g in zip(wbodies, wids)]
+    for b, r in zip(wbodies, wres):
+        _tf_line("(iii)", b["input_ids"], r)
+    gates["iii ids vs teacher-forced bf16"] = all(r["ok"] for r in wres)
+    # (iv) prefix reuse past the window
+    t0 = time.monotonic()
+    head = rng.integers(0, cfg.vocab_size, ROLLING_PREFIX_HEAD).tolist()
+    a, b = (head + rng.integers(0, cfg.vocab_size, n).tolist()
+            for n in ROLLING_PREFIX_TAILS)
+    eng = GenerationEngine(model, **ROLLING_GEN, prefix_cache=PREFIX_CAP)
+    admits: list = []
+    _timed(eng, "_admit", admits)
+    b0 = _b1_launches()
+    runs = {}
+    for name, p in (("A", a), ("B hit", b)):
+        runs[name] = eng.submit(p, max_tokens=MAX_TOKENS,
+                                timeout=600)["output_ids"]
+    sp = eng.stats_snapshot()
+    frag = next(iter(eng._prefix_lru.values()))[1]
+    frag_bytes = sum(t.numel() * t.element_size() for t in frag.values())
+    _evict_all(eng)
+    runs["B cold"] = eng.submit(b, max_tokens=MAX_TOKENS,
+                                timeout=600)["output_ids"]
+    rolling_b1 += _b1_launches() - b0
+    _close(eng)
+    gates["iv hit ids = cold ids"] = runs["B hit"] == runs["B cold"]
+    gates["iv one hit at the head's last chunk boundary"] = (
+        (sp["prefix_hits"], sp["prefix_hit_tokens"])
+        == (1, _last_boundary(ROLLING_PREFIX_HEAD, cfg)))
+    log(f"  (iv) shared head {ROLLING_PREFIX_HEAD}, tails "
+        f"{ROLLING_PREFIX_TAILS}: hits {sp['prefix_hits']} of "
+        f"{sp['prefix_hit_tokens']} tokens, {sp['prefix_stores']} stores, "
+        f"a stored fragment {frag['k'].shape[2]} rows and {sorted(frag)}, "
+        f"{frag_bytes} bytes; admission s A {admits[0][0]:.4f}, B hit "
+        f"{admits[1][0]:.4f}, B cold {admits[2][0]:.4f}; B's ids hit "
+        f"{'=' if runs['B hit'] == runs['B cold'] else '!='} cold; "
+        f"{time.monotonic() - t0:.1f}s")
+    # (v) a spec target: the target's weights as its causal draft
+    t0 = time.monotonic()
+    sbody = _spec_bodies(cfg.vocab_size, (ROLLING_SPEC_PROMPT,), SEED + 43)
+    one = dict(ROLLING_GEN, slots=1)
+    eng = GenerationEngine(model, **one, pipeline_depth=1)
+    b0 = _b1_launches()
+    want, vst = _engine_burst(eng, sbody)
+    _close(eng)
+    draft = llama_mod.config_view(model, dataclasses.replace(
+        cfg, mask_kind="causal", mask_window=0, attention_impl="auto"))
+    eng = GenerationEngine(model, **one, pipeline_depth=1,
+                           draft={"model": draft, "gamma": SPEC_GAMMA})
+    got, sst = _engine_burst(eng, sbody)
+    _close(eng)
+    rolling_b1 += _b1_launches() - b0
+    van = _spec_line("(v) vanilla rolling, one row, depth 1", vst, 1)
+    spec = _spec_line("(v) spec on the rolling target, gamma "
+                      f"{SPEC_GAMMA}, depth 1", sst, 1)
+    gates["v ids vs vanilla rolling (near-tie rule)"] = _ids_gate(
+        model, sbody, want, got, floor, "(v)", checks)
+    gates["v speculated"] = sst["spec_dispatches"] > 0
+    log(f"  (v) {time.monotonic() - t0:.1f}s")
+    del model, draft
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (vi) a huggingface bundle over --storage-uri
+    t0 = time.monotonic()
+    hf4 = dict(MISTRAL_CONFIG, num_hidden_layers=MISTRAL_HF_LAYERS)
+    cfg4 = hf_mod.llama_config_from_hf(hf4)
+    ref = llama_mod.Llama(cfg4, device=DEVICE).init_weights(SEED).eval()
+    ckpt = os.path.join(work, "hf_mistral")
+    nbytes, write_s = _write_hf_checkpoint(ckpt, ref.state_dict(), cfg4, hf4)
+    with open(os.path.join(ckpt, "model.json"), "w") as f:
+        json.dump({"format": "huggingface", "generative": ROLLING_GEN}, f)
+    body = _spec_bodies(cfg.vocab_size, (MISTRAL_HTTP_PROMPT,), SEED + 44)[0]
+    server, port = server_mod.start([
+        "--storage-uri", f"file://{ckpt}", "--name", MISTRAL_NAME, "--host",
+        "127.0.0.1", "--port", "0", "--device", DEVICE])
+    base = f"http://127.0.0.1:{port}"
+    try:
+        b0 = _b1_launches()
+        served = _post(f"{base}/v1/models/{MISTRAL_NAME}:generate",
+                       body)["output_ids"]
+        http_b1 = _b1_launches() - b0
+        with urllib.request.urlopen(f"{base}/v2/models/{MISTRAL_NAME}",
+                                    timeout=30) as r:
+            buckets = json.loads(r.read())["decode_buckets"]
+    finally:
+        server.stop()
+        del server
+        gc.collect()
+    eng = GenerationEngine(ref, **ROLLING_GEN)
+    b0 = _b1_launches()
+    local = eng.submit(body["input_ids"], max_tokens=MAX_TOKENS,
+                       timeout=600)["output_ids"]
+    http_b1 += _b1_launches() - b0
+    _close(eng)
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    rolling_b1 += http_b1
+    gates["vi served ids = the engine's on the same weights"] = (
+        served == local)
+    gates["vi decode_buckets [window]"] = buckets == [window]
+    log(f"  (vi) {MISTRAL_HF_LAYERS} layers of Mistral-7B-v0.1's widths, "
+        f"{nbytes} bytes written in {write_s:.2f}s, served through "
+        f"--storage-uri file://{ckpt}: a {MISTRAL_HTTP_PROMPT}-token "
+        f"request's {len(served)} ids "
+        f"{'equal' if served == local else 'DIFFER from'} the engine's; "
+        f"decode_buckets {buckets}; B1 launches {http_b1}; "
+        f"{time.monotonic() - t0:.1f}s")
+    gates["B1 launches 0 on every rolling engine"] = rolling_b1 == 0
+    log(f"  B1 launches: rolling engines {rolling_b1}, within the window "
+        f"{within_b1}; checks' forwards {checks['flash']} (near-tie) beside "
+        f"the teacher-forced ones; 4h took {time.monotonic() - t_phase:.1f}s"
+        f"; {smi()}")
+    for gate, ok in gates.items():
+        log(f"  gate {gate}: {'OK' if ok else 'FAIL'}")
+    if not all(gates.values()):
+        raise RuntimeError(f"rolling-window gates failed: "
+                           f"{[g for g, ok in gates.items() if not ok]}")
+    return {"launches": {"rolling_serving": rolling_b1,
+                         "window_serving": within_b1},
+            "step_ms": step_ms, "vanilla": van, "spec": spec,
+            "profile": prof, "admit_s": [t for t, _ in admits],
+            "cache_bytes": cache_bytes, "peak_gib": peak / 2**30}
+
+
 def _decode_in_situ(ordered_ms: list) -> dict | None:
     """The decode kernel's device ms by shape inside a decode chunk, read
     from its launches in order (W8A16_STEP_ORDER a layer, then the
@@ -3668,7 +4091,9 @@ def _profile(label: str, fn, ordered: str | None = None) -> dict | None:
     for evt in kernels[:8]:
         log(f"    top: {evt.self_device_time_total / 1e3:8.2f} ms "
             f"x{evt.count:<5d} {evt.key[:90]}")
-    rec = {"wall_ms": wall, "busy_ms": busy, "families": families}
+    rec = {"wall_ms": wall, "busy_ms": busy, "families": families,
+           "by_name": {e.key: (e.self_device_time_total / 1e3, e.count)
+                       for e in kernels}}
     if ordered:
         mine = sorted((e for e in prof.events()
                        if e.device_type == DeviceType.CUDA
@@ -4235,7 +4660,7 @@ def _job_resume(cfg, work: str, corpus: str,
                 lora: dict | None = None) -> dict:
     """5b-ii: three workers launched as the controller launches them. A
     fault-free reference (the same spec without checkpoints, which do not
-    enter the losses), the spec with checkpoints and TPK_FAULT (it must
+    enter the losses; it runs beside the faulted worker), the spec with checkpoints and TPK_FAULT (it must
     die by SIGKILL after logging fault_injected), and its relaunch, which
     must log `restored` at the last checkpoint and reach the final step
     with the reference's losses bit for bit. With `lora` (a spec.lora),
@@ -4258,15 +4683,41 @@ def _job_resume(cfg, work: str, corpus: str,
         "three runs), "
         f"{JOB_RESUME_STEPS} steps, checkpoint every {JOB_RESUME_INTERVAL}, "
         f"TPK_FAULT={JOB_FAULT}")
-    runs = {}
-    for name, spec, fault in (
-            ("reference", _job_spec(corpus, **kw), None),
-            ("faulted", _job_spec(corpus, checkpoint=ckpt, **kw), JOB_FAULT),
-            ("relaunch", _job_spec(corpus, checkpoint=ckpt, **kw), None)):
+    runs: dict = {}
+
+    def launch(name, workdir, spec, fault):
         t0 = time.monotonic()
-        rc, recs = _worker(work, spec, fault)
+        try:
+            rc, recs = _worker(workdir, spec, fault)
+        except Exception as e:  # raised below, after the other workers
+            runs[name] = e
+            return
         runs[name] = (rc, recs, time.monotonic() - t0)
-        log(f"    {name}: exit {rc} in {runs[name][2]:.1f}s; events "
+
+    # The reference takes no checkpoint and has a workdir of its own, so it
+    # runs on the card beside the faulted worker; the relaunch follows the
+    # fault.
+    ref_dir = os.path.join(work, "resume_reference_lora" if lora
+                           else "resume_reference")
+    os.makedirs(ref_dir, exist_ok=True)
+    beside = threading.Thread(target=launch, args=(
+        "reference", ref_dir, _job_spec(corpus, **kw), None))
+    beside.start()
+    try:
+        launch("faulted", work, _job_spec(corpus, checkpoint=ckpt, **kw),
+               JOB_FAULT)
+        launch("relaunch", work, _job_spec(corpus, checkpoint=ckpt, **kw),
+               None)
+    finally:
+        beside.join()
+    for name in ("reference", "faulted", "relaunch"):
+        if not isinstance(runs.get(name), tuple):
+            raise RuntimeError(f"5b-ii worker {name} failed: "
+                               f"{runs.get(name)!r}")
+        rc, recs, sec = runs[name]
+        log(f"    {name}: exit {rc} in {sec:.1f}s"
+            f"{' (beside the faulted run)' if name == 'reference' else ''}"
+            f"; events "
             f"{[(r['step'], r['event']) for r in recs if 'event' in r]}; "
             f"losses {_step_losses(recs)}")
     ref, bad, again = (runs[n][1] for n in ("reference", "faulted",
@@ -4550,7 +5001,7 @@ def phase_remat() -> dict:
     step, and the losses against "nothing"'s."""
     layers = registry.model_config(TRAIN_MODEL).num_layers
     rows = {p: [] for p in llama_mod.REMAT_POLICIES}
-    for policy in [*rows, *reversed(rows)]:
+    for policy in rows:
         spec = trainer_mod.TrainJobSpec(
             model=TRAIN_MODEL, model_kwargs={"remat_policy": policy},
             dataset="synthetic_lm", batch_size=TRAIN_BATCH,
@@ -4592,7 +5043,7 @@ def phase_remat() -> dict:
                                     for i in range(3)],
                        "losses": runs[0]["losses"], "max_loss_diff": diff}
         log(f"  remat_policy {policy:13s}: {out[policy]['ms_per_step']:.2f} "
-            f"ms/step (steps 2-{REMAT_STEPS} of both runs: "
+            f"ms/step (steps 2-{REMAT_STEPS}: "
             f"{', '.join(f'{x:.2f}' for x in ms)}), peak "
             f"{out[policy]['peak_gib']:.2f} GiB, launches a step (fwd, dq, "
             f"dkv) {runs[0]['launches_per_step'][-1]}; losses "
@@ -4683,67 +5134,72 @@ def main() -> int:
         raise RuntimeError(f"a no-spill kernel spills: "
                            f"{ {k: n for k, n in spills.items() if n} }")
     t0 = time.monotonic()
-    log("phase 2: kernels vs plain versions")
-    kern = phase_kernels()
-    log("phase 2b: backward kernels vs the plain backward")
-    bwd = phase_backward()
+    seconds: dict = {"build": secs}
+
+    def run(name: str, what: str, fn, *args):
+        """Log phase `name`, run it, log and keep its seconds."""
+        log(f"phase {name}: {what}")
+        start = time.monotonic()
+        out = fn(*args)
+        seconds[name] = round(time.monotonic() - start, 1)
+        log(f"  phase {name} took {seconds[name]}s")
+        return out
+
+    kern = run("2", "kernels vs plain versions", phase_kernels)
+    bwd = run("2b", "backward kernels vs the plain backward", phase_backward)
     gk = _gpu_tests()
-    log("phase 2e: the CUDA-core flash kernels vs the plain versions")
-    simt = phase_simt(gk)
-    log("phase 2c: the W8A8 int8 matmul vs its plain version")
-    q8 = phase_qmm()
-    log("phase 2f: the W8A16 matmul vs its plain version")
-    w8r = phase_w8a16(gk)
-    log("phase 2d: ring attention kernels vs plain (all ranks on this "
-        "card)")
-    ring = phase_ring()
-    log(f"phase 3: {MODEL} forward, kernel vs plain attention")
-    floor = phase_model()
+    simt = run("2e", "the CUDA-core flash kernels vs the plain versions",
+               phase_simt, gk)
+    q8 = run("2c", "the W8A8 int8 matmul vs its plain version", phase_qmm)
+    w8r = run("2f", "the W8A16 matmul vs its plain version", phase_w8a16, gk)
+    ring = run("2d", "ring attention kernels vs plain (all ranks on this "
+               "card)", phase_ring)
+    floor = run("3", f"{MODEL} forward, kernel vs plain attention",
+                phase_model)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     bundle = tempfile.mkdtemp(prefix="chip_smoke_bundle_",
                               dir=os.path.join(ROOT, "build"))
     try:
-        log(f"phase 4: serving {MODEL} over HTTP")
-        flat = phase_serving(bundle)
-        log(f"phase 4b: paged serving of {MODEL} (KV blocks of "
-            f"{KV_BLOCK_SIZE})")
-        paged = phase_paged(bundle, flat)
-        log(f"phase 4c: quantized serving of {MODEL} (int8 weights, int8 "
-            "paged KV)")
-        quant = phase_quant(bundle, flat, paged)
-        log(f"phase 4d: the request surface of {MODEL} (streams, the "
-            "OpenAI routes, deadlines, admission, /metrics, a version swap)")
-        surface = phase_surface(bundle, flat)
-        log(f"phase 4e: Hugging Face checkpoints and PEFT adapters: "
-            f"{MODEL}'s widths at {HF_LAYERS} layers through --storage-uri "
-            "and peft_adapter, then multi-LoRA on the full model")
-        t4e = time.monotonic()
-        hf = phase_hf_import(bundle)
-        ml = phase_multilora(bundle, bundle)
-        log(f"  phase 4e took {time.monotonic() - t4e:.1f}s")
-        log(f"phase 4f: KV reuse on {MODEL}: the prefix cache flat, paged "
-            "and on an int8 pool, the host tier, /metrics")
-        prefix = phase_prefix(bundle, floor)
-        log(f"phase 4g: speculative decoding: fp32 exactness, {MODEL} with "
-            "a Llama-3.2-1B-width draft over HTTP, the target as its own "
-            "draft, mixed traffic, int8 weights, /metrics")
-        spec = phase_spec(bundle, floor, gk)
+        flat = run("4", f"serving {MODEL} over HTTP", phase_serving, bundle)
+        paged = run("4b", f"paged serving of {MODEL} (KV blocks of "
+                    f"{KV_BLOCK_SIZE})", phase_paged, bundle, flat)
+        quant = run("4c", f"quantized serving of {MODEL} (int8 weights, "
+                    "int8 paged KV)", phase_quant, bundle, flat, paged)
+        surface = run("4d", f"the request surface of {MODEL} (streams, the "
+                      "OpenAI routes, deadlines, admission, /metrics, a "
+                      "version swap)", phase_surface, bundle, flat)
+        hf, ml = run("4e", f"Hugging Face checkpoints and PEFT adapters: "
+                     f"{MODEL}'s widths at {HF_LAYERS} layers through "
+                     "--storage-uri and peft_adapter, then multi-LoRA on the "
+                     "full model", lambda: (phase_hf_import(bundle),
+                                            phase_multilora(bundle, bundle)))
+        prefix = run("4f", f"KV reuse on {MODEL}: the prefix cache flat, "
+                     "paged and on an int8 pool, the host tier, /metrics",
+                     phase_prefix, bundle, floor)
+        spec = run("4g", f"speculative decoding: fp32 exactness, {MODEL} "
+                   "with a Llama-3.2-1B-width draft over HTTP, the target "
+                   "as its own draft, mixed traffic, int8 weights, /metrics",
+                   phase_spec, bundle, floor, gk)
+        rolling = run("4h", "the rolling-window cache on Mistral-7B-v0.1's "
+                      "config: fp32 exactness, past the window, within it, "
+                      "prefix reuse, a spec target, over HTTP",
+                      phase_rolling, bundle, floor)
     finally:
         shutil.rmtree(bundle, ignore_errors=True)
-    log(f"phase 5: training {TRAIN_MODEL} through the trainer")
-    train = phase_training()
-    log(f"phase 5b: a training job: {TRAIN_MODEL} on packed documents, "
-        "eval, profile, checkpoints, SIGKILL and resume")
-    job = phase_job(train)
-    log(f"phase 5c: LoRA fine-tuning of {LORA_MODEL} through the trainer "
-        f"(spec.lora {json.dumps(LORA)}), merge, serve the merged model")
-    lora_run = phase_lora()
-    log(f"phase 5d: the remat policies on {TRAIN_MODEL} at phase 5's point")
-    remat = phase_remat()
-    log("phase 6: attention_impl='auto' where the wgmma kernels do not "
-        "take the config")
-    simt_launches = phase_auto(gk)
-    log(f"  phases 2-6 took {time.monotonic() - t0:.1f}s")
+    train = run("5", f"training {TRAIN_MODEL} through the trainer",
+                phase_training)
+    job = run("5b", f"a training job: {TRAIN_MODEL} on packed documents, "
+              "eval, profile, checkpoints, SIGKILL and resume", phase_job,
+              train)
+    lora_run = run("5c", f"LoRA fine-tuning of {LORA_MODEL} through the "
+                   f"trainer (spec.lora {json.dumps(LORA)}), merge, serve the "
+                   "merged model", phase_lora)
+    remat = run("5d", f"the remat policies on {TRAIN_MODEL} at phase 5's "
+                "point", phase_remat)
+    simt_launches = run("6", "attention_impl='auto' where the wgmma kernels "
+                        "do not take the config", phase_auto, gk)
+    log(f"  phases 2-6 took {time.monotonic() - t0:.1f}s; seconds by phase "
+        f"{json.dumps(seconds)}")
     main_row, bmain, qmain, wmain = (kern["main"], bwd["main"], q8["main"],
                                      w8r["main"])
     smain, blora = simt["main"], bwd["lora"]
@@ -4756,6 +5212,7 @@ def main() -> int:
                     "multilora_serving": ml["launches"],
                     "prefix_cache": prefix["launches"],
                     "speculative_serving": spec["launches"],
+                    **rolling["launches"],
                     "training": train["launches"][0],
                     "packed_training": job["launches"][0],
                     "lora_training": lora_run["launches"][0],

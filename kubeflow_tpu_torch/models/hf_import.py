@@ -289,8 +289,8 @@ def llama_config_from_hf(hf: dict, **overrides: Any) -> LlamaConfig:
     if hf.get("sliding_window") and hf.get("use_sliding_window", True):
         # Mistral's windowed attention: the flash kernel's banded mask.
         # (Qwen2 configs carry a sliding_window with use_sliding_window
-        # false, so both fields are read.) The serving engine refuses a
-        # sliding-window model by name until its rolling cache is ported.
+        # false, so both fields are read.) The serving engine serves it
+        # causal within the window and on a rolling cache past it.
         fields.update(mask_kind="sliding_window",
                       mask_window=int(hf["sliding_window"]),
                       attention_impl="flash")

@@ -31,6 +31,7 @@ Differences from the JAX twin, by design:
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import functools
 import math
@@ -224,6 +225,21 @@ def _check_supported(cfg: LlamaConfig) -> None:
                                       "package yet")
 
 
+def config_view(module: nn.Module, cfg: LlamaConfig) -> nn.Module:
+    """`module` under another config, without copying a weight: every
+    module of the tree is a shallow copy sharing its parameters and buffers
+    with the original, and each one that carries a config carries `cfg`
+    (int8 projections stay `Int8Dense`). The original is unchanged: the
+    engine serves a sliding-window model within its window through a
+    causal view while the model itself keeps its windowed full forward."""
+    view = copy.copy(module)
+    view._modules = {name: None if child is None else config_view(child, cfg)
+                     for name, child in module._modules.items()}
+    if "cfg" in module.__dict__:
+        view.cfg = cfg
+    return view
+
+
 class RMSNorm(nn.Module):
     def __init__(self, dim: int, eps: float, dtype, device):
         super().__init__()
@@ -273,23 +289,45 @@ def apply_rope(x, cos, sin, positions):
     return out.to(x.dtype)
 
 
+def rolling_window(cfg: LlamaConfig, length: int) -> int:
+    """The window of the rolling cache that `cfg` gets at `length` rows (a
+    sliding window on every layer, shorter than `length`), else 0. The one
+    rule for whether a cache rolls: init_cache lays the cache out by it,
+    the serving engine and its device functions read it, and attention
+    follows the layout ("pos" in the cache)."""
+    window = int(cfg.mask_window)
+    if (cfg.mask_kind == "sliding_window" and cfg.sliding_pattern == "all"
+            and 0 < window < length):
+        return window
+    return 0
+
+
 def init_cache(cfg: LlamaConfig, batch: int, max_len: int | None = None,
                kv_quant: str = "none", device=None) -> dict:
     """Decode KV cache {"k","v"} of [L, B, T, KH, D] (the flat layout; the
     paged engine's pool is the same layout with B = blocks, T = block
     size). `kv_quant` "int8"/"fp8" stores K/V as codes of that type with
-    per-row fp32 scale planes "ks"/"vs" of [L, B, T, KH]."""
+    per-row fp32 scale planes "ks"/"vs" of [L, B, T, KH].
+
+    A sliding-window model whose window is shorter than the requested
+    length (`rolling_window`) gets a ROLLING cache: T = window rows,
+    written modulo the window, and a "pos" plane [L, B, window] of int32
+    holding each row's absolute position (the sentinel -(window+1) for a
+    row never written), so attention masks its reads exactly. A rolling
+    cache never quantizes."""
     if kv_quant not in KV_QUANT_MODES:
         raise ValueError(f"kv_quant {kv_quant!r}: must be one of "
                          f"{KV_QUANT_MODES}")
     t = max_len or cfg.max_seq_len
-    if cfg.mask_kind == "sliding_window" and 0 < cfg.mask_window < t:
+    cache = {}
+    window = rolling_window(cfg, t)
+    if window:
         if kv_quant != "none":
             raise ValueError("kv_quant does not compose with a rolling "
                              "sliding-window cache")
-        raise NotImplementedError(
-            "rolling-window cache (sliding_window mask shorter than the "
-            "cache) is not supported by this package yet")
+        t = window
+        cache["pos"] = torch.full((cfg.num_layers, batch, t), -(window + 1),
+                                  dtype=torch.int32, device=device)
     shape = (cfg.num_layers, batch, t, cfg.num_kv_heads, cfg.head_dim)
     if kv_quant != "none":
         qdt = kv_qdtype(kv_quant)
@@ -299,8 +337,9 @@ def init_cache(cfg: LlamaConfig, batch: int, max_len: int | None = None,
                                   device=device),
                 "vs": torch.zeros(shape[:-1], dtype=torch.float32,
                                   device=device)}
-    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+    cache.update({"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+                  "v": torch.zeros(shape, dtype=cfg.dtype, device=device)})
+    return cache
 
 
 def _update_rows(cache_leaf, new_rows, index):
@@ -322,6 +361,27 @@ def _update_rows(cache_leaf, new_rows, index):
     rows = start[:, None] + torch.arange(s, device=dev)
     batch = torch.arange(b, device=dev)[:, None]
     cache_leaf[batch, rows] = new_rows.to(cache_leaf.dtype)
+
+
+def _update_cache_rolling(cache, k, v, positions, index, window: int):
+    """Modular writes into one layer's rolling cache {"k","v","pos"} ([B,
+    window, ...] planes), in place: chunk row j of batch row b lands in
+    row (index[b] + j) % window with its absolute position. A row whose
+    position is negative (the engine's pad sentinel) keeps the target
+    row's old K, V and position: a pad write must never evict a live row.
+    Callers keep S <= window, so a chunk's target rows are distinct and
+    gather-then-write is well defined. No host sync."""
+    b, s = k.shape[:2]
+    dev = k.device
+    rows = (index.to(torch.long)[:, None]
+            + torch.arange(s, device=dev)) % window
+    batch = torch.arange(b, device=dev)[:, None]
+    valid = positions >= 0
+    for name, new in (("k", k), ("v", v), ("pos", positions)):
+        leaf = cache[name]
+        keep = valid.view(b, s, *([1] * (new.dim() - 2)))
+        leaf[batch, rows] = torch.where(keep, new.to(leaf.dtype),
+                                        leaf[batch, rows])
 
 
 def _dense(cfg: LlamaConfig, in_features: int, out_features: int, device):
@@ -419,12 +479,21 @@ class Attention(nn.Module):
         cfg = self.cfg
         b, s, _ = x.shape
         h, kh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        rolling = cache is not None and "pos" in cache
+        # A rolling decode chunk that runs past the context end may ask for
+        # positions past the RoPE table: its lookups clamp to the last row,
+        # as JAX's gather does (the pad sentinel wraps, as it does there).
+        rope_pos = (positions.clamp_max(cos.shape[0] - 1) if rolling
+                    else positions)
         # Each LoRA delta lands on its projection's output, before RoPE.
         q = apply_rope(_project(self, "q_proj", x, adapter).view(b, s, h, dh),
-                       cos, sin, positions)
-        k = apply_rope(self.k_proj(x).view(b, s, kh, dh), cos, sin, positions)
+                       cos, sin, rope_pos)
+        k = apply_rope(self.k_proj(x).view(b, s, kh, dh), cos, sin, rope_pos)
         v = _project(self, "v_proj", x, adapter).view(b, s, kh, dh)
         mask_spec = cfg.mask_spec
+        if rolling:
+            out = self._attend_rolling(q, k, v, positions, cache, cache_index)
+            return self.o_proj(out.reshape(b, s, h * dh))
         if mask_spec is not None and cache is not None:
             raise ValueError(
                 "attention mask specs don't compose with KV-cache decode: "
@@ -486,6 +555,25 @@ class Attention(nn.Module):
                                   positions_kv=positions,
                                   segment_ids=segment_ids, mask=mask_spec)
         return self.o_proj(out.reshape(b, s, h * dh))
+
+    def _attend_rolling(self, q, k, v, positions, cache, cache_index):
+        """Attention of a chunk (prefill, continuation or decode) over a
+        rolling cache, then its write. The read comes first: the chunk's
+        own modular writes may evict rows its earliest queries still see.
+        Rows holding positions >= cache_index (left stale by a rewind) are
+        masked to the sentinel; the fresh chunk's K/V ride beside the
+        cache in the read, under the sliding-window mask."""
+        window = int(self.cfg.mask_window)
+        cpos = torch.where(cache["pos"] >= cache_index[:, None],
+                           -(window + 1), cache["pos"])
+        keys = torch.cat([cache["k"].to(k.dtype), k], dim=1)
+        vals = torch.cat([cache["v"].to(v.dtype), v], dim=1)
+        pos_kv = torch.cat([cpos.to(positions.dtype), positions], dim=1)
+        out = naive_attention(q, keys, vals, causal=True,
+                              positions_q=positions, positions_kv=pos_kv,
+                              mask=self.cfg.mask_spec)
+        _update_cache_rolling(cache, k, v, positions, cache_index, window)
+        return out
 
 
 class MLPBlock(nn.Module):

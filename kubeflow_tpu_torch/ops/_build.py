@@ -24,8 +24,12 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+#: `-split-compile=0` optimizes a source's kernels in parallel on every
+#: core: flash_simt.cu's many instantiations otherwise hold the whole build
+#: on one core (166 s against 66 s on an 8-core H100 host).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-split-compile=0", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

@@ -100,6 +100,7 @@ request draws the same stream at any depth.
 
 from __future__ import annotations
 
+import dataclasses
 import queue
 import threading
 import time
@@ -110,7 +111,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from kubeflow_tpu_torch.models.llama import adapter_rows, init_cache
+from kubeflow_tpu_torch.models.llama import (adapter_rows, config_view,
+                                             init_cache, rolling_window)
 from kubeflow_tpu_torch.serve.kv_transfer import (HostKVTier, ShipmentError,
                                                   pack_shipment,
                                                   unpack_shipment)
@@ -228,10 +230,32 @@ def build_engine_fns(model, *, max_len: int, chunk: int,
     Every function that runs the model takes an optional trailing
     `adapter`, each row's multi-LoRA factors (`models.llama.AdapterRows`);
     None runs the base model exactly as without adapters. `frag_len` is
-    the rows of a fragment."""
+    the rows a fragment is asked for.
+
+    A sliding-window model past its window (`rolling_window(cfg, max_len)`
+    > 0) has every cache in the rolling layout of `window` rows
+    (models/llama.py init_cache): prefill and the final continuation
+    chunk pass explicit positions whose pad tail is the sentinel
+    -(window+1), which keeps pad rows out of the modular writes and of
+    attention; intermediate chunks are always full; decode passes the raw
+    absolute index over the whole window (the model wraps it). Within its
+    window such a model is served through its causal view
+    (GenerationEngine builds it), and is refused here."""
     cfg = model.cfg
     dev = model.device
     big = max(prefill_buckets)
+    window = rolling_window(cfg, max_len)
+    rolling = window > 0
+    if rolling and kv_block_size > 0:
+        raise ValueError("paged KV does not compose with the rolling cache")
+    if cfg.mask_kind == "sliding_window" and not rolling:
+        # Its fragments (max_len plus headroom rows) could roll while the
+        # slots do not: serve the causal view, whose band never clips.
+        raise ValueError(
+            f"a sliding-window model (window {cfg.mask_window}) that does "
+            f"not roll at max_len {max_len} is served through its causal "
+            "view")
+    sentinel = -(window + 1)
     # Fragment headroom of one largest bucket when a prompt may chunk or a
     # prefix-cache hit may resume mid-prompt: a continuation chunk writes a
     # whole bucket at a nonzero offset, and its padding may reach past
@@ -245,19 +269,32 @@ def build_engine_fns(model, *, max_len: int, chunk: int,
         tok = sample_tokens(last, temperature, gen, top_k, top_p)
         return tok, _chosen_logprob(last, tok)
 
+    def _chunk_positions(index, length, width):
+        """A right-padded chunk's absolute positions [1, width] from
+        `index`, its pad tail (from `length` on) at the sentinel: rolling
+        mode only."""
+        ar = torch.arange(width, device=dev)
+        return torch.where(ar < length, index + ar, sentinel)[None]
+
     def prefill(tokens, length, temperature, top_k, top_p, gen,
                 adapter=None):
         """tokens [1, bucket] right-padded, `length` real tokens; returns
         (fragment cache, first sampled token [1], its logprob [1])."""
         frag = init_cache(cfg, 1, frag_len, device=dev)
-        hidden, frag = model(tokens, cache=frag,
+        positions = (_chunk_positions(0, length, tokens.shape[1]) if rolling
+                     else None)
+        hidden, frag = model(tokens, positions=positions, cache=frag,
                              cache_index=torch.zeros(1, dtype=torch.int32,
                                                      device=dev),
                              return_hidden=True, adapter=adapter)
         return (frag,) + _last(hidden, length, temperature, top_k, top_p, gen)
 
-    def _continue(frag, tokens, index, return_hidden, adapter):
-        positions = (index + torch.arange(tokens.shape[1], device=dev))[None]
+    def _continue(frag, tokens, index, return_hidden, adapter, length=None):
+        if rolling and length is not None:
+            positions = _chunk_positions(index, length, tokens.shape[1])
+        else:
+            positions = (index
+                         + torch.arange(tokens.shape[1], device=dev))[None]
         cache_index = torch.full((1,), index, dtype=torch.int32, device=dev)
         return model(tokens, positions=positions, cache=frag,
                      cache_index=cache_index, attend_full_cache=True,
@@ -268,7 +305,7 @@ def build_engine_fns(model, *, max_len: int, chunk: int,
         """Final continuation chunk of a long prompt, written at offset
         `index` and attending over the whole fragment; samples like
         prefill."""
-        hidden, frag = _continue(frag, tokens, index, True, adapter)
+        hidden, frag = _continue(frag, tokens, index, True, adapter, length)
         return (frag,) + _last(hidden, length, temperature, top_k, top_p, gen)
 
     def extend_mid(frag, tokens, index, adapter=None):
@@ -278,25 +315,30 @@ def build_engine_fns(model, *, max_len: int, chunk: int,
         return frag
 
     def insert(cache, frag, slot):
-        """Copy a fragment (batch 1) into slot `slot`, dropping its
-        headroom rows past max_len."""
-        for name in ("k", "v"):
-            cache[name][:, slot] = frag[name][:, 0, :cache[name].shape[2]]
+        """Copy every leaf of a fragment (batch 1) into slot `slot`,
+        dropping its headroom rows past max_len. A rolling cache's "pos"
+        plane goes with K and V: the slot's next occupant must not read the
+        last one's positions as live rows."""
+        for name, leaf in cache.items():
+            leaf[:, slot] = frag[name][:, 0, :leaf.shape[2]]
         return cache
 
     def make_decode(truncate: bool, bucket: int):
         def decode_chunk(cache, last_tok, index, temperature, top_k, top_p,
                          gen, adapter=None):
             """`chunk` decode steps; last_tok/index/temperature [B].
-            Attention runs over the first `bucket` cache rows only. Returns
-            (cache, tokens [B, chunk], logprobs [B, chunk]). Only the
-            truncating variant pays the full-vocab sort of top-k/top-p."""
+            Attention runs over the first `bucket` cache rows only (a
+            rolling cache's one bucket is the window, at the raw index).
+            Returns (cache, tokens [B, chunk], logprobs [B, chunk]). Only
+            the truncating variant pays the full-vocab sort of
+            top-k/top-p."""
             view = {n: c[:, :, :bucket] for n, c in cache.items()}
             tok, idx = last_tok, index
             toks, lps = [], []
             for _ in range(chunk):
                 logits, _ = model(tok[:, None], cache=view,
-                                  cache_index=idx.clamp_max(bucket - 1),
+                                  cache_index=(idx if rolling else
+                                               idx.clamp_max(bucket - 1)),
                                   adapter=adapter)
                 last = logits[:, 0]
                 if truncate:
@@ -470,13 +512,35 @@ def build_spec_decode(model, draft, *, gamma: int, n_spec: int,
     tables, dtables, last_tok, index, temperature, gen, adapter=None),
     which gathers each row's blocks of the target and draft pools into
     views, runs the flat chunk on them and scatters both back; the draft
-    pool shares the target's block-id space, its tables per slot."""
+    pool shares the target's block-id space, its tables per slot.
+
+    A rolling target cache (its "pos" plane, models/llama.py init_cache:
+    window rows, modular writes) beside the draft's causal one: neither is
+    sliced, the target takes the raw index and the draft's index is capped
+    by its cache's rows. The verify writes all gamma+1 candidate rows, and
+    in a rolling cache a rejected candidate's row has evicted a live one:
+    each step saves the gamma+1 target rows of every leaf before the
+    verify and writes back the old rows past the accepted count after it,
+    so the cache holds exactly the committed stream. A sliding-window target here is a rolling one (the engine
+    serves one within its window through its causal view), and the paged
+    pool does not take it."""
+    if kv_block_size > 0 and model.cfg.mask_kind == "sliding_window":
+        raise ValueError(
+            "paged spec decode does not compose with the rolling cache")
 
     def make(bucket: int):
         def spec_chunk(cache, dcache, last_tok, index, temperature, gen,
                        adapter=None):
-            view = {n: c[:, :, :bucket] for n, c in cache.items()}
-            dview = {n: c[:, :, :bucket] for n, c in dcache.items()}
+            rolling = "pos" in cache
+            if rolling:
+                view, dview = cache, dcache
+                window, dcap = cache["k"].shape[2], dcache["k"].shape[2]
+                batch = torch.arange(index.shape[0],
+                                     device=index.device)[:, None]
+            else:
+                view = {n: c[:, :, :bucket] for n, c in cache.items()}
+                dview = {n: c[:, :, :bucket] for n, c in dcache.items()}
+                dcap = bucket
             steps = torch.arange(gamma + 1, device=index.device)
             tok, idx = last_tok, index
             outs, lps, ks = [], [], []
@@ -485,7 +549,7 @@ def build_spec_decode(model, draft, *, gamma: int, n_spec: int,
                 drafts, dlogits = [], []
                 for _ in range(gamma):
                     logits, _ = draft(t[:, None], cache=dview,
-                                      cache_index=i.clamp_max(bucket - 1))
+                                      cache_index=i.clamp_max(dcap - 1))
                     row = logits[:, 0]
                     t = sample_tokens(row, temperature, gen)
                     drafts.append(t)
@@ -496,16 +560,29 @@ def build_spec_decode(model, draft, *, gamma: int, n_spec: int,
                 # would stay stale after a fully accepted step and every
                 # later proposal would attend it. Its output is not read.
                 draft(t[:, None], cache=dview,
-                      cache_index=i.clamp_max(bucket - 1), return_hidden=True)
+                      cache_index=i.clamp_max(dcap - 1), return_hidden=True)
                 drafts = torch.stack(drafts, dim=1)
+                if rolling:
+                    rows = (idx.to(torch.long)[:, None] + steps) % window
+                    saved = {n: c[:, batch, rows] for n, c in view.items()}
                 tlogits, _ = model(
                     torch.cat([tok[:, None], drafts], dim=1),
                     positions=idx[:, None] + steps, cache=view,
-                    cache_index=idx.clamp_max(bucket - 1),
+                    cache_index=(idx if rolling
+                                 else idx.clamp_max(bucket - 1)),
                     attend_full_cache=True, adapter=adapter)
                 out, k, tok = spec_acceptance(
                     drafts, torch.stack(dlogits, dim=1), tlogits,
                     temperature, gen)
+                if rolling:
+                    # Candidate j <= k is committed (the input token and
+                    # the accepted proposals); the rest is rolled back.
+                    keep = steps[None] <= k[:, None]
+                    for n, c in view.items():
+                        sel = keep.view(1, *keep.shape,
+                                        *([1] * (c.dim() - 3)))
+                        c[:, batch, rows] = torch.where(
+                            sel, c[:, batch, rows], saved[n])
                 outs.append(out)
                 lps.append(_chosen_logprob(tlogits, out))
                 ks.append(k)
@@ -528,6 +605,13 @@ def build_spec_decode(model, draft, *, gamma: int, n_spec: int,
             return pool, dpool, toks, lps, acc
         return spec_chunk_paged
     return make
+
+
+def _causal_config(cfg):
+    """A sliding-window config served within its window, as causal: the
+    band never clips there, so causal attention is exact."""
+    return dataclasses.replace(cfg, mask_kind="causal", mask_window=0,
+                               attention_impl="auto")
 
 
 def _wait(event) -> None:
@@ -587,11 +671,22 @@ class GenerationEngine:
             raise ValueError(
                 f"max_len {self.max_len} exceeds the model's position "
                 f"range (max_seq_len={cfg.max_seq_len})")
+        #: The rolling cache's window when a sliding-window model is served
+        #: past it, else 0.
+        self._rolling = rolling_window(cfg, self.max_len)
         if cfg.mask_kind == "sliding_window":
-            raise NotImplementedError(
-                "sliding-window serving (rolling-window cache) is not "
-                "supported by this package yet")
-        if cfg.mask_kind != "causal":
+            if int(cfg.mask_window) < 1:
+                raise ValueError(
+                    "sliding-window checkpoint with window=0 cannot be "
+                    "served")
+            if not self._rolling:
+                # Within the window the band never clips: serve a causal
+                # view of the model (its weights shared), which takes the
+                # causal paths (flash prefill, bucketed decode).
+                cfg = _causal_config(cfg)
+                self.model = config_view(model, cfg)
+                self.cfg = cfg
+        elif cfg.mask_kind != "causal":
             raise ValueError(f"generative serving needs a causal model; got "
                              f"mask_kind={cfg.mask_kind!r}")
         if int(pipeline_depth) < 1:
@@ -600,22 +695,36 @@ class GenerationEngine:
         self.pipeline_depth = int(pipeline_depth)
         #: Decode chunks in flight right now (read by metadata).
         self.inflight_depth = 0
+        # A rolling cache clamps prompt buckets to the window: a wider
+        # chunk would wrap onto its own rows.
+        cap = min(self.max_len, self._rolling or self.max_len)
         self.prefill_buckets = sorted(
-            {min(int(b), self.max_len) for b in prefill_buckets})
+            {min(int(b), cap) for b in prefill_buckets})
         # Length-aware decode: attention cost tracks the longest active
         # sequence, not max_len. Default buckets: powers of two from
-        # max(64, 2*chunk) up to max_len.
-        if decode_buckets is None:
-            b, decode_buckets = max(64, 2 * self.chunk), []
-            while b < self.max_len:
-                decode_buckets.append(b)
-                b *= 2
-        self.decode_buckets = sorted(
-            {int(b) for b in decode_buckets
-             if self.chunk < int(b) < self.max_len} | {self.max_len})
+        # max(64, 2*chunk) up to max_len. A rolling cache has one bucket,
+        # the window: its rows are not position-ordered, so no prefix of
+        # them can stand for the live ones.
+        if self._rolling:
+            self.decode_buckets = [self._rolling]
+        else:
+            if decode_buckets is None:
+                b, decode_buckets = max(64, 2 * self.chunk), []
+                while b < self.max_len:
+                    decode_buckets.append(b)
+                    b *= 2
+            self.decode_buckets = sorted(
+                {int(b) for b in decode_buckets
+                 if self.chunk < int(b) < self.max_len} | {self.max_len})
         self._paged = int(kv_block_size) > 0
         self._kv_bs = int(kv_block_size)
         if self._paged:
+            if self._rolling:
+                raise ValueError(
+                    "kv_block_size > 0 does not compose with rolling "
+                    "sliding-window serving (rolling rows are not "
+                    "prefix-ordered, so block tables cannot address "
+                    "them); set kv_block_size=0")
             if self.max_len % self._kv_bs:
                 raise ValueError(
                     f"kv_block_size {self._kv_bs} must divide max_len "
@@ -670,7 +779,8 @@ class GenerationEngine:
             #: Seconds spent reading and stacking the adapters.
             self.adapter_load_s = time.monotonic() - t0
         self._ml_names = {i: n for n, i in self._ml_ids.items()}
-        fns = build_engine_fns(model, max_len=self.max_len, chunk=self.chunk,
+        fns = build_engine_fns(self.model, max_len=self.max_len,
+                               chunk=self.chunk,
                                prefill_buckets=self.prefill_buckets,
                                kv_block_size=self._kv_bs,
                                kv_quant=self.kv_quant,
@@ -696,7 +806,7 @@ class GenerationEngine:
                 kv_block_size=self._kv_bs, offset_writes=True)
             self._dcache = init_cache(spec["cfg"], *dims, device=self.device)
             spec_make = build_spec_decode(
-                model, spec["model"], gamma=spec["gamma"],
+                self.model, spec["model"], gamma=spec["gamma"],
                 n_spec=spec["n_spec"], kv_block_size=self._kv_bs)
             self._spec_decode = {b: spec_make(b) for b in self.decode_buckets}
         self._queue: queue.Queue = queue.Queue()
@@ -731,8 +841,9 @@ class GenerationEngine:
         """The speculative-decoding state of `draft` ({"model", "gamma"?}),
         refused with the JAX engine's messages where it cannot serve: a
         quantized pool, a draft that is not causal (a sliding window within
-        max_len is served causal, as the band never clips), another
-        vocabulary, a position range short of max_len, gamma < 1."""
+        max_len is served through a causal view, as the band never clips),
+        another vocabulary, a position range short of max_len, gamma < 1,
+        or more candidate rows a step than a rolling window holds."""
         if self.kv_quant != "none":
             raise ValueError(
                 "kv_quant does not compose with speculative decoding "
@@ -746,10 +857,9 @@ class GenerationEngine:
                     f"sliding-window draft (window={dcfg.mask_window}): "
                     f"serving max_len={self.max_len} exceeds the window; "
                     "set max_len <= window or use a causal draft")
-            raise NotImplementedError(
-                "a sliding-window draft served within its window (causal) "
-                "is not supported by this package yet")
-        if dcfg.mask_kind != "causal":
+            dcfg = _causal_config(dcfg)
+            dmodel = config_view(dmodel, dcfg)
+        elif dcfg.mask_kind != "causal":
             raise ValueError(
                 f"speculative decoding needs a causal-class draft; got "
                 f"mask_kind={dcfg.mask_kind!r}")
@@ -765,6 +875,11 @@ class GenerationEngine:
         gamma = int(draft.get("gamma", 4))
         if gamma < 1:
             raise ValueError(f"gamma must be >= 1, got {gamma}")
+        if self._rolling and gamma + 1 > self._rolling:
+            raise ValueError(
+                f"gamma={gamma} writes {gamma + 1} candidate rows per "
+                f"spec step, more than the rolling window "
+                f"({self._rolling}) holds")
         # Spec steps a dispatch: the vanilla chunk's best-case tokens.
         return {"model": dmodel, "cfg": dcfg, "gamma": gamma,
                 "n_spec": max(1, self.chunk // (gamma + 1))}
@@ -1585,13 +1700,16 @@ class GenerationEngine:
         """Flat: live rows outside the vanilla sub-batch (spec rows) park
         their batch-wide write at their own `disp`; near the context end
         that write would be clamped back over committed rows, so the
-        dispatch waits until they retire. Paged riders write the NULL
+        dispatch waits until they retire. On a rolling cache any parked
+        write wraps onto live window rows, so the dispatch waits for every
+        such row (a spec record in flight). Paged riders write the NULL
         block."""
         if self._paged:
             return True
         vb = set(van_batch)
         return not any(st is not None and j not in vb
-                       and st["disp"] + self.chunk > self.max_len
+                       and (self._rolling
+                            or st["disp"] + self.chunk > self.max_len)
                        for j, st in enumerate(self._slots))
 
     def _spec_batch(self, active: list[int], van_covered: set,
@@ -1609,6 +1727,15 @@ class GenerationEngine:
         chained = bool(spec_chain)
         if chained and spec_chain[-1]["doomed"]:
             return [], []  # drain the doomed chain before dispatching again
+        if chained and self._rolling:
+            # A doomed over-dispatch would have wrap-written window rows
+            # that later queries still attend: a rolling spec chain stays
+            # at depth 1.
+            return [], []
+        if self._rolling and len(rows) != len(active):
+            # Riders would wrap-write live window rows the same way:
+            # mixed traffic decodes all-vanilla on a rolling cache.
+            return [], rows
         worst = self._spec["n_spec"] * (self._spec["gamma"] + 1)
         if self._paged:
             # Per-row tables: a row short of a worst-case advance falls

@@ -1767,3 +1767,167 @@ def test_decode_chunk_with_prefix_cache_dispatches_what_it_did(cuda):
         assert len(decode_chunk_ops(engine)) == DECODE_CHUNK_OPS
     finally:
         engine.close()
+
+
+# -- the rolling-window cache -------------------------------------------------
+
+def _windowed_tiny(device, window=8):
+    """llama_tiny's widths in fp32 with a sliding window of `window`, from
+    seed 0."""
+    from kubeflow_tpu_torch.models import llama as tl
+
+    cfg = dataclasses.replace(tl.llama_tiny(), dtype=torch.float32,
+                              mask_kind="sliding_window", mask_window=window)
+    return tl.Llama(cfg, device=device).init_weights(0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("draft", [False, True], ids=["vanilla", "spec"])
+def test_depth2_rolling_engine_runs_under_sync_debug_error(cuda, draft,
+                                                           monkeypatch):
+    """A rolling engine (window 8 of a 64-token context) at depth 2, alone
+    or with a causal draft: admission (padded prefill, continuation chunks
+    past the window), decode and the spec revert run with
+    torch.cuda.set_sync_debug_mode("error"), only the fetch's event wait
+    outside it; then one request's greedy ids equal a depth-1 engine's."""
+    from kubeflow_tpu_torch.models import llama as tl
+    from kubeflow_tpu_torch.serve import generation as tg
+
+    model = _windowed_tiny(cuda)
+    kw = dict(slots=2, max_len=64, chunk=4, prefill_buckets=(8, 16))
+    if draft:
+        dcfg = dataclasses.replace(model.cfg, num_layers=1,
+                                   mask_kind="causal", mask_window=0)
+        kw["draft"] = {"model": tl.Llama(dcfg, device=cuda).init_weights(5),
+                       "gamma": 3}
+    real_wait = tg._wait
+
+    def wait_outside(event):
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            real_wait(event)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
+    monkeypatch.setattr(tg, "_wait", wait_outside)
+    engine = tg.GenerationEngine(model, pipeline_depth=2, **kw)
+    assert engine._rolling == 8
+    prompts = [[5, 9, 2], list(range(3, 30)), [17, 3, 3, 8, 1]]
+    results = [None] * len(prompts)
+    try:
+        engine.submit([1, 2, 3], max_tokens=5)  # builds and warms outside
+        torch.cuda.synchronize()
+
+        def run(i):
+            try:
+                results[i] = engine.submit(prompts[i], max_tokens=12)
+            except Exception as e:  # asserted below
+                results[i] = e
+
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            threads = [threading.Thread(target=run, args=(i,))
+                       for i in range(len(prompts))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+                assert not t.is_alive()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        for i, res in enumerate(results):
+            assert isinstance(res, dict), f"request {i}: {res}"
+            assert len(res["output_ids"]) == 12
+        stats = engine.stats_snapshot()
+        assert stats["spec_dispatches" if draft
+                     else "decode_fetch_overlapped"] > 0, stats
+        deep = engine.submit(prompts[1], max_tokens=20)["output_ids"]
+    finally:
+        engine.close()
+    kw.pop("draft", None)
+    sync = tg.GenerationEngine(model, pipeline_depth=1, **kw)
+    try:
+        assert sync.submit(prompts[1], max_tokens=20)["output_ids"] == deep
+    finally:
+        sync.close()
+
+
+@pytest.mark.gpu
+def test_rolling_engine_ids_equal_the_plain_path(cuda):
+    """A small rolling engine's greedy ids on the card equal the same
+    engine's on the CPU (the same weights) and the rollout of uncached
+    full forwards through naive attention on the card: prompts of 13 and 5
+    tokens, 24 ids each, past the window of 8."""
+    from kubeflow_tpu_torch.models import llama as tl
+    from kubeflow_tpu_torch.serve import generation as tg
+
+    model = _windowed_tiny(cuda)
+    cpu = tl.Llama(model.cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    naive = tl.config_view(model, dataclasses.replace(
+        model.cfg, attention_impl="naive"))
+    kw = dict(slots=2, max_len=64, chunk=4, prefill_buckets=(4, 16))
+    rng = np.random.default_rng(40)
+    prompts = [rng.integers(0, 512, n).tolist() for n in (13, 5)]
+    got = {}
+    for name, m in (("cuda", model), ("cpu", cpu)):
+        engine = tg.GenerationEngine(m, **kw)
+        try:
+            got[name] = [engine.submit(p, max_tokens=24)["output_ids"]
+                         for p in prompts]
+        finally:
+            engine.close()
+    want = []
+    for p in prompts:
+        seq = list(p)
+        with torch.no_grad():
+            for _ in range(24):
+                logits = naive(torch.tensor([seq], device=cuda))
+                seq.append(int(logits[0, -1].argmax()))
+        want.append(seq[len(p):])
+    assert got["cuda"] == got["cpu"] == want
+
+
+@pytest.mark.gpu
+def test_windowed_forward_through_the_kernel_within_the_naive_gate(cuda):
+    """A windowed model's full forward (bf16, head_dim 128: flash_fwd.cu
+    with mask code 3, window 100 of 512 tokens) launches the kernel once a
+    layer, and its logits lie within 1.25x naive_attention's distance from
+    the plain version's (phase 3's gate)."""
+    from kubeflow_tpu_torch.models import llama as tl
+    from kubeflow_tpu_torch.ops.reference import naive_attention
+
+    cfg = dataclasses.replace(tl.llama_1b(), num_layers=2, remat=False,
+                              mask_kind="sliding_window", mask_window=100,
+                              attention_impl="flash")
+    model = tl.Llama(cfg, device=cuda).init_weights(0)
+    tokens = torch.from_numpy(np.random.default_rng(41).integers(
+        0, cfg.vocab_size, (2, 512))).to(cuda)
+
+    def plain(q, k, v, causal=True, block_q=512, block_kv=512,
+              segment_ids=None, mask=None):
+        return tfa._flash_fwd_plain(q, k, v, tfa._norm_mask(causal, mask),
+                                    segment_ids)[0]
+
+    def naive(q, k, v, causal=True, block_q=512, block_kv=512,
+              segment_ids=None, mask=None):
+        return naive_attention(q, k, v, causal=causal, mask=mask,
+                               segment_ids=segment_ids)
+
+    real = tl.flash_attention
+    with torch.no_grad():
+        before = tfa.flash_fwd_launches
+        kernel = model(tokens).float()
+        torch.cuda.synchronize()
+        assert tfa.flash_fwd_launches - before == cfg.num_layers
+        try:
+            tl.flash_attention = plain
+            ref = model(tokens).float()
+            tl.flash_attention = naive
+            floor = model(tokens).float()
+        finally:
+            tl.flash_attention = real
+    rel, naive_rel = _rel_l2(kernel, ref), _rel_l2(floor, ref)
+    assert bool(torch.isfinite(kernel).all())
+    assert rel <= 1.25 * naive_rel, (rel, naive_rel)

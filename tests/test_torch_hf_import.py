@@ -175,13 +175,40 @@ def test_config_mapping_equals_jax(name, hf):
 
 
 def test_mistral_serving_is_refused_by_name(tmp_path):
-    cfg = th.llama_config_from_hf(dict(BASE, sliding_window=16),
-                                  dtype="float32")
+    """A Mistral checkpoint served past its window (8 of a 32-token
+    context): build_from_hf maps `sliding_window`, the engine rolls its
+    cache, and a 12-token prompt's 10 greedy ids equal
+    transformers.MistralForCausalLM's generate (the JAX
+    tests/test_mistral_import.py case). The name is kept for continuity
+    from when the port refused such checkpoints by name; it now serves
+    them."""
     from kubeflow_tpu_torch.serve.generation import GenerationEngine
 
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        GenerationEngine(tl.Llama(cfg, device="cpu"), slots=1, max_len=32,
-                         chunk=4, prefill_buckets=(8,))
+    torch.manual_seed(9)
+    hf = transformers.MistralForCausalLM(transformers.MistralConfig(
+        vocab_size=256, hidden_size=64, intermediate_size=128,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        head_dim=16, max_position_embeddings=64, rope_theta=10000.0,
+        rms_norm_eps=1e-5, sliding_window=8,
+        attn_implementation="eager")).eval()
+    d = str(tmp_path / "mistral")
+    hf.save_pretrained(d, safe_serialization=True)
+    cfg, sd = th.build_from_hf(d, **F32)
+    assert (cfg.mask_kind, cfg.mask_window) == ("sliding_window", 8)
+    model = tl.Llama(cfg, device="cpu")
+    model.load_state_dict(sd)
+    prompt = [int(t) for t in np.random.default_rng(4).integers(0, 256, 12)]
+    eng = GenerationEngine(model, slots=1, max_len=32, chunk=4,
+                           prefill_buckets=(4,))
+    try:
+        assert eng._rolling == 8 and eng.decode_buckets == [8]
+        got = eng.submit(prompt, max_tokens=10)["output_ids"]
+    finally:
+        eng.close()
+    with torch.no_grad():
+        ref = hf.generate(torch.tensor([prompt]), max_new_tokens=10,
+                          do_sample=False, pad_token_id=0)[0, len(prompt):]
+    assert got == ref.tolist()
 
 
 def test_unsupported_configs_fail_loudly(hf_llama, tmp_path):

@@ -172,8 +172,9 @@ def test_unported_cache_layouts_are_refused():
         tl.init_cache(cfg, 1, 16, kv_quant="int4", device="cpu")
     windowed = dataclasses.replace(cfg, mask_kind="sliding_window",
                                    mask_window=8)
-    with pytest.raises(NotImplementedError, match="rolling-window"):
-        tl.init_cache(windowed, 1, 16, device="cpu")
+    # Past the window the cache rolls: window rows and a position plane.
+    rolling = tl.init_cache(windowed, 1, 16, device="cpu")
+    assert rolling["k"].shape[2] == 8 and rolling["pos"].shape == (2, 1, 8)
     with pytest.raises(ValueError, match="rolling"):
         tl.init_cache(windowed, 1, 16, kv_quant="int8", device="cpu")
 
