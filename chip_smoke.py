@@ -164,6 +164,29 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
      spec target: ids against vanilla rolling, acceptance, ms a dispatch;
      (vi) a 4-layer huggingface bundle over --storage-uri: a 5000-token
      request's ids equal the engine's;
+  4i. disaggregated roles on phase 4's llama3_8b (one module under every
+     engine, paged, blocks of 16; a unified, a prefill and a decode engine
+     a case): (i) phase 4's six requests shipped by the prefill engine and
+     decoded at once by the decode engine: greedy ids against the unified
+     engine's (equal or parted at a near-tie), no prefill chunk and no B1
+     launch on the decode engine, 32 B1 launches a prompt, no decode and a
+     drained pool on the prefill engine, blocks shipped = received = the
+     prompts' blocks, each frame at least its prompt's k and v; per
+     request the frame's bytes, the ship's ms (export, host copy, pack)
+     and the import's device ms; the decode engine's 4-row step while the
+     prefill engine prefills the 3000-token prompt, against the unified
+     engine's while it admits it; (ii) one request at temperature 0.8
+     alone on each side: ids and logprobs bit-equal to the unified
+     engine's on the same seed; (iii) an int8 pool: fmt 3, at most 0.55x
+     the fmt-1 frame, the int8 unified engine's ids; (iv) the target as its
+     own draft: fmt 2 with a draft section, spec dispatches and no prefill
+     chunk on the decode engine, the unified spec engine's ids; (v) an
+     adapter named in the frame: the unified engine's ids for it; (vi)
+     bundles with generative.role behind one server: :prefill (a KV frame)
+     then :decode plain and streamed (ids against (i)), time from :prefill
+     to :decode's first frame against the unified stream's first frame,
+     503 + Retry-After for a frame a small pool can never hold, 400 for a
+     truncated frame, the new /metrics rows;
   5. training: llama_1b at full width and depth through the trainer's entry
      point (batch 12, seq 1024, 3 warm-up + 10 timed steps): finite losses,
      the first near ln(V), every step's launches (2 forward per layer under
@@ -252,6 +275,7 @@ from kubeflow_tpu_torch.serve import runtimes  # noqa: E402
 from kubeflow_tpu_torch.serve import server as server_mod  # noqa: E402
 from kubeflow_tpu_torch.serve.generation import (  # noqa: E402
     GenerationEngine, GenerativeTorchModel)
+from kubeflow_tpu_torch.serve.kv_transfer import peek_meta  # noqa: E402
 from kubeflow_tpu_torch.serve.runtimes import export_for_serving  # noqa: E402
 from kubeflow_tpu_torch.serve.server import (ModelRepository,  # noqa: E402
                                              ModelServer)
@@ -540,6 +564,21 @@ ROLLING_FP32_LAYERS, ROLLING_FP32_PROMPT, ROLLING_FP32_TOKENS = 2, 4200, 48
 ROLLING_PREFIX_HEAD, ROLLING_PREFIX_TAILS = 5000, (300, 700)
 ROLLING_SPEC_PROMPT = 4200
 MISTRAL_HF_LAYERS, MISTRAL_HTTP_PROMPT = 4, 5000
+# 4i: disaggregated roles on phase 4's llama3_8b, every engine over one
+# module at phase 4's settings paged (blocks of KV_BLOCK_SIZE). A prefill
+# engine ships, a decode engine admits. (ii) One request at
+# DISAGG_TEMPERATURE on the fifth of phase 4's prompts, alone on each
+# side; the unified and prefill engines share DISAGG_SEED and the decode
+# engine's own seed differs, so bit-equality shows the shipped generator
+# state was adopted. (iii)-(v) phase 4's longest greedy prompt alone on
+# each side. The step windows: DISAGG_ROWS short requests of
+# DISAGG_ROW_TOKENS decode while the longest prompt is prefilled (on the
+# prefill engine, or admitted by the same unified engine); a window closes
+# once DISAGG_WINDOW_CHUNKS more chunks were fetched. The HTTP case's
+# small decode pool (DISAGG_SMALL_BLOCKS) can never hold that prompt.
+DISAGG_TEMPERATURE, DISAGG_SEED = 0.8, SEED + 41
+DISAGG_ROWS, DISAGG_ROW_TOKENS, DISAGG_WINDOW_CHUNKS = 3, 160, 2
+DISAGG_SMALL_BLOCKS = 64
 # 4c: int8 weights and KV must bring the serving peak this far under
 # phase 4's (bf16 weights 14.96 GiB; an int8 copy is ~7.5 GiB).
 QUANT_PEAK_SAVING_MIN_GIB = 5.0
@@ -2008,8 +2047,9 @@ def phase_quant(bundle: str, flat: dict, paged: dict) -> dict:
 
 def _request(method: str, url: str, body=None, headers=None) -> tuple:
     """(status, headers, body bytes) of one request; HTTP errors are
-    returned, not raised."""
-    data = json.dumps(body).encode() if body is not None else None
+    returned, not raised. A bytes body (a KV frame) is sent as it is."""
+    data = (body if isinstance(body, bytes) or body is None
+            else json.dumps(body).encode())
     req = urllib.request.Request(url, data=data, method=method,
                                  headers=headers or {})
     try:
@@ -2022,13 +2062,17 @@ def _request(method: str, url: str, body=None, headers=None) -> tuple:
 def _stream(url: str, body: dict, headers=None) -> dict:
     """POST a streaming request and read it frame by frame (ndjson lines or
     SSE `data:` frames): {"status", "content_type", "frames", "first_s",
-    "end_s"} (seconds from the send to the first frame and to the end)."""
+    "end_s"} (seconds from the send to the first frame and to the end). A
+    bytes body (a KV frame to :decode) is sent as it is."""
     parts = urllib.parse.urlsplit(url)
     conn = http.client.HTTPConnection(parts.hostname, parts.port,
                                       timeout=600)
     t0 = time.monotonic()
-    conn.request("POST", parts.path, json.dumps(body),
-                 {"Content-Type": "application/json", **(headers or {})})
+    raw = isinstance(body, bytes)
+    conn.request("POST", parts.path, body if raw else json.dumps(body),
+                 {"Content-Type": (server_mod.KV_SHIPMENT_CONTENT_TYPE
+                                   if raw else "application/json"),
+                  **(headers or {})})
     resp = conn.getresponse()
     frames, first = [], None
     for line in resp:
@@ -3071,20 +3115,19 @@ def _spec_bodies(vocab: int, lens, seed: int, **kw) -> list:
              "max_tokens": MAX_TOKENS, **kw} for n in lens]
 
 
-def _engine_burst(engine, bodies: list) -> tuple:
-    """The bodies at once on an in-process engine: (their ids in order,
-    the engine's stats after them)."""
-    results: list = [None] * len(bodies)
+def _burst(call, items: list) -> list:
+    """`call(item)` for every item at once, each on a thread of its own:
+    the results in order; a failure raises."""
+    results: list = [None] * len(items)
 
     def run(i):
-        b = dict(bodies[i])
         try:
-            results[i] = engine.submit(b.pop("input_ids"), timeout=600, **b)
+            results[i] = call(items[i])
         except Exception as e:  # reported below
             results[i] = e
 
     threads = [threading.Thread(target=run, args=(i,))
-               for i in range(len(bodies))]
+               for i in range(len(items))]
     for th in threads:
         th.start()
     for th in threads:
@@ -3092,7 +3135,17 @@ def _engine_burst(engine, bodies: list) -> tuple:
     for i, res in enumerate(results):
         if not isinstance(res, dict):
             raise RuntimeError(f"request {i} failed: {res!r}")
-    return [r["output_ids"] for r in results], engine.stats_snapshot()
+    return results
+
+
+def _engine_burst(engine, bodies: list) -> tuple:
+    """The bodies at once on an in-process engine: (their ids in order,
+    the engine's stats after them)."""
+    def call(body):
+        b = dict(body)
+        return engine.submit(b.pop("input_ids"), timeout=600, **b)
+    return ([r["output_ids"] for r in _burst(call, bodies)],
+            engine.stats_snapshot())
 
 
 def _accept(stats: dict) -> float:
@@ -3892,6 +3945,433 @@ def phase_rolling(work: str, floor: float) -> dict:
             "step_ms": step_ms, "vanilla": van, "spec": spec,
             "profile": prof, "admit_s": [t for t, _ in admits],
             "cache_bytes": cache_bytes, "peak_gib": peak / 2**30}
+
+
+def _kwargs(body: dict) -> dict:
+    """A request body's sampling keys, for an engine call."""
+    return {k: v for k, v in body.items() if k != "input_ids"}
+
+
+def _ship_timed(engine, log_to: list) -> None:
+    """Wrap `engine._finish_ship` so each ship appends (ms of the export,
+    the host copy and the pack, frame bytes) to `log_to`; the device
+    drains the prefill first (a prefill engine has nothing else in
+    flight)."""
+    real = engine._finish_ship
+
+    def call(req, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real(req, *a)
+        log_to.append(((time.perf_counter() - t0) * 1e3,
+                       len(req["result"]["shipment"])))
+    engine._finish_ship = call
+
+
+def _import_timed(engine, log_to: list) -> None:
+    """Wrap `engine._admit_remote_paged` so each remote admission appends
+    (its prompt's length, host ms of the call, CUDA events around it) to
+    `log_to`. The events' span is the stream's time from the first of the
+    import's copies to the last scatter, where the stream also waits for
+    the host's pinning between them."""
+    real = engine._admit_remote_paged
+
+    def call(slot, req):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        real(slot, req)
+        end.record()
+        log_to.append((len(req["input_ids"]),
+                       (time.perf_counter() - t0) * 1e3, start, end))
+    engine._admit_remote_paged = call
+
+
+def _until(pred, what: str, timeout: float = 120.0) -> None:
+    t0 = time.monotonic()
+    while not pred():
+        if time.monotonic() - t0 > timeout:
+            raise RuntimeError(f"{what} did not happen in {timeout:.0f} s")
+        time.sleep(0.001)
+
+
+def _step_window(engine, rows, during) -> dict:
+    """Wall ms per 4-row step of `engine` while `rows()` (DISAGG_ROWS
+    requests) decode, from the times its chunks' fetches land: over a
+    window from just before `during()` to the DISAGG_WINDOW_CHUNKS-th
+    fetch after it returns, with the longest wait between two fetches
+    there, then over as many fetches with nothing beside; and `during`'s
+    seconds."""
+    out, times = [], []
+    stop = threading.Event()
+
+    def fetched():
+        s = engine.stats_snapshot()
+        return s["decode_fetch_overlapped"] + s["decode_fetch_blocking"]
+
+    def poll():
+        last = fetched()
+        while not stop.is_set():
+            n = fetched()
+            times.extend([time.monotonic()] * (n - last))
+            last = n
+            time.sleep(0.0005)
+
+    poller = threading.Thread(target=poll)
+    poller.start()
+    th = threading.Thread(target=lambda: out.append(rows()))
+    th.start()
+    try:
+        _until(lambda: len(times) >= 2, "the rows' first fetches")
+        t0, k0 = time.monotonic(), len(times)
+        during()
+        busy = time.monotonic() - t0
+        k1 = len(times) + DISAGG_WINDOW_CHUNKS
+        _until(lambda: len(times) >= k1 + DISAGG_WINDOW_CHUNKS,
+               "the window's fetches")
+    finally:
+        stop.set()
+        poller.join(timeout=30)
+        th.join(timeout=600)
+    if not out:
+        raise RuntimeError("the step window's rows failed")
+    edges = [t0] + times[k0:k1]
+    t2 = times[k1 + DISAGG_WINDOW_CHUNKS - 1]
+    return {"during": (edges[-1] - t0) / ((k1 - k0) * CHUNK) * 1e3,
+            "longest_wait_ms": max(b - a for a, b in zip(edges, edges[1:]))
+            * 1e3,
+            "alone": (t2 - edges[-1]) / (DISAGG_WINDOW_CHUNKS * CHUNK) * 1e3,
+            "busy_s": busy}
+
+
+def phase_disagg(work: str, floor: float) -> dict:
+    """4i: disaggregated roles on phase 4's llama3_8b (one module under
+    every engine, paged, blocks of 16). For each case a unified engine, a
+    prefill engine and a decode engine: (i) phase 4's six requests shipped
+    and decoded at once; (ii) a request at temperature 0.8 alone on each
+    side; (iii) an int8 pool; (iv) the target as its own draft; (v) an
+    adapter; then the decode step while a prompt prefills beside it, and
+    (vi) :prefill and :decode over HTTP."""
+    t_phase = time.monotonic()
+    cfg = registry.model_config(MODEL, **MODEL_KWARGS)
+    _reset_counts()
+    model = llama_mod.Llama(cfg, device=DEVICE).init_weights(SEED).eval()
+    nl = cfg.num_layers
+    paged = dict(GENERATIVE, kv_block_size=KV_BLOCK_SIZE)
+    bodies = _bodies(cfg.vocab_size)
+    greedy = [i for i, b in enumerate(bodies) if "temperature" not in b]
+    longest = bodies[-1]
+    # Bytes of k and v a prompt token holds (every layer).
+    kv_row = (2 * nl * cfg.num_kv_heads * cfg.head_dim
+              * torch.finfo(cfg.dtype).bits // 8)
+    blocks = [-(-len(b["input_ids"]) // KV_BLOCK_SIZE) for b in bodies]
+    gates: dict = {}
+    checks = {"flash": 0}
+    prefills = [0]  # local admissions and ships: one B1 a layer each
+    decode_b1: dict = {}
+
+    def engine(**kw):
+        return GenerationEngine(model, **paged, **kw)
+
+    def done(eng, role=None):
+        """Close `eng`, counting its prefills (a decode engine has none)."""
+        if role != "decode":
+            prefills[0] += eng.stats_snapshot()["requests"]
+        _close(eng)
+
+    def decode_alone(eng, what, fn):
+        """`fn()` on a decode engine with nothing else running: its B1
+        launches go to decode_b1[what]."""
+        before = _b1_launches()
+        out = fn()
+        decode_b1[what] = _b1_launches() - before
+        return out
+
+    # (i) greedy, and a sampled row, shipped and decoded at once
+    uni = engine()
+    want, _ = _engine_burst(uni, bodies)
+    pre, dec = engine(role="prefill"), engine(role="decode")
+    ship_log, import_log = [], []
+    _ship_timed(pre, ship_log)
+    _import_timed(dec, import_log)
+    before = _b1_launches()
+    frames = [pre.prefill_ship(b["input_ids"], timeout=600,
+                               **_kwargs(b))["shipment"] for b in bodies]
+    pre_b1 = _b1_launches() - before
+    sp, pre_used = pre.stats_snapshot(), pre.kv_blocks_used
+    results = decode_alone(dec, "i", lambda: _burst(
+        lambda f: dec.submit_remote(f, timeout=600), frames))
+    got = [r["output_ids"] for r in results]
+    sd = dec.stats_snapshot()
+    torch.cuda.synchronize()
+    imports = {n: (host, a.elapsed_time(b)) for n, host, a, b in import_log}
+    ships = list(ship_log)
+    gates["i greedy ids vs the unified engine's"] = _ids_gate(
+        model, [bodies[i] for i in greedy], [want[i] for i in greedy],
+        [got[i] for i in greedy], floor, "(i) the pair", checks)
+    gates["i every output 32 ids of the vocabulary"] = all(
+        len(ids) == MAX_TOKENS and all(0 <= t < cfg.vocab_size for t in ids)
+        for ids in got)
+    gates["i decode engine: no prefill chunk, no B1"] = (
+        sd["prefill_chunks"] == 0 and decode_b1["i"] == 0)
+    gates["i prefill engine: B1 32 a prompt, no decode, pool drained"] = (
+        pre_b1 == nl * len(bodies) and sp["decode_dispatches"] == 0
+        and pre_used == 0)
+    gates["i blocks shipped = received = sum of ceil(len / 16)"] = (
+        sp["kv_blocks_shipped"] == sd["kv_blocks_received"] == sum(blocks))
+    gates["i each frame holds its prompt's k and v"] = all(
+        len(f) >= n * KV_BLOCK_SIZE * kv_row for f, n in zip(frames, blocks))
+    for b, (ship_ms, nbytes) in zip(bodies, ships):
+        host_ms, span_ms = imports[len(b["input_ids"])]
+        log(f"  (i) prompt {len(b['input_ids'])}: frame {nbytes} bytes, "
+            f"ship (export, host copy, pack) {ship_ms:.2f} ms, import "
+            f"{host_ms:.2f} ms on the host (pinning, copies and scatters "
+            f"enqueued), the stream's span {span_ms:.2f} ms; {smi()}")
+    log("  (i) remote admissions in order of arrival: prompts "
+        f"{[n for n, *_ in import_log[:len(bodies)]]}")
+    log(f"  (i) B1 launches: prefill engine {pre_b1} for {len(bodies)} "
+        f"prompts, decode engine {decode_b1['i']}; blocks shipped "
+        f"{sp['kv_blocks_shipped']}, received {sd['kv_blocks_received']}; "
+        f"decode engine prefill chunks {sd['prefill_chunks']}, "
+        f"{sd['decode_dispatches']} dispatches; the sampled row's ids "
+        f"{'equal' if got[2] == want[2] else 'differ from'} the unified "
+        "engine's (shared generator, other interleaving: not gated)")
+    # The decode step while the longest prompt prefills beside it.
+    row_bodies = [dict(bodies[1], max_tokens=DISAGG_ROW_TOKENS)
+                  ] * DISAGG_ROWS
+    row_frames = [pre.prefill_ship(b["input_ids"], timeout=600,
+                                   **_kwargs(b))["shipment"]
+                  for b in row_bodies]
+    pair_step = _step_window(
+        dec, lambda: _burst(lambda f: dec.submit_remote(f, timeout=600),
+                            row_frames),
+        lambda: pre.prefill_ship(longest["input_ids"], timeout=600,
+                                 **_kwargs(longest)))
+    uni_step = _step_window(
+        uni, lambda: _engine_burst(uni, row_bodies),
+        lambda: uni.submit(longest["input_ids"], max_tokens=1, timeout=600))
+    done(uni)
+    done(pre)
+    done(dec, "decode")
+    log(f"  decode step, {DISAGG_ROWS} rows of 4 decoding (wall ms a "
+        f"step from the fetches' times, over a window that ends "
+        f"{DISAGG_WINDOW_CHUNKS} fetches after the prefill): on the decode "
+        f"engine {pair_step['during']:.2f} ms, the longest wait between "
+        f"two fetches "
+        f"{pair_step['longest_wait_ms']:.1f} ms, while the prefill engine "
+        f"shipped the {len(longest['input_ids'])}-token prompt "
+        f"({pair_step['busy_s']:.3f} s), {pair_step['alone']:.2f} ms after;"
+        f" on the unified engine {uni_step['during']:.2f} ms, the longest "
+        f"wait {uni_step['longest_wait_ms']:.1f} ms, while it admitted the "
+        f"same prompt ({uni_step['busy_s']:.3f} s to its first token), "
+        f"{uni_step['alone']:.2f} ms after (one card: the engines share "
+        f"its SMs and one process's GIL); {smi()}")
+    # (ii) one sampled request alone on each side
+    body = dict(bodies[4], temperature=DISAGG_TEMPERATURE)
+    uni = engine(seed=DISAGG_SEED)
+    ref = uni.submit(body["input_ids"], timeout=600, **_kwargs(body))
+    done(uni)
+    pre = engine(seed=DISAGG_SEED, role="prefill")
+    frame = pre.prefill_ship(body["input_ids"], timeout=600,
+                             **_kwargs(body))["shipment"]
+    done(pre)
+    dec = engine(seed=DISAGG_SEED + 1, role="decode")
+    out = decode_alone(dec, "ii", lambda: dec.submit_remote(frame,
+                                                            timeout=600))
+    done(dec, "decode")
+    same = (out["output_ids"] == ref["output_ids"]
+            and out["output_logprobs"] == ref["output_logprobs"])
+    gates["ii sampled stream bit-equal to the unified engine's"] = same
+    log(f"  (ii) prompt {len(body['input_ids'])} at temperature "
+        f"{DISAGG_TEMPERATURE}: ids and logprobs through the pair "
+        f"{'bit-equal to' if same else 'DIFFER from'} the unified "
+        f"engine's on seed {DISAGG_SEED} (decode engine seeded "
+        f"{DISAGG_SEED + 1})")
+    # (iii) an int8 pool
+    uni = engine(kv_quant="int8")
+    ref = uni.submit(longest["input_ids"], timeout=600, **_kwargs(longest))
+    done(uni)
+    pre = engine(kv_quant="int8", role="prefill")
+    frame8 = pre.prefill_ship(longest["input_ids"], timeout=600,
+                              **_kwargs(longest))["shipment"]
+    done(pre)
+    dec = engine(kv_quant="int8", role="decode")
+    out = decode_alone(dec, "iii", lambda: dec.submit_remote(frame8,
+                                                             timeout=600))
+    done(dec, "decode")
+    meta8 = peek_meta(frame8)
+    ratio = len(frame8) / len(frames[-1])
+    gates["iii fmt 3, int8"] = (meta8["fmt"], meta8.get("kv_quant")) == (
+        3, "int8")
+    gates["iii frame <= 0.55 x the fmt-1 frame"] = ratio <= 0.55
+    gates["iii ids = the int8 unified engine's"] = (
+        out["output_ids"] == ref["output_ids"])
+    log(f"  (iii) int8 pool, prompt {len(longest['input_ids'])}: fmt "
+        f"{meta8['fmt']} frame {len(frame8)} bytes, {ratio:.4f} x the "
+        f"fmt-1 frame's {len(frames[-1])}; ids "
+        f"{'equal to' if out['output_ids'] == ref['output_ids'] else 'DIFFER from'}"
+        " the int8 unified engine's")
+    # (iv) the target as its own draft
+    draft = {"model": model, "gamma": SPEC_GAMMA}
+    body = bodies[3]
+    uni = engine(draft=draft)
+    ref = uni.submit(body["input_ids"], timeout=600, **_kwargs(body))
+    done(uni)
+    pre = engine(draft=draft, role="prefill")
+    frame2 = pre.prefill_ship(body["input_ids"], timeout=600,
+                              **_kwargs(body))["shipment"]
+    done(pre)
+    dec = engine(draft=draft, role="decode")
+    out = decode_alone(dec, "iv", lambda: dec.submit_remote(frame2,
+                                                            timeout=600))
+    s4 = dec.stats_snapshot()
+    done(dec, "decode")
+    meta2 = peek_meta(frame2)
+    gates["iv fmt 2 with a draft section"] = (
+        meta2["fmt"] == 2 and meta2.get("draft", {}).get("n_blocks")
+        == -(-len(body["input_ids"]) // KV_BLOCK_SIZE))
+    gates["iv decode engine speculates, no prefill chunk"] = (
+        s4["spec_dispatches"] > 0 and s4["prefill_chunks"] == 0)
+    gates["iv ids = the unified spec engine's"] = (
+        out["output_ids"] == ref["output_ids"])
+    log(f"  (iv) self-draft (gamma {SPEC_GAMMA}), prompt "
+        f"{len(body['input_ids'])}: fmt {meta2['fmt']} frame {len(frame2)} "
+        f"bytes, draft section {meta2.get('draft')}; decode engine "
+        f"{s4['spec_dispatches']} spec dispatches, accepted "
+        f"{s4['spec_accepted']}/{s4['spec_proposed']}, prefill chunks "
+        f"{s4['prefill_chunks']}; ids "
+        f"{'equal to' if out['output_ids'] == ref['output_ids'] else 'DIFFER from'}"
+        " the unified spec engine's")
+    # (v) an adapter named in the frame
+    spec = ML_ADAPTERS["ml_a"]
+    adapters = {"ml_a": multilora.write_synthetic_adapter(
+        cfg, os.path.join(work, "disagg_ml_a"), spec["seed"], r=spec["r"],
+        targets=spec["targets"])}
+    body = dict(bodies[3], adapter="ml_a")
+    uni = engine(adapters=adapters)
+    ref = uni.submit(body["input_ids"], timeout=600, **_kwargs(body))
+    done(uni)
+    pre = engine(adapters=adapters, role="prefill")
+    framea = pre.prefill_ship(body["input_ids"], timeout=600,
+                              **_kwargs(body))["shipment"]
+    done(pre)
+    dec = engine(adapters=adapters, role="decode")
+    out = decode_alone(dec, "v", lambda: dec.submit_remote(framea,
+                                                           timeout=600))
+    done(dec, "decode")
+    gates["v adapter in the frame, ids = the unified engine's"] = (
+        peek_meta(framea)["adapter"] == "ml_a"
+        and out["output_ids"] == ref["output_ids"])
+    log(f"  (v) adapter ml_a, prompt {len(body['input_ids'])}: ids "
+        f"{'equal to' if out['output_ids'] == ref['output_ids'] else 'DIFFER from'}"
+        " the unified engine's for the adapter")
+    # (vi) over HTTP
+    server = ModelServer()
+    served = {}
+    for name, extra in (("unified", {}), ("prefill", {"role": "prefill"}),
+                        ("decode", {"role": "decode"}),
+                        ("small", {"role": "decode",
+                                   "kv_blocks": DISAGG_SMALL_BLOCKS})):
+        bundle = os.path.join(work, f"disagg_{name}")
+        export_for_serving(bundle, model=MODEL, model_kwargs=MODEL_KWARGS,
+                           seed=SEED,
+                           extra={"generative": {**paged, **extra}})
+        with open(os.path.join(bundle, "model.json")) as f:
+            bspec = json.load(f)
+        served[name] = runtimes._generative(f"{MODEL}_{name}", model, bspec,
+                                            dict(bspec["generative"]))
+        served[name].load()
+        server.register(served[name])
+    base = f"http://127.0.0.1:{server.start_background(0)}"
+    res_metrics.reset()
+    try:
+        url = f"{base}/v1/models/{MODEL}_" + "{}:{}"
+        t0 = time.monotonic()
+        code, hdrs, frame = _request("POST", url.format("prefill", "prefill"),
+                                     longest)
+        prefill_s = time.monotonic() - t0
+        ctype = hdrs.get("Content-Type")
+        code_d, _, raw = _request("POST", url.format("decode", "decode"),
+                                  frame)
+        plain = json.loads(raw) if code_d == 200 else {}
+        t0 = time.monotonic()
+        _, _, frame_s = _request("POST", url.format("prefill", "prefill"),
+                                 dict(longest, stream=True))
+        stream_prefill_s = time.monotonic() - t0
+        streamed = _stream(url.format("decode", "decode"), frame_s)
+        uni_stream = _stream(url.format("unified", "generate"),
+                             dict(longest, stream=True))
+        code_503, hdrs_503, _ = _request("POST", url.format("small", "decode"),
+                                         frame)
+        code_400, _, _ = _request("POST", url.format("decode", "decode"),
+                                  frame[:-100])
+        text = _request("GET", base + "/metrics")[2].decode()
+        for name in ("unified", "prefill"):
+            prefills[0] += served[name].engine.stats_snapshot()["requests"]
+        dstats = served["decode"].engine.stats_snapshot()
+    finally:
+        server.stop()
+        gc.collect()
+        torch.cuda.empty_cache()
+    joined = [t for ev in streamed["frames"][:-1]
+              for t in ev.get("tokens", ())]
+    http_ids = plain.get("output_ids", [])
+    gates["vi :prefill answers a KV frame"] = (
+        code == 200 and ctype == server_mod.KV_SHIPMENT_CONTENT_TYPE)
+    gates["vi :decode plain, ids vs (i)"] = code_d == 200 and _ids_gate(
+        model, [longest], [got[-1]], [http_ids], floor, "(vi) :decode",
+        checks)
+    gates["vi :decode streamed = plain"] = (
+        streamed["content_type"] == "application/x-ndjson"
+        and joined == streamed["frames"][-1].get("output_ids") == http_ids)
+    gates["vi never fits: 503 + Retry-After"] = (
+        code_503 == 503 and hdrs_503.get("Retry-After") == "1")
+    gates["vi truncated frame: 400"] = code_400 == 400
+    rows = {f"tpk_kv_blocks_shipped_total{{model=\"{MODEL}_prefill\"}}":
+            2 * blocks[-1],
+            f"tpk_kv_blocks_received_total{{model=\"{MODEL}_decode\"}}":
+            2 * blocks[-1],
+            f"tpk_engine_remote_admits_total{{model=\"{MODEL}_decode\"}}": 2,
+            f"tpk_engine_prefill_chunks_total{{model=\"{MODEL}_decode\"}}":
+            0, "tpk_kv_shipment_bytes_count": 2}
+    scraped = {k: _metric(text, k) for k in rows}
+    gates["vi /metrics: the new rows"] = all(
+        scraped[k] == v for k, v in rows.items()) and dstats[
+            "remote_admits"] == 2
+    log(f"  (vi) HTTP, prompt {len(longest['input_ids'])}: :prefill "
+        f"{prefill_s:.3f} s ({len(frame)} bytes, {ctype}); streamed, "
+        f":prefill {stream_prefill_s:.3f} s then :decode's first frame "
+        f"{streamed['first_s']:.3f} s = "
+        f"{stream_prefill_s + streamed['first_s']:.3f} s to the first "
+        f"frame, against {uni_stream['first_s']:.3f} s on the unified "
+        f"model's :generate stream; a frame the {DISAGG_SMALL_BLOCKS}-"
+        f"block pool can never hold {code_503}, a truncated one "
+        f"{code_400}; /metrics {scraped}; {smi()}")
+    launches = _b1_launches() - checks["flash"]
+    gates["B1 launches = 32 a prefill, none on a decode engine"] = (
+        launches == nl * prefills[0]
+        and not any(decode_b1.values()))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  B1 launches in 4i {launches} for {prefills[0]} prefills "
+        f"(expected {nl} each; decode engines {decode_b1}), besides "
+        f"{checks['flash']} in the near-tie checks' forwards; 4i took "
+        f"{time.monotonic() - t_phase:.1f}s; {smi()}")
+    for gate, ok in gates.items():
+        log(f"  gate {gate}: {'OK' if ok else 'FAIL'}")
+    if not all(gates.values()):
+        raise RuntimeError(f"disaggregation gates failed: "
+                           f"{[g for g, ok in gates.items() if not ok]}")
+    return {"launches": launches,
+            "ship_ms": [t for t, _ in ships],
+            "frame_bytes": [n for _, n in ships],
+            "import_ms": {n: host for n, (host, _) in imports.items()},
+            "pair_step": pair_step, "uni_step": uni_step,
+            "first_frame_s": stream_prefill_s + streamed["first_s"],
+            "unified_first_frame_s": uni_stream["first_s"],
+            "int8_ratio": ratio}
 
 
 def _decode_in_situ(ordered_ms: list) -> dict | None:
@@ -5184,6 +5664,11 @@ def main() -> int:
                       "config: fp32 exactness, past the window, within it, "
                       "prefix reuse, a spec target, over HTTP",
                       phase_rolling, bundle, floor)
+        disagg = run("4i", f"disaggregated roles on {MODEL}: a prefill "
+                     "engine ships, a decode engine admits (greedy, "
+                     "sampled, int8 pool, self-draft, adapter), the step "
+                     "beside a prefill, :prefill and :decode over HTTP",
+                     phase_disagg, bundle, floor)
     finally:
         shutil.rmtree(bundle, ignore_errors=True)
     train = run("5", f"training {TRAIN_MODEL} through the trainer",
@@ -5213,6 +5698,7 @@ def main() -> int:
                     "prefix_cache": prefix["launches"],
                     "speculative_serving": spec["launches"],
                     **rolling["launches"],
+                    "disaggregated_serving": disagg["launches"],
                     "training": train["launches"][0],
                     "packed_training": job["launches"][0],
                     "lora_training": lora_run["launches"][0],

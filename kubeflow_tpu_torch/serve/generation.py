@@ -88,14 +88,36 @@ with its overlapped scheduler:
     demoted (its draft rows are stale) and re-admitted by replaying its
     history when that is worth it. The draft replays every prompt whole,
     never from the prefix cache, and proposes from base weights under
-    adapters. `kv_quant` does not compose with a draft.
+    adapters. `kv_quant` does not compose with a draft;
+  * `role` (paged only) splits prefill from decode. A "prefill" engine
+    takes `prefill_ship` alone: it chunk-prefills the prompt into blocks
+    reserved for the prompt only, copies the committed blocks to the host
+    through pinned memory, packs them with the prompt, the first token,
+    the sampling parameters, the adapter's name, the caller's timeout and
+    its generator state into a KV wire frame (serve/kv_transfer.py: fmt 1,
+    fmt 2 with the draft's prompt blocks, fmt 3 for a quantized pool), and
+    frees the blocks; it holds no slot and decodes nothing. A "decode"
+    engine takes `submit_remote` alone: it checks the frame against
+    itself, reserves the full decode budget as a local admission does,
+    scatters the blocks in by pinned non-blocking copies (a fmt-1 frame
+    into a quantized pool is encoded there as the decode writes are;
+    without a draft section a draft engine replays the prompt), adopts the
+    generator state and decodes from the shipped first token, never
+    running a prefill chunk. A "unified" engine (the default) takes all
+    three calls.
 
 Sampling is greedy (temperature 0), temperature, top-k and top-p, per row,
 with draws from the engine's own seeded `torch.Generator`, taken as work is
 enqueued. The draws are not the JAX package's: only greedy output is
 comparable across packages. Depth 2 may order an admission's draws
 differently from depth 1 when requests overlap (as in JAX); a single
-request draws the same stream at any depth.
+request draws the same stream at any depth. A shipment's `rng_key` is the
+prefill engine's `torch.Generator.get_state()` (uint8), where JAX ships
+`jax.random.key_data`: a decode engine adopts it only from a generator of
+its own kind (a JAX frame's key, or a CPU engine's state on a CUDA engine,
+is refused by name), and then continues the stream the unified engine
+would have drawn, so a single request through the pair is token- and
+logprob-identical to the unified engine on the same seed.
 """
 
 from __future__ import annotations
@@ -113,8 +135,9 @@ import torch
 
 from kubeflow_tpu_torch.models.llama import (adapter_rows, config_view,
                                              init_cache, rolling_window)
-from kubeflow_tpu_torch.serve.kv_transfer import (HostKVTier, ShipmentError,
-                                                  pack_shipment,
+from kubeflow_tpu_torch.serve.kv_transfer import (_NAMES, HostKVTier,
+                                                  ShipmentError,
+                                                  pack_shipment, peek_meta,
                                                   unpack_shipment)
 from kubeflow_tpu_torch.serve.model import Model
 from kubeflow_tpu_torch.serve.paging import BlockAllocator, blocks_for
@@ -122,7 +145,18 @@ from kubeflow_tpu_torch.serve.quant import (KV_QUANT_MODES,
                                             kv_dequantize_rows,
                                             kv_quantize_rows)
 from kubeflow_tpu_torch.serve.tokenizer_util import decode_ids, resolve_ids
-from kubeflow_tpu_torch.utils.resilience import Deadline, DeadlineExceeded
+from kubeflow_tpu_torch.utils.resilience import (Deadline, DeadlineExceeded,
+                                                 metrics as res_metrics)
+
+#: `tpk_kv_shipment_bytes` buckets: wire-payload-shaped, from 1 KiB frames
+#: of tiny models to 64 MiB, as JAX's.
+_SHIPMENT_BUCKETS = (1024.0, 4096.0, 16384.0, 65536.0, 262144.0,
+                     1048576.0, 4194304.0, 16777216.0, 67108864.0)
+
+#: Engine roles: "unified" serves both phases; a "prefill" engine only
+#: ships (`prefill_ship`), a "decode" engine only admits shipments
+#: (`submit_remote`) and never runs a prefill chunk.
+ENGINE_ROLES = ("unified", "prefill", "decode")
 
 NEG_INF = -1e30
 
@@ -649,11 +683,11 @@ class GenerationEngine:
     `draft` ({"model": a causal Llama of the target's vocabulary, "gamma":
     proposals a spec step, default 4}) decodes greedy and plain-temperature
     requests speculatively, `max(1, chunk // (gamma + 1))` spec steps a
-    dispatch."""
+    dispatch.
 
-    #: Disaggregated roles are not ported: every engine prefills and
-    #: decodes (rendered as the `tpk_engine_role` gauge).
-    role = "unified"
+    `role` (one of ENGINE_ROLES, paged only; rendered as the
+    `tpk_engine_role` gauge) restricts the engine to one phase: "prefill"
+    takes only `prefill_ship`, "decode" only `submit_remote`."""
 
     def __init__(self, model, *, slots: int = 4, max_len: int = 256,
                  chunk: int = 16, prefill_buckets: Sequence[int] = (32, 128),
@@ -661,7 +695,8 @@ class GenerationEngine:
                  pipeline_depth: int = 2, kv_block_size: int = 0,
                  kv_blocks: int = 0, kv_quant: str = "none",
                  adapters: dict | None = None, prefix_cache: int = 0,
-                 kv_host_tier_blocks: int = 0, draft: dict | None = None):
+                 kv_host_tier_blocks: int = 0, draft: dict | None = None,
+                 role: str = "unified"):
         cfg = model.cfg
         self.model, self.cfg = model, cfg
         self.device = model.device
@@ -718,6 +753,13 @@ class GenerationEngine:
                  if self.chunk < int(b) < self.max_len} | {self.max_len})
         self._paged = int(kv_block_size) > 0
         self._kv_bs = int(kv_block_size)
+        if role not in ENGINE_ROLES:
+            raise ValueError(f"role {role!r}: must be one of {ENGINE_ROLES}")
+        if role != "unified" and not self._paged:
+            raise ValueError(
+                f"role={role!r} needs the paged KV cache (KV blocks are "
+                "the prefill→decode wire unit); set kv_block_size > 0")
+        self.role = role
         if self._paged:
             if self._rolling:
                 raise ValueError(
@@ -790,6 +832,9 @@ class GenerationEngine:
         self._decode = {(b, trunc): make(trunc, b)
                         for b in self.decode_buckets for trunc in (False, True)}
         self._gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        #: The shape of this generator's state: a shipment's `rng_key` of
+        #: another shape is another kind of generator's.
+        self._gen_state_shape = tuple(self._gen.get_state().shape)
         # The pool: kv_blocks usable blocks + NULL block 0; or the slots.
         dims = ((self._kv_alloc.n_blocks + 1, self._kv_bs) if self._paged
                 else (self.n_slots, self.max_len))
@@ -830,7 +875,9 @@ class GenerationEngine:
                       "kv_restored_blocks": 0, "kv_dequant_fallbacks": 0,
                       "spec_dispatches": 0, "spec_proposed": 0,
                       "spec_accepted": 0, "spec_demotions": 0,
-                      "spec_readmissions": 0, "spec_stale_rides": 0}
+                      "spec_readmissions": 0, "spec_stale_rides": 0,
+                      "remote_admits": 0, "kv_blocks_shipped": 0,
+                      "kv_blocks_received": 0, "kv_shipment_bytes": 0}
         self._busy_mark: float | None = None
         self._slots: list[dict | None] = [None] * self.n_slots
         self._thread = threading.Thread(target=self._loop, daemon=True,
@@ -930,6 +977,36 @@ class GenerationEngine:
         budget: checked at admission and at every chunk boundary, where
         an expired request frees its slot; this call returns when it
         expires, raising DeadlineExceeded."""
+        if self.role != "unified":
+            raise RuntimeError(
+                f"{self.role}-role engine refuses a local generate: "
+                "prefill engines take prefill_ship(), decode engines "
+                "take submit_remote()")
+        ids = self._check_request(input_ids, max_tokens, top_k, top_p)
+        req = {"input_ids": ids, "max_tokens": int(max_tokens),
+               "temperature": float(temperature), "top_k": int(top_k),
+               "top_p": float(top_p), "aid": self._resolve_adapter(adapter),
+               "eos_id": eos_id, "cb": on_tokens}
+        if self._paged:
+            self._check_fits(req, f"request needs {{}} KV blocks worst-case "
+                                  f"(prompt {len(ids)} + max_tokens "
+                                  f"{int(max_tokens)})")
+        return self._run(req, timeout, deadline, "generation")
+
+    def _check_fits(self, req: dict, what: str) -> None:
+        """KVCapacityExceeded (permanent: even an empty pool cannot cover
+        it) when the request's reservation, a spec-able one's draft blocks
+        with it, exceeds the pool; `what` says so with a {} for the
+        blocks."""
+        need = self._reserve_blocks(req) + self._draft_need_blocks(req)
+        if need > self._kv_alloc.n_blocks:
+            raise KVCapacityExceeded(f"{what.format(need)} but the pool "
+                                     f"has {self._kv_alloc.n_blocks}")
+
+    def _check_request(self, input_ids, max_tokens, top_k, top_p) -> list:
+        """The prompt as ints, after the checks every admission path
+        shares (an out-of-range id would be a device-side assert on
+        CUDA)."""
         if not input_ids:
             raise ValueError("input_ids must be non-empty")
         ids = [int(t) for t in input_ids]
@@ -946,43 +1023,241 @@ class GenerationEngine:
             raise ValueError(f"top_p must be in (0, 1], got {top_p}")
         if top_k < 0:
             raise ValueError(f"top_k must be >= 0, got {top_k}")
-        aid = self._resolve_adapter(adapter)
-        if self._paged:
-            need = self._need_blocks(len(ids), int(max_tokens))
-            if self._spec is not None and top_k == 0 and top_p >= 1.0:
-                need *= 2  # the draft's blocks mirror the target's
-            if need > self._kv_alloc.n_blocks:
-                # Permanent: even an empty pool cannot cover it.
-                raise KVCapacityExceeded(
-                    f"request needs {need} KV blocks worst-case (prompt "
-                    f"{len(ids)} + max_tokens {int(max_tokens)}) but the "
-                    f"pool has {self._kv_alloc.n_blocks}")
-        req = {"input_ids": ids, "max_tokens": int(max_tokens),
-               "temperature": float(temperature), "top_k": int(top_k),
-               "top_p": float(top_p), "aid": aid, "eos_id": eos_id,
-               "out": [], "out_logprobs": [], "done": threading.Event(),
-               "error": None, "deadline": deadline, "cb": on_tokens,
-               "t0": time.monotonic()}
+        return ids
+
+    def _run(self, req: dict, timeout: float, deadline, what: str) -> dict:
+        """Queue `req` for the worker and wait for it: until the worker
+        sets it done, `timeout` seconds, or the deadline (the caller's 504
+        does not wait for the next chunk boundary, where the worker frees
+        the slot). A ship-mode request returns its result; any other its
+        output."""
+        req.update(out=[], out_logprobs=[], done=threading.Event(),
+                   error=None, deadline=deadline, t0=time.monotonic())
         self._queue.put(req)
         self._wake.set()
-        # Wake at the deadline: the worker frees the slot at its next
-        # chunk boundary, but the caller's 504 does not wait for it.
         wait_s = timeout if deadline is None else deadline.bound(timeout)
         if not req["done"].wait(wait_s):
             if deadline is not None and deadline.expired():
                 req["error"] = DeadlineExceeded(
-                    "request deadline expired during generation")
+                    f"request deadline expired during {what}")
             else:
-                req["error"] = f"generation timed out after {timeout}s"
+                req["error"] = f"{what} timed out after {timeout}s"
         if isinstance(req["error"], BaseException):
             raise req["error"]
         if req["error"]:
             raise RuntimeError(req["error"])
+        if req.get("mode") == "ship":
+            return dict(req["result"],
+                        latency_s=time.monotonic() - req["t0"])
         return {"output_ids": req["out"],
                 "output_logprobs": req["out_logprobs"],
-                "num_input_tokens": len(ids),
+                "num_input_tokens": len(req["input_ids"]),
                 "num_output_tokens": len(req["out"]),
                 "latency_s": time.monotonic() - req["t0"]}
+
+    def prefill_ship(self, input_ids: Sequence[int], *, max_tokens: int = 32,
+                     temperature: float = 0.0, top_k: int = 0,
+                     top_p: float = 1.0, eos_id: int | None = None,
+                     timeout: float = 300.0, adapter: str | None = None,
+                     deadline: Deadline | None = None,
+                     extra: dict | None = None) -> dict:
+        """Chunk-prefill a prompt into pool blocks and return them as a
+        KV shipment instead of decoding it: the committed blocks, the
+        prompt, the first token and its logprob, the sampling parameters,
+        the adapter's name, `timeout` (the decode side's wait) and this
+        engine's generator state after the prefill, packed by
+        serve/kv_transfer.py (`extra` rides the meta verbatim). The blocks
+        return to the pool as soon as the frame is packed. Returns
+        {"shipment": bytes, "num_input_tokens", "first_token",
+        "kv_blocks", "latency_s"}."""
+        if self.role == "decode":
+            raise RuntimeError(
+                "decode-role engine refuses prefill work (zero prefill "
+                "chunks is the disaggregation invariant)")
+        if not self._paged:
+            raise RuntimeError(
+                "prefill_ship needs the paged KV cache (KV blocks are "
+                "the wire unit); set kv_block_size > 0")
+        ids = self._check_request(input_ids, max_tokens, top_k, top_p)
+        req = {"mode": "ship", "input_ids": ids,
+               "max_tokens": int(max_tokens),
+               "temperature": float(temperature), "top_k": int(top_k),
+               "top_p": float(top_p), "aid": self._resolve_adapter(adapter),
+               "adapter": adapter, "eos_id": eos_id,
+               "timeout": float(timeout), "extra": dict(extra or {}),
+               "cb": None}
+        # Prompt blocks only (a spec-able request's draft ones with them).
+        self._check_fits(req, "prompt needs {} KV blocks")
+        return self._run(req, timeout, deadline, "prefill")
+
+    def submit_remote(self, shipment, *, timeout: float | None = None,
+                      deadline: Deadline | None = None,
+                      on_tokens=None) -> dict:
+        """Admit a shipped prefill (`prefill_ship`'s bytes) straight into
+        decode; blocks like `submit`. The frame is checked against this
+        engine (format, kv_quant, draft section, block size, vocabulary,
+        prompt length, block shapes, generator kind) and its worst case
+        against the pool (KVCapacityExceeded if it can never fit); the
+        worker then reserves the full decode budget as a local admission
+        does (waiting head of line while the pool is short), scatters the
+        blocks in, adopts the shipped generator state and emits the
+        shipped first token. It never runs a prefill chunk. The sampling
+        parameters and, when `timeout` is None, the wait come from the
+        frame."""
+        if self.role == "prefill":
+            raise RuntimeError(
+                "prefill-role engine refuses decode work; route "
+                "shipments to a decode or unified replica")
+        if not self._paged:
+            raise RuntimeError(
+                "submit_remote needs the paged KV cache; set "
+                "kv_block_size > 0")
+        meta, arrays = unpack_shipment(shipment)
+        fmt = int(meta.get("fmt", 0))
+        self._check_frame(meta, fmt)
+        ids = [int(t) for t in meta["tokens"]]
+        if not ids or len(ids) > self.max_len - 1:
+            raise ShipmentError(
+                f"shipped prompt of {len(ids)} tokens does not fit "
+                f"max_len {self.max_len}")
+        first = int(meta["first_token"])
+        bad = [t for t in ids + [first] if not 0 <= t < self.cfg.vocab_size]
+        if bad:
+            raise ShipmentError(f"shipped token ids outside [0, "
+                                f"{self.cfg.vocab_size}): {bad[:8]}")
+        n_blocks = blocks_for(len(ids), self._kv_bs)
+        quantized = self.kv_quant != "none"
+        # A fmt-1 frame into a quantized pool ships k and v only: the
+        # worker encodes them at import.
+        names = (("k", "v", "ks", "vs") if quantized and fmt == 3
+                 else ("k", "v"))
+        blocks = {}
+        for name in names:
+            arr = arrays.get(name)
+            if arr is None:
+                raise ShipmentError(f"shipment missing {name!r} blocks")
+            ref = self._cache[name].shape  # scale planes drop the D axis
+            want = (ref[0], n_blocks, *ref[2:])
+            if tuple(arr.shape) != want:
+                raise ShipmentError(
+                    f"shipment {name} blocks shaped {tuple(arr.shape)}, "
+                    f"this engine needs {want}")
+            blocks[name] = arr
+        draft_blocks, dn_blocks = None, 0
+        if fmt == 2:
+            draft_blocks, dn_blocks = self._draft_section(meta, arrays)
+        key = arrays.get("rng_key")
+        if key is not None and (key.dtype != torch.uint8 or tuple(
+                key.shape) != self._gen_state_shape):
+            raise ShipmentError(
+                f"shipment rng_key ({_NAMES.get(key.dtype, key.dtype)} "
+                f"{list(key.shape)}) is not the state of this engine's "
+                f"{self.device.type} torch.Generator (uint8 "
+                f"{list(self._gen_state_shape)}): pair replicas of one "
+                "package on one kind of device")
+        if timeout is None:
+            timeout = float(meta.get("timeout", 300.0))
+        req = {"mode": "remote", "input_ids": ids,
+               "max_tokens": int(meta.get("max_tokens", 32)),
+               "temperature": float(meta.get("temperature", 0.0)),
+               "top_k": int(meta.get("top_k", 0)),
+               "top_p": float(meta.get("top_p", 1.0)),
+               "aid": self._resolve_adapter(meta.get("adapter")),
+               "eos_id": meta.get("eos_id"), "first_tok": first,
+               "first_lp": float(meta["first_logprob"]),
+               "kv_blocks": blocks, "n_blocks": n_blocks,
+               "draft_blocks": draft_blocks, "dn_blocks": dn_blocks,
+               "rng_key": key, "cb": on_tokens}
+        self._check_fits(req, "shipped request needs {} KV blocks "
+                              "worst-case")
+        return self._run(req, timeout, deadline, "generation")
+
+    def _check_frame(self, meta: dict, fmt: int) -> None:
+        """Refuse, by name, a frame this engine cannot decode: an unknown
+        format, a meta without the prompt or the first token, quantized
+        blocks of another (or no) kv_quant, a draft section without a
+        draft, another block size or vocabulary."""
+        if fmt not in (1, 2, 3):
+            raise ShipmentError(f"unknown shipment fmt {meta.get('fmt')!r}")
+        missing = [k for k in ("tokens", "first_token", "first_logprob")
+                   if k not in meta]
+        if missing:
+            raise ShipmentError(f"shipment meta lacks {missing}")
+        if fmt == 3 and self.kv_quant == "none":
+            # Never a silent dequant-upcast: the stream's numerics would
+            # depend on which replica prefilled it.
+            raise ShipmentError(
+                f"shipment fmt 3 carries {meta.get('kv_quant')!r}-"
+                "quantized KV blocks but this engine runs "
+                "kv_quant='none'; pair quantized prefill replicas with "
+                "decode replicas running the same kv_quant (or drop "
+                "generative.kv_quant fleet-wide)")
+        if fmt == 3 and str(meta.get("kv_quant")) != self.kv_quant:
+            raise ShipmentError(
+                f"shipment kv_quant {meta.get('kv_quant')!r} != this "
+                f"engine's {self.kv_quant!r} — mixed-precision fleets "
+                "cannot exchange KV blocks (align generative.kv_quant)")
+        if fmt == 2 and self._spec is None:
+            # Refused, never dropped: the decode side would re-pay the
+            # replay the shipment exists to avoid.
+            raise ShipmentError(
+                "shipment fmt 2 carries a draft-KV section but this "
+                "engine has no draft model; pair draft-carrying "
+                "prefill replicas with draft-configured decode "
+                "replicas (or drop generative.draft fleet-wide)")
+        if int(meta.get("block_size", 0)) != self._kv_bs:
+            raise ShipmentError(
+                f"shipment block_size {meta.get('block_size')} != this "
+                f"pool's {self._kv_bs} (pair replicas with identical "
+                "kv_block_size)")
+        if int(meta.get("vocab_size", 0)) != int(self.cfg.vocab_size):
+            raise ShipmentError(
+                f"shipment vocab {meta.get('vocab_size')} != model "
+                f"vocab {self.cfg.vocab_size}")
+
+    def _draft_meta(self, n_blocks: int) -> dict:
+        """The draft section's identity in a fmt-2 frame."""
+        ref = self._dcache["k"]
+        return {"block_size": self._kv_bs,
+                "vocab_size": int(self._spec["cfg"].vocab_size),
+                "n_blocks": n_blocks, "kv_shape": list(ref.shape[2:]),
+                "num_layers": int(ref.shape[0]),
+                "dtype": _NAMES[ref.dtype]}
+
+    def _draft_section(self, meta: dict, arrays: dict) -> tuple:
+        """A fmt-2 frame's draft blocks ({"k", "v"}: [L, n, bs, KH, D]) and
+        their count, after its identity is checked against this engine's
+        draft model."""
+        dmeta = dict(meta.get("draft") or {})
+        dn = int(dmeta.get("n_blocks", 0))
+        mine = self._draft_meta(dn)
+        if any(dmeta.get(k) != v for k, v in mine.items()
+               if k != "n_blocks"):
+            raise ShipmentError(
+                f"shipment draft section {dmeta} does not match this "
+                f"engine's draft model (layers={mine['num_layers']}, "
+                f"kv_shape={mine['kv_shape']}, dtype={mine['dtype']}, "
+                f"block_size={self._kv_bs}) — mixed-precision or "
+                "mixed-config fleets cannot exchange draft KV")
+        mb = self.max_len // self._kv_bs
+        if dn < 1 or dn > mb:
+            raise ShipmentError(
+                f"shipment draft section claims {dn} blocks; this engine "
+                f"fits at most {mb}")
+        ref = self._dcache["k"].shape
+        want = (ref[0], dn, *ref[2:])
+        out = {}
+        for name in ("k", "v"):
+            arr = arrays.get("draft_" + name)
+            if arr is None:
+                raise ShipmentError(
+                    f"fmt 2 shipment missing draft_{name!r} blocks")
+            if tuple(arr.shape) != want:
+                raise ShipmentError(
+                    f"shipment draft_{name} blocks shaped "
+                    f"{tuple(arr.shape)}, this engine needs {want}")
+            out[name] = arr
+        return out, dn
 
     def close(self):
         self._stop = True
@@ -1045,6 +1320,15 @@ class GenerationEngine:
         return blocks_for(min(self.max_len, prompt + chunks * self.chunk),
                           self._kv_bs)
 
+    def _reserve_blocks(self, req: dict) -> int:
+        """Blocks a request's admission reserves: a ship-mode one only its
+        prompt's (the decode engine reserves the decode budget), any other
+        the worst case."""
+        n = len(req["input_ids"])
+        if req.get("mode") == "ship":
+            return blocks_for(n, self._kv_bs)
+        return self._need_blocks(n, req["max_tokens"])
+
     def _spec_able(self, req: dict) -> bool:
         """Does the request ride the spec sub-batch? Greedy and
         plain-temperature rows do (exact match, rejection sampling);
@@ -1059,7 +1343,7 @@ class GenerationEngine:
         prefix hit, never discounted by one."""
         if not (self._paged and self._spec_able(req)):
             return 0
-        return self._need_blocks(len(req["input_ids"]), req["max_tokens"])
+        return self._reserve_blocks(req)
 
     def _free_slot_blocks(self, st: dict) -> None:
         """Return a retired request's target and draft blocks to the pool
@@ -1103,7 +1387,12 @@ class GenerationEngine:
         sampled token is fetched and emitted here; deeper, it stays on the
         device as the slot's `pending` decode carry (its host copy under
         way) and is emitted at a later poll or fetch. Paged: raises
-        _NeedKVBlocks when the pool is short now."""
+        _NeedKVBlocks when the pool is short now. A ship-mode request is
+        packed and released here (`_finish_ship`) and holds no slot; a
+        remote one is admitted without a prefill (`_admit_remote_paged`)."""
+        if req.get("mode") == "remote":
+            self._admit_remote_paged(slot, req)
+            return
         ids, aid = req["input_ids"], req["aid"]
         dtable = None
         if self._paged:
@@ -1126,6 +1415,12 @@ class GenerationEngine:
                 # in its own slot (top-k/top-p rows never speculate).
                 self._dfns["insert"](self._dcache, self._draft_replay(ids),
                                      slot)
+        with self._stats_lock:
+            self.stats["prefill_chunks"] += -(-(len(ids) - start)
+                                              // self.prefill_buckets[-1])
+        if req.get("mode") == "ship":
+            self._finish_ship(req, table, dtable, tok0, lp0)
+            return
         st = {"req": req, "idx": len(ids), "disp": len(ids), "last": None,
               "pending": None,
               "draft_ok": self._spec_able(req)}
@@ -1138,18 +1433,153 @@ class GenerationEngine:
         else:
             st["last"] = int(tok0[0])
         self._slots[slot] = st
+        self._count_request(req)
+        if st["pending"] is None:
+            self._emit(slot, st, [st["last"]], [float(lp0[0])])
+
+    def _count_request(self, req: dict, **more: int) -> None:
+        """Count a prefilled request (a local admission or a shipment):
+        requests, prompt tokens, its adapter's requests, and `more`."""
+        aid = req["aid"]
         with self._stats_lock:
-            self.stats["prefill_chunks"] += -(-(len(ids) - start)
-                                              // self.prefill_buckets[-1])
             self.stats["requests"] += 1
-            self.stats["prompt_tokens"] += len(ids)
+            self.stats["prompt_tokens"] += len(req["input_ids"])
+            for key, n in more.items():
+                self.stats[key] += n
             if aid:
                 per = dict(self.stats.get("adapter_requests", {}))
                 name = self._ml_names[aid]
                 per[name] = per.get(name, 0) + 1
                 self.stats["adapter_requests"] = per
-        if st["pending"] is None:
-            self._emit(slot, st, [st["last"]], [float(lp0[0])])
+
+    def _finish_ship(self, req: dict, table: list[int],
+                     dtable: list[int] | None, tok0, lp0) -> None:
+        """Pack a ship-mode admission's committed blocks (and a spec-able
+        request's prompt-width draft blocks, as fmt 2) into a KV frame and
+        release them; the request's result is the frame. The gathers and
+        the first token come back through pinned memory behind one event,
+        whose wait is a host sync: a prefill engine has no decode chunk in
+        flight to stall (a unified engine's ship waits for its chunks)."""
+        try:
+            gathered = self._fns["export_blocks"](
+                self._cache, self._to_device(np.asarray(table, np.int64)))
+            if dtable is not None:
+                dgathered = self._dfns["export_blocks"](
+                    self._dcache,
+                    self._to_device(np.asarray(dtable, np.int64)))
+                gathered.update({"draft_" + n: t
+                                 for n, t in dgathered.items()})
+            names = sorted(gathered)
+            host, event = self._to_host(tok0, lp0,
+                                        *(gathered[n] for n in names))
+            if event is not None:
+                _wait(event)
+        finally:
+            self._kv_alloc.decref(table)
+            if dtable is not None:
+                self._kv_alloc.decref(dtable)
+        arrays = dict(zip(names, host[2:]))
+        # The generator after the prefill's draws: a decode engine that
+        # adopts it draws what this one would have drawn next.
+        arrays["rng_key"] = self._gen.get_state()
+        first_tok = int(host[0][0])
+        meta = {"fmt": (2 if dtable is not None
+                        else 3 if self.kv_quant != "none" else 1),
+                "block_size": self._kv_bs,
+                "vocab_size": int(self.cfg.vocab_size),
+                "tokens": list(req["input_ids"]),
+                "committed": len(req["input_ids"]),
+                "first_token": first_tok,
+                "first_logprob": float(host[1][0]),
+                "max_tokens": req["max_tokens"],
+                "temperature": req["temperature"], "top_k": req["top_k"],
+                "top_p": req["top_p"], "eos_id": req["eos_id"],
+                "adapter": req["adapter"],
+                # The caller's budget: the decode engine waits as long as
+                # the unified engine would have.
+                "timeout": req["timeout"], "extra": req["extra"]}
+        if dtable is not None:
+            meta["draft"] = self._draft_meta(len(dtable))
+        if self.kv_quant != "none":
+            meta["kv_quant"] = self.kv_quant
+        payload = pack_shipment(meta, arrays)
+        res_metrics.observe("tpk_kv_shipment_bytes", len(payload),
+                            buckets=_SHIPMENT_BUCKETS)
+        self._count_request(req, kv_blocks_shipped=len(table),
+                            kv_shipment_bytes=len(payload))
+        req["result"] = {"shipment": payload,
+                         "num_input_tokens": len(req["input_ids"]),
+                         "first_token": first_tok, "kv_blocks": len(table)}
+        req["done"].set()
+
+    def _admit_remote_paged(self, slot: int, req: dict) -> None:
+        """Admit a shipped prefill into `slot` with no prefill chunk:
+        reserve the full decode budget (and a spec-able request's draft
+        blocks: both or neither, as `_admit_paged`), scatter the shipped
+        blocks into the table's first entries by pinned non-blocking copies
+        (a fmt-1 frame into a quantized pool encoded by the decode writes'
+        row encode; the budget's tail keeps stale rows, each written before
+        any query attends it), the draft's from a fmt-2 frame or replayed
+        from the prompt, adopt the shipped generator state and emit the
+        shipped first token. Nothing here waits for the device, so a remote
+        admission rides behind the chunks in flight. Raises _NeedKVBlocks
+        when the pool is short now."""
+        ids = req["input_ids"]
+        table = self._kv_alloc.alloc(self._reserve_blocks(req))
+        if table is None:
+            raise _NeedKVBlocks()
+        dtable = None
+        dneed = self._draft_need_blocks(req)
+        if dneed:
+            dtable = self._kv_alloc.alloc(dneed)
+            if dtable is None:
+                self._kv_alloc.decref(table)
+                raise _NeedKVBlocks()
+        n = req["n_blocks"]
+        try:
+            blocks = {name: self._to_device(t)
+                      for name, t in req["kv_blocks"].items()}
+            if self.kv_quant != "none" and "ks" not in blocks:
+                for name in ("k", "v"):
+                    blocks[name], blocks[name + "s"] = kv_quantize_rows(
+                        blocks[name], self.kv_quant)
+            self._fns["import_blocks"](
+                self._cache, blocks,
+                self._to_device(np.asarray(table[:n], np.int64)))
+            if dtable is not None and req["draft_blocks"] is not None:
+                dn = min(req["dn_blocks"], len(dtable))
+                self._dfns["import_blocks"](
+                    self._dcache,
+                    {name: self._to_device(t[:, :dn])
+                     for name, t in req["draft_blocks"].items()},
+                    self._to_device(np.asarray(dtable[:dn], np.int64)))
+            elif dtable is not None:
+                # A frame without a draft section: the draft replays the
+                # prompt here (the cost a fmt-2 frame saves).
+                self._dfns["insert_paged"](
+                    self._dcache, self._draft_replay(ids),
+                    self._to_device(np.asarray(dtable, np.int64)))
+        except BaseException:
+            self._kv_alloc.decref(table)
+            if dtable is not None:
+                self._kv_alloc.decref(dtable)
+            raise
+        if req["rng_key"] is not None:
+            # Concurrent shipments share this one generator, as concurrent
+            # local admissions do (the last admission's state wins); a
+            # request alone draws the unified engine's stream.
+            self._gen.set_state(req["rng_key"])
+        st = {"req": req, "idx": len(ids), "disp": len(ids),
+              "last": req["first_tok"], "pending": None,
+              "draft_ok": dtable is not None, "blocks": table}
+        if dtable is not None:
+            st["dblocks"] = dtable
+        self._slots[slot] = st
+        with self._stats_lock:
+            self.stats["requests"] += 1
+            self.stats["remote_admits"] += 1
+            self.stats["kv_blocks_received"] += n
+        self._emit(slot, st, [req["first_tok"]], [req["first_lp"]])
 
     def _count_lookup(self, done: int, hit: bool, zero_copy: bool = False,
                       cow: bool = False) -> None:
@@ -1186,8 +1616,8 @@ class GenerationEngine:
                 shared = list(gather[:done // bs])
         # _admit_waiting's _kv_fits precheck makes this failure unreachable
         # in the normal flow.
-        fresh = self._kv_alloc.alloc(max(0, self._need_blocks(
-            len(ids), req["max_tokens"]) - len(shared)))
+        fresh = self._kv_alloc.alloc(max(0, self._reserve_blocks(req)
+                                         - len(shared)))
         if fresh is None:
             raise _NeedKVBlocks()
         # The draft's blocks, with the target's: both or neither, so the
@@ -1429,10 +1859,13 @@ class GenerationEngine:
         is the only way to fit."""
         ids, aid = req["input_ids"], req["aid"]
         # A spec-able request also covers its draft blocks, in full.
-        total = (self._need_blocks(len(ids), req["max_tokens"])
-                 + self._draft_need_blocks(req))
+        total = self._reserve_blocks(req) + self._draft_need_blocks(req)
+        # A remote admission's blocks arrive on the wire and its reserve
+        # takes the full need: a hit's discount could pass a request the
+        # reserve never satisfies.
         hit = (self._prefix_probe(ids, aid, touch=False)
-               if self._prefix_cap else None)
+               if self._prefix_cap and req.get("mode") != "remote"
+               else None)
         shared = hit[0] // self._kv_bs if hit is not None else 0
         hit_key = ((aid, hit[0], hash(tuple(ids[:hit[0]])))
                    if hit is not None else None)
@@ -1514,7 +1947,7 @@ class GenerationEngine:
             return None
         bs = self._kv_bs
         n_blocks = blocks_for(n, bs)
-        total = self._need_blocks(len(ids), req["max_tokens"])
+        total = self._reserve_blocks(req)
         if not self._kv_alloc.can_alloc(n_blocks + total - n // bs):
             return None  # leave it spilled; admission proceeds cold
         kt = tuple(ids[:n])
@@ -2091,15 +2524,16 @@ class GenerationEngine:
 #: sets one to anything else is refused by name (501 at the server).
 _UNPORTED = {
     "mesh": ("tensor-parallel mesh", None),
-    "role": ("disaggregated prefill/decode roles", "unified"),
 }
 
 
 class GenerativeTorchModel(Model):
     """KServe-Model-shaped wrapper: load() builds the engine; generate()
-    and generate_stream() are the request surface. `generation`'s
-    `tokenizer` ("bytes", or an HF-style object with encode/decode) lets
-    requests pass `text` and adds `text` to the output."""
+    and generate_stream() are the request surface, and prefill_ship(),
+    decode_remote() and decode_remote_stream() the :prefill and :decode
+    routes'. `generation`'s `tokenizer` ("bytes", or an HF-style object
+    with encode/decode) lets requests pass `text` and adds `text` to the
+    output."""
 
     def __init__(self, name: str, model, *, generation: dict | None = None):
         super().__init__(name)
@@ -2168,11 +2602,14 @@ class GenerativeTorchModel(Model):
             self.engine.close()
             self.engine = None
 
+    def _check_loaded(self) -> None:
+        if not self.ready or self.engine is None:
+            raise RuntimeError(f"model {self.name} is not loaded")
+
     def _resolve_ids(self, payload: dict) -> list[int]:
         """The request's prompt ids: `input_ids`, or `text` through the
         tokenizer."""
-        if not self.ready or self.engine is None:
-            raise RuntimeError(f"model {self.name} is not loaded")
+        self._check_loaded()
         ids = payload.get("input_ids")
         if ids is not None and (not isinstance(ids, list) or not all(
                 isinstance(t, int) and not isinstance(t, bool)
@@ -2204,6 +2641,96 @@ class GenerativeTorchModel(Model):
         out["decode_tokens_per_sec"] = round(self.engine.throughput(), 2)
         return out
 
+    def prefill_ship(self, payload: dict) -> dict:
+        """The :prefill route: the :generate body in, the engine's KV
+        shipment out. The caller's stream flag rides the frame's `extra`,
+        so the decode side answers in the shape asked for."""
+        ids = self._resolve_ids(payload)
+        return self.engine.prefill_ship(
+            ids, extra={"stream": bool(payload.get("stream"))},
+            **self._submit_kwargs(payload))
+
+    def decode_remote(self, shipment, *, deadline=None) -> dict:
+        """The :decode route, not streamed: admit a shipment straight into
+        decode and return the :generate response."""
+        self._check_loaded()
+        out = self.engine.submit_remote(shipment, deadline=deadline)
+        if self.tokenizer is not None:
+            out["text"] = self._decode_text(out["output_ids"])
+        out["decode_tokens_per_sec"] = round(self.engine.throughput(), 2)
+        return out
+
+    def decode_remote_stream(self, shipment, *, deadline=None):
+        """The streamed :decode route: generate_stream's events over a
+        remote admission. The frame's `resume_skip` (in [0, max_tokens])
+        is how many leading tokens the caller already holds from an earlier
+        decode of the same frame: the engine replays the same stream (the
+        frame carries the generator state and the sampling parameters) and
+        those tokens are left out of the chunk events; the final event
+        still carries the whole output. The wait is bounded by the frame's
+        timeout plus 10 s."""
+        self._check_loaded()
+        meta = peek_meta(shipment)
+        skip = int(meta.get("resume_skip", 0))
+        if skip < 0 or skip > int(meta.get("max_tokens", 32)):
+            raise ValueError(
+                f"resume_skip {skip} outside [0, max_tokens="
+                f"{meta.get('max_tokens')}]")
+        events = self._events(lambda on_tokens: self.engine.submit_remote(
+            shipment, deadline=deadline, on_tokens=on_tokens),
+            "tpk-decode-remote-stream")
+        timeout = float(meta.get("timeout", 300.0))
+        for ev in self._pump(events, timeout, "remote decode stream"):
+            if not ev.get("done") and skip:
+                dropped = min(skip, len(ev["tokens"]))
+                skip -= dropped
+                ev = {"tokens": ev["tokens"][dropped:]}
+                if not ev["tokens"]:
+                    continue
+            yield ev
+
+    def _events(self, submit, name: str) -> queue.Queue:
+        """Run `submit(on_tokens)` on a thread of its own: its token
+        callbacks, then its result or its error, arrive on the queue."""
+        events: queue.Queue = queue.Queue()
+
+        def on_tokens(tokens, done):
+            events.put(("tok", tokens, done))
+
+        def run():
+            try:
+                events.put(("final", submit(on_tokens), None))
+            except Exception as e:  # surfaced to the consumer
+                events.put(("error", e, None))
+
+        threading.Thread(target=run, daemon=True, name=name).start()
+        return events
+
+    def _pump(self, events: queue.Queue, timeout: float, what: str):
+        """The events of `_events` as {"tokens": [...]} per emitted chunk
+        and a final {"done": true, ...summary}, each waited for at most
+        until `timeout` plus 10 s from the start."""
+        deadline = time.monotonic() + timeout + 10.0
+        while True:
+            try:
+                kind, val, _ = events.get(
+                    timeout=max(deadline - time.monotonic(), 1.0))
+            except queue.Empty:
+                raise RuntimeError(
+                    f"{what} timed out after {timeout}s") from None
+            if kind == "error":
+                raise val
+            if kind == "final":
+                out = dict(val)
+                if self.tokenizer is not None:
+                    out["text"] = self._decode_text(out["output_ids"])
+                out["decode_tokens_per_sec"] = round(
+                    self.engine.throughput(), 2)
+                yield {"done": True, **out}
+                return
+            if val:
+                yield {"tokens": [int(t) for t in val]}
+
     def generate_stream(self, payload: dict):
         """Generator of streaming events: {"tokens": [...]} (plus
         "text_delta" when a tokenizer is set) per emitted chunk, then a
@@ -2212,20 +2739,8 @@ class GenerativeTorchModel(Model):
         decoding to its end."""
         ids = self._resolve_ids(payload)
         kwargs = self._submit_kwargs(payload)
-        events: queue.Queue = queue.Queue()
-
-        def on_tokens(tokens, done):
-            events.put(("tok", tokens, done))
-
-        def run():
-            try:
-                events.put(("final", self.engine.submit(
-                    ids, on_tokens=on_tokens, **kwargs), None))
-            except Exception as e:  # surfaced to the consumer
-                events.put(("error", e, None))
-
-        threading.Thread(target=run, daemon=True,
-                         name="tpk-generate-stream").start()
+        events = self._events(lambda on_tokens: self.engine.submit(
+            ids, on_tokens=on_tokens, **kwargs), "tpk-generate-stream")
         emitted: list[int] = []
         # Windowed incremental detokenization (the vLLM recipe): decode
         # only from a trailing offset, emit the suffix beyond the
@@ -2235,51 +2750,35 @@ class GenerativeTorchModel(Model):
         # deltas telescope to the exact full decode.
         prefix_off = read_off = 0
         sent_text = ""
-        deadline = time.monotonic() + kwargs["timeout"] + 10.0
-        while True:
-            try:
-                kind, val, done = events.get(
-                    timeout=max(deadline - time.monotonic(), 1.0))
-            except queue.Empty:
-                raise RuntimeError(
-                    f"generation stream timed out after "
-                    f"{kwargs['timeout']}s") from None
-            if kind == "error":
-                raise val
-            if kind == "final":
-                out = dict(val)
-                if self.tokenizer is not None:
-                    out["text"] = self._decode_text(out["output_ids"])
-                    # Flush anything still held back by the window.
-                    out["text_delta"] = (
-                        out["text"][len(sent_text):]
-                        if out["text"].startswith(sent_text) else "")
-                out["decode_tokens_per_sec"] = round(
-                    self.engine.throughput(), 2)
-                yield {"done": True, **out}
-                return
-            if not val:
+        for ev in self._pump(events, kwargs["timeout"], "generation stream"):
+            if self.tokenizer is None:
+                yield ev
                 continue
-            emitted.extend(val)
-            ev: dict = {"tokens": [int(t) for t in val]}
-            if self.tokenizer is not None:
-                prev = self._decode_text(emitted[prefix_off:read_off])
-                text = self._decode_text(emitted[prefix_off:])
-                # Emit ONLY when the new rendering strictly extends the
-                # previous one and its tail is not a possibly-incomplete
-                # codepoint (U+FFFD). Anything else — a held partial, or
-                # a rewrite where a completing codepoint replaces an
-                # earlier U+FFFD — stays buffered: an emitted delta can
-                # never be retracted, and the final event's residue flush
-                # delivers whatever was held, so deltas always join to
-                # the exact full decode.
-                if (len(text) > len(prev) and text.startswith(prev)
-                        and not text.endswith("\ufffd")):
-                    ev["text_delta"] = text[len(prev):]
-                    prefix_off, read_off = read_off, len(emitted)
-                else:
-                    ev["text_delta"] = ""
-                sent_text += ev["text_delta"]
+            if ev.get("done"):
+                # Flush anything still held back by the window.
+                ev["text_delta"] = (ev["text"][len(sent_text):]
+                                    if ev["text"].startswith(sent_text)
+                                    else "")
+                yield ev
+                return
+            emitted.extend(ev["tokens"])
+            prev = self._decode_text(emitted[prefix_off:read_off])
+            text = self._decode_text(emitted[prefix_off:])
+            # Emit ONLY when the new rendering strictly extends the
+            # previous one and its tail is not a possibly-incomplete
+            # codepoint (U+FFFD). Anything else — a held partial, or a
+            # rewrite where a completing codepoint replaces an earlier
+            # U+FFFD — stays buffered: an emitted delta can never be
+            # retracted, and the final event's residue flush delivers
+            # whatever was held, so deltas always join to the exact full
+            # decode.
+            if (len(text) > len(prev) and text.startswith(prev)
+                    and not text.endswith("\ufffd")):
+                ev["text_delta"] = text[len(prev):]
+                prefix_off, read_off = read_off, len(emitted)
+            else:
+                ev["text_delta"] = ""
+            sent_text += ev["text_delta"]
             yield ev
 
     def metadata(self) -> dict:

@@ -11,9 +11,10 @@ those, which the card's machine does not have).
 
   * **Wire format.** `pack_shipment`/`unpack_shipment` frame a JSON
     metadata header plus raw array payloads (per-layer K/V block gathers)
-    into one byte string: magic-prefixed, versioned, no pickle. The
-    paged engine's host tier spills evicted prefix-cache blocks through
-    it; a prefill-to-decode handoff would ship the same bytes.
+    into one byte string: magic-prefixed, versioned, no pickle. A
+    prefill engine ships a prompt's committed blocks to a decode engine
+    in it, and the paged engine's host tier spills evicted prefix-cache
+    blocks through the same bytes.
   * **HostKVTier.** A bounded LRU of packed block payloads keyed as the
     engine's prefix cache is, `(adapter, prefix_len, hash(tokens))`, with
     the token tuple stored for hash-collision verification and a
@@ -23,8 +24,10 @@ those, which the card's machine does not have).
 Format versions (the `fmt` meta field; the frame itself never changes):
 
   * fmt 1: full-precision K/V blocks;
-  * fmt 2: fmt 1 plus a draft-KV section (speculative prefill handoff;
-    not written by this package);
+  * fmt 2: fmt 1 plus a draft-KV section (a speculative prefill
+    handoff): `draft_k`/`draft_v` hold the draft model's prompt blocks
+    and `meta["draft"]` their identity (block_size, vocab_size, n_blocks,
+    kv_shape, num_layers, dtype);
   * fmt 3: quantized blocks: `k`/`v` carry the raw int8/fp8 codes,
     `ks`/`vs` the per-row-per-head fp32 scale planes, and
     `meta["kv_quant"]` names the mode.

@@ -13,6 +13,12 @@ doing its own batching across them.
     POST /v2/models/{name}/generate         "max_tokens", "temperature",
                                             "top_k", "top_p", "eos_id",
                                             "stream"}
+    POST /v1/models/{name}:prefill         the :generate body in, a KV
+                                            shipment out
+                                            (application/x-tpk-kv)
+    POST /v1/models/{name}:decode          a KV shipment in, the :generate
+                                            response out (ndjson when the
+                                            :prefill body streamed)
     POST /v2/repository/models/{name}/load | /unload
     POST /v2/repository/index
     GET  /metrics                          prometheus text format
@@ -25,7 +31,8 @@ event a chunk: a failure before the first frame gets a clean status, one
 after it a terminal `{"model_name", "error"}` frame. `X-Request-Timeout-Ms`
 is the request's deadline (504 at expiry, counted once in
 `tpk_deadline_expired_total{component="serve"}`); `X-Request-Id` is echoed
-(the caller's, sanitised, or a fresh one). Bad requests get 400, unknown
+(the caller's, sanitised, else the trace a :decode frame carries, else a
+fresh one). Bad requests get 400, unknown
 models 404, features this package does not port 501, and a shed 503 with
 `Retry-After` (the admission bound, a drain, or a request the paged KV pool
 can never hold).
@@ -62,6 +69,7 @@ from kubeflow_tpu_torch.serve.generation import KVCapacityExceeded
 from kubeflow_tpu_torch.serve.headers import (DEADLINE_HEADER,
                                               DRAINING_HEADER,
                                               REQUEST_ID_HEADER)
+from kubeflow_tpu_torch.serve.kv_transfer import ShipmentError, peek_meta
 from kubeflow_tpu_torch.serve.model import Model
 from kubeflow_tpu_torch.serve.runtimes import load_model
 from kubeflow_tpu_torch.utils import obs
@@ -73,9 +81,7 @@ from kubeflow_tpu_torch.utils.resilience import (Deadline, DeadlineExceeded,
 #: their names and types, the prefix cache's and the host tier's included
 #: (counters at 0 while those features are off). The "__name__" rows read
 #: an engine attribute; one that is None (the pool gauges of a flat
-#: engine, the spill gauge without a tier) is not rendered. The JAX rows of
-#: features not ported (speculative decoding, disaggregation) come with
-#: those features.
+#: engine, the spill gauge without a tier) is not rendered.
 _ENGINE_METRICS = (
     ("requests", "tpk_engine_requests_total", "counter"),
     ("prompt_tokens", "tpk_engine_prompt_tokens_total", "counter"),
@@ -110,7 +116,12 @@ _ENGINE_METRICS = (
     # The pool gauges exist only where a pool does (paged engines).
     ("__kv_free__", "tpk_kv_blocks_free", "gauge"),
     ("__kv_used__", "tpk_kv_blocks_used", "gauge"),
+    # Disaggregated roles: prefill chunks (a decode-role engine's stay 0),
+    # remote admissions, and the KV blocks shipped and received.
     ("prefill_chunks", "tpk_engine_prefill_chunks_total", "counter"),
+    ("remote_admits", "tpk_engine_remote_admits_total", "counter"),
+    ("kv_blocks_shipped", "tpk_kv_blocks_shipped_total", "counter"),
+    ("kv_blocks_received", "tpk_kv_blocks_received_total", "counter"),
     # The host tier: blocks spilled and restored, and those resident.
     ("kv_spilled_blocks", "tpk_kv_spilled_blocks_total", "counter"),
     ("kv_restored_blocks", "tpk_kv_restored_blocks_total", "counter"),
@@ -675,13 +686,9 @@ def _v2_model(h: _Handler, name: str, sub: str | None) -> None:
         h.write_json(model.metadata())
 
 
-def _generate(h: _Handler, name: str) -> None:
-    """:generate and /v2/models/{name}/generate: the generative data plane.
-    The engine batches concurrent requests itself."""
-    model = h.repo.get(name)
-    gen = getattr(model, "generate", None)
-    if gen is None:
-        raise HTTPError(400, f"model {name!r} is not generative")
+def _generate_body(h: _Handler) -> dict:
+    """A :generate-shaped request body with the request's Deadline under
+    "_deadline"."""
     body = h.body_json()
     # "_deadline"/"_trace" are in-process fields only: a wire-supplied one
     # would reach the engine as a non-Deadline.
@@ -692,20 +699,24 @@ def _generate(h: _Handler, name: str) -> None:
         # The engine checks this object at admission and at every chunk
         # boundary: an expired request frees its decode slot.
         body["_deadline"] = deadline
+    return body
+
+
+def _generate(h: _Handler, name: str) -> None:
+    """:generate and /v2/models/{name}/generate: the generative data plane.
+    The engine batches concurrent requests itself."""
+    model = h.repo.get(name)
+    gen = getattr(model, "generate", None)
+    if gen is None:
+        raise HTTPError(400, f"model {name!r} is not generative")
+    body = _generate_body(h)
     t0 = time.monotonic()
     if body.get("stream"):
         _generate_stream(h, name, model, body, t0)
         return
-    try:
-        out = h.run_bounded(gen, body)
-    except KVCapacityExceeded as e:
-        # Paged-KV exhaustion is an overload shed, not a bad request.
-        h.write_capacity_shed(str(e))
+    out = _inference(h, gen, body)
+    if out is None:
         return
-    except NotImplementedError:
-        raise
-    except (ValueError, RuntimeError) as e:
-        raise HTTPError(400, str(e)) from None
     h.app.observe(name, out.get("num_output_tokens", 0),
                   time.monotonic() - t0)
     h.write_json({"model_name": name, **out})
@@ -717,6 +728,11 @@ def _generate_stream(h: _Handler, name: str, model, body: dict,
     stream_fn = getattr(model, "generate_stream", None)
     if stream_fn is None:
         raise HTTPError(400, f"model {name!r} does not stream")
+    _ndjson_stream(h, name, stream_fn(body), t0)
+
+
+def _ndjson_stream(h: _Handler, name: str, events, t0: float) -> None:
+    """A generate-shaped event stream as ndjson, one chunk an event."""
     tokens_out = 0
 
     def render(ev, first):
@@ -728,9 +744,79 @@ def _generate_stream(h: _Handler, name: str, model, body: dict,
     def render_error(msg):
         return json.dumps({"model_name": name, "error": msg}) + "\n"
 
-    if h.pump_stream(stream_fn(body), "application/x-ndjson", render,
-                     render_error):
+    if h.pump_stream(events, "application/x-ndjson", render, render_error):
         h.app.observe(name, tokens_out, time.monotonic() - t0)
+
+
+#: Content type of a KV shipment (serve/kv_transfer.py's frame), which a
+#: router relays opaquely from a :prefill to a :decode.
+KV_SHIPMENT_CONTENT_TYPE = "application/x-tpk-kv"
+
+
+def _inference(h: _Handler, fn, *args, **kwargs) -> dict | None:
+    """`fn(*args, **kwargs)` under the request's bounds: 504 at its
+    deadline, the capacity shed's 503 (None returned; the shed is
+    written), 400 for a bad request."""
+    try:
+        return h.run_bounded(lambda _: fn(*args, **kwargs), None)
+    except KVCapacityExceeded as e:
+        # Paged-KV exhaustion is an overload shed, not a bad request.
+        h.write_capacity_shed(str(e))
+        return None
+    except NotImplementedError:
+        raise
+    except (ValueError, RuntimeError) as e:
+        raise HTTPError(400, str(e)) from None
+
+
+def _prefill(h: _Handler, name: str) -> None:
+    """:prefill: the :generate body in, the prefill engine's KV shipment
+    out; its pool holds nothing of the request once the bytes are sent."""
+    model = h.repo.get(name)
+    ship = getattr(model, "prefill_ship", None)
+    if ship is None:
+        raise HTTPError(400, f"model {name!r} cannot prefill-ship (not "
+                             "generative, or no paged KV pool)")
+    body = _generate_body(h)
+    t0 = time.monotonic()
+    out = _inference(h, ship, body)
+    if out is None:
+        return
+    h.app.observe(name, out.get("num_input_tokens", 0),
+                  time.monotonic() - t0)
+    h._respond(200, out["shipment"], KV_SHIPMENT_CONTENT_TYPE)
+
+
+def _decode(h: _Handler, name: str) -> None:
+    """:decode: a KV shipment in, the :generate response out (streamed as
+    ndjson when the :prefill body asked to stream, a flag the frame's
+    `extra` carries). The engine admits the blocks straight into decode."""
+    model = h.repo.get(name)
+    dec = getattr(model, "decode_remote", None)
+    if dec is None:
+        raise HTTPError(400, f"model {name!r} cannot decode a shipment "
+                             "(not generative, or no paged KV pool)")
+    shipment = h.raw_body
+    try:
+        meta = peek_meta(shipment)
+    except ShipmentError as e:
+        raise HTTPError(400, f"bad KV shipment: {e}") from None
+    if meta.get("trace") and REQUEST_ID_HEADER not in h.headers:
+        # A router stamps the caller's trace id into the frame: a :decode
+        # without an X-Request-Id of its own joins the caller's trace.
+        h.trace_id = obs.sanitize_trace_id(str(meta["trace"]))
+    deadline = h.request_deadline()
+    t0 = time.monotonic()
+    if (meta.get("extra") or {}).get("stream"):
+        _ndjson_stream(h, name, model.decode_remote_stream(
+            shipment, deadline=deadline), t0)
+        return
+    out = _inference(h, dec, shipment, deadline=deadline)
+    if out is None:
+        return
+    h.app.observe(name, out.get("num_output_tokens", 0),
+                  time.monotonic() - t0)
+    h.write_json({"model_name": name, **out})
 
 
 def _repository(h: _Handler, name: str, verb: str) -> None:
@@ -816,6 +902,10 @@ class ModelServer:
                   gated=True),
             Route("POST", r"/v2/models/([^/]+)/generate", _generate,
                   gated=True),
+            Route("POST", r"/v1/models/([^/:]+):prefill", _prefill,
+                  gated=True),
+            Route("POST", r"/v1/models/([^/:]+):decode", _decode,
+                  gated=True),
             Route("GET", r"/v2/health/(live|ready)", _health),
             Route("POST", r"/v2/repository/models/([^/]+)/(load|unload)",
                   _repository),
@@ -829,8 +919,6 @@ class ModelServer:
                   _unported("explainers (:explain)")),
             Route("POST", r"/v2/models/([^/]+)/infer",
                   _unported("open-inference tensors (/infer)")),
-            Route("POST", r"/v1/models/([^/:]+):(prefill|decode)",
-                  _unported("disaggregated prefill/decode")),
             Route("GET", r"/debug/trace", _unported("/debug/trace spans")),
         ]
 

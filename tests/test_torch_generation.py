@@ -237,6 +237,24 @@ def test_unported_engine_features_are_refused(tiny, key, value, tmp_path):
         with pytest.raises(ValueError, match="needs the paged KV cache"):
             model.load()
         return
+    if key == "role":
+        # Disaggregated roles are served now: a role needs the paged pool
+        # (the JAX engine's ValueError at load), and a role engine refuses
+        # a local generate.
+        model = GenerativeTorchModel("m", tm,
+                                     generation={**ENGINE, key: value})
+        with pytest.raises(ValueError, match="needs the paged KV cache"):
+            model.load()
+        model = GenerativeTorchModel("m", tm, generation={
+            **ENGINE, key: value, "kv_block_size": 8})
+        model.load()
+        try:
+            assert model.metadata()["role"] == value
+            with pytest.raises(RuntimeError, match="refuses a local"):
+                model.generate({"input_ids": [1, 2], "max_tokens": 2})
+        finally:
+            model.unload()
+        return
     if key == "adapters":
         # Multi-LoRA is served now: an adapter dir that does not exist
         # fails the load by name, never serves the base quietly.

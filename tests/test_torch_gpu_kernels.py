@@ -1403,6 +1403,86 @@ def test_depth2_stream_runs_under_sync_debug_error(cuda, monkeypatch):
         sync.unload()
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def test_depth2_remote_admission_runs_under_sync_debug_error(cuda, kv_quant,
+                                                             monkeypatch):
+    """A decode-role engine at depth 2 admitting shipments with
+    torch.cuda.set_sync_debug_mode("error"): the frame's checks, the
+    reservation, the pinned non-blocking imports (a fmt-1 frame encoded at
+    import into an int8 pool), the adopted generator state and the shipped
+    first token make no hidden host sync; only the fetch's event wait runs
+    outside the mode. No prefill chunk runs, the pool drains, and a greedy
+    request's ids equal a depth-1 unified engine's."""
+    from kubeflow_tpu_torch.serve import generation as tg
+
+    model = _tiny_engine_model(cuda, False)
+    kw = dict(slots=2, max_len=64, chunk=4, prefill_buckets=(8, 16),
+              kv_block_size=8)
+    real_wait = tg._wait
+
+    def wait_outside(event):
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            real_wait(event)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
+    monkeypatch.setattr(tg, "_wait", wait_outside)
+    prompts = [[5, 9, 2], [17, 3, 3, 8, 1], list(range(3, 40)), [8, 1, 4]]
+    bodies = [dict(max_tokens=6), dict(max_tokens=9), dict(max_tokens=5),
+              dict(max_tokens=7, temperature=0.8, top_k=5, top_p=0.9)]
+    pre = tg.GenerationEngine(model, role="prefill", seed=5, **kw)
+    try:
+        ships = [pre.prefill_ship(p, **b)["shipment"]
+                 for p, b in zip(prompts, bodies)]
+        warm = pre.prefill_ship([1, 2, 3], max_tokens=5)["shipment"]
+    finally:
+        pre.close()
+    engine = tg.GenerationEngine(model, role="decode", pipeline_depth=2,
+                                 kv_quant=kv_quant, **kw)
+    results = [None] * len(ships)
+    try:
+        engine.submit_remote(warm)  # builds and warms outside
+        torch.cuda.synchronize()
+
+        def run(i):
+            try:
+                results[i] = engine.submit_remote(ships[i])
+            except Exception as e:  # asserted below
+                results[i] = e
+
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            threads = [threading.Thread(target=run, args=(i,))
+                       for i in range(len(ships))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+                assert not t.is_alive()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        for i, res in enumerate(results):
+            assert isinstance(res, dict), f"request {i}: {res}"
+            assert len(res["output_ids"]) == bodies[i]["max_tokens"]
+        stats = engine.stats_snapshot()
+        assert stats["decode_fetch_overlapped"] > 0, stats
+        assert stats["remote_admits"] == len(ships) + 1, stats
+        assert stats["prefill_chunks"] == 0, stats
+        assert engine.kv_info()["blocks_used"] == 0
+        deep = engine.submit_remote(ships[2])["output_ids"]
+    finally:
+        engine.close()
+    sync = tg.GenerationEngine(model, pipeline_depth=1, kv_quant=kv_quant,
+                               **kw)
+    try:
+        assert sync.submit(prompts[2], max_tokens=5)["output_ids"] == deep
+    finally:
+        sync.close()
+
+
 # -- speculative decoding on the engine ---------------------------------------
 
 def _spec_tiny_model(cuda):

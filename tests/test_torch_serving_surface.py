@@ -38,12 +38,8 @@ ENGINE = dict(slots=2, max_len=64, chunk=4, prefill_buckets=(8, 16))
 KW = {"dtype": "float32", "num_layers": 2}
 
 #: The JAX engine's /metrics families of features the port refuses at
-#: the bundle (serve/generation.py `_UNPORTED`).
-REFUSED_FAMILIES = {
-    # disaggregated prefill/decode (role)
-    "tpk_engine_remote_admits_total", "tpk_kv_blocks_shipped_total",
-    "tpk_kv_blocks_received_total",
-}
+#: the bundle (serve/generation.py `_UNPORTED`): none renders one.
+REFUSED_FAMILIES: set = set()
 
 
 @pytest.fixture(scope="module")
