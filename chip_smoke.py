@@ -9,8 +9,9 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
      backward, the int8 and W8A16 matmuls) and of the CUDA-core dq and
      dk/dv (every instantiation) must show no spill stores;
   2. kernels: the forward kernel against its plain PyTorch version on the
-     card, at the serving shapes, with its time, the plain version's, one
-     library call's (a yardstick the port never calls) and its bound;
+     card, at the serving shapes (Qwen2-7B's 28/4 heads among them), with
+     its time, the plain version's, one library call's (a yardstick the
+     port never calls) and its bound;
   2b. backward kernels: dq and dk/dv against the plain backward at the
      phase-2 shapes and the llama_1b and llama3_8b (phase 5c's) training
      shapes, with the same timings (and the forward kernel's time and
@@ -28,7 +29,8 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
      wgmma kernels do not take) against the plain versions at the attention
      shapes of phase 6's configs, at llama_1b's widths in fp32 at seq 1024
      and at Gemma 7B's widths (head_dim 256) in bf16 at seq 2048, each
-     case's backward plan (rows, streamed tile, dk/dv splits) printed, two
+     case's backward plan (rows, streamed tile, dk/dv splits) printed, and
+     at Gemma-3-1B's (4 heads, 1 kv head) in bf16 at seq 512, two
      launches of dq and dk/dv bit-identical at a split shape, with their
      times, the plain versions', SDPA's and their bounds (and, for the fp32
      shapes, the tensor-core forward's, the plain forward's and SDPA's on
@@ -74,9 +76,10 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
      called, no int8-weight-shaped copy in a decode chunk), the decode
      step's device busy time beside the earlier decode kernel's, admission
      and prefill seconds beside phase 4's, peak memory at
-     least 5 GiB under phase 4's, the longest prompt's ids and step time
-     at depth 1 against depth 2; then the int8 model's logits against a
-     bf16 model holding the same codes dequantized;
+     least 5 GiB under phase 4's; the longest prompt alone on a
+     pipeline_depth-1 engine over the same served module and pool config
+     gives the depth-2 repeat's ids; then the int8 model's logits against
+     a bf16 model holding the same codes dequantized;
   4d. the request surface: phase 4's bundle with the "bytes" tokenizer
      behind a server admitting 6 requests at once: phase 4's six requests
      at once over :generate, the v2 generate stream and
@@ -154,10 +157,10 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
      engine (max_len 8192) at depth 1 and 2, with a random 1-layer draft
      (rejections across the wrap) and after a prefix-cache hit, each the
      teacher-forced fp32 full forward's argmax; (ii) the full model past
-     the window, four prompts at once (6000, 4090, 2000, 100 tokens), 128
+     the window, four prompts at once (6000, 4090, 2000, 100 tokens), 64
      ids each: ids against one teacher-forced bf16 full forward each (B1 with mask code
      3) under 4g's near-tie rule, no B1 launch in the engine, the cache's
-     bytes, ms per 4-row step over 8 dispatches, one decode chunk's wall
+     bytes, ms per 4-row step over 4 dispatches, one decode chunk's wall
      (median of 5) and profile (the read's concat and masks); (iii) within the window (max_len 4096, a causal
      view): ids, B1 32 a first admission chunk; (iv) a 5000-token shared
      head: hit ids equal cold ones, admission seconds; (v) one row as a
@@ -187,6 +190,32 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
      to :decode's first frame against the unified stream's first frame,
      503 + Retry-After for a frame a small pool can never hold, 400 for a
      truncated frame, the new /metrics rows;
+  4j. the Gemma 1/2/3 and Qwen2 config flags, each from its published
+     config.json through hf_import.config_from_hf, random bf16 weights
+     with the (1 + w) norm scales and QKV biases drawn nonzero: (i)
+     Gemma-7B whole (head_dim 256) behind the HTTP server, four prompts at
+     once (100-2000 tokens): B1 28 launches a first admission chunk, all
+     flash_simt_fwd_mma_kernel, no wgmma; ids against one teacher-forced
+     bf16 full forward each (near-tie rule); the first token's logits
+     within 1.25x phase 3's floor of a full forward through the plain
+     attention; peak; (ii) Gemma-2-9B's widths at 4
+     layers (caps 50/30, window 4096): a 4200-token prompt past the
+     window on a full-length cache (the mask kept, nothing rolls), no B1
+     launch (as in JAX), ids against the teacher-forced forward, peaks;
+     (iii) Gemma-3-1B whole (4 heads, 1 kv head, window 512, dual RoPE):
+     within the window (a causal view keeping its per-layer kinds: B1 26
+     mma launches a first chunk) and past it (5to1 banded reads, no B1),
+     ids against the teacher-forced forward; (iv) Qwen2-7B's widths at 4
+     layers (QKV biases) written as a huggingface checkpoint, served over
+     --storage-uri in bf16 and under quantize: int8: ids equal to an
+     engine's on the same weights, B1 4 wgmma launches a first chunk, the
+     W8A16 launches by kernel against 7 a layer a forward plus the
+     unembeddings, in bf16 the engine's first-token logits within 1.25x
+     phase 3's floor of a full forward through the plain attention; each
+     engine's decode step, the median wall of 5 decode chunks; then the
+     W8A16 op at Gemma's tied unembedding (N 256000) and at every Qwen2-7B
+     width (K 3584 and 18944; N 512 to 152064) against its plain
+     version (phase 2 holds flash_fwd at Qwen2-7B's 28/4 heads);
   5. training: llama_1b at full width and depth through the trainer's entry
      point (batch 12, seq 1024, 3 warm-up + 10 timed steps): finite losses,
      the first near ln(V), every step's launches (2 forward per layer under
@@ -559,7 +588,7 @@ ROLLING_GEN = {"slots": 4, "max_len": 8192, "chunk": CHUNK,
                "prefill_buckets": [128, 512, 2048]}
 WITHIN_GEN = dict(ROLLING_GEN, max_len=4096)
 ROLLING_PROMPT_LENS, WITHIN_PROMPT_LENS = (6000, 4090, 2000, 100), (4000, 1000)
-ROLLING_MAX_TOKENS, ROLLING_WALL_REPS = 128, 5
+ROLLING_MAX_TOKENS, ROLLING_WALL_REPS = 64, 5
 ROLLING_FP32_LAYERS, ROLLING_FP32_PROMPT, ROLLING_FP32_TOKENS = 2, 4200, 48
 ROLLING_PREFIX_HEAD, ROLLING_PREFIX_TAILS = 5000, (300, 700)
 ROLLING_SPEC_PROMPT = 4200
@@ -579,6 +608,100 @@ MISTRAL_HF_LAYERS, MISTRAL_HTTP_PROMPT = 4, 5000
 DISAGG_TEMPERATURE, DISAGG_SEED = 0.8, SEED + 41
 DISAGG_ROWS, DISAGG_ROW_TOKENS, DISAGG_WINDOW_CHUNKS = 3, 160, 2
 DISAGG_SMALL_BLOCKS = 64
+# 4j: the Gemma 1/2/3 and Qwen2 config flags on random weights from the
+# seed, each config from its published config.json (google/gemma-7b,
+# google/gemma-2-9b, google/gemma-3-1b-pt, Qwen/Qwen2-7B) through
+# `hf_import.config_from_hf`; the (1 + w) norm scales and Qwen2's QKV
+# biases drawn N(0, GEMMA_DRAW_STD) so those paths do work. (i) Gemma-7B
+# whole over HTTP: GEMMA_PROMPT_LENS at once on GEMMA_GEN, MAX_TOKENS ids
+# each; (ii) Gemma-2-9B's widths at GEMMA2_LAYERS layers, one
+# GEMMA2_PROMPT-token prompt past the window (GEMMA2_GEN: max_len 8192);
+# (iii) Gemma-3-1B whole, GEMMA3_WITHIN_LENS within the window (max_len
+# 512) and GEMMA3_PAST_LENS past it (max_len 2048); (iv) Qwen2-7B's widths
+# at QWEN2_LAYERS layers as a huggingface bundle over --storage-uri, bf16
+# and int8, QWEN2_PROMPT_LENS. Then the W8A16 op at Gemma's tied
+# unembedding and at Qwen2-7B's widths (GEMMA_W8A16_SHAPES).
+GEMMA7B_CONFIG = {"architectures": ["GemmaForCausalLM"],
+                  "attention_bias": False, "attention_dropout": 0.0,
+                  "bos_token_id": 2, "eos_token_id": 1, "head_dim": 256,
+                  "hidden_act": "gelu", "hidden_size": 3072,
+                  "initializer_range": 0.02, "intermediate_size": 24576,
+                  "max_position_embeddings": 8192, "model_type": "gemma",
+                  "num_attention_heads": 16, "num_hidden_layers": 28,
+                  "num_key_value_heads": 16, "pad_token_id": 0,
+                  "rms_norm_eps": 1e-06, "rope_scaling": None,
+                  "rope_theta": 10000.0, "torch_dtype": "bfloat16",
+                  "use_cache": True, "vocab_size": 256000}
+GEMMA2_9B_CONFIG = {"architectures": ["Gemma2ForCausalLM"],
+                    "attention_bias": False, "attention_dropout": 0.0,
+                    "attn_logit_softcapping": 50.0, "bos_token_id": 2,
+                    "cache_implementation": "hybrid", "eos_token_id": 1,
+                    "final_logit_softcapping": 30.0, "head_dim": 256,
+                    "hidden_act": "gelu_pytorch_tanh",
+                    "hidden_activation": "gelu_pytorch_tanh",
+                    "hidden_size": 3584, "initializer_range": 0.02,
+                    "intermediate_size": 14336,
+                    "max_position_embeddings": 8192, "model_type": "gemma2",
+                    "num_attention_heads": 16, "num_hidden_layers": 42,
+                    "num_key_value_heads": 8, "pad_token_id": 0,
+                    "query_pre_attn_scalar": 256, "rms_norm_eps": 1e-06,
+                    "rope_theta": 10000.0, "sliding_window": 4096,
+                    "sliding_window_size": 4096, "torch_dtype": "float32",
+                    "use_cache": True, "vocab_size": 256000}
+GEMMA3_1B_CONFIG = {"architectures": ["Gemma3ForCausalLM"],
+                    "attention_bias": False, "attention_dropout": 0.0,
+                    "attn_logit_softcapping": None, "bos_token_id": 2,
+                    "cache_implementation": "hybrid", "eos_token_id": 1,
+                    "final_logit_softcapping": None, "head_dim": 256,
+                    "hidden_activation": "gelu_pytorch_tanh",
+                    "hidden_size": 1152, "initializer_range": 0.02,
+                    "intermediate_size": 6912,
+                    "max_position_embeddings": 32768,
+                    "model_type": "gemma3_text", "num_attention_heads": 4,
+                    "num_hidden_layers": 26, "num_key_value_heads": 1,
+                    "pad_token_id": 0, "query_pre_attn_scalar": 256,
+                    "rms_norm_eps": 1e-06, "rope_local_base_freq": 10000,
+                    "rope_scaling": None, "rope_theta": 1000000,
+                    "sliding_window": 512, "sliding_window_pattern": 6,
+                    "torch_dtype": "bfloat16", "use_cache": True,
+                    "vocab_size": 262144}
+QWEN2_7B_CONFIG = {"architectures": ["Qwen2ForCausalLM"],
+                   "attention_dropout": 0.0, "bos_token_id": 151643,
+                   "eos_token_id": 151643, "hidden_act": "silu",
+                   "hidden_size": 3584, "initializer_range": 0.02,
+                   "intermediate_size": 18944,
+                   "max_position_embeddings": 131072,
+                   "max_window_layers": 28, "model_type": "qwen2",
+                   "num_attention_heads": 28, "num_hidden_layers": 28,
+                   "num_key_value_heads": 4, "rms_norm_eps": 1e-06,
+                   "rope_theta": 1000000.0, "sliding_window": 131072,
+                   "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+                   "use_cache": True, "use_sliding_window": False,
+                   "vocab_size": 152064}
+GEMMA7B_PARAMS, GEMMA7B_NAME = 8_537_680_896, "gemma_7b"
+GEMMA_DRAW_STD = 0.05
+# (i)'s first-token logits against the plain attention: within this
+# factor of phase 3's floor (naive_attention's rel-L2 at llama3_8b).
+GEMMA_LOGITS_VS_FLOOR = 1.25
+GEMMA_GEN = {"slots": 4, "max_len": 4096, "chunk": CHUNK,
+             "prefill_buckets": [128, 512, 2048]}
+GEMMA_PROMPT_LENS = (100, 400, 1000, 2000)
+GEMMA2_LAYERS, GEMMA2_PROMPT = 4, 4200
+GEMMA2_GEN = dict(GEMMA_GEN, slots=1, max_len=8192)
+GEMMA3_WITHIN = dict(GEMMA_GEN, max_len=512, prefill_buckets=[128, 512])
+GEMMA3_PAST = dict(GEMMA_GEN, max_len=2048)
+GEMMA3_WITHIN_LENS, GEMMA3_PAST_LENS = (100, 300), (700, 1500)
+QWEN2_LAYERS, QWEN2_NAME = 4, "qwen2_7b"
+QWEN2_PROMPT_LENS = (300, 1500)
+# (M, K, N, unembedding): Gemma-7B's tied unembedding at 4 and 1 rows;
+# Qwen2-7B's q/o, k/v, gate/up and down projections at the decode rows (1,
+# 4) and at (iv)'s two prefill buckets (512, 2048), and its untied
+# unembedding at the decode rows (an admission unembeds one row).
+QWEN2_PROJ_KN = ((3584, 3584), (3584, 512), (3584, 18944), (18944, 3584))
+GEMMA_W8A16_SHAPES = ([(m, 3072, 256000, True) for m in (4, 1)]
+                      + [(m, k, n, False) for m in (1, 4, 512, 2048)
+                         for k, n in QWEN2_PROJ_KN]
+                      + [(m, 3584, 152064, True) for m in (4, 1)])
 # 4c: int8 weights and KV must bring the serving peak this far under
 # phase 4's (bf16 weights 14.96 GiB; an int8 copy is ~7.5 GiB).
 QUANT_PEAK_SAVING_MIN_GIB = 5.0
@@ -647,6 +770,10 @@ SIMT_EXTRA_CASE = (2, 1024, 1024, 16, 8, 128, fa.MaskSpec("causal"), False,
                    torch.float32)
 SIMT_GEMMA_CASE = (1, 2048, 2048, 16, 16, 256, fa.MaskSpec("causal"), False,
                    torch.bfloat16)
+# Gemma-3-1B's (google/gemma-3-1b-pt: 4 heads, 1 kv head, head_dim 256) at
+# its window's prompt bucket, 512: phase 4j's within-window prefill.
+SIMT_GEMMA3_CASE = (1, 512, 512, 4, 1, 256, fa.MaskSpec("causal"), False,
+                    torch.bfloat16)
 SIMT_BWD_DESIGN = ("cuda cores, fp32, register-tiled micro-tiles, cp.async "
                    "ring, per-tile masks, planned grid with split dk/dv")
 SIMT_FWD_DESIGN = ("bf16/fp16: tensor cores, mma.sync m16n8k16, ldmatrix "
@@ -657,6 +784,12 @@ SIMT_FWD_DESIGN = ("bf16/fp16: tensor cores, mma.sync m16n8k16, ldmatrix "
 
 def log(*a):
     print(*a, flush=True)
+
+
+def _free() -> None:
+    """Collect garbage and return the allocator's cached blocks."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def smi() -> str:
@@ -704,6 +837,9 @@ KERNEL_CASES = [(1, s, s, 32, 8, 128, fa.MaskSpec("causal"), False)
     (1, 1000, 1000, 32, 8, 128,
      fa.MaskSpec("sliding_window", window=256), False),
     (1, 1000, 1000, 32, 8, 128, fa.MaskSpec("causal"), True),
+    # Qwen2-7B's attention (Qwen/Qwen2-7B config.json: 28 heads, 4 kv
+    # heads, a GQA group of 7) at 4j (iv)'s 2048-token prefill bucket.
+    (1, 2048, 2048, 28, 4, 128, fa.MaskSpec("causal"), False),
 ]
 # The llama_1b training shape (batch 12, seq 1024, 16/8 heads, Dh 128),
 # and phase 5c's llama3_8b one (batch 4, seq 2048, 32/8 heads).
@@ -914,15 +1050,15 @@ def _gpu_tests():
 
 def _simt_cases(gk) -> list:
     """(B, S, T, H, KH, D, mask, segments, dtype): the attention of each of
-    phase 6's configs at its batch, then SIMT_EXTRA_CASE and
-    SIMT_GEMMA_CASE."""
+    phase 6's configs at its batch, then SIMT_EXTRA_CASE, SIMT_GEMMA_CASE
+    and SIMT_GEMMA3_CASE."""
     cases = []
     for name in gk.C1_CONFIGS:
         cfg = gk.c1_config(name)
         cases.append((gk.C1_BATCH, gk.C1_SEQ, gk.C1_SEQ, cfg.num_heads,
                       cfg.num_kv_heads, cfg.head_dim, fa.MaskSpec("causal"),
                       False, cfg.dtype))
-    return cases + [SIMT_EXTRA_CASE, SIMT_GEMMA_CASE]
+    return cases + [SIMT_EXTRA_CASE, SIMT_GEMMA_CASE, SIMT_GEMMA3_CASE]
 
 
 def phase_simt(gk) -> dict:
@@ -1590,8 +1726,7 @@ def phase_ring() -> dict:
             f"{row['library_ms']:.3f} flash kernel over the whole sequence "
             f"{row['flash_global_ms']:.3f}")
     del qs, ks, vs, dos, lses, deltas, q, k, v, do, out, lse, fout, flse
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     return {"rows": rows, "worst": worst}
 
 
@@ -1685,8 +1820,7 @@ def _serving(bundle: str, generative: dict | None = None,
     behind the port's HTTP server (admitting `max_inflight` requests at
     once), and yield the server's base URL. The server and its model are
     freed on exit."""
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     export_for_serving(bundle, model=MODEL, model_kwargs=MODEL_KWARGS,
                        seed=SEED, extra={
                            "generative": {**GENERATIVE, **(generative or {})},
@@ -1707,8 +1841,7 @@ def _serving(bundle: str, generative: dict | None = None,
     finally:
         server.stop()
         del server
-        gc.collect()
-        torch.cuda.empty_cache()
+        _free()
 
 
 def _metadata(base: str) -> dict:
@@ -1816,9 +1949,10 @@ def _pipeline_line(stats: dict, what: str) -> None:
                            "the depth-2 loop re-serialised")
 
 
-def _step_ms(before: dict, after: dict) -> float:
+def _step_ms(after: dict, before: dict | None = None) -> float:
     """Host-inclusive engine ms per decode step between two stats
-    snapshots."""
+    snapshots (`before` None: since the engine started)."""
+    before = before or {"decode_dispatches": 0, "decode_seconds": 0.0}
     steps = (after["decode_dispatches"] - before["decode_dispatches"]) * CHUNK
     return (after["decode_seconds"] - before["decode_seconds"]) / steps * 1e3
 
@@ -1830,17 +1964,33 @@ def _alone_at_depth1(bundle: str, generative: dict, body: dict,
     with _serving(bundle, {**generative, "pipeline_depth": 1},
                   **spec) as (base, _):
         out = _post(f"{base}/v1/models/{MODEL}:generate", body)
-        ms = _step_ms({"decode_dispatches": 0, "decode_seconds": 0.0},
-                      _metadata(base)["stats"])
+        ms = _step_ms(_metadata(base)["stats"])
+    return out, ms
+
+
+def _alone_on_depth1_engine(server: ModelServer, body: dict) -> tuple:
+    """(response, host-inclusive ms per step) of `body` alone on a
+    pipeline_depth-1 engine over the served module, with the served
+    engine's settings (a second engine beside it: no second load)."""
+    served = server.models[MODEL]
+    eng = GenerationEngine(served._model,
+                           **{**served._gen_cfg, "pipeline_depth": 1})
+    try:
+        b = dict(body)
+        out = eng.submit(b.pop("input_ids"), timeout=600,
+                         eos_id=served.eos_id, **b)
+        ms = _step_ms(eng.stats_snapshot())
+    finally:
+        _close(eng)
     return out, ms
 
 
 def _depth_line(depth2: dict, depth2_ms: float, depth1: dict,
-                depth1_ms: float) -> None:
+                depth1_ms: float, where: str = "a second server") -> None:
     """Log the longest prompt's step time at both depths; fail unless the
     greedy ids are equal."""
     same = depth1["output_ids"] == depth2["output_ids"]
-    log(f"  longest prompt alone: pipeline_depth 1 on a second server "
+    log(f"  longest prompt alone: pipeline_depth 1 on {where} "
         f"{'gives the same' if same else 'DIFFERS from the'} greedy ids "
         f"as depth 2; ms per step (host-inclusive, 1 row): depth 2 "
         f"{depth2_ms:.2f}, depth 1 {depth1_ms:.2f}")
@@ -1861,7 +2011,7 @@ def phase_serving(bundle: str) -> dict:
         # bucket (4096) either way, so greedy ids must repeat exactly.
         again = _post(f"{base}/v1/models/{MODEL}:generate", bodies[-1])
         launches = fa.flash_fwd_launches
-        alone_ms = _step_ms(run["stats"], _metadata(base)["stats"])
+        alone_ms = _step_ms(_metadata(base)["stats"], run["stats"])
         depth = run["metadata"]["pipeline_depth"]
         prof = _profile_decode(server)
     results, stats, wall = run["results"], run["stats"], run["wall"]
@@ -1906,8 +2056,7 @@ def phase_paged(bundle: str, flat: dict) -> dict:
         md = _metadata(base)
         info = md["paged_kv"]
     _pipeline_line(md["stats"], "the longest prompt alone")
-    step_ms = _step_ms({"decode_dispatches": 0, "decode_seconds": 0.0},
-                       md["stats"])
+    step_ms = _step_ms(md["stats"])
     sync, sync_ms = _alone_at_depth1(
         bundle, {"kv_block_size": KV_BLOCK_SIZE}, body)
     _depth_line(out, step_ms, sync, sync_ms)
@@ -1947,6 +2096,7 @@ def phase_quant(bundle: str, flat: dict, paged: dict) -> dict:
         qbytes = run["metadata"]["quantize"]
         copies = _int8_weight_copies(server)
         prof = _profile_decode(server, "w8a16_decode_kernel")
+        sync, sync_ms = _alone_on_depth1_engine(server, bodies[-1])
     in_situ = None
     if prof:
         log(f"  int8 decode step: device busy {prof['busy_ms'] / CHUNK:.2f} ms"
@@ -1957,10 +2107,9 @@ def phase_quant(bundle: str, flat: dict, paged: dict) -> dict:
     results, stats, total = run["results"], run["stats"], after["stats"]
     _check_outputs(results, cfg.vocab_size)
     _pipeline_line(stats, "6 concurrent requests")
-    alone_ms = _step_ms(stats, total)
-    sync, sync_ms = _alone_at_depth1(bundle, gen, bodies[-1],
-                                     quantize="int8")
-    _depth_line(again, alone_ms, sync, sync_ms)
+    alone_ms = _step_ms(total, stats)
+    _depth_line(again, alone_ms, sync, sync_ms,
+                "a second engine over the served int8 module")
     if after["paged_kv"]["blocks_used"] != 0:
         raise RuntimeError(f"{after['paged_kv']['blocks_used']} pool blocks "
                            "still in use after every request finished")
@@ -2400,8 +2549,7 @@ def phase_surface(bundle: str, flat: dict) -> dict:
             again = _post(base + gen_url, longest)
             served += 1
             time.sleep(SURFACE_GRACE_S + 1.0)
-            gc.collect()
-            torch.cuda.empty_cache()
+            _free()
             after_mem = torch.cuda.memory_allocated()
             req2 = server.models[MODEL].engine.stats_snapshot()["requests"]
         finally:
@@ -2545,8 +2693,7 @@ def phase_hf_import(work: str) -> dict:
         json.dump({"format": "huggingface", "checkpoint": ckpt,
                    "peft_adapter": "adapter", "generative": GENERATIVE}, f)
     del engine
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     t0 = time.monotonic()
     folded = runtimes.load_model(pbundle, device=DEVICE)
     fold_s = time.monotonic() - t0
@@ -2554,8 +2701,7 @@ def phase_hf_import(work: str) -> dict:
         folded_logits = folded._model(prompt).float()
         base_logits = ref(prompt).float()
     del folded, ref
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     # The adapted function: base weights and fp32 adapters, in bf16 as
     # served adapted, and in fp32 (the exact reference).
     fcfg = dataclasses.replace(cfg, param_dtype=torch.float32)
@@ -2569,8 +2715,7 @@ def phase_hf_import(work: str) -> dict:
         _set_compute_dtype(adapted, torch.float32)
         exact = adapted(prompt).float()
     del adapted
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     rel_exact = _rel_l2(folded_logits, exact)
     floor = _rel_l2(adapted_logits, exact)
     rel = _rel_l2(folded_logits, adapted_logits)
@@ -2716,8 +2861,7 @@ def _ml_serve(bundle: str, generative: dict, bodies: list,
         out = {"ids": _ml_concurrent(base, bodies, openai_index),
                "launches": fa.flash_fwd_launches,
                "stats": _metadata(base)["stats"]}
-        out["step_ms"] = _step_ms(
-            {"decode_dispatches": 0, "decode_seconds": 0.0}, out["stats"])
+        out["step_ms"] = _step_ms(out["stats"])
         if probe is not None:
             out.update(probe(base, server))
     return out
@@ -2880,8 +3024,7 @@ def _engine_runs(model, prompts: dict, **kw) -> tuple:
 
 def _close(engine) -> None:
     engine.close()
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
 
 
 def _evict_all(engine) -> None:
@@ -2938,8 +3081,7 @@ def _prefix_scrape(bundle: str, model, cfg, prompts: dict) -> dict:
     finally:
         server.stop()
         served.unload()
-        gc.collect()
-        torch.cuda.empty_cache()
+        _free()
     return rows
 
 
@@ -3091,8 +3233,7 @@ def phase_prefix(bundle: str, floor: float) -> dict:
         + ", ".join(f"{k} {g}/{w}" for k, (g, w) in rows.items()))
     launches = fa.flash_fwd_launches
     del model
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     log(f"  flash_fwd launches in 4f {launches}; "
         f"{time.monotonic() - t_phase:.1f}s; {smi()}")
     for gate, ok in gates.items():
@@ -3238,8 +3379,7 @@ def _spec_exactness(gk) -> dict:
                     f"{st['spec_dispatches']} spec dispatches, "
                     f"{st['decode_wasted_tokens']} tokens wasted")
     del model, weak
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     return {"ok": ok, "rows": rows}
 
 
@@ -3374,8 +3514,7 @@ def _spec_http(bundle: str, model, ckpt: str, bodies: list) -> tuple:
     finally:
         server.stop()
         served.unload()
-        gc.collect()
-        torch.cuda.empty_cache()
+        _free()
     return ([r["output_ids"] for r in run["results"]], stats, draft, rows,
             dict(served.draft_info), speculative)
 
@@ -3517,8 +3656,7 @@ def phase_spec(bundle: str, floor: float, gk) -> dict:
         f"{checks['flash']} in the near-tie checks' forwards")
     # (iv) the int8-weight target: (ii)'s draft, a bf16 pool.
     squant.quantize_model(model)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     eng = GenerationEngine(model, **GENERATIVE)
     want_q, st = _engine_burst(eng, short)
     _close(eng)
@@ -3563,8 +3701,7 @@ def phase_spec(bundle: str, floor: float, gk) -> dict:
     gates["B1 launches = 32 a target admission (int8 too)"] = (
         flash - flash_bf16 == cfg.num_layers * admissions_q)
     del model, draft
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     log(f"  flash_fwd launches in 4g {flash} (and {checks['flash']} in the "
         f"checks' forwards); 4g took "
         f"{time.monotonic() - t_phase:.1f}s; {smi()}")
@@ -3581,10 +3718,20 @@ def phase_spec(bundle: str, floor: float, gk) -> dict:
             "draft_load_s": dinfo["load_s"]}
 
 
+def _b1_split() -> tuple:
+    """B1's forward launches so far: (flash_fwd.cu's, flash_simt.cu's
+    forwards', of those the tensor-core mma kernel's)."""
+    return (fa.flash_fwd_launches, fa.flash_simt_fwd_launches,
+            fa.flash_simt_fwd_mma_launches)
+
+
+def _since(before: tuple) -> tuple:
+    return tuple(a - b for a, b in zip(_b1_split(), before))
+
+
 def _b1_launches() -> int:
-    """B1's forward launches on either route (flash_fwd.cu, and
-    flash_simt.cu's forwards)."""
-    return fa.flash_fwd_launches + fa.flash_simt_fwd_launches
+    """B1's forward launches on either route."""
+    return sum(_b1_split()[:2])
 
 
 def _teacher_forced(model, prompt: list, ids: list) -> torch.Tensor:
@@ -3688,26 +3835,33 @@ def _rolling_exactness(cfg) -> dict:
             + extra)
     log(f"  (i) B1 launches in the rolling engines {engine_b1}")
     del model, draft
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     return {"ok": ok, "runs": len(runs)}
 
 
-def _rolling_decode_profile(engine, positions: list) -> dict | None:
-    """One decode chunk of the idle rolling engine (CHUNK steps, row i at
-    positions[i], greedy) through its own decode function, profiled; its
-    unprofiled wall first, over ROLLING_WALL_REPS calls (the median
-    kept)."""
+def _decode_call(engine, positions: list):
+    """A call of one decode chunk of the idle flat engine (CHUNK greedy
+    steps, row i at positions[i]) through its own decode function, at the
+    cache bucket the engine would pick (a rolling engine's one)."""
     n = engine.n_slots
     args = [torch.ones(n, dtype=torch.long, device=DEVICE),
             torch.tensor(positions, dtype=torch.long, device=DEVICE),
             torch.zeros(n, device=DEVICE),
             torch.zeros(n, dtype=torch.long, device=DEVICE),
             torch.ones(n, device=DEVICE)]
-    fn = engine._decode[(engine.decode_buckets[0], False)]
+    need = max(positions) + CHUNK
+    bucket = next((b for b in engine.decode_buckets if b >= need),
+                  engine.decode_buckets[-1])
+    fn = engine._decode[(bucket, False)]
 
     def call():
         fn(engine._cache, *args, engine._gen, None)
+    return call
+
+
+def _chunk_walls(call) -> tuple[float, list]:
+    """(median, every) wall ms of `call`, device drained, over
+    ROLLING_WALL_REPS calls after a warm one."""
     walls = []
     with torch.inference_mode():
         call()
@@ -3717,7 +3871,18 @@ def _rolling_decode_profile(engine, positions: list) -> dict | None:
             call()
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
-        wall = float(np.median(walls))
+    return float(np.median(walls)), walls
+
+
+def _rolling_decode_profile(engine, positions: list) -> dict | None:
+    """One decode chunk of the idle rolling engine (CHUNK steps, row i at
+    positions[i], greedy) through its own decode function, profiled; its
+    unprofiled wall first, over ROLLING_WALL_REPS calls (the median
+    kept)."""
+    n = engine.n_slots
+    call = _decode_call(engine, positions)
+    wall, walls = _chunk_walls(call)
+    with torch.inference_mode():
         rec = _profile(f"rolling decode chunk ({CHUNK} steps, {n} rows at "
                        f"{positions}, window {engine.decode_buckets[0]})",
                        call)
@@ -3743,8 +3908,7 @@ def phase_rolling(work: str, floor: float) -> dict:
     window, (iii) within it, (iv) prefix reuse, (v) a spec target, (vi)
     over HTTP."""
     t_phase = time.monotonic()
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     gates: dict = {}
     checks = {"flash": 0}
     cfg = hf_mod.llama_config_from_hf(MISTRAL_CONFIG)
@@ -3776,7 +3940,7 @@ def phase_rolling(work: str, floor: float) -> dict:
     ids, st = _engine_burst(eng, bodies)
     peak = torch.cuda.max_memory_allocated()
     rolling_b1 += _b1_launches() - b0
-    step_ms = _step_ms({"decode_dispatches": 0, "decode_seconds": 0.0}, st)
+    step_ms = _step_ms(st)
     prof = _rolling_decode_profile(
         eng, [n + ROLLING_MAX_TOKENS for n in ROLLING_PROMPT_LENS])
     _close(eng)
@@ -3819,8 +3983,7 @@ def phase_rolling(work: str, floor: float) -> dict:
         f"prompts {WITHIN_PROMPT_LENS}, {wst['prefill_chunks']} prefill "
         f"chunks of which {wst['requests']} first chunks; B1 launches "
         f"{within_b1} (expected {cfg.num_layers} x {wst['requests']}); "
-        f"{_step_ms({'decode_dispatches': 0, 'decode_seconds': 0.0}, wst):.2f}"
-        f" ms per step; {time.monotonic() - t0:.1f}s")
+        f"{_step_ms(wst):.2f} ms per step; {time.monotonic() - t0:.1f}s")
     wres = [_tf_gate(model, b["input_ids"], g, floor)
             for b, g in zip(wbodies, wids)]
     for b, r in zip(wbodies, wres):
@@ -3882,8 +4045,7 @@ def phase_rolling(work: str, floor: float) -> dict:
     gates["v speculated"] = sst["spec_dispatches"] > 0
     log(f"  (v) {time.monotonic() - t0:.1f}s")
     del model, draft
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     # (vi) a huggingface bundle over --storage-uri
     t0 = time.monotonic()
     hf4 = dict(MISTRAL_CONFIG, num_hidden_layers=MISTRAL_HF_LAYERS)
@@ -3917,8 +4079,7 @@ def phase_rolling(work: str, floor: float) -> dict:
     http_b1 += _b1_launches() - b0
     _close(eng)
     del ref
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     rolling_b1 += http_b1
     gates["vi served ids = the engine's on the same weights"] = (
         served == local)
@@ -4312,8 +4473,7 @@ def phase_disagg(work: str, floor: float) -> dict:
         dstats = served["decode"].engine.stats_snapshot()
     finally:
         server.stop()
-        gc.collect()
-        torch.cuda.empty_cache()
+        _free()
     joined = [t for ev in streamed["frames"][:-1]
               for t in ev.get("tokens", ())]
     http_ids = plain.get("output_ids", [])
@@ -4353,8 +4513,7 @@ def phase_disagg(work: str, floor: float) -> dict:
         launches == nl * prefills[0]
         and not any(decode_b1.values()))
     del model
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     log(f"  B1 launches in 4i {launches} for {prefills[0]} prefills "
         f"(expected {nl} each; decode engines {decode_b1}), besides "
         f"{checks['flash']} in the near-tie checks' forwards; 4i took "
@@ -4372,6 +4531,335 @@ def phase_disagg(work: str, floor: float) -> dict:
             "first_frame_s": stream_prefill_s + streamed["first_s"],
             "unified_first_frame_s": uni_stream["first_s"],
             "int8_ratio": ratio}
+
+
+def _gemma_model(hf: dict, **over):
+    """(config, bf16 model) of config.json `hf` (`config_from_hf`), random
+    weights from the seed; (1 + w) norm scales and QKV biases drawn
+    N(0, GEMMA_DRAW_STD), so the plus-one and bias paths do work."""
+    cfg = hf_mod.config_from_hf(hf, **over)
+    model = llama_mod.Llama(cfg, device=DEVICE).init_weights(SEED).eval()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 50)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(".bias") or (name.endswith(".scale")
+                                          and cfg.norm_plus_one):
+                p.normal_(0.0, GEMMA_DRAW_STD, generator=gen)
+    return cfg, model
+
+
+def _plain_last_logits(model, prompt: list) -> torch.Tensor:
+    """fp32 logits of the last prompt position from one full forward with
+    attention through the flash kernel's plain version."""
+    real = llama_mod.flash_attention
+
+    def plain(q, k, v, causal=True, block_q=512, block_kv=512,
+              segment_ids=None, mask=None):
+        return fa._flash_fwd_plain(q, k, v, fa._norm_mask(causal, mask),
+                                   segment_ids)[0]
+    llama_mod.flash_attention = plain
+    try:
+        with torch.inference_mode():
+            hidden = model(torch.tensor([prompt], device=DEVICE),
+                           return_hidden=True)
+            return model.unembed(hidden[0, -1]).float()
+    finally:
+        llama_mod.flash_attention = real
+
+
+def _step_walls(engine, lens) -> dict:
+    """4j's decode step: one decode chunk of the idle engine, its rows at
+    the ends of requests of `lens` tokens (cycled over the slots); the
+    median wall ms a step over ROLLING_WALL_REPS chunks, and each."""
+    pos = [lens[i % len(lens)] + MAX_TOKENS for i in range(engine.n_slots)]
+    wall, walls = _chunk_walls(_decode_call(engine, pos))
+    return {"ms": wall / CHUNK, "reps": [round(w / CHUNK, 2) for w in walls]}
+
+
+def _step_text(step: dict, rows: int) -> str:
+    return (f"{step['ms']:.2f} ms per {rows}-row step (median wall of "
+            f"{ROLLING_WALL_REPS} decode chunks: {step['reps']})")
+
+
+def _gemma7b(floor: float, gates: dict) -> dict:
+    """4j (i): Gemma-7B whole, four prompts at once through the HTTP
+    server; every first admission chunk runs B1 on the tensor-core
+    CUDA-core kernel, 28 launches; ids against one teacher-forced bf16
+    full forward each; the first token's logits against a full forward
+    through the plain attention."""
+    t0 = time.monotonic()
+    cfg, model = _gemma_model(GEMMA7B_CONFIG)
+    gates["i config"] = (cfg.num_params == GEMMA7B_PARAMS and (
+        cfg.head_dim, cfg.norm_plus_one, cfg.embed_scale, cfg.mlp_act,
+        cfg.tie_embeddings) == (256, True, True, "gelu_tanh", True))
+    build_s = time.monotonic() - t0
+    served = GenerativeTorchModel(GEMMA7B_NAME, model,
+                                  generation=dict(GEMMA_GEN))
+    served.load()
+    server = ModelServer()
+    server.register(served)
+    port = server.start_background(0)
+    url = f"http://127.0.0.1:{port}/v1/models/{GEMMA7B_NAME}:generate"
+    bodies = _spec_bodies(cfg.vocab_size, GEMMA_PROMPT_LENS, SEED + 51)
+    try:
+        b0 = _b1_split()
+        torch.cuda.reset_peak_memory_stats()
+        ids = [r["output_ids"] for r in _burst(lambda b: _post(url, b),
+                                                bodies)]
+        peak = torch.cuda.max_memory_allocated()
+        wgmma, simt, mma = _since(b0)
+        st = served.engine.stats_snapshot()
+        logits: list = []
+        with _first_logits(served.engine.model, logits):
+            served.engine.submit(bodies[2]["input_ids"], max_tokens=1,
+                                 timeout=600)
+        step = _step_walls(served.engine, GEMMA_PROMPT_LENS)
+    finally:
+        server.stop()  # unloads the model
+        del server, served
+        _free()
+    first = st["requests"]
+    gates["i B1 = 28 mma launches a first admission chunk"] = (
+        mma == simt == cfg.num_layers * first and wgmma == 0)
+    log(f"  (i) Gemma-7B ({cfg.num_params} parameters, head_dim "
+        f"{cfg.head_dim}, {cfg.num_layers} layers) built in {build_s:.1f}s; "
+        f"prompts {GEMMA_PROMPT_LENS} at once over HTTP, {MAX_TOKENS} ids "
+        f"each: {st['prefill_chunks']} prefill chunks ({first} first "
+        f"chunks), B1 launches {simt} CUDA-core of which {mma} on "
+        f"flash_simt_fwd_mma_kernel (expected {cfg.num_layers} x {first}), "
+        f"wgmma {wgmma}; peak {peak / 2**30:.2f} GiB; {smi()}")
+    log(f"    (i) {_step_text(step, 4)}")
+    res = [_tf_gate(model, b["input_ids"], g, floor)
+           for b, g in zip(bodies, ids)]
+    for b, r in zip(bodies, res):
+        _tf_line("(i)", b["input_ids"], r)
+    gates["i ids vs teacher-forced bf16 (near-tie rule)"] = all(
+        r["ok"] for r in res)
+    ref = _plain_last_logits(model, bodies[2]["input_ids"])
+    rel = _rel_l2(logits[0], ref)
+    gates["i first-token logits vs plain attention"] = (
+        rel <= GEMMA_LOGITS_VS_FLOOR * floor)
+    log(f"    first token of the {GEMMA_PROMPT_LENS[2]}-token prompt: "
+        f"logits rel_l2 {rel:.3e} from a full forward through the plain "
+        f"attention (bound {GEMMA_LOGITS_VS_FLOOR} x phase 3's floor "
+        f"{floor:.3e}); (i) took {time.monotonic() - t0:.1f}s")
+    del model, ref
+    _free()
+    return {"mma": mma, "step": step, "peak_gib": peak / 2**30,
+            "rel_l2": rel}
+
+
+def _gemma2(floor: float, gates: dict) -> dict:
+    """4j (ii): Gemma-2-9B's widths at GEMMA2_LAYERS layers, one prompt
+    past the window on a full-length cache (the mask kept, the sliding
+    layers' reads banded); no B1 launch, as in JAX; ids against the
+    teacher-forced full forward."""
+    t0 = time.monotonic()
+    hf = dict(GEMMA2_9B_CONFIG, num_hidden_layers=GEMMA2_LAYERS)
+    cfg, model = _gemma_model(hf)
+    eng = GenerationEngine(model, **GEMMA2_GEN)
+    kept = (eng._rolling == 0 and eng.cfg.mask_kind == "sliding_window"
+            and eng._cache["k"].shape[2] == GEMMA2_GEN["max_len"])
+    body = _spec_bodies(cfg.vocab_size, (GEMMA2_PROMPT,), SEED + 52)[0]
+    b0 = _b1_launches()
+    torch.cuda.reset_peak_memory_stats()
+    ids = eng.submit(body["input_ids"], max_tokens=MAX_TOKENS,
+                     timeout=600)["output_ids"]
+    peak = torch.cuda.max_memory_allocated()
+    st = eng.stats_snapshot()
+    b1 = _b1_launches() - b0
+    step = _step_walls(eng, (GEMMA2_PROMPT,))
+    _close(eng)
+    torch.cuda.reset_peak_memory_stats()
+    res = _tf_gate(model, body["input_ids"], ids, floor)
+    tf_peak = torch.cuda.max_memory_allocated()
+    gates["ii the mask and the full-length cache kept"] = kept
+    gates["ii no B1 launch"] = b1 == 0
+    gates["ii ids vs teacher-forced bf16 (near-tie rule)"] = res["ok"]
+    log(f"  (ii) Gemma-2-9B's widths at {cfg.num_layers} layers (window "
+        f"{cfg.mask_window}, caps {cfg.attn_softcap}/{cfg.final_softcap}, "
+        f"query_pre_attn_scalar {cfg.query_pre_attn_scalar}): a "
+        f"{GEMMA2_PROMPT}-token prompt past the window, max_len "
+        f"{GEMMA2_GEN['max_len']}, rolling {eng._rolling}, mask "
+        f"{eng.cfg.mask_kind}: {st['prefill_chunks']} prefill chunks, "
+        f"{_step_text(step, 1)}; B1 launches {b1}; peak {peak / 2**30:.2f} "
+        f"GiB serving, {tf_peak / 2**30:.2f} GiB in the teacher-forced "
+        f"forward (naive attention at {GEMMA2_PROMPT + MAX_TOKENS - 1} "
+        f"tokens)")
+    _tf_line("(ii)", body["input_ids"], res)
+    log(f"    (ii) took {time.monotonic() - t0:.1f}s")
+    del model, eng
+    _free()
+    return {"b1": b1, "step": step, "peak_gib": peak / 2**30,
+            "tf_peak_gib": tf_peak / 2**30}
+
+
+def _gemma3(floor: float, gates: dict) -> dict:
+    """4j (iii): Gemma-3-1B whole: within the window (a causal view, its
+    dual RoPE kept; B1 on the tensor-core kernel, 26 launches a first
+    chunk) and past it (5to1 banded reads, no B1); ids against the
+    teacher-forced full forward."""
+    t0 = time.monotonic()
+    cfg, model = _gemma_model(GEMMA3_1B_CONFIG)
+    out = {}
+    for where, gen, lens in (("within", GEMMA3_WITHIN, GEMMA3_WITHIN_LENS),
+                             ("past", GEMMA3_PAST, GEMMA3_PAST_LENS)):
+        eng = GenerationEngine(model, **gen)
+        kinds = llama_mod.sliding_flags(eng.cfg)
+        layout = (eng._rolling, eng.cfg.mask_kind, kinds is not None)
+        bodies = _spec_bodies(cfg.vocab_size, lens, SEED + 53)
+        b0 = _b1_split()
+        ids, st = _engine_burst(eng, bodies)
+        wgmma, simt, mma = _since(b0)
+        step = _step_walls(eng, lens)
+        _close(eng)
+        res = [_tf_gate(model, b["input_ids"], g, floor)
+               for b, g in zip(bodies, ids)]
+        if where == "within":
+            gates["iii within: a causal view with its per-layer kinds"] = (
+                layout == (0, "causal", True))
+            gates["iii within: B1 = 26 mma launches a first chunk"] = (
+                mma == simt == cfg.num_layers * st["requests"]
+                and wgmma == 0)
+        else:
+            gates["iii past: the mask kept, nothing rolls"] = (
+                layout == (0, "sliding_window", True))
+            gates["iii past: no B1 launch"] = wgmma + simt == 0
+        gates[f"iii {where}: ids vs teacher-forced bf16"] = all(
+            r["ok"] for r in res)
+        log(f"  (iii) Gemma-3-1B ({cfg.num_params} parameters, {cfg.num_heads}"
+            f" heads, {cfg.num_kv_heads} kv head, window {cfg.mask_window}) "
+            f"{where} the window (max_len {gen['max_len']}; rolling "
+            f"{layout[0]}, mask {layout[1]}): prompts {lens}, "
+            f"{st['prefill_chunks']} prefill chunks; B1 launches {simt} "
+            f"CUDA-core ({mma} mma), wgmma {wgmma}; "
+            f"{_step_text(step, eng.n_slots)}")
+        for b, r in zip(bodies, res):
+            _tf_line(f"(iii) {where}", b["input_ids"], r)
+        out[where] = {"mma": mma, "step": step}
+    log(f"    (iii) took {time.monotonic() - t0:.1f}s")
+    del model
+    _free()
+    return out
+
+
+def _qwen2(work: str, floor: float, gates: dict) -> dict:
+    """4j (iv): Qwen2-7B's widths at QWEN2_LAYERS layers, QKV biases drawn
+    nonzero, written as a huggingface checkpoint and served over
+    --storage-uri in bf16 and under `quantize: int8`: ids equal to an
+    engine's on the same weights; B1 on the wgmma kernel; the W8A16
+    launches by kernel; in bf16, the engine's first-token logits against a
+    full forward through the plain attention."""
+    t0 = time.monotonic()
+    hf = dict(QWEN2_7B_CONFIG, num_hidden_layers=QWEN2_LAYERS)
+    cfg, model = _gemma_model(hf)
+    ckpt = os.path.join(work, "hf_qwen2")
+    nbytes, write_s = _write_hf_checkpoint(ckpt, model.state_dict(), cfg, hf)
+    bodies = _spec_bodies(cfg.vocab_size, QWEN2_PROMPT_LENS, SEED + 54)
+    out = {}
+    for mode in ("bf16", "int8"):
+        spec = {"format": "huggingface", "generative": GEMMA_GEN}
+        if mode == "int8":
+            spec["quantize"] = "int8"
+        with open(os.path.join(ckpt, "model.json"), "w") as f:
+            json.dump(spec, f)
+        server, port = server_mod.start([
+            "--storage-uri", f"file://{ckpt}", "--name", QWEN2_NAME,
+            "--host", "127.0.0.1", "--port", "0", "--device", DEVICE])
+        url = f"http://127.0.0.1:{port}/v1/models/{QWEN2_NAME}:generate"
+        try:
+            b0 = _b1_split()
+            w0 = (w8.w8a16_launches, w8.w8a16_wgmma_launches)
+            ids = [r["output_ids"] for r in _burst(lambda b: _post(url, b),
+                                                    bodies)]
+            wgmma, simt, _ = _since(b0)
+            w8_calls = (w8.w8a16_launches - w0[0],
+                        w8.w8a16_wgmma_launches - w0[1])
+            st = server.models[QWEN2_NAME].engine.stats_snapshot()
+        finally:
+            server.stop()
+            del server
+            _free()
+        if mode == "int8":
+            squant.quantize_model(model)
+        eng = GenerationEngine(model, **GEMMA_GEN)
+        want, _ = _engine_burst(eng, bodies)
+        step = _step_walls(eng, QWEN2_PROMPT_LENS)
+        rel = None
+        if mode == "bf16":
+            logits: list = []
+            with _first_logits(eng.model, logits):
+                eng.submit(bodies[1]["input_ids"], max_tokens=1, timeout=600)
+            rel = _rel_l2(logits[0], _plain_last_logits(
+                model, bodies[1]["input_ids"]))
+            gates["iv bf16: first-token logits vs plain attention"] = (
+                rel <= GEMMA_LOGITS_VS_FLOOR * floor)
+        _close(eng)
+        steps = st["decode_dispatches"] * CHUNK
+        w8_expect = (7 * cfg.num_layers * (st["prefill_chunks"] + steps)
+                     + st["requests"] + steps) if mode == "int8" else 0
+        gates[f"iv {mode}: served ids = the engine's"] = ids == want
+        gates[f"iv {mode}: B1 on the wgmma kernel, 4 a first chunk"] = (
+            wgmma == cfg.num_layers * st["requests"] and simt == 0)
+        gates[f"iv {mode}: W8A16 launches"] = w8_calls[0] == w8_expect
+        log(f"  (iv) Qwen2-7B's widths at {cfg.num_layers} layers, {mode}, "
+            f"over --storage-uri ({nbytes} bytes written in {write_s:.2f}s):"
+            f" prompts {QWEN2_PROMPT_LENS}, ids "
+            f"{'equal' if ids == want else 'DIFFER from'} the engine's; B1 "
+            f"wgmma {wgmma} (expected {cfg.num_layers} x {st['requests']}), "
+            f"CUDA-core {simt}; W8A16 launches {w8_calls[0]} (expected "
+            f"{w8_expect}), of them wgmma {w8_calls[1]}, decode "
+            f"{w8_calls[0] - w8_calls[1]}; {_step_text(step, 4)}")
+        if rel is not None:
+            log(f"    first token of the {QWEN2_PROMPT_LENS[1]}-token prompt "
+                f"on the engine: logits rel_l2 {rel:.3e} from a full forward"
+                f" through the plain attention (bound "
+                f"{GEMMA_LOGITS_VS_FLOOR} x phase 3's floor {floor:.3e})")
+        out[mode] = {"b1": wgmma, "w8a16": w8_calls, "step": step,
+                     "rel_l2": rel}
+    log(f"    (iv) took {time.monotonic() - t0:.1f}s")
+    del model
+    _free()
+    return out
+
+
+def phase_gemma(work: str, floor: float, gk) -> dict:
+    """4j: the Gemma 1/2/3 and Qwen2 config flags on the card (see the
+    constants' comment): (i) Gemma-7B over HTTP, (ii) Gemma-2 past the
+    window, (iii) Gemma-3-1B within and past it, (iv) Qwen2 bf16 and int8
+    over --storage-uri, then the W8A16 op at GEMMA_W8A16_SHAPES against
+    its plain version."""
+    t_phase = time.monotonic()
+    _free()
+    gates: dict = {}
+    g7 = _gemma7b(floor, gates)
+    g2 = _gemma2(floor, gates)
+    g3 = _gemma3(floor, gates)
+    qw = _qwen2(work, floor, gates)
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 55)
+    for m, k, n, unembed in GEMMA_W8A16_SHAPES:
+        x, q, scale = gk.w8a16_inputs(m, k, n, torch.bfloat16, gen, dev)
+        plan = w8._w8a16_plan(m, k, n, torch.bfloat16, True,
+                              w8._sm_count(dev.index or 0))
+        err = gk.w8a16_check(x, q, scale, unembed)
+        log(f"  W8A16 M{m} K{k} N{n}{' unembedding' if unembed else ''}: "
+            f"{plan.kernel} kernel, rel_l2 "
+            f"{err['rel_l2']:.2e} (bound {gk.W8A16_TOL[torch.bfloat16]}), "
+            f"two launches bit-identical")
+        del x, q, scale
+    log(f"  4j took {time.monotonic() - t_phase:.1f}s; {smi()}")
+    for gate, ok in gates.items():
+        log(f"  gate {gate}: {'OK' if ok else 'FAIL'}")
+    if not all(gates.values()):
+        raise RuntimeError(f"Gemma/Qwen2 gates failed: "
+                           f"{[g for g, ok in gates.items() if not ok]}")
+    return {"simt_launches": {"gemma_7b_serving": g7["mma"],
+                              "gemma3_1b_serving": g3["within"]["mma"]},
+            "fwd_launches": {"qwen2_serving": qw["bf16"]["b1"],
+                             "qwen2_int8_serving": qw["int8"]["b1"]},
+            "w8a16_launches": qw["int8"]["w8a16"], "gemma7b": g7,
+            "gemma2": g2, "gemma3": g3}
 
 
 def _decode_in_situ(ordered_ms: list) -> dict | None:
@@ -4437,16 +4925,14 @@ def phase_quant_model() -> dict:
     model loaded with the same codes dequantized (gated), and against the
     original bf16 weights (reported)."""
     cfg = registry.model_config(MODEL, **MODEL_KWARGS)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     tokens = torch.from_numpy(np.random.default_rng(SEED + 5).integers(
         0, cfg.vocab_size, (1, QUANT_PROMPT))).to(DEVICE)
     with torch.inference_mode():
         model = llama_mod.Llama(cfg, device=DEVICE).init_weights(SEED)
         orig = model(tokens).float()
         squant.quantize_model(model)
-        gc.collect()
-        torch.cuda.empty_cache()
+        _free()
         int8 = model(tokens).float()
         deq = _dequantized_copy(model, cfg)
         ref = deq(tokens).float()
@@ -4737,8 +5223,7 @@ def phase_training() -> dict:
                                 dir=os.path.join(ROOT, "build"))
     with os.fdopen(fd, "w") as fh:
         fh.write(spec.to_json())
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     log(f"  before training: {torch.cuda.memory_allocated() / 2**30:.2f} "
         "GiB allocated")
     torch.cuda.reset_peak_memory_stats()
@@ -4790,8 +5275,7 @@ def phase_training() -> dict:
     result = {"launches": launches, "ms_per_step": step_s * 1e3,
               "tok_s": tok_s, "mfu": mfu, "peak_gib": peak / 2**30,
               "data_wait_share": wait}
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
 
     # The same model outside the trainer: a profile of one step, then one
     # step's gradients through kernel / plain / naive attention.
@@ -4899,8 +5383,7 @@ def phase_training() -> dict:
         "nu and write p, mu, nu once, fp32)")
     result["optimizer_ms"] = opt_ms
     del model, state, step_fn, params, grads
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     return result
 
 
@@ -5015,8 +5498,7 @@ def phase_job(train: dict) -> dict:
         return result
     finally:
         shutil.rmtree(work, ignore_errors=True)
-        gc.collect()
-        torch.cuda.empty_cache()
+        _free()
 
 
 def _job_full(cfg, work: str, corpus: str, eval_corpus: str,
@@ -5052,8 +5534,7 @@ def _job_full(cfg, work: str, corpus: str, eval_corpus: str,
                              ckpt_mod.STATE_FILE))))
         return did
 
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     _reset_counts()
     tap = _StepTap(sys.stdout)
     t0 = time.monotonic()
@@ -5127,8 +5608,7 @@ def _job_full(cfg, work: str, corpus: str, eval_corpus: str,
             f"step {s}: {sec:.2f}s, {n / 1e9:.3f} GB ({n / sec / 1e9:.2f} "
             "GB/s)" for s, sec, n in saves))
     shutil.rmtree(ckpt_dir, ignore_errors=True)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     return {"launches": launches, "ms_per_step": step_s * 1e3,
             "tok_s": tok_s, "mfu": mfu, "data_wait_share": wait,
             "evals": tap.evals, "traces": traces,
@@ -5252,8 +5732,7 @@ def _lora_train(cfg, prof_dir: str) -> tuple:
                        for n in LORA_FROZEN_CHECK})
         return state
 
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     tap = _StepTap(sys.stdout)
@@ -5378,8 +5857,7 @@ def _lora_merge_and_serve(cfg, trainer) -> dict:
               else v.detach())
           for k, v in model.state_dict().items()}
     del model
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     plain = llama_mod.Llama(cfg, device=DEVICE)  # lora_rank 0, bf16
     plain.load_state_dict({k: v for k, v in sd.items()
                            if not lora_mod.is_lora_path(k)})
@@ -5467,8 +5945,7 @@ def _lora_merge_and_serve(cfg, trainer) -> dict:
         raise RuntimeError("the engine's first greedy ids on the merged "
                            "model differ from the full forward's argmax")
     del plain, served
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     return {"merge_rel_l2": rel, "merge_vs_fp32_rel_l2": rel_exact,
             "adapted_vs_fp32_rel_l2": floor, "base_rel_l2": rel_base,
             "merge_s": merge_s, "serving_launches": serving_launches,
@@ -5487,8 +5964,7 @@ def phase_remat() -> dict:
             dataset="synthetic_lm", batch_size=TRAIN_BATCH,
             seq_len=TRAIN_SEQ, learning_rate=TRAIN_LR, weight_decay=1e-4,
             steps=REMAT_STEPS, log_every=1, seed=SEED)
-        gc.collect()
-        torch.cuda.empty_cache()
+        _free()
         torch.cuda.reset_peak_memory_stats()
         _reset_counts()
         tap = _StepTap(sys.stdout)
@@ -5562,8 +6038,7 @@ def phase_auto(gk) -> tuple:
     launches = (fa.flash_simt_fwd_launches, fa.flash_simt_bwd_dq_launches,
                 fa.flash_simt_bwd_dkv_launches,
                 fa.flash_simt_fwd_mma_launches)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     return launches
 
 
@@ -5669,6 +6144,10 @@ def main() -> int:
                      "sampled, int8 pool, self-draft, adapter), the step "
                      "beside a prefill, :prefill and :decode over HTTP",
                      phase_disagg, bundle, floor)
+        gemma = run("4j", "the Gemma 1/2/3 and Qwen2 config flags: "
+                    "Gemma-7B over HTTP, Gemma-2 past its window, Gemma-3-1B "
+                    "within and past it, Qwen2 bf16 and int8 over "
+                    "--storage-uri", phase_gemma, bundle, floor, gk)
     finally:
         shutil.rmtree(bundle, ignore_errors=True)
     train = run("5", f"training {TRAIN_MODEL} through the trainer",
@@ -5690,6 +6169,7 @@ def main() -> int:
     smain, blora = simt["main"], bwd["lora"]
     remat_launches = [sum(row["launches"][i] for row in remat.values())
                       for i in range(3)]
+    simt_by_path = {"auto": simt_launches[0], **gemma["simt_launches"]}
     fwd_launches = {"serving": flat["launches"],
                     "paged_quant_serving": quant["launches"],
                     "request_surface": surface["launches"],
@@ -5699,6 +6179,7 @@ def main() -> int:
                     "speculative_serving": spec["launches"],
                     **rolling["launches"],
                     "disaggregated_serving": disagg["launches"],
+                    **gemma["fwd_launches"],
                     "training": train["launches"][0],
                     "packed_training": job["launches"][0],
                     "lora_training": lora_run["launches"][0],
@@ -5767,8 +6248,8 @@ def main() -> int:
         "bound_by": smain[f"{key}_bound"][1],
         "library_ms": smain[library], "shape": smain["shape"],
         "design": SIMT_FWD_DESIGN if key == "fwd" else SIMT_BWD_DESIGN,
-        **({"launches_by_kernel": {
-            "mma": simt_launches[3],
+        **({"launches_by_path": simt_by_path, "launches_by_kernel": {
+            "mma": simt_launches[3] + sum(gemma["simt_launches"].values()),
             "simt": simt_launches[0] - simt_launches[3]}}
            if key == "fwd" else {}),
         "by_shape": [{"shape": r["shape"], "ms": r[f"{key}_ms"],
@@ -5779,7 +6260,8 @@ def main() -> int:
                          if key == "fwd" else {})}
                      for r in simt["rows"]],
     } for name, line, n, key, plain, library, err, rel in (
-        ("flash_simt_fwd", 135, simt_launches[0], "fwd", "plain_fwd_ms",
+        ("flash_simt_fwd", 135, sum(simt_by_path.values()), "fwd",
+         "plain_fwd_ms",
          "library_fwd_ms", max(r["err_out"] for r in simt["rows"]), None),
         ("flash_simt_bwd_dq", 234, simt_launches[1], "dq", "plain_bwd_ms",
          "library_bwd_ms",
@@ -5807,12 +6289,15 @@ def main() -> int:
         "source": "kubeflow_tpu_torch/ops/csrc/w8a16.cu",
         "replaces": W8A16_REPLACES,
         "tpu_kernel": False,
-        "launches": quant["w8a16_launches"] + spec["w8a16_launches"],
+        "launches": (quant["w8a16_launches"] + spec["w8a16_launches"]
+                     + gemma["w8a16_launches"][0]),
         "launches_wgmma": (quant["w8a16_wgmma_launches"]
-                           + spec["w8a16_wgmma_launches"]),
+                           + spec["w8a16_wgmma_launches"]
+                           + gemma["w8a16_launches"][1]),
         "launches_by_path": {
             "paged_quant_serving": quant["w8a16_launches"],
-            "speculative_serving": spec["w8a16_launches"]},
+            "speculative_serving": spec["w8a16_launches"],
+            "qwen2_int8_serving": gemma["w8a16_launches"][0]},
         "max_abs_err": w8r["max_abs_err"], "rel_l2_err": w8r["rel_l2_err"],
         "ms": wmain["ms"], "plain_ms": wmain["plain_ms"],
         "bound_ms": wmain["bound_ms"], "bound_by": wmain["bound_by"],

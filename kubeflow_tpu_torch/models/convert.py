@@ -44,6 +44,11 @@ def llama_params_from_jax(params_np, cfg: LlamaConfig) -> dict:
     q/k/v, [L,1,1,D] -> [D] for o_proj, [1,V] -> [V] for the head, [V,1] ->
     [V] for the embedding).
 
+    The other families' leaves cross with the config's flags: QKV biases
+    (`attn/{q,k,v}_proj/bias` [L, heads, hd] -> [heads*hd], in the storage
+    dtype), qk-norm scales (`attn/{q,k}_norm/scale` [L, hd]) and sandwich
+    norms (`attn_out_norm`, `mlp_out_norm` [L, D]), fp32.
+
     With `cfg.lora_rank` > 0 the adapters cross too: flax `*_lora_a`
     [L, in, r] becomes the port's A [r, in], `*_lora_b` [L, r, *out] (q's
     [L, r, H, Dh], v's [L, r, KH, Dh]) its B [out, r], in the storage
@@ -122,8 +127,22 @@ def llama_params_from_jax(params_np, cfg: LlamaConfig) -> dict:
         b = take(f"layers/{block}/{name}_lora_b", dt, (n, r, *out))
         adapters[f"{block}.{name}"] = (a.transpose(1, 2),
                                        b.reshape(n, r, -1).transpose(1, 2))
-    inn = take("layers/input_norm/scale", f32, (n, d))
-    pan = take("layers/post_attn_norm/scale", f32, (n, d))
+    norms = {"input_norm": ("layers/input_norm/scale", d),
+             "post_attn_norm": ("layers/post_attn_norm/scale", d)}
+    if cfg.sandwich_norms:
+        norms.update(attn_out_norm=("layers/attn_out_norm/scale", d),
+                     mlp_out_norm=("layers/mlp_out_norm/scale", d))
+    if cfg.qk_norm:
+        norms.update({"attn.q_norm": ("layers/attn/q_norm/scale", dh),
+                      "attn.k_norm": ("layers/attn/k_norm/scale", dh)})
+    norms = {name: take(path, f32, (n, width))
+             for name, (path, width) in norms.items()}
+    biases = {}
+    if cfg.attention_bias:
+        biases = {f"attn.{p}": take(f"layers/attn/{p}/bias", dt,
+                                    (n, heads, dh)).reshape(n, heads * dh)
+                  for p, heads in (("q_proj", h), ("k_proj", kh),
+                                   ("v_proj", kh))}
     embed, embed_scale = kernel("embed", (v, d), v)
     if embed_scale is None:
         sd["embed"] = embed
@@ -141,8 +160,10 @@ def llama_params_from_jax(params_np, cfg: LlamaConfig) -> dict:
         for name, (a, b) in adapters.items():
             sd[p + name + "_lora_a"] = a[i].contiguous()
             sd[p + name + "_lora_b"] = b[i].contiguous()
-        sd[p + "input_norm.scale"] = inn[i].clone()
-        sd[p + "post_attn_norm.scale"] = pan[i].clone()
+        for name, scales in norms.items():
+            sd[p + name + ".scale"] = scales[i].clone()
+        for name, bias in biases.items():
+            sd[p + name + ".bias"] = bias[i].clone()
     extra = sorted(set(flat) - used)
     if extra:
         raise ValueError(f"flax params not consumed by the port: {extra}")

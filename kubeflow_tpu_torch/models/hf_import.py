@@ -1,9 +1,10 @@
 """Hugging Face checkpoints: a safetensors reader and writer, and the
 Llama-family import onto the port's `Llama`.
 
-The port of `kubeflow_tpu/models/hf_import.py` for the Llama family (Llama,
-Llama 3.1's rope scaling, Mistral's config), with its own safetensors
-codec: the `safetensors` package is not a dependency of this package.
+The port of `kubeflow_tpu/models/hf_import.py` for the families on the
+Llama trunk (Llama, Llama 3.1's rope scaling, Mistral's window, Qwen2's
+QKV biases, Gemma 1/2/3), with its own safetensors codec: the
+`safetensors` package is not a dependency of this package.
 
 A safetensors file is an 8-byte little-endian header length N, N bytes of
 JSON header ({name: {"dtype", "shape", "data_offsets": [begin, end]}} plus
@@ -246,8 +247,7 @@ def llama_config_from_hf(hf: dict, **overrides: Any) -> LlamaConfig:
 
     Unsupported config features fail loudly here: importing a checkpoint
     whose math this model does not implement must never give silently
-    wrong logits. Qwen2's QKV biases map onto `attention_bias`, which the
-    model refuses by name (`models/llama._check_supported`)."""
+    wrong logits. Qwen2's QKV biases map onto `attention_bias`."""
     unknown = sorted(set(overrides) - _CONFIG_FIELDS)
     if unknown:
         raise ValueError(f"model_overrides {unknown} are not LlamaConfig "
@@ -300,20 +300,37 @@ def llama_config_from_hf(hf: dict, **overrides: Any) -> LlamaConfig:
 
 def llama_hf_names(cfg: LlamaConfig) -> dict:
     """{HF tensor name: the port's state-dict key} of a Llama-family
-    checkpoint of `cfg` (no lm_head when the embeddings are tied)."""
+    checkpoint of `cfg` (no lm_head when the embeddings are tied): Qwen2's
+    QKV biases with `attention_bias`; with `sandwich_norms`, Gemma-2/3's
+    post_attention_layernorm on the attention output (`attn_out_norm`),
+    pre_feedforward_layernorm on the MLP input (`post_attn_norm`) and
+    post_feedforward_layernorm on the MLP output (`mlp_out_norm`); with
+    `qk_norm`, Gemma-3's q_norm and k_norm."""
     names = {"model.embed_tokens.weight": "embed",
              "model.norm.weight": "final_norm.scale"}
     if not cfg.tie_embeddings:  # tied: the unembedding reuses `embed`
         names["lm_head.weight"] = "lm_head.weight"
+    norms = {"input_layernorm": "input_norm"}
+    if cfg.sandwich_norms:
+        norms.update(post_attention_layernorm="attn_out_norm",
+                     pre_feedforward_layernorm="post_attn_norm",
+                     post_feedforward_layernorm="mlp_out_norm")
+    else:
+        norms["post_attention_layernorm"] = "post_attn_norm"
+    if cfg.qk_norm:
+        norms.update({"self_attn.q_norm": "attn.q_norm",
+                      "self_attn.k_norm": "attn.k_norm"})
     for i in range(cfg.num_layers):
         hf, port = f"model.layers.{i}.", f"layers.{i}."
         for p in ("q_proj", "k_proj", "v_proj", "o_proj"):
             names[f"{hf}self_attn.{p}.weight"] = f"{port}attn.{p}.weight"
+        if cfg.attention_bias:
+            for p in ("q_proj", "k_proj", "v_proj"):
+                names[f"{hf}self_attn.{p}.bias"] = f"{port}attn.{p}.bias"
         for p in ("gate_proj", "up_proj", "down_proj"):
             names[f"{hf}mlp.{p}.weight"] = f"{port}mlp.{p}.weight"
-        names[f"{hf}input_layernorm.weight"] = f"{port}input_norm.scale"
-        names[f"{hf}post_attention_layernorm.weight"] = \
-            f"{port}post_attn_norm.scale"
+        for name, key in norms.items():
+            names[f"{hf}{name}.weight"] = f"{port}{key}.scale"
     return names
 
 
@@ -337,44 +354,243 @@ def _llama_state_dict(t: dict, cfg: LlamaConfig) -> dict:
 _LLAMA_FAMILIES = ("Llama", "Mistral", "Qwen2")
 
 
-def import_llama(path: str, **overrides: Any) -> tuple[LlamaConfig, dict]:
-    """HF Llama-family checkpoint dir -> (LlamaConfig, state dict for
-    `Llama(cfg).load_state_dict`). The config is checked against what the
-    port implements before any tensor is read."""
-    hf = read_hf_config(path)
-    arch = (hf.get("architectures") or ["LlamaForCausalLM"])[0]
-    if "Qwen2Moe" in arch or not any(f in arch for f in _LLAMA_FAMILIES):
-        raise ValueError(f"import_llama: {arch!r} is not a Llama-family "
-                         "checkpoint (use build_from_hf)")
-    cfg = llama_config_from_hf(hf, **overrides)
+def _load(path: str, cfg: LlamaConfig) -> tuple[LlamaConfig, dict]:
     _check_supported(cfg)
     return cfg, _llama_state_dict(load_safetensors_dir(path), cfg)
 
 
+def _llama_config(hf: dict, overrides: dict) -> LlamaConfig:
+    arch = (hf.get("architectures") or ["LlamaForCausalLM"])[0]
+    if "Qwen2Moe" in arch or not any(f in arch for f in _LLAMA_FAMILIES):
+        raise ValueError(f"import_llama: {arch!r} is not a Llama-family "
+                         "checkpoint (use build_from_hf)")
+    return llama_config_from_hf(hf, **overrides)
+
+
+def import_llama(path: str, **overrides: Any) -> tuple[LlamaConfig, dict]:
+    """HF Llama-family checkpoint dir (Llama, Mistral, Qwen2) ->
+    (LlamaConfig, state dict for `Llama(cfg).load_state_dict`). The config
+    is checked against what the port implements before any tensor is
+    read."""
+    return _load(path, _llama_config(read_hf_config(path), overrides))
+
+
+def _gemma_act(hf: dict, family: str) -> None:
+    act = (hf.get("hidden_activation") or hf.get("hidden_act")
+           or "gelu_pytorch_tanh")
+    if act not in ("gelu_pytorch_tanh", "gelu"):
+        # HF treats legacy "gelu" configs as the tanh approximation too
+        # (the Gemma release-time config bug); anything else is a model
+        # this trunk does not implement.
+        raise ValueError(f"unsupported {family} activation {act!r}")
+
+
+def _tied(cfg: LlamaConfig, family: str, layout: str = "") -> None:
+    if not cfg.tie_embeddings:
+        raise ValueError(
+            f"{family} checkpoints tie embeddings; tie_word_embeddings="
+            f"false is not a {layout or family} layout")
+
+
+def _gemma_config(hf: dict, overrides: dict) -> LlamaConfig:
+    arch = (hf.get("architectures") or ["GemmaForCausalLM"])[0]
+    if "Gemma" in arch and arch != "GemmaForCausalLM":
+        raise ValueError(f"import_gemma cannot load architecture {arch!r}")
+    if hf.get("model_type") in ("gemma2", "gemma3", "gemma3_text"):
+        raise ValueError(
+            f"import_gemma cannot load model_type "
+            f"{hf['model_type']!r} (use import_gemma2 / build_from_hf)")
+    if arch != "GemmaForCausalLM" and hf.get("model_type") != "gemma":
+        raise ValueError(f"import_gemma cannot load architecture {arch!r}")
+    _gemma_act(hf, "Gemma")
+    fields = dict(
+        norm_plus_one=True, embed_scale=True, mlp_act="gelu_tanh",
+        # GemmaConfig's class default is tied embeddings; saved configs
+        # omit the field (Llama's absent-key default is False).
+        tie_embeddings=bool(hf.get("tie_word_embeddings", True)))
+    fields.update(overrides)  # the caller's overrides win, then validate
+    cfg = llama_config_from_hf(hf, **fields)
+    _tied(cfg, "Gemma", "Gemma-v1")
+    return cfg
+
+
+def import_gemma(path: str, **overrides: Any) -> tuple[LlamaConfig, dict]:
+    """HF Gemma (v1) checkpoint dir -> (LlamaConfig, state dict). Gemma is
+    the Llama trunk with (1 + w) norms, the sqrt(hidden) embedding scale
+    and a tanh-GeLU gate, and tied embeddings; its tensor names are
+    Llama's. A Gemma-2/3 checkpoint never imports as v1, whatever its
+    architectures or model_type say."""
+    return _load(path, _gemma_config(read_hf_config(path), overrides))
+
+
+def _alternate(cfg: LlamaConfig, pattern: str, overrides: dict):
+    """A windowed Gemma-2/3 config marked alternating, with the einsum
+    attention path: each only where the caller did not choose it."""
+    if cfg.mask_kind != "sliding_window" or "sliding_pattern" in overrides:
+        return cfg
+    forced = {"sliding_pattern": pattern}
+    if "attention_impl" not in overrides:
+        forced["attention_impl"] = "naive"
+    return dataclasses.replace(cfg, **forced)
+
+
+def _gemma2_config(hf: dict, overrides: dict) -> LlamaConfig:
+    arch = (hf.get("architectures") or [""])[0]
+    if hf.get("model_type") in ("gemma3", "gemma3_text") or "Gemma3" in arch:
+        raise ValueError(
+            f"import_gemma2 cannot load {arch or hf.get('model_type')!r} "
+            "(Gemma-3 is not implemented)")
+    if not (arch in ("", "Gemma2ForCausalLM")
+            or hf.get("model_type") == "gemma2"):
+        raise ValueError(f"import_gemma2 cannot load architecture {arch!r}")
+    _gemma_act(hf, "Gemma-2")
+    lt = hf.get("layer_types")
+    if lt is not None:
+        want = ["sliding_attention" if i % 2 == 0 else "full_attention"
+                for i in range(hf["num_hidden_layers"])]
+        if list(lt) != want:
+            raise ValueError(
+                "unsupported Gemma-2 layer_types pattern (expected "
+                "alternating sliding/full starting sliding at layer 0)")
+    fields = dict(
+        norm_plus_one=True, embed_scale=True, mlp_act="gelu_tanh",
+        sandwich_norms=True,
+        attn_softcap=float(hf.get("attn_logit_softcapping") or 0.0),
+        final_softcap=float(hf.get("final_logit_softcapping") or 0.0),
+        query_pre_attn_scalar=float(hf.get("query_pre_attn_scalar") or 0.0),
+        tie_embeddings=bool(hf.get("tie_word_embeddings", True)),
+        attention_impl="naive")
+    fields.update(overrides)
+    cfg = _alternate(llama_config_from_hf(hf, **fields), "even", overrides)
+    _tied(cfg, "Gemma-2")
+    return cfg
+
+
+def import_gemma2(path: str, **overrides: Any) -> tuple[LlamaConfig, dict]:
+    """HF Gemma-2 checkpoint dir -> (LlamaConfig, state dict): Gemma's
+    conventions plus sandwich norms, the attention and final tanh
+    soft-caps, the query_pre_attn_scalar score scale and alternating
+    layers (HF layer_types: even layers sliding, odd ones full;
+    `sliding_pattern="even"`), on the einsum attention path unless the
+    caller overrides it. Within its window the engine serves a causal
+    view; past it the cache stays full-length and the sliding layers band
+    their reads."""
+    return _load(path, _gemma2_config(read_hf_config(path), overrides))
+
+
+def _gemma3_config(hf: dict, overrides: dict) -> LlamaConfig:
+    arch = (hf.get("architectures") or [""])[0]
+    if "ConditionalGeneration" in arch or hf.get("vision_config"):
+        raise ValueError(
+            f"{arch or hf.get('model_type')!r} is multimodal Gemma-3 "
+            "(vision tower + text); only text checkpoints "
+            "(Gemma3ForCausalLM / gemma3_text) are supported")
+    if not (arch in ("", "Gemma3ForCausalLM", "Gemma3TextModel")
+            or hf.get("model_type") in ("gemma3", "gemma3_text")):
+        raise ValueError(f"import_gemma3 cannot load architecture {arch!r}")
+    _gemma_act(hf, "Gemma-3")
+    lt = hf.get("layer_types")
+    if lt is not None:
+        want = ["full_attention" if (i + 1) % 6 == 0 else "sliding_attention"
+                for i in range(hf["num_hidden_layers"])]
+        if list(lt) != want:
+            raise ValueError(
+                "unsupported Gemma-3 layer_types pattern (expected 5 "
+                "sliding : 1 full, full at every 6th layer)")
+    elif int(hf.get("sliding_window_pattern", 6)) != 6:
+        # Release-era configs carry sliding_window_pattern instead of
+        # layer_types; any other period puts the full layers elsewhere.
+        raise ValueError(
+            f"unsupported sliding_window_pattern "
+            f"{hf['sliding_window_pattern']} (only the 5:1 interleave "
+            "is implemented)")
+    scaling = hf.get("rope_scaling")
+    linear_factor = 1.0
+    if scaling:
+        rtype = scaling.get("rope_type") or scaling.get("type")
+        if rtype != "linear":
+            raise ValueError(
+                f"unsupported Gemma-3 rope_scaling type {rtype!r} "
+                "(global layers use 'linear')")
+        linear_factor = float(scaling.get("factor", 1.0))
+    fields = dict(
+        norm_plus_one=True, embed_scale=True, mlp_act="gelu_tanh",
+        sandwich_norms=True, qk_norm=True,
+        query_pre_attn_scalar=float(hf.get("query_pre_attn_scalar") or 0.0),
+        rope_theta_local=float(hf.get("rope_local_base_freq", 10000.0)),
+        rope_global_scaling_factor=linear_factor,
+        tie_embeddings=bool(hf.get("tie_word_embeddings", True)),
+        attention_impl="naive")
+    fields.update(overrides)
+    # llama_config_from_hf reads rope_scaling as Llama-3.1's; Gemma-3's
+    # linear scaling is taken above, so shadow it.
+    cfg = _alternate(llama_config_from_hf(dict(hf, rope_scaling=None),
+                                          **fields), "5to1", overrides)
+    _tied(cfg, "Gemma-3")
+    return cfg
+
+
+def import_gemma3(path: str, **overrides: Any) -> tuple[LlamaConfig, dict]:
+    """HF Gemma-3 text checkpoint dir -> (LlamaConfig, state dict): Gemma-2
+    without the soft-caps, plus qk-norms, the 5:1 local/global interleave
+    (`sliding_pattern="5to1"`: every 6th layer full) and two RoPE bases
+    (rope_local_base_freq on sliding layers, rope_theta with an optional
+    linear scaling on full ones). Multimodal Gemma-3 (a vision tower) is
+    refused: this imports the text stack only."""
+    return _load(path, _gemma3_config(read_hf_config(path), overrides))
+
+
 #: Families the JAX package imports whose models the port has not ported
-#: yet: (test on the architecture or model_type, name, ROADMAP item).
+#: yet: (test on the architecture or model_type, name, ROADMAP item). The
+#: first group is tried before the Gemma dispatch, the second after it,
+#: in the JAX `build_from_hf`'s order.
 _REFUSED = (
     (lambda a, m: "Bert" in a or m == "bert", "BERT", "A8"),
     (lambda a, m: "GPT2" in a or m == "gpt2", "GPT-2", "A8"),
-    (lambda a, m: "T5" in a or m.endswith("t5"), "T5/MT5/UMT5", "A8"),
+    (lambda a, m: (a in ("T5ForConditionalGeneration",
+                         "MT5ForConditionalGeneration",
+                         "UMT5ForConditionalGeneration")
+                   or m in ("t5", "mt5", "umt5")), "T5/MT5/UMT5", "A8"),
     (lambda a, m: "Mixtral" in a or m == "mixtral",
      "Mixtral (models/moe.py)", "A8"),
+)
+_REFUSED_AFTER_GEMMA = (
     (lambda a, m: "Qwen2Moe" in a or m == "qwen2_moe",
      "Qwen2-MoE (models/moe.py)", "A8"),
-    (lambda a, m: "Gemma" in a or m.startswith("gemma"), "Gemma 1/2/3",
-     "A3.8"),
+    (lambda a, m: "T5" in a or m.endswith("t5"), "T5/MT5/UMT5", "A8"),
 )
 
 
-def build_from_hf(path: str, **overrides: Any) -> tuple[LlamaConfig, dict]:
-    """Architecture-dispatched import: (LlamaConfig, state dict). Families
-    whose models are not ported are refused by name."""
-    hf = read_hf_config(path)
-    arch = (hf.get("architectures") or [hf.get("model_type", "")])[0]
-    mtype = hf.get("model_type", "")
-    for test, what, item in _REFUSED:
+def _refuse(families, arch: str, mtype: str) -> None:
+    for test, what, item in families:
         if test(arch, mtype):
             raise NotImplementedError(
                 f"{what} checkpoints ({arch!r}) are not supported by this "
                 f"package yet (ROADMAP {item})")
-    return import_llama(path, **overrides)
+
+
+def config_from_hf(hf: dict, **overrides: Any) -> LlamaConfig:
+    """The LlamaConfig `build_from_hf` gives a checkpoint whose config.json
+    is `hf`, with every refusal, without reading a tensor: the JAX
+    `build_from_hf`'s dispatch order. Families whose models are not
+    ported are refused by name."""
+    arch = (hf.get("architectures") or [hf.get("model_type", "")])[0]
+    mtype = hf.get("model_type", "")
+    _refuse(_REFUSED, arch, mtype)
+    if "Gemma3" in arch or mtype in ("gemma3", "gemma3_text"):
+        return _gemma3_config(hf, overrides)
+    if arch == "Gemma2ForCausalLM" or mtype == "gemma2":
+        return _gemma2_config(hf, overrides)
+    if "Gemma" in arch and arch != "GemmaForCausalLM":
+        # Any other non-v1 Gemma variant: refuse rather than guess.
+        raise ValueError(f"unsupported architecture {arch!r}")
+    if arch == "GemmaForCausalLM" or mtype == "gemma":
+        return _gemma_config(hf, overrides)
+    _refuse(_REFUSED_AFTER_GEMMA, arch, mtype)
+    return _llama_config(hf, overrides)
+
+
+def build_from_hf(path: str, **overrides: Any) -> tuple[LlamaConfig, dict]:
+    """Architecture-dispatched import (`config_from_hf`): (LlamaConfig,
+    state dict)."""
+    return _load(path, config_from_hf(read_hf_config(path), **overrides))

@@ -7,6 +7,14 @@ decode, and continuation chunks (`attend_full_cache`) — the training
 forward with per-block rematerialisation under the four JAX remat policies,
 and LoRA adapters on the attention (and MLP) projections.
 
+The config flags of the other families on the same trunk, as in JAX:
+Qwen2's QKV biases (`attention_bias`); Gemma's (1 + w) norms, sqrt(hidden)
+embedding scale and GeGLU MLP; Gemma-2's sandwich norms, tanh soft-caps and
+query_pre_attn_scalar; the alternating sliding/full layers of Gemma-2
+("even") and Gemma-3 ("5to1"), with Gemma-3's qk-norms and dual RoPE bases.
+Where JAX threads a traced per-layer flag through its scanned trunk, each
+layer here gets its own static flag (`sliding_flags`).
+
 Where weights live is `cfg.param_dtype`: None (the default) stores them in
 `cfg.dtype`, the serving layout (bf16 weights: the JAX model keeps fp32
 params but casts them to bf16 right before every matmul, so storing them in
@@ -22,8 +30,8 @@ Differences from the JAX twin, by design:
   * under `quantized_dense` the projections are `Int8Dense` modules and the
     embedding an `Int8Dense` table (serve/quant.py), built by
     `quantize_model` from a float model or loaded from a state dict;
-  * features of other model families and of later slices are refused with
-    NotImplementedError, never ignored (`_check_supported`);
+  * features of later slices are refused with NotImplementedError, never
+    ignored (`_check_supported`);
   * multi-LoRA serving takes each row's adapter factors gathered once
     (`adapter_rows`, an `AdapterRows`) as well as the stacks and ids, so
     the engine gathers once per decode chunk, not once per step.
@@ -90,16 +98,26 @@ class LlamaConfig:
     # recomputed in the backward, the flash kernels included.
     remat: bool = True
     remat_policy: str = "nothing"
-    # Flags of other model families and of later slices. They exist so a
-    # config that sets one is refused by name (`_check_supported`).
+    # QKV projection biases (Qwen2; o_proj has none). Zero at init.
     attention_bias: bool = False
+    # Gemma: RMSNorm applies (1 + w) with w zero at init; embeddings scale
+    # by sqrt(hidden), the multiplier rounded to `dtype`; the MLP gate is
+    # tanh-approximate GeLU ("gelu_tanh") instead of SiLU.
     norm_plus_one: bool = False
     embed_scale: bool = False
-    mlp_act: str = "silu"
+    mlp_act: str = "silu"  # silu | gelu_tanh
+    # Gemma-2: norms on the attention and MLP outputs before the residual
+    # adds; tanh soft-caps on the attention scores and the final logits
+    # (0 = off); the score scale query_pre_attn_scalar^-0.5 (0 = head_dim).
     sandwich_norms: bool = False
     attn_softcap: float = 0.0
     final_softcap: float = 0.0
     query_pre_attn_scalar: float = 0.0
+    # Which layers a sliding_window mask bands: "all" (Mistral), "even"
+    # (Gemma-2: layers 0, 2, ...) or "5to1" (Gemma-3: every 6th layer
+    # full). Gemma-3 also norms the q/k heads ((1 + w) when norm_plus_one)
+    # and has two RoPE bases: rope_theta_local on sliding layers (0 = one
+    # table), rope_theta with rope_global_scaling_factor on full ones.
     sliding_pattern: str = "all"
     qk_norm: bool = False
     rope_theta_local: float = 0.0
@@ -150,9 +168,12 @@ class LlamaConfig:
 
     @property
     def num_params(self) -> int:
+        """Parameter count as the JAX config counts it (for MFU)."""
         h, m, v = self.hidden_size, self.intermediate_size, self.vocab_size
         qkv = (h * self.num_heads * self.head_dim
                + 2 * h * self.num_kv_heads * self.head_dim)
+        if self.attention_bias:
+            qkv += (self.num_heads + 2 * self.num_kv_heads) * self.head_dim
         per_layer = qkv + self.num_heads * self.head_dim * h + 3 * h * m + 2 * h
         emb = v * h * (1 if self.tie_embeddings else 2)
         return self.num_layers * per_layer + emb + h
@@ -191,21 +212,13 @@ def lora_projections(cfg: LlamaConfig) -> tuple[str, ...]:
     return attn + ("mlp.gate_proj", "mlp.up_proj", "mlp.down_proj")
 
 
+MLP_ACTS = ("silu", "gelu_tanh")
+
+
 def _check_supported(cfg: LlamaConfig) -> None:
-    """Refuse, by name, every config flag this package does not port."""
+    """Refuse, by name, every config flag this package does not port, and
+    the values JAX refuses with a ValueError."""
     refused = [
-        (cfg.attention_bias, "attention_bias (QKV biases)"),
-        (cfg.norm_plus_one, "norm_plus_one ((1 + w) RMSNorm)"),
-        (cfg.embed_scale, "embed_scale (sqrt(hidden) embedding scale)"),
-        (cfg.mlp_act != "silu", f"mlp_act={cfg.mlp_act!r} (only silu)"),
-        (cfg.sandwich_norms, "sandwich_norms"),
-        (cfg.attn_softcap, "attn_softcap (attention logit soft-cap)"),
-        (cfg.final_softcap, "final_softcap (final logit soft-cap)"),
-        (cfg.query_pre_attn_scalar, "query_pre_attn_scalar"),
-        (cfg.sliding_pattern != "all",
-         f"sliding_pattern={cfg.sliding_pattern!r}"),
-        (cfg.qk_norm, "qk_norm"),
-        (cfg.rope_theta_local, "rope_theta_local (dual rope bases)"),
         (cfg.lora_rank > 0 and cfg.quantized_dense,
          "LoRA adapters on int8 projections (lora_rank with "
          "quantized_dense; merge the adapters, then quantize)"),
@@ -219,10 +232,32 @@ def _check_supported(cfg: LlamaConfig) -> None:
     if cfg.lora_rank > 0 and cfg.lora_targets not in LORA_TARGETS:
         raise ValueError(f"lora_targets {cfg.lora_targets!r}: "
                          f"{' | '.join(LORA_TARGETS)}")
+    if cfg.mlp_act not in MLP_ACTS:
+        raise ValueError(f"mlp_act {cfg.mlp_act!r}: {' | '.join(MLP_ACTS)}")
+    sliding_flags(cfg)  # raises on an unknown pattern that would be used
     for bad, what in refused:
         if bad:
             raise NotImplementedError(f"{what} is not supported by this "
                                       "package yet")
+
+
+def sliding_flags(cfg: LlamaConfig) -> list[bool] | None:
+    """Each layer's kind (HF layer_types), True for a sliding layer, or
+    None where the config has no per-layer kinds: they exist for an
+    alternating `sliding_pattern` with a sliding-window mask or a local
+    RoPE base. Gemma-3's dual RoPE needs them after the serving engine's
+    causal view has dropped the mask, so they do not hang on the mask
+    alone. JAX's traced flags, one static bool a layer."""
+    if cfg.sliding_pattern == "all" or not (
+            cfg.mask_kind == "sliding_window" or cfg.rope_theta_local):
+        return None
+    idx = range(cfg.num_layers)
+    if cfg.sliding_pattern == "even":  # Gemma-2
+        return [i % 2 == 0 for i in idx]
+    if cfg.sliding_pattern == "5to1":  # Gemma-3: every 6th layer full
+        return [(i + 1) % 6 != 0 for i in idx]
+    raise ValueError(f"sliding_pattern {cfg.sliding_pattern!r}: "
+                     "all | even | 5to1")
 
 
 def config_view(module: nn.Module, cfg: LlamaConfig) -> nn.Module:
@@ -241,16 +276,25 @@ def config_view(module: nn.Module, cfg: LlamaConfig) -> nn.Module:
 
 
 class RMSNorm(nn.Module):
-    def __init__(self, dim: int, eps: float, dtype, device):
+    """RMSNorm over the last dim in fp32 with an fp32 scale; `plus_one`
+    (Gemma) applies (1 + scale), the scale zero at init."""
+
+    def __init__(self, dim: int, eps: float, dtype, device,
+                 plus_one: bool = False):
         super().__init__()
-        self.eps, self.dtype = eps, dtype
+        self.eps, self.dtype, self.plus_one = eps, dtype, plus_one
         self.scale = nn.Parameter(torch.ones(dim, dtype=torch.float32,
                                              device=device))
 
     def forward(self, x):
         x32 = x.float()
         y = x32 * torch.rsqrt(x32.pow(2).mean(dim=-1, keepdim=True) + self.eps)
-        return (y * self.scale).to(self.dtype)
+        scale = 1.0 + self.scale if self.plus_one else self.scale
+        return (y * scale).to(self.dtype)
+
+
+def _norm(cfg: LlamaConfig, dim: int, device) -> RMSNorm:
+    return RMSNorm(dim, cfg.rms_eps, cfg.dtype, device, cfg.norm_plus_one)
 
 
 def rope_table(head_dim: int, max_len: int, theta: float,
@@ -384,27 +428,34 @@ def _update_cache_rolling(cache, k, v, positions, index, window: int):
                                         leaf[batch, rows])
 
 
-def _dense(cfg: LlamaConfig, in_features: int, out_features: int, device):
+def _dense(cfg: LlamaConfig, in_features: int, out_features: int, device,
+           bias: bool = False):
     """The projection class at every site: `Dense`, or `Int8Dense` under
     `cfg.quantized_dense` (the JAX `_dense_cls`)."""
     if cfg.quantized_dense:
-        return Int8Dense(in_features, out_features, cfg.dtype, device)
-    return Dense(cfg, in_features, out_features, device)
+        return Int8Dense(in_features, out_features, cfg.dtype, device,
+                         bias=bias, bias_dtype=cfg.storage_dtype)
+    return Dense(cfg, in_features, out_features, device, bias=bias)
 
 
 class Dense(nn.Linear):
-    """A bias-free nn.Linear stored in `cfg.storage_dtype` and applied in
-    `cfg.dtype` (flax DenseGeneral with dtype and param_dtype). With equal
-    dtypes the cast is a no-op and this is nn.Linear."""
+    """An nn.Linear stored in `cfg.storage_dtype` and applied in
+    `cfg.dtype` (flax DenseGeneral with dtype and param_dtype): the product
+    is rounded to `cfg.dtype`, then the bias, cast to it, is added, as
+    DenseGeneral does. With equal dtypes and no bias the cast is a no-op
+    and this is nn.Linear."""
 
     def __init__(self, cfg: LlamaConfig, in_features: int,
-                 out_features: int, device):
-        super().__init__(in_features, out_features, bias=False,
+                 out_features: int, device, bias: bool = False):
+        super().__init__(in_features, out_features, bias=bias,
                          dtype=cfg.storage_dtype, device=device)
         self.compute_dtype = cfg.dtype
 
     def forward(self, x):
-        return F.linear(x, self.weight.to(self.compute_dtype))
+        y = F.linear(x, self.weight.to(self.compute_dtype))
+        if self.bias is not None:
+            y = y + self.bias.to(self.compute_dtype)
+        return y
 
 
 def _add_lora(block: nn.Module, block_name: str, cfg: LlamaConfig,
@@ -465,17 +516,25 @@ class Attention(nn.Module):
         super().__init__()
         self.cfg = cfg
         d, dh = cfg.hidden_size, cfg.head_dim
-        self.q_proj = _dense(cfg, d, cfg.num_heads * dh, device)
-        self.k_proj = _dense(cfg, d, cfg.num_kv_heads * dh, device)
-        self.v_proj = _dense(cfg, d, cfg.num_kv_heads * dh, device)
+        bias = cfg.attention_bias
+        self.q_proj = _dense(cfg, d, cfg.num_heads * dh, device, bias)
+        self.k_proj = _dense(cfg, d, cfg.num_kv_heads * dh, device, bias)
+        self.v_proj = _dense(cfg, d, cfg.num_kv_heads * dh, device, bias)
         self.o_proj = _dense(cfg, cfg.num_heads * dh, d, device)
         _add_lora(self, "attn", cfg, {"q_proj": (d, cfg.num_heads * dh),
                                       "v_proj": (d, cfg.num_kv_heads * dh)},
                   device)
+        if cfg.qk_norm:
+            self.q_norm = _norm(cfg, dh, device)
+            self.k_norm = _norm(cfg, dh, device)
 
     def forward(self, x, cos, sin, positions, standard_positions=True,
                 cache=None, cache_index=None, segment_ids=None,
-                attend_full_cache=False, adapter=None):
+                attend_full_cache=False, adapter=None, sliding=None):
+        """`sliding` is this layer's kind (`sliding_flags`): None where the
+        config has none, else True on a sliding layer (the window's band)
+        and False on a full one (causal). `cos`/`sin` are the layer's RoPE
+        table, chosen by the caller."""
         cfg = self.cfg
         b, s, _ = x.shape
         h, kh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -485,19 +544,37 @@ class Attention(nn.Module):
         # as JAX's gather does (the pad sentinel wraps, as it does there).
         rope_pos = (positions.clamp_max(cos.shape[0] - 1) if rolling
                     else positions)
-        # Each LoRA delta lands on its projection's output, before RoPE.
-        q = apply_rope(_project(self, "q_proj", x, adapter).view(b, s, h, dh),
-                       cos, sin, rope_pos)
-        k = apply_rope(self.k_proj(x).view(b, s, kh, dh), cos, sin, rope_pos)
+        # Each LoRA delta lands on its projection's output; then the qk
+        # norms and the query_pre_attn_scalar fold, before RoPE (the norm
+        # would erase a scale applied before it).
+        q = _project(self, "q_proj", x, adapter).view(b, s, h, dh)
+        k = self.k_proj(x).view(b, s, kh, dh)
         v = _project(self, "v_proj", x, adapter).view(b, s, kh, dh)
+        if cfg.qk_norm:
+            q, k = self.q_norm(q), self.k_norm(k)
+        if cfg.query_pre_attn_scalar:
+            # Every attention impl divides by sqrt(head_dim): fold the
+            # ratio into q, rounded to q's dtype as JAX rounds it.
+            q = q * torch.tensor(
+                dh ** 0.5 / cfg.query_pre_attn_scalar ** 0.5, dtype=q.dtype,
+                device=q.device)
+        q = apply_rope(q, cos, sin, rope_pos)
+        k = apply_rope(k, cos, sin, rope_pos)
         mask_spec = cfg.mask_spec
+        # The layer's mask: a full layer of an alternating model is causal.
+        layer_mask = None if sliding is False else mask_spec
+        softcap = cfg.attn_softcap
         if rolling:
             out = self._attend_rolling(q, k, v, positions, cache, cache_index)
             return self.o_proj(out.reshape(b, s, h * dh))
-        if mask_spec is not None and cache is not None:
+        if (mask_spec is not None and cache is not None
+                and not (mask_spec.kind == "sliding_window"
+                         and sliding is not None)):
             raise ValueError(
                 "attention mask specs don't compose with KV-cache decode: "
-                "serve masked models with a full forward")
+                "serve masked models with a full forward (sliding_window "
+                "checkpoints roll when the cache is built with max_len > "
+                "window)")
         if cache is not None:
             k_scale = v_scale = None
             if "ks" in cache:
@@ -522,15 +599,33 @@ class Attention(nn.Module):
                 # Decode or a continuation chunk: attend over the whole
                 # cache; causality and the unwritten tail (incl. stale rows
                 # of a previous slot occupant) are masked by positions.
+                # An alternating model past its window keeps the whole
+                # history and its sliding layers band their reads here.
                 t = ck.shape[1]
                 pos_kv = torch.arange(t, device=x.device).expand(b, t)
                 out = naive_attention(q, ck, cv, causal=True,
                                       positions_q=positions,
-                                      positions_kv=pos_kv, k_scale=k_scale,
+                                      positions_kv=pos_kv, softcap=softcap,
+                                      mask=layer_mask, k_scale=k_scale,
                                       v_scale=v_scale)
                 return self.o_proj(out.reshape(b, s, h * dh))
             # Prefill (cache_index 0): nothing precedes the new tokens, so
             # attention over just k/v is exact — the fused path serves it.
+        if softcap or (sliding is not None and mask_spec is not None):
+            # The score cap and the per-layer band are not in the fused
+            # kernels (nor in JAX's): the einsum path is the only correct
+            # one. A per-layer kind alone does not force it: Gemma-3's
+            # causal view keeps its kinds for the dual RoPE, and flash is
+            # exact there.
+            if cfg.attention_impl not in ("auto", "naive"):
+                raise ValueError(
+                    f"attn_softcap / alternating sliding layers need "
+                    f"attention_impl 'naive', not {cfg.attention_impl!r}")
+            out = naive_attention(q, k, v, causal=True, positions_q=positions,
+                                  positions_kv=positions,
+                                  segment_ids=segment_ids, mask=layer_mask,
+                                  softcap=softcap)
+            return self.o_proj(out.reshape(b, s, h * dh))
         impl = cfg.attention_impl
         if impl == "auto":
             flashable = standard_positions or segment_ids is not None
@@ -571,7 +666,8 @@ class Attention(nn.Module):
         pos_kv = torch.cat([cpos.to(positions.dtype), positions], dim=1)
         out = naive_attention(q, keys, vals, causal=True,
                               positions_q=positions, positions_kv=pos_kv,
-                              mask=self.cfg.mask_spec)
+                              mask=self.cfg.mask_spec,
+                              softcap=self.cfg.attn_softcap)
         _update_cache_rolling(cache, k, v, positions, cache_index, window)
         return out
 
@@ -588,38 +684,53 @@ class MLPBlock(nn.Module):
                                      "down_proj": (i, d)}, device)
 
     def forward(self, x, adapter=None):
-        h = F.silu(_project(self, "gate_proj", x, adapter)) * _project(
-            self, "up_proj", x, adapter)
+        gate = _project(self, "gate_proj", x, adapter)
+        act = (F.silu(gate) if self.cfg.mlp_act == "silu"
+               else F.gelu(gate, approximate="tanh"))  # Gemma's GeGLU
+        h = act * _project(self, "up_proj", x, adapter)
         return _project(self, "down_proj", h, adapter)
 
 
 class DecoderLayer(nn.Module):
     def __init__(self, cfg: LlamaConfig, device):
         super().__init__()
-        self.input_norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, cfg.dtype,
-                                  device)
+        d = cfg.hidden_size
+        self.input_norm = _norm(cfg, d, device)
         self.attn = Attention(cfg, device)
-        self.post_attn_norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, cfg.dtype,
-                                      device)
+        # With sandwich norms this plays HF's pre_feedforward_layernorm.
+        self.post_attn_norm = _norm(cfg, d, device)
         self.mlp = MLPBlock(cfg, device)
+        # Gemma-2's sandwich norms on the branch outputs (HF
+        # post_attention_layernorm, post_feedforward_layernorm).
+        self.attn_out_norm = (_norm(cfg, d, device) if cfg.sandwich_norms
+                              else None)
+        self.mlp_out_norm = (_norm(cfg, d, device) if cfg.sandwich_norms
+                             else None)
 
     def forward(self, x, cos, sin, positions, standard_positions=True,
                 cache=None, cache_index=None, segment_ids=None,
-                attend_full_cache=False, adapter=None):
-        x = x + self.attn(self.input_norm(x), cos, sin, positions,
-                          standard_positions, cache, cache_index, segment_ids,
-                          attend_full_cache, adapter)
+                attend_full_cache=False, adapter=None, sliding=None):
+        x = x + self._attn_out(self.attn(
+            self.input_norm(x), cos, sin, positions, standard_positions,
+            cache, cache_index, segment_ids, attend_full_cache, adapter,
+            sliding))
         return x + self.mlp_branch(x, adapter)
 
+    def _attn_out(self, out):
+        return out if self.attn_out_norm is None else self.attn_out_norm(out)
+
     def attn_branch(self, x, cos, sin, positions, standard_positions=True,
-                    segment_ids=None):
-        """The attention block's output (after o_proj) of a training
-        forward: what JAX names "attn_out" for the save_attn policy."""
-        return self.attn(self.input_norm(x), cos, sin, positions,
-                         standard_positions, segment_ids=segment_ids)
+                    segment_ids=None, sliding=None):
+        """The attention block's output (after o_proj, and after the
+        sandwich norm) of a training forward: what JAX names "attn_out"
+        for the save_attn policy."""
+        return self._attn_out(self.attn(
+            self.input_norm(x), cos, sin, positions, standard_positions,
+            segment_ids=segment_ids, sliding=sliding))
 
     def mlp_branch(self, x, adapter=None):
-        return self.mlp(self.post_attn_norm(x), adapter)
+        out = self.mlp(self.post_attn_norm(x), adapter)
+        return out if self.mlp_out_norm is None else self.mlp_out_norm(out)
 
 
 _SAVED_PRODUCTS = {  # remat policy: the ops whose outputs it keeps
@@ -631,7 +742,7 @@ _SAVED_PRODUCTS = {  # remat policy: the ops whose outputs it keeps
 
 
 def _remat_layer(policy: str, layer: DecoderLayer, x, cos, sin, positions,
-                 standard_positions, segment_ids):
+                 standard_positions, segment_ids, sliding):
     """One training DecoderLayer under `torch.utils.checkpoint`, keeping
     what `policy` keeps (see LlamaConfig.remat_policy). The flash kernels
     are launched through ctypes, out of the dispatcher's sight: no policy
@@ -641,7 +752,7 @@ def _remat_layer(policy: str, layer: DecoderLayer, x, cos, sin, positions,
         # Two regions, so the saved inputs are the layer's input and x +
         # attn_out: as much as JAX keeps for checkpoint_name("attn_out").
         x = x + checkpoint(layer.attn_branch, x, cos, sin, positions,
-                           standard_positions, segment_ids,
+                           standard_positions, segment_ids, sliding,
                            use_reentrant=False)
         return x + checkpoint(layer.mlp_branch, x, use_reentrant=False)
     kwargs = {}
@@ -649,8 +760,8 @@ def _remat_layer(policy: str, layer: DecoderLayer, x, cos, sin, positions,
         kwargs["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _SAVED_PRODUCTS[policy])
     return checkpoint(layer, x, cos, sin, positions, standard_positions,
-                      None, None, segment_ids, False, use_reentrant=False,
-                      **kwargs)
+                      None, None, segment_ids, False, None, sliding,
+                      use_reentrant=False, **kwargs)
 
 
 class Llama(nn.Module):
@@ -682,14 +793,19 @@ class Llama(nn.Module):
                 device=device))
         self.layers = nn.ModuleList(DecoderLayer(cfg, device)
                                     for _ in range(cfg.num_layers))
-        self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, cfg.dtype,
-                                  device)
+        self.final_norm = _norm(cfg, cfg.hidden_size, device)
         self.lm_head = (None if cfg.tie_embeddings else _dense(
             cfg, cfg.hidden_size, cfg.vocab_size, device))
         cos, sin = rope_table(cfg.head_dim, cfg.max_seq_len, cfg.rope_theta,
                               cfg, device=device)
         self.register_buffer("rope_cos", cos, persistent=False)
         self.register_buffer("rope_sin", sin, persistent=False)
+        if cfg.rope_theta_local:
+            # Gemma-3's sliding layers: the local base, never scaled.
+            cos, sin = rope_table(cfg.head_dim, cfg.max_seq_len,
+                                  cfg.rope_theta_local, device=device)
+            self.register_buffer("rope_local_cos", cos, persistent=False)
+            self.register_buffer("rope_local_sin", sin, persistent=False)
 
     @property
     def device(self) -> torch.device:
@@ -699,9 +815,9 @@ class Llama(nn.Module):
     def init_weights(self, seed: int = 0) -> "Llama":
         """Random weights from `seed` on the model's own device: embedding
         N(0, 0.02), projections N(0, 1/fan_in) (LeCun normal, untruncated),
-        norm scales 1, LoRA A N(0, 0.02) and B zero (so the adapted model
-        starts as the base). A quantized model is refused: initialise the
-        float model, then quantize it."""
+        biases zero, norm scales 1 (0 for (1 + w) norms), LoRA A N(0, 0.02)
+        and B zero (so the adapted model starts as the base). A quantized
+        model is refused: initialise the float model, then quantize it."""
         if self.cfg.quantized_dense:
             raise ValueError("init_weights needs a float model; quantize "
                              "after initialising (serve.quant.quantize_model)")
@@ -711,8 +827,10 @@ class Llama(nn.Module):
             if isinstance(mod, nn.Linear):
                 mod.weight.normal_(0.0, mod.in_features ** -0.5,
                                    generator=gen)
+                if mod.bias is not None:
+                    mod.bias.zero_()
             elif isinstance(mod, RMSNorm):
-                mod.scale.fill_(1.0)
+                mod.scale.fill_(0.0 if mod.plus_one else 1.0)
         for name, p in self.named_parameters():
             if name.endswith("_lora_a"):
                 p.normal_(0.0, 0.02, generator=gen)
@@ -756,25 +874,36 @@ class Llama(nn.Module):
         standard_positions = positions is None
         if positions is None:
             positions = torch.arange(s, device=tokens.device).expand(b, s)
+        cfg = self.cfg
         # Rows first, then the cast: the same values as JAX's
         # embed.astype(dtype)[tokens], and the gradient scatter-adds in the
         # storage dtype.
-        x = quant_embed_lookup(self.embed, tokens, self.cfg.dtype)
-        remat = (self.cfg.remat and cache is None
+        x = quant_embed_lookup(self.embed, tokens, cfg.dtype)
+        if cfg.embed_scale:
+            # Gemma: the sqrt(hidden) multiplier is rounded to the
+            # activation dtype first, as HF and JAX round it.
+            x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=cfg.dtype,
+                                 device=x.device)
+        kinds = sliding_flags(cfg)
+        remat = (cfg.remat and cache is None
                  and torch.is_grad_enabled())
         for i, layer in enumerate(self.layers):
+            sliding = None if kinds is None else kinds[i]
+            cos, sin = ((self.rope_local_cos, self.rope_local_sin)
+                        if sliding and cfg.rope_theta_local
+                        else (self.rope_cos, self.rope_sin))
             if remat:
-                x = _remat_layer(self.cfg.remat_policy, layer, x,
-                                 self.rope_cos, self.rope_sin, positions,
-                                 standard_positions, segment_ids)
+                x = _remat_layer(cfg.remat_policy, layer, x, cos, sin,
+                                 positions, standard_positions, segment_ids,
+                                 sliding)
                 continue
             layer_cache = (None if cache is None
                            else {n: c[i] for n, c in cache.items()})
             layer_ad = (None if adapter is None else
                         {m: (a[i], bb[i]) for m, (a, bb) in adapter.items()})
-            x = layer(x, self.rope_cos, self.rope_sin, positions,
-                      standard_positions, layer_cache, cache_index,
-                      segment_ids, attend_full_cache, layer_ad)
+            x = layer(x, cos, sin, positions, standard_positions, layer_cache,
+                      cache_index, segment_ids, attend_full_cache, layer_ad,
+                      sliding)
         x = self.final_norm(x)
         if return_hidden:
             return (x, cache) if cache is not None else x
@@ -783,7 +912,12 @@ class Llama(nn.Module):
 
     def unembed(self, x):
         """Logits [..., V] of final-norm hidden states [..., D]: the head,
-        or the tied embedding."""
+        or the tied embedding, then Gemma-2's final soft-cap."""
         if self.lm_head is None:
-            return quant_unembed(x, self.embed, self.cfg.dtype)
-        return self.lm_head(x)
+            logits = quant_unembed(x, self.embed, self.cfg.dtype)
+        else:
+            logits = self.lm_head(x)
+        cap = self.cfg.final_softcap
+        if cap:
+            logits = torch.tanh(logits / cap) * cap
+        return logits

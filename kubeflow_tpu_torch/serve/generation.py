@@ -274,7 +274,10 @@ def build_engine_fns(model, *, max_len: int, chunk: int,
     attention; intermediate chunks are always full; decode passes the raw
     absolute index over the whole window (the model wraps it). Within its
     window such a model is served through its causal view
-    (GenerationEngine builds it), and is refused here."""
+    (GenerationEngine builds it), and is refused here. An alternating
+    model (Gemma-2/3: a `sliding_pattern` other than "all") never rolls:
+    past its window it keeps the full-length cache and its mask, and its
+    sliding layers band their reads."""
     cfg = model.cfg
     dev = model.device
     big = max(prefill_buckets)
@@ -282,7 +285,8 @@ def build_engine_fns(model, *, max_len: int, chunk: int,
     rolling = window > 0
     if rolling and kv_block_size > 0:
         raise ValueError("paged KV does not compose with the rolling cache")
-    if cfg.mask_kind == "sliding_window" and not rolling:
+    if (cfg.mask_kind == "sliding_window" and not rolling
+            and cfg.sliding_pattern == "all"):
         # Its fragments (max_len plus headroom rows) could roll while the
         # slots do not: serve the causal view, whose band never clips.
         raise ValueError(
@@ -555,10 +559,13 @@ def build_spec_decode(model, draft, *, gamma: int, n_spec: int,
     in a rolling cache a rejected candidate's row has evicted a live one:
     each step saves the gamma+1 target rows of every leaf before the
     verify and writes back the old rows past the accepted count after it,
-    so the cache holds exactly the committed stream. A sliding-window target here is a rolling one (the engine
-    serves one within its window through its causal view), and the paged
-    pool does not take it."""
-    if kv_block_size > 0 and model.cfg.mask_kind == "sliding_window":
+    so the cache holds exactly the committed stream. A target with a
+    sliding window on every layer here is a rolling one (the engine serves
+    one within its window through its causal view), and the paged pool
+    does not take it; an alternating target past its window keeps a
+    full-length cache and pages like a causal one."""
+    if (kv_block_size > 0 and model.cfg.mask_kind == "sliding_window"
+            and model.cfg.sliding_pattern == "all"):
         raise ValueError(
             "paged spec decode does not compose with the rolling cache")
 
@@ -714,7 +721,11 @@ class GenerationEngine:
                 raise ValueError(
                     "sliding-window checkpoint with window=0 cannot be "
                     "served")
-            if not self._rolling:
+            # Alternating sliding/full layers (Gemma-2/3) past the window
+            # keep the mask and the full-length cache: the full layers
+            # need all history, so nothing rolls, and the sliding layers
+            # band their reads (models/llama.py, the decode branch).
+            if self.max_len <= int(cfg.mask_window):
                 # Within the window the band never clips: serve a causal
                 # view of the model (its weights shared), which takes the
                 # causal paths (flash prefill, bucketed decode).

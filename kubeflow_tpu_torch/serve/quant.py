@@ -22,9 +22,14 @@ the compute dtype per call, the same arithmetic.
 
 Like `quantize_tree`, a projection is quantized when its weight, stacked
 over the layers as the JAX param tree holds it, has at least `min_size`
-elements. Unlike `quantize_tree`, norm scales always stay float: the JAX
-tree's stacked `[L, D]` norm scales reach `min_size` at 8B widths and are
-quantized there, then dequantized at apply.
+elements, and biases (Qwen2's QKV) stay float: an `Int8Dense` adds its
+bias in the compute dtype after the scaled output, as `Int8DenseGeneral`
+does. Unlike `quantize_tree`, every norm scale stays fp32, the qk-norms
+included. This carries JAX's caveat forward, not its behaviour: the JAX
+tree's stacked norm scales are quantized once they reach `min_size` (L·D
+>= 4096: `[L, D]` at 8B widths, Gemma-3's `[L, 256]` qk-norms at 16
+layers) and dequantized at apply, so above that size the two packages'
+int8 models differ in their norms; below it they agree.
 
 KV rows. `kv_quantize_rows`/`kv_dequantize_rows` encode the paged pool's
 int8/fp8 blocks: per-row-per-head symmetric max-abs over head_dim, f32
@@ -92,15 +97,17 @@ def _quantize_rows(w: torch.Tensor):
 
 
 class Int8Dense(nn.Module):
-    """A bias-free projection stored as int8 codes `q` [out, in] and fp32
+    """A projection stored as int8 codes `q` [out, in] and fp32
     per-output-channel scales `scale` [out] (buffers), applied in
     `compute_dtype` as the JAX Int8DenseGeneral's int8 branch: the input
     cast to the compute dtype times the raw codes, an fp32-accumulating
     matmul, the scale on the fp32 output, then the cast back
-    (`int8_weight_matmul`)."""
+    (`int8_weight_matmul`). An optional float `bias` [out] (a frozen
+    parameter in `bias_dtype`) is added after that, in the compute
+    dtype."""
 
     def __init__(self, in_features: int, out_features: int, compute_dtype,
-                 device=None):
+                 device=None, bias: bool = False, bias_dtype=None):
         super().__init__()
         self.in_features, self.out_features = in_features, out_features
         self.compute_dtype = compute_dtype
@@ -108,17 +115,25 @@ class Int8Dense(nn.Module):
             out_features, in_features, dtype=torch.int8, device=device))
         self.register_buffer("scale", torch.ones(
             out_features, dtype=torch.float32, device=device))
+        self.bias = (nn.Parameter(torch.zeros(
+            out_features, dtype=bias_dtype or compute_dtype, device=device),
+            requires_grad=False) if bias else None)
 
     @classmethod
-    def from_weight(cls, weight: torch.Tensor, compute_dtype) -> "Int8Dense":
+    def from_weight(cls, weight: torch.Tensor, compute_dtype,
+                    bias: torch.Tensor | None = None) -> "Int8Dense":
         out_f, in_f = weight.shape
         mod = cls(in_f, out_f, compute_dtype, device="meta")
         mod.q, mod.scale = _quantize_rows(weight.detach())
+        if bias is not None:
+            mod.bias = nn.Parameter(bias.detach(), requires_grad=False)
         return mod
 
     def forward(self, x):
-        return int8_weight_matmul(x.to(self.compute_dtype), self.q,
-                                  self.scale)
+        y = int8_weight_matmul(x.to(self.compute_dtype), self.q, self.scale)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)
+        return y
 
 
 def quant_embed_lookup(embed, tokens, dtype):
@@ -168,7 +183,8 @@ def quantize_model(model, *, min_size: int = 4096):
     (and the embedding, and an untied head) whose weight stacked over the
     layers has at least `min_size` elements becomes an `Int8Dense`, one
     module at a time, its float weight freed before the next; the config
-    gains `quantized_dense=True`. Norm scales stay fp32."""
+    gains `quantized_dense=True`. Biases stay in their dtype and norm
+    scales in fp32."""
     cfg = model.cfg
     if cfg.quantized_dense:
         raise ValueError("model is already quantized")
@@ -180,7 +196,8 @@ def quantize_model(model, *, min_size: int = 4096):
             continue
         mod = getattr(parent, name)
         weight = mod if name == "embed" else mod.weight
-        q = Int8Dense.from_weight(weight, cfg.dtype)
+        q = Int8Dense.from_weight(weight, cfg.dtype,
+                                  getattr(mod, "bias", None))
         if name == "embed":
             del model.embed  # the Parameter; re-registered as a module
         setattr(parent, name, q)

@@ -77,9 +77,11 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
     return nll.mean()
 
 
-def _ce_block(hx, head, tx, mx):
+def _ce_block(hx, head, tx, mx, final_softcap):
     """(Σ nll·mask, Σ mask) of one chunk of rows."""
     logits = F.linear(hx, head.to(hx.dtype)).float()
+    if final_softcap:
+        logits = torch.tanh(logits / final_softcap) * final_softcap
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, tx[:, None].long())[:, 0]
     return ((logz - gold) * mx).sum(), mx.sum()
@@ -88,7 +90,8 @@ def _ce_block(hx, head, tx, mx):
 def chunked_cross_entropy(hidden: torch.Tensor, head: torch.Tensor,
                           targets: torch.Tensor,
                           mask: torch.Tensor | None = None, *,
-                          chunk: int = 1024) -> torch.Tensor:
+                          chunk: int = 1024,
+                          final_softcap: float = 0.0) -> torch.Tensor:
     """Blockwise cross entropy: logits are computed per chunk of rows
     against the unembedding and never materialised as the [B·S, V] fp32
     buffer. Each chunk runs under `torch.utils.checkpoint`, so the
@@ -97,7 +100,9 @@ def chunked_cross_entropy(hidden: torch.Tensor, head: torch.Tensor,
 
     hidden [B,S,D]; head [V,D] (the port's lm_head weight or the tied
     embedding; the JAX function also takes the flax [D,V] kernel); targets
-    [B,S]. Padded rows carry mask 0."""
+    [B,S]. Padded rows carry mask 0. `final_softcap` applies Gemma-2's
+    logit cap tanh(l/cap)*cap to each chunk's fp32 logits, as JAX's does:
+    the hidden states skip the model's own cap."""
     b, s, d = hidden.shape
     n = b * s
     h = hidden.reshape(n, d)
@@ -114,7 +119,8 @@ def chunked_cross_entropy(hidden: torch.Tensor, head: torch.Tensor,
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(0, n + pad, chunk):
         bt, bc = checkpoint(_ce_block, h[i:i + chunk], head, t[i:i + chunk],
-                            m[i:i + chunk], use_reentrant=False)
+                            m[i:i + chunk], final_softcap,
+                            use_reentrant=False)
         tot, cnt = tot + bt, cnt + bc
     return tot / cnt.clamp_min(1.0)
 
@@ -218,7 +224,9 @@ def make_train_step(model: nn.Module, loss_fn: Callable | None = None,
             hidden = model(batch["inputs"], return_hidden=True, **kwargs)
             main = chunked_cross_entropy(
                 hidden, _unembed_head(model), batch["targets"],
-                batch.get("mask"), chunk=loss_chunk)
+                batch.get("mask"), chunk=loss_chunk,
+                final_softcap=getattr(getattr(model, "cfg", None),
+                                      "final_softcap", 0.0))
         else:
             logits = model(batch["inputs"], **kwargs)
             if loss_fn is not None:

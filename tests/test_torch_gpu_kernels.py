@@ -32,6 +32,8 @@ CASES = [
     ("sliding_window", (1, 200, 200, 4, 2), "sliding_window",
      {"window": 50}, False),
     ("causal_segments", (2, 200, 200, 4, 2), "causal", {}, True),
+    # A GQA group of 7, as Qwen2-7B's 28 heads over 4 kv heads.
+    ("gqa7_causal", (1, 200, 200, 14, 2), "causal", {}, False),
 ]
 
 
@@ -465,14 +467,16 @@ def _assert_simt_fwd_matches_plain(q, k, v, mask, seg=None, plan=None):
 
 # The tensor-core forward at head dims the wgmma kernels refuse (80, 96 and
 # Gemma's 256: the 80, 96 and 256 buckets), ragged S and T (37 against 200,
-# both ways: partial q blocks, kv tiles past T), GQA groups of 4, a window
-# narrower than a tile and segments.
+# both ways: partial q blocks, kv tiles past T), GQA groups of 4 (one of
+# them over a single kv head), a window narrower than a tile and segments.
 MMA_CASES = [
     ("s37_t200_full", (1, 37, 200, 8, 2), "full", {}, False),
     ("s200_t37_causal", (2, 200, 37, 8, 2), "causal", {}, False),
     ("gqa4_window", (1, 200, 200, 8, 2), "sliding_window", {"window": 50},
      False),
     ("gqa4_segments", (2, 200, 200, 8, 2), "causal", {}, True),
+    # One kv head under a group of 4, as Gemma-3-1B's.
+    ("gqa4_one_kv_head", (1, 200, 200, 4, 1), "causal", {}, False),
 ]
 
 

@@ -4,7 +4,9 @@ the imported tensors equal the JAX import's (through models/convert.py)
 bit for bit; logits match the JAX Llama and transformers' own model
 (atol 2e-4, rtol 2e-3, the JAX test's bound; against the JAX model 1e-5);
 tied embeddings, Llama 3.1 rope scaling, the Mistral and Qwen2 config
-mappings, the huggingface serving runtime, and every refusal by name."""
+mappings, the huggingface serving runtime, and every refusal by name. The
+Gemma 1/2/3 and Qwen2 importers are held in tests/test_torch_gemma.py and
+tests/test_torch_qwen2.py."""
 
 import json
 import os
@@ -217,16 +219,30 @@ def test_unsupported_configs_fail_loudly(hf_llama, tmp_path):
             "rope_type": "yarn", "factor": 4.0}))
     with pytest.raises(ValueError, match="scan_layers"):
         th.llama_config_from_hf(BASE, scan_layers=True)
-    # Qwen2's QKV biases reach the model's check and are refused there.
+    # A Qwen2 config implies QKV biases: the import reads them and equals
+    # the JAX import.
     path, _ = hf_llama
     d = str(tmp_path / "qwen")
     shutil.copytree(path, d)
     hf = json.load(open(os.path.join(d, "config.json")))
     hf.update(model_type="qwen2", architectures=["Qwen2ForCausalLM"])
-    hf.pop("attention_bias")  # a Qwen2 config implies it
+    hf.pop("attention_bias")
     json.dump(hf, open(os.path.join(d, "config.json"), "w"))
-    with pytest.raises(NotImplementedError, match="attention_bias"):
-        th.build_from_hf(d)
+    t = dict(th.load_safetensors(os.path.join(d, "model.safetensors")))
+    gen = torch.Generator().manual_seed(3)
+    for i in range(2):
+        for p, n in (("q_proj", 64), ("k_proj", 32), ("v_proj", 32)):
+            t[f"model.layers.{i}.self_attn.{p}.bias"] = torch.randn(
+                n, generator=gen)
+    th.save_safetensors(t, os.path.join(d, "model.safetensors"))
+    cfg, sd = th.build_from_hf(d, **F32)
+    assert cfg.attention_bias
+    _, jcfg, params = jh.build_from_hf(d, dtype=jnp.float32,
+                                       param_dtype=jnp.float32)
+    ref = llama_params_from_jax(jax.tree.map(np.asarray, params), cfg)
+    assert sorted(sd) == sorted(ref)
+    for k, v in ref.items():
+        assert torch.equal(sd[k], v), k
 
 
 def test_missing_lm_head_fails_loudly(hf_llama, tmp_path):
@@ -250,9 +266,6 @@ def test_missing_lm_head_fails_loudly(hf_llama, tmp_path):
 
 
 @pytest.mark.parametrize("arch,model_type,what,item", [
-    ("GemmaForCausalLM", "gemma", "Gemma", "A3.8"),
-    ("Gemma2ForCausalLM", "gemma2", "Gemma", "A3.8"),
-    ("Gemma3ForCausalLM", "gemma3_text", "Gemma", "A3.8"),
     ("MixtralForCausalLM", "mixtral", "Mixtral", "A8"),
     ("Qwen2MoeForCausalLM", "qwen2_moe", "Qwen2-MoE", "A8"),
     ("BertForSequenceClassification", "bert", "BERT", "A8"),

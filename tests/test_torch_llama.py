@@ -151,12 +151,6 @@ def test_converter_consumes_every_leaf_and_refuses_strays():
 
 
 @pytest.mark.parametrize("kw", [
-    {"attention_bias": True}, {"norm_plus_one": True},
-    {"embed_scale": True}, {"mlp_act": "gelu_tanh"},
-    {"sandwich_norms": True}, {"attn_softcap": 50.0},
-    {"final_softcap": 30.0}, {"query_pre_attn_scalar": 256.0},
-    {"sliding_pattern": "even"}, {"qk_norm": True},
-    {"rope_theta_local": 10000.0},
     {"lora_rank": 4, "quantized_dense": True},
     {"attention_impl": "ring"},
 ], ids=lambda kw: next(iter(kw)))
