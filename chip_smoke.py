@@ -65,7 +65,7 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
      the kernel, the overlap counters that the loop kept a chunk in flight
      while it fetched another; the longest greedy prompt alone on a second
      server at pipeline_depth 1 gives the depth-2 repeat's ids (both step
-     times logged);
+     times logged); then 4k (vii) on the same server;
   4b. paged serving: the same bundle with a paged KV pool (block size 16);
      the longest greedy prompt alone gives phase 4's ids, at depth 2 and
      on a depth-1 server;
@@ -140,8 +140,8 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
      seed as an HF checkpoint and served over HTTP through
      generative.draft.checkpoint (gamma 4): greedy ids equal vanilla
      decoding's or part only at a recomputed near-tie, ms a dispatch, tok/s
-     a row and acceptance beside vanilla at depth 2 and 1, one profiled
-     dispatch split into draft forwards and verify, kernels a spec step,
+     a row and acceptance at depth 2 and 1 beside vanilla at depth 2, one
+     profiled dispatch split into draft forwards and verify, kernels a spec step,
      no B1 launch in a dispatch, the draft's load seconds and bytes; (iii)
      the target as its own draft: acceptance at least 0.75 greedy (bf16
      ties of random-init logits) and 0.9 at temperature 0.8, the same ids
@@ -216,6 +216,36 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
      W8A16 op at Gemma's tied unembedding (N 256000) and at every Qwen2-7B
      width (K 3584 and 18944; N 512 to 152064) against its plain
      version (phase 2 holds flash_fwd at Qwen2-7B's 28/4 heads);
+  4k. fixed-forward serving: (i) BERT-base at google-bert/bert-base-uncased's
+     config.json widths with a 2-label sequence-classification head, random
+     weights written in HF names, served as a "huggingface" bundle over
+     --storage-uri (seq_len 128, buckets 1-32): :predict of 1, 3, 32 and 40
+     instances (40 = a 32-row and an 8-row call), /infer = :predict, the
+     logits within 5e-2 rel-L2 of an fp32 forward of the same weights, a
+     pad-id-padded row within 1e-2 of the row cut to its length (same
+     argmax), 16 one-row requests at once coalesced into fewer model calls,
+     each row within 1e-3 of its solo predict and the distinct rows more
+     than 1e-2 apart; ms of a bucket-1 and a bucket-32 call,
+     examples/s of the burst, peak memory; (ii) occlusion :explain of 2 rows
+     (129 variants each through the buckets) equal to the logit
+     differences of a direct predict of the variants; (iii) the same
+     checkpoint under quantize: int8: W8A16 launches a predict call by
+     route against `_w8a16_plan`'s count (72 projections and the pooler),
+     logits within 1e-1 of the bf16 bundle's, weight bytes against bf16;
+     (iv) mnist_mlp with the integrated-gradients explainer: completeness
+     gap within 1% of |f(x) - f(x0)|; (v) llama_1b's registry bundle
+     without a generative block: B1 16 wgmma launches a bucket call, the
+     logits within 1.25x naive_attention's distance from the plain
+     attention, and its int8 form: W8A16 launches against the plan, logits
+     within 5e-2 of the same codes dequantized; (vi) rank-16 attn_mlp
+     adapters of the config on int8 projections at llama_1b's widths (2
+     layers): the logits against the adapted function in fp32 within 1.25x
+     the int8 base's distance from its fp32 function, the adapters moving
+     the logits more than that; (vii) in phase 4, :predict and /infer of 2
+     rows of 16 tokens on the llama3_8b server: B1 32 a call, /infer =
+     :predict, the logits within 1.25x naive_attention's distance from the
+     plain attention, the last position's logits within 1.25x phase 3's
+     floor of the engine's first-token logits;
   5. training: llama_1b at full width and depth through the trainer's entry
      point (batch 12, seq 1024, 3 warm-up + 10 timed steps): finite losses,
      the first near ln(V), every step's launches (2 forward per layer under
@@ -235,7 +265,7 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
      launched as the control plane launches it and killed by TPK_FAULT
      (SIGKILL), whose relaunch resumes from its last checkpoint with the
      losses of a fault-free run (on the card beside the faulted worker)
-     bit for bit; then the same with spec.lora;
+     bit for bit; the same with spec.lora side by side with it;
   5c. LoRA fine-tuning: llama3_8b at full width and depth (fp32 masters
      frozen, rank 16 adapters on attn_mlp) through the trainer (batch 4,
      seq 2048, 3 warm-up + 5 timed steps): every step's flash launches,
@@ -288,6 +318,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
+from kubeflow_tpu_torch.models import bert as bert_mod  # noqa: E402
 from kubeflow_tpu_torch.models import hf_import as hf_mod  # noqa: E402
 from kubeflow_tpu_torch.models import llama as llama_mod  # noqa: E402
 from kubeflow_tpu_torch.models import peft_import  # noqa: E402
@@ -716,6 +747,54 @@ QUANT_PEAK_SAVING_MIN_GIB = 5.0
 # and its argmax agreement (0.8). A wrong scale axis gives rel-L2 ~1.
 QUANT_LOGITS_REL_L2_MAX, QUANT_ARGMAX_AGREE_MIN = 5e-2, 0.8
 QUANT_PROMPT = 2048
+# 4k: fixed-forward serving. BERT-base at the widths of
+# google-bert/bert-base-uncased's config.json (vocab 30522, hidden 768, 12
+# layers of 12 heads, intermediate 3072, 512 positions, 2 token types, erf
+# GELU, eps 1e-12, pad id 0) with a 2-label sequence-classification head,
+# weights drawn from the seed and written in HF names; served as a
+# "huggingface" bundle over --storage-uri at seq_len 128, buckets 1-32.
+BERT_CONFIG = {"architectures": ["BertForSequenceClassification"],
+               "model_type": "bert", "vocab_size": 30522,
+               "hidden_size": 768, "intermediate_size": 3072,
+               "num_hidden_layers": 12, "num_attention_heads": 12,
+               "max_position_embeddings": 512, "type_vocab_size": 2,
+               "hidden_act": "gelu", "layer_norm_eps": 1e-12,
+               "pad_token_id": 0, "position_embedding_type": "absolute",
+               "id2label": {"0": "LABEL_0", "1": "LABEL_1"}}
+BERT_SEQ, BERT_BUCKETS, BERT_NAME = 128, (1, 2, 4, 8, 16, 32), "bert_base"
+# bf16 BERT logits against an fp32 forward of the same weights: bf16 rounds
+# at ~85 points a layer through 12 LayerNormed layers, and the 2-label
+# logits of a random head are small (|z| ~ 0.5), so their rel-L2 is the
+# noisiest read. The same code on the CPU measured 2.0e-2 over 8 rows (3.7e-2
+# on the worst row); the repository's absolute bf16 logits bound (5e-2)
+# holds them, and the card read 7.3e-3.
+BERT_TOL = LOGITS_REL_L2_MAX
+# A row right-padded to 128 tokens against the same row cut to its 70: the
+# attention and its softmax run over other lengths, so bf16 rounds them
+# otherwise; the card read 3.79e-3 in three calls (about one bf16 ulp,
+# 2^-8), so 1e-2.
+BERT_PAD_TOL = 1e-2
+# A burst row (coalesced into a larger bucket) against the same row alone:
+# the same length, only the bucket's row count differs; the card read
+# 2.7e-7 to 2.9e-7 in three calls, so 1e-3, a quarter of a bf16 ulp. The
+# distinct rows' own logits must lie more than 10x that apart, so that a row
+# delivered to another caller fails the gate.
+BERT_BURST_TOL = 1e-3
+# int8 BERT against the bf16 bundle's logits: the weights' per-channel int8
+# rounding (about 1% of a weight's spread) through 73 projections; the
+# CPU run measured 4.4e-2 (5.4e-2 from fp32), so 1e-1.
+BERT_INT8_TOL = 1e-1
+BERT_BURST, EXPLAIN_ROWS, BERT_PAD_LEN = 16, 2, 70
+IG_STEPS, IG_GAP = 32, 0.01  # completeness within 1% of |f(x) - f(x0)|
+# (v): llama_1b's registry bundle, its example width (16 tokens), a bucket
+# of 8 rows; (vi): llama_1b's widths at 2 layers with rank-16 attn_mlp
+# adapters on int8 projections, one 128-token prompt; (vii): phase 4's
+# llama3_8b server, 2 rows of 16 tokens: a [2, S, 128256] fp32 answer is
+# ~5 MB of JSON a token of S (the 4.1M floats of S 16 took 4.5 s a call over
+# HTTP on the H100's host, so S 128 would take ~36 s a call); phase 2's
+# KERNEL_CASES holds B1 at this shape against its plain version.
+FIXED_1B_ROWS, LORA_INT8_LAYERS, LORA_INT8_PROMPT = 8, 2, 128
+FIXED_8B_ROWS, FIXED_8B_TOKENS = 2, 16
 # Phase 2c: (M, K, N) of llama3_8b's projections: gate/up and down at a
 # 2048-token prefill bucket, then at 32 decode rows (the weight's read
 # bounds those).
@@ -840,6 +919,15 @@ KERNEL_CASES = [(1, s, s, 32, 8, 128, fa.MaskSpec("causal"), False)
     # Qwen2-7B's attention (Qwen/Qwen2-7B config.json: 28 heads, 4 kv
     # heads, a GQA group of 7) at 4j (iv)'s 2048-token prefill bucket.
     (1, 2048, 2048, 28, 4, 128, fa.MaskSpec("causal"), False),
+    # llama_1b's attention (16/8 heads) as 4k (v)'s fixed-forward predict
+    # runs it: a bucket of 8 rows at its registry width (16 tokens), and
+    # at the 128 tokens of a huggingface fixed-forward bundle.
+    (8, 16, 16, 16, 8, 128, fa.MaskSpec("causal"), False),
+    (8, 128, 128, 16, 8, 128, fa.MaskSpec("causal"), False),
+    # llama3_8b's attention as 4k (vii)'s :predict and /infer on phase 4's
+    # generative server run it: FIXED_8B_ROWS rows of FIXED_8B_TOKENS.
+    (FIXED_8B_ROWS, FIXED_8B_TOKENS, FIXED_8B_TOKENS, 32, 8, 128,
+     fa.MaskSpec("causal"), False),
 ]
 # The llama_1b training shape (batch 12, seq 1024, 16/8 heads, Dh 128),
 # and phase 5c's llama3_8b one (batch 4, seq 2048, 32/8 heads).
@@ -1998,10 +2086,95 @@ def _depth_line(depth2: dict, depth2_ms: float, depth1: dict,
         raise RuntimeError("depth-1 greedy ids differ from depth 2")
 
 
-def phase_serving(bundle: str) -> dict:
-    """The port's main path: bundle -> server -> concurrent :generate.
-    Returns the kernel launches and the numbers later phases compare
-    with."""
+def _plain_and_naive(module, tokens) -> tuple:
+    """`module`'s fp32 logits on `tokens` (on the host), its attention
+    through the flash kernel's plain version, then through naive_attention:
+    the reference and the bf16 floor that a logits gate scales by."""
+    real = llama_mod.flash_attention
+
+    def plain(q, k, v, causal=True, block_q=512, block_kv=512,
+              segment_ids=None, mask=None):
+        return fa._flash_fwd_plain(q, k, v, fa._norm_mask(causal, mask),
+                                   segment_ids)[0]
+
+    def naive(q, k, v, causal=True, block_q=512, block_kv=512,
+              segment_ids=None, mask=None):
+        return naive_attention(q, k, v, causal=causal, mask=mask,
+                               segment_ids=segment_ids)
+
+    try:
+        with torch.inference_mode():
+            llama_mod.flash_attention = plain
+            ref = module(tokens).float().cpu()
+            llama_mod.flash_attention = naive
+            nv = module(tokens).float().cpu()
+    finally:
+        llama_mod.flash_attention = real
+    return ref, nv
+
+
+def _generative_predict(base: str, server: ModelServer, vocab: int,
+                        floor: float) -> dict:
+    """4k (vii) on phase 4's server: one :predict and one /infer of
+    FIXED_8B_ROWS rows of FIXED_8B_TOKENS tokens through the model's
+    batcher (full-forward logits, no cache). Gates: B1 num_layers launches
+    a call, /infer equal to :predict, every position's logits within 1.25x
+    naive_attention's distance of a forward of the served module on the
+    same rows with its attention through the plain version, as (v) holds
+    its own, and the last prompt position's logits within 1.25x phase 3's
+    floor of the engine's first-token logits for the same prompt (two bf16
+    computations of one function over other shapes: a 2-row forward and a
+    prefill padded to its bucket), as 4j holds its first tokens."""
+    model = server.models[MODEL]
+    rows = np.random.default_rng(SEED + 29).integers(
+        0, vocab, (FIXED_8B_ROWS, FIXED_8B_TOKENS))
+    before = _b1_launches()
+    t0 = time.monotonic()
+    pred = np.asarray(_post(f"{base}/v1/models/{MODEL}:predict", {
+        "instances": rows.tolist()})["predictions"], np.float32)
+    predict_s = time.monotonic() - t0
+    b1_predict = _b1_launches() - before
+    before = _b1_launches()
+    out = _post(f"{base}/v2/models/{MODEL}/infer", {"inputs": [{
+        "name": "input_0", "shape": list(rows.shape), "datatype": "INT64",
+        "data": rows.ravel().tolist()}]})["outputs"][0]
+    b1_infer = _b1_launches() - before
+    infer = np.asarray(out["data"], np.float32).reshape(out["shape"])
+    first: list = []
+    with _first_logits(model._model, first):
+        model.engine.submit(rows[0].tolist(), max_tokens=1, timeout=600)
+    rel = _rel_l2(torch.from_numpy(pred[0, -1]), first[0].cpu())
+    ref, nv = _plain_and_naive(model._model,
+                               torch.from_numpy(rows).to(DEVICE))
+    rel_plain, naive = _rel_l2(torch.from_numpy(pred), ref), _rel_l2(nv, ref)
+    del ref, nv
+    layers = model.cfg.num_layers
+    gates = {"B1 launches a call": b1_predict == b1_infer == layers,
+             "/infer = :predict": np.array_equal(infer, pred),
+             "logits vs plain attention": rel_plain <= LOGITS_VS_NAIVE * naive,
+             "last position vs the engine's first token":
+                 rel <= LOGITS_VS_NAIVE * floor}
+    log(f"  (vii) :predict of {FIXED_8B_ROWS} x {FIXED_8B_TOKENS} tokens: "
+        f"[{', '.join(map(str, pred.shape))}] fp32 logits in "
+        f"{predict_s:.2f}s over HTTP; B1 launches :predict {b1_predict}, "
+        f"/infer {b1_infer} (expected {layers} each); /infer "
+        f"{'equals' if gates['/infer = :predict'] else 'DIFFERS from'} "
+        f":predict; logits vs plain attention rel_l2 {rel_plain:.3e}, "
+        f"naive_attention {naive:.3e} (bound {LOGITS_VS_NAIVE} x naive); "
+        f"last position vs the engine's first-token logits "
+        f"rel_l2 {rel:.3e} (bound {LOGITS_VS_NAIVE} x phase 3's floor "
+        f"{floor:.3e}); " + ", ".join(
+            f"{g} {'OK' if ok else 'FAIL'}" for g, ok in gates.items()))
+    if not all(gates.values()):
+        raise RuntimeError(f"4k (vii) gates failed: {gates}")
+    return {"launches": b1_predict + b1_infer, "predict_s": predict_s,
+            "rel_l2": rel, "rel_l2_plain": rel_plain}
+
+
+def phase_serving(bundle: str, floor: float) -> dict:
+    """The port's main path: bundle -> server -> concurrent :generate;
+    then 4k (vii), :predict and /infer on the same server. Returns the
+    kernel launches and the numbers later phases compare with."""
     cfg = registry.model_config(MODEL, **MODEL_KWARGS)
     bodies = _bodies(cfg.vocab_size)
     with _serving(bundle) as (base, server):
@@ -2014,6 +2187,7 @@ def phase_serving(bundle: str) -> dict:
         alone_ms = _step_ms(_metadata(base)["stats"], run["stats"])
         depth = run["metadata"]["pipeline_depth"]
         prof = _profile_decode(server)
+        predict = _generative_predict(base, server, cfg.vocab_size, floor)
     results, stats, wall = run["results"], run["stats"], run["wall"]
     _check_outputs(results, cfg.vocab_size)
     if again["output_ids"] != results[-1]["output_ids"]:
@@ -2038,7 +2212,8 @@ def phase_serving(bundle: str) -> dict:
     return {"launches": launches, "peak": run["peak"], "step_ms": step_ms,
             "tok_s": stats["decode_tokens"] / stats["decode_seconds"],
             "repeat": again, "profile": prof, "alone_ms": alone_ms,
-            "sync_alone_ms": sync_ms, "prefill_s": prefill_s}
+            "sync_alone_ms": sync_ms, "prefill_s": prefill_s,
+            "predict": predict}
 
 
 def phase_paged(bundle: str, flat: dict) -> dict:
@@ -3546,18 +3721,14 @@ def phase_spec(bundle: str, floor: float, gk) -> dict:
     admissions = 0
     # (ii) vanilla at depth 2 and 1, then spec over HTTP (depth 2) and
     # in-process at depth 1.
+    # Vanilla runs at depth 2 only: depth 1 against depth 2 is gated on
+    # the served engines of phases 4, 4b and 4c, and spec at depth 1 below.
     van, van_line = {}, {}
-    for depth in (2, 1):
-        eng = GenerationEngine(model, **GENERATIVE, pipeline_depth=depth)
-        van[depth], st = _engine_burst(eng, bodies)
-        _close(eng)
-        admissions += st["requests"]
-        van_line[depth] = _spec_line(f"(ii) vanilla depth {depth}", st,
-                                     len(bodies))
-    # Not a gate: each row's cache bucket follows the batch it rode, and a
-    # bf16 sum over another bucket may part a near-tie.
-    log(f"    (ii) vanilla ids at depth 1 "
-        f"{'equal' if van[1] == van[2] else 'differ from'} depth 2's")
+    eng = GenerationEngine(model, **GENERATIVE, pipeline_depth=2)
+    van[2], st = _engine_burst(eng, bodies)
+    _close(eng)
+    admissions += st["requests"]
+    van_line[2] = _spec_line("(ii) vanilla depth 2", st, len(bodies))
     want = van[2]
     want_short = [w[:SPEC_SHORT_TOKENS] for w in want]
     got, st2, draft, scrape, dinfo, speculative = _spec_http(
@@ -4862,6 +5033,419 @@ def phase_gemma(work: str, floor: float, gk) -> dict:
             "gemma2": g2, "gemma3": g3}
 
 
+def _w8a16_counts() -> tuple:
+    return w8.w8a16_launches, w8.w8a16_wgmma_launches
+
+
+def _w8a16_expect(shapes, dtype=torch.bfloat16) -> dict:
+    """{kernel: launches} that `_w8a16_plan` names for one call of each
+    (M, K, N) in `shapes`: the count predicted from the code."""
+    sms = w8._sm_count(torch.cuda.current_device())
+    out: dict = {}
+    for m, k, n in shapes:
+        kernel = w8._w8a16_plan(m, k, n, dtype, True, sms).kernel
+        out[kernel] = out.get(kernel, 0) + 1
+    return out
+
+
+def _bert_w8a16_shapes(cfg, bucket: int) -> list:
+    """The int8 BERT's projections of one forward of `bucket` rows: q, k,
+    v, o, ffn_in, ffn_out a layer over bucket x BERT_SEQ tokens, and the
+    pooler over the [CLS] rows (the 2-label classifier stays float)."""
+    m, h, i = bucket * BERT_SEQ, cfg.hidden_size, cfg.intermediate_size
+    layer = [(m, h, h)] * 4 + [(m, h, i), (m, i, h)]
+    return layer * cfg.num_layers + [(bucket, h, h)]
+
+
+def _llama_w8a16_shapes(cfg, m: int) -> list:
+    """The int8 Llama's projections of one forward of m tokens: seven a
+    layer, then the head (an untied lm_head)."""
+    d, i = cfg.hidden_size, cfg.intermediate_size
+    q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    layer = [(m, d, q), (m, d, kv), (m, d, kv), (m, q, d), (m, d, i),
+             (m, d, i), (m, i, d)]
+    return layer * cfg.num_layers + [(m, d, cfg.vocab_size)]
+
+
+def _by_route(delta: tuple) -> dict:
+    """(all, wgmma) launch deltas as {kernel: launches}."""
+    return {k: v for k, v in ((w8.WGMMA, delta[1]),
+                              ("not wgmma", delta[0] - delta[1])) if v}
+
+
+def _bert_http(work: str, gates: dict) -> dict:
+    """4k (i) and (ii): BERT-base written from the seed in HF names, served
+    through --storage-uri; :predict at 1, 3, 32 and 40 rows, /infer, a
+    padded row, a 16-request burst, occlusion :explain."""
+    cfg = hf_mod.bert_config_from_hf(BERT_CONFIG)
+    module = bert_mod.Bert(cfg, device=DEVICE).init_weights(SEED).eval()
+    sd = module.state_dict()
+    ckpt = os.path.join(work, "hf_bert_base")
+    os.makedirs(ckpt, exist_ok=True)
+    t0 = time.monotonic()
+    nbytes = hf_mod.save_safetensors(
+        {hf: sd[port] for port, hf in hf_mod.bert_hf_names(cfg).items()},
+        os.path.join(ckpt, "model.safetensors"), metadata={"format": "pt"})
+    with open(os.path.join(ckpt, "config.json"), "w") as f:
+        json.dump(BERT_CONFIG, f)
+    with open(os.path.join(ckpt, "model.json"), "w") as f:
+        json.dump({"format": "huggingface", "seq_len": BERT_SEQ,
+                   "batch_buckets": list(BERT_BUCKETS),
+                   "explainer": {"method": "occlusion", "baseline_id": 0}},
+                  f)
+    write_s = time.monotonic() - t0
+    ref = bert_mod.Bert(dataclasses.replace(cfg, dtype=torch.float32),
+                        device=DEVICE)
+    ref.load_state_dict(sd)
+    n_params = sum(v.numel() for v in sd.values())
+    del module, sd
+    rng = np.random.default_rng(SEED + 23)
+    rows = rng.integers(1, cfg.vocab_size, (40, BERT_SEQ))  # no pad ids
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    server, port = server_mod.start([
+        "--storage-uri", f"file://{ckpt}", "--name", BERT_NAME, "--host",
+        "127.0.0.1", "--port", "0", "--device", DEVICE])
+    load_s = time.monotonic() - t0
+    base = f"http://127.0.0.1:{port}"
+    url = f"{base}/v1/models/{BERT_NAME}"
+    try:
+        served = server.models[BERT_NAME]
+        module = served.apply_and_params()[1]
+
+        def predict(x):
+            return np.asarray(_post(url + ":predict", {
+                "instances": x.tolist()})["predictions"], np.float32)
+
+        predict(rows[:1])  # the batcher thread's first forward
+        t0 = time.perf_counter()
+        p1 = predict(rows[:1])
+        ms1 = (time.perf_counter() - t0) * 1e3
+        p3 = predict(rows[:3])
+        predict(rows[:32])  # bucket 32's first use
+        t0 = time.perf_counter()
+        p32 = predict(rows[:32])
+        ms32 = (time.perf_counter() - t0) * 1e3
+        p40 = predict(rows)
+        p8 = predict(rows[32:])
+        v2 = _post(f"{base}/v2/models/{BERT_NAME}/infer", {"inputs": [{
+            "name": "input_0", "shape": [3, BERT_SEQ], "datatype": "INT32",
+            "data": rows[:3].ravel().tolist()}]})["outputs"][0]
+        infer = np.asarray(v2["data"], np.float32).reshape(v2["shape"])
+        ids = torch.from_numpy(rows[:32]).to(DEVICE)
+        with torch.inference_mode():
+            exact = ref(ids)[1].float().cpu()
+        rel32 = _rel_l2(torch.from_numpy(p32), exact)
+        padded = rows[0].copy()
+        padded[BERT_PAD_LEN:] = BERT_CONFIG["pad_token_id"]
+        p_pad = predict(padded[None])[0]
+        with torch.inference_mode():
+            cut = module(torch.from_numpy(padded[None, :BERT_PAD_LEN])
+                         .to(DEVICE))[1][0].float().cpu().numpy()
+        rel_pad = _rel_l2(torch.from_numpy(p_pad), torch.from_numpy(cut))
+        # The burst: one-row requests at once, coalesced by the batcher;
+        # the second of two is read (the first meets buckets unused yet).
+        burst: list = [None] * BERT_BURST
+
+        def one(i):
+            burst[i] = predict(rows[i:i + 1])[0]
+
+        for _ in range(2):
+            before = served.stats["requests"]
+            threads = [threading.Thread(target=one, args=(i,))
+                       for i in range(BERT_BURST)]
+            t0 = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=120)
+            burst_s = time.perf_counter() - t0
+            calls = served.stats["requests"] - before
+        solo = [served.predict([rows[i:i + 1]])[0][0]
+                for i in range(BERT_BURST)]
+        rel_burst = max(_rel_l2(torch.from_numpy(b), torch.from_numpy(s))
+                        for b, s in zip(burst, solo))
+        apart = min(_rel_l2(torch.from_numpy(a), torch.from_numpy(b))
+                    for a, b in itertools.permutations(solo, 2))
+        # (ii) occlusion: 129 variants a row through the buckets.
+        t0 = time.perf_counter()
+        ex = _post(url + ":explain", {"instances": rows[:EXPLAIN_ROWS]
+                                      .tolist()})["explanations"]
+        explain_s = time.perf_counter() - t0
+        ex_err, ex_ok = 0.0, len(ex) == EXPLAIN_ROWS
+        for row, got in zip(rows[:EXPLAIN_ROWS], ex):
+            variants = np.tile(row, (BERT_SEQ + 1, 1))
+            variants[np.arange(1, BERT_SEQ + 1), np.arange(BERT_SEQ)] = 0
+            logits = served.predict([variants])[-1]
+            t = int(np.argmax(logits[0]))
+            want = logits[0, t] - logits[1:, t]
+            ex_ok &= got["target"] == t and len(got["attributions"]) == \
+                BERT_SEQ
+            ex_err = max(ex_err, float(np.abs(
+                np.asarray(got["attributions"]) - want).max()))
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        server.stop()
+        del server
+    del ref
+    _free()
+    gates.update({
+        "i bf16 logits vs fp32": rel32 <= BERT_TOL,
+        "i 1, 3, 32, 40 rows answered": (p1.shape, p3.shape, p32.shape,
+                                         p40.shape) == (
+            (1, 2), (3, 2), (32, 2), (40, 2)),
+        "i 40 rows = 32 then 8": np.array_equal(p40, np.concatenate(
+            [p32, p8])),
+        "i /infer = :predict": np.array_equal(infer, p3),
+        "i padded row = cut row": rel_pad <= BERT_PAD_TOL
+        and int(p_pad.argmax()) == int(cut.argmax()),
+        "i burst coalesced": calls < BERT_BURST,
+        "i burst rows = alone": rel_burst <= BERT_BURST_TOL,
+        "i distinct rows apart": apart > 10 * BERT_BURST_TOL,
+        "ii occlusion = direct predict": ex_ok and ex_err <= 1e-6})
+    log(f"  (i) {BERT_NAME}: {n_params} parameters, {nbytes} bytes written in {write_s:.2f}s, served "
+        f"over --storage-uri in {load_s:.2f}s; logits of 32 rows vs fp32 "
+        f"rel_l2 {rel32:.3e} (bound {BERT_TOL}); :predict ms over HTTP: "
+        f"bucket 1 {ms1:.2f}, bucket 32 {ms32:.2f}; 40 rows "
+        f"{'=' if gates['i 40 rows = 32 then 8'] else '!='} 32 + 8; "
+        f"/infer {'=' if gates['i /infer = :predict'] else '!='} :predict; "
+        f"a row padded from {BERT_PAD_LEN} tokens vs cut rel_l2 "
+        f"{rel_pad:.3e} (bound {BERT_PAD_TOL}); {BERT_BURST} one-row "
+        f"requests at once in {burst_s * 1e3:.1f} ms "
+        f"({BERT_BURST / burst_s:.1f} examples/s) over {calls} model calls, "
+        f"rows vs alone rel_l2 at most {rel_burst:.3e} (bound "
+        f"{BERT_BURST_TOL}), distinct rows alone at least {apart:.3e} apart "
+        f"(bound > {10 * BERT_BURST_TOL:g}); peak {peak / 2**30:.2f} GiB; "
+        f"{smi()}")
+    log(f"  (ii) occlusion :explain of {EXPLAIN_ROWS} rows x {BERT_SEQ + 1}"
+        f" variants in {explain_s:.3f}s; attributions vs a direct predict "
+        f"of the variants: max abs {ex_err:.3e}")
+    return {"ckpt": ckpt, "cfg": cfg, "rows": rows, "p32": p32, "p1": p1,
+            "ms1": ms1, "ms32": ms32, "burst_eps": BERT_BURST / burst_s,
+            "explain_s": explain_s, "peak": peak, "rel_l2": rel32}
+
+
+
+def _bert_int8(http: dict, gates: dict) -> dict:
+    """4k (iii): the same checkpoint with quantize: int8 (loaded in
+    process): its W8A16 launches a predict call by route against the plan's
+    count, logits against the bf16 bundle's, weight bytes against bf16."""
+    cfg, rows = http["cfg"], http["rows"]
+    qdir = os.path.join(os.path.dirname(http["ckpt"]), "bert_base_int8")
+    os.makedirs(qdir, exist_ok=True)
+    with open(os.path.join(qdir, "model.json"), "w") as f:
+        json.dump({"format": "huggingface", "checkpoint": http["ckpt"],
+                   "quantize": "int8", "seq_len": BERT_SEQ,
+                   "batch_buckets": list(BERT_BUCKETS)}, f)
+    model = runtimes.load_model(qdir, device=DEVICE)
+    model.load()
+    counts = {}
+    for bucket, x in ((32, rows[:32]), (1, rows[:1])):
+        before = _w8a16_counts()
+        got = model.predict([x])[0]
+        counts[bucket] = (_by_route(tuple(a - b for a, b in zip(
+            _w8a16_counts(), before))),
+            _w8a16_expect(_bert_w8a16_shapes(cfg, bucket)))
+        if bucket == 32:
+            q32 = got
+    rel = _rel_l2(torch.from_numpy(q32), torch.from_numpy(http["p32"]))
+    qb = model.quantization
+    del model
+    _free()
+
+    def total(d):
+        return sum(d.values())
+
+    gates["iii W8A16 launches = the plan's"] = all(
+        total(got) == total(want) and got.get(w8.WGMMA, 0) == want.get(
+            w8.WGMMA, 0) for got, want in counts.values())
+    gates["iii int8 logits vs bf16"] = rel <= BERT_INT8_TOL
+    log("  (iii) int8 bundle: W8A16 launches a predict call " + "; ".join(
+        f"bucket {b}: {got} (the plan: {want})"
+        for b, (got, want) in counts.items())
+        + f"; logits vs the bf16 bundle's rel_l2 {rel:.3e} (bound "
+        f"{BERT_INT8_TOL}); weight bytes {qb['quantized']} int8 vs "
+        f"{qb['full']} at bf16 ({qb['quantized'] / qb['full']:.3f}x)")
+    return {"w8a16": total(counts[32][0]) + total(counts[1][0]),
+            "w8a16_wgmma": sum(c[0].get(w8.WGMMA, 0)
+                               for c in counts.values()),
+            "rel_l2": rel, "bytes": qb}
+
+
+def _mlp_ig(work: str, gates: dict) -> None:
+    """4k (iv): mnist_mlp's registry bundle with the integrated-gradients
+    explainer; completeness within IG_GAP of |f(x) - f(x0)|."""
+    mdir = os.path.join(work, "mnist_mlp_ig")
+    export_for_serving(mdir, model="mnist_mlp", seed=SEED, extra={
+        "explainer": {"method": "integrated_gradients", "steps": IG_STEPS}})
+    model = runtimes.load_model(mdir, device=DEVICE)
+    model.load()
+    x = np.random.default_rng(SEED + 37).random((4, 784)).astype(np.float32)
+    t0 = time.perf_counter()
+    out = model.explain(x)
+    sec = time.perf_counter() - t0
+    gaps = [abs(e["completeness_gap"]) / max(abs(
+        e["target_logit"] - e["baseline_logit"]), 1e-12) for e in out]
+    gates["iv IG completeness"] = max(gaps) <= IG_GAP
+    log(f"  (iv) mnist_mlp, integrated gradients over {IG_STEPS} steps for "
+        f"{len(out)} rows in {sec:.3f}s: completeness gap / |f(x) - f(x0)| "
+        f"at most {max(gaps):.2e} (bound {IG_GAP})")
+
+
+def _llama_fixed(work: str, floor_gates: dict) -> dict:
+    """4k (v): llama_1b's registry bundle without a generative block, one
+    bucket call of FIXED_1B_ROWS rows at its example width: B1 launches a
+    call, the logits against the plain attention beside naive_attention's,
+    then the int8 form through W8A16 against the same codes dequantized."""
+    gates = floor_gates
+    ldir = os.path.join(work, "llama_1b_fixed")
+    export_for_serving(ldir, model="llama_1b", seed=SEED)
+    model = runtimes.load_model(ldir, device=DEVICE)
+    t0 = time.monotonic()
+    model.load()
+    load_s = time.monotonic() - t0
+    cfg = model.apply_and_params()[1].cfg
+    width = model.input_spec[0][0][0]
+    ids = np.random.default_rng(SEED + 41).integers(
+        0, cfg.vocab_size, (FIXED_1B_ROWS, width))
+    before = _b1_split()
+    t0 = time.perf_counter()
+    logits = torch.from_numpy(model.predict([ids])[0])
+    call_ms = (time.perf_counter() - t0) * 1e3
+    b1 = _since(before)
+    module = model.apply_and_params()[1]
+    tokens = torch.from_numpy(ids).to(DEVICE)
+    ref, nv = _plain_and_naive(module, tokens)
+    rel, floor = _rel_l2(logits, ref), _rel_l2(nv, ref)
+    del model, module
+    _free()
+    qdir = os.path.join(work, "llama_1b_fixed_int8")
+    export_for_serving(qdir, model="llama_1b", seed=SEED,
+                       extra={"quantize": "int8"})
+    qmodel = runtimes.load_model(qdir, device=DEVICE)
+    qmodel.load()
+    before = _w8a16_counts()
+    qlogits = torch.from_numpy(qmodel.predict([ids])[0])
+    got = _by_route(tuple(a - b for a, b in zip(_w8a16_counts(), before)))
+    want = _w8a16_expect(_llama_w8a16_shapes(cfg, ids.size))
+    deq = _dequantized_copy(qmodel.apply_and_params()[1], cfg)
+    with torch.inference_mode():
+        dlogits = deq(tokens).float().cpu()
+    qrel = _rel_l2(qlogits, dlogits)
+    del qmodel, deq
+    _free()
+    layers = cfg.num_layers
+    gates.update({
+        "v B1 launches a bucket call, all wgmma": b1 == (layers, 0, 0),
+        "v logits vs plain attention": rel <= LOGITS_VS_NAIVE * floor,
+        "v int8 W8A16 launches = the plan's": sum(got.values()) == sum(
+            want.values()) and got.get(w8.WGMMA, 0) == want.get(w8.WGMMA, 0),
+        "v int8 logits vs the codes dequantized":
+            qrel <= QUANT_LOGITS_REL_L2_MAX})
+    log(f"  (v) llama_1b registry bundle (no generative block): loaded "
+        f"with warm buckets in {load_s:.2f}s; one bucket-{FIXED_1B_ROWS} "
+        f"call of {width} tokens in {call_ms:.2f} ms; B1 (flash_fwd.cu, "
+        f"flash_simt.cu, of which mma) {b1} (expected ({layers}, 0, 0)); "
+        f"logits vs plain attention rel_l2 {rel:.3e}, naive_attention "
+        f"{floor:.3e} (bound {LOGITS_VS_NAIVE} x naive); int8: W8A16 "
+        f"{got} (the plan: {want}), logits vs the same codes dequantized "
+        f"rel_l2 {qrel:.3e} (bound {QUANT_LOGITS_REL_L2_MAX})")
+    return {"b1": sum(b1), "w8a16": sum(got.values()),
+            "w8a16_wgmma": got.get(w8.WGMMA, 0)}
+
+
+def _lora_int8(gates: dict) -> dict:
+    """4k (vi): rank-16 attn_mlp adapters of a config's own on int8
+    projections at llama_1b's widths, LORA_INT8_LAYERS layers: the logits
+    against the adapted function in fp32, bounded by 1.25 x the int8 base's
+    distance from the base's fp32 function (the adapters cost no more than
+    the int8 weights do), and the adapters must matter."""
+    cfg = registry.model_config("llama_1b", num_layers=LORA_INT8_LAYERS,
+                                lora_rank=LORA["rank"],
+                                lora_alpha=LORA["alpha"],
+                                lora_targets=LORA["targets"])
+    model = llama_mod.Llama(cfg, device=DEVICE).init_weights(SEED).eval()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 43)
+    bs = [p for n, p in model.named_parameters() if n.endswith("_lora_b")]
+    with torch.no_grad():
+        for p in bs:
+            p.normal_(0.0, 0.02, generator=gen)
+    saved = [p.detach().clone() for p in bs]
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 47).integers(
+        0, cfg.vocab_size, (1, LORA_INT8_PROMPT))).to(DEVICE)
+
+    def run(zero_b: bool):
+        with torch.inference_mode():
+            for p, b in zip(bs, saved):
+                p.copy_(torch.zeros_like(b) if zero_b else b)
+            return model(tokens).float()
+
+    _set_compute_dtype(model, torch.float32)
+    exact, exact_base = run(False), run(True)
+    _set_compute_dtype(model, cfg.dtype)
+    squant.quantize_model(model)
+    before = _w8a16_counts()
+    got = run(False)
+    launches = _by_route(tuple(a - b for a, b in zip(_w8a16_counts(),
+                                                     before)))
+    got_base = run(True)
+    want = _w8a16_expect(_llama_w8a16_shapes(cfg, LORA_INT8_PROMPT))
+    rel, floor = _rel_l2(got, exact), _rel_l2(got_base, exact_base)
+    moved = _rel_l2(exact, exact_base)
+    del model, exact, exact_base, got, got_base
+    _free()
+    gates.update({
+        "vi int8 + LoRA vs the fp32 adapted function":
+            rel <= LOGITS_VS_NAIVE * floor,
+        "vi the adapters matter": moved > floor,
+        "vi W8A16 launches = the plan's": sum(launches.values()) == sum(
+            want.values())})
+    log(f"  (vi) llama_1b widths at {LORA_INT8_LAYERS} layers, rank "
+        f"{LORA['rank']} {LORA['targets']} adapters on int8 projections, a "
+        f"{LORA_INT8_PROMPT}-token prompt: logits vs the adapted function in "
+        f"fp32 rel_l2 {rel:.3e}, the int8 base vs the base's fp32 function "
+        f"{floor:.3e} (bound {LOGITS_VS_NAIVE} x that); the adapters move "
+        f"the fp32 logits by {moved:.3e}; W8A16 {launches} (the plan: "
+        f"{want})")
+    return {"w8a16": sum(launches.values()),
+            "w8a16_wgmma": launches.get(w8.WGMMA, 0)}
+
+
+def phase_fixed(work: str, flat: dict) -> dict:
+    """4k: fixed-forward serving. (i) BERT-base over HTTP: :predict, /infer,
+    a padded row, a coalesced burst; (ii) occlusion :explain; (iii) the
+    int8 BERT bundle; (iv) integrated gradients on mnist_mlp; (v) llama_1b's
+    fixed-forward registry bundle and its int8 form; (vi) a config's own
+    LoRA on int8 projections; (vii) ran in phase 4 (:predict and /infer on
+    the llama3_8b server), its numbers carried here."""
+    t_phase = time.monotonic()
+    gates: dict = {}
+    http = _bert_http(work, gates)
+    bert8 = _bert_int8(http, gates)
+    _mlp_ig(work, gates)
+    fixed = _llama_fixed(work, gates)
+    lora8 = _lora_int8(gates)
+    vii = flat["predict"]
+    log(f"  4k readings: BERT-base :predict bucket 1 {http['ms1']:.2f} ms, "
+        f"bucket 32 {http['ms32']:.2f} ms over HTTP; the {BERT_BURST}-request "
+        f"burst {http['burst_eps']:.1f} examples/s; occlusion :explain of "
+        f"{EXPLAIN_ROWS} rows {http['explain_s']:.3f}s; peak "
+        f"{http['peak'] / 2**30:.2f} GiB; (vii) llama3_8b :predict "
+        f"{vii['predict_s']:.2f}s; 4k took {time.monotonic() - t_phase:.1f}s"
+        f"; {smi()}")
+    for gate, ok in gates.items():
+        log(f"  gate {gate}: {'OK' if ok else 'FAIL'}")
+    if not all(gates.values()):
+        raise RuntimeError(f"4k gates failed: "
+                           f"{[g for g, ok in gates.items() if not ok]}")
+    return {"b1": {"fixed_forward_1b": fixed["b1"],
+                   "generative_predict": vii["launches"]},
+            "w8a16": {"bert_int8": (bert8["w8a16"], bert8["w8a16_wgmma"]),
+                      "fixed_forward_1b_int8": (fixed["w8a16"],
+                                                fixed["w8a16_wgmma"]),
+                      "lora_int8": (lora8["w8a16"], lora8["w8a16_wgmma"])}}
+
+
 def _decode_in_situ(ordered_ms: list) -> dict | None:
     """The decode kernel's device ms by shape inside a decode chunk, read
     from its launches in order (W8A16_STEP_ORDER a layer, then the
@@ -5475,7 +6059,8 @@ def phase_job(train: dict) -> dict:
     """The trainer as a job worker on packed documents: 5b-i at llama_1b's
     full width and depth (eval stream, a profile window, checkpoint saves
     timed), 5b-ii a SIGKILLed worker relaunched as the controller would,
-    whose losses must equal a fault-free run's."""
+    whose losses must equal a fault-free run's, for a full-parameter and a
+    spec.lora job side by side."""
     cfg = registry.model_config(TRAIN_MODEL)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_job_",
@@ -5493,8 +6078,9 @@ def phase_job(train: dict) -> dict:
             f"evaluate, lengths {JOB_DOC_LENS[0]}-{JOB_DOC_LENS[1] - 1} "
             f"over vocabulary {cfg.vocab_size}, eos 0")
         result = _job_full(cfg, work, corpus, eval_corpus, train)
-        result["resume"] = _job_resume(cfg, work, corpus)
-        result["resume_lora"] = _job_resume(cfg, work, corpus, lora=LORA)
+        resume = _job_resume(cfg, work, corpus)
+        result["resume"], result["resume_lora"] = (resume["plain"],
+                                                   resume["lora"])
         return result
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -5616,99 +6202,112 @@ def _job_full(cfg, work: str, corpus: str, eval_corpus: str,
                       for s, sec, n in saves]}
 
 
-def _job_resume(cfg, work: str, corpus: str,
-                lora: dict | None = None) -> dict:
-    """5b-ii: three workers launched as the controller launches them. A
-    fault-free reference (the same spec without checkpoints, which do not
-    enter the losses; it runs beside the faulted worker), the spec with checkpoints and TPK_FAULT (it must
-    die by SIGKILL after logging fault_injected), and its relaunch, which
-    must log `restored` at the last checkpoint and reach the final step
-    with the reference's losses bit for bit. With `lora` (a spec.lora),
-    the same for a LoRA job: its checkpoint holds the adapters' moments
-    alone, matched to them by name on the restore."""
-    kw = dict(model_kwargs={"num_layers": JOB_RESUME_LAYERS},
-              steps=JOB_RESUME_STEPS, lora=dict(lora or {}))
-    ckpt = {"dir": os.path.join(work, "ckpt_resume_lora" if lora
-                                else "ckpt_resume"),
-            "interval": JOB_RESUME_INTERVAL, "keep": 2}
+def _job_resume(cfg, work: str, corpus: str) -> dict:
+    """5b-ii: a SIGKILLed worker relaunched as the controller launches it,
+    for a full-parameter job and for a spec.lora job (LORA), whose
+    checkpoint holds the adapters' moments alone, matched to them by name
+    on the restore. Each variant has three workers: a fault-free reference
+    (the same spec without checkpoints, which do not enter the losses), the
+    spec with checkpoints and TPK_FAULT (it must die by SIGKILL after
+    logging fault_injected), and its relaunch, which must log `restored` at
+    the last checkpoint and reach the final step with the reference's
+    losses bit for bit. The two variants run side by side on the card, each
+    in a workdir of its own: the references beside the faulted workers, the
+    relaunches after them."""
+    variants = {"plain": None, "lora": LORA}
     cut = registry.model_config(TRAIN_MODEL, num_layers=JOB_RESUME_LAYERS)
-    per_param = 4 if lora else 12  # fp32 masters (and both moments)
-    log(f"  5b-ii{' with spec.lora ' + json.dumps(lora) if lora else ''}: "
-        f"{TRAIN_MODEL} widths at {JOB_RESUME_LAYERS} layers "
-        f"(depth cut: a {cfg.num_layers}-layer checkpoint of fp32 masters "
-        f"and {'the adapters' if lora else 'both'} moments is "
-        f"{per_param * cfg.num_params / 1e9:.1f} GB, a "
-        f"{JOB_RESUME_LAYERS}-layer one "
-        f"{per_param * cut.num_params / 1e9:.1f} GB, written by two of the "
-        "three runs), "
-        f"{JOB_RESUME_STEPS} steps, checkpoint every {JOB_RESUME_INTERVAL}, "
-        f"TPK_FAULT={JOB_FAULT}")
+    for v, lora in variants.items():
+        per_param = 4 if lora else 12  # fp32 masters (and both moments)
+        log(f"  5b-ii {v}"
+            f"{' with spec.lora ' + json.dumps(lora) if lora else ''}: "
+            f"{TRAIN_MODEL} widths at {JOB_RESUME_LAYERS} layers "
+            f"(depth cut: a {cfg.num_layers}-layer checkpoint of fp32 "
+            f"masters and {'the adapters' if lora else 'both'} moments is "
+            f"{per_param * cfg.num_params / 1e9:.1f} GB, a "
+            f"{JOB_RESUME_LAYERS}-layer one "
+            f"{per_param * cut.num_params / 1e9:.1f} GB, written by two of "
+            f"the three runs), {JOB_RESUME_STEPS} steps, checkpoint every "
+            f"{JOB_RESUME_INTERVAL}, TPK_FAULT={JOB_FAULT}")
     runs: dict = {}
 
-    def launch(name, workdir, spec, fault):
+    def launch(key, workdir, spec, fault):
         t0 = time.monotonic()
         try:
             rc, recs = _worker(workdir, spec, fault)
         except Exception as e:  # raised below, after the other workers
-            runs[name] = e
+            runs[key] = e
             return
-        runs[name] = (rc, recs, time.monotonic() - t0)
+        runs[key] = (rc, recs, time.monotonic() - t0)
 
-    # The reference takes no checkpoint and has a workdir of its own, so it
-    # runs on the card beside the faulted worker; the relaunch follows the
-    # fault.
-    ref_dir = os.path.join(work, "resume_reference_lora" if lora
-                           else "resume_reference")
-    os.makedirs(ref_dir, exist_ok=True)
-    beside = threading.Thread(target=launch, args=(
-        "reference", ref_dir, _job_spec(corpus, **kw), None))
-    beside.start()
-    try:
-        launch("faulted", work, _job_spec(corpus, checkpoint=ckpt, **kw),
-               JOB_FAULT)
-        launch("relaunch", work, _job_spec(corpus, checkpoint=ckpt, **kw),
-               None)
-    finally:
-        beside.join()
-    for name in ("reference", "faulted", "relaunch"):
-        if not isinstance(runs.get(name), tuple):
-            raise RuntimeError(f"5b-ii worker {name} failed: "
-                               f"{runs.get(name)!r}")
-        rc, recs, sec = runs[name]
-        log(f"    {name}: exit {rc} in {sec:.1f}s"
-            f"{' (beside the faulted run)' if name == 'reference' else ''}"
-            f"; events "
-            f"{[(r['step'], r['event']) for r in recs if 'event' in r]}; "
-            f"losses {_step_losses(recs)}")
-    ref, bad, again = (runs[n][1] for n in ("reference", "faulted",
-                                            "relaunch"))
+    def faulted_then_relaunch(v, workdir, spec):
+        launch((v, "faulted"), workdir, spec, JOB_FAULT)
+        launch((v, "relaunch"), workdir, spec, None)
+
+    # A reference takes no checkpoint, so it runs on the card beside its
+    # faulted worker; each relaunch follows its fault.
+    threads = []
+    for v, lora in variants.items():
+        kw = dict(model_kwargs={"num_layers": JOB_RESUME_LAYERS},
+                  steps=JOB_RESUME_STEPS, lora=dict(lora or {}))
+        vdir = os.path.join(work, f"resume_{v}")
+        ref_dir = os.path.join(vdir, "reference")
+        os.makedirs(ref_dir)
+        ckpt = {"dir": os.path.join(vdir, "ckpt"),
+                "interval": JOB_RESUME_INTERVAL, "keep": 2}
+        threads += [
+            threading.Thread(target=launch, args=(
+                (v, "reference"), ref_dir, _job_spec(corpus, **kw), None)),
+            threading.Thread(target=faulted_then_relaunch, args=(
+                v, vdir, _job_spec(corpus, checkpoint=ckpt, **kw)))]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    log(f"    the six workers took {time.monotonic() - t0:.1f}s side by side")
     fault_step = int(JOB_FAULT.split(";")[0].split("=")[1])
-    restored = [r["step"] for r in again if r.get("event") == "restored"]
     want_restore = fault_step // JOB_RESUME_INTERVAL * JOB_RESUME_INTERVAL
-    checks = {
-        "reference finished": runs["reference"][0] == 0
-        and len(_step_losses(ref)) == JOB_RESUME_STEPS,
-        "faulted worker killed by signal 9": runs["faulted"][0] == -9,
-        "fault_injected logged": any(
-            r.get("event") == "fault_injected" and r["step"] == fault_step
-            for r in bad),
-        f"restored at step {want_restore}": restored == [want_restore],
-        "relaunch finished": runs["relaunch"][0] == 0
-        and max(_step_losses(again), default=0) == JOB_RESUME_STEPS,
-    }
-    ref_l = _step_losses(ref)
-    got = {**_step_losses(bad), **_step_losses(again)}
-    diffs = {s: abs(got[s] - ref_l[s]) / abs(ref_l[s])
-             for s in ref_l if s in got}
-    checks["every step's loss bit-equal to the reference"] = (
-        set(got) == set(ref_l) and all(got[s] == ref_l[s] for s in ref_l))
-    log(f"    loss rel. differences from the reference by step: {diffs}; "
-        + ", ".join(f"{k} {'OK' if ok else 'FAIL'}"
-                    for k, ok in checks.items()))
-    if not all(checks.values()):
-        raise RuntimeError(f"fault and resume failed: {checks}")
-    return {"restored_at": want_restore, "bit_equal": True,
-            "seconds": {n: r[2] for n, r in runs.items()}}
+    failed, out = {}, {}
+    for v in variants:
+        names = ("reference", "faulted", "relaunch")
+        for name in names:
+            if not isinstance(runs.get((v, name)), tuple):
+                raise RuntimeError(f"5b-ii {v} worker {name} failed: "
+                                   f"{runs.get((v, name))!r}")
+            rc, recs, sec = runs[(v, name)]
+            log(f"    {v} {name}: exit {rc} in {sec:.1f}s; events "
+                f"{[(r['step'], r['event']) for r in recs if 'event' in r]}"
+                f"; losses {_step_losses(recs)}")
+        ref, bad, again = (runs[(v, n)][1] for n in names)
+        restored = [r["step"] for r in again if r.get("event") == "restored"]
+        checks = {
+            "reference finished": runs[(v, "reference")][0] == 0
+            and len(_step_losses(ref)) == JOB_RESUME_STEPS,
+            "faulted worker killed by signal 9":
+            runs[(v, "faulted")][0] == -9,
+            "fault_injected logged": any(
+                r.get("event") == "fault_injected" and r["step"] == fault_step
+                for r in bad),
+            f"restored at step {want_restore}": restored == [want_restore],
+            "relaunch finished": runs[(v, "relaunch")][0] == 0
+            and max(_step_losses(again), default=0) == JOB_RESUME_STEPS,
+        }
+        ref_l = _step_losses(ref)
+        got = {**_step_losses(bad), **_step_losses(again)}
+        diffs = {s: abs(got[s] - ref_l[s]) / abs(ref_l[s])
+                 for s in ref_l if s in got}
+        checks["every step's loss bit-equal to the reference"] = (
+            set(got) == set(ref_l) and all(got[s] == ref_l[s] for s in ref_l))
+        log(f"    {v}: loss rel. differences from the reference by step: "
+            f"{diffs}; " + ", ".join(f"{k} {'OK' if ok else 'FAIL'}"
+                                     for k, ok in checks.items()))
+        if not all(checks.values()):
+            failed[v] = checks
+        out[v] = {"restored_at": want_restore, "bit_equal": True,
+                  "seconds": {n: runs[(v, n)][2] for n in names}}
+    if failed:
+        raise RuntimeError(f"fault and resume failed: {failed}")
+    return out
 
 
 def _lora_train(cfg, prof_dir: str) -> tuple:
@@ -6115,7 +6714,8 @@ def main() -> int:
     bundle = tempfile.mkdtemp(prefix="chip_smoke_bundle_",
                               dir=os.path.join(ROOT, "build"))
     try:
-        flat = run("4", f"serving {MODEL} over HTTP", phase_serving, bundle)
+        flat = run("4", f"serving {MODEL} over HTTP", phase_serving, bundle,
+                   floor)
         paged = run("4b", f"paged serving of {MODEL} (KV blocks of "
                     f"{KV_BLOCK_SIZE})", phase_paged, bundle, flat)
         quant = run("4c", f"quantized serving of {MODEL} (int8 weights, "
@@ -6148,6 +6748,11 @@ def main() -> int:
                     "Gemma-7B over HTTP, Gemma-2 past its window, Gemma-3-1B "
                     "within and past it, Qwen2 bf16 and int8 over "
                     "--storage-uri", phase_gemma, bundle, floor, gk)
+        fixed = run("4k", "fixed-forward serving: BERT-base over HTTP "
+                    "(:predict, /infer, a burst, occlusion :explain), its "
+                    "int8 bundle, integrated gradients on mnist_mlp, "
+                    "llama_1b's fixed-forward bundle and its int8 form, LoRA "
+                    "on int8 projections", phase_fixed, bundle, flat)
     finally:
         shutil.rmtree(bundle, ignore_errors=True)
     train = run("5", f"training {TRAIN_MODEL} through the trainer",
@@ -6180,6 +6785,7 @@ def main() -> int:
                     **rolling["launches"],
                     "disaggregated_serving": disagg["launches"],
                     **gemma["fwd_launches"],
+                    **fixed["b1"],
                     "training": train["launches"][0],
                     "packed_training": job["launches"][0],
                     "lora_training": lora_run["launches"][0],
@@ -6290,14 +6896,17 @@ def main() -> int:
         "replaces": W8A16_REPLACES,
         "tpu_kernel": False,
         "launches": (quant["w8a16_launches"] + spec["w8a16_launches"]
-                     + gemma["w8a16_launches"][0]),
+                     + gemma["w8a16_launches"][0]
+                     + sum(n for n, _ in fixed["w8a16"].values())),
         "launches_wgmma": (quant["w8a16_wgmma_launches"]
                            + spec["w8a16_wgmma_launches"]
-                           + gemma["w8a16_launches"][1]),
+                           + gemma["w8a16_launches"][1]
+                           + sum(n for _, n in fixed["w8a16"].values())),
         "launches_by_path": {
             "paged_quant_serving": quant["w8a16_launches"],
             "speculative_serving": spec["w8a16_launches"],
-            "qwen2_int8_serving": gemma["w8a16_launches"][0]},
+            "qwen2_int8_serving": gemma["w8a16_launches"][0],
+            **{path: n for path, (n, _) in fixed["w8a16"].items()}},
         "max_abs_err": w8r["max_abs_err"], "rel_l2_err": w8r["rel_l2_err"],
         "ms": wmain["ms"], "plain_ms": wmain["plain_ms"],
         "bound_ms": wmain["bound_ms"], "bound_by": wmain["bound_by"],

@@ -1,11 +1,14 @@
-"""Weights from the JAX Llama's flax param tree onto the port's modules."""
+"""Weights from the JAX models' flax param trees onto the port's modules:
+the Llama, the MLP and BERT."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from kubeflow_tpu_torch.models.bert import BertConfig
 from kubeflow_tpu_torch.models.llama import LlamaConfig, lora_projections
+from kubeflow_tpu_torch.models.mlp import MLPConfig
 
 
 def _flatten(tree, prefix=()) -> dict:
@@ -168,3 +171,92 @@ def llama_params_from_jax(params_np, cfg: LlamaConfig) -> dict:
     if extra:
         raise ValueError(f"flax params not consumed by the port: {extra}")
     return sd
+
+
+class _Taker:
+    """Reads leaves of a flattened flax tree by path, checking each one's
+    shape, and reports the leaves nothing read."""
+
+    def __init__(self, params_np):
+        self.flat = _flatten(params_np)
+        self.used: set[str] = set()
+
+    def __call__(self, path, shape, dtype=torch.float32) -> torch.Tensor:
+        if path not in self.flat:
+            raise ValueError(f"flax param {path!r} is missing")
+        self.used.add(path)
+        x = _tensor(self.flat[path], dtype)
+        if tuple(x.shape) != tuple(shape):
+            raise ValueError(f"flax param {path!r} has shape "
+                             f"{tuple(x.shape)}, expected {tuple(shape)}")
+        return x
+
+    def dense(self, sd, key, path, n_in, n_out, kernel_shape=None,
+              bias_shape=None, dtype=torch.float32):
+        """`key`.weight [out, in] from a (Dense)General kernel whose input
+        axes come first, and `key`.bias from its bias."""
+        k = self(path + "/kernel", kernel_shape or (n_in, n_out), dtype)
+        sd[key + ".weight"] = k.reshape(n_in, n_out).T.contiguous()
+        sd[key + ".bias"] = self(path + "/bias", bias_shape or (n_out,),
+                                 dtype).reshape(n_out)
+
+    def done(self, sd) -> dict:
+        extra = sorted(set(self.flat) - self.used)
+        if extra:
+            raise ValueError(f"flax params not consumed by the port: {extra}")
+        return sd
+
+
+def mlp_params_from_jax(params_np, cfg: MLPConfig) -> dict:
+    """The flax MLP tree (`dense_{i}`, `head`: kernel [in, out], bias
+    [out]) as a state dict for `MLP(cfg)`. Raises on a leaf that is
+    missing, mis-shaped or left over."""
+    take, sd = _Taker(params_np), {}
+    dims = (cfg.in_dim, *cfg.hidden)
+    for i, (a, b) in enumerate(zip(dims, dims[1:])):
+        take.dense(sd, f"dense_{i}", f"dense_{i}", a, b)
+    take.dense(sd, "head", "head", dims[-1], cfg.num_classes)
+    return take.done(sd)
+
+
+def bert_params_from_jax(params_np, cfg: BertConfig) -> dict:
+    """The flax Bert tree as a state dict for `Bert(cfg)`, in
+    cfg.param_dtype. q/k/v kernels [H, heads, hd] and biases [heads, hd],
+    and the o kernel [heads, hd, H], flatten their head axes; every kernel
+    is transposed to [out, in]. LayerNorm scale/bias keep their names.
+    The task's head leaves (classifier, pooler unless `use_pooler` is off,
+    or the MLM transform, LayerNorm and bias) must be there. Raises on a
+    leaf that is missing, mis-shaped or left over."""
+    take, sd = _Taker(params_np), {}
+    h, nh, i = cfg.hidden_size, cfg.num_heads, cfg.intermediate_size
+    hd, pd = h // nh, cfg.param_dtype
+    for name, rows in (("word_embeddings", cfg.vocab_size),
+                       ("position_embeddings", cfg.max_seq_len),
+                       ("token_type_embeddings", cfg.type_vocab_size)):
+        sd[name] = take(name, (rows, h), pd)
+
+    def ln(key, path):
+        sd[key + ".scale"] = take(path + "/scale", (h,))
+        sd[key + ".bias"] = take(path + "/bias", (h,))
+
+    ln("ln_embed", "ln_embed")
+    for n in range(cfg.num_layers):
+        p, key = f"layer_{n}/", f"layers.{n}."
+        for proj in ("q", "k", "v"):
+            take.dense(sd, key + proj, p + proj, h, h, (h, nh, hd),
+                       (nh, hd), pd)
+        take.dense(sd, key + "o", p + "o", h, h, (nh, hd, h), None, pd)
+        take.dense(sd, key + "ffn_in", p + "ffn_in", h, i, dtype=pd)
+        take.dense(sd, key + "ffn_out", p + "ffn_out", i, h, dtype=pd)
+        ln(key + "ln_attn", p + "ln_attn")
+        ln(key + "ln_ffn", p + "ln_ffn")
+    if cfg.task in ("sequence_classification", "token_classification"):
+        take.dense(sd, "classifier", "classifier", h, cfg.num_labels,
+                   dtype=pd)
+    if cfg.task == "sequence_classification" and cfg.use_pooler:
+        take.dense(sd, "pooler", "pooler", h, h, dtype=pd)
+    if cfg.task == "fill_mask":
+        take.dense(sd, "mlm_transform", "mlm_transform", h, h, dtype=pd)
+        ln("mlm_ln", "mlm_ln")
+        sd["mlm_bias"] = take("mlm_bias", (cfg.vocab_size,), pd)
+    return take.done(sd)

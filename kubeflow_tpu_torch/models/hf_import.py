@@ -3,8 +3,9 @@ Llama-family import onto the port's `Llama`.
 
 The port of `kubeflow_tpu/models/hf_import.py` for the families on the
 Llama trunk (Llama, Llama 3.1's rope scaling, Mistral's window, Qwen2's
-QKV biases, Gemma 1/2/3), with its own safetensors codec: the
-`safetensors` package is not a dependency of this package.
+QKV biases, Gemma 1/2/3) and for BERT (`import_bert`), with its own
+safetensors codec: the `safetensors` package is not a dependency of this
+package.
 
 A safetensors file is an 8-byte little-endian header length N, N bytes of
 JSON header ({name: {"dtype", "shape", "data_offsets": [begin, end]}} plus
@@ -35,6 +36,7 @@ from typing import Any
 
 import torch
 
+from kubeflow_tpu_torch.models.bert import BertConfig
 from kubeflow_tpu_torch.models.llama import LlamaConfig, _check_supported
 
 #: safetensors dtype names -> torch dtypes (the F8 names are the torch
@@ -540,12 +542,147 @@ def import_gemma3(path: str, **overrides: Any) -> tuple[LlamaConfig, dict]:
     return _load(path, _gemma3_config(read_hf_config(path), overrides))
 
 
+# ---------------------------------------------------------------------------
+# BERT
+# ---------------------------------------------------------------------------
+
+def _bert_task_from_arch(hf: dict) -> str:
+    """HF `architectures` -> serving task: ForSequenceClassification /
+    ForTokenClassification / ForMaskedLM (or ForPreTraining) / a bare
+    BertModel -> embedding. Other head architectures (QuestionAnswering,
+    MultipleChoice, ...) are refused: their classifier would be misapplied
+    as a sequence-classification head."""
+    arch = (hf.get("architectures") or [""])[0]
+    if "TokenClassification" in arch:
+        return "token_classification"
+    if "MaskedLM" in arch or "PreTraining" in arch:
+        return "fill_mask"
+    if "SequenceClassification" in arch:
+        return "sequence_classification"
+    if arch in ("BertModel", ""):
+        # A bare encoder export serves sentence embeddings (HF configs carry
+        # a default id2label even here, so the architecture decides).
+        return "embedding"
+    raise ValueError(
+        f"unsupported BERT head architecture {arch!r}; implemented tasks: "
+        "sequence_classification, token_classification, fill_mask, "
+        "embedding (pass model_overrides={'task': ...} to force one)")
+
+
+def bert_config_from_hf(hf: dict, **overrides: Any) -> BertConfig:
+    """Map HF BertConfig fields onto the port's; `overrides` win."""
+    pet = hf.get("position_embedding_type", "absolute")
+    if pet != "absolute":
+        raise ValueError(
+            f"unsupported position_embedding_type {pet!r} (only absolute "
+            "position embeddings are implemented)")
+    act = hf.get("hidden_act", "gelu")
+    if act not in ("gelu", "gelu_new", "gelu_pytorch_tanh", "relu"):
+        raise ValueError(f"unsupported hidden_act {act!r}")
+    fields = dict(
+        task=_bert_task_from_arch(hf),
+        hidden_act=act,
+        vocab_size=hf["vocab_size"],
+        hidden_size=hf["hidden_size"],
+        intermediate_size=hf["intermediate_size"],
+        num_layers=hf["num_hidden_layers"],
+        num_heads=hf["num_attention_heads"],
+        max_seq_len=hf.get("max_position_embeddings", 512),
+        type_vocab_size=hf.get("type_vocab_size", 2),
+        layer_norm_eps=float(hf.get("layer_norm_eps", 1e-12)),
+        num_labels=len(hf.get("id2label") or {0: 0, 1: 1}),
+    )
+    fields.update(overrides)
+    return BertConfig(**fields)
+
+
+def bert_hf_names(cfg: BertConfig, prefix: str = "bert.") -> dict:
+    """{port state-dict name: HF tensor name} of a checkpoint of `cfg`'s
+    task (`prefix` on the encoder's names; the heads carry none). HF
+    stores a Linear as [out, in], the port's layout, and a LayerNorm's
+    weight is the port's `scale`."""
+    names = {f"{n}": f"{prefix}embeddings.{n}.weight"
+             for n in ("word_embeddings", "position_embeddings",
+                       "token_type_embeddings")}
+
+    def add(port, hf, norm=False):
+        names[port + (".scale" if norm else ".weight")] = hf + ".weight"
+        names[port + ".bias"] = hf + ".bias"
+
+    add("ln_embed", prefix + "embeddings.LayerNorm", norm=True)
+    for i in range(cfg.num_layers):
+        hp, key = f"{prefix}encoder.layer.{i}.", f"layers.{i}."
+        for port, hf in (("q", "attention.self.query"),
+                         ("k", "attention.self.key"),
+                         ("v", "attention.self.value"),
+                         ("o", "attention.output.dense"),
+                         ("ffn_in", "intermediate.dense"),
+                         ("ffn_out", "output.dense")):
+            add(key + port, hp + hf)
+        add(key + "ln_attn", hp + "attention.output.LayerNorm", norm=True)
+        add(key + "ln_ffn", hp + "output.LayerNorm", norm=True)
+    if cfg.task == "fill_mask":
+        add("mlm_transform", "cls.predictions.transform.dense")
+        add("mlm_ln", "cls.predictions.transform.LayerNorm", norm=True)
+        names["mlm_bias"] = "cls.predictions.bias"
+    if cfg.task in ("sequence_classification", "token_classification"):
+        add("classifier", "classifier")
+    if cfg.task == "sequence_classification" and cfg.use_pooler:
+        add("pooler", prefix + "pooler.dense")
+    return names
+
+
+def import_bert(path: str, *, allow_headless: bool = False,
+                **config_overrides: Any) -> tuple[BertConfig, dict]:
+    """HF BERT checkpoint dir -> (BertConfig, state dict for `Bert(cfg)`),
+    the task from the checkpoint's `architectures`: the sequence or token
+    classification head, the tied MLM head, or the parameter-free
+    embedding pooling of a bare encoder. Names are translated
+    (`bert_hf_names`), nothing is transposed.
+
+    A sequence-classification checkpoint without `classifier.weight`
+    raises unless `allow_headless` (a zero head serves constant logits;
+    it is only for fine-tuning a fresh head). A missing pooler alone is
+    not headless: such an export serves with `use_pooler=False`, the
+    classifier on the raw [CLS] state. The encoder's `bert.` prefix is
+    optional. An MLM decoder not tied to `word_embeddings` is refused."""
+    cfg = bert_config_from_hf(read_hf_config(path), **config_overrides)
+    t = load_safetensors_dir(path)
+    pre = "bert." if any(k.startswith("bert.") for k in t) else ""
+    headless = False
+    if cfg.task == "fill_mask":
+        dec = "cls.predictions.decoder.weight"
+        if dec in t and not torch.equal(
+                t[dec], t[pre + "embeddings.word_embeddings.weight"]):
+            raise ValueError(
+                "MaskedLM checkpoint has an UNTIED decoder weight; the "
+                "MLM head ties the decoder to word_embeddings")
+    elif cfg.task == "sequence_classification":
+        headless = "classifier.weight" not in t
+        if headless and not allow_headless:
+            raise KeyError(
+                "checkpoint has no classification head (classifier.weight)"
+                " — serving it would return constant zero logits; pass "
+                "allow_headless=True only to fine-tune a fresh head")
+        if pre + "pooler.dense.weight" not in t:
+            cfg = dataclasses.replace(cfg, use_pooler=False)
+    sd = {}
+    for port, hf in bert_hf_names(cfg, pre).items():
+        if headless and port == "classifier.weight":
+            sd[port] = torch.zeros(cfg.num_labels, cfg.hidden_size)
+        elif headless and port == "classifier.bias":
+            sd[port] = torch.zeros(cfg.num_labels)
+        else:
+            sd[port] = t[hf]
+    pd = cfg.param_dtype
+    return cfg, {k: v.to(pd) for k, v in sd.items()}
+
+
 #: Families the JAX package imports whose models the port has not ported
 #: yet: (test on the architecture or model_type, name, ROADMAP item). The
 #: first group is tried before the Gemma dispatch, the second after it,
 #: in the JAX `build_from_hf`'s order.
 _REFUSED = (
-    (lambda a, m: "Bert" in a or m == "bert", "BERT", "A8"),
     (lambda a, m: "GPT2" in a or m == "gpt2", "GPT-2", "A8"),
     (lambda a, m: (a in ("T5ForConditionalGeneration",
                          "MT5ForConditionalGeneration",
@@ -569,11 +706,21 @@ def _refuse(families, arch: str, mtype: str) -> None:
                 f"package yet (ROADMAP {item})")
 
 
-def config_from_hf(hf: dict, **overrides: Any) -> LlamaConfig:
-    """The LlamaConfig `build_from_hf` gives a checkpoint whose config.json
-    is `hf`, with every refusal, without reading a tensor: the JAX
-    `build_from_hf`'s dispatch order. Families whose models are not
-    ported are refused by name."""
+def _is_bert(hf: dict) -> bool:
+    arch = (hf.get("architectures") or [hf.get("model_type", "")])[0]
+    return "Bert" in arch or hf.get("model_type") == "bert"
+
+
+def config_from_hf(hf: dict, **overrides: Any) -> LlamaConfig | BertConfig:
+    """The config `build_from_hf` gives a checkpoint whose config.json is
+    `hf`, with every refusal, without reading a tensor: the JAX
+    `build_from_hf`'s dispatch order, BERT first (a `BertConfig`; whether
+    the checkpoint has a pooler shows only in its tensors), else a
+    `LlamaConfig`. Families whose models are not ported are refused by
+    name."""
+    if _is_bert(hf):
+        overrides.pop("allow_headless", None)
+        return bert_config_from_hf(hf, **overrides)
     arch = (hf.get("architectures") or [hf.get("model_type", "")])[0]
     mtype = hf.get("model_type", "")
     _refuse(_REFUSED, arch, mtype)
@@ -590,7 +737,11 @@ def config_from_hf(hf: dict, **overrides: Any) -> LlamaConfig:
     return _llama_config(hf, overrides)
 
 
-def build_from_hf(path: str, **overrides: Any) -> tuple[LlamaConfig, dict]:
-    """Architecture-dispatched import (`config_from_hf`): (LlamaConfig,
-    state dict)."""
-    return _load(path, config_from_hf(read_hf_config(path), **overrides))
+def build_from_hf(path: str, **overrides: Any) -> tuple[Any, dict]:
+    """Architecture-dispatched import (`config_from_hf`): (BertConfig,
+    state dict) for BERT, else (LlamaConfig, state dict). Callers that
+    build a Llama check the type."""
+    hf = read_hf_config(path)
+    if _is_bert(hf):
+        return import_bert(path, **overrides)
+    return _load(path, config_from_hf(hf, **overrides))

@@ -219,9 +219,6 @@ def _check_supported(cfg: LlamaConfig) -> None:
     """Refuse, by name, every config flag this package does not port, and
     the values JAX refuses with a ValueError."""
     refused = [
-        (cfg.lora_rank > 0 and cfg.quantized_dense,
-         "LoRA adapters on int8 projections (lora_rank with "
-         "quantized_dense; merge the adapters, then quantize)"),
         (cfg.attention_impl not in ("auto", "naive", "flash"),
          f"attention_impl={cfg.attention_impl!r} (ring/zigzag attention "
          "over a device mesh)"),

@@ -139,7 +139,7 @@ from kubeflow_tpu_torch.serve.kv_transfer import (_NAMES, HostKVTier,
                                                   ShipmentError,
                                                   pack_shipment, peek_meta,
                                                   unpack_shipment)
-from kubeflow_tpu_torch.serve.model import Model
+from kubeflow_tpu_torch.serve.model import Model, check_token_ids
 from kubeflow_tpu_torch.serve.paging import BlockAllocator, blocks_for
 from kubeflow_tpu_torch.serve.quant import (KV_QUANT_MODES,
                                             kv_dequantize_rows,
@@ -2595,6 +2595,9 @@ class GenerativeTorchModel(Model):
 
         t0 = time.monotonic()
         dcfg, sd = build_from_hf(ckpt, **overrides)
+        if not isinstance(dcfg, type(self.cfg)):
+            raise ValueError(f"generative.draft needs a Llama-family "
+                             f"checkpoint, not {type(dcfg).__name__}")
         dmodel = Llama(dcfg, device=self._model.device)
         dmodel.load_state_dict(sd)
         nbytes = sum(t.numel() * t.element_size() for t in sd.values())
@@ -2791,6 +2794,18 @@ class GenerativeTorchModel(Model):
                 ev["text_delta"] = ""
             sent_text += ev["text_delta"]
             yield ev
+
+    def predict(self, inputs):
+        """Full-forward logits in fp32 (no cache) of token ids [B, S]: the
+        v1 :predict and v2 /infer surface of a generative model, as JAX's.
+        Ids are checked on the host (an out-of-range id would be a
+        device-side assert on CUDA)."""
+        self._check_loaded()
+        ids = np.asarray(inputs[0], np.int32)
+        check_token_ids(ids, self.cfg.vocab_size)
+        with torch.inference_mode():
+            logits = self._model(torch.from_numpy(ids).to(self._model.device))
+        return [logits.float().cpu().numpy()]
 
     def metadata(self) -> dict:
         md = super().metadata()

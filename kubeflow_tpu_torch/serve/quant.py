@@ -13,6 +13,11 @@ the result is cast back. No weight-shaped dequantized tensor is made by a
 multiply. Serving is weight-only, as in the JAX package: this path never
 calls the W8A8 op `ops.quant_matmul.int8_matmul`.
 
+`quantize_fixed` does the same for models without `quantized_dense` (BERT,
+the MLP), leaf by leaf as `quantize_tree` picks them: projections become
+`Int8Dense`, embedding tables `Int8Table` (per-column scales, rows
+dequantized where they are read).
+
 Both `Int8Dense` and `quant_unembed` go through `ops.w8a16.
 int8_weight_matmul`. On the card its kernels read the int8 codes and
 widen them in registers, as XLA fuses the JAX branch's convert into the
@@ -136,6 +141,70 @@ class Int8Dense(nn.Module):
         return y
 
 
+class Int8Table(nn.Module):
+    """An embedding table [rows, D] of a model without `quantized_dense`
+    (BERT) as JAX's `quantize_tree` stores it: int8 codes `q` and fp32
+    per-column scales `scale` [D] (max-abs over the rows, axis 0, the
+    default contraction axis for that leaf name). JAX's `QuantizedModule`
+    dequantizes such a leaf whole to bf16; `rows` dequantizes only the rows
+    a lookup reads, to the same values, and `dequantize` the whole table
+    (the tied MLM decoder)."""
+
+    def __init__(self, q: torch.Tensor, scale: torch.Tensor,
+                 dtype=torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.register_buffer("q", q)
+        self.register_buffer("scale", scale)
+
+    @classmethod
+    def from_table(cls, w: torch.Tensor) -> "Int8Table":
+        w32 = w.detach().float()
+        s = w32.abs().amax(dim=0).clamp_min(1e-12) / 127.0
+        q = (w32 / s).round().clamp(-127, 127).to(torch.int8)
+        return cls(q, s)
+
+    def rows(self, idx) -> torch.Tensor:
+        return (self.q[idx].float() * self.scale).to(self.dtype)
+
+    def dequantize(self) -> torch.Tensor:
+        return (self.q.float() * self.scale).to(self.dtype)
+
+
+@torch.no_grad()
+def quantize_fixed(model, *, min_size: int = 4096):
+    """Quantize a float model without `quantized_dense` (BERT, the MLP) in
+    place, leaf by leaf as JAX's `quantize_tree`: each projection (an
+    nn.Linear with a `compute_dtype`) whose weight has at least `min_size`
+    elements becomes an `Int8Dense` over the W8A16 op in that compute
+    dtype, its bias kept float; each other floating parameter of two or
+    more dims and at least `min_size` elements (the embedding tables)
+    becomes an `Int8Table`. Per-output-channel scales throughout, as JAX's
+    contraction axes give for every BERT and MLP kernel. Smaller leaves
+    (BERT-base's 2 x 768 classifier, the MLP's head), biases and
+    LayerNorms stay float. Returns the model.
+
+    JAX serves these models through QuantizedModule's dequantize-all path:
+    bf16(q * scale) into the float matmul. Int8Dense feeds the raw codes
+    and puts the scale on the fp32 output instead, so the two differ by
+    the bf16 rounding of the dequantized weight (see tests for the
+    tolerance it costs)."""
+    for mod in list(model.modules()):
+        for name, child in list(mod.named_children()):
+            if (isinstance(child, nn.Linear) and hasattr(child, "compute_dtype")
+                    and child.weight.numel() >= min_size):
+                setattr(mod, name, Int8Dense.from_weight(
+                    child.weight, child.compute_dtype, child.bias))
+        if isinstance(mod, nn.Linear):
+            continue
+        for name, p in list(mod.named_parameters(recurse=False)):
+            if (p.is_floating_point() and p.dim() >= 2
+                    and p.numel() >= min_size):
+                delattr(mod, name)
+                setattr(mod, name, Int8Table.from_table(p))
+    return model
+
+
 def quant_embed_lookup(embed, tokens, dtype):
     """Token-embedding gather: int8 rows and their per-row scales gathered,
     the multiply after the gather ([B, S, D] work, never the [V, D] table).
@@ -184,13 +253,15 @@ def quantize_model(model, *, min_size: int = 4096):
     layers has at least `min_size` elements becomes an `Int8Dense`, one
     module at a time, its float weight freed before the next; the config
     gains `quantized_dense=True`. Biases stay in their dtype and norm
-    scales in fp32."""
+    scales in fp32. A config's own LoRA factors (`lora_rank`) stay in
+    their float dtype and add their delta after the int8 projection, as
+    JAX's `_lora_delta` after `Int8DenseGeneral`; the JAX tree quantizes
+    such a factor once it reaches `min_size` stacked (and dequantizes it
+    at apply), so above that size the two packages' adapters differ by
+    that rounding."""
     cfg = model.cfg
     if cfg.quantized_dense:
         raise ValueError("model is already quantized")
-    if cfg.lora_rank > 0:
-        raise ValueError("model has LoRA adapters: fold them in first "
-                         "(train.lora.merge into a lora_rank=0 model)")
     for parent, name, stacked in _projections(model):
         if stacked < min_size:
             continue
@@ -215,7 +286,7 @@ def quantized_bytes(model) -> dict:
     would otherwise hold); float tensors count their own bytes in both."""
     qb = fb = 0
     for mod in model.modules():
-        if isinstance(mod, Int8Dense):
+        if isinstance(mod, (Int8Dense, Int8Table)):
             qb += mod.q.numel() + mod.scale.numel() * 4
             fb += mod.q.numel() * 2
     for p in model.parameters():

@@ -12,16 +12,26 @@ names its format, and the format's runtime builds the Model.
                       "seed": 0, "generative": {...}}
 
   * "huggingface" (KServe's huggingfaceserver): the bundle is an HF
-    Llama-family checkpoint dir (`config.json` + safetensors, read by
-    models/hf_import.py) plus a model.json {"format": "huggingface",
-    "generative": {...}}; `checkpoint` may point elsewhere (relative to
-    the bundle), `model_overrides` sets LlamaConfig fields, a
+    checkpoint dir (`config.json` + safetensors, read by
+    models/hf_import.py) plus a model.json {"format": "huggingface"};
+    `checkpoint` may point elsewhere (relative to the bundle) and
+    `model_overrides` sets config fields. A Llama-family checkpoint with a
+    "generative" block is served by the generation engine: a
     `peft_adapter` dir is folded flat into the weights (train/lora.merge),
     and the checkpoint's own tokenizer is bundled, its eos the default.
 
+Without a "generative" block a bundle is a fixed forward (`TorchModel`)
+behind `:predict` and v2 `/infer`: a registry model over inputs of its
+`example_shape` and `example_dtype`; a BERT checkpoint over token ids
+[B, seq_len] (default min(max_seq_len, 128)) with the key mask `ids !=
+pad_token_id`; a Llama-family checkpoint as full-forward logits at
+seq_len 128. An `explainer` block ({"method": "occlusion" |
+"integrated_gradients", ...}) attaches serve/explain.py's explainer.
+
 `"quantize": "int8"` serves the weights as int8 codes with per-channel
 scales (serve/quant.py), quantized after they load, as the JAX runtime's
-`_maybe_quantize` does. The "generative" block reaches
+`_maybe_quantize` does: a Llama through `quantize_model`, BERT and the MLP
+through `quantize_fixed`. The "generative" block reaches
 `GenerativeTorchModel` as on the JAX paths: its `"tokenizer": "bytes"`
 gives text in and out, and its `adapters` ({name: PEFT adapter dir}) serve
 multi-LoRA (the huggingface format resolves them relative to the bundle,
@@ -36,7 +46,7 @@ import os
 
 import torch
 
-from kubeflow_tpu_torch.serve.model import Model
+from kubeflow_tpu_torch.serve.model import Model, TorchModel
 from kubeflow_tpu_torch.utils import registry
 from kubeflow_tpu_torch.utils.devices import resolve_device
 
@@ -82,22 +92,46 @@ def load_model(model_dir: str, name: str | None = None,
     mode = spec.get("quantize")
     if mode and mode != "int8":
         raise ValueError(f"unsupported quantize mode {mode!r} (have: int8)")
-    if spec.get("explainer"):
-        raise NotImplementedError(
-            "explainers ('explainer') are not supported by this package yet")
-    if not spec.get("generative"):
-        raise NotImplementedError(
-            "non-generative (fixed-forward predict) serving is not "
-            "supported by this package yet; add a 'generative' block")
     model = _RUNTIMES[fmt](model_dir, spec, resolve_device(device))
     if name:
         model.name = name
+    if spec.get("explainer"):
+        from kubeflow_tpu_torch.serve.explain import build_explainer
+
+        attach = getattr(model, "attach_explainer", None)
+        if attach is None:
+            raise ValueError(
+                f"runtime {fmt!r} model does not support explainers")
+        attach(build_explainer(spec["explainer"]))
     return model
 
 
+def _fixed(name: str, module, spec: dict, apply_fn, seq_spec,
+           buckets=(1, 2, 4, 8, 16, 32), warm=(1, 8)) -> TorchModel:
+    """The fixed-forward Model over `module`, quantized first under
+    `quantize: int8`; the bundle's buckets override the defaults. Integer
+    inputs are token ids of the config's vocabulary."""
+    module.eval()
+    quantization = _quantize(module, spec)
+    vocab = (module.cfg.vocab_size if seq_spec[1].startswith("int")
+             else None)
+    model = TorchModel(name, apply_fn, module, input_spec=[seq_spec],
+                       batch_buckets=spec.get("batch_buckets", buckets),
+                       warm_buckets=spec.get("warm_buckets", warm),
+                       vocab_size=vocab)
+    model.quantization = quantization
+    return model
+
+
+def _last(module, x):
+    out = module(x)
+    return out[-1] if isinstance(out, tuple) else out
+
+
 def _registry_runtime(model_dir: str, spec: dict, device) -> Model:
-    """A registry Llama with the bundle's weights (or a seeded init) behind
-    the generation engine."""
+    """A registry model with the bundle's weights (or a seeded init):
+    behind the generation engine with a "generative" block, else a fixed
+    forward over inputs of its example shape."""
     if os.path.isdir(os.path.join(model_dir, "params")):
         raise ValueError(
             "bundle holds orbax params/ (a JAX checkpoint), which this "
@@ -106,22 +140,30 @@ def _registry_runtime(model_dir: str, spec: dict, device) -> Model:
         raise ValueError(
             "'peft_adapter' is read by the 'huggingface' format; a "
             f"{FORMAT!r} bundle carries merged weights (train.lora.merge)")
-    module, _ = registry.build_model(spec["model"], device=device,
-                                     **spec.get("model_kwargs", {}))
+    module, info = registry.build_model(spec["model"], device=device,
+                                        **spec.get("model_kwargs", {}))
     path = os.path.join(model_dir, PARAMS_FILE)
     if os.path.exists(path):
         module.load_state_dict(torch.load(path, map_location=device,
                                           weights_only=True))
     else:  # no trained weights: init from the recorded seed
         module.init_weights(int(spec.get("seed", 0)))
-    return _generative(spec.get("name") or spec["model"], module, spec,
-                       dict(spec["generative"]))
+    name = spec.get("name") or spec["model"]
+    if spec.get("generative"):
+        return _generative(name, module, spec, dict(spec["generative"]))
+    shape = (tuple(info["example_shape"][1:]),
+             info.get("example_dtype", "float32"))
+    return _fixed(name, module, spec, _last, shape)
 
 
 def _huggingface_runtime(model_dir: str, spec: dict, device) -> Model:
-    """An HF Llama-family checkpoint (models/hf_import.py) behind the
-    generation engine, with an optional PEFT adapter folded flat."""
-    from kubeflow_tpu_torch.models.hf_import import build_from_hf
+    """An HF checkpoint (models/hf_import.py): BERT as a fixed forward; a
+    Llama-family one behind the generation engine with a "generative"
+    block (an optional PEFT adapter folded flat), else as full-forward
+    logits."""
+    from kubeflow_tpu_torch.models.bert import Bert, BertConfig
+    from kubeflow_tpu_torch.models.hf_import import (build_from_hf,
+                                                     read_hf_config)
     from kubeflow_tpu_torch.models.llama import Llama
     from kubeflow_tpu_torch.serve.tokenizer_util import load_bundled_tokenizer
 
@@ -132,6 +174,26 @@ def _huggingface_runtime(model_dir: str, spec: dict, device) -> Model:
 
     ckpt = in_bundle(spec.get("checkpoint") or ".")
     cfg, sd = build_from_hf(ckpt, **dict(spec.get("model_overrides") or {}))
+    name = spec.get("name") or os.path.basename(root)
+    if isinstance(cfg, BertConfig):
+        if spec.get("peft_adapter"):
+            raise ValueError("'peft_adapter' is read for Llama-family "
+                             "checkpoints, not BERT")
+        module = Bert(cfg, device=device)
+        module.load_state_dict(sd)
+        del sd
+        # Pad tokens must not enter attention: the mask comes from the
+        # checkpoint's pad_token_id (HF tokenizers right-pad with it).
+        pad_id = int(read_hf_config(ckpt).get("pad_token_id") or 0)
+
+        def apply_fn(m, input_ids):
+            return m(input_ids, attention_mask=input_ids != pad_id)[1]
+
+        seq = int(spec.get("seq_len", min(cfg.max_seq_len, 128)))
+        if seq > cfg.max_seq_len:
+            raise ValueError(f"seq_len {seq} exceeds the checkpoint's "
+                             f"{cfg.max_seq_len} positions")
+        return _fixed(name, module, spec, apply_fn, ((seq,), "int32"))
     if spec.get("peft_adapter"):
         # Fold the adapter into the weights (its factors as stored, in
         # fp32, as the JAX runtime folds them): the engine serves a plain
@@ -148,7 +210,10 @@ def _huggingface_runtime(model_dir: str, spec: dict, device) -> Model:
     module = Llama(cfg, device=device)
     module.load_state_dict(sd)
     del sd
-    name = spec.get("name") or os.path.basename(root)
+    if not spec.get("generative"):
+        seq = int(spec.get("seq_len", 128))
+        return _fixed(name, module, spec, lambda m, ids: m(ids),
+                      ((seq,), "int32"), buckets=(1, 2, 4, 8), warm=(1,))
     gen = dict(spec["generative"])
     if gen.get("adapters"):
         gen["adapters"] = {k: in_bundle(v)
@@ -162,19 +227,32 @@ def _huggingface_runtime(model_dir: str, spec: dict, device) -> Model:
     return _generative(name, module, spec, gen)
 
 
+def _quantize(module, spec: dict) -> dict | None:
+    """Under `quantize: int8`, quantize `module` in place (a Llama by
+    `quantize_model`, any other model by `quantize_fixed`) and return
+    {"mode", "quantized", "full"} bytes; else None."""
+    if not spec.get("quantize"):
+        return None
+    from kubeflow_tpu_torch.models.llama import Llama
+    from kubeflow_tpu_torch.serve.quant import (quantize_fixed,
+                                                quantize_model,
+                                                quantized_bytes)
+
+    (quantize_model if isinstance(module, Llama) else quantize_fixed)(module)
+    return {"mode": spec["quantize"], **quantized_bytes(module)}
+
+
 def _generative(name: str, module, spec: dict, gen: dict) -> Model:
     """The engine's Model over `module`, quantized first under
     `quantize: int8`."""
+    from kubeflow_tpu_torch.models.llama import Llama
     from kubeflow_tpu_torch.serve.generation import GenerativeTorchModel
 
+    if not isinstance(module, Llama):
+        raise ValueError(f"a 'generative' block needs a Llama-family "
+                         f"model, not {type(module).__name__}")
     module.eval()
-    quantization = None
-    if spec.get("quantize"):
-        from kubeflow_tpu_torch.serve.quant import (quantize_model,
-                                                    quantized_bytes)
-
-        quantize_model(module)
-        quantization = {"mode": spec["quantize"], **quantized_bytes(module)}
+    quantization = _quantize(module, spec)
     model = GenerativeTorchModel(name, module, generation=gen)
     model.quantization = quantization
     return model

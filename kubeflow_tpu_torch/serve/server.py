@@ -19,6 +19,11 @@ doing its own batching across them.
     POST /v1/models/{name}:decode          a KV shipment in, the :generate
                                             response out (ndjson when the
                                             :prefill body streamed)
+    POST /v1/models/{name}:predict         {"instances": [...]} ->
+                                            {"predictions": [...]}
+    POST /v2/models/{name}/infer           open-inference tensors in and out
+    POST /v1/models/{name}:explain         {"instances": [...]} ->
+                                            {"explanations": [...]}
     POST /v2/repository/models/{name}/load | /unload
     POST /v2/repository/index
     GET  /metrics                          prometheus text format
@@ -37,15 +42,22 @@ models 404, features this package does not port 501, and a shed 503 with
 `Retry-After` (the admission bound, a drain, or a request the paged KV pool
 can never hold).
 
-Admission: at most `max_inflight` inference requests run at once. The JAX
-server keeps an expired request's slot held until its executor work ends;
-here the handler thread is the work, and `submit` returns at the deadline
-while the engine drops the request at its next chunk boundary, so
-`max_inflight` bounds the work to within one decode chunk.
+`:predict` and `/infer` go through the model's coalescing `Batcher`
+(serve/batcher.py; one a model, flushed at `--max-batch-size` examples or
+`--max-latency-ms` after its head request), `:explain` through the
+server's worker pool; a generative model answers them with full-forward
+logits.
+
+Admission: at most `max_inflight` inference requests run at once. As in
+the JAX server, a request that expires while its batcher or pool work
+runs keeps its slot until that work ends. On the generative routes the
+handler thread is the work, and `submit` returns at the deadline while the
+engine drops the request at its next chunk boundary, so `max_inflight`
+bounds the work to within one decode chunk.
 
 Run: python -m kubeflow_tpu_torch.serve.server --model-dir DIR --name NAME
      [--model-dir DIR2 --name NAME2] [--storage-uri file://DIR3] --port 8080
-     --max-inflight 256 --device cuda
+     --max-inflight 256 --max-batch-size 32 --max-latency-ms 5 --device cuda
 
 (--storage-uri sources are named after the --model-dir ones, in order.)
 """
@@ -61,16 +73,20 @@ import signal
 import tempfile
 import threading
 import time
+from concurrent.futures import Future, ThreadPoolExecutor
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import urlsplit
 
+import numpy as np
+
 from kubeflow_tpu_torch.serve import storage
+from kubeflow_tpu_torch.serve.batcher import Batcher
 from kubeflow_tpu_torch.serve.generation import KVCapacityExceeded
 from kubeflow_tpu_torch.serve.headers import (DEADLINE_HEADER,
                                               DRAINING_HEADER,
                                               REQUEST_ID_HEADER)
 from kubeflow_tpu_torch.serve.kv_transfer import ShipmentError, peek_meta
-from kubeflow_tpu_torch.serve.model import Model
+from kubeflow_tpu_torch.serve.model import Model, _v2_dtype, v2_to_numpy_dtype
 from kubeflow_tpu_torch.serve.runtimes import load_model
 from kubeflow_tpu_torch.utils import obs
 from kubeflow_tpu_torch.utils.resilience import (Deadline, DeadlineExceeded,
@@ -239,15 +255,20 @@ class AdmissionController:
 
 class ModelRepository:
     """Name -> Model with load/unload: the multi-model surface of the
-    repository API (the JAX repository without its batcher)."""
+    repository API, with one coalescing Batcher a model (its `predict`
+    behind `max_batch_size` and `max_latency_ms`)."""
 
     #: Seconds a replaced model version stays loaded after a swap so
     #: in-flight requests against it finish (class attr: tests shrink it).
     UNLOAD_GRACE_S = 10.0
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, max_batch_size: int = 32,
+                 max_latency_ms: float = 5.0):
         self.device = device
+        self.max_batch_size = max_batch_size
+        self.max_latency_ms = max_latency_ms
         self._models: dict[str, Model] = {}
+        self._batchers: dict[str, Batcher] = {}
         self._dirs: dict[str, str] = {}
         self._load_errors: dict[str, str] = {}
         # Async-load intents: name -> wanted model_dir ("" = unload was
@@ -268,6 +289,12 @@ class ModelRepository:
             self._models[model.name] = model
             if model_dir:
                 self._dirs[model.name] = model_dir
+            old_batcher = self._batchers.pop(model.name, None)
+            self._batchers[model.name] = Batcher(
+                model.predict, max_batch_size=self.max_batch_size,
+                max_latency_ms=self.max_latency_ms)
+        if old_batcher is not None:
+            old_batcher.close()
         if old is not None and old is not model:
             # The replaced version keeps its engine for a grace window so
             # requests that grabbed it just before the swap finish; the
@@ -304,6 +331,10 @@ class ModelRepository:
             return self._models[name]
         except KeyError:
             raise HTTPError(404, f"model {name!r} not found") from None
+
+    def batcher(self, name: str) -> Batcher:
+        self.get(name)
+        return self._batchers[name]
 
     def names(self) -> list[str]:
         return sorted(self._models)
@@ -401,6 +432,9 @@ class ModelRepository:
         with self._lock:
             timers, self._timers = self._timers, {}
             models = list(self._models.values())
+            batchers = list(self._batchers.values())
+        for batcher in batchers:
+            batcher.close()
         for timer, old in timers.items():
             timer.cancel()
             old.unload()
@@ -538,11 +572,40 @@ class _Handler(BaseHTTPRequestHandler):
             self.write_json(self.surface.shed_body(), 503, (
                 ("Retry-After", str(max(int(adm.retry_after_s), 1))),))
             return
+        self.slot_rides_with: Future | None = None
         try:
             fn(self, *groups)
         finally:
             if adm is not None:
-                adm.release()
+                rides = self.slot_rides_with
+                if rides is None:
+                    adm.release()
+                else:
+                    # The request expired while its work runs: the slot
+                    # is freed when the work ends (at once if it never
+                    # started), so max_inflight bounds concurrent work.
+                    rides.add_done_callback(lambda _f: adm.release())
+
+    def await_bounded(self, fut: Future, deadline: Deadline | None):
+        """The result of batcher or pool work under the request's
+        deadline: 504 at expiry (counted here once per request), whether
+        the work raised DeadlineExceeded (the batcher's queue pruning) or
+        the clock ran out here. An expired request's pending work is
+        cancelled; running work keeps the admission slot until it ends."""
+        rem = None if deadline is None else deadline.remaining()
+        try:
+            return fut.result(None if rem is None else max(rem, 0.0))
+        except TimeoutError as e:
+            if deadline is None or not (isinstance(e, DeadlineExceeded)
+                                        or deadline.expired()):
+                # A timeout raised by the work itself with budget left is
+                # a server fault, not an expired deadline.
+                raise
+            if not fut.cancel() and not fut.done():
+                self.slot_rides_with = fut
+            res_metrics.inc("tpk_deadline_expired_total", component="serve")
+            raise HTTPError(504, f"request deadline exceeded "
+                                 f"({type(e).__name__})") from e
 
     def write_capacity_shed(self, msg: str) -> None:
         """The shed path of paged-KV capacity refusals on every surface:
@@ -819,6 +882,84 @@ def _decode(h: _Handler, name: str) -> None:
     h.write_json({"model_name": name, **out})
 
 
+def _instances(h: _Handler, model) -> list:
+    """The v1 body's "instances" (after the model's preprocess); 400
+    without them."""
+    instances = model.preprocess(h.body_json()).get("instances")
+    if instances is None:
+        raise HTTPError(400, 'v1 request needs "instances"')
+    return instances
+
+
+def _spec_dtype(model):
+    spec = getattr(model, "input_spec", None)
+    return spec[0][1] if spec else None
+
+
+def _predict(h: _Handler, name: str) -> None:
+    """:predict: the v1 instances stacked along batch dim 0 in the model's
+    input dtype, through its batcher."""
+    model = h.repo.get(name)
+    deadline = h.request_deadline()
+    instances = _instances(h, model)
+    t0 = time.monotonic()
+    inputs = [np.asarray(instances, dtype=_spec_dtype(model))]
+    outs = h.await_bounded(h.repo.batcher(name).submit(
+        inputs, deadline=deadline, trace_id=h.trace_id), deadline)
+    outs = model.postprocess(outs)
+    h.app.observe(name, len(instances), time.monotonic() - t0)
+    preds = outs[0] if isinstance(outs, (list, tuple)) else outs
+    h.write_json({"predictions": np.asarray(preds).tolist()})
+
+
+def _infer(h: _Handler, name: str) -> None:
+    """/v2/models/{name}/infer: open-inference tensors through the
+    model's batcher; outputs in the JAX server's field order."""
+    model = h.repo.get(name)
+    deadline = h.request_deadline()
+    body = model.preprocess(h.body_json())
+    tensors = body.get("inputs")
+    if not tensors:
+        raise HTTPError(400, 'v2 request needs "inputs"')
+    inputs = [np.asarray(t["data"], dtype=v2_to_numpy_dtype(
+        t.get("datatype", "FP32"))).reshape(t["shape"]) for t in tensors]
+    t0 = time.monotonic()
+    outs = h.await_bounded(h.repo.batcher(name).submit(
+        inputs, deadline=deadline, trace_id=h.trace_id), deadline)
+    outs = model.postprocess(outs)
+    if not isinstance(outs, (list, tuple)):
+        outs = [outs]
+    h.app.observe(name, int(inputs[0].shape[0]), time.monotonic() - t0)
+    h.write_json({
+        "model_name": name, "id": body.get("id", ""),
+        "outputs": [{
+            "name": f"output_{i}", "shape": list(np.shape(o)),
+            "datatype": _v2_dtype(str(np.asarray(o).dtype)),
+            "data": np.asarray(o).ravel().tolist(),
+        } for i, o in enumerate(outs)]})
+
+
+def _explain(h: _Handler, name: str) -> None:
+    """:explain: the model's attached explainer (serve/explain.py) on the
+    server's worker pool; 501 when it has none, 400 for instances it
+    refuses."""
+    model = h.repo.get(name)
+    deadline = h.request_deadline()
+    instances = _instances(h, model)
+    t0 = time.monotonic()
+    try:
+        arr = np.asarray(instances, dtype=_spec_dtype(model))
+        out = h.await_bounded(h.app.executor.submit(model.explain, arr),
+                              deadline)
+    except NotImplementedError as e:
+        raise HTTPError(501, str(e)) from None
+    except (ValueError, TypeError) as e:
+        # TypeError: an instance of the wrong per-example shape.
+        raise HTTPError(400, str(e)) from None
+    h.app.observe(name, len(out), time.monotonic() - t0)
+    h.write_json({"explanations": out})
+
+
 def _repository(h: _Handler, name: str, verb: str) -> None:
     if verb == "load":
         # {"model_dir": ...} attaches a new model to this running server
@@ -860,6 +1001,10 @@ def _unported(what: str):
 
 class _HTTPServer(ThreadingHTTPServer):
     daemon_threads = True
+    # socketserver's listen backlog of 5 drops the connections of a burst
+    # past it, which the clients retry a second later; 128 is tornado's
+    # (the JAX server's) default.
+    request_queue_size = 128
 
     def __init__(self, addr, app: "ModelServer"):
         super().__init__(addr, _Handler)
@@ -873,9 +1018,17 @@ class ModelServer:
     def __init__(self, host: str = "127.0.0.1",
                  repo: ModelRepository | None = None,
                  admission: AdmissionController | None = None,
-                 max_inflight: int = 256, device=None):
+                 max_inflight: int = 256, device=None,
+                 max_batch_size: int = 32, max_latency_ms: float = 5.0):
         self.host = host
-        self.repo = repo or ModelRepository(device=device)
+        self.repo = repo or ModelRepository(
+            device=device, max_batch_size=max_batch_size,
+            max_latency_ms=max_latency_ms)
+        # :explain runs here so an expired request hands back a future
+        # whose end frees its admission slot.
+        self.executor = ThreadPoolExecutor(
+            max_workers=min(32, (os.cpu_count() or 1) + 4),
+            thread_name_prefix="tpk-serve-work")
         # max_inflight=0 turns admission control off; an explicit
         # controller wins over the knob.
         if max_inflight < 0:
@@ -912,13 +1065,12 @@ class ModelServer:
             Route("POST", r"/v2/repository/index", _repository_index),
             Route("GET", r"/v2/models/([^/]+)(/ready)?", _v2_model),
             Route("GET", r"/metrics", _metrics),
-            # The JAX server's routes of features not ported yet.
-            Route("POST", r"/v1/models/([^/:]+):predict",
-                  _unported("fixed-forward predict (:predict)")),
-            Route("POST", r"/v1/models/([^/:]+):explain",
-                  _unported("explainers (:explain)")),
-            Route("POST", r"/v2/models/([^/]+)/infer",
-                  _unported("open-inference tensors (/infer)")),
+            Route("POST", r"/v1/models/([^/:]+):predict", _predict,
+                  gated=True),
+            Route("POST", r"/v1/models/([^/:]+):explain", _explain,
+                  gated=True),
+            Route("POST", r"/v2/models/([^/]+)/infer", _infer, gated=True),
+            # The JAX server's route of a feature not ported yet.
             Route("GET", r"/debug/trace", _unported("/debug/trace spans")),
         ]
 
@@ -1073,6 +1225,7 @@ class ModelServer:
             self._http.server_close()
             self._thread.join(timeout=10.0)
             self._http = None
+        self.executor.shutdown(wait=False, cancel_futures=True)
         self.repo.close()
 
 
@@ -1094,6 +1247,10 @@ def start(argv: list[str] | None = None) -> tuple[ModelServer, int]:
     p.add_argument("--max-inflight", type=int, default=256,
                    help="admitted-request cap before 503 shedding "
                         "(0 disables admission control)")
+    p.add_argument("--max-batch-size", type=int, default=32,
+                   help="a batcher's flush size, in examples")
+    p.add_argument("--max-latency-ms", type=float, default=5.0,
+                   help="a batcher's window after its head request")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
     if not args.model_dir and not args.storage_uri:
@@ -1103,7 +1260,9 @@ def start(argv: list[str] | None = None) -> tuple[ModelServer, int]:
         dirs.append(storage.download(uri, os.path.join(
             tempfile.gettempdir(), "tpk-models", str(i))))
     server = ModelServer(host=args.host, max_inflight=args.max_inflight,
-                         device=args.device)
+                         device=args.device,
+                         max_batch_size=args.max_batch_size,
+                         max_latency_ms=args.max_latency_ms)
     for i, d in enumerate(dirs):
         name = args.name[i] if i < len(args.name) else None
         model = server.load(d, name=name)

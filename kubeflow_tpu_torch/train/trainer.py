@@ -224,6 +224,10 @@ class Trainer:
                                           LlamaConfig):
             raise ValueError(f"spec.lora needs a Llama-family model; "
                              f"{spec.model!r} has no adapter path")
+        if not isinstance(registry.model_config(spec.model), LlamaConfig):
+            raise NotImplementedError(
+                f"training {spec.model!r} (a model outside the Llama "
+                "family) is not supported by this package yet")
         model_kwargs = {**spec.model_kwargs, **lora_kwargs}
         # fp32 master weights, as the JAX config's default param_dtype.
         model_kwargs.setdefault("param_dtype", "float32")

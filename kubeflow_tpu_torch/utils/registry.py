@@ -1,7 +1,7 @@
 """Model and dataset registries: a bundle or a job spec names them by
 string.
 
-The port of the Llama, synthetic-LM and token-corpus entries of
+The port of the Llama, MLP, BERT, synthetic-LM and token-corpus entries of
 `kubeflow_tpu/utils/registry.py`.
 """
 
@@ -11,12 +11,17 @@ import dataclasses
 from typing import Callable
 
 from kubeflow_tpu_torch.data import loader, synthetic
-from kubeflow_tpu_torch.models import llama
+from kubeflow_tpu_torch.models import bert, llama, mlp
 
-_MODELS: dict[str, Callable[[], llama.LlamaConfig]] = {
-    "llama_tiny": llama.llama_tiny,
-    "llama_1b": llama.llama_1b,
-    "llama3_8b": llama.llama3_8b,
+#: name -> (config factory, example row length); the config's type picks
+#: the module. The MLP's row is its config's `in_dim`.
+_MODELS: dict[str, tuple[Callable[[], object], int | None]] = {
+    "mnist_mlp": (mlp.MLPConfig, None),
+    "llama_tiny": (llama.llama_tiny, 16),
+    "llama_1b": (llama.llama_1b, 16),
+    "llama3_8b": (llama.llama3_8b, 16),
+    "bert_tiny": (bert.bert_tiny, 16),
+    "bert_base": (bert.bert_base, 128),
 }
 
 
@@ -24,23 +29,37 @@ def list_models() -> list[str]:
     return sorted(_MODELS)
 
 
-def model_config(name: str, **kwargs) -> llama.LlamaConfig:
-    """The named config with `kwargs` overriding its fields."""
+def _entry(name: str):
     try:
-        base = _MODELS[name]()
+        return _MODELS[name]
     except KeyError:
         raise ValueError(
             f"unknown model {name!r}; have {list_models()}") from None
-    return dataclasses.replace(base, **kwargs)
+
+
+def model_config(name: str, **kwargs):
+    """The named config with `kwargs` overriding its fields."""
+    return dataclasses.replace(_entry(name)[0](), **kwargs)
 
 
 def build_model(name: str, device=None, **kwargs):
-    """Returns (Llama module with allocated, uninitialised weights, info
-    dict) — the same (module, info) shape as the JAX registry."""
+    """Returns (module with allocated, uninitialised weights, info dict):
+    the same (module, info) shape as the JAX registry, with its `task`,
+    `example_shape` (a batch of one), `example_dtype` and `config`."""
     cfg = model_config(name, **kwargs)
+    seq = _entry(name)[1]
+    if isinstance(cfg, mlp.MLPConfig):
+        return mlp.MLP(cfg, device=device), {
+            "task": "classify", "example_shape": (1, cfg.in_dim),
+            "example_dtype": "float32", "num_params": None, "config": cfg}
+    if isinstance(cfg, bert.BertConfig):
+        return bert.Bert(cfg, device=device), {
+            "task": "classify", "example_shape": (1, seq),
+            "example_dtype": "int32", "num_params": None, "config": cfg}
     return llama.Llama(cfg, device=device), {
-        "task": "lm", "num_params": cfg.num_params,
-        "vocab_size": cfg.vocab_size, "config": cfg}
+        "task": "lm", "example_shape": (1, seq), "example_dtype": "int32",
+        "num_params": cfg.num_params, "vocab_size": cfg.vocab_size,
+        "config": cfg}
 
 
 def _synthetic_lm(batch_size=8, seq_len=128, vocab_size=512, seed=0, **kw):

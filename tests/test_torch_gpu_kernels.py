@@ -34,6 +34,13 @@ CASES = [
     ("causal_segments", (2, 200, 200, 4, 2), "causal", {}, True),
     # A GQA group of 7, as Qwen2-7B's 28 heads over 4 kv heads.
     ("gqa7_causal", (1, 200, 200, 14, 2), "causal", {}, False),
+    # llama_1b's attention (16/8 heads) as its fixed-forward :predict runs
+    # it: buckets of 8 rows at the registry's 16 tokens and at 128.
+    ("llama1b_b8_s16", (8, 16, 16, 16, 8), "causal", {}, False),
+    ("llama1b_b8_s128", (8, 128, 128, 16, 8), "causal", {}, False),
+    # llama3_8b's attention (32/8 heads) as :predict on its generative
+    # bundle runs it: 2 rows of 16 tokens.
+    ("llama3_8b_b2_s16", (2, 16, 16, 32, 8), "causal", {}, False),
 ]
 
 
@@ -1137,7 +1144,12 @@ W8A16_CASES = (
        for m, k, n in ((3, 64, 72), (13, 128, 200), (37, 256, 130),
                        (200, 96, 64), (5, 100, 48))
        for rf in (False, True)]
-    + W8A16_DECODE_CASES)
+    + W8A16_DECODE_CASES
+    # BERT-base's int8 projections (q/k/v/o and the pooler K 768 N 768,
+    # ffn_in K 768 N 3072, ffn_out K 3072 N 768) at buckets 1 and 32 of
+    # 128 tokens.
+    + [(m, k, n, torch.bfloat16, False) for m in (128, 4096)
+       for n, k in ((768, 768), (3072, 768), (768, 3072))])
 #: Kernel vs plain, rel-L2: fp32 sums in another order (fp32 activations);
 #: bf16/fp16 add one rounding of the output either side (~2^-9 relative).
 W8A16_TOL = {torch.float32: 1e-5, torch.bfloat16: 4e-3, torch.float16: 4e-3}

@@ -275,8 +275,16 @@ def test_missing_lm_head_fails_loudly(hf_llama, tmp_path):
 ])
 def test_unported_families_are_refused_by_name(tmp_path, arch, model_type,
                                                what, item):
+    hf = dict(BASE, architectures=[arch], model_type=model_type)
     with open(tmp_path / "config.json", "w") as f:
-        json.dump(dict(BASE, architectures=[arch], model_type=model_type), f)
+        json.dump(hf, f)
+    if what == "BERT":
+        # Ported since (import_bert, tests/test_torch_bert.py): BERT is
+        # dispatched first and goes on to read its tensors.
+        assert isinstance(th.config_from_hf(hf), th.BertConfig)
+        with pytest.raises(FileNotFoundError, match="safetensors"):
+            th.build_from_hf(str(tmp_path))
+        return
     with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP {item}"):
         th.build_from_hf(str(tmp_path))
 
@@ -355,9 +363,16 @@ def test_runtime_checkpoint_key_and_int8(hf_llama, tmp_path):
 
 def test_runtime_refusals(hf_llama, tmp_path):
     path, _ = hf_llama
-    plain = _bundle(path, tmp_path / "p", model_overrides=F32)
-    with pytest.raises(NotImplementedError, match="non-generative"):
-        load_model(plain, device="cpu")
+    # A bundle without "generative" is no longer refused: it serves
+    # full-forward logits as the JAX runtime's fixed forward does.
+    from kubeflow_tpu.serve import runtimes as jrt
+
+    plain = _bundle(path, tmp_path / "p", model_overrides=F32, seq_len=8)
+    model, jmodel = load_model(plain, device="cpu"), jrt.load_model(plain)
+    model.load(), jmodel.load()
+    ids = _tokens(2, 8).astype(np.int32)
+    np.testing.assert_allclose(model.predict([ids])[0],
+                               jmodel.predict([ids])[0], **JAX_TOL)
     with open(os.path.join(plain, "model.json"), "w") as f:
         json.dump({"format": "onnx", "generative": GEN}, f)
     with pytest.raises(ValueError, match="huggingface"):

@@ -63,6 +63,11 @@ def test_server_import_loads_no_jax():
             "import kubeflow_tpu_torch.serve.multilora; "
             "import kubeflow_tpu_torch.serve.storage; "
             "import kubeflow_tpu_torch.serve.kv_transfer; "
+            "import kubeflow_tpu_torch.serve.batcher; "
+            "import kubeflow_tpu_torch.serve.explain; "
+            "import kubeflow_tpu_torch.models.bert; "
+            "import kubeflow_tpu_torch.models.mlp; "
+            "import kubeflow_tpu_torch.utils.registry; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN + tuple(LAZY)!r}]; print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -155,6 +155,28 @@ def test_converter_consumes_every_leaf_and_refuses_strays():
     {"attention_impl": "ring"},
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_config_flags_are_refused(kw):
+    if "lora_rank" in kw:
+        # Ported since: a config's own LoRA on int8 projections builds and
+        # gives JAX's QuantizedModule logits (tests/test_torch_lora_int8.py
+        # holds greedy ids and the serving bundle).
+        from kubeflow_tpu.serve import quant as jq
+        from kubeflow_tpu_torch.serve.quant import quantize_model
+
+        jm, params, tm = _pair(lora_rank=kw["lora_rank"])
+        params = jax.tree_util.tree_map_with_path(
+            lambda path, x: x + 0.05 if "lora_b" in str(path[-1]) else x,
+            params)
+        tm.load_state_dict(llama_params_from_jax(
+            jax.tree.map(np.asarray, params), tm.cfg))
+        quantize_model(tm)
+        assert tm.cfg.quantized_dense and tm.cfg.lora_rank == kw["lora_rank"]
+        ids = np.random.default_rng(0).integers(0, 512, (2, 8))
+        want = jq.QuantizedModule(jm).apply(
+            {"params": jq.quantize_tree(params)}, jnp.asarray(ids))
+        with torch.no_grad():
+            got = tm(torch.from_numpy(ids)).numpy()
+        np.testing.assert_allclose(got, np.asarray(want), **TOL)
+        return
     cfg = dataclasses.replace(tl.llama_tiny(), **kw)
     with pytest.raises(NotImplementedError, match="not supported"):
         tl.Llama(cfg, device="cpu")

@@ -138,9 +138,14 @@ def test_lora_on_int8_projections_is_refused():
     _, tcfg = _cfgs()
     from kubeflow_tpu_torch.serve.quant import quantize_model
 
-    with pytest.raises(ValueError, match="merge"):
-        quantize_model(tl.Llama(tcfg, device="cpu").init_weights(0),
-                       min_size=1)
+    # Ported since (tests/test_torch_lora_int8.py holds it against JAX):
+    # quantizing keeps the adapters float beside the int8 projections.
+    model = tl.Llama(tcfg, device="cpu").init_weights(0)
+    a = model.layers[0].attn.q_proj_lora_a.detach().clone()
+    quantize_model(model, min_size=1)
+    assert model.cfg.quantized_dense and model.cfg.lora_rank == tcfg.lora_rank
+    assert type(model.layers[0].attn.q_proj).__name__ == "Int8Dense"
+    assert torch.equal(model.layers[0].attn.q_proj_lora_a, a)
     with pytest.raises(ValueError, match="lora_targets"):
         tl.Llama(dataclasses.replace(tcfg, lora_targets="all"), device="cpu")
 
@@ -431,7 +436,7 @@ def test_lora_needs_a_llama_family_model(tmp_path, monkeypatch):
     class MLPConfig:
         hidden: int = 8
 
-    monkeypatch.setitem(registry._MODELS, "mlp", MLPConfig)
+    monkeypatch.setitem(registry._MODELS, "mlp", (MLPConfig, None))
     with pytest.raises(ValueError, match="Llama-family"):
         ttrainer.Trainer(_spec(tmp_path, model="mlp", model_kwargs={}),
                          device="cpu")

@@ -115,7 +115,29 @@ def test_bundles_this_package_cannot_serve_are_refused(tmp_path):
         load_model(orbax, device="cpu")
     with pytest.raises(ValueError, match="quantize"):
         load_model(_bundle(tmp_path / "q", quantize="fp4"), device="cpu")
+    # A bundle without "generative" is no longer refused: it loads and
+    # predicts as the JAX runtime's fixed forward on the same weights.
+    import jax
+    import numpy as np
+
+    from kubeflow_tpu.serve import runtimes as jrt
+    from kubeflow_tpu_torch.models.convert import llama_params_from_jax
+    from kubeflow_tpu_torch.utils.registry import model_config
+
+    jdir = str(tmp_path / "jp")
+    jrt.export_for_serving(jdir, model="llama_tiny", model_kwargs=KW,
+                           seed=3, batch_buckets=(2,))
+    jmodel = jrt.load_model(jdir)
+    jmodel.load()
+    cfg = model_config("llama_tiny", **KW)
+    sd = llama_params_from_jax(
+        jax.tree.map(np.asarray, jmodel.apply_and_params()[1]), cfg)
     plain = export_for_serving(str(tmp_path / "p"), model="llama_tiny",
-                               model_kwargs=KW)
-    with pytest.raises(NotImplementedError, match="non-generative"):
-        load_model(plain, device="cpu")
+                               model_kwargs=KW, params=sd,
+                               batch_buckets=(2,))
+    model = load_model(plain, device="cpu")
+    model.load()
+    ids = np.random.default_rng(0).integers(0, 512, (2, 16)).astype(np.int32)
+    np.testing.assert_allclose(model.predict([ids])[0],
+                               jmodel.predict([ids])[0], atol=2e-4,
+                               rtol=2e-4)
