@@ -321,6 +321,7 @@ sys.path.insert(0, ROOT)
 from kubeflow_tpu_torch.models import bert as bert_mod  # noqa: E402
 from kubeflow_tpu_torch.models import hf_import as hf_mod  # noqa: E402
 from kubeflow_tpu_torch.models import llama as llama_mod  # noqa: E402
+from kubeflow_tpu_torch.models import moe as moe_mod  # noqa: E402
 from kubeflow_tpu_torch.models import peft_import  # noqa: E402
 from kubeflow_tpu_torch.ops import _build  # noqa: E402
 from kubeflow_tpu_torch.ops import flash_attention as fa  # noqa: E402
@@ -624,6 +625,9 @@ ROLLING_FP32_LAYERS, ROLLING_FP32_PROMPT, ROLLING_FP32_TOKENS = 2, 4200, 48
 ROLLING_PREFIX_HEAD, ROLLING_PREFIX_TAILS = 5000, (300, 700)
 ROLLING_SPEC_PROMPT = 4200
 MISTRAL_HF_LAYERS, MISTRAL_HTTP_PROMPT = 4, 5000
+# (ii)-(v) run Mistral-7B-v0.1's widths cut to ROLLING_LAYERS layers (its
+# published config is checked whole): the depth pays for phase 4l's time.
+ROLLING_LAYERS = 16
 # 4i: disaggregated roles on phase 4's llama3_8b, every engine over one
 # module at phase 4's settings paged (blocks of KV_BLOCK_SIZE). A prefill
 # engine ships, a decode engine admits. (ii) One request at
@@ -639,6 +643,9 @@ MISTRAL_HF_LAYERS, MISTRAL_HTTP_PROMPT = 4, 5000
 DISAGG_TEMPERATURE, DISAGG_SEED = 0.8, SEED + 41
 DISAGG_ROWS, DISAGG_ROW_TOKENS, DISAGG_WINDOW_CHUNKS = 3, 160, 2
 DISAGG_SMALL_BLOCKS = 64
+# 4i runs phase 4's llama3_8b cut to DISAGG_LAYERS layers (its widths
+# whole): the depth pays for phase 4l's time.
+DISAGG_LAYERS = 16
 # 4j: the Gemma 1/2/3 and Qwen2 config flags on random weights from the
 # seed, each config from its published config.json (google/gemma-7b,
 # google/gemma-2-9b, google/gemma-3-1b-pt, Qwen/Qwen2-7B) through
@@ -795,6 +802,60 @@ IG_STEPS, IG_GAP = 32, 0.01  # completeness within 1% of |f(x) - f(x0)|
 # KERNEL_CASES holds B1 at this shape against its plain version.
 FIXED_1B_ROWS, LORA_INT8_LAYERS, LORA_INT8_PROMPT = 8, 2, 128
 FIXED_8B_ROWS, FIXED_8B_TOKENS = 2, 16
+# 4l: the mixture-of-experts family (models/moe.py), weights from the
+# seed. (i) mistralai/Mixtral-8x7B-v0.1's widths (the registry's
+# mixtral_8x7b: 8 experts, top-2, capacity 1.25, so prefill buckets drop)
+# in bf16 at MIXTRAL_BF16_LAYERS layers: layer 0's routed block on the
+# serving path against the plain one-hot route (`forward_plain`) in fp32
+# on a MIXTRAL_FP32_PROMPT-token input; MOE_PROMPT_LENS at once on flat and
+# paged engines at depth 1 and 2 (ids equal across the four); a 4-row
+# decode step. (ii) mixtral_8x7b whole (32 layers, 46.7B parameters) in
+# int8, built part by part from the seed by the registry bundle, behind the
+# HTTP server at depth 2: MOE_PROMPT_LENS at once on :generate and the
+# longest again as a stream; the W8A16 launches of a decode step by
+# kernel; the step's wall and device time against its bound; layer 0's
+# int8 experts against the op's plain version and against the same codes
+# dequantized to bf16. (iii) Qwen/Qwen1.5-MoE-A2.7B's config.json at
+# QWEN_MOE_LAYERS layers (QKV biases drawn N(0, GEMMA_DRAW_STD)), written as
+# a huggingface checkpoint and served over --storage-uri in bf16
+# (dropless, 60 experts, top-4, a shared expert): the first token's logits
+# against the fp32 function, ids over HTTP against the engine's.
+MIXTRAL_BF16_LAYERS, MIXTRAL_FP32_PROMPT = 4, 2048
+MIXTRAL_PARAMS = 46_702_792_704
+MOE_GEN = {"slots": 4, "max_len": 4096, "chunk": CHUNK,
+           "prefill_buckets": [128, 512, 2048]}
+MOE_PROMPT_LENS, MOE_MAX_TOKENS, MOE_NAME = (100, 400, 1000, 2000), 16, "moe"
+# The serving path against the plain route in fp32: the same products
+# summed in other orders (bmm over the buffer, einsum over one-hot
+# tensors), ~1e-6 apart; 1e-5 leaves room and is far under any routing
+# change, which moves a token's output by O(1).
+MOE_FP32_TOL = 1e-5
+# ... also at this capacity factor, where a 2048-token chunk's 4096 choices
+# (512 an expert on average) overflow 256 slots: the drop path on the card.
+MOE_DROP_CAPACITY = 0.5
+# Layer 0's int8 experts against the same codes dequantized to bf16 (what
+# JAX's QuantizedModule feeds its einsum): the weights' bf16 rounding
+# (2^-9 relative) against the op's fp32 scale, through SwiGLU; the CPU
+# test of the same comparison at 256 x 512 reads ~3e-3.
+MOE_DEQUANT_TOL = 1e-2
+QWEN_MOE_CONFIG = {"architectures": ["Qwen2MoeForCausalLM"],
+                   "model_type": "qwen2_moe", "vocab_size": 151936,
+                   "hidden_size": 2048, "intermediate_size": 5632,
+                   "moe_intermediate_size": 1408,
+                   "shared_expert_intermediate_size": 5632,
+                   "num_hidden_layers": 24, "num_attention_heads": 16,
+                   "num_key_value_heads": 16, "num_experts": 60,
+                   "num_experts_per_tok": 4, "norm_topk_prob": False,
+                   "decoder_sparse_step": 1, "mlp_only_layers": [],
+                   "max_position_embeddings": 8192, "rope_theta": 1000000.0,
+                   "rms_norm_eps": 1e-06, "router_aux_loss_coef": 0.001,
+                   "sliding_window": 32768, "use_sliding_window": False,
+                   "max_window_layers": 21, "tie_word_embeddings": False,
+                   "hidden_act": "silu", "torch_dtype": "bfloat16",
+                   "bos_token_id": 151643, "eos_token_id": 151643}
+QWEN_MOE_PARAMS, QWEN_MOE_ACTIVE = 14_315_784_192, 2_689_173_504
+QWEN_MOE_LAYERS, QWEN_MOE_NAME = 2, "qwen15_moe"
+QWEN_MOE_PROMPT_LENS = (100, 1000)
 # Phase 2c: (M, K, N) of llama3_8b's projections: gate/up and down at a
 # 2048-token prefill bucket, then at 32 decode rows (the weight's read
 # bounds those).
@@ -928,6 +989,9 @@ KERNEL_CASES = [(1, s, s, 32, 8, 128, fa.MaskSpec("causal"), False)
     # generative server run it: FIXED_8B_ROWS rows of FIXED_8B_TOKENS.
     (FIXED_8B_ROWS, FIXED_8B_TOKENS, FIXED_8B_TOKENS, 32, 8, 128,
      fa.MaskSpec("causal"), False),
+    # Qwen1.5-MoE-A2.7B's attention (16 heads, 16 kv heads) at 4l (iii)'s
+    # 2048-token prefill bucket (Mixtral's 32/8 is the 8B row above).
+    (1, 2048, 2048, 16, 16, 128, fa.MaskSpec("causal"), False),
 ]
 # The llama_1b training shape (batch 12, seq 1024, 16/8 heads, Dh 128),
 # and phase 5c's llama3_8b one (batch 4, seq 2048, 32/8 heads).
@@ -1494,7 +1558,10 @@ def phase_w8a16(gk) -> dict:
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     sms = w8._sm_count(dev.index or 0)
     rows, worst_abs, worst_rel = [], 0.0, 0.0
-    for case in gk.W8A16_CASES:
+    moe = [(m, k, n, torch.bfloat16, False)
+           for m, k, n in gk.MOE_W8A16_CASES]
+    for case, is_moe in ([(c, False) for c in gk.W8A16_CASES]
+                         + [(c, True) for c in moe]):
         m, k, n, dtype, rf = case
         x, q, scale = gk.w8a16_inputs(m, k, n, dtype, gen, dev)
         plan = w8._w8a16_plan(m, k, n, dtype, True, sms)
@@ -1513,8 +1580,9 @@ def phase_w8a16(gk) -> dict:
                    and plan.kernel != w8.GEMV else "")
                 + f", rel_l2 {err['rel_l2']:.2e} (bound "
                 f"{gk.W8A16_TOL[dtype]}), two launches bit-identical")
-        if (n * k < 4096 * 1024 or dtype != torch.bfloat16
-                or m not in W8A16_TIMED_M):  # correctness only
+        if (not is_moe and (n * k < 4096 * 1024 or dtype != torch.bfloat16
+                            or m not in W8A16_TIMED_M)) or n == 1:
+            # correctness only
             log(f"  {what}")
             continue
         es = x.element_size()
@@ -1557,7 +1625,8 @@ def phase_w8a16(gk) -> dict:
                      "unembed": rf, "ms": ms,
                      "plain_ms": plain_ms, "library_ms": library_ms,
                      "bound_ms": bound, "bound_by": bound_by,
-                     "rel_l2": err["rel_l2"], "host_us": enqueue})
+                     "rel_l2": err["rel_l2"], "host_us": enqueue,
+                     "moe": is_moe})
         del x, q, scale
     torch.cuda.empty_cache()
     main = next(r for r in rows
@@ -1567,7 +1636,8 @@ def phase_w8a16(gk) -> dict:
         # The step's five weights, each with its own epilogue (the dense
         # one, the unembedding's for the 128256-row table).
         mine = {(r["k"], r["n"]): r for r in rows
-                if r["m"] == m and (r["k"], r["n"]) in W8A16_STEP
+                if r["m"] == m and not r["moe"]
+                and (r["k"], r["n"]) in W8A16_STEP
                 and r["unembed"] == (r["n"] == 128256)}
         if set(mine) != set(W8A16_STEP):
             raise RuntimeError(f"phase 2f timed no full decode step at M{m}")
@@ -4096,6 +4166,9 @@ def phase_rolling(work: str, floor: float) -> dict:
     gates["i fp32 ids = teacher-forced argmax, rejections, a hit"] = (
         small["ok"])
     log(f"  (i) took {time.monotonic() - t0:.1f}s")
+    cfg = dataclasses.replace(cfg, num_layers=ROLLING_LAYERS)
+    log(f"  (ii)-(v) at {ROLLING_LAYERS} of its "
+        f"{MISTRAL_CONFIG['num_hidden_layers']} layers")
     model = llama_mod.Llama(cfg, device=DEVICE).init_weights(SEED).eval()
     rng = np.random.default_rng(SEED + 41)
     bodies = _spec_bodies(cfg.vocab_size, ROLLING_PROMPT_LENS, SEED + 41,
@@ -4116,9 +4189,11 @@ def phase_rolling(work: str, floor: float) -> dict:
         eng, [n + ROLLING_MAX_TOKENS for n in ROLLING_PROMPT_LENS])
     _close(eng)
     engine_b1 = _b1_launches() - b0
+    rows = cfg.num_layers * ROLLING_GEN["slots"] * window
     gates["ii cache bytes"] = (
-        cache_bytes["k"] + cache_bytes["v"] == 2_147_483_648
-        and cache_bytes["pos"] == 2_097_152)
+        cache_bytes["k"] + cache_bytes["v"]
+        == 2 * rows * cfg.num_kv_heads * cfg.head_dim * 2
+        and cache_bytes["pos"] == 4 * rows)
     gates["ii engine (buckets) and overlap"] = st[
         "decode_fetch_overlapped"] > 0
     log(f"  (ii) {len(bodies)} prompts {ROLLING_PROMPT_LENS} at once, "
@@ -4148,7 +4223,7 @@ def phase_rolling(work: str, floor: float) -> dict:
     within_b1 = _b1_launches() - b0
     _close(eng)
     gates["iii a causal view, the model unchanged"] = view_ok
-    gates["iii B1 = 32 a first admission chunk"] = (
+    gates["iii B1 = a layer's a first admission chunk"] = (
         within_b1 == cfg.num_layers * wst["requests"])
     log(f"  (iii) within the window (max_len {WITHIN_GEN['max_len']}): "
         f"prompts {WITHIN_PROMPT_LENS}, {wst['prefill_chunks']} prefill "
@@ -4386,10 +4461,12 @@ def phase_disagg(work: str, floor: float) -> dict:
     adapter; then the decode step while a prompt prefills beside it, and
     (vi) :prefill and :decode over HTTP."""
     t_phase = time.monotonic()
-    cfg = registry.model_config(MODEL, **MODEL_KWARGS)
+    cfg = registry.model_config(MODEL, **MODEL_KWARGS,
+                                num_layers=DISAGG_LAYERS)
     _reset_counts()
     model = llama_mod.Llama(cfg, device=DEVICE).init_weights(SEED).eval()
     nl = cfg.num_layers
+    log(f"  {MODEL}'s widths at {nl} layers")
     paged = dict(GENERATIVE, kv_block_size=KV_BLOCK_SIZE)
     bodies = _bodies(cfg.vocab_size)
     greedy = [i for i, b in enumerate(bodies) if "temperature" not in b]
@@ -4447,7 +4524,7 @@ def phase_disagg(work: str, floor: float) -> dict:
         for ids in got)
     gates["i decode engine: no prefill chunk, no B1"] = (
         sd["prefill_chunks"] == 0 and decode_b1["i"] == 0)
-    gates["i prefill engine: B1 32 a prompt, no decode, pool drained"] = (
+    gates["i prefill engine: B1 a layer's a prompt, no decode, drained"] = (
         pre_b1 == nl * len(bodies) and sp["decode_dispatches"] == 0
         and pre_used == 0)
     gates["i blocks shipped = received = sum of ceil(len / 16)"] = (
@@ -4606,7 +4683,8 @@ def phase_disagg(work: str, floor: float) -> dict:
                         ("small", {"role": "decode",
                                    "kv_blocks": DISAGG_SMALL_BLOCKS})):
         bundle = os.path.join(work, f"disagg_{name}")
-        export_for_serving(bundle, model=MODEL, model_kwargs=MODEL_KWARGS,
+        export_for_serving(bundle, model=MODEL, model_kwargs=dict(
+                               MODEL_KWARGS, num_layers=DISAGG_LAYERS),
                            seed=SEED,
                            extra={"generative": {**paged, **extra}})
         with open(os.path.join(bundle, "model.json")) as f:
@@ -4680,7 +4758,7 @@ def phase_disagg(work: str, floor: float) -> dict:
         f"block pool can never hold {code_503}, a truncated one "
         f"{code_400}; /metrics {scraped}; {smi()}")
     launches = _b1_launches() - checks["flash"]
-    gates["B1 launches = 32 a prefill, none on a decode engine"] = (
+    gates["B1 launches = a layer's a prefill, none on a decode engine"] = (
         launches == nl * prefills[0]
         and not any(decode_b1.values()))
     del model
@@ -5444,6 +5522,428 @@ def phase_fixed(work: str, flat: dict) -> dict:
                       "fixed_forward_1b_int8": (fixed["w8a16"],
                                                 fixed["w8a16_wgmma"]),
                       "lora_int8": (lora8["w8a16"], lora8["w8a16_wgmma"])}}
+
+
+def _one_hot_dispatch(experts, slot, keep, e: int, c: int):
+    """The serving path's assignment as the plain route's dispatch tensor
+    [B, S, E, C] (a scatter on the card)."""
+    b, s = experts.shape[:2]
+    out = torch.zeros(b, s, e, c + 1, device=experts.device)
+    where = torch.where(keep, experts * (c + 1) + slot, e * (c + 1) - 1)
+    out.view(b, s, -1).scatter_(2, where, 1.0)
+    return out[..., :c]
+
+
+def _moe_fp32_block(model, cfg) -> dict:
+    """4l (i): layer 0's routed block in fp32 (a copy of its weights) on
+    the normed embeddings of a MIXTRAL_FP32_PROMPT-token prompt: the serving
+    path's choices and slots as a dispatch tensor against the plain route's
+    (equal), its output against `forward_plain`'s (rel-L2). At `cfg`'s
+    capacity factor and at MOE_DROP_CAPACITY, where choices must drop."""
+    return {cf: _moe_fp32_at(model, dataclasses.replace(
+        cfg, dtype=torch.float32, capacity_factor=cf))
+        for cf in (cfg.capacity_factor, MOE_DROP_CAPACITY)}
+
+
+def _moe_fp32_at(model, cfg) -> dict:
+    blk = moe_mod.MoEBlock(cfg, device=DEVICE)
+    blk.load_state_dict({k: v.float()
+                         for k, v in model.layers[0].mlp.state_dict().items()})
+    toks = torch.from_numpy(np.random.default_rng(SEED + 60).integers(
+        0, cfg.vocab_size, (1, MIXTRAL_FP32_PROMPT))).to(DEVICE)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    with torch.inference_mode():
+        x = model.layers[0].post_attn_norm(model.embed[toks]).float()
+        c = moe_mod.expert_capacity(cfg, x.shape[1])
+        experts, _, slot, keep = moe_mod.route(
+            x, blk.router, cfg.experts_per_token, c, cfg.norm_topk_prob)
+        dispatch, _, _ = moe_mod.gshard_route(
+            x, blk.router, cfg.experts_per_token, c, cfg.norm_topk_prob)
+        same = bool(torch.equal(_one_hot_dispatch(
+            experts, slot, keep, cfg.num_experts, c), dispatch))
+        rel = _rel_l2(blk(x), blk.forward_plain(x))
+        dropped = int((~keep).sum())
+    del blk, dispatch
+    _free()
+    return {"same": same, "rel": rel, "dropped": dropped,
+            "choices": experts.numel(), "capacity": c, "tf32": tf32}
+
+
+def _mixtral_bf16(gates: dict) -> dict:
+    """4l (i): Mixtral-8x7B's widths at MIXTRAL_BF16_LAYERS layers in bf16
+    (see the constants)."""
+    t0 = time.monotonic()
+    cfg = registry.model_config("mixtral_8x7b",
+                                num_layers=MIXTRAL_BF16_LAYERS)
+    gates["config: mixtral_8x7b = Mixtral-8x7B-v0.1"] = (
+        registry.model_config("mixtral_8x7b").num_params == MIXTRAL_PARAMS
+        and (cfg.num_experts, cfg.experts_per_token, cfg.capacity_factor)
+        == (8, 2, 1.25))
+    model = moe_mod.MoELlama(cfg, device=DEVICE).init_weights(SEED).eval()
+    build_s = time.monotonic() - t0
+    fp32s = _moe_fp32_block(model, cfg)
+    log(f"  (i) mixtral_8x7b at {cfg.num_layers} layers, bf16 "
+        f"({cfg.num_params} parameters) built in {build_s:.1f}s")
+    for cf, fp32 in fp32s.items():
+        gates[f"i fp32 at capacity {cf}: choices = the plain route's"] = (
+            fp32["same"] and not fp32["tf32"])
+        gates[f"i fp32 at capacity {cf}: output vs the plain route"] = (
+            fp32["rel"] <= MOE_FP32_TOL)
+        log(f"    (i) layer 0's block in fp32 on {MIXTRAL_FP32_PROMPT} "
+            f"tokens at capacity factor {cf} ({fp32['capacity']} slots, "
+            f"{fp32['dropped']} of {fp32['choices']} choices dropped): "
+            f"dispatch {'equal to' if fp32['same'] else 'DIFFERS from'} the "
+            f"plain route's, output rel_l2 {fp32['rel']:.3e} (bound "
+            f"{MOE_FP32_TOL}); TF32 {'on' if fp32['tf32'] else 'off'}")
+    gates[f"i fp32 at capacity {MOE_DROP_CAPACITY}: choices dropped"] = (
+        fp32s[MOE_DROP_CAPACITY]["dropped"] > 0)
+    fp32 = fp32s[cfg.capacity_factor]
+    bodies = _spec_bodies(cfg.vocab_size, MOE_PROMPT_LENS, SEED + 61,
+                          max_tokens=MOE_MAX_TOKENS)
+    runs, b1 = {}, 0
+    for paged in (False, True):
+        for depth in (1, 2):
+            kw = dict(MOE_GEN, pipeline_depth=depth)
+            if paged:
+                kw["kv_block_size"] = KV_BLOCK_SIZE
+            eng = GenerationEngine(model, **kw)
+            b0 = _b1_split()
+            torch.cuda.reset_peak_memory_stats()
+            ids, st = _engine_burst(eng, bodies)
+            peak = torch.cuda.max_memory_allocated()
+            wgmma, simt, _ = _since(b0)
+            b1 += wgmma + simt
+            name = f"{'paged' if paged else 'flat'} depth {depth}"
+            runs[name] = ids
+            gates[f"i {name}: B1 = {cfg.num_layers} a first chunk"] = (
+                wgmma == cfg.num_layers * st["requests"] and simt == 0
+                and st["prefill_chunks"] == st["requests"])
+            if name == "flat depth 2":
+                pos = [n + MOE_MAX_TOKENS for n in MOE_PROMPT_LENS]
+                wall, _ = _chunk_walls(_decode_call(eng, pos))
+                prof = _profile("4l (i) one decode chunk (bf16, "
+                                f"{cfg.num_layers} layers)",
+                                _decode_call(eng, pos))
+                step = {"ms": wall / CHUNK, "peak_gib": peak / 2**30,
+                        "device_ms": (prof["busy_ms"] / CHUNK if prof
+                                      else None)}
+            _close(eng)
+    first = runs["flat depth 1"]
+    gates["i ids: flat = paged at depth 1 and 2"] = all(
+        ids == first for ids in runs.values())
+    log(f"  (i) prompts {MOE_PROMPT_LENS} at once, {MOE_MAX_TOKENS} greedy "
+        f"ids each, flat and paged at depth 1 and 2: ids "
+        f"{'equal' if gates['i ids: flat = paged at depth 1 and 2'] else 'DIFFER'}"
+        f" ({ {k: v == first for k, v in runs.items()} }); B1 launches "
+        f"{b1}; peak {step['peak_gib']:.2f} GiB; a 4-row decode step "
+        f"{step['ms']:.2f} ms of wall (median of {ROLLING_WALL_REPS} chunks)"
+        + (f", {step['device_ms']:.2f} ms of device time"
+           if step["device_ms"] is not None else "")
+        + f"; (i) took {time.monotonic() - t0:.1f}s; {smi()}")
+    del model
+    _free()
+    return {"b1": b1, "step": step, "fp32_rel": fp32["rel"]}
+
+
+def _int8_expert_check(mlp, cfg, gk) -> dict:
+    """4l (ii): layer 0's int8 routed block (the W8A16 kernels, one launch
+    per expert and projection) at a 4-row decode shape and a
+    MIXTRAL_FP32_PROMPT-token prefill, against the same block through the
+    op's plain version, and against a bf16 block holding the same codes
+    dequantized (JAX QuantizedModule's arithmetic)."""
+    deq = moe_mod.MoEBlock(dataclasses.replace(cfg, quantized_dense=False),
+                           device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 62)
+    out = {}
+    real = squant.int8_weight_matmul
+    with torch.inference_mode():
+        deq.router.copy_(mlp.router)
+        for name in ("w_gate", "w_up", "w_down"):
+            codes = getattr(mlp, name)
+            for e in range(cfg.num_experts):
+                getattr(deq, name)[e] = (codes.q[e].float() * codes.scale[
+                    e, :, None]).t().to(cfg.dtype)
+        for shape in ((4, 1), (1, MIXTRAL_FP32_PROMPT)):
+            x = torch.randn(*shape, cfg.hidden_size, generator=gen,
+                            device=DEVICE).to(cfg.dtype)
+            w0 = _w8a16_counts()
+            got = mlp(x)
+            torch.cuda.synchronize()
+            launches = tuple(a - b for a, b in zip(_w8a16_counts(), w0))
+            squant.int8_weight_matmul = (
+                lambda x, q, scale, **kw: w8._int8_weight_matmul_plain(
+                    x, q, scale, kw.get("round_before_scale", False)))
+            try:
+                plain = mlp(x)
+            finally:
+                squant.int8_weight_matmul = real
+            out[shape] = {"launches": launches,
+                          "vs_plain": _rel_l2(got.float(), plain.float()),
+                          "vs_dequant": _rel_l2(got.float(),
+                                                deq(x).float())}
+    del deq
+    _free()
+    return out
+
+
+def _one_step(engine, positions: list):
+    """A call of one decode step (the model's forward, no sampling) of
+    the idle flat engine's rows at `positions`, on its cache cut to the
+    bucket the engine would pick: what a decode step launches."""
+    n = engine.n_slots
+    tok = torch.ones(n, 1, dtype=torch.long, device=DEVICE)
+    idx = torch.tensor(positions, dtype=torch.int32, device=DEVICE)
+    bucket = next((b for b in engine.decode_buckets
+                   if b >= max(positions) + 1), engine.decode_buckets[-1])
+    cache = {k: v[:, :, :bucket] for k, v in engine._cache.items()}
+
+    def call():
+        with torch.inference_mode():
+            engine.model(tok, cache=cache, cache_index=idx)
+    return call
+
+
+def _mixtral_int8(work: str, gk, gates: dict) -> dict:
+    """4l (ii): mixtral_8x7b whole in int8 over HTTP (see the
+    constants)."""
+    t0 = time.monotonic()
+    bundle = os.path.join(work, "mixtral_int8")
+    export_for_serving(bundle, model="mixtral_8x7b", seed=SEED, extra={
+        "quantize": "int8", "generative": MOE_GEN})
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    server = ModelServer()
+    server.load(bundle, name=MOE_NAME, device=DEVICE)
+    load_s = time.monotonic() - t0
+    load_peak = torch.cuda.max_memory_allocated()
+    port = server.start_background(0)
+    url = f"http://127.0.0.1:{port}/v1/models/{MOE_NAME}:generate"
+    served = server.models[MOE_NAME]
+    model, cfg = served.engine.model, served.engine.model.cfg
+    qbytes = squant.quantized_bytes(model)
+    bodies = _spec_bodies(cfg.vocab_size, MOE_PROMPT_LENS, SEED + 63,
+                          max_tokens=MOE_MAX_TOKENS)
+    # Two decode chunks for the first request: the second is dispatched
+    # while the first is in flight (depth 2's overlap).
+    bodies[0]["max_tokens"] = 2 * CHUNK
+    try:
+        th = time.monotonic()
+        b0, w0 = _b1_split(), _w8a16_counts()
+        torch.cuda.reset_peak_memory_stats()
+        res = _burst(lambda b: _post(url, b), bodies)
+        stream = _stream(url, dict(bodies[1], stream=True))
+        peak = torch.cuda.max_memory_allocated()
+        http_s = time.monotonic() - th
+        wgmma, simt, _ = _since(b0)
+        w8_http = tuple(a - b for a, b in zip(_w8a16_counts(), w0))
+        st = served.engine.stats_snapshot()
+        eng = served.engine
+        pos = [n + MOE_MAX_TOKENS for n in MOE_PROMPT_LENS]
+        chunk = _decode_call(eng, pos)
+        w1 = _w8a16_counts()
+        torch.cuda.synchronize()
+        tw = time.perf_counter()
+        with torch.inference_mode():
+            chunk()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - tw) * 1e3
+        per_step = tuple((a - b) / CHUNK
+                         for a, b in zip(_w8a16_counts(), w1))
+        prof = _profile("4l (ii) one decode step's forward (int8, 32 "
+                        "layers)", _one_step(eng, pos))
+        experts = _int8_expert_check(model.layers[0].mlp, cfg, gk)
+    finally:
+        server.stop()
+        del server, served, model
+        _free()
+    frames = stream["frames"]
+    streamed = [t for f in frames[:-1] for t in f.get("tokens", [])]
+    ids = [r["output_ids"] for r in res]
+    expect_step = cfg.num_layers * (4 + 3 * cfg.num_experts) + 1
+    shapes = _mixtral_step_shapes(cfg, 1)
+    code_bytes = sum(n * k for _, k, n in shapes)
+    bound_ms = (code_bytes + 4 * sum(n for _, _, n in shapes)) / (
+        PEAK_BYTES) * 1e3
+    step = {"ms": wall / CHUNK,
+            "device_ms": prof["busy_ms"] if prof else None,
+            "forward_wall_ms": prof["wall_ms"] if prof else None,
+            "engine_ms": _step_ms(st), "bound_ms": bound_ms,
+            "w8a16_per_step": per_step[0], "wgmma_per_step": per_step[1]}
+    gates["ii config: 32 layers, 46.7B parameters, int8"] = (
+        cfg.num_layers == 32 and cfg.num_params == MIXTRAL_PARAMS
+        and cfg.quantized_dense)
+    gates["ii :generate ids in range, as many as asked"] = all(
+        len(i) == b["max_tokens"]
+        and all(0 <= t < cfg.vocab_size for t in i)
+        for i, b in zip(ids, bodies))
+    gates["ii stream = its :generate"] = (
+        stream["status"] == 200 and frames[-1].get("done") is True
+        and streamed == ids[1] == frames[-1]["output_ids"])
+    gates["ii B1 = 32 a first chunk"] = (
+        wgmma == cfg.num_layers * st["requests"] and simt == 0)
+    gates[f"ii W8A16 = {expect_step} a decode step, all decode kernel"] = (
+        per_step == (expect_step, 0))
+    gates["ii depth 2 overlapped"] = st["decode_fetch_overlapped"] > 0
+    for shape, r in experts.items():
+        gates[f"ii layer 0 experts {shape}: kernels vs plain op"] = (
+            r["vs_plain"] <= gk.W8A16_TOL[torch.bfloat16]
+            and r["launches"][0] == 3 * cfg.num_experts)
+        gates[f"ii layer 0 experts {shape}: vs dequantized bf16"] = (
+            r["vs_dequant"] <= MOE_DEQUANT_TOL)
+    log(f"  (ii) mixtral_8x7b whole, int8, built part by part and loaded in "
+        f"{load_s:.1f}s (peak {load_peak / 2**30:.2f} GiB): weight bytes "
+        f"{qbytes['quantized']} ({qbytes['quantized'] / qbytes['full']:.3f}"
+        f" of bf16's {qbytes['full']}); prompts {MOE_PROMPT_LENS} at once "
+        f"over :generate ({[b['max_tokens'] for b in bodies]} ids) and the "
+        f"{MOE_PROMPT_LENS[1]}-token one again streamed ({len(frames)} "
+        f"frames, first at {stream['first_s']:.3f}s) in {http_s:.1f}s; "
+        f"{st['prefill_chunks']} prefill chunks, B1 wgmma {wgmma} "
+        f"(expected {cfg.num_layers} x {st['requests']}), CUDA-core {simt};"
+        f" W8A16 over HTTP {w8_http[0]}, of them wgmma {w8_http[1]}; "
+        f"{st['decode_fetch_overlapped']} fetches overlapped; peak "
+        f"{peak / 2**30:.2f} GiB; {smi()}")
+    log(f"    (ii) a 4-row decode step: W8A16 launches {per_step[0]:.1f} "
+        f"(expected {expect_step}: 4 attention + 3 x {cfg.num_experts} "
+        f"experts a layer, the head), wgmma {per_step[1]:.1f}; wall "
+        f"{step['ms']:.2f} ms (one chunk of {CHUNK}, device drained; the "
+        f"engine's host-inclusive {step['engine_ms']:.2f} over HTTP)"
+        + (f"; one step's forward profiled: device {prof['busy_ms']:.2f} ms"
+           if prof else "")
+        + f"; bound {bound_ms:.2f} ms ({code_bytes} bytes of codes and "
+        f"their scales over {PEAK_BYTES / 1e12} TB/s)")
+    for shape, r in experts.items():
+        log(f"    (ii) layer 0's experts at x {list(shape)} x "
+            f"{cfg.hidden_size}: W8A16 launches {r['launches'][0]} (wgmma "
+            f"{r['launches'][1]}); rel_l2 vs the op's plain version "
+            f"{r['vs_plain']:.3e} (bound {gk.W8A16_TOL[torch.bfloat16]}), "
+            f"vs the codes dequantized to bf16 {r['vs_dequant']:.3e} (bound "
+            f"{MOE_DEQUANT_TOL})")
+    log(f"    (ii) took {time.monotonic() - t0:.1f}s")
+    return {"b1": wgmma + simt, "w8a16": w8_http, "step": step,
+            "peak_gib": peak / 2**30, "bytes": qbytes, "load_s": load_s}
+
+
+def _mixtral_step_shapes(cfg, m: int) -> list:
+    """(M, K, N) of every W8A16 launch of an int8 Mixtral decode step of m
+    rows (C 1: each expert's buffer holds m rows): q/k/v/o, then gate, up
+    and down of each expert, a layer; then the head."""
+    d, i = cfg.hidden_size, cfg.intermediate_size
+    q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    layer = ([(m, d, q), (m, d, kv), (m, d, kv), (m, q, d)]
+             + [(m, d, i), (m, d, i), (m, i, d)] * cfg.num_experts)
+    return layer * cfg.num_layers + [(m, d, cfg.vocab_size)]
+
+
+def _qwen_moe(work: str, gates: dict) -> dict:
+    """4l (iii): Qwen1.5-MoE-A2.7B's widths at QWEN_MOE_LAYERS layers over
+    --storage-uri in bf16 (see the constants)."""
+    t0 = time.monotonic()
+    full = hf_mod.config_from_hf(QWEN_MOE_CONFIG)
+    hf = dict(QWEN_MOE_CONFIG, num_hidden_layers=QWEN_MOE_LAYERS)
+    cfg = hf_mod.config_from_hf(hf)
+    gates["iii config: Qwen1.5-MoE-A2.7B's widths, dropless"] = (
+        (full.num_params, full.active_params)
+        == (QWEN_MOE_PARAMS, QWEN_MOE_ACTIVE)
+        and (cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+             cfg.intermediate_size, cfg.shared_expert_size, cfg.num_experts,
+             cfg.experts_per_token, cfg.norm_topk_prob, cfg.attention_bias,
+             cfg.vocab_size, cfg.tie_embeddings, cfg.capacity_factor)
+        == (2048, 16, 16, 128, 1408, 5632, 60, 4, False, True, 151936,
+            False, 15.0))
+    model = moe_mod.MoELlama(cfg, device=DEVICE).init_weights(SEED).eval()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 64)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(".bias"):
+                p.normal_(0.0, GEMMA_DRAW_STD, generator=gen)
+    ckpt = os.path.join(work, "hf_qwen_moe")
+    os.makedirs(ckpt, exist_ok=True)
+    tw = time.monotonic()
+    tensors = hf_mod.hf_tensors(model.state_dict(), cfg, "qwen2_moe")
+    nbytes = sum(t.numel() * t.element_size() for t in tensors.values())
+    hf_mod.save_safetensors({k: v.cpu() for k, v in tensors.items()},
+                            os.path.join(ckpt, "model.safetensors"))
+    del tensors
+    write_s = time.monotonic() - tw
+    with open(os.path.join(ckpt, "config.json"), "w") as f:
+        json.dump(hf, f)
+    with open(os.path.join(ckpt, "model.json"), "w") as f:
+        json.dump({"format": "huggingface", "generative": MOE_GEN}, f)
+    bodies = _spec_bodies(cfg.vocab_size, QWEN_MOE_PROMPT_LENS, SEED + 65,
+                          max_tokens=MOE_MAX_TOKENS)
+    ts = time.monotonic()
+    server, port = server_mod.start([
+        "--storage-uri", f"file://{ckpt}", "--name", QWEN_MOE_NAME,
+        "--host", "127.0.0.1", "--port", "0", "--device", DEVICE])
+    serve_s = time.monotonic() - ts
+    try:
+        b0 = _b1_split()
+        ids = [r["output_ids"] for r in _burst(lambda b: _post(
+            f"http://127.0.0.1:{port}/v1/models/{QWEN_MOE_NAME}:generate",
+            b), bodies)]
+        wgmma, simt, _ = _since(b0)
+        st = server.models[QWEN_MOE_NAME].engine.stats_snapshot()
+        loaded = server.models[QWEN_MOE_NAME].engine.model
+        is_moe = isinstance(loaded.layers[0].mlp, moe_mod.MoEBlock)
+    finally:
+        server.stop()
+        del server
+        _free()
+    eng = GenerationEngine(model, **MOE_GEN)
+    want, _ = _engine_burst(eng, bodies)
+    logits: list = []
+    with _first_logits(eng.model, logits):
+        eng.submit(bodies[1]["input_ids"], max_tokens=1, timeout=600)
+    _close(eng)
+    ref = moe_mod.MoELlama(dataclasses.replace(cfg, dtype=torch.float32),
+                           device=DEVICE)
+    ref.load_state_dict({k: v.float() for k, v in model.state_dict().items()})
+    with torch.inference_mode():
+        hidden = ref(torch.tensor([bodies[1]["input_ids"]], device=DEVICE),
+                     return_hidden=True)
+        want_logits = ref.unembed(hidden[0, -1]).float()
+    rel = _rel_l2(logits[0], want_logits)
+    del ref, hidden, model
+    _free()
+    gates["iii served as MoE, ids = the engine's"] = is_moe and ids == want
+    gates["iii B1 = 2 a first chunk"] = (
+        wgmma == cfg.num_layers * st["requests"] and simt == 0)
+    gates["iii first-token logits vs the fp32 function"] = (
+        rel <= LOGITS_REL_L2_MAX)
+    log(f"  (iii) Qwen1.5-MoE-A2.7B's config.json ({full.num_params} "
+        f"parameters, {full.active_params} active) at {cfg.num_layers} "
+        f"layers: {nbytes} bytes written in {write_s:.2f}s, serving "
+        f"{serve_s:.1f}s after --storage-uri; prompts {QWEN_MOE_PROMPT_LENS}"
+        f" at once over HTTP, ids {'equal' if ids == want else 'DIFFER from'}"
+        f" the engine's; B1 wgmma {wgmma} (expected {cfg.num_layers} x "
+        f"{st['requests']}), CUDA-core {simt}; the "
+        f"{QWEN_MOE_PROMPT_LENS[1]}-token prompt's first-token logits "
+        f"rel_l2 {rel:.3e} from the fp32 function (bound "
+        f"{LOGITS_REL_L2_MAX}); (iii) took {time.monotonic() - t0:.1f}s")
+    return {"b1": wgmma + simt, "rel_l2": rel}
+
+
+def phase_moe(work: str, gk) -> dict:
+    """4l: the mixture-of-experts family: (i) Mixtral-8x7B's widths at 4
+    layers in bf16, (ii) mixtral_8x7b whole in int8 over HTTP, (iii)
+    Qwen1.5-MoE-A2.7B's widths over --storage-uri (see the constants)."""
+    t_phase = time.monotonic()
+    _free()
+    gates: dict = {}
+    bf16 = _mixtral_bf16(gates)
+    int8 = _mixtral_int8(work, gk, gates)
+    qwen = _qwen_moe(work, gates)
+    log(f"  4l took {time.monotonic() - t_phase:.1f}s; {smi()}")
+    for gate, ok in gates.items():
+        log(f"  gate {gate}: {'OK' if ok else 'FAIL'}")
+    if not all(gates.values()):
+        raise RuntimeError(f"MoE gates failed: "
+                           f"{[g for g, ok in gates.items() if not ok]}")
+    return {"fwd_launches": {"mixtral_bf16_serving": bf16["b1"],
+                             "mixtral_int8_serving": int8["b1"],
+                             "qwen15_moe_serving": qwen["b1"]},
+            "w8a16_launches": int8["w8a16"], "bf16": bf16, "int8": int8,
+            "qwen": qwen}
 
 
 def _decode_in_situ(ordered_ms: list) -> dict | None:
@@ -6753,6 +7253,10 @@ def main() -> int:
                     "int8 bundle, integrated gradients on mnist_mlp, "
                     "llama_1b's fixed-forward bundle and its int8 form, LoRA "
                     "on int8 projections", phase_fixed, bundle, flat)
+        moe = run("4l", "the mixture-of-experts family: Mixtral-8x7B's "
+                  "widths in bf16 at 4 layers, mixtral_8x7b whole in int8 "
+                  "over HTTP, Qwen1.5-MoE-A2.7B's widths over --storage-uri",
+                  phase_moe, bundle, gk)
     finally:
         shutil.rmtree(bundle, ignore_errors=True)
     train = run("5", f"training {TRAIN_MODEL} through the trainer",
@@ -6786,6 +7290,7 @@ def main() -> int:
                     "disaggregated_serving": disagg["launches"],
                     **gemma["fwd_launches"],
                     **fixed["b1"],
+                    **moe["fwd_launches"],
                     "training": train["launches"][0],
                     "packed_training": job["launches"][0],
                     "lora_training": lora_run["launches"][0],
@@ -6897,16 +7402,19 @@ def main() -> int:
         "tpu_kernel": False,
         "launches": (quant["w8a16_launches"] + spec["w8a16_launches"]
                      + gemma["w8a16_launches"][0]
-                     + sum(n for n, _ in fixed["w8a16"].values())),
+                     + sum(n for n, _ in fixed["w8a16"].values())
+                     + moe["w8a16_launches"][0]),
         "launches_wgmma": (quant["w8a16_wgmma_launches"]
                            + spec["w8a16_wgmma_launches"]
                            + gemma["w8a16_launches"][1]
-                           + sum(n for _, n in fixed["w8a16"].values())),
+                           + sum(n for _, n in fixed["w8a16"].values())
+                           + moe["w8a16_launches"][1]),
         "launches_by_path": {
             "paged_quant_serving": quant["w8a16_launches"],
             "speculative_serving": spec["w8a16_launches"],
             "qwen2_int8_serving": gemma["w8a16_launches"][0],
-            **{path: n for path, (n, _) in fixed["w8a16"].items()}},
+            **{path: n for path, (n, _) in fixed["w8a16"].items()},
+            "mixtral_int8_serving": moe["w8a16_launches"][0]},
         "max_abs_err": w8r["max_abs_err"], "rel_l2_err": w8r["rel_l2_err"],
         "ms": wmain["ms"], "plain_ms": wmain["plain_ms"],
         "bound_ms": wmain["bound_ms"], "bound_by": wmain["bound_by"],

@@ -57,6 +57,15 @@ def llama_params_from_jax(params_np, cfg: LlamaConfig) -> dict:
     [L, r, H, Dh], v's [L, r, KH, Dh]) its B [out, r], in the storage
     dtype.
 
+    An `MoEConfig`'s layers carry the routed MLP instead of the dense
+    one (models/moe.py, the JAX layout kept): `mlp/router` [L, H, E] in
+    fp32, `mlp/w_gate`/`w_up` [L, E, H, M] and `mlp/w_down` [L, E, M, H],
+    and with a shared expert `mlp/w_shared_gate`/`w_shared_up` [L, H, Ms],
+    `mlp/w_shared_down` [L, Ms, H] and `mlp/shared_gate` [L, H, 1]. An
+    `Int8Leaf` expert stack becomes an `Int8Experts`' codes [E, out, in]
+    and scales [E, out]; an int8 shared leaf an `Int8Dense`'s [out, in]
+    codes and [out] scales.
+
     The layout transforms are linear, so the same call maps a JAX
     GRADIENT tree (same structure as the params) onto the port's
     parameter names: that is how the tests compare gradients."""
@@ -110,13 +119,19 @@ def llama_params_from_jax(params_np, cfg: LlamaConfig) -> dict:
                         lambda x: x.reshape(d, kh * dh).T),
         "attn.o_proj": ("attn/o_proj", (n, h, dh, d), d,
                         lambda x: x.reshape(h * dh, d).T),
-        "mlp.gate_proj": ("mlp/gate_proj", (n, d, inter), inter,
-                          lambda x: x.T),
-        "mlp.up_proj": ("mlp/up_proj", (n, d, inter), inter, lambda x: x.T),
-        "mlp.down_proj": ("mlp/down_proj", (n, inter, d), d, lambda x: x.T),
     }
+    moe = hasattr(cfg, "num_experts")
+    if not moe:
+        layer_kernels.update({
+            "mlp.gate_proj": ("mlp/gate_proj", (n, d, inter), inter,
+                              lambda x: x.T),
+            "mlp.up_proj": ("mlp/up_proj", (n, d, inter), inter,
+                            lambda x: x.T),
+            "mlp.down_proj": ("mlp/down_proj", (n, inter, d), d,
+                              lambda x: x.T)})
     stacked = {name: (*kernel(f"layers/{path}/kernel", shape, out), fn)
                for name, (path, shape, out, fn) in layer_kernels.items()}
+    routed = _moe_leaves(cfg, kernel, take) if moe else {}
     outs = {"q_proj": (h, dh), "v_proj": (kh, dh), "gate_proj": (inter,),
             "up_proj": (inter,), "down_proj": (d,)}
     ins = {"q_proj": d, "v_proj": d, "gate_proj": d, "up_proj": d,
@@ -167,10 +182,41 @@ def llama_params_from_jax(params_np, cfg: LlamaConfig) -> dict:
             sd[p + name + ".scale"] = scales[i].clone()
         for name, bias in biases.items():
             sd[p + name + ".bias"] = bias[i].clone()
+        for name, (values, scale, to_port) in routed.items():
+            if scale is None:
+                sd[p + name] = values[i].contiguous()
+            else:
+                sd[p + name + ".q"] = to_port(values[i]).contiguous()
+                sd[p + name + ".scale"] = scale[i].clone()
     extra = sorted(set(flat) - used)
     if extra:
         raise ValueError(f"flax params not consumed by the port: {extra}")
     return sd
+
+
+def _moe_leaves(cfg, kernel, take) -> dict:
+    """{port name under `layers.{i}.`: (values [L, ...], scales [L, out...]
+    or None, codes to the port's layout)} of an MoE config's routed MLP:
+    the fp32 router as it is, float expert and shared leaves in the JAX
+    layout, int8 ones as [.., out, in] codes (`kernel` flattens their
+    scales)."""
+    n, d, m = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
+    e, ms = cfg.num_experts, cfg.shared_expert_size
+    out = {"mlp.router": (take("layers/mlp/router", torch.float32,
+                               (n, d, e)), None, None)}
+    leaves = [("w_gate", (n, e, d, m), e * m), ("w_up", (n, e, d, m), e * m),
+              ("w_down", (n, e, m, d), e * d)]
+    if ms:
+        leaves += [("w_shared_gate", (n, d, ms), ms),
+                   ("w_shared_up", (n, d, ms), ms),
+                   ("w_shared_down", (n, ms, d), d),
+                   ("shared_gate", (n, d, 1), 1)]
+    for name, shape, count in leaves:
+        values, scale = kernel(f"layers/mlp/{name}", shape, count)
+        if scale is not None and len(shape) == 4:
+            scale = scale.reshape(n, e, -1)
+        out[f"mlp.{name}"] = (values, scale, lambda x: x.transpose(-1, -2))
+    return out
 
 
 class _Taker:

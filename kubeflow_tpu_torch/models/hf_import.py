@@ -20,7 +20,10 @@ fault); `save_safetensors` replaces a file by a rename, never in place.
 
 The Llama import translates names only: HF stores a Linear as [out, in],
 the port's layout, so no transposes and no head reshapes; RoPE needs no
-permutation (HF Llama rotates halves, as `models/llama.apply_rope`).
+permutation (HF Llama rotates halves, as `models/llama.apply_rope`). The
+mixture-of-experts families (Mixtral, Qwen2-MoE: `import_mixtral`,
+`import_qwen2_moe`) load onto `models/moe.py`, whose expert stacks keep the
+JAX layout: each expert's Linear is transposed and stacked.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ import torch
 
 from kubeflow_tpu_torch.models.bert import BertConfig
 from kubeflow_tpu_torch.models.llama import LlamaConfig, _check_supported
+from kubeflow_tpu_torch.models.moe import MoEConfig
 
 #: safetensors dtype names -> torch dtypes (the F8 names are the torch
 #: float8 types of the same encoding).
@@ -329,8 +333,9 @@ def llama_hf_names(cfg: LlamaConfig) -> dict:
         if cfg.attention_bias:
             for p in ("q_proj", "k_proj", "v_proj"):
                 names[f"{hf}self_attn.{p}.bias"] = f"{port}attn.{p}.bias"
-        for p in ("gate_proj", "up_proj", "down_proj"):
-            names[f"{hf}mlp.{p}.weight"] = f"{port}mlp.{p}.weight"
+        if not isinstance(cfg, MoEConfig):  # the routed MLP: _moe_state_dict
+            for p in ("gate_proj", "up_proj", "down_proj"):
+                names[f"{hf}mlp.{p}.weight"] = f"{port}mlp.{p}.weight"
         for name, key in norms.items():
             names[f"{hf}{name}.weight"] = f"{port}{key}.scale"
     return names
@@ -356,9 +361,16 @@ def _llama_state_dict(t: dict, cfg: LlamaConfig) -> dict:
 _LLAMA_FAMILIES = ("Llama", "Mistral", "Qwen2")
 
 
-def _load(path: str, cfg: LlamaConfig) -> tuple[LlamaConfig, dict]:
+def _load(path: str, cfg: LlamaConfig,
+          family: str | None = None) -> tuple[LlamaConfig, dict]:
+    """(cfg, state dict) of a checkpoint; an MoE `family` ("mixtral" or
+    "qwen2_moe", `_moe_family`) names its routed MLP's tensors."""
     _check_supported(cfg)
-    return cfg, _llama_state_dict(load_safetensors_dir(path), cfg)
+    t = load_safetensors_dir(path)
+    sd = _llama_state_dict(t, cfg)
+    if family is not None:
+        sd.update(_moe_state_dict(t, cfg, path, family == "qwen2_moe"))
+    return cfg, sd
 
 
 def _llama_config(hf: dict, overrides: dict) -> LlamaConfig:
@@ -543,6 +555,168 @@ def import_gemma3(path: str, **overrides: Any) -> tuple[LlamaConfig, dict]:
 
 
 # ---------------------------------------------------------------------------
+# Mixture of experts (Mixtral, Qwen2-MoE)
+# ---------------------------------------------------------------------------
+
+_MOE_FIELDS = frozenset(f.name for f in dataclasses.fields(MoEConfig))
+
+
+def _moe_config(base: LlamaConfig, overrides: dict, **fields) -> MoEConfig:
+    """`base`'s fields plus the MoE ones, then the caller's overrides (MoE
+    fields included), as the JAX importers replace them last."""
+    unknown = sorted(set(overrides) - _MOE_FIELDS)
+    if unknown:
+        raise ValueError(f"model_overrides {unknown} are not MoEConfig "
+                         "fields")
+    cfg = MoEConfig(**{**{f.name: getattr(base, f.name)
+                          for f in dataclasses.fields(base) if f.init},
+                       **fields})
+    return dataclasses.replace(cfg, **overrides) if overrides else cfg
+
+
+def _mixtral_config(hf: dict, overrides: dict) -> MoEConfig:
+    arch = (hf.get("architectures") or ["MixtralForCausalLM"])[0]
+    if "Mixtral" not in arch:
+        raise ValueError(f"import_mixtral cannot load architecture {arch!r}")
+    e, k = int(hf["num_local_experts"]), int(hf["num_experts_per_tok"])
+    return _moe_config(
+        llama_config_from_hf(hf), overrides, num_experts=e,
+        experts_per_token=k, capacity_factor=e / k,
+        router_aux_coef=float(hf.get("router_aux_loss_coef", 0.01)))
+
+
+def import_mixtral(path: str, **overrides: Any) -> tuple[MoEConfig, dict]:
+    """HF Mixtral checkpoint dir -> (MoEConfig, state dict for
+    `MoELlama(cfg)`). HF Mixtral routes softmax, top-k, renormalise over
+    all experts (`gshard_route`'s recipe) and serves DROPLESS, so the
+    config pins capacity_factor = E/K (capacity = S per expert: nothing
+    drops). Per layer: `block_sparse_moe.gate` [E, H] becomes the router
+    [H, E] (fp32), experts' w1/w3 [M, H] `w_gate`/`w_up` [E, H, M], w2
+    [H, M] `w_down` [E, M, H]."""
+    return _load(path, _mixtral_config(read_hf_config(path), overrides),
+                 "mixtral")
+
+
+def _qwen2_moe_config(hf: dict, overrides: dict) -> MoEConfig:
+    arch = (hf.get("architectures") or [""])[0]
+    if not ("Qwen2Moe" in arch or hf.get("model_type") == "qwen2_moe"):
+        raise ValueError(
+            f"import_qwen2_moe cannot load architecture {arch!r}")
+    if hf.get("mlp_only_layers"):
+        raise ValueError(
+            f"mlp_only_layers={hf['mlp_only_layers']}: dense layers "
+            "interleaved into the MoE trunk are not supported (the "
+            "scanned trunk is homogeneous)")
+    if int(hf.get("decoder_sparse_step", 1)) != 1:
+        raise ValueError(
+            f"decoder_sparse_step={hf['decoder_sparse_step']}: only "
+            "every-layer-sparse checkpoints are supported")
+    e, k = int(hf["num_experts"]), int(hf["num_experts_per_tok"])
+    base = llama_config_from_hf(hf, attention_bias=True)
+    # The dense intermediate_size is the shared expert's width; routed
+    # experts use moe_intermediate_size.
+    base = dataclasses.replace(
+        base, intermediate_size=int(hf["moe_intermediate_size"]))
+    return _moe_config(
+        base, overrides, num_experts=e, experts_per_token=k,
+        capacity_factor=e / k,  # dropless (see import_mixtral)
+        norm_topk_prob=bool(hf.get("norm_topk_prob", False)),
+        shared_expert_size=int(hf["shared_expert_intermediate_size"]),
+        router_aux_coef=float(hf.get("router_aux_loss_coef", 0.001)))
+
+
+def import_qwen2_moe(path: str, **overrides: Any) -> tuple[MoEConfig, dict]:
+    """HF Qwen2-MoE checkpoint dir -> (MoEConfig, state dict for
+    `MoELlama(cfg)`): Mixtral's recipe (dropless at E/K) plus the shared
+    expert (an always-on SwiGLU of `shared_expert_intermediate_size`
+    scaled by a sigmoid gate, `shared_expert_gate` [1, H] -> [H, 1]),
+    `norm_topk_prob` (false by default: raw softmax mass), Qwen2's QKV
+    biases and expert width `moe_intermediate_size`. Heterogeneous layouts
+    (`mlp_only_layers`, `decoder_sparse_step` != 1) are refused, and so is
+    a dense Qwen2 checkpoint labelled qwen2_moe."""
+    return _load(path, _qwen2_moe_config(read_hf_config(path), overrides),
+                 "qwen2_moe")
+
+
+def _moe_family(hf: dict) -> str | None:
+    """"mixtral", "qwen2_moe" or None: the JAX dispatch's tests."""
+    arch = (hf.get("architectures") or [hf.get("model_type", "")])[0]
+    mtype = hf.get("model_type", "")
+    if "Mixtral" in arch or mtype == "mixtral":
+        return "mixtral"
+    if "Qwen2Moe" in arch or mtype == "qwen2_moe":
+        return "qwen2_moe"
+    return None
+
+
+def _moe_state_dict(t: dict, cfg: MoEConfig, path: str, qwen: bool) -> dict:
+    """The routed MLP's leaves (models/moe.py names, the JAX layout) from
+    HF Mixtral or Qwen2-MoE tensors: the router in fp32, expert and
+    shared leaves transposed to [in, out] and stacked, in the storage
+    dtype."""
+    if qwen and "model.layers.0.mlp.gate.weight" not in t:
+        raise ValueError(
+            f"config at {path!r} says qwen2_moe but the checkpoint has "
+            "no expert router tensors (model.layers.*.mlp.gate.weight) — "
+            "a dense-Qwen2 or truncated export mislabeled as MoE")
+    block = "mlp" if qwen else "block_sparse_moe"
+    names = (("gate_proj", "up_proj", "down_proj") if qwen
+             else ("w1", "w3", "w2"))
+    dt = cfg.storage_dtype
+
+    def get(name):
+        if name not in t:
+            raise KeyError(f"checkpoint has no tensor {name!r}")
+        return t[name]
+
+    sd = {}
+    for i in range(cfg.num_layers):
+        hf, port = f"model.layers.{i}.{block}.", f"layers.{i}.mlp."
+        sd[port + "router"] = get(hf + "gate.weight").t().float().contiguous()
+        for leaf, name in zip(("w_gate", "w_up", "w_down"), names):
+            sd[port + leaf] = torch.stack([
+                get(f"{hf}experts.{e}.{name}.weight").t().to(dt)
+                for e in range(cfg.num_experts)])
+        if qwen and cfg.shared_expert_size:
+            for leaf, name in (("w_shared_gate", "shared_expert.gate_proj"),
+                               ("w_shared_up", "shared_expert.up_proj"),
+                               ("w_shared_down", "shared_expert.down_proj"),
+                               ("shared_gate", "shared_expert_gate")):
+                sd[port + leaf] = get(f"{hf}{name}.weight").t().to(
+                    dt).contiguous()
+    return sd
+
+
+def hf_tensors(sd: dict, cfg: LlamaConfig,
+               family: str | None = None) -> dict:
+    """The inverse of the import: a Llama-family state dict of `cfg` as
+    {HF tensor name: tensor}, for an MoE `family` ("mixtral",
+    "qwen2_moe") each expert's Linear split out of its stack and
+    transposed back to [out, in]. Writes synthetic checkpoints."""
+    out = {h: sd[k] for h, k in llama_hf_names(cfg).items()}
+    if family is None:
+        return out
+    qwen = family == "qwen2_moe"
+    block = "mlp" if qwen else "block_sparse_moe"
+    names = (("gate_proj", "up_proj", "down_proj") if qwen
+             else ("w1", "w3", "w2"))
+    for i in range(cfg.num_layers):
+        hf, port = f"model.layers.{i}.{block}.", f"layers.{i}.mlp."
+        out[hf + "gate.weight"] = sd[port + "router"].t().contiguous()
+        for leaf, name in zip(("w_gate", "w_up", "w_down"), names):
+            for e in range(cfg.num_experts):
+                out[f"{hf}experts.{e}.{name}.weight"] = sd[
+                    port + leaf][e].t().contiguous()
+        if qwen and cfg.shared_expert_size:
+            for leaf, name in (("w_shared_gate", "shared_expert.gate_proj"),
+                               ("w_shared_up", "shared_expert.up_proj"),
+                               ("w_shared_down", "shared_expert.down_proj"),
+                               ("shared_gate", "shared_expert_gate")):
+                out[f"{hf}{name}.weight"] = sd[port + leaf].t().contiguous()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # BERT
 # ---------------------------------------------------------------------------
 
@@ -688,12 +862,8 @@ _REFUSED = (
                          "MT5ForConditionalGeneration",
                          "UMT5ForConditionalGeneration")
                    or m in ("t5", "mt5", "umt5")), "T5/MT5/UMT5", "A8"),
-    (lambda a, m: "Mixtral" in a or m == "mixtral",
-     "Mixtral (models/moe.py)", "A8"),
 )
 _REFUSED_AFTER_GEMMA = (
-    (lambda a, m: "Qwen2Moe" in a or m == "qwen2_moe",
-     "Qwen2-MoE (models/moe.py)", "A8"),
     (lambda a, m: "T5" in a or m.endswith("t5"), "T5/MT5/UMT5", "A8"),
 )
 
@@ -715,15 +885,18 @@ def config_from_hf(hf: dict, **overrides: Any) -> LlamaConfig | BertConfig:
     """The config `build_from_hf` gives a checkpoint whose config.json is
     `hf`, with every refusal, without reading a tensor: the JAX
     `build_from_hf`'s dispatch order, BERT first (a `BertConfig`; whether
-    the checkpoint has a pooler shows only in its tensors), else a
-    `LlamaConfig`. Families whose models are not ported are refused by
-    name."""
+    the checkpoint has a pooler shows only in its tensors), Mixtral and
+    Qwen2-MoE an `MoEConfig`, else a `LlamaConfig`. Families whose models
+    are not ported are refused by name."""
     if _is_bert(hf):
         overrides.pop("allow_headless", None)
         return bert_config_from_hf(hf, **overrides)
     arch = (hf.get("architectures") or [hf.get("model_type", "")])[0]
     mtype = hf.get("model_type", "")
     _refuse(_REFUSED, arch, mtype)
+    family = _moe_family(hf)
+    if family == "mixtral":
+        return _mixtral_config(hf, overrides)
     if "Gemma3" in arch or mtype in ("gemma3", "gemma3_text"):
         return _gemma3_config(hf, overrides)
     if arch == "Gemma2ForCausalLM" or mtype == "gemma2":
@@ -733,15 +906,20 @@ def config_from_hf(hf: dict, **overrides: Any) -> LlamaConfig | BertConfig:
         raise ValueError(f"unsupported architecture {arch!r}")
     if arch == "GemmaForCausalLM" or mtype == "gemma":
         return _gemma_config(hf, overrides)
+    if family == "qwen2_moe":
+        return _qwen2_moe_config(hf, overrides)
     _refuse(_REFUSED_AFTER_GEMMA, arch, mtype)
     return _llama_config(hf, overrides)
 
 
 def build_from_hf(path: str, **overrides: Any) -> tuple[Any, dict]:
     """Architecture-dispatched import (`config_from_hf`): (BertConfig,
-    state dict) for BERT, else (LlamaConfig, state dict). Callers that
-    build a Llama check the type."""
+    state dict) for BERT, else (LlamaConfig or MoEConfig, state dict).
+    Callers that build a Llama check the type (`models.moe.causal_lm`
+    builds the model of either)."""
     hf = read_hf_config(path)
     if _is_bert(hf):
         return import_bert(path, **overrides)
-    return _load(path, config_from_hf(hf, **overrides))
+    cfg = config_from_hf(hf, **overrides)
+    return _load(path, cfg,
+                 _moe_family(hf) if isinstance(cfg, MoEConfig) else None)

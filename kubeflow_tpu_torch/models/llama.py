@@ -688,15 +688,23 @@ class MLPBlock(nn.Module):
         return _project(self, "down_proj", h, adapter)
 
 
+#: The MLP projections a multi-LoRA stack can adapt; DecoderLayer hands
+#: the MLP only these (the JAX layer's `mlp_ad`).
+MLP_PROJECTIONS = ("gate_proj", "up_proj", "down_proj")
+
+
 class DecoderLayer(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device):
+    """`mlp_cls` is the layer's FFN class (JAX's `mlp_cls`): None is the
+    dense `MLPBlock`; models/moe.py passes its routed-expert `MoEBlock`."""
+
+    def __init__(self, cfg: LlamaConfig, device, mlp_cls=None):
         super().__init__()
         d = cfg.hidden_size
         self.input_norm = _norm(cfg, d, device)
         self.attn = Attention(cfg, device)
         # With sandwich norms this plays HF's pre_feedforward_layernorm.
         self.post_attn_norm = _norm(cfg, d, device)
-        self.mlp = MLPBlock(cfg, device)
+        self.mlp = (mlp_cls or MLPBlock)(cfg, device)
         # Gemma-2's sandwich norms on the branch outputs (HF
         # post_attention_layernorm, post_feedforward_layernorm).
         self.attn_out_norm = (_norm(cfg, d, device) if cfg.sandwich_norms
@@ -726,6 +734,9 @@ class DecoderLayer(nn.Module):
             segment_ids=segment_ids, sliding=sliding))
 
     def mlp_branch(self, x, adapter=None):
+        if adapter is not None:  # only the MLP's own factors, or None
+            adapter = {k: adapter[k] for k in MLP_PROJECTIONS
+                       if k in adapter} or None
         out = self.mlp(self.post_attn_norm(x), adapter)
         return out if self.mlp_out_norm is None else self.mlp_out_norm(out)
 
@@ -761,6 +772,25 @@ def _remat_layer(policy: str, layer: DecoderLayer, x, cos, sin, positions,
                       use_reentrant=False, **kwargs)
 
 
+def _is_meta(device) -> bool:
+    return device is not None and torch.device(device).type == "meta"
+
+
+def draw_weights(mod: nn.Module, gen: torch.Generator) -> None:
+    """`mod`'s own weights (not its children's) from `gen`, as
+    `Llama.init_weights` draws them: an nn.Linear N(0, 1/fan_in) with a
+    zero bias, an RMSNorm's scale 1 (0 for (1 + w)), and a module with its
+    own `draw_weights(gen)` (the routed experts) by that."""
+    if isinstance(mod, nn.Linear):
+        mod.weight.normal_(0.0, mod.in_features ** -0.5, generator=gen)
+        if mod.bias is not None:
+            mod.bias.zero_()
+    elif isinstance(mod, RMSNorm):
+        mod.scale.fill_(0.0 if mod.plus_one else 1.0)
+    elif hasattr(mod, "draw_weights"):
+        mod.draw_weights(gen)
+
+
 class Llama(nn.Module):
     """Causal LM. `forward` returns logits [B, S, V] in cfg.dtype.
 
@@ -774,12 +804,17 @@ class Llama(nn.Module):
     With `cfg.quantized_dense` every projection is an `Int8Dense` and the
     embedding an `Int8Dense` table (codes [V, D], scales [V]); such a model
     takes its weights from a state dict (`quantize_model` makes one from a
-    float model)."""
+    float model). `mlp_cls` is every layer's FFN class (None: the dense
+    `MLPBlock`; `models.moe.MoELlama` passes `MoEBlock`).
 
-    def __init__(self, cfg: LlamaConfig, device=None):
+    `device="meta"` allocates nothing: `serve.quant.init_quantized` fills
+    such a model part by part."""
+
+    def __init__(self, cfg: LlamaConfig, device=None, mlp_cls=None):
         super().__init__()
         _check_supported(cfg)
-        device = resolve_device(device)
+        device = (torch.device("meta") if _is_meta(device)
+                  else resolve_device(device))
         self.cfg = cfg
         if cfg.quantized_dense:
             self.embed = Int8Dense(cfg.hidden_size, cfg.vocab_size,
@@ -788,11 +823,16 @@ class Llama(nn.Module):
             self.embed = nn.Parameter(torch.empty(
                 cfg.vocab_size, cfg.hidden_size, dtype=cfg.storage_dtype,
                 device=device))
-        self.layers = nn.ModuleList(DecoderLayer(cfg, device)
+        self.layers = nn.ModuleList(DecoderLayer(cfg, device, mlp_cls)
                                     for _ in range(cfg.num_layers))
         self.final_norm = _norm(cfg, cfg.hidden_size, device)
         self.lm_head = (None if cfg.tie_embeddings else _dense(
             cfg, cfg.hidden_size, cfg.vocab_size, device))
+        self.set_rope_tables(device)
+
+    def set_rope_tables(self, device) -> None:
+        """(Re)make the RoPE tables on `device` (non-persistent buffers)."""
+        cfg = self.cfg
         cos, sin = rope_table(cfg.head_dim, cfg.max_seq_len, cfg.rope_theta,
                               cfg, device=device)
         self.register_buffer("rope_cos", cos, persistent=False)
@@ -821,13 +861,7 @@ class Llama(nn.Module):
         gen = torch.Generator(device=self.device).manual_seed(seed)
         self.embed.normal_(0.0, 0.02, generator=gen)
         for mod in self.modules():
-            if isinstance(mod, nn.Linear):
-                mod.weight.normal_(0.0, mod.in_features ** -0.5,
-                                   generator=gen)
-                if mod.bias is not None:
-                    mod.bias.zero_()
-            elif isinstance(mod, RMSNorm):
-                mod.scale.fill_(0.0 if mod.plus_one else 1.0)
+            draw_weights(mod, gen)
         for name, p in self.named_parameters():
             if name.endswith("_lora_a"):
                 p.normal_(0.0, 0.02, generator=gen)

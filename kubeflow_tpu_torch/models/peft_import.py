@@ -62,7 +62,8 @@ def load_peft_adapter(path: str, cfg) -> tuple[LlamaConfig, dict]:
     [r, in] and "..._lora_b" [out, r]).
 
     Unsupported adapters fail loudly: silently dropping a target module
-    would serve a model that quietly differs from what was tuned."""
+    would serve a model that quietly differs from what was tuned. An MLP
+    adapter on an MoE base is refused (the routed experts have none)."""
     ac = read_adapter_config(path)
     if ac.get("peft_type", "LORA").upper() != "LORA":
         raise ValueError(
@@ -95,6 +96,10 @@ def load_peft_adapter(path: str, cfg) -> tuple[LlamaConfig, dict]:
         raise ValueError(
             f"peft_adapter needs a Llama-family base model; "
             f"{type(cfg).__name__} has no adapter path")
+    if mode == "attn_mlp" and hasattr(cfg, "num_experts"):
+        from kubeflow_tpu_torch.models.moe import ADAPTER_REFUSAL
+
+        raise ValueError(ADAPTER_REFUSAL)
     r = int(ac["r"])
     alpha = float(ac.get("lora_alpha", r))
     cfg = dataclasses.replace(cfg, lora_rank=r, lora_alpha=alpha,

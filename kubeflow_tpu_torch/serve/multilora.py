@@ -35,7 +35,9 @@ def build_adapter_stacks(adapter_dirs: dict[str, str], cfg, device=None
     out]}} in cfg.dtype on `device`, for `Llama.forward(...,
     adapter=stacks, adapter_ids=...)`; ids: {name: index >= 1} in sorted
     name order (0 is the base). Each adapter's B is multiplied by its
-    alpha/r in fp32 before the cast."""
+    alpha/r in fp32 before the cast. On an MoE base (models/moe.py) an
+    adapter of the MLP is refused with JAX MoEBlock's words: the routed
+    experts have no adapter path."""
     from kubeflow_tpu_torch.models.peft_import import load_peft_adapter
 
     if not adapter_dirs:
@@ -49,6 +51,11 @@ def build_adapter_stacks(adapter_dirs: dict[str, str], cfg, device=None
     modules = [m for m in _DIMS
                if any(k.endswith(f".{m}_lora_a") for _, leaves in loaded
                       for k in leaves)]
+    if hasattr(cfg, "num_experts") and not {"gate_proj", "up_proj",
+                                            "down_proj"}.isdisjoint(modules):
+        from kubeflow_tpu_torch.models.moe import ADAPTER_REFUSAL
+
+        raise ValueError(ADAPTER_REFUSAL)
     stacks = {}
     for m in modules:
         n_in, n_out = _DIMS[m](cfg)

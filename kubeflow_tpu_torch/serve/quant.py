@@ -11,7 +11,10 @@ does: the raw codes in the compute dtype go into the matmul, which
 accumulates in fp32; the scale multiplies the `[..., out]` output in fp32;
 the result is cast back. No weight-shaped dequantized tensor is made by a
 multiply. Serving is weight-only, as in the JAX package: this path never
-calls the W8A8 op `ops.quant_matmul.int8_matmul`.
+calls the W8A8 op `ops.quant_matmul.int8_matmul`. An MoE model's expert
+stacks become `Int8Experts` (one W8A16 launch per expert and projection)
+and its routers stay fp32; `init_quantized` builds such a model int8 part
+by part from a seed, never holding its float weights whole.
 
 `quantize_fixed` does the same for models without `quantized_dense` (BERT,
 the MLP), leaf by leaf as `quantize_tree` picks them: projections become
@@ -141,6 +144,43 @@ class Int8Dense(nn.Module):
         return y
 
 
+class Int8Experts(nn.Module):
+    """A routed-expert weight stack [E, in, out] (models/moe.py) stored as
+    int8 codes `q` [E, out, in] and fp32 scales `scale` [E, out] (buffers):
+    one scale per expert and output column, the max-abs over the
+    contraction dim, as `quantize_tree` scales the JAX stack [L, E, in,
+    out] over its `in` axis. `matmul(e, x)` applies expert e through the
+    W8A16 op (`int8_weight_matmul`), as `Int8Dense` applies a projection;
+    no expert is ever dequantized whole."""
+
+    def __init__(self, experts: int, in_features: int, out_features: int,
+                 compute_dtype, device=None):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.register_buffer("q", torch.zeros(
+            experts, out_features, in_features, dtype=torch.int8,
+            device=device))
+        self.register_buffer("scale", torch.ones(
+            experts, out_features, dtype=torch.float32, device=device))
+
+    @classmethod
+    def from_weight(cls, w: torch.Tensor, compute_dtype) -> "Int8Experts":
+        e, n_in, n_out = w.shape
+        mod = cls(e, n_in, n_out, compute_dtype, device="meta")
+        mod.q = torch.empty(e, n_out, n_in, dtype=torch.int8,
+                            device=w.device)
+        mod.scale = torch.empty(e, n_out, dtype=torch.float32,
+                                device=w.device)
+        for i in range(e):
+            mod.q[i], mod.scale[i] = _quantize_rows(w[i].detach().t())
+        return mod
+
+    def matmul(self, e: int, x):
+        """x [..., in] times expert e: [..., out] in the compute dtype."""
+        return int8_weight_matmul(x.to(self.compute_dtype), self.q[e],
+                                  self.scale[e])
+
+
 class Int8Table(nn.Module):
     """An embedding table [rows, D] of a model without `quantized_dense`
     (BERT) as JAX's `quantize_tree` stores it: int8 codes `q` and fp32
@@ -225,58 +265,131 @@ def quant_unembed(x, embed, dtype):
                               round_before_scale=True)
 
 
-def _projections(model):
+def _layer_sites(layer, n_layers: int):
     """(parent module, attribute name, weight elements as the JAX tree
-    stacks them) of every projection, the embedding and the head."""
+    stacks them over `n_layers`) of a layer's quantizable leaves: the
+    attention projections; then the dense MLP's projections, or a routed
+    MLP's expert stacks and shared-expert leaves (its fp32 router never:
+    int8 noise could flip an expert choice, a discrete change)."""
+    out = [(layer.attn, name, getattr(layer.attn, name).weight.numel()
+            * n_layers) for name in ("q_proj", "k_proj", "v_proj", "o_proj")]
+    mlp = layer.mlp
+    for name in ("gate_proj", "up_proj", "down_proj", "w_gate", "w_up",
+                 "w_down", *getattr(mlp, "shared", ())):
+        leaf = getattr(mlp, name, None)
+        if leaf is not None:
+            weight = leaf.weight if isinstance(leaf, nn.Linear) else leaf
+            out.append((mlp, name, weight.numel() * n_layers))
+    return out
+
+
+def _projections(model):
+    """`_layer_sites` of every layer, then the head and the embedding."""
     n_layers = len(model.layers)
-    out = []
-    for layer in model.layers:
-        for parent, names in ((layer.attn, ("q_proj", "k_proj", "v_proj",
-                                            "o_proj")),
-                              (layer.mlp, ("gate_proj", "up_proj",
-                                           "down_proj"))):
-            for name in names:
-                mod = getattr(parent, name)
-                numel = mod.out_features * mod.in_features
-                out.append((parent, name, numel * n_layers))
+    out = [site for layer in model.layers
+           for site in _layer_sites(layer, n_layers)]
     if model.lm_head is not None:
-        head = model.lm_head
-        out.append((model, "lm_head", head.out_features * head.in_features))
+        out.append((model, "lm_head", model.lm_head.weight.numel()))
     out.append((model, "embed", model.cfg.vocab_size * model.cfg.hidden_size))
     return out
 
 
-@torch.no_grad()
-def quantize_model(model, *, min_size: int = 4096):
-    """Quantize a float Llama in place and return it: every projection
-    (and the embedding, and an untied head) whose weight stacked over the
-    layers has at least `min_size` elements becomes an `Int8Dense`, one
-    module at a time, its float weight freed before the next; the config
-    gains `quantized_dense=True`. Biases stay in their dtype and norm
-    scales in fp32. A config's own LoRA factors (`lora_rank`) stay in
-    their float dtype and add their delta after the int8 projection, as
-    JAX's `_lora_delta` after `Int8DenseGeneral`; the JAX tree quantizes
-    such a factor once it reaches `min_size` stacked (and dequantizes it
-    at apply), so above that size the two packages' adapters differ by
-    that rounding."""
-    cfg = model.cfg
-    if cfg.quantized_dense:
-        raise ValueError("model is already quantized")
-    for parent, name, stacked in _projections(model):
+def _quantize_sites(sites, dtype, min_size: int) -> None:
+    """Replace each site's float leaf whose stacked size reaches
+    `min_size` by its int8 module, one at a time, freeing the float leaf
+    before the next: a projection (nn.Linear [out, in]) or the embedding
+    becomes an `Int8Dense`, an expert stack [E, in, out] `Int8Experts`, a
+    shared-expert leaf [in, out] an `Int8Dense` of its transpose."""
+    for parent, name, stacked in sites:
         if stacked < min_size:
             continue
-        mod = getattr(parent, name)
-        weight = mod if name == "embed" else mod.weight
-        q = Int8Dense.from_weight(weight, cfg.dtype,
-                                  getattr(mod, "bias", None))
-        if name == "embed":
-            del model.embed  # the Parameter; re-registered as a module
+        leaf = getattr(parent, name)
+        if isinstance(leaf, nn.Linear):
+            q = Int8Dense.from_weight(leaf.weight, dtype, leaf.bias)
+        elif leaf.dim() == 3:
+            q = Int8Experts.from_weight(leaf, dtype)
+        else:
+            q = Int8Dense.from_weight(leaf if name == "embed" else leaf.t(),
+                                      dtype)
+        if not isinstance(leaf, nn.Module):
+            delattr(parent, name)  # the Parameter; re-registered as a module
         setattr(parent, name, q)
-        del mod, weight
+        del leaf
+
+
+def _mark_quantized(model, cfg) -> None:
     qcfg = dataclasses.replace(cfg, quantized_dense=True)
     for mod in model.modules():
         if getattr(mod, "cfg", None) is cfg:
             mod.cfg = qcfg
+
+
+@torch.no_grad()
+def quantize_model(model, *, min_size: int = 4096):
+    """Quantize a float Llama (or MoE Llama) in place and return it: every
+    projection (and the embedding, an untied head, a routed MLP's expert
+    stacks and shared-expert leaves) whose weight stacked over the layers
+    has at least `min_size` elements becomes int8, one module at a time,
+    its float weight freed before the next; the config gains
+    `quantized_dense=True`. Biases stay in their dtype, norm scales and
+    MoE routers in fp32. A config's own LoRA factors (`lora_rank`) stay in
+    their float dtype and add their delta after the int8 projection, as
+    JAX's `_lora_delta` after `Int8DenseGeneral`; the JAX tree quantizes
+    such a factor once it reaches `min_size` stacked (and dequantizes it
+    at apply), so above that size the two packages' adapters differ by
+    that rounding.
+
+    JAX's `QuantizedModule` dequantizes expert stacks and shared-expert
+    leaves to the compute dtype before a float einsum; here they run the
+    W8A16 op (scale on the fp32 output), so the two packages' int8 MoE
+    models round at different points (tests bound the difference)."""
+    cfg = model.cfg
+    if cfg.quantized_dense:
+        raise ValueError("model is already quantized")
+    _quantize_sites(_projections(model), cfg.dtype, min_size)
+    _mark_quantized(model, cfg)
+    return model
+
+
+@torch.no_grad()
+def init_quantized(model, seed: int, device, *, min_size: int = 4096):
+    """Fill a float model built on the meta device (`Llama(cfg,
+    device="meta")`, or an `MoELlama`) with `quantize_model(model
+    .init_weights(seed))`'s weights, part by part on `device`: the
+    embedding, then each layer, the final norm and the head are
+    allocated, drawn from one seeded generator in `init_weights`' order,
+    and quantized before the next part exists. A model whose float weights
+    would not fit (Mixtral-8x7B's 93 GB in bf16 on an 80 GB card) is built
+    in its int8 size plus one float layer. Returns the model."""
+    from kubeflow_tpu_torch.models.llama import draw_weights
+
+    cfg = model.cfg
+    if cfg.quantized_dense or cfg.lora_rank:
+        raise ValueError("init_quantized needs a float model without LoRA "
+                         "factors")
+    device = torch.device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n_layers = len(model.layers)
+    model.embed = nn.Parameter(torch.empty(
+        cfg.vocab_size, cfg.hidden_size, dtype=cfg.storage_dtype,
+        device=device))
+    model.embed.normal_(0.0, 0.02, generator=gen)
+    _quantize_sites([(model, "embed", model.embed.numel())], cfg.dtype,
+                    min_size)
+    for layer in model.layers:
+        layer.to_empty(device=device)
+        for mod in layer.modules():
+            draw_weights(mod, gen)
+        _quantize_sites(_layer_sites(layer, n_layers), cfg.dtype, min_size)
+    for part in (model.final_norm, model.lm_head):
+        if part is not None:
+            part.to_empty(device=device)
+            draw_weights(part, gen)
+    if model.lm_head is not None:
+        _quantize_sites([(model, "lm_head", model.lm_head.weight.numel())],
+                        cfg.dtype, min_size)
+    model.set_rope_tables(device)
+    _mark_quantized(model, cfg)
     return model
 
 
@@ -286,7 +399,7 @@ def quantized_bytes(model) -> dict:
     would otherwise hold); float tensors count their own bytes in both."""
     qb = fb = 0
     for mod in model.modules():
-        if isinstance(mod, (Int8Dense, Int8Table)):
+        if isinstance(mod, (Int8Dense, Int8Experts, Int8Table)):
             qb += mod.q.numel() + mod.scale.numel() * 4
             fb += mod.q.numel() * 2
     for p in model.parameters():

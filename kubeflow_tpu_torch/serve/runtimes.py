@@ -30,8 +30,11 @@ seq_len 128. An `explainer` block ({"method": "occlusion" |
 
 `"quantize": "int8"` serves the weights as int8 codes with per-channel
 scales (serve/quant.py), quantized after they load, as the JAX runtime's
-`_maybe_quantize` does: a Llama through `quantize_model`, BERT and the MLP
-through `quantize_fixed`. The "generative" block reaches
+`_maybe_quantize` does: a Llama (or MoE Llama) through `quantize_model`,
+BERT and the MLP through `quantize_fixed`. A Llama-family registry bundle
+without `params.pt` (or LoRA factors) is built int8 part by part from its
+seed (`init_quantized`): the same weights, never a whole float model in
+memory (Mixtral-8x7B is 93 GB in bf16). The "generative" block reaches
 `GenerativeTorchModel` as on the JAX paths: its `"tokenizer": "bytes"`
 gives text in and out, and its `adapters` ({name: PEFT adapter dir}) serve
 multi-LoRA (the huggingface format resolves them relative to the bundle,
@@ -46,6 +49,7 @@ import os
 
 import torch
 
+from kubeflow_tpu_torch.models.llama import LlamaConfig
 from kubeflow_tpu_torch.serve.model import Model, TorchModel
 from kubeflow_tpu_torch.utils import registry
 from kubeflow_tpu_torch.utils.devices import resolve_device
@@ -140,10 +144,19 @@ def _registry_runtime(model_dir: str, spec: dict, device) -> Model:
         raise ValueError(
             "'peft_adapter' is read by the 'huggingface' format; a "
             f"{FORMAT!r} bundle carries merged weights (train.lora.merge)")
-    module, info = registry.build_model(spec["model"], device=device,
-                                        **spec.get("model_kwargs", {}))
     path = os.path.join(model_dir, PARAMS_FILE)
-    if os.path.exists(path):
+    kwargs = spec.get("model_kwargs", {})
+    cfg = registry.model_config(spec["model"], **kwargs)
+    lazy = (not os.path.exists(path) and spec.get("quantize")
+            and isinstance(cfg, LlamaConfig) and not cfg.lora_rank)
+    module, info = registry.build_model(spec["model"],
+                                        device="meta" if lazy else device,
+                                        **kwargs)
+    if lazy:  # int8 from the recorded seed, a part at a time
+        from kubeflow_tpu_torch.serve.quant import init_quantized
+
+        init_quantized(module, int(spec.get("seed", 0)), device)
+    elif os.path.exists(path):
         module.load_state_dict(torch.load(path, map_location=device,
                                           weights_only=True))
     else:  # no trained weights: init from the recorded seed
@@ -164,7 +177,7 @@ def _huggingface_runtime(model_dir: str, spec: dict, device) -> Model:
     from kubeflow_tpu_torch.models.bert import Bert, BertConfig
     from kubeflow_tpu_torch.models.hf_import import (build_from_hf,
                                                      read_hf_config)
-    from kubeflow_tpu_torch.models.llama import Llama
+    from kubeflow_tpu_torch.models.moe import causal_lm
     from kubeflow_tpu_torch.serve.tokenizer_util import load_bundled_tokenizer
 
     root = os.path.abspath(model_dir)
@@ -207,7 +220,7 @@ def _huggingface_runtime(model_dir: str, spec: dict, device) -> Model:
             in_bundle(spec["peft_adapter"]),
             dataclasses.replace(cfg, param_dtype=torch.float32), sd)
         sd = merge(sd, acfg)
-    module = Llama(cfg, device=device)
+    module = causal_lm(cfg, device=device)
     module.load_state_dict(sd)
     del sd
     if not spec.get("generative"):
@@ -229,8 +242,9 @@ def _huggingface_runtime(model_dir: str, spec: dict, device) -> Model:
 
 def _quantize(module, spec: dict) -> dict | None:
     """Under `quantize: int8`, quantize `module` in place (a Llama by
-    `quantize_model`, any other model by `quantize_fixed`) and return
-    {"mode", "quantized", "full"} bytes; else None."""
+    `quantize_model`, any other model by `quantize_fixed`; one built int8
+    by `init_quantized` as it is) and return {"mode", "quantized", "full"}
+    bytes; else None."""
     if not spec.get("quantize"):
         return None
     from kubeflow_tpu_torch.models.llama import Llama
@@ -238,7 +252,10 @@ def _quantize(module, spec: dict) -> dict | None:
                                                 quantize_model,
                                                 quantized_bytes)
 
-    (quantize_model if isinstance(module, Llama) else quantize_fixed)(module)
+    if not isinstance(module, Llama):
+        quantize_fixed(module)
+    elif not module.cfg.quantized_dense:
+        quantize_model(module)
     return {"mode": spec["quantize"], **quantized_bytes(module)}
 
 

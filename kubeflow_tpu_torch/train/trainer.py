@@ -224,10 +224,16 @@ class Trainer:
                                           LlamaConfig):
             raise ValueError(f"spec.lora needs a Llama-family model; "
                              f"{spec.model!r} has no adapter path")
-        if not isinstance(registry.model_config(spec.model), LlamaConfig):
+        mcfg = registry.model_config(spec.model)
+        if not isinstance(mcfg, LlamaConfig):
             raise NotImplementedError(
                 f"training {spec.model!r} (a model outside the Llama "
                 "family) is not supported by this package yet")
+        if hasattr(mcfg, "num_experts"):
+            raise NotImplementedError(
+                f"training {spec.model!r} (a mixture-of-experts model: the "
+                "Switch load-balance loss, MoE refusals) is not supported "
+                "by this package yet")
         model_kwargs = {**spec.model_kwargs, **lora_kwargs}
         # fp32 master weights, as the JAX config's default param_dtype.
         model_kwargs.setdefault("param_dtype", "float32")

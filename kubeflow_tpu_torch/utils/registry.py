@@ -1,8 +1,8 @@
 """Model and dataset registries: a bundle or a job spec names them by
 string.
 
-The port of the Llama, MLP, BERT, synthetic-LM and token-corpus entries of
-`kubeflow_tpu/utils/registry.py`.
+The port of the Llama, MoE, MLP, BERT, synthetic-LM and token-corpus
+entries of `kubeflow_tpu/utils/registry.py`.
 """
 
 from __future__ import annotations
@@ -11,7 +11,7 @@ import dataclasses
 from typing import Callable
 
 from kubeflow_tpu_torch.data import loader, synthetic
-from kubeflow_tpu_torch.models import bert, llama, mlp
+from kubeflow_tpu_torch.models import bert, llama, mlp, moe
 
 #: name -> (config factory, example row length); the config's type picks
 #: the module. The MLP's row is its config's `in_dim`.
@@ -20,6 +20,8 @@ _MODELS: dict[str, tuple[Callable[[], object], int | None]] = {
     "llama_tiny": (llama.llama_tiny, 16),
     "llama_1b": (llama.llama_1b, 16),
     "llama3_8b": (llama.llama3_8b, 16),
+    "moe_tiny": (moe.moe_tiny, 16),
+    "mixtral_8x7b": (moe.mixtral_8x7b, 16),
     "bert_tiny": (bert.bert_tiny, 16),
     "bert_base": (bert.bert_base, 128),
 }
@@ -45,7 +47,9 @@ def model_config(name: str, **kwargs):
 def build_model(name: str, device=None, **kwargs):
     """Returns (module with allocated, uninitialised weights, info dict):
     the same (module, info) shape as the JAX registry, with its `task`,
-    `example_shape` (a batch of one), `example_dtype` and `config`."""
+    `example_shape` (a batch of one), `example_dtype` and `config`, and
+    for an MoE model its `active_params`. A Llama-family model may be
+    built on device="meta" (`serve.quant.init_quantized` fills it)."""
     cfg = model_config(name, **kwargs)
     seq = _entry(name)[1]
     if isinstance(cfg, mlp.MLPConfig):
@@ -56,10 +60,12 @@ def build_model(name: str, device=None, **kwargs):
         return bert.Bert(cfg, device=device), {
             "task": "classify", "example_shape": (1, seq),
             "example_dtype": "int32", "num_params": None, "config": cfg}
-    return llama.Llama(cfg, device=device), {
-        "task": "lm", "example_shape": (1, seq), "example_dtype": "int32",
-        "num_params": cfg.num_params, "vocab_size": cfg.vocab_size,
-        "config": cfg}
+    info = {"task": "lm", "example_shape": (1, seq), "example_dtype": "int32",
+            "num_params": cfg.num_params, "vocab_size": cfg.vocab_size,
+            "config": cfg}
+    if isinstance(cfg, moe.MoEConfig):
+        info["active_params"] = cfg.active_params
+    return moe.causal_lm(cfg, device=device), info
 
 
 def _synthetic_lm(batch_size=8, seq_len=128, vocab_size=512, seed=0, **kw):

@@ -1274,6 +1274,59 @@ def test_w8a16_misaligned_activations_take_the_simt_kernel(cuda):
     w8a16_check(xv, q[:, :64].contiguous(), scale, False)
 
 
+#: The routed experts' W8A16 shapes (M, K, N): Mixtral-8x7B's gate/up and
+#: down at a 4-row decode step (C 1: B rows an expert) and at a registry
+#: prefill chunk of 2048 (capacity 640 rows); Qwen1.5-MoE-A2.7B's at M 4
+#: and dropless 2048, and its shared expert's sigmoid gate (N 1).
+MOE_W8A16_CASES = [(4, 4096, 14336), (4, 14336, 4096), (640, 4096, 14336),
+                   (640, 14336, 4096), (4, 2048, 1408), (4, 1408, 2048),
+                   (2048, 2048, 1408), (2048, 1408, 2048), (4, 2048, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", MOE_W8A16_CASES,
+                         ids=[f"M{m}_K{k}_N{n}" for m, k, n in
+                              MOE_W8A16_CASES])
+def test_w8a16_moe_expert_shapes(cuda, m, k, n):
+    """One expert's projection at the MoE serving shapes, bf16, on one
+    expert's slice of a stack of codes (a view at its offset): the kernel
+    the plan names against the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x, q, scale = w8a16_inputs(m, k, 2 * n, torch.bfloat16, gen, cuda)
+    stack = q.view(2, n, k)
+    w8a16_check(x, stack[1], scale[n:], False)
+
+
+@pytest.mark.gpu
+def test_moe_int8_experts_match_the_dequantized_block(cuda):
+    """A routed block with int8 expert stacks on the card (one W8A16 launch
+    per expert and projection) against the same block on the same codes
+    dequantized to bf16 (three batched matmuls): within the W8A16 op's
+    rounding, the same routing."""
+    from kubeflow_tpu_torch.models import moe as tm
+    from kubeflow_tpu_torch.serve import quant as tq
+
+    cfg = dataclasses.replace(tm.moe_tiny(), hidden_size=256,
+                              intermediate_size=512, num_layers=1,
+                              head_dim=64)
+    model = tm.causal_lm(cfg, device=cuda).init_weights(3)
+    q = tq.quantize_model(model).layers[0].mlp
+    deq = tm.MoEBlock(cfg, device=cuda)
+    with torch.no_grad():
+        deq.router.copy_(q.router)
+        for name in ("w_gate", "w_up", "w_down"):
+            codes = getattr(q, name)
+            getattr(deq, name).copy_((codes.q.float() * codes.scale[
+                ..., None]).transpose(1, 2).to(cfg.dtype))
+        x = torch.randn(2, 16, 256, device=cuda).to(cfg.dtype)
+        before = tw8.w8a16_launches
+        got = q(x)
+        torch.cuda.synchronize()
+        assert tw8.w8a16_launches - before == cfg.num_experts * 3
+        want = deq(x)
+    assert _rel_l2(got.float(), want.float()) <= 1e-2
+
+
 @pytest.mark.gpu
 def test_w8a16_refuses_what_no_kernel_takes(cuda):
     x = torch.zeros(2, 64, device=cuda, dtype=torch.float64)
@@ -1289,12 +1342,16 @@ def test_w8a16_refuses_what_no_kernel_takes(cuda):
 
 # -- the depth-2 engine makes no hidden host sync -----------------------------
 
-def _tiny_engine_model(cuda, int8):
+def _tiny_engine_model(cuda, int8, moe=False):
+    """llama_tiny at 2 layers (or moe_tiny, its routed twin) in bf16 on the
+    card, seeded, int8 projections (and expert stacks) with `int8`."""
     from kubeflow_tpu_torch.models import llama as tl
+    from kubeflow_tpu_torch.models import moe as tm
     from kubeflow_tpu_torch.serve import quant as tq
 
-    model = tl.Llama(dataclasses.replace(tl.llama_tiny(), num_layers=2),
-                     device=cuda).init_weights(0)
+    cfg = tm.moe_tiny() if moe else tl.llama_tiny()
+    model = tm.causal_lm(dataclasses.replace(cfg, num_layers=2),
+                         device=cuda).init_weights(0)
     return tq.quantize_model(model) if int8 else model
 
 
@@ -1306,10 +1363,29 @@ def test_depth2_engine_runs_under_sync_debug_error(cuda, pool, monkeypatch):
     or a synchronising op among them fails the request. Only the fetch's
     event wait (serve/generation.py `_wait`) runs outside it. Then greedy
     ids of one request equal those of a depth-1 engine."""
+    _depth2_under_sync_debug(cuda, pool, monkeypatch, moe=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", ["flat", "paged_int8"])
+def test_depth2_moe_engine_runs_under_sync_debug_error(cuda, pool,
+                                                       monkeypatch):
+    """The same on moe_tiny: the routed block's top-k, slot claims,
+    scatter into the capacity buffer and gather back (and, int8, one
+    W8A16 launch per expert and projection) make no host sync."""
+    from kubeflow_tpu_torch.ops import w8a16 as w8
+
+    before = w8.w8a16_launches
+    _depth2_under_sync_debug(cuda, pool, monkeypatch, moe=True)
+    if pool == "paged_int8":  # every expert's three projections launched
+        assert w8.w8a16_launches - before >= 2 * 4 * 3
+
+
+def _depth2_under_sync_debug(cuda, pool, monkeypatch, moe):
     from kubeflow_tpu_torch.serve import generation as tg
 
     int8 = pool == "paged_int8"
-    model = _tiny_engine_model(cuda, int8)
+    model = _tiny_engine_model(cuda, int8, moe)
     kw = dict(slots=2, max_len=64, chunk=4, prefill_buckets=(8, 16))
     if int8:
         kw.update(kv_block_size=8, kv_quant="int8")

@@ -22,6 +22,7 @@ import transformers
 from kubeflow_tpu.models import hf_import as jh
 from kubeflow_tpu.models import llama as jl
 from kubeflow_tpu_torch.models import hf_import as th
+from kubeflow_tpu_torch.models.moe import MoEConfig
 from kubeflow_tpu_torch.models import llama as tl
 from kubeflow_tpu_torch.models.convert import llama_params_from_jax
 from kubeflow_tpu_torch.serve.runtimes import load_model
@@ -282,6 +283,18 @@ def test_unported_families_are_refused_by_name(tmp_path, arch, model_type,
         # Ported since (import_bert, tests/test_torch_bert.py): BERT is
         # dispatched first and goes on to read its tensors.
         assert isinstance(th.config_from_hf(hf), th.BertConfig)
+        with pytest.raises(FileNotFoundError, match="safetensors"):
+            th.build_from_hf(str(tmp_path))
+        return
+    if what in ("Mixtral", "Qwen2-MoE"):
+        # Ported since (models/moe.py, tests/test_torch_moe_import.py):
+        # an MoE config is dispatched and goes on to read its tensors.
+        hf.update(num_local_experts=4, num_experts=4, num_experts_per_tok=2,
+                  moe_intermediate_size=32,
+                  shared_expert_intermediate_size=64)
+        with open(tmp_path / "config.json", "w") as f:
+            json.dump(hf, f)
+        assert isinstance(th.config_from_hf(hf), MoEConfig)
         with pytest.raises(FileNotFoundError, match="safetensors"):
             th.build_from_hf(str(tmp_path))
         return

@@ -67,6 +67,7 @@ def test_server_import_loads_no_jax():
             "import kubeflow_tpu_torch.serve.explain; "
             "import kubeflow_tpu_torch.models.bert; "
             "import kubeflow_tpu_torch.models.mlp; "
+            "import kubeflow_tpu_torch.models.moe; "
             "import kubeflow_tpu_torch.utils.registry; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN + tuple(LAZY)!r}]; print(bad); "
