@@ -458,6 +458,46 @@ LORA_REQUESTS, LORA_MAX_TOKENS = (5, 100, 500), 48
 # "nothing"'s within REMAT_LOSS_REL (bit-equal is expected: a policy
 # changes what is recomputed, never a value).
 REMAT_STEPS, REMAT_LOSS_REL = 3, 1e-6
+# Phase 5e: training the MoE and MLP families. (i) Mixtral-8x7B's widths
+# (hidden 4096, 32/8 heads of 128, 8 experts top-2, intermediate 14336,
+# vocab 32000) at MOE_TRAIN_LAYERS layers, through the trainer's entry
+# point as the control plane launches a worker: fp32 masters (at 2 layers
+# 3.16B parameters, ~51 GB of masters, gradients and both moments; the
+# 32-layer model's would not fit one card), bf16 compute, phase 5c's point
+# (B4 S2048: B1-B3 at the 8B training shape), the chunked loss, remat
+# "nothing", 3 warm-up steps (the last one profiled) and 5 timed. (ii) One
+# step's loss and gradients through the kernels against the plain
+# attention, at MOE_AGREE_BATCH rows, under phase 5's gates: the loss; the
+# attention, norm and embedding leaves together and each; the router and
+# expert-stack leaves together and each, a looser check (a bf16 attention
+# flips some routing choices, so both the kernel step and naive_attention's
+# sit ~1e-1 from the plain step there); and the backward kernels alone
+# (kernel forward + kernel backward against kernel forward + the plain
+# backward, so the routing is the same in both) over every leaf within
+# BWD_ALONE_VS_NAIVE x naive_attention's distance on the attention leaves.
+# (iii) The routed block at Mixtral's widths in fp32 on
+# MOE_ROUTE_SHAPE tokens, at capacity 1.25 and MOE_DROP_CAPACITY: the
+# adjoint gathers' gradients against the one-hot einsums' within
+# MOE_ROUTE_REL_L2 (the same fp32 products summed in other orders). (iv)
+# spec.lora MOE_LORA on the same model, one step; its SIGKILL and resume
+# is 5b-ii's third variant (beside the plain and llama_1b's spec.lora
+# ones), in a workdir of its own, at MOE_RESUME_LAYERS
+# layers and batch MOE_AGREE_BATCH (depth cut as 5b-ii's: a checkpoint
+# holds every fp32 master, the frozen base too, 12.7 GB at 2 layers and 6.9
+# GB at 1, written twice and read once on the resume's critical path;
+# alone, its three workers took 70.2 s). (v) mnist_mlp on mnist_like at the
+# JAX trainer's test point.
+MOE_TRAIN_MODEL, MOE_TRAIN_LAYERS = "mixtral_8x7b", 2
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_TRAIN_LR = 4, 2048, 3e-4
+MOE_TRAIN_WARMUP, MOE_TRAIN_TIMED = 3, 5
+MOE_AGREE_BATCH = 2
+MOE_ROUTE_SHAPE, MOE_ROUTE_REL_L2 = (2, 192), 1e-5
+MOE_LORA = {"rank": 16, "alpha": 32.0, "targets": "attn"}
+MOE_FROZEN_CHECK = ("embed", "layers.0.mlp.router", "layers.0.mlp.w_gate",
+                    "layers.1.mlp.w_down", "layers.1.attn.q_proj.weight",
+                    "final_norm.scale")
+MOE_RESUME_LAYERS = 1
+MLP_STEPS, MLP_BATCH, MLP_LR = 20, 64, 1e-2
 PROMPT_LENS = (5, 100, 400, 1000, 1900, 3000)
 MAX_TOKENS, CHUNK = 32, 16
 SEED = 0
@@ -6270,6 +6310,29 @@ class _KernelFwdPlainBwd(_PlainFlash):
         return out
 
 
+def _plain_flash(q, k, v, causal=True, block_q=512, block_kv=512,
+                 segment_ids=None, mask=None):
+    """flash_attention's signature over the kernels' plain versions."""
+    return _PlainFlash.apply(q, k, v, fa._norm_mask(causal, mask),
+                             segment_ids)
+
+
+def _kernel_fwd_plain_bwd(q, k, v, causal=True, block_q=512, block_kv=512,
+                          segment_ids=None, mask=None):
+    """flash_attention's signature over the forward kernel and the plain
+    backward."""
+    return _KernelFwdPlainBwd.apply(q, k, v, fa._norm_mask(causal, mask),
+                                    segment_ids)
+
+
+def _naive_flash(q, k, v, causal=True, block_q=512, block_kv=512,
+                 segment_ids=None, mask=None):
+    """flash_attention's signature over naive_attention (bf16 scores and
+    probabilities, as the JAX twin's einsum path)."""
+    return naive_attention(q, k, v, causal=causal, mask=mask,
+                           segment_ids=segment_ids)
+
+
 def _rel_l2(a, b) -> float:
     return ((a - b).norm() / b.norm()).item()
 
@@ -6383,29 +6446,13 @@ def phase_training() -> dict:
     del big
     small = batch_of(AGREE_BATCH)
     real = llama_mod.flash_attention
-
-    def plain(q, k, v, causal=True, block_q=512, block_kv=512,
-              segment_ids=None, mask=None):
-        return _PlainFlash.apply(q, k, v, fa._norm_mask(causal, mask),
-                                 segment_ids)
-
-    def naive(q, k, v, causal=True, block_q=512, block_kv=512,
-              segment_ids=None, mask=None):
-        return naive_attention(q, k, v, causal=causal, mask=mask,
-                               segment_ids=segment_ids)
-
-    def kernel_fwd_plain_bwd(q, k, v, causal=True, block_q=512,
-                             block_kv=512, segment_ids=None, mask=None):
-        return _KernelFwdPlainBwd.apply(q, k, v, fa._norm_mask(causal, mask),
-                                        segment_ids)
-
     try:
         k_loss, k_grads = _loss_and_grads(model, small)
-        llama_mod.flash_attention = plain
+        llama_mod.flash_attention = _plain_flash
         p_loss, p_grads = _loss_and_grads(model, small)
-        llama_mod.flash_attention = naive
+        llama_mod.flash_attention = _naive_flash
         n_loss, n_grads = _loss_and_grads(model, small)
-        llama_mod.flash_attention = kernel_fwd_plain_bwd
+        llama_mod.flash_attention = _kernel_fwd_plain_bwd
         _, b_grads = _loss_and_grads(model, small)
     finally:
         llama_mod.flash_attention = real
@@ -6559,8 +6606,9 @@ def phase_job(train: dict) -> dict:
     """The trainer as a job worker on packed documents: 5b-i at llama_1b's
     full width and depth (eval stream, a profile window, checkpoint saves
     timed), 5b-ii a SIGKILLed worker relaunched as the controller would,
-    whose losses must equal a fault-free run's, for a full-parameter and a
-    spec.lora job side by side."""
+    whose losses must equal a fault-free run's, for a full-parameter job,
+    a spec.lora job and a spec.lora job on the MoE base (5e (iv)'s) side
+    by side."""
     cfg = registry.model_config(TRAIN_MODEL)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_job_",
@@ -6579,8 +6627,8 @@ def phase_job(train: dict) -> dict:
             f"over vocabulary {cfg.vocab_size}, eos 0")
         result = _job_full(cfg, work, corpus, eval_corpus, train)
         resume = _job_resume(cfg, work, corpus)
-        result["resume"], result["resume_lora"] = (resume["plain"],
-                                                   resume["lora"])
+        result.update(resume=resume["plain"], resume_lora=resume["lora"],
+                      resume_moe_lora=resume["moe_lora"])
         return result
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -6704,19 +6752,38 @@ def _job_full(cfg, work: str, corpus: str, eval_corpus: str,
 
 def _job_resume(cfg, work: str, corpus: str) -> dict:
     """5b-ii: a SIGKILLed worker relaunched as the controller launches it,
-    for a full-parameter job and for a spec.lora job (LORA), whose
-    checkpoint holds the adapters' moments alone, matched to them by name
-    on the restore. Each variant has three workers: a fault-free reference
-    (the same spec without checkpoints, which do not enter the losses), the
-    spec with checkpoints and TPK_FAULT (it must die by SIGKILL after
-    logging fault_injected), and its relaunch, which must log `restored` at
-    the last checkpoint and reach the final step with the reference's
-    losses bit for bit. The two variants run side by side on the card, each
-    in a workdir of its own: the references beside the faulted workers, the
+    for a full-parameter job, a spec.lora job (LORA) and 5e (iv)'s
+    spec.lora job on the MoE base (MOE_LORA), whose checkpoints hold the
+    adapters' moments alone, matched to them by name on the restore. Each
+    variant has three workers: a fault-free reference (the same spec
+    without checkpoints, which do not enter the losses), the spec with
+    checkpoints and TPK_FAULT (it must die by SIGKILL after logging
+    fault_injected), and its relaunch, which must log `restored` at the
+    last checkpoint and reach the final step with the reference's losses
+    bit for bit. The variants run side by side on the card, each in a
+    workdir of its own: the references beside the faulted workers, the
     relaunches after them."""
-    variants = {"plain": None, "lora": LORA}
+    variants = {
+        "plain": lambda **kw: _job_spec(
+            corpus, model_kwargs={"num_layers": JOB_RESUME_LAYERS},
+            steps=JOB_RESUME_STEPS, **kw),
+        "lora": lambda **kw: _job_spec(
+            corpus, model_kwargs={"num_layers": JOB_RESUME_LAYERS},
+            steps=JOB_RESUME_STEPS, lora=dict(LORA), **kw),
+        # 5e (iv)'s resume: spec.lora on the MoE base (synthetic rows: the
+        # corpus is over llama_1b's vocabulary).
+        "moe_lora": lambda **kw: _moe_spec(
+            model_kwargs={"num_layers": MOE_RESUME_LAYERS,
+                          "remat_policy": "nothing"},
+            steps=JOB_RESUME_STEPS, batch_size=MOE_AGREE_BATCH,
+            lora=dict(MOE_LORA), **kw)}
     cut = registry.model_config(TRAIN_MODEL, num_layers=JOB_RESUME_LAYERS)
-    for v, lora in variants.items():
+    log(f"  5b-ii moe_lora with spec.lora {json.dumps(MOE_LORA)}: "
+        f"{MOE_TRAIN_MODEL}'s widths at {MOE_RESUME_LAYERS} layer, batch "
+        f"{MOE_AGREE_BATCH} x {MOE_TRAIN_SEQ} of synthetic_lm, "
+        f"{JOB_RESUME_STEPS} steps, checkpoint every {JOB_RESUME_INTERVAL}, "
+        f"TPK_FAULT={JOB_FAULT}")
+    for v, lora in (("plain", None), ("lora", LORA)):
         per_param = 4 if lora else 12  # fp32 masters (and both moments)
         log(f"  5b-ii {v}"
             f"{' with spec.lora ' + json.dumps(lora) if lora else ''}: "
@@ -6746,9 +6813,7 @@ def _job_resume(cfg, work: str, corpus: str) -> dict:
     # A reference takes no checkpoint, so it runs on the card beside its
     # faulted worker; each relaunch follows its fault.
     threads = []
-    for v, lora in variants.items():
-        kw = dict(model_kwargs={"num_layers": JOB_RESUME_LAYERS},
-                  steps=JOB_RESUME_STEPS, lora=dict(lora or {}))
+    for v, spec_of in variants.items():
         vdir = os.path.join(work, f"resume_{v}")
         ref_dir = os.path.join(vdir, "reference")
         os.makedirs(ref_dir)
@@ -6756,15 +6821,16 @@ def _job_resume(cfg, work: str, corpus: str) -> dict:
                 "interval": JOB_RESUME_INTERVAL, "keep": 2}
         threads += [
             threading.Thread(target=launch, args=(
-                (v, "reference"), ref_dir, _job_spec(corpus, **kw), None)),
+                (v, "reference"), ref_dir, spec_of(), None)),
             threading.Thread(target=faulted_then_relaunch, args=(
-                v, vdir, _job_spec(corpus, checkpoint=ckpt, **kw)))]
+                v, vdir, spec_of(checkpoint=ckpt)))]
     t0 = time.monotonic()
     for t in threads:
         t.start()
     for t in threads:
         t.join()
-    log(f"    the six workers took {time.monotonic() - t0:.1f}s side by side")
+    log(f"    the {len(threads) * 3 // 2} workers took "
+        f"{time.monotonic() - t0:.1f}s side by side")
     fault_step = int(JOB_FAULT.split(";")[0].split("=")[1])
     want_restore = fault_step // JOB_RESUME_INTERVAL * JOB_RESUME_INTERVAL
     failed, out = {}, {}
@@ -7112,6 +7178,343 @@ def phase_remat() -> dict:
     return out
 
 
+def _moe_spec(**kw) -> trainer_mod.TrainJobSpec:
+    base = dict(model=MOE_TRAIN_MODEL,
+                model_kwargs={"num_layers": MOE_TRAIN_LAYERS,
+                              "remat_policy": "nothing"},
+                dataset="synthetic_lm", batch_size=MOE_TRAIN_BATCH,
+                seq_len=MOE_TRAIN_SEQ, learning_rate=MOE_TRAIN_LR,
+                loss_impl="chunked", log_every=1, seed=SEED)
+    base.update(kw)
+    return trainer_mod.TrainJobSpec(**base)
+
+
+def _moe_trainer(cfg, work: str) -> dict:
+    """5e (i): the trainer entry point on Mixtral's widths; each layer's
+    dropped share of choices at step 0 read from the route's own keep
+    mask (device values, read after the run)."""
+    layers = cfg.num_layers
+    steps = MOE_TRAIN_WARMUP + MOE_TRAIN_TIMED
+    prof_dir = os.path.join(work, "profile")
+    spec = _moe_spec(steps=steps, profile={
+        "dir": prof_dir, "start_step": MOE_TRAIN_WARMUP - 1, "num_steps": 1})
+    path = os.path.join(work, "job.json")
+    with open(path, "w") as fh:
+        fh.write(spec.to_json())
+    drops, real_route = [], moe_mod.route
+
+    def route(*args, **kwargs):
+        out = real_route(*args, **kwargs)
+        if len(drops) < layers:  # step 0's forward, layer by layer
+            drops.append((~out[3]).float().mean())
+        return out
+
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    tap = _StepTap(sys.stdout)
+    t0 = time.monotonic()
+    moe_mod.route = route
+    try:
+        with contextlib.redirect_stdout(tap):
+            rc = trainer_mod.main(["--spec", path])
+    finally:
+        moe_mod.route = real_route
+    wall = time.monotonic() - t0
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    if rc != 0 or len(tap.steps) != steps:
+        raise RuntimeError(f"MoE trainer exited {rc} after "
+                           f"{len(tap.steps)} of {steps} steps")
+    log(f"  profile of step {MOE_TRAIN_WARMUP} (the last warm-up step):")
+    _trace_kernels(prof_dir)
+    expect = (2 * layers, layers, layers)
+    aux_max = cfg.router_aux_coef * layers * cfg.num_experts
+    losses = [rec["loss"] for rec, _ in tap.steps]
+    auxes = [rec.get("aux_loss", 0.0) for rec, _ in tap.steps]
+    ln_v = math.log(cfg.vocab_size)
+    checks = {
+        f"launches (fwd, dq, dkv) {expect} a step": all(
+            n == expect for _, n in tap.steps),
+        "finite losses": all(math.isfinite(x) for x in losses),
+        f"first loss within [{ln_v - LOSS0_BELOW:.2f}, "
+        f"{ln_v + LOSS0_ABOVE:.2f}]":
+        ln_v - LOSS0_BELOW <= losses[0] <= ln_v + LOSS0_ABOVE,
+        f"aux_loss in (0, {aux_max:g}] in every line": all(
+            0 < a <= aux_max for a in auxes),
+    }
+    timed = [rec for rec, _ in tap.steps[MOE_TRAIN_WARMUP:]]
+    step_s = sum(r["step_time_s"] for r in timed) / len(timed)
+    tokens = MOE_TRAIN_BATCH * MOE_TRAIN_SEQ
+    tok_s = tokens / step_s
+    attn_flops = (6 * layers * MOE_TRAIN_BATCH * cfg.num_heads
+                  * MOE_TRAIN_SEQ ** 2 * cfg.head_dim)  # causal, fwd + bwd
+    mfu = ((6 * cfg.active_params * tokens + attn_flops)
+           / step_s / PEAK_BF16_FLOPS)
+    dropped = [d.item() for d in drops]
+    log(f"  trainer: {steps} steps in {wall:.1f}s (model init included); "
+        f"losses {', '.join(f'{x:.4f}' for x in losses)}; aux_loss "
+        f"{', '.join(f'{x:.6f}' for x in auxes)}")
+    log(f"  launches per step (fwd, dq, dkv) "
+        f"{sorted({n for _, n in tap.steps})}; run totals {launches}")
+    log(f"  timed {len(timed)} steps: {step_s * 1e3:.2f} ms/step, "
+        f"{tok_s:.0f} tok/s, MFU by active parameters {mfu:.4f} ((6 * "
+        f"{cfg.active_params} * tok + {attn_flops:.4g} attention flops) / "
+        f"step / {PEAK_BF16_FLOPS:.3g}); the trainer's own mfu (6 * all "
+        f"{cfg.num_params} parameters) {timed[-1]['mfu']:.4f}; peak memory "
+        f"{peak / 2**30:.2f} GiB; dropped share of choices at step 0 by "
+        f"layer {[round(d, 4) for d in dropped]} (capacity "
+        f"{moe_mod.expert_capacity(cfg, MOE_TRAIN_SEQ)} a row and expert); "
+        + ", ".join(f"{k} {'OK' if ok else 'FAIL'}"
+                    for k, ok in checks.items()))
+    if not all(checks.values()):
+        raise RuntimeError(f"MoE training through the trainer: {checks}")
+    return {"launches": launches, "ms_per_step": step_s * 1e3,
+            "tok_s": tok_s, "mfu": mfu, "peak_gib": peak / 2**30,
+            "dropped": dropped, "losses": losses, "aux": auxes}
+
+
+def _moe_loss_and_grads(model, batch, leaves):
+    logits, aux = model(batch["inputs"], return_aux=True)
+    loss = train_step.cross_entropy_loss(logits, batch["targets"]) + aux
+    del logits
+    grads = torch.autograd.grad(loss, leaves)
+    return loss.item(), grads
+
+
+def _moe_kernel_vs_plain(cfg) -> dict:
+    """5e (ii): one step's loss and every gradient through the kernels, the
+    plain attention, naive_attention and the forward kernel with the plain
+    backward, on the same fp32 masters and batch; phase 5's gates on the
+    attention side and on the expert side, and the backward kernels alone
+    (see the constants). At most two sets of gradients are on the card."""
+    tcfg = dataclasses.replace(cfg, param_dtype=torch.float32)
+    model = moe_mod.MoELlama(tcfg, device=DEVICE).init_weights(SEED)
+    rng = np.random.default_rng(SEED + 70)
+    batch = {k: torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (MOE_AGREE_BATCH, MOE_TRAIN_SEQ))).to(DEVICE)
+        for k in ("inputs", "targets")}
+    names, leaves = zip(*model.named_parameters())
+    sides = {"attention, norm and embedding": [
+        i for i, n in enumerate(names) if ".mlp." not in n],
+        "router and expert": [i for i, n in enumerate(names) if ".mlp." in n]}
+
+    def by_side(grads, refs):
+        return {side: _rel_l2s([grads[i] for i in idx],
+                               [refs[i] for i in idx])
+                for side, idx in sides.items()}
+
+    real = llama_mod.flash_attention
+    try:
+        k_loss, k_grads = _moe_loss_and_grads(model, batch, leaves)
+        llama_mod.flash_attention = _kernel_fwd_plain_bwd
+        b_grads = _moe_loss_and_grads(model, batch, leaves)[1]
+        b_rel, b_glob = _rel_l2s(k_grads, b_grads)
+        del b_grads
+        llama_mod.flash_attention = _plain_flash
+        p_loss, p_grads = _moe_loss_and_grads(model, batch, leaves)
+        k_side = by_side(k_grads, p_grads)
+        del k_grads
+        llama_mod.flash_attention = _naive_flash
+        n_loss, n_grads = _moe_loss_and_grads(model, batch, leaves)
+        n_side = by_side(n_grads, p_grads)
+    finally:
+        llama_mod.flash_attention = real
+    del model, p_grads, n_grads, leaves
+    _free()
+    k_dl, n_dl = abs(k_loss - p_loss), abs(n_loss - p_loss)
+    attn = next(iter(sides))
+    bwd_bound = BWD_ALONE_VS_NAIVE * n_side[attn][1]
+    checks = {"loss": k_dl <= max(LOSS_VS_NAIVE * n_dl,
+                                  LOSS_REL_FLOOR * abs(p_loss))}
+    log(f"  one step at batch {MOE_AGREE_BATCH} x {MOE_TRAIN_SEQ}: loss "
+        f"kernel {k_loss:.6f} plain {p_loss:.6f} naive {n_loss:.6f}")
+    for side, idx in sides.items():
+        (k_rel, k_glob), (n_rel, n_glob) = k_side[side], n_side[side]
+        leaf_bound = GRAD_VS_NAIVE * max(n_rel)
+        checks[f"{side} leaves together"] = k_glob <= GRAD_VS_NAIVE * n_glob
+        checks[f"each {side} leaf"] = max(k_rel) <= leaf_bound
+        worst = max(range(len(idx)), key=lambda j: k_rel[j])
+        log(f"  {len(idx)} {side} leaves, gradient rel_l2 vs plain: kernel "
+            f"{k_glob:.3e} together, naive {n_glob:.3e} (bound "
+            f"{GRAD_VS_NAIVE} x naive); per leaf kernel worst "
+            f"{k_rel[worst]:.3e} ({names[idx[worst]]}), naive worst "
+            f"{max(n_rel):.3e} (bound {leaf_bound:.3e})"
+            + ("" if side == attn else "; per leaf (kernel/naive) "
+               + ", ".join(f"{names[i].replace('layers.', 'L')} "
+                           f"{k:.3e}/{m:.3e}"
+                           for i, k, m in zip(idx, k_rel, n_rel))))
+    checks["backward kernels alone"] = b_glob <= bwd_bound
+    log(f"  backward kernels alone (kernel fwd + kernel bwd vs kernel fwd + "
+        f"plain bwd, the same routing): rel_l2 over all {len(names)} leaves "
+        f"{b_glob:.3e}, worst leaf {max(b_rel):.3e} "
+        f"({names[max(range(len(names)), key=lambda i: b_rel[i])]}) (bound "
+        f"{BWD_ALONE_VS_NAIVE} x naive's on the {attn} leaves = "
+        f"{bwd_bound:.3e}); "
+        + ", ".join(f"{k} {'OK' if ok else 'FAIL'}"
+                    for k, ok in checks.items()))
+    if not all(checks.values()):
+        raise RuntimeError(f"MoE kernel step disagrees with the plain "
+                           f"step: {checks}")
+    return {"loss_diff": k_dl,
+            "grad_rel_l2": {side: v[1] for side, v in k_side.items()},
+            "naive_grad_rel_l2": {side: v[1] for side, v in n_side.items()},
+            "bwd_alone_rel_l2": b_glob}
+
+
+def _moe_route_grads(cfg) -> dict:
+    """5e (iii): the routed block's gradients (x, router, the three
+    stacks; the Switch term in the loss) through the adjoint gathers
+    against the one-hot einsums, fp32 at Mixtral's widths."""
+    bcfg = dataclasses.replace(cfg, dtype=torch.float32,
+                               param_dtype=torch.float32)
+    blk = moe_mod.MoEBlock(bcfg, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 80)
+    blk.draw_weights(gen)
+    b, s = MOE_ROUTE_SHAPE
+    x = torch.randn(b, s, cfg.hidden_size, generator=gen, device=DEVICE)
+    probe = torch.randn(x.shape, generator=gen, device=DEVICE)
+    params = [blk.router, blk.w_gate, blk.w_up, blk.w_down]
+
+    def grads(fwd):
+        xx = x.clone().requires_grad_(True)
+        y, aux = fwd(xx, with_aux=True)
+        return torch.autograd.grad((y * probe).sum() + aux, [xx] + params)
+
+    out = {}
+    for cf in (cfg.capacity_factor, MOE_DROP_CAPACITY):
+        blk.cfg = dataclasses.replace(bcfg, capacity_factor=cf)
+        c = moe_mod.expert_capacity(blk.cfg, s)
+        keep = moe_mod.route(x, blk.router, cfg.experts_per_token, c)[3]
+        rels = [_rel_l2(a, p) for a, p in zip(grads(blk.forward),
+                                             grads(blk.forward_plain))]
+        out[cf] = {"rel_l2": rels, "dropped": int((~keep).sum()),
+                   "choices": keep.numel()}
+        log(f"  routed block fp32, {b} x {s} tokens, capacity factor {cf} "
+            f"({c} slots; {out[cf]['dropped']} of {keep.numel()} choices "
+            f"dropped): gradient rel_l2 vs the one-hot einsums x "
+            f"{rels[0]:.3e}, router {rels[1]:.3e}, w_gate {rels[2]:.3e}, "
+            f"w_up {rels[3]:.3e}, w_down {rels[4]:.3e} (bound "
+            f"{MOE_ROUTE_REL_L2:g}; tf32 "
+            f"{torch.backends.cuda.matmul.allow_tf32}) "
+            f"{'OK' if max(rels) <= MOE_ROUTE_REL_L2 else 'FAIL'}")
+    del blk, params, x, probe
+    _free()
+    if not (all(max(r["rel_l2"]) <= MOE_ROUTE_REL_L2 for r in out.values())
+            and out[MOE_DROP_CAPACITY]["dropped"] > 0):
+        raise RuntimeError(f"routed block gradients disagree with the "
+                           f"one-hot einsums (or nothing dropped): {out}")
+    return out
+
+
+def _moe_lora(cfg) -> dict:
+    """5e (iv): spec.lora on the MoE base, one step (base bit-unchanged,
+    adapters moved); its SIGKILL and resume runs in 5b-ii."""
+    spec = _moe_spec(steps=1, batch_size=MOE_AGREE_BATCH,
+                     lora=dict(MOE_LORA))
+    before, real_init = {}, trainer_mod.init_train_state
+
+    def init_and_snapshot(model, *args, **kw):
+        state = real_init(model, *args, **kw)
+        named = dict(model.named_parameters())
+        before.update({n: named[n].detach().clone()
+                       for n in MOE_FROZEN_CHECK})
+        return state
+
+    _free()
+    _reset_counts()
+    tap = _StepTap(sys.stdout)
+    t0 = time.monotonic()
+    trainer_mod.init_train_state = init_and_snapshot
+    try:
+        with contextlib.redirect_stdout(tap):
+            trainer = trainer_mod.Trainer(spec)
+            trainer.run()
+    finally:
+        trainer_mod.init_train_state = real_init
+    launches = _counts()
+    adapters, base = lora_mod.partition(trainer.model)
+    named = dict(trainer.model.named_parameters())
+    frozen_ok = (all(torch.equal(named[n], before[n]) for n in before)
+                 and all(not p.requires_grad and p.grad is None
+                         for p in base.values()))
+    b_moved = max(p.abs().max().item() for n, p in adapters.items()
+                  if n.endswith("_lora_b"))
+    aux = tap.steps[0][0].get("aux_loss", 0.0) if tap.steps else 0.0
+    del trainer, adapters, base, named, before
+    _free()
+    log(f"  spec.lora {json.dumps(MOE_LORA)}: one step in "
+        f"{time.monotonic() - t0:.1f}s (model init included), launches (fwd, "
+        f"dq, dkv) {launches}, aux_loss {aux:.6f}; "
+        f"{', '.join(MOE_FROZEN_CHECK)}"
+        f" bit-equal before and after, base frozen: "
+        f"{'OK' if frozen_ok else 'FAIL'}; largest |B| {b_moved:.3e}")
+    if not (frozen_ok and b_moved > 0 and aux > 0
+            and launches == (2 * cfg.num_layers, cfg.num_layers,
+                             cfg.num_layers)):
+        raise RuntimeError("the MoE LoRA step changed the base, left B at "
+                           "zero, lost the aux term or missed a kernel")
+    return {"launches": launches, "aux_loss": aux, "b_moved": b_moved}
+
+
+def _mlp_train() -> dict:
+    """5e (v): mnist_mlp on mnist_like through the trainer at the JAX
+    trainer's test point, an eval at the end."""
+    spec = trainer_mod.TrainJobSpec(
+        model="mnist_mlp", dataset="mnist_like", steps=MLP_STEPS,
+        batch_size=MLP_BATCH, learning_rate=MLP_LR, log_every=1,
+        eval_every=MLP_STEPS, eval_batches=2, seed=SEED)
+    tap = _StepTap(sys.stdout)
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(tap):
+        result = trainer_mod.Trainer(spec).run()
+    wall = time.monotonic() - t0
+    losses = [rec["loss"] for rec, _ in tap.steps]
+    head, tail = losses[:5], losses[-5:]
+    ok = (len(losses) == MLP_STEPS and all(math.isfinite(x) for x in losses)
+          and sum(tail) < sum(head) and len(tap.evals) == 1)
+    log(f"  mnist_mlp: {len(losses)} steps in {wall:.1f}s; losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}; mean of the last five "
+        f"{sum(tail) / 5:.4f} against the first five {sum(head) / 5:.4f}; "
+        f"eval loss {result.get('eval_loss', float('nan')):.4f} accuracy "
+        f"{result.get('eval_accuracy', float('nan')):.4f} "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("mnist_mlp did not train")
+    return {"losses": losses, "eval_loss": result["eval_loss"],
+            "eval_accuracy": result["eval_accuracy"]}
+
+
+def phase_moe_train() -> dict:
+    """5e: training the MoE and MLP families (see the constants)."""
+    cfg = registry.model_config(MOE_TRAIN_MODEL, num_layers=MOE_TRAIN_LAYERS)
+    log(f"  {MOE_TRAIN_MODEL} at {MOE_TRAIN_LAYERS} of its 32 layers: "
+        f"{cfg.num_params} parameters ({cfg.active_params} active a token), "
+        f"fp32 masters, gradients and both moments "
+        f"{16 * cfg.num_params / 1e9:.1f} GB")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_moe_train_",
+                            dir=os.path.join(ROOT, "build"))
+    seconds, out = {}, {}
+    try:
+        for key, fn, args in (("i", _moe_trainer, (cfg, work)),
+                              ("ii", _moe_kernel_vs_plain, (cfg,)),
+                              ("iii", _moe_route_grads, (cfg,)),
+                              ("iv", _moe_lora, (cfg,)),
+                              ("v", _mlp_train, ())):
+            t0 = time.monotonic()
+            out[key] = fn(*args)
+            seconds[key] = round(time.monotonic() - t0, 1)
+            _free()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        _free()
+    log(f"  5e seconds by part {json.dumps(seconds)}")
+    return {"launches": out["i"]["launches"],
+            "lora_launches": out["iv"]["launches"], "seconds": seconds,
+            **{k: out[k] for k in ("i", "ii", "iii", "iv", "v")}}
+
+
 def phase_auto(gk) -> tuple:
     """attention_impl="auto" on the configs the wgmma kernels do not take,
     through the GPU tests' check (c1_compare: a prefill and a training step
@@ -7262,13 +7665,20 @@ def main() -> int:
     train = run("5", f"training {TRAIN_MODEL} through the trainer",
                 phase_training)
     job = run("5b", f"a training job: {TRAIN_MODEL} on packed documents, "
-              "eval, profile, checkpoints, SIGKILL and resume", phase_job,
-              train)
+              "eval, profile, checkpoints, SIGKILL and resume (full, and "
+              f"spec.lora on {MOE_TRAIN_MODEL}'s widths)",
+              phase_job, train)
     lora_run = run("5c", f"LoRA fine-tuning of {LORA_MODEL} through the "
                    f"trainer (spec.lora {json.dumps(LORA)}), merge, serve the "
                    "merged model", phase_lora)
     remat = run("5d", f"the remat policies on {TRAIN_MODEL} at phase 5's "
                 "point", phase_remat)
+    moe_train = run("5e", f"training the MoE and MLP families: "
+                    f"{MOE_TRAIN_MODEL}'s widths at {MOE_TRAIN_LAYERS} layers "
+                    "through the trainer, kernel vs plain, the routed "
+                    "block's gradients in fp32, one spec.lora step (its "
+                    "SIGKILL and resume is 5b-ii's), mnist_mlp on "
+                    "mnist_like", phase_moe_train)
     simt_launches = run("6", "attention_impl='auto' where the wgmma kernels "
                         "do not take the config", phase_auto, gk)
     log(f"  phases 2-6 took {time.monotonic() - t0:.1f}s; seconds by phase "
@@ -7295,13 +7705,17 @@ def main() -> int:
                     "packed_training": job["launches"][0],
                     "lora_training": lora_run["launches"][0],
                     "lora_merged_serving": lora_run["serving_launches"][0],
-                    "remat_policies": remat_launches[0]}
+                    "remat_policies": remat_launches[0],
+                    "moe_training": moe_train["launches"][0],
+                    "moe_lora_training": moe_train["lora_launches"][0]}
 
     def by_path(i):
         return {"training": train["launches"][i],
                 "packed_training": job["launches"][i],
                 "lora_training": lora_run["launches"][i],
-                "remat_policies": remat_launches[i]}
+                "remat_policies": remat_launches[i],
+                "moe_training": moe_train["launches"][i],
+                "moe_lora_training": moe_train["lora_launches"][i]}
 
     def lora_shape(key):
         return {"ms_lora_shape": blora[f"{key}_ms"],

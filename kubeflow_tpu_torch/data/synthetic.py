@@ -1,8 +1,9 @@
-"""Synthetic causal-LM batches for tests and the chip smoke run.
+"""Synthetic batches for tests and the chip smoke run.
 
-The port's copy of the two LM generators of `kubeflow_tpu/data/synthetic.py`:
-the same numpy generator calls in the same order, so a seed gives batches
-byte-equal to the JAX package's.
+The port's copy of `kubeflow_tpu/data/synthetic.py` (the two LM
+generators and the MNIST-shaped classification stream): the same numpy
+generator calls in the same order, so a seed gives batches byte-equal to
+the JAX package's.
 """
 
 from __future__ import annotations
@@ -37,3 +38,14 @@ def learnable_token_batches(batch_size: int, seq_len: int, vocab_size: int,
             seq.append(perm[seq[-1]])
         toks = np.concatenate(seq, axis=1)
         yield {"inputs": toks[:, :-1], "targets": toks[:, 1:]}
+
+
+def mnist_like(batch_size: int, seed: int = 0, num_classes: int = 10):
+    """MNIST-shaped separable classification data: class = argmax of a fixed
+    linear projection of the image; an MLP must drive loss near zero."""
+    rng = np.random.default_rng(seed)
+    w = rng.normal(size=(784, num_classes)).astype(np.float32)
+    while True:
+        x = rng.normal(size=(batch_size, 784)).astype(np.float32)
+        y = np.argmax(x @ w, axis=-1).astype(np.int32)
+        yield {"inputs": x, "targets": y}

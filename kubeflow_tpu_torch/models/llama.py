@@ -714,11 +714,17 @@ class DecoderLayer(nn.Module):
 
     def forward(self, x, cos, sin, positions, standard_positions=True,
                 cache=None, cache_index=None, segment_ids=None,
-                attend_full_cache=False, adapter=None, sliding=None):
+                attend_full_cache=False, adapter=None, sliding=None,
+                with_aux=False):
+        """The layer's output; with `with_aux` (routed experts only),
+        (output, the FFN's load-balance term)."""
         x = x + self._attn_out(self.attn(
             self.input_norm(x), cos, sin, positions, standard_positions,
             cache, cache_index, segment_ids, attend_full_cache, adapter,
             sliding))
+        if with_aux:
+            out, aux = self.mlp_branch(x, adapter, with_aux=True)
+            return x + out, aux
         return x + self.mlp_branch(x, adapter)
 
     def _attn_out(self, out):
@@ -733,12 +739,17 @@ class DecoderLayer(nn.Module):
             self.input_norm(x), cos, sin, positions, standard_positions,
             segment_ids=segment_ids, sliding=sliding))
 
-    def mlp_branch(self, x, adapter=None):
+    def mlp_branch(self, x, adapter=None, with_aux=False):
         if adapter is not None:  # only the MLP's own factors, or None
             adapter = {k: adapter[k] for k in MLP_PROJECTIONS
                        if k in adapter} or None
-        out = self.mlp(self.post_attn_norm(x), adapter)
-        return out if self.mlp_out_norm is None else self.mlp_out_norm(out)
+        if with_aux:
+            out, aux = self.mlp(self.post_attn_norm(x), adapter,
+                                with_aux=True)
+        else:
+            out = self.mlp(self.post_attn_norm(x), adapter)
+        out = out if self.mlp_out_norm is None else self.mlp_out_norm(out)
+        return (out, aux) if with_aux else out
 
 
 _SAVED_PRODUCTS = {  # remat policy: the ops whose outputs it keeps
@@ -750,18 +761,24 @@ _SAVED_PRODUCTS = {  # remat policy: the ops whose outputs it keeps
 
 
 def _remat_layer(policy: str, layer: DecoderLayer, x, cos, sin, positions,
-                 standard_positions, segment_ids, sliding):
+                 standard_positions, segment_ids, sliding, with_aux=False):
     """One training DecoderLayer under `torch.utils.checkpoint`, keeping
     what `policy` keeps (see LlamaConfig.remat_policy). The flash kernels
     are launched through ctypes, out of the dispatcher's sight: no policy
     keeps their output, so the recompute launches them again, as JAX's
-    recompute runs the Pallas kernel again."""
+    recompute runs the Pallas kernel again. With `with_aux` the
+    load-balance term is an output of the checkpointed function, so the
+    backward's recompute never adds it a second time."""
     if policy == "save_attn":
         # Two regions, so the saved inputs are the layer's input and x +
         # attn_out: as much as JAX keeps for checkpoint_name("attn_out").
         x = x + checkpoint(layer.attn_branch, x, cos, sin, positions,
                            standard_positions, segment_ids, sliding,
                            use_reentrant=False)
+        if with_aux:
+            out, aux = checkpoint(layer.mlp_branch, x, None, True,
+                                  use_reentrant=False)
+            return x + out, aux
         return x + checkpoint(layer.mlp_branch, x, use_reentrant=False)
     kwargs = {}
     if policy in _SAVED_PRODUCTS:
@@ -769,7 +786,7 @@ def _remat_layer(policy: str, layer: DecoderLayer, x, cos, sin, positions,
             create_selective_checkpoint_contexts, _SAVED_PRODUCTS[policy])
     return checkpoint(layer, x, cos, sin, positions, standard_positions,
                       None, None, segment_ids, False, None, sliding,
-                      use_reentrant=False, **kwargs)
+                      with_aux, use_reentrant=False, **kwargs)
 
 
 def _is_meta(device) -> bool:
@@ -869,17 +886,26 @@ class Llama(nn.Module):
                 p.zero_()
         return self
 
+    @property
+    def sows_aux(self) -> bool:
+        """Whether the layers' FFNs are routed experts (an `MoEConfig`)
+        with a load-balance term (`forward(..., return_aux=True)` sums
+        it)."""
+        return hasattr(self.cfg, "num_experts")
+
     def forward(self, tokens, positions=None, cache: dict | None = None,
                 cache_index=None, return_hidden: bool = False,
                 segment_ids=None, attend_full_cache: bool = False,
-                adapter=None, adapter_ids=None):
+                adapter=None, adapter_ids=None, return_aux: bool = False):
         """With `cache` (see init_cache) returns (logits, cache): prefill
         when S>1 at cache_index 0, single-token decode when S==1 (positions
         default to cache_index), and a continuation when S>1 with
         `attend_full_cache=True` (pass absolute `positions`). The cache is
         written in place. `return_hidden` skips the unembedding and returns
         the final-norm hidden states [B,S,D]. `segment_ids` [B,S] confines
-        attention within equal-id spans.
+        attention within equal-id spans. `return_aux` (a training forward
+        of routed experts, `sows_aux`) returns (out, the sum of every
+        layer's load-balance term), JAX's summed `aux_loss` collection.
 
         Multi-LoRA serving: `adapter` is the stacks of
         serve/multilora.build_adapter_stacks ({projection: {"a": [L, N+1,
@@ -918,6 +944,10 @@ class Llama(nn.Module):
         kinds = sliding_flags(cfg)
         remat = (cfg.remat and cache is None
                  and torch.is_grad_enabled())
+        if return_aux and (cache is not None or not self.sows_aux):
+            raise ValueError("return_aux: a training forward (no cache) of "
+                             "a model with routed experts")
+        aux = None
         for i, layer in enumerate(self.layers):
             sliding = None if kinds is None else kinds[i]
             cos, sin = ((self.rope_local_cos, self.rope_local_sin)
@@ -926,20 +956,24 @@ class Llama(nn.Module):
             if remat:
                 x = _remat_layer(cfg.remat_policy, layer, x, cos, sin,
                                  positions, standard_positions, segment_ids,
-                                 sliding)
-                continue
-            layer_cache = (None if cache is None
-                           else {n: c[i] for n, c in cache.items()})
-            layer_ad = (None if adapter is None else
-                        {m: (a[i], bb[i]) for m, (a, bb) in adapter.items()})
-            x = layer(x, cos, sin, positions, standard_positions, layer_cache,
-                      cache_index, segment_ids, attend_full_cache, layer_ad,
-                      sliding)
+                                 sliding, return_aux)
+            else:
+                layer_cache = (None if cache is None
+                               else {n: c[i] for n, c in cache.items()})
+                layer_ad = (None if adapter is None else
+                            {m: (a[i], bb[i])
+                             for m, (a, bb) in adapter.items()})
+                x = layer(x, cos, sin, positions, standard_positions,
+                          layer_cache, cache_index, segment_ids,
+                          attend_full_cache, layer_ad, sliding, return_aux)
+            if return_aux:
+                x, layer_aux = x
+                aux = layer_aux if aux is None else aux + layer_aux
         x = self.final_norm(x)
-        if return_hidden:
-            return (x, cache) if cache is not None else x
-        logits = self.unembed(x)
-        return (logits, cache) if cache is not None else logits
+        out = x if return_hidden else self.unembed(x)
+        if cache is not None:
+            return out, cache
+        return (out, aux) if return_aux else out
 
     def unembed(self, x):
         """Logits [..., V] of final-norm hidden states [..., D]: the head,

@@ -1,4 +1,4 @@
-"""Mixture-of-experts decoder (Mixtral, Qwen2-MoE) for serving.
+"""Mixture-of-experts decoder (Mixtral, Qwen2-MoE) for serving and training.
 
 The port of `kubeflow_tpu/models/moe.py`: the Llama trunk with every
 layer's FFN replaced by top-k routed SwiGLU experts under GShard/Switch
@@ -12,19 +12,29 @@ order, then every slot-1 choice — with `expert_capacity` slots per
 `gshard_route` is the plain version: the one-hot dispatch and combine
 tensors [B, S, E, C] exactly as JAX builds them (with the Switch aux
 term), and `MoEBlock.forward_plain` applies the experts through them as
-JAX's einsums do. The serving path (`MoEBlock.forward`) computes the same
-(expert, slot) assignment without those tensors (`route`): each kept
-choice's token row is copied into a static buffer [E, B·C, H] (a dropped
-one to a discard row), the experts run on it (`torch.bmm` in the compute
-dtype; int8 experts one W8A16 launch per expert and projection, over that
-expert's B·C rows), and each token gathers its K rows back, weighted by
+JAX's einsums do. `MoEBlock.forward`, the serving and the training path,
+computes the same (expert, slot) assignment without those tensors
+(`route`): each kept choice's token row is copied into a static buffer
+[E, B·C, H] of zeros (a dropped one to a discarded row), the experts run
+on it (`torch.bmm` in the compute dtype; int8 experts one W8A16 launch
+per expert and projection, over that expert's B·C rows), and each token
+gathers its K rows back (a dropped choice reads a zero row), weighted by
 the combine gates cast to the compute dtype, summed in fp32. Shapes are
 static and nothing reads a count back to the host.
 
-Serving only: the Switch load-balance loss is not computed on this path
-(JAX's `sow` into an immutable collection is a no-op when serving), and
-training an MoE model waits for a later slice. Multi-LoRA adapters do not
-apply to the routed experts; attention-only adapters do.
+Each (expert, slot) row has at most one claimant, so the copy into the
+buffer (`_Dispatch`) and the gather out of it (`_Combine`) are each
+other's adjoints: each one's backward is the other's forward by the same
+row map, with no scatter-add and no atomics, so the gradients are
+deterministic, and the forward launches what serving always launched. A
+dropped choice gets no expert gradient and a zero gate gradient, as under
+JAX's one-hot dispatch; its token's gradient still flows through the
+residual. The router's gradient flows through the gates (top-k values of
+the fp32 softmax, renormalised under `norm_topk_prob`) and through the
+Switch load-balance term, which `forward(..., with_aux=True)` returns
+scaled by `router_aux_coef` (JAX sows it; the train step adds it to the
+loss). Multi-LoRA adapters do not apply to the routed experts; attention-only
+adapters do.
 """
 
 from __future__ import annotations
@@ -134,16 +144,18 @@ def _one_hot(idx, n: int):
         torch.int32)
 
 
-def route(x, w_router, k: int, capacity: int, renormalize: bool = True):
+def route(x, w_router, k: int, capacity: int, renormalize: bool = True,
+          with_aux: bool = False):
     """The GShard assignment without the one-hot [B,S,E,C] tensors:
     (experts [B,S,K] int64, gates [B,S,K] fp32, slot [B,S,K] int32, keep
     [B,S,K] bool). Choice j of token s of row b goes to slot `slot` of
     expert `experts` in row b's buffer when `keep`; slots are claimed
     slot-major (all slot-0 choices in sequence order, then slot-1, ...),
     so `slot` counts the earlier claims on that expert, and `keep` is
-    slot < capacity."""
+    slot < capacity. `with_aux` appends the unweighted Switch term of
+    `gshard_route` from the same probabilities and slot-0 choices."""
     e = w_router.shape[-1]
-    _, gates, experts = _top_k(x, w_router, k, renormalize)
+    probs, gates, experts = _top_k(x, w_router, k, renormalize)
     count = torch.zeros(x.shape[0], 1, e, dtype=torch.int32, device=x.device)
     slots = []
     for j in range(k):
@@ -153,7 +165,19 @@ def route(x, w_router, k: int, capacity: int, renormalize: bool = True):
         count = count + mask.sum(dim=1, keepdim=True, dtype=torch.int32)
         slots.append(pos.gather(2, chosen[..., None])[..., 0])
     slot = torch.stack(slots, dim=-1)
-    return experts, gates, slot, slot < capacity
+    out = (experts, gates, slot, slot < capacity)
+    if with_aux:
+        out += (switch_aux(probs, experts[:, :, 0]),)
+    return out
+
+
+def switch_aux(probs, first):
+    """The Switch load-balance term E * sum_e frac_e * mean_prob_e of
+    probabilities [B,S,E] and slot-0 choices [B,S] (JAX `gshard_route`'s
+    arithmetic: the fraction has no gradient)."""
+    e = probs.shape[-1]
+    frac = _one_hot(first, e).float().mean(dim=(0, 1))
+    return e * (frac * probs.mean(dim=(0, 1))).sum()
 
 
 def gshard_route(x, w_router, k: int, capacity: int,
@@ -177,9 +201,7 @@ def gshard_route(x, w_router, k: int, capacity: int,
         slot = _one_hot(pos.long(), capacity).float() * keep[..., None]
         dispatch = dispatch + slot
         combine = combine + gates[:, :, j, None, None] * slot
-    frac = _one_hot(experts[:, :, 0], e).float().mean(dim=(0, 1))
-    aux = e * (frac * probs.mean(dim=(0, 1))).sum()
-    return dispatch, combine, aux
+    return dispatch, combine, switch_aux(probs, experts[:, :, 0])
 
 
 def _mm(x, w, dtype):
@@ -201,6 +223,62 @@ def shared_expert_ffn(x, w_gate, w_up, w_down, gate_w, dtype):
     return sh * gate.to(dtype)
 
 
+def _scatter_rows(src, dest, n: int):
+    """src [M, H] copied into rows `dest` [M] of a zero table [n, H]; index
+    n (a dropped choice) lands on a discarded row."""
+    buf = src.new_zeros(n + 1, src.shape[-1])
+    buf.index_copy_(0, dest, src)
+    return buf[:n]
+
+
+def _gather_rows(table, dest):
+    """Rows `dest` [M] of table [n, H]; index n reads a zero row."""
+    return torch.cat([table, table.new_zeros(1, table.shape[-1])])[dest]
+
+
+def _dispatch_rows(x, dest, n: int):
+    """Token rows x [T, H] into a zero buffer [n, H]: choice j of token t
+    to row dest[t, j] (n: dropped)."""
+    t, k = dest.shape
+    return _scatter_rows(x[:, None].expand(t, k, x.shape[-1]).reshape(
+        t * k, -1), dest.reshape(-1), n)
+
+
+class _Dispatch(torch.autograd.Function):
+    """`_dispatch_rows` with its adjoint: a buffer row has at most one
+    claimant, so the backward is the gather by `dest`, the K rows of a
+    token summed in fp32: no scatter-add, a deterministic backward."""
+
+    @staticmethod
+    def forward(ctx, x, dest, n: int):
+        ctx.save_for_backward(dest)
+        return _dispatch_rows(x, dest, n)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (dest,) = ctx.saved_tensors
+        g = _gather_rows(grad, dest.reshape(-1)).view(*dest.shape, -1)
+        return g.float().sum(dim=1).to(grad.dtype), None, None
+
+
+class _Combine(torch.autograd.Function):
+    """Each choice's row of the experts' output [n, H] (`dest` [M]; a
+    dropped choice reads a zero row). The adjoint copies the gradient rows
+    back to `dest`, a dropped choice's to the discarded row: each kept row
+    has one reader, so again no scatter-add."""
+
+    @staticmethod
+    def forward(ctx, out, dest):
+        ctx.save_for_backward(dest)
+        ctx.n = out.shape[0]
+        return _gather_rows(out, dest)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (dest,) = ctx.saved_tensors
+        return _scatter_rows(grad, dest, ctx.n), None
+
+
 class MoEBlock(nn.Module):
     """Top-k routed SwiGLU experts with capacity-based dispatch.
 
@@ -210,7 +288,8 @@ class MoEBlock(nn.Module):
     [Ms, H] and `shared_gate` [H, 1]. Under `quantized_dense` the expert
     stacks are `Int8Experts` (codes [E, out, in], a scale per expert and
     output column) and the shared leaves `Int8Dense`; the router stays
-    fp32."""
+    fp32. With `with_aux` the block also returns its Switch load-balance
+    term, which the trunk sums for the train step."""
 
     def __init__(self, cfg: MoEConfig, device):
         super().__init__()
@@ -251,43 +330,49 @@ class MoEBlock(nn.Module):
             p = getattr(self, name)
             p.normal_(0.0, p.shape[fan_in] ** -0.5, generator=gen)
 
-    def forward(self, x, adapter=None):  # [B, S, H]
+    def forward(self, x, adapter=None, with_aux: bool = False):  # [B, S, H]
+        """The block's output [B, S, H] in the compute dtype; with
+        `with_aux`, (output, router_aux_coef * the Switch term)."""
         if adapter is not None:
             raise ValueError(ADAPTER_REFUSAL)
         cfg = self.cfg
         b, s, h = x.shape
         e, k, dt = cfg.num_experts, cfg.experts_per_token, cfg.dtype
         c = expert_capacity(cfg, s)
-        experts, gates, slot, keep = route(x, self.router, k, c,
-                                           cfg.norm_topk_prob)
+        experts, gates, slot, keep, *aux = route(
+            x, self.router, k, c, cfg.norm_topk_prob, with_aux)
         n = b * c  # rows of one expert's buffer: each batch row's C slots
         rows = torch.arange(b, device=x.device)[:, None, None] * c + slot
-        dest = torch.where(keep, experts * n + rows, e * n).reshape(-1)
-        buf = torch.zeros(e * n + 1, h, dtype=dt, device=x.device)
-        buf.index_copy_(0, dest, x.to(dt)[:, :, None].expand(
-            b, s, k, h).reshape(-1, h))  # dropped choices: the last row
-        out = self._experts(buf[:e * n].view(e, n, h))
-        picked = torch.cat([out.reshape(e * n, h), buf[e * n:].zero_()])[dest]
+        dest = torch.where(keep, experts * n + rows, e * n).view(b * s, k)
+        # Serving (no grad) calls the forwards without autograd's wrapper.
+        dispatch, combine = ((_Dispatch.apply, _Combine.apply)
+                             if torch.is_grad_enabled()
+                             else (_dispatch_rows, _gather_rows))
+        out = self._experts(dispatch(x.to(dt).reshape(b * s, h), dest,
+                                     e * n).view(e, n, h))
+        picked = combine(out.reshape(e * n, h), dest.reshape(-1))
         y = (gates.to(dt).float()[..., None]
              * picked.view(b, s, k, h).float()).sum(dim=2).to(dt)
-        return self._shared(x, y)
+        y = self._shared(x, y)
+        return (y, cfg.router_aux_coef * aux[0]) if with_aux else y
 
-    def forward_plain(self, x):
+    def forward_plain(self, x, with_aux: bool = False):
         """The block through JAX's one-hot dispatch and combine einsums
-        (`gshard_route`): the plain version the serving path is held
+        (`gshard_route`): the plain version the routed path is held
         against. Float experts only."""
         cfg = self.cfg
         dt = cfg.dtype
         c = expert_capacity(cfg, x.shape[1])
-        dispatch, combine, _ = gshard_route(
+        dispatch, combine, aux = gshard_route(
             x, self.router, cfg.experts_per_token, c, cfg.norm_topk_prob)
         xin = torch.einsum("bsec,bsh->ebch", dispatch.to(dt), x.to(dt))
         g = torch.einsum("ebch,ehm->ebcm", xin, self.w_gate.to(dt))
         u = torch.einsum("ebch,ehm->ebcm", xin, self.w_up.to(dt))
         out = torch.einsum("ebcm,emh->ebch", F.silu(g) * u,
                            self.w_down.to(dt))
-        y = torch.einsum("bsec,ebch->bsh", combine.to(dt), out)
-        return self._shared(x, y)
+        y = self._shared(x, torch.einsum("bsec,ebch->bsh", combine.to(dt),
+                                         out))
+        return (y, cfg.router_aux_coef * aux) if with_aux else y
 
     def _experts(self, xin):
         """SwiGLU of every expert over its rows: xin [E, N, H] -> [E, N,

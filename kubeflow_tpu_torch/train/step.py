@@ -8,7 +8,9 @@ step waits for the device: the metrics it returns are device tensors.
 
 `trainable="lora"` differentiates and updates the LoRA adapters alone
 (the JAX `lora_step`): the base is frozen, gets no gradient and no
-optimizer state. `make_eval_step` is the JAX eval step. Mesh, FSDP and
+optimizer state. A model with routed experts (`sows_aux`) adds its
+layers' load-balance terms to the loss, as JAX adds the sown `aux_loss`
+collection. `make_eval_step` is the JAX eval step. Mesh, FSDP and
 pipeline parallelism are not ported and are refused by name.
 """
 
@@ -217,30 +219,41 @@ def make_train_step(model: nn.Module, loss_fn: Callable | None = None,
     if loss_chunk < 1:
         raise ValueError(f"loss_chunk must be >= 1, got {loss_chunk}")
 
+    # Routed experts return their load-balance terms (JAX's mutable
+    # "aux_loss" collection); other models add a zero.
+    sows_aux = getattr(model, "sows_aux", False)
+
     def compute_loss(batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
         kwargs = {key: batch[key] for key in ("segment_ids", "positions")
                   if key in batch}
         if loss_impl == "chunked":
-            hidden = model(batch["inputs"], return_hidden=True, **kwargs)
+            kwargs["return_hidden"] = True
+        if sows_aux:
+            kwargs["return_aux"] = True
+        out = model(batch["inputs"], **kwargs)
+        aux = None
+        if sows_aux:
+            out, aux = out
+        if loss_impl == "chunked":
             main = chunked_cross_entropy(
-                hidden, _unembed_head(model), batch["targets"],
+                out, _unembed_head(model), batch["targets"],
                 batch.get("mask"), chunk=loss_chunk,
                 final_softcap=getattr(getattr(model, "cfg", None),
                                       "final_softcap", 0.0))
+        elif loss_fn is not None:
+            main = loss_fn(out, batch)
         else:
-            logits = model(batch["inputs"], **kwargs)
-            if loss_fn is not None:
-                main = loss_fn(logits, batch)
-            else:
-                main = cross_entropy_loss(logits, batch["targets"],
-                                          batch.get("mask"))
-        aux = torch.zeros((), dtype=torch.float32, device=main.device)
+            main = cross_entropy_loss(out, batch["targets"],
+                                      batch.get("mask"))
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=main.device)
         return main + aux, aux
 
     def loss_and_grads(params: list, batch: dict):
         if accum_steps == 1:
             loss, aux = compute_loss(batch)
-            return loss.detach(), aux, torch.autograd.grad(loss, params)
+            return (loss.detach(), aux.detach(),
+                    torch.autograd.grad(loss, params))
         rows = batch["inputs"].shape[0]
         if rows % accum_steps:
             raise ValueError(f"batch dim {rows} not divisible by "
@@ -253,11 +266,11 @@ def make_train_step(model: nn.Module, loss_fn: Callable | None = None,
             grads = torch.autograd.grad(loss, params)
             if gsum is None:
                 gsum = [g.float() for g in grads]
-                lsum, asum = loss.detach(), aux
+                lsum, asum = loss.detach(), aux.detach()
             else:
                 for acc, g in zip(gsum, grads):
                     acc.add_(g)
-                lsum, asum = lsum + loss.detach(), asum + aux
+                lsum, asum = lsum + loss.detach(), asum + aux.detach()
         grads = [(g / accum_steps).to(p.dtype) for g, p in zip(gsum, params)]
         return lsum / accum_steps, asum / accum_steps, grads
 

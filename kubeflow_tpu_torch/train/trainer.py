@@ -9,7 +9,10 @@ auto-resume of the state and the data stream, the restart policies, the
 eval stream, profiler windows and `TPK_FAULT` make it a restartable job
 worker. `"lora": {"rank", "alpha", "targets"}` fine-tunes LoRA adapters on
 a frozen base (adapter-only gradients and optimizer state); the trainer
-never merges them (`train.lora.merge` does, for serving).
+never merges them (`train.lora.merge` does, for serving). It trains every
+family the JAX trainer trains on one device: the Llama family, the
+mixture-of-experts models (the Switch load-balance loss added to the loss
+and logged as `aux_loss`) and the MLP on `mnist_like` (the classify loss).
 
     python -m kubeflow_tpu_torch.train.trainer [--spec job.json] [--device cpu]
 
@@ -22,7 +25,8 @@ boundaries. Features of the JAX runtime that the port does not have yet
 are refused by name with NotImplementedError, never ignored: a device
 mesh or a non-default sharding strategy, FSDP, pipeline parallelism,
 ring attention, the fsdp compute dtype (`param_dtype`) and more than one
-process (`TPK_NUM_PROCS` > 1).
+process (`TPK_NUM_PROCS` > 1). BERT is refused with a ValueError: the
+reference trainer has no dataset that trains its classify head.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from kubeflow_tpu_torch.comms.bootstrap import initialize, read_env
 from kubeflow_tpu_torch.controlplane.client import Client
 from kubeflow_tpu_torch.data.loader import restore_iterator
 from kubeflow_tpu_torch.data.prefetch import Prefetcher
+from kubeflow_tpu_torch.models.bert import BertConfig
 from kubeflow_tpu_torch.models.llama import LORA_TARGETS, LlamaConfig
 from kubeflow_tpu_torch.train.checkpoint import CheckpointManager
 from kubeflow_tpu_torch.train.metrics import (MetricsLogger, StepTimer,
@@ -166,6 +171,22 @@ def _lora_model_kwargs(spec: TrainJobSpec) -> dict:
             "lora_targets": targets}
 
 
+#: JAX's refusal of FFN adapters on routed experts
+#: (`kubeflow_tpu/train/trainer.py`).
+MOE_LORA_REFUSAL = ("lora.targets='attn_mlp' is not supported on MoE "
+                    "models (expert FFNs have no adapter path); use "
+                    "targets='attn'")
+
+
+def classify_loss(logits: torch.Tensor, batch: dict) -> torch.Tensor:
+    """The JAX trainer's classify loss: softmax cross entropy on one-hot
+    targets (optax's arithmetic: log-softmax in the logits' dtype, the
+    fp32 one-hot product summed), the batch mean."""
+    onehot = torch.nn.functional.one_hot(batch["targets"].long(),
+                                         logits.shape[-1]).float()
+    return -(onehot * torch.log_softmax(logits, dim=-1)).sum(-1).mean()
+
+
 def _parse_fault(text: str) -> tuple[int | None, int]:
     """TPK_FAULT="step=K;signal=S" -> (K, S); (None, 9) when unset."""
     if not text:
@@ -220,25 +241,26 @@ class Trainer:
             raise ValueError(
                 "profile_start_step/profile_stop_step must be >= 0, got "
                 f"{spec.profile_start_step}/{spec.profile_stop_step}")
-        if lora_kwargs and not isinstance(registry.model_config(spec.model),
-                                          LlamaConfig):
+        mcfg = registry.model_config(spec.model)
+        if isinstance(mcfg, BertConfig):
+            raise ValueError(
+                f"training {spec.model!r} is refused: the reference trainer "
+                "has no dataset that trains BERT's classify head (its "
+                "classify loss takes [B] labels, and every registered "
+                "dataset gives [B, S] token targets)")
+        if lora_kwargs and not isinstance(mcfg, LlamaConfig):
             raise ValueError(f"spec.lora needs a Llama-family model; "
                              f"{spec.model!r} has no adapter path")
-        mcfg = registry.model_config(spec.model)
-        if not isinstance(mcfg, LlamaConfig):
-            raise NotImplementedError(
-                f"training {spec.model!r} (a model outside the Llama "
-                "family) is not supported by this package yet")
-        if hasattr(mcfg, "num_experts"):
-            raise NotImplementedError(
-                f"training {spec.model!r} (a mixture-of-experts model: the "
-                "Switch load-balance loss, MoE refusals) is not supported "
-                "by this package yet")
+        if (lora_kwargs.get("lora_targets") == "attn_mlp"
+                and hasattr(mcfg, "num_experts")):
+            raise ValueError(MOE_LORA_REFUSAL)
         model_kwargs = {**spec.model_kwargs, **lora_kwargs}
-        # fp32 master weights, as the JAX config's default param_dtype.
-        model_kwargs.setdefault("param_dtype", "float32")
+        if any(f.name == "param_dtype" for f in dataclasses.fields(mcfg)):
+            # fp32 master weights, as the JAX config's default param_dtype.
+            model_kwargs.setdefault("param_dtype", "float32")
         self.model, self.info = registry.build_model(
             spec.model, device=self.device, **model_kwargs)
+        self.lm = self.info["task"] == "lm"
         self.tx = AdamW(self._lr_schedule(), weight_decay=spec.weight_decay,
                         max_grad_norm=spec.max_grad_norm)
         self._event_client: Client | None = None
@@ -297,8 +319,9 @@ class Trainer:
         shard of the rows."""
         kwargs = dict(kwargs)
         kwargs.setdefault("batch_size", self.spec.batch_size)
-        kwargs.setdefault("seq_len", self.spec.seq_len)
-        kwargs.setdefault("vocab_size", self.info["vocab_size"])
+        if self.lm:
+            kwargs.setdefault("seq_len", self.spec.seq_len)
+            kwargs.setdefault("vocab_size", self.info["vocab_size"])
         kwargs.setdefault("seed", seed_base + 7919 * self.penv.process_id)
         kwargs.setdefault("process_index", self.penv.process_id)
         kwargs.setdefault("process_count", self.penv.num_processes)
@@ -426,7 +449,9 @@ class Trainer:
             "param_bytes_per_chip": param_bytes,
             "opt_state_bytes_per_chip": opt_bytes,
             "grad_accum_steps": self.grad_accum})
-        step_fn = make_train_step(self.model, loss_impl=spec.loss_impl,
+        step_fn = make_train_step(self.model,
+                                  loss_fn=None if self.lm else classify_loss,
+                                  loss_impl=spec.loss_impl,
                                   loss_chunk=spec.loss_chunk,
                                   accum_steps=self.grad_accum,
                                   trainable=self.trainable)
@@ -469,8 +494,11 @@ class Trainer:
             self.logger.log(at_step, out)
             return out
 
-        timer = StepTimer(num_params=self.info["num_params"],
-                          tokens_per_step=spec.batch_size * spec.seq_len,
+        # MFU counts every parameter, an MoE model's idle experts too, as
+        # JAX's StepTimer does.
+        timer = StepTimer(num_params=self.info["num_params"] or 0,
+                          tokens_per_step=spec.batch_size * (
+                              spec.seq_len if self.lm else 1),
                           peak=peak_flops_per_chip(self.device))
         prof_start, prof_stop, prof_dir = self._profile_window(start_step)
         profiler = None
@@ -599,6 +627,10 @@ class Trainer:
                         "step_time_s": perf["step_time_s"],
                         **win_metrics(),
                     }
+                    # MoE models report the router balance penalty too.
+                    aux = float(metrics["aux_loss"])
+                    if aux > 0:
+                        last_metrics["aux_loss"] = aux
                     self.logger.log(step + 1, last_metrics)
                     timer.start()
                     win_reset()

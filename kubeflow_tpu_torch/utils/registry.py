@@ -1,8 +1,8 @@
 """Model and dataset registries: a bundle or a job spec names them by
 string.
 
-The port of the Llama, MoE, MLP, BERT, synthetic-LM and token-corpus
-entries of `kubeflow_tpu/utils/registry.py`.
+The port of the Llama, MoE, MLP, BERT, synthetic-LM, `mnist_like` and
+token-corpus entries of `kubeflow_tpu/utils/registry.py`.
 """
 
 from __future__ import annotations
@@ -77,6 +77,10 @@ def _learnable_lm(batch_size=8, seq_len=32, vocab_size=64, seed=0, **kw):
                                              vocab_size, seed)
 
 
+def _mnist_like(batch_size=64, seed=0, **kw):
+    return synthetic.mnist_like(batch_size, seed)
+
+
 def _token_file(path, batch_size=8, seq_len=128, seed=0, shuffle=True,
                 vocab_size=None, process_index=None, process_count=None,
                 **kw):
@@ -105,6 +109,7 @@ def _packed_lm(path, batch_size=8, seq_len=128, eos_id=0, seed=0,
 _DATASETS: dict[str, Callable] = {
     "synthetic_lm": _synthetic_lm,
     "learnable_lm": _learnable_lm,
+    "mnist_like": _mnist_like,
     "token_file": _token_file,
     "packed_lm": _packed_lm,
 }

@@ -2103,3 +2103,38 @@ def test_windowed_forward_through_the_kernel_within_the_naive_gate(cuda):
     rel, naive_rel = _rel_l2(kernel, ref), _rel_l2(floor, ref)
     assert bool(torch.isfinite(kernel).all())
     assert rel <= 1.25 * naive_rel, (rel, naive_rel)
+
+
+# -- an MoE training step makes no hidden host sync ----------------------------
+
+@pytest.mark.gpu
+def test_moe_train_step_runs_under_sync_debug_error(cuda):
+    """One moe_tiny training step (remat "nothing", capacity 0.5 so
+    choices drop: the route, the adjoint gathers forward and back, the
+    flash kernels, the Switch term, AdamW) with
+    torch.cuda.set_sync_debug_mode("error"): no count leaves the card when
+    training either. The step's metrics stay device tensors."""
+    from kubeflow_tpu_torch.models import moe as tm
+    from kubeflow_tpu_torch.train import optim
+    from kubeflow_tpu_torch.train import step as tstep
+
+    cfg = dataclasses.replace(tm.moe_tiny(), param_dtype=torch.float32,
+                              capacity_factor=0.5, remat=True)
+    model = tm.MoELlama(cfg, device=cuda)
+    state = tstep.init_train_state(model, optim.AdamW(1e-3), seed=0)
+    fn = tstep.make_train_step(model, loss_impl="chunked", loss_chunk=64)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    batch = {k: torch.randint(0, cfg.vocab_size, (2, 64), generator=gen,
+                              device=cuda) for k in ("inputs", "targets")}
+    launches = tfa.flash_simt_fwd_launches
+    fn(state, batch)  # builds the kernels outside
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, metrics = fn(state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert state.step == 2
+    assert math.isfinite(float(metrics["loss"]))
+    assert float(metrics["aux_loss"]) > 0
+    assert tfa.flash_simt_fwd_launches - launches == 2 * 2 * 2

@@ -388,12 +388,14 @@ def test_mlp_adapters_are_refused_with_jax_words(tmp_path):
 
 
 def test_trainer_refuses_moe_training_by_name():
-    """Training an MoE model (the Switch aux loss, the trainer's MoE
-    refusals) is a later slice: the trainer says so, never trains it
-    without the aux loss."""
+    """Kept under its old name since MoE training landed: the trainer runs
+    one moe_tiny step and logs a positive aux_loss (the Switch
+    load-balance term), never a step without it
+    (tests/test_torch_moe_train.py holds it against JAX)."""
     from kubeflow_tpu_torch.train import trainer as ttrainer
 
     spec = ttrainer.TrainJobSpec(model="moe_tiny", steps=1, batch_size=2,
                                  seq_len=8, dataset="synthetic_lm")
-    with pytest.raises(NotImplementedError, match="mixture-of-experts"):
-        ttrainer.Trainer(spec, device="cpu")
+    result = ttrainer.Trainer(spec, device="cpu").run()
+    assert result["final_step"] == 1
+    assert np.isfinite(result["loss"]) and result["aux_loss"] > 0

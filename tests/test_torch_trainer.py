@@ -94,7 +94,8 @@ def test_spec_json_and_validation():
     with pytest.raises(ValueError, match="lr_schedule"):
         ttrainer.Trainer(_spec(lr_schedule="step"), device="cpu")
     with pytest.raises(ValueError, match="unknown dataset"):
-        ttrainer.Trainer(_spec(dataset="mnist_like"), device="cpu").run()
+        ttrainer.Trainer(_spec(dataset="no_such_dataset"),
+                         device="cpu").run()
 
 
 @pytest.mark.parametrize("name,kw", [

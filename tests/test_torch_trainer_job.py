@@ -240,7 +240,19 @@ def test_eval_stream_in_the_trainer(tmp_path):
 def test_jsonl_keys_are_the_jax_trainers(tmp_path):
     """Step, eval and done lines carry the JAX trainer's keys under
     TPK_TRACE=0 (no span_* keys)."""
-    kw = dict(model="llama_tiny", steps=2, batch_size=2, seq_len=8,
+    _jsonl_keys_against_jax(tmp_path, "llama_tiny")
+
+
+def test_jsonl_keys_are_the_jax_trainers_on_moe(tmp_path):
+    """The same on moe_tiny: its step and done lines add aux_loss, as the
+    JAX trainer's do."""
+    _jsonl_keys_against_jax(tmp_path, "moe_tiny")
+    assert all("aux_loss" in r for r in _records(tmp_path / "port.jsonl")
+               if "loss" in r)
+
+
+def _jsonl_keys_against_jax(tmp_path, model):
+    kw = dict(model=model, steps=2, batch_size=2, seq_len=8,
               dataset="learnable_lm", log_every=1, eval_every=2,
               eval_batches=1)
     tracer = jobs.get_tracer()
