@@ -246,6 +246,17 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
      :predict, the logits within 1.25x naive_attention's distance from the
      plain attention, the last position's logits within 1.25x phase 3's
      floor of the engine's first-token logits;
+  4m. GPT-2 and the T5 family at full depth from checkpoints written with
+     the published configs: (i) GPT-2-small over --storage-uri, fp32 ids
+     equal to the cache-free teacher-forced replay, paged = flat, bf16
+     and int8 first-token logits (int8 against the fp32 function of its
+     codes and against bf16), W8A16 launches of an admission against the
+     plan, a decode step's wall and device ms; the W8A16 op at the odd N
+     50257 against its plain version; (ii) T5-base and Flan-T5-base by
+     :generate: fp32 tokens the teacher-forced argmax with n_valid by the
+     EOS rule, bf16 and int8 first-step logits, an int8 request under
+     set_sync_debug_mode("error") with one host sync and the plan's W8A16
+     launches;
   5. training: llama_1b at full width and depth through the trainer's entry
      point (batch 12, seq 1024, 3 warm-up + 10 timed steps): finite losses,
      the first near ln(V), every step's launches (2 forward per layer under
@@ -319,10 +330,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from kubeflow_tpu_torch.models import bert as bert_mod  # noqa: E402
+from kubeflow_tpu_torch.models import gpt2 as gpt2_mod  # noqa: E402
 from kubeflow_tpu_torch.models import hf_import as hf_mod  # noqa: E402
 from kubeflow_tpu_torch.models import llama as llama_mod  # noqa: E402
 from kubeflow_tpu_torch.models import moe as moe_mod  # noqa: E402
 from kubeflow_tpu_torch.models import peft_import  # noqa: E402
+from kubeflow_tpu_torch.models import t5 as t5_mod  # noqa: E402
 from kubeflow_tpu_torch.ops import _build  # noqa: E402
 from kubeflow_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from kubeflow_tpu_torch.ops import quant_matmul as qmm  # noqa: E402
@@ -334,12 +347,15 @@ from kubeflow_tpu_torch.serve import quant as squant  # noqa: E402
 from kubeflow_tpu_torch.serve import multilora  # noqa: E402
 from kubeflow_tpu_torch.serve import runtimes  # noqa: E402
 from kubeflow_tpu_torch.serve import server as server_mod  # noqa: E402
+from kubeflow_tpu_torch.serve import text2text  # noqa: E402
 from kubeflow_tpu_torch.serve.generation import (  # noqa: E402
     GenerationEngine, GenerativeTorchModel)
 from kubeflow_tpu_torch.serve.kv_transfer import peek_meta  # noqa: E402
 from kubeflow_tpu_torch.serve.runtimes import export_for_serving  # noqa: E402
 from kubeflow_tpu_torch.serve.server import (ModelRepository,  # noqa: E402
                                              ModelServer)
+from kubeflow_tpu_torch.serve.text2text import \
+    Text2TextTorchModel  # noqa: E402
 from kubeflow_tpu_torch.utils.resilience import \
     metrics as res_metrics  # noqa: E402
 from kubeflow_tpu_torch.train import checkpoint as ckpt_mod  # noqa: E402
@@ -666,8 +682,9 @@ ROLLING_PREFIX_HEAD, ROLLING_PREFIX_TAILS = 5000, (300, 700)
 ROLLING_SPEC_PROMPT = 4200
 MISTRAL_HF_LAYERS, MISTRAL_HTTP_PROMPT = 4, 5000
 # (ii)-(v) run Mistral-7B-v0.1's widths cut to ROLLING_LAYERS layers (its
-# published config is checked whole): the depth pays for phase 4l's time.
-ROLLING_LAYERS = 16
+# published config is checked whole): the depth pays for phases 4l's and
+# 4m's time.
+ROLLING_LAYERS = 8
 # 4i: disaggregated roles on phase 4's llama3_8b, every engine over one
 # module at phase 4's settings paged (blocks of KV_BLOCK_SIZE). A prefill
 # engine ships, a decode engine admits. (ii) One request at
@@ -684,8 +701,8 @@ DISAGG_TEMPERATURE, DISAGG_SEED = 0.8, SEED + 41
 DISAGG_ROWS, DISAGG_ROW_TOKENS, DISAGG_WINDOW_CHUNKS = 3, 160, 2
 DISAGG_SMALL_BLOCKS = 64
 # 4i runs phase 4's llama3_8b cut to DISAGG_LAYERS layers (its widths
-# whole): the depth pays for phase 4l's time.
-DISAGG_LAYERS = 16
+# whole): the depth pays for phases 4l's and 4m's time.
+DISAGG_LAYERS = 8
 # 4j: the Gemma 1/2/3 and Qwen2 config flags on random weights from the
 # seed, each config from its published config.json (google/gemma-7b,
 # google/gemma-2-9b, google/gemma-3-1b-pt, Qwen/Qwen2-7B) through
@@ -896,6 +913,56 @@ QWEN_MOE_CONFIG = {"architectures": ["Qwen2MoeForCausalLM"],
 QWEN_MOE_PARAMS, QWEN_MOE_ACTIVE = 14_315_784_192, 2_689_173_504
 QWEN_MOE_LAYERS, QWEN_MOE_NAME = 2, "qwen15_moe"
 QWEN_MOE_PROMPT_LENS = (100, 1000)
+# 4m: GPT-2 and the T5 family (models/gpt2.py, models/t5.py), weights from
+# the seed, each written by the port's writer under HF's names with the
+# published config.json and served over --storage-uri (huggingface format).
+# (i) openai-community/gpt2's config (GPT-2-small: 12 x 768, 12 heads,
+# 1024 positions, vocab 50257, gelu_new), the checkpoint in GPT-2's Conv1D
+# layout with the fused c_attn, biases drawn N(0, GEMMA_DRAW_STD): fp32
+# over HTTP (ids against the cache-free teacher-forced replay), the paged
+# engine (ids against the flat), bf16 and int8 engines (first-token logits
+# and a 4-row decode step), and the W8A16 op at the unembedding's odd N.
+GPT2_CONFIG = {"architectures": ["GPT2LMHeadModel"], "model_type": "gpt2",
+               "vocab_size": 50257, "n_embd": 768, "n_layer": 12,
+               "n_head": 12, "n_positions": 1024, "n_ctx": 1024,
+               "n_inner": None, "activation_function": "gelu_new",
+               "layer_norm_epsilon": 1e-05, "scale_attn_weights": True,
+               "bos_token_id": 50256, "eos_token_id": 50256,
+               "initializer_range": 0.02, "resid_pdrop": 0.1,
+               "embd_pdrop": 0.1, "attn_pdrop": 0.1}
+GPT2_GEN = {"slots": 4, "max_len": 1024, "chunk": CHUNK,
+            "prefill_buckets": [64, 256]}
+GPT2_BLOCK, GPT2_NAME = 16, "gpt2"
+GPT2_PROMPT_LENS = (16, 250, 700, 960)
+# (ii) google-t5/t5-base's and google/flan-t5-base's configs at full depth
+# (12 + 12 layers of 768, 12 heads of 64; relu and tied, or gated-gelu,
+# d_ff 2048 and untied), weights drawn as HF's T5 initialises them (the
+# port's init_weights, q and the relative-position tables rescaled:
+# `_t5_model`), served by :generate: T5_REQUEST_LENS one after another,
+# fp32 tokens against the teacher-forced argmax, bf16 and int8 first-step
+# logits, one int8 request under set_sync_debug_mode("error").
+T5_BASE_CONFIG = {"architectures": ["T5ForConditionalGeneration"],
+                  "model_type": "t5", "vocab_size": 32128, "d_model": 768,
+                  "d_kv": 64, "d_ff": 3072, "num_layers": 12,
+                  "num_decoder_layers": 12, "num_heads": 12,
+                  "relative_attention_num_buckets": 32,
+                  "relative_attention_max_distance": 128,
+                  "layer_norm_epsilon": 1e-06, "feed_forward_proj": "relu",
+                  "tie_word_embeddings": True, "decoder_start_token_id": 0,
+                  "eos_token_id": 1, "pad_token_id": 0,
+                  "initializer_factor": 1.0}
+FLAN_T5_BASE_CONFIG = dict(T5_BASE_CONFIG, d_ff=2048,
+                           feed_forward_proj="gated-gelu",
+                           tie_word_embeddings=False)
+T5_GEN = {"in_buckets": [64, 512], "max_tokens": 64}
+T5_REQUEST_LENS, T5_MIN_VALID = (10, 60, 300, 500), 32
+# int8 against bf16: the gate holds the int8 path (the W8A16 op, its
+# rounding points) against the bf16 model of the same codes dequantized,
+# within LOGITS_REL_L2_MAX; against the original bf16 weights the int8
+# rounding of the weights itself shows (~1% of a weight's spread, 2.4e-2
+# to 3.5e-2 measured on the CPU at reduced widths for these families), so
+# that one is held at 4k's BERT_INT8_TOL.
+GPT2_T5_TOL = 2e-2
 # Phase 2c: (M, K, N) of llama3_8b's projections: gate/up and down at a
 # 2048-token prefill bucket, then at 32 decode rows (the weight's read
 # bounds those).
@@ -3068,7 +3135,8 @@ def _ml_concurrent(base: str, bodies: list, openai_index=None) -> list:
 def _chunk_launches(server: ModelServer, aids=None) -> tuple:
     """(kernel launches per decode step by the profiler, or None when it
     saw no device time; unprofiled ms per step) of one decode chunk of the
-    idle engine, with adapter ids `aids`."""
+    idle engine, with adapter ids `aids`. Only kernels are counted, so the
+    profiler records the device alone (no CPU op events to collect)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3080,8 +3148,7 @@ def _chunk_launches(server: ModelServer, aids=None) -> tuple:
         call()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             call()
             torch.cuda.synchronize()
     kernels = sum(e.count for e in prof.key_averages()
@@ -5986,6 +6053,515 @@ def phase_moe(work: str, gk) -> dict:
             "qwen": qwen}
 
 
+def _peak_gib() -> float:
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def _dequantized_fixed(qmodel, fmodel):
+    """`fmodel` (a float model of `qmodel`'s layout, its storage dtype the
+    target) with each of `qmodel`'s int8 leaves' codes times scales
+    written in its place: the same codes, dequantized, as JAX's
+    QuantizedModule feeds its float matmuls."""
+    with torch.no_grad():
+        for name, mod in qmodel.named_modules():
+            if isinstance(mod, squant.Int8Dense):
+                w = mod.q.float() * mod.scale[:, None]
+            elif isinstance(mod, squant.Int8Table):
+                w = mod.q.float() * mod.scale[None, :]
+            else:
+                continue
+            parent, _, leaf = name.rpartition(".")
+            target = getattr(fmodel.get_submodule(parent), leaf)
+            (target.weight if isinstance(target, torch.nn.Linear)
+             else target).copy_(w)
+    return fmodel
+
+
+def _gpt2_w8a16_shapes(cfg, m: int, head_rows: int) -> list:
+    """The int8 GPT-2's W8A16 calls of one forward of m tokens: q, k, v, o,
+    fc and proj a layer, then the tied head over `head_rows` rows (the
+    engine unembeds only a prompt's last row)."""
+    h, i = cfg.hidden_size, cfg.intermediate_size
+    layer = [(m, h, h)] * 4 + [(m, h, i), (m, i, h)]
+    return layer * cfg.num_layers + [(head_rows, h, cfg.vocab_size)]
+
+
+def _t5_w8a16_shapes(cfg, s: int, steps: int) -> list:
+    """The int8 T5's W8A16 calls of one greedy request over an s-token
+    bucket: the encoder's q, k, v, o and FFN a layer at s rows, each
+    decoder layer's cross K and V at s rows, then `steps` decoder steps of
+    one row (self q, k, v, o, cross q and o, the FFN a layer, the head)."""
+    d, inner, f = cfg.d_model, cfg.num_heads * cfg.d_kv, cfg.d_ff
+    ffn = ([(d, f), (d, f), (f, d)] if cfg.gated else [(d, f), (f, d)])
+    enc = ([(s, d, inner)] * 3 + [(s, inner, d)]
+           + [(s, k, n) for k, n in ffn]) * cfg.num_layers
+    cross = [(s, d, inner)] * 2 * cfg.num_decoder_layers
+    step = (([(1, d, inner)] * 3 + [(1, inner, d)] + [(1, d, inner),
+             (1, inner, d)] + [(1, k, n) for k, n in ffn])
+            * cfg.num_decoder_layers + [(1, d, cfg.vocab_size)])
+    return enc + cross + step * steps
+
+
+def _w8a16_at(gk, shapes) -> list:
+    """The W8A16 op at GPT-2's and T5's decode shapes (the unembedding's
+    epilogue where `rf`) against its plain version in 2f's way (two
+    launches bit-identical, rel-L2 within the GPU tests' bound), and
+    timed as 2f times decode rows: after a PyTorch kernel, the weight
+    rotating past the L2; its plan, bound and torch.mm's time on a
+    pre-cast weight. These calls are checks, not a path's."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 77)
+    sms = w8._sm_count(dev.index or 0)
+    rows = []
+    for m, k, n, rf in shapes:
+        x, q, scale = gk.w8a16_inputs(m, k, n, torch.bfloat16, gen, dev)
+        plan = w8._w8a16_plan(m, k, n, torch.bfloat16, True, sms)
+        err = gk.w8a16_check(x, q, scale, rf)
+        nbytes = m * k * 2 + n * k + 4 * n + m * n * 2
+        bound, bound_by = _bound(2 * m * n * k, nbytes)
+        copies = [q] + [q.clone() for _ in range(
+            max(0, math.ceil(W8A16_COLD_BYTES / (n * k)) - 1))]
+        ms = launch_ms(_rotating(lambda w: w8.int8_weight_matmul(
+            x, w, scale, round_before_scale=rf), copies))
+        del copies
+        plain_ms = time_ms(lambda: w8._int8_weight_matmul_plain(
+            x, q, scale, rf), reps=3)
+        wides = [q.to(torch.bfloat16)]
+        wides += [wides[0].clone() for _ in range(max(0, math.ceil(
+            W8A16_COLD_BYTES / (n * k * 2)) - 1))]
+        library_ms = launch_ms(_rotating(lambda w: (torch.mm(
+            x, w.t(), out_dtype=torch.float32) * scale).to(torch.bfloat16),
+            wides))
+        del wides
+        row = {"shape": f"M{m} K{k} N{n}", "unembed": rf,
+               "kernel": plan.kernel, "splits": plan.splits,
+               "grid": plan.grid[0], "rel_l2": err["rel_l2"],
+               "max_abs": err["max_abs"], "ms": ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "bound_ms": bound,
+               "bound_by": bound_by}
+        rows.append(row)
+        log(f"    W8A16 M{m} K{k} N{n}{' (unembedding epilogue)' if rf else ''}"
+            f": {plan.kernel} kernel (splits {plan.splits}, grid "
+            f"{plan.grid[0]}), rel_l2 {err['rel_l2']:.2e} (bound "
+            f"{gk.W8A16_TOL[torch.bfloat16]}), two launches bit-identical; "
+            f"ms {ms:.4f} ({bound / ms:.1%} of bound) plain_ms "
+            f"{plain_ms:.4f} library_ms (torch.mm, pre-cast weight) "
+            f"{library_ms:.4f} bound_ms {bound:.4f} ({bound_by})")
+        del x, q, scale
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _serve_ckpt(ckpt: str, name: str, bodies: list, burst: bool) -> tuple:
+    """Serve the huggingface bundle `ckpt` over --storage-uri and POST
+    `bodies` to :generate (at once, or one after another, each timed):
+    (responses, seconds to serve, [ms a request], the served model)."""
+    ts = time.monotonic()
+    server, port = server_mod.start([
+        "--storage-uri", f"file://{ckpt}", "--name", name,
+        "--host", "127.0.0.1", "--port", "0", "--device", DEVICE])
+    serve_s = time.monotonic() - ts
+    url = f"http://127.0.0.1:{port}/v1/models/{name}:generate"
+    try:
+        walls = []
+        if burst:
+            out = _burst(lambda b: _post(url, b), bodies)
+        else:
+            out = []
+            for b in bodies:
+                t0 = time.perf_counter()
+                out.append(_post(url, b))
+                walls.append((time.perf_counter() - t0) * 1e3)
+        served = type(server.models[name]).__name__
+    finally:
+        server.stop()
+        del server
+        _free()
+    return out, serve_s, walls, served
+
+
+def _gpt2(work: str, gk, gates: dict) -> dict:
+    """4m (i): GPT-2-small at full depth (see the constants)."""
+    t0 = time.monotonic()
+    cfg = hf_mod.config_from_hf(GPT2_CONFIG, dtype="float32")
+    gates["i config: GPT-2-small's widths"] = (
+        isinstance(cfg, gpt2_mod.GPT2Config)
+        and (cfg.vocab_size, cfg.hidden_size, cfg.num_layers, cfg.num_heads,
+             cfg.intermediate_size, cfg.max_seq_len)
+        == (50257, 768, 12, 12, 3072, 1024))
+    model = gpt2_mod.GPT2(cfg, device=DEVICE).init_weights(SEED).eval()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 70)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(".bias"):
+                p.normal_(0.0, GEMMA_DRAW_STD, generator=gen)
+    sd = model.state_dict()
+    ckpt = os.path.join(work, "hf_gpt2")
+    os.makedirs(ckpt, exist_ok=True)
+    tw = time.monotonic()
+    tensors = {k: v.cpu() for k, v in hf_mod.gpt2_hf_tensors(sd, cfg).items()}
+    nbytes = hf_mod.save_safetensors(tensors,
+                                     os.path.join(ckpt, "model.safetensors"))
+    del tensors
+    write_s = time.monotonic() - tw
+    with open(os.path.join(ckpt, "config.json"), "w") as f:
+        json.dump(GPT2_CONFIG, f)
+    with open(os.path.join(ckpt, "model.json"), "w") as f:
+        json.dump({"format": "huggingface", "generative": GPT2_GEN,
+                   "model_overrides": {"dtype": "float32"}}, f)
+    bodies = _spec_bodies(cfg.vocab_size, GPT2_PROMPT_LENS, SEED + 71)
+    torch.cuda.reset_peak_memory_stats()
+    laps = [time.monotonic()]
+    out, serve_s, _, served = _serve_ckpt(ckpt, GPT2_NAME, bodies, True)
+    laps.append(time.monotonic())
+    ids = [r["output_ids"] for r in out]
+    tf = [_tf_gate(model, b["input_ids"], i, 0.0)
+          for b, i in zip(bodies, ids)]
+    for b, res in zip(bodies, tf):
+        _tf_line("(i) fp32 over HTTP", b["input_ids"], res)
+    gates["i served by the engine as GPT-2"] = served == "GenerativeTorchModel"
+    gates["i fp32 ids = the cache-free teacher-forced replay"] = all(
+        r["ok"] for r in tf)
+    gates["i non-degenerate (a prompt with > 1 distinct id)"] = any(
+        len(set(i)) > 1 for i in ids)
+    eng = GenerationEngine(model, **GPT2_GEN, kv_block_size=GPT2_BLOCK)
+    paged, _ = _engine_burst(eng, bodies)
+    _close(eng)
+    gates["i paged ids = flat"] = paged == ids
+    laps.append(time.monotonic())
+    probe = bodies[1]["input_ids"]
+    probe_t = torch.tensor([probe], device=DEVICE)
+    with torch.inference_mode():
+        ref = model(probe_t)[0, -1].float()
+    fp32_peak = _peak_gib()
+    pos = [n + MAX_TOKENS for n in GPT2_PROMPT_LENS]
+    n_tok = len(bodies) * MAX_TOKENS
+
+    def engine_run(m, what: str, profile: bool) -> dict:
+        """The probe's first-token logits, the burst's ids (and W8A16
+        launches: the probe's admission alone, then the rest), a decode
+        step's wall ms (and, with `profile`, its device ms), the peak."""
+        torch.cuda.reset_peak_memory_stats()
+        eng = GenerationEngine(m, **GPT2_GEN)
+        admits: list = []
+        real_admit = eng._admit
+
+        def admit(*a, **kw):  # the W8A16 launches of each admission
+            start = _w8a16_counts()
+            res = real_admit(*a, **kw)
+            admits.append(tuple(x - y for x, y in zip(_w8a16_counts(),
+                                                      start)))
+            return res
+
+        eng._admit = admit
+        logits: list = []
+        before = _w8a16_counts()
+        with _first_logits(eng.model, logits):
+            eng.submit(probe, max_tokens=1, timeout=600)
+        got, _ = _engine_burst(eng, bodies)
+        step = _step_walls(eng, GPT2_PROMPT_LENS)
+        prof = (_profile(f"a {GPT2_GEN['slots']}-row {what} GPT-2 decode "
+                         "chunk", _decode_call(eng, pos)) if profile
+                else None)
+        launches = tuple(a - b for a, b in zip(_w8a16_counts(), before))
+        _close(eng)
+        return {"logits": logits[0], "ids": got, "step": step,
+                "device_ms": prof["busy_ms"] / CHUNK if prof else None,
+                "admit": admits[0], "launches": launches,
+                "peak": _peak_gib()}
+
+    bcfg = dataclasses.replace(cfg, dtype=torch.bfloat16)
+    bmodel = gpt2_mod.GPT2(bcfg, device=DEVICE).eval()
+    bmodel.load_state_dict(sd)
+    bf16 = engine_run(bmodel, "bf16", True)
+    laps.append(time.monotonic())
+    rel_b = _rel_l2(bf16["logits"], ref)
+    agree_b = sum(a == b for x, y in zip(ids, bf16["ids"])
+                  for a, b in zip(x, y))
+    gates["i bf16 first-token logits vs fp32"] = rel_b <= GPT2_T5_TOL
+    # int8: quantize_fixed's codes (JAX's contraction axes), held against
+    # the fp32 function of the same codes and against the bf16 weights.
+    squant.quantize_fixed(bmodel)
+    int8 = engine_run(bmodel, "int8", False)
+    laps.append(time.monotonic())
+    with torch.inference_mode():
+        deq = _dequantized_fixed(bmodel, model)(probe_t)[0, -1].float()
+    rel_qd = _rel_l2(int8["logits"], deq)
+    rel_qb = _rel_l2(int8["logits"], bf16["logits"])
+    agree_q = sum(a == b for x, y in zip(bf16["ids"], int8["ids"])
+                  for a, b in zip(x, y))
+    del model, bmodel, sd
+    _free()
+    bucket = next(b for b in GPT2_GEN["prefill_buckets"] if len(probe) <= b)
+    want = _w8a16_expect(_gpt2_w8a16_shapes(cfg, bucket, 1))
+    first = _by_route(int8["admit"])
+    gates["i int8 W8A16 launches of an admission = the plan's"] = (
+        sum(first.values()) == sum(want.values())
+        and first.get(w8.WGMMA, 0) == want.get(w8.WGMMA, 0))
+    gates["i int8 first-token logits vs the fp32 function of its codes"] = (
+        rel_qd <= GPT2_T5_TOL)
+    gates["i int8 first-token logits vs bf16"] = rel_qb <= BERT_INT8_TOL
+    h, v, slots = cfg.hidden_size, cfg.vocab_size, GPT2_GEN["slots"]
+    odd = _w8a16_at(gk, [(1, h, v, True), (slots, h, v, True),
+                          (slots, h, h, False),
+                          (slots, h, cfg.intermediate_size, False),
+                          (slots, cfg.intermediate_size, h, False)])
+    laps.append(time.monotonic())
+
+    def step_text(r):
+        dev = (f"{r['device_ms']:.3f}" if r["device_ms"] is not None
+               else "not measured")
+        return (f"decode {_step_text(r['step'], slots)}, device {dev} ms a "
+                f"step, {1e3 / r['step']['ms']:.1f} tok/s a row; peak "
+                f"{r['peak']:.2f} GiB")
+
+    log(f"  (i) GPT-2-small ({cfg.num_params} parameters): {nbytes} bytes "
+        f"(fp32, Conv1D layout, fused c_attn) written in {write_s:.2f}s, "
+        f"serving {serve_s:.1f}s after --storage-uri; prompts "
+        f"{GPT2_PROMPT_LENS} at once, {MAX_TOKENS} tokens each: fp32 ids "
+        f"{sum(r['n'] - r['parts'] for r in tf)}/{n_tok} the teacher-forced "
+        f"argmax; distinct ids a prompt {[len(set(i)) for i in ids]}; paged "
+        f"(blocks of {GPT2_BLOCK}) ids {'=' if paged == ids else '!='} flat; "
+        f"peak {fp32_peak:.2f} GiB")
+    log(f"  (i) bf16: first-token logits rel_l2 {rel_b:.3e} from fp32 (bound "
+        f"{GPT2_T5_TOL}); ids equal fp32's at {agree_b}/{n_tok} tokens; "
+        + step_text(bf16))
+    log(f"  (i) int8: first-token logits rel_l2 {rel_qd:.3e} from the fp32 "
+        f"function of its codes (bound {GPT2_T5_TOL}), {rel_qb:.3e} from "
+        f"bf16 (bound {BERT_INT8_TOL}); ids equal bf16's at "
+        f"{agree_q}/{n_tok} tokens; W8A16 launches of the {len(probe)}-token "
+        f"admission {first} (the plan: {want}), of the whole run "
+        f"{_by_route(int8['launches'])}; " + step_text(int8)
+        + f"; (i) took {time.monotonic() - t0:.1f}s (HTTP, replay and "
+        f"paged, bf16, int8, the W8A16 shapes: "
+        f"{[round(y - x, 1) for x, y in zip(laps, laps[1:])]} s)")
+    return {"w8a16": int8["launches"], "odd": odd, "rel_bf16": rel_b,
+            "rel_int8_codes": rel_qd, "rel_int8_bf16": rel_qb,
+            "step_ms": {"bf16": bf16["step"]["ms"],
+                        "int8": int8["step"]["ms"]},
+            "device_step_ms": {"bf16": bf16["device_ms"],
+                               "int8": int8["device_ms"]},
+            "peak_gib": {"fp32": fp32_peak, "bf16": bf16["peak"],
+                         "int8": int8["peak"]}}
+
+
+def _t5_model(cfg):
+    """A T5 of `cfg` on the card with HF's initialisation: the port's
+    init_weights (shared and an untied head N(0, 1), projections
+    N(0, 1/fan_in), norms 1), q rescaled to N(0, (d_model d_kv)^-0.5) and
+    the relative-position tables to N(0, d_model^-0.5), as HF's
+    T5PreTrainedModel draws them."""
+    model = t5_mod.T5(cfg, device=DEVICE).init_weights(SEED)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, t5_mod.T5Attention):
+                mod.q.weight.mul_(cfg.d_kv ** -0.5)
+            elif isinstance(mod, t5_mod.RelPosBias):
+                mod.table.mul_(cfg.d_model ** -0.5)
+    return model.eval()
+
+
+def _t5_first_logits(model, enc, mask) -> torch.Tensor:
+    with torch.inference_mode():
+        dec = torch.full((1, 1), model.cfg.decoder_start_id,
+                         dtype=torch.long, device=DEVICE)
+        return model(enc, dec, mask)[0, 0].float()
+
+
+def _padded(ids: list, bucket: int) -> tuple:
+    enc = torch.zeros((1, bucket), dtype=torch.long, device=DEVICE)
+    enc[0, :len(ids)] = torch.tensor(ids, device=DEVICE)
+    mask = torch.zeros((1, bucket), dtype=torch.bool, device=DEVICE)
+    mask[0, :len(ids)] = True
+    return enc, mask
+
+
+def _t5(work: str, label: str, config: dict, gates: dict) -> dict:
+    """4m (ii): one T5 config at full depth (see the constants): fp32 over
+    :generate, then a bf16 request and an int8 request of the longest
+    input under set_sync_debug_mode("error")."""
+    t0 = time.monotonic()
+    cfg = hf_mod.config_from_hf(config, dtype="float32")
+    gates[f"ii {label} config"] = (
+        isinstance(cfg, t5_mod.T5Config)
+        and (cfg.vocab_size, cfg.d_model, cfg.d_kv, cfg.num_layers,
+             cfg.num_decoder_layers, cfg.num_heads, cfg.rel_buckets,
+             cfg.rel_max_distance, cfg.d_ff, cfg.gated, cfg.tie_embeddings)
+        == (32128, 768, 64, 12, 12, 12, 32, 128, config["d_ff"],
+            config["feed_forward_proj"] == "gated-gelu",
+            config["tie_word_embeddings"]))
+    model = _t5_model(cfg)
+    sd = model.state_dict()
+    ckpt = os.path.join(work, f"hf_{label}")
+    os.makedirs(ckpt, exist_ok=True)
+    tw = time.monotonic()
+    nbytes = hf_mod.save_safetensors(
+        {h: sd[p].cpu() for p, h in hf_mod.t5_hf_names(cfg).items()},
+        os.path.join(ckpt, "model.safetensors"))
+    write_s = time.monotonic() - tw
+    with open(os.path.join(ckpt, "config.json"), "w") as f:
+        json.dump(config, f)
+    with open(os.path.join(ckpt, "model.json"), "w") as f:
+        json.dump({"format": "huggingface", "generative": T5_GEN,
+                   "model_overrides": {"dtype": "float32"}}, f)
+    rng = np.random.default_rng(SEED + 80)
+    bodies = [{"input_ids": rng.integers(2, cfg.vocab_size, n).tolist(),
+               "max_tokens": T5_GEN["max_tokens"]} for n in T5_REQUEST_LENS]
+    buckets = [next(s for s in T5_GEN["in_buckets"]
+                    if len(b["input_ids"]) <= s) for b in bodies]
+    torch.cuda.reset_peak_memory_stats()
+    laps = [time.monotonic()]
+    out, serve_s, walls, served = _serve_ckpt(ckpt, label, bodies, False)
+    gates[f"ii {label} served as text2text"] = (
+        served == "Text2TextTorchModel")
+    # Each request's tokens against the argmax of one teacher-forced
+    # forward over [start] + its tokens on the same padded input: every
+    # valid token, then, below max_tokens, EOS where n_valid says.
+    n_max, ok, n_valid = T5_GEN["max_tokens"], True, []
+    for b, bucket, r in zip(bodies, buckets, out):
+        toks, nv = r["output_ids"], r["num_output_tokens"]
+        n_valid.append(nv)
+        enc, mask = _padded(b["input_ids"], bucket)
+        dec = torch.tensor([[cfg.decoder_start_id] + toks], device=DEVICE)
+        with torch.inference_mode():
+            top = model(enc, dec, mask)[0].argmax(-1).tolist()
+        want = toks + ([cfg.eos_id] if nv < n_max else [])
+        ok &= (len(toks) == nv and cfg.eos_id not in toks
+               and top[:len(want)] == want)
+    gates[f"ii {label} fp32 tokens = the teacher-forced argmax, n_valid "
+          "by the EOS rule"] = ok
+    gates[f"ii {label} at least {T5_MIN_VALID} valid tokens"] = (
+        sum(n_valid) >= T5_MIN_VALID)
+    laps.append(time.monotonic())
+    enc, mask = _padded(bodies[1]["input_ids"], buckets[1])
+    ref = _t5_first_logits(model, enc, mask)
+    fp32_peak = _peak_gib()
+    bcfg = dataclasses.replace(cfg, dtype=torch.bfloat16)
+    bmodel = t5_mod.T5(bcfg, device=DEVICE).eval()
+    bmodel.load_state_dict(sd)
+    del sd
+    torch.cuda.reset_peak_memory_stats()
+    b_logits = _t5_first_logits(bmodel, enc, mask)
+    rel_b = _rel_l2(b_logits, ref)
+    gates[f"ii {label} bf16 first-step logits vs fp32"] = (
+        rel_b <= GPT2_T5_TOL)
+    bserved = Text2TextTorchModel(label, bmodel, generation=T5_GEN)
+    bserved.load()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    bserved.generate(bodies[1])
+    b_ms = (time.perf_counter() - t1) * 1e3
+    bf16_peak = _peak_gib()
+    del bserved
+    laps.append(time.monotonic())
+    torch.cuda.reset_peak_memory_stats()
+    squant.quantize_fixed(bmodel)
+    q_logits = _t5_first_logits(bmodel, enc, mask)
+    rel_qb = _rel_l2(q_logits, b_logits)
+    rel_qd = _rel_l2(q_logits, _t5_first_logits(
+        _dequantized_fixed(bmodel, model), enc, mask))
+    del model
+    _free()
+    gates[f"ii {label} int8 first-step logits vs the fp32 function of its "
+          "codes"] = rel_qd <= GPT2_T5_TOL
+    gates[f"ii {label} int8 first-step logits vs bf16"] = (
+        rel_qb <= BERT_INT8_TOL)
+    qserved = Text2TextTorchModel(label, bmodel, generation=T5_GEN)
+    qserved.load()
+    waits = []
+    real_wait = text2text._wait
+
+    def wait_outside(event):
+        waits.append(event)
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            real_wait(event)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
+    text2text._wait = wait_outside
+    q_ms, q_launch = [], []
+    timed = (len(bodies) - 1,)  # the longest input
+    try:
+        for i in timed:
+            before = _w8a16_counts()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                qserved.generate(bodies[i])
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            q_ms.append((time.perf_counter() - t1) * 1e3)
+            q_launch.append(tuple(a - c for a, c in zip(_w8a16_counts(),
+                                                         before)))
+    finally:
+        text2text._wait = real_wait
+    gates[f"ii {label} one host sync a request (the fetch)"] = (
+        len(waits) == len(timed))
+    want = [_w8a16_expect(_t5_w8a16_shapes(cfg, buckets[i], n_max))
+            for i in timed]
+    gates[f"ii {label} int8 W8A16 launches a request = the plan's"] = all(
+        n == sum(w.values()) and g == w.get(w8.WGMMA, 0)
+        for (n, g), w in zip(q_launch, want))
+    int8_peak = _peak_gib()
+    laps.append(time.monotonic())
+    del qserved, bmodel
+    _free()
+    log(f"  (ii) {label} ({cfg.num_params} parameters): {nbytes} bytes "
+        f"written in {write_s:.2f}s, serving {serve_s:.1f}s after "
+        f"--storage-uri; requests of {T5_REQUEST_LENS} ids one after "
+        f"another over :generate, fp32: valid tokens {n_valid} (bound: at "
+        f"least {T5_MIN_VALID} in all), ms a request "
+        f"{[round(w, 1) for w in walls]}, peak {fp32_peak:.2f} GiB; bf16: "
+        f"first-step logits rel_l2 {rel_b:.3e} from fp32 (bound "
+        f"{GPT2_T5_TOL}), {b_ms:.1f} ms a request of "
+        f"{T5_REQUEST_LENS[1]} ids, peak {bf16_peak:.2f} GiB; int8: first-step logits rel_l2 {rel_qd:.3e} "
+        f"from the fp32 function of its codes (bound {GPT2_T5_TOL}), "
+        f"{rel_qb:.3e} from bf16 (bound {BERT_INT8_TOL}); requests of "
+        f"{[T5_REQUEST_LENS[i] for i in timed]} ids under sync-debug "
+        f"'error': ms {[round(w, 1) for w in q_ms]}, host syncs "
+        f"{len(waits)}, W8A16 launches {[n for n, _ in q_launch]} (wgmma "
+        f"{[g for _, g in q_launch]}; the plan: {want}), peak "
+        f"{int8_peak:.2f} GiB; (ii) {label} took "
+        f"{time.monotonic() - t0:.1f}s (HTTP, replay, bf16, int8: "
+        f"{[round(b - a, 1) for a, b in zip(laps, laps[1:])]} s)")
+    return {"w8a16": (sum(n for n, _ in q_launch),
+                      sum(g for _, g in q_launch)),
+            "rel_bf16": rel_b, "rel_int8_codes": rel_qd,
+            "rel_int8_bf16": rel_qb,
+            "ms": {"fp32": walls, "bf16": b_ms, "int8": q_ms},
+            "n_valid": n_valid,
+            "peak_gib": {"fp32": fp32_peak, "bf16": bf16_peak,
+                         "int8": int8_peak}}
+
+
+def phase_gpt2_t5(work: str, gk) -> dict:
+    """4m: GPT-2 and the T5 family at full depth: (i) GPT-2-small through
+    the engine, (ii) T5-base and Flan-T5-base through :generate (see the
+    constants)."""
+    t_phase = time.monotonic()
+    _free()
+    gates: dict = {}
+    gpt2 = _gpt2(work, gk, gates)
+    t5 = {label: _t5(work, label, config, gates)
+          for label, config in (("t5_base", T5_BASE_CONFIG),
+                                ("flan_t5_base", FLAN_T5_BASE_CONFIG))}
+    t5_odd = _w8a16_at(gk, [(1, 768, 32128, True), (1, 768, 32128, False),
+                             (1, 768, 2048, False), (1, 2048, 768, False)])
+    log(f"  4m took {time.monotonic() - t_phase:.1f}s; {smi()}")
+    for gate, ok in gates.items():
+        log(f"  gate {gate}: {'OK' if ok else 'FAIL'}")
+    if not all(gates.values()):
+        raise RuntimeError(f"GPT-2/T5 gates failed: "
+                           f"{[g for g, ok in gates.items() if not ok]}")
+    return {"w8a16_launches": {
+                "gpt2_int8_serving": gpt2["w8a16"],
+                **{f"{k}_int8_text2text": v["w8a16"] for k, v in t5.items()}},
+            "gpt2": gpt2, "t5": t5, "t5_w8a16": t5_odd}
+
+
 def _decode_in_situ(ordered_ms: list) -> dict | None:
     """The decode kernel's device ms by shape inside a decode chunk, read
     from its launches in order (W8A16_STEP_ORDER a layer, then the
@@ -7660,6 +8236,11 @@ def main() -> int:
                   "widths in bf16 at 4 layers, mixtral_8x7b whole in int8 "
                   "over HTTP, Qwen1.5-MoE-A2.7B's widths over --storage-uri",
                   phase_moe, bundle, gk)
+        gpt2_t5 = run("4m", "GPT-2 and the T5 family: GPT-2-small over "
+                      "--storage-uri (fp32, paged, bf16, int8, the odd "
+                      "vocab on the W8A16 op), T5-base and Flan-T5-base by "
+                      ":generate (fp32, bf16, int8 under sync-debug)",
+                      phase_gpt2_t5, bundle, gk)
     finally:
         shutil.rmtree(bundle, ignore_errors=True)
     train = run("5", f"training {TRAIN_MODEL} through the trainer",
@@ -7817,18 +8398,24 @@ def main() -> int:
         "launches": (quant["w8a16_launches"] + spec["w8a16_launches"]
                      + gemma["w8a16_launches"][0]
                      + sum(n for n, _ in fixed["w8a16"].values())
-                     + moe["w8a16_launches"][0]),
+                     + moe["w8a16_launches"][0]
+                     + sum(n for n, _ in
+                           gpt2_t5["w8a16_launches"].values())),
         "launches_wgmma": (quant["w8a16_wgmma_launches"]
                            + spec["w8a16_wgmma_launches"]
                            + gemma["w8a16_launches"][1]
                            + sum(n for _, n in fixed["w8a16"].values())
-                           + moe["w8a16_launches"][1]),
+                           + moe["w8a16_launches"][1]
+                           + sum(n for _, n in
+                                 gpt2_t5["w8a16_launches"].values())),
         "launches_by_path": {
             "paged_quant_serving": quant["w8a16_launches"],
             "speculative_serving": spec["w8a16_launches"],
             "qwen2_int8_serving": gemma["w8a16_launches"][0],
             **{path: n for path, (n, _) in fixed["w8a16"].items()},
-            "mixtral_int8_serving": moe["w8a16_launches"][0]},
+            "mixtral_int8_serving": moe["w8a16_launches"][0],
+            **{path: n for path, (n, _) in
+               gpt2_t5["w8a16_launches"].items()}},
         "max_abs_err": w8r["max_abs_err"], "rel_l2_err": w8r["rel_l2_err"],
         "ms": wmain["ms"], "plain_ms": wmain["plain_ms"],
         "bound_ms": wmain["bound_ms"], "bound_by": wmain["bound_by"],
@@ -7839,6 +8426,7 @@ def main() -> int:
         "step_library_ms": w8r["steps"][4]["library_ms"],
         "in_situ": quant["w8a16_in_situ"],
         "by_shape": w8r["rows"],
+        "by_shape_gpt2_t5": gpt2_t5["gpt2"]["odd"] + gpt2_t5["t5_w8a16"],
     }, *({
         "name": name, "route": "cuda",
         "source": "kubeflow_tpu_torch/ops/csrc/rdma_ring.cu",

@@ -1,5 +1,5 @@
 """Weights from the JAX models' flax param trees onto the port's modules:
-the Llama, the MLP and BERT."""
+the Llama, the MLP, BERT, GPT-2 and T5."""
 
 from __future__ import annotations
 
@@ -7,8 +7,10 @@ import numpy as np
 import torch
 
 from kubeflow_tpu_torch.models.bert import BertConfig
+from kubeflow_tpu_torch.models.gpt2 import GPT2Config
 from kubeflow_tpu_torch.models.llama import LlamaConfig, lora_projections
 from kubeflow_tpu_torch.models.mlp import MLPConfig
+from kubeflow_tpu_torch.models.t5 import T5Config
 
 
 def _flatten(tree, prefix=()) -> dict:
@@ -305,4 +307,96 @@ def bert_params_from_jax(params_np, cfg: BertConfig) -> dict:
         take.dense(sd, "mlm_transform", "mlm_transform", h, h, dtype=pd)
         ln("mlm_ln", "mlm_ln")
         sd["mlm_bias"] = take("mlm_bias", (cfg.vocab_size,), pd)
+    return take.done(sd)
+
+
+def gpt2_params_from_jax(params_np, cfg: GPT2Config) -> dict:
+    """The flax GPT-2 tree (`wte`, `wpe`, `ln_f`, `block_{i}`) as a state
+    dict for `GPT2(cfg)`: q/k/v kernels [H, heads, hd] and biases [heads,
+    hd], the o_proj kernel [heads, hd, H], and the MLP's `fc`/`proj`
+    kernels transposed to [out, in] with their biases, in
+    cfg.storage_dtype; LayerNorm scale/bias in fp32. Raises on a leaf that
+    is missing, mis-shaped or left over."""
+    take, sd = _Taker(params_np), {}
+    h, nh, hd = cfg.hidden_size, cfg.num_heads, cfg.head_dim
+    i, dt = cfg.intermediate_size, cfg.storage_dtype
+    sd["wte"] = take("wte", (cfg.vocab_size, h), dt)
+    sd["wpe"] = take("wpe", (cfg.max_seq_len, h), dt)
+
+    def ln(key, path):
+        sd[key + ".scale"] = take(path + "/scale", (h,))
+        sd[key + ".bias"] = take(path + "/bias", (h,))
+
+    ln("ln_f", "ln_f")
+    for n in range(cfg.num_layers):
+        p, key = f"block_{n}/", f"blocks.{n}."
+        for proj in ("q_proj", "k_proj", "v_proj"):
+            take.dense(sd, key + proj, p + proj, h, h, (h, nh, hd), (nh, hd),
+                       dt)
+        take.dense(sd, key + "o_proj", p + "o_proj", h, h, (nh, hd, h),
+                   None, dt)
+        take.dense(sd, key + "fc", p + "fc", h, i, dtype=dt)
+        take.dense(sd, key + "proj", p + "proj", i, h, dtype=dt)
+        ln(key + "ln_1", p + "ln_1")
+        ln(key + "ln_2", p + "ln_2")
+    return take.done(sd)
+
+
+def t5_params_from_jax(params_np, cfg: T5Config) -> dict:
+    """The flax T5 tree as a state dict for `T5(cfg)`: q/k/v kernels
+    [D, heads, dk] and o kernels [heads, dk, D] flatten their head axes and
+    transpose to [out, in], the FFN kernels and an untied `lm_head` [D, V]
+    transpose, `shared_embedding` is `shared`; these in cfg.storage_dtype,
+    norm scales and the `rel_embedding` tables (each layer's under UMT5)
+    in fp32. Raises on a leaf that is missing, mis-shaped or left over."""
+    take, sd = _Taker(params_np), {}
+    d, nh, dk, dt = cfg.d_model, cfg.num_heads, cfg.d_kv, cfg.storage_dtype
+    inner = nh * dk
+    sd["shared"] = take("shared_embedding", (cfg.vocab_size, d), dt)
+
+    def kernel(key, path, n_in, n_out, shape):
+        sd[key + ".weight"] = take(path + "/kernel", shape, dt).reshape(
+            n_in, n_out).T.contiguous()
+
+    def attn(key, path):
+        for p in ("q", "k", "v"):
+            kernel(f"{key}.{p}", f"{path}/{p}", d, inner, (d, nh, dk))
+        kernel(f"{key}.o", f"{path}/o", inner, d, (nh, dk, d))
+
+    def ffn(key, path):
+        for p in (("wi_0", "wi_1") if cfg.gated else ("wi",)):
+            kernel(f"{key}.{p}", f"{path}/{p}", d, cfg.d_ff, (d, cfg.d_ff))
+        kernel(f"{key}.wo", f"{path}/wo", cfg.d_ff, d, (cfg.d_ff, d))
+
+    def rel(key, path):
+        sd[key + ".table"] = take(path + "/rel_embedding",
+                                  (cfg.rel_buckets, nh))
+
+    def ln(key, path):
+        sd[key + ".scale"] = take(path + "/scale", (d,))
+
+    if not cfg.per_layer_rel_bias:
+        rel("enc_rel", "enc_rel")
+        rel("dec_rel", "dec_rel")
+    for n in range(cfg.num_layers):
+        if cfg.per_layer_rel_bias:
+            rel(f"enc_rels.{n}", f"enc_{n}_rel")
+        attn(f"enc_attn.{n}", f"enc_{n}_attn")
+        ln(f"enc_attn_ln.{n}", f"enc_{n}_attn_ln")
+        ffn(f"enc_ffn.{n}", f"enc_{n}_ffn")
+        ln(f"enc_ffn_ln.{n}", f"enc_{n}_ffn_ln")
+    for n in range(cfg.num_decoder_layers):
+        if cfg.per_layer_rel_bias:
+            rel(f"dec_rels.{n}", f"dec_{n}_rel")
+        attn(f"dec_self.{n}", f"dec_{n}_self")
+        ln(f"dec_self_ln.{n}", f"dec_{n}_self_ln")
+        attn(f"dec_cross.{n}", f"dec_{n}_cross")
+        ln(f"dec_cross_ln.{n}", f"dec_{n}_cross_ln")
+        ffn(f"dec_ffn.{n}", f"dec_{n}_ffn")
+        ln(f"dec_ffn_ln.{n}", f"dec_{n}_ffn_ln")
+    ln("enc_final_ln", "enc_final_ln")
+    ln("dec_final_ln", "dec_final_ln")
+    if not cfg.tie_embeddings:
+        sd["lm_head.weight"] = take("lm_head", (d, cfg.vocab_size),
+                                    dt).T.contiguous()
     return take.done(sd)

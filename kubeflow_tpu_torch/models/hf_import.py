@@ -1,9 +1,10 @@
 """Hugging Face checkpoints: a safetensors reader and writer, and the
-Llama-family import onto the port's `Llama`.
+imports onto the port's models.
 
 The port of `kubeflow_tpu/models/hf_import.py` for the families on the
 Llama trunk (Llama, Llama 3.1's rope scaling, Mistral's window, Qwen2's
-QKV biases, Gemma 1/2/3) and for BERT (`import_bert`), with its own
+QKV biases, Gemma 1/2/3), for BERT (`import_bert`), GPT-2 (`import_gpt2`)
+and T5/MT5/UMT5 (`import_t5`), with its own
 safetensors codec: the `safetensors` package is not a dependency of this
 package.
 
@@ -40,8 +41,10 @@ from typing import Any
 import torch
 
 from kubeflow_tpu_torch.models.bert import BertConfig
+from kubeflow_tpu_torch.models.gpt2 import GPT2Config
 from kubeflow_tpu_torch.models.llama import LlamaConfig, _check_supported
 from kubeflow_tpu_torch.models.moe import MoEConfig
+from kubeflow_tpu_torch.models.t5 import T5Config
 
 #: safetensors dtype names -> torch dtypes (the F8 names are the torch
 #: float8 types of the same encoding).
@@ -852,28 +855,224 @@ def import_bert(path: str, *, allow_headless: bool = False,
     return cfg, {k: v.to(pd) for k, v in sd.items()}
 
 
-#: Families the JAX package imports whose models the port has not ported
-#: yet: (test on the architecture or model_type, name, ROADMAP item). The
-#: first group is tried before the Gemma dispatch, the second after it,
-#: in the JAX `build_from_hf`'s order.
-_REFUSED = (
-    (lambda a, m: "GPT2" in a or m == "gpt2", "GPT-2", "A8"),
-    (lambda a, m: (a in ("T5ForConditionalGeneration",
-                         "MT5ForConditionalGeneration",
-                         "UMT5ForConditionalGeneration")
-                   or m in ("t5", "mt5", "umt5")), "T5/MT5/UMT5", "A8"),
-)
-_REFUSED_AFTER_GEMMA = (
-    (lambda a, m: "T5" in a or m.endswith("t5"), "T5/MT5/UMT5", "A8"),
-)
+# ---------------------------------------------------------------------------
+# GPT-2
+# ---------------------------------------------------------------------------
+
+def gpt2_config_from_hf(hf: dict, **overrides: Any) -> GPT2Config:
+    """Map HF GPT2Config fields onto the port's; `overrides` win. The
+    attention variants this model does not implement are refused, never
+    imported with plain 1/sqrt(d) scaling (silently wrong logits)."""
+    act = hf.get("activation_function", "gelu_new")
+    if act not in ("gelu_new", "gelu_pytorch_tanh"):
+        raise ValueError(f"unsupported activation_function {act!r}")
+    if not hf.get("scale_attn_weights", True):
+        raise ValueError("scale_attn_weights=False is not implemented")
+    for flag in ("scale_attn_by_inverse_layer_idx",
+                 "reorder_and_upcast_attn"):
+        if hf.get(flag):
+            raise ValueError(f"{flag}=true is not implemented")
+    fields = dict(
+        vocab_size=hf["vocab_size"],
+        hidden_size=hf["n_embd"],
+        num_layers=hf["n_layer"],
+        num_heads=hf["n_head"],
+        intermediate_size=hf.get("n_inner") or 4 * hf["n_embd"],
+        max_seq_len=hf.get("n_positions", 1024),
+        layer_norm_eps=float(hf.get("layer_norm_epsilon", 1e-5)),
+    )
+    fields.update(overrides)
+    return GPT2Config(**fields)
 
 
-def _refuse(families, arch: str, mtype: str) -> None:
-    for test, what, item in families:
-        if test(arch, mtype):
-            raise NotImplementedError(
-                f"{what} checkpoints ({arch!r}) are not supported by this "
-                f"package yet (ROADMAP {item})")
+def _gpt2_state_dict(t: dict, cfg: GPT2Config) -> dict:
+    """The port's GPT-2 state dict from HF tensors. HF's Conv1D stores
+    [in, out], so every projection is transposed to [out, in], and the
+    fused c_attn [H, 3H] splits into q/k/v thirds; the `transformer.`
+    prefix is optional and a tied lm_head is not read. Projections and
+    tables in cfg.storage_dtype, LayerNorms in fp32."""
+    pre = ("transformer."
+           if any(k.startswith("transformer.") for k in t) else "")
+    dt, f32 = cfg.storage_dtype, torch.float32
+
+    def get(name):
+        if pre + name not in t:
+            raise KeyError(f"checkpoint has no tensor {pre + name!r}")
+        return t[pre + name]
+
+    def ln(key, name):
+        sd[key + ".scale"] = get(name + ".weight").to(f32)
+        sd[key + ".bias"] = get(name + ".bias").to(f32)
+
+    def conv(key, weight, bias):
+        sd[key + ".weight"] = weight.t().to(dt).contiguous()
+        sd[key + ".bias"] = bias.to(dt)
+
+    sd = {"wte": get("wte.weight").to(dt), "wpe": get("wpe.weight").to(dt)}
+    ln("ln_f", "ln_f")
+    for i in range(cfg.num_layers):
+        hf, port = f"h.{i}.", f"blocks.{i}."
+        qkv_w = get(hf + "attn.c_attn.weight").split(cfg.hidden_size, dim=1)
+        qkv_b = get(hf + "attn.c_attn.bias").split(cfg.hidden_size)
+        for j, name in enumerate(("q_proj", "k_proj", "v_proj")):
+            conv(port + name, qkv_w[j], qkv_b[j])
+        conv(port + "o_proj", get(hf + "attn.c_proj.weight"),
+             get(hf + "attn.c_proj.bias"))
+        conv(port + "fc", get(hf + "mlp.c_fc.weight"),
+             get(hf + "mlp.c_fc.bias"))
+        conv(port + "proj", get(hf + "mlp.c_proj.weight"),
+             get(hf + "mlp.c_proj.bias"))
+        ln(port + "ln_1", hf + "ln_1")
+        ln(port + "ln_2", hf + "ln_2")
+    return sd
+
+
+def gpt2_hf_tensors(sd: dict, cfg: GPT2Config) -> dict:
+    """The inverse of the import: a GPT-2 state dict as HF GPT2LMHeadModel
+    tensors (Conv1D [in, out] layout, fused c_attn, `transformer.`
+    prefix, the tied lm_head written out as HF saves it). Writes synthetic
+    checkpoints."""
+    pre = "transformer."
+    out = {pre + "wte.weight": sd["wte"], pre + "wpe.weight": sd["wpe"],
+           "lm_head.weight": sd["wte"]}
+
+    def ln(name, key):
+        out[pre + name + ".weight"] = sd[key + ".scale"]
+        out[pre + name + ".bias"] = sd[key + ".bias"]
+
+    ln("ln_f", "ln_f")
+    for i in range(cfg.num_layers):
+        hf, port = f"h.{i}.", f"blocks.{i}."
+        out[pre + hf + "attn.c_attn.weight"] = torch.cat(
+            [sd[port + p + ".weight"].t() for p in
+             ("q_proj", "k_proj", "v_proj")], dim=1).contiguous()
+        out[pre + hf + "attn.c_attn.bias"] = torch.cat(
+            [sd[port + p + ".bias"] for p in ("q_proj", "k_proj", "v_proj")])
+        for name, key in (("attn.c_proj", "o_proj"), ("mlp.c_fc", "fc"),
+                          ("mlp.c_proj", "proj")):
+            out[pre + hf + name + ".weight"] = sd[
+                port + key + ".weight"].t().contiguous()
+            out[pre + hf + name + ".bias"] = sd[port + key + ".bias"]
+        ln(hf + "ln_1", port + "ln_1")
+        ln(hf + "ln_2", port + "ln_2")
+    return out
+
+
+def import_gpt2(path: str, **overrides: Any) -> tuple[GPT2Config, dict]:
+    """HF GPT2LMHeadModel checkpoint dir -> (GPT2Config, state dict for
+    `GPT2(cfg)`)."""
+    cfg = gpt2_config_from_hf(read_hf_config(path), **overrides)
+    return cfg, _gpt2_state_dict(load_safetensors_dir(path), cfg)
+
+
+# ---------------------------------------------------------------------------
+# T5 / MT5 / UMT5
+# ---------------------------------------------------------------------------
+
+_T5_ARCHS = ("T5ForConditionalGeneration", "MT5ForConditionalGeneration",
+             "UMT5ForConditionalGeneration")
+
+
+def t5_config_from_hf(hf: dict, **overrides: Any) -> T5Config:
+    """Map HF T5Config fields onto the port's; `overrides` win. UMT5 (a
+    table per layer) is detected through model_type OR the architecture,
+    as the dispatch detects it: an UMT5 architecture with a stale
+    model_type must not import with block 0's table shared."""
+    proj = hf.get("feed_forward_proj", "relu")
+    if proj not in ("relu", "gated-gelu"):
+        raise ValueError(f"unsupported feed_forward_proj {proj!r}")
+    fields = dict(
+        vocab_size=hf["vocab_size"],
+        d_model=hf["d_model"],
+        d_kv=hf["d_kv"],
+        d_ff=hf["d_ff"],
+        num_layers=hf["num_layers"],
+        num_decoder_layers=hf.get("num_decoder_layers", hf["num_layers"]),
+        num_heads=hf["num_heads"],
+        rel_buckets=hf.get("relative_attention_num_buckets", 32),
+        rel_max_distance=hf.get("relative_attention_max_distance", 128),
+        layer_norm_eps=float(hf.get("layer_norm_epsilon", 1e-6)),
+        feed_forward_proj=proj,
+        tie_embeddings=bool(hf.get("tie_word_embeddings", True)),
+        decoder_start_id=int(hf.get("decoder_start_token_id") or 0),
+        eos_id=int(hf.get("eos_token_id") or 1),
+        per_layer_rel_bias=(
+            hf.get("model_type") == "umt5"
+            or "UMT5" in (hf.get("architectures") or [""])[0]),
+    )
+    fields.update(overrides)
+    return T5Config(**fields)
+
+
+def t5_hf_names(cfg: T5Config) -> dict:
+    """{port state-dict name: HF tensor name} of a T5ForConditional-
+    Generation checkpoint of `cfg`. HF stores each Linear as [out, in],
+    the port's layout, so names translate and nothing transposes. The
+    relative-position tables are block 0's of each stack (every block's
+    under UMT5)."""
+    names = {"shared": "shared.weight",
+             "enc_final_ln.scale": "encoder.final_layer_norm.weight",
+             "dec_final_ln.scale": "decoder.final_layer_norm.weight"}
+    if not cfg.tie_embeddings:
+        names["lm_head.weight"] = "lm_head.weight"
+    ffn = ("wi_0", "wi_1", "wo") if cfg.gated else ("wi", "wo")
+
+    def rel(port, stem):
+        names[port + ".table"] = (
+            stem + ".SelfAttention.relative_attention_bias.weight")
+
+    def attn(port, stem):
+        for p in ("q", "k", "v", "o"):
+            names[f"{port}.{p}.weight"] = f"{stem}.{p}.weight"
+
+    def block(port, stem):
+        for p in ffn:
+            names[f"{port}.{p}.weight"] = f"{stem}.DenseReluDense.{p}.weight"
+
+    if not cfg.per_layer_rel_bias:
+        rel("enc_rel", "encoder.block.0.layer.0")
+        rel("dec_rel", "decoder.block.0.layer.0")
+    for i in range(cfg.num_layers):
+        b = f"encoder.block.{i}.layer"
+        if cfg.per_layer_rel_bias:
+            rel(f"enc_rels.{i}", f"{b}.0")
+        attn(f"enc_attn.{i}", f"{b}.0.SelfAttention")
+        names[f"enc_attn_ln.{i}.scale"] = f"{b}.0.layer_norm.weight"
+        block(f"enc_ffn.{i}", f"{b}.1")
+        names[f"enc_ffn_ln.{i}.scale"] = f"{b}.1.layer_norm.weight"
+    for i in range(cfg.num_decoder_layers):
+        b = f"decoder.block.{i}.layer"
+        if cfg.per_layer_rel_bias:
+            rel(f"dec_rels.{i}", f"{b}.0")
+        attn(f"dec_self.{i}", f"{b}.0.SelfAttention")
+        names[f"dec_self_ln.{i}.scale"] = f"{b}.0.layer_norm.weight"
+        attn(f"dec_cross.{i}", f"{b}.1.EncDecAttention")
+        names[f"dec_cross_ln.{i}.scale"] = f"{b}.1.layer_norm.weight"
+        block(f"dec_ffn.{i}", f"{b}.2")
+        names[f"dec_ffn_ln.{i}.scale"] = f"{b}.2.layer_norm.weight"
+    return names
+
+
+def import_t5(path: str, **overrides: Any) -> tuple[T5Config, dict]:
+    """HF T5/MT5/UMT5 ForConditionalGeneration checkpoint dir ->
+    (T5Config, state dict for `T5(cfg)`): projections and `shared` (and an
+    untied lm_head) in cfg.storage_dtype, norm scales and the
+    relative-position tables in fp32. A classic-T5 checkpoint labelled
+    UMT5 fails on the missing per-layer tables (KeyError), never imports
+    with one table shared."""
+    cfg = t5_config_from_hf(read_hf_config(path), **overrides)
+    return cfg, _t5_state_dict(load_safetensors_dir(path), cfg)
+
+
+def _t5_state_dict(t: dict, cfg: T5Config) -> dict:
+    sd = {}
+    for port, name in t5_hf_names(cfg).items():
+        if name not in t:
+            raise KeyError(f"checkpoint has no tensor {name!r}")
+        keep_fp32 = port.endswith((".scale", ".table"))
+        sd[port] = t[name].to(torch.float32 if keep_fp32
+                              else cfg.storage_dtype)
+    return sd
 
 
 def _is_bert(hf: dict) -> bool:
@@ -881,19 +1080,24 @@ def _is_bert(hf: dict) -> bool:
     return "Bert" in arch or hf.get("model_type") == "bert"
 
 
-def config_from_hf(hf: dict, **overrides: Any) -> LlamaConfig | BertConfig:
+def config_from_hf(hf: dict, **overrides: Any):
     """The config `build_from_hf` gives a checkpoint whose config.json is
-    `hf`, with every refusal, without reading a tensor: the JAX
-    `build_from_hf`'s dispatch order, BERT first (a `BertConfig`; whether
-    the checkpoint has a pooler shows only in its tensors), Mixtral and
-    Qwen2-MoE an `MoEConfig`, else a `LlamaConfig`. Families whose models
-    are not ported are refused by name."""
+    `hf`, with every refusal, without reading a tensor, in the JAX
+    `build_from_hf`'s dispatch order: BERT first (a `BertConfig`; whether
+    the checkpoint has a pooler shows only in its tensors), GPT-2 (a
+    `GPT2Config`), T5/MT5/UMT5 by exact architecture or model_type (a
+    `T5Config`), Mixtral, the Gemmas, Qwen2-MoE (`MoEConfig` for the two
+    MoE families), the catch-all refusal of other T5 variants, else a
+    Llama-family `LlamaConfig`."""
     if _is_bert(hf):
         overrides.pop("allow_headless", None)
         return bert_config_from_hf(hf, **overrides)
     arch = (hf.get("architectures") or [hf.get("model_type", "")])[0]
     mtype = hf.get("model_type", "")
-    _refuse(_REFUSED, arch, mtype)
+    if arch == "GPT2LMHeadModel" or mtype == "gpt2":
+        return gpt2_config_from_hf(hf, **overrides)
+    if arch in _T5_ARCHS or mtype in ("t5", "mt5", "umt5"):
+        return t5_config_from_hf(hf, **overrides)
     family = _moe_family(hf)
     if family == "mixtral":
         return _mixtral_config(hf, overrides)
@@ -908,18 +1112,28 @@ def config_from_hf(hf: dict, **overrides: Any) -> LlamaConfig | BertConfig:
         return _gemma_config(hf, overrides)
     if family == "qwen2_moe":
         return _qwen2_moe_config(hf, overrides)
-    _refuse(_REFUSED_AFTER_GEMMA, arch, mtype)
+    if "T5" in arch or mtype.endswith("t5"):
+        # Future T5 variants, declared by architecture or model_type alone:
+        # the Llama import would fail on a missing tensor instead.
+        raise ValueError(
+            f"unsupported T5-family architecture {arch!r} "
+            "(T5/MT5/UMT5 are implemented)")
     return _llama_config(hf, overrides)
 
 
 def build_from_hf(path: str, **overrides: Any) -> tuple[Any, dict]:
     """Architecture-dispatched import (`config_from_hf`): (BertConfig,
-    state dict) for BERT, else (LlamaConfig or MoEConfig, state dict).
-    Callers that build a Llama check the type (`models.moe.causal_lm`
-    builds the model of either)."""
+    state dict) for BERT, (GPT2Config, ...) for GPT-2, (T5Config, ...) for
+    T5/MT5/UMT5, else (LlamaConfig or MoEConfig, state dict). Callers
+    build the model from the config's type (`models.moe.causal_lm` builds
+    any causal LM)."""
     hf = read_hf_config(path)
     if _is_bert(hf):
         return import_bert(path, **overrides)
     cfg = config_from_hf(hf, **overrides)
+    if isinstance(cfg, GPT2Config):
+        return cfg, _gpt2_state_dict(load_safetensors_dir(path), cfg)
+    if isinstance(cfg, T5Config):
+        return cfg, _t5_state_dict(load_safetensors_dir(path), cfg)
     return _load(path, cfg,
                  _moe_family(hf) if isinstance(cfg, MoEConfig) else None)

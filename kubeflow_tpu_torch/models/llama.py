@@ -330,14 +330,28 @@ def apply_rope(x, cos, sin, positions):
     return out.to(x.dtype)
 
 
+#: The Llama-only config fields that the serving path reads, with the
+#: value a family without them stands for (GPT-2: causal, no window). JAX's
+#: engine and init_cache read them through getattr with these defaults.
+SERVING_DEFAULTS = {"mask_kind": "causal", "mask_window": 0,
+                    "sliding_pattern": "all"}
+
+
+def serving_field(cfg, name: str):
+    """`cfg`'s field `name` of SERVING_DEFAULTS, or its default where the
+    config has no such field."""
+    return getattr(cfg, name, SERVING_DEFAULTS[name])
+
+
 def rolling_window(cfg: LlamaConfig, length: int) -> int:
     """The window of the rolling cache that `cfg` gets at `length` rows (a
     sliding window on every layer, shorter than `length`), else 0. The one
     rule for whether a cache rolls: init_cache lays the cache out by it,
     the serving engine and its device functions read it, and attention
     follows the layout ("pos" in the cache)."""
-    window = int(cfg.mask_window)
-    if (cfg.mask_kind == "sliding_window" and cfg.sliding_pattern == "all"
+    window = int(serving_field(cfg, "mask_window"))
+    if (serving_field(cfg, "mask_kind") == "sliding_window"
+            and serving_field(cfg, "sliding_pattern") == "all"
             and 0 < window < length):
         return window
     return 0

@@ -402,9 +402,13 @@ def MoELlama(cfg: MoEConfig, device=None, **kwargs) -> Llama:
     return Llama(cfg, device=device, mlp_cls=MoEBlock, **kwargs)
 
 
-def causal_lm(cfg: LlamaConfig, device=None) -> Llama:
-    """The causal LM of a Llama-family config: `MoELlama` for an
-    `MoEConfig`, else the dense `Llama`."""
+def causal_lm(cfg, device=None) -> nn.Module:
+    """The causal LM of a config: `MoELlama` for an `MoEConfig`, `GPT2`
+    for a `GPT2Config`, else the dense `Llama`."""
+    from kubeflow_tpu_torch.models.gpt2 import GPT2, GPT2Config
+
     if isinstance(cfg, MoEConfig):
         return MoELlama(cfg, device=device)
+    if isinstance(cfg, GPT2Config):
+        return GPT2(cfg, device=device)
     return Llama(cfg, device=device)

@@ -133,8 +133,10 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from kubeflow_tpu_torch.models.gpt2 import GPT2
 from kubeflow_tpu_torch.models.llama import (adapter_rows, config_view,
-                                             init_cache, rolling_window)
+                                             init_cache, rolling_window,
+                                             serving_field)
 from kubeflow_tpu_torch.serve.kv_transfer import (_NAMES, HostKVTier,
                                                   ShipmentError,
                                                   pack_shipment, peek_meta,
@@ -285,8 +287,8 @@ def build_engine_fns(model, *, max_len: int, chunk: int,
     rolling = window > 0
     if rolling and kv_block_size > 0:
         raise ValueError("paged KV does not compose with the rolling cache")
-    if (cfg.mask_kind == "sliding_window" and not rolling
-            and cfg.sliding_pattern == "all"):
+    if (serving_field(cfg, "mask_kind") == "sliding_window" and not rolling
+            and serving_field(cfg, "sliding_pattern") == "all"):
         # Its fragments (max_len plus headroom rows) could roll while the
         # slots do not: serve the causal view, whose band never clips.
         raise ValueError(
@@ -564,8 +566,9 @@ def build_spec_decode(model, draft, *, gamma: int, n_spec: int,
     one within its window through its causal view), and the paged pool
     does not take it; an alternating target past its window keeps a
     full-length cache and pages like a causal one."""
-    if (kv_block_size > 0 and model.cfg.mask_kind == "sliding_window"
-            and model.cfg.sliding_pattern == "all"):
+    if (kv_block_size > 0
+            and serving_field(model.cfg, "mask_kind") == "sliding_window"
+            and serving_field(model.cfg, "sliding_pattern") == "all"):
         raise ValueError(
             "paged spec decode does not compose with the rolling cache")
 
@@ -716,7 +719,8 @@ class GenerationEngine:
         #: The rolling cache's window when a sliding-window model is served
         #: past it, else 0.
         self._rolling = rolling_window(cfg, self.max_len)
-        if cfg.mask_kind == "sliding_window":
+        mask_kind = serving_field(cfg, "mask_kind")
+        if mask_kind == "sliding_window":
             if int(cfg.mask_window) < 1:
                 raise ValueError(
                     "sliding-window checkpoint with window=0 cannot be "
@@ -732,9 +736,16 @@ class GenerationEngine:
                 cfg = _causal_config(cfg)
                 self.model = config_view(model, cfg)
                 self.cfg = cfg
-        elif cfg.mask_kind != "causal":
+        elif mask_kind != "causal":
             raise ValueError(f"generative serving needs a causal model; got "
-                             f"mask_kind={cfg.mask_kind!r}")
+                             f"mask_kind={mask_kind!r}")
+        if isinstance(model, GPT2) and str(kv_quant or "none") != "none":
+            # The JAX engine's decode scan fails on a GPT-2 over a
+            # quantized pool; refused here, up front. (Its multi-LoRA
+            # `adapters` are refused by the PEFT import, as in JAX.)
+            raise ValueError(
+                f"kv_quant={kv_quant!r} does not compose with GPT-2 (its "
+                "cache has no quantized path); set kv_quant='none'")
         if int(pipeline_depth) < 1:
             raise ValueError(
                 f"pipeline_depth must be >= 1, got {pipeline_depth}")
@@ -909,7 +920,8 @@ class GenerationEngine:
                 "rows; drop the draft or set kv_quant='none'")
         dmodel = draft["model"]
         dcfg = dmodel.cfg
-        if dcfg.mask_kind == "sliding_window":
+        dmask = serving_field(dcfg, "mask_kind")
+        if dmask == "sliding_window":
             if self.max_len > dcfg.mask_window:
                 raise ValueError(
                     f"sliding-window draft (window={dcfg.mask_window}): "
@@ -917,10 +929,10 @@ class GenerationEngine:
                     "set max_len <= window or use a causal draft")
             dcfg = _causal_config(dcfg)
             dmodel = config_view(dmodel, dcfg)
-        elif dcfg.mask_kind != "causal":
+        elif dmask != "causal":
             raise ValueError(
                 f"speculative decoding needs a causal-class draft; got "
-                f"mask_kind={dcfg.mask_kind!r}")
+                f"mask_kind={dmask!r}")
         if dcfg.vocab_size != self.cfg.vocab_size:
             raise ValueError(
                 f"draft vocab {dcfg.vocab_size} != target vocab "
@@ -2590,15 +2602,17 @@ class GenerativeTorchModel(Model):
         if not ckpt:
             raise ValueError("generative.draft needs a 'checkpoint' (HF dir "
                              "of the draft model)")
+        from kubeflow_tpu_torch.models.gpt2 import GPT2Config
         from kubeflow_tpu_torch.models.hf_import import build_from_hf
-        from kubeflow_tpu_torch.models.llama import Llama
+        from kubeflow_tpu_torch.models.llama import LlamaConfig
+        from kubeflow_tpu_torch.models.moe import causal_lm
 
         t0 = time.monotonic()
         dcfg, sd = build_from_hf(ckpt, **overrides)
-        if not isinstance(dcfg, type(self.cfg)):
-            raise ValueError(f"generative.draft needs a Llama-family "
+        if not isinstance(dcfg, (LlamaConfig, GPT2Config)):
+            raise ValueError(f"generative.draft needs a causal-LM "
                              f"checkpoint, not {type(dcfg).__name__}")
-        dmodel = Llama(dcfg, device=self._model.device)
+        dmodel = causal_lm(dcfg, device=self._model.device)
         dmodel.load_state_dict(sd)
         nbytes = sum(t.numel() * t.element_size() for t in sd.values())
         del sd

@@ -211,18 +211,28 @@ class Int8Table(nn.Module):
         return (self.q.float() * self.scale).to(self.dtype)
 
 
+#: Embedding tables that a tied head also reads (GPT-2's `wte`, T5's
+#: `shared`): JAX's contraction axis for them is the last, one scale per
+#: vocab row, so they become `Int8Dense` tables as a Llama's `embed` does.
+ROW_SCALED_TABLES = ("wte", "shared")
+
+
 @torch.no_grad()
 def quantize_fixed(model, *, min_size: int = 4096):
-    """Quantize a float model without `quantized_dense` (BERT, the MLP) in
-    place, leaf by leaf as JAX's `quantize_tree`: each projection (an
-    nn.Linear with a `compute_dtype`) whose weight has at least `min_size`
-    elements becomes an `Int8Dense` over the W8A16 op in that compute
-    dtype, its bias kept float; each other floating parameter of two or
-    more dims and at least `min_size` elements (the embedding tables)
-    becomes an `Int8Table`. Per-output-channel scales throughout, as JAX's
-    contraction axes give for every BERT and MLP kernel. Smaller leaves
-    (BERT-base's 2 x 768 classifier, the MLP's head), biases and
-    LayerNorms stay float. Returns the model.
+    """Quantize a float model without `quantized_dense` (BERT, the MLP,
+    GPT-2, T5) in place, leaf by leaf as JAX's `quantize_tree`: each
+    projection (an nn.Linear with a `compute_dtype`) whose weight has at
+    least `min_size` elements becomes an `Int8Dense` over the W8A16 op in
+    that compute dtype, its bias kept float; each other floating parameter
+    of two or more dims and at least `min_size` elements (the embedding
+    tables) becomes an `Int8Table` (one scale per column: BERT's tables,
+    GPT-2's `wpe`), or, for a ROW_SCALED_TABLES name, an `Int8Dense` table
+    in its module's compute dtype. These are JAX's contraction axes for
+    every BERT, MLP, GPT-2 and T5 leaf: q/k/v one scale per (head, dim),
+    o reduced over (heads, dim), an untied T5 head one per vocab column,
+    all the port's per-output-channel scales. Smaller leaves (BERT-base's
+    2 x 768 classifier, the MLP's head, T5's 32 x 12 relative-position
+    tables), biases and norms stay float. Returns the model.
 
     JAX serves these models through QuantizedModule's dequantize-all path:
     bf16(q * scale) into the float matmul. Int8Dense feeds the raw codes
@@ -241,7 +251,9 @@ def quantize_fixed(model, *, min_size: int = 4096):
             if (p.is_floating_point() and p.dim() >= 2
                     and p.numel() >= min_size):
                 delattr(mod, name)
-                setattr(mod, name, Int8Table.from_table(p))
+                setattr(mod, name, Int8Dense.from_weight(p, mod.cfg.dtype)
+                        if name in ROW_SCALED_TABLES
+                        else Int8Table.from_table(p))
     return model
 
 

@@ -15,23 +15,26 @@ names its format, and the format's runtime builds the Model.
     checkpoint dir (`config.json` + safetensors, read by
     models/hf_import.py) plus a model.json {"format": "huggingface"};
     `checkpoint` may point elsewhere (relative to the bundle) and
-    `model_overrides` sets config fields. A Llama-family checkpoint with a
-    "generative" block is served by the generation engine: a
-    `peft_adapter` dir is folded flat into the weights (train/lora.merge),
-    and the checkpoint's own tokenizer is bundled, its eos the default.
+    `model_overrides` sets config fields. A Llama-family or GPT-2
+    checkpoint with a "generative" block is served by the generation
+    engine: a `peft_adapter` dir is folded flat into a Llama's weights
+    (train/lora.merge), and the checkpoint's own tokenizer is bundled, its
+    eos the default. A T5/MT5/UMT5 checkpoint is the text2text task
+    (`serve/text2text.py`, behind `:generate`): its "generative" block
+    gives `in_buckets` and `max_tokens`.
 
 Without a "generative" block a bundle is a fixed forward (`TorchModel`)
 behind `:predict` and v2 `/infer`: a registry model over inputs of its
 `example_shape` and `example_dtype`; a BERT checkpoint over token ids
 [B, seq_len] (default min(max_seq_len, 128)) with the key mask `ids !=
-pad_token_id`; a Llama-family checkpoint as full-forward logits at
-seq_len 128. An `explainer` block ({"method": "occlusion" |
+pad_token_id`; a Llama-family or GPT-2 checkpoint as full-forward
+logits at seq_len 128. An `explainer` block ({"method": "occlusion" |
 "integrated_gradients", ...}) attaches serve/explain.py's explainer.
 
 `"quantize": "int8"` serves the weights as int8 codes with per-channel
 scales (serve/quant.py), quantized after they load, as the JAX runtime's
 `_maybe_quantize` does: a Llama (or MoE Llama) through `quantize_model`,
-BERT and the MLP through `quantize_fixed`. A Llama-family registry bundle
+BERT, the MLP, GPT-2 and T5 through `quantize_fixed`. A Llama-family registry bundle
 without `params.pt` (or LoRA factors) is built int8 part by part from its
 seed (`init_quantized`): the same weights, never a whole float model in
 memory (Mixtral-8x7B is 93 GB in bf16). The "generative" block reaches
@@ -170,14 +173,17 @@ def _registry_runtime(model_dir: str, spec: dict, device) -> Model:
 
 
 def _huggingface_runtime(model_dir: str, spec: dict, device) -> Model:
-    """An HF checkpoint (models/hf_import.py): BERT as a fixed forward; a
-    Llama-family one behind the generation engine with a "generative"
-    block (an optional PEFT adapter folded flat), else as full-forward
-    logits."""
+    """An HF checkpoint (models/hf_import.py): T5/MT5/UMT5 as the
+    text2text task (`Text2TextTorchModel`, the "generative" block its
+    `in_buckets` and `max_tokens`); BERT as a fixed forward; a causal LM
+    (the Llama family, GPT-2) behind the generation engine with a
+    "generative" block (an optional PEFT adapter folded flat), else as
+    full-forward logits. A bundled tokenizer is used where one loads."""
     from kubeflow_tpu_torch.models.bert import Bert, BertConfig
     from kubeflow_tpu_torch.models.hf_import import (build_from_hf,
                                                      read_hf_config)
     from kubeflow_tpu_torch.models.moe import causal_lm
+    from kubeflow_tpu_torch.models.t5 import T5, T5Config
     from kubeflow_tpu_torch.serve.tokenizer_util import load_bundled_tokenizer
 
     root = os.path.abspath(model_dir)
@@ -188,10 +194,29 @@ def _huggingface_runtime(model_dir: str, spec: dict, device) -> Model:
     ckpt = in_bundle(spec.get("checkpoint") or ".")
     cfg, sd = build_from_hf(ckpt, **dict(spec.get("model_overrides") or {}))
     name = spec.get("name") or os.path.basename(root)
+    if spec.get("peft_adapter") and not isinstance(cfg, LlamaConfig):
+        # JAX's words: its adapter import takes only the Llama family.
+        raise ValueError(f"peft_adapter needs a Llama-family base model; "
+                         f"{type(cfg).__name__} has no adapter path")
+    if isinstance(cfg, T5Config):
+        # Encoder-decoder: the text2text task (one greedy decode on the
+        # device a request, serve/text2text.py).
+        from kubeflow_tpu_torch.serve.text2text import Text2TextTorchModel
+
+        module = T5(cfg, device=device)
+        module.load_state_dict(sd)
+        del sd
+        module.eval()
+        quantization = _quantize(module, spec)
+        gen = dict(spec.get("generative") or {})
+        if "tokenizer" not in gen:
+            tok = load_bundled_tokenizer(ckpt, name)
+            if tok is not None:
+                gen["tokenizer"] = tok
+        model = Text2TextTorchModel(name, module, generation=gen)
+        model.quantization = quantization
+        return model
     if isinstance(cfg, BertConfig):
-        if spec.get("peft_adapter"):
-            raise ValueError("'peft_adapter' is read for Llama-family "
-                             "checkpoints, not BERT")
         module = Bert(cfg, device=device)
         module.load_state_dict(sd)
         del sd
@@ -260,14 +285,16 @@ def _quantize(module, spec: dict) -> dict | None:
 
 
 def _generative(name: str, module, spec: dict, gen: dict) -> Model:
-    """The engine's Model over `module`, quantized first under
-    `quantize: int8`."""
+    """The engine's Model over `module` (a Llama-family model or GPT-2),
+    quantized first under `quantize: int8`."""
+    from kubeflow_tpu_torch.models.gpt2 import GPT2
     from kubeflow_tpu_torch.models.llama import Llama
     from kubeflow_tpu_torch.serve.generation import GenerativeTorchModel
 
-    if not isinstance(module, Llama):
-        raise ValueError(f"a 'generative' block needs a Llama-family "
-                         f"model, not {type(module).__name__}")
+    if not isinstance(module, (Llama, GPT2)):
+        raise ValueError(f"a 'generative' block needs a causal LM (the "
+                         f"Llama family or GPT-2), not "
+                         f"{type(module).__name__}")
     module.eval()
     quantization = _quantize(module, spec)
     model = GenerativeTorchModel(name, module, generation=gen)

@@ -45,6 +45,7 @@ from kubeflow_tpu_torch.controlplane.client import Client
 from kubeflow_tpu_torch.data.loader import restore_iterator
 from kubeflow_tpu_torch.data.prefetch import Prefetcher
 from kubeflow_tpu_torch.models.bert import BertConfig
+from kubeflow_tpu_torch.models.gpt2 import GPT2Config
 from kubeflow_tpu_torch.models.llama import LORA_TARGETS, LlamaConfig
 from kubeflow_tpu_torch.train.checkpoint import CheckpointManager
 from kubeflow_tpu_torch.train.metrics import (MetricsLogger, StepTimer,
@@ -248,6 +249,10 @@ class Trainer:
                 "has no dataset that trains BERT's classify head (its "
                 "classify loss takes [B] labels, and every registered "
                 "dataset gives [B, S] token targets)")
+        if isinstance(mcfg, GPT2Config):
+            raise ValueError(
+                f"training {spec.model!r} is refused: GPT-2 training is not "
+                "ported yet (ROADMAP A8.1a); the port serves GPT-2")
         if lora_kwargs and not isinstance(mcfg, LlamaConfig):
             raise ValueError(f"spec.lora needs a Llama-family model; "
                              f"{spec.model!r} has no adapter path")

@@ -1,8 +1,8 @@
 """Model and dataset registries: a bundle or a job spec names them by
 string.
 
-The port of the Llama, MoE, MLP, BERT, synthetic-LM, `mnist_like` and
-token-corpus entries of `kubeflow_tpu/utils/registry.py`.
+The port of the Llama, MoE, MLP, BERT, GPT-2, synthetic-LM, `mnist_like`
+and token-corpus entries of `kubeflow_tpu/utils/registry.py`.
 """
 
 from __future__ import annotations
@@ -11,7 +11,7 @@ import dataclasses
 from typing import Callable
 
 from kubeflow_tpu_torch.data import loader, synthetic
-from kubeflow_tpu_torch.models import bert, llama, mlp, moe
+from kubeflow_tpu_torch.models import bert, gpt2, llama, mlp, moe
 
 #: name -> (config factory, example row length); the config's type picks
 #: the module. The MLP's row is its config's `in_dim`.
@@ -24,6 +24,7 @@ _MODELS: dict[str, tuple[Callable[[], object], int | None]] = {
     "mixtral_8x7b": (moe.mixtral_8x7b, 16),
     "bert_tiny": (bert.bert_tiny, 16),
     "bert_base": (bert.bert_base, 128),
+    "gpt2_tiny": (gpt2.gpt2_tiny, 16),
 }
 
 
@@ -49,7 +50,8 @@ def build_model(name: str, device=None, **kwargs):
     the same (module, info) shape as the JAX registry, with its `task`,
     `example_shape` (a batch of one), `example_dtype` and `config`, and
     for an MoE model its `active_params`. A Llama-family model may be
-    built on device="meta" (`serve.quant.init_quantized` fills it)."""
+    built on device="meta" (`serve.quant.init_quantized` fills it); a
+    `GPT2Config` builds `GPT2`."""
     cfg = model_config(name, **kwargs)
     seq = _entry(name)[1]
     if isinstance(cfg, mlp.MLPConfig):

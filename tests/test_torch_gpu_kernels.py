@@ -1,7 +1,8 @@
 """The CUDA kernels (flash attention, the W8A8 int8 matmul, ring attention,
 the W8A16 matmul) against their plain versions, on the card, and the
 serving engine's depth-2 loop under torch.cuda.set_sync_debug_mode (with
-multi-LoRA adapters and the prefix cache too).
+multi-LoRA adapters and the prefix cache too, on GPT-2 as on the Llama),
+and a text2text request's one host sync.
 
 These tests need an NVIDIA GPU and skip without one. They import nothing
 of JAX, so they also run where JAX is not installed:
@@ -1381,13 +1382,19 @@ def test_depth2_moe_engine_runs_under_sync_debug_error(cuda, pool,
         assert w8.w8a16_launches - before >= 2 * 4 * 3
 
 
-def _depth2_under_sync_debug(cuda, pool, monkeypatch, moe):
+def _depth2_under_sync_debug(cuda, pool, monkeypatch, moe=False,
+                             model=None, pool_kw=None):
+    """`model` (default: `_tiny_engine_model`) served at depth 2 with
+    `pool_kw` (default: an int8 paged pool for "paged_int8")."""
     from kubeflow_tpu_torch.serve import generation as tg
 
     int8 = pool == "paged_int8"
-    model = _tiny_engine_model(cuda, int8, moe)
+    if model is None:
+        model = _tiny_engine_model(cuda, int8, moe)
     kw = dict(slots=2, max_len=64, chunk=4, prefill_buckets=(8, 16))
-    if int8:
+    if pool_kw is not None:
+        kw.update(pool_kw)
+    elif int8:
         kw.update(kv_block_size=8, kv_quant="int8")
     real_wait = tg._wait
 
@@ -1432,7 +1439,7 @@ def _depth2_under_sync_debug(cuda, pool, monkeypatch, moe):
             assert len(res["output_ids"]) == bodies[i]["max_tokens"]
         stats = engine.stats_snapshot()
         assert stats["decode_fetch_overlapped"] > 0, stats
-        if int8:
+        if kw.get("kv_block_size"):
             assert engine.kv_info()["blocks_used"] == 0
         deep = engine.submit(prompts[2], max_tokens=12)["output_ids"]
     finally:
@@ -1442,6 +1449,74 @@ def _depth2_under_sync_debug(cuda, pool, monkeypatch, moe):
         assert sync.submit(prompts[2], max_tokens=12)["output_ids"] == deep
     finally:
         sync.close()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", ["flat", "paged_w8a16"])
+def test_depth2_gpt2_engine_runs_under_sync_debug_error(cuda, pool,
+                                                        monkeypatch):
+    """The same on GPT-2 (gpt2_tiny's layout at 2 layers, hidden 64, bf16:
+    naive attention with positions in every branch, learned positions,
+    the tied head); "paged_w8a16" pages the cache and quantizes the
+    weights (`quantize_fixed`: the projections and the tied head on the
+    W8A16 op)."""
+    from kubeflow_tpu_torch.models import gpt2 as tgp
+    from kubeflow_tpu_torch.ops import w8a16 as w8
+    from kubeflow_tpu_torch.serve import quant as tq
+
+    cfg = dataclasses.replace(tgp.gpt2_tiny(), hidden_size=64,
+                              intermediate_size=256, vocab_size=128)
+    model = tgp.GPT2(cfg, device=cuda).init_weights(0).eval()
+    paged = pool == "paged_w8a16"
+    if paged:
+        tq.quantize_fixed(model)
+    before = w8.w8a16_launches
+    _depth2_under_sync_debug(cuda, pool, monkeypatch, model=model,
+                             pool_kw={"kv_block_size": 8} if paged else {})
+    if paged:  # 6 projections a layer and the head, every step
+        assert w8.w8a16_launches - before >= 13
+
+
+@pytest.mark.gpu
+def test_text2text_generate_syncs_once(cuda, monkeypatch):
+    """A `Text2TextTorchModel.generate` with
+    torch.cuda.set_sync_debug_mode("error"): the upload, the encoder, the
+    cross K/V and all `max_tokens` decoder steps (argmax, done mask, EOS
+    padding on the device) make no host sync; the one fetch
+    (serve/text2text.py `_wait`) runs outside the mode, once a request.
+    Its ids equal greedy_generate's on the same padded inputs."""
+    from kubeflow_tpu_torch.models import t5 as tt
+    from kubeflow_tpu_torch.serve import text2text as t2t
+
+    model = tt.T5(dataclasses.replace(tt.t5_tiny(), dtype="float32"),
+                  device=cuda).init_weights(0).eval()
+    served = t2t.Text2TextTorchModel("t", model, generation={
+        "in_buckets": [8, 16], "max_tokens": 8})
+    assert served.load()
+    real_wait, waits = t2t._wait, []
+
+    def wait_outside(event):
+        waits.append(event)
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            real_wait(event)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
+    monkeypatch.setattr(t2t, "_wait", wait_outside)
+    prompt = [5, 9, 2, 41, 7]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = served.generate({"input_ids": prompt, "max_tokens": 8})
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert len(waits) == 1
+    ids = torch.tensor([prompt + [0] * 3], device=cuda)
+    mask = torch.tensor([[True] * 5 + [False] * 3], device=cuda)
+    toks, n_valid = tt.greedy_generate(model, ids, mask, max_tokens=8)
+    assert out["output_ids"] == toks[0, :int(n_valid[0])].tolist()
 
 
 @pytest.mark.gpu

@@ -273,6 +273,7 @@ def test_missing_lm_head_fails_loudly(hf_llama, tmp_path):
     ("GPT2LMHeadModel", "gpt2", "GPT-2", "A8"),
     ("T5ForConditionalGeneration", "t5", "T5", "A8"),
     ("UMT5ForConditionalGeneration", "umt5", "T5", "A8"),
+    ("LongT5ForConditionalGeneration", "longt5", "T5 catch-all", "A8"),
 ])
 def test_unported_families_are_refused_by_name(tmp_path, arch, model_type,
                                                what, item):
@@ -298,8 +299,31 @@ def test_unported_families_are_refused_by_name(tmp_path, arch, model_type,
         with pytest.raises(FileNotFoundError, match="safetensors"):
             th.build_from_hf(str(tmp_path))
         return
-    with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP {item}"):
+    if what in ("GPT-2", "T5"):
+        # Ported since (models/gpt2.py, models/t5.py; tests/test_torch_gpt2
+        # .py, test_torch_t5.py): dispatched in JAX's order, right after
+        # BERT, and the import goes on to read its tensors.
+        hf.update(n_embd=64, n_layer=2, n_head=4, d_model=64, d_kv=16,
+                  d_ff=128, num_layers=2, num_heads=4)
+        with open(tmp_path / "config.json", "w") as f:
+            json.dump(hf, f)
+        want = th.GPT2Config if what == "GPT-2" else th.T5Config
+        cfg = th.config_from_hf(hf)
+        assert isinstance(cfg, want)
+        if what == "T5":
+            assert cfg.per_layer_rel_bias == (model_type == "umt5")
+        with pytest.raises(FileNotFoundError, match="safetensors"):
+            th.build_from_hf(str(tmp_path))
+        with pytest.raises(FileNotFoundError):  # JAX's import reads too
+            jh.build_from_hf(str(tmp_path))
+        return
+    # Other T5 variants: JAX's catch-all ValueError, after Qwen2-MoE.
+    with pytest.raises(ValueError, match="unsupported T5-family "
+                                         "architecture.*T5/MT5/UMT5"):
         th.build_from_hf(str(tmp_path))
+    with pytest.raises(ValueError, match="unsupported T5-family "
+                                         "architecture.*T5/MT5/UMT5"):
+        jh.build_from_hf(str(tmp_path))
 
 
 def _bundle(src, dst, **spec):
