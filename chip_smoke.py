@@ -257,6 +257,23 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
      EOS rule, bf16 and int8 first-step logits, an int8 request under
      set_sync_debug_mode("error") with one host sync and the plan's W8A16
      launches;
+  4n. the rest of the server on phase 4's llama3_8b bundle and 4k's
+     BERT-base files: (i) four requests at once under caller ids (one
+     streamed, one of 3000 tokens prefilled in chunks) with tracing on:
+     per id the admit, batch-gather, prefill, decode-chunk and fetch spans
+     from /debug/trace?trace_id=, in that order, the prefill's
+     prompt_tokens, B1 once a layer an admission, a fifth request shed
+     with its admit span, the whole document valid Chrome trace JSON, and
+     the 4-row step's host-inclusive ms with the tracer on and off
+     (printed); (ii) the JSONL request log: a line per inference POST with
+     JAX's keys and the status served, the body in "all" mode; (iii) when
+     grpcio and protobuf are installed (else one line says so): live,
+     ready, metadata, ModelInfer on llama3_8b ([1, 4] ids, B1 32) and on
+     BERT-base (typed and raw) equal to /infer bit for bit, the metadata
+     id's spans, /tpk.Metrics/Prometheus against /metrics, a 1 ms
+     deadline; (iv) an ensemble, a switch and a seeded splitter over
+     BERT-base bf16 and int8 through :predict, /infer and gRPC; (v) phase
+     5's step lines carry span_step_ms;
   5. training: llama_1b at full width and depth through the trainer's entry
      point (batch 12, seq 1024, 3 warm-up + 10 timed steps): finite losses,
      the first near ln(V), every step's launches (2 forward per layer under
@@ -363,7 +380,8 @@ from kubeflow_tpu_torch.train import lora as lora_mod  # noqa: E402
 from kubeflow_tpu_torch.train import optim  # noqa: E402
 from kubeflow_tpu_torch.train import step as train_step  # noqa: E402
 from kubeflow_tpu_torch.train import trainer as trainer_mod  # noqa: E402
-from kubeflow_tpu_torch.utils import registry  # noqa: E402
+from kubeflow_tpu_torch.serve.graph import GraphModel  # noqa: E402
+from kubeflow_tpu_torch.utils import obs, registry  # noqa: E402
 
 # H100 SXM published dense peaks (NVIDIA data sheet, at 700 W); fp32 is the
 # CUDA cores' rate, where the CUDA-core kernels compute.
@@ -956,6 +974,20 @@ FLAN_T5_BASE_CONFIG = dict(T5_BASE_CONFIG, d_ff=2048,
                            tie_word_embeddings=False)
 T5_GEN = {"in_buckets": [64, 512], "max_tokens": 64}
 T5_REQUEST_LENS, T5_MIN_VALID = (10, 60, 300, 500), 32
+# 4n: the rest of the server (utils/obs.py, serve/server.py's request log
+# and gRPC, serve/graph.py, serve/grpc_server.py) on phase 4's llama3_8b
+# bundle at 32 layers and 4k's BERT-base checkpoint and int8 bundle; no new
+# bundle. (i) TRACE_PROMPT_LENS at once under caller ids (the second
+# streamed, the 3000-token one prefilled in chunks) on a server admitting
+# TRACE_MAX_INFLIGHT, so a fifth request is shed; (iii) a [1, 4] id row on
+# llama3_8b over gRPC: its fp32 logits, 1 x 4 x 128256 x 4 = 2.05 MB, fit
+# gRPC's default 4 MiB message; (iv) an ensemble, a switch and a splitter
+# (GRAPH_WEIGHTS, seed GRAPH_SEED, GRAPH_SPLITS picks a transport) over
+# BERT-base bf16 and int8.
+TRACE_PROMPT_LENS, TRACE_MAX_INFLIGHT = (5, 400, 1000, 3000), 4
+GRPC_LLAMA_IDS = (1, 4)
+BERT_INT8_NAME = "bert_base_int8"
+GRAPH_SEED, GRAPH_SPLITS, GRAPH_WEIGHTS = 11, 2, [0.5, 0.5]
 # int8 against bf16: the gate holds the int8 path (the W8A16 op, its
 # rounding points) against the bf16 model of the same codes dequantized,
 # within LOGITS_REL_L2_MAX; against the original bf16 weights the int8
@@ -1581,8 +1613,10 @@ def phase_qmm() -> dict:
 # branch the kernel stands for; not a TPU kernel).
 W8A16_REPLACES = "kubeflow_tpu/serve/quant.py:260"
 # Weight bytes a cold timing rotates through: past the 50 MB L2, as a
-# model's layers find each weight.
-W8A16_COLD_BYTES = 120e6
+# model's layers find each weight. Phase 2f takes at most W8A16_MAX_COPIES
+# copies: a weight under W8A16_COLD_BYTES / W8A16_MAX_COPIES (only the Qwen
+# shared expert's 2 KB gate, N 1) is timed warm, from L2.
+W8A16_COLD_BYTES, W8A16_MAX_COPIES = 120e6, 256
 # The kernels line reports this shape (the decode gate/up projection at
 # phase 4c's four rows).
 W8A16_MAIN = (4, 4096, 14336)
@@ -1687,16 +1721,16 @@ def phase_w8a16(gk) -> dict:
                    and plan.kernel != w8.GEMV else "")
                 + f", rel_l2 {err['rel_l2']:.2e} (bound "
                 f"{gk.W8A16_TOL[dtype]}), two launches bit-identical")
-        if (not is_moe and (n * k < 4096 * 1024 or dtype != torch.bfloat16
-                            or m not in W8A16_TIMED_M)) or n == 1:
+        if not is_moe and (n * k < 4096 * 1024 or dtype != torch.bfloat16
+                           or m not in W8A16_TIMED_M):
             # correctness only
             log(f"  {what}")
             continue
         es = x.element_size()
         nbytes = m * k * es + n * k + 4 * n + m * n * es
         bound, bound_by = _bound(2 * m * n * k, nbytes)
-        copies = [q] + [q.clone() for _ in range(
-            max(0, math.ceil(W8A16_COLD_BYTES / (n * k)) - 1))]
+        copies = [q] + [q.clone() for _ in range(min(
+            W8A16_MAX_COPIES, math.ceil(W8A16_COLD_BYTES / (n * k))) - 1)]
         timer = launch_ms if m <= 16 else time_ms
         ms = timer(_rotating(lambda w: w8.int8_weight_matmul(
             x, w, scale, round_before_scale=rf), copies))
@@ -1704,8 +1738,9 @@ def phase_w8a16(gk) -> dict:
         plain_ms = time_ms(lambda: w8._int8_weight_matmul_plain(
             x, q, scale, rf), reps=3)
         wides = [q.to(dtype)]
-        wides += [wides[0].clone() for _ in range(max(0, math.ceil(
-            W8A16_COLD_BYTES / (n * k * es)) - 1))]
+        wides += [wides[0].clone() for _ in range(min(
+            W8A16_MAX_COPIES, math.ceil(W8A16_COLD_BYTES / (n * k * es)))
+            - 1)]
         library_ms = timer(_rotating(lambda w: (torch.mm(
             x, w.t(), out_dtype=torch.float32) * scale).to(dtype), wides))
         # The host's share of a decode step: enqueue time of one call of
@@ -1721,7 +1756,7 @@ def phase_w8a16(gk) -> dict:
         del wides
         log(f"  {what}; ms {ms:.4f} ({bound / ms:.1%} of bound) plain_ms "
             f"{plain_ms:.4f} library_ms (torch.mm, pre-cast weight) "
-            f"{library_ms:.4f} bound_ms {bound:.4f} ({bound_by})"
+            f"{library_ms:.4f} bound_ms {bound:.4g} ({bound_by})"
             + ("; host enqueue us a call: " + ", ".join(
                 f"{k} {v:.1f}" for k, v in enqueue.items()) if enqueue
                else ""))
@@ -6620,6 +6655,480 @@ def _dequantized_copy(qmodel, cfg):
     return deq
 
 
+# -- 4n: the rest of the server ----------------------------------------------
+
+
+def _grpc_stack() -> str | None:
+    """The installed grpcio and protobuf versions, or None when either is
+    missing (decided once, before 4n, by import spec: no gRPC call is
+    tried on a machine without them)."""
+    import importlib.util
+
+    def found(name: str) -> bool:
+        try:
+            return importlib.util.find_spec(name) is not None
+        except ModuleNotFoundError:  # no parent package ("google")
+            return False
+
+    if not (found("grpc") and found("google.protobuf")):
+        return None
+    import google.protobuf
+    import grpc
+
+    return (f"grpcio {grpc.__version__}, protobuf "
+            f"{google.protobuf.__version__}")
+
+
+def _trace_doc(base: str, tid: str | None = None) -> dict:
+    """GET /debug/trace (filtered to `tid` when given), parsed."""
+    query = "" if tid is None else "?trace_id=" + urllib.parse.quote(tid)
+    with urllib.request.urlopen(f"{base}/debug/trace{query}",
+                                timeout=60) as r:
+        return json.loads(r.read())
+
+
+def _json_bytes(body: dict) -> int:
+    return len(json.dumps(body).encode())
+
+
+def _trace_burst(base: str, server: ModelServer, bodies: list, ids: list,
+                 posts: list, shed: bool) -> dict:
+    """`bodies` at once on :generate under the X-Request-Ids `ids` (a body
+    with "stream" read frame by frame); with `shed`, one more request once
+    all of them hold an admission slot, which the gate sheds. Returns
+    (status, final response) per body, the engine's host-inclusive ms per
+    4-row step over the burst, B1's launches and the shed's status;
+    (path, status, body bytes) of every POST is appended to `posts`."""
+    url = f"{base}/v1/models/{MODEL}:generate"
+    path = urllib.parse.urlsplit(url).path
+    out: list = [(None, None)] * len(bodies)
+    before = _metadata(base)["stats"]
+    b1 = _b1_launches()
+
+    def run(i):
+        hdr = {"X-Request-Id": ids[i], "Content-Type": "application/json"}
+        try:
+            if bodies[i].get("stream"):
+                res = _stream(url, bodies[i], hdr)
+                out[i] = (res["status"], res["frames"][-1])
+            else:
+                code, _, raw = _request("POST", url, bodies[i], hdr)
+                out[i] = (code, json.loads(raw))
+        except Exception as e:  # reported by the gates
+            out[i] = (None, repr(e))
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(bodies))]
+    for th in threads:
+        th.start()
+    shed_status = None
+    if shed:
+        t0 = time.monotonic()
+        while (server.admission.inflight < len(bodies)
+               and time.monotonic() - t0 < 60):
+            time.sleep(0.002)
+        body = {"input_ids": [1, 2, 3], "max_tokens": 2}
+        shed_status = _request("POST", url, body,
+                               {"X-Request-Id": "4n-shed"})[0]
+        posts.append((path, shed_status, _json_bytes(body)))
+    for th in threads:
+        th.join(timeout=600)
+    launches = _b1_launches() - b1
+    after = _metadata(base)["stats"]
+    posts += [(path, code, _json_bytes(body))
+              for body, (code, _) in zip(bodies, out)]
+    return {"out": out, "step_ms": _step_ms(after, before), "b1": launches,
+            "shed": shed_status}
+
+
+def _trace_spans(base: str, server: ModelServer, cfg, gates: dict,
+                 posts: list) -> dict:
+    """4n (i): TRACE_PROMPT_LENS at once with tracing on, then again with
+    the tracer off (what TPK_TRACE=0 gives); the spans of each id, B1's
+    launches, the Chrome document, the shed's admit span."""
+    rng = np.random.default_rng(SEED + 71)
+    bodies = [{"input_ids": rng.integers(0, cfg.vocab_size, n).tolist(),
+               "max_tokens": MAX_TOKENS} for n in TRACE_PROMPT_LENS]
+    bodies[1]["stream"] = True
+    ids = [f"4n-{i}" for i in range(len(bodies))]
+    tracer = obs.get_tracer()
+    tracer.clear()
+    on = _trace_burst(base, server, bodies, ids, posts, shed=True)
+    need = ("serve.admit", "serve.batch_gather", "serve.prefill",
+            "serve.decode_chunk", "serve.fetch")
+    per_id = {}
+    for tid, body in zip(ids, bodies):
+        evs = _trace_doc(base, tid)["traceEvents"]
+        names = {e["name"] for e in evs}
+        per_id[tid] = {
+            "names": names, "count": len(evs),
+            "first": [min((e["ts"] for e in evs if e["name"] == n),
+                          default=math.inf) for n in need[:4]],
+            "prompt_tokens": [e["args"].get("prompt_tokens") for e in evs
+                              if e["name"] == "serve.prefill"],
+            "want_tokens": len(body["input_ids"])}
+    shed_spans = [(e["name"], e["args"].get("admitted"))
+                  for e in _trace_doc(base, "4n-shed")["traceEvents"]]
+    t0 = time.perf_counter()
+    doc = _trace_doc(base)
+    doc_ms = (time.perf_counter() - t0) * 1e3
+    events = doc.get("traceEvents") or []
+    chrome = bool(events) and all(
+        e.get("ph") == "X" and isinstance(e.get("name"), str)
+        and isinstance(e.get("ts"), (int, float)) and e.get("dur", -1) >= 0
+        and "trace_id" in e.get("args", {}) for e in events)
+    recorded = len(tracer)
+    tracer.enabled = False
+    try:
+        off = _trace_burst(base, server, bodies,
+                           [f"4n-off-{i}" for i in range(len(bodies))],
+                           posts, shed=False)
+    finally:
+        tracer.enabled = True
+    layers = cfg.num_layers
+    gates.update({
+        "i every request answered": all(
+            code == 200 and len(res["output_ids"]) == MAX_TOKENS
+            for code, res in on["out"] + off["out"]),
+        "i each id's spans: admit, gather, prefill, decode chunk, fetch":
+            all(set(need) <= p["names"] for p in per_id.values()),
+        "i admit <= gather <= prefill <= first decode chunk": all(
+            p["first"] == sorted(p["first"]) and math.isfinite(
+                p["first"][-1]) for p in per_id.values()),
+        "i prompt_tokens = the prompt's length": all(
+            p["prompt_tokens"] == [p["want_tokens"]]
+            for p in per_id.values()),
+        "i B1 launches = layers x admissions, tracing on and off":
+            on["b1"] == off["b1"] == layers * len(bodies),
+        "i the shed: 503 and one admit span, not admitted":
+            on["shed"] == 503 and shed_spans == [("serve.admit", False)],
+        "i /debug/trace is Chrome trace JSON": chrome,
+        "i tracing off records nothing": len(tracer) == recorded})
+    log(f"  (i) {len(bodies)} requests at once (prompts {TRACE_PROMPT_LENS}, "
+        f"the {TRACE_PROMPT_LENS[1]}-token one streamed, the "
+        f"{TRACE_PROMPT_LENS[-1]}-token one prefilled in chunks) under "
+        f"caller ids: spans an id " + ", ".join(
+            f"{tid} {p['count']}" for tid, p in per_id.items())
+        + f"; B1 launches {on['b1']} traced, {off['b1']} untraced "
+        f"(expected {layers} x {len(bodies)}); the fifth request "
+        f"{on['shed']} (admit span admitted={shed_spans[0][1] if shed_spans else None}); "
+        f"/debug/trace {len(events)} events, {len(json.dumps(doc))} bytes "
+        f"in {doc_ms:.1f} ms")
+    log(f"    host-inclusive ms per 4-row step (not gated; the host's wall "
+        f"moves between runs): tracing on {on['step_ms']:.2f}, tracer off "
+        f"(TPK_TRACE=0) {off['step_ms']:.2f}")
+    return {"b1": on["b1"] + off["b1"], "step_ms_on": on["step_ms"],
+            "step_ms_off": off["step_ms"], "events": len(events)}
+
+
+def _metric_families(text: str) -> set:
+    return {line.split()[2] for line in text.splitlines()
+            if line.startswith("# TYPE ")}
+
+
+def _grpc_llama(base: str, gport: int, cfg, gates: dict,
+                posts: list) -> dict:
+    """4n (iii) on the llama3_8b server: live, ready, metadata, one
+    ModelInfer of a GRPC_LLAMA_IDS id row (fp32 logits under gRPC's 4 MiB)
+    against the same request's HTTP /infer, its B1 launches and spans, and
+    /tpk.Metrics/Prometheus against /metrics."""
+    from kubeflow_tpu_torch.serve import grpc_server as gs
+
+    ids = np.random.default_rng(SEED + 72).integers(
+        0, cfg.vocab_size, GRPC_LLAMA_IDS)
+    client = gs.InferenceClient(f"127.0.0.1:{gport}")
+    try:
+        probes = (client.server_live(), client.server_ready(),
+                  client.model_ready(MODEL),
+                  client.model_metadata(MODEL).name == MODEL)
+        b1 = _b1_launches()
+        t0 = time.perf_counter()
+        (out,) = client.infer(MODEL, [ids], request_id="4n-grpc-llama")
+        grpc_ms = (time.perf_counter() - t0) * 1e3
+        launches = _b1_launches() - b1
+        prom = client.metrics(timeout=60)
+    finally:
+        client.close()
+    body = {"inputs": [{"name": "input_0", "shape": list(ids.shape),
+                        "datatype": "INT64", "data": ids.ravel().tolist()}]}
+    t0 = time.perf_counter()
+    code, _, raw = _request("POST", f"{base}/v2/models/{MODEL}/infer", body)
+    http_ms = (time.perf_counter() - t0) * 1e3
+    posts.append((f"/v2/models/{MODEL}/infer", code, _json_bytes(body)))
+    o = json.loads(raw)["outputs"][0]
+    http = np.asarray(o["data"], np.float32).reshape(o["shape"])
+    with urllib.request.urlopen(f"{base}/metrics", timeout=60) as r:
+        scrape = r.read().decode()
+    spans = [e["name"] for e in obs.get_tracer().events("4n-grpc-llama")]
+    gates.update({
+        "iii live, ready, model ready, metadata": all(probes),
+        f"iii {MODEL} ModelInfer = /infer bit for bit":
+            out.shape == (*GRPC_LLAMA_IDS, cfg.vocab_size)
+            and out.dtype == np.float32 and np.array_equal(out, http),
+        f"iii {MODEL} ModelInfer launches B1 once a layer":
+            launches == cfg.num_layers,
+        "iii the metadata id's spans": spans == [
+            "serve.admit", "serve.batch_gather", "serve.predict"],
+        "iii Prometheus RPC = /metrics families":
+            _metric_families(prom) == _metric_families(scrape)})
+    log(f"  (iii) {MODEL} over gRPC: {out.nbytes} bytes of fp32 logits "
+        f"[{', '.join(map(str, out.shape))}] in {grpc_ms:.1f} ms "
+        f"(HTTP /infer {http_ms:.1f} ms), "
+        f"{'equal to' if np.array_equal(out, http) else 'DIFFERENT from'} "
+        f"/infer; B1 launches {launches}; spans {spans}; "
+        f"{len(_metric_families(prom))} metric families by RPC")
+    return {"b1": launches, "grpc_ms": grpc_ms, "http_ms": http_ms}
+
+
+def _wait_lines(path: str, n: int, timeout: float = 30.0) -> None:
+    """Wait until the request log at `path` holds `n` lines."""
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < timeout:
+        with open(path) as f:
+            if f.read().count("\n") >= n:
+                return
+        time.sleep(0.01)
+
+
+def _request_log_gates(path: str, all_path: str, posts: list,
+                       all_body: dict, gates: dict) -> None:
+    """4n (ii): one line per inference POST with JAX's keys and the status
+    served; "all" mode carries the body."""
+    keys = ["ts", "method", "path", "model", "status", "latency_ms",
+            "request_bytes"]
+    with open(path) as f:
+        lines = [json.loads(x) for x in f.read().splitlines()]
+    with open(all_path) as f:
+        full = [json.loads(x) for x in f.read().splitlines()]
+    got = sorted((r["path"], r["status"], r["request_bytes"])
+                 for r in lines)
+    gates.update({
+        "ii one line per inference POST, the statuses served":
+            got == sorted(posts) and 503 in {s for _, s, _ in got},
+        "ii JAX's keys": all(list(r) == keys and r["method"] == "POST"
+                             and r["model"] == MODEL
+                             and r["latency_ms"] >= 0 for r in lines),
+        "ii all mode carries the body": len(full) == 1
+            and list(full[0]) == keys + ["request"]
+            and full[0]["request"] == all_body})
+    log(f"  (ii) request log: {len(lines)} lines for {len(posts)} inference "
+        f"POSTs (statuses {sorted({s for _, s, _ in got})}), none for the "
+        f"GETs; latency_ms {min(r['latency_ms'] for r in lines):.1f}-"
+        f"{max(r['latency_ms'] for r in lines):.1f}; all mode: "
+        f"{len(full)} line with the body")
+
+
+def _grpc_infer(client, name: str, x: np.ndarray, fields: dict,
+                request_id: str | None = None) -> np.ndarray:
+    """One ModelInfer of `x` (raw contents) with `fields` as string
+    parameters (a graph's routing fields); its first output."""
+    from kubeflow_tpu_torch.serve import grpc_server as gs
+    from kubeflow_tpu_torch.serve import open_inference_pb2 as pb
+
+    req = pb.ModelInferRequest(model_name=name)
+    for key, value in fields.items():
+        req.parameters[key].string_param = str(value)
+    dt, shape, raw = gs._encode(x)
+    req.inputs.add(name="input_0", datatype=dt, shape=shape)
+    req.raw_input_contents.append(raw)
+    resp = client._call("ModelInfer", req, pb.ModelInferResponse,
+                        metadata=(("x-request-id", request_id),)
+                        if request_id else None)
+    return gs.tensor_to_numpy(resp.outputs[0], resp.raw_output_contents[0])
+
+
+def _trace_bert(work: str, grpc_ok: bool, gates: dict) -> dict:
+    """4n (iii) on BERT-base and (iv): 4k's checkpoint and int8 bundle
+    behind the command line's server (--grpc-port when gRPC is installed)
+    with three graphs over them: ModelInfer (typed and raw) against /infer,
+    a 1 ms deadline; an ensemble, a switch and a seeded splitter through
+    :predict, /infer and gRPC."""
+    import random
+
+    ckpt = os.path.join(work, "hf_bert_base")
+    qdir = os.path.join(work, "bert_base_int8")
+    args = ["--model-dir", qdir, "--name", BERT_INT8_NAME, "--storage-uri",
+            f"file://{ckpt}", "--name", BERT_NAME, "--host", "127.0.0.1",
+            "--port", "0", "--device", DEVICE]
+    if grpc_ok:
+        args += ["--grpc-port", "0"]
+    t0 = time.monotonic()
+    server, port = server_mod.start(args)
+    load_s = time.monotonic() - t0
+    base = f"http://127.0.0.1:{port}"
+    members = [{"model": BERT_NAME}, {"model": BERT_INT8_NAME}]
+    specs = {
+        "bert_vote": {"root": "e", "nodes": {"e": {
+            "type": "ensemble", "members": members, "merge": "average"}}},
+        "bert_switch": {"root": "s", "nodes": {"s": {
+            "type": "switch", "field": "precision",
+            "cases": {"int8": members[1]}, "default": members[0]}}},
+        "bert_ab": {"root": "s", "nodes": {"s": {
+            "type": "splitter", "targets": members,
+            "weights": GRAPH_WEIGHTS}}}}
+    for name, spec in specs.items():
+        server.repo.register(GraphModel(name, spec, server.repo,
+                                        seed=GRAPH_SEED))
+    rows = np.random.default_rng(SEED + 73).integers(
+        1, BERT_CONFIG["vocab_size"], (2, BERT_SEQ)).astype(np.int32)
+    out: dict = {"load_s": load_s}
+    client = None
+    try:
+        def predict(name, fields=None):
+            _, _, raw = _request("POST", f"{base}/v1/models/{name}:predict",
+                                    {"instances": rows.tolist(),
+                                     **(fields or {})})
+            return np.asarray(json.loads(raw)["predictions"], np.float32)
+
+        def infer(name, x, fields=None):
+            body = {"inputs": [{"name": "input_0", "shape": list(x.shape),
+                                "datatype": "INT32",
+                                "data": x.ravel().tolist()}]}
+            if fields:
+                body["parameters"] = fields
+            _, _, raw = _request("POST", f"{base}/v2/models/{name}/infer",
+                                 body)
+            o = json.loads(raw)["outputs"][0]
+            return np.asarray(o["data"], np.float32).reshape(o["shape"])
+
+        transports = {":predict": lambda name, fields: predict(name, fields),
+                      "/infer": lambda name, fields: infer(name, rows,
+                                                           fields)}
+        if grpc_ok:
+            from kubeflow_tpu_torch.serve import grpc_server as gs
+
+            client = gs.InferenceClient(f"127.0.0.1:{server.grpc_port}")
+            transports["gRPC"] = lambda name, fields: _grpc_infer(
+                client, name, rows, fields)
+            one = rows[:1]
+            http_one = infer(BERT_NAME, one)
+            typed = client.infer(BERT_NAME, [one],
+                                 request_id="4n-grpc-bert")[0]
+            raw = client.infer(BERT_NAME, [one], raw=True)[0]
+            spans = [e["name"]
+                     for e in obs.get_tracer().events("4n-grpc-bert")]
+            import grpc
+
+            before = res_metrics.get("tpk_deadline_expired_total",
+                                     component="serve_grpc")
+            try:
+                client.infer(BERT_NAME, [one], timeout=0.001)
+                status = "OK"
+            except grpc.RpcError as e:
+                status = e.code().name
+            t0 = time.monotonic()
+            while (res_metrics.get("tpk_deadline_expired_total",
+                                   component="serve_grpc") - before < 1
+                   and time.monotonic() - t0 < 10):
+                time.sleep(0.01)
+            time.sleep(0.2)  # a second count would land by now
+            expired = res_metrics.get("tpk_deadline_expired_total",
+                                      component="serve_grpc") - before
+            gates.update({
+                "iii BERT-base ModelInfer (typed and raw) = /infer bit for "
+                "bit": typed.shape == (1, 2) and np.array_equal(
+                    typed, http_one) and np.array_equal(raw, http_one),
+                "iii the metadata id's spans on BERT-base": spans == [
+                    "serve.admit", "serve.batch_gather", "serve.predict"],
+                "iii a 1 ms deadline: DEADLINE_EXCEEDED, counted once":
+                    status == "DEADLINE_EXCEEDED" and expired == 1})
+            log(f"  (iii) BERT-base over gRPC: ModelInfer typed and raw "
+                f"{'equal' if np.array_equal(typed, http_one) and np.array_equal(raw, http_one) else 'NOT equal'} "
+                f"to /infer bit for bit; spans {spans}; a 1 ms deadline "
+                f"{status}, counted {expired:g}")
+        p_bf, p_q = predict(BERT_NAME), predict(BERT_INT8_NAME)
+        mean = np.mean([p_bf, p_q], axis=0)
+        w8_0 = _w8a16_counts()
+        ens, switch, picks = {}, {}, []
+        for label, call in transports.items():
+            ens[label] = call("bert_vote", {})
+            switch[label] = (call("bert_switch", {"precision": "int8"}),
+                             call("bert_switch", {}))
+            for _ in range(GRAPH_SPLITS):
+                got = call("bert_ab", {})
+                picks.append(BERT_NAME if np.array_equal(got, p_bf)
+                             else BERT_INT8_NAME if np.array_equal(got, p_q)
+                             else None)
+        w8 = tuple(a - b for a, b in zip(_w8a16_counts(), w8_0))
+        rng = random.Random(GRAPH_SEED)
+        replay = [rng.choices([m["model"] for m in members],
+                              weights=GRAPH_WEIGHTS)[0] for _ in picks]
+        ens_err = max(float(np.abs(e - mean).max()) for e in ens.values())
+        routed = all(np.array_equal(a, p_q) and np.array_equal(b, p_bf)
+                     for a, b in switch.values())
+        gates.update({
+            "iv bf16 and int8 answers differ": not np.array_equal(p_bf, p_q),
+            "iv ensemble average = the mean of the members' :predict":
+                ens_err <= 1e-6 * float(np.abs(mean).max()),
+            "iv switch routes to the case's model": routed,
+            "iv splitter picks = random.Random(seed)'s": picks == replay,
+            "iv the int8 member ran on the W8A16 op": w8[0] > 0})
+        log(f"  (iv) graphs over {BERT_NAME} and {BERT_INT8_NAME} through "
+            f"{', '.join(transports)}: ensemble vs the mean of the members' "
+            f":predict max abs {ens_err:.3e}; switch "
+            f"{'routed' if routed else 'MISROUTED'}; "
+            f"splitter picks {picks} (replay {'equal' if picks == replay else 'DIFFERS'}); "
+            f"W8A16 launches {w8[0]} ({w8[1]} wgmma)")
+        out.update(w8a16=w8, ens_err=ens_err)
+    finally:
+        if client is not None:
+            client.close()
+        server.stop()
+        del server
+        _free()
+    return out
+
+
+def phase_trace(work: str) -> dict:
+    """4n: the rest of the server on phase 4's llama3_8b bundle (32 layers)
+    and 4k's BERT-base checkpoint and int8 bundle: (i) spans and
+    /debug/trace, (ii) the JSONL request log, (iii) the v2 gRPC data plane
+    (when grpcio and protobuf are installed), (iv) InferenceGraphs; (v)
+    the trainer's span keys are phase 5's gate."""
+    t_phase = time.monotonic()
+    gates: dict = {}
+    stack = _grpc_stack()
+    log("  gRPC: " + (stack if stack else "grpcio or protobuf is not "
+                      "installed on this machine: (iii) and (iv)'s gRPC "
+                      "transport are not run"))
+    cfg = registry.model_config(MODEL, **MODEL_KWARGS)
+    posts: list = []
+    log_path = os.path.join(work, "requests.jsonl")
+    all_path = os.path.join(work, "requests_all.jsonl")
+    all_body = {"input_ids": [5, 9, 2], "max_tokens": 4}
+    llama_grpc = None
+    with _serving(work, max_inflight=TRACE_MAX_INFLIGHT) as (base, server):
+        server.request_logger = server_mod.RequestLogger(log_path)
+        try:
+            gport = server.start_grpc(0) if stack else None
+            spans = _trace_spans(base, server, cfg, gates, posts)
+            if stack:
+                llama_grpc = _grpc_llama(base, gport, cfg, gates, posts)
+            # A request's line is written after its response went out.
+            _wait_lines(log_path, len(posts))
+        finally:
+            server.request_logger.close()
+        server.request_logger = server_mod.RequestLogger(all_path, "all")
+        try:
+            _request("POST", f"{base}/v1/models/{MODEL}:generate", all_body)
+            _wait_lines(all_path, 1)
+        finally:
+            server.request_logger.close()
+            server.request_logger = None
+    _request_log_gates(log_path, all_path, posts, all_body, gates)
+    bert = _trace_bert(work, stack is not None, gates)
+    log(f"  4n took {time.monotonic() - t_phase:.1f}s; {smi()}")
+    for gate, ok in gates.items():
+        log(f"  gate {gate}: {'OK' if ok else 'FAIL'}")
+    if not all(gates.values()):
+        raise RuntimeError(f"4n gates failed: "
+                           f"{[g for g, ok in gates.items() if not ok]}")
+    return {"b1": {"traced_serving": spans["b1"],
+                   "grpc_serving": llama_grpc["b1"] if llama_grpc else 0},
+            "w8a16": {"graph_int8_serving": bert["w8a16"]},
+            "spans": spans, "grpc": llama_grpc, "bert": bert}
+
+
 def phase_quant_model() -> dict:
     """The int8 model's logits on a QUANT_PROMPT-token prompt against a bf16
     model loaded with the same codes dequantized (gated), and against the
@@ -6728,8 +7237,9 @@ def _profile(label: str, fn, ordered: str | None = None) -> dict | None:
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # Only device events are read, so only the device is recorded: a
+    # decode chunk's ~38k CPU op events took ~40 s to collect.
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -6980,6 +7490,15 @@ def phase_training() -> dict:
                            f"{ln_v + LOSS0_ABOVE:.2f}]")
     timed = [rec for rec, _ in tap.steps[TRAIN_WARMUP:]]
     step_s = sum(r["step_time_s"] for r in timed) / len(timed)
+    # 4n (v): under default tracing every step line carries the JAX
+    # trainer's span rollups (host dispatch of the step, the boundary
+    # fetch).
+    if obs.get_tracer().enabled and not all(
+            rec.get("span_step_ms", -1) >= 0
+            and rec.get("span_fetch_ms", -1) >= 0 for rec, _ in tap.steps):
+        raise RuntimeError("a step line lacks span_step_ms/span_fetch_ms "
+                           "under default tracing")
+    span_ms = [r.get("span_step_ms") for r in timed]
     tok_s = TRAIN_BATCH * TRAIN_SEQ / step_s
     mfu = 6 * cfg.num_params * tok_s / PEAK_BF16_FLOPS
     wait = (sum(r["data_wait_s"] for r in timed)
@@ -6995,6 +7514,10 @@ def phase_training() -> dict:
         f", N {cfg.num_params}); trainer's own last line: tok/s "
         f"{timed[-1]['tokens_per_sec']:.0f} mfu {timed[-1]['mfu']:.4f}; "
         f"peak memory {peak / 2**30:.2f} GiB; data-wait share {wait:.4%}")
+    if span_ms[0] is not None:
+        log(f"  (4n v) span_step_ms on every step line; timed steps' host "
+            f"dispatch {statistics.mean(span_ms):.2f} ms of "
+            f"{step_s * 1e3:.2f} ms a step")
     result = {"launches": launches, "ms_per_step": step_s * 1e3,
               "tok_s": tok_s, "mfu": mfu, "peak_gib": peak / 2**30,
               "data_wait_share": wait}
@@ -8241,6 +8764,11 @@ def main() -> int:
                       "vocab on the W8A16 op), T5-base and Flan-T5-base by "
                       ":generate (fp32, bf16, int8 under sync-debug)",
                       phase_gpt2_t5, bundle, gk)
+        trace = run("4n", f"the rest of the server: spans and /debug/trace "
+                    f"on {MODEL} (a stream, a chunked 3000-token prompt, a "
+                    "shed), the JSONL request log, the v2 gRPC data plane "
+                    f"on {MODEL} and BERT-base, InferenceGraphs over "
+                    "BERT-base bf16 and int8", phase_trace, bundle)
     finally:
         shutil.rmtree(bundle, ignore_errors=True)
     train = run("5", f"training {TRAIN_MODEL} through the trainer",
@@ -8282,6 +8810,7 @@ def main() -> int:
                     **gemma["fwd_launches"],
                     **fixed["b1"],
                     **moe["fwd_launches"],
+                    **trace["b1"],
                     "training": train["launches"][0],
                     "packed_training": job["launches"][0],
                     "lora_training": lora_run["launches"][0],
@@ -8400,14 +8929,16 @@ def main() -> int:
                      + sum(n for n, _ in fixed["w8a16"].values())
                      + moe["w8a16_launches"][0]
                      + sum(n for n, _ in
-                           gpt2_t5["w8a16_launches"].values())),
+                           gpt2_t5["w8a16_launches"].values())
+                     + sum(n for n, _ in trace["w8a16"].values())),
         "launches_wgmma": (quant["w8a16_wgmma_launches"]
                            + spec["w8a16_wgmma_launches"]
                            + gemma["w8a16_launches"][1]
                            + sum(n for _, n in fixed["w8a16"].values())
                            + moe["w8a16_launches"][1]
                            + sum(n for _, n in
-                                 gpt2_t5["w8a16_launches"].values())),
+                                 gpt2_t5["w8a16_launches"].values())
+                           + sum(n for _, n in trace["w8a16"].values())),
         "launches_by_path": {
             "paged_quant_serving": quant["w8a16_launches"],
             "speculative_serving": spec["w8a16_launches"],
@@ -8415,7 +8946,8 @@ def main() -> int:
             **{path: n for path, (n, _) in fixed["w8a16"].items()},
             "mixtral_int8_serving": moe["w8a16_launches"][0],
             **{path: n for path, (n, _) in
-               gpt2_t5["w8a16_launches"].items()}},
+               gpt2_t5["w8a16_launches"].items()},
+            **{path: n for path, (n, _) in trace["w8a16"].items()}},
         "max_abs_err": w8r["max_abs_err"], "rel_l2_err": w8r["rel_l2_err"],
         "ms": wmain["ms"], "plain_ms": wmain["plain_ms"],
         "bound_ms": wmain["bound_ms"], "bound_by": wmain["bound_by"],

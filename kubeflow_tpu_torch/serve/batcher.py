@@ -8,8 +8,8 @@ anchored at the head item's enqueue time. The model runs on the batcher's
 one worker thread, so coalesced calls reach the card in order on one
 stream; an oversized request runs on its caller's thread, as in JAX.
 
-Each item keeps its request's trace id; no span is recorded (the port
-has no tracer yet).
+Each rider gets a `serve.batch_gather` span (enqueue to dispatch) and a
+`serve.predict` span (the shared model call), under its own trace id.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ from typing import Callable, Sequence
 
 import numpy as np
 
-from kubeflow_tpu_torch.utils import faults
+from kubeflow_tpu_torch.utils import faults, obs
 from kubeflow_tpu_torch.utils.resilience import Deadline, DeadlineExceeded
 
 _FP_PREDICT = faults.register_point(
@@ -31,7 +31,8 @@ _FP_PREDICT = faults.register_point(
 
 
 class _Item:
-    __slots__ = ("inputs", "future", "n", "deadline", "t_enq", "trace")
+    __slots__ = ("inputs", "future", "n", "deadline", "t_enq", "t_perf",
+                 "trace")
 
     def __init__(self, inputs: Sequence[np.ndarray],
                  deadline: Deadline | None = None, trace_id: str = ""):
@@ -39,6 +40,7 @@ class _Item:
         self.n = self.inputs[0].shape[0]
         self.deadline = deadline
         self.t_enq = time.monotonic()
+        self.t_perf = time.perf_counter()  # span clock (obs epoch)
         self.trace = trace_id
         self.future: Future = Future()
 
@@ -176,6 +178,16 @@ class Batcher:
                      if i.future.set_running_or_notify_cancel()]
             if not batch:
                 continue
+            # One batch-gather span per rider (enqueue -> dispatch), each
+            # under its own request id, so a request's queue share is
+            # separable from its compute share in /debug/trace.
+            t_flush = time.perf_counter()
+            tracer = obs.get_tracer()
+            if tracer.enabled:
+                for item in batch:
+                    tracer.record("serve.batch_gather", item.t_perf,
+                                  t_flush, item.trace,
+                                  batch=len(batch), examples=item.n)
             try:
                 faults.fire(_FP_PREDICT, batch=sum(i.n for i in batch))
                 stacked = [np.concatenate(parts)
@@ -185,6 +197,14 @@ class Batcher:
                 for item in batch:
                     item.deliver(exc=e)
                 continue
+            if tracer.enabled:
+                # The shared model call, one span per rider (same
+                # interval, each request's own trace id).
+                t1 = time.perf_counter()
+                for item in batch:
+                    tracer.record("serve.predict", t_flush, t1, item.trace,
+                                  items=len(batch),
+                                  examples=sum(i.n for i in batch))
             with self._lock:
                 self.stats["batches"] += 1
                 self.stats["items"] += len(batch)

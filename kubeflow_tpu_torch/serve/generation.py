@@ -147,6 +147,7 @@ from kubeflow_tpu_torch.serve.quant import (KV_QUANT_MODES,
                                             kv_dequantize_rows,
                                             kv_quantize_rows)
 from kubeflow_tpu_torch.serve.tokenizer_util import decode_ids, resolve_ids
+from kubeflow_tpu_torch.utils import obs
 from kubeflow_tpu_torch.utils.resilience import (Deadline, DeadlineExceeded,
                                                  metrics as res_metrics)
 
@@ -988,10 +989,12 @@ class GenerationEngine:
                temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
                eos_id: int | None = None, timeout: float = 300.0,
                adapter: str | None = None,
-               deadline: Deadline | None = None, on_tokens=None) -> dict:
+               deadline: Deadline | None = None, on_tokens=None,
+               trace_id: str = "") -> dict:
         """Generate up to `max_tokens` tokens after `input_ids`; blocks.
         `adapter` names one of the engine's LoRA adapters (None: the
-        base).
+        base). `trace_id` is the request's id on its batch-gather,
+        prefill, decode-chunk and fetch spans.
 
         `on_tokens(tokens, done)` (optional) is called from the worker
         thread as tokens are emitted, the final call with done=True;
@@ -1009,7 +1012,7 @@ class GenerationEngine:
         req = {"input_ids": ids, "max_tokens": int(max_tokens),
                "temperature": float(temperature), "top_k": int(top_k),
                "top_p": float(top_p), "aid": self._resolve_adapter(adapter),
-               "eos_id": eos_id, "cb": on_tokens}
+               "eos_id": eos_id, "cb": on_tokens, "trace": trace_id}
         if self._paged:
             self._check_fits(req, f"request needs {{}} KV blocks worst-case "
                                   f"(prompt {len(ids)} + max_tokens "
@@ -1054,8 +1057,10 @@ class GenerationEngine:
         does not wait for the next chunk boundary, where the worker frees
         the slot). A ship-mode request returns its result; any other its
         output."""
+        # t_enq is the span clock's enqueue mark (the batch-gather span).
         req.update(out=[], out_logprobs=[], done=threading.Event(),
-                   error=None, deadline=deadline, t0=time.monotonic())
+                   error=None, deadline=deadline, t0=time.monotonic(),
+                   t_enq=time.perf_counter())
         self._queue.put(req)
         self._wake.set()
         wait_s = timeout if deadline is None else deadline.bound(timeout)
@@ -1083,7 +1088,7 @@ class GenerationEngine:
                      top_p: float = 1.0, eos_id: int | None = None,
                      timeout: float = 300.0, adapter: str | None = None,
                      deadline: Deadline | None = None,
-                     extra: dict | None = None) -> dict:
+                     trace_id: str = "", extra: dict | None = None) -> dict:
         """Chunk-prefill a prompt into pool blocks and return them as a
         KV shipment instead of decoding it: the committed blocks, the
         prompt, the first token and its logprob, the sampling parameters,
@@ -1108,14 +1113,14 @@ class GenerationEngine:
                "top_p": float(top_p), "aid": self._resolve_adapter(adapter),
                "adapter": adapter, "eos_id": eos_id,
                "timeout": float(timeout), "extra": dict(extra or {}),
-               "cb": None}
+               "cb": None, "trace": trace_id}
         # Prompt blocks only (a spec-able request's draft ones with them).
         self._check_fits(req, "prompt needs {} KV blocks")
         return self._run(req, timeout, deadline, "prefill")
 
     def submit_remote(self, shipment, *, timeout: float | None = None,
                       deadline: Deadline | None = None,
-                      on_tokens=None) -> dict:
+                      on_tokens=None, trace_id: str = "") -> dict:
         """Admit a shipped prefill (`prefill_ship`'s bytes) straight into
         decode; blocks like `submit`. The frame is checked against this
         engine (format, kv_quant, draft section, block size, vocabulary,
@@ -1126,7 +1131,8 @@ class GenerationEngine:
         blocks in, adopts the shipped generator state and emits the
         shipped first token. It never runs a prefill chunk. The sampling
         parameters and, when `timeout` is None, the wait come from the
-        frame."""
+        frame, and without `trace_id` the trace from the frame's meta (a
+        router stamps it there)."""
         if self.role == "prefill":
             raise RuntimeError(
                 "prefill-role engine refuses decode work; route "
@@ -1190,7 +1196,8 @@ class GenerationEngine:
                "first_lp": float(meta["first_logprob"]),
                "kv_blocks": blocks, "n_blocks": n_blocks,
                "draft_blocks": draft_blocks, "dn_blocks": dn_blocks,
-               "rng_key": key, "cb": on_tokens}
+               "rng_key": key, "cb": on_tokens,
+               "trace": trace_id or str(meta.get("trace") or "")}
         self._check_fits(req, "shipped request needs {} KV blocks "
                               "worst-case")
         return self._run(req, timeout, deadline, "generation")
@@ -1412,7 +1419,21 @@ class GenerationEngine:
         way) and is emitted at a later poll or fetch. Paged: raises
         _NeedKVBlocks when the pool is short now. A ship-mode request is
         packed and released here (`_finish_ship`) and holds no slot; a
-        remote one is admitted without a prefill (`_admit_remote_paged`)."""
+        remote one is admitted without a prefill (`_admit_remote_paged`).
+        Records the request's batch-gather span (enqueue to admission) and
+        its prefill span."""
+        tracer = obs.get_tracer()
+        if tracer.enabled:
+            # The engine's continuous batcher is this request's gather.
+            tracer.record("serve.batch_gather",
+                          req.get("t_enq") or time.perf_counter(),
+                          time.perf_counter(), req.get("trace", ""),
+                          slot=slot)
+        with obs.span("serve.prefill", trace_id=req.get("trace", ""),
+                      slot=slot, prompt_tokens=len(req["input_ids"])):
+            self._admit_inner(slot, req)
+
+    def _admit_inner(self, slot: int, req: dict) -> None:
         if req.get("mode") == "remote":
             self._admit_remote_paged(slot, req)
             return
@@ -2299,6 +2320,7 @@ class GenerationEngine:
         bucket = next((b for b in self.decode_buckets if b >= need),
                       self.decode_buckets[-1])
         t0 = time.monotonic()
+        p0 = time.perf_counter()  # span clock for the decode-chunk span
         last_dev = self._carry_in(active, last, carry, None if carry is None
                                   else carry["toks"][:, -1].clone())
         args = [last_dev] + [self._to_device(a) for a in (idx, temps, ks, ps)]
@@ -2313,7 +2335,7 @@ class GenerationEngine:
         for i in active:
             self._slots[i]["disp"] += self.chunk
         return {"kind": "van", "toks": toks, "host": host, "event": event,
-                "t0": t0, "chunk": self.chunk,
+                "t0": t0, "p0": p0, "chunk": self.chunk,
                 "parts": {i: self._slots[i] for i in active}}
 
     def _dispatch_spec_chunk(self, parts: list[int],
@@ -2347,6 +2369,7 @@ class GenerationEngine:
         bucket = next((b for b in self.decode_buckets if b >= need),
                       self.decode_buckets[-1])
         t0 = time.monotonic()
+        p0 = time.perf_counter()
         last_dev = self._carry_in(parts, last, carry, None if carry is None
                                   else carry["toks"][:, -1, -1].clone())
         args = [last_dev, self._to_device(idx), self._to_device(temps)]
@@ -2364,19 +2387,32 @@ class GenerationEngine:
         for i in parts:
             self._slots[i]["disp"] += worst
         return {"kind": "spec", "toks": toks, "host": host, "event": event,
-                "t0": t0, "worst": worst, "assumed": assumed,
+                "t0": t0, "p0": p0, "worst": worst, "assumed": assumed,
                 "doomed": False,
                 "parts": {i: self._slots[i] for i in parts}}
 
     def _fetch_wait(self, rec: dict, overlapped: bool) -> list:
         """Wait for one record's host copies (the designed host sync) and
         account the wait; returns them as numpy arrays. `overlapped`:
-        another chunk was in flight meanwhile."""
+        another chunk was in flight meanwhile. Records, per rider, one
+        decode-chunk span (dispatch to fetch) and one fetch span (the wait
+        itself): chunk-granular, from the host clock alone."""
         t0 = time.monotonic()
+        pf0 = time.perf_counter()
         if rec["event"] is not None:
             _wait(rec["event"])
         host = [h.numpy() for h in rec["host"]]
         now = time.monotonic()
+        pf1 = time.perf_counter()
+        tracer = obs.get_tracer()
+        if tracer.enabled:
+            kind = ({"spec": True} if rec["kind"] == "spec"
+                    else {"chunk": rec["chunk"]})
+            for i, st in rec["parts"].items():
+                trace = st["req"].get("trace", "")
+                tracer.record("serve.decode_chunk", rec["p0"], pf0, trace,
+                              slot=i, **kind, overlapped=overlapped)
+                tracer.record("serve.fetch", pf0, pf1, trace, slot=i)
         start = (rec["t0"] if self._busy_mark is None
                  else max(self._busy_mark, rec["t0"]))
         with self._stats_lock:
@@ -2658,8 +2694,10 @@ class GenerativeTorchModel(Model):
             timeout=float(payload.get("timeout", 300.0)),
             adapter=payload.get("adapter"),
             # In-process only: the server puts the request's Deadline
-            # under "_deadline" (and strips a wire-supplied one).
-            deadline=payload.get("_deadline"))
+            # under "_deadline" and its X-Request-Id under "_trace" (and
+            # strips wire-supplied ones).
+            deadline=payload.get("_deadline"),
+            trace_id=payload.get("_trace", ""))
 
     def generate(self, payload: dict) -> dict:
         ids = self._resolve_ids(payload)
@@ -2678,17 +2716,20 @@ class GenerativeTorchModel(Model):
             ids, extra={"stream": bool(payload.get("stream"))},
             **self._submit_kwargs(payload))
 
-    def decode_remote(self, shipment, *, deadline=None) -> dict:
+    def decode_remote(self, shipment, *, deadline=None,
+                      trace_id: str = "") -> dict:
         """The :decode route, not streamed: admit a shipment straight into
         decode and return the :generate response."""
         self._check_loaded()
-        out = self.engine.submit_remote(shipment, deadline=deadline)
+        out = self.engine.submit_remote(shipment, deadline=deadline,
+                                        trace_id=trace_id)
         if self.tokenizer is not None:
             out["text"] = self._decode_text(out["output_ids"])
         out["decode_tokens_per_sec"] = round(self.engine.throughput(), 2)
         return out
 
-    def decode_remote_stream(self, shipment, *, deadline=None):
+    def decode_remote_stream(self, shipment, *, deadline=None,
+                             trace_id: str = ""):
         """The streamed :decode route: generate_stream's events over a
         remote admission. The frame's `resume_skip` (in [0, max_tokens])
         is how many leading tokens the caller already holds from an earlier
@@ -2705,7 +2746,8 @@ class GenerativeTorchModel(Model):
                 f"resume_skip {skip} outside [0, max_tokens="
                 f"{meta.get('max_tokens')}]")
         events = self._events(lambda on_tokens: self.engine.submit_remote(
-            shipment, deadline=deadline, on_tokens=on_tokens),
+            shipment, deadline=deadline, on_tokens=on_tokens,
+            trace_id=trace_id),
             "tpk-decode-remote-stream")
         timeout = float(meta.get("timeout", 300.0))
         for ev in self._pump(events, timeout, "remote decode stream"):

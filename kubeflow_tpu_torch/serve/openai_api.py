@@ -253,6 +253,9 @@ class _Completions:
             # In-process deadline propagation, as on :generate: the engine
             # frees the decode slot at expiry.
             payload["_deadline"] = deadline
+        # The payload is rebuilt from whitelisted fields, so a wire
+        # "_trace" cannot ride in: the engine's spans carry X-Request-Id.
+        payload["_trace"] = h.trace_id
         rid = f"{'chatcmpl' if 'chat' in self.object_name else 'cmpl'}-" \
               f"{uuid.uuid4().hex[:24]}"
         t0 = time.monotonic()

@@ -27,8 +27,14 @@ doing its own batching across them.
     POST /v2/repository/models/{name}/load | /unload
     POST /v2/repository/index
     GET  /metrics                          prometheus text format
+    GET  /debug/trace[?trace_id=ID]        the span ring as Chrome trace JSON
     POST /openai/v1/completions | /openai/v1/chat/completions
     GET  /openai/v1/models
+
+and, with `--grpc-port`, the open-inference v2 gRPC service
+(serve/grpc_server.py: ServerLive, ServerReady, ModelReady, ModelMetadata,
+ModelInfer) plus `/tpk.Metrics/Prometheus`, behind the same repository,
+admission gate and readiness rule.
 
 Request keys, responses, statuses and metric names are the JAX server's.
 `"stream": true` answers `application/x-ndjson` in HTTP/1.1 chunks, one
@@ -37,16 +43,20 @@ after it a terminal `{"model_name", "error"}` frame. `X-Request-Timeout-Ms`
 is the request's deadline (504 at expiry, counted once in
 `tpk_deadline_expired_total{component="serve"}`); `X-Request-Id` is echoed
 (the caller's, sanitised, else the trace a :decode frame carries, else a
-fresh one). Bad requests get 400, unknown
+fresh one) and carried by the request's spans (utils/obs.py: admit,
+batch-gather, prefill, decode-chunk, fetch, predict), which
+`/debug/trace?trace_id=` returns. Bad requests get 400, unknown
 models 404, features this package does not port 501, and a shed 503 with
 `Retry-After` (the admission bound, a drain, or a request the paged KV pool
-can never hold).
+can never hold). `--request-log PATH` appends one JSONL line per
+inference POST (`RequestLogger`; `--request-log-mode all` adds the body).
 
 `:predict` and `/infer` go through the model's coalescing `Batcher`
 (serve/batcher.py; one a model, flushed at `--max-batch-size` examples or
 `--max-latency-ms` after its head request), `:explain` through the
 server's worker pool; a generative model answers them with full-forward
-logits.
+logits. An InferenceGraph (serve/graph.py, `wants_raw_payload`) takes the
+whole body instead and runs on the worker pool, around the batcher.
 
 Admission: at most `max_inflight` inference requests run at once. As in
 the JAX server, a request that expires while its batcher or pool work
@@ -58,6 +68,7 @@ bounds the work to within one decode chunk.
 Run: python -m kubeflow_tpu_torch.serve.server --model-dir DIR --name NAME
      [--model-dir DIR2 --name NAME2] [--storage-uri file://DIR3] --port 8080
      --max-inflight 256 --max-batch-size 32 --max-latency-ms 5 --device cuda
+     [--grpc-port 8081] [--request-log PATH [--request-log-mode all]]
 
 (--storage-uri sources are named after the --model-dir ones, in order.)
 """
@@ -75,7 +86,7 @@ import threading
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from urllib.parse import urlsplit
+from urllib.parse import parse_qs, urlsplit
 
 import numpy as np
 
@@ -487,13 +498,19 @@ class _Handler(BaseHTTPRequestHandler):
     def repo(self) -> ModelRepository:
         return self.server.app.repo
 
+    def send_response(self, code, message=None):
+        self.status_sent = code  # the request log's status
+        super().send_response(code, message)
+
     def _handle(self, method: str) -> None:
+        self.t_start = time.monotonic()
         self.trace_id = obs.sanitize_trace_id(
             self.headers.get(REQUEST_ID_HEADER))
         self._responded = False
+        self.status_sent = None
         length = int(self.headers.get("Content-Length") or 0)
         self.raw_body = self.rfile.read(length) if length else b""
-        path = urlsplit(self.path).path
+        path = self.path_only = urlsplit(self.path).path
         route, groups, allowed = None, (), False
         for r in self.app.routes:
             m = r.pattern.match(path)
@@ -507,6 +524,10 @@ class _Handler(BaseHTTPRequestHandler):
             self._route(route, groups, allowed, path)
         except (BrokenPipeError, ConnectionResetError):
             self.close_connection = True  # the client went away
+        logger = self.app.request_logger
+        if (logger is not None and route is not None and method == "POST"
+                and path.endswith(RequestLogger.SUFFIXES)):
+            logger.log(self, groups[0] if groups else None)
 
     def _route(self, route, groups, allowed, path) -> None:
         try:
@@ -568,7 +589,11 @@ class _Handler(BaseHTTPRequestHandler):
                                   (DRAINING_HEADER, "1")))
             return
         adm = self.app.admission
-        if adm is not None and not adm.try_acquire():
+        with obs.span("serve.admit", trace_id=self.trace_id,
+                      path=self.path_only) as sp:
+            admitted = adm is None or adm.try_acquire()
+            sp.set(admitted=admitted)
+        if not admitted:
             self.write_json(self.surface.shed_body(), 503, (
                 ("Retry-After", str(max(int(adm.retry_after_s), 1))),))
             return
@@ -751,12 +776,12 @@ def _v2_model(h: _Handler, name: str, sub: str | None) -> None:
 
 def _generate_body(h: _Handler) -> dict:
     """A :generate-shaped request body with the request's Deadline under
-    "_deadline"."""
+    "_deadline" and its trace id under "_trace"."""
     body = h.body_json()
     # "_deadline"/"_trace" are in-process fields only: a wire-supplied one
-    # would reach the engine as a non-Deadline.
+    # would reach the engine as a non-Deadline or a spoofed trace.
     body.pop("_deadline", None)
-    body.pop("_trace", None)
+    body["_trace"] = h.trace_id
     deadline = h.request_deadline()
     if deadline is not None:
         # The engine checks this object at admission and at every chunk
@@ -872,9 +897,10 @@ def _decode(h: _Handler, name: str) -> None:
     t0 = time.monotonic()
     if (meta.get("extra") or {}).get("stream"):
         _ndjson_stream(h, name, model.decode_remote_stream(
-            shipment, deadline=deadline), t0)
+            shipment, deadline=deadline, trace_id=h.trace_id), t0)
         return
-    out = _inference(h, dec, shipment, deadline=deadline)
+    out = _inference(h, dec, shipment, deadline=deadline,
+                     trace_id=h.trace_id)
     if out is None:
         return
     h.app.observe(name, out.get("num_output_tokens", 0),
@@ -882,13 +908,14 @@ def _decode(h: _Handler, name: str) -> None:
     h.write_json({"model_name": name, **out})
 
 
-def _instances(h: _Handler, model) -> list:
-    """The v1 body's "instances" (after the model's preprocess); 400
+def _v1_body(h: _Handler, model) -> tuple[dict, list]:
+    """The v1 body after the model's preprocess, and its "instances"; 400
     without them."""
-    instances = model.preprocess(h.body_json()).get("instances")
+    body = model.preprocess(h.body_json())
+    instances = body.get("instances")
     if instances is None:
         raise HTTPError(400, 'v1 request needs "instances"')
-    return instances
+    return body, instances
 
 
 def _spec_dtype(model):
@@ -901,8 +928,18 @@ def _predict(h: _Handler, name: str) -> None:
     input dtype, through its batcher."""
     model = h.repo.get(name)
     deadline = h.request_deadline()
-    instances = _instances(h, model)
+    body, instances = _v1_body(h, model)
     t0 = time.monotonic()
+    if getattr(model, "wants_raw_payload", False):
+        # InferenceGraphs take the whole body (routing fields included)
+        # around the batcher: per-request routing cannot survive
+        # cross-request coalescing.
+        out = h.await_bounded(h.app.executor.submit(model.predict, body),
+                              deadline)
+        preds = out.get("instances") if isinstance(out, dict) else out
+        h.app.observe(name, len(instances), time.monotonic() - t0)
+        h.write_json({"predictions": np.asarray(preds).tolist()})
+        return
     inputs = [np.asarray(instances, dtype=_spec_dtype(model))]
     outs = h.await_bounded(h.repo.batcher(name).submit(
         inputs, deadline=deadline, trace_id=h.trace_id), deadline)
@@ -924,8 +961,17 @@ def _infer(h: _Handler, name: str) -> None:
     inputs = [np.asarray(t["data"], dtype=v2_to_numpy_dtype(
         t.get("datatype", "FP32"))).reshape(t["shape"]) for t in tensors]
     t0 = time.monotonic()
-    outs = h.await_bounded(h.repo.batcher(name).submit(
-        inputs, deadline=deadline, trace_id=h.trace_id), deadline)
+    if getattr(model, "wants_raw_payload", False):
+        # Graph path: the first tensor becomes "instances", the v2
+        # request's parameters ride along as routing fields.
+        payload = dict(body.get("parameters") or {})
+        payload["instances"] = inputs[0]
+        out = h.await_bounded(h.app.executor.submit(model.predict, payload),
+                              deadline)
+        outs = [out.get("instances") if isinstance(out, dict) else out]
+    else:
+        outs = h.await_bounded(h.repo.batcher(name).submit(
+            inputs, deadline=deadline, trace_id=h.trace_id), deadline)
     outs = model.postprocess(outs)
     if not isinstance(outs, (list, tuple)):
         outs = [outs]
@@ -945,7 +991,7 @@ def _explain(h: _Handler, name: str) -> None:
     refuses."""
     model = h.repo.get(name)
     deadline = h.request_deadline()
-    instances = _instances(h, model)
+    _, instances = _v1_body(h, model)
     t0 = time.monotonic()
     try:
         arr = np.asarray(instances, dtype=_spec_dtype(model))
@@ -992,11 +1038,51 @@ def _metrics(h: _Handler) -> None:
                "text/plain; version=0.0.4")
 
 
-def _unported(what: str):
-    def route(h: _Handler, *_):
-        raise NotImplementedError(
-            f"{what} is not supported by this package yet")
-    return route
+def _debug_trace(h: _Handler) -> None:
+    """GET /debug/trace[?trace_id=ID]: the process's span ring as Chrome
+    trace-event JSON (chrome://tracing, Perfetto), filtered to one request
+    id when asked."""
+    tid = parse_qs(urlsplit(h.path).query).get("trace_id")
+    h.write_json(obs.get_tracer().chrome_trace(tid[-1] if tid else None))
+
+
+class RequestLogger:
+    """The inference request log (the KServe agent logger's role): one
+    JSONL line per inference POST, on the JAX server's path suffixes, with
+    its keys (ts, method, path, model, status as sent, latency_ms from the
+    request's start, request_bytes; the body too under mode "all"),
+    appended to a local file."""
+
+    SUFFIXES = (":predict", ":generate", ":prefill", ":decode", "/infer",
+                "/generate")
+
+    def __init__(self, path: str, mode: str = "metadata"):
+        if mode not in ("metadata", "all"):
+            raise ValueError(f"request log mode {mode!r}: metadata | all")
+        self.mode = mode
+        self._fh = open(path, "a", buffering=1)
+        self._lock = threading.Lock()
+
+    def log(self, h: _Handler, model: str | None) -> None:
+        rec = {
+            "ts": time.time(),
+            "method": h.command,
+            "path": h.path_only,
+            "model": model,
+            "status": h.status_sent,
+            "latency_ms": round((time.monotonic() - h.t_start) * 1e3, 3),
+            "request_bytes": len(h.raw_body),
+        }
+        if self.mode == "all":
+            try:
+                rec["request"] = json.loads(h.raw_body or b"{}")
+            except ValueError:  # not JSON (a :decode frame), or not UTF-8
+                rec["request"] = None
+        with self._lock:
+            self._fh.write(json.dumps(rec) + "\n")
+
+    def close(self) -> None:
+        self._fh.close()
 
 
 class _HTTPServer(ThreadingHTTPServer):
@@ -1019,8 +1105,10 @@ class ModelServer:
                  repo: ModelRepository | None = None,
                  admission: AdmissionController | None = None,
                  max_inflight: int = 256, device=None,
-                 max_batch_size: int = 32, max_latency_ms: float = 5.0):
+                 max_batch_size: int = 32, max_latency_ms: float = 5.0,
+                 request_logger: RequestLogger | None = None):
         self.host = host
+        self.request_logger = request_logger
         self.repo = repo or ModelRepository(
             device=device, max_batch_size=max_batch_size,
             max_latency_ms=max_latency_ms)
@@ -1043,6 +1131,8 @@ class ModelServer:
         self._draining = False
         self._http: _HTTPServer | None = None
         self._thread: threading.Thread | None = None
+        self._grpc = None
+        self.grpc_port: int | None = None
         self.routes = self._routes()
 
     def _routes(self) -> list[Route]:
@@ -1070,8 +1160,7 @@ class ModelServer:
             Route("POST", r"/v1/models/([^/:]+):explain", _explain,
                   gated=True),
             Route("POST", r"/v2/models/([^/]+)/infer", _infer, gated=True),
-            # The JAX server's route of a feature not ported yet.
-            Route("GET", r"/debug/trace", _unported("/debug/trace spans")),
+            Route("GET", r"/debug/trace", _debug_trace),
         ]
 
     # -- models --------------------------------------------------------------
@@ -1218,14 +1307,42 @@ class ModelServer:
         self._thread.start()
         return self._http.server_address[1]
 
+    def start_grpc(self, port: int = 0) -> int:
+        """Serve the open-inference v2 gRPC protocol (serve/grpc_server.py)
+        over this server's repository; returns the bound port. Raises
+        RuntimeError, naming the packages, when grpcio or protobuf is not
+        installed."""
+        try:
+            import google.protobuf  # noqa: F401
+            import grpc  # noqa: F401
+        except ImportError as e:
+            raise RuntimeError(f"gRPC serving needs the grpcio and protobuf "
+                               f"packages: {e}") from e
+        from kubeflow_tpu_torch.serve.grpc_server import build_grpc_server
+
+        self._grpc, self.grpc_port = build_grpc_server(self, port)
+        self._grpc.start()
+        return self.grpc_port
+
     def stop(self) -> None:
-        """Stop serving, then unload every model (joins engine threads)."""
+        """Stop serving (gRPC after a 1 s grace, then HTTP), close the
+        request log, then unload every model (joins engine threads)."""
+        grpc_drained = None
+        if self._grpc is not None:
+            grpc_drained = self._grpc.stop(grace=1.0)
+            self._grpc = None
         if self._http is not None:
             self._http.shutdown()
             self._http.server_close()
             self._thread.join(timeout=10.0)
             self._http = None
+        # The pool last, after the gRPC grace: in-flight RPCs may still
+        # submit to it.
+        if grpc_drained is not None:
+            grpc_drained.wait(1.5)
         self.executor.shutdown(wait=False, cancel_futures=True)
+        if self.request_logger is not None:
+            self.request_logger.close()
         self.repo.close()
 
 
@@ -1252,6 +1369,12 @@ def start(argv: list[str] | None = None) -> tuple[ModelServer, int]:
     p.add_argument("--max-latency-ms", type=float, default=5.0,
                    help="a batcher's window after its head request")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--request-log", default=None,
+                   help="JSONL inference request log path")
+    p.add_argument("--request-log-mode", default="metadata",
+                   choices=["metadata", "all"])
+    p.add_argument("--grpc-port", type=int, default=None,
+                   help="also serve the v2 open-inference gRPC protocol")
     args = p.parse_args(argv)
     if not args.model_dir and not args.storage_uri:
         p.error("give at least one --model-dir or --storage-uri")
@@ -1259,15 +1382,23 @@ def start(argv: list[str] | None = None) -> tuple[ModelServer, int]:
     for i, uri in enumerate(args.storage_uri):
         dirs.append(storage.download(uri, os.path.join(
             tempfile.gettempdir(), "tpk-models", str(i))))
+    logger = (RequestLogger(args.request_log, args.request_log_mode)
+              if args.request_log else None)
     server = ModelServer(host=args.host, max_inflight=args.max_inflight,
                          device=args.device,
                          max_batch_size=args.max_batch_size,
-                         max_latency_ms=args.max_latency_ms)
+                         max_latency_ms=args.max_latency_ms,
+                         request_logger=logger)
     for i, d in enumerate(dirs):
         name = args.name[i] if i < len(args.name) else None
         model = server.load(d, name=name)
         print(json.dumps({"event": "model_loaded", "name": model.name,
                           "load_time_s": model.load_time_s}), flush=True)
+    if args.grpc_port is not None:
+        # Before HTTP: a replica never serves HTTP alone as if gRPC were up.
+        bound = server.start_grpc(args.grpc_port)
+        print(json.dumps({"event": "grpc_serving", "port": bound}),
+              flush=True)
     port = server.start_background(args.port)
     print(json.dumps({"event": "serving", "port": port}), flush=True)
     return server, port

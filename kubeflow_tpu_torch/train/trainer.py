@@ -13,6 +13,9 @@ never merges them (`train.lora.merge` does, for serving). It trains every
 family the JAX trainer trains on one device: the Llama family, the
 mixture-of-experts models (the Switch load-balance loss added to the loss
 and logged as `aux_loss`) and the MLP on `mnist_like` (the classify loss).
+Its step, fetch, eval, checkpoint-save and restore spans (utils/obs.py,
+under the job name) roll up into `span_<key>_ms` on each step line, as the
+JAX trainer's do; `TPK_TRACE=0` omits them.
 
     python -m kubeflow_tpu_torch.train.trainer [--spec job.json] [--device cpu]
 
@@ -55,7 +58,7 @@ from kubeflow_tpu_torch.train.optim import (AdamW, Schedule,
                                             warmup_cosine_decay_schedule)
 from kubeflow_tpu_torch.train.step import (FSDP_WITH_LORA, init_train_state,
                                            make_eval_step, make_train_step)
-from kubeflow_tpu_torch.utils import faults, registry, resilience
+from kubeflow_tpu_torch.utils import faults, obs, registry, resilience
 from kubeflow_tpu_torch.utils.devices import resolve_device
 
 _LOG = logging.getLogger(__name__)
@@ -277,6 +280,9 @@ class Trainer:
                 keep=spec.checkpoint.get("keep", 3),
                 async_save=spec.checkpoint.get("async_save", True))
         self.logger = MetricsLogger(spec.metrics_path)
+        # Trace identity of this worker's spans: the job name under a
+        # control plane, a fixed label standalone.
+        self._trace = os.environ.get("TPK_JOB_NAME", "") or "train"
 
     def _post_event(self, reason: str, message: str = "") -> None:
         """Best-effort event into the job's control-plane event log: only
@@ -438,7 +444,9 @@ class Trainer:
         if self._ckpt is not None:
             # A torn latest step (SIGKILL mid-save) is quarantined and the
             # next-newest good one restored.
-            state, latest, quarantined = self._ckpt.restore_latest_good(state)
+            with obs.span("train.restore", trace_id=self._trace):
+                state, latest, quarantined = self._ckpt.restore_latest_good(
+                    state)
             for bad in quarantined:
                 self.logger.log(int(bad), {
                     "event": "checkpoint_quarantined", "step": int(bad)})
@@ -553,16 +561,31 @@ class Trainer:
         # Per-window data-starvation accounting (data_wait_frac ~ 0 when the
         # prefetcher keeps up; -> 1 when input is the bottleneck).
         win = {"t0": 0.0, "wait": 0.0, "h2d": 0.0}
+        # Per-window span rollup: host wall spent in step dispatch,
+        # boundary fetches, checkpoint saves and eval, summed between log
+        # boundaries into `span_<key>_ms`; the per-span timeline lives in
+        # the tracer's ring.
+        span_win: dict[str, list] = {}
+
+        def acc_span(key: str, sp) -> None:
+            if sp is obs.NOP_SPAN:
+                # Tracing off (TPK_TRACE=0): the span_* keys are omitted,
+                # since "not measured" must not read as zero host time.
+                return
+            w = span_win.setdefault(key, [0, 0.0])
+            w[0] += 1
+            w[1] += sp.dur_s
 
         def win_reset():
             win["t0"] = time.perf_counter()
             win["wait"] = prefetch.data_wait_s
             win["h2d"] = prefetch.h2d_s
+            span_win.clear()
 
         def win_metrics() -> dict:
             wall = time.perf_counter() - win["t0"]
             dw = prefetch.data_wait_s - win["wait"]
-            return {
+            out = {
                 "data_wait_s": round(dw, 6),
                 "data_wait_frac": round(dw / wall, 4) if wall > 0 else 0.0,
                 "data_h2d_s": round(prefetch.h2d_s - win["h2d"], 6),
@@ -570,6 +593,9 @@ class Trainer:
                     resilience.metrics.get("tpk_data_wait_seconds_total",
                                            component="train"), 6),
             }
+            for key, (_, total) in sorted(span_win.items()):
+                out[f"span_{key}_ms"] = round(total * 1e3, 3)
+            return out
 
         try:
             timer.start()
@@ -588,8 +614,14 @@ class Trainer:
                     os.kill(os.getpid(), fault_signal)
                 if step == prof_start:
                     profiler = _start_profiler(self.device)
-                batch = next(prefetch)
-                state, metrics = step_fn(state, batch)
+                # The step span is host dispatch wall (data wait plus the
+                # launches): it reads the host clock only, so it adds no
+                # sync to the loop.
+                with obs.span("train.step", trace_id=self._trace,
+                              step=step) as sp:
+                    batch = next(prefetch)
+                    state, metrics = step_fn(state, batch)
+                acc_span("step", sp)
                 window += 1
                 if profiler is not None and step + 1 == prof_stop:
                     self._sync()  # drain, or the trace loses its tail
@@ -598,8 +630,13 @@ class Trainer:
                 if self._ckpt is not None:
                     # Iterator state only on the steps that save.
                     if self._ckpt.should_save(step + 1):
-                        self._ckpt.maybe_save(step + 1, state,
-                                              data_state=pack_data_state())
+                        with obs.span("train.checkpoint_save",
+                                      trace_id=self._trace,
+                                      step=step + 1) as sp:
+                            self._ckpt.maybe_save(
+                                step + 1, state,
+                                data_state=pack_data_state())
+                        acc_span("ckpt", sp)
                         if ckpt_event_pending is not None:
                             self._post_event("CheckpointSaved",
                                              f"step {ckpt_event_pending}")
@@ -609,16 +646,29 @@ class Trainer:
                 if eval_step is not None and (step + 1) % spec.eval_every == 0:
                     # Close the timing window first, so eval time never
                     # enters tokens/s and MFU.
+                    sp_fetch = None
                     if window:
-                        self._sync()
+                        with obs.span("train.fetch",
+                                      trace_id=self._trace) as sp_fetch:
+                            self._sync()
                         timer.stop(n_steps=window)
                         window = 0
-                    last_eval = run_eval(step + 1)
+                    with obs.span("train.eval", trace_id=self._trace,
+                                  step=step + 1) as sp:
+                        last_eval = run_eval(step + 1)
                     timer.start()
                     win_reset()
+                    # Recorded after the reset, so the boundary's costs
+                    # show on the next window's line.
+                    if sp_fetch is not None:
+                        acc_span("fetch", sp_fetch)
+                    acc_span("eval", sp)
                 if ((step + 1) % spec.log_every == 0
                         or step + 1 == spec.steps):
-                    self._sync()  # the designed per-window boundary
+                    with obs.span("train.fetch",
+                                  trace_id=self._trace) as sp:
+                        self._sync()  # the designed per-window boundary
+                    acc_span("fetch", sp)
                     if window:
                         perf = timer.stop(n_steps=window)
                         window = 0
@@ -642,9 +692,11 @@ class Trainer:
 
             if self._ckpt is not None:
                 if self._ckpt.latest_step() != spec.steps:
-                    self._ckpt.maybe_save(spec.steps, state,
-                                          data_state=pack_data_state(),
-                                          force=True)
+                    with obs.span("train.checkpoint_save",
+                                  trace_id=self._trace, step=spec.steps):
+                        self._ckpt.maybe_save(spec.steps, state,
+                                              data_state=pack_data_state(),
+                                              force=True)
                 self._ckpt.wait()
                 # Everything is durable now: flush the deferred interior
                 # event, then the final step's.

@@ -1369,6 +1369,25 @@ def test_depth2_engine_runs_under_sync_debug_error(cuda, pool, monkeypatch):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("pool", ["flat", "paged_int8"])
+def test_depth2_engine_traced_runs_under_sync_debug_error(cuda, pool,
+                                                          monkeypatch):
+    """The same with tracing on: the batch-gather, prefill, decode-chunk
+    and fetch spans read the host clock only, so they add no host sync
+    (a fresh enabled tracer, whatever TPK_TRACE says)."""
+    from kubeflow_tpu_torch.utils import obs
+
+    prev = obs.set_tracer(obs.Tracer(capacity=4096, enabled=True))
+    try:
+        _depth2_under_sync_debug(cuda, pool, monkeypatch, moe=False)
+        names = {e["name"] for e in obs.get_tracer().events()}
+    finally:
+        obs.set_tracer(prev)
+    assert {"serve.batch_gather", "serve.prefill", "serve.decode_chunk",
+            "serve.fetch"} <= names
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", ["flat", "paged_int8"])
 def test_depth2_moe_engine_runs_under_sync_debug_error(cuda, pool,
                                                        monkeypatch):
     """The same on moe_tiny: the routed block's top-k, slot claims,

@@ -64,6 +64,8 @@ def test_server_import_loads_no_jax():
             "import kubeflow_tpu_torch.serve.storage; "
             "import kubeflow_tpu_torch.serve.kv_transfer; "
             "import kubeflow_tpu_torch.serve.batcher; "
+            "import kubeflow_tpu_torch.serve.graph; "
+            "import kubeflow_tpu_torch.utils.obs; "
             "import kubeflow_tpu_torch.serve.explain; "
             "import kubeflow_tpu_torch.models.bert; "
             "import kubeflow_tpu_torch.models.mlp; "
@@ -106,3 +108,37 @@ def test_hf_libraries_only_inside_the_tokenizer_loader(path):
             assert (rel, fn) == LAZY[root], (
                 f"{rel} imports {root} in {fn or 'module scope'}")
 
+
+
+#: The gRPC stack (grpcio, protobuf), which the card's machine may lack:
+#: imported only by the gRPC modules, which the server imports lazily.
+GRPC_MODULES = ("serve/grpc_server.py", "serve/open_inference_pb2.py")
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_grpc_stack_only_in_the_grpc_modules(path):
+    rel = os.path.relpath(path, os.path.join(REPO, "kubeflow_tpu_torch"))
+    for root, fn in _imports_with_scope(path):
+        if root in ("grpc", "google") and rel not in GRPC_MODULES:
+            # The server's start_grpc and chip_smoke.py's functions, which
+            # ask for the stack first, import it lazily.
+            assert (rel, fn) == ("serve/server.py", "start_grpc") or (
+                rel == "../chip_smoke.py" and fn is not None), (
+                f"{rel} imports {root} in {fn or 'module scope'}")
+    if rel == "serve/server.py":
+        lazy = [(r, fn) for r, fn in _imports_with_scope(path)
+                if r == "kubeflow_tpu_torch" and fn == "start_grpc"]
+        assert lazy, "start_grpc imports serve/grpc_server.py lazily"
+
+
+def test_server_import_loads_no_grpc():
+    code = ("import sys; import kubeflow_tpu_torch.serve.server; "
+            "import kubeflow_tpu_torch.serve.graph; "
+            "bad = [m for m in sys.modules if m.split('.')[0] == 'grpc' "
+            "or m.startswith('google.protobuf')]; print(bad); "
+            "sys.exit(1 if bad else 0)")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -19,7 +19,7 @@ from kubeflow_tpu_torch.data import synthetic as tsynthetic
 from kubeflow_tpu_torch.data.prefetch import THREAD_NAME, Prefetcher
 from kubeflow_tpu_torch.train import metrics as tmetrics
 from kubeflow_tpu_torch.train import trainer as ttrainer
-from kubeflow_tpu_torch.utils import registry
+from kubeflow_tpu_torch.utils import obs, registry
 
 STEP_KEYS = {"step", "loss", "grad_norm", "tokens_per_sec", "mfu",
              "step_time_s", "data_wait_s", "data_wait_frac", "data_h2d_s",
@@ -46,7 +46,11 @@ def test_trainer_main_runs_on_cpu(tmp_path, capsys, prefetch):
     steps = [x for x in lines[1:] if "event" not in x]
     assert [x["step"] for x in steps] == [2, 4]
     for line in steps:
-        assert set(line) == STEP_KEYS
+        # The span rollups of the JAX trainer's lines, under default
+        # tracing (TPK_TRACE unset).
+        spans = ({"span_step_ms", "span_fetch_ms"}
+                 if obs.get_tracer().enabled else set())
+        assert set(line) == STEP_KEYS | spans
         assert np.isfinite(line["loss"]) and line["tokens_per_sec"] > 0
     done = lines[-1]
     assert done["event"] == "done" and done["step"] == 4

@@ -40,7 +40,7 @@ from kubeflow_tpu_torch.models import llama as tl
 from kubeflow_tpu_torch.models.convert import llama_params_from_jax
 from kubeflow_tpu_torch.train import step as tstep
 from kubeflow_tpu_torch.train import trainer as ttrainer
-from kubeflow_tpu_torch.utils import faults, resilience
+from kubeflow_tpu_torch.utils import faults, obs, resilience
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -251,20 +251,40 @@ def test_jsonl_keys_are_the_jax_trainers_on_moe(tmp_path):
                if "loss" in r)
 
 
-def _jsonl_keys_against_jax(tmp_path, model):
+@pytest.mark.parametrize("model", ["llama_tiny", "moe_tiny"])
+def test_jsonl_keys_are_the_jax_trainers_with_tracing(tmp_path, model):
+    """With tracing on (the default), step lines add the JAX trainer's
+    span_step_ms, span_fetch_ms and span_eval_ms rollups, and the port's
+    ring holds the same span names under the job's trace id."""
+    port = obs.get_tracer()
+    port.clear()
+    _jsonl_keys_against_jax(tmp_path, model, traced=True)
+    steps = [r for r in _records(tmp_path / "port.jsonl") if "loss" in r
+             and "event" not in r]
+    # Step 1's window holds its step; step 2's was reset by the eval.
+    assert steps[0]["span_step_ms"] > 0 and "span_eval_ms" in steps[-1]
+    assert all(r["span_fetch_ms"] >= 0 for r in steps)
+    names = {e["name"] for e in port.events("train")}
+    assert {"train.step", "train.fetch", "train.eval"} <= names
+
+
+def _jsonl_keys_against_jax(tmp_path, model, traced=False):
     kw = dict(model=model, steps=2, batch_size=2, seq_len=8,
               dataset="learnable_lm", log_every=1, eval_every=2,
               eval_batches=1)
-    tracer = jobs.get_tracer()
-    enabled, tracer.enabled = tracer.enabled, False
+    tracers = (jobs.get_tracer(), obs.get_tracer())
+    was = [t.enabled for t in tracers]
+    for t in tracers:
+        t.enabled = traced
     try:
         jtrainer.Trainer(jtrainer.TrainJobSpec(
             metrics_path=str(tmp_path / "jax.jsonl"), **kw)).run()
+        ttrainer.Trainer(ttrainer.TrainJobSpec(
+            metrics_path=str(tmp_path / "port.jsonl"),
+            model_kwargs={"dtype": "float32"}, **kw), device="cpu").run()
     finally:
-        tracer.enabled = enabled
-    ttrainer.Trainer(ttrainer.TrainJobSpec(
-        metrics_path=str(tmp_path / "port.jsonl"),
-        model_kwargs={"dtype": "float32"}, **kw), device="cpu").run()
+        for t, w in zip(tracers, was):
+            t.enabled = w
 
     def shapes(path):
         return [(r.get("event"), sorted(r)) for r in _records(path)]
